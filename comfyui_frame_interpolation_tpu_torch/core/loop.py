@@ -1,0 +1,141 @@
+"""Batched plan executor (port of the JAX package's ``core/loop.py``,
+resident mode).
+
+The expanded :class:`~.schedule.Plan` runs level by level: every task in a
+DAG level is independent, so tasks are gathered into ``[B, H, W, C]`` batches
+and the model is called once per batch with a ``[B]`` timestep vector. Frames
+stay on the device for the whole plan; nothing goes back to the host between
+tasks.
+
+Only the resident mode is ported. A clip whose inputs, outputs and working
+batches would not fit the memory budget raises; the streaming executors and
+``run_plan_pair_cached``/``run_plan_window4`` are ``ROADMAP.md`` Queue 1,
+item 7.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from .schedule import Plan, Source, Task
+
+__all__ = ["run_plan"]
+
+
+class _Progress:
+    """Opt-in executor progress (``CFI_PROGRESS=1``): per-level counts and
+    throughput, the analog of the reference's per-pair prints
+    (``vfi_utils.py:295-298,326-336``)."""
+
+    def __init__(self, what: str, n_tasks: int):
+        self.enabled = os.environ.get("CFI_PROGRESS", "") == "1"
+        self.what = what
+        self.n_tasks = n_tasks
+        self.done = 0
+        if self.enabled:
+            self.t0 = time.perf_counter()
+            print(f"CFI-VFI: {what}: {n_tasks} interpolation tasks")
+
+    def step(self, n: int, level: int) -> None:
+        if not self.enabled:
+            return
+        self.done += n
+        dt = time.perf_counter() - self.t0
+        fps = self.done / dt if dt > 0 else float("inf")
+        print(f"CFI-VFI: level {level}: {self.done}/{self.n_tasks} frames ({fps:.2f} frames/s)")
+
+    def finish(self, n_out: int) -> None:
+        if self.enabled:
+            dt = time.perf_counter() - self.t0
+            print(f"CFI-VFI done! {self.done} frames generated ({n_out} total) in {dt:.2f}s")
+
+
+def _gather(
+    frames: torch.Tensor, produced: Dict[int, torch.Tensor], sources: Sequence[Source]
+) -> torch.Tensor:
+    """Stack a batch of frames addressed by plan sources: runs of original
+    frames with one ``index_select`` on the device-resident clip, task outputs
+    from the produced map."""
+    parts: List[torch.Tensor] = []
+    orig_idx: List[int] = []
+
+    def flush():
+        if orig_idx:
+            idx = torch.tensor(orig_idx, dtype=torch.long, device=frames.device)
+            parts.append(frames.index_select(0, idx))
+            orig_idx.clear()
+
+    for kind, idx in sources:
+        if kind == "orig":
+            orig_idx.append(idx)
+        else:
+            flush()
+            parts.append(produced[idx][None])
+    flush()
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+
+def run_plan(
+    frames: torch.Tensor,
+    plan: Plan,
+    model_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+    batch_size: int = 8,
+    out_dtype: Optional[torch.dtype] = None,
+    memory_budget_bytes: Optional[int] = None,
+) -> torch.Tensor:
+    """Execute ``plan`` over NHWC ``frames`` (on the device the model runs on)
+    with a batched model.
+
+    ``model_fn(f0, f1, t) -> mid`` takes ``[B, H, W, C]`` endpoint batches and
+    a ``[B]`` timestep vector (ignored by midpoint-mode models) and returns
+    ``[B, H, W, C]`` intermediate frames. Every call gets exactly
+    ``batch_size`` tasks: a short last chunk is padded with copies of its
+    first task, whose outputs are dropped.
+
+    The memory budget is ``memory_budget_bytes`` when given, else the free
+    device memory (``torch.cuda.mem_get_info``) for CUDA frames; CPU frames
+    with no explicit budget are not checked. Returns the assembled
+    ``[n_outputs, H, W, C]`` sequence on the frames' device.
+    """
+    n, h, w, c = frames.shape
+    budget = memory_budget_bytes
+    if budget is None and frames.is_cuda:
+        budget = torch.cuda.mem_get_info(frames.device)[0]
+    frame_bytes = h * w * c * frames.element_size()
+    resident_estimate = (n + len(plan.output) + 4 * batch_size) * frame_bytes
+    if budget is not None and resident_estimate > budget:
+        raise MemoryError(
+            f"run_plan: {n} input + {len(plan.output)} output frames of {h}x{w}x{c} "
+            f"at batch {batch_size} need about {resident_estimate / 2**30:.2f} GiB "
+            f"resident, over the {budget / 2**30:.2f} GiB budget; the streaming "
+            "executor is not ported yet (ROADMAP.md Queue 1, item 7): split the clip"
+        )
+    produced: Dict[int, torch.Tensor] = {}
+    progress = _Progress("run_plan", len(plan.tasks))
+
+    for li, level in enumerate(plan.levels):
+        for start in range(0, len(level), batch_size):
+            chunk: List[Task] = level[start : start + batch_size]
+            k = len(chunk)
+            pad = batch_size - k
+            src0 = [t.src0 for t in chunk] + [chunk[0].src0] * pad
+            src1 = [t.src1 for t in chunk] + [chunk[0].src1] * pad
+            ts = [t.t if t.t is not None else 0.5 for t in chunk]
+            ts += [ts[0]] * pad
+            f0 = _gather(frames, produced, src0)
+            f1 = _gather(frames, produced, src1)
+            tvec = torch.tensor(ts, dtype=frames.dtype, device=frames.device)
+            mids = model_fn(f0, f1, tvec)
+            for i, task in enumerate(chunk):
+                produced[task.id] = mids[i]
+            progress.step(k, li)
+
+    out = _gather(frames, produced, plan.output)
+    progress.finish(len(plan.output))
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    return out

@@ -1,0 +1,14 @@
+"""Node layer: ComfyUI-compatible node classes (reference L5), ported one
+family at a time. Each follows the reference protocol: classmethod
+``INPUT_TYPES()``, ``RETURN_TYPES = ("IMAGE",)``, ``FUNCTION = "vfi"`` and
+``CATEGORY = "ComfyUI-Frame-Interpolation/VFI"``; ``vfi`` consumes and returns
+NHWC torch tensors."""
+
+from .rife_node import RIFE_VFI
+
+NODE_CLASS_MAPPINGS = {
+    "RIFE VFI": RIFE_VFI,
+}
+NODE_DISPLAY_NAME_MAPPINGS = {
+    "RIFE VFI": "RIFE VFI (recommend rife47 and rife49)",
+}

@@ -1,0 +1,85 @@
+"""The port's layer primitives against the JAX package's ``models/common.py``
+(fp32, atol 1e-5). JAX takes NHWC arrays and parameter dicts; the port takes
+NCHW tensors and weights in torch layout, so the tests permute."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from comfyui_frame_interpolation_tpu.models import common as jc
+from comfyui_frame_interpolation_tpu_torch.models import common as pc
+
+ATOL = 1e-5
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _nchw(x_nhwc):
+    return torch.from_numpy(np.ascontiguousarray(x_nhwc)).permute(0, 3, 1, 2)
+
+
+def _close(got_nchw, ref_nhwc, atol=ATOL):
+    np.testing.assert_allclose(got_nchw.permute(0, 2, 3, 1).numpy(), np.asarray(ref_nhwc), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("stride,padding,dilation", [(1, 1, 1), (2, 1, 1), (1, 2, 2), (2, 0, 1), (1, (1, 2), (1, 2))])
+def test_conv2d(stride, padding, dilation):
+    rng = _rng(1)
+    x = rng.standard_normal((2, 17, 23, 5)).astype(np.float32)
+    w = (rng.standard_normal((6, 5, 3, 3)) * 0.2).astype(np.float32)
+    b = rng.standard_normal(6).astype(np.float32)
+    ref = jc.conv2d(jnp.asarray(x), {"weight": w, "bias": b}, stride=stride, padding=padding, dilation=dilation)
+    got = pc.conv2d(_nchw(x), torch.from_numpy(w), torch.from_numpy(b), stride, padding, dilation)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("stride,padding,k", [(2, 1, 4), (2, 0, 3), (1, 1, 3)])
+def test_conv_transpose2d(stride, padding, k):
+    rng = _rng(2)
+    x = rng.standard_normal((2, 9, 11, 6)).astype(np.float32)
+    w = (rng.standard_normal((6, 4, k, k)) * 0.2).astype(np.float32)  # IOHW
+    b = rng.standard_normal(4).astype(np.float32)
+    ref = jc.conv_transpose2d(jnp.asarray(x), {"weight": w, "bias": b}, stride=stride, padding=padding)
+    got = pc.conv_transpose2d(_nchw(x), torch.from_numpy(w), torch.from_numpy(b), stride, padding)
+    _close(got, ref)
+
+
+def test_pixel_shuffle_and_activations():
+    rng = _rng(3)
+    x = rng.standard_normal((2, 5, 7, 12)).astype(np.float32)
+    _close(pc.pixel_shuffle(_nchw(x), 2), jc.pixel_shuffle(jnp.asarray(x), 2), atol=0)
+    _close(pc.leaky_relu(_nchw(x), 0.2), jc.leaky_relu(jnp.asarray(x), 0.2))
+    _close(pc.sigmoid(_nchw(x)), jc.sigmoid(jnp.asarray(x)))
+    a = rng.random(12).astype(np.float32)
+    _close(pc.prelu(_nchw(x), torch.from_numpy(a)), jc.prelu(jnp.asarray(x), {"weight": a}))
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize(
+    "in_hw,out_hw",
+    [((32, 48), (4, 6)), ((32, 48), (16, 24)), ((8, 12), (64, 96)), ((8, 12), (16, 24)),
+     ((30, 50), (17, 23)), ((17, 23), (40, 31)), ((32, 48), (32, 12))],
+)
+def test_resize_bilinear(in_hw, out_hw, align_corners):
+    x = _rng(4).random((2, *in_hw, 3), dtype=np.float32)
+    ref = jc.resize_bilinear(jnp.asarray(x), out_hw, align_corners)
+    _close(pc.resize_bilinear(_nchw(x), out_hw, align_corners), ref)
+
+
+@pytest.mark.parametrize("scale", [0.125, 0.25, 0.5, 2.0, 4.0, 8.0])
+def test_resize_by_scale(scale):
+    x = _rng(5).random((1, 64, 128, 4), dtype=np.float32)
+    if scale > 1:
+        x = x[:, :8, :16]
+    ref = jc.resize_by_scale(jnp.asarray(x), scale)
+    _close(pc.resize_by_scale(_nchw(x), scale), ref)
+
+
+def test_cast_params():
+    sd = {"w": torch.ones(2, dtype=torch.float32), "n": torch.arange(3)}
+    out = pc.cast_params(sd, torch.bfloat16)
+    assert out["w"].dtype == torch.bfloat16 and out["n"].dtype == torch.int64

@@ -1,0 +1,98 @@
+"""The hand-written Hopper warp kernel against its plain twin, on the card.
+
+Marked ``cuda``; every test skips when ``torch.cuda.is_available()`` is
+false (decided inside the fixture, never at import). Run on a machine with
+an H100::
+
+    python -m pytest tests/test_torch_cuda_warp.py -m cuda -q
+
+Tolerances: f32 atol 2e-6 on values in [0, 1]; bf16/f16 one ulp (2**-8 /
+2**-11). The kernel uses non-contracting ``_rn`` arithmetic in the twin's
+order, so on the card it is expected to match bit for bit; the tolerances are
+the stated bound.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import warp_cases
+from comfyui_frame_interpolation_tpu_torch.models import rife
+from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
+from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
+
+pytestmark = pytest.mark.cuda
+
+ATOL = {torch.float32: 2e-6, torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
+CASES = warp_cases.warp_cases(0, 256, 512)
+CASE_MODES = [(c["name"], m) for c in CASES for m in c["modes"]]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _check(kernel_out, plain_out, dtype):
+    torch.cuda.synchronize()
+    err = (kernel_out.float() - plain_out.float()).abs().max().item()
+    assert err <= ATOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name,mode", CASE_MODES)
+def test_kernel_matches_twin(cuda, name, mode, dtype):
+    case = next(c for c in CASES if c["name"] == name)
+    img = torch.from_numpy(case["img"]).to(cuda, dtype)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    _check(warp(img, flow, mode), warp_torch(img, flow, mode), dtype)
+
+
+@pytest.mark.parametrize("flow_dtype", [torch.bfloat16, torch.float16])
+def test_low_precision_flow(cuda, flow_dtype):
+    case = CASES[1]
+    img = torch.from_numpy(case["img"]).to(cuda, torch.bfloat16)
+    flow = torch.from_numpy(case["flow"]).to(cuda, flow_dtype)
+    _check(warp(img, flow), warp_torch(img, flow), torch.bfloat16)
+
+
+def test_layouts_agree_and_launches_are_counted(cuda):
+    case = CASES[1]
+    img = torch.from_numpy(case["img"]).to(cuda, torch.bfloat16)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    before = warp_kernel.launches
+    nhwc = warp(img, flow)
+    planes = warp_kernel.warp_bilinear(img.permute(0, 3, 1, 2).contiguous(), flow.permute(0, 3, 1, 2).contiguous())
+    assert warp_kernel.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(planes.permute(0, 2, 3, 1), nhwc)
+
+
+def test_main_path_shape(cuda):
+    g = torch.Generator().manual_seed(0)
+    img = torch.rand(16, 1088, 1920, 7, generator=g).to(cuda, torch.bfloat16)
+    flow = torch.from_numpy(warp_cases.smooth_flow(16, 1088, 1920, 6.0)).to(cuda)
+    _check(warp(img, flow), warp_torch(img, flow), torch.bfloat16)
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    img = torch.rand(1, 3, 8, 8, device=cuda)
+    flow = torch.zeros(1, 2, 8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        warp_kernel.warp_bilinear(img.double(), flow)
+    with pytest.raises(ValueError):
+        warp_kernel.warp_bilinear(img, flow[:, :1])
+    with pytest.raises(NotImplementedError):
+        warp_kernel.warp_bilinear(img.requires_grad_(), flow)
+
+
+def test_rife_forward_launches_four_warps(cuda):
+    fn = rife.make_model_fn(rife.init_params(0, "4.7"), "4.7", device=cuda)
+    f = torch.rand(2, 64, 128, 3, device=cuda)
+    before = warp_kernel.launches
+    out = fn(f, f.flip(2), torch.full((2,), 0.5, device=cuda))
+    torch.cuda.synchronize()
+    assert warp_kernel.launches - before == 4
+    assert out.shape == (2, 64, 128, 3) and torch.isfinite(out).all()

@@ -1,0 +1,86 @@
+"""The port's RIFE VFI node against the JAX node, on the CPU.
+
+The ROADMAP slice-1 gate: both nodes run on ``demo_frames/anime0.png`` and
+``anime1.png`` at multiplier 2 with the same random weights, and the port's
+output is held against the JAX node's at >= 40 dB in fp32 (the measure of the
+``rife47_node_vs_torch_psnr_db_*`` rows of ``PSNR_TORCH.json``).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
+from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
+from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS
+from comfyui_frame_interpolation_tpu_torch.core import config as port_config
+from comfyui_frame_interpolation_tpu_torch.models import rife as prife
+from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
+
+DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
+
+
+def psnr(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+
+
+def _demo_pair():
+    imgs = [Image.open(os.path.join(DEMO, f"anime{i}.png")).convert("RGB") for i in (0, 1)]
+    return np.stack([np.asarray(im, np.float32) / 255.0 for im in imgs])
+
+
+def test_input_types_equal_jax_node():
+    assert PortRIFE.INPUT_TYPES() == JaxRIFE.INPUT_TYPES()
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(PortRIFE, attr) == getattr(JaxRIFE, attr)
+    assert NODE_CLASS_MAPPINGS == {"RIFE VFI": PortRIFE}
+
+
+def test_node_matches_jax_node_on_demo_frames():
+    frames = _demo_pair()  # 540x960, padded to 576x960 inside the model
+    sd = prife.init_params(0, "4.7")
+    kw = dict(multiplier=2, fast_mode=True, ensemble=False, batch_size=1)
+    (ref,) = JaxRIFE().vfi("rife47.pth", frames, params=to_jax_tree(nest_state_dict(sd)), **kw)
+    (got,) = PortRIFE().vfi("rife47.pth", frames, params=sd, device="cpu", **kw)
+    ref = np.asarray(ref)
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    assert tuple(got.shape) == ref.shape == (3, 540, 960, 3)
+    np.testing.assert_array_equal(got.numpy()[[0, 2]], frames)
+    assert psnr(got.numpy(), ref) >= 40.0
+
+
+def test_node_without_params_or_checkpoint_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CFI_TORCH_CONFIG", str(tmp_path / "config.yaml"))
+    (tmp_path / "config.yaml").write_text(f"ckpts_path: {tmp_path / 'ckpts'}\n")
+    port_config.load_config.cache_clear()
+    try:
+        with pytest.raises(FileNotFoundError, match="rife47.pth"):
+            PortRIFE().vfi("rife47.pth", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
+    finally:
+        port_config.load_config.cache_clear()
+
+
+def test_node_rejects_single_frame_and_unported_arch():
+    sd = prife.init_params(0, "4.7")
+    with pytest.raises(ValueError, match="at least 2 frames"):
+        PortRIFE().vfi("rife47.pth", np.zeros((1, 8, 8, 3), np.float32), params=sd, device="cpu")
+    with pytest.raises(NotImplementedError):
+        PortRIFE().vfi(
+            "sudo_rife4_269.662_testV1_scale1.pth", np.zeros((2, 8, 8, 3), np.float32), params=sd, device="cpu"
+        )
+
+
+def test_node_caches_its_model_fn_per_params():
+    sd = prife.init_params(0, "4.7")
+    frames = np.random.default_rng(0).random((2, 32, 64, 3), dtype=np.float32)
+    node = PortRIFE()
+    a = node.vfi("rife47.pth", frames, params=sd, device="cpu", fast_mode=True)[0]
+    b = node.vfi("rife47.pth", frames, params=sd, device="cpu", fast_mode=True)[0]
+    assert len(node._model_fns) == 1
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    node.vfi("rife47.pth", frames, params=prife.init_params(1, "4.7"), device="cpu", fast_mode=True)
+    assert len(node._model_fns) == 2
