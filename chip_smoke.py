@@ -9,10 +9,11 @@ Run from the repository root, with no arguments::
 Phases, one line each; any failed phase raises and the exit code is not 0:
 
 1. device  -- a CUDA device, its name and power limit (``nvidia-smi``);
-2. build   -- the warp kernel built from ``csrc/warp.cu`` with ``nvcc``;
-3. kernel  -- the kernel against its plain PyTorch twin on the card, on the
-   flow cases of ``tests/warp_cases.py`` (border and zeros, f32 and bf16, at
-   256x512) and at the main path's shape ``[16, 1088, 1920, 7]`` bf16.
+2. build   -- the warp and splat kernels built from ``csrc/warp.cu`` and
+   ``csrc/softsplat.cu``, one ``nvcc`` each, started together;
+3. kernel  -- the warp kernel against its plain PyTorch twin on the card, on
+   the flow cases of ``tests/warp_cases.py`` (border and zeros, f32 and bf16,
+   at 256x512) and at the RIFE path's shape ``[16, 1088, 1920, 7]`` bf16.
    Tolerances: f32 atol 2e-6 on values in [0, 1], bf16 one ulp (2**-8);
 4. node    -- the RIFE VFI node (``rife47.pth``, fast mode, no ensemble,
    random weights from seed 0) on 4 frames of 540x960, multiplier 2, batch 2,
@@ -23,12 +24,34 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    output stored in ``tests/fixtures/torch_port_rife47_golden.npz``, >= 40 dB;
 6. timing  -- RIFE 4.7 1080p 2x bf16 batch 8 (the configuration of
    ``bench.py:bench_rife``) in frames/s, and the warp kernel's ms per call at
-   ``[16, 1088, 1920, 7]`` bf16 beside the plain twin's.
+   ``[16, 1088, 1920, 7]`` bf16 beside the plain twin's;
+7. splat   -- the splat kernel against its plain twin on the card, on the
+   splat cases of ``tests/warp_cases.py`` (256x512 and the narrow frames, f32
+   and bf16) and at the M2M path's shape ``[16, 1088, 1920, 4]`` bf16.
+   Tolerances: f32 atol 1e-5 on values in [0, 1] (fp32 atomics sum in an
+   order that changes from run to run), bf16 one ulp of the output (2**-8 to
+   2**-7 of the value);
+8. m2m     -- the M2M VFI node (``M2M.pth``, random weights from seed 0) on 4
+   frames of 540x960, multipliers 2 and 3, batch 2, on the card in fp32 (TF32
+   off) and bf16, each >= 40 dB against the same node on the CPU in fp32;
+   original frames pass through bit for bit; exactly 1 splat launch per infer
+   call and 20 warp launches per reuse call;
+9. golden  -- the port's M2M on the card (fp32, TF32 off) against the JAX M2M
+   output stored in ``tests/fixtures/torch_port_m2m_golden.npz``, >= 40 dB;
+10. timing -- M2M 1080p 2x bf16 batch 2 (the configuration of
+   ``bench.py:bench_m2m``) in frames/s through ``make_model_fn``, reuse and
+   infer ms through ``make_pair_fns``, the splat kernel's ms per call at
+   ``[16, 1088, 1920, 4]`` bf16 beside the plain twin's, and a
+   ``torch.profiler`` top 10 of one M2M forward with the kernels' share of
+   device time.
 
-Then the kernel table as one JSON line, and as the last line
-``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
+Each main path (phases 4 and 8) is driven with the launch counts set to 0
+just before it and read just after. Then the kernel table as one JSON line,
+and as the last line ``{"ok": true, "device": {...}}``. Nothing of JAX is
+imported.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -41,6 +64,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_ATOL = 2e-6
 BF16_ATOL = 2.0**-8
 MAIN_SHAPE = (16, 1088, 1920, 7)  # a batch-8 1080p RIFE warp: 2B images, 3+4 channels
+SPLAT_F32_ATOL = 1e-5
+SPLAT_SHAPE = (16, 1088, 1920, 4)  # a batch-2 1080p M2M splat: 2 directions x 2 pairs x 4 branches, 3+1 channels
+M2M_HW = (540, 960)
 
 
 class SmokeFailure(RuntimeError):
@@ -73,6 +99,15 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def bf16_ulp_ok(got, ref):
+    """Every element of ``got`` within one bf16 ulp of ``ref``'s value."""
+    import torch
+
+    _, exp = torch.frexp(ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
+    return bool(((got.float() - ref.float()).abs() <= ulp).all())
+
+
 def shifted_pattern(n, h, w, seed, step=(6.0, 3.0)):
     """``n`` frames of a smooth random pattern, each shifted by ``step`` pixels
     from the last, so the flows between them are non-trivial."""
@@ -92,6 +127,41 @@ def shifted_pattern(n, h, w, seed, step=(6.0, 3.0)):
     return frames
 
 
+def profile_m2m(model_fn, f0, f1, t, card):
+    """``torch.profiler`` over one M2M forward after warm-up: the top 10 ops
+    by device time and the share of the device time that the splat and warp
+    kernels take, and the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt):
+        return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+    model_fn(f0, f1, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model_fn(f0, f1, t)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    kernels = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    device_total = sum(device_us(e) for e in kernels)
+    check(device_total > 0, "profiler saw no device time")
+    splat = sum(device_us(e) for e in kernels if "softsplat_kernel" in e.key)
+    warps = sum(device_us(e) for e in kernels if "warp_bilinear_kernel" in e.key)
+    n_kernels = sum(e.count for e in kernels)
+    ops = sorted((e for e in events if e not in kernels and device_us(e) > 0), key=device_us, reverse=True)
+    print(
+        f"profile {card}: one M2M 1080p bf16 b2 forward, {device_total / 1e3:.3f} ms of kernels in "
+        f"{wall_us / 1e3:.3f} ms wall, idle share {max(0.0, 1 - device_total / wall_us):.4f}, {n_kernels} kernels; "
+        f"splat kernel {100 * splat / device_total:.2f} %, warp kernel {100 * warps / device_total:.2f} % of device time",
+        flush=True,
+    )
+    for e in ops[:10]:
+        print(f"  profile op {e.key}: {device_us(e) / 1e3:.3f} ms ({100 * device_us(e) / device_total:.2f} %), {e.count} calls")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -102,10 +172,13 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import warp_cases
+    from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
     from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-    from comfyui_frame_interpolation_tpu_torch.models import rife
+    from comfyui_frame_interpolation_tpu_torch.models import m2m, rife
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
-    from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, warp_kernel
+    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
     from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
@@ -121,9 +194,19 @@ def main() -> int:
     print(smi, flush=True)
 
     # ---- 2. build ------------------------------------------------------------
+    def timed_build(name):
+        t0 = time.perf_counter()
+        build.load_library(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    build.load_library("warp")
-    print(f"build {card}: csrc/warp.cu built with nvcc and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # nvcc runs outside the GIL
+        build_s = dict(zip(("warp", "softsplat"), pool.map(timed_build, ("warp", "softsplat"))))
+    print(
+        f"build {card}: csrc/warp.cu {build_s['warp']:.2f} s, csrc/softsplat.cu {build_s['softsplat']:.2f} s "
+        f"(nvcc, in parallel: {time.perf_counter() - t0:.2f} s in all), both loaded",
+        flush=True,
+    )
 
     # ---- 3. kernel vs plain on the card --------------------------------------
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -166,7 +249,7 @@ def main() -> int:
     (out_f32,) = node.vfi("rife47.pth", frames, dtype="float32", device="cuda", **kw)
     (out_bf16,) = node.vfi("rife47.pth", frames, dtype="bfloat16", device="cuda", **kw)
     torch.cuda.synchronize()
-    main_path_launches = warp_kernel.launches
+    rife_warp_launches = warp_kernel.launches
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     (out_cpu,) = node.vfi("rife47.pth", frames, dtype="float32", device="cpu", **kw)
     n_out = 2 * 4 - 1
@@ -178,12 +261,12 @@ def main() -> int:
     check(p32 >= 40.0, f"node fp32 cuda vs cpu {p32:.2f} dB < 40")
     check(p16 >= 40.0, f"node bf16 cuda vs fp32 cpu {p16:.2f} dB < 40")
     check(
-        main_path_launches == 4 * 2 * calls_per_run,
-        f"warp launches {main_path_launches} != 4 x {2 * calls_per_run} forward calls",
+        rife_warp_launches == 4 * 2 * calls_per_run,
+        f"warp launches {rife_warp_launches} != 4 x {2 * calls_per_run} forward calls",
     )
     print(
         f"node: RIFE 4.7 4x540x960 x2 batch {batch} -> {n_out} frames; cuda fp32 vs cpu {p32:.2f} dB, "
-        f"cuda bf16 vs cpu fp32 {p16:.2f} dB; warp launches {main_path_launches} = 4 x {2 * calls_per_run} forward calls",
+        f"cuda bf16 vs cpu fp32 {p16:.2f} dB; warp launches {rife_warp_launches} = 4 x {2 * calls_per_run} forward calls",
         flush=True,
     )
 
@@ -221,16 +304,158 @@ def main() -> int:
         flush=True,
     )
 
-    print(json.dumps({"kernels": [{
-        "name": "warp_bilinear",
-        "route": "cuda",
-        "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
-        "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
-        "launches": main_path_launches,
-        "max_abs_err": main_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    del main_img, main_flow
+
+    # ---- 7. splat kernel vs plain on the card --------------------------------
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for case in warp_cases.splat_cases(0, 256, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            vals = torch.from_numpy(case["vals"]).to(dev, dtype)
+            flow = torch.from_numpy(case["flow"]).to(dev)
+            got, ref = softsplat_func(vals, flow), softsplat_torch(vals, flow)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            ok = err <= SPLAT_F32_ATOL if dtype == torch.float32 else bf16_ulp_ok(got, ref)
+            check(ok and got.dtype == dtype, f"splat kernel vs plain: {case['name']} {dtype}: max err {err}")
+            worst[dtype] = max(worst[dtype], err)
+            n_cases += 1
+    splat_vals = torch.rand(SPLAT_SHAPE, generator=g).to(dev, torch.bfloat16)
+    splat_flow = torch.from_numpy(warp_cases.smooth_flow(*SPLAT_SHAPE[:3], amp=8.0)).to(dev)
+    got, ref = softsplat_func(splat_vals, splat_flow), softsplat_torch(splat_vals, splat_flow)
+    torch.cuda.synchronize()
+    splat_err = (got.float() - ref.float()).abs().max().item()
+    check(bf16_ulp_ok(got, ref), f"splat kernel vs plain at {SPLAT_SHAPE}: max err {splat_err} beyond one bf16 ulp")
+    del got, ref
+    print(
+        f"splat kernel vs plain: {n_cases} cases at 256x512 and narrow frames, max err f32 {worst[torch.float32]} "
+        f"(tol {SPLAT_F32_ATOL}), bf16 {worst[torch.bfloat16]} (tol one ulp); {list(SPLAT_SHAPE)} bf16 max err "
+        f"{splat_err} (within one ulp)",
+        flush=True,
+    )
+
+    # ---- 8. M2M node end to end ----------------------------------------------
+    m2m_params = m2m.init_params(0)
+    frames = shifted_pattern(4, *M2M_HW, seed=1)
+    node = M2M_VFI()
+    batch = 2
+    expect_reuse = expect_infer = 0
+    for multiplier in (2, 3):
+        _, by_count = _pair_groups(plan_timestep(4, multiplier))
+        expect_reuse += sum(math.ceil(len(keys) / batch) for keys in by_count.values())
+        expect_infer += sum(m_ * math.ceil(len(keys) / batch) for m_, keys in by_count.items())
+    expect_reuse, expect_infer = 2 * expect_reuse, 2 * expect_infer  # fp32 and bf16
+    outs = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    warp_kernel.launches = softsplat_kernel.launches = 0
+    for multiplier in (2, 3):
+        for dtype in ("float32", "bfloat16"):
+            (outs[multiplier, dtype],) = node.vfi(
+                "M2M.pth", frames, multiplier=multiplier, batch_size=batch, dtype=dtype, params=m2m_params, device="cuda"
+            )
+    torch.cuda.synchronize()
+    m2m_warp_launches, m2m_splat_launches = warp_kernel.launches, softsplat_kernel.launches
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(
+        m2m_splat_launches == expect_infer,
+        f"splat launches {m2m_splat_launches} != 1 x {expect_infer} infer calls",
+    )
+    check(
+        m2m_warp_launches == m2m.WARPS_PER_REUSE * expect_reuse,
+        f"warp launches {m2m_warp_launches} != {m2m.WARPS_PER_REUSE} x {expect_reuse} reuse calls",
+    )
+    m2m_psnr = []
+    t0 = time.perf_counter()
+    for multiplier in (2, 3):
+        (out_cpu,) = node.vfi(
+            "M2M.pth", frames, multiplier=multiplier, batch_size=batch, dtype="float32", params=m2m_params, device="cpu"
+        )
+        n_out = 3 * multiplier + 1
+        for dtype in ("float32", "bfloat16"):
+            out = outs[multiplier, dtype]
+            check(tuple(out.shape) == (n_out, *M2M_HW, 3) and out.is_cuda, f"M2M node output {tuple(out.shape)} on {out.device}")
+            check(bool(torch.isfinite(out).all()), f"M2M node x{multiplier} {dtype} has non-finite values")
+            check(
+                torch.equal(out[::multiplier].cpu(), torch.from_numpy(frames)),
+                f"M2M x{multiplier} {dtype}: original frames not passed through",
+            )
+            p = psnr(out, out_cpu)
+            check(p >= 40.0, f"M2M node x{multiplier} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+            m2m_psnr.append(f"x{multiplier} {dtype} {p:.2f} dB")
+    cpu_s = time.perf_counter() - t0
+    print(
+        f"m2m: M2M node 4x{M2M_HW[0]}x{M2M_HW[1]} x2 and x3 batch {batch}, cuda vs cpu fp32: {', '.join(m2m_psnr)} "
+        f"(cpu leg {cpu_s:.1f} s); splat launches {m2m_splat_launches} = 1 x {expect_infer} infer calls, "
+        f"warp launches {m2m_warp_launches} = {m2m.WARPS_PER_REUSE} x {expect_reuse} reuse calls",
+        flush=True,
+    )
+    del outs, out_cpu
+
+    # ---- 9. M2M JAX golden ---------------------------------------------------
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_m2m_golden.npz")) as z:
+        seed, gt, golden = int(z["seed"]), torch.from_numpy(z["t"]), torch.from_numpy(z["output"])
+    rng = np.random.default_rng(seed)
+    g0 = torch.from_numpy(rng.random(tuple(golden.shape), dtype=np.float32))
+    g1 = torch.from_numpy(rng.random(tuple(golden.shape), dtype=np.float32))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gout = m2m.make_model_fn(m2m.init_params(seed), device=dev)(g0, g1, gt)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    pg = psnr(gout, golden)
+    check(pg >= 40.0, f"M2M golden: {pg:.2f} dB < 40")
+    print(f"golden: port M2M on cuda fp32 vs JAX M2M fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
+
+    # ---- 10. M2M timing ------------------------------------------------------
+    model_fn = m2m.make_model_fn(m2m_params, dtype=torch.bfloat16, device=dev)
+    f0 = torch.from_numpy(np.random.default_rng(0).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+    f1 = torch.from_numpy(np.random.default_rng(1).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+    t = torch.full((2,), 0.5, device=dev)
+    m2m_fps = 2 / measure(model_fn, f0, f1, t, iters=5, rounds=3)
+    reuse_fn, infer_fn = m2m.make_pair_fns(m2m_params, dtype=torch.bfloat16, device=dev)
+    cache = reuse_fn(f0, f1)
+    reuse_ms = cuda_ms(lambda: reuse_fn(f0, f1), 5)
+    infer_ms = cuda_ms(lambda: infer_fn(f0, f1, cache, t), 10)
+    del cache
+    # plain, kernel, kernel, plain: the two versions are compared in turns
+    splat_plain_a = cuda_ms(lambda: softsplat_torch(splat_vals, splat_flow), 3)
+    splat_kern_a = cuda_ms(lambda: softsplat_func(splat_vals, splat_flow), 20)
+    splat_kern_b = cuda_ms(lambda: softsplat_func(splat_vals, splat_flow), 20)
+    splat_plain_b = cuda_ms(lambda: softsplat_torch(splat_vals, splat_flow), 3)
+    splat_ms = statistics.mean((splat_kern_a, splat_kern_b))
+    splat_plain_ms = statistics.mean((splat_plain_a, splat_plain_b))
+    del splat_vals, splat_flow
+    print(
+        f"timing {card}: M2M 1080p 2x bf16 batch 2 {m2m_fps:.3f} frames/s; reuse {reuse_ms:.3f} ms, infer "
+        f"{infer_ms:.3f} ms per pair batch; splat {list(SPLAT_SHAPE)} bf16 kernel {splat_ms:.4f} ms "
+        f"({splat_kern_a:.4f}, {splat_kern_b:.4f}), plain {splat_plain_ms:.4f} ms ({splat_plain_a:.4f}, {splat_plain_b:.4f})",
+        flush=True,
+    )
+    profile_m2m(model_fn, f0, f1, t, card)
+    del f0, f1
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "warp_bilinear",
+            "route": "cuda",
+            "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
+            "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
+            "launches": rife_warp_launches + m2m_warp_launches,
+            "launches_by_path": {"rife": rife_warp_launches, "m2m": m2m_warp_launches},
+            "max_abs_err": main_err,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "softsplat",
+            "route": "cuda",
+            "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
+            "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
+            "launches": m2m_splat_launches,
+            "launches_by_path": {"m2m": m2m_splat_launches},
+            "max_abs_err": splat_err,
+            "ms": splat_ms,
+            "plain_ms": splat_plain_ms,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

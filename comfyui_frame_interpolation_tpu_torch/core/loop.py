@@ -7,23 +7,26 @@ and the model is called once per batch with a ``[B]`` timestep vector. Frames
 stay on the device for the whole plan; nothing goes back to the host between
 tasks.
 
+:func:`run_plan_pair_cached` runs a flat timestep plan with a split model:
+the timestep-independent half once per endpoint pair, the per-timestep half
+once per timestep (M2M; GMFSS, EISAI and XVFI when they are ported).
+
 Only the resident mode is ported. A clip whose inputs, outputs and working
 batches would not fit the memory budget raises; the streaming executors and
-``run_plan_pair_cached``/``run_plan_window4`` are ``ROADMAP.md`` Queue 1,
-item 7.
+``run_plan_window4`` are ``ROADMAP.md`` Queue 1, item 7.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .schedule import Plan, Source, Task
 
-__all__ = ["run_plan"]
+__all__ = ["run_plan", "run_plan_pair_cached"]
 
 
 class _Progress:
@@ -79,6 +82,28 @@ def _gather(
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
 
+def _check_resident(
+    what: str, frames: torch.Tensor, plan: Plan, batch_size: int, memory_budget_bytes: Optional[int]
+) -> None:
+    """Raise ``MemoryError`` when the clip's inputs, outputs and working
+    batches would not fit the budget: ``memory_budget_bytes`` when given, else
+    the free device memory (``torch.cuda.mem_get_info``) for CUDA frames; CPU
+    frames with no explicit budget are not checked."""
+    n, h, w, c = frames.shape
+    budget = memory_budget_bytes
+    if budget is None and frames.is_cuda:
+        budget = torch.cuda.mem_get_info(frames.device)[0]
+    frame_bytes = h * w * c * frames.element_size()
+    resident_estimate = (n + len(plan.output) + 4 * batch_size) * frame_bytes
+    if budget is not None and resident_estimate > budget:
+        raise MemoryError(
+            f"{what}: {n} input + {len(plan.output)} output frames of {h}x{w}x{c} "
+            f"at batch {batch_size} need about {resident_estimate / 2**30:.2f} GiB "
+            f"resident, over the {budget / 2**30:.2f} GiB budget; the streaming "
+            "executor is not ported yet (ROADMAP.md Queue 1, item 7): split the clip"
+        )
+
+
 def run_plan(
     frames: torch.Tensor,
     plan: Plan,
@@ -96,24 +121,11 @@ def run_plan(
     ``batch_size`` tasks: a short last chunk is padded with copies of its
     first task, whose outputs are dropped.
 
-    The memory budget is ``memory_budget_bytes`` when given, else the free
-    device memory (``torch.cuda.mem_get_info``) for CUDA frames; CPU frames
-    with no explicit budget are not checked. Returns the assembled
+    Over the memory budget (see :func:`_check_resident`) it raises
+    ``MemoryError``. Returns the assembled
     ``[n_outputs, H, W, C]`` sequence on the frames' device.
     """
-    n, h, w, c = frames.shape
-    budget = memory_budget_bytes
-    if budget is None and frames.is_cuda:
-        budget = torch.cuda.mem_get_info(frames.device)[0]
-    frame_bytes = h * w * c * frames.element_size()
-    resident_estimate = (n + len(plan.output) + 4 * batch_size) * frame_bytes
-    if budget is not None and resident_estimate > budget:
-        raise MemoryError(
-            f"run_plan: {n} input + {len(plan.output)} output frames of {h}x{w}x{c} "
-            f"at batch {batch_size} need about {resident_estimate / 2**30:.2f} GiB "
-            f"resident, over the {budget / 2**30:.2f} GiB budget; the streaming "
-            "executor is not ported yet (ROADMAP.md Queue 1, item 7): split the clip"
-        )
+    _check_resident("run_plan", frames, plan, batch_size, memory_budget_bytes)
     produced: Dict[int, torch.Tensor] = {}
     progress = _Progress("run_plan", len(plan.tasks))
 
@@ -133,6 +145,74 @@ def run_plan(
             for i, task in enumerate(chunk):
                 produced[task.id] = mids[i]
             progress.step(k, li)
+
+    out = _gather(frames, produced, plan.output)
+    progress.finish(len(plan.output))
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    return out
+
+
+def _pair_groups(plan: Plan) -> Tuple[Dict[tuple, List[Task]], Dict[int, List[tuple]]]:
+    """Group a flat plan's tasks by endpoint pair (first-appearance order),
+    and the pairs by their timestep count, so that every call of a bucket
+    has the same shapes."""
+    groups: Dict[tuple, List[Task]] = {}
+    for task in plan.tasks:
+        groups.setdefault((task.src0, task.src1), []).append(task)
+    by_count: Dict[int, List[tuple]] = {}
+    for key, tasks in groups.items():
+        by_count.setdefault(len(tasks), []).append(key)
+    return groups, by_count
+
+
+def run_plan_pair_cached(
+    frames: torch.Tensor,
+    plan: Plan,
+    reuse_fn: Callable[[torch.Tensor, torch.Tensor], Any],
+    infer_fn: Callable[[torch.Tensor, torch.Tensor, Any, torch.Tensor], torch.Tensor],
+    batch_size: int = 8,
+    out_dtype: Optional[torch.dtype] = None,
+    memory_budget_bytes: Optional[int] = None,
+) -> torch.Tensor:
+    """Execute a single-level (timestep-mode) plan with per-pair caching.
+
+    ``reuse_fn(f0, f1) -> cache`` computes the timestep-independent state of
+    a batch of pairs once; ``infer_fn(f0, f1, cache, t) -> mid`` produces
+    each intermediate. A multiplier-m schedule thus runs the expensive pair
+    analysis once instead of m-1 times (the reference recomputes it per
+    timestep). Tasks are grouped by endpoint pair and the pairs bucketed by
+    their timestep count; buckets run in ascending count, each in chunks of
+    ``batch_size`` pairs, a short chunk padded with copies of its first pair
+    (whose outputs are dropped). The same grouping, padding and call order
+    as the JAX executor.
+
+    Over the memory budget (see :func:`_check_resident`) it raises
+    ``MemoryError``."""
+    if any(t.depth != 0 for t in plan.tasks):
+        raise ValueError("run_plan_pair_cached runs flat (single-level) plans only")
+    _check_resident("run_plan_pair_cached", frames, plan, batch_size, memory_budget_bytes)
+    produced: Dict[int, torch.Tensor] = {}
+    groups, by_count = _pair_groups(plan)
+
+    progress = _Progress("run_plan[pair-cached]", len(plan.tasks))
+    for m, keys in sorted(by_count.items()):
+        for start in range(0, len(keys), batch_size):
+            chunk = keys[start : start + batch_size]
+            k = len(chunk)
+            pad = batch_size - k
+            padded = chunk + [chunk[0]] * pad
+            f0 = _gather(frames, produced, [key[0] for key in padded])
+            f1 = _gather(frames, produced, [key[1] for key in padded])
+            cache = reuse_fn(f0, f1)
+            for j in range(m):
+                ts = [groups[key][j].t for key in chunk]
+                ts = [0.5 if t is None else t for t in ts]
+                tvec = torch.tensor(ts + [ts[0]] * pad, dtype=frames.dtype, device=frames.device)
+                mids = infer_fn(f0, f1, cache, tvec)
+                for i, key in enumerate(chunk):
+                    produced[groups[key][j].id] = mids[i]
+                progress.step(k, 0)
 
     out = _gather(frames, produced, plan.output)
     progress.finish(len(plan.output))

@@ -1,5 +1,5 @@
 """Layer primitives for the ported models: the subset of the JAX package's
-``models/common.py`` that RIFE uses, as plain functions on NCHW tensors.
+``models/common.py`` that RIFE and M2M use, as plain functions on NCHW tensors.
 
 The JAX versions take NHWC arrays and parameter dicts in torch layout; here
 the tensors are torch's own NCHW (held in ``channels_last`` memory by the
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "avg_pool2d",
     "cast_params",
     "conv2d",
     "conv_transpose2d",
@@ -103,3 +104,9 @@ def resize_by_scale(x: torch.Tensor, scale: float, align_corners: bool = False) 
     return resize_bilinear(
         x, (int(math.floor(h * scale)), int(math.floor(w * scale))), align_corners
     )
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None) -> torch.Tensor:
+    """torch ``F.avg_pool2d`` without padding: VALID windows, each sum divided
+    by ``kernel**2``."""
+    return F.avg_pool2d(x, kernel, stride or kernel)

@@ -9,16 +9,16 @@ torch tensors on the node's device.
 
 from __future__ import annotations
 
-import os
 import typing
 
 import torch
 
-from ..core.config import get_ckpt_container_path, load_config
+from ..core.config import load_config
 from ..core.frames import assert_batch_size, postprocess_frames, preprocess_frames
 from ..core.loop import run_plan
 from ..core.schedule import InterpolationStateList, plan_timestep
 from ..models import rife
+from ..utils.ckpt import load_local_checkpoint
 
 MODEL_TYPE = "rife"
 
@@ -28,17 +28,6 @@ DTYPE_MAP = {
     "float16": torch.float16,
     "bfloat16": torch.bfloat16,
 }
-
-
-def _local_params(ckpt_name: str) -> typing.Dict[str, torch.Tensor]:
-    """The checkpoint from ``ckpts_path/rife/``; nothing is downloaded."""
-    path = os.path.join(get_ckpt_container_path(MODEL_TYPE), ckpt_name)
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"RIFE checkpoint {path} not found: place {ckpt_name} there or pass "
-            "params= (a state dict, e.g. models.rife.init_params(seed, arch))"
-        )
-    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 class RIFE_VFI:
@@ -97,7 +86,7 @@ class RIFE_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 2, "RIFE")
         if params is None:
-            params = _local_params(ckpt_name)
+            params = load_local_checkpoint(MODEL_TYPE, ckpt_name)
 
         key = (id(params), ckpt_name, dtype, fast_mode, ensemble, scale_factor, str(device))
         cached = self._model_fns.get(key)

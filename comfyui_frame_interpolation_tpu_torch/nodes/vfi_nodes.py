@@ -1,0 +1,106 @@
+"""VFI nodes of the generic-loop model families, port of the JAX package's
+``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
+
+Ported so far: M2M. Same public schema as the JAX nodes (the tooltips speak of
+the card); frames and results are NHWC torch tensors on the node's device.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+
+from ..core.config import load_config
+from ..core.frames import assert_batch_size, postprocess_frames, preprocess_frames
+from ..core.loop import run_plan_pair_cached
+from ..core.schedule import InterpolationStateList, plan_timestep
+from ..models import m2m as m2m_model
+from ..utils.ckpt import load_local_checkpoint
+from .rife_node import DTYPE_MAP, DTYPE_OPTIONS
+
+_OPTIONAL = {"optional": {"optional_interpolation_states": ("INTERPOLATION_STATES",)}}
+
+_BATCH_TOOLTIP = (
+    "Frames interpolated per model call. The executor stacks tasks into one "
+    "batch; raising this keeps the GPU busier until device memory runs out "
+    "(rule of thumb: 4-8 for light flow models at 1080p, 1-2 for heavy "
+    "synthesis models)."
+)
+_DTYPE_TOOLTIP = (
+    "bfloat16 halves the memory of activations and runs the convolutions on "
+    "the GPU's bf16 tensor cores (>=40 dB vs float32); float32 is the "
+    "reference precision."
+)
+
+
+def _batch_dtype_inputs(batch_default):
+    return {
+        "batch_size": (
+            "INT",
+            {"default": batch_default, "min": 1, "max": 64, "tooltip": _BATCH_TOOLTIP},
+        ),
+        "dtype": (DTYPE_OPTIONS, {"default": "float32", "tooltip": _DTYPE_TOOLTIP}),
+    }
+
+
+def _base_inputs(ckpts, multiplier_min=2, multiplier_max=1000, batch_default=4, **extra):
+    req = {
+        "ckpt_name": (ckpts,),
+        "frames": ("IMAGE",),
+        "clear_cache_after_n_frames": ("INT", {"default": 10, "min": 1, "max": 1000}),
+        "multiplier": ("INT", {"default": 2, "min": multiplier_min, "max": multiplier_max}),
+    }
+    req.update(extra)
+    req.update(_batch_dtype_inputs(batch_default))
+    return {"required": req, **_OPTIONAL}
+
+
+class M2M_VFI:
+    """reference ``m2m/__init__.py:14-60``; generic timestep schedule, run by
+    the pair-cached executor: the flow pyramid, MotionRefineNet and metrics
+    once per pair, the splat once per timestep (the reference recomputes all
+    of it per timestep)."""
+
+    MODEL_TYPE = "m2m"
+
+    def __init__(self):
+        # (params, key) -> (reuse_fn, infer_fn); the params object itself is
+        # kept and compared, so a freed params dict can never alias a new one
+        self._pair_fns: typing.Dict[tuple, typing.Tuple[dict, tuple]] = {}
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(m2m_model.CKPT_NAMES, batch_default=2)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "M2M")
+        if params is None:
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        key = (id(params), ckpt_name, dtype, str(device))
+        cached = self._pair_fns.get(key)
+        if cached is None or cached[0] is not params:
+            cached = (params, m2m_model.make_pair_fns(params, dtype=DTYPE_MAP[dtype], device=device))
+            self._pair_fns[key] = cached
+        reuse_fn, infer_fn = cached[1]
+        plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)

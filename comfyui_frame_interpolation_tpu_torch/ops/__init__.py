@@ -1,8 +1,14 @@
-"""Op surface of the port. ``warp`` dispatches on the tensor's device: the
-hand-written Hopper kernel (``ops/cuda``) for CUDA tensors, the plain PyTorch
-twin for CPU tensors. The JAX package's other ops (softsplat, sepconv, adacof,
-costvol, correlation, edt) are not ported yet (``ROADMAP.md``)."""
+"""Op surface of the port. ``warp`` and ``softsplat_func`` dispatch on the
+tensor's device: the hand-written Hopper kernel (``ops/cuda``) for CUDA
+tensors, the plain PyTorch twin for CPU tensors. ``costvol_func`` is plain
+PyTorch. The JAX package's other ops (the softsplat mode wrappers, sepconv,
+adacof, correlation, edt) are not ported yet (``ROADMAP.md``)."""
 
+from .costvol import costvol_func
+from .softsplat import softsplat_func, softsplat_torch
 from .warp import bilinear_sample, grid_sample, warp, warp_torch
 
-__all__ = ["warp", "warp_torch", "bilinear_sample", "grid_sample"]
+__all__ = [
+    "warp", "warp_torch", "bilinear_sample", "grid_sample",
+    "softsplat_func", "softsplat_torch", "costvol_func",
+]

@@ -1,4 +1,5 @@
-"""Build the hand-written CUDA kernels at first use.
+"""Build the hand-written CUDA kernels at first use, and check what their
+wrappers hand them.
 
 Each kernel source under ``csrc/`` has a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into a shared library that :mod:`ctypes` loads (no
@@ -22,7 +23,13 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["NVCC_FLAGS", "load_library"]
+import torch
+
+__all__ = ["DTYPE_CODES", "NVCC_FLAGS", "check_planes_and_flow", "load_library"]
+
+# the kernels' dtype codes (csrc/*.cu: enum DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_GRID_LIMIT = 65535  # the kernels' grids put rows on y and images on z
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -75,3 +82,24 @@ def load_library(name: str) -> ctypes.CDLL:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return ctypes.CDLL(lib_path)
+
+
+def check_planes_and_flow(what: str, x: torch.Tensor, flow: torch.Tensor) -> None:
+    """Raise unless ``x`` ``[N, C, H, W]`` and ``flow`` ``[N, 2, H, W]`` are
+    CUDA tensors on one device, of the kernels' dtypes, within their grid
+    limits, and need no gradient (the kernels have no backward yet)."""
+    if not (x.is_cuda and flow.is_cuda):
+        raise ValueError(f"{what} runs on CUDA tensors, got {x.device} and {flow.device}")
+    if x.device != flow.device:
+        raise ValueError(f"{what}: input on {x.device} but flow on {flow.device}")
+    if x.dtype not in DTYPE_CODES or flow.dtype not in DTYPE_CODES:
+        raise TypeError(f"{what} takes float32/bfloat16/float16, got {x.dtype} and {flow.dtype}")
+    if x.dim() != 4 or flow.dim() != 4:
+        raise ValueError(f"{what}: expected 4-D input and flow, got {tuple(x.shape)} and {tuple(flow.shape)}")
+    n, _, h, w = x.shape
+    if tuple(flow.shape) != (n, 2, h, w):
+        raise ValueError(f"{what}: flow must be {(n, 2, h, w)}, got {tuple(flow.shape)}")
+    if n > _GRID_LIMIT or h > _GRID_LIMIT:
+        raise ValueError(f"{what}: batch {n} and height {h} must each be <= {_GRID_LIMIT}")
+    if x.requires_grad or flow.requires_grad:
+        raise NotImplementedError(f"{what} has no backward yet")

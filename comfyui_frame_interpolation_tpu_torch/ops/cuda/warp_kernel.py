@@ -17,14 +17,11 @@ import functools
 
 import torch
 
-from .build import load_library
+from .build import DTYPE_CODES, check_planes_and_flow, load_library
 
 __all__ = ["launches", "warp_bilinear"]
 
 launches = 0
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_GRID_LIMIT = 65535  # the kernel's grid puts rows on y and images on z
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,25 +44,8 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) ->
     views); the output has the strides ``torch.empty_like`` gives ``img``. The
     kernel launches on the current stream and nothing synchronises."""
     global launches
-    if not (img.is_cuda and flow.is_cuda):
-        raise ValueError(
-            f"warp_bilinear runs on CUDA tensors, got {img.device} and {flow.device}"
-        )
-    if img.device != flow.device:
-        raise ValueError(f"img on {img.device} but flow on {flow.device}")
-    if img.dtype not in _DTYPE_CODES or flow.dtype not in _DTYPE_CODES:
-        raise TypeError(
-            f"warp_bilinear takes float32/bfloat16/float16, got {img.dtype} and {flow.dtype}"
-        )
-    if img.dim() != 4 or flow.dim() != 4:
-        raise ValueError(f"expected 4-D img and flow, got {tuple(img.shape)} and {tuple(flow.shape)}")
+    check_planes_and_flow("warp_bilinear", img, flow)
     n, c, h, w = img.shape
-    if tuple(flow.shape) != (n, 2, h, w):
-        raise ValueError(f"flow must be {(n, 2, h, w)}, got {tuple(flow.shape)}")
-    if n > _GRID_LIMIT or h > _GRID_LIMIT:
-        raise ValueError(f"batch {n} and height {h} must each be <= {_GRID_LIMIT}")
-    if img.requires_grad or flow.requires_grad:
-        raise NotImplementedError("the warp kernel has no backward yet")
     out = torch.empty_like(img)
     if out.numel() == 0:
         return out
@@ -73,7 +53,7 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) ->
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = _kernel()(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[img.dtype], _DTYPE_CODES[flow.dtype], int(bool(zeros)),
+            DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
             n, c, h, w, *img.stride(), *flow.stride(), *out.stride(),
             stream,
         )

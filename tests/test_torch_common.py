@@ -83,3 +83,10 @@ def test_cast_params():
     sd = {"w": torch.ones(2, dtype=torch.float32), "n": torch.arange(3)}
     out = pc.cast_params(sd, torch.bfloat16)
     assert out["w"].dtype == torch.bfloat16 and out["n"].dtype == torch.int64
+
+
+@pytest.mark.parametrize("hw,k,stride", [((16, 24), 2, 2), ((17, 23), 2, 2), ((15, 20), 3, 2), ((12, 12), 3, None)])
+def test_avg_pool2d(hw, k, stride):
+    x = _rng(6).standard_normal((2, *hw, 5)).astype(np.float32)
+    ref = jc.avg_pool2d(jnp.asarray(x), k, stride)
+    _close(pc.avg_pool2d(_nchw(x), k, stride), ref)

@@ -1,4 +1,5 @@
-"""The port's resident plan executor against the JAX package's ``run_plan``."""
+"""The port's resident plan executors against the JAX package's ``run_plan``
+and ``run_plan_pair_cached``."""
 
 import numpy as np
 import pytest
@@ -57,3 +58,57 @@ def test_run_plan_over_budget_raises():
         ploop.run_plan(frames, plan, _port_model, batch_size=2, memory_budget_bytes=10 * frame_bytes)
     out = ploop.run_plan(frames, plan, _port_model, batch_size=2, memory_budget_bytes=16 * frame_bytes)
     assert out.shape == (5, 8, 8, 3)
+
+
+def _pair_fns():
+    """A split model (reuse independent of t) for either package, counting
+    its calls: ``(reuse_fn, infer_fn, calls)``."""
+    calls = {"reuse": [], "infer": []}
+
+    def reuse_fn(f0, f1):
+        calls["reuse"].append(f0.shape[0])
+        return {"a": f0 * 0.25, "b": f1 * 0.5}
+
+    def infer_fn(f0, f1, cache, t):
+        calls["infer"].append(np.asarray(t).tolist())
+        return cache["a"] + cache["b"] + t[:, None, None, None]
+
+    return reuse_fn, infer_fn, calls
+
+
+@pytest.mark.parametrize(
+    "mult,skip",
+    [(2, None), (4, [1]), ([2, 3, 4], None), (3, None)],
+)
+def test_run_plan_pair_cached_matches_jax(mult, skip):
+    """The plans of ``tests/test_schedule.py:237-262``, list mode included:
+    the same outputs, reuse calls, padding and timestep order."""
+    frames = np.arange(4 * 2 * 3 * 1, dtype=np.float32).reshape(4, 2, 3, 1)
+    jplan = jsched.plan_timestep(4, mult, None if skip is None else jsched.InterpolationStateList(skip, True))
+    pplan = psched.plan_timestep(4, mult, None if skip is None else psched.InterpolationStateList(skip, True))
+    jr, ji, jcalls = _pair_fns()
+    pr, pi, pcalls = _pair_fns()
+    ref = jloop.run_plan_pair_cached(jnp.asarray(frames), jplan, jr, ji, batch_size=2)
+    got = ploop.run_plan_pair_cached(torch.from_numpy(frames), pplan, pr, pi, batch_size=2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert pcalls == jcalls
+    # and the per-task executor agrees, as in the JAX package's own test
+    np.testing.assert_allclose(got.numpy(), ploop.run_plan(torch.from_numpy(frames), pplan, _port_model, batch_size=2).numpy(), atol=1e-6)
+
+
+def test_run_plan_pair_cached_over_budget_raises():
+    frames = torch.zeros(3, 8, 8, 3)
+    plan = psched.plan_timestep(3, 3)
+    reuse_fn, infer_fn, _ = _pair_fns()
+    frame_bytes = 8 * 8 * 3 * 4
+    with pytest.raises(MemoryError, match="run_plan_pair_cached"):
+        ploop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2, memory_budget_bytes=10 * frame_bytes)
+    out = ploop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2, memory_budget_bytes=20 * frame_bytes)
+    assert out.shape == (7, 8, 8, 3)
+
+
+def test_run_plan_pair_cached_refuses_nested_plans():
+    frames = torch.zeros(3, 2, 2, 3)
+    reuse_fn, infer_fn, _ = _pair_fns()
+    with pytest.raises(ValueError, match="flat"):
+        ploop.run_plan_pair_cached(frames, psched.plan_midpoint(3, 4), reuse_fn, infer_fn, batch_size=2)

@@ -1,11 +1,16 @@
-"""The port's RIFE VFI node against the JAX node, on the CPU.
+"""The port's VFI nodes against the JAX nodes, on the CPU.
 
-The ROADMAP slice-1 gate: both nodes run on ``demo_frames/anime0.png`` and
-``anime1.png`` at multiplier 2 with the same random weights, and the port's
-output is held against the JAX node's at >= 40 dB in fp32 (the measure of the
-``rife47_node_vs_torch_psnr_db_*`` rows of ``PSNR_TORCH.json``).
+The ROADMAP slice-1 gate: both RIFE nodes run on ``demo_frames/anime0.png``
+and ``anime1.png`` at multiplier 2 with the same random weights, and the
+port's output is held against the JAX node's at >= 40 dB in fp32 (the measure
+of the ``rife47_node_vs_torch_psnr_db_*`` rows of ``PSNR_TORCH.json``).
+
+Slice 2: the M2M nodes on a 64x128 crop of the same frames (anime0, anime1,
+anime0: two pairs in one batch), x2 and x3, >= 40 dB fp32; the schemas are
+equal once the tooltips, which speak of the TPU and of the card, are removed.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -14,11 +19,14 @@ import torch
 from PIL import Image
 
 from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import M2M_VFI as JaxM2M
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
+from comfyui_frame_interpolation_tpu_torch.models import m2m as pm2m
 from comfyui_frame_interpolation_tpu_torch.models import rife as prife
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
 
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
 
@@ -37,7 +45,7 @@ def test_input_types_equal_jax_node():
     assert PortRIFE.INPUT_TYPES() == JaxRIFE.INPUT_TYPES()
     for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
         assert getattr(PortRIFE, attr) == getattr(JaxRIFE, attr)
-    assert NODE_CLASS_MAPPINGS == {"RIFE VFI": PortRIFE}
+    assert NODE_CLASS_MAPPINGS == {"RIFE VFI": PortRIFE, "M2M VFI": PortM2M}
 
 
 def test_node_matches_jax_node_on_demo_frames():
@@ -60,6 +68,8 @@ def test_node_without_params_or_checkpoint_raises(tmp_path, monkeypatch):
     try:
         with pytest.raises(FileNotFoundError, match="rife47.pth"):
             PortRIFE().vfi("rife47.pth", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
+        with pytest.raises(FileNotFoundError, match=r"m2m.M2M\.pth"):
+            PortM2M().vfi("M2M.pth", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
     finally:
         port_config.load_config.cache_clear()
 
@@ -84,3 +94,56 @@ def test_node_caches_its_model_fn_per_params():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     node.vfi("rife47.pth", frames, params=prife.init_params(1, "4.7"), device="cpu", fast_mode=True)
     assert len(node._model_fns) == 2
+
+
+def _no_tooltips(schema):
+    if isinstance(schema, dict):
+        return {k: _no_tooltips(v) for k, v in schema.items() if k != "tooltip"}
+    if isinstance(schema, (tuple, list)):
+        return type(schema)(_no_tooltips(v) for v in schema)
+    return schema
+
+
+def test_m2m_input_types_equal_jax_node_without_tooltips():
+    port, ref = PortM2M.INPUT_TYPES(), JaxM2M.INPUT_TYPES()
+    assert _no_tooltips(port) == _no_tooltips(ref)
+    assert port["required"]["batch_size"][1]["tooltip"] and "TPU" not in str(port)
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(PortM2M, attr) == getattr(JaxM2M, attr)
+
+
+def _demo_crop():
+    pair = _demo_pair()[:, 200:264, 400:528]
+    return np.concatenate([pair, pair[:1]])  # two pairs: 0->1, 1->0
+
+
+@functools.lru_cache(maxsize=None)
+def _m2m_jax_params():
+    """One JAX tree for both multipliers, so the JAX node compiles once."""
+    return to_jax_tree(nest_state_dict(pm2m.init_params(0)))
+
+
+@pytest.mark.parametrize("multiplier", [2, 3])
+def test_m2m_node_matches_jax_node_on_demo_crop(multiplier):
+    frames = _demo_crop()
+    sd = pm2m.init_params(0)
+    ref = np.asarray(JaxM2M().vfi("M2M.pth", frames, multiplier=multiplier, params=_m2m_jax_params(), batch_size=2)[0])
+    (got,) = PortM2M().vfi("M2M.pth", frames, multiplier=multiplier, params=sd, device="cpu", batch_size=2)
+    n_out = 2 * multiplier + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (n_out, 64, 128, 3)
+    np.testing.assert_array_equal(got.numpy()[::multiplier], frames)
+    p = psnr(got.numpy(), ref)
+    print(f"M2M node x{multiplier}: port vs JAX {p:.2f} dB")
+    assert p >= 40.0
+
+
+def test_m2m_node_caches_its_pair_fns_per_params():
+    sd = pm2m.init_params(0)
+    frames = np.random.default_rng(0).random((2, 32, 64, 3), dtype=np.float32)
+    node = PortM2M()
+    a = node.vfi("M2M.pth", frames, params=sd, device="cpu")[0]
+    b = node.vfi("M2M.pth", frames, params=sd, device="cpu")[0]
+    assert len(node._pair_fns) == 1
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    node.vfi("M2M.pth", frames, params=pm2m.init_params(1), device="cpu")
+    assert len(node._pair_fns) == 2

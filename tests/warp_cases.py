@@ -1,11 +1,19 @@
-"""Flow cases for the warp kernel and its plain twin, in numpy only (no jax,
-no torch), so the CPU tests, the GPU tests and ``chip_smoke.py`` share them.
+"""Flow cases for the warp and splat kernels and their plain twins, in numpy
+only (no jax, no torch), so the CPU tests, the GPU tests and ``chip_smoke.py``
+share them.
 
-They re-create the flow generators of ``tests/test_pallas_kernels.py:63-197``
-at any frame size: smooth and moderate flows, a +-120/+-30 discontinuity,
-extreme x400 random flows, a large constant offset, an odd shape, a wide
-channel count and non-finite flow in zeros mode. Images are uniform in
-[0, 1], the range the stated tolerances refer to.
+:func:`warp_cases` re-creates the flow generators of
+``tests/test_pallas_kernels.py:63-197`` at any frame size: smooth and moderate
+flows, a +-120/+-30 discontinuity, extreme x400 random flows, a large constant
+offset, an odd shape, a wide channel count and non-finite flow in zeros mode.
+
+:func:`splat_cases` re-creates the splat cases of
+``tests/test_pallas_kernels.py:215-319``: smooth flow, the constant
+displacements that took the extra bands and the corners of the single-band
+window, the diagonal motion beyond every band, non-finite flow, and the
+narrow odd frames; plus huge finite flow (+-1e30), which must drop.
+
+Values are uniform in [0, 1], the range the stated tolerances refer to.
 """
 
 from __future__ import annotations
@@ -73,3 +81,55 @@ def warp_cases(seed: int, h: int, w: int) -> List[Dict]:
         ),
         dict(name="nonfinite", img=img(1, h, w, 3), flow=nonfinite, modes=("zeros",)),
     ]
+
+
+# the single-band kernel's window (softsplat_kernel.py:47-50: DEF_WIN_H 64,
+# DEF_WIN_W 384, DEF_OFF_Y 24, DEF_OFF_X 128): its inclusive displacement
+# corners, as test_pallas_kernels.py:233-234 computes them
+_WIN_LO = (-(384 - 128 - 128 - 1), -(64 - 24 - 8 - 1))
+_WIN_HI = (128 - 1, 24 - 1)
+
+
+def splat_cases(seed: int, h: int, w: int) -> List[Dict]:
+    """``[{"name", "vals" [B,H,W,C] f32, "flow" [B,H,W,2] f32}]`` at
+    ``h x w``; the narrow-frame cases keep their own 64x114 and 34x128
+    frames, and regions of the hand-placed flows scale with the frame."""
+    rng = np.random.default_rng(seed)
+
+    def vals(b, hh, ww, c):
+        return rng.random((b, hh, ww, c), dtype=np.float32)
+
+    def const(fx, fy, mixed=False):
+        f = np.zeros((1, h, w, 2), np.float32)
+        f[..., 0], f[..., 1] = fx, fy
+        if mixed:  # plus in-base-band content, test_pallas_kernels.py:270
+            f[:, : h // 4] = 2.0
+        return f
+
+    cases = [
+        dict(name=f"smooth_amp8_c{c}", vals=vals(2, h, w, c), flow=smooth_flow(2, h, w, 8.0))
+        for c in (1, 2, 4)
+    ]
+    for fx, fy in ((0.0, 50.0), (0.0, -60.0), (200.0, 0.0), (-200.0, 0.0)):
+        cases.append(dict(name=f"const_{fx:+.0f}_{fy:+.0f}", vals=vals(1, h, w, 2), flow=const(fx, fy, True)))
+    for fx, fy in ((_WIN_LO[0], _WIN_LO[1]), (_WIN_HI[0], _WIN_HI[1]), (_WIN_LO[0], _WIN_HI[1])):
+        cases.append(dict(name=f"window_corner_{fx:+d}_{fy:+d}", vals=vals(1, h, w, 2), flow=const(fx, fy)))
+    diag = np.zeros((1, h, w, 2), np.float32)
+    diag[:, h * 100 // 256 : h * 120 // 256, w * 200 // 512 : w * 220 // 512] = [200.0, -150.0]
+    diag[:, h * 50 // 256 : h * 60 // 256, w * 50 // 512 : w * 60 // 512] = [1.5, -2.0]
+    cases.append(dict(name="diagonal_beyond_bands", vals=vals(1, h, w, 2), flow=diag))
+    nonfinite = smooth_flow(1, h, w, 3.0)
+    nonfinite[0, h * 50 // 256, w * 50 // 512, 0] = np.inf
+    nonfinite[0, h * 60 // 256, w * 60 // 512, 1] = np.nan
+    nonfinite[0, h // 2, w // 2] = [-np.inf, np.nan]
+    cases.append(dict(name="nonfinite", vals=vals(1, h, w, 2), flow=nonfinite))
+    huge = smooth_flow(1, h, w, 3.0)
+    huge[0, h // 4, :: max(1, w // 16), 0] = 1e30
+    huge[0, h // 3, :: max(1, w // 16), 1] = -1e30
+    huge[0, (2 * h) // 3, w // 3] = [-1e30, 1e30]
+    cases.append(dict(name="huge_finite", vals=vals(1, h, w, 2), flow=huge))
+    for hh, ww, c in ((64, 114, 66), (34, 128, 8)):
+        f = ((rng.random((1, hh, ww, 2)) - 0.5) * 8.0).astype(np.float32)
+        f[:, :4] = [ww + 50.0, 0.0]  # beyond the clamped window
+        cases.append(dict(name=f"narrow_{hh}x{ww}_c{c}", vals=vals(1, hh, ww, c), flow=f))
+    return cases
