@@ -45,8 +45,30 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    ``torch.profiler`` top 10 of one M2M forward with the kernels' share of
    device time.
 
-Each main path (phases 4 and 8) is driven with the launch counts set to 0
-just before it and read just after. Then the kernel table as one JSON line,
+11. wide     -- the wide-channel warp kernel against the plain twin on the
+   card, bit for bit (max abs err 0), on the wide cases of
+   ``tests/warp_cases.py`` (C = 32, 64, 192, 448, 960, 46; a channel slice
+   whose taps start off 16 bytes; extreme and non-finite flow; border and
+   zeros, f32 and bf16, at 128x256) and at FILM's level-0 feature warp
+   ``[4, 1080, 1920, 64]`` bf16, where the per-pixel kernel must agree too;
+12. film     -- the FILM VFI node (``film_net_fp32.pt``, random weights from
+   seed 0) on 4 frames of 270x480 (at 540x960 the CPU leg's 7 batch-2 fp32
+   calls take about 2 minutes on 8 cores), multipliers 2 and 4, batch 2, on the card
+   in fp32 (TF32 off) and bf16, each >= 40 dB against the same node on the
+   CPU in fp32; original frames pass through bit for bit; exactly 11 wide and
+   5 per-pixel warp launches per forward call (``film.WARPS_PER_CALL``);
+13. golden   -- the port's FILM on the card (fp32, TF32 off) against the JAX
+   FILM output stored in ``tests/fixtures/torch_port_film_golden.npz``,
+   >= 40 dB;
+14. timing   -- FILM 1080p 2x bf16 batch 2 (the configuration of
+   ``bench.py:bench_film``) in frames/s, each stage's ms, the wide kernel's,
+   the per-pixel kernel's and the plain twin's ms per call on the same
+   tensors at ``[4, 1080, 1920, 64]`` and ``[4, 135, 240, 960]`` bf16, and a
+   ``torch.profiler`` top 10 of one FILM forward with both warp kernels'
+   shares of device time and the idle share.
+
+Each main path (phases 4, 8 and 12) is driven with the launch counts set to
+0 just before it and read just after. Then the kernel table as one JSON line,
 and as the last line ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -67,6 +89,9 @@ MAIN_SHAPE = (16, 1088, 1920, 7)  # a batch-8 1080p RIFE warp: 2B images, 3+4 ch
 SPLAT_F32_ATOL = 1e-5
 SPLAT_SHAPE = (16, 1088, 1920, 4)  # a batch-2 1080p M2M splat: 2 directions x 2 pairs x 4 branches, 3+1 channels
 M2M_HW = (540, 960)
+FILM_HW = (270, 480)
+FILM_WARP_SHAPES = ((4, 1080, 1920, 64), (4, 135, 240, 960))  # FILM 1080p batch 2: level-0 and level-3 feature warps
+WIDE_CHANNELS = (32, 64, 192, 448, 960)
 
 
 class SmokeFailure(RuntimeError):
@@ -127,10 +152,11 @@ def shifted_pattern(n, h, w, seed, step=(6.0, 3.0)):
     return frames
 
 
-def profile_m2m(model_fn, f0, f1, t, card):
-    """``torch.profiler`` over one M2M forward after warm-up: the top 10 ops
-    by device time and the share of the device time that the splat and warp
-    kernels take, and the device's idle share of the wall time."""
+def profile_forward(what, model_fn, f0, f1, t, card, kernels):
+    """``torch.profiler`` over one forward of ``model_fn`` after warm-up: the
+    top 10 ops by device time, the share of the device time that each kernel
+    of ``kernels`` (label -> substring of its name) takes, and the device's
+    idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -145,17 +171,19 @@ def profile_m2m(model_fn, f0, f1, t, card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    kernels = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    device_total = sum(device_us(e) for e in kernels)
+    on_device = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    device_total = sum(device_us(e) for e in on_device)
     check(device_total > 0, "profiler saw no device time")
-    splat = sum(device_us(e) for e in kernels if "softsplat_kernel" in e.key)
-    warps = sum(device_us(e) for e in kernels if "warp_bilinear_kernel" in e.key)
-    n_kernels = sum(e.count for e in kernels)
-    ops = sorted((e for e in events if e not in kernels and device_us(e) > 0), key=device_us, reverse=True)
+    shares = ", ".join(
+        f"{label} {100 * sum(device_us(e) for e in on_device if name in e.key) / device_total:.2f} %"
+        for label, name in kernels.items()
+    )
+    n_kernels = sum(e.count for e in on_device)
+    ops = sorted((e for e in events if e not in on_device and device_us(e) > 0), key=device_us, reverse=True)
     print(
-        f"profile {card}: one M2M 1080p bf16 b2 forward, {device_total / 1e3:.3f} ms of kernels in "
+        f"profile {card}: one {what} forward, {device_total / 1e3:.3f} ms of kernels in "
         f"{wall_us / 1e3:.3f} ms wall, idle share {max(0.0, 1 - device_total / wall_us):.4f}, {n_kernels} kernels; "
-        f"splat kernel {100 * splat / device_total:.2f} %, warp kernel {100 * warps / device_total:.2f} % of device time",
+        f"{shares} of device time",
         flush=True,
     )
     for e in ops[:10]:
@@ -173,10 +201,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import warp_cases
     from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
-    from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-    from comfyui_frame_interpolation_tpu_torch.models import m2m, rife
+    from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep
+    from comfyui_frame_interpolation_tpu_torch.models import film, m2m, rife
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
-    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI
+    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI, M2M_VFI
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
     from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
@@ -429,8 +457,171 @@ def main() -> int:
         f"({splat_kern_a:.4f}, {splat_kern_b:.4f}), plain {splat_plain_ms:.4f} ms ({splat_plain_a:.4f}, {splat_plain_b:.4f})",
         flush=True,
     )
-    profile_m2m(model_fn, f0, f1, t, card)
+    profile_forward(
+        "M2M 1080p bf16 b2", model_fn, f0, f1, t, card,
+        {"splat kernel": "softsplat_kernel", "warp kernel": "warp_bilinear_kernel"},
+    )
     del f0, f1
+
+    # ---- 11. wide warp kernel vs plain on the card ---------------------------
+    n_cases = 0
+    for case in warp_cases.wide_cases(0, 128, 256, channels=WIDE_CHANNELS):
+        for mode in case["modes"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                img = torch.from_numpy(case["img"]).to(dev, dtype)[..., case["offset"] :]
+                flow = torch.from_numpy(case["flow"]).to(dev)
+                got, ref = warp(img, flow, mode, prefer_wide=True), warp_torch(img, flow, mode)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                check(torch.equal(got, ref), f"wide kernel vs plain: {case['name']} {mode} {dtype}: max err {err}, not bit-exact")
+                n_cases += 1
+    wide_img = torch.rand(FILM_WARP_SHAPES[0], generator=g).to(dev, torch.bfloat16)
+    wide_flow = torch.from_numpy(warp_cases.smooth_flow(*FILM_WARP_SHAPES[0][:3], amp=6.0)).to(dev)
+    got, ref = warp(wide_img, wide_flow, prefer_wide=True), warp_torch(wide_img, wide_flow)
+    k1 = warp(wide_img, wide_flow)
+    torch.cuda.synchronize()
+    wide_err = (got.float() - ref.float()).abs().max().item()
+    k1_err = (k1.float() - ref.float()).abs().max().item()
+    check(torch.equal(got, ref), f"wide kernel vs plain at {FILM_WARP_SHAPES[0]}: max err {wide_err}, not bit-exact")
+    check(torch.equal(k1, ref), f"per-pixel kernel vs plain at {FILM_WARP_SHAPES[0]}: max err {k1_err}, not bit-exact")
+    del got, ref, k1
+    print(
+        f"wide kernel vs plain: {n_cases} cases at 128x256 (C {', '.join(map(str, WIDE_CHANNELS))}, 46, unaligned, "
+        f"extreme, non-finite) bit-exact (max err 0); {list(FILM_WARP_SHAPES[0])} bf16 max err wide {wide_err}, "
+        f"per-pixel {k1_err}",
+        flush=True,
+    )
+
+    # ---- 12. FILM node end to end --------------------------------------------
+    film_params = film.init_params(0)
+    frames = shifted_pattern(4, *FILM_HW, seed=2)
+    node = FILM_VFI()
+    batch = 2
+    film_calls = 2 * sum(
+        math.ceil(len(level) / batch) for m_ in (2, 4) for level in plan_bisection(4, m_).levels
+    )  # fp32 and bf16
+    outs = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    warp_kernel.launches = warp_kernel.wide_launches = 0
+    for multiplier in (2, 4):
+        for dtype in ("float32", "bfloat16"):
+            (outs[multiplier, dtype],) = node.vfi(
+                "film_net_fp32.pt", frames, multiplier=multiplier, batch_size=batch, dtype=dtype,
+                params=film_params, device="cuda",
+            )
+    torch.cuda.synchronize()
+    film_wide_launches, film_warp_launches = warp_kernel.wide_launches, warp_kernel.launches
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(
+        film_wide_launches == film.WARPS_PER_CALL["wide"] * film_calls,
+        f"wide warp launches {film_wide_launches} != {film.WARPS_PER_CALL['wide']} x {film_calls} forward calls",
+    )
+    check(
+        film_warp_launches == film.WARPS_PER_CALL["narrow"] * film_calls,
+        f"per-pixel warp launches {film_warp_launches} != {film.WARPS_PER_CALL['narrow']} x {film_calls} forward calls",
+    )
+    film_psnr = []
+    t0 = time.perf_counter()
+    for multiplier in (2, 4):
+        (out_cpu,) = node.vfi(
+            "film_net_fp32.pt", frames, multiplier=multiplier, batch_size=batch, dtype="float32",
+            params=film_params, device="cpu",
+        )
+        n_out = 3 * multiplier + 1
+        for dtype in ("float32", "bfloat16"):
+            out = outs[multiplier, dtype]
+            check(tuple(out.shape) == (n_out, *FILM_HW, 3) and out.is_cuda, f"FILM node output {tuple(out.shape)} on {out.device}")
+            check(bool(torch.isfinite(out).all()), f"FILM node x{multiplier} {dtype} has non-finite values")
+            check(
+                torch.equal(out[::multiplier].cpu(), torch.from_numpy(frames)),
+                f"FILM x{multiplier} {dtype}: original frames not passed through",
+            )
+            p = psnr(out, out_cpu)
+            check(p >= 40.0, f"FILM node x{multiplier} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+            film_psnr.append(f"x{multiplier} {dtype} {p:.2f} dB")
+    cpu_s = time.perf_counter() - t0
+    print(
+        f"film: FILM node 4x{FILM_HW[0]}x{FILM_HW[1]} x2 and x4 batch {batch}, cuda vs cpu fp32: {', '.join(film_psnr)} "
+        f"(cpu leg {cpu_s:.1f} s); wide warp launches {film_wide_launches} = {film.WARPS_PER_CALL['wide']} x "
+        f"{film_calls} forward calls, per-pixel warp launches {film_warp_launches} = "
+        f"{film.WARPS_PER_CALL['narrow']} x {film_calls}",
+        flush=True,
+    )
+    del outs, out_cpu
+
+    # ---- 13. FILM JAX golden -------------------------------------------------
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_film_golden.npz")) as z:
+        seed, golden = int(z["seed"]), torch.from_numpy(z["output"])
+    rng = np.random.default_rng(seed)
+    g0 = torch.from_numpy(rng.random(tuple(golden.shape), dtype=np.float32)).to(dev)
+    g1 = torch.from_numpy(rng.random(tuple(golden.shape), dtype=np.float32)).to(dev)
+    net = film._load(film.init_params(seed), torch.float32, dev)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        gout = film.apply(net, g0, g1)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    pg = psnr(gout, golden)
+    check(pg >= 40.0, f"FILM golden: {pg:.2f} dB < 40")
+    print(f"golden: port FILM on cuda fp32 vs JAX FILM fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
+    del net
+
+    # ---- 14. FILM timing -----------------------------------------------------
+    model_fn = film.make_model_fn(film_params, dtype=torch.bfloat16, device=dev)
+    f0 = torch.from_numpy(np.random.default_rng(0).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+    f1 = torch.from_numpy(np.random.default_rng(1).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+    t = torch.full((2,), 0.5, device=dev)
+    film_fps = 2 / measure(model_fn, f0, f1, t, iters=5, rounds=3)
+    net = film._load(film_params, torch.bfloat16, dev)
+    with torch.inference_mode():
+        x0, x1 = f0.to(torch.bfloat16), f1.to(torch.bfloat16)
+        pyr = film.stage_pyramid(x0, x1)
+        feat = film.stage_features(net, pyr)
+        fwd, bwd = film.stage_flow(net, feat, 2)
+        aligned = film.stage_warp(pyr, feat, fwd, bwd, 2)
+        stage_ms = {
+            "pyramid": cuda_ms(lambda: film.stage_pyramid(x0, x1), 5),
+            "features": cuda_ms(lambda: film.stage_features(net, pyr), 3),
+            "flow": cuda_ms(lambda: film.stage_flow(net, feat, 2), 3),
+            "warp": cuda_ms(lambda: film.stage_warp(pyr, feat, fwd, bwd, 2), 3),
+            "fuse": cuda_ms(lambda: film.stage_fuse(net, aligned), 3),
+        }
+    del pyr, feat, fwd, bwd, aligned, net
+    print(
+        f"timing {card}: FILM 1080p 2x bf16 batch 2 {film_fps:.3f} frames/s; stages "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()),
+        flush=True,
+    )
+    wide_times = {}
+    for shape in FILM_WARP_SHAPES:
+        if shape != FILM_WARP_SHAPES[0]:
+            wide_img = torch.rand(shape, generator=g).to(dev, torch.bfloat16)
+            wide_flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        # plain, wide, per-pixel, per-pixel, wide, plain: the versions in turns
+        plain_a = cuda_ms(lambda: warp_torch(wide_img, wide_flow), 3)
+        wide_a = cuda_ms(lambda: warp(wide_img, wide_flow, prefer_wide=True), 30)
+        k1_a = cuda_ms(lambda: warp(wide_img, wide_flow), 10)
+        k1_b = cuda_ms(lambda: warp(wide_img, wide_flow), 10)
+        wide_b = cuda_ms(lambda: warp(wide_img, wide_flow, prefer_wide=True), 30)
+        plain_b = cuda_ms(lambda: warp_torch(wide_img, wide_flow), 3)
+        key = "x".join(map(str, shape))
+        wide_times[key] = {
+            "ms": statistics.mean((wide_a, wide_b)),
+            "k1_ms": statistics.mean((k1_a, k1_b)),
+            "plain_ms": statistics.mean((plain_a, plain_b)),
+        }
+        print(
+            f"timing {card}: warp {list(shape)} bf16 wide kernel {wide_times[key]['ms']:.4f} ms ({wide_a:.4f}, {wide_b:.4f}), "
+            f"per-pixel kernel {wide_times[key]['k1_ms']:.4f} ms ({k1_a:.4f}, {k1_b:.4f}), "
+            f"plain {wide_times[key]['plain_ms']:.4f} ms ({plain_a:.4f}, {plain_b:.4f})",
+            flush=True,
+        )
+    del wide_img, wide_flow
+    profile_forward(
+        "FILM 1080p bf16 b2", model_fn, f0, f1, t, card,
+        {"wide warp kernel": "warp_bilinear_wide_kernel", "per-pixel warp kernel": "warp_bilinear_kernel"},
+    )
+    del f0, f1
+    wide_main = wide_times["x".join(map(str, FILM_WARP_SHAPES[0]))]
 
     print(json.dumps({"kernels": [
         {
@@ -438,11 +629,24 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
-            "launches": rife_warp_launches + m2m_warp_launches,
-            "launches_by_path": {"rife": rife_warp_launches, "m2m": m2m_warp_launches},
+            "launches": rife_warp_launches + m2m_warp_launches + film_warp_launches,
+            "launches_by_path": {"rife": rife_warp_launches, "m2m": m2m_warp_launches, "film": film_warp_launches},
             "max_abs_err": main_err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
+        },
+        {
+            "name": "warp_bilinear_wide",
+            "route": "cuda",
+            "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
+            "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:297",
+            "launches": film_wide_launches,
+            "launches_by_path": {"film": film_wide_launches},
+            "max_abs_err": wide_err,
+            "ms": wide_main["ms"],
+            "plain_ms": wide_main["plain_ms"],
+            "per_pixel_kernel_ms": wide_main["k1_ms"],
+            "by_shape": wide_times,
         },
         {
             "name": "softsplat",

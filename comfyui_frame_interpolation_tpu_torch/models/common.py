@@ -1,5 +1,6 @@
 """Layer primitives for the ported models: the subset of the JAX package's
-``models/common.py`` that RIFE and M2M use, as plain functions on NCHW tensors.
+``models/common.py`` that RIFE, M2M and FILM use, as plain functions on NCHW
+tensors.
 
 The JAX versions take NHWC arrays and parameter dicts in torch layout; here
 the tensors are torch's own NCHW (held in ``channels_last`` memory by the
@@ -11,13 +12,17 @@ convolutions, which ``F.conv_transpose2d`` takes as they are.
 the JAX version's integer-factor fast paths compute the same two taps (for an
 even downscale factor s, rows ``s*k + s/2 - 1`` and ``s*k + s/2`` at 0.5
 each), so one call reproduces all of its paths.
+
+``conv2d(padding="same")`` is torch's own ``"same"``, the JAX
+``"same_torch"``: for an even kernel the extra pad goes right and bottom.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,6 +30,8 @@ __all__ = [
     "avg_pool2d",
     "cast_params",
     "conv2d",
+    "conv2d_concat",
+    "conv2x2_up2x",
     "conv_transpose2d",
     "prelu",
     "leaky_relu",
@@ -32,9 +39,11 @@ __all__ = [
     "pixel_shuffle",
     "resize_bilinear",
     "resize_by_scale",
+    "resize_nearest",
 ]
 
 IntPair = Union[int, Tuple[int, int]]
+Padding = Union[IntPair, str]
 
 
 def cast_params(params: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -51,11 +60,75 @@ def conv2d(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     stride: IntPair = 1,
-    padding: IntPair = 0,
+    padding: Padding = 0,
     dilation: IntPair = 1,
 ) -> torch.Tensor:
-    """torch ``nn.Conv2d`` with an OIHW ``weight``."""
+    """torch ``nn.Conv2d`` with an OIHW ``weight``; ``padding`` may be
+    ``"same"`` (stride 1)."""
     return F.conv2d(x, weight, bias, stride=stride, padding=padding, dilation=dilation)
+
+
+def conv2d_concat(
+    parts: Sequence[torch.Tensor],
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: IntPair = 1,
+    padding: Padding = 0,
+    dilation: IntPair = 1,
+) -> torch.Tensor:
+    """:func:`conv2d` over the channel concatenation of ``parts`` without
+    building it: the sum of each part's convolution with its slice of
+    ``weight``'s input channels, the bias added once (the same sum as the
+    concatenated convolution, in another order)."""
+    out = None
+    off = 0
+    for x in parts:
+        c = x.shape[1]
+        y = F.conv2d(x, weight[:, off : off + c], None, stride=stride, padding=padding, dilation=dilation)
+        out = y if out is None else out + y
+        off += c
+    if off != weight.shape[1]:
+        raise ValueError(f"parts have {off} channels, weight takes {weight.shape[1]}")
+    return out if bias is None else out + bias.view(1, -1, 1, 1)
+
+
+def conv2x2_up2x(
+    x: Union[torch.Tensor, Sequence[torch.Tensor]], weight: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Nearest 2x upsampling followed by a 2x2 ``padding="same"`` convolution,
+    without building the upsampled tensor (JAX ``common.py:conv2x2_up2x``).
+
+    Output pixel ``(2i+a, 2j+b)`` reads only ``x[i..i+a, j..j+b]``, so the pair
+    splits into four phase convolutions of ``x`` (1x1, 1x2, 2x1 and 2x2 taps,
+    the 2x2 kernel summed along the rows or columns that read one source
+    pixel), each ``padding="same"``, interleaved into the full-size result:
+    9 products per 4 output pixels instead of 16. ``x`` may be a list of
+    channel parts, as in :func:`conv2d_concat`. The output is
+    ``channels_last``."""
+    if not isinstance(x, torch.Tensor):
+        out = None
+        off = 0
+        for part in x:
+            c = part.shape[1]
+            y = conv2x2_up2x(part, weight[:, off : off + c])
+            out = y if out is None else out + y
+            off += c
+        if off != weight.shape[1]:
+            raise ValueError(f"parts have {off} channels, weight takes {weight.shape[1]}")
+        return out if bias is None else out + bias.view(1, -1, 1, 1)
+    phases = (
+        weight.sum((2, 3), keepdim=True),  # even row, even column
+        weight.sum(2, keepdim=True),  # even row, odd column
+        weight.sum(3, keepdim=True),  # odd row, even column
+        weight,  # odd row, odd column
+    )
+    outs = [F.conv2d(x, w, None, padding="same") for w in phases]
+    n, o, h, w = outs[0].shape
+    # interleave into a channels_last output, as the models keep every tensor
+    out = torch.empty((n, o, 2 * h, 2 * w), dtype=outs[0].dtype, device=x.device, memory_format=torch.channels_last)
+    for (a, b), y in zip(((0, 0), (0, 1), (1, 0), (1, 1)), outs):
+        out[:, :, a::2, b::2] = y
+    return out if bias is None else out.add_(bias.view(1, -1, 1, 1))
 
 
 def conv_transpose2d(
@@ -94,6 +167,17 @@ def resize_bilinear(
     if tuple(out_hw) == tuple(x.shape[-2:]):
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=align_corners)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """torch ``F.interpolate(mode="nearest")``: source index
+    ``floor(dst * in / out)``, computed in float64 as the JAX version does
+    (torch rounds the ratio to float32 first)."""
+    h, w = x.shape[-2:]
+    oh, ow = out_hw
+    iy = torch.from_numpy(np.floor(np.arange(oh) * (h / oh)).astype(np.int64)).to(x.device)
+    ix = torch.from_numpy(np.floor(np.arange(ow) * (w / ow)).astype(np.int64)).to(x.device)
+    return x.index_select(-2, iy).index_select(-1, ix)
 
 
 def resize_by_scale(x: torch.Tensor, scale: float, align_corners: bool = False) -> torch.Tensor:

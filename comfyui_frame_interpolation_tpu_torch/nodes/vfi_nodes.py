@@ -1,7 +1,7 @@
 """VFI nodes of the generic-loop model families, port of the JAX package's
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
-Ported so far: M2M. Same public schema as the JAX nodes (the tooltips speak of
+Ported so far: FILM and M2M. Same public schema as the JAX nodes (the tooltips speak of
 the card); frames and results are NHWC torch tensors on the node's device.
 """
 
@@ -13,8 +13,9 @@ import torch
 
 from ..core.config import load_config
 from ..core.frames import assert_batch_size, postprocess_frames, preprocess_frames
-from ..core.loop import run_plan_pair_cached
-from ..core.schedule import InterpolationStateList, plan_timestep
+from ..core.loop import run_plan, run_plan_pair_cached
+from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep
+from ..models import film as film_model
 from ..models import m2m as m2m_model
 from ..utils.ckpt import load_local_checkpoint
 from .rife_node import DTYPE_MAP, DTYPE_OPTIONS
@@ -44,6 +45,18 @@ def _batch_dtype_inputs(batch_default):
     }
 
 
+def _cached(cache: dict, params: dict, key: tuple, make: typing.Callable):
+    """``make()``, built once per ``params`` object and ``key``. The params
+    object itself is kept and compared, so a freed params dict can never
+    alias a new one by id."""
+    full_key = (id(params), *key)
+    entry = cache.get(full_key)
+    if entry is None or entry[0] is not params:
+        entry = (params, make())
+        cache[full_key] = entry
+    return entry[1]
+
+
 def _base_inputs(ckpts, multiplier_min=2, multiplier_max=1000, batch_default=4, **extra):
     req = {
         "ckpt_name": (ckpts,),
@@ -56,6 +69,51 @@ def _base_inputs(ckpts, multiplier_min=2, multiplier_max=1000, batch_default=4, 
     return {"required": req, **_OPTIONAL}
 
 
+class FILM_VFI:
+    """reference ``film/__init__.py:44-113``; timeline-bisection schedule
+    (every call interpolates the midpoint of its endpoints), run by the
+    batched executor."""
+
+    MODEL_TYPE = "film"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(film_model.CKPT_NAMES, batch_default=2)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "FILM")
+        if params is None:
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        model_fn = _cached(
+            self._model_fns, params, (ckpt_name, dtype, str(device)),
+            lambda: film_model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        plan = plan_bisection(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)
+
+
 class M2M_VFI:
     """reference ``m2m/__init__.py:14-60``; generic timestep schedule, run by
     the pair-cached executor: the flow pyramid, MotionRefineNet and metrics
@@ -65,9 +123,7 @@ class M2M_VFI:
     MODEL_TYPE = "m2m"
 
     def __init__(self):
-        # (params, key) -> (reuse_fn, infer_fn); the params object itself is
-        # kept and compared, so a freed params dict can never alias a new one
-        self._pair_fns: typing.Dict[tuple, typing.Tuple[dict, tuple]] = {}
+        self._pair_fns: typing.Dict[tuple, typing.Tuple[dict, tuple]] = {}  # see _cached
 
     @classmethod
     def INPUT_TYPES(cls):
@@ -95,12 +151,10 @@ class M2M_VFI:
         assert_batch_size(frames, 2, "M2M")
         if params is None:
             params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
-        key = (id(params), ckpt_name, dtype, str(device))
-        cached = self._pair_fns.get(key)
-        if cached is None or cached[0] is not params:
-            cached = (params, m2m_model.make_pair_fns(params, dtype=DTYPE_MAP[dtype], device=device))
-            self._pair_fns[key] = cached
-        reuse_fn, infer_fn = cached[1]
+        reuse_fn, infer_fn = _cached(
+            self._pair_fns, params, (ckpt_name, dtype, str(device)),
+            lambda: m2m_model.make_pair_fns(params, dtype=DTYPE_MAP[dtype], device=device),
+        )
         plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
         out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)
         return (postprocess_frames(out),)

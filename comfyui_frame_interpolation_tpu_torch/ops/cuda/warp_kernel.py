@@ -1,13 +1,18 @@
-"""Wrapper of the hand-written Hopper warp kernel (``csrc/warp.cu``).
+"""Wrappers of the hand-written Hopper warp kernels (``csrc/warp.cu``).
 
-It replaces the JAX package's Pallas bulk and patch warp kernels
-(``comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py``:
-``_warp_kernel_diag_roll`` and ``_patch_kernel``) with one direct gather. The
-plain PyTorch version of the same function is ``ops.warp.warp_torch``;
-``ops.warp.warp`` picks between the two by the tensor's device.
+:func:`warp_bilinear` (K1) replaces the JAX package's Pallas bulk and patch
+warp kernels (``comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py``:
+``_warp_kernel_diag_roll`` and ``_patch_kernel``) with one direct gather, a
+thread per pixel. :func:`warp_bilinear_wide` replaces the rows/MXU kernel of
+the same file (``_warp_kernel_rows_mxu``), which FILM's wide feature warps
+take: a group of lanes per pixel, 16-byte channel vectors. Both compute the
+same function from the same coordinate/weight code, bit for bit. The plain
+PyTorch version of it is ``ops.warp.warp_torch``; ``ops.warp.warp`` picks
+between the three by the tensor's device and its ``prefer_wide`` flag.
 
-``launches`` counts the kernel launches made through :func:`warp_bilinear`,
-so that a run can show that its main path went through the kernel.
+``launches`` and ``wide_launches`` count the launches made through
+:func:`warp_bilinear` and :func:`warp_bilinear_wide`, so that a run can show
+that its main path went through each kernel.
 """
 
 from __future__ import annotations
@@ -19,21 +24,32 @@ import torch
 
 from .build import DTYPE_CODES, check_planes_and_flow, load_library
 
-__all__ = ["launches", "warp_bilinear"]
+__all__ = ["launches", "wide_launches", "warp_bilinear", "warp_bilinear_wide"]
 
 launches = 0
+wide_launches = 0
+
+
+def _bind(name: str, n_int64: int):
+    fn = getattr(load_library("warp"), name)
+    fn.restype = ctypes.c_int
+    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * n_int64 + [ctypes.c_void_p]
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = load_library("warp").cfi_warp_bilinear
-    fn.restype = ctypes.c_int
-    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 16
-        + [ctypes.c_void_p]
-    )
-    return fn
+    return _bind("cfi_warp_bilinear", 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_kernel():
+    return _bind("cfi_warp_bilinear_wide", 14)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) -> torch.Tensor:
@@ -50,14 +66,47 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) ->
     if out.numel() == 0:
         return out
     with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = _kernel()(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
             DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
             n, c, h, w, *img.stride(), *flow.stride(), *out.stride(),
-            stream,
+            _stream(img),
         )
     if rc != 0:
         raise RuntimeError(f"warp kernel launch failed: cfi_warp_bilinear returned {rc}")
     launches += 1
+    return out
+
+
+def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) -> torch.Tensor:
+    """:func:`warp_bilinear` by the wide-channel kernel, for ``channels_last``
+    images with many channels (FILM's features, C = 64 to 960).
+
+    The kernel reads channels as contiguous 16-byte vectors, so ``img`` must
+    have channel stride 1 (``img.stride(1) == 1``, as a ``channels_last``
+    tensor or an NHWC tensor's permuted view has). Given any other layout, the
+    wrapper makes one ``channels_last`` copy of ``img`` first. Batch, row and
+    pixel strides are free, and a channel slice with an unaligned start is
+    taken as it is (the kernel reads it with scalar loads). The output is a
+    new ``channels_last`` tensor. The kernel launches on the current stream
+    and nothing synchronises."""
+    global wide_launches
+    check_planes_and_flow("warp_bilinear_wide", img, flow)
+    n, c, h, w = img.shape
+    if c > 1 and img.stride(1) != 1:
+        img = img.contiguous(memory_format=torch.channels_last)  # the one documented copy
+    out = torch.empty(img.shape, dtype=img.dtype, device=img.device, memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    si, so = img.stride(), out.stride()
+    with torch.cuda.device(img.device):
+        rc = _wide_kernel()(
+            img.data_ptr(), flow.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
+            n, c, h, w, si[0], si[2], si[3], *flow.stride(), so[0], so[2], so[3],
+            _stream(img),
+        )
+    if rc != 0:
+        raise RuntimeError(f"wide warp kernel launch failed: cfi_warp_bilinear_wide returned {rc}")
+    wide_launches += 1
     return out

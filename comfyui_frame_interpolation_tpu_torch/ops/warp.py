@@ -10,10 +10,14 @@ torch ``grid_sample`` on normalized grids.
 Layout: NHWC images and ``[N, H, W, 2]`` flows/grids (channel 0 = x, 1 = y),
 as in the JAX package.
 
-:func:`warp` dispatches on the tensor's device: a CUDA tensor goes to the
+:func:`warp` dispatches on the tensor's device: a CUDA tensor goes to a
 hand-written Hopper kernel (``ops.cuda.warp_kernel``), a CPU tensor to the
-plain twin :func:`warp_torch`. The twin also runs on CUDA tensors when called
-directly, which is how the kernel is checked on the card.
+plain twin :func:`warp_torch`. On the card, ``prefer_wide=True`` (the JAX
+``prefer_mxu``, which FILM sets for its C >= 32 feature warps) takes the
+wide-channel kernel and ``False`` the per-pixel one; both compute the twin's
+function bit for bit, so the flag never changes a result, and unlike JAX it
+applies to every dtype. The twin also runs on CUDA tensors when called
+directly, which is how the kernels are checked on the card.
 
 One deliberate difference from the JAX ``warp_xla``: in zeros mode a
 non-finite coordinate samples nothing (output 0), as the Pallas kernel does,
@@ -104,20 +108,22 @@ def warp_torch(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "borde
     return bilinear_sample(img, gx + flow[..., 0].float(), gy + flow[..., 1].float(), padding_mode)
 
 
-def warp(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border") -> torch.Tensor:
+def warp(
+    img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border", prefer_wide: bool = False
+) -> torch.Tensor:
     """Backward-warp ``img`` (NHWC) by ``flow`` (``[N, H, W, 2]``).
 
-    CUDA tensors launch the Hopper kernel, CPU tensors take the plain twin;
-    any other device raises. There is no fallback from the kernel to the
-    twin."""
+    CUDA tensors launch a Hopper kernel: the wide-channel one when
+    ``prefer_wide`` (for NHWC features with many channels), else the
+    per-pixel one. CPU tensors take the plain twin; any other device raises.
+    There is no fallback from a kernel to the twin or to the other kernel."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unsupported padding_mode {padding_mode}")
     if img.device.type == "cuda":
-        from .cuda.warp_kernel import warp_bilinear
+        from .cuda import warp_kernel
 
-        out = warp_bilinear(
-            img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), zeros=padding_mode == "zeros"
-        )
+        kernel = warp_kernel.warp_bilinear_wide if prefer_wide else warp_kernel.warp_bilinear
+        out = kernel(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), zeros=padding_mode == "zeros")
         return out.permute(0, 2, 3, 1)
     if img.device.type == "cpu" and flow.device.type == "cpu":
         return warp_torch(img, flow, padding_mode)

@@ -4,11 +4,17 @@ The JAX package keeps parameters as nested dicts in torch layout, keyed by the
 torch module names (its ``utils/ckpt.py``), so flattening a tree with ``.``
 gives the port's ``state_dict`` keys directly, with no per-model table. The
 models load the result with ``strict=True``. Nothing is downloaded here.
+
+Local checkpoints are raw ``torch.save`` containers, or TorchScript archives
+(FILM's ``film_net_fp32.pt``, which the reference loads with
+``torch.jit.load``), read through ``torch.jit.load`` as the JAX loader does
+(its ``utils/ckpt.py:90-132``).
 """
 
 from __future__ import annotations
 
 import os
+import zipfile
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -16,7 +22,7 @@ import torch
 
 from ..core.config import get_ckpt_container_path
 
-__all__ = ["load_local_checkpoint", "params_from_jax"]
+__all__ = ["is_torchscript_archive", "load_local_checkpoint", "params_from_jax"]
 
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -32,14 +38,30 @@ def params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torc
     return flat
 
 
+def is_torchscript_archive(path: str) -> bool:
+    """True if ``path`` is a TorchScript zip archive, which holds a
+    ``constants.pkl`` member (a plain ``torch.save`` zip holds ``data.pkl``
+    only), as the JAX ``is_torchscript_archive`` tells them apart."""
+    if not zipfile.is_zipfile(path):
+        return False
+    try:
+        with zipfile.ZipFile(path) as zf:
+            return any(name.endswith("constants.pkl") for name in zf.namelist())
+    except zipfile.BadZipFile:
+        return False
+
+
 def load_local_checkpoint(model_type: str, ckpt_name: str) -> Dict[str, torch.Tensor]:
-    """The state dict in ``ckpts_path/<model_type>/<ckpt_name>`` (a raw
-    ``torch.save`` container, loaded on the CPU with ``weights_only=True``).
-    Nothing is downloaded: a missing file raises ``FileNotFoundError``."""
+    """The state dict in ``ckpts_path/<model_type>/<ckpt_name>``, loaded on
+    the CPU: a TorchScript archive through ``torch.jit.load(...).state_dict()``,
+    a raw ``torch.save`` container with ``weights_only=True``. Nothing is
+    downloaded: a missing file raises ``FileNotFoundError``."""
     path = os.path.join(get_ckpt_container_path(model_type), ckpt_name)
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"{model_type} checkpoint {path} not found: place {ckpt_name} there or pass "
             "params= (a state dict, e.g. the model module's init_params(seed))"
         )
+    if is_torchscript_archive(path):
+        return dict(torch.jit.load(path, map_location="cpu").state_dict())
     return torch.load(path, map_location="cpu", weights_only=True)

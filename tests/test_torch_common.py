@@ -90,3 +90,57 @@ def test_avg_pool2d(hw, k, stride):
     x = _rng(6).standard_normal((2, *hw, 5)).astype(np.float32)
     ref = jc.avg_pool2d(jnp.asarray(x), k, stride)
     _close(pc.avg_pool2d(_nchw(x), k, stride), ref)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((135, 240), (67, 120)), ((67, 120), (135, 240)), ((8, 12), (16, 24)), ((17, 23), (40, 31)), ((30, 50), (17, 23))])
+def test_resize_nearest(in_hw, out_hw):
+    x = _rng(7).random((2, *in_hw, 3), dtype=np.float32)
+    ref = jc.resize_nearest(jnp.asarray(x), out_hw)
+    _close(pc.resize_nearest(_nchw(x), out_hw), ref, atol=0)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_conv2d_same_padding(k):
+    """torch ``padding="same"`` is JAX ``"same_torch"``: for k = 2 the extra
+    pad goes right and bottom."""
+    rng = _rng(8)
+    x = rng.standard_normal((2, 9, 14, 5)).astype(np.float32)
+    w = (rng.standard_normal((4, 5, k, k)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(4).astype(np.float32)
+    ref = jc.conv2d(jnp.asarray(x), {"weight": w, "bias": b}, padding="same_torch")
+    got = pc.conv2d(_nchw(x), torch.from_numpy(w), torch.from_numpy(b), padding="same")
+    assert tuple(got.shape) == (2, 4, 9, 14)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("padding", [1, "same"])
+def test_conv2d_concat(padding):
+    rng = _rng(9)
+    parts = [rng.standard_normal((2, 11, 13, c)).astype(np.float32) for c in (3, 6, 2)]
+    w = (rng.standard_normal((5, 11, 3, 3)) * 0.2).astype(np.float32)
+    b = rng.standard_normal(5).astype(np.float32)
+    jpad = "same_torch" if padding == "same" else padding
+    ref = jc.conv2d_concat([jnp.asarray(p) for p in parts], {"weight": w, "bias": b}, padding=jpad)
+    got = pc.conv2d_concat([_nchw(p) for p in parts], torch.from_numpy(w), torch.from_numpy(b), padding=padding)
+    _close(got, ref)
+    with pytest.raises(ValueError):
+        pc.conv2d_concat([_nchw(p) for p in parts[:2]], torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("parts", [(7,), (3, 4)])
+def test_conv2x2_up2x(parts):
+    """vs JAX, and vs the plain pair it fuses: nearest 2x, then a 2x2
+    ``padding="same"`` convolution; on one tensor and on channel parts."""
+    rng = _rng(10)
+    xs = [rng.standard_normal((2, 6, 9, c)).astype(np.float32) for c in parts]
+    w = (rng.standard_normal((4, sum(parts), 2, 2)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(4).astype(np.float32)
+    node = {"weight": w, "bias": b}
+    jx = [jnp.asarray(x) for x in xs]
+    tx = [_nchw(x) for x in xs]
+    ref = jc.conv2x2_up2x(jx if len(xs) > 1 else jx[0], node)
+    got = pc.conv2x2_up2x(tx if len(xs) > 1 else tx[0], torch.from_numpy(w), torch.from_numpy(b))
+    assert tuple(got.shape) == (2, 4, 12, 18) and got.is_contiguous(memory_format=torch.channels_last)
+    _close(got, ref)
+    plain = pc.conv2d(pc.resize_nearest(torch.cat(tx, 1), (12, 18)), torch.from_numpy(w), torch.from_numpy(b), padding="same")
+    torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)

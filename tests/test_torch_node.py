@@ -8,24 +8,32 @@ of the ``rife47_node_vs_torch_psnr_db_*`` rows of ``PSNR_TORCH.json``).
 Slice 2: the M2M nodes on a 64x128 crop of the same frames (anime0, anime1,
 anime0: two pairs in one batch), x2 and x3, >= 40 dB fp32; the schemas are
 equal once the tooltips, which speak of the TPU and of the card, are removed.
+
+Slice 3: the FILM nodes (bisection schedule) on a 128x128 crop of the same
+three frames, x2 and x4, >= 40 dB fp32; the schemas as for M2M.
 """
 
+import contextlib
 import functools
 import os
 
 import numpy as np
 import pytest
+import jax
 import torch
 from PIL import Image
 
 from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FILM_VFI as JaxFILM
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import M2M_VFI as JaxM2M
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
+from comfyui_frame_interpolation_tpu_torch.models import film as pfilm
 from comfyui_frame_interpolation_tpu_torch.models import m2m as pm2m
 from comfyui_frame_interpolation_tpu_torch.models import rife as prife
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI as PortFILM
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
 
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
@@ -45,7 +53,7 @@ def test_input_types_equal_jax_node():
     assert PortRIFE.INPUT_TYPES() == JaxRIFE.INPUT_TYPES()
     for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
         assert getattr(PortRIFE, attr) == getattr(JaxRIFE, attr)
-    assert NODE_CLASS_MAPPINGS == {"RIFE VFI": PortRIFE, "M2M VFI": PortM2M}
+    assert NODE_CLASS_MAPPINGS == {"RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM}
 
 
 def test_node_matches_jax_node_on_demo_frames():
@@ -70,6 +78,8 @@ def test_node_without_params_or_checkpoint_raises(tmp_path, monkeypatch):
             PortRIFE().vfi("rife47.pth", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
         with pytest.raises(FileNotFoundError, match=r"m2m.M2M\.pth"):
             PortM2M().vfi("M2M.pth", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
+        with pytest.raises(FileNotFoundError, match=r"film.film_net_fp32\.pt"):
+            PortFILM().vfi("film_net_fp32.pt", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
     finally:
         port_config.load_config.cache_clear()
 
@@ -147,3 +157,60 @@ def test_m2m_node_caches_its_pair_fns_per_params():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     node.vfi("M2M.pth", frames, params=pm2m.init_params(1), device="cpu")
     assert len(node._pair_fns) == 2
+
+
+def test_film_input_types_equal_jax_node_without_tooltips():
+    port, ref = PortFILM.INPUT_TYPES(), JaxFILM.INPUT_TYPES()
+    assert _no_tooltips(port) == _no_tooltips(ref)
+    assert port["required"]["batch_size"][1]["default"] == 2 and "TPU" not in str(port)
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(PortFILM, attr) == getattr(JaxFILM, attr)
+
+
+@functools.lru_cache(maxsize=None)
+def _film_jax_params():
+    """One JAX tree for both multipliers, so the JAX node compiles once."""
+    return to_jax_tree(nest_state_dict(pfilm.init_params(0)))
+
+
+@contextlib.contextmanager
+def _no_persistent_jax_cache():
+    """The JAX FILM node jits its 34 M weights in as constants; keep that
+    ~190 MB program out of the repository's persistent compile cache (JAX
+    reads the write threshold at each write; whether the cache is on at all
+    it decides once per process)."""
+    before = jax.config.jax_persistent_cache_min_compile_time_secs
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1e9)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", before)
+
+
+@pytest.mark.parametrize("multiplier", [2, 4])
+def test_film_node_matches_jax_node_on_demo_crop(multiplier):
+    pair = _demo_pair()[:, 200:328, 400:528]
+    frames = np.concatenate([pair, pair[:1]])  # two pairs: 0->1, 1->0
+    sd = pfilm.init_params(0)
+    with _no_persistent_jax_cache():
+        ref = JaxFILM().vfi("film_net_fp32.pt", frames, multiplier=multiplier, params=_film_jax_params(), batch_size=2)[0]
+    ref = np.asarray(ref)
+    (got,) = PortFILM().vfi("film_net_fp32.pt", frames, multiplier=multiplier, params=sd, device="cpu", batch_size=2)
+    n_out = 2 * multiplier + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (n_out, 128, 128, 3)
+    np.testing.assert_array_equal(got.numpy()[::multiplier], frames)
+    p = psnr(got.numpy(), ref)
+    print(f"FILM node x{multiplier}: port vs JAX {p:.2f} dB")
+    assert p >= 40.0
+
+
+def test_film_node_caches_its_model_fn_per_params():
+    sd = pfilm.init_params(0)
+    frames = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+    node = PortFILM()
+    a = node.vfi("film_net_fp32.pt", frames, params=sd, device="cpu")[0]
+    b = node.vfi("film_net_fp32.pt", frames, params=sd, device="cpu")[0]
+    assert len(node._model_fns) == 1
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    node.vfi("film_net_fp32.pt", frames, params=pfilm.init_params(1), device="cpu")
+    assert len(node._model_fns) == 2

@@ -9,7 +9,11 @@ kernel, on the CPU.
 * one bf16 case vs ``warp_pallas_tiered`` run in interpret mode, patched as
   ``tests/test_pallas_interpret.py`` does, to one bf16 ulp.
 * ``grid_sample`` vs JAX for both ``align_corners`` and padding modes.
-* CPU tensors never reach the CUDA kernel's path.
+* CPU tensors never reach either CUDA kernel's path, with or without
+  ``prefer_wide``; ``warp(prefer_wide=True)`` equals the twin on the CPU.
+* the wide cases (FILM's feature warps, ``warp_cases.wide_cases`` at 16x32:
+  C = 32 to 960, C = 46, a channel slice off 16 bytes, extreme and non-finite
+  flow) vs ``warp_xla``, as the narrow cases are.
 """
 
 from unittest import mock
@@ -34,6 +38,8 @@ BF16_ULP = 2.0**-8
 
 CASES = warp_cases.warp_cases(0, 32, 128)
 CASE_MODES = [(c["name"], m) for c in CASES for m in c["modes"]]
+WIDE = warp_cases.wide_cases(1, 16, 32)
+WIDE_MODES = [(c["name"], m) for c in WIDE for m in c["modes"]]
 
 
 def _case(name):
@@ -45,6 +51,19 @@ def test_twin_matches_warp_xla(name, mode):
     case = _case(name)
     ref = np.asarray(warp_xla(jnp.asarray(case["img"]), jnp.asarray(case["flow"]), mode))
     got = warp_torch(torch.from_numpy(case["img"]), torch.from_numpy(case["flow"]), mode).numpy()
+    finite = np.isfinite(case["flow"]).all(-1)
+    np.testing.assert_allclose(got[finite], ref[finite], atol=F32_ATOL, rtol=0)
+    if mode == "zeros":
+        assert np.all(got[~finite] == 0.0)
+
+
+@pytest.mark.parametrize("name,mode", WIDE_MODES)
+def test_wide_cases_twin_matches_warp_xla(name, mode):
+    case = next(c for c in WIDE if c["name"] == name)
+    img = case["img"][..., case["offset"] :]
+    ref = np.asarray(warp_xla(jnp.asarray(img), jnp.asarray(case["flow"]), mode))
+    timg = torch.from_numpy(case["img"])[..., case["offset"] :]
+    got = warp(timg, torch.from_numpy(case["flow"]), mode, prefer_wide=True).numpy()
     finite = np.isfinite(case["flow"]).all(-1)
     np.testing.assert_allclose(got[finite], ref[finite], atol=F32_ATOL, rtol=0)
     if mode == "zeros":
@@ -82,13 +101,18 @@ def test_cpu_tensors_never_take_the_cuda_path():
     def forbidden(*a, **k):
         raise AssertionError("CUDA-only path taken for CPU tensors")
 
-    case = _case("smooth_amp0.4")
+    case = _case("wide_c40")
     img, flow = torch.from_numpy(case["img"]), torch.from_numpy(case["flow"])
-    before = cuda_wk.launches
-    with mock.patch.object(cuda_wk, "warp_bilinear", forbidden), mock.patch.object(cuda_build, "load_library", forbidden):
+    before = cuda_wk.launches, cuda_wk.wide_launches
+    with mock.patch.object(cuda_wk, "warp_bilinear", forbidden), mock.patch.object(
+        cuda_wk, "warp_bilinear_wide", forbidden
+    ), mock.patch.object(cuda_build, "load_library", forbidden):
         for mode in ("border", "zeros"):
-            torch.testing.assert_close(warp(img, flow, mode), warp_torch(img, flow, mode), rtol=0, atol=0)
-    assert cuda_wk.launches == before == 0
+            for prefer_wide in (False, True):
+                torch.testing.assert_close(
+                    warp(img, flow, mode, prefer_wide=prefer_wide), warp_torch(img, flow, mode), rtol=0, atol=0
+                )
+    assert (cuda_wk.launches, cuda_wk.wide_launches) == before == (0, 0)
 
 
 def test_dispatch_rejects_other_devices_and_the_kernel_rejects_cpu():
@@ -98,9 +122,13 @@ def test_dispatch_rejects_other_devices_and_the_kernel_rejects_cpu():
         warp(img.to("meta"), flow.to("meta"))
     with pytest.raises(ValueError):
         warp(img, flow, "reflection")
+    with pytest.raises(ValueError):
+        warp(img.to("meta"), flow.to("meta"), prefer_wide=True)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_wk.warp_bilinear(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2))
-    assert cuda_wk.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wk.warp_bilinear_wide(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2))
+    assert cuda_wk.launches == cuda_wk.wide_launches == 0
 
 
 def test_twin_nan_flow_border_propagates_nan():

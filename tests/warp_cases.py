@@ -7,6 +7,11 @@ share them.
 flows, a +-120/+-30 discontinuity, extreme x400 random flows, a large constant
 offset, an odd shape, a wide channel count and non-finite flow in zeros mode.
 
+:func:`wide_cases` are the feature warps of FILM for the wide-channel kernel:
+C = 32 to 960 (FILM's levels have 64, 192, 448 and 960), a C that is no
+multiple of 8, a channel slice whose taps start off 16 bytes, extreme and
+non-finite flow.
+
 :func:`splat_cases` re-creates the splat cases of
 ``tests/test_pallas_kernels.py:215-319``: smooth flow, the constant
 displacements that took the extra bands and the corners of the single-band
@@ -81,6 +86,38 @@ def warp_cases(seed: int, h: int, w: int) -> List[Dict]:
         ),
         dict(name="nonfinite", img=img(1, h, w, 3), flow=nonfinite, modes=("zeros",)),
     ]
+
+
+WIDE_CHANNELS = (32, 40, 64, 192, 448, 960)
+
+
+def wide_cases(seed: int, h: int, w: int, channels=WIDE_CHANNELS) -> List[Dict]:
+    """``[{"name", "img" [B,H,W,offset+C] f32, "offset", "flow" [B,H,W,2] f32,
+    "modes"}]`` at ``h x w``. The warped image is ``img[..., offset:]``, taken
+    after the array is on its device: with ``offset`` 1 no tap starts on a
+    16-byte boundary."""
+    rng = np.random.default_rng(seed)
+
+    def img(b, c):
+        return rng.random((b, h, w, c), dtype=np.float32)
+
+    def flow(b, amp=6.0):
+        noise = rng.standard_normal((b, h, w, 2)).astype(np.float32) * 1.5
+        return smooth_flow(b, h, w, amp, scale=max(8.0, w / 6.0)) + noise
+
+    cases = [dict(name=f"wide_c{c}", img=img(2, c), offset=0, flow=flow(2), modes=BORDER_ZEROS) for c in channels]
+    # 46 channels: a tail past the last whole vector (bf16 and f32), and
+    # pixel starts that alternate on and off 16 bytes
+    cases.append(dict(name="wide_c46", img=img(1, 46), offset=0, flow=flow(1), modes=BORDER_ZEROS))
+    cases.append(dict(name="wide_c64_unaligned", img=img(1, 65), offset=1, flow=flow(1), modes=BORDER_ZEROS))
+    extreme = (rng.standard_normal((1, h, w, 2)) * 400.0).astype(np.float32)
+    cases.append(dict(name="wide_c64_extreme", img=img(1, 64), offset=0, flow=extreme, modes=BORDER_ZEROS))
+    nonfinite = flow(1, amp=2.0)
+    nonfinite[0, h // 4, w // 4] = np.nan
+    nonfinite[0, h // 2, (3 * w) // 4, 0] = np.inf
+    nonfinite[0, (3 * h) // 4, w // 2, 1] = -np.inf
+    cases.append(dict(name="wide_c64_nonfinite", img=img(1, 64), offset=0, flow=nonfinite, modes=("zeros",)))
+    return cases
 
 
 # the single-band kernel's window (softsplat_kernel.py:47-50: DEF_WIN_H 64,
