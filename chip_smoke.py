@@ -10,24 +10,33 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
 
 1. device  -- a CUDA device, its name and power limit (``nvidia-smi``);
 2. build   -- the warp and splat kernels built from ``csrc/warp.cu`` and
-   ``csrc/softsplat.cu``, one ``nvcc`` each, started together;
-3. kernel  -- the warp kernel against its plain PyTorch twin on the card, on
-   the flow cases of ``tests/warp_cases.py`` (border and zeros, f32 and bf16,
-   at 256x512) and at the RIFE path's shape ``[16, 1088, 1920, 7]`` bf16.
-   Tolerances: f32 atol 2e-6 on values in [0, 1], bf16 one ulp (2**-8);
+   ``csrc/softsplat.cu``, one ``nvcc`` each, started together; each kernel's
+   registers and spills from ``-Xptxas -v``;
+3. kernel  -- the warp kernels against their plain PyTorch twin on the card,
+   bit for bit (max abs err 0), on the flow cases of ``tests/warp_cases.py``
+   (border and zeros, f32 and bf16, at 256x512; tiles whose tap box
+   overflows, a 68x92 frame, M2M's widths C = 32 to 384 in zeros mode): the
+   kernel ``ops.warp.warp`` routes each case to, and K1 (the tiled kernel)
+   forced on every case; and K1, as routed, at the main
+   paths' shapes: RIFE's ``[16, 1088, 1920, 7]`` bf16 with f32 and bf16 flow
+   and ``[16, 1088, 1920, 3]``, M2M's ``[8, 1088, 1920, 3]`` in zeros mode;
 4. node    -- the RIFE VFI node (``rife47.pth``, fast mode, no ensemble,
    random weights from seed 0) on 4 frames of 540x960, multiplier 2, batch 2,
    on the card in fp32 (TF32 off) and bf16, each >= 40 dB PSNR against the
-   same node on the CPU (plain twin) in fp32; the warp kernel must have been
-   launched exactly 4 times per forward call;
+   same node on the CPU (plain twin) in fp32; K1 must have been launched
+   exactly 4 times per forward call;
 5. golden  -- the port on the card (fp32, TF32 off) against the JAX RIFE 4.7
    output stored in ``tests/fixtures/torch_port_rife47_golden.npz``, >= 40 dB;
 6. timing  -- RIFE 4.7 1080p 2x bf16 batch 8 (the configuration of
-   ``bench.py:bench_rife``) in frames/s, and the warp kernel's ms per call at
-   ``[16, 1088, 1920, 7]`` bf16 beside the plain twin's;
+   ``bench.py:bench_rife``) in frames/s, a ``torch.profiler`` top 10 of one
+   forward with K1's device ms and share, and at ``[16, 1088, 1920, 7]`` bf16
+   with f32 flow the ms per call of K1, the plain twin and ``F.grid_sample``
+   on a precomputed grid (the library yardstick, which the port never
+   calls), in turns;
 7. splat   -- the splat kernel against its plain twin on the card, on the
    splat cases of ``tests/warp_cases.py`` (256x512 and the narrow frames, f32
-   and bf16) and at the M2M path's shape ``[16, 1088, 1920, 4]`` bf16.
+   and bf16; flows that pile 16 sources on a target, rough flow) and at the
+   M2M path's shape ``[16, 1088, 1920, 4]`` bf16.
    Tolerances: f32 atol 1e-5 on values in [0, 1] (fp32 atomics sum in an
    order that changes from run to run), bf16 one ulp of the output (2**-8 to
    2**-7 of the value);
@@ -35,45 +44,60 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    frames of 540x960, multipliers 2 and 3, batch 2, on the card in fp32 (TF32
    off) and bf16, each >= 40 dB against the same node on the CPU in fp32;
    original frames pass through bit for bit; exactly 1 splat launch per infer
-   call and 20 warp launches per reuse call;
+   call, and per reuse call 4 warp launches on K1 and 16 on the
+   wide kernel, as ``models.m2m.warps_per_reuse`` derives them from
+   ``warp_kernel.route``;
 9. golden  -- the port's M2M on the card (fp32, TF32 off) against the JAX M2M
    output stored in ``tests/fixtures/torch_port_m2m_golden.npz``, >= 40 dB;
 10. timing -- M2M 1080p 2x bf16 batch 2 (the configuration of
    ``bench.py:bench_m2m``) in frames/s through ``make_model_fn``, reuse and
    infer ms through ``make_pair_fns``, the splat kernel's ms per call at
    ``[16, 1088, 1920, 4]`` bf16 beside the plain twin's, and a
-   ``torch.profiler`` top 10 of one M2M forward with the kernels' share of
-   device time.
+   ``torch.profiler`` top 10 of one M2M forward with each kernel's device ms
+   and share (the splat's ms there is its time on M2M's rough flows).
 
 11. wide     -- the wide-channel warp kernel against the plain twin on the
    card, bit for bit (max abs err 0), on the wide cases of
    ``tests/warp_cases.py`` (C = 32, 64, 192, 448, 960, 46; a channel slice
    whose taps start off 16 bytes; extreme and non-finite flow; border and
    zeros, f32 and bf16, at 128x256) and at FILM's level-0 feature warp
-   ``[4, 1080, 1920, 64]`` bf16, where the per-pixel kernel must agree too;
+   ``[4, 1080, 1920, 64]`` bf16, where K1 must agree too,
+   and, as routed, at M2M's feature warps ``[2, 544, 960, 48]`` and ``[2,
+   68, 120, 384]`` bf16 in zeros mode;
 12. film     -- the FILM VFI node (``film_net_fp32.pt``, random weights from
    seed 0) on 4 frames of 270x480 (at 540x960 the CPU leg's 7 batch-2 fp32
    calls take about 2 minutes on 8 cores), multipliers 2 and 4, batch 2, on the card
    in fp32 (TF32 off) and bf16, each >= 40 dB against the same node on the
    CPU in fp32; original frames pass through bit for bit; exactly 11 wide and
-   5 per-pixel warp launches per forward call (``film.WARPS_PER_CALL``);
+   5 K1 warp launches per forward call (``film.WARPS_PER_CALL``);
 13. golden   -- the port's FILM on the card (fp32, TF32 off) against the JAX
    FILM output stored in ``tests/fixtures/torch_port_film_golden.npz``,
    >= 40 dB;
 14. timing   -- FILM 1080p 2x bf16 batch 2 (the configuration of
    ``bench.py:bench_film``) in frames/s, each stage's ms, the wide kernel's,
-   the per-pixel kernel's and the plain twin's ms per call on the same
-   tensors at ``[4, 1080, 1920, 64]`` and ``[4, 135, 240, 960]`` bf16, and a
-   ``torch.profiler`` top 10 of one FILM forward with both warp kernels'
-   shares of device time and the idle share.
+   K1's, the plain twin's and ``F.grid_sample``'s ms per
+   call on the same tensors at ``[4, 1080, 1920, 64]`` and ``[4, 135, 240,
+   960]`` bf16, and a ``torch.profiler`` top 10 of one FILM forward with the
+   warp kernels' device ms and shares and the idle share.
 
 Each main path (phases 4, 8 and 12) is driven with the launch counts set to
-0 just before it and read just after. Then the kernel table as one JSON line,
-and as the last line ``{"ok": true, "device": {...}}``. Nothing of JAX is
+0 just before it and read just after. Each profile (phases 6, 10, 14) also
+records the launches of one forward, as the model makes them, and gives
+each kernel its device ms there against the bound of those launches; a
+ranking line orders kernel and path by the ms above the bound. Then the
+kernel table as one JSON line: per kernel its launches (by path), max abs
+error, ms, the plain twin's ms,
+``grid_sample``'s ms (``library_ms``, null for the splat, which no single
+PyTorch call computes), its bound: the larger of the bytes it must move
+(inputs once, output once) over 3.35 TB/s and its f32 operations over 67
+TFLOP/s, with which of the two bounds it; and ``per_forward``, per path the
+launches, device ms, bound and ms above it of one 1080p bf16 forward.
+The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -83,8 +107,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-F32_ATOL = 2e-6
-BF16_ATOL = 2.0**-8
 MAIN_SHAPE = (16, 1088, 1920, 7)  # a batch-8 1080p RIFE warp: 2B images, 3+4 channels
 SPLAT_F32_ATOL = 1e-5
 SPLAT_SHAPE = (16, 1088, 1920, 4)  # a batch-2 1080p M2M splat: 2 directions x 2 pairs x 4 branches, 3+1 channels
@@ -92,6 +114,15 @@ M2M_HW = (540, 960)
 FILM_HW = (270, 480)
 FILM_WARP_SHAPES = ((4, 1080, 1920, 64), (4, 135, 240, 960))  # FILM 1080p batch 2: level-0 and level-3 feature warps
 WIDE_CHANNELS = (32, 64, 192, 448, 960)
+M2M_WIDE_SHAPES = ((2, 544, 960, 48), (2, 68, 120, 384))  # M2M 1080p batch 2: encoder-decoder feature warps
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
+# each kernel of the kernels line and its device kernels' names
+KERNEL_BODIES = {
+    "warp_bilinear": ("warp_bilinear_tiled_kernel",),
+    "warp_bilinear_wide": ("warp_bilinear_wide_kernel",),
+    "softsplat": ("softsplat_kernel",),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -124,6 +155,103 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, flops):
+    """The least ms the card could take: the larger of the bytes over the
+    memory rate and the f32 operations over the f32 rate, and which one."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def warp_work(planes, flow_planes):
+    """Bytes and f32 operations of one warp of ``[N, C, H, W]`` planes: the
+    image and flow read once, the output written once; 7 operations per
+    channel (4 products, 3 sums) and 14 per pixel for its coordinates and
+    weights."""
+    n, c, h, w = planes.shape
+    nbytes = 2 * planes.numel() * planes.element_size() + flow_planes.numel() * flow_planes.element_size()
+    return nbytes, n * h * w * (7 * c + 14)
+
+
+def splat_work(planes, flow_planes):
+    """Bytes and f32 operations of one splat of ``[N, C, H, W]`` planes: the
+    values and flow read once, the output written once in the values' dtype;
+    8 operations per channel (4 products, 4 sums) and 12 per source."""
+    n, c, h, w = planes.shape
+    nbytes = 2 * planes.numel() * planes.element_size() + flow_planes.numel() * flow_planes.element_size()
+    return nbytes, n * h * w * (8 * c + 12)
+
+
+def warp_bound(img, flow):
+    """Bound of one warp of NHWC ``img`` by ``flow``."""
+    return bound(*warp_work(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
+
+
+@contextlib.contextmanager
+def recorded_work(log):
+    """Inside, each call of a kernel wrapper appends ``(kernel, bytes, f32
+    operations)`` of its launch to ``log``, ``kernel`` named as in the
+    kernels line: the launches a model's forward really makes, at the shapes
+    it gives them."""
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+
+    wrappers = [
+        (warp_kernel, "warp_bilinear", "warp_bilinear", warp_work),
+        (warp_kernel, "warp_bilinear_wide", "warp_bilinear_wide", warp_work),
+        (softsplat_kernel, "softsplat_bilinear", "softsplat", splat_work),
+    ]
+    real = [getattr(module, attr) for module, attr, _, _ in wrappers]
+
+    def spy(fn, kernel, work):
+        def call(x, flow, *args, **kwargs):
+            log.append((kernel, *work(x, flow)))
+            return fn(x, flow, *args, **kwargs)
+
+        return call
+
+    try:
+        for (module, attr, kernel, work), fn in zip(wrappers, real):
+            setattr(module, attr, spy(fn, kernel, work))
+        yield log
+    finally:
+        for (module, attr, _, _), fn in zip(wrappers, real):
+            setattr(module, attr, fn)
+
+
+def routed_at_path_shape(shape, mode, flow_dtype, body, generator):
+    """``ops.warp.warp`` as routed against the plain twin at a main path's
+    NHWC ``shape`` (bf16 values, smooth flow in ``flow_dtype``): the route
+    must be ``body`` and the result bit-exact. Returns the max abs error."""
+    import torch
+    import warp_cases
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
+
+    img = torch.rand(shape, generator=generator).to("cuda", torch.bfloat16)
+    flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to("cuda", flow_dtype)
+    planes = img.permute(0, 3, 1, 2)
+    routed = warp_kernel.route(planes.shape, planes.stride(), img.dtype)
+    check(routed == body, f"{list(shape)} bf16 routed to {routed}, expected {body}")
+    got, ref = warp(img, flow, mode), warp_torch(img, flow, mode)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    check(torch.equal(got, ref), f"{routed} kernel vs plain at {list(shape)} bf16 {mode}, {flow_dtype} flow: max err {err}, not bit-exact")
+    return err
+
+
+def grid_sample_call(img, flow, padding_mode="border"):
+    """``F.grid_sample`` computing the warp of NHWC ``img`` by ``flow`` on a
+    precomputed grid, in the layout the path holds (channels_last planes)."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, w, _ = img.shape
+    gx = torch.arange(w, device=flow.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
+    gy = torch.arange(h, device=flow.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1).to(img.dtype)
+    planes = img.permute(0, 3, 1, 2)
+    return lambda: F.grid_sample(planes, grid, mode="bilinear", padding_mode=padding_mode, align_corners=True)
+
+
 def bf16_ulp_ok(got, ref):
     """Every element of ``got`` within one bf16 ulp of ``ref``'s value."""
     import torch
@@ -152,18 +280,22 @@ def shifted_pattern(n, h, w, seed, step=(6.0, 3.0)):
     return frames
 
 
-def profile_forward(what, model_fn, f0, f1, t, card, kernels):
-    """``torch.profiler`` over one forward of ``model_fn`` after warm-up: the
-    top 10 ops by device time, the share of the device time that each kernel
-    of ``kernels`` (label -> substring of its name) takes, and the device's
-    idle share of the wall time."""
+def profile_forward(what, model_fn, f0, f1, t, card):
+    """``torch.profiler`` over one forward of ``model_fn`` after a warm-up
+    forward whose kernel launches are recorded: the top 10 ops by device
+    time, each hand kernel's device ms and share of the device time, the
+    device's idle share of the wall time; and per kernel of the kernels line
+    that the forward launched, its launches, device ms and bound (the bytes
+    and operations of its recorded launches) and the ms above it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def device_us(evt):
         return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
-    model_fn(f0, f1, t)
+    log = []
+    with recorded_work(log):
+        model_fn(f0, f1, t)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -174,9 +306,11 @@ def profile_forward(what, model_fn, f0, f1, t, card, kernels):
     on_device = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
     device_total = sum(device_us(e) for e in on_device)
     check(device_total > 0, "profiler saw no device time")
+    body_us = {
+        body: sum(device_us(e) for e in on_device if body in e.key) for bodies in KERNEL_BODIES.values() for body in bodies
+    }
     shares = ", ".join(
-        f"{label} {100 * sum(device_us(e) for e in on_device if name in e.key) / device_total:.2f} %"
-        for label, name in kernels.items()
+        f"{body} {us / 1e3:.3f} ms ({100 * us / device_total:.2f} %)" for body, us in body_us.items() if us > 0
     )
     n_kernels = sum(e.count for e in on_device)
     ops = sorted((e for e in events if e not in on_device and device_us(e) > 0), key=device_us, reverse=True)
@@ -188,6 +322,20 @@ def profile_forward(what, model_fn, f0, f1, t, card, kernels):
     )
     for e in ops[:10]:
         print(f"  profile op {e.key}: {device_us(e) / 1e3:.3f} ms ({100 * device_us(e) / device_total:.2f} %), {e.count} calls")
+    per_kernel = {}
+    for kernel, bodies in KERNEL_BODIES.items():
+        work = [(nbytes, ops_) for k, nbytes, ops_ in log if k == kernel]
+        if not work:
+            continue
+        b = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        dev_ms = sum(body_us[body] for body in bodies) / 1e3
+        per_kernel[kernel] = {"launches": len(work), "device_ms": dev_ms, "bound_ms": b[0], "bound_by": b[1], "above_bound_ms": dev_ms - b[0]}
+        print(
+            f"  profile kernel {kernel}: {len(work)} launches, {dev_ms:.3f} ms on the device, bound {b[0]:.3f} ms "
+            f"({b[1]}), {dev_ms - b[0]:.3f} ms above it",
+            flush=True,
+        )
+    return per_kernel
 
 
 def main() -> int:
@@ -235,20 +383,30 @@ def main() -> int:
         f"(nvcc, in parallel: {time.perf_counter() - t0:.2f} s in all), both loaded",
         flush=True,
     )
+    for name in ("warp", "softsplat"):
+        log = next((v for k, v in build.build_logs.items() if k[0] == name), "")
+        for line in build.ptxas_summary(log) or ["built before this process: no ptxas log"]:
+            print(f"build {card}: {name}.cu {line}", flush=True)
 
     # ---- 3. kernel vs plain on the card --------------------------------------
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    n_cases = 0
+    n_cases, bodies = 0, {}
     for case in warp_cases.warp_cases(0, 256, 512):
         for mode in case["modes"]:
-            for dtype, atol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+            for dtype in (torch.float32, torch.bfloat16):
                 img = torch.from_numpy(case["img"]).to(dev, dtype)
                 flow = torch.from_numpy(case["flow"]).to(dev)
-                got, ref = warp(img, flow, mode), warp_torch(img, flow, mode)
+                planes, fplanes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+                routed = warp_kernel.route(planes.shape, planes.stride(), dtype)
+                bodies[routed] = bodies.get(routed, 0) + 1
+                ref = warp_torch(img, flow, mode)
+                outs = {
+                    f"routed ({routed})": warp(img, flow, mode),
+                    "K1": warp_kernel.warp_bilinear(planes, fplanes, mode == "zeros").permute(0, 2, 3, 1),
+                }
                 torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                check(err <= atol, f"kernel vs plain: {case['name']} {mode} {dtype}: max err {err} > {atol}")
-                worst[dtype] = max(worst[dtype], err)
+                for body, got in outs.items():
+                    err = (got.float() - ref.float()).abs().max().item()
+                    check(torch.equal(got, ref), f"kernel vs plain: {case['name']} {mode} {dtype} {body}: max err {err}, not bit-exact")
                 n_cases += 1
     g = torch.Generator().manual_seed(0)
     main_img = torch.rand(MAIN_SHAPE, generator=g).to(dev, torch.bfloat16)
@@ -256,11 +414,24 @@ def main() -> int:
     got, ref = warp(main_img, main_flow), warp_torch(main_img, main_flow)
     torch.cuda.synchronize()
     main_err = (got.float() - ref.float()).abs().max().item()
-    check(main_err <= BF16_ATOL, f"kernel vs plain at {MAIN_SHAPE}: max err {main_err} > {BF16_ATOL}")
+    check(torch.equal(got, ref), f"K1 vs plain at {MAIN_SHAPE}: max err {main_err}, not bit-exact")
     del got, ref
+    # K1's C = 7 and C = 3 builds at the other shapes and flows
+    # of the main paths: RIFE's bf16 model (bf16 flow), RIFE's image warp,
+    # M2M's image warps (zeros)
+    path_errs = {
+        f"{list(shape)} {mode} {str(fd).split('.')[-1]} flow": routed_at_path_shape(shape, mode, fd, "tiled", g)
+        for shape, mode, fd in (
+            (MAIN_SHAPE, "border", torch.bfloat16),
+            ((16, 1088, 1920, 3), "border", torch.float32),
+            ((16, 1088, 1920, 3), "border", torch.bfloat16),
+            ((8, 1088, 1920, 3), "zeros", torch.bfloat16),
+        )
+    }
     print(
-        f"kernel vs plain: {n_cases} cases at 256x512 max err f32 {worst[torch.float32]} (tol {F32_ATOL}), "
-        f"bf16 {worst[torch.bfloat16]} (tol {BF16_ATOL}); {list(MAIN_SHAPE)} bf16 max err {main_err}",
+        f"kernel vs plain: {n_cases} case x mode x dtype runs at 256x512 (routed to {bodies}), the routed kernel "
+        f"and K1 each bit-exact (max err 0); {list(MAIN_SHAPE)} bf16 K1 max err {main_err}; "
+        f"K1 at the paths' shapes, bf16: " + ", ".join(f"{k} max err {v}" for k, v in path_errs.items()),
         flush=True,
     )
 
@@ -273,7 +444,7 @@ def main() -> int:
     calls_per_run = math.ceil(len(plan_timestep(4, multiplier).tasks) / batch)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    warp_kernel.launches = 0
+    warp_kernel.launches = warp_kernel.wide_launches = 0
     (out_f32,) = node.vfi("rife47.pth", frames, dtype="float32", device="cuda", **kw)
     (out_bf16,) = node.vfi("rife47.pth", frames, dtype="bfloat16", device="cuda", **kw)
     torch.cuda.synchronize()
@@ -294,7 +465,8 @@ def main() -> int:
     )
     print(
         f"node: RIFE 4.7 4x540x960 x2 batch {batch} -> {n_out} frames; cuda fp32 vs cpu {p32:.2f} dB, "
-        f"cuda bf16 vs cpu fp32 {p16:.2f} dB; warp launches {rife_warp_launches} = 4 x {2 * calls_per_run} forward calls",
+        f"cuda bf16 vs cpu fp32 {p16:.2f} dB; K1 launches {rife_warp_launches} = 4 x {2 * calls_per_run} forward "
+        f"calls",
         flush=True,
     )
 
@@ -319,16 +491,26 @@ def main() -> int:
     f1 = torch.from_numpy(np.random.default_rng(1).random((8, 1080, 1920, 3), dtype=np.float32)).to(dev)
     t = torch.full((8,), 0.5, device=dev)
     fps = 8 / measure(model_fn, f0, f1, t, iters=10, rounds=3)
+    rife_profile = profile_forward("RIFE 4.7 1080p bf16 b8", model_fn, f0, f1, t, card)
     del f0, f1
-    # plain, kernel, kernel, plain: the two versions are compared in turns
-    plain_a = cuda_ms(lambda: warp_torch(main_img, main_flow), 5)
-    kern_a = cuda_ms(lambda: warp(main_img, main_flow), 50)
-    kern_b = cuda_ms(lambda: warp(main_img, main_flow), 50)
-    plain_b = cuda_ms(lambda: warp_torch(main_img, main_flow), 5)
-    kernel_ms, plain_ms = statistics.mean((kern_a, kern_b)), statistics.mean((plain_a, plain_b))
+    # plain, K1, grid_sample, grid_sample, K1, plain
+    calls = {
+        "plain": (lambda: warp_torch(main_img, main_flow), 5),
+        "K1": (lambda: warp(main_img, main_flow), 50),
+        "grid_sample": (grid_sample_call(main_img, main_flow), 20),
+    }
+    order = ["plain", "K1", "grid_sample"]
+    k1_times = {k: [] for k in order}
+    for name in order + order[::-1]:
+        fn, iters = calls[name]
+        k1_times[name].append(cuda_ms(fn, iters))
+    del calls
+    k1_ms = {k: statistics.mean(v) for k, v in k1_times.items()}
+    k1_bound = warp_bound(main_img, main_flow)
     print(
-        f"timing {card}: RIFE 4.7 1080p 2x bf16 batch 8 {fps:.2f} frames/s; warp {list(MAIN_SHAPE)} bf16 "
-        f"kernel {kernel_ms:.4f} ms ({kern_a:.4f}, {kern_b:.4f}), plain {plain_ms:.4f} ms ({plain_a:.4f}, {plain_b:.4f})",
+        f"timing {card}: RIFE 4.7 1080p 2x bf16 batch 8 {fps:.2f} frames/s; warp {list(MAIN_SHAPE)} bf16, f32 flow: "
+        + ", ".join(f"{k} {k1_ms[k]:.4f} ms {k1_times[k]}" for k in order)
+        + f"; bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), K1 at {100 * k1_bound[0] / k1_ms['K1']:.1f} % of it",
         flush=True,
     )
 
@@ -375,22 +557,29 @@ def main() -> int:
     expect_reuse, expect_infer = 2 * expect_reuse, 2 * expect_infer  # fp32 and bf16
     outs = {}
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    warp_kernel.launches = softsplat_kernel.launches = 0
+    warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
     for multiplier in (2, 3):
         for dtype in ("float32", "bfloat16"):
             (outs[multiplier, dtype],) = node.vfi(
                 "M2M.pth", frames, multiplier=multiplier, batch_size=batch, dtype=dtype, params=m2m_params, device="cuda"
             )
     torch.cuda.synchronize()
-    m2m_warp_launches, m2m_splat_launches = warp_kernel.launches, softsplat_kernel.launches
+    m2m_warp_launches, m2m_wide = warp_kernel.launches, warp_kernel.wide_launches
+    m2m_splat_launches = softsplat_kernel.launches
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    split = m2m.warps_per_reuse(torch.float32)
+    check(split == m2m.warps_per_reuse(torch.bfloat16), "M2M's warp split differs between fp32 and bf16")
     check(
         m2m_splat_launches == expect_infer,
         f"splat launches {m2m_splat_launches} != 1 x {expect_infer} infer calls",
     )
     check(
-        m2m_warp_launches == m2m.WARPS_PER_REUSE * expect_reuse,
-        f"warp launches {m2m_warp_launches} != {m2m.WARPS_PER_REUSE} x {expect_reuse} reuse calls",
+        m2m_warp_launches == split["narrow"] * expect_reuse,
+        f"K1 launches {m2m_warp_launches} != {split['narrow']} x {expect_reuse} reuse calls",
+    )
+    check(
+        m2m_wide == split["wide"] * expect_reuse,
+        f"wide warp launches {m2m_wide} != {split['wide']} x {expect_reuse} reuse calls",
     )
     m2m_psnr = []
     t0 = time.perf_counter()
@@ -413,8 +602,9 @@ def main() -> int:
     cpu_s = time.perf_counter() - t0
     print(
         f"m2m: M2M node 4x{M2M_HW[0]}x{M2M_HW[1]} x2 and x3 batch {batch}, cuda vs cpu fp32: {', '.join(m2m_psnr)} "
-        f"(cpu leg {cpu_s:.1f} s); splat launches {m2m_splat_launches} = 1 x {expect_infer} infer calls, "
-        f"warp launches {m2m_warp_launches} = {m2m.WARPS_PER_REUSE} x {expect_reuse} reuse calls",
+        f"(cpu leg {cpu_s:.1f} s); splat launches {m2m_splat_launches} = 1 x {expect_infer} infer calls; "
+        f"warp launches per reuse call {split}: K1 {m2m_warp_launches}, wide {m2m_wide}, "
+        f"over {expect_reuse} reuse calls",
         flush=True,
     )
     del outs, out_cpu
@@ -450,6 +640,7 @@ def main() -> int:
     splat_plain_b = cuda_ms(lambda: softsplat_torch(splat_vals, splat_flow), 3)
     splat_ms = statistics.mean((splat_kern_a, splat_kern_b))
     splat_plain_ms = statistics.mean((splat_plain_a, splat_plain_b))
+    splat_bound = bound(*splat_work(splat_vals.permute(0, 3, 1, 2), splat_flow.permute(0, 3, 1, 2)))
     del splat_vals, splat_flow
     print(
         f"timing {card}: M2M 1080p 2x bf16 batch 2 {m2m_fps:.3f} frames/s; reuse {reuse_ms:.3f} ms, infer "
@@ -457,10 +648,12 @@ def main() -> int:
         f"({splat_kern_a:.4f}, {splat_kern_b:.4f}), plain {splat_plain_ms:.4f} ms ({splat_plain_a:.4f}, {splat_plain_b:.4f})",
         flush=True,
     )
-    profile_forward(
-        "M2M 1080p bf16 b2", model_fn, f0, f1, t, card,
-        {"splat kernel": "softsplat_kernel", "warp kernel": "warp_bilinear_kernel"},
+    print(
+        f"timing {card}: splat {list(SPLAT_SHAPE)} bf16 bound {splat_bound[0]:.4f} ms ({splat_bound[1]}: values and "
+        f"flow in, bf16 out), the op at {100 * splat_bound[0] / splat_ms:.1f} % of it",
+        flush=True,
     )
+    m2m_profile = profile_forward("M2M 1080p bf16 b2", model_fn, f0, f1, t, card)
     del f0, f1
 
     # ---- 11. wide warp kernel vs plain on the card ---------------------------
@@ -478,17 +671,25 @@ def main() -> int:
     wide_img = torch.rand(FILM_WARP_SHAPES[0], generator=g).to(dev, torch.bfloat16)
     wide_flow = torch.from_numpy(warp_cases.smooth_flow(*FILM_WARP_SHAPES[0][:3], amp=6.0)).to(dev)
     got, ref = warp(wide_img, wide_flow, prefer_wide=True), warp_torch(wide_img, wide_flow)
-    k1 = warp(wide_img, wide_flow)
+    k1 = warp_kernel.warp_bilinear(wide_img.permute(0, 3, 1, 2), wide_flow.permute(0, 3, 1, 2))
+    k1 = k1.permute(0, 2, 3, 1)
     torch.cuda.synchronize()
     wide_err = (got.float() - ref.float()).abs().max().item()
     k1_err = (k1.float() - ref.float()).abs().max().item()
     check(torch.equal(got, ref), f"wide kernel vs plain at {FILM_WARP_SHAPES[0]}: max err {wide_err}, not bit-exact")
-    check(torch.equal(k1, ref), f"per-pixel kernel vs plain at {FILM_WARP_SHAPES[0]}: max err {k1_err}, not bit-exact")
+    check(torch.equal(k1, ref), f"K1 vs plain at {FILM_WARP_SHAPES[0]}: max err {k1_err}, not bit-exact")
     del got, ref, k1
+    # M2M's feature warps, which the route sends to the wide kernel (zeros,
+    # bf16 flow): the encoder-decoder's first and last levels
+    m2m_errs = {
+        f"{list(shape)}": routed_at_path_shape(shape, "zeros", torch.bfloat16, "wide", g)
+        for shape in M2M_WIDE_SHAPES
+    }
     print(
         f"wide kernel vs plain: {n_cases} cases at 128x256 (C {', '.join(map(str, WIDE_CHANNELS))}, 46, unaligned, "
         f"extreme, non-finite) bit-exact (max err 0); {list(FILM_WARP_SHAPES[0])} bf16 max err wide {wide_err}, "
-        f"per-pixel {k1_err}",
+        f"K1 {k1_err}; routed to it at M2M's shapes, bf16 zeros, bf16 flow: "
+        + ", ".join(f"{k} max err {v}" for k, v in m2m_errs.items()),
         flush=True,
     )
 
@@ -518,7 +719,7 @@ def main() -> int:
     )
     check(
         film_warp_launches == film.WARPS_PER_CALL["narrow"] * film_calls,
-        f"per-pixel warp launches {film_warp_launches} != {film.WARPS_PER_CALL['narrow']} x {film_calls} forward calls",
+        f"K1 launches {film_warp_launches} != {film.WARPS_PER_CALL['narrow']} x {film_calls} forward calls",
     )
     film_psnr = []
     t0 = time.perf_counter()
@@ -543,7 +744,7 @@ def main() -> int:
     print(
         f"film: FILM node 4x{FILM_HW[0]}x{FILM_HW[1]} x2 and x4 batch {batch}, cuda vs cpu fp32: {', '.join(film_psnr)} "
         f"(cpu leg {cpu_s:.1f} s); wide warp launches {film_wide_launches} = {film.WARPS_PER_CALL['wide']} x "
-        f"{film_calls} forward calls, per-pixel warp launches {film_warp_launches} = "
+        f"{film_calls} forward calls, K1 launches {film_warp_launches} = "
         f"{film.WARPS_PER_CALL['narrow']} x {film_calls}",
         flush=True,
     )
@@ -596,32 +797,53 @@ def main() -> int:
         if shape != FILM_WARP_SHAPES[0]:
             wide_img = torch.rand(shape, generator=g).to(dev, torch.bfloat16)
             wide_flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
-        # plain, wide, per-pixel, per-pixel, wide, plain: the versions in turns
-        plain_a = cuda_ms(lambda: warp_torch(wide_img, wide_flow), 3)
-        wide_a = cuda_ms(lambda: warp(wide_img, wide_flow, prefer_wide=True), 30)
-        k1_a = cuda_ms(lambda: warp(wide_img, wide_flow), 10)
-        k1_b = cuda_ms(lambda: warp(wide_img, wide_flow), 10)
-        wide_b = cuda_ms(lambda: warp(wide_img, wide_flow, prefer_wide=True), 30)
-        plain_b = cuda_ms(lambda: warp_torch(wide_img, wide_flow), 3)
+        # plain, wide, K1, grid_sample, then back: the versions in turns
+        planes, fplanes = wide_img.permute(0, 3, 1, 2), wide_flow.permute(0, 3, 1, 2)
+        calls = {
+            "plain": (lambda: warp_torch(wide_img, wide_flow), 3),
+            "wide": (lambda: warp(wide_img, wide_flow, prefer_wide=True), 30),
+            "K1": (lambda: warp_kernel.warp_bilinear(planes, fplanes), 10),
+            "grid_sample": (grid_sample_call(wide_img, wide_flow), 10),
+        }
+        order = ["plain", "wide", "K1", "grid_sample"]
+        times = {k: [] for k in order}
+        for name in order + order[::-1]:
+            fn, iters = calls[name]
+            times[name].append(cuda_ms(fn, iters))
+        del calls, planes, fplanes
         key = "x".join(map(str, shape))
+        wb = warp_bound(wide_img, wide_flow)
         wide_times[key] = {
-            "ms": statistics.mean((wide_a, wide_b)),
-            "k1_ms": statistics.mean((k1_a, k1_b)),
-            "plain_ms": statistics.mean((plain_a, plain_b)),
+            "ms": statistics.mean(times["wide"]),
+            "k1_ms": statistics.mean(times["K1"]),
+            "plain_ms": statistics.mean(times["plain"]),
+            "library_ms": statistics.mean(times["grid_sample"]),
+            "bound_ms": wb[0],
+            "bound_by": wb[1],
         }
         print(
-            f"timing {card}: warp {list(shape)} bf16 wide kernel {wide_times[key]['ms']:.4f} ms ({wide_a:.4f}, {wide_b:.4f}), "
-            f"per-pixel kernel {wide_times[key]['k1_ms']:.4f} ms ({k1_a:.4f}, {k1_b:.4f}), "
-            f"plain {wide_times[key]['plain_ms']:.4f} ms ({plain_a:.4f}, {plain_b:.4f})",
+            f"timing {card}: warp {list(shape)} bf16, f32 flow: "
+            + ", ".join(f"{k} {statistics.mean(times[k]):.4f} ms {times[k]}" for k in order)
+            + f"; bound {wb[0]:.4f} ms ({wb[1]}), wide at {100 * wb[0] / wide_times[key]['ms']:.1f} % of it",
             flush=True,
         )
     del wide_img, wide_flow
-    profile_forward(
-        "FILM 1080p bf16 b2", model_fn, f0, f1, t, card,
-        {"wide warp kernel": "warp_bilinear_wide_kernel", "per-pixel warp kernel": "warp_bilinear_kernel"},
-    )
+    film_profile = profile_forward("FILM 1080p bf16 b2", model_fn, f0, f1, t, card)
     del f0, f1
     wide_main = wide_times["x".join(map(str, FILM_WARP_SHAPES[0]))]
+    # per kernel and 1080p bf16 path, one forward's launches, device ms and
+    # bound, ranked by the ms above the bound
+    profiles = {"rife": rife_profile, "m2m": m2m_profile, "film": film_profile}
+    per_forward = {k: {path: prof[k] for path, prof in profiles.items() if k in prof} for k in KERNEL_BODIES}
+    ranked = sorted(
+        ((k, path, v) for k, paths in per_forward.items() for path, v in paths.items()),
+        key=lambda e: e[2]["above_bound_ms"], reverse=True,
+    )
+    print(
+        f"ranking {card}: ms above the bound per 1080p bf16 forward: "
+        + "; ".join(f"{k} on {path} {v['above_bound_ms']:.3f} ({v['launches']} launches)" for k, path, v in ranked),
+        flush=True,
+    )
 
     print(json.dumps({"kernels": [
         {
@@ -632,21 +854,31 @@ def main() -> int:
             "launches": rife_warp_launches + m2m_warp_launches + film_warp_launches,
             "launches_by_path": {"rife": rife_warp_launches, "m2m": m2m_warp_launches, "film": film_warp_launches},
             "max_abs_err": main_err,
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
+            "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
+            "ms": k1_ms["K1"],
+            "plain_ms": k1_ms["plain"],
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": k1_ms["grid_sample"],
+            "per_forward": per_forward["warp_bilinear"],
         },
         {
             "name": "warp_bilinear_wide",
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:297",
-            "launches": film_wide_launches,
-            "launches_by_path": {"film": film_wide_launches},
+            "launches": m2m_wide + film_wide_launches,
+            "launches_by_path": {"m2m": m2m_wide, "film": film_wide_launches},
             "max_abs_err": wide_err,
+            "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
             "ms": wide_main["ms"],
             "plain_ms": wide_main["plain_ms"],
-            "per_pixel_kernel_ms": wide_main["k1_ms"],
+            "k1_ms": wide_main["k1_ms"],
+            "bound_ms": wide_main["bound_ms"],
+            "bound_by": wide_main["bound_by"],
+            "library_ms": wide_main["library_ms"],
             "by_shape": wide_times,
+            "per_forward": per_forward["warp_bilinear_wide"],
         },
         {
             "name": "softsplat",
@@ -656,8 +888,14 @@ def main() -> int:
             "launches": m2m_splat_launches,
             "launches_by_path": {"m2m": m2m_splat_launches},
             "max_abs_err": splat_err,
+            "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
             "ms": splat_ms,
             "plain_ms": splat_plain_ms,
+            "kernel_ms_in_m2m_forward": m2m_profile["softsplat"]["device_ms"],
+            "bound_ms": splat_bound[0],
+            "bound_by": splat_bound[1],
+            "library_ms": None,
+            "per_forward": per_forward["softsplat"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ functions keep the JAX package's NHWC layout; CPU tensors take each kernel's
 plain PyTorch twin, so the package imports and runs on a machine with no GPU.
 
 Ported so far: the RIFE VFI node (arch 4.7, 4.17, 4.26), the M2M VFI node and
-the FILM VFI node end to end, with the backward-warp (per-pixel and
+the FILM VFI node end to end, with the backward-warp (narrow-channel K1 and
 wide-channel) and forward-splat kernels. ``ROADMAP.md`` lists what is still to
 be ported.
 """

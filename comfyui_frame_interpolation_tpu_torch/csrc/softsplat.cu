@@ -10,9 +10,9 @@
 // matmuls on the MXU: they tile the frame, DMA a target window per tile, split
 // the sources into displacement bands, fold wide C into the batch, and leave
 // the sources outside every band to an XLA scatter residual. Hopper has fast
-// fp32 atomics in L2, so none of that is carried over: one thread takes one
-// source pixel and adds its value into the four target corners with
-// atomicAdd, exact for any displacement.
+// fp32 atomics in L2, so none of that is carried over: each source adds its
+// value into its four target corners with atomics, exact for any
+// displacement.
 //
 // What it computes (the plain twin is ops/softsplat.py:softsplat_torch):
 //   fx = float(x) + flow_x, fy = float(y) + flow_y                    (f32)
@@ -27,27 +27,50 @@
 // The sums are fp32 atomics, whose order changes from run to run: the result
 // matches the twin to rounding, not bit for bit.
 //
-// What bounds it on H100: L2 atomic throughput. At M2M's 1080p batch-2 shape
-// ([16, 4, 1088, 1920]) one call issues 33.4 M sources x 4 corners x 4
-// channels = 535 M fp32 atomics, against about 0.8 GB of reads (values and
-// flow) and 0.53 GB of f32 output. Neighbouring sources land on neighbouring
-// targets for smooth flow, so a warp's atomics mostly hit the same L2 lines;
-// rough flows pile many sources onto a few targets and serialise on them.
-// The design does nothing more about it yet: a thread per source pixel, a
-// loop over C, 64-bit element strides so NCHW, channels_last and NHWC views
-// all work without a copy. Warp-aggregated or shared-memory pre-reduction of
-// the atomics is later work.
+// What bounds it on H100. The least traffic is the values and the flow in and
+// the output once: at M2M's 1080p batch-2 splat ([16, 4, 1088, 1920] bf16,
+// f32 flow, bf16 out) 0.80 GB, 0.239 ms at 3.35 TB/s. A thread per source
+// with one scalar atomic per corner and channel issues 33.4 M x 4 x 4 =
+// 535 M L2 atomics there, and that atomic rate, not the bytes, bounded the
+// first version of this kernel. This one cuts the atomic operations:
+//   1. vector atomics: a pixel's channels go to L2 as one atomicAdd(float4*)
+//      (or float2) where the output has channel stride 1 and the pixel's
+//      address is 16 (8) bytes aligned, as M2M's C = 4 NHWC output is;
+//      other layouts and channel tails take scalar atomics;
+//   2. pre-reduction of the corners that neighbouring sources share, for
+//      C <= kMergeC (M2M's 4). A block takes a tile of kTileH x kTileW
+//      sources, a thread each. Rows: each thread leaves its lower corners'
+//      targets and sums in shared memory; the thread below takes them into
+//      its upper corners when they land on the same pixels (plain stores and
+//      loads between two barriers). Columns: a lane whose right corners are
+//      the next lane's left corners hands their sums over by warp shuffles.
+//      Then one atomic per corner left. For smooth flow most corners merge
+//      (all but the tile's last row hand their lower pair down); rough flow
+//      merges less, and a merge is exact whatever the flow.
+// A shared-memory box of f32 sums filled with shared atomics is not used:
+// Hopper has no native shared-memory f32 atomic add (nvcc emits a
+// compare-and-swap loop, ATOMS.CAST.SPIN in the SASS), and that design was
+// slower than the direct vector atomics on the H100.
 //
 // The output buffer is f32 and zeroed by the caller; the kernel only adds.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+constexpr int kTileW = 32;  // one warp per tile row
+constexpr int kTileH = 8;
+constexpr int kThreads = kTileW * kTileH;
+// the widest input whose corners neighbouring sources merge before the
+// atomics
+constexpr int kMergeC = 4;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -61,77 +84,209 @@ struct Strides {
   int64_t n, c, h, w;
 };
 
-template <typename TI>
-__device__ __forceinline__ void splat_corner(const TI* src, float* dst,
-                                             int64_t c, int64_t si_c,
-                                             int64_t so_c, float weight) {
-  for (int64_t ch = 0; ch < c; ++ch) {
-    atomicAdd(dst + ch * so_c, __fmul_rn(load_f32(src + ch * si_c), weight));
+// A source's flow (x, y): one 8-byte (f32) or 4-byte (bf16, f16) load where
+// the two channels are adjacent and aligned, else two loads.
+template <typename TF>
+__device__ __forceinline__ void load_flow(const TF* fp, int64_t stride_c,
+                                          float& fx, float& fy) {
+  if (stride_c == 1 &&
+      (reinterpret_cast<uintptr_t>(fp) & (2 * sizeof(TF) - 1)) == 0) {
+    if constexpr (sizeof(TF) == 4) {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(fp));
+      fx = f.x;
+      fy = f.y;
+    } else {
+      const unsigned int bits = __ldg(reinterpret_cast<const unsigned int*>(fp));
+      TF pair[2];
+      memcpy(pair, &bits, sizeof(bits));
+      fx = load_f32(&pair[0]);
+      fy = load_f32(&pair[1]);
+    }
+  } else {
+    fx = load_f32(fp);
+    fy = load_f32(fp + stride_c);
+  }
+}
+
+// out[ch * so_c] += value(ch) for ch < c: one float4 or float2 atomic per
+// aligned group of channels where the channel stride is 1, scalar otherwise.
+template <typename F>
+__device__ __forceinline__ void add_pixel(float* dst, int64_t c, int64_t so_c,
+                                          F value) {
+  int64_t ch = 0;
+  if (so_c == 1) {
+    for (; ch + 4 <= c && (reinterpret_cast<uintptr_t>(dst + ch) & 15) == 0;
+         ch += 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst + ch),
+                make_float4(value(ch), value(ch + 1), value(ch + 2),
+                            value(ch + 3)));
+    }
+    for (; ch + 2 <= c && (reinterpret_cast<uintptr_t>(dst + ch) & 7) == 0;
+         ch += 2) {
+      atomicAdd(reinterpret_cast<float2*>(dst + ch),
+                make_float2(value(ch), value(ch + 1)));
+    }
+  }
+  for (; ch < c; ++ch) atomicAdd(dst + ch * so_c, value(ch));
+}
+
+// out[ch * so_c] += s[ch] for ch < c <= kMergeC: one float4 or float2 atomic
+// where the channel stride is 1 and the address aligned, else scalar ones.
+__device__ __forceinline__ void add_sums(float* dst, int64_t c, int64_t so_c,
+                                         const float (&s)[kMergeC]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  if (so_c == 1 && c == 4 && (a & 15) == 0) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(s[0], s[1], s[2], s[3]));
+  } else if (so_c == 1 && c == 2 && (a & 7) == 0) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(s[0], s[1]));
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < kMergeC; ++ch) {
+      if (ch < c) atomicAdd(dst + ch * so_c, s[ch]);
+    }
   }
 }
 
 template <typename TI, typename TF>
-__global__ void softsplat_kernel(const TI* __restrict__ in,
-                                 const TF* __restrict__ flow,
-                                 float* __restrict__ out, int64_t c,
-                                 int64_t h, int64_t w, Strides si, Strides sf,
-                                 Strides so) {
-  // grid (ceil(w / blockDim.x), h, n): no 64-bit division per thread
-  const int64_t x =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (x >= w) return;
-  const int64_t y = blockIdx.y;
+__global__ void __launch_bounds__(kThreads)
+    softsplat_kernel(const TI* __restrict__ in, const TF* __restrict__ flow,
+                     float* __restrict__ out, int64_t c, int64_t h, int64_t w,
+                     Strides si, Strides sf, Strides so) {
+  // grid (ceil(w / kTileW), ceil(h / kTileH), n), block (kTileW, kTileH)
+  // each source's lower corners, as the row below reads them
+  __shared__ int low_x[kTileH][kTileW];
+  __shared__ int low_y[kTileH][kTileW];
+  __shared__ float low_sum[kTileH][2][kMergeC][kTileW];
+  __shared__ bool low_taken[kTileH][kTileW];
+
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int64_t x = static_cast<int64_t>(blockIdx.x) * kTileW + tx;
+  const int64_t y = static_cast<int64_t>(blockIdx.y) * kTileH + ty;
   const int64_t b = blockIdx.z;
 
-  const TF* fp = flow + b * sf.n + y * sf.h + x * sf.w;
-  float fx = __fadd_rn(static_cast<float>(x), load_f32(fp));
-  float fy = __fadd_rn(static_cast<float>(y), load_f32(fp + sf.c));
-  if (!(isfinite(fx) && isfinite(fy))) return;
-  const float fw = static_cast<float>(w);
-  const float fh = static_cast<float>(h);
-  fx = fminf(fmaxf(fx, -2.0f * fw), 2.0f * fw);
-  fy = fminf(fmaxf(fy, -2.0f * fh), 2.0f * fh);
-
-  const float x0 = floorf(fx);
-  const float y0 = floorf(fy);
-  const float wx1 = __fsub_rn(fx, x0);
-  const float wy1 = __fsub_rn(fy, y0);
-  const float wx0 = __fsub_rn(1.0f, wx1);
-  const float wy0 = __fsub_rn(1.0f, wy1);
-
-  const int64_t ix0 = static_cast<int64_t>(x0);
-  const int64_t iy0 = static_cast<int64_t>(y0);
+  // 1. the source's corners and weights, as the first version computed them
+  bool live = x < w && y < h;
+  int64_t ix0 = 0, iy0 = 0;
+  float wx0 = 0.0f, wx1 = 0.0f, wy0 = 0.0f, wy1 = 0.0f;
+  if (live) {
+    float fx, fy;
+    load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
+    fx = __fadd_rn(static_cast<float>(x), fx);
+    fy = __fadd_rn(static_cast<float>(y), fy);
+    live = isfinite(fx) && isfinite(fy);
+    if (live) {
+      const float fw = static_cast<float>(w);
+      const float fh = static_cast<float>(h);
+      fx = fminf(fmaxf(fx, -2.0f * fw), 2.0f * fw);
+      fy = fminf(fmaxf(fy, -2.0f * fh), 2.0f * fh);
+      const float x0 = floorf(fx);
+      const float y0 = floorf(fy);
+      wx1 = __fsub_rn(fx, x0);
+      wy1 = __fsub_rn(fy, y0);
+      wx0 = __fsub_rn(1.0f, wx1);
+      wy0 = __fsub_rn(1.0f, wy1);
+      ix0 = static_cast<int64_t>(x0);
+      iy0 = static_cast<int64_t>(y0);
+    }
+  }
   const int64_t ix1 = ix0 + 1;
   const int64_t iy1 = iy0 + 1;
-  const bool vx0 = ix0 >= 0 && ix0 < w;
-  const bool vx1 = ix1 >= 0 && ix1 < w;
-  const bool vy0 = iy0 >= 0 && iy0 < h;
-  const bool vy1 = iy1 >= 0 && iy1 < h;
-
+  const bool vx0 = live && ix0 >= 0 && ix0 < w;
+  const bool vx1 = live && ix1 >= 0 && ix1 < w;
+  const bool vy0 = live && iy0 >= 0 && iy0 < h;
+  const bool vy1 = live && iy1 >= 0 && iy1 < h;
+  // corners 0 .. 3: y0x0, y0x1, y1x0, y1x1
+  bool valid[4] = {vy0 && vx0, vy0 && vx1, vy1 && vx0, vy1 && vx1};
+  const float weight[4] = {__fmul_rn(wx0, wy0), __fmul_rn(wx1, wy0),
+                           __fmul_rn(wx0, wy1), __fmul_rn(wx1, wy1)};
   const TI* src = in + b * si.n + y * si.h + x * si.w;
   float* ob = out + b * so.n;
-  if (vy0 && vx0)
-    splat_corner(src, ob + iy0 * so.h + ix0 * so.w, c, si.c, so.c,
-                 __fmul_rn(wx0, wy0));
-  if (vy0 && vx1)
-    splat_corner(src, ob + iy0 * so.h + ix1 * so.w, c, si.c, so.c,
-                 __fmul_rn(wx1, wy0));
-  if (vy1 && vx0)
-    splat_corner(src, ob + iy1 * so.h + ix0 * so.w, c, si.c, so.c,
-                 __fmul_rn(wx0, wy1));
-  if (vy1 && vx1)
-    splat_corner(src, ob + iy1 * so.h + ix1 * so.w, c, si.c, so.c,
-                 __fmul_rn(wx1, wy1));
+  auto corner = [&](int k) {
+    return ob + ((k & 2) ? iy1 : iy0) * so.h + ((k & 1) ? ix1 : ix0) * so.w;
+  };
+
+  if (c <= kMergeC) {
+    // 2. the corners' sums, to be merged with the neighbours' that land on
+    // the same pixels
+    float sum[4][kMergeC];
+#pragma unroll
+    for (int ch = 0; ch < kMergeC; ++ch) {
+      const float v = ch < c && live ? load_f32(src + ch * si.c) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum[k][ch] = __fmul_rn(v, weight[k]);
+    }
+    // 3. rows: a source whose upper corners are the lower corners of the
+    // source above it (same tile column) takes their sums
+    const int key_x = live ? static_cast<int>(ix0) : INT_MIN;
+    low_x[ty][tx] = key_x;
+    low_y[ty][tx] = live ? static_cast<int>(iy1) : INT_MIN;
+#pragma unroll
+    for (int ch = 0; ch < kMergeC; ++ch) {
+      low_sum[ty][0][ch][tx] = sum[2][ch];
+      low_sum[ty][1][ch][tx] = sum[3][ch];
+    }
+    low_taken[ty][tx] = false;
+    __syncthreads();
+    if (ty > 0 && live && low_x[ty - 1][tx] == key_x &&
+        low_y[ty - 1][tx] == static_cast<int>(iy0)) {
+#pragma unroll
+      for (int ch = 0; ch < kMergeC; ++ch) {
+        sum[0][ch] = __fadd_rn(sum[0][ch], low_sum[ty - 1][0][ch][tx]);
+        sum[1][ch] = __fadd_rn(sum[1][ch], low_sum[ty - 1][1][ch][tx]);
+      }
+      low_taken[ty - 1][tx] = true;
+    }
+    __syncthreads();
+    const bool lower_taken = low_taken[ty][tx];
+    if (lower_taken) valid[2] = valid[3] = false;
+    // 4. columns: a source whose right corners are the left corners of the
+    // next lane's source hands their sums over (the lower pair only where
+    // neither lower corner went to the row below)
+    const int next_x = __shfl_down_sync(0xffffffffu, key_x, 1);
+    const int next_y = __shfl_down_sync(0xffffffffu, static_cast<int>(iy0), 1);
+    const bool next_lower_taken = __shfl_down_sync(0xffffffffu, static_cast<int>(lower_taken), 1) != 0;
+    const bool meets = tx < kTileW - 1 && live && next_x != INT_MIN &&
+                       next_x == key_x + 1 && next_y == static_cast<int>(iy0);
+    const bool give_upper = meets;
+    const bool give_lower = meets && !lower_taken && !next_lower_taken;
+    const bool take_upper = __shfl_up_sync(0xffffffffu, static_cast<int>(give_upper), 1) != 0 && tx > 0;
+    const bool take_lower = __shfl_up_sync(0xffffffffu, static_cast<int>(give_lower), 1) != 0 && tx > 0;
+#pragma unroll
+    for (int ch = 0; ch < kMergeC; ++ch) {
+      const float up = __shfl_up_sync(0xffffffffu, sum[1][ch], 1);
+      const float low = __shfl_up_sync(0xffffffffu, sum[3][ch], 1);
+      if (take_upper) sum[0][ch] = __fadd_rn(sum[0][ch], up);
+      if (take_lower) sum[2][ch] = __fadd_rn(sum[2][ch], low);
+    }
+    if (give_upper) valid[1] = false;
+    if (give_lower) valid[3] = false;
+    // 5. one (vector) atomic per corner left
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (valid[k]) add_sums(corner(k), c, so.c, sum[k]);
+    }
+    return;
+  }
+
+  // wider inputs: every corner straight into global memory
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (!valid[k]) continue;
+    add_pixel(corner(k), c, so.c, [&](int64_t ch) {
+      return __fmul_rn(load_f32(src + ch * si.c), weight[k]);
+    });
+  }
 }
 
 template <typename TI, typename TF>
 void launch_typed(const void* in, const void* flow, float* out, int64_t n,
                   int64_t c, int64_t h, int64_t w, Strides si, Strides sf,
                   Strides so, cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  const dim3 blocks(static_cast<unsigned int>((w + kThreads - 1) / kThreads),
-                    static_cast<unsigned int>(h), static_cast<unsigned int>(n));
-  softsplat_kernel<TI, TF><<<blocks, kThreads, 0, stream>>>(
+  const dim3 blocks(static_cast<unsigned int>((w + kTileW - 1) / kTileW),
+                    static_cast<unsigned int>((h + kTileH - 1) / kTileH),
+                    static_cast<unsigned int>(n));
+  softsplat_kernel<TI, TF><<<blocks, dim3(kTileW, kTileH), 0, stream>>>(
       static_cast<const TI*>(in), static_cast<const TF*>(flow), out, c, h, w,
       si, sf, so);
 }
@@ -160,7 +315,7 @@ int launch_flow(const void* in, const void* flow, float* out, int flow_dtype,
 // Splat `in` ([n, c, h, w] by element strides) by `flow` ([n, 2, h, w],
 // channel 0 = x, 1 = y), adding into the zeroed f32 `out` ([n, c, h, w]).
 // Dtype codes: 0 f32, 1 bf16, 2 f16. Returns the launch's cudaGetLastError()
-// (0 on success), -1 for an unknown dtype code, or -2 when n or h exceeds the
+// (0 on success), -1 for an unknown dtype code, or -2 when n exceeds the
 // grid's 65535 limit. Launches on `stream` and does not synchronise.
 extern "C" int cfi_softsplat(const void* in, const void* flow, void* out,
                              int in_dtype, int flow_dtype, int64_t n,
@@ -170,7 +325,7 @@ extern "C" int cfi_softsplat(const void* in, const void* flow, void* out,
                              int64_t sf_w, int64_t so_n, int64_t so_c,
                              int64_t so_h, int64_t so_w, void* stream) {
   if (n * h * w == 0) return 0;
-  if (n > 65535 || h > 65535) return -2;  // grid y/z limits
+  if (n > 65535 || h > 65535) return -2;  // grid z limit (and the wrapper's h)
   const Strides si{si_n, si_c, si_h, si_w};
   const Strides sf{sf_n, sf_c, sf_h, sf_w};
   const Strides so{so_n, so_c, so_h, so_w};

@@ -18,7 +18,7 @@ Both images ride one batch through the pyramid and the extractor, and both
 flow directions ride one batch through the flow pyramid and the warps, as in
 JAX (``film.py:262-264,300-305``). Per forward that gives 6 feature warps in
 the flow pyramid and 5 in :func:`stage_warp` on the wide-channel kernel
-(``prefer_wide``, C >= 32), and 5 image warps (C = 3) on the per-pixel one:
+(``prefer_wide``, C >= 32), and 5 image warps (C = 3) on K1:
 :data:`WARPS_PER_CALL`.
 
 :func:`stage_warp` concatenates each aligned level as the reference does
@@ -81,7 +81,7 @@ FUSION_PYRAMID_LEVELS = 5
 SUB_LEVELS = 4
 WIDE_MIN_CHANNELS = 32  # the JAX prefer_mxu threshold (film.py:125,134,304)
 # warp launches per forward: 6 in the flow pyramid + 5 feature warps (wide
-# kernel), 5 image warps (per-pixel kernel)
+# kernel), 5 image warps (K1)
 WARPS_PER_CALL = {"wide": 11, "narrow": 5}
 _FLOW_CONVS = (3, 3, 3, 3)
 _FILTERS = 64

@@ -16,10 +16,11 @@
    card); the sums are normalised jointly and holes filled with the
    time-blended inputs (``M2M_arch.py:966-1037``).
 
-The backward warps are ``ops.warp`` in zeros mode (the Hopper kernel on the
+The backward warps are ``ops.warp`` in zeros mode (the Hopper kernels on the
 card): 20 per pair batch, 8 in the flow net, 10 in the encoder-decoder and 2
-for the photometric metrics (:data:`WARPS_PER_REUSE`). The splat is one call
-per timestep batch.
+for the photometric metrics (:data:`WARP_CHANNELS_PER_REUSE`). The 16 feature
+warps (C = 32 to 384) take the wide-channel kernel and the 4 image warps K1
+(:func:`warps_per_reuse`). The splat is one call per timestep batch.
 
 :class:`M2M_PWC` holds the parameters, with ``state_dict`` keys and shapes
 equal to the released ``M2M.pth`` (188 tensors). :func:`pair_reuse` computes
@@ -40,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.costvol import costvol_func
+from ..ops.cuda.warp_kernel import route
 from ..ops.softsplat import softsplat_func
 from ..ops.warp import warp
 from .common import avg_pool2d, cast_params, resize_by_scale
@@ -51,17 +53,23 @@ __all__ = [
     "PRELU_INIT",
     "PARAM_ALPHA_INIT",
     "WARPS_PER_REUSE",
+    "WARP_CHANNELS_PER_REUSE",
     "apply",
     "init_params",
     "make_model_fn",
     "make_pair_fns",
     "pair_infer",
     "pair_reuse",
+    "warps_per_reuse",
 ]
 
 CKPT_NAMES = ["M2M.pth"]
 BRANCH = 4
-WARPS_PER_REUSE = 20  # 8 in _bidir, 10 in _encdec, 2 for the metrics
+# the channels of each warp per pair batch, in call order: 8 flow-net feature
+# warps, 2 image warps and 8 feature warps in _encdec, 2 image warps for the
+# metrics
+WARP_CHANNELS_PER_REUSE = (32,) * 8 + (3, 3) + (48, 48, 96, 96, 192, 192, 384, 384) + (3, 3)
+WARPS_PER_REUSE = len(WARP_CHANNELS_PER_REUSE)  # 20
 PRELU_INIT = 0.25  # torch nn.PReLU's default
 PARAM_ALPHA_INIT = 10.0
 
@@ -243,6 +251,16 @@ class M2M_PWC(nn.Module):
         self.paramAlpha = nn.Parameter(torch.full((1, 1, 1, 1), PARAM_ALPHA_INIT))
 
 
+def warps_per_reuse(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """Warp launches per pair batch on the card by kernel, ``{"narrow": K1,
+    "wide": the wide-channel kernel}``, as ``warp_kernel.route`` sends the
+    ``channels_last`` tensors of :data:`WARP_CHANNELS_PER_REUSE`."""
+    counts = {"narrow": 0, "wide": 0}
+    for c in WARP_CHANNELS_PER_REUSE:
+        counts["wide" if route((1, c, 1, 1), (c, 1, c, c), dtype) == "wide" else "narrow"] += 1
+    return counts
+
+
 # ---- forward -----------------------------------------------------------------
 
 
@@ -306,6 +324,18 @@ def _split_branch(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(n * BRANCH, bc // BRANCH, h, w)
 
 
+def _repeat_branches(x: torch.Tensor) -> torch.Tensor:
+    """``x.repeat_interleave(BRANCH, 0)`` written in one pass into
+    ``channels_last`` memory, where ``repeat_interleave`` would return
+    NCHW-contiguous memory: the metrics' image warps then take K1's tiled
+    body and their NHWC consumers read contiguous pixels."""
+    out = torch.empty(
+        (x.shape[0] * BRANCH, *x.shape[1:]), dtype=x.dtype, device=x.device, memory_format=torch.channels_last
+    )
+    out.unflatten(0, (x.shape[0], BRANCH)).copy_(x.unsqueeze(1))
+    return out
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
@@ -352,8 +382,8 @@ def pair_reuse(net: M2M_PWC, im0: torch.Tensor, im1: torch.Tensor, ratio: int = 
     bwd_b = _split_branch(bwd.repeat(1, BRANCH, 1, 1) + r1)
     wf_b = _split_branch(wei_f)
     wb_b = _split_branch(wei_b)
-    im0_b = im0_o.repeat_interleave(BRANCH, 0)
-    im1_b = im1_o.repeat_interleave(BRANCH, 0)
+    im0_b = _repeat_branches(im0_o)
+    im1_b = _repeat_branches(im1_o)
 
     def photo(wt, a, b, flow):
         diff = (a - _backwarp(b, flow)).abs().mean(1, keepdim=True)

@@ -19,13 +19,15 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["DTYPE_CODES", "NVCC_FLAGS", "check_planes_and_flow", "load_library"]
+__all__ = ["DTYPE_CODES", "NVCC_FLAGS", "build_logs", "check_planes_and_flow", "load_library", "ptxas_summary"]
 
 # the kernels' dtype codes (csrc/*.cu: enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -35,9 +37,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda_kernels")
 
+# what nvcc printed for each library this process built, by (name, csrc)
+build_logs: Dict[Tuple[str, str], str] = {}
+
+# -Xptxas -v prints each kernel's registers, shared memory and spills into
+# the build log
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -57,10 +64,14 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if no library of the same sources and flags
-    exists yet, and load it."""
-    src = os.path.join(_CSRC, f"{name}.cu")
+def load_library(name: str, csrc: str = _CSRC) -> ctypes.CDLL:
+    """Compile ``<csrc>/<name>.cu`` (the package's ``csrc/`` by default; another
+    checkout's, to compare two versions) if no library of the same source and
+    flags exists yet, and load it.
+
+    What nvcc prints (each kernel's registers and spills) is kept in
+    ``build_logs[name, csrc]``."""
+    src = os.path.join(csrc, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -77,11 +88,32 @@ def load_library(name: str) -> ctypes.CDLL:
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                     f"{proc.stdout}{proc.stderr}"
                 )
+            build_logs[name, csrc] = proc.stdout + proc.stderr
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return ctypes.CDLL(lib_path)
+
+
+def ptxas_summary(log: str) -> List[str]:
+    """Each kernel's registers, shared memory and spills over its template
+    instances, from a build log of ``-Xptxas -v`` output."""
+    per_kernel: Dict[str, set] = {}
+    name, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d+([a-z][a-z_]*_kernel)I", line)
+        if m:
+            name, spill = m.group(1), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} B spilled" if m.group(1) != "0" or m.group(2) != "0" else "no spills"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            per_kernel.setdefault(name, set()).add(f"{m.group(1)} regs {smem.group(1) if smem else 0} B smem {spill}")
+    return [f"{k}: {', '.join(sorted(v, key=lambda e: int(e.split()[0])))}" for k, v in per_kernel.items()]
 
 
 def check_planes_and_flow(what: str, x: torch.Tensor, flow: torch.Tensor) -> None:

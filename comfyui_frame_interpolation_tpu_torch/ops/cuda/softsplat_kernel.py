@@ -3,7 +3,10 @@
 It replaces the JAX package's Pallas splat kernels
 (``comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py``:
 ``_splat_kernel_stacked``, the banded splat, and ``_splat_kernel``, the
-single-band splat) with one atomic scatter. The plain PyTorch version of the
+single-band splat) with one atomic scatter: vector (float4/float2) atomics
+where the output's channels are contiguous and aligned, and, for up to 4
+channels, the corners that neighbouring sources share summed in the block
+before they are added. The plain PyTorch version of the
 same function is ``ops.softsplat.softsplat_torch``; ``ops.softsplat.softsplat_func``
 picks between the two by the tensor's device.
 

@@ -2,32 +2,67 @@
 
 :func:`warp_bilinear` (K1) replaces the JAX package's Pallas bulk and patch
 warp kernels (``comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py``:
-``_warp_kernel_diag_roll`` and ``_patch_kernel``) with one direct gather, a
-thread per pixel. :func:`warp_bilinear_wide` replaces the rows/MXU kernel of
-the same file (``_warp_kernel_rows_mxu``), which FILM's wide feature warps
-take: a group of lanes per pixel, 16-byte channel vectors. Both compute the
-same function from the same coordinate/weight code, bit for bit. The plain
-PyTorch version of it is ``ops.warp.warp_torch``; ``ops.warp.warp`` picks
-between the three by the tensor's device and its ``prefer_wide`` flag.
+``_warp_kernel_diag_roll`` and ``_patch_kernel``) with a tiled kernel for any
+strides: a thread per pixel of a 4x32 tile, every tap load of a pixel issued
+at once, rows of 8- to 32-byte pixels written back from shared memory as
+16-byte vectors. :func:`warp_bilinear_wide` replaces the rows/MXU kernel of
+the same file (``_warp_kernel_rows_mxu``): a group of lanes per pixel,
+16-byte channel vectors. Both compute the same function from the same
+coordinate/weight code, bit for bit. The plain PyTorch version of it is
+``ops.warp.warp_torch``; ``ops.warp.warp`` takes the twin for CPU tensors and
+the kernel :func:`route` names for CUDA tensors.
 
-``launches`` and ``wide_launches`` count the launches made through
-:func:`warp_bilinear` and :func:`warp_bilinear_wide`, so that a run can show
-that its main path went through each kernel.
+``launches`` counts the launches of K1 and ``wide_launches`` those of the
+wide kernel, so that a run can show which kernels its main path went
+through.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Sequence
 
 import torch
 
 from .build import DTYPE_CODES, check_planes_and_flow, load_library
 
-__all__ = ["launches", "wide_launches", "warp_bilinear", "warp_bilinear_wide"]
+__all__ = [
+    "WIDE_MIN_BYTES",
+    "launches",
+    "route",
+    "warp_bilinear",
+    "warp_bilinear_wide",
+    "wide_launches",
+]
 
 launches = 0
 wide_launches = 0
+
+# a pixel of this many bytes or more, or of a whole number of 16-byte
+# vectors, takes the wide kernel (placed on an H100: PERF.md, the routing
+# threshold)
+WIDE_MIN_BYTES = 32
+
+
+def route(shape: Sequence[int], strides: Sequence[int], dtype: torch.dtype, prefer_wide: bool = False) -> str:
+    """The kernel that warps planes of ``shape`` ``[N, C, H, W]`` and element
+    ``strides`` in ``dtype``: ``"wide"`` or ``"tiled"`` (K1).
+
+    ``prefer_wide`` always gives ``"wide"``. Otherwise an input whose channels
+    have stride 1 (a ``channels_last`` tensor, an NHWC tensor's permuted view)
+    goes to the wide kernel when a pixel spans ``WIDE_MIN_BYTES`` or more
+    (C >= 16 in bf16, C >= 8 in f32) or a whole number of 16-byte vectors
+    (C = 8 in bf16, C = 4 in f32), which it reads as aligned vectors, and to
+    K1 otherwise; any other layout (NCHW planes, channels that are rows of
+    the storage) goes to K1, which takes any strides."""
+    if prefer_wide:
+        return "wide"
+    c = shape[1]
+    if c > 1 and strides[1] != 1:
+        return "tiled"
+    pixel_bytes = c * dtype.itemsize
+    return "wide" if pixel_bytes >= WIDE_MIN_BYTES or pixel_bytes % 16 == 0 else "tiled"
 
 
 def _bind(name: str, n_int64: int):
@@ -56,9 +91,9 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) ->
     """Backward-warp ``img`` ``[N, C, H, W]`` by ``flow`` ``[N, 2, H, W]``
     (channel 0 = x, 1 = y) on the card, bilinear, with border or zeros padding.
 
-    Any strides are taken (NCHW-contiguous, ``channels_last``, permuted
-    views); the output has the strides ``torch.empty_like`` gives ``img``. The
-    kernel launches on the current stream and nothing synchronises."""
+    Any strides; the output has the strides ``torch.empty_like`` gives
+    ``img``. The kernel launches on the current stream and nothing
+    synchronises."""
     global launches
     check_planes_and_flow("warp_bilinear", img, flow)
     n, c, h, w = img.shape
@@ -80,7 +115,8 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) ->
 
 def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) -> torch.Tensor:
     """:func:`warp_bilinear` by the wide-channel kernel, for ``channels_last``
-    images with many channels (FILM's features, C = 64 to 960).
+    images with many channels (FILM's features, C = 64 to 960; M2M's, C = 32
+    to 384).
 
     The kernel reads channels as contiguous 16-byte vectors, so ``img`` must
     have channel stride 1 (``img.stride(1) == 1``, as a ``channels_last``

@@ -12,12 +12,16 @@ as in the JAX package.
 
 :func:`warp` dispatches on the tensor's device: a CUDA tensor goes to a
 hand-written Hopper kernel (``ops.cuda.warp_kernel``), a CPU tensor to the
-plain twin :func:`warp_torch`. On the card, ``prefer_wide=True`` (the JAX
-``prefer_mxu``, which FILM sets for its C >= 32 feature warps) takes the
-wide-channel kernel and ``False`` the per-pixel one; both compute the twin's
-function bit for bit, so the flag never changes a result, and unlike JAX it
-applies to every dtype. The twin also runs on CUDA tensors when called
-directly, which is how the kernels are checked on the card.
+plain twin :func:`warp_torch`. On the card, ``ops.cuda.warp_kernel.route``
+picks the kernel from C, the dtype and the channel stride: the wide-channel
+kernel for channel-stride-1 pixels of 32 bytes or more or of whole 16-byte
+vectors, K1 (the tiled kernel, any strides) for every other input.
+``prefer_wide=True`` (the JAX ``prefer_mxu``, which FILM sets for its C >= 32
+feature warps) always takes the wide kernel. Every body computes the twin's
+function bit for bit, so neither the rule nor the flag ever changes a result,
+and unlike JAX the flag applies to every dtype. The twin also runs on CUDA
+tensors when called directly, which is how the kernels are checked on the
+card.
 
 One deliberate difference from the JAX ``warp_xla``: in zeros mode a
 non-finite coordinate samples nothing (output 0), as the Pallas kernel does,
@@ -113,17 +117,21 @@ def warp(
 ) -> torch.Tensor:
     """Backward-warp ``img`` (NHWC) by ``flow`` (``[N, H, W, 2]``).
 
-    CUDA tensors launch a Hopper kernel: the wide-channel one when
-    ``prefer_wide`` (for NHWC features with many channels), else the
-    per-pixel one. CPU tensors take the plain twin; any other device raises.
-    There is no fallback from a kernel to the twin or to the other kernel."""
+    CUDA tensors launch the Hopper kernel that
+    ``ops.cuda.warp_kernel.route`` names for their shape, strides, dtype and
+    ``prefer_wide``. CPU tensors take the plain twin; any other device raises.
+    There is no fallback from a kernel to the twin or to another kernel."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unsupported padding_mode {padding_mode}")
     if img.device.type == "cuda":
         from .cuda import warp_kernel
 
-        kernel = warp_kernel.warp_bilinear_wide if prefer_wide else warp_kernel.warp_bilinear
-        out = kernel(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), zeros=padding_mode == "zeros")
+        planes, flow_planes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+        zeros = padding_mode == "zeros"
+        if warp_kernel.route(planes.shape, planes.stride(), planes.dtype, prefer_wide) == "wide":
+            out = warp_kernel.warp_bilinear_wide(planes, flow_planes, zeros)
+        else:
+            out = warp_kernel.warp_bilinear(planes, flow_planes, zeros)
         return out.permute(0, 2, 3, 1)
     if img.device.type == "cpu" and flow.device.type == "cpu":
         return warp_torch(img, flow, padding_mode)

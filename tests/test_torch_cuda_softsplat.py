@@ -12,6 +12,13 @@ an order that changes from run to run, each pixel taking at most a few dozen
 contributions); bf16/f16 one ulp of the output (the kernel and the twin round
 their f32 sums once, and sums that differ in the last f32 bit can round to
 neighbouring values). The twin's ``index_add_`` on the card is atomic too.
+
+The cases cover each path of the kernel: for C <= 4 the row and column
+merges of the corners that neighbouring sources share (smooth flow, where
+most corners merge; 16 sources piled onto each target; rough flow, where few
+merge), wider inputs whose corners all go straight to global memory (C = 6,
+8, 66); float4 atomics (C = 4 NHWC), float2 and scalar tails (C = 1, 2, 3,
+6), and NCHW planes, which take scalar atomics.
 """
 
 import math
@@ -84,6 +91,25 @@ def test_layouts_agree_and_launches_are_counted(cuda):
     assert (planes.permute(0, 2, 3, 1) - nhwc).abs().max().item() <= F32_ATOL
 
 
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("layout", ["nhwc", "nchw_planes"])
+@pytest.mark.parametrize("flow_name", ["smooth_amp8_c4", "rough_x40_c4", "pile_4x4_c4"])
+def test_vector_and_scalar_atomic_layouts(cuda, c, layout, flow_name):
+    case = next(x for x in CASES if x["name"] == flow_name)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    vals = torch.rand(*flow.shape[:3], c, generator=torch.Generator().manual_seed(c)).to(cuda)
+    ref = softsplat_torch(vals, flow)
+    if layout == "nhwc":
+        got = softsplat_func(vals, flow)
+    else:
+        planes = softsplat_kernel.softsplat_bilinear(
+            vals.permute(0, 3, 1, 2).contiguous(), flow.permute(0, 3, 1, 2).contiguous()
+        )
+        assert planes.is_contiguous()  # channel stride H*W: scalar atomics
+        got = planes.permute(0, 2, 3, 1)
+    _check(got, ref, torch.float32)
+
+
 def test_main_path_shape(cuda):
     g = torch.Generator().manual_seed(0)
     vals = torch.rand(16, 1088, 1920, 4, generator=g).to(cuda, torch.bfloat16)
@@ -107,18 +133,21 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def test_m2m_launch_counts(cuda):
-    """One splat per infer call, 20 warps per reuse call, through the node's
-    executor at x3 (three pairs, two timesteps each, batch 2)."""
+    """One splat per infer call, 20 warps per reuse call (4 on K1, 16 on the
+    wide kernel), through the node's executor at x3 (three pairs, two
+    timesteps each, batch 2)."""
     reuse_fn, infer_fn = m2m.make_pair_fns(m2m.init_params(0), device=cuda)
     frames = torch.rand(4, 64, 128, 3, device=cuda)
     plan = plan_timestep(4, 3)
     _, by_count = loop._pair_groups(plan)
     reuse_calls = sum(math.ceil(len(keys) / 2) for keys in by_count.values())
     infer_calls = sum(m * math.ceil(len(keys) / 2) for m, keys in by_count.items())
-    warps, splats = warp_kernel.launches, softsplat_kernel.launches
+    warps, wide, splats = warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches
     out = loop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2)
     torch.cuda.synchronize()
-    assert (reuse_calls, infer_calls) == (2, 4)
-    assert warp_kernel.launches - warps == m2m.WARPS_PER_REUSE * reuse_calls
+    split = m2m.warps_per_reuse()
+    assert (reuse_calls, infer_calls) == (2, 4) and split == {"narrow": 4, "wide": 16}
+    assert warp_kernel.launches - warps == split["narrow"] * reuse_calls
+    assert warp_kernel.wide_launches - wide == split["wide"] * reuse_calls
     assert softsplat_kernel.launches - splats == infer_calls
     assert out.shape == (10, 64, 128, 3) and torch.isfinite(out).all()

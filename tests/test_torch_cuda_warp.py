@@ -17,6 +17,13 @@ bf16 and f16, on NCHW-contiguous input (the documented ``channels_last``
 copy), at FILM's level-0 feature warp ``[4, 1080, 1920, 64]`` bf16, and
 against K1 on the same tensor; a FILM forward launches it 11 times and K1 5
 times.
+
+K1 (the tiled kernel) is held to the twin bit for bit on every flow case
+(including a frame half of whose tiles read taps from far across the frame,
+a 68x92 frame, M2M's widths), in f32, bf16 and f16, border and zeros, on
+NHWC views, on a channel slice, on NCHW planes and through a flow slice, and
+at RIFE's ``[16, 1088, 1920, 7]`` bf16; ``warp`` sends each layout to the
+kernel ``warp_kernel.route`` names.
 """
 
 import numpy as np
@@ -83,7 +90,55 @@ def test_main_path_shape(cuda):
     g = torch.Generator().manual_seed(0)
     img = torch.rand(16, 1088, 1920, 7, generator=g).to(cuda, torch.bfloat16)
     flow = torch.from_numpy(warp_cases.smooth_flow(16, 1088, 1920, 6.0)).to(cuda)
-    _check(warp(img, flow), warp_torch(img, flow), torch.bfloat16)
+    before = warp_kernel.launches
+    got, ref = warp(img, flow), warp_torch(img, flow)
+    _check(got, ref, torch.bfloat16)
+    assert torch.equal(got, ref) and warp_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name,mode", CASE_MODES)
+def test_k1_matches_twin_bitwise(cuda, name, mode, dtype):
+    case = next(c for c in CASES if c["name"] == name)
+    img = torch.from_numpy(case["img"]).to(cuda, dtype)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    got = warp_kernel.warp_bilinear(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), mode == "zeros")
+    ref = warp_torch(img, flow, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got.permute(0, 2, 3, 1), ref)
+
+
+@pytest.mark.parametrize("layout", ["channel_slice", "nchw_planes", "flow_slice"])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_k1_takes_other_layouts_bitwise(cuda, layout, mode):
+    case = next(c for c in CASES if c["name"] == "box_overflow_half")
+    full = torch.from_numpy(case["img"]).to(cuda, torch.bfloat16)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    if layout == "channel_slice":  # channel stride 1, pixel stride 7
+        img, planes = full[..., 1:4], full[..., 1:4].permute(0, 3, 1, 2)
+    elif layout == "nchw_planes":  # channel stride H*W
+        img = full
+        planes = full.permute(0, 3, 1, 2).contiguous()
+    else:  # a flow read through a channel slice of a wider tensor
+        img, planes = full, full.permute(0, 3, 1, 2)
+        flow = torch.cat([flow[..., 1:], flow, flow[..., :1]], -1)[..., 1:3]
+    got = warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), mode == "zeros")
+    ref = warp_torch(img, flow, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.permute(0, 2, 3, 1), ref)
+
+
+def test_warp_takes_the_routed_body(cuda):
+    img = torch.rand(1, 16, 32, 7, device=cuda, dtype=torch.bfloat16)
+    flow = torch.zeros(1, 16, 32, 2, device=cuda)
+    counts = lambda: (warp_kernel.launches, warp_kernel.wide_launches)  # noqa: E731
+    before = counts()
+    warp(img, flow)  # NHWC, 14 B a pixel: K1
+    warp(img.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), flow)  # NCHW planes: K1
+    warp(torch.rand(1, 16, 32, 48, device=cuda, dtype=torch.bfloat16), flow, "zeros")  # 96 B a pixel: wide
+    warp(img, flow, prefer_wide=True)  # forced wide
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -139,7 +194,7 @@ def test_wide_kernel_equals_k1_at_film_level0_shape(cuda):
     img = torch.rand(4, 1080, 1920, 64, generator=g).to(cuda, torch.bfloat16)
     flow = torch.from_numpy(warp_cases.smooth_flow(4, 1080, 1920, 6.0)).to(cuda)
     wide = warp(img, flow, prefer_wide=True)
-    k1 = warp(img, flow)
+    k1 = warp_kernel.warp_bilinear(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     torch.cuda.synchronize()
     assert torch.equal(wide, k1)
     del k1

@@ -12,6 +12,8 @@
   edge can flip between the two; the test counts the flipped pixels and
   prints the count.
 * ``make_model_fn`` in bf16 against JAX fp32: >= 35 dB.
+* the branch images are ``repeat_interleave``'s values in ``channels_last``
+  memory.
 * the JAX golden fixture (``tests/fixtures/torch_port_m2m_golden.npz``) is
   regenerated with JAX and must be unchanged; the port matches it.
 
@@ -184,6 +186,17 @@ def test_pair_infer_fills_holes_as_jax():
     p = psnr(got.numpy(), ref)
     print(f"M2M pair_infer with {int(holes.sum())} hole pixels: {p:.2f} dB")
     assert p >= 40.0
+
+
+def test_branch_images_are_repeated_into_channels_last():
+    """The metrics' and the splat's branch images: ``repeat_interleave``'s
+    values, in ``channels_last`` memory (so their warps take K1's tiled body
+    on the card)."""
+    x = torch.from_numpy(np.random.default_rng(7).random((2, 3, 8, 12), dtype=np.float32))
+    x = x.contiguous(memory_format=torch.channels_last)
+    got = pm._repeat_branches(x)
+    assert torch.equal(got, x.repeat_interleave(pm.BRANCH, 0))
+    assert got.stride(1) == 1 and got.is_contiguous(memory_format=torch.channels_last)
 
 
 def test_make_model_fn_loads_strictly():

@@ -7,6 +7,13 @@ share them.
 flows, a +-120/+-30 discontinuity, extreme x400 random flows, a large constant
 offset, an odd shape, a wide channel count and non-finite flow in zeros mode.
 
+Added for K1's tiled body and its routing: a frame whose top half has
+smooth flow (a tile's taps stay close together) and whose bottom half sends
+the pixels of each tile across most of the frame (``box_overflow_half``: the
+taps' bounding box of a tile spans the frame), a 68x92 frame that the 4x32
+tiles do not divide, and M2M's feature widths (C = 32, 48, 96, 192, 384) in
+zeros mode, which the routing rule sends to the wide kernel.
+
 :func:`wide_cases` are the feature warps of FILM for the wide-channel kernel:
 C = 32 to 960 (FILM's levels have 64, 192, 448 and 960), a C that is no
 multiple of 8, a channel slice whose taps start off 16 bytes, extreme and
@@ -16,7 +23,10 @@ non-finite flow.
 ``tests/test_pallas_kernels.py:215-319``: smooth flow, the constant
 displacements that took the extra bands and the corners of the single-band
 window, the diagonal motion beyond every band, non-finite flow, and the
-narrow odd frames; plus huge finite flow (+-1e30), which must drop.
+narrow odd frames; plus huge finite flow (+-1e30), which must drop; plus,
+for the splat kernel's merges of the corners that neighbouring sources
+share, flows that pile 16 sources onto each target and a rough flow (+-40
+px) whose neighbours seldom share a corner.
 
 Values are uniform in [0, 1], the range the stated tolerances refer to.
 """
@@ -56,6 +66,13 @@ def warp_cases(seed: int, h: int, w: int) -> List[Dict]:
     nonfinite = smooth_flow(1, h, w, amp=2.0)
     nonfinite[0, h // 4, w // 4] = np.nan
     nonfinite[0, h // 2, (3 * w) // 4, 0] = np.inf
+    # top half smooth (a tile's taps stay close), bottom half +-0.3 of the
+    # frame in a checkerboard of 4x4 blocks (a tile's taps span most of it)
+    overflow = smooth_flow(1, h, w, amp=3.0)
+    gy, gx = np.mgrid[h // 2 : h, 0:w]
+    sign = np.where((gx // 4 + gy // 4) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    overflow[0, h // 2 :, :, 0] = sign * 0.3 * w
+    overflow[0, h // 2 :, :, 1] = -sign * 0.3 * h
     return [
         dict(name="smooth_amp0.4", img=img(2, h, w, 7), flow=smooth_flow(2, h, w, 0.4), modes=BORDER_ZEROS),
         dict(name="moderate_amp20", img=img(2, h, w, 7), flow=smooth_flow(2, h, w, 20.0, 60.0), modes=BORDER_ZEROS),
@@ -85,10 +102,26 @@ def warp_cases(seed: int, h: int, w: int) -> List[Dict]:
             modes=BORDER_ZEROS,
         ),
         dict(name="nonfinite", img=img(1, h, w, 3), flow=nonfinite, modes=("zeros",)),
+        dict(name="box_overflow_half", img=img(1, h, w, 7), flow=overflow, modes=BORDER_ZEROS),
+        dict(
+            name="ragged_68x92_c7",
+            img=img(2, 68, 92, 7),
+            flow=(rng.standard_normal((2, 68, 92, 2)) * 3.0).astype(np.float32),
+            modes=BORDER_ZEROS,
+        ),
+    ] + [
+        dict(
+            name=f"m2m_c{c}_zeros",
+            img=img(1, h, w, c),
+            flow=smooth_flow(1, h, w, 6.0, 60.0) + (rng.standard_normal((1, h, w, 2)) * 1.5).astype(np.float32),
+            modes=("zeros",),
+        )
+        for c in M2M_CHANNELS
     ]
 
 
 WIDE_CHANNELS = (32, 40, 64, 192, 448, 960)
+M2M_CHANNELS = (32, 48, 96, 192, 384)  # M2M's feature warps (models/m2m.py)
 
 
 def wide_cases(seed: int, h: int, w: int, channels=WIDE_CHANNELS) -> List[Dict]:
@@ -169,4 +202,12 @@ def splat_cases(seed: int, h: int, w: int) -> List[Dict]:
         f = ((rng.random((1, hh, ww, 2)) - 0.5) * 8.0).astype(np.float32)
         f[:, :4] = [ww + 50.0, 0.0]  # beyond the clamped window
         cases.append(dict(name=f"narrow_{hh}x{ww}_c{c}", vals=vals(1, hh, ww, c), flow=f))
+    # each 4x4 block of sources lands on its block's centre (+0.5, +0.5): 16
+    # sources on each of four targets, a quarter weight each
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    pile = np.stack([(gx // 4) * 4 + 1.5 - gx, (gy // 4) * 4 + 1.5 - gy], -1)[None]
+    for c in (1, 4):
+        cases.append(dict(name=f"pile_4x4_c{c}", vals=vals(1, h, w, c), flow=pile.astype(np.float32)))
+    rough = (rng.standard_normal((1, h, w, 2)) * 40.0).astype(np.float32)
+    cases.append(dict(name="rough_x40_c4", vals=vals(1, h, w, 4), flow=rough))
     return cases
