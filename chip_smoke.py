@@ -79,9 +79,38 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    call on the same tensors at ``[4, 1080, 1920, 64]`` and ``[4, 135, 240,
    960]`` bf16, and a ``torch.profiler`` top 10 of one FILM forward with the
    warp kernels' device ms and shares and the idle share.
+15. gsplat    -- the splat kernel against its plain twin at GMFSS Fortuna's
+   widths, C = 4, 65, 129 and 193 (``[1, 544, 960, 4]``, ``[1, 544, 960,
+   65]``, ``[1, 272, 480, 129]``, ``[1, 136, 240, 193]``: one direction of
+   a 1080p batch-1 infer), f32 and bf16, on smooth flow (tolerances as in
+   phase 7) and on the eight ``"soft"``-mode inputs that one GMFSS 1080p
+   bf16 forward (random weights, rough flows) hands the kernel (bf16 as
+   captured: one ulp; cast to f32: 1e-5 of the output's largest magnitude,
+   since ``exp(metric)`` scales the values up to ~150); and the ``softsplat``
+   wrapper on the card against the CPU for every mode and eps variant and
+   every ``function_softsplat`` name, f32 atol 1e-5;
+16. gmfss     -- the GMFSS Fortuna VFI node, ``GMFSS_fortuna`` and
+   ``GMFSS_fortuna_union`` (random weights from seed 0), on 4 frames of
+   270x480, multipliers 2 and 3, batch 2, on the card in fp32 (TF32 off) and
+   bf16, each >= 40 dB against the same node on the CPU in fp32; original
+   frames pass through bit for bit; per reuse call exactly the K1 and wide
+   launches of ``gmfss.warps_per_reuse``, per infer call the K1 launches of
+   ``gmfss.warps_per_infer`` (the union's RIFE 4.6) and
+   ``gmfss.splats_per_infer()`` splat launches;
+17. golden    -- the port's GMFSS, base and union, on the card (fp32, TF32
+   off) against the JAX outputs stored in
+   ``tests/fixtures/torch_port_gmfss_golden.npz``, >= 40 dB;
+18. timing    -- GMFSS 1080p 2x bf16 batch 1 (the configuration of
+   ``bench.py:bench_gmfss``), base and union, in frames/s through
+   ``make_model_fn``, reuse and infer ms through ``make_pair_fns``, a
+   ``torch.profiler`` top 10 of one forward of each; the splat kernel's,
+   the plain twin's ms per call on the captured inputs of each width, and
+   the warp kernels', the twin's and ``F.grid_sample``'s at GMFSS's warp
+   shapes (``[1, 136, 240, 128]`` wide, ``[1, 544, 960, 2]`` and ``[1,
+   544, 960, 3]`` zeros, ``[2, 576, 960, 3]`` border), each with its bound.
 
-Each main path (phases 4, 8 and 12) is driven with the launch counts set to
-0 just before it and read just after. Each profile (phases 6, 10, 14) also
+Each main path (phases 4, 8, 12 and 16) is driven with the launch counts set to
+0 just before it and read just after. Each profile (phases 6, 10, 14, 18) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
 ranking line orders kernel and path by the ms above the bound. Then the
@@ -115,6 +144,20 @@ FILM_HW = (270, 480)
 FILM_WARP_SHAPES = ((4, 1080, 1920, 64), (4, 135, 240, 960))  # FILM 1080p batch 2: level-0 and level-3 feature warps
 WIDE_CHANNELS = (32, 64, 192, 448, 960)
 M2M_WIDE_SHAPES = ((2, 544, 960, 48), (2, 68, 120, 384))  # M2M 1080p batch 2: encoder-decoder feature warps
+GMFSS_HW = (270, 480)
+# GMFSS 1080p batch 1, one direction of an infer: the half-resolution image
+# (3 + exp(metric)) and the three feature levels (64, 128, 192 + 1), "soft"
+GMFSS_SPLAT_SHAPES = ((1, 544, 960, 4), (1, 544, 960, 65), (1, 272, 480, 129), (1, 136, 240, 193))
+# GMFSS 1080p batch 1 warps (shape, mode, kernel): GMFlow's scale-1 feature
+# warp, the metric net's flow and image warps, the union's RIFE 4.6 image
+# warp of both frames (padded to 576 rows inside RIFE)
+GMFSS_WARP_SHAPES = (
+    ((1, 136, 240, 128), "zeros", "wide"),
+    ((1, 544, 960, 2), "zeros", "tiled"),
+    ((1, 544, 960, 3), "zeros", "tiled"),
+    ((2, 576, 960, 3), "border", "tiled"),
+)
+SOFTSPLAT_MODES = ["sum"] + [f"{b}{e}" for b in ("avg", "linear", "soft") for e in ("", "-addeps", "-zeroeps", "-clipeps")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
 # each kernel of the kernels line and its device kernels' names
@@ -187,6 +230,27 @@ def warp_bound(img, flow):
 
 
 @contextlib.contextmanager
+def spying(targets):
+    """Inside, each ``(module, attr, record)`` of ``targets`` makes
+    ``module.attr`` call ``record(*args)`` before the real function."""
+    real = [getattr(module, attr) for module, attr, _ in targets]
+
+    def spy(fn, record):
+        def call(*args, **kwargs):
+            record(*args)
+            return fn(*args, **kwargs)
+
+        return call
+
+    try:
+        for (module, attr, record), fn in zip(targets, real):
+            setattr(module, attr, spy(fn, record))
+        yield
+    finally:
+        for (module, attr, _), fn in zip(targets, real):
+            setattr(module, attr, fn)
+
+
 def recorded_work(log):
     """Inside, each call of a kernel wrapper appends ``(kernel, bytes, f32
     operations)`` of its launch to ``log``, ``kernel`` named as in the
@@ -194,27 +258,37 @@ def recorded_work(log):
     it gives them."""
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
 
-    wrappers = [
-        (warp_kernel, "warp_bilinear", "warp_bilinear", warp_work),
-        (warp_kernel, "warp_bilinear_wide", "warp_bilinear_wide", warp_work),
-        (softsplat_kernel, "softsplat_bilinear", "softsplat", splat_work),
-    ]
-    real = [getattr(module, attr) for module, attr, _, _ in wrappers]
+    def record(kernel, work):
+        return lambda x, flow, *_: log.append((kernel, *work(x, flow)))
 
-    def spy(fn, kernel, work):
-        def call(x, flow, *args, **kwargs):
-            log.append((kernel, *work(x, flow)))
-            return fn(x, flow, *args, **kwargs)
+    return spying([
+        (warp_kernel, "warp_bilinear", record("warp_bilinear", warp_work)),
+        (warp_kernel, "warp_bilinear_wide", record("warp_bilinear_wide", warp_work)),
+        (softsplat_kernel, "softsplat_bilinear", record("softsplat", splat_work)),
+    ])
 
-        return call
 
-    try:
-        for (module, attr, kernel, work), fn in zip(wrappers, real):
-            setattr(module, attr, spy(fn, kernel, work))
-        yield log
-    finally:
-        for (module, attr, _, _), fn in zip(wrappers, real):
-            setattr(module, attr, fn)
+def captured_splats(store):
+    """Inside, each call of the splat kernel's wrapper appends a copy of its
+    values and flow, NHWC, to ``store``: the inputs a model hands the
+    kernel."""
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel
+
+    def record(x, flow):
+        store.append((x.permute(0, 2, 3, 1).clone(), flow.permute(0, 2, 3, 1).clone()))
+
+    return spying([(softsplat_kernel, "softsplat_bilinear", record)])
+
+
+def in_turns(calls):
+    """``{name: (fn, iters)}`` -> ``{name: [ms, ms]}``: each version timed by
+    :func:`cuda_ms` in order, then in reverse order."""
+    order = list(calls)
+    times = {k: [] for k in order}
+    for name in order + order[::-1]:
+        fn, iters = calls[name]
+        times[name].append(cuda_ms(fn, iters))
+    return times
 
 
 def routed_at_path_shape(shape, mode, flow_dtype, body, generator):
@@ -345,16 +419,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import warp_cases
     from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
     from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep
-    from comfyui_frame_interpolation_tpu_torch.models import film, m2m, rife
+    from comfyui_frame_interpolation_tpu_torch.models import film, gmfss, m2m, rife
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
-    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI, M2M_VFI
+    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI, GMFSS_Fortuna_VFI, M2M_VFI
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
-    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import (
+        function_softsplat, softsplat, softsplat_func, softsplat_torch,
+    )
     from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
@@ -494,22 +571,16 @@ def main() -> int:
     rife_profile = profile_forward("RIFE 4.7 1080p bf16 b8", model_fn, f0, f1, t, card)
     del f0, f1
     # plain, K1, grid_sample, grid_sample, K1, plain
-    calls = {
+    k1_times = in_turns({
         "plain": (lambda: warp_torch(main_img, main_flow), 5),
         "K1": (lambda: warp(main_img, main_flow), 50),
         "grid_sample": (grid_sample_call(main_img, main_flow), 20),
-    }
-    order = ["plain", "K1", "grid_sample"]
-    k1_times = {k: [] for k in order}
-    for name in order + order[::-1]:
-        fn, iters = calls[name]
-        k1_times[name].append(cuda_ms(fn, iters))
-    del calls
+    })
     k1_ms = {k: statistics.mean(v) for k, v in k1_times.items()}
     k1_bound = warp_bound(main_img, main_flow)
     print(
         f"timing {card}: RIFE 4.7 1080p 2x bf16 batch 8 {fps:.2f} frames/s; warp {list(MAIN_SHAPE)} bf16, f32 flow: "
-        + ", ".join(f"{k} {k1_ms[k]:.4f} ms {k1_times[k]}" for k in order)
+        + ", ".join(f"{k} {k1_ms[k]:.4f} ms {v}" for k, v in k1_times.items())
         + f"; bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), K1 at {100 * k1_bound[0] / k1_ms['K1']:.1f} % of it",
         flush=True,
     )
@@ -634,18 +705,18 @@ def main() -> int:
     infer_ms = cuda_ms(lambda: infer_fn(f0, f1, cache, t), 10)
     del cache
     # plain, kernel, kernel, plain: the two versions are compared in turns
-    splat_plain_a = cuda_ms(lambda: softsplat_torch(splat_vals, splat_flow), 3)
-    splat_kern_a = cuda_ms(lambda: softsplat_func(splat_vals, splat_flow), 20)
-    splat_kern_b = cuda_ms(lambda: softsplat_func(splat_vals, splat_flow), 20)
-    splat_plain_b = cuda_ms(lambda: softsplat_torch(splat_vals, splat_flow), 3)
-    splat_ms = statistics.mean((splat_kern_a, splat_kern_b))
-    splat_plain_ms = statistics.mean((splat_plain_a, splat_plain_b))
+    splat_times = in_turns({
+        "plain": (lambda: softsplat_torch(splat_vals, splat_flow), 3),
+        "kernel": (lambda: softsplat_func(splat_vals, splat_flow), 20),
+    })
+    splat_ms = statistics.mean(splat_times["kernel"])
+    splat_plain_ms = statistics.mean(splat_times["plain"])
     splat_bound = bound(*splat_work(splat_vals.permute(0, 3, 1, 2), splat_flow.permute(0, 3, 1, 2)))
     del splat_vals, splat_flow
     print(
         f"timing {card}: M2M 1080p 2x bf16 batch 2 {m2m_fps:.3f} frames/s; reuse {reuse_ms:.3f} ms, infer "
         f"{infer_ms:.3f} ms per pair batch; splat {list(SPLAT_SHAPE)} bf16 kernel {splat_ms:.4f} ms "
-        f"({splat_kern_a:.4f}, {splat_kern_b:.4f}), plain {splat_plain_ms:.4f} ms ({splat_plain_a:.4f}, {splat_plain_b:.4f})",
+        f"{splat_times['kernel']}, plain {splat_plain_ms:.4f} ms {splat_times['plain']}",
         flush=True,
     )
     print(
@@ -799,18 +870,13 @@ def main() -> int:
             wide_flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
         # plain, wide, K1, grid_sample, then back: the versions in turns
         planes, fplanes = wide_img.permute(0, 3, 1, 2), wide_flow.permute(0, 3, 1, 2)
-        calls = {
+        times = in_turns({
             "plain": (lambda: warp_torch(wide_img, wide_flow), 3),
             "wide": (lambda: warp(wide_img, wide_flow, prefer_wide=True), 30),
             "K1": (lambda: warp_kernel.warp_bilinear(planes, fplanes), 10),
             "grid_sample": (grid_sample_call(wide_img, wide_flow), 10),
-        }
-        order = ["plain", "wide", "K1", "grid_sample"]
-        times = {k: [] for k in order}
-        for name in order + order[::-1]:
-            fn, iters = calls[name]
-            times[name].append(cuda_ms(fn, iters))
-        del calls, planes, fplanes
+        })
+        del planes, fplanes
         key = "x".join(map(str, shape))
         wb = warp_bound(wide_img, wide_flow)
         wide_times[key] = {
@@ -823,7 +889,7 @@ def main() -> int:
         }
         print(
             f"timing {card}: warp {list(shape)} bf16, f32 flow: "
-            + ", ".join(f"{k} {statistics.mean(times[k]):.4f} ms {times[k]}" for k in order)
+            + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
             + f"; bound {wb[0]:.4f} ms ({wb[1]}), wide at {100 * wb[0] / wide_times[key]['ms']:.1f} % of it",
             flush=True,
         )
@@ -831,9 +897,222 @@ def main() -> int:
     film_profile = profile_forward("FILM 1080p bf16 b2", model_fn, f0, f1, t, card)
     del f0, f1
     wide_main = wide_times["x".join(map(str, FILM_WARP_SHAPES[0]))]
+    del model_fn
+
+    # ---- 15. splat at GMFSS's widths -----------------------------------------
+    def splat_vs_plain(vals, flow, f32_scaled=False):
+        """Max abs error of the kernel against the twin, checked: f32 within
+        1e-5 (times the output's largest magnitude, if ``f32_scaled``),
+        bf16 within one ulp."""
+        got, ref = softsplat_func(vals, flow), softsplat_torch(vals, flow)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if vals.dtype == torch.float32:
+            tol = SPLAT_F32_ATOL * (max(1.0, ref.abs().max().item()) if f32_scaled else 1.0)
+            ok = err <= tol
+        else:
+            ok, tol = bf16_ulp_ok(got, ref), "one ulp"
+        check(ok and got.dtype == vals.dtype, f"splat kernel vs plain at {list(vals.shape)} {vals.dtype}: max err {err}, tol {tol}")
+        return err
+
+    smooth_errs = {}
+    for shape in GMFSS_SPLAT_SHAPES:
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=8.0)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            vals = torch.rand(shape, generator=g).to(dev, dtype)
+            smooth_errs[f"C={shape[3]} {str(dtype).split('.')[-1]}"] = splat_vs_plain(vals, flow)
+    gmfss_params = {union: gmfss.init_params(0, union=union) for union in (False, True)}
+    gmfss_fn = gmfss.make_model_fn(gmfss_params[False], dtype=torch.bfloat16, device=dev)
+    f0 = torch.from_numpy(np.random.default_rng(0).random((1, 1080, 1920, 3), dtype=np.float32)).to(dev)
+    f1 = torch.from_numpy(np.random.default_rng(1).random((1, 1080, 1920, 3), dtype=np.float32)).to(dev)
+    t = torch.full((1,), 0.5, device=dev)
+    gmfss_splats = []
+    with captured_splats(gmfss_splats):
+        gmfss_fn(f0, f1, t)
+    torch.cuda.synchronize()
+    captured_c = tuple(v.shape[-1] for v, _ in gmfss_splats)
+    check(captured_c == gmfss.SPLAT_CHANNELS_PER_INFER, f"GMFSS splat widths {captured_c} != {gmfss.SPLAT_CHANNELS_PER_INFER}")
+    soft_errs = {"bf16": 0.0, "f32": 0.0}
+    for vals, flow in gmfss_splats:
+        check(vals.dtype == torch.bfloat16, f"GMFSS bf16 forward splats {vals.dtype} values")
+        soft_errs["bf16"] = max(soft_errs["bf16"], splat_vs_plain(vals, flow))
+        soft_errs["f32"] = max(soft_errs["f32"], splat_vs_plain(vals.float(), flow.float(), f32_scaled=True))
+    rng = np.random.default_rng(5)
+    w_vals = rng.random((2, 64, 96, 3), dtype=np.float32)
+    w_flow = warp_cases.smooth_flow(2, 64, 96, amp=3.0)
+    w_flow[..., 0] += 4.0  # leaves an empty strip: exact-zero normalisers
+    w_metric = rng.uniform(0.25, 1.25, (2, 64, 96, 1)).astype(np.float32)
+    w_metric[:, ::5] = 0.0
+    wrapper_err = 0.0
+    # (name, call, whether it is given the metric): the legacy names always
+    # are, and read it only where their mode does
+    cases = [(m, softsplat, m.split("-")[0] in ("linear", "soft")) for m in SOFTSPLAT_MODES] + [
+        (n, function_softsplat, True) for n in ("summation", "average", "linear", "softmax", "sum", "avg", "soft")
+    ]
+    for name, fn, with_metric in cases:
+        outs = [
+            fn(*(torch.from_numpy(a).to(d) for a in (w_vals, w_flow)), torch.from_numpy(w_metric).to(d) if with_metric else None, name)
+            for d in (dev, torch.device("cpu"))
+        ]
+        err = (outs[0].cpu() - outs[1]).abs().max().item()
+        check(outs[0].is_cuda and err <= SPLAT_F32_ATOL, f"{fn.__name__} {name} cuda vs cpu: max err {err}")
+        wrapper_err = max(wrapper_err, err)
+    print(
+        f"gsplat: splat kernel vs plain at GMFSS's widths, smooth flow: "
+        + ", ".join(f"{k} {v}" for k, v in smooth_errs.items())
+        + f"; on the {len(gmfss_splats)} soft-mode inputs of one GMFSS 1080p bf16 forward (C {list(captured_c)}): "
+        f"bf16 max err {soft_errs['bf16']} (one ulp), f32 max err {soft_errs['f32']} (1e-5 of the magnitude); "
+        f"softsplat wrapper cuda vs cpu, {len(cases)} modes and names, max err {wrapper_err} (tol {SPLAT_F32_ATOL})",
+        flush=True,
+    )
+
+    # ---- 16. GMFSS node end to end -------------------------------------------
+    frames = shifted_pattern(4, *GMFSS_HW, seed=3)
+    batch = 2
+    reuse_calls = infer_calls = 0
+    for multiplier in (2, 3):
+        _, by_count = _pair_groups(plan_timestep(4, multiplier))
+        reuse_calls += sum(math.ceil(len(keys) / batch) for keys in by_count.values())
+        infer_calls += sum(m_ * math.ceil(len(keys) / batch) for m_, keys in by_count.items())
+    gmfss_launches = {}
+    for union in (False, True):
+        name = "GMFSS_fortuna_union" if union else "GMFSS_fortuna"
+        path = "gmfss_union" if union else "gmfss"
+        node = GMFSS_Fortuna_VFI()
+        expect = {"narrow": 0, "wide": 0, "splat": 0}
+        for dtype in (torch.float32, torch.bfloat16):
+            per_reuse, per_infer = gmfss.warps_per_reuse(dtype), gmfss.warps_per_infer(union, dtype)
+            for k in ("narrow", "wide"):
+                expect[k] += per_reuse[k] * reuse_calls + per_infer[k] * infer_calls
+            expect["splat"] += gmfss.splats_per_infer() * infer_calls
+        outs = {}
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+        for multiplier in (2, 3):
+            for dtype in ("float32", "bfloat16"):
+                (outs[multiplier, dtype],) = node.vfi(
+                    name, frames, multiplier=multiplier, batch_size=batch, dtype=dtype, params=gmfss_params[union],
+                    device="cuda",
+                )
+        torch.cuda.synchronize()
+        got = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        check(got == expect, f"{name} launches {got} != {expect} ({reuse_calls} reuse, {infer_calls} infer calls per dtype)")
+        gmfss_launches[path] = got
+        psnrs = []
+        t0 = time.perf_counter()
+        for multiplier in (2, 3):
+            (out_cpu,) = node.vfi(
+                name, frames, multiplier=multiplier, batch_size=batch, dtype="float32", params=gmfss_params[union],
+                device="cpu",
+            )
+            n_out = 3 * multiplier + 1
+            for dtype in ("float32", "bfloat16"):
+                out = outs[multiplier, dtype]
+                check(tuple(out.shape) == (n_out, *GMFSS_HW, 3) and out.is_cuda, f"{name} output {tuple(out.shape)} on {out.device}")
+                check(bool(torch.isfinite(out).all()), f"{name} x{multiplier} {dtype} has non-finite values")
+                check(
+                    torch.equal(out[::multiplier].cpu(), torch.from_numpy(frames)),
+                    f"{name} x{multiplier} {dtype}: original frames not passed through",
+                )
+                p = psnr(out, out_cpu)
+                check(p >= 40.0, f"{name} node x{multiplier} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+                psnrs.append(f"x{multiplier} {dtype} {p:.2f} dB")
+        print(
+            f"gmfss: {name} node 4x{GMFSS_HW[0]}x{GMFSS_HW[1]} x2 and x3 batch {batch}, cuda vs cpu fp32: "
+            f"{', '.join(psnrs)} (cpu leg {time.perf_counter() - t0:.1f} s); launches {got} over {reuse_calls} reuse "
+            f"and {infer_calls} infer calls per dtype, as derived from the model (per reuse "
+            f"{gmfss.warps_per_reuse()}, per infer {gmfss.warps_per_infer(union)} and {gmfss.splats_per_infer()} splats)",
+            flush=True,
+        )
+        del outs, out_cpu
+
+    # ---- 17. GMFSS JAX golden ------------------------------------------------
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_gmfss_golden.npz")) as z:
+        seed, gt, gframes = int(z["seed"]), float(z["t"]), z["frames"]
+        goldens = {union: torch.from_numpy(z["output_union" if union else "output_base"]) for union in (False, True)}
+    g0, g1 = (torch.from_numpy(gframes[i].astype(np.float32) / 255.0).to(dev) for i in (0, 1))
+    golden_psnr = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for union, golden in goldens.items():
+        net = gmfss._load(gmfss.init_params(seed, union=union), union, torch.float32, dev)
+        with torch.inference_mode():
+            gout = gmfss.apply(net, g0, g1, torch.full((1,), gt, device=dev))
+        golden_psnr[union] = (psnr(gout, golden), (gout.cpu() - golden).abs().max().item())
+        check(golden_psnr[union][0] >= 40.0, f"GMFSS golden union={union}: {golden_psnr[union][0]:.2f} dB < 40")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del net
+    print(
+        "golden: port GMFSS on cuda fp32 vs JAX GMFSS fp32, "
+        + ", ".join(f"{'union' if u else 'base'} {p:.2f} dB (max abs err {e:.3g})" for u, (p, e) in golden_psnr.items()),
+        flush=True,
+    )
+
+    # ---- 18. GMFSS timing ----------------------------------------------------
+    gmfss_fps, gmfss_stage_ms, gmfss_profiles = {}, {}, {}
+    for union in (False, True):
+        path = "gmfss_union" if union else "gmfss"
+        fn = gmfss_fn if not union else gmfss.make_model_fn(gmfss_params[True], union=True, dtype=torch.bfloat16, device=dev)
+        gmfss_fps[path] = 1 / measure(fn, f0, f1, t, iters=5, rounds=3)
+        reuse_fn, infer_fn = gmfss.make_pair_fns(gmfss_params[union], union=union, dtype=torch.bfloat16, device=dev)
+        cache = reuse_fn(f0, f1)
+        gmfss_stage_ms[path] = {"reuse": cuda_ms(lambda: reuse_fn(f0, f1), 5), "infer": cuda_ms(lambda: infer_fn(f0, f1, cache, t), 5)}
+        del cache, reuse_fn, infer_fn
+        print(
+            f"timing {card}: {'GMFSS union' if union else 'GMFSS'} 1080p 2x bf16 batch 1 {gmfss_fps[path]:.3f} frames/s; "
+            f"reuse {gmfss_stage_ms[path]['reuse']:.3f} ms, infer {gmfss_stage_ms[path]['infer']:.3f} ms per pair",
+            flush=True,
+        )
+        gmfss_profiles[path] = profile_forward(f"{'GMFSS union' if union else 'GMFSS'} 1080p bf16 b1", fn, f0, f1, t, card)
+        del fn
+    del gmfss_fn, f0, f1
+    # the splat at each width, on the first direction's captured inputs
+    gmfss_splat_times = {}
+    for vals, flow in gmfss_splats[::2]:
+        times = in_turns({
+            "plain": (lambda: softsplat_torch(vals, flow), 3),
+            "kernel": (lambda: softsplat_func(vals, flow), 20),
+        })
+        sb = bound(*splat_work(vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
+        key = "x".join(map(str, vals.shape))
+        gmfss_splat_times[key] = {
+            "ms": statistics.mean(times["kernel"]), "plain_ms": statistics.mean(times["plain"]),
+            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None,
+        }
+        print(
+            f"timing {card}: splat {list(vals.shape)} bf16, bf16 flow (GMFSS's soft-mode input): "
+            + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
+            + f"; bound {sb[0]:.4f} ms ({sb[1]}), the op at {100 * sb[0] / gmfss_splat_times[key]['ms']:.1f} % of it",
+            flush=True,
+        )
+    del gmfss_splats
+    gmfss_warp_times = {}
+    for shape, mode, body in GMFSS_WARP_SHAPES:
+        routed_at_path_shape(shape, mode, torch.bfloat16, body, g)
+        img = torch.rand(shape, generator=g).to(dev, torch.bfloat16)
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev, torch.bfloat16)
+        times = in_turns({
+            "plain": (lambda: warp_torch(img, flow, mode), 3),
+            body: (lambda: warp(img, flow, mode), 30),
+            "grid_sample": (grid_sample_call(img, flow, mode), 10),
+        })
+        wb = warp_bound(img, flow)
+        key = f"{'x'.join(map(str, shape))} {mode}"
+        gmfss_warp_times[key] = {
+            "kernel": body, "ms": statistics.mean(times[body]), "plain_ms": statistics.mean(times["plain"]),
+            "library_ms": statistics.mean(times["grid_sample"]), "bound_ms": wb[0], "bound_by": wb[1],
+        }
+        print(
+            f"timing {card}: warp {list(shape)} bf16 {mode}, bf16 flow (GMFSS): "
+            + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
+            + f"; bound {wb[0]:.4f} ms ({wb[1]}), {body} at {100 * wb[0] / gmfss_warp_times[key]['ms']:.1f} % of it",
+            flush=True,
+        )
+    del img, flow
+
     # per kernel and 1080p bf16 path, one forward's launches, device ms and
     # bound, ranked by the ms above the bound
-    profiles = {"rife": rife_profile, "m2m": m2m_profile, "film": film_profile}
+    profiles = {"rife": rife_profile, "m2m": m2m_profile, "film": film_profile, **gmfss_profiles}
     per_forward = {k: {path: prof[k] for path, prof in profiles.items() if k in prof} for k in KERNEL_BODIES}
     ranked = sorted(
         ((k, path, v) for k, paths in per_forward.items() for path, v in paths.items()),
@@ -845,14 +1124,19 @@ def main() -> int:
         flush=True,
     )
 
+    print(f"smoke {card}: phases 1-18 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
-            "launches": rife_warp_launches + m2m_warp_launches + film_warp_launches,
-            "launches_by_path": {"rife": rife_warp_launches, "m2m": m2m_warp_launches, "film": film_warp_launches},
+            "launches": rife_warp_launches + m2m_warp_launches + film_warp_launches
+            + sum(v["narrow"] for v in gmfss_launches.values()),
+            "launches_by_path": {
+                "rife": rife_warp_launches, "m2m": m2m_warp_launches, "film": film_warp_launches,
+                **{path: v["narrow"] for path, v in gmfss_launches.items()},
+            },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
             "ms": k1_ms["K1"],
@@ -860,6 +1144,7 @@ def main() -> int:
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
             "library_ms": k1_ms["grid_sample"],
+            "gmfss_shapes": {k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "tiled"},
             "per_forward": per_forward["warp_bilinear"],
         },
         {
@@ -867,8 +1152,10 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:297",
-            "launches": m2m_wide + film_wide_launches,
-            "launches_by_path": {"m2m": m2m_wide, "film": film_wide_launches},
+            "launches": m2m_wide + film_wide_launches + sum(v["wide"] for v in gmfss_launches.values()),
+            "launches_by_path": {
+                "m2m": m2m_wide, "film": film_wide_launches, **{path: v["wide"] for path, v in gmfss_launches.items()},
+            },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
             "ms": wide_main["ms"],
@@ -877,7 +1164,7 @@ def main() -> int:
             "bound_ms": wide_main["bound_ms"],
             "bound_by": wide_main["bound_by"],
             "library_ms": wide_main["library_ms"],
-            "by_shape": wide_times,
+            "by_shape": {**wide_times, **{k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "wide"}},
             "per_forward": per_forward["warp_bilinear_wide"],
         },
         {
@@ -885,8 +1172,8 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
-            "launches": m2m_splat_launches,
-            "launches_by_path": {"m2m": m2m_splat_launches},
+            "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()),
+            "launches_by_path": {"m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()}},
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
             "ms": splat_ms,
@@ -895,6 +1182,7 @@ def main() -> int:
             "bound_ms": splat_bound[0],
             "bound_by": splat_bound[1],
             "library_ms": None,
+            "gmfss_shapes": gmfss_splat_times,
             "per_forward": per_forward["softsplat"],
         },
     ]}))

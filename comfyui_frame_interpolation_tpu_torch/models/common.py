@@ -1,6 +1,6 @@
 """Layer primitives for the ported models: the subset of the JAX package's
-``models/common.py`` that RIFE, M2M and FILM use, as plain functions on NCHW
-tensors.
+``models/common.py`` that RIFE, M2M, FILM and GMFSS use, as plain functions
+on NCHW tensors (``linear`` on the last axis of any tensor).
 
 The JAX versions take NHWC arrays and parameter dicts in torch layout; here
 the tensors are torch's own NCHW (held in ``channels_last`` memory by the
@@ -35,6 +35,7 @@ __all__ = [
     "conv_transpose2d",
     "prelu",
     "leaky_relu",
+    "linear",
     "sigmoid",
     "pixel_shuffle",
     "resize_bilinear",
@@ -143,8 +144,14 @@ def conv_transpose2d(
 
 
 def prelu(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """torch ``nn.PReLU``; ``weight`` of shape (C,) over the channel axis."""
+    """torch ``nn.PReLU``; ``weight`` of shape (C,) over the channel axis, or
+    of shape (1,), one slope for every channel (GMFSS's)."""
     return torch.where(x >= 0, x, x * weight.view(1, -1, 1, 1))
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torch ``nn.Linear`` over the last axis: ``x @ weight.T + bias``."""
+    return F.linear(x, weight, bias)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """RIFE IFNet, PyTorch port of the JAX package's ``models/rife.py``
-(reference ``vfi_models/rife/rife_arch.py``) for arch 4.7 (``rife47``,
+(reference ``vfi_models/rife/rife_arch.py``) for arch 4.6 (``rife46``, which
+GMFSS Fortuna's union variant runs inside its fusion head), 4.7 (``rife47``,
 ``rife49``), 4.17 (``rife417``) and 4.26 (``rife426``).
 
 Coarse-to-fine intermediate-flow estimation: 4 (5 for 4.26) ``IFBlock`` stages
@@ -7,7 +8,10 @@ on a static scale pyramid, each refining a 4-channel bidirectional flow and a
 blend mask with stride-4 conv encoders, 8 residual convs and a transposed-conv
 + pixel-shuffle head (``rife_arch.py:177-276``); both frames and their encoder
 features are backward-warped at every stage (``ops.warp``, the Hopper kernel on
-the card) and blended by the sigmoid mask (``rife_arch.py:707-723``).
+the card) and blended by the sigmoid mask (``rife_arch.py:707-723``). Arch
+4.6 has no encoder: its blocks see the images, the timestep and (after stage
+0) the mask and flow, the ensemble averages flow and mask at every stage, and
+the mask accumulates across stages (:func:`_forward_46`).
 
 Modules hold the parameters, with ``state_dict`` keys equal to the reference
 checkpoints' and to the JAX parameter tree flattened with ``.``
@@ -15,7 +19,7 @@ checkpoints' and to the JAX parameter tree flattened with ``.``
 :func:`apply` is the forward, with NHWC frames in and out as in the JAX
 package; inside, tensors are NCHW in ``channels_last`` memory.
 
-Arch 4.0-4.6 and 4.10 (PReLU, ContextNet/UNet refinement and the 4.0
+Arch 4.0-4.5 and 4.10 (PReLU, ContextNet/UNet refinement and the 4.0
 scale-doubling rescue) are not ported yet: ``ROADMAP.md`` Queue 1, item 6.
 """
 
@@ -42,7 +46,7 @@ __all__ = [
     "make_model_fn",
 ]
 
-ARCH_VERSIONS = ("4.7", "4.17", "4.26")
+ARCH_VERSIONS = ("4.6", "4.7", "4.17", "4.26")
 
 # ckpt -> arch version (reference rife/__init__.py:10-20)
 CKPT_NAME_VER_DICT = {
@@ -54,9 +58,11 @@ CKPT_NAME_VER_DICT = {
 }
 
 # per arch: (in_planes, width) of each IFBlock, the head's output multiple,
-# and the encoder's (hidden, output) widths (None: 4.7's two-layer encoder)
+# and the encoder: None (4.6 has none), "4.7" (its two-layer encoder) or the
+# (hidden, output) widths of a ``Head``
 _ARCH = {
-    "4.7": (((15, 192), (20, 128), (20, 96), (20, 64)), 6, None),
+    "4.6": (((7, 192), (12, 128), (12, 96), (12, 64)), 6, None),
+    "4.7": (((15, 192), (20, 128), (20, 96), (20, 64)), 6, "4.7"),
     "4.17": (((23, 192), (28, 128), (28, 96), (28, 64)), 6, (32, 8)),
     "4.26": (((15, 192), (28, 128), (28, 96), (28, 64), (28, 32)), 13, (16, 4)),
 }
@@ -132,11 +138,11 @@ class IFNet(nn.Module):
         for i, (in_planes, c) in enumerate(blocks):
             self.add_module(f"block{i}", IFBlock(in_planes, c, out_mult))
         self.num_blocks = len(blocks)
-        if head is None:  # 4.7 (rife_arch.py:356-360)
+        if head == "4.7":  # rife_arch.py:356-360
             self.encode = nn.Sequential(
                 nn.Conv2d(3, 16, 3, 2, 1), nn.ConvTranspose2d(16, 4, 4, 2, 1)
             )
-        else:
+        elif head is not None:
             self.encode = Head(*head)
 
     def blocks(self) -> List[IFBlock]:
@@ -207,13 +213,14 @@ def apply(
     img1 = F.pad(img1.permute(0, 3, 1, 2).clamp(0.0, 1.0), (0, pw - w, 0, ph - h))
     timestep = torch.as_tensor(timestep, dtype=img0.dtype, device=img0.device)
     tmap = timestep.reshape(-1, 1, 1, 1).expand(n, 1, ph, pw)
+    blocks = net.blocks()
+    scale_list = list(scale_list)
+    if arch == "4.6":
+        return _forward_46(blocks, img0, img1, tmap, scale_list, ensemble, h, w)
 
     # one batched encoder call for both frames
     both = net.encode(torch.cat([img0[:, :3], img1[:, :3]], 0))
     f0, f1 = both[:n], both[n:]
-    blocks = net.blocks()
-    scale_list = list(scale_list)
-
     if arch == "4.26":
         return _forward_426(blocks, img0, img1, f0, f1, tmap, scale_list, h, w)
 
@@ -249,6 +256,30 @@ def apply(
             mask = m0
         flow, warped0, warped1, wf0, wf1 = new_flow, new_w0, new_w1, wf0n, wf1n
 
+    mask = sigmoid(mask)
+    merged = warped0 * mask + warped1 * (1 - mask)
+    return merged[:, :, :h, :w].permute(0, 2, 3, 1)
+
+
+def _forward_46(blocks, img0, img1, tmap, scale_list, ensemble, h, w) -> torch.Tensor:
+    """4.6 path (the JAX ``apply``'s branch for arch <= 4.6, its
+    ``rife.py:262-302``): no encoder; the ensemble pass averages both the flow
+    update and the mask update at every stage, and the mask accumulates."""
+    flow, mask, _ = _if_block(blocks[0], [img0, img1, tmap], None, scale_list[0])
+    if ensemble:
+        fr, mr, _ = _if_block(blocks[0], [img1, img0, 1 - tmap], None, scale_list[0])
+        flow = (flow + _swap_flow(fr)) / 2
+        mask = (mask + (-mr)) / 2
+    warped0, warped1 = _warp_both(img0, img1, flow)
+    for i in range(1, 4):
+        fd, m0, _ = _if_block(blocks[i], [warped0, warped1, tmap, mask], flow, scale_list[i])
+        if ensemble:
+            fr, mr, _ = _if_block(blocks[i], [warped1, warped0, 1 - tmap, -mask], _swap_flow(flow), scale_list[i])
+            fd = (fd + _swap_flow(fr)) / 2
+            m0 = (m0 + (-mr)) / 2
+        flow = flow + fd
+        mask = mask + m0
+        warped0, warped1 = _warp_both(img0, img1, flow)
     mask = sigmoid(mask)
     merged = warped0 * mask + warped1 * (1 - mask)
     return merged[:, :, :h, :w].permute(0, 2, 3, 1)
@@ -293,7 +324,8 @@ def make_model_fn(
     ``params`` is a state dict with the reference's keys; it is cast to
     ``dtype`` and moved to ``device`` once, loaded with ``strict=True``.
     ``fastmode`` selects the ContextNet/UNet refinement of arch <= 4.3 only,
-    which is not ported; the ported archs ignore it, as the reference does."""
+    which is not ported; the ported archs (4.6 included) ignore it, as the
+    reference does."""
     _check_arch(arch_ver)
     if arch_ver == "4.26":
         ensemble = False  # reference rife/__init__.py:123-125

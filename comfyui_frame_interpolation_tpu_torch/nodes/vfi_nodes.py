@@ -1,7 +1,7 @@
 """VFI nodes of the generic-loop model families, port of the JAX package's
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
-Ported so far: FILM and M2M. Same public schema as the JAX nodes (the tooltips speak of
+Ported so far: FILM, M2M and GMFSS Fortuna. Same public schema as the JAX nodes (the tooltips speak of
 the card); frames and results are NHWC torch tensors on the node's device.
 """
 
@@ -16,8 +16,9 @@ from ..core.frames import assert_batch_size, postprocess_frames, preprocess_fram
 from ..core.loop import run_plan, run_plan_pair_cached
 from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep
 from ..models import film as film_model
+from ..models import gmfss as gmfss_model
 from ..models import m2m as m2m_model
-from ..utils.ckpt import load_local_checkpoint
+from ..utils.ckpt import load_checkpoint_set, load_local_checkpoint
 from .rife_node import DTYPE_MAP, DTYPE_OPTIONS
 
 _OPTIONAL = {"optional": {"optional_interpolation_states": ("INTERPOLATION_STATES",)}}
@@ -154,6 +155,74 @@ class M2M_VFI:
         reuse_fn, infer_fn = _cached(
             self._pair_fns, params, (ckpt_name, dtype, str(device)),
             lambda: m2m_model.make_pair_fns(params, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)
+
+
+class GMFSS_Fortuna_VFI:
+    """reference ``gmfss_fortuna/__init__.py:79-143``; generic timestep
+    schedule, run by the pair-cached executor: GMFlow, the metric net and the
+    feature pyramid once per pair, the splat and fusion once per timestep.
+
+    The weights are a set of files per checkpoint name (``rife46.pth`` as
+    well for the union variant), loaded into one state dict whose keys are
+    prefixed by sub-network (``utils.ckpt.load_checkpoint_set``)."""
+
+    CKPTS_PATH_CONFIG = {
+        "GMFSS_fortuna_union": {
+            "ifnet": ("rife", "rife46.pth"),
+            "flownet": ("gmfss_fortuna", "GMFSS_fortuna_flownet.pkl"),
+            "metricnet": ("gmfss_fortuna", "GMFSS_fortuna_union_metric.pkl"),
+            "feat_ext": ("gmfss_fortuna", "GMFSS_fortuna_union_feat.pkl"),
+            "fusionnet": ("gmfss_fortuna", "GMFSS_fortuna_union_fusionnet.pkl"),
+        },
+        "GMFSS_fortuna": {
+            "flownet": ("gmfss_fortuna", "GMFSS_fortuna_flownet.pkl"),
+            "metricnet": ("gmfss_fortuna", "GMFSS_fortuna_metric.pkl"),
+            "feat_ext": ("gmfss_fortuna", "GMFSS_fortuna_feat.pkl"),
+            "fusionnet": ("gmfss_fortuna", "GMFSS_fortuna_fusionnet.pkl"),
+        },
+    }
+
+    def __init__(self):
+        self._pair_fns: typing.Dict[tuple, typing.Tuple[dict, tuple]] = {}  # see _cached
+        self._params: typing.Dict[str, dict] = {}  # per ckpt_name, loaded once
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(list(cls.CKPTS_PATH_CONFIG.keys()), batch_default=2)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "GMFSS Fortuna")
+        union = "union" in ckpt_name
+        if params is None:
+            # one dict per name, so the pair-fn cache below hits on later calls
+            if ckpt_name not in self._params:
+                self._params[ckpt_name] = load_checkpoint_set(self.CKPTS_PATH_CONFIG[ckpt_name])
+            params = self._params[ckpt_name]
+        reuse_fn, infer_fn = _cached(
+            self._pair_fns, params, (ckpt_name, dtype, str(device)),
+            lambda: gmfss_model.make_pair_fns(params, union=union, dtype=DTYPE_MAP[dtype], device=device),
         )
         plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
         out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)

@@ -1,14 +1,15 @@
 """Op surface of the port. ``warp`` and ``softsplat_func`` dispatch on the
 tensor's device: the hand-written Hopper kernel (``ops/cuda``) for CUDA
-tensors, the plain PyTorch twin for CPU tensors. ``costvol_func`` is plain
-PyTorch. The JAX package's other ops (the softsplat mode wrappers, sepconv,
+tensors, the plain PyTorch twin for CPU tensors; the mode wrappers
+``softsplat`` and ``function_softsplat`` run on ``softsplat_func``.
+``costvol_func`` is plain PyTorch. The JAX package's other ops (sepconv,
 adacof, correlation, edt) are not ported yet (``ROADMAP.md``)."""
 
 from .costvol import costvol_func
-from .softsplat import softsplat_func, softsplat_torch
+from .softsplat import function_softsplat, softsplat, softsplat_func, softsplat_torch
 from .warp import bilinear_sample, grid_sample, warp, warp_torch
 
 __all__ = [
     "warp", "warp_torch", "bilinear_sample", "grid_sample",
-    "softsplat_func", "softsplat_torch", "costvol_func",
+    "softsplat", "function_softsplat", "softsplat_func", "softsplat_torch", "costvol_func",
 ]

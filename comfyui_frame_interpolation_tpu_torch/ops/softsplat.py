@@ -1,5 +1,7 @@
 """Forward bilinear splatting, PyTorch port of the JAX package's
-``ops/softsplat.py`` (``softsplat_func`` and its exact path ``_softsplat_xla``).
+``ops/softsplat.py``: ``softsplat_func`` (and its exact path
+``_softsplat_xla``), the mode wrapper ``softsplat`` and the legacy
+``function_softsplat``.
 
 Semantics (reference ``cupy_ops/softsplat.py`` kernel ``softsplat_out``):
 every source pixel ``(x, y)`` adds its value, times the bilinear weights, into
@@ -7,8 +9,20 @@ the four integer neighbours of ``(x + flow_x, y + flow_y)``, in the order
 y0x0, y0x1, y1x0, y1x1; corners off the frame are dropped, and so is a source
 whose target is not finite.
 
-Layout: NHWC values and ``[N, H, W, 2]`` flows (channel 0 = x, 1 = y), as in
-the JAX package.
+Layout: NHWC values, ``[N, H, W, 2]`` flows (channel 0 = x, 1 = y) and
+``[N, H, W, 1]`` metrics, as in the JAX package.
+
+:func:`softsplat` (reference ``softsplat``, ``cupy_ops/softsplat.py:382-436``)
+splats in one of four modes: ``sum``; ``avg`` (a ones channel appended);
+``linear`` (``in * metric`` and a metric channel); ``soft`` (``in *
+exp(metric)`` and an ``exp(metric)`` channel). Every mode but ``sum`` divides
+by the splatted last channel, with an eps variant after a dash: bare or
+``-addeps`` adds 1e-7, ``-zeroeps`` maps exact zeros to 1, ``-clipeps`` clamps
+to at least 1e-7. :func:`function_softsplat` is the legacy
+``FunctionSoftsplat`` (``summation``/``average``/``linear``/``softmax``, and
+the short aliases EISAI passes) with zeroeps. The prologue and the
+normalisation are plain PyTorch, as the JAX package keeps them on XLA around
+its kernel; the splat itself is :func:`softsplat_func`.
 
 :func:`softsplat_func` dispatches on the tensor's device: a CUDA tensor goes
 to the hand-written Hopper kernel (``ops.cuda.softsplat_kernel``), a CPU tensor
@@ -28,9 +42,11 @@ path adds ``value * 0`` at index 0 (NaN there for a non-finite value).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["softsplat_func", "softsplat_torch"]
+__all__ = ["function_softsplat", "softsplat", "softsplat_func", "softsplat_torch"]
 
 
 def softsplat_torch(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tensor:
@@ -89,3 +105,65 @@ def softsplat_func(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tensor
     raise ValueError(
         f"softsplat_func runs on cuda or cpu tensors, got {ten_in.device} and {ten_flow.device}"
     )
+
+
+def softsplat(
+    ten_in: torch.Tensor, ten_flow: torch.Tensor, ten_metric: Optional[torch.Tensor], str_mode: str
+) -> torch.Tensor:
+    """Mode and eps-variant wrapper of :func:`softsplat_func` (JAX
+    ``ops/softsplat.py:softsplat``); NHWC in and out."""
+    parts = str_mode.split("-")
+    base = parts[0]
+    if base not in ("sum", "avg", "linear", "soft"):
+        raise ValueError(f"unknown splat mode {str_mode}")
+    if (ten_metric is None) != (base in ("sum", "avg")):
+        raise ValueError(f"splat mode {base} takes {'no' if base in ('sum', 'avg') else 'a'} metric")
+    eps_mode = parts[1] if len(parts) > 1 else "addeps"
+    if base != "sum" and eps_mode not in ("addeps", "zeroeps", "clipeps"):
+        raise ValueError(f"unknown eps mode in {str_mode}")
+
+    if base == "avg":
+        ten_in = torch.cat([ten_in, torch.ones_like(ten_in[..., :1])], -1)
+    elif base == "linear":
+        ten_in = torch.cat([ten_in * ten_metric, ten_metric], -1)
+    elif base == "soft":
+        m = torch.exp(ten_metric)
+        ten_in = torch.cat([ten_in * m, m], -1)
+
+    ten_out = softsplat_func(ten_in, ten_flow)
+    if base == "sum":
+        return ten_out
+    norm = ten_out[..., -1:]
+    if eps_mode == "addeps":
+        norm = norm + 0.0000001
+    elif eps_mode == "zeroeps":
+        norm = torch.where(norm == 0.0, 1.0, norm)
+    else:
+        norm = norm.clamp(min=0.0000001)
+    return ten_out[..., :-1] / norm
+
+
+# legacy names and the short aliases EISAI's flow_forewarp passes (the JAX
+# package accepts both; the reference FunctionSoftsplat asserts the long ones)
+_LEGACY_MODES = {
+    "summation": "sum",
+    "average": "avg",
+    "linear": "linear",
+    "softmax": "soft",
+    "sum": "sum",
+    "avg": "avg",
+    "soft": "soft",
+}
+
+
+def function_softsplat(
+    ten_input: torch.Tensor, ten_flow: torch.Tensor, ten_metric: Optional[torch.Tensor], str_type: str
+) -> torch.Tensor:
+    """Legacy API (reference ``FunctionSoftsplat``): the modes under their
+    long names or short aliases, normalised with zeroeps."""
+    if str_type not in _LEGACY_MODES:
+        raise ValueError(f"unknown splat type {str_type}")
+    base = _LEGACY_MODES[str_type]
+    if base == "sum":
+        return softsplat(ten_input, ten_flow, None, "sum")
+    return softsplat(ten_input, ten_flow, ten_metric if base in ("linear", "soft") else None, f"{base}-zeroeps")

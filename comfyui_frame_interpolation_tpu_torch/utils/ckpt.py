@@ -8,21 +8,23 @@ models load the result with ``strict=True``. Nothing is downloaded here.
 Local checkpoints are raw ``torch.save`` containers, or TorchScript archives
 (FILM's ``film_net_fp32.pt``, which the reference loads with
 ``torch.jit.load``), read through ``torch.jit.load`` as the JAX loader does
-(its ``utils/ckpt.py:90-132``).
+(its ``utils/ckpt.py:90-132``). Multi-file models (GMFSS Fortuna) load a
+checkpoint set: one state dict per sub-network, its keys prefixed by the
+sub-network's name (:func:`load_checkpoint_set`).
 """
 
 from __future__ import annotations
 
 import os
 import zipfile
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import get_ckpt_container_path
 
-__all__ = ["is_torchscript_archive", "load_local_checkpoint", "params_from_jax"]
+__all__ = ["is_torchscript_archive", "load_checkpoint_set", "load_local_checkpoint", "params_from_jax"]
 
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -65,3 +67,18 @@ def load_local_checkpoint(model_type: str, ckpt_name: str) -> Dict[str, torch.Te
     if is_torchscript_archive(path):
         return dict(torch.jit.load(path, map_location="cpu").state_dict())
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_checkpoint_set(files: Mapping[str, Tuple[str, str]]) -> Dict[str, torch.Tensor]:
+    """One state dict from a set of local checkpoints: ``files`` maps each
+    prefix to its ``(model_type, ckpt_name)``, as the nodes'
+    ``CKPTS_PATH_CONFIG`` entries do. Each file is read by
+    :func:`load_local_checkpoint` (so a missing file raises
+    ``FileNotFoundError`` naming it, and nothing is downloaded); a leading
+    ``module.`` is stripped from its keys, as the JAX loader does, and the
+    prefix is put before them (``flownet.backbone.conv1.weight``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, (model_type, ckpt_name) in files.items():
+        for key, value in load_local_checkpoint(model_type, ckpt_name).items():
+            out[f"{prefix}.{key.removeprefix('module.')}"] = value
+    return out

@@ -1,4 +1,4 @@
-"""Frames per second of the three ported models on one CUDA card, for the
+"""Frames per second of the ported models on one CUDA card, for the
 port found under ``--root``, so that two checkouts can be compared in turns
 in one session on one card.
 
@@ -8,10 +8,11 @@ Run on the machine with the card, as a script (it imports the package from
     python comfyui_frame_interpolation_tpu_torch/utils/e2e_fps.py --root build/parent
 
 It prints one JSON line: the card and its power limit, and frames/s of RIFE
-4.7 1080p 2x bf16 batch 8 (fast mode, no ensemble), M2M 1080p 2x bf16 batch 2
-and FILM 1080p 2x bf16 batch 2, random frames and random weights from seed 0
-(the configurations of ``chip_smoke.py`` phases 6, 10 and 14), each through
-``make_model_fn`` and timed by ``utils.benchmark.measure``.
+4.7 1080p 2x bf16 batch 8 (fast mode, no ensemble), M2M 1080p 2x bf16 batch 2,
+FILM 1080p 2x bf16 batch 2 and GMFSS Fortuna 1080p 2x bf16 batch 1, base and
+union, random frames and random weights from seed 0 (the configurations of
+``chip_smoke.py`` phases 6, 10, 14 and 18), each through ``make_model_fn`` and
+timed by ``utils.benchmark.measure``.
 """
 
 import argparse
@@ -31,7 +32,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from comfyui_frame_interpolation_tpu_torch.models import film, m2m, rife
+    from comfyui_frame_interpolation_tpu_torch.models import film, gmfss, m2m, rife
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
     if not torch.cuda.is_available():
@@ -53,6 +54,9 @@ def main(argv=None) -> int:
             rife.init_params(0, "4.7"), "4.7", fastmode=True, ensemble=False, dtype=torch.bfloat16, device=dev), 10),
         "m2m_1080p_b2": (2, lambda: m2m.make_model_fn(m2m.init_params(0), dtype=torch.bfloat16, device=dev), 5),
         "film_1080p_b2": (2, lambda: film.make_model_fn(film.init_params(0), dtype=torch.bfloat16, device=dev), 5),
+        "gmfss_1080p_b1": (1, lambda: gmfss.make_model_fn(gmfss.init_params(0), dtype=torch.bfloat16, device=dev), 5),
+        "gmfss_union_1080p_b1": (1, lambda: gmfss.make_model_fn(
+            gmfss.init_params(0, union=True), union=True, dtype=torch.bfloat16, device=dev), 5),
     }
     fps = {}
     for name, (n, make, iters) in fns.items():

@@ -79,6 +79,37 @@ def test_resize_by_scale(scale):
     _close(pc.resize_by_scale(_nchw(x), scale), ref)
 
 
+@pytest.mark.parametrize("in_hw,scale", [((8, 12), 2.0), ((20, 32), 2.0), ((68, 120), 2.0), ((16, 24), 0.5)])
+def test_resize_by_scale_align_corners(in_hw, scale):
+    """GMFlow's flow upsampling between its scales (``align_corners=True``).
+    JAX takes the tap weights from float64 source coordinates, torch from
+    float32 ones: the weights differ by up to ~1e-5 at 120 columns, so the
+    tolerance is 2e-5 of the values' magnitude."""
+    x = _rng(11).standard_normal((2, *in_hw, 2)).astype(np.float32) * 5
+    ref = jc.resize_by_scale(jnp.asarray(x), scale, align_corners=True)
+    _close(pc.resize_by_scale(_nchw(x), scale, align_corners=True), ref, atol=2e-5 * (1 + float(np.abs(x).max())))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear(bias):
+    rng = _rng(12)
+    x = rng.standard_normal((2, 7, 16)).astype(np.float32)
+    node = {"weight": rng.standard_normal((5, 16)).astype(np.float32)}
+    if bias:
+        node["bias"] = rng.standard_normal(5).astype(np.float32)
+    ref = jc.linear(jnp.asarray(x), node)
+    got = pc.linear(torch.from_numpy(x), *(torch.from_numpy(node[k]) for k in ("weight", "bias") if k in node))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_prelu_single_slope():
+    """GMFSS's ``nn.PReLU(1)``: one slope for every channel."""
+    x = _rng(13).standard_normal((2, 5, 7, 6)).astype(np.float32)
+    a = np.asarray([0.25], np.float32)
+    _close(pc.prelu(_nchw(x), torch.from_numpy(a)), jc.prelu(jnp.asarray(x), {"weight": a}), atol=0)
+    torch.testing.assert_close(pc.prelu(_nchw(x), torch.from_numpy(a)), torch.nn.functional.prelu(_nchw(x), torch.from_numpy(a)))
+
+
 def test_cast_params():
     sd = {"w": torch.ones(2, dtype=torch.float32), "n": torch.arange(3)}
     out = pc.cast_params(sd, torch.bfloat16)

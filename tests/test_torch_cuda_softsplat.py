@@ -19,6 +19,15 @@ most corners merge; 16 sources piled onto each target; rough flow, where few
 merge), wider inputs whose corners all go straight to global memory (C = 6,
 8, 66); float4 atomics (C = 4 NHWC), float2 and scalar tails (C = 1, 2, 3,
 6), and NCHW planes, which take scalar atomics.
+
+GMFSS Fortuna's widths, C = 65, 129 and 193 (each feature level and its
+``exp(metric)`` channel), take the branch for wide inputs: every corner of
+every source straight to global memory. They are held in f32, bf16 and f16
+on rough flow, as contiguous NHWC, as an NHWC channel slice of a wider
+tensor (pixel stride not a multiple of 16 bytes) and as ``channels_last``
+planes; and a GMFSS forward, base and union, launches the splat 8 times per
+infer call and the warps of ``gmfss.warps_per_reuse`` and
+``gmfss.warps_per_infer``.
 """
 
 import math
@@ -29,7 +38,7 @@ import torch
 import warp_cases
 from comfyui_frame_interpolation_tpu_torch.core import loop
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import m2m
+from comfyui_frame_interpolation_tpu_torch.models import gmfss, m2m
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
 
@@ -150,4 +159,48 @@ def test_m2m_launch_counts(cuda):
     assert warp_kernel.launches - warps == split["narrow"] * reuse_calls
     assert warp_kernel.wide_launches - wide == split["wide"] * reuse_calls
     assert softsplat_kernel.launches - splats == infer_calls
+    assert out.shape == (10, 64, 128, 3) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("c", [65, 129, 193])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["nhwc", "nhwc_channel_slice", "channels_last"])
+def test_gmfss_widths(cuda, c, dtype, layout):
+    case = next(x for x in CASES if x["name"] == "rough_x40_c4")
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    g = torch.Generator().manual_seed(c)
+    if layout == "nhwc_channel_slice":
+        vals = torch.rand(*flow.shape[:3], c + 3, generator=g).to(cuda, dtype)[..., 1 : c + 1]
+    else:
+        vals = torch.rand(*flow.shape[:3], c, generator=g).to(cuda, dtype)
+    ref = softsplat_torch(vals, flow)
+    if layout == "channels_last":
+        planes = vals.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        out = softsplat_kernel.softsplat_bilinear(planes, flow.permute(0, 3, 1, 2))
+        assert out.stride(1) == 1  # the output keeps the input's layout
+        got = out.permute(0, 2, 3, 1).to(dtype)
+    else:
+        got = softsplat_func(vals, flow)
+    _check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("union", [False, True])
+def test_gmfss_launch_counts(cuda, union):
+    """Through the node's executor at x3 (three pairs, two timesteps each,
+    batch 2): the warps of ``warps_per_reuse`` per reuse call, those of
+    ``warps_per_infer`` and 8 splats per infer call."""
+    reuse_fn, infer_fn = gmfss.make_pair_fns(gmfss.init_params(0, union=union), union=union, device=cuda)
+    frames = torch.rand(4, 64, 128, 3, device=cuda)
+    plan = plan_timestep(4, 3)
+    _, by_count = loop._pair_groups(plan)
+    reuse_calls = sum(math.ceil(len(keys) / 2) for keys in by_count.values())
+    infer_calls = sum(m * math.ceil(len(keys) / 2) for m, keys in by_count.items())
+    warps, wide, splats = warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches
+    out = loop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2)
+    torch.cuda.synchronize()
+    per_reuse, per_infer = gmfss.warps_per_reuse(), gmfss.warps_per_infer(union)
+    assert per_reuse == {"narrow": 4, "wide": 2} and per_infer == {"narrow": 4 if union else 0, "wide": 0}
+    assert warp_kernel.launches - warps == per_reuse["narrow"] * reuse_calls + per_infer["narrow"] * infer_calls
+    assert warp_kernel.wide_launches - wide == per_reuse["wide"] * reuse_calls
+    assert softsplat_kernel.launches - splats == gmfss.splats_per_infer() * infer_calls == 8 * infer_calls
     assert out.shape == (10, 64, 128, 3) and torch.isfinite(out).all()

@@ -24,6 +24,12 @@ a 68x92 frame, M2M's widths), in f32, bf16 and f16, border and zeros, on
 NHWC views, on a channel slice, on NCHW planes and through a flow slice, and
 at RIFE's ``[16, 1088, 1920, 7]`` bf16; ``warp`` sends each layout to the
 kernel ``warp_kernel.route`` names.
+
+GMFSS Fortuna's warps: K1 on 2-channel flows (the metric net's
+forward/backward consistency) in zeros mode, f32 and bf16, on smooth and
+rough flow, bit for bit; and GMFlow's scale-1 feature warp ``[1, 136, 240,
+128]`` bf16 in zeros mode (1080p batch 1), routed to the wide kernel and bit
+for bit.
 """
 
 import numpy as np
@@ -222,3 +228,35 @@ def test_film_forward_launches_eleven_wide_and_five_k1_warps(cuda):
         film.WARPS_PER_CALL["wide"], film.WARPS_PER_CALL["narrow"]
     ) == (11, 5)
     assert out.shape == (2, 128, 128, 3) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("amp", [6.0, 40.0])
+def test_k1_on_two_channel_flows_zeros(cuda, dtype, amp):
+    rng = np.random.default_rng(int(amp))
+    img = torch.from_numpy(rng.standard_normal((2, 256, 512, 2)).astype(np.float32) * 8).to(cuda, dtype)
+    if amp > 10:  # rough: a random flow of that scale
+        flow = torch.from_numpy((rng.standard_normal((2, 256, 512, 2)) * amp).astype(np.float32)).to(cuda)
+    else:
+        flow = torch.from_numpy(warp_cases.smooth_flow(2, 256, 512, amp)).to(cuda)
+    planes = img.permute(0, 3, 1, 2)
+    assert warp_kernel.route(planes.shape, planes.stride(), dtype) == "tiled"
+    before = warp_kernel.launches
+    got = warp(img, flow, "zeros")
+    ref = warp_torch(img, flow, "zeros")
+    torch.cuda.synchronize()
+    assert warp_kernel.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def test_wide_kernel_at_gmflow_feature_warp(cuda):
+    g = torch.Generator().manual_seed(1)
+    img = torch.rand(1, 136, 240, 128, generator=g).to(cuda, torch.bfloat16)
+    flow = torch.from_numpy(warp_cases.smooth_flow(1, 136, 240, 6.0)).to(cuda, torch.bfloat16)
+    planes = img.permute(0, 3, 1, 2)
+    assert warp_kernel.route(planes.shape, planes.stride(), img.dtype) == "wide"
+    before = warp_kernel.wide_launches
+    got = warp(img, flow, "zeros")
+    torch.cuda.synchronize()
+    assert warp_kernel.wide_launches == before + 1
+    assert torch.equal(got, warp_torch(img, flow, "zeros"))

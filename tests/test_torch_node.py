@@ -11,6 +11,13 @@ equal once the tooltips, which speak of the TPU and of the card, are removed.
 
 Slice 3: the FILM nodes (bisection schedule) on a 128x128 crop of the same
 three frames, x2 and x4, >= 40 dB fp32; the schemas as for M2M.
+
+GMFSS Fortuna: the node's schema equals the JAX node's once the
+tooltips are removed; the node runs, base and union, from a checkpoint set
+written to a temporary ``ckpts_path`` (one file per sub-network, as the
+reference ships them) exactly as from the same weights passed as
+``params``, and names the first missing file of a set. Its output is held
+against JAX by ``tests/test_torch_gmfss.py``.
 """
 
 import contextlib
@@ -25,15 +32,18 @@ from PIL import Image
 
 from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FILM_VFI as JaxFILM
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import GMFSS_Fortuna_VFI as JaxGMFSS
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import M2M_VFI as JaxM2M
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
 from comfyui_frame_interpolation_tpu_torch.models import film as pfilm
+from comfyui_frame_interpolation_tpu_torch.models import gmfss as pgmfss
 from comfyui_frame_interpolation_tpu_torch.models import m2m as pm2m
 from comfyui_frame_interpolation_tpu_torch.models import rife as prife
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI as PortFILM
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import GMFSS_Fortuna_VFI as PortGMFSS
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
 
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
@@ -53,7 +63,9 @@ def test_input_types_equal_jax_node():
     assert PortRIFE.INPUT_TYPES() == JaxRIFE.INPUT_TYPES()
     for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
         assert getattr(PortRIFE, attr) == getattr(JaxRIFE, attr)
-    assert NODE_CLASS_MAPPINGS == {"RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM}
+    assert NODE_CLASS_MAPPINGS == {
+        "RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM, "GMFSS Fortuna VFI": PortGMFSS,
+    }
 
 
 def test_node_matches_jax_node_on_demo_frames():
@@ -214,3 +226,71 @@ def test_film_node_caches_its_model_fn_per_params():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     node.vfi("film_net_fp32.pt", frames, params=pfilm.init_params(1), device="cpu")
     assert len(node._model_fns) == 2
+
+
+def test_gmfss_input_types_equal_jax_node_without_tooltips():
+    port, ref = PortGMFSS.INPUT_TYPES(), JaxGMFSS.INPUT_TYPES()
+    assert _no_tooltips(port) == _no_tooltips(ref)
+    assert port["required"]["ckpt_name"][0] == ["GMFSS_fortuna_union", "GMFSS_fortuna"]
+    assert port["required"]["batch_size"][1]["default"] == 2 and "TPU" not in str(port)
+    assert PortGMFSS.CKPTS_PATH_CONFIG == JaxGMFSS.CKPTS_PATH_CONFIG
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(PortGMFSS, attr) == getattr(JaxGMFSS, attr)
+
+
+@contextlib.contextmanager
+def _ckpts_path(tmp_path, monkeypatch):
+    monkeypatch.setenv("CFI_TORCH_CONFIG", str(tmp_path / "config.yaml"))
+    (tmp_path / "config.yaml").write_text(f"ckpts_path: {tmp_path / 'ckpts'}\n")
+    port_config.load_config.cache_clear()
+    try:
+        yield tmp_path / "ckpts"
+    finally:
+        port_config.load_config.cache_clear()
+
+
+@pytest.mark.parametrize("name", ["GMFSS_fortuna", "GMFSS_fortuna_union"])
+def test_gmfss_node_runs_from_a_checkpoint_set(tmp_path, monkeypatch, name):
+    """Each sub-network's weights in its own file under its model type, the
+    feature net's keys saved with a ``module.`` prefix (a DataParallel
+    save), which the loader strips."""
+    union = name.endswith("union")
+    sd = pgmfss.init_params(2, union=union)
+    with _ckpts_path(tmp_path, monkeypatch) as ckpts:
+        for prefix, (model_type, fname) in PortGMFSS.CKPTS_PATH_CONFIG[name].items():
+            part = {k[len(prefix) + 1 :]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+            if prefix == "feat_ext":
+                part = {f"module.{k}": v for k, v in part.items()}
+            (ckpts / model_type).mkdir(parents=True, exist_ok=True)
+            torch.save(part, str(ckpts / model_type / fname))
+        frames = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+        node = PortGMFSS()
+        (from_files,) = node.vfi(name, frames, device="cpu")
+        (again,) = node.vfi(name, frames, device="cpu")
+        (from_params,) = PortGMFSS().vfi(name, frames, params=sd, device="cpu")
+    assert len(node._params) == 1 and len(node._pair_fns) == 1  # loaded once, built once
+    loaded = node._params[name]
+    assert loaded.keys() == sd.keys() and all(torch.equal(loaded[k], sd[k]) for k in sd)
+    assert from_files.dtype == torch.float32 and tuple(from_files.shape) == (3, 64, 64, 3)
+    np.testing.assert_array_equal(from_files.numpy()[[0, 2]], frames)
+    torch.testing.assert_close(from_files, from_params, rtol=0, atol=0)
+    torch.testing.assert_close(from_files, again, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name,first", [("GMFSS_fortuna", "GMFSS_fortuna_flownet.pkl"), ("GMFSS_fortuna_union", "rife46.pth")])
+def test_gmfss_node_without_its_checkpoint_set_raises(tmp_path, monkeypatch, name, first):
+    with _ckpts_path(tmp_path, monkeypatch):
+        with pytest.raises(FileNotFoundError, match=first.replace(".", r"\.")):
+            PortGMFSS().vfi(name, np.zeros((2, 8, 8, 3), np.float32), device="cpu")
+
+
+def test_gmfss_node_caches_its_pair_fns_per_params():
+    sd = pgmfss.init_params(0)
+    frames = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+    node = PortGMFSS()
+    a = node.vfi("GMFSS_fortuna", frames, params=sd, device="cpu")[0]
+    b = node.vfi("GMFSS_fortuna", frames, params=sd, device="cpu")[0]
+    assert len(node._pair_fns) == 1
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    node.vfi("GMFSS_fortuna", frames, params=pgmfss.init_params(1), device="cpu")
+    assert len(node._pair_fns) == 2

@@ -1,7 +1,7 @@
 """The port's RIFE against the JAX package's, on the CPU, with the same weights
 carried across by ``params_from_jax``.
 
-* ``apply`` for 4.7 (ensemble off and on), 4.17 and 4.26 at full width on
+* ``apply`` for 4.6 and 4.7 (ensemble off and on), 4.17 and 4.26 at full width on
   ``[2, 64, 128, 3]`` frames with ``t = [0.5, 0.25]``: fp32 max-abs <= 1e-4
   (convolution sums are taken in another order than XLA:CPU's).
 * ``make_model_fn`` in bf16 against JAX fp32: PSNR >= 40 dB.
@@ -71,7 +71,9 @@ def _port_apply(sd, f0, f1, t, arch, ensemble=False):
     return out.numpy()
 
 
-@pytest.mark.parametrize("arch,ensemble", [("4.7", False), ("4.7", True), ("4.17", False), ("4.26", False)])
+@pytest.mark.parametrize(
+    "arch,ensemble", [("4.6", False), ("4.6", True), ("4.7", False), ("4.7", True), ("4.17", False), ("4.26", False)]
+)
 def test_apply_matches_jax_fp32(arch, ensemble):
     f0, f1 = _frames(0)
     t = np.asarray([0.5, 0.25], np.float32)
@@ -117,7 +119,19 @@ def test_init_params_shapes_match_jax_and_are_seeded(arch):
     assert not torch.equal(sd["block0.conv0.0.0.weight"], prife.init_params(1, arch)["block0.conv0.0.0.weight"])
 
 
-@pytest.mark.parametrize("arch", ["4.0", "4.6", "4.10"])
+def test_rife46_layout_has_no_encoder():
+    """4.6 (GMFSS union's ``ifnet``): four blocks taking 7 then 12 channels,
+    widths 192/128/96/64, a 24-channel transposed-conv head, no encoder."""
+    with torch.device("meta"):
+        sd = prife.IFNet("4.6").state_dict()
+    assert {k.split(".")[0] for k in sd} == {"block0", "block1", "block2", "block3"}
+    for i, (cin, c) in enumerate(((7, 192), (12, 128), (12, 96), (12, 64))):
+        assert tuple(sd[f"block{i}.conv0.0.0.weight"].shape) == (c // 2, cin, 3, 3)
+        assert tuple(sd[f"block{i}.lastconv.0.weight"].shape) == (c, 24, 4, 4)
+    assert len(prife.init_params(0, "4.6")) == len(sd) == 4 * (4 + 8 * 3 + 2)
+
+
+@pytest.mark.parametrize("arch", ["4.0", "4.5", "4.10"])
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prife.IFNet(arch)

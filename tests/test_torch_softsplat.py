@@ -7,6 +7,11 @@ The oracle is ``_softsplat_xla``, not the Pallas kernel, which carries about
 1e-3 of MXU error. Tolerance: f32 atol 1e-5 on values in [0, 1] (the twin sums
 the same products in f32; only the order of duplicate-target sums may
 differ, each pixel taking at most a few dozen contributions).
+
+The mode wrappers ``softsplat`` (every mode and eps variant) and
+``function_softsplat`` (every legacy name and short alias) against the JAX
+package's, f32 atol 1e-5, on a flow that leaves target pixels empty (exact
+zero normalisers) and a metric with zeros.
 """
 
 import numpy as np
@@ -94,3 +99,56 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA tensors"):
         softsplat_bilinear(torch.zeros(1, 2, 4, 4), torch.zeros(1, 2, 4, 4))
+
+
+# ---- the mode wrappers --------------------------------------------------------
+
+MODES = [f"{base}{eps}" for base in ("avg", "linear", "soft") for eps in ("", "-addeps", "-zeroeps", "-clipeps")]
+
+
+def _wrapper_inputs():
+    """Values, a flow that leaves an empty strip (exact-zero normalisers)
+    and shifts the rest sub-pixel, and a metric with negative and zero
+    entries."""
+    rng = np.random.default_rng(3)
+    vals = rng.random((2, 16, 24, 3), dtype=np.float32)
+    flow = (rng.standard_normal((2, 16, 24, 2)) * 0.7).astype(np.float32)
+    flow[..., 0] += 4.0
+    metric = rng.standard_normal((2, 16, 24, 1)).astype(np.float32)
+    metric[:, ::5] = 0.0
+    return vals, flow, metric
+
+
+@pytest.mark.parametrize("mode", ["sum"] + MODES)
+def test_softsplat_modes_match_jax(mode):
+    from comfyui_frame_interpolation_tpu.ops.softsplat import softsplat as jax_softsplat
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat
+
+    vals, flow, metric = _wrapper_inputs()
+    m = None if mode.split("-")[0] in ("sum", "avg") else metric
+    ref = np.asarray(jax_softsplat(jnp.asarray(vals), jnp.asarray(flow), None if m is None else jnp.asarray(m), mode))
+    got = softsplat(torch.from_numpy(vals), torch.from_numpy(flow), None if m is None else torch.from_numpy(m), mode)
+    assert got.dtype == torch.float32 and tuple(got.shape) == vals.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["summation", "average", "linear", "softmax", "sum", "avg", "soft"])
+def test_function_softsplat_names_match_jax(name):
+    from comfyui_frame_interpolation_tpu.ops.softsplat import function_softsplat as jax_function_softsplat
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import function_softsplat
+
+    vals, flow, metric = _wrapper_inputs()
+    ref = np.asarray(jax_function_softsplat(jnp.asarray(vals), jnp.asarray(flow), jnp.asarray(metric), name))
+    got = function_softsplat(torch.from_numpy(vals), torch.from_numpy(flow), torch.from_numpy(metric), name)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+
+
+def test_softsplat_rejects_unknown_modes_and_metrics():
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import function_softsplat, softsplat
+
+    vals, flow, metric = (torch.from_numpy(a) for a in _wrapper_inputs())
+    for mode, m in (("max", None), ("soft-noeps", metric), ("soft", None), ("sum", metric)):
+        with pytest.raises(ValueError):
+            softsplat(vals, flow, m, mode)
+    with pytest.raises(ValueError):
+        function_softsplat(vals, flow, metric, "maximum")
