@@ -19,12 +19,22 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    kernel ``ops.warp.warp`` routes each case to, and K1 (the tiled kernel)
    forced on every case; and K1, as routed, at the main
    paths' shapes: RIFE's ``[16, 1088, 1920, 7]`` bf16 with f32 and bf16 flow
-   and ``[16, 1088, 1920, 3]``, M2M's ``[8, 1088, 1920, 3]`` in zeros mode;
+   and ``[16, 1088, 1920, 3]``, M2M's ``[8, 1088, 1920, 3]`` in zeros mode,
+   EISAI's Lab warp ``[1, 540, 960, 3]`` f32 with f32 flow in border mode;
 4. node    -- the RIFE VFI node (``rife47.pth``, fast mode, no ensemble,
    random weights from seed 0) on 4 frames of 540x960, multiplier 2, batch 2,
    on the card in fp32 (TF32 off) and bf16, each >= 40 dB PSNR against the
    same node on the CPU (plain twin) in fp32; K1 must have been launched
-   exactly 4 times per forward call;
+   exactly 4 times per forward call; then the same for
+   ``sudo_rife4_269.662_testV1_scale1.pth`` (arch 4.0), ``fast_mode`` True
+   and False, with the K1 and wide launches of ``rife.warps_per_forward``
+   for each forward (the Contextnet's 4 feature warps take the wide
+   kernel), and one fp32 and one bf16 forward whose stage-1 flow (block 1's
+   head scaled up) triggers 4.0's restart with doubled scales, checked the
+   same way; every warp those 4.0 runs launched is launched again on a copy
+   of its inputs and held bit for bit against the plain twin, and the wide
+   ones must be the Contextnet's ``[4, 288, 480, 16]`` to ``[4, 36, 60,
+   128]`` (540 rows padded to 576), border, in f32 and bf16;
 5. golden  -- the port on the card (fp32, TF32 off) against the JAX RIFE 4.7
    output stored in ``tests/fixtures/torch_port_rife47_golden.npz``, >= 40 dB;
 6. timing  -- RIFE 4.7 1080p 2x bf16 batch 8 (the configuration of
@@ -63,7 +73,10 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    zeros, f32 and bf16, at 128x256) and at FILM's level-0 feature warp
    ``[4, 1080, 1920, 64]`` bf16, where K1 must agree too,
    and, as routed, at M2M's feature warps ``[2, 544, 960, 48]`` and ``[2,
-   68, 120, 384]`` bf16 in zeros mode;
+   68, 120, 384]`` bf16 in zeros mode, and at RIFE 4.0's Contextnet warps
+   ``[4, 288, 480, 16]``, ``[4, 144, 240, 32]``, ``[4, 72, 120, 64]`` and
+   ``[4, 36, 60, 128]`` in border mode, f32 and bf16 (flow in the same
+   dtype);
 12. film     -- the FILM VFI node (``film_net_fp32.pt``, random weights from
    seed 0) on 4 frames of 270x480 (at 540x960 the CPU leg's 7 batch-2 fp32
    calls take about 2 minutes on 8 cores), multipliers 2 and 4, batch 2, on the card
@@ -108,9 +121,34 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    the warp kernels', the twin's and ``F.grid_sample``'s at GMFSS's warp
    shapes (``[1, 136, 240, 128]`` wide, ``[1, 544, 960, 2]`` and ``[1,
    544, 960, 3]`` zeros, ``[2, 576, 960, 3]`` border), each with its bound.
+19. esplat    -- the splat kernel against its plain twin at EISAI's widths,
+   C = 6, 66, 258 and 514 (``[1, 540, 960, 6]``, ``[1, 128, 228, 66]``,
+   ``[1, 64, 114, 258]``, ``[1, 32, 57, 514]``: one direction of a 540p
+   batch-1 infer), f32 and bf16, on smooth flow (tolerances as in phase 15)
+   and on the eight f32 ``"soft"``-mode inputs that one EISAI 540p bf16
+   forward hands the kernel (as captured: 1e-5 of the output's largest
+   magnitude; cast to bf16: one ulp); that forward's two K1 warps of the
+   f32 Lab frames (``[1, 540, 960, 3]``, border, RAFT's flow plus the grid
+   offsets) launched again on their inputs, bit for bit against the twin;
+20. eisai     -- the EISAI VFI node (random weights from seed 0, the
+   reference's 12 RAFT iterations) on 4 frames of 270x480 (the CPU leg at
+   540x960 would take minutes), multipliers 2 and 3, batch 2, on the card in
+   fp32 (TF32 off) and bf16, each >= 40 dB against the same node on the CPU
+   in fp32; original frames pass through bit for bit; no launch per reuse
+   call, per infer call the K1 launches of ``eisai.warps_per_infer()`` and
+   ``eisai.splats_per_infer()`` splat launches;
+21. golden    -- the port's EISAI on the card (fp32, TF32 off) against the
+   JAX output stored in ``tests/fixtures/torch_port_eisai_golden.npz``,
+   >= 40 dB;
+22. timing    -- EISAI 540x960 2x bf16 batch 1, 12 iterations (the
+   configuration of ``bench.py:bench_eisai``), in frames/s through
+   ``make_model_fn``, reuse and infer ms through ``make_pair_fns``, a
+   ``torch.profiler`` top 10 of one forward; the splat kernel's and the
+   plain twin's ms per call on the captured inputs of each width, with
+   their bounds.
 
-Each main path (phases 4, 8, 12 and 16) is driven with the launch counts set to
-0 just before it and read just after. Each profile (phases 6, 10, 14, 18) also
+Each main path (phases 4, 8, 12, 16 and 20) is driven with the launch counts set to
+0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
 ranking line orders kernel and path by the ms above the bound. Then the
@@ -120,7 +158,8 @@ error, ms, the plain twin's ms,
 PyTorch call computes), its bound: the larger of the bytes it must move
 (inputs once, output once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, with which of the two bounds it; and ``per_forward``, per path the
-launches, device ms, bound and ms above it of one 1080p bf16 forward.
+launches, device ms, bound and ms above it of one bf16 forward at each
+path's timed size (1080p; EISAI 540p).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -157,6 +196,17 @@ GMFSS_WARP_SHAPES = (
     ((1, 544, 960, 3), "zeros", "tiled"),
     ((2, 576, 960, 3), "border", "tiled"),
 )
+EISAI_HW = (270, 480)
+# EISAI 540p batch 1, one direction of an infer: the frame (RGB + NEDT, the
+# ones channel, exp(metric)) and the ResNet levels (64, 256, 512 + 2), "soft"
+EISAI_SPLAT_SHAPES = ((1, 540, 960, 6), (1, 128, 228, 66), (1, 64, 114, 258), (1, 32, 57, 514))
+# EISAI 540p batch 1: the FlowZMetric's border warp of each f32 Lab frame
+# (f32 flow: RAFT's flow plus the grid offsets), on K1
+EISAI_WARP_SHAPES = ((1, 540, 960, 3),)
+RIFE40 = "sudo_rife4_269.662_testV1_scale1.pth"
+# RIFE 4.0 refined mode at 540x960 batch 2 (padded to 576 rows inside RIFE):
+# the Contextnet levels of both frames, border, on the wide kernel
+RIFE40_WIDE_SHAPES = ((4, 288, 480, 16), (4, 144, 240, 32), (4, 72, 120, 64), (4, 36, 60, 128))
 SOFTSPLAT_MODES = ["sum"] + [f"{b}{e}" for b in ("avg", "linear", "soft") for e in ("", "-addeps", "-zeroeps", "-clipeps")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
@@ -280,6 +330,59 @@ def captured_splats(store):
     return spying([(softsplat_kernel, "softsplat_bilinear", record)])
 
 
+def captured_warps(store):
+    """Inside, each call of a warp kernel's wrapper appends ``(kernel,
+    planes, flow planes, zeros)`` to ``store``, copies with the strides the
+    model gave them: the inputs a model hands the kernels."""
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
+
+    def record(kernel):
+        return lambda img, flow, zeros=False: store.append((kernel, img.clone(), flow.clone(), zeros))
+
+    return spying([(warp_kernel, k, record(k)) for k in ("warp_bilinear", "warp_bilinear_wide")])
+
+
+def warps_vs_plain(store, what):
+    """Each captured warp launched again through its wrapper and held against
+    the plain twin on the same inputs, bit for bit. Returns ``{kernel: the
+    NHWC shapes, value and flow dtypes it took}``."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_torch
+
+    seen = {}
+    for kernel, img, flow, zeros in store:
+        mode = "zeros" if zeros else "border"
+        got = getattr(warp_kernel, kernel)(img, flow, zeros).permute(0, 2, 3, 1)
+        ref = warp_torch(img.permute(0, 2, 3, 1), flow.permute(0, 2, 3, 1), mode)
+        torch.cuda.synchronize()
+        shape = (img.shape[0], *img.shape[2:], img.shape[1])
+        err = (got.float() - ref.float()).abs().max().item()
+        check(torch.equal(got, ref), f"{what}: {kernel} at {list(shape)} {img.dtype} {mode}, {flow.dtype} flow: max err {err}, not bit-exact")
+        seen.setdefault(kernel, set()).add((shape, mode, str(img.dtype).split(".")[-1], str(flow.dtype).split(".")[-1]))
+    return seen
+
+
+@contextlib.contextmanager
+def rescue_flags(store):
+    """Inside, each call of RIFE 4.0's rescue test appends its flag and the
+    largest stage-1 flow update of each direction to ``store``."""
+    from comfyui_frame_interpolation_tpu_torch.models import rife
+
+    real = rife._needs_rescue
+
+    def record(fd):
+        flag = real(fd)
+        store.append((flag, fd[:, :2].abs().amax().item(), fd[:, 2:4].abs().amax().item()))
+        return flag
+
+    rife._needs_rescue = record
+    try:
+        yield
+    finally:
+        rife._needs_rescue = real
+
+
 def in_turns(calls):
     """``{name: (fn, iters)}`` -> ``{name: [ms, ms]}``: each version timed by
     :func:`cuda_ms` in order, then in reverse order."""
@@ -291,24 +394,29 @@ def in_turns(calls):
     return times
 
 
-def routed_at_path_shape(shape, mode, flow_dtype, body, generator):
+def routed_at_path_shape(shape, mode, flow_dtype, body, generator, value_dtype=None):
     """``ops.warp.warp`` as routed against the plain twin at a main path's
-    NHWC ``shape`` (bf16 values, smooth flow in ``flow_dtype``): the route
-    must be ``body`` and the result bit-exact. Returns the max abs error."""
+    NHWC ``shape`` (values in ``value_dtype``, bf16 by default, smooth flow in
+    ``flow_dtype``): the route must be ``body`` and the result bit-exact.
+    Returns the max abs error."""
     import torch
     import warp_cases
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
 
-    img = torch.rand(shape, generator=generator).to("cuda", torch.bfloat16)
+    value_dtype = value_dtype or torch.bfloat16
+    img = torch.rand(shape, generator=generator).to("cuda", value_dtype)
     flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to("cuda", flow_dtype)
     planes = img.permute(0, 3, 1, 2)
     routed = warp_kernel.route(planes.shape, planes.stride(), img.dtype)
-    check(routed == body, f"{list(shape)} bf16 routed to {routed}, expected {body}")
+    check(routed == body, f"{list(shape)} {value_dtype} routed to {routed}, expected {body}")
     got, ref = warp(img, flow, mode), warp_torch(img, flow, mode)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
-    check(torch.equal(got, ref), f"{routed} kernel vs plain at {list(shape)} bf16 {mode}, {flow_dtype} flow: max err {err}, not bit-exact")
+    check(
+        torch.equal(got, ref),
+        f"{routed} kernel vs plain at {list(shape)} {value_dtype} {mode}, {flow_dtype} flow: max err {err}, not bit-exact",
+    )
     return err
 
 
@@ -425,9 +533,9 @@ def main() -> int:
     import warp_cases
     from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
     from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep
-    from comfyui_frame_interpolation_tpu_torch.models import film, gmfss, m2m, rife
+    from comfyui_frame_interpolation_tpu_torch.models import eisai, film, gmfss, m2m, rife
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
-    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI, GMFSS_Fortuna_VFI, M2M_VFI
+    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import EISAI_VFI, FILM_VFI, GMFSS_Fortuna_VFI, M2M_VFI
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import (
         function_softsplat, softsplat, softsplat_func, softsplat_torch,
@@ -495,20 +603,24 @@ def main() -> int:
     del got, ref
     # K1's C = 7 and C = 3 builds at the other shapes and flows
     # of the main paths: RIFE's bf16 model (bf16 flow), RIFE's image warp,
-    # M2M's image warps (zeros)
+    # M2M's image warps (zeros), EISAI's f32 Lab warps (f32 values and flow)
+    bf16, f32 = torch.bfloat16, torch.float32
     path_errs = {
-        f"{list(shape)} {mode} {str(fd).split('.')[-1]} flow": routed_at_path_shape(shape, mode, fd, "tiled", g)
-        for shape, mode, fd in (
-            (MAIN_SHAPE, "border", torch.bfloat16),
-            ((16, 1088, 1920, 3), "border", torch.float32),
-            ((16, 1088, 1920, 3), "border", torch.bfloat16),
-            ((8, 1088, 1920, 3), "zeros", torch.bfloat16),
+        f"{list(shape)} {str(vd).split('.')[-1]} {mode} {str(fd).split('.')[-1]} flow": routed_at_path_shape(
+            shape, mode, fd, "tiled", g, value_dtype=vd
+        )
+        for shape, mode, vd, fd in (
+            (MAIN_SHAPE, "border", bf16, bf16),
+            ((16, 1088, 1920, 3), "border", bf16, f32),
+            ((16, 1088, 1920, 3), "border", bf16, bf16),
+            ((8, 1088, 1920, 3), "zeros", bf16, bf16),
+            *((shape, "border", f32, f32) for shape in EISAI_WARP_SHAPES),
         )
     }
     print(
         f"kernel vs plain: {n_cases} case x mode x dtype runs at 256x512 (routed to {bodies}), the routed kernel "
         f"and K1 each bit-exact (max err 0); {list(MAIN_SHAPE)} bf16 K1 max err {main_err}; "
-        f"K1 at the paths' shapes, bf16: " + ", ".join(f"{k} max err {v}" for k, v in path_errs.items()),
+        f"K1 at the paths' shapes: " + ", ".join(f"{k} max err {v}" for k, v in path_errs.items()),
         flush=True,
     )
 
@@ -519,6 +631,7 @@ def main() -> int:
     kw = dict(multiplier=multiplier, fast_mode=True, ensemble=False, batch_size=batch, params=params)
     node = RIFE_VFI()
     calls_per_run = math.ceil(len(plan_timestep(4, multiplier).tasks) / batch)
+    rife_dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     warp_kernel.launches = warp_kernel.wide_launches = 0
@@ -546,6 +659,92 @@ def main() -> int:
         f"calls",
         flush=True,
     )
+
+    # RIFE 4.0: both fast modes through the node, then one forward whose
+    # stage-1 flow update triggers the restart with doubled scales
+    params40 = rife.init_params(0, "4.0")
+    outs40, flags40, warps40 = {}, [], []
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    warp_kernel.launches = warp_kernel.wide_launches = 0
+    with rescue_flags(flags40), captured_warps(warps40):
+        for fast in (True, False):
+            for dtype in ("float32", "bfloat16"):
+                (outs40[fast, dtype],) = node.vfi(
+                    RIFE40, frames, multiplier=multiplier, fast_mode=fast, ensemble=False, batch_size=batch,
+                    params=params40, dtype=dtype, device="cuda",
+                )
+    torch.cuda.synchronize()
+    rife40_launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(len(flags40) == 4 * calls_per_run, f"RIFE 4.0: {len(flags40)} rescue tests for {4 * calls_per_run} forward calls")
+    expect40 = {"narrow": 0, "wide": 0}
+    for (fast, dtype), flags in zip(outs40, (flags40[i : i + calls_per_run] for i in range(0, len(flags40), calls_per_run))):
+        for flag, _, _ in flags:
+            per = rife.warps_per_forward("4.0", fast, False, rescued=flag, dtype=rife_dtypes[dtype])
+            expect40 = {k: expect40[k] + per[k] for k in expect40}
+    check(rife40_launches == expect40, f"RIFE 4.0 launches {rife40_launches} != {expect40} (rescues {flags40})")
+    # every warp those runs launched, again on the same inputs against the twin
+    seen40, n_warps40 = warps_vs_plain(warps40, "RIFE 4.0 node"), len(warps40)
+    del warps40
+    wide40 = {(shape, dt) for shape, mode, dt, fdt in seen40.get("warp_bilinear_wide", ()) if mode == "border" and fdt == dt}
+    check(
+        wide40 == {(shape, dt) for shape in RIFE40_WIDE_SHAPES for dt in ("float32", "bfloat16")},
+        f"RIFE 4.0 wide warps {sorted(seen40.get('warp_bilinear_wide', ()))}, expected {RIFE40_WIDE_SHAPES} in f32 and bf16",
+    )
+    rife40_psnr = []
+    for fast in (True, False):
+        (out_cpu,) = node.vfi(
+            RIFE40, frames, multiplier=multiplier, fast_mode=fast, ensemble=False, batch_size=batch,
+            params=params40, dtype="float32", device="cpu",
+        )
+        for dtype in ("float32", "bfloat16"):
+            out = outs40[fast, dtype]
+            check(tuple(out.shape) == (n_out, 540, 960, 3) and out.is_cuda, f"RIFE 4.0 output {tuple(out.shape)} on {out.device}")
+            check(bool(torch.isfinite(out).all()), f"RIFE 4.0 fast={fast} {dtype} has non-finite values")
+            check(torch.equal(out[::2].cpu(), torch.from_numpy(frames)), f"RIFE 4.0 fast={fast} {dtype}: original frames not passed through")
+            p = psnr(out, out_cpu)
+            check(p >= 40.0, f"RIFE 4.0 node fast={fast} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+            rife40_psnr.append(f"fast={fast} {dtype} {p:.2f} dB")
+    # the rescue: block 1's head scaled so its flow update is twice the limit
+    largest = min(min(a, b) for _, a, b in flags40)
+    k = 64.0 / largest
+    rescue_params = dict(params40)
+    for key in ("block1.lastconv.weight", "block1.lastconv.bias"):
+        rescue_params[key] = params40[key] * k
+    r0, r1 = (torch.from_numpy(frames[i : i + 2]) for i in (0, 1))
+    rt = torch.full((2,), 0.5)
+    rescue_out, rescue_flags_seen, rescue_warps = {}, [], []
+    with rescue_flags(rescue_flags_seen), captured_warps(rescue_warps):
+        for dev_, dtype in (("cpu", torch.float32), ("cuda", torch.float32), ("cuda", torch.bfloat16)):
+            fn = rife.make_model_fn(rescue_params, "4.0", fastmode=False, dtype=dtype, device=dev_)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            warp_kernel.launches = warp_kernel.wide_launches = 0
+            rescue_out[dev_, dtype] = fn(r0, r1, rt)
+            torch.cuda.synchronize()
+            got = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches}
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+            want = rife.warps_per_forward("4.0", False, False, rescued=True, dtype=dtype) if dev_ == "cuda" else {"narrow": 0, "wide": 0}
+            check(got == want, f"RIFE 4.0 rescue forward on {dev_} {dtype}: launches {got} != {want}")
+    check(all(f for f, _, _ in rescue_flags_seen), f"RIFE 4.0 rescue not taken: {rescue_flags_seen}")
+    seen_rescue, n_rescue_warps = warps_vs_plain(rescue_warps, "RIFE 4.0 rescue forward"), len(rescue_warps)
+    del rescue_warps
+    wide_rescue = {(shape, dt) for shape, mode, dt, fdt in seen_rescue.get("warp_bilinear_wide", ()) if mode == "border" and fdt == dt}
+    check(wide_rescue == wide40, f"RIFE 4.0 rescue forward's wide warps {sorted(seen_rescue.get('warp_bilinear_wide', ()))}")
+    rescue_psnr = {str(d).split(".")[-1]: psnr(rescue_out["cuda", d], rescue_out["cpu", torch.float32]) for d in (torch.float32, torch.bfloat16)}
+    check(min(rescue_psnr.values()) >= 40.0, f"RIFE 4.0 rescue forward cuda vs cpu {rescue_psnr} < 40 dB")
+    print(
+        f"node: RIFE 4.0 4x540x960 x2 batch {batch}, cuda vs cpu fp32: {', '.join(rife40_psnr)}; launches "
+        f"{rife40_launches} = per forward {rife.warps_per_forward('4.0', True)} (fast) and "
+        f"{rife.warps_per_forward('4.0', False)} (refined) x {calls_per_run} calls each, rescues "
+        f"{[f for f, _, _ in flags40]}; rescue forward (block 1's head x {k:.1f}, stage-1 update "
+        f"{[round(min(a, b), 1) for _, a, b in rescue_flags_seen]} px) cuda vs cpu "
+        + ", ".join(f"{d} {p:.2f} dB" for d, p in rescue_psnr.items())
+        + f", launches {rife.warps_per_forward('4.0', False, rescued=True)} per forward; the {n_warps40} warps of the "
+        f"node runs and the {n_rescue_warps} of the rescue forwards launched again on their inputs, each bit-exact "
+        f"against the plain twin (wide at {sorted(s for s, _ in wide40)}, border, f32 and bf16)",
+        flush=True,
+    )
+    del outs40, out_cpu, rescue_out
 
     # ---- 5. JAX golden -------------------------------------------------------
     with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_rife47_golden.npz")) as z:
@@ -756,11 +955,20 @@ def main() -> int:
         f"{list(shape)}": routed_at_path_shape(shape, "zeros", torch.bfloat16, "wide", g)
         for shape in M2M_WIDE_SHAPES
     }
+    # RIFE 4.0's Contextnet warps (border; f32 values and flow in the fp32
+    # model, bf16 in the bf16 one)
+    rife40_errs = {
+        f"{list(shape)} {str(dt).split('.')[-1]}": routed_at_path_shape(shape, "border", dt, "wide", g, value_dtype=dt)
+        for shape in RIFE40_WIDE_SHAPES
+        for dt in (torch.float32, torch.bfloat16)
+    }
     print(
         f"wide kernel vs plain: {n_cases} cases at 128x256 (C {', '.join(map(str, WIDE_CHANNELS))}, 46, unaligned, "
         f"extreme, non-finite) bit-exact (max err 0); {list(FILM_WARP_SHAPES[0])} bf16 max err wide {wide_err}, "
         f"K1 {k1_err}; routed to it at M2M's shapes, bf16 zeros, bf16 flow: "
-        + ", ".join(f"{k} max err {v}" for k, v in m2m_errs.items()),
+        + ", ".join(f"{k} max err {v}" for k, v in m2m_errs.items())
+        + "; at RIFE 4.0's Contextnet shapes, border, flow in the values' dtype: "
+        + ", ".join(f"{k} max err {v}" for k, v in rife40_errs.items()),
         flush=True,
     )
 
@@ -1110,32 +1318,172 @@ def main() -> int:
         )
     del img, flow
 
-    # per kernel and 1080p bf16 path, one forward's launches, device ms and
-    # bound, ranked by the ms above the bound
-    profiles = {"rife": rife_profile, "m2m": m2m_profile, "film": film_profile, **gmfss_profiles}
+    # ---- 19. splat at EISAI's widths -----------------------------------------
+    esmooth_errs = {}
+    for shape in EISAI_SPLAT_SHAPES:
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=8.0)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            vals = torch.rand(shape, generator=g).to(dev, dtype)
+            esmooth_errs[f"C={shape[3]} {str(dtype).split('.')[-1]}"] = splat_vs_plain(vals, flow)
+    del vals, flow
+    eisai_params = eisai.init_params(0)
+    eisai_fn = eisai.make_model_fn(eisai_params, dtype=torch.bfloat16, device=dev)
+    f0 = torch.from_numpy(np.random.default_rng(0).random((1, 540, 960, 3), dtype=np.float32)).to(dev)
+    f1 = torch.from_numpy(np.random.default_rng(1).random((1, 540, 960, 3), dtype=np.float32)).to(dev)
+    t = torch.full((1,), 0.5, device=dev)
+    eisai_splats, eisai_warps = [], []
+    with captured_splats(eisai_splats), captured_warps(eisai_warps):
+        eisai_fn(f0, f1, t)
+    torch.cuda.synchronize()
+    # its two Lab warps (RAFT's flow plus the grid offsets), again on the
+    # same inputs against the twin
+    eseen = warps_vs_plain(eisai_warps, "EISAI 540p forward")
+    want_warps = {"warp_bilinear": {(shape, "border", "float32", "float32") for shape in EISAI_WARP_SHAPES}}
+    check(
+        eseen == want_warps and len(eisai_warps) == eisai.warps_per_infer()["narrow"],
+        f"EISAI warps {len(eisai_warps)} x {eseen}, expected {eisai.warps_per_infer()} at {want_warps}",
+    )
+    elargest_warp = max(fl.abs().max().item() for _, _, fl, _ in eisai_warps)
+    del eisai_warps
+    ecaptured_c = tuple(v.shape[-1] for v, _ in eisai_splats)
+    check(ecaptured_c == eisai.SPLAT_CHANNELS_PER_INFER, f"EISAI splat widths {ecaptured_c} != {eisai.SPLAT_CHANNELS_PER_INFER}")
+    check(
+        [tuple(v.shape) for v, _ in eisai_splats[::2]] == [tuple(sh) for sh in EISAI_SPLAT_SHAPES],
+        f"EISAI splat shapes {[tuple(v.shape) for v, _ in eisai_splats]}",
+    )
+    esoft_errs = {"f32": 0.0, "bf16": 0.0}
+    for vals, flow in eisai_splats:
+        check(vals.dtype == torch.float32 and flow.dtype == torch.float32, f"EISAI splats {vals.dtype} values, {flow.dtype} flow")
+        esoft_errs["f32"] = max(esoft_errs["f32"], splat_vs_plain(vals, flow, f32_scaled=True))
+        esoft_errs["bf16"] = max(esoft_errs["bf16"], splat_vs_plain(vals.bfloat16(), flow.bfloat16()))
+    print(
+        "esplat: splat kernel vs plain at EISAI's widths, smooth flow: "
+        + ", ".join(f"{k} {v}" for k, v in esmooth_errs.items())
+        + f"; on the {len(eisai_splats)} soft-mode inputs of one EISAI 540p bf16 forward (C {list(ecaptured_c)}, "
+        f"f32, largest flow {max(fl.abs().max().item() for _, fl in eisai_splats):.3f} px): f32 max err "
+        f"{esoft_errs['f32']} (1e-5 of the magnitude), cast to bf16 max err {esoft_errs['bf16']} (one ulp); "
+        f"that forward's {eisai.warps_per_infer()['narrow']} K1 warps {list(EISAI_WARP_SHAPES[0])} f32 border "
+        f"(f32 flow, largest {elargest_warp:.3f} px with the offsets) bit-exact against the plain twin",
+        flush=True,
+    )
+
+    # ---- 20. EISAI node end to end ------------------------------------------
+    frames = shifted_pattern(4, *EISAI_HW, seed=4)
+    batch = 2
+    reuse_calls = infer_calls = 0
+    for multiplier in (2, 3):
+        _, by_count = _pair_groups(plan_timestep(4, multiplier))
+        reuse_calls += sum(math.ceil(len(keys) / batch) for keys in by_count.values())
+        infer_calls += sum(m_ * math.ceil(len(keys) / batch) for m_, keys in by_count.items())
+    per_infer = eisai.warps_per_infer()
+    expect = {"narrow": 2 * per_infer["narrow"] * infer_calls, "wide": 2 * per_infer["wide"] * infer_calls,
+              "splat": 2 * eisai.splats_per_infer() * infer_calls}  # fp32 and bf16
+    node = EISAI_VFI()
+    outs = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+    for multiplier in (2, 3):
+        for dtype in ("float32", "bfloat16"):
+            (outs[multiplier, dtype],) = node.vfi(
+                "eisai", frames, multiplier=multiplier, batch_size=batch, dtype=dtype, params=eisai_params, device="cuda"
+            )
+    torch.cuda.synchronize()
+    eisai_launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(eisai_launches == expect, f"EISAI launches {eisai_launches} != {expect} ({reuse_calls} reuse, {infer_calls} infer calls per dtype)")
+    psnrs = []
+    t0 = time.perf_counter()
+    for multiplier in (2, 3):
+        (out_cpu,) = node.vfi("eisai", frames, multiplier=multiplier, batch_size=batch, dtype="float32", params=eisai_params, device="cpu")
+        n_out = 3 * multiplier + 1
+        for dtype in ("float32", "bfloat16"):
+            out = outs[multiplier, dtype]
+            check(tuple(out.shape) == (n_out, *EISAI_HW, 3) and out.is_cuda, f"EISAI output {tuple(out.shape)} on {out.device}")
+            check(bool(torch.isfinite(out).all()), f"EISAI x{multiplier} {dtype} has non-finite values")
+            check(torch.equal(out[::multiplier].cpu(), torch.from_numpy(frames)), f"EISAI x{multiplier} {dtype}: original frames not passed through")
+            p = psnr(out, out_cpu)
+            check(p >= 40.0, f"EISAI node x{multiplier} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+            psnrs.append(f"x{multiplier} {dtype} {p:.2f} dB")
+    print(
+        f"eisai: EISAI node 4x{EISAI_HW[0]}x{EISAI_HW[1]} x2 and x3 batch {batch}, 12 iterations, cuda vs cpu fp32: "
+        f"{', '.join(psnrs)} (cpu leg {time.perf_counter() - t0:.1f} s); launches {eisai_launches} over {reuse_calls} reuse "
+        f"and {infer_calls} infer calls per dtype, as derived from the model (none per reuse, per infer {per_infer} "
+        f"and {eisai.splats_per_infer()} splats)",
+        flush=True,
+    )
+    del outs, out_cpu
+
+    # ---- 21. EISAI JAX golden ------------------------------------------------
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_eisai_golden.npz")) as z:
+        seed, gt, gframes, golden = int(z["seed"]), float(z["t"]), z["frames"], torch.from_numpy(z["output"])
+    g0, g1 = (torch.from_numpy(gframes[i].astype(np.float32) / 255.0).to(dev) for i in (0, 1))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gout = eisai.make_model_fn(eisai.init_params(seed), device=dev)(g0, g1, torch.full((1,), gt, device=dev))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    pg = psnr(gout, golden)
+    check(pg >= 40.0, f"EISAI golden: {pg:.2f} dB < 40")
+    print(f"golden: port EISAI on cuda fp32 vs JAX EISAI fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
+
+    # ---- 22. EISAI timing ----------------------------------------------------
+    eisai_fps = 1 / measure(eisai_fn, f0, f1, t, iters=5, rounds=3)
+    reuse_fn, infer_fn = eisai.make_pair_fns(eisai_params, dtype=torch.bfloat16, device=dev)
+    cache = reuse_fn(f0, f1)
+    eisai_stage_ms = {"reuse": cuda_ms(lambda: reuse_fn(f0, f1), 5), "infer": cuda_ms(lambda: infer_fn(f0, f1, cache, t), 5)}
+    del cache, reuse_fn, infer_fn
+    print(
+        f"timing {card}: EISAI 540x960 2x bf16 batch 1, 12 iterations {eisai_fps:.3f} frames/s; reuse "
+        f"{eisai_stage_ms['reuse']:.3f} ms, infer {eisai_stage_ms['infer']:.3f} ms per pair",
+        flush=True,
+    )
+    eisai_profile = profile_forward("EISAI 540p bf16 b1", eisai_fn, f0, f1, t, card)
+    del eisai_fn, f0, f1
+    eisai_splat_times = {}
+    for vals, flow in eisai_splats[::2]:
+        times = in_turns({
+            "plain": (lambda: softsplat_torch(vals, flow), 3),
+            "kernel": (lambda: softsplat_func(vals, flow), 20),
+        })
+        sb = bound(*splat_work(vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
+        key = "x".join(map(str, vals.shape))
+        eisai_splat_times[key] = {
+            "ms": statistics.mean(times["kernel"]), "plain_ms": statistics.mean(times["plain"]),
+            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None,
+        }
+        print(
+            f"timing {card}: splat {list(vals.shape)} f32, f32 flow (EISAI's soft-mode input): "
+            + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
+            + f"; bound {sb[0]:.4f} ms ({sb[1]}), the op at {100 * sb[0] / eisai_splat_times[key]['ms']:.1f} % of it",
+            flush=True,
+        )
+    del eisai_splats
+
+    # per kernel and bf16 path, one forward's launches, device ms and bound,
+    # ranked by the ms above the bound
+    profiles = {"rife": rife_profile, "m2m": m2m_profile, "film": film_profile, **gmfss_profiles, "eisai": eisai_profile}
     per_forward = {k: {path: prof[k] for path, prof in profiles.items() if k in prof} for k in KERNEL_BODIES}
     ranked = sorted(
         ((k, path, v) for k, paths in per_forward.items() for path, v in paths.items()),
         key=lambda e: e[2]["above_bound_ms"], reverse=True,
     )
     print(
-        f"ranking {card}: ms above the bound per 1080p bf16 forward: "
+        f"ranking {card}: ms above the bound per bf16 forward (1080p; EISAI 540p): "
         + "; ".join(f"{k} on {path} {v['above_bound_ms']:.3f} ({v['launches']} launches)" for k, path, v in ranked),
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-18 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-22 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
-            "launches": rife_warp_launches + m2m_warp_launches + film_warp_launches
-            + sum(v["narrow"] for v in gmfss_launches.values()),
+            "launches": rife_warp_launches + rife40_launches["narrow"] + m2m_warp_launches + film_warp_launches
+            + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"],
             "launches_by_path": {
-                "rife": rife_warp_launches, "m2m": m2m_warp_launches, "film": film_warp_launches,
-                **{path: v["narrow"] for path, v in gmfss_launches.items()},
+                "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
+                "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
+                "eisai": eisai_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -1152,9 +1500,11 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:297",
-            "launches": m2m_wide + film_wide_launches + sum(v["wide"] for v in gmfss_launches.values()),
+            "launches": rife40_launches["wide"] + m2m_wide + film_wide_launches
+            + sum(v["wide"] for v in gmfss_launches.values()),
             "launches_by_path": {
-                "m2m": m2m_wide, "film": film_wide_launches, **{path: v["wide"] for path, v in gmfss_launches.items()},
+                "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
+                **{path: v["wide"] for path, v in gmfss_launches.items()},
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -1172,8 +1522,11 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
-            "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()),
-            "launches_by_path": {"m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()}},
+            "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"],
+            "launches_by_path": {
+                "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
+                "eisai": eisai_launches["splat"],
+            },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
             "ms": splat_ms,
@@ -1183,6 +1536,7 @@ def main() -> int:
             "bound_by": splat_bound[1],
             "library_ms": None,
             "gmfss_shapes": gmfss_splat_times,
+            "eisai_shapes": eisai_splat_times,
             "per_forward": per_forward["softsplat"],
         },
     ]}))

@@ -6,10 +6,10 @@ kernels for ``sm_90a`` (``csrc/``, built with ``nvcc`` at first use). Public
 functions keep the JAX package's NHWC layout; CPU tensors take each kernel's
 plain PyTorch twin, so the package imports and runs on a machine with no GPU.
 
-Ported so far: the RIFE VFI node (arch 4.6, 4.7, 4.17, 4.26), the M2M VFI
-node, the FILM VFI node and the GMFSS Fortuna VFI node (base and union) end
-to end, with the backward-warp (narrow-channel K1 and wide-channel) and
-forward-splat kernels. ``ROADMAP.md`` lists what is still to
+Ported so far: the RIFE VFI node (every arch of the JAX package, 4.0 to
+4.26), the M2M VFI node, the FILM VFI node, the GMFSS Fortuna VFI node (base
+and union) and the EISAI VFI node end to end, with the backward-warp
+(narrow-channel K1 and wide-channel) and forward-splat kernels. ``ROADMAP.md`` lists what is still to
 be ported.
 """
 

@@ -9,11 +9,11 @@ tasks.
 
 :func:`run_plan_pair_cached` runs a flat timestep plan with a split model:
 the timestep-independent half once per endpoint pair, the per-timestep half
-once per timestep (M2M; GMFSS, EISAI and XVFI when they are ported).
+once per timestep (M2M, GMFSS, EISAI; XVFI when it is ported).
 
 Only the resident mode is ported. A clip whose inputs, outputs and working
-batches would not fit the memory budget raises; the streaming executors and
-``run_plan_window4`` are ``ROADMAP.md`` Queue 1, item 7.
+batches would not fit the memory budget raises; ``run_plan_window4`` and the
+streaming executors wait in ``ROADMAP.md`` Queue 1.
 """
 
 from __future__ import annotations
@@ -100,7 +100,7 @@ def _check_resident(
             f"{what}: {n} input + {len(plan.output)} output frames of {h}x{w}x{c} "
             f"at batch {batch_size} need about {resident_estimate / 2**30:.2f} GiB "
             f"resident, over the {budget / 2**30:.2f} GiB budget; the streaming "
-            "executor is not ported yet (ROADMAP.md Queue 1, item 7): split the clip"
+            "executor is not ported yet (ROADMAP.md Queue 1): split the clip"
         )
 
 

@@ -1,5 +1,5 @@
 """Layer primitives for the ported models: the subset of the JAX package's
-``models/common.py`` that RIFE, M2M, FILM and GMFSS use, as plain functions
+``models/common.py`` that RIFE, M2M, FILM, GMFSS and EISAI use, as plain functions
 on NCHW tensors (``linear`` on the last axis of any tensor).
 
 The JAX versions take NHWC arrays and parameter dicts in torch layout; here
@@ -27,7 +27,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "PRELU_INIT",
     "avg_pool2d",
+    "batch_norm",
     "cast_params",
     "conv2d",
     "conv2d_concat",
@@ -36,6 +38,7 @@ __all__ = [
     "prelu",
     "leaky_relu",
     "linear",
+    "max_pool2d",
     "sigmoid",
     "pixel_shuffle",
     "resize_bilinear",
@@ -45,6 +48,8 @@ __all__ = [
 
 IntPair = Union[int, Tuple[int, int]]
 Padding = Union[IntPair, str]
+
+PRELU_INIT = 0.25  # torch nn.PReLU's default; the models' init_params draw PReLU weights as it
 
 
 def cast_params(params: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -201,3 +206,22 @@ def avg_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None) -> to
     """torch ``F.avg_pool2d`` without padding: VALID windows, each sum divided
     by ``kernel**2``."""
     return F.avg_pool2d(x, kernel, stride or kernel)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None, padding: int = 0) -> torch.Tensor:
+    """torch ``F.max_pool2d``: VALID windows of the input padded with -inf
+    (the JAX version takes no padding; EISAI's 3x3/s2 pool pads by 1)."""
+    return F.max_pool2d(x, kernel, stride or kernel, padding)
+
+
+def batch_norm(
+    x: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """torch ``nn.BatchNorm2d`` in eval mode: ``(x - mean) / sqrt(var +
+    eps) * weight + bias`` with the running statistics, over the channel axis."""
+    return F.batch_norm(x, running_mean, running_var, weight, bias, training=False, eps=eps)

@@ -51,18 +51,18 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda.warp_kernel import route
+from ..ops.cuda.warp_kernel import route_counts
 from ..ops.softsplat import softsplat
 from ..ops.warp import warp
 from . import rife as rife_model
-from .common import cast_params, resize_by_scale
+from .common import PRELU_INIT, cast_params, resize_by_scale
 
 __all__ = [
     "CKPT_NAMES",
@@ -82,7 +82,6 @@ __all__ = [
 ]
 
 CKPT_NAMES = ["GMFSS_fortuna", "GMFSS_fortuna_union"]
-PRELU_INIT = 0.25  # torch nn.PReLU's default
 # the channels of each warp per pair batch, in call order: GMFlow's scale-1
 # feature warp of each direction, the metric net's two image warps and the
 # two flow warps of its consistency check
@@ -598,24 +597,17 @@ class GMFSS(nn.Module):
             self.ifnet = rife_model.IFNet("4.6")
 
 
-def _counts(channels: Sequence[int], dtype: torch.dtype) -> Dict[str, int]:
-    counts = {"narrow": 0, "wide": 0}
-    for c in channels:
-        counts["wide" if route((1, c, 1, 1), (c, 1, c, c), dtype) == "wide" else "narrow"] += 1
-    return counts
-
-
 def warps_per_reuse(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """Warp launches per pair batch on the card by kernel, ``{"narrow": K1,
     "wide": the wide-channel kernel}``, as ``warp_kernel.route`` sends the
     NHWC tensors of :data:`WARP_CHANNELS_PER_REUSE`."""
-    return _counts(WARP_CHANNELS_PER_REUSE, dtype)
+    return route_counts(WARP_CHANNELS_PER_REUSE, dtype)
 
 
 def warps_per_infer(union: bool, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """Warp launches per timestep batch: none for the base model, the RIFE
     4.6 image warps for the union variant."""
-    return _counts(UNION_WARP_CHANNELS_PER_INFER if union else (), dtype)
+    return route_counts(UNION_WARP_CHANNELS_PER_INFER if union else (), dtype)
 
 
 def splats_per_infer() -> int:

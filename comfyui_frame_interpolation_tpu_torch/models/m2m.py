@@ -41,10 +41,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.costvol import costvol_func
-from ..ops.cuda.warp_kernel import route
+from ..ops.cuda.warp_kernel import route_counts
 from ..ops.softsplat import softsplat_func
 from ..ops.warp import warp
-from .common import avg_pool2d, cast_params, resize_by_scale
+from .common import PRELU_INIT, avg_pool2d, cast_params, resize_by_scale
 
 __all__ = [
     "BRANCH",
@@ -70,7 +70,6 @@ BRANCH = 4
 # metrics
 WARP_CHANNELS_PER_REUSE = (32,) * 8 + (3, 3) + (48, 48, 96, 96, 192, 192, 384, 384) + (3, 3)
 WARPS_PER_REUSE = len(WARP_CHANNELS_PER_REUSE)  # 20
-PRELU_INIT = 0.25  # torch nn.PReLU's default
 PARAM_ALPHA_INIT = 10.0
 
 
@@ -255,10 +254,7 @@ def warps_per_reuse(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """Warp launches per pair batch on the card by kernel, ``{"narrow": K1,
     "wide": the wide-channel kernel}``, as ``warp_kernel.route`` sends the
     ``channels_last`` tensors of :data:`WARP_CHANNELS_PER_REUSE`."""
-    counts = {"narrow": 0, "wide": 0}
-    for c in WARP_CHANNELS_PER_REUSE:
-        counts["wide" if route((1, c, 1, 1), (c, 1, c, c), dtype) == "wide" else "narrow"] += 1
-    return counts
+    return route_counts(WARP_CHANNELS_PER_REUSE, dtype)
 
 
 # ---- forward -----------------------------------------------------------------

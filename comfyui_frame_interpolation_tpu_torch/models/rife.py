@@ -1,26 +1,43 @@
 """RIFE IFNet, PyTorch port of the JAX package's ``models/rife.py``
-(reference ``vfi_models/rife/rife_arch.py``) for arch 4.6 (``rife46``, which
-GMFSS Fortuna's union variant runs inside its fusion head), 4.7 (``rife47``,
-``rife49``), 4.17 (``rife417``) and 4.26 (``rife426``).
+(reference ``vfi_models/rife/rife_arch.py``) for every arch the JAX package
+has: 4.0 (``sudo_rife4_269.662_testV1_scale1.pth``), 4.2, 4.3, 4.5, 4.6
+(``rife46``, which GMFSS Fortuna's union variant runs inside its fusion
+head), 4.7 (``rife47``, ``rife49``), 4.10, 4.17 (``rife417``) and 4.26
+(``rife426``).
 
 Coarse-to-fine intermediate-flow estimation: 4 (5 for 4.26) ``IFBlock`` stages
 on a static scale pyramid, each refining a 4-channel bidirectional flow and a
-blend mask with stride-4 conv encoders, 8 residual convs and a transposed-conv
-+ pixel-shuffle head (``rife_arch.py:177-276``); both frames and their encoder
-features are backward-warped at every stage (``ops.warp``, the Hopper kernel on
-the card) and blended by the sigmoid mask (``rife_arch.py:707-723``). Arch
-4.6 has no encoder: its blocks see the images, the timestep and (after stage
-0) the mask and flow, the ensemble averages flow and mask at every stage, and
-the mask accumulates across stages (:func:`_forward_46`).
+blend mask with stride-4 conv encoders, 8 convs and a transposed-conv head
+(``rife_arch.py:177-276``); both frames (and, from 4.7 on, their encoder
+features) are backward-warped at every stage (``ops.warp``, the Hopper kernel
+on the card) and blended by the sigmoid mask (``rife_arch.py:707-723``).
+
+The archs differ in three places:
+
+* the block: 4.0-4.3 have 8 plain conv layers (PReLU for 4.0, LeakyReLU
+  otherwise; 4.0 adds the residual ``h + feat``) and a bare 5-channel
+  ``lastconv`` resized by ``scale * 2``; 4.5 on have 8 ``ResConv`` layers and
+  a pixel-shuffled ``lastconv`` resized by ``scale``;
+* the encoder: none up to 4.6, whose blocks see the images, the timestep
+  and (after stage 0) the mask and flow; the ensemble averages flow and mask
+  at every stage, and the mask accumulates (:func:`_forward_noenc`); 4.7,
+  4.10, 4.17 and 4.26 encode both frames and warp the features too;
+* 4.0-4.3 with ``fastmode=False`` refine the blend with ``Contextnet``
+  features of both frames and a ``Unet`` that takes the pre-sigmoid mask
+  (``rife_arch.py:279-342,725-730``); 4.0 has a data-dependent rescue that
+  restarts with doubled scales when stage 1's flow update exceeds 32 pixels
+  (``rife_arch.py:598-626``). JAX takes it as a ``lax.cond`` on one flag
+  reduced over the whole batch; here one host-side branch takes the same
+  batch-wide flag (:func:`_needs_rescue`), never a decision per sample.
 
 Modules hold the parameters, with ``state_dict`` keys equal to the reference
 checkpoints' and to the JAX parameter tree flattened with ``.``
-(``block0.conv0.0.0.weight``, ``block0.convblock.3.beta``, ``encode.1.weight``).
-:func:`apply` is the forward, with NHWC frames in and out as in the JAX
-package; inside, tensors are NCHW in ``channels_last`` memory.
-
-Arch 4.0-4.5 and 4.10 (PReLU, ContextNet/UNet refinement and the 4.0
-scale-doubling rescue) are not ported yet: ``ROADMAP.md`` Queue 1, item 6.
+(``block0.conv0.0.0.weight``, ``block0.convblock.3.beta``, ``encode.1.weight``,
+``contextnet.conv1.conv1.1.weight``). The layout of ``rife47.pth`` is checked
+against its manifest; no manifest of ``sudo_rife4_*.pth`` or of the 4.2-4.10
+checkpoints is in the repository, so their layout is the one that the JAX
+code's reads imply. :func:`apply` is the forward, with NHWC frames in and out
+as in the JAX package; inside, tensors are NCHW in ``channels_last`` memory.
 """
 
 from __future__ import annotations
@@ -32,21 +49,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda.warp_kernel import route_counts
 from ..ops.warp import warp
-from .common import cast_params, leaky_relu, pixel_shuffle, resize_by_scale, sigmoid
+from .common import PRELU_INIT, cast_params, leaky_relu, pixel_shuffle, resize_by_scale, sigmoid
 
 __all__ = [
     "ARCH_VERSIONS",
     "CKPT_NAME_VER_DICT",
+    "Contextnet",
     "IFBlock",
     "IFNet",
+    "PRELU_INIT",
+    "Unet",
     "apply",
     "default_scale_list",
     "init_params",
     "make_model_fn",
+    "warps_per_forward",
 ]
 
-ARCH_VERSIONS = ("4.6", "4.7", "4.17", "4.26")
+ARCH_VERSIONS = ("4.0", "4.2", "4.3", "4.5", "4.6", "4.7", "4.10", "4.17", "4.26")
 
 # ckpt -> arch version (reference rife/__init__.py:10-20)
 CKPT_NAME_VER_DICT = {
@@ -57,28 +79,49 @@ CKPT_NAME_VER_DICT = {
     "sudo_rife4_269.662_testV1_scale1.pth": "4.0",
 }
 
-# per arch: (in_planes, width) of each IFBlock, the head's output multiple,
-# and the encoder: None (4.6 has none), "4.7" (its two-layer encoder) or the
-# (hidden, output) widths of a ``Head``
+_PLAIN = ("4.0", "4.2", "4.3")  # plain-conv blocks; Contextnet and Unet
+_NO_ENCODER = ("4.0", "4.2", "4.3", "4.5", "4.6")
+_BLOCKS_NOENC = ((7, 192), (12, 128), (12, 96), (12, 64))
+_CONTEXT_C = 16  # the reference's ``c`` of Contextnet and Unet
+
+# per arch: (in_planes, width) of each IFBlock, the ResConv head's output
+# multiple (None: the plain block's 5-channel head), and the encoder: None,
+# "4.7" or "4.10" (their Sequentials) or the (hidden, output) widths of a
+# ``Head``
 _ARCH = {
-    "4.6": (((7, 192), (12, 128), (12, 96), (12, 64)), 6, None),
+    "4.0": (_BLOCKS_NOENC, None, None),
+    "4.2": (_BLOCKS_NOENC, None, None),
+    "4.3": (_BLOCKS_NOENC, None, None),
+    "4.5": (_BLOCKS_NOENC, 6, None),
+    "4.6": (_BLOCKS_NOENC, 6, None),
     "4.7": (((15, 192), (20, 128), (20, 96), (20, 64)), 6, "4.7"),
+    "4.10": (((23, 192), (28, 128), (28, 96), (28, 64)), 6, "4.10"),
     "4.17": (((23, 192), (28, 128), (28, 96), (28, 64)), 6, (32, 8)),
     "4.26": (((15, 192), (28, 128), (28, 96), (28, 64), (28, 32)), 13, (16, 4)),
 }
+# the encoder features' channels, which the encoder archs warp with the image
+_FEATURE_C = {"4.7": 4, "4.10": 8, "4.17": 8, "4.26": 4}
 
 
 def _check_arch(arch_ver: str) -> None:
     if arch_ver not in ARCH_VERSIONS:
-        raise NotImplementedError(
-            f"RIFE arch {arch_ver} is not ported yet (ported: {', '.join(ARCH_VERSIONS)}); "
-            "see ROADMAP.md Queue 1, item 6"
-        )
+        raise ValueError(f"unknown RIFE arch {arch_ver} (known: {', '.join(ARCH_VERSIONS)})")
 
 
-def _conv(i: int, o: int, stride: int) -> nn.Sequential:
-    """reference ``conv()``: Conv2d(3x3) + LeakyReLU(0.2)."""
-    return nn.Sequential(nn.Conv2d(i, o, 3, stride, 1), nn.LeakyReLU(0.2))
+def _act(o: int, arch: str) -> nn.Module:
+    """The reference ``conv()``/``deconv()`` activation: PReLU(o) for 4.0,
+    LeakyReLU(0.2) otherwise."""
+    return nn.PReLU(o, PRELU_INIT) if arch == "4.0" else nn.LeakyReLU(0.2)
+
+
+def _conv(i: int, o: int, stride: int, arch: str) -> nn.Sequential:
+    """reference ``conv()``: Conv2d(3x3) + the arch's activation."""
+    return nn.Sequential(nn.Conv2d(i, o, 3, stride, 1), _act(o, arch))
+
+
+def _deconv(i: int, o: int, arch: str) -> nn.Sequential:
+    """reference ``deconv()``: ConvTranspose2d(4x4, stride 2) + the arch's activation."""
+    return nn.Sequential(nn.ConvTranspose2d(i, o, 4, 2, 1), _act(o, arch))
 
 
 class ResConv(nn.Module):
@@ -94,19 +137,32 @@ class ResConv(nn.Module):
 
 
 class IFBlock(nn.Module):
-    """``IFBlock`` (rife_arch.py:177-276) of arch >= 4.5; ``forward`` runs the
-    convolutions at the block's working resolution, :func:`_if_block` the
-    resizes around them."""
+    """``IFBlock`` (rife_arch.py:177-276); ``forward`` runs the convolutions
+    at the block's working resolution, :func:`_if_block` the resizes around
+    them. ``up`` is the factor of the head's output resolution over the
+    working one: 2 for the pixel-shuffled ResConv head, 1 for the plain
+    head, which :func:`_if_block` makes up in its resize."""
 
-    def __init__(self, in_planes: int, c: int, out_mult: int):
+    def __init__(self, in_planes: int, c: int, out_mult: Optional[int], arch: str):
         super().__init__()
-        self.conv0 = nn.Sequential(_conv(in_planes, c // 2, 2), _conv(c // 2, c, 2))
-        self.convblock = nn.Sequential(*[ResConv(c) for _ in range(8)])
-        self.lastconv = nn.Sequential(nn.ConvTranspose2d(c, 4 * out_mult, 4, 2, 1))
+        self.conv0 = nn.Sequential(_conv(in_planes, c // 2, 2, arch), _conv(c // 2, c, 2, arch))
+        self.residual = arch == "4.0"
+        if out_mult is None:  # 4.0-4.3 (JAX rife.py:99-106)
+            self.convblock = nn.Sequential(*[_conv(c, c, 1, arch) for _ in range(8)])
+            self.lastconv = nn.ConvTranspose2d(c, 5, 4, 2, 1)
+            self.up = 1
+        else:
+            self.convblock = nn.Sequential(*[ResConv(c) for _ in range(8)])
+            self.lastconv = nn.Sequential(nn.ConvTranspose2d(c, 4 * out_mult, 4, 2, 1))
+            self.up = 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feat = self.convblock(self.conv0(x))
-        return pixel_shuffle(self.lastconv(feat), 2)
+        feat = self.conv0(x)
+        h = self.convblock(feat)
+        if self.residual:
+            h = h + feat
+        out = self.lastconv(h)
+        return pixel_shuffle(out, 2) if self.up == 2 else out
 
 
 class Head(nn.Module):
@@ -127,6 +183,69 @@ class Head(nn.Module):
         return self.cnn3(h)
 
 
+class _Conv2(nn.Module):
+    """reference ``Conv2``: a stride-2 then a stride-1 conv block."""
+
+    def __init__(self, i: int, o: int, arch: str):
+        super().__init__()
+        self.conv1 = _conv(i, o, 2, arch)
+        self.conv2 = _conv(o, o, 1, arch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class Contextnet(nn.Module):
+    """``Contextnet`` (rife_arch.py:279-313, JAX rife.py:140-149): four
+    ``Conv2`` levels, each output warped by the flow halved to its size."""
+
+    def __init__(self, arch: str):
+        super().__init__()
+        c = _CONTEXT_C
+        self.conv1 = _Conv2(3, c, arch)
+        self.conv2 = _Conv2(c, 2 * c, arch)
+        self.conv3 = _Conv2(2 * c, 4 * c, arch)
+        self.conv4 = _Conv2(4 * c, 8 * c, arch)
+
+    def forward(self, x: torch.Tensor, flow: torch.Tensor) -> List[torch.Tensor]:
+        """``x`` ``[N, 3, H, W]`` and its ``[N, 2, H, W]`` flow to the four
+        warped levels (C = 16, 32, 64, 128, border mode)."""
+        feats = []
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            x = conv(x)
+            flow = resize_by_scale(flow, 0.5) * 0.5
+            feats.append(_warp(x, flow))
+        return feats
+
+
+class Unet(nn.Module):
+    """``Unet`` (rife_arch.py:316-342, JAX rife.py:152-168)."""
+
+    def __init__(self, arch: str):
+        super().__init__()
+        c = _CONTEXT_C
+        self.down0 = _Conv2(17, 2 * c, arch)
+        self.down1 = _Conv2(4 * c, 4 * c, arch)
+        self.down2 = _Conv2(8 * c, 8 * c, arch)
+        self.down3 = _Conv2(16 * c, 16 * c, arch)
+        self.up0 = _deconv(32 * c, 8 * c, arch)
+        self.up1 = _deconv(16 * c, 4 * c, arch)
+        self.up2 = _deconv(8 * c, 2 * c, arch)
+        self.up3 = _deconv(4 * c, c, arch)
+        self.conv = nn.Conv2d(c, 3, 3, 1, 1)
+
+    def forward(self, img0, img1, warped0, warped1, mask, flow, c0, c1) -> torch.Tensor:
+        s0 = self.down0(torch.cat([img0, img1, warped0, warped1, mask, flow], 1))
+        s1 = self.down1(torch.cat([s0, c0[0], c1[0]], 1))
+        s2 = self.down2(torch.cat([s1, c0[1], c1[1]], 1))
+        s3 = self.down3(torch.cat([s2, c0[2], c1[2]], 1))
+        x = self.up0(torch.cat([s3, c0[3], c1[3]], 1))
+        x = self.up1(torch.cat([x, s2], 1))
+        x = self.up2(torch.cat([x, s1], 1))
+        x = self.up3(torch.cat([x, s0], 1))
+        return sigmoid(self.conv(x))
+
+
 class IFNet(nn.Module):
     """Parameter tree of one arch version; :func:`apply` runs it."""
 
@@ -136,14 +255,24 @@ class IFNet(nn.Module):
         self.arch_ver = arch_ver
         blocks, out_mult, head = _ARCH[arch_ver]
         for i, (in_planes, c) in enumerate(blocks):
-            self.add_module(f"block{i}", IFBlock(in_planes, c, out_mult))
+            self.add_module(f"block{i}", IFBlock(in_planes, c, out_mult, arch_ver))
         self.num_blocks = len(blocks)
         if head == "4.7":  # rife_arch.py:356-360
             self.encode = nn.Sequential(
                 nn.Conv2d(3, 16, 3, 2, 1), nn.ConvTranspose2d(16, 4, 4, 2, 1)
             )
+        elif head == "4.10":  # JAX rife.py:128-132: layers 0, 2, 4, 6
+            self.encode = nn.Sequential(
+                nn.Conv2d(3, 32, 3, 2, 1), nn.LeakyReLU(0.2),
+                nn.Conv2d(32, 32, 3, 1, 1), nn.LeakyReLU(0.2),
+                nn.Conv2d(32, 32, 3, 1, 1), nn.LeakyReLU(0.2),
+                nn.ConvTranspose2d(32, 8, 4, 2, 1),
+            )
         elif head is not None:
             self.encode = Head(*head)
+        if arch_ver in _PLAIN:
+            self.contextnet = Contextnet(arch_ver)
+            self.unet = Unet(arch_ver)
 
     def blocks(self) -> List[IFBlock]:
         return [getattr(self, f"block{i}") for i in range(self.num_blocks)]
@@ -161,8 +290,9 @@ def _if_block(
     x = [resize_by_scale(q, 1.0 / scale) for q in x]
     if flow is not None:
         x.append(resize_by_scale(flow, 1.0 / scale) * (1.0 / scale))
-    tmp = resize_by_scale(block(torch.cat(x, 1)), scale)
-    return tmp[:, :4] * scale, tmp[:, 4:5], tmp[:, 5:]
+    s = scale * 2 / block.up
+    tmp = resize_by_scale(block(torch.cat(x, 1)), s)
+    return tmp[:, :4] * s, tmp[:, 4:5], tmp[:, 5:]
 
 
 def _swap_flow(f: torch.Tensor) -> torch.Tensor:
@@ -184,8 +314,8 @@ def _warp_both(img0, img1, flow) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _warp_both_pairs(img0, f0, img1, f1, flow):
-    """Both directions' image and encoder-feature warps in one 7-channel call
-    (warping is per channel, so concatenating the planes is exact)."""
+    """Both directions' image and encoder-feature warps in one call (warping
+    is per channel, so concatenating the planes is exact)."""
     n = img0.shape[0]
     both = _warp(
         torch.cat([torch.cat([img0[:, :3], f0], 1), torch.cat([img1[:, :3], f1], 1)], 0),
@@ -202,9 +332,12 @@ def apply(
     timestep,
     scale_list: Sequence[float],
     ensemble: bool = False,
+    fastmode: bool = True,
 ) -> torch.Tensor:
     """``IFNet.forward`` (rife_arch.py:465-732), inference semantics, on NHWC
-    frames ``[N, H, W, 3]``; ``timestep`` is a scalar or an ``[N]`` vector."""
+    frames ``[N, H, W, 3]``; ``timestep`` is a scalar or an ``[N]`` vector.
+    ``fastmode=False`` adds the Contextnet/Unet refinement of arch 4.0-4.3;
+    the other archs have none and ignore it, as the reference does."""
     arch = net.arch_ver
     n, h, w, _ = img0.shape
     ph = ((h - 1) // 64 + 1) * 64
@@ -215,8 +348,12 @@ def apply(
     tmap = timestep.reshape(-1, 1, 1, 1).expand(n, 1, ph, pw)
     blocks = net.blocks()
     scale_list = list(scale_list)
-    if arch == "4.6":
-        return _forward_46(blocks, img0, img1, tmap, scale_list, ensemble, h, w)
+    if arch in _NO_ENCODER:
+        flow, mask, warped0, warped1 = _forward_noenc(net, img0, img1, tmap, scale_list, ensemble)
+        merged = _merge(warped0, warped1, mask)
+        if not fastmode and arch in _PLAIN:
+            merged = _refine(net, img0, img1, warped0, warped1, mask, flow, merged)
+        return merged[:, :, :h, :w].permute(0, 2, 3, 1)
 
     # one batched encoder call for both frames
     both = net.encode(torch.cat([img0[:, :3], img1[:, :3]], 0))
@@ -256,33 +393,70 @@ def apply(
             mask = m0
         flow, warped0, warped1, wf0, wf1 = new_flow, new_w0, new_w1, wf0n, wf1n
 
+    return _merge(warped0, warped1, mask)[:, :, :h, :w].permute(0, 2, 3, 1)
+
+
+def _merge(warped0, warped1, mask) -> torch.Tensor:
     mask = sigmoid(mask)
-    merged = warped0 * mask + warped1 * (1 - mask)
-    return merged[:, :, :h, :w].permute(0, 2, 3, 1)
+    return warped0 * mask + warped1 * (1 - mask)
 
 
-def _forward_46(blocks, img0, img1, tmap, scale_list, ensemble, h, w) -> torch.Tensor:
-    """4.6 path (the JAX ``apply``'s branch for arch <= 4.6, its
-    ``rife.py:262-302``): no encoder; the ensemble pass averages both the flow
-    update and the mask update at every stage, and the mask accumulates."""
-    flow, mask, _ = _if_block(blocks[0], [img0, img1, tmap], None, scale_list[0])
-    if ensemble:
-        fr, mr, _ = _if_block(blocks[0], [img1, img0, 1 - tmap], None, scale_list[0])
-        flow = (flow + _swap_flow(fr)) / 2
-        mask = (mask + (-mr)) / 2
-    warped0, warped1 = _warp_both(img0, img1, flow)
+def _needs_rescue(fd1: torch.Tensor) -> bool:
+    """Arch 4.0's rescue flag (rife_arch.py:598-626): stage 1's flow update
+    exceeds 32 pixels in both directions, each reduced over the whole batch,
+    as the JAX ``lax.cond`` predicate is. One host sync per forward."""
+    big = (fd1[:, :2].abs().amax() > 32) & (fd1[:, 2:4].abs().amax() > 32)
+    return bool(big.item())
+
+
+def _forward_noenc(net: IFNet, img0, img1, tmap, scale_list, ensemble):
+    """The archs without an encoder (4.0-4.6; the JAX ``apply``'s branches for
+    them, its ``rife.py:262-302,337-380``): the ensemble pass averages both
+    the flow update and the mask update at every stage, and the mask
+    accumulates. Arch 4.0 restarts from block 0 with doubled scales when
+    :func:`_needs_rescue` says so: the restart runs stage 0 and block 1
+    without the ensemble pass, and stage 1's ensemble averaging then runs on
+    the restarted state. Returns (flow, pre-sigmoid mask, warped0, warped1)."""
+    blocks = net.blocks()
+
+    def head(scales, ens):
+        flow, mask, _ = _if_block(blocks[0], [img0, img1, tmap], None, scales[0])
+        if ens:
+            fr, mr, _ = _if_block(blocks[0], [img1, img0, 1 - tmap], None, scales[0])
+            flow = (flow + _swap_flow(fr)) / 2
+            mask = (mask + (-mr)) / 2
+        w0, w1 = _warp_both(img0, img1, flow)
+        fd, m0, _ = _if_block(blocks[1], [w0, w1, tmap, mask], flow, scales[1])
+        return flow, mask, w0, w1, fd, m0
+
+    scales = list(scale_list)
+    flow, mask, w0, w1, fd, m0 = head(scales, ensemble)
+    if net.arch_ver == "4.0" and _needs_rescue(fd):
+        scales = [s * 2 for s in scales]
+        flow, mask, w0, w1, fd, m0 = head(scales, False)
     for i in range(1, 4):
-        fd, m0, _ = _if_block(blocks[i], [warped0, warped1, tmap, mask], flow, scale_list[i])
+        if i > 1:
+            fd, m0, _ = _if_block(blocks[i], [w0, w1, tmap, mask], flow, scales[i])
         if ensemble:
-            fr, mr, _ = _if_block(blocks[i], [warped1, warped0, 1 - tmap, -mask], _swap_flow(flow), scale_list[i])
+            fr, mr, _ = _if_block(blocks[i], [w1, w0, 1 - tmap, -mask], _swap_flow(flow), scales[i])
             fd = (fd + _swap_flow(fr)) / 2
             m0 = (m0 + (-mr)) / 2
         flow = flow + fd
         mask = mask + m0
-        warped0, warped1 = _warp_both(img0, img1, flow)
-    mask = sigmoid(mask)
-    merged = warped0 * mask + warped1 * (1 - mask)
-    return merged[:, :, :h, :w].permute(0, 2, 3, 1)
+        w0, w1 = _warp_both(img0, img1, flow)
+    return flow, mask, w0, w1
+
+
+def _refine(net: IFNet, img0, img1, warped0, warped1, raw_mask, flow, merged) -> torch.Tensor:
+    """The ``fastmode=False`` refinement of 4.0-4.3 (rife_arch.py:725-730):
+    both frames' Contextnet features in one batch (one warp per level for
+    both), the Unet on the pre-sigmoid mask, its residual added and clamped."""
+    n = img0.shape[0]
+    x = torch.cat([img0, img1], 0).contiguous(memory_format=torch.channels_last)
+    ctx = net.contextnet(x, torch.cat([flow[:, :2], flow[:, 2:4]], 0))
+    c0, c1 = [c[:n] for c in ctx], [c[n:] for c in ctx]
+    tmp = net.unet(img0, img1, warped0, warped1, raw_mask, flow, c0, c1)
+    return (merged + (tmp[:, :3] * 2 - 1)).clamp(0.0, 1.0)
 
 
 def _forward_426(blocks, img0, img1, f0, f1, tmap, scale_list, h, w) -> torch.Tensor:
@@ -297,9 +471,7 @@ def _forward_426(blocks, img0, img1, f0, f1, tmap, scale_list, h, w) -> torch.Te
             warped0, wf0, warped1, wf1 = _warp_both_pairs(img0, f0, img1, f1, flow)
         else:
             warped0, warped1 = _warp_both(img0, img1, flow)
-    mask = sigmoid(mask)
-    merged = warped0 * mask + warped1 * (1 - mask)
-    return merged[:, :, :h, :w].permute(0, 2, 3, 1)
+    return _merge(warped0, warped1, mask)[:, :, :h, :w].permute(0, 2, 3, 1)
 
 
 def default_scale_list(arch_ver: str, scale_factor: float = 1.0) -> List[float]:
@@ -307,6 +479,30 @@ def default_scale_list(arch_ver: str, scale_factor: float = 1.0) -> List[float]:
     if arch_ver == "4.26":
         return [s / scale_factor for s in (16, 8, 4, 2, 1)]
     return [s / scale_factor for s in (8, 4, 2, 1)]
+
+
+def warps_per_forward(
+    arch_ver: str, fastmode: bool = True, ensemble: bool = False, rescued: bool = False,
+    dtype: torch.dtype = torch.float32,
+) -> Dict[str, int]:
+    """Warp launches of one :func:`apply` on the card by kernel, ``{"narrow":
+    K1, "wide": the wide-channel kernel}``, as ``warp_kernel.route`` sends
+    each warp's ``channels_last`` tensor: one warp of both frames per stage
+    (with the encoder features from 4.7 on, but for the last stage's without
+    ensemble), one more for 4.0's restart when ``rescued``, and for 4.0-4.3
+    with ``fastmode=False`` one per Contextnet level (C = 16 to 128)."""
+    _check_arch(arch_ver)
+    if arch_ver == "4.26":
+        ensemble = False  # as make_model_fn
+    if arch_ver in _NO_ENCODER:
+        channels = [3] * (5 if rescued and arch_ver == "4.0" else 4)
+        if not fastmode and arch_ver in _PLAIN:
+            channels += [_CONTEXT_C * 2**k for k in range(4)]
+    else:
+        stages = 5 if arch_ver == "4.26" else 4
+        pair = 3 + _FEATURE_C[arch_ver]
+        channels = [pair] * (stages - 1) + [pair if ensemble else 3]
+    return route_counts(channels, dtype)
 
 
 def make_model_fn(
@@ -323,9 +519,8 @@ def make_model_fn(
 
     ``params`` is a state dict with the reference's keys; it is cast to
     ``dtype`` and moved to ``device`` once, loaded with ``strict=True``.
-    ``fastmode`` selects the ContextNet/UNet refinement of arch <= 4.3 only,
-    which is not ported; the ported archs (4.6 included) ignore it, as the
-    reference does."""
+    ``fastmode=False`` selects the Contextnet/Unet refinement of arch 4.0-4.3;
+    the other archs ignore it, as the reference does."""
     _check_arch(arch_ver)
     if arch_ver == "4.26":
         ensemble = False  # reference rife/__init__.py:123-125
@@ -344,6 +539,7 @@ def make_model_fn(
             t.to(device=device, dtype=dtype),
             scale_list,
             ensemble=ensemble,
+            fastmode=fastmode,
         )
         return out.clamp(0.0, 1.0).float()
 
@@ -354,18 +550,23 @@ def init_params(seed: int = 0, arch_ver: str = "4.7") -> Dict[str, torch.Tensor]
     """Random state dict with the reference's shapes, drawn from
     ``numpy.random.default_rng(seed)`` in ``state_dict`` key order: conv and
     transposed-conv weights and biases uniform in ``+-1/sqrt(fan_in)`` (as the
-    JAX ``init_params``), ``beta`` ones."""
+    JAX ``init_params``; fan_in from every weight dim after the first),
+    ``beta`` ones, PReLU weights (4.0) the constant :data:`PRELU_INIT`. JAX's
+    ``init_params`` draws only 4.7, 4.17 and 4.26; this one draws every arch."""
     _check_arch(arch_ver)
     rng = np.random.default_rng(seed)
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in IFNet(arch_ver).state_dict().items()}
+        net = IFNet(arch_ver)
+    prelu = {f"{name}.weight" for name, m in net.named_modules() if isinstance(m, nn.PReLU)}
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     params = {}
     for key, shape in shapes.items():
         if key.endswith(".beta"):
             params[key] = torch.ones(shape)
-            continue
-        # OIHW conv and IOHW transposed-conv weights: fan_in = dims 1..3
-        wshape = shapes[key.rsplit(".", 1)[0] + ".weight"]
-        bound = 1.0 / np.sqrt(wshape[1] * wshape[2] * wshape[3])
-        params[key] = torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32))
+        elif key in prelu:
+            params[key] = torch.full(shape, PRELU_INIT)
+        else:
+            wshape = shapes[key.rsplit(".", 1)[0] + ".weight"]
+            bound = 1.0 / np.sqrt(int(np.prod(wshape[1:])))
+            params[key] = torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32))
     return params

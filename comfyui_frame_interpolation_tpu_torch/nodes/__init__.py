@@ -5,17 +5,19 @@ family at a time. Each follows the reference protocol: classmethod
 NHWC torch tensors."""
 
 from .rife_node import RIFE_VFI
-from .vfi_nodes import FILM_VFI, GMFSS_Fortuna_VFI, M2M_VFI
+from .vfi_nodes import EISAI_VFI, FILM_VFI, GMFSS_Fortuna_VFI, M2M_VFI
 
 NODE_CLASS_MAPPINGS = {
     "RIFE VFI": RIFE_VFI,
     "M2M VFI": M2M_VFI,
     "FILM VFI": FILM_VFI,
     "GMFSS Fortuna VFI": GMFSS_Fortuna_VFI,
+    "EISAI VFI": EISAI_VFI,
 }
 NODE_DISPLAY_NAME_MAPPINGS = {
     "RIFE VFI": "RIFE VFI (recommend rife47 and rife49)",
     "M2M VFI": "M2M VFI",
     "FILM VFI": "FILM VFI",
     "GMFSS Fortuna VFI": "GMFSS Fortuna VFI",
+    "EISAI VFI": "EISAI VFI",
 }

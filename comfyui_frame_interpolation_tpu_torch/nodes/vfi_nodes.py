@@ -1,7 +1,7 @@
 """VFI nodes of the generic-loop model families, port of the JAX package's
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
-Ported so far: FILM, M2M and GMFSS Fortuna. Same public schema as the JAX nodes (the tooltips speak of
+Ported so far: FILM, M2M, GMFSS Fortuna and EISAI. Same public schema as the JAX nodes (the tooltips speak of
 the card); frames and results are NHWC torch tensors on the node's device.
 """
 
@@ -15,6 +15,7 @@ from ..core.config import load_config
 from ..core.frames import assert_batch_size, postprocess_frames, preprocess_frames
 from ..core.loop import run_plan, run_plan_pair_cached
 from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep
+from ..models import eisai as eisai_model
 from ..models import film as film_model
 from ..models import gmfss as gmfss_model
 from ..models import m2m as m2m_model
@@ -223,6 +224,66 @@ class GMFSS_Fortuna_VFI:
         reuse_fn, infer_fn = _cached(
             self._pair_fns, params, (ckpt_name, dtype, str(device)),
             lambda: gmfss_model.make_pair_fns(params, union=union, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)
+
+
+class EISAI_VFI:
+    """reference ``eisai/__init__.py:42-84``; generic timestep schedule, run
+    by the pair-cached executor: the two 12-iteration RAFT passes once per
+    pair, SoftsplatLite and DTM once per timestep (the reference recomputes
+    the flows per timestep).
+
+    The weights are three files (``CKPTS_PATH_CONFIG``: ``eisai_ssl.pt``,
+    ``eisai_dtm.pt`` and the RFR weights under ``module.flownet.`` of
+    ``eisai_anime_interp_full.ckpt``), loaded into one state dict whose keys
+    are prefixed ``ssl.``, ``dtm.`` and ``raft.``
+    (``utils.ckpt.load_checkpoint_set``)."""
+
+    CKPTS_PATH_CONFIG = {
+        "ssl": ("eisai", "eisai_ssl.pt"),
+        "dtm": ("eisai", "eisai_dtm.pt"),
+        "raft": ("eisai", "eisai_anime_interp_full.ckpt", "flownet"),
+    }
+
+    def __init__(self):
+        self._pair_fns: typing.Dict[tuple, typing.Tuple[dict, tuple]] = {}  # see _cached
+        self._params: typing.Optional[dict] = None  # loaded once
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(eisai_model.CKPT_NAMES, batch_default=2)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        iters: int = 12,  # extension: RAFT iterations (the reference's 12)
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "EISAI")
+        if params is None:
+            if self._params is None:
+                self._params = load_checkpoint_set(self.CKPTS_PATH_CONFIG)
+            params = self._params
+        reuse_fn, infer_fn = _cached(
+            self._pair_fns, params, (dtype, iters, str(device)),
+            lambda: eisai_model.make_pair_fns(params, dtype=DTYPE_MAP[dtype], device=device, iters=iters),
         )
         plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
         out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)

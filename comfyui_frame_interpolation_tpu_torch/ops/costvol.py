@@ -7,7 +7,7 @@ displaced pixels off the frame compare against zero.
 
 Plain PyTorch, as the JAX package keeps it on XLA: zero-pad ``two``, then 81
 shifted slices. A hand-written kernel waits until a trace on the card
-attributes time to it (``ROADMAP.md`` Queue 1, item 13).
+attributes time to it (``ROADMAP.md`` Queue 1, the levers in ported modules).
 
 Layout: NCHW tensors (the models hold them in ``channels_last`` memory); the
 result is ``[N, 81, H, W]`` in ``channels_last`` memory. Used by M2M's

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 
@@ -31,6 +31,7 @@ __all__ = [
     "WIDE_MIN_BYTES",
     "launches",
     "route",
+    "route_counts",
     "warp_bilinear",
     "warp_bilinear_wide",
     "wide_launches",
@@ -63,6 +64,16 @@ def route(shape: Sequence[int], strides: Sequence[int], dtype: torch.dtype, pref
         return "tiled"
     pixel_bytes = c * dtype.itemsize
     return "wide" if pixel_bytes >= WIDE_MIN_BYTES or pixel_bytes % 16 == 0 else "tiled"
+
+
+def route_counts(channels: Sequence[int], dtype: torch.dtype) -> Dict[str, int]:
+    """Launches per kernel, ``{"narrow": K1, "wide": the wide kernel}``, of
+    one warp of a ``channels_last`` tensor of each width in ``channels``, as
+    :func:`route` sends them: the models derive their launch counts from it."""
+    counts = {"narrow": 0, "wide": 0}
+    for c in channels:
+        counts["wide" if route((1, c, 1, 1), (c, 1, c, c), dtype) == "wide" else "narrow"] += 1
+    return counts
 
 
 def _bind(name: str, n_int64: int):

@@ -10,7 +10,7 @@ Local checkpoints are raw ``torch.save`` containers, or TorchScript archives
 ``torch.jit.load``), read through ``torch.jit.load`` as the JAX loader does
 (its ``utils/ckpt.py:90-132``). Multi-file models (GMFSS Fortuna) load a
 checkpoint set: one state dict per sub-network, its keys prefixed by the
-sub-network's name (:func:`load_checkpoint_set`).
+sub-network's name (:func:`load_checkpoint_set`), as does EISAI.
 """
 
 from __future__ import annotations
@@ -56,8 +56,10 @@ def is_torchscript_archive(path: str) -> bool:
 def load_local_checkpoint(model_type: str, ckpt_name: str) -> Dict[str, torch.Tensor]:
     """The state dict in ``ckpts_path/<model_type>/<ckpt_name>``, loaded on
     the CPU: a TorchScript archive through ``torch.jit.load(...).state_dict()``,
-    a raw ``torch.save`` container with ``weights_only=True``. Nothing is
-    downloaded: a missing file raises ``FileNotFoundError``."""
+    a raw ``torch.save`` container with ``weights_only=True``, taken out of a
+    training container's ``model_state_dict`` (EISAI's full checkpoint), as
+    the JAX loader does. Nothing is downloaded: a missing file raises
+    ``FileNotFoundError``."""
     path = os.path.join(get_ckpt_container_path(model_type), ckpt_name)
     if not os.path.exists(path):
         raise FileNotFoundError(
@@ -66,19 +68,29 @@ def load_local_checkpoint(model_type: str, ckpt_name: str) -> Dict[str, torch.Te
         )
     if is_torchscript_archive(path):
         return dict(torch.jit.load(path, map_location="cpu").state_dict())
-    return torch.load(path, map_location="cpu", weights_only=True)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return obj["model_state_dict"] if isinstance(obj.get("model_state_dict"), dict) else obj
 
 
-def load_checkpoint_set(files: Mapping[str, Tuple[str, str]]) -> Dict[str, torch.Tensor]:
+def load_checkpoint_set(files: Mapping[str, Tuple[str, ...]]) -> Dict[str, torch.Tensor]:
     """One state dict from a set of local checkpoints: ``files`` maps each
-    prefix to its ``(model_type, ckpt_name)``, as the nodes'
+    prefix to its ``(model_type, ckpt_name)``, or ``(model_type, ckpt_name,
+    part)`` for a file that holds more than the sub-network, as the nodes'
     ``CKPTS_PATH_CONFIG`` entries do. Each file is read by
     :func:`load_local_checkpoint` (so a missing file raises
     ``FileNotFoundError`` naming it, and nothing is downloaded); a leading
-    ``module.`` is stripped from its keys, as the JAX loader does, and the
-    prefix is put before them (``flownet.backbone.conv1.weight``)."""
+    ``module.`` is stripped from its keys, as the JAX loader does; with a
+    ``part``, only the keys under ``part.`` are kept, without it, as EISAI's
+    node takes ``flownet`` from its full checkpoint (a file with no key under
+    ``part.`` raises ``KeyError`` naming both); and the prefix is put before
+    them (``flownet.backbone.conv1.weight``)."""
     out: Dict[str, torch.Tensor] = {}
-    for prefix, (model_type, ckpt_name) in files.items():
-        for key, value in load_local_checkpoint(model_type, ckpt_name).items():
-            out[f"{prefix}.{key.removeprefix('module.')}"] = value
+    for prefix, (model_type, ckpt_name, *part) in files.items():
+        sd = {k.removeprefix("module."): v for k, v in load_local_checkpoint(model_type, ckpt_name).items()}
+        if part:
+            sd = {k[len(part[0]) + 1 :]: v for k, v in sd.items() if k.startswith(f"{part[0]}.")}
+            if not sd:
+                raise KeyError(f"{model_type} checkpoint {ckpt_name} holds no key under {part[0]}.")
+        for key, value in sd.items():
+            out[f"{prefix}.{key}"] = value
     return out

@@ -9,10 +9,11 @@ Run on the machine with the card, as a script (it imports the package from
 
 It prints one JSON line: the card and its power limit, and frames/s of RIFE
 4.7 1080p 2x bf16 batch 8 (fast mode, no ensemble), M2M 1080p 2x bf16 batch 2,
-FILM 1080p 2x bf16 batch 2 and GMFSS Fortuna 1080p 2x bf16 batch 1, base and
-union, random frames and random weights from seed 0 (the configurations of
-``chip_smoke.py`` phases 6, 10, 14 and 18), each through ``make_model_fn`` and
-timed by ``utils.benchmark.measure``.
+FILM 1080p 2x bf16 batch 2, GMFSS Fortuna 1080p 2x bf16 batch 1, base and
+union, and EISAI 540p (its native 540x960) 2x bf16 batch 1 with 12 RAFT
+iterations, random frames and random weights from seed 0 (the configurations
+of ``chip_smoke.py`` phases 6, 10, 14, 18 and 22), each through
+``make_model_fn`` and timed by ``utils.benchmark.measure``.
 """
 
 import argparse
@@ -32,7 +33,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from comfyui_frame_interpolation_tpu_torch.models import film, gmfss, m2m, rife
+    from comfyui_frame_interpolation_tpu_torch.models import eisai, film, gmfss, m2m, rife
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
     if not torch.cuda.is_available():
@@ -44,9 +45,9 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
-    def frames(n):
-        f0 = torch.from_numpy(np.random.default_rng(0).random((n, 1080, 1920, 3), dtype=np.float32)).to(dev)
-        f1 = torch.from_numpy(np.random.default_rng(1).random((n, 1080, 1920, 3), dtype=np.float32)).to(dev)
+    def frames(n, hw=(1080, 1920)):
+        f0 = torch.from_numpy(np.random.default_rng(0).random((n, *hw, 3), dtype=np.float32)).to(dev)
+        f1 = torch.from_numpy(np.random.default_rng(1).random((n, *hw, 3), dtype=np.float32)).to(dev)
         return f0, f1, torch.full((n,), 0.5, device=dev)
 
     fns = {
@@ -57,11 +58,13 @@ def main(argv=None) -> int:
         "gmfss_1080p_b1": (1, lambda: gmfss.make_model_fn(gmfss.init_params(0), dtype=torch.bfloat16, device=dev), 5),
         "gmfss_union_1080p_b1": (1, lambda: gmfss.make_model_fn(
             gmfss.init_params(0, union=True), union=True, dtype=torch.bfloat16, device=dev), 5),
+        "eisai_540p_b1": (1, lambda: eisai.make_model_fn(eisai.init_params(0), dtype=torch.bfloat16, device=dev), 5),
     }
     fps = {}
     for name, (n, make, iters) in fns.items():
         fn = make()
-        fps[name] = n / measure(fn, *frames(n), iters=iters, rounds=3)
+        hw = (540, 960) if name.startswith("eisai") else (1080, 1920)
+        fps[name] = n / measure(fn, *frames(n, hw), iters=iters, rounds=3)
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "root": args.root, "card": smi, "frames_per_s": fps}), flush=True)

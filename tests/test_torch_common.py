@@ -123,6 +123,27 @@ def test_avg_pool2d(hw, k, stride):
     _close(pc.avg_pool2d(_nchw(x), k, stride), ref)
 
 
+@pytest.mark.parametrize("hw,k,stride", [((16, 24), 2, 2), ((17, 23), 3, 2), ((15, 20), 3, 1), ((12, 12), 3, None)])
+def test_max_pool2d(hw, k, stride):
+    x = _rng(14).standard_normal((2, *hw, 5)).astype(np.float32)
+    ref = jc.max_pool2d(jnp.asarray(x), k, stride)
+    _close(pc.max_pool2d(_nchw(x), k, stride), ref, atol=0)
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_batch_norm(affine):
+    """Eval mode: the running statistics, eps 1e-5."""
+    rng = _rng(15)
+    x = rng.standard_normal((2, 9, 11, 6)).astype(np.float32)
+    node = {"running_mean": rng.standard_normal(6).astype(np.float32), "running_var": rng.uniform(0.2, 3.0, 6).astype(np.float32)}
+    if affine:
+        node.update(weight=rng.standard_normal(6).astype(np.float32), bias=rng.standard_normal(6).astype(np.float32))
+    ref = jc.batch_norm(jnp.asarray(x), node)
+    t = {k: torch.from_numpy(v) for k, v in node.items()}
+    got = pc.batch_norm(_nchw(x), t["running_mean"], t["running_var"], t.get("weight"), t.get("bias"))
+    _close(got, ref)
+
+
 @pytest.mark.parametrize("in_hw,out_hw", [((135, 240), (67, 120)), ((67, 120), (135, 240)), ((8, 12), (16, 24)), ((17, 23), (40, 31)), ((30, 50), (17, 23))])
 def test_resize_nearest(in_hw, out_hw):
     x = _rng(7).random((2, *in_hw, 3), dtype=np.float32)

@@ -28,6 +28,13 @@ tensor (pixel stride not a multiple of 16 bytes) and as ``channels_last``
 planes; and a GMFSS forward, base and union, launches the splat 8 times per
 infer call and the warps of ``gmfss.warps_per_reuse`` and
 ``gmfss.warps_per_infer``.
+
+EISAI's widths, C = 6, 66, 258 and 514 (RGB + NEDT or a ResNet level, the
+ones channel and ``exp(metric)``), f32 as EISAI splats them and bf16; an
+EISAI forward launches the splat 8 times per infer call, K1 twice
+(``eisai.warps_per_infer``) and nothing per reuse call; and RIFE 4.0 makes
+the warps of ``rife.warps_per_forward``, with the refinement's 4 on the
+wide kernel and one more K1 warp when its restart is taken.
 """
 
 import math
@@ -38,7 +45,7 @@ import torch
 import warp_cases
 from comfyui_frame_interpolation_tpu_torch.core import loop
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import gmfss, m2m
+from comfyui_frame_interpolation_tpu_torch.models import eisai, gmfss, m2m, rife
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
 
@@ -204,3 +211,55 @@ def test_gmfss_launch_counts(cuda, union):
     assert warp_kernel.wide_launches - wide == per_reuse["wide"] * reuse_calls
     assert softsplat_kernel.launches - splats == gmfss.splats_per_infer() * infer_calls == 8 * infer_calls
     assert out.shape == (10, 64, 128, 3) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("c", [6, 66, 258, 514])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eisai_widths(cuda, c, dtype):
+    case = next(x for x in CASES if x["name"] == "rough_x40_c4")
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    g = torch.Generator().manual_seed(c)
+    vals = torch.rand(*flow.shape[:3], c, generator=g).to(cuda, dtype)
+    _check(softsplat_func(vals, flow), softsplat_torch(vals, flow), dtype)
+
+
+def test_eisai_launch_counts(cuda):
+    """Through the node's executor at x3 (three pairs, two timesteps each,
+    batch 2), 2 RAFT iterations: no launch per reuse call, per infer call the
+    K1 warps of ``warps_per_infer`` and 8 splats."""
+    reuse_fn, infer_fn = eisai.make_pair_fns(eisai.init_params(0), device=cuda, iters=2)
+    frames = torch.rand(4, 64, 96, 3, device=cuda)
+    plan = plan_timestep(4, 3)
+    _, by_count = loop._pair_groups(plan)
+    infer_calls = sum(m * math.ceil(len(keys) / 2) for m, keys in by_count.items())
+    warps, wide, splats = warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches
+    cache = reuse_fn(frames[:2], frames[1:3])
+    torch.cuda.synchronize()
+    assert (warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches) == (warps, wide, splats)
+    del cache
+    out = loop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2)
+    torch.cuda.synchronize()
+    assert eisai.warps_per_infer() == {"narrow": 2, "wide": 0}
+    assert warp_kernel.launches - warps == 2 * infer_calls
+    assert warp_kernel.wide_launches == wide
+    assert softsplat_kernel.launches - splats == eisai.splats_per_infer() * infer_calls == 8 * infer_calls
+    assert out.shape == (10, 64, 96, 3) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("fastmode", [True, False])
+@pytest.mark.parametrize("rescued", [False, True])
+def test_rife40_launch_counts(cuda, fastmode, rescued):
+    """One forward of arch 4.0 on ``[2, 64, 128, 3]``; block 1's head scaled
+    by 1000 takes the restart with doubled scales."""
+    params = rife.init_params(0, "4.0")
+    if rescued:
+        params = {k: v * 1000 if k.startswith("block1.lastconv") else v for k, v in params.items()}
+    fn = rife.make_model_fn(params, "4.0", fastmode=fastmode, device=cuda)
+    f0, f1 = torch.rand(2, 2, 64, 128, 3, device=cuda)
+    warps, wide = warp_kernel.launches, warp_kernel.wide_launches
+    out = fn(f0, f1, torch.full((2,), 0.5, device=cuda))
+    torch.cuda.synchronize()
+    want = rife.warps_per_forward("4.0", fastmode, rescued=rescued)
+    assert {"narrow": warp_kernel.launches - warps, "wide": warp_kernel.wide_launches - wide} == want
+    assert want["narrow"] == (5 if rescued else 4) and want["wide"] == (0 if fastmode else 4)
+    assert torch.isfinite(out).all()

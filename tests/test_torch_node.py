@@ -18,6 +18,15 @@ written to a temporary ``ckpts_path`` (one file per sub-network, as the
 reference ships them) exactly as from the same weights passed as
 ``params``, and names the first missing file of a set. Its output is held
 against JAX by ``tests/test_torch_gmfss.py``.
+
+RIFE arch 4.0 (``sudo_rife4_269.662_testV1_scale1.pth``), both ``fast_mode``
+values: the port's node against the JAX node on a 128x256 crop, >= 40 dB.
+
+EISAI: the schema as for GMFSS; the node against the JAX node on a 64x96
+crop (two pairs, x2 and x3, 2 RAFT iterations), >= 40 dB fp32; the node runs
+from its three files (the RFR weights inside a training container under
+``module.flownet.``) exactly as from ``params``, and names the first missing
+file.
 """
 
 import contextlib
@@ -31,17 +40,20 @@ import torch
 from PIL import Image
 
 from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import EISAI_VFI as JaxEISAI
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FILM_VFI as JaxFILM
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import GMFSS_Fortuna_VFI as JaxGMFSS
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import M2M_VFI as JaxM2M
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
+from comfyui_frame_interpolation_tpu_torch.models import eisai as peisai
 from comfyui_frame_interpolation_tpu_torch.models import film as pfilm
 from comfyui_frame_interpolation_tpu_torch.models import gmfss as pgmfss
 from comfyui_frame_interpolation_tpu_torch.models import m2m as pm2m
 from comfyui_frame_interpolation_tpu_torch.models import rife as prife
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import EISAI_VFI as PortEISAI
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI as PortFILM
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import GMFSS_Fortuna_VFI as PortGMFSS
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
@@ -65,6 +77,7 @@ def test_input_types_equal_jax_node():
         assert getattr(PortRIFE, attr) == getattr(JaxRIFE, attr)
     assert NODE_CLASS_MAPPINGS == {
         "RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM, "GMFSS Fortuna VFI": PortGMFSS,
+        "EISAI VFI": PortEISAI,
     }
 
 
@@ -100,10 +113,29 @@ def test_node_rejects_single_frame_and_unported_arch():
     sd = prife.init_params(0, "4.7")
     with pytest.raises(ValueError, match="at least 2 frames"):
         PortRIFE().vfi("rife47.pth", np.zeros((1, 8, 8, 3), np.float32), params=sd, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # every arch is ported: a 4.0 checkpoint name given 4.7 weights fails the strict load
+    with pytest.raises(RuntimeError, match="Missing key"):
         PortRIFE().vfi(
             "sudo_rife4_269.662_testV1_scale1.pth", np.zeros((2, 8, 8, 3), np.float32), params=sd, device="cpu"
         )
+
+
+@pytest.mark.parametrize("fast_mode", [True, False])
+def test_rife40_node_matches_jax_node_on_demo_crop(fast_mode):
+    """``sudo_rife4_269.662_testV1_scale1.pth`` (arch 4.0; ``fast_mode=False``
+    adds the Contextnet/Unet refinement) on a 128x256 crop, two pairs in one
+    batch."""
+    pair = _demo_pair()[:, 200:328, 400:656]
+    frames = np.concatenate([pair, pair[:1]])
+    sd = prife.init_params(0, "4.0")
+    name = "sudo_rife4_269.662_testV1_scale1.pth"
+    kw = dict(multiplier=2, fast_mode=fast_mode, ensemble=False, batch_size=2)
+    (ref,) = JaxRIFE().vfi(name, frames, params=to_jax_tree(nest_state_dict(sd)), **kw)
+    (got,) = PortRIFE().vfi(name, frames, params=sd, device="cpu", **kw)
+    ref = np.asarray(ref)
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (5, 128, 256, 3)
+    np.testing.assert_array_equal(got.numpy()[::2], frames)
+    assert psnr(got.numpy(), ref) >= 40.0
 
 
 def test_node_caches_its_model_fn_per_params():
@@ -294,3 +326,83 @@ def test_gmfss_node_caches_its_pair_fns_per_params():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     node.vfi("GMFSS_fortuna", frames, params=pgmfss.init_params(1), device="cpu")
     assert len(node._pair_fns) == 2
+
+
+def test_eisai_input_types_equal_jax_node_without_tooltips():
+    port, ref = PortEISAI.INPUT_TYPES(), JaxEISAI.INPUT_TYPES()
+    assert _no_tooltips(port) == _no_tooltips(ref)
+    assert port["required"]["ckpt_name"][0] == ["eisai"]
+    assert port["required"]["batch_size"][1]["default"] == 2 and "TPU" not in str(port)
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(PortEISAI, attr) == getattr(JaxEISAI, attr)
+
+
+@functools.lru_cache(maxsize=None)
+def _eisai_jax_params():
+    """One JAX tree for both multipliers, so the JAX node compiles once."""
+    return to_jax_tree(nest_state_dict(peisai.init_params(0)))
+
+
+@pytest.mark.parametrize("multiplier", [2, 3])
+def test_eisai_node_matches_jax_node_on_demo_crop(multiplier):
+    pair = _demo_pair()[:, 200:264, 400:496]
+    frames = np.concatenate([pair, pair[:1]])  # two pairs: 0->1, 1->0
+    jp = _eisai_jax_params()
+    ref = JaxEISAI().vfi("eisai", frames, multiplier=multiplier, batch_size=2, iters=2, params=jp)[0]
+    ref = np.asarray(ref)
+    sd = peisai.init_params(0)
+    (got,) = PortEISAI().vfi("eisai", frames, multiplier=multiplier, batch_size=2, iters=2, params=sd, device="cpu")
+    n_out = 2 * multiplier + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (n_out, 64, 96, 3)
+    np.testing.assert_array_equal(got.numpy()[::multiplier], frames)
+    p = psnr(got.numpy(), ref)
+    print(f"EISAI node x{multiplier}: port vs JAX {p:.2f} dB")
+    assert p >= 40.0
+
+
+def test_eisai_node_runs_from_its_checkpoint_files(tmp_path, monkeypatch):
+    """``eisai_ssl.pt`` and ``eisai_dtm.pt`` raw, the RFR weights inside
+    ``eisai_anime_interp_full.ckpt``'s ``model_state_dict`` under
+    ``module.flownet.`` beside another sub-network's, as training saved
+    them."""
+    sd = peisai.init_params(2)
+    part = lambda prefix: {k[len(prefix) + 1 :]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+    with _ckpts_path(tmp_path, monkeypatch) as ckpts:
+        (ckpts / "eisai").mkdir(parents=True)
+        torch.save(part("ssl"), str(ckpts / "eisai" / "eisai_ssl.pt"))
+        torch.save(part("dtm"), str(ckpts / "eisai" / "eisai_dtm.pt"))
+        full = {f"module.flownet.{k}": v for k, v in part("raft").items()}
+        full["module.other.weight"] = torch.zeros(3)
+        torch.save({"model_state_dict": full, "epoch": 7}, str(ckpts / "eisai" / "eisai_anime_interp_full.ckpt"))
+        frames = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+        node = PortEISAI()
+        (from_files,) = node.vfi("eisai", frames, iters=1, device="cpu")
+        (again,) = node.vfi("eisai", frames, iters=1, device="cpu")
+        (from_params,) = PortEISAI().vfi("eisai", frames, iters=1, params=sd, device="cpu")
+    assert len(node._pair_fns) == 1  # loaded once, built once
+    assert node._params.keys() == sd.keys() and all(torch.equal(node._params[k], sd[k]) for k in sd)
+    assert tuple(from_files.shape) == (3, 64, 64, 3)
+    np.testing.assert_array_equal(from_files.numpy()[[0, 2]], frames)
+    torch.testing.assert_close(from_files, from_params, rtol=0, atol=0)
+    torch.testing.assert_close(from_files, again, rtol=0, atol=0)
+
+
+def test_eisai_node_without_its_files_raises(tmp_path, monkeypatch):
+    with _ckpts_path(tmp_path, monkeypatch):
+        with pytest.raises(FileNotFoundError, match=r"eisai_ssl\.pt"):
+            PortEISAI().vfi("eisai", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
+
+
+def test_eisai_full_checkpoint_without_flownet_raises(tmp_path, monkeypatch):
+    """A full checkpoint with no ``flownet.`` key fails at load, naming the
+    file and the part, not later in the strict load."""
+    sd = peisai.init_params(2)
+    part = lambda prefix: {k[len(prefix) + 1 :]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+    with _ckpts_path(tmp_path, monkeypatch) as ckpts:
+        (ckpts / "eisai").mkdir(parents=True)
+        torch.save(part("ssl"), str(ckpts / "eisai" / "eisai_ssl.pt"))
+        torch.save(part("dtm"), str(ckpts / "eisai" / "eisai_dtm.pt"))
+        full = {f"module.raft.{k}": v for k, v in part("raft").items()}
+        torch.save({"model_state_dict": full}, str(ckpts / "eisai" / "eisai_anime_interp_full.ckpt"))
+        with pytest.raises(KeyError, match=r"eisai_anime_interp_full\.ckpt holds no key under flownet\."):
+            PortEISAI().vfi("eisai", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
