@@ -146,9 +146,47 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    ``torch.profiler`` top 10 of one forward; the splat kernel's and the
    plain twin's ms per call on the captured inputs of each width, with
    their bounds.
+23. stmfnet   -- K1 and the kernel ``ops.warp.warp`` routes to against the
+   plain twin, bit for bit, zeros mode, f32 and bf16, at STMFNet's 1080p
+   backwarps (batch 1, both flow directions as one batch): the PWC features
+   ``[2, 288, 480, 32]``, ``[2, 144, 240, 64]``, ``[2, 72, 120, 96]``, ``[2,
+   36, 60, 128]`` (the wide kernel), the same with the ones channel appended
+   (C = 33, 65, 97, 129: the JAX form), the frames ``[2, 1152, 1920, 3]``
+   and ``[..., 4]``, and the f32 ones planes the port warps apart (K1); the
+   splat kernel at ``[2, 1152, 1920, 4]`` f32 and bf16 on smooth flow
+   (phase-7 tolerances); then every warp and splat that one 1080p bf16
+   forward launched, again on a copy of its inputs; and the backwarp as JAX
+   writes it (one launch on C + 1 channels) against the port's (C channels,
+   then the f32 ones plane: two launches), in turns and by the kernels'
+   device time in a profile, with their bounds;
+24. stmfnet   -- the STMFNet VFI node (``stmfnet.pth``, random weights from
+   seed 0) on 4 frames of 135x240 (reflect-padded to 256x256 inside),
+   ``duplicate_first_last_frames`` False and True, batch 1, on the card in
+   fp32 (TF32 off) and bf16, each >= 40 dB against the same node on the CPU
+   in fp32; original frames pass through bit for bit; per forward call
+   exactly the K1 and wide launches of ``stmfnet.warps_per_forward`` and
+   ``stmfnet.splats_per_forward()`` splat launches;
+25. golden    -- the port's STMFNet on the card (fp32, TF32 off) against the
+   JAX output stored in ``tests/fixtures/torch_port_stmfnet_golden.npz``,
+   >= 40 dB;
+26. timing    -- STMFNet 1080p 2x bf16 batch 1 (the node's default batch) in
+   frames/s, the peak device memory of one forward, each stage's ms
+   (features, the three scale streams, the flow splat, the GridNet, the
+   UNet3d), a ``torch.profiler`` top 10 of one forward with the idle share;
+   AdaCoF's and the correlation's ms at the forward's shapes and their
+   shares of it; the splat kernel's and the twin's ms on the forward's own splat input,
+   and the warp kernels', the twin's and ``F.grid_sample``'s at STMFNet's
+   warp shapes, each with its bound;
+27. flavr     -- the FLAVR VFI node (``FLAVR_2x.pth``, random weights from
+   seed 0) on 4 frames of 135x240 (edge-padded to 144x240 inside), as in
+   phase 24 at batch 2, with no hand-kernel launch; the JAX golden
+   (``tests/fixtures/torch_port_flavr_golden.npz``) through the node on the
+   card, >= 40 dB; FLAVR 1080p 2x bf16 batch 2 (``bench.py:bench_flavr``'s
+   configuration) in frames/s and peak memory, and a ``torch.profiler`` top
+   10 of one forward.
 
-Each main path (phases 4, 8, 12, 16 and 20) is driven with the launch counts set to
-0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22) also
+Each main path (phases 4, 8, 12, 16, 20, 24 and 27) is driven with the launch counts set to
+0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
 ranking line orders kernel and path by the ms above the bound. Then the
@@ -207,6 +245,15 @@ RIFE40 = "sudo_rife4_269.662_testV1_scale1.pth"
 # RIFE 4.0 refined mode at 540x960 batch 2 (padded to 576 rows inside RIFE):
 # the Contextnet levels of both frames, border, on the wide kernel
 RIFE40_WIDE_SHAPES = ((4, 288, 480, 16), (4, 144, 240, 32), (4, 72, 120, 64), (4, 36, 60, 128))
+STMFNET_HW = (135, 240)
+# STMFNet 1080p batch 1 (reflect-padded to 1152x1920), both flow directions
+# as one batch: the PWC feature backwarps of levels 2 to 5, the frames'
+# backwarp (each also warps its f32 ones plane, on K1) and the splat (3
+# channels times exp(metric), and exp(metric))
+STMFNET_PWC_SHAPES = ((2, 288, 480, 32), (2, 144, 240, 64), (2, 72, 120, 96), (2, 36, 60, 128))
+STMFNET_IMAGE_SHAPE = (2, 1152, 1920, 3)
+STMFNET_SPLAT_SHAPE = (2, 1152, 1920, 4)
+FLAVR_HW = (135, 240)
 SOFTSPLAT_MODES = ["sum"] + [f"{b}{e}" for b in ("avg", "linear", "soft") for e in ("", "-addeps", "-zeroeps", "-clipeps")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
@@ -462,7 +509,30 @@ def shifted_pattern(n, h, w, seed, step=(6.0, 3.0)):
     return frames
 
 
-def profile_forward(what, model_fn, f0, f1, t, card):
+def device_us(evt):
+    """An event's own device time in us (the attribute's name differs across torch versions)."""
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+
+def device_ms(fn, iters):
+    """Mean device ms per call of ``fn()``: the kernels' own time in a
+    ``torch.profiler`` trace of ``iters`` calls, after one warm-up (the
+    host's launch cost, which :func:`cuda_ms` takes in for small calls, left
+    out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sum(device_us(e) for e in kernels) / 1e3 / iters
+
+
+def profile_forward(what, model_fn, *inputs, card):
     """``torch.profiler`` over one forward of ``model_fn`` after a warm-up
     forward whose kernel launches are recorded: the top 10 ops by device
     time, each hand kernel's device ms and share of the device time, the
@@ -472,16 +542,13 @@ def profile_forward(what, model_fn, f0, f1, t, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def device_us(evt):
-        return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
-
     log = []
     with recorded_work(log):
-        model_fn(f0, f1, t)
+        model_fn(*inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model_fn(f0, f1, t)
+        model_fn(*inputs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -532,10 +599,15 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import warp_cases
     from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
-    from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep
-    from comfyui_frame_interpolation_tpu_torch.models import eisai, film, gmfss, m2m, rife
+    from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep, plan_window4
+    from comfyui_frame_interpolation_tpu_torch.models import eisai, film, flavr, gmfss, m2m, rife, stmfnet
+    from comfyui_frame_interpolation_tpu_torch.models.common import device_const
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
-    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import EISAI_VFI, FILM_VFI, GMFSS_Fortuna_VFI, M2M_VFI
+    from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import (
+        EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, M2M_VFI, STMFNet_VFI,
+    )
+    from comfyui_frame_interpolation_tpu_torch.ops.adacof import adacof_func
+    from comfyui_frame_interpolation_tpu_torch.ops.correlation import correlation_func
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import (
         function_softsplat, softsplat, softsplat_func, softsplat_torch,
@@ -767,7 +839,7 @@ def main() -> int:
     f1 = torch.from_numpy(np.random.default_rng(1).random((8, 1080, 1920, 3), dtype=np.float32)).to(dev)
     t = torch.full((8,), 0.5, device=dev)
     fps = 8 / measure(model_fn, f0, f1, t, iters=10, rounds=3)
-    rife_profile = profile_forward("RIFE 4.7 1080p bf16 b8", model_fn, f0, f1, t, card)
+    rife_profile = profile_forward("RIFE 4.7 1080p bf16 b8", model_fn, f0, f1, t, card=card)
     del f0, f1
     # plain, K1, grid_sample, grid_sample, K1, plain
     k1_times = in_turns({
@@ -923,7 +995,7 @@ def main() -> int:
         f"flow in, bf16 out), the op at {100 * splat_bound[0] / splat_ms:.1f} % of it",
         flush=True,
     )
-    m2m_profile = profile_forward("M2M 1080p bf16 b2", model_fn, f0, f1, t, card)
+    m2m_profile = profile_forward("M2M 1080p bf16 b2", model_fn, f0, f1, t, card=card)
     del f0, f1
 
     # ---- 11. wide warp kernel vs plain on the card ---------------------------
@@ -1102,7 +1174,7 @@ def main() -> int:
             flush=True,
         )
     del wide_img, wide_flow
-    film_profile = profile_forward("FILM 1080p bf16 b2", model_fn, f0, f1, t, card)
+    film_profile = profile_forward("FILM 1080p bf16 b2", model_fn, f0, f1, t, card=card)
     del f0, f1
     wide_main = wide_times["x".join(map(str, FILM_WARP_SHAPES[0]))]
     del model_fn
@@ -1271,7 +1343,7 @@ def main() -> int:
             f"reuse {gmfss_stage_ms[path]['reuse']:.3f} ms, infer {gmfss_stage_ms[path]['infer']:.3f} ms per pair",
             flush=True,
         )
-        gmfss_profiles[path] = profile_forward(f"{'GMFSS union' if union else 'GMFSS'} 1080p bf16 b1", fn, f0, f1, t, card)
+        gmfss_profiles[path] = profile_forward(f"{'GMFSS union' if union else 'GMFSS'} 1080p bf16 b1", fn, f0, f1, t, card=card)
         del fn
     del gmfss_fn, f0, f1
     # the splat at each width, on the first direction's captured inputs
@@ -1435,7 +1507,7 @@ def main() -> int:
         f"{eisai_stage_ms['reuse']:.3f} ms, infer {eisai_stage_ms['infer']:.3f} ms per pair",
         flush=True,
     )
-    eisai_profile = profile_forward("EISAI 540p bf16 b1", eisai_fn, f0, f1, t, card)
+    eisai_profile = profile_forward("EISAI 540p bf16 b1", eisai_fn, f0, f1, t, card=card)
     del eisai_fn, f0, f1
     eisai_splat_times = {}
     for vals, flow in eisai_splats[::2]:
@@ -1457,21 +1529,358 @@ def main() -> int:
         )
     del eisai_splats
 
+    # ---- 23. kernels at STMFNet's shapes -------------------------------------
+    def routed_and_k1(img, flow, body):
+        """The routed kernel and K1 against the twin in zeros mode, bit for
+        bit; the route must be ``body``. Returns the max abs error."""
+        planes = img.permute(0, 3, 1, 2)
+        routed = warp_kernel.route(planes.shape, planes.stride(), img.dtype)
+        check(routed == body, f"{list(img.shape)} {img.dtype} routed to {routed}, expected {body}")
+        ref = warp_torch(img, flow, "zeros")
+        outs = {routed: warp(img, flow, "zeros"), "K1": warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), True).permute(0, 2, 3, 1)}
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, got in outs.items():
+            e = (got.float() - ref.float()).abs().max().item()
+            check(torch.equal(got, ref), f"{name} vs plain at {list(img.shape)} {img.dtype} zeros, {flow.dtype} flow: max err {e}")
+            err = max(err, e)
+        return err
+
+    stmf_kernel_errs = {}
+    for shape in STMFNET_PWC_SHAPES + (STMFNET_IMAGE_SHAPE,):
+        flow32 = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            flow = flow32.to(dt)
+            for extra in (0, 1):  # the warped tensor, and the same with the ones channel appended (the JAX form)
+                c = shape[3] + extra
+                img = torch.rand(*shape[:3], c, generator=g).to(dev, dt)
+                body = "wide" if c * dt.itemsize >= 32 or (c * dt.itemsize) % 16 == 0 else "tiled"
+                stmf_kernel_errs[f"{list(shape[:3]) + [c]} {str(dt).split('.')[-1]} ({body})"] = routed_and_k1(img, flow, body)
+            ones = torch.ones(*shape[:3], 1, device=dev)
+            stmf_kernel_errs[f"{list(shape[:3]) + [1]} float32 ones, {str(dt).split('.')[-1]} flow (tiled)"] = routed_and_k1(ones, flow, "tiled")
+    del img, ones, flow, flow32
+    stmf_splat_errs = {}
+    sflow = torch.from_numpy(warp_cases.smooth_flow(*STMFNET_SPLAT_SHAPE[:3], amp=8.0)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        vals = torch.rand(STMFNET_SPLAT_SHAPE, generator=g).to(dev, dtype)
+        stmf_splat_errs[str(dtype).split(".")[-1]] = splat_vs_plain(vals, sflow.to(dtype))
+    del vals, sflow
+    # every warp and splat of one 1080p bf16 forward, on copies of its inputs
+    stmf_params = stmfnet.init_params(0)
+    stmf_fn = stmfnet.make_model_fn(stmf_params, dtype=torch.bfloat16, device=dev)
+    sf = [torch.from_numpy(np.random.default_rng(i).random((1, 1080, 1920, 3), dtype=np.float32)).to(dev) for i in range(4)]
+    stmf_warps, stmf_splats = [], []
+    with captured_warps(stmf_warps), captured_splats(stmf_splats):
+        stmf_fn(*sf)
+    torch.cuda.synchronize()
+    sseen = warps_vs_plain(stmf_warps, "STMFNet 1080p forward")
+    per_fwd = stmfnet.warps_per_forward(torch.bfloat16)
+    want_warps = {
+        "warp_bilinear_wide": {(shape, "zeros", "bfloat16", "bfloat16") for shape in STMFNET_PWC_SHAPES},
+        "warp_bilinear": {(shape[:3] + (1,), "zeros", "float32", "bfloat16") for shape in STMFNET_PWC_SHAPES + (STMFNET_IMAGE_SHAPE,)}
+        | {(STMFNET_IMAGE_SHAPE, "zeros", "bfloat16", "bfloat16")},
+    }
+    n_by_kernel = {k: sum(1 for kk, *_ in stmf_warps if kk == k) for k in ("warp_bilinear", "warp_bilinear_wide")}
+    check(
+        sseen == want_warps and n_by_kernel == {"warp_bilinear": per_fwd["narrow"], "warp_bilinear_wide": per_fwd["wide"]},
+        f"STMFNet warps {n_by_kernel} at {sseen}, expected {per_fwd} at {want_warps}",
+    )
+    slargest = max(fl.abs().max().item() for _, _, fl, _ in stmf_warps)
+    del stmf_warps
+    check(len(stmf_splats) == stmfnet.splats_per_forward(), f"STMFNet splats {len(stmf_splats)}")
+    check([tuple(v.shape) for v, _ in stmf_splats] == [STMFNET_SPLAT_SHAPE], f"STMFNet splat shapes {[tuple(v.shape) for v, _ in stmf_splats]}")
+    ssoft_errs = {"bf16": 0.0, "f32": 0.0}
+    for vals, flow in stmf_splats:
+        ssoft_errs["bf16"] = max(ssoft_errs["bf16"], splat_vs_plain(vals, flow))
+        ssoft_errs["f32"] = max(ssoft_errs["f32"], splat_vs_plain(vals.float(), flow.float(), f32_scaled=True))
+    # the masked backwarp as JAX writes it (the ones channel appended to the
+    # tensor: one warp of C + 1 channels) against the port's
+    # (stmfnet._backwarp_masked: C channels, then the f32 ones plane, two
+    # warps), whole (the concatenation or the ones plane, the warps, the
+    # mask) and by its warps alone, bf16, in turns and by the kernels' device
+    # time; f32 results must be equal, bf16 ones may differ where the bf16
+    # rounding of the warped ones channel crosses 0.999
+    def joined_backwarp(x, flow):
+        h, w = x.shape[2], x.shape[3]
+        fl = flow.permute(0, 2, 3, 1) * device_const((w / (w - 1.0), h / (h - 1.0)), (2,), flow.device, flow.dtype)
+        out = warp(torch.cat([x, torch.ones_like(x[:, :1])], 1).permute(0, 2, 3, 1), fl, "zeros")
+        return (out[..., :-1] * (out[..., -1:] > 0.999).to(x.dtype)).permute(0, 3, 1, 2)
+
+    design_times = {}
+    for shape in STMFNET_PWC_SHAPES + (STMFNET_IMAGE_SHAPE,):
+        flow32 = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev).permute(0, 3, 1, 2)
+        x32 = torch.rand(shape, generator=g).to(dev).permute(0, 3, 1, 2)
+        check(torch.equal(joined_backwarp(x32, flow32), stmfnet._backwarp_masked(x32, flow32)), f"backwarp designs differ in f32 at {shape}")
+        x, fl = x32.bfloat16(), flow32.bfloat16()
+        flipped = (joined_backwarp(x, fl) != stmfnet._backwarp_masked(x, fl)).any(1).float().mean().item()
+        fl_nhwc = fl.permute(0, 2, 3, 1)
+        xj = torch.cat([x, torch.ones_like(x[:, :1])], 1).permute(0, 2, 3, 1)
+        ones = torch.ones(*shape[:3], 1, device=dev)
+        calls = {
+            "joined": (lambda: joined_backwarp(x, fl), 20),
+            "split": (lambda: stmfnet._backwarp_masked(x, fl), 20),
+            "joined warp": (lambda: warp(xj, fl_nhwc, "zeros"), 20),
+            "split warps": (lambda: (warp(x.permute(0, 2, 3, 1), fl_nhwc, "zeros"), warp(ones, fl_nhwc, "zeros")), 20),
+        }
+        times = in_turns(calls)
+        dev_ms = {k: device_ms(fn, it) for k, (fn, it) in calls.items()}
+        jb = warp_bound(xj, fl_nhwc)
+        sb = warp_bound(x.permute(0, 2, 3, 1), fl_nhwc)[0] + warp_bound(ones, fl_nhwc)[0]
+        pj, px = xj.permute(0, 3, 1, 2), x
+        key = "x".join(map(str, shape))
+        design_times[key] = {
+            **{f"{k.replace(' ', '_')}_ms": statistics.mean(v) for k, v in times.items()},
+            **{f"{k.replace(' ', '_')}_device_ms": v for k, v in dev_ms.items()},
+            "joined_kernel": warp_kernel.route(pj.shape, pj.stride(), xj.dtype),
+            "split_kernels": [warp_kernel.route(px.shape, px.stride(), x.dtype), "tiled"],
+            "joined_bound_ms": jb[0], "split_bound_ms": sb, "bf16_pixels_differing": flipped,
+        }
+        d = design_times[key]
+        print(
+            f"timing {card}: STMFNet backwarp {list(shape)} bf16 zeros, wall ms in turns (device ms): joined (C {shape[3] + 1}, "
+            f"1 warp on {d['joined_kernel']}) {d['joined_ms']:.4f} ({d['joined_device_ms']:.4f}), its warp {d['joined_warp_ms']:.4f} "
+            f"({d['joined_warp_device_ms']:.4f}), bound {jb[0]:.4f}; split (C {shape[3]} on {d['split_kernels'][0]}, f32 ones "
+            f"plane on K1) {d['split_ms']:.4f} ({d['split_device_ms']:.4f}), its warps {d['split_warps_ms']:.4f} "
+            f"({d['split_warps_device_ms']:.4f}), bound {sb:.4f}; f32 equal, bf16 pixels differing {flipped:.2e}",
+            flush=True,
+        )
+    del x, x32, xj, ones, fl, flow32, fl_nhwc
+    print(
+        "stmfnet kernels: K1 and the routed kernel vs plain at STMFNet's 1080p shapes, zeros, bit-exact: "
+        + ", ".join(f"{k} max err {v}" for k, v in stmf_kernel_errs.items())
+        + f"; splat {list(STMFNET_SPLAT_SHAPE)} smooth flow max err "
+        + ", ".join(f"{k} {v}" for k, v in stmf_splat_errs.items())
+        + f"; one 1080p bf16 forward's {sum(n_by_kernel.values())} warps ({n_by_kernel}, largest flow {slargest:.3f} px) "
+        f"launched again on their inputs, each bit-exact against the plain twin; its {len(stmf_splats)} splat(s): bf16 max err "
+        f"{ssoft_errs['bf16']} (one ulp), f32 max err {ssoft_errs['f32']} (1e-5 of the magnitude)",
+        flush=True,
+    )
+
+    # ---- 24. STMFNet node end to end -----------------------------------------
+    frames = shifted_pattern(4, *STMFNET_HW, seed=5)
+    node = STMFNet_VFI()
+    calls = {dup: len(plan_window4(4, dup).tasks) for dup in (False, True)}  # batch 1: a call per window
+    expect = {"narrow": 0, "wide": 0, "splat": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        per = stmfnet.warps_per_forward(dtype)
+        for dup in (False, True):
+            expect = {"narrow": expect["narrow"] + per["narrow"] * calls[dup], "wide": expect["wide"] + per["wide"] * calls[dup],
+                      "splat": expect["splat"] + stmfnet.splats_per_forward() * calls[dup]}
+    outs = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+    for dtype in ("float32", "bfloat16"):
+        for dup in (False, True):
+            (outs[dup, dtype],) = node.vfi(
+                "stmfnet.pth", frames, duplicate_first_last_frames=dup, batch_size=1, dtype=dtype, params=stmf_params, device="cuda"
+            )
+    torch.cuda.synchronize()
+    stmf_launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(stmf_launches == expect, f"STMFNet launches {stmf_launches} != {expect} ({calls} calls per dtype)")
+    psnrs = []
+    t0 = time.perf_counter()
+    for dup in (False, True):
+        (out_cpu,) = node.vfi("stmfnet.pth", frames, duplicate_first_last_frames=dup, batch_size=1, params=stmf_params, device="cpu")
+        orig = [0, 1, 2, 4, 5, 6] if dup else [0, 1, 3, 4]  # [0, (0), 1, mid, 2, 3, (3)]
+        src = [0, 0, 1, 2, 3, 3] if dup else [0, 1, 2, 3]
+        for dtype in ("float32", "bfloat16"):
+            out = outs[dup, dtype]
+            check(tuple(out.shape) == (len(orig) + 1, *STMFNET_HW, 3) and out.is_cuda, f"STMFNet output {tuple(out.shape)} on {out.device}")
+            check(bool(torch.isfinite(out).all()), f"STMFNet dup={dup} {dtype} has non-finite values")
+            check(torch.equal(out[orig].cpu(), torch.from_numpy(frames[src])), f"STMFNet dup={dup} {dtype}: original frames not passed through")
+            p = psnr(out, out_cpu)
+            check(p >= 40.0, f"STMFNet node dup={dup} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+            psnrs.append(f"dup={dup} {dtype} {p:.2f} dB")
+    print(
+        f"stmfnet: STMFNet node 4x{STMFNET_HW[0]}x{STMFNET_HW[1]} (reflect-padded to 256x256) x2 batch 1, cuda vs cpu fp32: "
+        f"{', '.join(psnrs)} (cpu leg {time.perf_counter() - t0:.1f} s); launches {stmf_launches} over {calls} calls per dtype "
+        f"(duplicate_first_last_frames False/True), as derived from the model (per forward {stmfnet.warps_per_forward()} "
+        f"and {stmfnet.splats_per_forward()} splat)",
+        flush=True,
+    )
+    del outs, out_cpu
+
+    # ---- 25. STMFNet JAX golden ----------------------------------------------
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_stmfnet_golden.npz")) as z:
+        seed, gframes, golden = int(z["seed"]), z["frames"], torch.from_numpy(z["output"])
+    gf = [torch.from_numpy(gframes[i : i + 1].astype(np.float32) / 255.0).to(dev) for i in range(4)]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gout = stmfnet.make_model_fn(stmfnet.init_params(seed), device=dev)(*gf)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    pg = psnr(gout, golden)
+    check(pg >= 40.0, f"STMFNet golden: {pg:.2f} dB < 40")
+    print(f"golden: port STMFNet on cuda fp32 vs JAX STMFNet fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
+
+    # ---- 26. STMFNet timing --------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    stmf_fn(*sf)
+    torch.cuda.synchronize()
+    stmf_peak = torch.cuda.max_memory_allocated() - base_mem
+    stmf_fps = 1 / measure(stmf_fn, *sf, iters=3, rounds=3)
+    net = stmfnet._load(stmf_params, torch.bfloat16, dev)
+    with torch.inference_mode():
+        x0, x1, x2, x3 = (stmfnet._reflect_pad(stmfnet._nchw(f.to(torch.bfloat16)), 72, 0) for f in sf)
+        feats = stmfnet.stage_feats(net, x1, x2)
+        adas = [a for sfx in ("", "_ds", "_us") for a in stmfnet.stage_stream(net, feats, x1, x2, sfx)]
+        splats = stmfnet.stage_flowsplat(net, x1, x2)
+        tilde = stmfnet.stage_synth(net, adas, splats)
+        stmf_stage_ms = {"feats": cuda_ms(lambda: stmfnet.stage_feats(net, x1, x2), 3)}
+        for sfx in ("", "_ds", "_us"):
+            stmf_stage_ms[f"stream{sfx or '_1x'}"] = cuda_ms(lambda: stmfnet.stage_stream(net, feats, x1, x2, sfx), 3)
+        stmf_stage_ms["flowsplat"] = cuda_ms(lambda: stmfnet.stage_flowsplat(net, x1, x2), 3)
+        stmf_stage_ms["synth"] = cuda_ms(lambda: stmfnet.stage_synth(net, adas, splats), 3)
+        stmf_stage_ms["dyntex"] = cuda_ms(lambda: stmfnet.stage_dyntex(net, x0, x1, x2, x3, tilde), 3)
+    del net, x0, x1, x2, x3, feats, adas, splats, tilde
+    # the two plain ops at the forward's shapes (bf16): AdaCoF twice per
+    # stream (the frame edge-padded by 2; 25 weights and offsets per pixel),
+    # the correlation once per PWC level (both directions as one batch)
+    plain_op_ms = {}
+    for name, (h, w) in (("adacof", (1152, 1920)), ("adacof_ds", (576, 960)), ("adacof_us", (2304, 3840))):
+        img = torch.rand(1, h + 4, w + 4, 3, device=dev, dtype=torch.bfloat16)
+        maps = [torch.rand(1, h, w, 25, device=dev, dtype=torch.bfloat16) * 4 - 2 for _ in range(3)]
+        plain_op_ms[f"{name} x2"] = 2 * cuda_ms(lambda: adacof_func(img, *maps), 3)
+    del img, maps
+    corr_ms = 0.0
+    for level, c in zip(range(2, 7), (32, 64, 96, 128, 196)):
+        fa, fb = (torch.rand(2, 1152 >> level, 1920 >> level, c, device=dev, dtype=torch.bfloat16) for _ in range(2))
+        corr_ms += cuda_ms(lambda: correlation_func(fa, fb), 3)
+    plain_op_ms["correlation x5 levels"] = corr_ms
+    del fa, fb
+    print(
+        f"timing {card}: STMFNet's plain ops per 1080p bf16 forward: "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v * stmf_fps / 1e3:.1f} % of the forward)" for k, v in plain_op_ms.items()),
+        flush=True,
+    )
+    print(
+        f"timing {card}: STMFNet 1080p 2x bf16 batch 1 {stmf_fps:.3f} frames/s; peak memory of one forward "
+        f"{stmf_peak / 2**30:.3f} GiB above the {base_mem / 2**30:.3f} GiB held before it; stages "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stmf_stage_ms.items()),
+        flush=True,
+    )
+    stmf_profile = profile_forward("STMFNet 1080p bf16 b1", stmf_fn, *sf, card=card)
+    stmf_splat_times = {}
+    for vals, flow in stmf_splats:
+        times = in_turns({
+            "plain": (lambda: softsplat_torch(vals, flow), 3),
+            "kernel": (lambda: softsplat_func(vals, flow), 20),
+        })
+        sb = bound(*splat_work(vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
+        key = "x".join(map(str, vals.shape))
+        stmf_splat_times[key] = {
+            "ms": statistics.mean(times["kernel"]), "plain_ms": statistics.mean(times["plain"]),
+            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None,
+        }
+        print(
+            f"timing {card}: splat {list(vals.shape)} bf16, bf16 flow (STMFNet's softmax-mode input): "
+            + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
+            + f"; bound {sb[0]:.4f} ms ({sb[1]}), the op at {100 * sb[0] / stmf_splat_times[key]['ms']:.1f} % of it",
+            flush=True,
+        )
+    stmf_warp_times = {}
+    for shape, body in [(s_, "wide") for s_ in STMFNET_PWC_SHAPES] + [(STMFNET_IMAGE_SHAPE, "tiled"), (STMFNET_IMAGE_SHAPE[:3] + (1,), "tiled")]:
+        dt = torch.float32 if shape[3] == 1 else torch.bfloat16
+        img = torch.rand(shape, generator=g).to(dev, dt)
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev, torch.bfloat16)
+        times = in_turns({
+            "plain": (lambda: warp_torch(img, flow, "zeros"), 3),
+            body: (lambda: warp(img, flow, "zeros"), 30),
+            "grid_sample": (grid_sample_call(img, flow, "zeros"), 10),
+        })
+        wb = warp_bound(img, flow)
+        key = f"{'x'.join(map(str, shape))} {str(dt).split('.')[-1]} zeros"
+        stmf_warp_times[key] = {
+            "kernel": body, "ms": statistics.mean(times[body]), "plain_ms": statistics.mean(times["plain"]),
+            "library_ms": statistics.mean(times["grid_sample"]), "bound_ms": wb[0], "bound_by": wb[1],
+        }
+        print(
+            f"timing {card}: warp {list(shape)} {str(dt).split('.')[-1]} zeros, bf16 flow (STMFNet): "
+            + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
+            + f"; bound {wb[0]:.4f} ms ({wb[1]}), {body} at {100 * wb[0] / stmf_warp_times[key]['ms']:.1f} % of it",
+            flush=True,
+        )
+    del img, flow, stmf_splats, stmf_fn, sf
+
+    # ---- 27. FLAVR -----------------------------------------------------------
+    flavr_params = flavr.init_params(0)
+    frames = shifted_pattern(4, *FLAVR_HW, seed=6)
+    node = FLAVR_VFI()
+    outs = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+    for dtype in ("float32", "bfloat16"):
+        for dup in (False, True):
+            (outs[dup, dtype],) = node.vfi(
+                "FLAVR_2x.pth", frames, duplicate_first_last_frames=dup, batch_size=2, dtype=dtype, params=flavr_params, device="cuda"
+            )
+    torch.cuda.synchronize()
+    flavr_launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(flavr_launches == {"narrow": 0, "wide": 0, "splat": 0}, f"FLAVR launched hand kernels: {flavr_launches}")
+    psnrs = []
+    t0 = time.perf_counter()
+    for dup in (False, True):
+        (out_cpu,) = node.vfi("FLAVR_2x.pth", frames, duplicate_first_last_frames=dup, batch_size=2, params=flavr_params, device="cpu")
+        orig = [0, 1, 2, 4, 5, 6] if dup else [0, 1, 3, 4]  # [0, (0), 1, mid, 2, 3, (3)]
+        src = [0, 0, 1, 2, 3, 3] if dup else [0, 1, 2, 3]
+        for dtype in ("float32", "bfloat16"):
+            out = outs[dup, dtype]
+            check(tuple(out.shape) == (len(orig) + 1, *FLAVR_HW, 3) and out.is_cuda, f"FLAVR output {tuple(out.shape)} on {out.device}")
+            check(bool(torch.isfinite(out).all()), f"FLAVR dup={dup} {dtype} has non-finite values")
+            check(torch.equal(out[orig].cpu(), torch.from_numpy(frames[src])), f"FLAVR dup={dup} {dtype}: original frames not passed through")
+            p = psnr(out, out_cpu)
+            check(p >= 40.0, f"FLAVR node dup={dup} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+            psnrs.append(f"dup={dup} {dtype} {p:.2f} dB")
+    flavr_cpu_s = time.perf_counter() - t0
+    del outs, out_cpu
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_flavr_golden.npz")) as z:
+        seed, gframes, golden = int(z["seed"]), z["frames"], torch.from_numpy(z["output"])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    (gout,) = FLAVR_VFI().vfi("FLAVR_2x.pth", gframes.astype(np.float32) / 255.0, params=flavr.init_params(seed), device="cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    pg_flavr = psnr(gout[2:3], golden)
+    check(pg_flavr >= 40.0, f"FLAVR golden: {pg_flavr:.2f} dB < 40")
+    flavr_fn = flavr.make_model_fn(flavr_params, dtype=torch.bfloat16, device=dev)
+    ff = [torch.from_numpy(np.random.default_rng(i).random((2, 1088, 1920, 3), dtype=np.float32)).to(dev) for i in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    flavr_fps = 2 / measure(flavr_fn, *ff, iters=3, rounds=3)
+    flavr_peak = torch.cuda.max_memory_allocated() - base_mem
+    print(
+        f"flavr: FLAVR node 4x{FLAVR_HW[0]}x{FLAVR_HW[1]} (edge-padded to 144x240) x2 batch 2, cuda vs cpu fp32: "
+        f"{', '.join(psnrs)} (cpu leg {flavr_cpu_s:.1f} s); no hand-kernel launch; golden: port on cuda fp32 vs JAX FLAVR fp32 "
+        f"{pg_flavr:.2f} dB, max abs err {(gout[2:3].cpu() - golden).abs().max().item():.3g}",
+        flush=True,
+    )
+    print(
+        f"timing {card}: FLAVR 1080p (padded to 1088x1920) 2x bf16 batch 2 {flavr_fps:.3f} frames/s; peak memory "
+        f"{flavr_peak / 2**30:.3f} GiB above the {base_mem / 2**30:.3f} GiB held before it",
+        flush=True,
+    )
+    profile_forward("FLAVR 1080p bf16 b2", flavr_fn, *ff, card=card)
+    del flavr_fn, ff
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
-    profiles = {"rife": rife_profile, "m2m": m2m_profile, "film": film_profile, **gmfss_profiles, "eisai": eisai_profile}
+    profiles = {
+        "rife": rife_profile, "m2m": m2m_profile, "film": film_profile, **gmfss_profiles, "eisai": eisai_profile,
+        "stmfnet": stmf_profile,
+    }
     per_forward = {k: {path: prof[k] for path, prof in profiles.items() if k in prof} for k in KERNEL_BODIES}
     ranked = sorted(
         ((k, path, v) for k, paths in per_forward.items() for path, v in paths.items()),
         key=lambda e: e[2]["above_bound_ms"], reverse=True,
     )
     print(
-        f"ranking {card}: ms above the bound per bf16 forward (1080p; EISAI 540p): "
+        f"ranking {card}: ms above the bound per bf16 forward (1080p; EISAI 540p; STMFNet a 1080p window): "
         + "; ".join(f"{k} on {path} {v['above_bound_ms']:.3f} ({v['launches']} launches)" for k, path, v in ranked),
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-22 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-27 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -1479,11 +1888,11 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
             "launches": rife_warp_launches + rife40_launches["narrow"] + m2m_warp_launches + film_warp_launches
-            + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"],
+            + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"] + stmf_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
-                "eisai": eisai_launches["narrow"],
+                "eisai": eisai_launches["narrow"], "stmfnet": stmf_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -1493,6 +1902,7 @@ def main() -> int:
             "bound_by": k1_bound[1],
             "library_ms": k1_ms["grid_sample"],
             "gmfss_shapes": {k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "tiled"},
+            "stmfnet_shapes": {k: v for k, v in stmf_warp_times.items() if v["kernel"] == "tiled"},
             "per_forward": per_forward["warp_bilinear"],
         },
         {
@@ -1501,10 +1911,10 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:297",
             "launches": rife40_launches["wide"] + m2m_wide + film_wide_launches
-            + sum(v["wide"] for v in gmfss_launches.values()),
+            + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
-                **{path: v["wide"] for path, v in gmfss_launches.items()},
+                **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -1514,7 +1924,11 @@ def main() -> int:
             "bound_ms": wide_main["bound_ms"],
             "bound_by": wide_main["bound_by"],
             "library_ms": wide_main["library_ms"],
-            "by_shape": {**wide_times, **{k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "wide"}},
+            "by_shape": {
+                **wide_times, **{k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "wide"},
+                **{k: v for k, v in stmf_warp_times.items() if v["kernel"] == "wide"},
+            },
+            "stmfnet_backwarp_designs": design_times,
             "per_forward": per_forward["warp_bilinear_wide"],
         },
         {
@@ -1522,10 +1936,11 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
-            "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"],
+            "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
+            + stmf_launches["splat"],
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
-                "eisai": eisai_launches["splat"],
+                "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -1537,6 +1952,7 @@ def main() -> int:
             "library_ms": None,
             "gmfss_shapes": gmfss_splat_times,
             "eisai_shapes": eisai_splat_times,
+            "stmfnet_shapes": stmf_splat_times,
             "per_forward": per_forward["softsplat"],
         },
     ]}))

@@ -16,5 +16,5 @@ from .frames import (
     preprocess_frames,
     unpad,
 )
-from .loop import run_plan, run_plan_pair_cached
+from .loop import run_plan, run_plan_pair_cached, run_plan_window4
 from .config import get_ckpt_container_path, load_config

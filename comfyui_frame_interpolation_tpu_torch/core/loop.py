@@ -11,9 +11,11 @@ tasks.
 the timestep-independent half once per endpoint pair, the per-timestep half
 once per timestep (M2M, GMFSS, EISAI; XVFI when it is ported).
 
+:func:`run_plan_window4` runs a 4-frame sliding-window plan (STMFNet, FLAVR).
+
 Only the resident mode is ported. A clip whose inputs, outputs and working
-batches would not fit the memory budget raises; ``run_plan_window4`` and the
-streaming executors wait in ``ROADMAP.md`` Queue 1.
+batches would not fit the memory budget raises; the streaming executors wait
+in ``ROADMAP.md`` Queue 1.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from .schedule import Plan, Source, Task
 
-__all__ = ["run_plan", "run_plan_pair_cached"]
+__all__ = ["run_plan", "run_plan_pair_cached", "run_plan_window4"]
 
 
 class _Progress:
@@ -83,18 +85,20 @@ def _gather(
 
 
 def _check_resident(
-    what: str, frames: torch.Tensor, plan: Plan, batch_size: int, memory_budget_bytes: Optional[int]
+    what: str, frames: torch.Tensor, plan: Plan, batch_size: int, memory_budget_bytes: Optional[int],
+    frames_per_task: int = 4,
 ) -> None:
     """Raise ``MemoryError`` when the clip's inputs, outputs and working
-    batches would not fit the budget: ``memory_budget_bytes`` when given, else
-    the free device memory (``torch.cuda.mem_get_info``) for CUDA frames; CPU
-    frames with no explicit budget are not checked."""
+    batches (``frames_per_task`` frames per task of a batch) would not fit
+    the budget: ``memory_budget_bytes`` when given, else the free device
+    memory (``torch.cuda.mem_get_info``) for CUDA frames; CPU frames with no
+    explicit budget are not checked."""
     n, h, w, c = frames.shape
     budget = memory_budget_bytes
     if budget is None and frames.is_cuda:
         budget = torch.cuda.mem_get_info(frames.device)[0]
     frame_bytes = h * w * c * frames.element_size()
-    resident_estimate = (n + len(plan.output) + 4 * batch_size) * frame_bytes
+    resident_estimate = (n + len(plan.output) + frames_per_task * batch_size) * frame_bytes
     if budget is not None and resident_estimate > budget:
         raise MemoryError(
             f"{what}: {n} input + {len(plan.output)} output frames of {h}x{w}x{c} "
@@ -214,6 +218,46 @@ def run_plan_pair_cached(
                     produced[groups[key][j].id] = mids[i]
                 progress.step(k, 0)
 
+    out = _gather(frames, produced, plan.output)
+    progress.finish(len(plan.output))
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    return out
+
+
+def run_plan_window4(
+    frames: torch.Tensor,
+    plan: Plan,
+    model_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+    batch_size: int = 4,
+    out_dtype: Optional[torch.dtype] = None,
+    memory_budget_bytes: Optional[int] = None,
+) -> torch.Tensor:
+    """Execute a :func:`~.schedule.plan_window4` plan over NHWC ``frames``.
+
+    ``model_fn(f0, f1, f2, f3) -> mid`` takes ``[B, H, W, C]`` batches of the
+    four frames of each window (window start = ``task.pair``) and returns
+    the frame between ``f1`` and ``f2``. Windows run ``batch_size`` per call
+    in plan order, a short last chunk padded with copies of its first window
+    (whose outputs are dropped); each batch is four ``index_select`` calls on
+    the device-resident clip. The same chunking and padding as the JAX
+    executor.
+
+    Over the memory budget (see :func:`_check_resident`, here with the JAX
+    estimate of five frames per window: the four inputs and the output) it
+    raises ``MemoryError``."""
+    _check_resident("run_plan_window4", frames, plan, batch_size, memory_budget_bytes, frames_per_task=5)
+    produced: Dict[int, torch.Tensor] = {}
+    tasks = plan.tasks
+    progress = _Progress("run_plan_window4", len(tasks))
+    for start in range(0, len(tasks), batch_size):
+        chunk = tasks[start : start + batch_size]
+        starts = [t.pair for t in chunk] + [chunk[0].pair] * (batch_size - len(chunk))
+        idx = torch.tensor(starts, dtype=torch.long, device=frames.device)
+        mids = model_fn(*(frames.index_select(0, idx + k) for k in range(4)))
+        for i, task in enumerate(chunk):
+            produced[task.id] = mids[i]
+        progress.step(len(chunk), 0)
     out = _gather(frames, produced, plan.output)
     progress.finish(len(plan.output))
     if out_dtype is not None:

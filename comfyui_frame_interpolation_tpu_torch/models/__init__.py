@@ -1,2 +1,2 @@
-"""Ported model families: RIFE (arch 4.6, 4.7, 4.17, 4.26), M2M, FILM and
-GMFSS Fortuna (base and union) so far."""
+"""Ported model families: RIFE (every arch of the JAX package), M2M, FILM,
+GMFSS Fortuna (base and union), EISAI, STMFNet and FLAVR so far."""

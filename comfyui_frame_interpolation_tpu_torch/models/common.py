@@ -1,12 +1,14 @@
 """Layer primitives for the ported models: the subset of the JAX package's
-``models/common.py`` that RIFE, M2M, FILM, GMFSS and EISAI use, as plain functions
-on NCHW tensors (``linear`` on the last axis of any tensor).
+``models/common.py`` that RIFE, M2M, FILM, GMFSS, EISAI, STMFNet and FLAVR
+use, as plain functions on NCHW tensors (``linear`` on the last axis of any
+tensor; ``conv3d``/``conv_transpose3d`` on NCDHW clips).
 
 The JAX versions take NHWC arrays and parameter dicts in torch layout; here
 the tensors are torch's own NCHW (held in ``channels_last`` memory by the
 models, so a permute to NHWC is a view and cuDNN runs NHWC), and weights are
 passed in torch layout directly: OIHW for convolutions, IOHW for transposed
-convolutions, which ``F.conv_transpose2d`` takes as they are.
+convolutions, which ``F.conv_transpose2d`` takes as they are; OIDHW and
+IODHW for the 3-D ones, on clips held in ``channels_last_3d`` memory.
 
 ``resize_bilinear`` is ``F.interpolate(mode="bilinear")`` with ``size=``:
 the JAX version's integer-factor fast paths compute the same two taps (for an
@@ -19,6 +21,7 @@ each), so one call reproduces all of its paths.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -31,10 +34,14 @@ __all__ = [
     "avg_pool2d",
     "batch_norm",
     "cast_params",
+    "channels_last_params",
     "conv2d",
     "conv2d_concat",
     "conv2x2_up2x",
+    "conv3d",
     "conv_transpose2d",
+    "conv_transpose3d",
+    "device_const",
     "prelu",
     "leaky_relu",
     "linear",
@@ -61,6 +68,25 @@ def cast_params(params: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str
     }
 
 
+@functools.lru_cache(maxsize=None)
+def device_const(values: tuple, shape: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``values`` as a tensor of ``shape`` on ``device``, copied there once
+    (a copy per call would make the host wait for the card each time)."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32).reshape(shape).to(device=device, dtype=dtype)
+
+
+def channels_last_params(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` with every 4-D parameter in ``channels_last`` memory and
+    every 5-D one in ``channels_last_3d`` (``Module.to(memory_format=...)``
+    takes one format for both ranks, which fails on a model that has both)."""
+    for p in module.parameters():
+        if p.dim() in (4, 5):
+            fmt = torch.channels_last if p.dim() == 4 else torch.channels_last_3d
+            p.data = p.data.contiguous(memory_format=fmt)
+    return module
+
+
 def conv2d(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -68,10 +94,11 @@ def conv2d(
     stride: IntPair = 1,
     padding: Padding = 0,
     dilation: IntPair = 1,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """torch ``nn.Conv2d`` with an OIHW ``weight``; ``padding`` may be
-    ``"same"`` (stride 1)."""
-    return F.conv2d(x, weight, bias, stride=stride, padding=padding, dilation=dilation)
+    """torch ``nn.Conv2d`` with an OIHW ``weight`` ``(O, I/groups, kh, kw)``;
+    ``padding`` may be ``"same"`` (stride 1)."""
+    return F.conv2d(x, weight, bias, stride=stride, padding=padding, dilation=dilation, groups=groups)
 
 
 def conv2d_concat(
@@ -143,9 +170,38 @@ def conv_transpose2d(
     bias: Optional[torch.Tensor] = None,
     stride: IntPair = 2,
     padding: IntPair = 1,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """torch ``nn.ConvTranspose2d`` (output_padding=0) with an IOHW ``weight``."""
-    return F.conv_transpose2d(x, weight, bias, stride=stride, padding=padding)
+    """torch ``nn.ConvTranspose2d`` (output_padding=0) with an IOHW ``weight``
+    ``(I, O/groups, kh, kw)``."""
+    return F.conv_transpose2d(x, weight, bias, stride=stride, padding=padding, groups=groups)
+
+
+IntTriple = Union[int, Tuple[int, int, int]]
+
+
+def conv3d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: IntTriple = 1,
+    padding: IntTriple = 0,
+    dilation: IntTriple = 1,
+) -> torch.Tensor:
+    """torch ``nn.Conv3d`` on an NCDHW clip with an OIDHW ``weight``."""
+    return F.conv3d(x, weight, bias, stride=stride, padding=padding, dilation=dilation)
+
+
+def conv_transpose3d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: IntTriple = 1,
+    padding: IntTriple = 0,
+) -> torch.Tensor:
+    """torch ``nn.ConvTranspose3d`` (output_padding=0) on an NCDHW clip with
+    an IODHW ``weight``."""
+    return F.conv_transpose3d(x, weight, bias, stride=stride, padding=padding)
 
 
 def prelu(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -222,6 +278,7 @@ def batch_norm(
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """torch ``nn.BatchNorm2d`` in eval mode: ``(x - mean) / sqrt(var +
-    eps) * weight + bias`` with the running statistics, over the channel axis."""
+    """torch ``nn.BatchNorm2d`` (or ``BatchNorm3d``, on NCDHW input) in eval
+    mode: ``(x - mean) / sqrt(var + eps) * weight + bias`` with the running
+    statistics, over the channel axis."""
     return F.batch_norm(x, running_mean, running_var, weight, bias, training=False, eps=eps)

@@ -54,7 +54,7 @@ from ..ops.cuda.warp_kernel import route_counts
 from ..ops.edt import batch_edt
 from ..ops.softsplat import function_softsplat
 from ..ops.warp import warp
-from .common import PRELU_INIT, avg_pool2d, batch_norm, cast_params, max_pool2d, prelu, resize_bilinear
+from .common import PRELU_INIT, avg_pool2d, batch_norm, cast_params, device_const, max_pool2d, prelu, resize_bilinear
 
 __all__ = [
     "CKPT_NAMES",
@@ -94,13 +94,6 @@ _RESNET_MEAN = (0.485, 0.456, 0.406)
 _RESNET_STD = (0.229, 0.224, 0.225)
 _CORR_LEVELS, _CORR_RADIUS = 4, 4
 _GRID_C = (32, 64, 128)  # GridNet's channels per level
-
-
-@functools.lru_cache(maxsize=None)
-def _const(values: tuple, shape: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """``values`` as a tensor of ``shape`` on ``device``, copied there once."""
-    with torch.inference_mode(False):
-        return torch.tensor(values, dtype=torch.float32).reshape(shape).to(device=device, dtype=dtype)
 
 
 def _bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
@@ -225,7 +218,7 @@ def _resize(x: torch.Tensor, out_hw: Tuple[int, int], is_flow: bool = False) -> 
     h, w = x.shape[2], x.shape[3]
     x = resize_bilinear(x, tuple(out_hw))
     if is_flow:
-        x = x * _const((out_hw[0] / h, out_hw[1] / w), (1, 2, 1, 1), x.device, x.dtype)
+        x = x * device_const((out_hw[0] / h, out_hw[1] / w), (1, 2, 1, 1), x.device, x.dtype)
     return x
 
 
@@ -426,7 +419,7 @@ def _rfr_from_features(rfr: _RFR, e1: torch.Tensor, e2: torch.Tensor, hw, hw8, i
         net, up_mask, delta = rfr.update_block(net, inp, _corr_lookup(pyr, coords1), coords1 - coords0)
         coords1 = coords1 + delta
     f12 = _convex_upsample_flow(coords1 - coords0, up_mask)
-    f12 = f12 * _const((w / w8, h / h8), (1, 2, 1, 1), f12.device, torch.float32)
+    f12 = f12 * device_const((w / w8, h / h8), (1, 2, 1, 1), f12.device, torch.float32)
     return resize_bilinear(f12, (h, w))
 
 
@@ -551,8 +544,8 @@ def _resnet_features(p: _ResnetTrunk, x: torch.Tensor) -> List[torch.Tensor]:
     ImageNet-normalise, return the ``[conv1, layer1, layer2]`` activations
     (64, 256 and 512 channels)."""
     x = _resize_smaller_edge(x[:, :3])
-    mean = _const(_RESNET_MEAN, (1, 3, 1, 1), x.device, x.dtype)
-    std = _const(_RESNET_STD, (1, 3, 1, 1), x.device, x.dtype)
+    mean = device_const(_RESNET_MEAN, (1, 3, 1, 1), x.device, x.dtype)
+    std = device_const(_RESNET_STD, (1, 3, 1, 1), x.device, x.dtype)
     x = F.relu(_bn(p.conv1((x - mean) / std), p.bn1))
     ans = [x]
     x = max_pool2d(x, 3, 2, 1)

@@ -62,7 +62,7 @@ from ..ops.cuda.warp_kernel import route_counts
 from ..ops.softsplat import softsplat
 from ..ops.warp import warp
 from . import rife as rife_model
-from .common import PRELU_INIT, cast_params, resize_by_scale
+from .common import PRELU_INIT, cast_params, device_const, resize_by_scale
 
 __all__ = [
     "CKPT_NAMES",
@@ -100,14 +100,6 @@ _IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 # ---- constants on the device, made once per shape ----------------------------
-
-
-@functools.lru_cache(maxsize=None)
-def _const(values: tuple, shape: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """``values`` as a tensor of ``shape`` on ``device``, copied there once
-    (a copy per call would make the host wait for the card each time)."""
-    with torch.inference_mode(False):
-        return torch.tensor(values, dtype=torch.float32).reshape(shape).to(device=device, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,8 +426,8 @@ def _nhwc_resize(x: torch.Tensor, scale: float, align_corners: bool = False) -> 
 def _gmflow(p: _GMFlow, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
     """``GMFlow.forward``, two scales, one direction: NCHW images in [0, 1]
     to the NHWC flow ``[B, H, W, 2]`` from ``img0`` to ``img1``."""
-    mean = _const(_IMAGENET_MEAN, (1, 3, 1, 1), img0.device, img0.dtype)
-    std = _const(_IMAGENET_STD, (1, 3, 1, 1), img0.device, img0.dtype)
+    mean = device_const(_IMAGENET_MEAN, (1, 3, 1, 1), img0.device, img0.dtype)
+    std = device_const(_IMAGENET_STD, (1, 3, 1, 1), img0.device, img0.dtype)
     b = img0.shape[0]
     feats = p.backbone(torch.cat([(img0 - mean) / std, (img1 - mean) / std], 0))
     flow = None
@@ -489,7 +481,7 @@ def _metricnet(p: _MetricNet, img0, img1, flow01, flow10):
     metric1 = (img1 - warp(img0, flow10, "zeros")).abs().mean(-1, keepdim=True)
     fwd_occ, bwd_occ = _fb_consistency(flow01, flow10)
     h, w = img0.shape[1], img0.shape[2]
-    norm = _const(((w - 1.0) / 2.0, (h - 1.0) / 2.0), (2,), img0.device, img0.dtype)
+    norm = device_const(((w - 1.0) / 2.0, (h - 1.0) / 2.0), (2,), img0.device, img0.dtype)
     x = torch.cat(
         [img0, img1, -metric0, -metric1, flow01 / norm, flow10 / norm, fwd_occ[..., None], bwd_occ[..., None]], -1
     ).permute(0, 3, 1, 2)

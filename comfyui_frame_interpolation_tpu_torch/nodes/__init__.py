@@ -5,7 +5,7 @@ family at a time. Each follows the reference protocol: classmethod
 NHWC torch tensors."""
 
 from .rife_node import RIFE_VFI
-from .vfi_nodes import EISAI_VFI, FILM_VFI, GMFSS_Fortuna_VFI, M2M_VFI
+from .vfi_nodes import EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, M2M_VFI, STMFNet_VFI
 
 NODE_CLASS_MAPPINGS = {
     "RIFE VFI": RIFE_VFI,
@@ -13,6 +13,8 @@ NODE_CLASS_MAPPINGS = {
     "FILM VFI": FILM_VFI,
     "GMFSS Fortuna VFI": GMFSS_Fortuna_VFI,
     "EISAI VFI": EISAI_VFI,
+    "STMFNet VFI": STMFNet_VFI,
+    "FLAVR VFI": FLAVR_VFI,
 }
 NODE_DISPLAY_NAME_MAPPINGS = {
     "RIFE VFI": "RIFE VFI (recommend rife47 and rife49)",
@@ -20,4 +22,6 @@ NODE_DISPLAY_NAME_MAPPINGS = {
     "FILM VFI": "FILM VFI",
     "GMFSS Fortuna VFI": "GMFSS Fortuna VFI",
     "EISAI VFI": "EISAI VFI",
+    "STMFNet VFI": "STMFNet VFI",
+    "FLAVR VFI": "FLAVR VFI",
 }

@@ -1,24 +1,28 @@
 """VFI nodes of the generic-loop model families, port of the JAX package's
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
-Ported so far: FILM, M2M, GMFSS Fortuna and EISAI. Same public schema as the JAX nodes (the tooltips speak of
-the card); frames and results are NHWC torch tensors on the node's device.
+Ported so far: FILM, M2M, GMFSS Fortuna, EISAI, STMFNet and FLAVR. Same public schema as the JAX nodes (the
+tooltips speak of the card); frames and results are NHWC torch tensors on the node's device.
 """
 
 from __future__ import annotations
 
 import typing
+import warnings
 
 import torch
+import torch.nn.functional as F
 
 from ..core.config import load_config
 from ..core.frames import assert_batch_size, postprocess_frames, preprocess_frames
-from ..core.loop import run_plan, run_plan_pair_cached
-from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep
+from ..core.loop import run_plan, run_plan_pair_cached, run_plan_window4
+from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep, plan_window4
 from ..models import eisai as eisai_model
 from ..models import film as film_model
+from ..models import flavr as flavr_model
 from ..models import gmfss as gmfss_model
 from ..models import m2m as m2m_model
+from ..models import stmfnet as stmfnet_model
 from ..utils.ckpt import load_checkpoint_set, load_local_checkpoint
 from .rife_node import DTYPE_MAP, DTYPE_OPTIONS
 
@@ -288,3 +292,125 @@ class EISAI_VFI:
         plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
         out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)
         return (postprocess_frames(out),)
+
+
+def _window4_inputs(ckpts, batch_default):
+    """The schema of the 4-frame window nodes (JAX ``vfi_nodes.py``: FLAVR,
+    STMFNet): 2x only, with ``duplicate_first_last_frames``."""
+    return {
+        "required": {
+            "ckpt_name": (ckpts,),
+            "frames": ("IMAGE",),
+            "clear_cache_after_n_frames": ("INT", {"default": 10, "min": 1, "max": 1000}),
+            "multiplier": ("INT", {"default": 2, "min": 2, "max": 2}),
+            "duplicate_first_last_frames": ("BOOLEAN", {"default": False}),
+            **_batch_dtype_inputs(batch_default),
+        },
+        **_OPTIONAL,
+    }
+
+
+def _only_2x(multiplier: int, name: str) -> None:
+    if multiplier != 2:
+        warnings.warn(
+            f"Currently, {name} only supports 2x interpolation. The process will continue but please set "
+            "multiplier=2 afterward"
+        )
+
+
+class STMFNet_VFI:
+    """reference ``stmfnet/__init__.py:13-100``; the 4-frame sliding-window
+    2x schedule, run by the window executor (``run_plan_window4``)."""
+
+    MODEL_TYPE = "stmfnet"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _window4_inputs(stmfnet_model.CKPT_NAMES, batch_default=1)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        duplicate_first_last_frames: bool = False,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 1,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        _only_2x(multiplier, "ST-MFNet")
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 4, "ST-MFNet")
+        if params is None:
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        model_fn = _cached(
+            self._model_fns, params, (ckpt_name, dtype, str(device)),
+            lambda: stmfnet_model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        plan = plan_window4(frames.shape[0], duplicate_first_last_frames, optional_interpolation_states)
+        out = run_plan_window4(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)
+
+
+class FLAVR_VFI:
+    """reference ``flavr/__init__.py:28-115``; the 4-frame sliding-window 2x
+    schedule with one edge pad of the whole clip to multiples of 16,
+    centred, cropped after."""
+
+    MODEL_TYPE = "flavr"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _window4_inputs(flavr_model.CKPT_NAMES, batch_default=2)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        duplicate_first_last_frames: bool = False,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        _only_2x(multiplier, "FLAVR")
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 4, "FLAVR")
+        if params is None:
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        model_fn = _cached(
+            self._model_fns, params, (ckpt_name, dtype, str(device)),
+            lambda: flavr_model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        n, h, w, _ = frames.shape
+        ph, pw = (-h) % 16, (-w) % 16
+        top, left = ph // 2, pw // 2
+        if ph or pw:
+            frames = F.pad(frames.permute(0, 3, 1, 2), (left, pw - left, top, ph - top), mode="replicate").permute(0, 2, 3, 1)
+        plan = plan_window4(n, duplicate_first_last_frames, optional_interpolation_states)
+        out = run_plan_window4(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out[:, top : top + h, left : left + w]),)

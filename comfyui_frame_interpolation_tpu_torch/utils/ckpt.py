@@ -26,6 +26,11 @@ from ..core.config import get_ckpt_container_path
 
 __all__ = ["is_torchscript_archive", "load_checkpoint_set", "load_local_checkpoint", "params_from_jax"]
 
+# the training containers a state dict may sit in, in the order the JAX
+# loader tries them (its ``utils/ckpt.py:load_torch_state_dict``): AMT, CAIN,
+# FLAVR and STMFNet; ATM and EISAI's full checkpoint; MoMo; XVFI
+NESTED_KEYS = ("state_dict", "model_state_dict", "model", "state_dict_Model")
+
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
     """Nested JAX parameter tree (numpy or JAX array leaves) -> flat state dict
@@ -55,11 +60,13 @@ def is_torchscript_archive(path: str) -> bool:
 
 def load_local_checkpoint(model_type: str, ckpt_name: str) -> Dict[str, torch.Tensor]:
     """The state dict in ``ckpts_path/<model_type>/<ckpt_name>``, loaded on
-    the CPU: a TorchScript archive through ``torch.jit.load(...).state_dict()``,
-    a raw ``torch.save`` container with ``weights_only=True``, taken out of a
-    training container's ``model_state_dict`` (EISAI's full checkpoint), as
-    the JAX loader does. Nothing is downloaded: a missing file raises
-    ``FileNotFoundError``."""
+    the CPU, with the keys the JAX loader gives the same file: a TorchScript
+    archive through ``torch.jit.load(...).state_dict()``; a raw
+    ``torch.save`` container with ``weights_only=True``, taken out of the
+    first training container of :data:`NESTED_KEYS` it holds (STMFNet's
+    ``state_dict``, EISAI's ``model_state_dict``); a leading ``module.``
+    (``nn.DataParallel``'s, as in ``FLAVR_*.pth``) stripped from every key.
+    Nothing is downloaded: a missing file raises ``FileNotFoundError``."""
     path = os.path.join(get_ckpt_container_path(model_type), ckpt_name)
     if not os.path.exists(path):
         raise FileNotFoundError(
@@ -67,9 +74,12 @@ def load_local_checkpoint(model_type: str, ckpt_name: str) -> Dict[str, torch.Te
             "params= (a state dict, e.g. the model module's init_params(seed))"
         )
     if is_torchscript_archive(path):
-        return dict(torch.jit.load(path, map_location="cpu").state_dict())
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    return obj["model_state_dict"] if isinstance(obj.get("model_state_dict"), dict) else obj
+        obj = dict(torch.jit.load(path, map_location="cpu").state_dict())
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        inner = next((obj[k] for k in NESTED_KEYS if isinstance(obj.get(k), dict)), None)
+        obj = obj if inner is None else inner
+    return {k.removeprefix("module."): v for k, v in obj.items()}
 
 
 def load_checkpoint_set(files: Mapping[str, Tuple[str, ...]]) -> Dict[str, torch.Tensor]:
@@ -78,15 +88,15 @@ def load_checkpoint_set(files: Mapping[str, Tuple[str, ...]]) -> Dict[str, torch
     part)`` for a file that holds more than the sub-network, as the nodes'
     ``CKPTS_PATH_CONFIG`` entries do. Each file is read by
     :func:`load_local_checkpoint` (so a missing file raises
-    ``FileNotFoundError`` naming it, and nothing is downloaded); a leading
-    ``module.`` is stripped from its keys, as the JAX loader does; with a
+    ``FileNotFoundError`` naming it, nothing is downloaded, and a leading
+    ``module.`` is stripped from its keys, as the JAX loader does); with a
     ``part``, only the keys under ``part.`` are kept, without it, as EISAI's
     node takes ``flownet`` from its full checkpoint (a file with no key under
     ``part.`` raises ``KeyError`` naming both); and the prefix is put before
     them (``flownet.backbone.conv1.weight``)."""
     out: Dict[str, torch.Tensor] = {}
     for prefix, (model_type, ckpt_name, *part) in files.items():
-        sd = {k.removeprefix("module."): v for k, v in load_local_checkpoint(model_type, ckpt_name).items()}
+        sd = load_local_checkpoint(model_type, ckpt_name)
         if part:
             sd = {k[len(part[0]) + 1 :]: v for k, v in sd.items() if k.startswith(f"{part[0]}.")}
             if not sd:

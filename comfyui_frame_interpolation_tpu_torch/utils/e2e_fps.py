@@ -10,10 +10,13 @@ Run on the machine with the card, as a script (it imports the package from
 It prints one JSON line: the card and its power limit, and frames/s of RIFE
 4.7 1080p 2x bf16 batch 8 (fast mode, no ensemble), M2M 1080p 2x bf16 batch 2,
 FILM 1080p 2x bf16 batch 2, GMFSS Fortuna 1080p 2x bf16 batch 1, base and
-union, and EISAI 540p (its native 540x960) 2x bf16 batch 1 with 12 RAFT
-iterations, random frames and random weights from seed 0 (the configurations
-of ``chip_smoke.py`` phases 6, 10, 14, 18 and 22), each through
-``make_model_fn`` and timed by ``utils.benchmark.measure``.
+union, EISAI 540p (its native 540x960) 2x bf16 batch 1 with 12 RAFT
+iterations, STMFNet 1080p 2x bf16 batch 1 and FLAVR 1080p 2x bf16 batch 2
+(a window of four frames per interpolated frame), random frames and random
+weights from seed 0 (the configurations of ``chip_smoke.py`` phases 6, 10,
+14, 18, 22, 26 and 27), each through ``make_model_fn`` and timed by
+``utils.benchmark.measure``. A model missing from the checkout timed (an
+older port) is left out of the line.
 """
 
 import argparse
@@ -33,8 +36,17 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    import importlib
+
     from comfyui_frame_interpolation_tpu_torch.models import eisai, film, gmfss, m2m, rife
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
+
+    window4 = {}
+    for name in ("stmfnet", "flavr"):
+        try:
+            window4[name] = importlib.import_module(f"comfyui_frame_interpolation_tpu_torch.models.{name}")
+        except ImportError:
+            pass
 
     if not torch.cuda.is_available():
         print("e2e_fps: no CUDA device", file=sys.stderr)
@@ -45,10 +57,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
-    def frames(n, hw=(1080, 1920)):
-        f0 = torch.from_numpy(np.random.default_rng(0).random((n, *hw, 3), dtype=np.float32)).to(dev)
-        f1 = torch.from_numpy(np.random.default_rng(1).random((n, *hw, 3), dtype=np.float32)).to(dev)
-        return f0, f1, torch.full((n,), 0.5, device=dev)
+    def frames(n, hw=(1080, 1920), window=False):
+        """A pair and its timesteps, or the four frames of a window."""
+        fs = [torch.from_numpy(np.random.default_rng(i).random((n, *hw, 3), dtype=np.float32)).to(dev) for i in range(4 if window else 2)]
+        return fs if window else (*fs, torch.full((n,), 0.5, device=dev))
 
     fns = {
         "rife_1080p_b8": (8, lambda: rife.make_model_fn(
@@ -60,11 +72,16 @@ def main(argv=None) -> int:
             gmfss.init_params(0, union=True), union=True, dtype=torch.bfloat16, device=dev), 5),
         "eisai_540p_b1": (1, lambda: eisai.make_model_fn(eisai.init_params(0), dtype=torch.bfloat16, device=dev), 5),
     }
+    batch = {"stmfnet": 1, "flavr": 2}
+    for name, mod in window4.items():
+        fns[f"{name}_1080p_b{batch[name]}"] = (
+            batch[name], lambda mod=mod: mod.make_model_fn(mod.init_params(0), dtype=torch.bfloat16, device=dev), 3,
+        )
     fps = {}
     for name, (n, make, iters) in fns.items():
         fn = make()
         hw = (540, 960) if name.startswith("eisai") else (1080, 1920)
-        fps[name] = n / measure(fn, *frames(n, hw), iters=iters, rounds=3)
+        fps[name] = n / measure(fn, *frames(n, hw, window=name.split("_")[0] in window4), iters=iters, rounds=3)
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "root": args.root, "card": smi, "frames_per_s": fps}), flush=True)

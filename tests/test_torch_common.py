@@ -196,3 +196,52 @@ def test_conv2x2_up2x(parts):
     _close(got, ref)
     plain = pc.conv2d(pc.resize_nearest(torch.cat(tx, 1), (12, 18)), torch.from_numpy(w), torch.from_numpy(b), padding="same")
     torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("groups,stride,k", [(32, 2, 7), (32, 1, 3), (3, 1, 5)])
+def test_conv2d_groups(groups, stride, k):
+    """Grouped convolutions (STMFNet's ResNeXt blocks, groups 32, and its
+    gaussian blur, groups 3): OIHW weight ``(O, I/groups, kh, kw)``."""
+    rng = _rng(16)
+    c = 2 * groups if groups > 3 else 3
+    x = rng.standard_normal((2, 13, 18, c)).astype(np.float32)
+    w = (rng.standard_normal((c, c // groups, k, k)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(c).astype(np.float32)
+    ref = jc.conv2d(jnp.asarray(x), {"weight": w, "bias": b}, stride=stride, padding=(k - 1) // 2, groups=groups)
+    got = pc.conv2d(_nchw(x), torch.from_numpy(w), torch.from_numpy(b), stride, (k - 1) // 2, groups=groups)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("k", [4, 6, 8])
+def test_conv_transpose2d_groups(k):
+    """Grouped transposed convolutions (STMFNet's up blocks, groups 32, pad
+    ``(k - 2) // 2``): IOHW weight ``(I, O/groups, kh, kw)``."""
+    rng = _rng(17)
+    x = rng.standard_normal((2, 5, 7, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 2, k, k)) * 0.2).astype(np.float32)
+    ref = jc.conv_transpose2d(jnp.asarray(x), {"weight": w}, stride=2, padding=(k - 2) // 2, groups=32)
+    got = pc.conv_transpose2d(_nchw(x), torch.from_numpy(w), None, 2, (k - 2) // 2, groups=32)
+    assert tuple(got.shape) == (2, 64, 10, 14)
+    _close(got, ref)
+
+
+def test_batch_norm_takes_5d_clips():
+    """``batch_norm`` on an NCDHW clip is ``BatchNorm3d`` (STMFNet's UNet3d),
+    against JAX on the NDHWC clip."""
+    rng = _rng(18)
+    x = rng.standard_normal((2, 5, 9, 11, 6)).astype(np.float32)
+    node = {k: rng.standard_normal(6).astype(np.float32) for k in ("running_mean", "weight", "bias")}
+    node["running_var"] = rng.uniform(0.2, 3.0, 6).astype(np.float32)
+    ref = np.asarray(jc.batch_norm(jnp.asarray(x), node))
+    t = {k: torch.from_numpy(v) for k, v in node.items()}
+    clip = torch.from_numpy(x).permute(0, 4, 1, 2, 3)  # NCDHW view of channels_last_3d memory
+    got = pc.batch_norm(clip, t["running_mean"], t["running_var"], t["weight"], t["bias"])
+    np.testing.assert_allclose(got.permute(0, 2, 3, 4, 1).numpy(), ref, atol=ATOL, rtol=0)
+
+
+def test_channels_last_params():
+    m = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.Conv3d(4, 5, 3), torch.nn.Linear(5, 6))
+    pc.channels_last_params(m)
+    assert m[0].weight.is_contiguous(memory_format=torch.channels_last)
+    assert m[1].weight.is_contiguous(memory_format=torch.channels_last_3d)
+    assert m[2].weight.is_contiguous()

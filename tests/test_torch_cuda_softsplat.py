@@ -35,6 +35,12 @@ EISAI forward launches the splat 8 times per infer call, K1 twice
 (``eisai.warps_per_infer``) and nothing per reuse call; and RIFE 4.0 makes
 the warps of ``rife.warps_per_forward``, with the refinement's 4 on the
 wide kernel and one more K1 warp when its restart is taken.
+
+STMFNet's splat, ``[2, 1152, 1920, 4]`` (both frames of a 1080p batch-1
+window: 3 channels times ``exp(metric)``, and the metric), f32 and bf16; an
+STMFNet forward through the window executor launches, per call, the K1 and
+wide warps of ``stmfnet.warps_per_forward`` and one splat; a FLAVR forward
+launches none.
 """
 
 import math
@@ -44,8 +50,8 @@ import torch
 
 import warp_cases
 from comfyui_frame_interpolation_tpu_torch.core import loop
-from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import eisai, gmfss, m2m, rife
+from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
+from comfyui_frame_interpolation_tpu_torch.models import eisai, flavr, gmfss, m2m, rife, stmfnet
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
 
@@ -263,3 +269,33 @@ def test_rife40_launch_counts(cuda, fastmode, rescued):
     assert {"narrow": warp_kernel.launches - warps, "wide": warp_kernel.wide_launches - wide} == want
     assert want["narrow"] == (5 if rescued else 4) and want["wide"] == (0 if fastmode else 4)
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stmfnet_splat_shape(cuda, dtype):
+    g = torch.Generator().manual_seed(7)
+    vals = torch.rand(2, 1152, 1920, 4, generator=g).to(cuda, dtype)
+    flow = torch.from_numpy(warp_cases.smooth_flow(2, 1152, 1920, 8.0)).to(cuda, dtype)
+    _check(softsplat_func(vals, flow), softsplat_torch(vals, flow), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stmfnet_and_flavr_launch_counts(cuda, dtype):
+    """Five frames through the window executor at batch 1 (two calls):
+    STMFNet makes the warps of ``warps_per_forward`` and one splat per call,
+    FLAVR none."""
+    frames = torch.rand(5, 64, 96, 3, device=cuda)
+    plan = plan_window4(5)
+    before = (warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches)
+    out = loop.run_plan_window4(frames, plan, stmfnet.make_model_fn(stmfnet.init_params(0), dtype, cuda), batch_size=1)
+    torch.cuda.synchronize()
+    per = stmfnet.warps_per_forward(dtype)
+    got = (warp_kernel.launches - before[0], warp_kernel.wide_launches - before[1], softsplat_kernel.launches - before[2])
+    assert got == (2 * per["narrow"], 2 * per["wide"], 2 * stmfnet.splats_per_forward())
+    assert per == {"narrow": 6, "wide": 4}
+    assert out.shape == (7, 64, 96, 3) and torch.isfinite(out).all()
+    before = (warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches)
+    out = loop.run_plan_window4(frames, plan, flavr.make_model_fn(flavr.init_params(0), dtype, cuda), batch_size=1)
+    torch.cuda.synchronize()
+    assert (warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches) == before
+    assert out.shape == (7, 64, 96, 3) and torch.isfinite(out).all()

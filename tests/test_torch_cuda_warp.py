@@ -30,6 +30,13 @@ forward/backward consistency) in zeros mode, f32 and bf16, on smooth and
 rough flow, bit for bit; and GMFlow's scale-1 feature warp ``[1, 136, 240,
 128]`` bf16 in zeros mode (1080p batch 1), routed to the wide kernel and bit
 for bit.
+
+STMFNet's backwarps, zeros mode, f32 and bf16: the PWC feature warps at
+1080p (both directions, ``[2, 288, 480, C]`` to ``[2, 36, 60, C]``) at the
+widths a forward warps (C = 32, 64, 96, 128) and with the ones channel
+appended (C = 33, 65, 97, 129: unaligned pixels, the wide kernel's scalar
+path), and the f32 ones plane (C = 1), each through the routed kernel and
+through K1, bit for bit.
 """
 
 import numpy as np
@@ -260,3 +267,36 @@ def test_wide_kernel_at_gmflow_feature_warp(cuda):
     torch.cuda.synchronize()
     assert warp_kernel.wide_launches == before + 1
     assert torch.equal(got, warp_torch(img, flow, "zeros"))
+
+
+# STMFNet 1080p batch 1 (padded to 1152x1920), both directions: the PWC
+# feature levels 2 to 5
+STMFNET_LEVELS = ((2, 288, 480, 32), (2, 144, 240, 64), (2, 72, 120, 96), (2, 36, 60, 128))
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STMFNET_LEVELS)
+def test_stmfnet_feature_warps_zeros(cuda, shape, dtype, extra):
+    g = torch.Generator().manual_seed(shape[3] + extra)
+    img = torch.rand(*shape[:3], shape[3] + extra, generator=g).to(cuda, dtype)
+    flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(cuda, dtype)
+    planes = img.permute(0, 3, 1, 2)
+    assert warp_kernel.route(planes.shape, planes.stride(), dtype) == "wide"
+    ref = warp_torch(img, flow, "zeros")
+    routed = warp(img, flow, "zeros")
+    k1 = warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), True).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(routed, ref) and torch.equal(k1, ref)
+
+
+@pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 288, 480, 1), (2, 1152, 1920, 1)])
+def test_stmfnet_ones_plane_on_k1(cuda, shape, flow_dtype):
+    ones = torch.ones(shape, device=cuda)
+    flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(cuda, flow_dtype)
+    planes = ones.permute(0, 3, 1, 2)
+    assert warp_kernel.route(planes.shape, planes.stride(), ones.dtype) == "tiled"
+    got = warp(ones, flow, "zeros")
+    torch.cuda.synchronize()
+    assert torch.equal(got, warp_torch(ones, flow, "zeros"))

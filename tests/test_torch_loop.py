@@ -1,5 +1,5 @@
-"""The port's resident plan executors against the JAX package's ``run_plan``
-and ``run_plan_pair_cached``."""
+"""The port's resident plan executors against the JAX package's ``run_plan``,
+``run_plan_pair_cached`` and ``run_plan_window4``."""
 
 import numpy as np
 import pytest
@@ -112,3 +112,45 @@ def test_run_plan_pair_cached_refuses_nested_plans():
     reuse_fn, infer_fn, _ = _pair_fns()
     with pytest.raises(ValueError, match="flat"):
         ploop.run_plan_pair_cached(frames, psched.plan_midpoint(3, 4), reuse_fn, infer_fn, batch_size=2)
+
+
+def _window_fn(calls):
+    """A window-4 model for either package (the blend of
+    ``tests/test_loop_streaming.py``), recording each call's window starts
+    (read off frame 0's first value)."""
+
+    def model_fn(f0, f1, f2, f3):
+        calls.append(np.asarray(f0[:, 0, 0, 0]).tolist())
+        return 0.1 * f0 + 0.4 * f1 + 0.4 * f2 + 0.1 * f3
+
+    return model_fn
+
+
+@pytest.mark.parametrize(
+    "n,dup,skip,batch",
+    [(7, False, None, 3), (7, True, None, 3), (8, False, [2, 3], 4), (6, True, [0, 1, 4], 2), (5, False, None, 4)],
+)
+def test_run_plan_window4_matches_jax(n, dup, skip, batch):
+    """Plans with doubled first and last frames and with skipped pairs (a
+    window is skipped when both of its first pairs are), at batch sizes that
+    leave a short last chunk: the same outputs, calls and padding."""
+    frames = np.random.default_rng(n).random((n, 4, 6, 3), dtype=np.float32)
+    frames[:, 0, 0, 0] = np.arange(n)  # each frame names itself
+    jstates = None if skip is None else jsched.InterpolationStateList(skip, True)
+    pstates = None if skip is None else psched.InterpolationStateList(skip, True)
+    jcalls, pcalls = [], []
+    ref = jloop.run_plan_window4(jnp.asarray(frames), jsched.plan_window4(n, dup, jstates), _window_fn(jcalls), batch_size=batch)
+    got = ploop.run_plan_window4(torch.from_numpy(frames), psched.plan_window4(n, dup, pstates), _window_fn(pcalls), batch_size=batch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+    assert pcalls == jcalls and all(len(c) == batch for c in pcalls)
+
+
+def test_run_plan_window4_over_budget_raises():
+    frames = torch.zeros(5, 8, 8, 3)
+    plan = psched.plan_window4(5)
+    frame_bytes = 8 * 8 * 3 * 4
+    # 5 inputs + 7 outputs + 5 frames per window of a batch of 2
+    with pytest.raises(MemoryError, match="run_plan_window4"):
+        ploop.run_plan_window4(frames, plan, _window_fn([]), batch_size=2, memory_budget_bytes=21 * frame_bytes)
+    out = ploop.run_plan_window4(frames, plan, _window_fn([]), batch_size=2, memory_budget_bytes=22 * frame_bytes)
+    assert out.shape == (7, 8, 8, 3)

@@ -27,6 +27,19 @@ crop (two pairs, x2 and x3, 2 RAFT iterations), >= 40 dB fp32; the node runs
 from its three files (the RFR weights inside a training container under
 ``module.flownet.``) exactly as from ``params``, and names the first missing
 file.
+
+STMFNet and FLAVR (the 4-frame window executor): the schemas as for GMFSS;
+each node runs end to end on the CPU on five demo frames (every eighth
+pixel, 68x120; FLAVR edge-pads them to 80x128, centred, and crops back),
+with and without doubled first and last frames, at a batch that leaves a
+short chunk: the original frames pass bit for bit and each new frame is the
+model function's on its window (the models are held against JAX by
+``tests/test_torch_stmfnet.py`` and ``tests/test_torch_flavr.py``, the
+executor by ``tests/test_torch_loop.py``); each runs from its checkpoint
+file as the reference ships it (``stmfnet.pth`` under ``state_dict``,
+``FLAVR_2x.pth`` under ``state_dict`` with ``module.``) exactly as from
+``params``; multipliers other than 2 warn and go on; fewer than 4 frames
+raise.
 """
 
 import contextlib
@@ -42,21 +55,27 @@ from PIL import Image
 from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import EISAI_VFI as JaxEISAI
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FILM_VFI as JaxFILM
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FLAVR_VFI as JaxFLAVR
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import GMFSS_Fortuna_VFI as JaxGMFSS
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import M2M_VFI as JaxM2M
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import STMFNet_VFI as JaxSTMFNet
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
 from comfyui_frame_interpolation_tpu_torch.models import eisai as peisai
 from comfyui_frame_interpolation_tpu_torch.models import film as pfilm
+from comfyui_frame_interpolation_tpu_torch.models import flavr as pflavr
 from comfyui_frame_interpolation_tpu_torch.models import gmfss as pgmfss
 from comfyui_frame_interpolation_tpu_torch.models import m2m as pm2m
 from comfyui_frame_interpolation_tpu_torch.models import rife as prife
+from comfyui_frame_interpolation_tpu_torch.models import stmfnet as pstmfnet
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import EISAI_VFI as PortEISAI
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI as PortFILM
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FLAVR_VFI as PortFLAVR
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import GMFSS_Fortuna_VFI as PortGMFSS
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import STMFNet_VFI as PortSTMFNet
 
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
 
@@ -77,7 +96,7 @@ def test_input_types_equal_jax_node():
         assert getattr(PortRIFE, attr) == getattr(JaxRIFE, attr)
     assert NODE_CLASS_MAPPINGS == {
         "RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM, "GMFSS Fortuna VFI": PortGMFSS,
-        "EISAI VFI": PortEISAI,
+        "EISAI VFI": PortEISAI, "STMFNet VFI": PortSTMFNet, "FLAVR VFI": PortFLAVR,
     }
 
 
@@ -406,3 +425,87 @@ def test_eisai_full_checkpoint_without_flownet_raises(tmp_path, monkeypatch):
         torch.save({"model_state_dict": full}, str(ckpts / "eisai" / "eisai_anime_interp_full.ckpt"))
         with pytest.raises(KeyError, match=r"eisai_anime_interp_full\.ckpt holds no key under flownet\."):
             PortEISAI().vfi("eisai", np.zeros((2, 8, 8, 3), np.float32), device="cpu")
+
+
+# ---- STMFNet and FLAVR: the window-4 nodes ------------------------------------------------
+
+
+_WINDOW4 = {
+    "stmfnet": (PortSTMFNet, JaxSTMFNet, pstmfnet, "stmfnet.pth", 1),
+    "flavr": (PortFLAVR, JaxFLAVR, pflavr, "FLAVR_2x.pth", 2),
+}
+
+
+@pytest.mark.parametrize("family", list(_WINDOW4))
+def test_window4_input_types_equal_jax_node_without_tooltips(family):
+    port_cls, jax_cls, model, ckpt, batch = _WINDOW4[family]
+    port, ref = port_cls.INPUT_TYPES(), jax_cls.INPUT_TYPES()
+    assert _no_tooltips(port) == _no_tooltips(ref)
+    assert port["required"]["ckpt_name"][0] == model.CKPT_NAMES and ckpt in model.CKPT_NAMES
+    assert port["required"]["multiplier"][1] == {"default": 2, "min": 2, "max": 2}
+    assert port["required"]["batch_size"][1]["default"] == batch and "TPU" not in str(port)
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(port_cls, attr) == getattr(jax_cls, attr)
+
+
+def _seq_frames():
+    """``demo_frames/seq/0-4.png`` every eighth pixel, floats ``[5, 68, 120, 3]``."""
+    imgs = [Image.open(os.path.join(DEMO, "seq", f"{i}.png")).convert("RGB") for i in range(5)]
+    return np.stack([np.asarray(im, np.float32)[::8, ::8] / 255.0 for im in imgs])
+
+
+@pytest.mark.parametrize("family", list(_WINDOW4))
+@pytest.mark.parametrize("dup", [False, True])
+def test_window4_node_runs_end_to_end(family, dup):
+    port_cls, _, model, ckpt, _ = _WINDOW4[family]
+    frames = _seq_frames()
+    sd = model.init_params(0)
+    (got,) = port_cls().vfi(ckpt, frames, duplicate_first_last_frames=dup, batch_size=2, params=sd, device="cpu")
+    # windows 0 and 1 make the frames between 1 and 2 and between 2 and 3:
+    # [0, (0), 1, mid, 2, mid, 3, 4, (4)]
+    orig, src, new = ([0, 1, 2, 4, 6, 7, 8], [0, 0, 1, 2, 3, 4, 4], [3, 5]) if dup else ([0, 1, 3, 5, 6], [0, 1, 2, 3, 4], [2, 4])
+    assert got.dtype == torch.float32 and tuple(got.shape) == (len(orig) + 2, 68, 120, 3)
+    np.testing.assert_array_equal(got.numpy()[orig], frames[src])
+    # the new frames are the model function's on each window
+    x = torch.from_numpy(frames)
+    if family == "flavr":  # padded as the node pads the clip: 68x120 to 80x128, centred
+        x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (4, 4, 6, 6), mode="replicate").permute(0, 2, 3, 1)
+    fn = model.make_model_fn(sd, device="cpu")
+    mids = torch.cat([fn(*(x[i + k : i + k + 1] for k in range(4))) for i in range(2)])
+    if family == "flavr":
+        mids = mids[:, 6:74, 4:124]
+    torch.testing.assert_close(got[new], mids, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("family", list(_WINDOW4))
+def test_window4_node_runs_from_its_checkpoint_file(family, tmp_path, monkeypatch):
+    """``stmfnet.pth`` under ``state_dict``, ``FLAVR_2x.pth`` under
+    ``state_dict`` with ``nn.DataParallel``'s ``module.``, as the reference
+    loads them (``stmfnet/__init__.py:52``, ``flavr/__init__.py:15-16``)."""
+    port_cls, _, model, ckpt, _ = _WINDOW4[family]
+    sd = model.init_params(1)
+    inner = {f"module.{k}": v for k, v in sd.items()} if family == "flavr" else sd
+    frames = _seq_frames()[:4, :32, :48]
+    with _ckpts_path(tmp_path, monkeypatch) as ckpts:
+        (ckpts / family).mkdir(parents=True)
+        torch.save({"state_dict": inner, "epoch": 3}, str(ckpts / family / ckpt))
+        node = port_cls()
+        (from_file,) = node.vfi(ckpt, frames, device="cpu")
+    (from_params,) = port_cls().vfi(ckpt, frames, params=sd, device="cpu")
+    assert tuple(from_file.shape) == (5, 32, 48, 3)
+    torch.testing.assert_close(from_file, from_params, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("family", list(_WINDOW4))
+def test_window4_node_warns_on_other_multipliers_and_needs_four_frames(family):
+    port_cls, _, model, ckpt, _ = _WINDOW4[family]
+    sd = model.init_params(0)
+    node = port_cls()
+    frames = _seq_frames()[:4, :16, :16]
+    with pytest.warns(UserWarning, match="only supports 2x"):
+        (out,) = node.vfi(ckpt, frames, multiplier=3, params=sd, device="cpu")
+    assert tuple(out.shape) == (5, 16, 16, 3)
+    node.vfi(ckpt, frames, params=sd, device="cpu")
+    assert len(node._model_fns) == 1  # cached per params, name, dtype and device
+    with pytest.raises(ValueError, match="at least 4 frames"):
+        node.vfi(ckpt, frames[:3], params=sd, device="cpu")
