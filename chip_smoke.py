@@ -184,9 +184,41 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    card, >= 40 dB; FLAVR 1080p 2x bf16 batch 2 (``bench.py:bench_flavr``'s
    configuration) in frames/s and peak memory, and a ``torch.profiler`` top
    10 of one forward.
+28. slice8    -- K1 and the kernel ``ops.warp.warp`` routes to against the
+   plain twin, bit for bit, border mode, f32 and bf16 (flow in the same
+   dtype), at every warp shape of one 1080p forward of IFRNet S batch 4
+   (the features ``[4, 136, 240, 54]``, ``[4, 272, 480, 36]``, ``[4, 544,
+   960, 24]``, the frames ``[4, 1088, 1920, 3]``), IFUnet batch 2 (the
+   frames ``[2, 1088, 1920, 3]``, the context ``[2, 272, 480, 32]``) and
+   AMT-S batch 2 (``[2, 136, 240, 44]``, ``[2, 272, 480, 32]``, ``[2, 544,
+   960, 20]``, the frames over 3 flows ``[6, 1088, 1920, 3]``); then at
+   each, bf16, the routed kernel's, the twin's, ``F.grid_sample``'s and,
+   where the wide kernel is routed, K1's ms in turns, their device ms, and
+   the bound;
+29. ifrnet    -- the IFRNet VFI node (random weights from seed 0) on 4
+   frames of 135x240 (padded to 192x256 inside), S at x2 and x3 and L at
+   x2, batch 4, on the card in fp32 (TF32 off) and bf16, each >= 40 dB
+   against the same node on the CPU in fp32; original frames pass through
+   bit for bit; per forward call exactly the K1 and wide launches of
+   ``ifrnet.warps_per_forward``; the JAX golden
+   (``tests/fixtures/torch_port_ifrnet_golden.npz``) on the card, >= 40 dB;
+30. timing    -- IFRNet S 1080p 2x bf16 batch 4 (``bench.py:bench_ifrnet``'s
+   configuration): its warps launched again on copies of their inputs
+   against the twin (the shapes of phase 28), frames/s, peak memory of one
+   forward, a ``torch.profiler`` top 10 with the idle share;
+31. ifunet    -- the IFUnet VFI node as in phase 29, batch 2, without the
+   ensemble at x2 and x3 and with it at x2; the golden;
+32. timing    -- IFUnet 1080p 2x bf16 batch 2, no ensemble
+   (``bench_ifunet``), as phase 30;
+33. amt       -- the AMT VFI node as in phase 29 (the clip edge-padded to
+   144x240, centred), batch 2, AMT-S at x2 and x3, AMT-L and AMT-G at x2;
+   the golden;
+34. timing    -- AMT-S 1080p (node-padded to 1088x1920) 2x bf16 batch 2
+   (``bench_amt``), as phase 30, and the ms of the correlation lookup at the
+   forward's shapes and the share of the forward its three calls take.
 
-Each main path (phases 4, 8, 12, 16, 20, 24 and 27) is driven with the launch counts set to
-0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27) also
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31 and 33) is driven with the launch counts set to
+0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
 ranking line orders kernel and path by the ms above the bound. Then the
@@ -197,7 +229,8 @@ PyTorch call computes), its bound: the larger of the bytes it must move
 (inputs once, output once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, with which of the two bounds it; and ``per_forward``, per path the
 launches, device ms, bound and ms above it of one bf16 forward at each
-path's timed size (1080p; EISAI 540p).
+path's timed size (1080p; EISAI 540p). The new paths' warp shapes are
+under ``ifrnet_ifunet_amt_shapes`` (K1) and ``by_shape`` (wide).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -254,6 +287,17 @@ STMFNET_PWC_SHAPES = ((2, 288, 480, 32), (2, 144, 240, 64), (2, 72, 120, 96), (2
 STMFNET_IMAGE_SHAPE = (2, 1152, 1920, 3)
 STMFNET_SPLAT_SHAPE = (2, 1152, 1920, 4)
 FLAVR_HW = (135, 240)
+SLICE8_HW = (135, 240)
+# 1080p warps, border mode (NHWC shape, the kernel routed to): IFRNet S
+# batch 4 (padded to 1088x1920) and AMT-S batch 2 (node-padded to
+# 1088x1920): both frames' features at 1/8, 1/4 and 1/2, then the frames
+# (AMT's over its 3 flows); IFUnet batch 2 (padded to 1088x1920): the frames
+# and the refinement's context warp at 1/4
+SLICE8_WARPS = {
+    "ifrnet": (((4, 136, 240, 54), "wide"), ((4, 272, 480, 36), "wide"), ((4, 544, 960, 24), "wide"), ((4, 1088, 1920, 3), "tiled")),
+    "ifunet": (((2, 1088, 1920, 3), "tiled"), ((2, 272, 480, 32), "wide")),
+    "amt": (((2, 136, 240, 44), "wide"), ((2, 272, 480, 32), "wide"), ((2, 544, 960, 20), "wide"), ((6, 1088, 1920, 3), "tiled")),
+}
 SOFTSPLAT_MODES = ["sum"] + [f"{b}{e}" for b in ("avg", "linear", "soft") for e in ("", "-addeps", "-zeroeps", "-clipeps")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
@@ -524,12 +568,16 @@ def device_ms(fn, iters):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    return sum(device_us(e) for e in kernels) / 1e3 / iters
+    for _ in range(3):  # a trace of a few short kernels now and then comes back empty: trace again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        total_us = sum(device_us(e) for e in kernels)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise SmokeFailure("device_ms: three profiler traces saw no device time")
 
 
 def profile_forward(what, model_fn, *inputs, card):
@@ -600,13 +648,14 @@ def main() -> int:
     import warp_cases
     from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
     from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep, plan_window4
-    from comfyui_frame_interpolation_tpu_torch.models import eisai, film, flavr, gmfss, m2m, rife, stmfnet
+    from comfyui_frame_interpolation_tpu_torch.models import amt, eisai, film, flavr, gmfss, ifrnet, ifunet, m2m, rife, stmfnet
     from comfyui_frame_interpolation_tpu_torch.models.common import device_const
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
     from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import (
-        EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, M2M_VFI, STMFNet_VFI,
+        AMT_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
     )
     from comfyui_frame_interpolation_tpu_torch.ops.adacof import adacof_func
+    from comfyui_frame_interpolation_tpu_torch.ops.bidir_corr import BidirCorr
     from comfyui_frame_interpolation_tpu_torch.ops.correlation import correlation_func
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import (
@@ -1530,19 +1579,22 @@ def main() -> int:
     del eisai_splats
 
     # ---- 23. kernels at STMFNet's shapes -------------------------------------
-    def routed_and_k1(img, flow, body):
-        """The routed kernel and K1 against the twin in zeros mode, bit for
+    def routed_and_k1(img, flow, body, mode="zeros"):
+        """The routed kernel and K1 against the twin in ``mode``, bit for
         bit; the route must be ``body``. Returns the max abs error."""
         planes = img.permute(0, 3, 1, 2)
         routed = warp_kernel.route(planes.shape, planes.stride(), img.dtype)
         check(routed == body, f"{list(img.shape)} {img.dtype} routed to {routed}, expected {body}")
-        ref = warp_torch(img, flow, "zeros")
-        outs = {routed: warp(img, flow, "zeros"), "K1": warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), True).permute(0, 2, 3, 1)}
+        ref = warp_torch(img, flow, mode)
+        outs = {
+            routed: warp(img, flow, mode),
+            "K1": warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), mode == "zeros").permute(0, 2, 3, 1),
+        }
         torch.cuda.synchronize()
         err = 0.0
         for name, got in outs.items():
             e = (got.float() - ref.float()).abs().max().item()
-            check(torch.equal(got, ref), f"{name} vs plain at {list(img.shape)} {img.dtype} zeros, {flow.dtype} flow: max err {e}")
+            check(torch.equal(got, ref), f"{name} vs plain at {list(img.shape)} {img.dtype} {mode}, {flow.dtype} flow: max err {e}")
             err = max(err, e)
         return err
 
@@ -1863,11 +1915,217 @@ def main() -> int:
     profile_forward("FLAVR 1080p bf16 b2", flavr_fn, *ff, card=card)
     del flavr_fn, ff
 
+    # ---- 28. kernels at IFRNet's, IFUnet's and AMT's shapes -------------------
+    s8_errs = {}
+    s8_shapes = dict.fromkeys(sb for fam in SLICE8_WARPS.values() for sb in fam)
+    for shape, body in s8_shapes:
+        flow32 = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            img = torch.rand(shape, generator=g).to(dev, dt)
+            s8_errs[f"{list(shape)} {str(dt).split('.')[-1]} ({body})"] = routed_and_k1(img, flow32.to(dt), body, "border")
+    del img, flow32
+    print(
+        f"slice8 kernels: the routed kernel and K1 vs plain, border, flow in the values' dtype, bit-exact at "
+        + ", ".join(f"{k} max err {v}" for k, v in s8_errs.items()),
+        flush=True,
+    )
+    s8_warp_times = {}
+    for shape, body in s8_shapes:
+        img = torch.rand(shape, generator=g).to(dev, torch.bfloat16)
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev, torch.bfloat16)
+        gs = grid_sample_call(img, flow, "border")
+        planes, fplanes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+        k1 = lambda: warp_kernel.warp_bilinear(planes, fplanes, False)  # noqa: E731
+        calls = {"plain": (lambda: warp_torch(img, flow), 3), body: (lambda: warp(img, flow), 30), "grid_sample": (gs, 10)}
+        if body == "wide":  # K1 at the same shape: where the routing threshold falls
+            calls["K1"] = (k1, 30)
+        times = in_turns(calls)
+        dev_k, dev_gs = device_ms(lambda: warp(img, flow), 10), device_ms(gs, 10)
+        dev_k1 = device_ms(k1, 10) if body == "wide" else dev_k
+        wb = warp_bound(img, flow)
+        key = f"{'x'.join(map(str, shape))} bf16 border"
+        s8_warp_times[key] = {
+            "kernel": body, "ms": statistics.mean(times[body]), "device_ms": dev_k, "plain_ms": statistics.mean(times["plain"]),
+            "library_ms": statistics.mean(times["grid_sample"]), "library_device_ms": dev_gs, "k1_device_ms": dev_k1,
+            "bound_ms": wb[0], "bound_by": wb[1],
+        }
+        print(
+            f"timing {card}: warp {list(shape)} bf16 border, bf16 flow: "
+            + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
+            + f"; device {body} {dev_k:.4f} ms, K1 {dev_k1:.4f} ms, grid_sample {dev_gs:.4f} ms; bound {wb[0]:.4f} ms "
+            f"({wb[1]}), {body} on the device at {100 * wb[0] / dev_k:.1f} % of it",
+            flush=True,
+        )
+    del img, flow, gs, planes, fplanes
+
+    def timestep_node(label, node, ckpt, params, batch, mults, per_forward, **kw):
+        """``node`` on 4 frames of 135x240, each multiplier in ``mults``, on
+        the card in fp32 (TF32 off) and bf16 against fp32 on the CPU: >= 40
+        dB, the original frames passed through, and ``per_forward(dtype)``
+        warp launches per forward call, counted from 0 just before the card
+        runs and read just after. Returns the launches and the PSNRs."""
+        frames = shifted_pattern(4, *SLICE8_HW, seed=7)
+        calls = sum(math.ceil(len(plan_timestep(4, m).tasks) / batch) for m in mults)
+        per = {dt: per_forward(getattr(torch, dt)) for dt in ("float32", "bfloat16")}
+        expect = {k: calls * sum(p[k] for p in per.values()) for k in ("narrow", "wide")}
+        expect["splat"] = 0
+        outs = {}
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+        for m in mults:
+            for dtype in per:
+                (outs[m, dtype],) = node.vfi(ckpt, frames, multiplier=m, batch_size=batch, dtype=dtype, params=params, device="cuda", **kw)
+        torch.cuda.synchronize()
+        launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        check(launches == expect, f"{label} launches {launches} != {expect} ({calls} calls per dtype)")
+        psnrs = []
+        for m in mults:
+            (out_cpu,) = node.vfi(ckpt, frames, multiplier=m, batch_size=batch, params=params, device="cpu", **kw)
+            for dtype in per:
+                out = outs[m, dtype]
+                check(tuple(out.shape) == (3 * m + 1, *SLICE8_HW, 3) and out.is_cuda, f"{label} output {tuple(out.shape)} on {out.device}")
+                check(bool(torch.isfinite(out).all()), f"{label} x{m} {dtype} has non-finite values")
+                check(torch.equal(out[::m].cpu(), torch.from_numpy(frames)), f"{label} x{m} {dtype}: original frames not passed through")
+                p = psnr(out, out_cpu)
+                check(p >= 40.0, f"{label} node x{m} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
+                psnrs.append(f"x{m} {dtype} {p:.2f} dB")
+        return launches, psnrs
+
+    def slice8_golden(name, make_fn):
+        """The JAX golden ``tests/fixtures/torch_port_<name>_golden.npz``
+        against ``make_fn(seed)`` on the card in fp32 (TF32 off)."""
+        with np.load(os.path.join(ROOT, "tests", "fixtures", f"torch_port_{name}_golden.npz")) as z:
+            seed, t, gframes, golden = int(z["seed"]), float(z["t"]), z["frames"], torch.from_numpy(z["output"])
+        f0, f1 = (torch.from_numpy(gframes[i].astype(np.float32) / 255.0).to(dev) for i in (0, 1))
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        gout = make_fn(seed)(f0, f1, torch.tensor([t], device=dev))
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        pg = psnr(gout, golden)
+        check(pg >= 40.0, f"{name} golden: {pg:.2f} dB < 40")
+        return f"golden: port on cuda fp32 vs JAX fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}"
+
+    def slice8_row(label, fn, n, hw, family):
+        """One 1080p bf16 forward's warps launched again on copies of their
+        inputs against the twin (the shapes must be ``SLICE8_WARPS[family]``);
+        frames/s by ``measure``, the peak memory of one forward and its
+        profile."""
+        x = [torch.from_numpy(np.random.default_rng(i).random((n, *hw, 3), dtype=np.float32)).to(dev) for i in range(2)]
+        x.append(torch.full((n,), 0.5, device=dev))
+        store = []
+        with captured_warps(store):
+            fn(*x)
+        torch.cuda.synchronize()
+        seen = warps_vs_plain(store, f"{label} forward")
+        want = {}
+        for shape, body in SLICE8_WARPS[family]:
+            want.setdefault("warp_bilinear_wide" if body == "wide" else "warp_bilinear", set()).add((shape, "border", "bfloat16", "bfloat16"))
+        check(seen == want, f"{label} warps at {seen}, expected {want}")
+        del store
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        fn(*x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        fps = n / measure(fn, *x, iters=3, rounds=3)
+        print(
+            f"timing {card}: {label} {fps:.3f} frames/s; peak memory of one forward {peak / 2**30:.3f} GiB above the "
+            f"{base_mem / 2**30:.3f} GiB held before it; its {sum(len(v) for v in seen.values())} warp shapes bit-exact",
+            flush=True,
+        )
+        return fps, profile_forward(label, fn, *x, card=card), x
+
+    # ---- 29. IFRNet node end to end, and the golden ---------------------------
+    ifrnet_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    t0 = time.perf_counter()
+    for variant, ckpt, mults in (("S", "IFRNet_S_Vimeo90K.pth", (2, 3)), ("L", "IFRNet_L_Vimeo90K.pth", (2,))):
+        got, psnrs = timestep_node(
+            f"IFRNet {variant}", IFRNet_VFI(), ckpt, ifrnet.init_params(variant, 0), 4, mults,
+            lambda dt, variant=variant: ifrnet.warps_per_forward(variant, dt),
+        )
+        ifrnet_launches = {k: ifrnet_launches[k] + got[k] for k in got}
+        print(
+            f"ifrnet: IFRNet {variant} node 4x{SLICE8_HW[0]}x{SLICE8_HW[1]} (padded to 192x256 inside) batch 4, cuda vs cpu "
+            f"fp32: {', '.join(psnrs)}; launches {got}, per forward {ifrnet.warps_per_forward(variant)}",
+            flush=True,
+        )
+    print(f"ifrnet: {slice8_golden('ifrnet', lambda seed: ifrnet.make_model_fn(ifrnet.init_params('S', seed), 'S', device=dev))}; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 30. IFRNet timing ----------------------------------------------------
+    ifrnet_fn = ifrnet.make_model_fn(ifrnet.init_params("S", 0), "S", dtype=torch.bfloat16, device=dev)
+    ifrnet_fps, ifrnet_profile, _ = slice8_row("IFRNet S 1080p (padded to 1088x1920) 2x bf16 b4", ifrnet_fn, 4, (1080, 1920), "ifrnet")
+    del ifrnet_fn
+
+    # ---- 31. IFUnet node end to end, and the golden ---------------------------
+    ifunet_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    t0 = time.perf_counter()
+    ifunet_params = ifunet.init_params(0)
+    for ensemble, mults in ((False, (2, 3)), (True, (2,))):
+        got, psnrs = timestep_node(
+            f"IFUnet ensemble={ensemble}", IFUnet_VFI(), "IFUNet.pth", ifunet_params, 2, mults, ifunet.warps_per_forward,
+            ensemble=ensemble,
+        )
+        ifunet_launches = {k: ifunet_launches[k] + got[k] for k in got}
+        print(
+            f"ifunet: IFUnet node ensemble={ensemble} 4x{SLICE8_HW[0]}x{SLICE8_HW[1]} (padded to 192x256 inside) batch 2, "
+            f"cuda vs cpu fp32: {', '.join(psnrs)}; launches {got}, per forward {ifunet.warps_per_forward()}",
+            flush=True,
+        )
+    print(f"ifunet: {slice8_golden('ifunet', lambda seed: ifunet.make_model_fn(ifunet.init_params(seed), device=dev))}; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 32. IFUnet timing ----------------------------------------------------
+    ifunet_fn = ifunet.make_model_fn(ifunet_params, dtype=torch.bfloat16, device=dev)
+    ifunet_fps, ifunet_profile, _ = slice8_row("IFUnet 1080p (padded to 1088x1920) 2x bf16 b2, no ensemble", ifunet_fn, 2, (1080, 1920), "ifunet")
+    del ifunet_fn
+
+    # ---- 33. AMT node end to end, and the golden ------------------------------
+    amt_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    t0 = time.perf_counter()
+    for variant, ckpt, mults in (("S", "amt-s.pth", (2, 3)), ("L", "amt-l.pth", (2,)), ("G", "amt-g.pth", (2,))):
+        got, psnrs = timestep_node(
+            f"AMT {variant}", AMT_VFI(), ckpt, amt.init_params(variant, 0), 2, mults,
+            lambda dt, variant=variant: amt.warps_per_forward(variant, dt),
+        )
+        amt_launches = {k: amt_launches[k] + got[k] for k in got}
+        print(
+            f"amt: AMT {variant} node 4x{SLICE8_HW[0]}x{SLICE8_HW[1]} (edge-padded to 144x240, centred) batch 2, cuda vs cpu "
+            f"fp32: {', '.join(psnrs)}; launches {got}, per forward {amt.warps_per_forward(variant)}",
+            flush=True,
+        )
+    print(f"amt: {slice8_golden('amt', lambda seed: amt.make_model_fn(amt.init_params('S', seed), 'amt-s.pth', device=dev))}; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 34. AMT timing, and the correlation lookups' share --------------------
+    amt_fn = amt.make_model_fn(amt.init_params("S", 0), "amt-s.pth", dtype=torch.bfloat16, device=dev)
+    amt_fps, amt_profile, _ = slice8_row("AMT-S 1080p (node-padded to 1088x1920) 2x bf16 b2", amt_fn, 2, (1088, 1920), "amt")
+    del amt_fn
+    # the forward's three lookups (both directions each), at its shapes: the
+    # feature maps [2, 84, 136, 240] bf16 and end points within a few pixels
+    fm = [torch.randn(2, 84, 136, 240, generator=g).to(dev, torch.bfloat16).contiguous(memory_format=torch.channels_last) for _ in range(2)]
+    gy, gx = torch.meshgrid(torch.arange(136.0, device=dev), torch.arange(240.0, device=dev), indexing="ij")
+    base = torch.stack([gx, gy], -1).expand(2, 136, 240, 2)
+    c0, c1 = (base + torch.from_numpy(warp_cases.smooth_flow(2, 136, 240, amp=3.0)).to(dev) * s for s in (1.0, -1.0))
+    corr = BidirCorr(*fm)
+    look_ms = cuda_ms(lambda: corr.lookup(c0, c1), 3)
+    look_dev = device_ms(lambda: corr.lookup(c0, c1), 3)
+    fwd_ms = 2e3 / amt_fps
+    print(
+        f"timing {card}: AMT-S's correlation lookup (both directions, [2, 84, 136, 240] bf16, 4 levels, f32 gathers in "
+        f"bands of {2**26} values) {look_ms:.3f} ms per call ({look_dev:.3f} ms on the device); 3 per forward: "
+        f"{3 * look_ms:.3f} ms, {100 * 3 * look_ms / fwd_ms:.1f} % of the {fwd_ms:.3f} ms forward",
+        flush=True,
+    )
+    del fm, base, c0, c1, corr
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
         "rife": rife_profile, "m2m": m2m_profile, "film": film_profile, **gmfss_profiles, "eisai": eisai_profile,
-        "stmfnet": stmf_profile,
+        "stmfnet": stmf_profile, "ifrnet": ifrnet_profile, "ifunet": ifunet_profile, "amt": amt_profile,
     }
     per_forward = {k: {path: prof[k] for path, prof in profiles.items() if k in prof} for k in KERNEL_BODIES}
     ranked = sorted(
@@ -1875,12 +2133,12 @@ def main() -> int:
         key=lambda e: e[2]["above_bound_ms"], reverse=True,
     )
     print(
-        f"ranking {card}: ms above the bound per bf16 forward (1080p; EISAI 540p; STMFNet a 1080p window): "
+        f"ranking {card}: ms above the bound per bf16 forward (1080p; EISAI 540p; STMFNet a 1080p window; IFRNet b4, IFUnet and AMT b2): "
         + "; ".join(f"{k} on {path} {v['above_bound_ms']:.3f} ({v['launches']} launches)" for k, path, v in ranked),
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-27 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-34 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -1888,11 +2146,13 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
             "launches": rife_warp_launches + rife40_launches["narrow"] + m2m_warp_launches + film_warp_launches
-            + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"] + stmf_launches["narrow"],
+            + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"] + stmf_launches["narrow"]
+            + ifrnet_launches["narrow"] + ifunet_launches["narrow"] + amt_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["narrow"], "stmfnet": stmf_launches["narrow"],
+                "ifrnet": ifrnet_launches["narrow"], "ifunet": ifunet_launches["narrow"], "amt": amt_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -1903,6 +2163,7 @@ def main() -> int:
             "library_ms": k1_ms["grid_sample"],
             "gmfss_shapes": {k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "tiled"},
             "stmfnet_shapes": {k: v for k, v in stmf_warp_times.items() if v["kernel"] == "tiled"},
+            "ifrnet_ifunet_amt_shapes": {k: v for k, v in s8_warp_times.items() if v["kernel"] == "tiled"},
             "per_forward": per_forward["warp_bilinear"],
         },
         {
@@ -1911,10 +2172,12 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:297",
             "launches": rife40_launches["wide"] + m2m_wide + film_wide_launches
-            + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"],
+            + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"]
+            + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
+                "ifrnet": ifrnet_launches["wide"], "ifunet": ifunet_launches["wide"], "amt": amt_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -1927,6 +2190,7 @@ def main() -> int:
             "by_shape": {
                 **wide_times, **{k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "wide"},
                 **{k: v for k, v in stmf_warp_times.items() if v["kernel"] == "wide"},
+                **{k: v for k, v in s8_warp_times.items() if v["kernel"] == "wide"},
             },
             "stmfnet_backwarp_designs": design_times,
             "per_forward": per_forward["warp_bilinear_wide"],

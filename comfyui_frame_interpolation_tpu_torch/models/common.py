@@ -1,6 +1,6 @@
 """Layer primitives for the ported models: the subset of the JAX package's
-``models/common.py`` that RIFE, M2M, FILM, GMFSS, EISAI, STMFNet and FLAVR
-use, as plain functions on NCHW tensors (``linear`` on the last axis of any
+``models/common.py`` that RIFE, M2M, FILM, GMFSS, EISAI, STMFNet, FLAVR,
+IFRNet, IFUnet and AMT use, as plain functions on NCHW tensors (``linear`` on the last axis of any
 tensor; ``conv3d``/``conv_transpose3d`` on NCDHW clips).
 
 The JAX versions take NHWC arrays and parameter dicts in torch layout; here
@@ -42,6 +42,8 @@ __all__ = [
     "conv_transpose2d",
     "conv_transpose3d",
     "device_const",
+    "init_state_dict",
+    "instance_norm",
     "prelu",
     "leaky_relu",
     "linear",
@@ -248,14 +250,22 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return x.index_select(-2, iy).index_select(-1, ix)
 
 
-def resize_by_scale(x: torch.Tensor, scale: float, align_corners: bool = False) -> torch.Tensor:
+def resize_by_scale(
+    x: torch.Tensor, scale: float, align_corners: bool = False, mode: str = "bilinear"
+) -> torch.Tensor:
     """torch ``F.interpolate(scale_factor=scale)``: output = floor(in * scale),
     mapped with the realized in/out ratio (``size=``), as the JAX version does
-    (the same whenever ``in * scale`` is integral)."""
+    (the same whenever ``in * scale`` is integral); ``mode`` is
+    ``"bilinear"`` or ``"nearest"``."""
     h, w = x.shape[-2:]
-    return resize_bilinear(
-        x, (int(math.floor(h * scale)), int(math.floor(w * scale))), align_corners
-    )
+    out_hw = (int(math.floor(h * scale)), int(math.floor(w * scale)))
+    if mode == "bilinear":
+        return resize_bilinear(x, out_hw, align_corners)
+    if mode == "nearest":
+        if scale == int(scale) and scale >= 1:  # src = dst // scale exactly; one pass in channels_last
+            return F.interpolate(x, scale_factor=int(scale), mode="nearest")
+        return resize_nearest(x, out_hw)
+    raise ValueError(f"unsupported resize mode {mode}")
 
 
 def avg_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None) -> torch.Tensor:
@@ -270,6 +280,13 @@ def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None, paddi
     return F.max_pool2d(x, kernel, stride or kernel, padding)
 
 
+def instance_norm(x: torch.Tensor) -> torch.Tensor:
+    """torch ``nn.InstanceNorm2d`` without affine: per sample and channel over
+    H and W, population variance, eps 1e-5."""
+    var, mean = torch.var_mean(x, dim=(2, 3), correction=0, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
 def batch_norm(
     x: torch.Tensor,
     running_mean: torch.Tensor,
@@ -282,3 +299,32 @@ def batch_norm(
     mode: ``(x - mean) / sqrt(var + eps) * weight + bias`` with the running
     statistics, over the channel axis."""
     return F.batch_norm(x, running_mean, running_var, weight, bias, training=False, eps=eps)
+
+
+def init_state_dict(net: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """Random state dict of ``net`` (built on the meta device), drawn from
+    ``numpy.random.default_rng(seed)`` in ``state_dict`` key order: weights
+    and biases uniform in ``+-1/sqrt(fan_in)`` (fan_in from every dim of the
+    module's weight after the first, torch's default init; a lone parameter
+    from its own shape), every PReLU weight :data:`PRELU_INIT`, batch norms
+    (2-D and 3-D) at the identity (weight 1, bias 0, running mean 0, running
+    variance 1, ``num_batches_tracked`` 0)."""
+    rng = np.random.default_rng(seed)
+    prelu = {f"{name}.weight" for name, m in net.named_modules() if isinstance(m, torch.nn.PReLU)}
+    norms = {name for name, m in net.named_modules() if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d))}
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    params = {}
+    for key, shape in shapes.items():
+        module, name = key.rsplit(".", 1) if "." in key else ("", key)
+        if key in prelu:
+            params[key] = torch.full(shape, PRELU_INIT)
+        elif module in norms:
+            if name == "num_batches_tracked":
+                params[key] = torch.zeros(shape, dtype=torch.int64)
+            else:
+                params[key] = (torch.ones if name in ("weight", "running_var") else torch.zeros)(shape)
+        else:
+            fan_shape = shapes.get(f"{module}.weight", shape) if name in ("weight", "bias") else shape
+            bound = 1.0 / np.sqrt(int(np.prod(fan_shape[1:])))
+            params[key] = torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32))
+    return params

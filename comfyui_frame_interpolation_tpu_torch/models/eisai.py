@@ -54,7 +54,9 @@ from ..ops.cuda.warp_kernel import route_counts
 from ..ops.edt import batch_edt
 from ..ops.softsplat import function_softsplat
 from ..ops.warp import warp
-from .common import PRELU_INIT, avg_pool2d, batch_norm, cast_params, device_const, max_pool2d, prelu, resize_bilinear
+from .common import (
+    PRELU_INIT, avg_pool2d, batch_norm, cast_params, device_const, init_state_dict, max_pool2d, prelu, resize_bilinear,
+)
 
 __all__ = [
     "CKPT_NAMES",
@@ -872,29 +874,7 @@ def init_params(seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random state dict with the keys and shapes of the three checkpoints'
     manifests (``eisai_anime_interp_full.ckpt``'s RFR under ``raft.``,
     ``eisai_ssl.pt`` under ``ssl.``, ``eisai_dtm.pt`` under ``dtm.``; 513
-    tensors), drawn from ``numpy.random.default_rng(seed)`` in
-    ``state_dict`` key order with the rules of ``gmfss.init_params``: conv
-    weights and biases uniform in ``+-1/sqrt(fan_in)`` (fan_in from every
-    weight dim after the first), every PReLU weight the constant
-    :data:`PRELU_INIT` = 0.25; batch norms with weight 1, bias 0, running
-    mean 0, running variance 1 and ``num_batches_tracked`` 0."""
-    rng = np.random.default_rng(seed)
+    tensors; ``common.init_state_dict``: batch norms at the identity)."""
     with torch.device("meta"):
         net = EISAI()
-    prelu_keys = {f"{name}.weight" for name, m in net.named_modules() if isinstance(m, nn.PReLU)}
-    norms = {name for name, m in net.named_modules() if isinstance(m, nn.BatchNorm2d)}
-    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
-    params = {}
-    for key, shape in shapes.items():
-        module, name = key.rsplit(".", 1)
-        if key in prelu_keys:
-            params[key] = torch.full(shape, PRELU_INIT)
-        elif module in norms:
-            if name == "num_batches_tracked":
-                params[key] = torch.zeros(shape, dtype=torch.int64)
-            else:
-                params[key] = (torch.ones if name in ("weight", "running_var") else torch.zeros)(shape)
-        else:
-            bound = 1.0 / np.sqrt(int(np.prod(shapes[module + ".weight"][1:])))
-            params[key] = torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32))
-    return params
+    return init_state_dict(net, seed)

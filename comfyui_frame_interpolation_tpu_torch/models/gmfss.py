@@ -62,7 +62,7 @@ from ..ops.cuda.warp_kernel import route_counts
 from ..ops.softsplat import softsplat
 from ..ops.warp import warp
 from . import rife as rife_model
-from .common import PRELU_INIT, cast_params, device_const, resize_by_scale
+from .common import PRELU_INIT, cast_params, device_const, instance_norm, resize_by_scale
 
 __all__ = [
     "CKPT_NAMES",
@@ -121,12 +121,6 @@ def _coords_np(h: int, w: int) -> np.ndarray:
 # ---- a. normalisations -------------------------------------------------------
 
 
-def _instance_norm(x: torch.Tensor) -> torch.Tensor:
-    """``InstanceNorm2d`` without affine (NCHW): population variance, eps 1e-5."""
-    var, mean = torch.var_mean(x, dim=(2, 3), correction=0, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + 1e-5)
-
-
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """``LayerNorm`` over the last axis: population variance, eps 1e-5."""
     return F.layer_norm(x, norm.normalized_shape, norm.weight, norm.bias, 1e-5)
@@ -145,10 +139,10 @@ class _ResidualBlock(nn.Module):
         self.downsample = nn.Sequential(nn.Conv2d(i, o, 1, stride)) if stride != 1 or i != o else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(_instance_norm(self.conv1(x)))
-        y = F.relu(_instance_norm(self.conv2(y)))
+        y = F.relu(instance_norm(self.conv1(x)))
+        y = F.relu(instance_norm(self.conv2(y)))
         if self.downsample is not None:
-            x = _instance_norm(self.downsample(x))
+            x = instance_norm(self.downsample(x))
         return F.relu(x + y)
 
 
@@ -167,7 +161,7 @@ class _CNNEncoder(nn.Module):
         self.trident_conv = nn.Conv2d(128, 128, 3, 1, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = F.relu(_instance_norm(self.conv1(x)))
+        x = F.relu(instance_norm(self.conv1(x)))
         x = self.conv2(self.layer3(self.layer2(self.layer1(x))))
         w = self.trident_conv.weight
         return [F.conv2d(x, w, None, stride=s, padding=1) for s in (2, 1)]

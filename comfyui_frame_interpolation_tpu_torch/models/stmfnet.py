@@ -37,7 +37,6 @@ from __future__ import annotations
 import functools
 from typing import Dict, List, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -48,8 +47,8 @@ from ..ops.cuda.warp_kernel import route_counts
 from ..ops.softsplat import function_softsplat
 from ..ops.warp import warp
 from .common import (
-    PRELU_INIT, batch_norm, cast_params, channels_last_params, conv2d, conv3d, conv_transpose3d, device_const, leaky_relu,
-    prelu, resize_bilinear, resize_by_scale,
+    PRELU_INIT, batch_norm, cast_params, channels_last_params, conv2d, conv3d, conv_transpose3d, device_const,
+    init_state_dict, leaky_relu, prelu, resize_bilinear, resize_by_scale,
 )
 
 __all__ = [
@@ -682,32 +681,9 @@ def splats_per_forward() -> int:
 
 def init_params(seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random state dict with the keys and shapes of ``stmfnet.pth`` (1000
-    tensors), drawn from ``numpy.random.default_rng(seed)`` in ``state_dict``
-    key order with the rules of ``eisai.init_params``: weights and biases
-    uniform in ``+-1/sqrt(fan_in)`` (fan_in from every dim of the module's
-    weight after the first; a lone parameter, ``gauss_kernel``,
-    ``upsampler.filter`` and ``metric.paramScale``, from its own shape),
-    every PReLU weight :data:`PRELU_INIT`, batch norms (2-D and 3-D) with
-    weight 1, bias 0, running mean 0, running variance 1 and
-    ``num_batches_tracked`` 0."""
-    rng = np.random.default_rng(seed)
+    tensors; ``common.init_state_dict``: a lone parameter, ``gauss_kernel``,
+    ``upsampler.filter`` and ``metric.paramScale``, drawn from its own
+    shape; batch norms, 2-D and 3-D, at the identity)."""
     with torch.device("meta"):
         net = STMFNet()
-    prelu_keys = {f"{name}.weight" for name, m in net.named_modules() if isinstance(m, nn.PReLU)}
-    norms = {name for name, m in net.named_modules() if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d))}
-    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
-    params = {}
-    for key, shape in shapes.items():
-        module, name = key.rsplit(".", 1) if "." in key else ("", key)
-        if key in prelu_keys:
-            params[key] = torch.full(shape, PRELU_INIT)
-        elif module in norms:
-            if name == "num_batches_tracked":
-                params[key] = torch.zeros(shape, dtype=torch.int64)
-            else:
-                params[key] = (torch.ones if name in ("weight", "running_var") else torch.zeros)(shape)
-        else:
-            fan_shape = shapes.get(f"{module}.weight", shape) if name in ("weight", "bias") else shape
-            bound = 1.0 / np.sqrt(int(np.prod(fan_shape[1:])))
-            params[key] = torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32))
-    return params
+    return init_state_dict(net, seed)

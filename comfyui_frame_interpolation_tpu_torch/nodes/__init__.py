@@ -5,7 +5,9 @@ family at a time. Each follows the reference protocol: classmethod
 NHWC torch tensors."""
 
 from .rife_node import RIFE_VFI
-from .vfi_nodes import EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, M2M_VFI, STMFNet_VFI
+from .vfi_nodes import (
+    AMT_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
+)
 
 NODE_CLASS_MAPPINGS = {
     "RIFE VFI": RIFE_VFI,
@@ -15,6 +17,9 @@ NODE_CLASS_MAPPINGS = {
     "EISAI VFI": EISAI_VFI,
     "STMFNet VFI": STMFNet_VFI,
     "FLAVR VFI": FLAVR_VFI,
+    "IFRNet VFI": IFRNet_VFI,
+    "IFUnet VFI": IFUnet_VFI,
+    "AMT VFI": AMT_VFI,
 }
 NODE_DISPLAY_NAME_MAPPINGS = {
     "RIFE VFI": "RIFE VFI (recommend rife47 and rife49)",
@@ -24,4 +29,7 @@ NODE_DISPLAY_NAME_MAPPINGS = {
     "EISAI VFI": "EISAI VFI",
     "STMFNet VFI": "STMFNet VFI",
     "FLAVR VFI": "FLAVR VFI",
+    "IFRNet VFI": "IFRNet VFI",
+    "IFUnet VFI": "IFUnet VFI",
+    "AMT VFI": "AMT VFI",
 }

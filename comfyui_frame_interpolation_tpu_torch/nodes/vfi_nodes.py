@@ -1,7 +1,8 @@
 """VFI nodes of the generic-loop model families, port of the JAX package's
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
-Ported so far: FILM, M2M, GMFSS Fortuna, EISAI, STMFNet and FLAVR. Same public schema as the JAX nodes (the
+Ported so far: FILM, M2M, GMFSS Fortuna, EISAI, STMFNet, FLAVR, IFRNet,
+IFUnet and AMT. Same public schema as the JAX nodes (the
 tooltips speak of the card); frames and results are NHWC torch tensors on the node's device.
 """
 
@@ -17,10 +18,13 @@ from ..core.config import load_config
 from ..core.frames import assert_batch_size, postprocess_frames, preprocess_frames
 from ..core.loop import run_plan, run_plan_pair_cached, run_plan_window4
 from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep, plan_window4
+from ..models import amt as amt_model
 from ..models import eisai as eisai_model
 from ..models import film as film_model
 from ..models import flavr as flavr_model
 from ..models import gmfss as gmfss_model
+from ..models import ifrnet as ifrnet_model
+from ..models import ifunet as ifunet_model
 from ..models import m2m as m2m_model
 from ..models import stmfnet as stmfnet_model
 from ..utils.ckpt import load_checkpoint_set, load_local_checkpoint
@@ -294,6 +298,18 @@ class EISAI_VFI:
         return (postprocess_frames(out),)
 
 
+def _pad16(frames: torch.Tensor) -> typing.Tuple[torch.Tensor, tuple]:
+    """NHWC ``frames`` edge-padded to multiples of 16, centred (the
+    reference ``InputPadder(divisor=16)``), and the index that crops a
+    result back."""
+    n, h, w, _ = frames.shape
+    ph, pw = (-h) % 16, (-w) % 16
+    top, left = ph // 2, pw // 2
+    if ph or pw:
+        frames = F.pad(frames.permute(0, 3, 1, 2), (left, pw - left, top, ph - top), mode="replicate").permute(0, 2, 3, 1)
+    return frames, (slice(None), slice(top, top + h), slice(left, left + w))
+
+
 def _window4_inputs(ckpts, batch_default):
     """The schema of the 4-frame window nodes (JAX ``vfi_nodes.py``: FLAVR,
     STMFNet): 2x only, with ``duplicate_first_last_frames``."""
@@ -406,11 +422,154 @@ class FLAVR_VFI:
             self._model_fns, params, (ckpt_name, dtype, str(device)),
             lambda: flavr_model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
         )
-        n, h, w, _ = frames.shape
-        ph, pw = (-h) % 16, (-w) % 16
-        top, left = ph // 2, pw // 2
-        if ph or pw:
-            frames = F.pad(frames.permute(0, 3, 1, 2), (left, pw - left, top, ph - top), mode="replicate").permute(0, 2, 3, 1)
-        plan = plan_window4(n, duplicate_first_last_frames, optional_interpolation_states)
+        frames, crop = _pad16(frames)
+        plan = plan_window4(frames.shape[0], duplicate_first_last_frames, optional_interpolation_states)
         out = run_plan_window4(frames, plan, model_fn, batch_size=batch_size)
-        return (postprocess_frames(out[:, top : top + h, left : left + w]),)
+        return (postprocess_frames(out[crop]),)
+
+
+class IFRNet_VFI:
+    """reference ``ifrnet/__init__.py:11-57``; generic timestep schedule.
+    The timestep drives ``embt`` and ``scale_factor`` the resize, as in the
+    JAX node (the reference node passes them swapped)."""
+
+    MODEL_TYPE = "ifrnet"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(ifrnet_model.CKPT_NAMES, scale_factor=([0.25, 0.5, 1.0, 2.0, 4.0], {"default": 1.0}))
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        scale_factor: float = 1.0,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 4,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "IFRNet")
+        variant = ifrnet_model.variant_for_ckpt(ckpt_name)
+        if params is None:
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        model_fn = _cached(
+            self._model_fns, params, (variant, scale_factor, dtype, str(device)),
+            lambda: ifrnet_model.make_model_fn(params, variant, scale_factor, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)
+
+
+class IFUnet_VFI:
+    """reference ``ifunet/__init__.py:11-58``; generic timestep schedule. The
+    schema's ``ensemble`` defaults to True and ``vfi``'s keyword to False, as
+    in the JAX node."""
+
+    MODEL_TYPE = "ifunet"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(
+            ifunet_model.CKPT_NAMES,
+            scale_factor=("FLOAT", {"default": 1.0, "min": 0.1, "max": 100, "step": 0.1}),
+            ensemble=("BOOLEAN", {"default": True}),
+            batch_default=2,
+        )
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        scale_factor: float = 1.0,
+        ensemble: bool = False,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "IFUnet")
+        if params is None:
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        model_fn = _cached(
+            self._model_fns, params, (scale_factor, ensemble, dtype, str(device)),
+            lambda: ifunet_model.make_model_fn(
+                params, scale=scale_factor, ensemble=ensemble, dtype=DTYPE_MAP[dtype], device=device
+            ),
+        )
+        plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)
+
+
+class AMT_VFI:
+    """reference ``amt/__init__.py:33-87``; generic timestep schedule, with
+    the whole clip edge-padded once to multiples of 16, centred
+    (``InputPadder``, ``amt/__init__.py:71-72``), and cropped after."""
+
+    MODEL_TYPE = "amt"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(list(amt_model.CKPT_CONFIGS.keys()), batch_default=2)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "AMT")
+        if params is None:
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        model_fn = _cached(
+            self._model_fns, params, (ckpt_name, dtype, str(device)),
+            lambda: amt_model.make_model_fn(params, ckpt_name, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        frames, crop = _pad16(frames)
+        plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out[crop]),)

@@ -12,9 +12,12 @@ It prints one JSON line: the card and its power limit, and frames/s of RIFE
 FILM 1080p 2x bf16 batch 2, GMFSS Fortuna 1080p 2x bf16 batch 1, base and
 union, EISAI 540p (its native 540x960) 2x bf16 batch 1 with 12 RAFT
 iterations, STMFNet 1080p 2x bf16 batch 1 and FLAVR 1080p 2x bf16 batch 2
-(a window of four frames per interpolated frame), random frames and random
-weights from seed 0 (the configurations of ``chip_smoke.py`` phases 6, 10,
-14, 18, 22, 26 and 27), each through ``make_model_fn`` and timed by
+(a window of four frames per interpolated frame), IFRNet S 1080p 2x bf16
+batch 4, IFUnet 1080p 2x bf16 batch 2 without the ensemble and AMT-S 1080p
+(padded to 1088x1920, as its node pads) 2x bf16 batch 2, random frames and
+random weights from seed 0 (the configurations of ``chip_smoke.py`` phases
+6, 10, 14, 18, 22, 26, 27, 30, 32 and 34), each through ``make_model_fn``
+and timed by
 ``utils.benchmark.measure``. A model missing from the checkout timed (an
 older port) is left out of the line.
 """
@@ -41,12 +44,13 @@ def main(argv=None) -> int:
     from comfyui_frame_interpolation_tpu_torch.models import eisai, film, gmfss, m2m, rife
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
-    window4 = {}
-    for name in ("stmfnet", "flavr"):
+    found = {}
+    for name in ("stmfnet", "flavr", "ifrnet", "ifunet", "amt"):
         try:
-            window4[name] = importlib.import_module(f"comfyui_frame_interpolation_tpu_torch.models.{name}")
+            found[name] = importlib.import_module(f"comfyui_frame_interpolation_tpu_torch.models.{name}")
         except ImportError:
             pass
+    window4 = {k: v for k, v in found.items() if k in ("stmfnet", "flavr")}
 
     if not torch.cuda.is_available():
         print("e2e_fps: no CUDA device", file=sys.stderr)
@@ -77,10 +81,20 @@ def main(argv=None) -> int:
         fns[f"{name}_1080p_b{batch[name]}"] = (
             batch[name], lambda mod=mod: mod.make_model_fn(mod.init_params(0), dtype=torch.bfloat16, device=dev), 3,
         )
+    bf16 = torch.bfloat16
+    if "ifrnet" in found:
+        ifrnet = found["ifrnet"]
+        fns["ifrnet_1080p_b4"] = (4, lambda: ifrnet.make_model_fn(ifrnet.init_params("S", 0), "S", dtype=bf16, device=dev), 5)
+    if "ifunet" in found:
+        ifunet = found["ifunet"]
+        fns["ifunet_1080p_b2"] = (2, lambda: ifunet.make_model_fn(ifunet.init_params(0), dtype=bf16, device=dev), 3)
+    if "amt" in found:
+        amt = found["amt"]
+        fns["amt_s_1080p_b2"] = (2, lambda: amt.make_model_fn(amt.init_params("S", 0), "amt-s.pth", dtype=bf16, device=dev), 5)
     fps = {}
     for name, (n, make, iters) in fns.items():
         fn = make()
-        hw = (540, 960) if name.startswith("eisai") else (1080, 1920)
+        hw = {"eisai": (540, 960), "amt": (1088, 1920)}.get(name.split("_")[0], (1080, 1920))
         fps[name] = n / measure(fn, *frames(n, hw, window=name.split("_")[0] in window4), iters=iters, rounds=3)
         del fn
         torch.cuda.empty_cache()

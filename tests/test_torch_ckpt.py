@@ -12,6 +12,7 @@ import torch
 from comfyui_frame_interpolation_tpu.utils.ckpt import load_torch_state_dict
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
 from comfyui_frame_interpolation_tpu_torch.utils.ckpt import load_local_checkpoint, params_from_jax
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 
 @pytest.fixture

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from comfyui_frame_interpolation_tpu.models import common as jc
 from comfyui_frame_interpolation_tpu_torch.models import common as pc
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 ATOL = 1e-5
 
@@ -245,3 +246,39 @@ def test_channels_last_params():
     assert m[0].weight.is_contiguous(memory_format=torch.channels_last)
     assert m[1].weight.is_contiguous(memory_format=torch.channels_last_3d)
     assert m[2].weight.is_contiguous()
+
+
+@pytest.mark.parametrize("in_hw,scale", [((17, 30), 2.0), ((8, 12), 4.0), ((20, 32), 0.5), ((17, 23), 0.25)])
+def test_resize_by_scale_nearest(in_hw, scale):
+    """IFUnet's RRDBNet upsampling (``mode="nearest"``), exact."""
+    x = _rng(19).random((2, *in_hw, 3), dtype=np.float32)
+    ref = jc.resize_by_scale(jnp.asarray(x), scale, mode="nearest")
+    _close(pc.resize_by_scale(_nchw(x), scale, mode="nearest"), ref, atol=0)
+    with pytest.raises(ValueError, match="unsupported resize mode"):
+        pc.resize_by_scale(_nchw(x), scale, mode="bicubic")
+
+
+@pytest.mark.parametrize("hw", [(9, 13), (1, 7)])
+def test_instance_norm(hw):
+    """AMT's and GMFSS's ``InstanceNorm2d`` without affine (JAX
+    ``amt._inorm``): population variance, eps 1e-5, on values with a large
+    mean; within 1e-5 of the normalised values' magnitude."""
+    from comfyui_frame_interpolation_tpu.models import amt as jamt
+
+    x = (_rng(20).standard_normal((2, *hw, 5)) * 3 + 7).astype(np.float32)
+    ref = np.asarray(jamt._inorm(jnp.asarray(x)))
+    got = pc.instance_norm(_nchw(x).contiguous(memory_format=torch.channels_last))
+    _close(got, ref, atol=1e-5 * (1 + float(np.abs(ref).max())))
+
+
+def test_init_state_dict_is_seeded_and_starts_norms_at_identity():
+    m = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.BatchNorm2d(4), torch.nn.PReLU(4), torch.nn.Linear(4, 2))
+    a, b, c = pc.init_state_dict(m, 0), pc.init_state_dict(m, 0), pc.init_state_dict(m, 1)
+    assert a.keys() == m.state_dict().keys()
+    assert all(torch.equal(a[k], b[k]) for k in a) and not torch.equal(a["0.weight"], c["0.weight"])
+    assert torch.equal(a["1.running_var"], torch.ones(4)) and torch.equal(a["1.bias"], torch.zeros(4))
+    assert a["1.num_batches_tracked"].dtype == torch.int64
+    assert torch.equal(a["2.weight"], torch.full((4,), pc.PRELU_INIT))
+    bound = 1 / np.sqrt(27)
+    assert 0.9 * bound < float(a["0.weight"].abs().max()) <= bound
+    assert float(a["3.bias"].abs().max()) <= 0.5

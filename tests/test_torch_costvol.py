@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from comfyui_frame_interpolation_tpu.ops.costvol import costvol_func as jax_costvol
 from comfyui_frame_interpolation_tpu_torch.ops.costvol import costvol_func
 from test_ops_custom import costvol_oracle
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 ATOL = 1e-6
 

@@ -37,6 +37,15 @@ widths a forward warps (C = 32, 64, 96, 128) and with the ones channel
 appended (C = 33, 65, 97, 129: unaligned pixels, the wide kernel's scalar
 path), and the f32 ones plane (C = 1), each through the routed kernel and
 through K1, bit for bit.
+
+IFRNet's, IFUnet's and AMT's warps at their 1080p shapes (padded to
+1088x1920), border mode, f32 and bf16 with the flow in the same dtype:
+IFRNet S batch 4's features (C = 54, 36, 24 at 1/8 to 1/2) and frames,
+IFUnet batch 2's frames and context warp (C = 32 at 1/4), AMT-S batch 2's
+features (C = 44, 32, 20) and frames over its 3 flows; each through the
+kernel ``warp_kernel.route`` names and through K1, bit for bit. Most of the
+feature pixels start off 16 bytes (bf16 C = 54, 36, 44, 20), so the wide
+kernel's scalar path carries them.
 """
 
 import numpy as np
@@ -300,3 +309,27 @@ def test_stmfnet_ones_plane_on_k1(cuda, shape, flow_dtype):
     got = warp(ones, flow, "zeros")
     torch.cuda.synchronize()
     assert torch.equal(got, warp_torch(ones, flow, "zeros"))
+
+
+# IFRNet S 1080p batch 4, IFUnet and AMT-S 1080p batch 2 (padded to
+# 1088x1920): (NHWC shape, the kernel route names)
+SLICE8_WARPS = (
+    ((4, 136, 240, 54), "wide"), ((4, 272, 480, 36), "wide"), ((4, 544, 960, 24), "wide"), ((4, 1088, 1920, 3), "tiled"),
+    ((2, 1088, 1920, 3), "tiled"), ((2, 272, 480, 32), "wide"),
+    ((2, 136, 240, 44), "wide"), ((2, 272, 480, 32), "wide"), ((2, 544, 960, 20), "wide"), ((6, 1088, 1920, 3), "tiled"),
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,body", SLICE8_WARPS)
+def test_ifrnet_ifunet_amt_warps_border(cuda, shape, body, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    img = torch.rand(shape, generator=g).to(cuda, dtype)
+    flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(cuda, dtype)
+    planes = img.permute(0, 3, 1, 2)
+    assert warp_kernel.route(planes.shape, planes.stride(), dtype) == body
+    ref = warp_torch(img, flow, "border")
+    routed = warp(img, flow, "border")
+    k1 = warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), False).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(routed, ref) and torch.equal(k1, ref)

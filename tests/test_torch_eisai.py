@@ -45,6 +45,7 @@ from comfyui_frame_interpolation_tpu.ops.edt import batch_edt as jax_edt
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch.models import eisai as pe
 from comfyui_frame_interpolation_tpu_torch.ops.edt import batch_edt
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port_eisai_golden.npz")
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")

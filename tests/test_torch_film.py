@@ -44,6 +44,7 @@ from comfyui_frame_interpolation_tpu_torch.utils.ckpt import (
     load_local_checkpoint,
     params_from_jax,
 )
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port_film_golden.npz")
 GOLDEN_SEED = 1234

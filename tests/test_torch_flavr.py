@@ -35,6 +35,7 @@ from comfyui_frame_interpolation_tpu.models import flavr as jf
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch.models import common as pc
 from comfyui_frame_interpolation_tpu_torch.models import flavr as pf
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_flavr_golden.npz")

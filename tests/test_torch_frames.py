@@ -6,6 +6,7 @@ import torch
 
 from comfyui_frame_interpolation_tpu.core import frames as jframes
 from comfyui_frame_interpolation_tpu_torch.core import frames as pframes
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 
 @pytest.mark.parametrize("mode", ["constant", "reflect", "replicate"])

@@ -49,6 +49,7 @@ from comfyui_frame_interpolation_tpu.models import gmfss as jg
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch.models import gmfss as pg
 from comfyui_frame_interpolation_tpu_torch.utils.ckpt import params_from_jax
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port_gmfss_golden.npz")
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
@@ -213,7 +214,7 @@ def test_make_pair_fns_loads_strictly():
 
 def test_a_normalisations():
     x = _rand((2, 9, 11, 6), 1, 3.0) + 1.0
-    _close(pg._instance_norm(_nchw(x)).permute(0, 2, 3, 1), jg._instance_norm(jnp.asarray(x)), "instance_norm")
+    _close(pg.instance_norm(_nchw(x)).permute(0, 2, 3, 1), jg._instance_norm(jnp.asarray(x)), "instance_norm")
     tok = _rand((2, 7, 128), 2, 2.0)
     node = {"weight": _rand((128,), 3), "bias": _rand((128,), 4)}
     norm = torch.nn.LayerNorm(128)

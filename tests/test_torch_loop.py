@@ -11,6 +11,7 @@ from comfyui_frame_interpolation_tpu.core import loop as jloop
 from comfyui_frame_interpolation_tpu.core import schedule as jsched
 from comfyui_frame_interpolation_tpu_torch.core import loop as ploop
 from comfyui_frame_interpolation_tpu_torch.core import schedule as psched
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 
 def _jax_model(f0, f1, t):

@@ -40,6 +40,7 @@ from comfyui_frame_interpolation_tpu.ops.softsplat import _softsplat_xla
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch.models import m2m as pm
 from comfyui_frame_interpolation_tpu_torch.utils.ckpt import params_from_jax
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port_m2m_golden.npz")
 GOLDEN_SEED = 1234

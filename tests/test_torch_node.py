@@ -40,10 +40,23 @@ file as the reference ships it (``stmfnet.pth`` under ``state_dict``,
 ``FLAVR_2x.pth`` under ``state_dict`` with ``module.``) exactly as from
 ``params``; multipliers other than 2 warn and go on; fewer than 4 frames
 raise.
+
+IFRNet, IFUnet and AMT (the generic timestep schedule, run by the resident
+executor): the schemas as for GMFSS (IFUnet's ``ensemble`` defaults to True
+in the schema and to False as ``vfi``'s keyword, as in the JAX node); each
+node runs end to end on the CPU on three random frames, x2 and x3, at a
+batch that leaves a short chunk: the original frames pass bit for bit and
+each new frame is the model function's on its pair at its timestep (the
+models are held against JAX by ``tests/test_torch_{ifrnet,ifunet,amt}.py``);
+AMT edge-pads the clip to multiples of 16, centred, and crops back; each
+runs from its checkpoint file exactly as from ``params``, builds its model
+function once per params, and needs two frames. The registry lists the ten
+ported nodes with the JAX display names.
 """
 
 import contextlib
 import functools
+import inspect
 import os
 
 import numpy as np
@@ -52,30 +65,42 @@ import jax
 import torch
 from PIL import Image
 
+from comfyui_frame_interpolation_tpu.nodes import NODE_DISPLAY_NAME_MAPPINGS as JAX_DISPLAY_NAMES
 from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import AMT_VFI as JaxAMT
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import EISAI_VFI as JaxEISAI
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FILM_VFI as JaxFILM
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FLAVR_VFI as JaxFLAVR
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import GMFSS_Fortuna_VFI as JaxGMFSS
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import IFRNet_VFI as JaxIFRNet
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import IFUnet_VFI as JaxIFUnet
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import M2M_VFI as JaxM2M
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import STMFNet_VFI as JaxSTMFNet
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
-from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS
+from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS
+from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
+from comfyui_frame_interpolation_tpu_torch.models import amt as pamt
 from comfyui_frame_interpolation_tpu_torch.models import eisai as peisai
 from comfyui_frame_interpolation_tpu_torch.models import film as pfilm
 from comfyui_frame_interpolation_tpu_torch.models import flavr as pflavr
 from comfyui_frame_interpolation_tpu_torch.models import gmfss as pgmfss
+from comfyui_frame_interpolation_tpu_torch.models import ifrnet as pifrnet
+from comfyui_frame_interpolation_tpu_torch.models import ifunet as pifunet
 from comfyui_frame_interpolation_tpu_torch.models import m2m as pm2m
 from comfyui_frame_interpolation_tpu_torch.models import rife as prife
 from comfyui_frame_interpolation_tpu_torch.models import stmfnet as pstmfnet
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import AMT_VFI as PortAMT
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import EISAI_VFI as PortEISAI
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI as PortFILM
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FLAVR_VFI as PortFLAVR
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import GMFSS_Fortuna_VFI as PortGMFSS
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFRNet_VFI as PortIFRNet
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFUnet_VFI as PortIFUnet
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import STMFNet_VFI as PortSTMFNet
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
 
@@ -97,7 +122,9 @@ def test_input_types_equal_jax_node():
     assert NODE_CLASS_MAPPINGS == {
         "RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM, "GMFSS Fortuna VFI": PortGMFSS,
         "EISAI VFI": PortEISAI, "STMFNet VFI": PortSTMFNet, "FLAVR VFI": PortFLAVR,
+        "IFRNet VFI": PortIFRNet, "IFUnet VFI": PortIFUnet, "AMT VFI": PortAMT,
     }
+    assert NODE_DISPLAY_NAME_MAPPINGS == {k: JAX_DISPLAY_NAMES[k] for k in NODE_CLASS_MAPPINGS}
 
 
 def test_node_matches_jax_node_on_demo_frames():
@@ -509,3 +536,96 @@ def test_window4_node_warns_on_other_multipliers_and_needs_four_frames(family):
     assert len(node._model_fns) == 1  # cached per params, name, dtype and device
     with pytest.raises(ValueError, match="at least 4 frames"):
         node.vfi(ckpt, frames[:3], params=sd, device="cpu")
+
+
+# ---- IFRNet, IFUnet and AMT: the timestep nodes of this slice --------------------------------
+
+
+_TIMESTEP = {  # port node, JAX node, model module, checkpoint, params, default batch
+    "ifrnet": (PortIFRNet, JaxIFRNet, pifrnet, "IFRNet_S_Vimeo90K.pth", lambda seed: pifrnet.init_params("S", seed), 4),
+    "ifunet": (PortIFUnet, JaxIFUnet, pifunet, "IFUNet.pth", pifunet.init_params, 2),
+    "amt": (PortAMT, JaxAMT, pamt, "amt-s.pth", lambda seed: pamt.init_params("S", seed), 2),
+}
+
+
+@pytest.mark.parametrize("family", list(_TIMESTEP))
+def test_timestep_input_types_equal_jax_node_without_tooltips(family):
+    port_cls, jax_cls, _, ckpt, _, batch = _TIMESTEP[family]
+    port, ref = port_cls.INPUT_TYPES(), jax_cls.INPUT_TYPES()
+    assert _no_tooltips(port) == _no_tooltips(ref)
+    assert ckpt in port["required"]["ckpt_name"][0]
+    assert port["required"]["batch_size"][1]["default"] == batch and "TPU" not in str(port)
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(port_cls, attr) == getattr(jax_cls, attr)
+    if family == "ifunet":  # the schema's default and the keyword's differ, as in the JAX node
+        assert port["required"]["ensemble"] == ("BOOLEAN", {"default": True})
+        assert inspect.signature(port_cls.vfi).parameters["ensemble"].default is False
+        assert inspect.signature(jax_cls.vfi).parameters["ensemble"].default is False
+
+
+def _timestep_model_fn(family, sd):
+    _, _, model, ckpt, _, _ = _TIMESTEP[family]
+    if family == "ifrnet":
+        return model.make_model_fn(sd, "S", device="cpu")
+    if family == "ifunet":
+        return model.make_model_fn(sd, ensemble=True, device="cpu")
+    return model.make_model_fn(sd, ckpt, device="cpu")
+
+
+@pytest.mark.parametrize("family", list(_TIMESTEP))
+@pytest.mark.parametrize("multiplier", [2, 3])
+def test_timestep_node_runs_end_to_end(family, multiplier):
+    """Three random frames of 36x60 (AMT pads them to 48x64, centred), batch
+    3: the x3 run's four new frames take a full batch and a short one."""
+    port_cls, _, _, ckpt, init, _ = _TIMESTEP[family]
+    frames = np.random.default_rng(1).random((3, 36, 60, 3), dtype=np.float32)
+    sd = init(0)
+    kw = {"ensemble": True} if family == "ifunet" else {}
+    (got,) = port_cls().vfi(ckpt, frames, multiplier=multiplier, batch_size=3, params=sd, device="cpu", **kw)
+    plan = plan_timestep(3, multiplier)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (len(plan.output), 36, 60, 3)
+    x = torch.from_numpy(frames)
+    if family == "amt":
+        x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (2, 2, 6, 6), mode="replicate").permute(0, 2, 3, 1)
+    fn = _timestep_model_fn(family, sd)
+    for k, (kind, i) in enumerate(plan.output):
+        if kind == "orig":
+            np.testing.assert_array_equal(got[k].numpy(), frames[i])
+            continue
+        task = plan.tasks[i]
+        mid = fn(x[task.pair : task.pair + 1], x[task.pair + 1 : task.pair + 2], torch.tensor([task.t]))[0]
+        if family == "amt":
+            mid = mid[6:42, 2:62]
+        torch.testing.assert_close(got[k], mid, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("family", list(_TIMESTEP))
+def test_timestep_node_runs_from_its_checkpoint_file(family, tmp_path, monkeypatch):
+    port_cls, _, _, ckpt, init, _ = _TIMESTEP[family]
+    sd = init(1)
+    frames = np.random.default_rng(2).random((2, 32, 48, 3), dtype=np.float32)
+    with _ckpts_path(tmp_path, monkeypatch) as ckpts:
+        (ckpts / port_cls.MODEL_TYPE).mkdir(parents=True)
+        torch.save(sd, str(ckpts / port_cls.MODEL_TYPE / ckpt))
+        (from_file,) = port_cls().vfi(ckpt, frames, device="cpu")
+        with pytest.raises(FileNotFoundError, match=f"{port_cls.MODEL_TYPE} checkpoint"):
+            port_cls().vfi(ckpt.replace(".pth", "_missing.pth"), frames, device="cpu")
+    (from_params,) = port_cls().vfi(ckpt, frames, params=sd, device="cpu")
+    assert tuple(from_file.shape) == (3, 32, 48, 3)
+    torch.testing.assert_close(from_file, from_params, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("family", list(_TIMESTEP))
+def test_timestep_node_caches_its_model_fn_and_needs_two_frames(family):
+    port_cls, _, _, ckpt, init, _ = _TIMESTEP[family]
+    sd = init(0)
+    frames = np.random.default_rng(3).random((2, 16, 32, 3), dtype=np.float32)
+    node = port_cls()
+    a = node.vfi(ckpt, frames, params=sd, device="cpu")[0]
+    b = node.vfi(ckpt, frames, params=sd, device="cpu")[0]
+    assert len(node._model_fns) == 1
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    node.vfi(ckpt, frames, params=init(1), device="cpu")
+    assert len(node._model_fns) == 2
+    with pytest.raises(ValueError, match="at least 2 frames"):
+        node.vfi(ckpt, frames[:1], params=sd, device="cpu")

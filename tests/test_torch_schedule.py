@@ -7,6 +7,7 @@ import pytest
 
 from comfyui_frame_interpolation_tpu.core import schedule as jax_schedule
 from comfyui_frame_interpolation_tpu_torch.core import schedule as port_schedule
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 
 def _states(mod, indices, skip):

@@ -24,6 +24,7 @@ import warp_cases
 from comfyui_frame_interpolation_tpu.ops.softsplat import _softsplat_xla
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
 from test_ops_custom import softsplat_oracle
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 ATOL = 1e-5
 CASES = warp_cases.splat_cases(0, 64, 128)

@@ -48,6 +48,7 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_t
 from comfyui_frame_interpolation_tpu_torch.models import stmfnet as ps
 from comfyui_frame_interpolation_tpu_torch.ops import adacof as padacof
 from comfyui_frame_interpolation_tpu_torch.ops.correlation import correlation_func
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_stmfnet_golden.npz")

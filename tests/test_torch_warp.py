@@ -39,6 +39,7 @@ from comfyui_frame_interpolation_tpu_torch.ops.cuda import build as cuda_build
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel as cuda_wk
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp as port_warp
 from comfyui_frame_interpolation_tpu_torch.models import film, m2m, rife
+from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 F32_ATOL = 2e-6
 BF16_ULP = 2.0**-8
