@@ -68,9 +68,10 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
 
 11. wide     -- the wide-channel warp kernel against the plain twin on the
    card, bit for bit (max abs err 0), on the wide cases of
-   ``tests/warp_cases.py`` (C = 32, 64, 192, 448, 960, 46; a channel slice
-   whose taps start off 16 bytes; extreme and non-finite flow; border and
-   zeros, f32 and bf16, at 128x256) and at FILM's level-0 feature warp
+   ``tests/warp_cases.py`` (C = 16, 18, 20, 21, 24, 32, 36, 44, 54, 64, 192,
+   448, 960, 46: every vector width the kernel picks; a channel slice whose
+   taps start off 16 bytes; extreme and non-finite flow; border and zeros,
+   f32 and bf16, at 128x256) and at FILM's level-0 feature warp
    ``[4, 1080, 1920, 64]`` bf16, where K1 must agree too,
    and, as routed, at M2M's feature warps ``[2, 544, 960, 48]`` and ``[2,
    68, 120, 384]`` bf16 in zeros mode, and at RIFE 4.0's Contextnet warps
@@ -194,6 +195,13 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    960, 20]``, the frames over 3 flows ``[6, 1088, 1920, 3]``); then at
    each, bf16, the routed kernel's, the twin's, ``F.grid_sample``'s and,
    where the wide kernel is routed, K1's ms in turns, their device ms, and
+   the bound; the wide kernel forced at ``[2, 544, 960, C]``, C = 16, 18,
+   21 (16-byte, 4-byte and element vectors in bf16), f32 and bf16, border
+   and zeros, bit for bit; and every wide launch that the profiles of
+   phases 10, 14, 18 and 26 recorded (M2M, FILM, GMFSS base and union,
+   STMFNet), plus RIFE 4.0's Contextnet warps, in the layout the path gave
+   it: bit for bit in f32 and bf16, border and zeros, then as recorded the
+   wide kernel's and ``F.grid_sample``'s ms in turns, their device ms and
    the bound;
 29. ifrnet    -- the IFRNet VFI node (random weights from seed 0) on 4
    frames of 135x240 (padded to 192x256 inside), S at x2 and x3 and L at
@@ -230,7 +238,9 @@ PyTorch call computes), its bound: the larger of the bytes it must move
 TFLOP/s, with which of the two bounds it; and ``per_forward``, per path the
 launches, device ms, bound and ms above it of one bf16 forward at each
 path's timed size (1080p; EISAI 540p). The new paths' warp shapes are
-under ``ifrnet_ifunet_amt_shapes`` (K1) and ``by_shape`` (wide).
+under ``ifrnet_ifunet_amt_shapes`` (K1) and ``by_shape`` (wide, every
+main-path shape), and each profile's ``per_forward`` entry lists the
+layouts its launches took (``launch_layouts``).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -252,7 +262,13 @@ SPLAT_SHAPE = (16, 1088, 1920, 4)  # a batch-2 1080p M2M splat: 2 directions x 2
 M2M_HW = (540, 960)
 FILM_HW = (270, 480)
 FILM_WARP_SHAPES = ((4, 1080, 1920, 64), (4, 135, 240, 960))  # FILM 1080p batch 2: level-0 and level-3 feature warps
-WIDE_CHANNELS = (32, 64, 192, 448, 960)
+# the wide cases' widths: FILM's and M2M's, and the narrow ones of RIFE 4.0,
+# IFRNet and AMT with one per vector width the kernel picks (bf16 C = 18: 4
+# bytes, C = 21: an element)
+WIDE_CHANNELS = (16, 18, 20, 21, 24, 32, 36, 44, 54, 64, 192, 448, 960)
+# forced wide at a 1080p feature size: one width per vector in bf16 (16,
+# 4 bytes, an element)
+WIDE_PROBE_SHAPES = ((2, 544, 960, 16), (2, 544, 960, 18), (2, 544, 960, 21))
 M2M_WIDE_SHAPES = ((2, 544, 960, 48), (2, 68, 120, 384))  # M2M 1080p batch 2: encoder-decoder feature warps
 GMFSS_HW = (270, 480)
 # GMFSS 1080p batch 1, one direction of an infer: the half-resolution image
@@ -392,15 +408,25 @@ def spying(targets):
             setattr(module, attr, fn)
 
 
+def launch_layout(x, flow, zeros):
+    """What a warp or splat launch was given, as a hashable tuple: the NHWC
+    shape, the planes' element strides, the start's offset in elements
+    modulo 16 bytes, the dtype, the flow planes' strides and dtype, and the
+    zeros flag."""
+    shape = (x.shape[0], x.shape[2], x.shape[3], x.shape[1])
+    dt = lambda t: str(t.dtype).split(".")[-1]  # noqa: E731
+    return (shape, tuple(x.stride()), x.data_ptr() % 16 // x.element_size(), dt(x), tuple(flow.stride()), dt(flow), zeros)
+
+
 def recorded_work(log):
     """Inside, each call of a kernel wrapper appends ``(kernel, bytes, f32
-    operations)`` of its launch to ``log``, ``kernel`` named as in the
-    kernels line: the launches a model's forward really makes, at the shapes
-    it gives them."""
+    operations, launch_layout)`` of its launch to ``log``, ``kernel`` named
+    as in the kernels line: the launches a model's forward really makes, at
+    the shapes and layouts it gives them."""
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
 
     def record(kernel, work):
-        return lambda x, flow, *_: log.append((kernel, *work(x, flow)))
+        return lambda x, flow, *rest: log.append((kernel, *work(x, flow), launch_layout(x, flow, bool(rest[0]) if rest else False)))
 
     return spying([
         (warp_kernel, "warp_bilinear", record("warp_bilinear", warp_work)),
@@ -514,15 +540,9 @@ def routed_at_path_shape(shape, mode, flow_dtype, body, generator, value_dtype=N
 def grid_sample_call(img, flow, padding_mode="border"):
     """``F.grid_sample`` computing the warp of NHWC ``img`` by ``flow`` on a
     precomputed grid, in the layout the path holds (channels_last planes)."""
-    import torch
-    import torch.nn.functional as F
+    from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import grid_sample_planes
 
-    n, h, w, _ = img.shape
-    gx = torch.arange(w, device=flow.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
-    gy = torch.arange(h, device=flow.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
-    grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1).to(img.dtype)
-    planes = img.permute(0, 3, 1, 2)
-    return lambda: F.grid_sample(planes, grid, mode="bilinear", padding_mode=padding_mode, align_corners=True)
+    return grid_sample_planes(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), padding_mode == "zeros")
 
 
 def bf16_ulp_ok(got, ref):
@@ -558,11 +578,13 @@ def device_us(evt):
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, name=None):
     """Mean device ms per call of ``fn()``: the kernels' own time in a
     ``torch.profiler`` trace of ``iters`` calls, after one warm-up (the
     host's launch cost, which :func:`cuda_ms` takes in for small calls, left
-    out)."""
+    out). With ``name``, for a call that launches one kernel: the mean time
+    of the traced launches of the kernels whose names hold ``name``, which
+    stays right when a trace of many short kernels drops some of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -574,10 +596,12 @@ def device_ms(fn, iters):
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if name is not None:
+            kernels = [e for e in kernels if name in e.key]
         total_us = sum(device_us(e) for e in kernels)
         if total_us > 0:
-            return total_us / 1e3 / iters
-    raise SmokeFailure("device_ms: three profiler traces saw no device time")
+            return total_us / 1e3 / (iters if name is None else sum(e.count for e in kernels))
+    raise SmokeFailure(f"device_ms: three profiler traces saw no device time{'' if name is None else ' in ' + name}")
 
 
 def profile_forward(what, model_fn, *inputs, card):
@@ -621,12 +645,23 @@ def profile_forward(what, model_fn, *inputs, card):
         print(f"  profile op {e.key}: {device_us(e) / 1e3:.3f} ms ({100 * device_us(e) / device_total:.2f} %), {e.count} calls")
     per_kernel = {}
     for kernel, bodies in KERNEL_BODIES.items():
-        work = [(nbytes, ops_) for k, nbytes, ops_ in log if k == kernel]
+        work = [(nbytes, ops_) for k, nbytes, ops_, _ in log if k == kernel]
         if not work:
             continue
         b = bound(sum(w[0] for w in work), sum(w[1] for w in work))
         dev_ms = sum(body_us[body] for body in bodies) / 1e3
-        per_kernel[kernel] = {"launches": len(work), "device_ms": dev_ms, "bound_ms": b[0], "bound_by": b[1], "above_bound_ms": dev_ms - b[0]}
+        layouts = {}
+        for k, _, _, layout in log:
+            if k == kernel:
+                layouts[layout] = layouts.get(layout, 0) + 1
+        per_kernel[kernel] = {
+            "launches": len(work), "device_ms": dev_ms, "bound_ms": b[0], "bound_by": b[1], "above_bound_ms": dev_ms - b[0],
+            "launch_layouts": [
+                {"shape": list(l[0]), "strides": list(l[1]), "offset": l[2], "dtype": l[3], "flow_strides": list(l[4]),
+                 "flow_dtype": l[5], "zeros": l[6], "launches": n}
+                for l, n in layouts.items()
+            ],
+        }
         print(
             f"  profile kernel {kernel}: {len(work)} launches, {dev_ms:.3f} ms on the device, bound {b[0]:.3f} ms "
             f"({b[1]}), {dev_ms - b[0]:.3f} ms above it",
@@ -1957,6 +1992,75 @@ def main() -> int:
             flush=True,
         )
     del img, flow, gs, planes, fplanes
+    # the wide kernel forced at one width per vector it picks, 1080p sizes
+    probe_errs = {}
+    for shape in WIDE_PROBE_SHAPES:
+        flow32 = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            img = torch.rand(shape, generator=g).to(dev, dt)
+            for mode in ("border", "zeros"):
+                got, ref = warp(img, flow32.to(dt), mode, prefer_wide=True), warp_torch(img, flow32.to(dt), mode)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                check(torch.equal(got, ref), f"wide kernel vs plain at {list(shape)} {dt} {mode}: max err {err}, not bit-exact")
+                probe_errs[f"{list(shape)} {str(dt).split('.')[-1]} {mode}"] = err
+    del img, flow32, got, ref
+    print("slice8 kernels: the wide kernel forced, vs plain, bit-exact at " + ", ".join(f"{k} max err {v}" for k, v in probe_errs.items()), flush=True)
+
+    # every other main path's wide launches as its profile recorded them
+    # (FILM, M2M, GMFSS base and union, STMFNet), and RIFE 4.0's Contextnet
+    # warps (bf16, border, contiguous): in the recorded layout, f32 and bf16
+    # values (flow in the same dtype), border and zeros, bit for bit against
+    # the twin; then as recorded, the wide kernel's and grid_sample's ms, by
+    # CUDA events and on the device, and the bound
+    from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import grid_sample_planes, strided_like
+
+    path_layouts = {}
+    profiled = {"m2m": m2m_profile, "film": film_profile, **gmfss_profiles, "stmfnet": stmf_profile}
+    for path, prof in profiled.items():
+        for lay in prof.get("warp_bilinear_wide", {}).get("launch_layouts", ()):
+            key = (tuple(lay["shape"]), tuple(lay["strides"]), lay["offset"], lay["dtype"], tuple(lay["flow_strides"]), lay["flow_dtype"], lay["zeros"])
+            path_layouts.setdefault(key, {})[path] = lay["launches"]
+    for shape in RIFE40_WIDE_SHAPES:
+        n_, h_, w_, c_ = shape
+        key = (shape, (h_ * w_ * c_, 1, w_ * c_, c_), 0, "bfloat16", (h_ * w_ * 2, 1, w_ * 2, 2), "bfloat16", False)
+        path_layouts.setdefault(key, {})["rife40 540p b2 refined"] = 1
+    path_wide_times = {}
+    gd = torch.Generator(device=dev).manual_seed(9)
+    for (shape, strides, offset, dts, fstrides, fdts, zeros), paths in sorted(path_layouts.items(), key=lambda kv: -math.prod(kv[0][0])):
+        n_, h_, w_, c_ = shape
+        flow32 = torch.from_numpy(warp_cases.smooth_flow(n_, h_, w_, amp=6.0)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            planes = strided_like((n_, c_, h_, w_), strides, offset, dt, dev, torch.rand((n_, c_, h_, w_), generator=gd, device=dev).to(dt))
+            fplanes = flow32.to(dt).permute(0, 3, 1, 2)
+            for z in (False, True):
+                got = warp_kernel.warp_bilinear_wide(planes, fplanes, z).permute(0, 2, 3, 1)
+                ref = warp_torch(planes.permute(0, 2, 3, 1), flow32.to(dt), "zeros" if z else "border")
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                check(torch.equal(got, ref), f"wide kernel vs plain at {list(shape)} {dt} zeros={z} (layout of {paths}): max err {err}, not bit-exact")
+                del got, ref
+        dt, fdt = getattr(torch, dts), getattr(torch, fdts)
+        planes = strided_like((n_, c_, h_, w_), strides, offset, dt, dev, torch.rand((n_, c_, h_, w_), generator=gd, device=dev).to(dt))
+        fplanes = strided_like((n_, 2, h_, w_), fstrides, 0, fdt, dev, flow32.to(fdt).permute(0, 3, 1, 2))
+        gs = grid_sample_planes(planes, fplanes, zeros)
+        wide_fn = lambda: warp_kernel.warp_bilinear_wide(planes, fplanes, zeros)  # noqa: E731
+        times = in_turns({"wide": (wide_fn, 30), "grid_sample": (gs, 10)})
+        dev_k, dev_gs = device_ms(wide_fn, 10, "warp_bilinear_wide_kernel"), device_ms(gs, 10, "grid_sampler")
+        wb = bound(*warp_work(planes, fplanes))
+        key = f"{'x'.join(map(str, shape))} {dts} {'zeros' if zeros else 'border'}, {fdts} flow, {'channels_last' if planes.is_contiguous(memory_format=torch.channels_last) else 'strided'}"
+        path_wide_times[key] = {
+            "kernel": "wide", "paths": paths, "ms": statistics.mean(times["wide"]), "device_ms": dev_k,
+            "library_ms": statistics.mean(times["grid_sample"]), "library_device_ms": dev_gs, "bound_ms": wb[0], "bound_by": wb[1],
+        }
+        print(
+            f"timing {card}: wide {key} ({', '.join(f'{p} x{k}' for p, k in paths.items())}), bit-exact in f32 and bf16, border "
+            f"and zeros: wide {statistics.mean(times['wide']):.4f} ms {times['wide']}, grid_sample "
+            f"{statistics.mean(times['grid_sample']):.4f} ms; device wide {dev_k:.4f} ms, grid_sample {dev_gs:.4f} ms; bound "
+            f"{wb[0]:.4f} ms ({wb[1]}), wide on the device at {100 * wb[0] / dev_k:.1f} % of it",
+            flush=True,
+        )
+        del planes, fplanes, gs, flow32
 
     def timestep_node(label, node, ckpt, params, batch, mults, per_forward, **kw):
         """``node`` on 4 frames of 135x240, each multiplier in ``mults``, on
@@ -2191,6 +2295,7 @@ def main() -> int:
                 **wide_times, **{k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "wide"},
                 **{k: v for k, v in stmf_warp_times.items() if v["kernel"] == "wide"},
                 **{k: v for k, v in s8_warp_times.items() if v["kernel"] == "wide"},
+                **path_wide_times,
             },
             "stmfnet_backwarp_designs": design_times,
             "per_forward": per_forward["warp_bilinear_wide"],

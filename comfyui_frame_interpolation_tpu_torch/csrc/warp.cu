@@ -8,8 +8,9 @@
 //     _patch_kernel / _patch_tile (exact patch pass, l.647/687, via _run_patch)
 // Its body is warp_bilinear_tiled_kernel, for any strides.
 // warp_bilinear_wide_kernel replaces the rows/MXU kernel of the same file,
-//     _warp_kernel_rows_mxu (l.297, via warp_pallas_rows_v3), which FILM's
-//     and M2M's wide feature warps (C = 32 .. 960) take.
+//     _warp_kernel_rows_mxu (l.297, via warp_pallas_rows_v3), which the
+//     feature warps take (C = 16 .. 960: FILM, M2M, GMFSS, STMFNet, RIFE
+//     4.0's Contextnet, IFRNet, IFUnet, AMT).
 // The TPU has no fast gather, so those kernels tile the frame into (8, 128)
 // blocks, DMA a source window per block, patch the blocks whose flow left the
 // window, and for wide features fold channels into the batch and sum the taps
@@ -63,17 +64,40 @@
 // channel slices) take the same body with scalar stores: on NCHW planes it
 // measured 1.6x faster than the loop per pixel (PERF.md).
 //
-// The wide body is for channel-stride-1 features whose pixels span 32 bytes
-// or more, or a whole number of 16-byte vectors. A group of G lanes serves
-// one pixel: each lane computes the pixel's coordinates and weights (the same
-// values, from the same flow load), then the lanes stride over the channels with 16-byte vector loads, 8
-// bf16/f16 or 4 f32, so a group reads each tap as whole contiguous lines. G
-// is the power of two that covers C / 8 (bf16) or C / 4 (f32), at most 32: 8
-// lanes at C = 64 bf16 (one 128 B line per tap), a full warp that loops 3.75
-// times at C = 960. Channels past the last whole vector, and every channel of
-// a pixel whose tap or output addresses are not 16-byte aligned (a channel
-// slice, or a C whose pixels do not start on 16 bytes), take a scalar path
-// whose lanes still stride over the channels.
+// The wide body is for channel-stride-1 features. It is bound by memory too,
+// but its pixels are 32 to 1920 bytes, so what decides its speed is how each
+// tap's run of channels is read: as few loads as the alignment allows, every
+// lane busy, and one flow load and one coordinate computation per pixel, not
+// per lane. Pixels of 40 to 108 bytes (bf16 C = 20, 36, 44, 54: IFRNet's and
+// AMT's features) mostly do not start on 16 bytes, so 16-byte loads alone
+// cannot serve them, and a power-of-two lane group per pixel would leave
+// lanes idle. The body:
+//   1. picks its vector width V on the host: the largest of 16, 8 and 4
+//      bytes, or else one element, that divides the pixel's bytes, every
+//      image and output stride and both base addresses, so every tap and
+//      output pixel starts on V bytes and no pixel takes a narrower path
+//      (bf16 C = 20, 36, 44 read 8-byte vectors, C = 54 4-byte ones, C = 24,
+//      32, 64 ... 960 16-byte ones; a channel slice with an odd start reads
+//      elements, exactly);
+//   2. gives a block a flat run of pixels (of all n * h * w, so the narrow
+//      rows of deep levels fill blocks too) of up to 2048 (pixel, vector)
+//      pairs, fewer where the grid would otherwise have under 2 blocks an
+//      SM (the deep levels' launches take a few microseconds, and their
+//      latency, not the bytes, sets their time): a thread per pixel loads
+//      its flow once (8 bytes), computes its taps and weights with
+//      bilinear_taps and stages them in shared memory;
+//   3. then lets the block's lanes cover the run's (pixel, vector) pairs in
+//      order, pair q being vector q % P of pixel q / P (P = C * size / V,
+//      stepped without a division): no lane idles but at the run's end,
+//      each warp stores one contiguous stretch of the output, and reads each
+//      tap as contiguous V-byte runs through L1;
+//   4. gives each thread 2 (16-byte) or 4 (narrower) pairs at a time with
+//      all their tap loads issued before the first sum (4 and 8 measured
+//      slower: more registers, fewer blocks resident).
+// The sums are blend's, in the twin's order: bit for bit the twin's result.
+// On the H100 it reaches 84-90 % of the bytes bound on FILM's levels and
+// 58-71 % on IFRNet's and AMT's C = 20-36 features (PERF.md); 4-byte
+// vectors (bf16 C = 54) stay below half of it.
 //
 // Which kernel a call takes is decided in Python
 // (ops/cuda/warp_kernel.py:route), from C, the dtype and the channel stride.
@@ -411,71 +435,149 @@ __global__ void __launch_bounds__(kTileThreads)
 
 // ---- the wide kernel ----------------------------------------------------------
 
-// 16 bytes of T as floats, and back.
-template <typename T>
-struct Vec16 {
-  static constexpr int kN = 16 / sizeof(T);
-  alignas(16) T v[kN];
+constexpr int kWideThreads = 256;
+// the most pixels a block stages taps for (the size of its shared tap table)
+constexpr int kWidePixels = 256;
+// the (pixel, vector) pairs a block covers: up to kWideVectorsPerBlock (8 a
+// thread), fewer where that would leave fewer than kWideMinBlocks blocks (2
+// on each of the H100's 132 SMs), but at least one a thread
+constexpr int kWideVectorsPerBlock = 2048;
+constexpr int64_t kWideMinBlocks = 264;
+
+// V bytes of channels as one load or store
+template <int V>
+struct VecBits;
+template <>
+struct VecBits<16> {
+  using T = uint4;
+};
+template <>
+struct VecBits<8> {
+  using T = uint2;
+};
+template <>
+struct VecBits<4> {
+  using T = unsigned int;
+};
+template <>
+struct VecBits<2> {
+  using T = unsigned short;
 };
 
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, Vec16<T>& r) {
-  *reinterpret_cast<uint4*>(r.v) = __ldg(reinterpret_cast<const uint4*>(p));
+template <typename T, int V>
+struct Vec {
+  static constexpr int kN = V / static_cast<int>(sizeof(T));
+  alignas(V) T v[kN];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, Vec<T, V>& r) {
+  using B = typename VecBits<V>::T;
+  *reinterpret_cast<B*>(r.v) = __ldg(reinterpret_cast<const B*>(p));
 }
 
-template <typename TI, typename TF, bool ZEROS>
-__global__ void warp_bilinear_wide_kernel(const TI* __restrict__ img,
-                                          const TF* __restrict__ flow,
-                                          TI* __restrict__ out, int64_t c,
-                                          int64_t h, int64_t w, int log2_group,
-                                          Strides si, Strides sf, Strides so) {
-  // grid (ceil(w / (blockDim.x >> log2_group)), h, n); channel stride is 1
-  const int lane = threadIdx.x & ((1 << log2_group) - 1);
-  const int group = 1 << log2_group;
-  const int64_t x =
-      static_cast<int64_t>(blockIdx.x) * (blockDim.x >> log2_group) +
-      (threadIdx.x >> log2_group);
-  if (x >= w) return;
-  const int64_t y = blockIdx.y;
-  const int64_t b = blockIdx.z;
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const Vec<T, V>& r) {
+  using B = typename VecBits<V>::T;
+  *reinterpret_cast<B*>(p) = *reinterpret_cast<const B*>(r.v);
+}
 
-  const TF* fp = flow + b * sf.n + y * sf.h + x * sf.w;
-  const Taps t = bilinear_taps<ZEROS>(x, y, load_f32(fp), load_f32(fp + sf.c),
-                                      h, w, si.h, si.w);
-  const TI* base = img + b * si.n;
-  const TI* t00 = base + t.o00;
-  const TI* t01 = base + t.o01;
-  const TI* t10 = base + t.o10;
-  const TI* t11 = base + t.o11;
-  TI* o = out + b * so.n + y * so.h + x * so.w;
+// A staged pixel's four tap offsets from img, in elements
+struct alignas(16) TapOffsets {
+  int64_t o00, o01, o10, o11;
+};
 
-  constexpr int kVec = Vec16<TI>::kN;
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(t00) | reinterpret_cast<uintptr_t>(t01) |
-        reinterpret_cast<uintptr_t>(t10) | reinterpret_cast<uintptr_t>(t11) |
-        reinterpret_cast<uintptr_t>(o)) &
-       15) == 0;
-  const int64_t c_vec = aligned ? (c / kVec) * kVec : 0;
+// a / d for non-negative a, d: a 32-bit division where both fit (every
+// practical frame), a 64-bit one otherwise
+__device__ __forceinline__ int64_t div_index(int64_t a, int64_t d) {
+  return ((a | d) >> 32) == 0
+             ? static_cast<int64_t>(static_cast<uint32_t>(a) / static_cast<uint32_t>(d))
+             : a / d;
+}
 
-  for (int64_t ch = static_cast<int64_t>(lane) * kVec; ch < c_vec;
-       ch += static_cast<int64_t>(group) * kVec) {
-    Vec16<TI> a, bq, cq, d, r;
-    load_vec(t00 + ch, a);
-    load_vec(t01 + ch, bq);
-    load_vec(t10 + ch, cq);
-    load_vec(t11 + ch, d);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      store_f32(&r.v[i], blend(load_f32(&a.v[i]), load_f32(&bq.v[i]),
-                               load_f32(&cq.v[i]), load_f32(&d.v[i]), t));
-    }
-    *reinterpret_cast<uint4*>(o + ch) = *reinterpret_cast<const uint4*>(r.v);
+// V: the vector width in bytes, chosen by the host so that every tap and
+// output pixel starts on V bytes; vecs: vectors per pixel (C * sizeof(TI) / V);
+// block_pixels: pixels per block, at most kWidePixels.
+template <typename TI, typename TF, bool ZEROS, int V>
+__global__ void __launch_bounds__(kWideThreads)
+    warp_bilinear_wide_kernel(const TI* __restrict__ img,
+                              const TF* __restrict__ flow,
+                              TI* __restrict__ out, int64_t npix, int64_t h,
+                              int64_t w, int vecs, int block_pixels,
+                              Strides si, Strides sf, Strides so) {
+  // grid (ceil(npix / block_pixels)); a block takes the flat run of pixels
+  // [g0, g0 + block_pixels) of all n * h * w, row-major
+  constexpr int kN = Vec<TI, V>::kN;
+  constexpr int kUnroll = V >= 16 ? 2 : 4;
+  __shared__ TapOffsets s_taps[kWidePixels];
+  __shared__ float4 s_weights[kWidePixels];
+  __shared__ int64_t s_out[kWidePixels];
+
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * block_pixels;
+  const int np = static_cast<int>(npix - g0 < block_pixels ? npix - g0 : block_pixels);
+
+  // 1. a thread per pixel: one flow load, the taps and weights, staged
+  for (int i = threadIdx.x; i < np; i += kWideThreads) {
+    const int64_t g = g0 + i;
+    const int64_t row = div_index(g, w);
+    const int64_t x = g - row * w;
+    const int64_t b = div_index(row, h);
+    const int64_t y = row - b * h;
+    float fx, fy;
+    load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
+    const Taps t = bilinear_taps<ZEROS>(x, y, fx, fy, h, w, si.h, si.w);
+    const int64_t ib = b * si.n;
+    s_taps[i] = TapOffsets{ib + t.o00, ib + t.o01, ib + t.o10, ib + t.o11};
+    s_weights[i] = make_float4(t.w00, t.w01, t.w10, t.w11);
+    s_out[i] = b * so.n + y * so.h + x * so.w;
   }
-  // scalar path: the tail past the last whole vector, or every channel of a
-  // pixel whose addresses are not 16-byte aligned
-  for (int64_t ch = c_vec + lane; ch < c; ch += group) {
-    store_f32(o + ch, blend(load_f32(t00 + ch), load_f32(t01 + ch),
-                            load_f32(t10 + ch), load_f32(t11 + ch), t));
+  __syncthreads();
+
+  // 2. the lanes cover the block's (pixel, vector) pairs in order, so a warp
+  // stores one contiguous run of the output and reads each tap as contiguous
+  // runs; kUnroll pairs a thread, all their loads issued before the first sum.
+  // Pair q is pixel q / vecs, vector q % vecs, stepped without a division.
+  const int total = np * vecs;
+  const int step_p = kWideThreads / vecs;
+  const int step_v = kWideThreads - step_p * vecs;
+  int p = static_cast<int>(threadIdx.x) / vecs;
+  int v = static_cast<int>(threadIdx.x) - p * vecs;
+  for (int q = threadIdx.x; q < total; q += kUnroll * kWideThreads) {
+    Vec<TI, V> a[kUnroll], bq[kUnroll], cq[kUnroll], d[kUnroll];
+    int pu[kUnroll], vu[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      pu[u] = p;
+      vu[u] = v;
+      if (q + u * kWideThreads < total) {
+        const TapOffsets o = s_taps[p];
+        const int64_t ch = static_cast<int64_t>(v) * kN;
+        load_vec(img + o.o00 + ch, a[u]);
+        load_vec(img + o.o01 + ch, bq[u]);
+        load_vec(img + o.o10 + ch, cq[u]);
+        load_vec(img + o.o11 + ch, d[u]);
+      }
+      p += step_p;
+      v += step_v;
+      if (v >= vecs) {
+        v -= vecs;
+        ++p;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (q + u * kWideThreads < total) {
+        const float4 wt = s_weights[pu[u]];
+        const Taps t{0, 0, 0, 0, wt.x, wt.y, wt.z, wt.w};
+        Vec<TI, V> r;
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          store_f32(&r.v[i], blend(load_f32(&a[u].v[i]), load_f32(&bq[u].v[i]),
+                                   load_f32(&cq[u].v[i]), load_f32(&d[u].v[i]), t));
+        }
+        store_vec(out + s_out[pu[u]] + static_cast<int64_t>(vu[u]) * kN, r);
+      }
+    }
   }
 }
 
@@ -506,17 +608,39 @@ void launch_body(const TI* ip, const TF* fp, TI* op, Body body,
     }
     return;
   }
-  // the group covers C in 16-byte vectors, rounded up to a power of two <= 32
-  constexpr int kThreads = 256;
-  const int64_t vectors = (l.c + Vec16<TI>::kN - 1) / Vec16<TI>::kN;
-  int log2_group = 0;
-  while (log2_group < 5 && (int64_t{1} << log2_group) < vectors) ++log2_group;
-  const int64_t pixels_per_block = kThreads >> log2_group;
-  const dim3 blocks(
-      static_cast<unsigned int>((l.w + pixels_per_block - 1) / pixels_per_block),
-      static_cast<unsigned int>(l.h), static_cast<unsigned int>(l.n));
-  warp_bilinear_wide_kernel<TI, TF, ZEROS><<<blocks, kThreads, 0, l.stream>>>(
-      ip, fp, op, l.c, l.h, l.w, log2_group, l.si, l.sf, l.so);
+  // the vector width: the largest of 16, 8 and 4 bytes (else one element)
+  // that divides the pixel's bytes, every image and output stride and both
+  // base addresses, so every tap and output pixel starts on it
+  constexpr int64_t isz = sizeof(TI);
+  const uint64_t bits =
+      static_cast<uint64_t>(l.c * isz) | static_cast<uint64_t>(l.si.n * isz) |
+      static_cast<uint64_t>(l.si.h * isz) | static_cast<uint64_t>(l.si.w * isz) |
+      static_cast<uint64_t>(l.so.n * isz) | static_cast<uint64_t>(l.so.h * isz) |
+      static_cast<uint64_t>(l.so.w * isz) | reinterpret_cast<uintptr_t>(ip) |
+      reinterpret_cast<uintptr_t>(op);
+  const int64_t vb = bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : bits % 4 == 0 ? 4 : isz;
+  const int64_t vecs = l.c * isz / vb;
+  const int64_t npix = l.n * l.h * l.w;
+  int64_t pairs = npix * vecs / kWideMinBlocks;
+  pairs = pairs < kWideThreads ? kWideThreads : (pairs > kWideVectorsPerBlock ? kWideVectorsPerBlock : pairs);
+  const int64_t per_block = pairs / vecs;
+  const int block_pixels = static_cast<int>(
+      per_block < 1 ? 1 : (per_block > kWidePixels ? kWidePixels : per_block));
+  const dim3 blocks(static_cast<unsigned int>((npix + block_pixels - 1) / block_pixels));
+  const int v = static_cast<int>(vecs);
+  if (vb == 16) {
+    warp_bilinear_wide_kernel<TI, TF, ZEROS, 16><<<blocks, kWideThreads, 0, l.stream>>>(
+        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+  } else if (vb == 8) {
+    warp_bilinear_wide_kernel<TI, TF, ZEROS, 8><<<blocks, kWideThreads, 0, l.stream>>>(
+        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+  } else if (vb == 4) {
+    warp_bilinear_wide_kernel<TI, TF, ZEROS, 4><<<blocks, kWideThreads, 0, l.stream>>>(
+        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+  } else if constexpr (sizeof(TI) == 2) {
+    warp_bilinear_wide_kernel<TI, TF, ZEROS, 2><<<blocks, kWideThreads, 0, l.stream>>>(
+        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+  }
 }
 
 template <typename TI, typename TF>
@@ -553,6 +677,9 @@ int launch(const void* img, const void* flow, void* out, int img_dtype,
            int flow_dtype, bool zeros, Body body, const Launch& l) {
   if (l.n * l.h * l.w == 0) return 0;
   if (l.n > 65535 || l.h > 65535) return -2;  // grid y/z limits
+  // the wide kernel counts pixels in a one-dimensional grid and (pixel,
+  // vector) pairs in ints
+  if (body == kWide && (l.n * l.h * l.w > 0x7fffffff || l.c > (int64_t{1} << 28))) return -2;
   int rc;
   switch (img_dtype) {
     case kF32:
@@ -605,7 +732,8 @@ extern "C" int cfi_warp_bilinear(
 
 // The same warp by the wide kernel. `img` and `out` must have channel stride
 // 1 (channels_last); their batch, row and pixel strides are free. Same return
-// codes as cfi_warp_bilinear.
+// codes as cfi_warp_bilinear, and -2 also when n * h * w exceeds 2^31 - 1 or
+// c exceeds 2^28.
 extern "C" int cfi_warp_bilinear_wide(
     const void* img, const void* flow, void* out, int img_dtype,
     int flow_dtype, int zeros, int64_t n, int64_t c, int64_t h, int64_t w,

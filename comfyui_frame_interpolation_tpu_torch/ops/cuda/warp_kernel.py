@@ -6,11 +6,14 @@ warp kernels (``comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py``:
 strides: a thread per pixel of a 4x32 tile, every tap load of a pixel issued
 at once, rows of 8- to 32-byte pixels written back from shared memory as
 16-byte vectors. :func:`warp_bilinear_wide` replaces the rows/MXU kernel of
-the same file (``_warp_kernel_rows_mxu``): a group of lanes per pixel,
-16-byte channel vectors. Both compute the same function from the same
-coordinate/weight code, bit for bit. The plain PyTorch version of it is
-``ops.warp.warp_torch``; ``ops.warp.warp`` takes the twin for CPU tensors and
-the kernel :func:`route` names for CUDA tensors.
+the same file (``_warp_kernel_rows_mxu``): each pixel's flow, taps and
+weights computed once and staged in shared memory, then the lanes over the
+(pixel, vector) pairs of a run of pixels, in vectors of the widest of 16, 8
+and 4 bytes (or one element) on which every pixel starts. Both compute the
+same function from the same coordinate/weight code, bit for bit. The plain
+PyTorch version of it is ``ops.warp.warp_torch``; ``ops.warp.warp`` takes
+the twin for CPU tensors and the kernel :func:`route` names for CUDA
+tensors.
 
 ``launches`` counts the launches of K1 and ``wide_launches`` those of the
 wide kernel, so that a run can show which kernels its main path went
@@ -41,8 +44,8 @@ launches = 0
 wide_launches = 0
 
 # a pixel of this many bytes or more, or of a whole number of 16-byte
-# vectors, takes the wide kernel (placed on an H100: PERF.md, the routing
-# threshold)
+# vectors, takes the wide kernel (placed on an H100 by
+# utils/kernel_compare.py's threshold sweep: PERF.md)
 WIDE_MIN_BYTES = 32
 
 
@@ -126,17 +129,18 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) ->
 
 def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) -> torch.Tensor:
     """:func:`warp_bilinear` by the wide-channel kernel, for ``channels_last``
-    images with many channels (FILM's features, C = 64 to 960; M2M's, C = 32
-    to 384).
+    features (FILM's, C = 64 to 960; M2M's, C = 32 to 384; IFRNet's and
+    AMT's, C = 20 to 54; RIFE 4.0's Contextnet, C = 16 to 128).
 
-    The kernel reads channels as contiguous 16-byte vectors, so ``img`` must
-    have channel stride 1 (``img.stride(1) == 1``, as a ``channels_last``
-    tensor or an NHWC tensor's permuted view has). Given any other layout, the
-    wrapper makes one ``channels_last`` copy of ``img`` first. Batch, row and
-    pixel strides are free, and a channel slice with an unaligned start is
-    taken as it is (the kernel reads it with scalar loads). The output is a
-    new ``channels_last`` tensor. The kernel launches on the current stream
-    and nothing synchronises."""
+    The kernel reads each pixel's channels as contiguous vectors, so ``img``
+    must have channel stride 1 (``img.stride(1) == 1``, as a
+    ``channels_last`` tensor or an NHWC tensor's permuted view has). Given
+    any other layout, the wrapper makes one ``channels_last`` copy of ``img``
+    first. Batch, row and pixel strides are free: the vector width is the
+    widest of 16, 8 and 4 bytes that divides the pixel's bytes, the strides
+    and the base addresses, and a channel slice with an odd start is read an
+    element at a time. The output is a new ``channels_last`` tensor. The
+    kernel launches on the current stream and nothing synchronises."""
     global wide_launches
     check_planes_and_flow("warp_bilinear_wide", img, flow)
     n, c, h, w = img.shape

@@ -26,9 +26,22 @@ at the main paths' shapes:
   output (M2M's weighted values cancel in the sums, so the check is relative
   to the output's scale).
 
-It also times K1 against the wide kernel at ``[4, 1088, 1920, C]`` bf16, C =
-3 to 32, the sweep that placed the routing threshold
-(``warp_kernel.WIDE_MIN_BYTES``).
+* the wide kernel at every wide warp shape of the main paths, as one
+  forward of each records them (FILM 1080p b2, M2M 1080p b2, GMFSS 1080p
+  b1, STMFNet 1080p b1, IFRNet S 1080p b4, IFUnet 1080p b2, AMT-S 1080p b2,
+  all bf16, and RIFE 4.0's Contextnet at 540x960 b2, bf16, fast mode off):
+  each shape with the layout, dtypes and mode the path gives it, on random
+  values and smooth flow (amplitude 6 px). The old version is the other
+  checkout's ``cfi_warp_bilinear_wide`` (14 ``int64`` arguments), the new one
+  ``warp_kernel.warp_bilinear_wide``; both must agree bit for bit. Times are
+  device ms from a ``torch.profiler`` trace (the host's launch cost, which
+  would set the pace of the small shapes under CUDA events, left out), in
+  turns, beside ``F.grid_sample``'s device ms on the same tensors and the
+  bound; and per path, the sum over one forward's launches.
+
+It also times K1 against the wide kernel at ``[4, 1088, 1920, C]``, C = 3 to
+32 in bf16 and 3 to 8 in f32, the sweep that places the routing threshold
+(``warp_kernel.WIDE_MIN_BYTES``). ``--sections`` picks the parts to run.
 
 Every line printed names the card and its power limit; the numbers also go to
 ``--out`` as JSON.
@@ -56,8 +69,12 @@ from ..ops.softsplat import softsplat_func
 from ..ops.warp import warp
 
 WARP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
+WIDE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 14 + [ctypes.c_void_p]
 SPLAT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
-THRESHOLD_CHANNELS = (3, 4, 7, 8, 12, 16, 24, 32)
+THRESHOLD_CHANNELS = {torch.bfloat16: (3, 4, 6, 7, 8, 10, 12, 14, 16, 24, 32), torch.float32: (3, 4, 6, 7, 8)}
+SECTIONS = ("k1", "k2", "wide", "threshold")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
 
 
 def smooth_flow(b: int, h: int, w: int, amp: float, scale: float = 200.0) -> np.ndarray:
@@ -90,6 +107,39 @@ def in_turns(old: Callable, new: Callable, iters: int) -> Dict[str, float]:
     c = ms(new, iters)
     d = ms(old, iters)
     return {"old_ms": statistics.mean((a, d)), "new_ms": statistics.mean((b, c)), "old": [a, d], "new": [b, c]}
+
+
+def device_ms(fn: Callable, iters: int, name: str) -> float:
+    """Device ms of one call of ``fn()``, which launches one kernel whose
+    name holds ``name``: the mean time of its launches in a
+    ``torch.profiler`` trace of ``iters`` calls, after one warm-up (a trace
+    of many short kernels may drop some; the mean of those it kept stays
+    right)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace of a few short kernels now and then comes back empty: trace again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA") and name in e.key]
+        total_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0) for e in on_device)
+        if total_us > 0:
+            return total_us / 1e3 / sum(e.count for e in on_device)
+    raise RuntimeError(f"device_ms: three profiler traces saw no device time in {name}")
+
+
+def warp_bound_ms(planes: torch.Tensor, flow_planes: torch.Tensor) -> Tuple[float, str]:
+    """The least ms the card could take for one warp: the image and flow read
+    once and the output written once over the memory rate, or 7 f32
+    operations a channel and 14 a pixel over the f32 rate, whichever is
+    larger."""
+    n, c, h, w = planes.shape
+    nbytes = 2 * planes.numel() * planes.element_size() + flow_planes.numel() * flow_planes.element_size()
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * n * h * w * (7 * c + 14) / F32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bind(lib: ctypes.CDLL, name: str, argtypes) -> Callable:
@@ -127,6 +177,151 @@ def call_splat(fn: Callable, vals: torch.Tensor, flow: torch.Tensor) -> torch.Te
     if rc != 0:
         raise RuntimeError(f"splat launch returned {rc}")
     return out.permute(0, 2, 3, 1).to(vals.dtype)
+
+
+def call_wide(fn: Callable, planes: torch.Tensor, fplanes: torch.Tensor, zeros: bool) -> torch.Tensor:
+    """``fn`` (a ``cfi_warp_bilinear_wide`` entry: channel stride 1, 14
+    ``int64`` arguments) on ``[N, C, H, W]`` planes, into a new
+    ``channels_last`` tensor, as ``warp_kernel.warp_bilinear_wide`` calls it
+    (with its one copy of planes whose channels are not contiguous)."""
+    if planes.shape[1] > 1 and planes.stride(1) != 1:
+        planes = planes.contiguous(memory_format=torch.channels_last)
+    out = torch.empty(planes.shape, dtype=planes.dtype, device=planes.device, memory_format=torch.channels_last)
+    n, c, h, w = planes.shape
+    si, so = planes.stride(), out.stride()
+    rc = fn(
+        planes.data_ptr(), fplanes.data_ptr(), out.data_ptr(), DTYPE_CODES[planes.dtype], DTYPE_CODES[fplanes.dtype],
+        int(zeros), n, c, h, w, si[0], si[2], si[3], *fplanes.stride(), so[0], so[2], so[3],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"wide warp launch returned {rc}")
+    return out
+
+
+def grid_sample_planes(planes: torch.Tensor, fplanes: torch.Tensor, zeros: bool) -> Callable:
+    """``F.grid_sample`` computing the same warp of ``planes`` on a
+    precomputed grid (the library yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    n, _, h, w = planes.shape
+    gx = torch.arange(w, device=planes.device, dtype=torch.float32).view(1, 1, w) + fplanes[:, 0].float()
+    gy = torch.arange(h, device=planes.device, dtype=torch.float32).view(1, h, 1) + fplanes[:, 1].float()
+    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1).to(planes.dtype)
+    mode = "zeros" if zeros else "border"
+    return lambda: F.grid_sample(planes, grid, mode="bilinear", padding_mode=mode, align_corners=True)
+
+
+def wide_paths(dev) -> Dict[str, Tuple[int, Tuple[int, int], bool, Callable]]:
+    """``{path: (batch, (H, W), takes a window of 4 frames, make model_fn)}``:
+    the main paths that launch the wide kernel, at their timed sizes, bf16."""
+    from ..models import amt, film, gmfss, ifrnet, ifunet, rife, stmfnet
+
+    bf16 = torch.bfloat16
+    return {
+        "film 1080p b2": (2, (1080, 1920), False, lambda: film.make_model_fn(film.init_params(0), dtype=bf16, device=dev)),
+        "m2m 1080p b2": (2, (1080, 1920), False, lambda: m2m.make_model_fn(m2m.init_params(0), dtype=bf16, device=dev)),
+        "gmfss 1080p b1": (1, (1080, 1920), False, lambda: gmfss.make_model_fn(gmfss.init_params(0), dtype=bf16, device=dev)),
+        "stmfnet 1080p b1": (1, (1080, 1920), True, lambda: stmfnet.make_model_fn(stmfnet.init_params(0), dtype=bf16, device=dev)),
+        "ifrnet_s 1080p b4": (4, (1080, 1920), False, lambda: ifrnet.make_model_fn(ifrnet.init_params("S", 0), "S", dtype=bf16, device=dev)),
+        "ifunet 1080p b2": (2, (1080, 1920), False, lambda: ifunet.make_model_fn(ifunet.init_params(0), dtype=bf16, device=dev)),
+        "amt_s 1088x1920 b2": (2, (1088, 1920), False, lambda: amt.make_model_fn(amt.init_params("S", 0), "amt-s.pth", dtype=bf16, device=dev)),
+        "rife40 540p b2 refined": (2, (540, 960), False, lambda: rife.make_model_fn(
+            rife.init_params(0, "4.0"), "4.0", fastmode=False, dtype=bf16, device=dev)),
+    }
+
+
+def path_wide_warps(dev) -> Dict[tuple, Dict]:
+    """One forward of each of :func:`wide_paths` with the wide kernel's
+    wrapper spied on: ``{(NHWC shape, planes' strides, start offset mod 16
+    bytes in elements, dtype, flow strides, flow dtype, zeros): {"paths":
+    {path: launches per forward}}}``."""
+    found: Dict[tuple, Dict] = {}
+    real = warp_kernel.warp_bilinear_wide
+    for path, (n, hw, window, make) in wide_paths(dev).items():
+        fn = make()
+        frames = [torch.from_numpy(np.random.default_rng(i).random((n, *hw, 3), dtype=np.float32)).to(dev)
+                  for i in range(4 if window else 2)]
+        args = frames if window else (*frames, torch.full((n,), 0.5, device=dev))
+
+        def spy(img, flow, zeros=False, path=path):
+            key = ((img.shape[0], img.shape[2], img.shape[3], img.shape[1]), tuple(img.stride()),
+                   img.data_ptr() % 16 // img.element_size(), img.dtype, tuple(flow.stride()), flow.dtype, bool(zeros))
+            per = found.setdefault(key, {"paths": {}})["paths"]
+            per[path] = per.get(path, 0) + 1
+            return real(img, flow, zeros)
+
+        warp_kernel.warp_bilinear_wide = spy
+        try:
+            with torch.no_grad():
+                fn(*args)
+            torch.cuda.synchronize()
+        finally:
+            warp_kernel.warp_bilinear_wide = real
+        del fn, frames, args
+        torch.cuda.empty_cache()
+    return found
+
+
+def strided_like(shape, strides, offset: int, dtype, dev, values: torch.Tensor) -> torch.Tensor:
+    """``values`` copied into a new tensor of ``shape`` and ``strides`` that
+    starts ``offset`` elements into a fresh (512-byte aligned) buffer."""
+    span = 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    buf = torch.empty(span + offset, dtype=dtype, device=dev)
+    return buf.as_strided(shape, strides, offset).copy_(values)
+
+
+def wide_section(dev, old_fn: Callable, card: str) -> Dict:
+    """The wide kernel, old and new, at each main-path wide shape."""
+    found = path_wide_warps(dev)
+    shapes, per_path = {}, {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    for (shape, strides, offset, dtype, fstrides, fdtype, zeros), rec in sorted(found.items(), key=lambda kv: -np.prod(kv[0][0])):
+        n, h, w, c = shape
+        values = torch.rand((n, c, h, w), generator=g, device=dev).to(dtype)
+        planes = strided_like((n, c, h, w), strides, offset, dtype, dev, values)
+        flow = torch.from_numpy(smooth_flow(n, h, w, 6.0)).to(dev, fdtype).permute(0, 3, 1, 2)
+        fplanes = strided_like((n, 2, h, w), fstrides, 0, fdtype, dev, flow)
+        del values
+        old = call_wide(old_fn, planes, fplanes, zeros)
+        new = warp_kernel.warp_bilinear_wide(planes, fplanes, zeros)
+        torch.cuda.synchronize()
+        key = f"{list(shape)} {str(dtype).split('.')[-1]} {'zeros' if zeros else 'border'}, {str(fdtype).split('.')[-1]} flow"
+        if not torch.equal(old, new):
+            raise SystemExit(f"wide {key}: the new kernel differs from the old one")
+        del old, new
+        iters = 20
+        wide = "warp_bilinear_wide_kernel"
+        turns = [device_ms(lambda: call_wide(old_fn, planes, fplanes, zeros), iters, wide)]
+        turns += [device_ms(lambda: warp_kernel.warp_bilinear_wide(planes, fplanes, zeros), iters, wide) for _ in range(2)]
+        turns.append(device_ms(lambda: call_wide(old_fn, planes, fplanes, zeros), iters, wide))
+        gs = device_ms(grid_sample_planes(planes, fplanes, zeros), iters, "grid_sampler")
+        b = warp_bound_ms(planes, fplanes)
+        t = {
+            "old_ms": statistics.mean((turns[0], turns[3])), "new_ms": statistics.mean(turns[1:3]),
+            "old": [turns[0], turns[3]], "new": turns[1:3], "grid_sample_ms": gs, "bound_ms": b[0], "bound_by": b[1],
+            "paths": rec["paths"], "contiguous_nhwc": planes.is_contiguous(memory_format=torch.channels_last),
+        }
+        shapes[key] = t
+        for path, count in rec["paths"].items():
+            pp = per_path.setdefault(path, {"launches": 0, "old_ms": 0.0, "new_ms": 0.0, "bound_ms": 0.0, "grid_sample_ms": 0.0})
+            pp["launches"] += count
+            for k in ("old_ms", "new_ms", "bound_ms", "grid_sample_ms"):
+                pp[k] += count * t[k]
+        print(
+            f"wide {card}: {key} ({', '.join(f'{p} x{k}' for p, k in rec['paths'].items())}): device ms old "
+            f"{t['old_ms']:.4f} {t['old']}, new {t['new_ms']:.4f} {t['new']}, {t['old_ms'] / t['new_ms']:.2f}x; "
+            f"grid_sample {gs:.4f}; bound {b[0]:.4f} ({b[1]}), new at {100 * b[0] / t['new_ms']:.1f} % of it; bit-exact",
+            flush=True,
+        )
+        del planes, fplanes, flow
+    for path, pp in per_path.items():
+        print(
+            f"wide {card}: per forward of {path}: {pp['launches']} launches, device ms old {pp['old_ms']:.4f}, new "
+            f"{pp['new_ms']:.4f}, grid_sample {pp['grid_sample_ms']:.4f}, bound {pp['bound_ms']:.4f}",
+            flush=True,
+        )
+    return {"by_shape": shapes, "per_forward": per_path}
 
 
 def warp_cases(dev) -> List[Tuple[str, torch.Tensor, torch.Tensor, bool]]:
@@ -171,7 +366,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="root of the checkout to compare with")
     ap.add_argument("--out", default=os.path.join("build", "kernel_compare.json"))
+    ap.add_argument("--sections", default=",".join(SECTIONS), help=f"comma-separated, of {', '.join(SECTIONS)}")
     args = ap.parse_args(argv)
+    sections = set(args.sections.split(","))
+    if not sections <= set(SECTIONS):
+        ap.error(f"unknown sections {sorted(sections - set(SECTIONS))}")
     if not torch.cuda.is_available():
         print("kernel_compare: no CUDA device", file=sys.stderr)
         return 1
@@ -193,59 +392,67 @@ def main(argv=None) -> int:
         result["builds"][which] = build.ptxas_summary(build.build_logs.get(key, ""))
         print(f"build {card}: {which}: " + "; ".join(result["builds"][which]), flush=True)
 
-    new_warp = lambda img, flow, zeros: warp(img, flow, "zeros" if zeros else "border")  # noqa: E731
-    cases = warp_cases(dev)
-    vals = torch.rand(16, 1088, 1920, 4, generator=torch.Generator().manual_seed(1)).to(dev, torch.bfloat16)
-    sflow = torch.from_numpy(smooth_flow(16, 1088, 1920, 8.0)).to(dev)
-    mvals, mflow = m2m_splat_inputs(dev)
-    splat_cases = [
-        ("splat [16,1088,1920,4] bf16 smooth amp 8", vals, sflow),
-        (f"splat M2M forward {list(mvals.shape)} bf16 rough flow", mvals, mflow),
-    ]
-    old_warp_fn = bind(libs["warp", parent_csrc], "cfi_warp_bilinear", WARP_ARGS)
-    old_splat_fn = bind(libs["softsplat", parent_csrc], "cfi_softsplat", SPLAT_ARGS)
-    result["k1"] = {}
-    for name, img, flow, zeros in cases:
-        old = call_warp(old_warp_fn, img, flow, zeros)
-        new = new_warp(img, flow, zeros)
-        torch.cuda.synchronize()
-        if not torch.equal(old, new):
-            raise SystemExit(f"{name}: new K1 differs from the old one")
-        body = warp_kernel.route(img.permute(0, 3, 1, 2).shape, img.permute(0, 3, 1, 2).stride(), img.dtype)
-        t = in_turns(lambda: call_warp(old_warp_fn, img, flow, zeros), lambda: new_warp(img, flow, zeros), 20)
-        t["new_body"] = body
-        result["k1"][name] = t
-        print(f"k1 {card}: {name}: old {t['old_ms']:.4f} ms {t['old']}, new ({body}) {t['new_ms']:.4f} ms {t['new']}, "
-              f"{t['old_ms'] / t['new_ms']:.2f}x; bit-exact", flush=True)
-    del cases
-    result["k2"] = {}
-    for name, v, f in splat_cases:
-        old = call_splat(old_splat_fn, v, f).float()
-        new = softsplat_func(v, f).float()
-        torch.cuda.synchronize()
-        # sums of M2M's weighted values cancel, so the check is relative
-        # to the largest output: one bf16 ulp of it
-        rel = ((new - old).abs().max() / old.abs().max().clamp_min(1e-30)).item()
-        if rel > 2.0**-8:
-            raise SystemExit(f"{name}: new K2 differs from the old one by {rel} of the largest output")
-        t = in_turns(lambda: call_splat(old_splat_fn, v, f), lambda: softsplat_func(v, f), 10)
-        t["max_err_rel_to_max"] = rel
-        result["k2"][name] = t
-        print(f"k2 {card}: {name}: old {t['old_ms']:.4f} ms {t['old']}, new {t['new_ms']:.4f} ms {t['new']}, "
-              f"{t['old_ms'] / t['new_ms']:.2f}x; max diff {rel:.3g} of the largest output", flush=True)
-    del splat_cases, vals, sflow, mvals, mflow
-
-    # the routing threshold: K1 against the wide kernel
-    result["threshold"] = {}
-    g = torch.Generator().manual_seed(3)
-    flow = torch.from_numpy(smooth_flow(4, 1088, 1920, 6.0)).to(dev)
-    for c in THRESHOLD_CHANNELS:
-        img = torch.rand(4, 1088, 1920, c, generator=g).to(dev, torch.bfloat16)
-        planes, fplanes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
-        tiled = ms(lambda: warp_kernel.warp_bilinear(planes, fplanes), 20)
-        wide = ms(lambda: warp(img, flow, prefer_wide=True), 20)
-        result["threshold"][f"[4,1088,1920,{c}] bf16"] = {"tiled_ms": tiled, "wide_ms": wide}
-        print(f"threshold {card}: [4,1088,1920,{c}] bf16 ({2 * c} B a pixel): tiled {tiled:.4f} ms, wide {wide:.4f} ms", flush=True)
+    if "k1" in sections:
+        new_warp = lambda img, flow, zeros: warp(img, flow, "zeros" if zeros else "border")  # noqa: E731
+        old_warp_fn = bind(libs["warp", parent_csrc], "cfi_warp_bilinear", WARP_ARGS)
+        result["k1"] = {}
+        for name, img, flow, zeros in warp_cases(dev):
+            old = call_warp(old_warp_fn, img, flow, zeros)
+            new = new_warp(img, flow, zeros)
+            torch.cuda.synchronize()
+            if not torch.equal(old, new):
+                raise SystemExit(f"{name}: new K1 differs from the old one")
+            body = warp_kernel.route(img.permute(0, 3, 1, 2).shape, img.permute(0, 3, 1, 2).stride(), img.dtype)
+            t = in_turns(lambda: call_warp(old_warp_fn, img, flow, zeros), lambda: new_warp(img, flow, zeros), 20)
+            t["new_body"] = body
+            result["k1"][name] = t
+            print(f"k1 {card}: {name}: old {t['old_ms']:.4f} ms {t['old']}, new ({body}) {t['new_ms']:.4f} ms {t['new']}, "
+                  f"{t['old_ms'] / t['new_ms']:.2f}x; bit-exact", flush=True)
+            del old, new, img, flow
+    if "k2" in sections:
+        vals = torch.rand(16, 1088, 1920, 4, generator=torch.Generator().manual_seed(1)).to(dev, torch.bfloat16)
+        sflow = torch.from_numpy(smooth_flow(16, 1088, 1920, 8.0)).to(dev)
+        mvals, mflow = m2m_splat_inputs(dev)
+        splat_cases = [
+            ("splat [16,1088,1920,4] bf16 smooth amp 8", vals, sflow),
+            (f"splat M2M forward {list(mvals.shape)} bf16 rough flow", mvals, mflow),
+        ]
+        old_splat_fn = bind(libs["softsplat", parent_csrc], "cfi_softsplat", SPLAT_ARGS)
+        result["k2"] = {}
+        for name, v, f in splat_cases:
+            old = call_splat(old_splat_fn, v, f).float()
+            new = softsplat_func(v, f).float()
+            torch.cuda.synchronize()
+            # sums of M2M's weighted values cancel, so the check is relative
+            # to the largest output: one bf16 ulp of it
+            rel = ((new - old).abs().max() / old.abs().max().clamp_min(1e-30)).item()
+            if rel > 2.0**-8:
+                raise SystemExit(f"{name}: new K2 differs from the old one by {rel} of the largest output")
+            t = in_turns(lambda: call_splat(old_splat_fn, v, f), lambda: softsplat_func(v, f), 10)
+            t["max_err_rel_to_max"] = rel
+            result["k2"][name] = t
+            print(f"k2 {card}: {name}: old {t['old_ms']:.4f} ms {t['old']}, new {t['new_ms']:.4f} ms {t['new']}, "
+                  f"{t['old_ms'] / t['new_ms']:.2f}x; max diff {rel:.3g} of the largest output", flush=True)
+        del splat_cases, vals, sflow, mvals, mflow
+    if "wide" in sections:
+        result["wide"] = wide_section(dev, bind(libs["warp", parent_csrc], "cfi_warp_bilinear_wide", WIDE_ARGS), card)
+        torch.cuda.empty_cache()
+    if "threshold" in sections:
+        # the routing threshold: K1 against the wide kernel, in turns
+        result["threshold"] = {}
+        g = torch.Generator().manual_seed(3)
+        flow = torch.from_numpy(smooth_flow(4, 1088, 1920, 6.0)).to(dev)
+        fplanes = flow.permute(0, 3, 1, 2)
+        for dtype, channels in THRESHOLD_CHANNELS.items():
+            for c in channels:
+                img = torch.rand(4, 1088, 1920, c, generator=g).to(dev, dtype)
+                planes = img.permute(0, 3, 1, 2)
+                t = in_turns(lambda: warp_kernel.warp_bilinear(planes, fplanes), lambda: warp_kernel.warp_bilinear_wide(planes, fplanes), 20)
+                key = f"[4,1088,1920,{c}] {str(dtype).split('.')[-1]}"
+                result["threshold"][key] = {"tiled_ms": t["old_ms"], "wide_ms": t["new_ms"], "tiled": t["old"], "wide": t["new"]}
+                print(f"threshold {card}: {key} ({c * dtype.itemsize} B a pixel): tiled {t['old_ms']:.4f} ms {t['old']}, "
+                      f"wide {t['new_ms']:.4f} ms {t['new']}; routed to {warp_kernel.route(planes.shape, planes.stride(), dtype)}",
+                      flush=True)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -13,10 +13,12 @@ the stated bound.
 
 The wide-channel kernel (``warp_bilinear_wide``) is held to the twin bit for
 bit (``torch.equal``) on the wide cases of ``tests/warp_cases.py`` in f32,
-bf16 and f16, on NCHW-contiguous input (the documented ``channels_last``
-copy), at FILM's level-0 feature warp ``[4, 1080, 1920, 64]`` bf16, and
-against K1 on the same tensor; a FILM forward launches it 11 times and K1 5
-times.
+bf16 and f16 (among them a width for each vector width the kernel picks:
+16, 8 and 4 bytes and one element), on NCHW-contiguous input (the
+documented ``channels_last`` copy), on crops and channel slices whose
+strides and base addresses narrow the vector, at FILM's level-0 feature warp
+``[4, 1080, 1920, 64]`` bf16, and against K1 on the same tensor; a FILM
+forward launches it 11 times and K1 5 times.
 
 K1 (the tiled kernel) is held to the twin bit for bit on every flow case
 (including a frame half of whose tiles read taps from far across the frame,
@@ -43,9 +45,9 @@ IFRNet's, IFUnet's and AMT's warps at their 1080p shapes (padded to
 IFRNet S batch 4's features (C = 54, 36, 24 at 1/8 to 1/2) and frames,
 IFUnet batch 2's frames and context warp (C = 32 at 1/4), AMT-S batch 2's
 features (C = 44, 32, 20) and frames over its 3 flows; each through the
-kernel ``warp_kernel.route`` names and through K1, bit for bit. Most of the
-feature pixels start off 16 bytes (bf16 C = 54, 36, 44, 20), so the wide
-kernel's scalar path carries them.
+kernel ``warp_kernel.route`` names and through K1, bit for bit. Their bf16
+feature pixels of C = 54, 36, 44, 20 start off 16 bytes, so the wide
+kernel reads them in 4- and 8-byte vectors.
 """
 
 import numpy as np
@@ -200,6 +202,26 @@ def test_wide_kernel_matches_twin_bitwise(cuda, name, mode, dtype):
     torch.cuda.synchronize()
     assert warp_kernel.wide_launches == before + 1
     assert got.dtype == dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["crop", "slice_even", "slice_odd"])
+@pytest.mark.parametrize("c", [20, 36, 54, 64])
+def test_wide_kernel_takes_strided_views_bitwise(cuda, c, view, dtype):
+    # a crop: row and batch strides of the full frame; a channel slice from
+    # channel 4 (8 bytes in bf16) or 1: the pixel stride and base address
+    # narrow the vector width below what C alone allows
+    g = torch.Generator().manual_seed(c)
+    if view == "crop":
+        img = torch.rand(2, 45, 81, c, generator=g).to(cuda, dtype)[:, 3:-2, 5:-4]
+    else:
+        full = torch.rand(2, 40, 72, c + 5, generator=g).to(cuda, dtype)
+        img = full[..., 4 : 4 + c] if view == "slice_even" else full[..., 1 : 1 + c]
+    flow = torch.from_numpy(warp_cases.smooth_flow(2, *img.shape[1:3], 4.0, 10.0)).to(cuda)
+    for mode in ("border", "zeros"):
+        got = warp(img, flow, mode, prefer_wide=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, warp_torch(img, flow, mode))
 
 
 def test_wide_kernel_takes_nchw_input_through_one_copy(cuda):

@@ -14,10 +14,13 @@ taps' bounding box of a tile spans the frame), a 68x92 frame that the 4x32
 tiles do not divide, and M2M's feature widths (C = 32, 48, 96, 192, 384) in
 zeros mode, which the routing rule sends to the wide kernel.
 
-:func:`wide_cases` are the feature warps of FILM for the wide-channel kernel:
-C = 32 to 960 (FILM's levels have 64, 192, 448 and 960), a C that is no
-multiple of 8, a channel slice whose taps start off 16 bytes, extreme and
-non-finite flow.
+:func:`wide_cases` are the feature warps for the wide-channel kernel: C = 32
+to 960 (FILM's levels have 64, 192, 448 and 960), the narrow feature widths
+of RIFE 4.0's Contextnet, IFRNet and AMT (C = 16, 20, 24, 36, 44, 54), a
+width for each vector the kernel picks in bf16 where those lack one (C = 18:
+36-byte pixels, 4-byte vectors; C = 21: 42-byte pixels, read an element at a
+time), a C that is no multiple of 8, a channel slice whose taps start off 16
+bytes, extreme and non-finite flow.
 
 :func:`splat_cases` re-creates the splat cases of
 ``tests/test_pallas_kernels.py:215-319``: smooth flow, the constant
@@ -120,7 +123,9 @@ def warp_cases(seed: int, h: int, w: int) -> List[Dict]:
     ]
 
 
-WIDE_CHANNELS = (32, 40, 64, 192, 448, 960)
+# bf16 vectors: 16 bytes at C = 16, 24, 32, 64, 192, 448, 960; 8 at 20, 36,
+# 40, 44; 4 at 18, 54; an element at 21
+WIDE_CHANNELS = (16, 18, 20, 21, 24, 32, 36, 40, 44, 54, 64, 192, 448, 960)
 M2M_CHANNELS = (32, 48, 96, 192, 384)  # M2M's feature warps (models/m2m.py)
 
 
