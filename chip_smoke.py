@@ -207,9 +207,10 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    frames of 135x240 (padded to 192x256 inside), S at x2 and x3 and L at
    x2, batch 4, on the card in fp32 (TF32 off) and bf16, each >= 40 dB
    against the same node on the CPU in fp32; original frames pass through
-   bit for bit; per forward call exactly the K1 and wide launches of
-   ``ifrnet.warps_per_forward``; the JAX golden
-   (``tests/fixtures/torch_port_ifrnet_golden.npz``) on the card, >= 40 dB;
+   bit for bit; each model call launches exactly the K1 and wide warps of
+   ``ifrnet.warps_per_forward`` (counted per call); the JAX golden
+   (``tests/fixtures/torch_port_ifrnet_golden.npz``) through the node on
+   the card, >= 40 dB;
 30. timing    -- IFRNet S 1080p 2x bf16 batch 4 (``bench.py:bench_ifrnet``'s
    configuration): its warps launched again on copies of their inputs
    against the twin (the shapes of phase 28), frames/s, peak memory of one
@@ -225,8 +226,55 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    (``bench_amt``), as phase 30, and the ms of the correlation lookup at the
    forward's shapes and the share of the forward its three calls take.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31 and 33) is driven with the launch counts set to
-0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34) also
+35. slice10  -- K1 and the kernel ``ops.warp.warp`` routes to against the
+   plain twin, bit for bit, zeros mode, f32 and bf16, at ATM's and XVFI's
+   1080p warp shapes: ATM base batch 1 (padded to 1088x1920) the fused
+   features ``[1, 136, 240, 384]`` (lite ``224``) and the frames at 1/4, 1/2
+   and 1; XVFI Vimeo batch 2 (padded to 1088x1920) the features ``[2, 544,
+   960, 64]``, the frames and the f32 ones planes; ATM's enhanced halves as
+   the model makes them, channel slices of ``[1, 136, 240, 768]``; then
+   every warp of one ATM base 1080p bf16 forward and of one XVFI Vimeo
+   reuse + infer launched again on copies of their inputs; K2 at XVFI's CFR
+   splat ``[4, 544, 960, 3]`` f32 on smooth flow and on the input one bf16
+   infer captured (f32, and cast to bf16); then each warp's device ms
+   against its bound and ``F.grid_sample``, in turns (the two halves as
+   views), and K2's against its bound and the twin;
+36. atm       -- the ATM VFI node (random weights from seed 0) on 4 frames
+   of 135x240 (edge-padded to 192x256 per call, centred), x2, batch 2, on
+   the card in fp32 (TF32 off) and bf16 against the same node on the CPU in
+   fp32, >= 40 dB: base with global motion "On" and "Off (fastest)", lite
+   "On", base "On with Ensemble (slowest)" in fp32 only; original frames
+   pass through bit for bit; each model call launches exactly
+   ``atm.warps_per_forward``'s warps (counted per call); the JAX golden
+   (``tests/fixtures/torch_port_atm_golden.npz``) through the node on the
+   card, >= 40 dB;
+37. timing    -- ATM base 1080p 2x bf16 batch 1 with global motion
+   (``bench.py:bench_atm``'s configuration): frames/s, the peak memory of
+   one forward, CUDA-event spans of the attention (scores, softmax, value
+   product), the window partitions and the transformer blocks with their
+   shares of the forward, and a ``torch.profiler`` top 10 with the idle
+   share and the hand kernels' device ms against their bound;
+38. xvfi      -- the XVFI VFI node as in phase 36, Vimeo at x2 and x3
+   (zero-padded to 144x240) and X4K at x2 (zero-padded to 512x512), batch
+   2, fp32 and bf16; each reuse call launches exactly
+   ``xvfi.warps_per_reuse``'s warps, each infer call
+   ``xvfi.warps_per_infer``'s and ``xvfi.splats_per_infer()`` splats; the
+   JAX golden (``tests/fixtures/torch_port_xvfi_golden.npz``) through the
+   node, >= 40 dB;
+39. timing    -- XVFI Vimeo 1080p 2x bf16 batch 2 through ``make_pair_fns``
+   (``bench.py:bench_xvfi``'s configuration): frames/s, reuse and infer ms,
+   the peak memory of one reuse + infer and its profile as in phase 37; then
+   X4K (the node's default checkpoint, padded to 1536x2048) 1080p 2x bf16
+   batch 2: one forward's launches counted from 0 (exactly
+   ``warps_per_reuse`` + ``warps_per_infer`` and one splat), each of its
+   warps (the features ``[2, 384, 512, 64]`` down to ``[2, 24, 32, 64]``,
+   the frames, every f32 ones plane) launched again on copies of their
+   inputs against the twin, bit for bit, and its CFR splat ``[4, 384, 512,
+   3]`` f32 against the twin (f32, and cast to bf16); then frames/s and the
+   peak memory of one forward.
+
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38 and X4K's forward in 39) is driven with the launch counts set to
+0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
 ranking line orders kernel and path by the ms above the bound. Then the
@@ -238,8 +286,9 @@ PyTorch call computes), its bound: the larger of the bytes it must move
 TFLOP/s, with which of the two bounds it; and ``per_forward``, per path the
 launches, device ms, bound and ms above it of one bf16 forward at each
 path's timed size (1080p; EISAI 540p). The new paths' warp shapes are
-under ``ifrnet_ifunet_amt_shapes`` (K1) and ``by_shape`` (wide, every
-main-path shape), and each profile's ``per_forward`` entry lists the
+under ``ifrnet_ifunet_amt_shapes`` and ``atm_xvfi_shapes`` (K1) and
+``by_shape`` (wide, every main-path shape), XVFI's splat under
+``xvfi_shapes``, and each profile's ``per_forward`` entry lists the
 layouts its launches took (``launch_layouts``).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
@@ -303,7 +352,7 @@ STMFNET_PWC_SHAPES = ((2, 288, 480, 32), (2, 144, 240, 64), (2, 72, 120, 96), (2
 STMFNET_IMAGE_SHAPE = (2, 1152, 1920, 3)
 STMFNET_SPLAT_SHAPE = (2, 1152, 1920, 4)
 FLAVR_HW = (135, 240)
-SLICE8_HW = (135, 240)
+NODE_HW = (135, 240)  # the frames of the node runs, card against CPU (phases 29-38)
 # 1080p warps, border mode (NHWC shape, the kernel routed to): IFRNet S
 # batch 4 (padded to 1088x1920) and AMT-S batch 2 (node-padded to
 # 1088x1920): both frames' features at 1/8, 1/4 and 1/2, then the frames
@@ -314,6 +363,22 @@ SLICE8_WARPS = {
     "ifunet": (((2, 1088, 1920, 3), "tiled"), ((2, 272, 480, 32), "wide")),
     "amt": (((2, 136, 240, 44), "wide"), ((2, 272, 480, 32), "wide"), ((2, 544, 960, 20), "wide"), ((6, 1088, 1920, 3), "tiled")),
 }
+# 1080p warps, zeros mode (NHWC shape, value dtype or None for the model's,
+# the kernel routed to): ATM base batch 1 (padded to 1088x1920): the fused
+# features of each frame at 1/8 (lite: C = 224) and the frames at 1/4, 1/2
+# and 1; XVFI Vimeo batch 2 (padded to 1088x1920): the level-0 features, the
+# frames and the f32 ones planes each warps apart
+SLICE10_WARPS = (
+    ((1, 136, 240, 384), None, "wide"), ((1, 136, 240, 224), None, "wide"), ((1, 272, 480, 3), None, "tiled"),
+    ((1, 544, 960, 3), None, "tiled"), ((1, 1088, 1920, 3), None, "tiled"),
+    ((2, 544, 960, 64), None, "wide"), ((2, 1088, 1920, 3), None, "tiled"),
+    ((2, 544, 960, 1), "float32", "tiled"), ((2, 1088, 1920, 1), "float32", "tiled"),
+)
+ATM_ENH_SHAPE = (1, 136, 240, 768)  # ATM base 1080p b1: both frames' enhanced features side by side; its halves warp as views
+XVFI_SPLAT_SHAPE = (4, 544, 960, 3)  # XVFI Vimeo 1080p b2: CFR, both directions as one batch, flow times z and the norm, f32
+X4K = "XVFInet_X4K1000FPS_exp1_latest.pt"  # XVFI's X4K checkpoint, the node's default
+X4K_HW = (1536, 2048)  # 1080p zero-padded to X4K's divide, 512
+X4K_SPLAT_SHAPE = (4, 384, 512, 3)  # X4K at 1080p b2: CFR at 1/4, as XVFI_SPLAT_SHAPE
 SOFTSPLAT_MODES = ["sum"] + [f"{b}{e}" for b in ("avg", "linear", "soft") for e in ("", "-addeps", "-zeroeps", "-clipeps")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
@@ -590,18 +655,23 @@ def device_ms(fn, iters, name=None):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace of a few short kernels now and then comes back empty: trace again
+    seen = set()
+    for attempt in range(6):  # a trace of a few short kernels now and then comes back empty: trace again, longer
+        n = iters * 2**attempt
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        seen.update(e.key for e in kernels)
         if name is not None:
             kernels = [e for e in kernels if name in e.key]
         total_us = sum(device_us(e) for e in kernels)
         if total_us > 0:
-            return total_us / 1e3 / (iters if name is None else sum(e.count for e in kernels))
-    raise SmokeFailure(f"device_ms: three profiler traces saw no device time{'' if name is None else ' in ' + name}")
+            return total_us / 1e3 / (n if name is None else sum(e.count for e in kernels))
+    raise SmokeFailure(
+        f"device_ms: six profiler traces saw no device time{'' if name is None else ' in ' + name}; kernels seen: {sorted(seen)[:8]}"
+    )
 
 
 def profile_forward(what, model_fn, *inputs, card):
@@ -670,6 +740,76 @@ def profile_forward(what, model_fn, *inputs, card):
     return per_kernel
 
 
+@contextlib.contextmanager
+def counted_calls(module, attr, log):
+    """Inside, every callable that ``module.attr(...)`` builds (a model
+    function, or a tuple of pair functions) appends ``(name, dtype, launches)``
+    to ``log`` at each call: ``name`` "forward", "reuse" or "infer",
+    ``dtype`` the ``dtype`` keyword it was built with, ``launches`` ``{"narrow",
+    "wide", "splat"}`` that the call made."""
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+
+    def counts():
+        return {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+
+    def counted(name, fn, dtype):
+        def call(*args, **kwargs):
+            before = counts()
+            out = fn(*args, **kwargs)
+            log.append((name, dtype, {k: v - before[k] for k, v in counts().items()}))
+            return out
+
+        return call
+
+    real = getattr(module, attr)
+
+    def build(*args, **kwargs):
+        made = real(*args, **kwargs)
+        dtype = kwargs.get("dtype")
+        if isinstance(made, tuple):
+            return tuple(counted(name, fn, dtype) for name, fn in zip(("reuse", "infer"), made))
+        return counted("forward", made, dtype)
+
+    setattr(module, attr, build)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+@contextlib.contextmanager
+def cuda_spans(targets, spans):
+    """Inside, each call of ``(owner, attr, label)`` of ``targets`` is
+    bracketed by CUDA events on the current stream; ``spans[label]`` collects
+    the event pairs (read them after a synchronize with :func:`span_ms`)."""
+    import torch
+
+    def wrap(fn, label):
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.setdefault(label, []).append((start, end))
+            return out
+
+        return call
+
+    real = [getattr(owner, attr) for owner, attr, _ in targets]
+    try:
+        for (owner, attr, label), fn in zip(targets, real):
+            setattr(owner, attr, wrap(fn, label))
+        yield
+    finally:
+        for (owner, attr, _), fn in zip(targets, real):
+            setattr(owner, attr, fn)
+
+
+def span_ms(spans):
+    """``{label: (calls, ms)}`` of :func:`cuda_spans`' event pairs."""
+    return {label: (len(pairs), sum(s.elapsed_time(e) for s, e in pairs)) for label, pairs in spans.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -683,11 +823,12 @@ def main() -> int:
     import warp_cases
     from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
     from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep, plan_window4
-    from comfyui_frame_interpolation_tpu_torch.models import amt, eisai, film, flavr, gmfss, ifrnet, ifunet, m2m, rife, stmfnet
+    from comfyui_frame_interpolation_tpu_torch.models import amt, atm, eisai, film, flavr, gmfss, ifrnet, ifunet, m2m, rife, stmfnet, xvfi
     from comfyui_frame_interpolation_tpu_torch.models.common import device_const
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
     from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import (
-        AMT_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
+        AMT_VFI, ATM_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
+        XVFI_VFI,
     )
     from comfyui_frame_interpolation_tpu_torch.ops.adacof import adacof_func
     from comfyui_frame_interpolation_tpu_torch.ops.bidir_corr import BidirCorr
@@ -2062,58 +2203,79 @@ def main() -> int:
         )
         del planes, fplanes, gs, flow32
 
-    def timestep_node(label, node, ckpt, params, batch, mults, per_forward, **kw):
-        """``node`` on 4 frames of 135x240, each multiplier in ``mults``, on
-        the card in fp32 (TF32 off) and bf16 against fp32 on the CPU: >= 40
-        dB, the original frames passed through, and ``per_forward(dtype)``
-        warp launches per forward call, counted from 0 just before the card
-        runs and read just after. Returns the launches and the PSNRs."""
-        frames = shifted_pattern(4, *SLICE8_HW, seed=7)
-        calls = sum(math.ceil(len(plan_timestep(4, m).tasks) / batch) for m in mults)
-        per = {dt: per_forward(getattr(torch, dt)) for dt in ("float32", "bfloat16")}
-        expect = {k: calls * sum(p[k] for p in per.values()) for k in ("narrow", "wide")}
-        expect["splat"] = 0
-        outs = {}
+    def card_vs_cpu(label, node, ckpt, params, runs, build, want, batch=2, seed=9, **kw):
+        """``node`` on 4 frames of 135x240 (``shifted_pattern`` of ``seed``),
+        each ``(multiplier, dtypes, extra kwargs)`` of ``runs`` on the card
+        (fp32 with TF32 off) against fp32 on the CPU: >= 40 dB, the original
+        frames passed through, and each model call's launches equal to
+        ``want(name, dtype)``, counted by wrapping ``build`` (the model module
+        and the name of the function the node builds its callables with)
+        from just before the card runs to just after. Returns the launches,
+        the PSNRs and the number of model calls."""
+        frames = shifted_pattern(4, *NODE_HW, seed=seed)
+        log, outs = [], {}
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
-        for m in mults:
-            for dtype in per:
-                (outs[m, dtype],) = node.vfi(ckpt, frames, multiplier=m, batch_size=batch, dtype=dtype, params=params, device="cuda", **kw)
+        with counted_calls(*build, log):
+            for m, dtypes, extra in runs:
+                for dtype in dtypes:
+                    (outs[m, dtype, str(extra)],) = node().vfi(
+                        ckpt, frames, multiplier=m, batch_size=batch, dtype=dtype, params=params, device="cuda", **kw, **extra
+                    )
         torch.cuda.synchronize()
         launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        check(launches == expect, f"{label} launches {launches} != {expect} ({calls} calls per dtype)")
+        for name, dt, got in log:
+            check(got == want(name, dt), f"{label} {name} call in {dt} launched {got}, expected {want(name, dt)}")
+        check(launches == {k: sum(got[k] for _, _, got in log) for k in launches}, f"{label}: launches outside the model calls")
         psnrs = []
-        for m in mults:
-            (out_cpu,) = node.vfi(ckpt, frames, multiplier=m, batch_size=batch, params=params, device="cpu", **kw)
-            for dtype in per:
-                out = outs[m, dtype]
-                check(tuple(out.shape) == (3 * m + 1, *SLICE8_HW, 3) and out.is_cuda, f"{label} output {tuple(out.shape)} on {out.device}")
-                check(bool(torch.isfinite(out).all()), f"{label} x{m} {dtype} has non-finite values")
-                check(torch.equal(out[::m].cpu(), torch.from_numpy(frames)), f"{label} x{m} {dtype}: original frames not passed through")
-                p = psnr(out, out_cpu)
-                check(p >= 40.0, f"{label} node x{m} cuda {dtype} vs cpu fp32 {p:.2f} dB < 40")
-                psnrs.append(f"x{m} {dtype} {p:.2f} dB")
-        return launches, psnrs
+        for m, dtypes, extra in runs:
+            (out_cpu,) = node().vfi(ckpt, frames, multiplier=m, batch_size=batch, params=params, device="cpu", **kw, **extra)
+            for dtype in dtypes:
+                out = outs[m, dtype, str(extra)]
+                check(tuple(out.shape) == (3 * m + 1, *NODE_HW, 3) and out.is_cuda, f"{label} output {tuple(out.shape)} on {out.device}")
+                check(bool(torch.isfinite(out).all()), f"{label} x{m} {dtype} {extra} has non-finite values")
+                check(torch.equal(out[::m].cpu(), torch.from_numpy(frames)), f"{label} x{m} {dtype} {extra}: original frames not passed through")
+                p_ = psnr(out, out_cpu)
+                check(p_ >= 40.0, f"{label} node x{m} {extra} cuda {dtype} vs cpu fp32 {p_:.2f} dB < 40")
+                psnrs.append(f"x{m} {dtype}{' ' + str(extra) if extra else ''} {p_:.2f} dB")
+        return launches, psnrs, len(log)
 
-    def slice8_golden(name, make_fn):
+    def node_golden(name, node, ckpt, make_params, **kw):
         """The JAX golden ``tests/fixtures/torch_port_<name>_golden.npz``
-        against ``make_fn(seed)`` on the card in fp32 (TF32 off)."""
+        (two frames, their midpoint) through ``node`` on the card in fp32
+        (TF32 off), x2, with ``make_params(the golden's seed)``."""
         with np.load(os.path.join(ROOT, "tests", "fixtures", f"torch_port_{name}_golden.npz")) as z:
-            seed, t, gframes, golden = int(z["seed"]), float(z["t"]), z["frames"], torch.from_numpy(z["output"])
-        f0, f1 = (torch.from_numpy(gframes[i].astype(np.float32) / 255.0).to(dev) for i in (0, 1))
+            seed, gframes, golden = int(z["seed"]), z["frames"][:, 0].astype(np.float32) / 255.0, torch.from_numpy(z["output"])
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        gout = make_fn(seed)(f0, f1, torch.tensor([t], device=dev))
+        (gout,) = node().vfi(ckpt, gframes, multiplier=2, params=make_params(seed), device="cuda", **kw)
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        pg = psnr(gout, golden)
-        check(pg >= 40.0, f"{name} golden: {pg:.2f} dB < 40")
-        return f"golden: port on cuda fp32 vs JAX fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}"
+        pg = psnr(gout[1:2], golden)
+        check(pg >= 40.0, f"{name} golden through the node: {pg:.2f} dB < 40")
+        return f"golden through the node on cuda fp32 vs JAX fp32 {pg:.2f} dB, max abs err {(gout[1:2].cpu() - golden).abs().max().item():.3g}"
+
+    def timed_row(label, fn, x, n, profile=True):
+        """``fn(*x)`` on ``n`` frames a call: frames/s by ``measure``, the
+        peak memory of one call, and (with ``profile``) its profile."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        fn(*x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        fps = n / measure(fn, *x, iters=3, rounds=3)
+        print(
+            f"timing {card}: {label} {fps:.3f} frames/s ({1e3 * n / fps:.3f} ms per call); peak memory of one call "
+            f"{peak / 2**30:.3f} GiB above the {base_mem / 2**30:.3f} GiB held before it",
+            flush=True,
+        )
+        return fps, profile_forward(label, fn, *x, card=card) if profile else None
 
     def slice8_row(label, fn, n, hw, family):
         """One 1080p bf16 forward's warps launched again on copies of their
-        inputs against the twin (the shapes must be ``SLICE8_WARPS[family]``);
-        frames/s by ``measure``, the peak memory of one forward and its
-        profile."""
+        inputs against the twin (the shapes must be ``SLICE8_WARPS[family]``),
+        then :func:`timed_row`."""
         x = [torch.from_numpy(np.random.default_rng(i).random((n, *hw, 3), dtype=np.float32)).to(dev) for i in range(2)]
         x.append(torch.full((n,), 0.5, device=dev))
         store = []
@@ -2125,42 +2287,31 @@ def main() -> int:
         for shape, body in SLICE8_WARPS[family]:
             want.setdefault("warp_bilinear_wide" if body == "wide" else "warp_bilinear", set()).add((shape, "border", "bfloat16", "bfloat16"))
         check(seen == want, f"{label} warps at {seen}, expected {want}")
+        print(f"{label}: its {sum(len(v) for v in seen.values())} warp shapes bit-exact", flush=True)
         del store
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated()
-        fn(*x)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base_mem
-        fps = n / measure(fn, *x, iters=3, rounds=3)
-        print(
-            f"timing {card}: {label} {fps:.3f} frames/s; peak memory of one forward {peak / 2**30:.3f} GiB above the "
-            f"{base_mem / 2**30:.3f} GiB held before it; its {sum(len(v) for v in seen.values())} warp shapes bit-exact",
-            flush=True,
-        )
-        return fps, profile_forward(label, fn, *x, card=card), x
+        return timed_row(label, fn, x, n)
 
     # ---- 29. IFRNet node end to end, and the golden ---------------------------
     ifrnet_launches = {"narrow": 0, "wide": 0, "splat": 0}
     t0 = time.perf_counter()
     for variant, ckpt, mults in (("S", "IFRNet_S_Vimeo90K.pth", (2, 3)), ("L", "IFRNet_L_Vimeo90K.pth", (2,))):
-        got, psnrs = timestep_node(
-            f"IFRNet {variant}", IFRNet_VFI(), ckpt, ifrnet.init_params(variant, 0), 4, mults,
-            lambda dt, variant=variant: ifrnet.warps_per_forward(variant, dt),
+        got, psnrs, n_calls = card_vs_cpu(
+            f"IFRNet {variant}", IFRNet_VFI, ckpt, ifrnet.init_params(variant, 0), [(m, ("float32", "bfloat16"), {}) for m in mults],
+            (ifrnet, "make_model_fn"), lambda name, dt, variant=variant: {**ifrnet.warps_per_forward(variant, dt), "splat": 0},
+            batch=4, seed=7,
         )
         ifrnet_launches = {k: ifrnet_launches[k] + got[k] for k in got}
         print(
-            f"ifrnet: IFRNet {variant} node 4x{SLICE8_HW[0]}x{SLICE8_HW[1]} (padded to 192x256 inside) batch 4, cuda vs cpu "
-            f"fp32: {', '.join(psnrs)}; launches {got}, per forward {ifrnet.warps_per_forward(variant)}",
+            f"ifrnet: IFRNet {variant} node 4x{NODE_HW[0]}x{NODE_HW[1]} (padded to 192x256 inside) batch 4, cuda vs cpu "
+            f"fp32: {', '.join(psnrs)}; {n_calls} model calls, launches {got}, per forward {ifrnet.warps_per_forward(variant)}",
             flush=True,
         )
-    print(f"ifrnet: {slice8_golden('ifrnet', lambda seed: ifrnet.make_model_fn(ifrnet.init_params('S', seed), 'S', device=dev))}; "
+    print(f"ifrnet: {node_golden('ifrnet', IFRNet_VFI, 'IFRNet_S_Vimeo90K.pth', lambda seed: ifrnet.init_params('S', seed))}; "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 30. IFRNet timing ----------------------------------------------------
     ifrnet_fn = ifrnet.make_model_fn(ifrnet.init_params("S", 0), "S", dtype=torch.bfloat16, device=dev)
-    ifrnet_fps, ifrnet_profile, _ = slice8_row("IFRNet S 1080p (padded to 1088x1920) 2x bf16 b4", ifrnet_fn, 4, (1080, 1920), "ifrnet")
+    ifrnet_fps, ifrnet_profile = slice8_row("IFRNet S 1080p (padded to 1088x1920) 2x bf16 b4", ifrnet_fn, 4, (1080, 1920), "ifrnet")
     del ifrnet_fn
 
     # ---- 31. IFUnet node end to end, and the golden ---------------------------
@@ -2168,44 +2319,44 @@ def main() -> int:
     t0 = time.perf_counter()
     ifunet_params = ifunet.init_params(0)
     for ensemble, mults in ((False, (2, 3)), (True, (2,))):
-        got, psnrs = timestep_node(
-            f"IFUnet ensemble={ensemble}", IFUnet_VFI(), "IFUNet.pth", ifunet_params, 2, mults, ifunet.warps_per_forward,
-            ensemble=ensemble,
+        got, psnrs, n_calls = card_vs_cpu(
+            f"IFUnet ensemble={ensemble}", IFUnet_VFI, "IFUNet.pth", ifunet_params, [(m, ("float32", "bfloat16"), {}) for m in mults],
+            (ifunet, "make_model_fn"), lambda name, dt: {**ifunet.warps_per_forward(dt), "splat": 0}, seed=7, ensemble=ensemble,
         )
         ifunet_launches = {k: ifunet_launches[k] + got[k] for k in got}
         print(
-            f"ifunet: IFUnet node ensemble={ensemble} 4x{SLICE8_HW[0]}x{SLICE8_HW[1]} (padded to 192x256 inside) batch 2, "
-            f"cuda vs cpu fp32: {', '.join(psnrs)}; launches {got}, per forward {ifunet.warps_per_forward()}",
+            f"ifunet: IFUnet node ensemble={ensemble} 4x{NODE_HW[0]}x{NODE_HW[1]} (padded to 192x256 inside) batch 2, "
+            f"cuda vs cpu fp32: {', '.join(psnrs)}; {n_calls} model calls, launches {got}, per forward {ifunet.warps_per_forward()}",
             flush=True,
         )
-    print(f"ifunet: {slice8_golden('ifunet', lambda seed: ifunet.make_model_fn(ifunet.init_params(seed), device=dev))}; "
+    print(f"ifunet: {node_golden('ifunet', IFUnet_VFI, 'IFUNet.pth', ifunet.init_params)}; "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 32. IFUnet timing ----------------------------------------------------
     ifunet_fn = ifunet.make_model_fn(ifunet_params, dtype=torch.bfloat16, device=dev)
-    ifunet_fps, ifunet_profile, _ = slice8_row("IFUnet 1080p (padded to 1088x1920) 2x bf16 b2, no ensemble", ifunet_fn, 2, (1080, 1920), "ifunet")
+    ifunet_fps, ifunet_profile = slice8_row("IFUnet 1080p (padded to 1088x1920) 2x bf16 b2, no ensemble", ifunet_fn, 2, (1080, 1920), "ifunet")
     del ifunet_fn
 
     # ---- 33. AMT node end to end, and the golden ------------------------------
     amt_launches = {"narrow": 0, "wide": 0, "splat": 0}
     t0 = time.perf_counter()
     for variant, ckpt, mults in (("S", "amt-s.pth", (2, 3)), ("L", "amt-l.pth", (2,)), ("G", "amt-g.pth", (2,))):
-        got, psnrs = timestep_node(
-            f"AMT {variant}", AMT_VFI(), ckpt, amt.init_params(variant, 0), 2, mults,
-            lambda dt, variant=variant: amt.warps_per_forward(variant, dt),
+        got, psnrs, n_calls = card_vs_cpu(
+            f"AMT {variant}", AMT_VFI, ckpt, amt.init_params(variant, 0), [(m, ("float32", "bfloat16"), {}) for m in mults],
+            (amt, "make_model_fn"), lambda name, dt, variant=variant: {**amt.warps_per_forward(variant, dt), "splat": 0}, seed=7,
         )
         amt_launches = {k: amt_launches[k] + got[k] for k in got}
         print(
-            f"amt: AMT {variant} node 4x{SLICE8_HW[0]}x{SLICE8_HW[1]} (edge-padded to 144x240, centred) batch 2, cuda vs cpu "
-            f"fp32: {', '.join(psnrs)}; launches {got}, per forward {amt.warps_per_forward(variant)}",
+            f"amt: AMT {variant} node 4x{NODE_HW[0]}x{NODE_HW[1]} (edge-padded to 144x240, centred) batch 2, cuda vs cpu "
+            f"fp32: {', '.join(psnrs)}; {n_calls} model calls, launches {got}, per forward {amt.warps_per_forward(variant)}",
             flush=True,
         )
-    print(f"amt: {slice8_golden('amt', lambda seed: amt.make_model_fn(amt.init_params('S', seed), 'amt-s.pth', device=dev))}; "
+    print(f"amt: {node_golden('amt', AMT_VFI, 'amt-s.pth', lambda seed: amt.init_params('S', seed))}; "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 34. AMT timing, and the correlation lookups' share --------------------
     amt_fn = amt.make_model_fn(amt.init_params("S", 0), "amt-s.pth", dtype=torch.bfloat16, device=dev)
-    amt_fps, amt_profile, _ = slice8_row("AMT-S 1080p (node-padded to 1088x1920) 2x bf16 b2", amt_fn, 2, (1088, 1920), "amt")
+    amt_fps, amt_profile = slice8_row("AMT-S 1080p (node-padded to 1088x1920) 2x bf16 b2", amt_fn, 2, (1088, 1920), "amt")
     del amt_fn
     # the forward's three lookups (both directions each), at its shapes: the
     # feature maps [2, 84, 136, 240] bf16 and end points within a few pixels
@@ -2225,11 +2376,241 @@ def main() -> int:
     )
     del fm, base, c0, c1, corr
 
+    # ---- 35. kernels at ATM's and XVFI's 1080p shapes -------------------------
+    t0 = time.perf_counter()
+    s10_errs = {}
+    for shape, vdt, body in SLICE10_WARPS:
+        flow32 = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            img = torch.rand(shape, generator=g).to(dev, getattr(torch, vdt) if vdt else dt)
+            s10_errs[f"{list(shape)} {str(img.dtype).split('.')[-1]}, {str(dt).split('.')[-1]} flow ({body})"] = routed_and_k1(img, flow32.to(dt), body)
+    # ATM's enhanced features: each half a channel slice of [1, 136, 240, 768]
+    # (pixel stride 768), as the model hands them to the kernel
+    enh_flow32 = torch.from_numpy(warp_cases.smooth_flow(*ATM_ENH_SHAPE[:3], amp=6.0)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        feat = torch.rand(ATM_ENH_SHAPE, generator=g).to(dev, dt)
+        for half in (0, 1):
+            view = feat[..., 384 * half : 384 * (half + 1)]
+            check(not view.is_contiguous() and view.stride()[2] == 768, f"ATM half {half}: strides {view.stride()}")
+            s10_errs[f"[1, 136, 240, 768][..., {384 * half}:{384 * (half + 1)}] {str(dt).split('.')[-1]} (wide)"] = routed_and_k1(
+                view, enh_flow32.to(dt), "wide"
+            )
+    del img, flow32, feat, view
+    # one ATM base b1 forward and one XVFI Vimeo b2 reuse and infer, bf16, at
+    # 1080p: each warp launched again on a copy of its inputs, each splat too
+    atm_bf16 = atm.make_model_fn(atm.init_params("base", 0), "base", True, False, torch.bfloat16, dev)
+    xvfi_params = xvfi.init_params("XVFInet_Vimeo_exp1_latest.pt", 0)
+    xvfi_reuse, xvfi_infer = xvfi.make_pair_fns(xvfi_params, "XVFInet_Vimeo_exp1_latest.pt", torch.bfloat16, dev)
+    af = [torch.from_numpy(np.random.default_rng(i).random((1, 1080, 1920, 3), dtype=np.float32)).to(dev) for i in range(2)]
+    xf = [torch.from_numpy(np.random.default_rng(i).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev) for i in range(2)]
+    xf.append(torch.full((2,), 0.5, device=dev))
+    a_store, x_store, x_splats = [], [], []
+    with captured_warps(a_store):
+        atm_bf16(*af)
+    with captured_warps(x_store), captured_splats(x_splats):
+        xvfi_infer(xf[0], xf[1], xvfi_reuse(xf[0], xf[1]), xf[2])
+    torch.cuda.synchronize()
+    aseen, xseen = warps_vs_plain(a_store, "ATM base 1080p forward"), warps_vs_plain(x_store, "XVFI Vimeo 1080p reuse + infer")
+    n_atm = {k: sum(1 for kk, *_ in a_store if kk == k) for k in ("warp_bilinear", "warp_bilinear_wide")}
+    n_xvfi = {k: sum(1 for kk, *_ in x_store if kk == k) for k in ("warp_bilinear", "warp_bilinear_wide")}
+    want_a = atm.warps_per_forward("base", True, False, torch.bfloat16)
+    want_x = {k: xvfi.warps_per_reuse("XVFInet_Vimeo_exp1_latest.pt")[k] + xvfi.warps_per_infer()[k] for k in ("narrow", "wide")}
+    check(
+        aseen == {"warp_bilinear_wide": {((1, 136, 240, 384), "zeros", "bfloat16", "bfloat16")},
+                  "warp_bilinear": {((1, h, w, 3), "zeros", "bfloat16", "bfloat16") for h, w in ((272, 480), (544, 960), (1088, 1920))}}
+        and n_atm == {"warp_bilinear": want_a["narrow"], "warp_bilinear_wide": want_a["wide"]},
+        f"ATM warps {n_atm} at {aseen}, expected {want_a}",
+    )
+    check(
+        xseen == {"warp_bilinear_wide": {((2, 544, 960, 64), "zeros", "bfloat16", "float32")},
+                  "warp_bilinear": {((2, 544, 960, 1), "zeros", "float32", "float32"), ((2, 1088, 1920, 3), "zeros", "bfloat16", "float32"),
+                                    ((2, 1088, 1920, 1), "zeros", "float32", "float32")}}
+        and n_xvfi == {"warp_bilinear": want_x["narrow"], "warp_bilinear_wide": want_x["wide"]},
+        f"XVFI warps {n_xvfi} at {xseen}, expected {want_x}",
+    )
+    del a_store, x_store
+    check([tuple(v.shape) for v, _ in x_splats] == [XVFI_SPLAT_SHAPE] and x_splats[0][0].dtype == torch.float32,
+          f"XVFI splats {[(tuple(v.shape), v.dtype) for v, _ in x_splats]}")
+    xsplat_errs = {}
+    sflow = torch.from_numpy(warp_cases.smooth_flow(*XVFI_SPLAT_SHAPE[:3], amp=8.0)).to(dev)
+    xsplat_errs["smooth f32"] = splat_vs_plain(torch.rand(XVFI_SPLAT_SHAPE, generator=g).to(dev), sflow)
+    xsplat_errs["captured f32"] = splat_vs_plain(*x_splats[0], f32_scaled=True)
+    xsplat_errs["captured as bf16"] = splat_vs_plain(x_splats[0][0].bfloat16(), x_splats[0][1])
+    print(
+        "slice10 kernels: K1 and the routed kernel vs plain, zeros, bit-exact at "
+        + ", ".join(f"{k} max err {v}" for k, v in s10_errs.items())
+        + f"; one ATM base 1080p bf16 forward's {sum(n_atm.values())} warps ({n_atm}) and one XVFI Vimeo 1080p bf16 reuse + "
+        f"infer's {sum(n_xvfi.values())} ({n_xvfi}) launched again on their inputs, each bit-exact against the plain twin; "
+        f"K2 at XVFI's CFR splat {list(XVFI_SPLAT_SHAPE)}: " + ", ".join(f"{k} max err {v}" for k, v in xsplat_errs.items()),
+        flush=True,
+    )
+    s10_warp_times = {}
+    timed = [(shape, vdt, body, None) for shape, vdt, body in SLICE10_WARPS] + [(ATM_ENH_SHAPE, None, "wide", h) for h in (0, 1)]
+    for shape, vdt, body, half in timed:
+        base = torch.rand(shape, generator=g).to(dev, getattr(torch, vdt) if vdt else torch.bfloat16)
+        img = base if half is None else base[..., 384 * half : 384 * (half + 1)]
+        fdt = torch.float32 if shape[0] == 2 else torch.bfloat16  # XVFI warps by f32 flows, ATM by the model's
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev, fdt)
+        gs = grid_sample_call(img, flow, "zeros")
+        times = in_turns({body: (lambda: warp(img, flow, "zeros"), 30), "plain": (lambda: warp_torch(img, flow, "zeros"), 3),
+                          "grid_sample": (gs, 10)})
+        body_name = KERNEL_BODIES["warp_bilinear_wide" if body == "wide" else "warp_bilinear"][0]
+        dev_k, dev_gs = device_ms(lambda: warp(img, flow, "zeros"), 10, body_name), device_ms(gs, 10)
+        wb = warp_bound(img, flow)
+        key = (f"{'x'.join(map(str, shape))}" + ("" if half is None else f"[..., {384 * half}:{384 * (half + 1)}]")
+               + f" {str(img.dtype).split('.')[-1]} zeros, {str(fdt).split('.')[-1]} flow")
+        s10_warp_times[key] = {
+            "kernel": body, "ms": statistics.mean(times[body]), "device_ms": dev_k, "plain_ms": statistics.mean(times["plain"]),
+            "library_ms": statistics.mean(times["grid_sample"]), "library_device_ms": dev_gs, "bound_ms": wb[0], "bound_by": wb[1],
+        }
+        print(
+            f"timing {card}: warp {key}: " + ", ".join(f"{k} {statistics.mean(v):.4f} ms {v}" for k, v in times.items())
+            + f"; device {body} {dev_k:.4f} ms, grid_sample {dev_gs:.4f} ms; bound {wb[0]:.4f} ms ({wb[1]}), {body} on the "
+            f"device at {100 * wb[0] / dev_k:.1f} % of it",
+            flush=True,
+        )
+    del base, img, flow, gs
+    xsplat_times = {}
+    for label, (vals, sfl) in {"smooth": (torch.rand(XVFI_SPLAT_SHAPE, generator=g).to(dev), sflow), "captured": x_splats[0]}.items():
+        times = in_turns({"kernel": (lambda: softsplat_func(vals, sfl), 20), "plain": (lambda: softsplat_torch(vals, sfl), 3)})
+        dev_k = device_ms(lambda: softsplat_func(vals, sfl), 10, KERNEL_BODIES["softsplat"][0])
+        sb = bound(*splat_work(vals.permute(0, 3, 1, 2), sfl.permute(0, 3, 1, 2)))
+        xsplat_times[f"{'x'.join(map(str, XVFI_SPLAT_SHAPE))} f32 {label}"] = {
+            "ms": statistics.mean(times["kernel"]), "device_ms": dev_k, "plain_ms": statistics.mean(times["plain"]),
+            "bound_ms": sb[0], "bound_by": sb[1],
+        }
+        print(
+            f"timing {card}: splat {list(XVFI_SPLAT_SHAPE)} f32 ({label} flow): kernel {statistics.mean(times['kernel']):.4f} ms "
+            f"{times['kernel']}, plain {statistics.mean(times['plain']):.4f} ms; device {dev_k:.4f} ms; bound {sb[0]:.4f} ms "
+            f"({sb[1]}), kernel on the device at {100 * sb[0] / dev_k:.1f} % of it",
+            flush=True,
+        )
+    del vals, sfl, sflow, x_splats
+    print(f"slice10 kernels: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 36. ATM node end to end, and the golden ------------------------------
+    t0 = time.perf_counter()
+    atm_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    for variant, ckpt, setting, dtypes in (
+        ("base", "atm-vfi-base.pt", "On", ("float32", "bfloat16")), ("base", "atm-vfi-base.pt", "Off (fastest)", ("float32", "bfloat16")),
+        ("lite", "atm-vfi-lite.pt", "On", ("float32", "bfloat16")), ("base", "atm-vfi-base.pt", "On with Ensemble (slowest)", ("float32",)),
+    ):
+        gm, ens = ATM_VFI.GLOBAL_MOTION_SETTINGS[setting]
+        per = {dt: {**atm.warps_per_forward(variant, gm, ens, getattr(torch, dt)), "splat": 0} for dt in dtypes}
+        got, psnrs, n_calls = card_vs_cpu(
+            f"ATM {variant} {setting}", ATM_VFI, ckpt, atm.init_params(variant, 0), [(2, dtypes, {})], (atm, "make_model_fn"),
+            lambda name, dt, per=per: per[str(dt).split(".")[-1]], global_motion=setting,
+        )
+        atm_launches = {k: atm_launches[k] + got[k] for k in got}
+        print(
+            f"atm: ATM {variant} global motion {setting!r} node 4x{NODE_HW[0]}x{NODE_HW[1]} (edge-padded to 192x256 per "
+            f"call, centred) x2 batch 2, cuda vs cpu fp32: {', '.join(psnrs)}; {n_calls} model calls, launches {got}, per forward "
+            f"{per}",
+            flush=True,
+        )
+    print(f"atm: {node_golden('atm', ATM_VFI, 'atm-vfi-base.pt', lambda seed: atm.init_params('base', seed), global_motion='On')}; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 37. ATM timing, and the attention's share ---------------------------
+    atm_fps, atm_profile = timed_row("ATM base 1080p (padded to 1088x1920) 2x bf16 b1, global motion", atm_bf16, af, 1)
+    spans = {}
+    targets = [
+        (atm, "_mha", "attention (scores, mask, softmax, value product)"),
+        (atm._Windows, "split", "windows (pad, roll, partition)"),
+        (atm._Windows, "merge", "windows back (reverse, roll, crop)"),
+        (atm.AttentionToMotion, "forward", "attention to motion (q, kv, proj, motion readout, with its attention)"),
+        (atm.ATMFormer, "forward", "ATMFormer blocks"),
+        (atm.RefineBottleneck, "forward", "RefineBottleneck blocks"),
+    ]
+    with cuda_spans(targets, spans):
+        atm_bf16(*af)
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 / atm_fps
+    print(
+        f"timing {card}: ATM base 1080p bf16 attention, CUDA-event spans of one forward: "
+        + "; ".join(f"{label} {ms:.3f} ms in {n} calls ({100 * ms / fwd_ms:.1f} % of the forward)" for label, (n, ms) in span_ms(spans).items()),
+        flush=True,
+    )
+    del atm_bf16, af, spans
+
+    # ---- 38. XVFI node end to end, and the golden -----------------------------
+    t0 = time.perf_counter()
+    xvfi_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    for ckpt, mults, pad in (("XVFInet_Vimeo_exp1_latest.pt", (2, 3), "144x240"), (X4K, (2,), "512x512")):
+        def want(name, dt, ckpt=ckpt):
+            if name == "reuse":
+                return {**xvfi.warps_per_reuse(ckpt, dt), "splat": 0}
+            return {**xvfi.warps_per_infer(dt), "splat": xvfi.splats_per_infer()}
+
+        got, psnrs, n_calls = card_vs_cpu(
+            f"XVFI {ckpt}", XVFI_VFI, ckpt, xvfi.init_params(ckpt, 0), [(m, ("float32", "bfloat16"), {}) for m in mults],
+            (xvfi, "make_pair_fns"), want,
+        )
+        xvfi_launches = {k: xvfi_launches[k] + got[k] for k in got}
+        print(
+            f"xvfi: XVFI {ckpt} node 4x{NODE_HW[0]}x{NODE_HW[1]} (zero-padded to {pad}) batch 2, cuda vs cpu fp32: "
+            f"{', '.join(psnrs)}; {n_calls} reuse and infer calls, launches {got}, per reuse "
+            f"{xvfi.warps_per_reuse(ckpt)}, per infer {xvfi.warps_per_infer()} and {xvfi.splats_per_infer()} splat",
+            flush=True,
+        )
+    print(f"xvfi: {node_golden('xvfi', XVFI_VFI, 'XVFInet_Vimeo_exp1_latest.pt', lambda seed: xvfi.init_params('XVFInet_Vimeo_exp1_latest.pt', seed))}; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 39. XVFI timing, and X4K's kernels at 1080p --------------------------
+    def xvfi_fwd(f0, f1, t):
+        return xvfi_infer(f0, f1, xvfi_reuse(f0, f1), t)
+
+    _, xvfi_profile = timed_row(
+        "XVFI Vimeo 1080p (padded to 1088x1920) 2x bf16 b2 through make_pair_fns, reuse + infer", xvfi_fwd, xf, 2
+    )
+    xcache = xvfi_reuse(xf[0], xf[1])
+    reuse_ms = 1e3 * measure(xvfi_reuse, xf[0], xf[1], iters=3, rounds=3)
+    infer_ms = 1e3 * measure(xvfi_infer, xf[0], xf[1], xcache, xf[2], iters=3, rounds=3)
+    print(f"timing {card}: XVFI Vimeo 1080p bf16 b2: reuse {reuse_ms:.3f} ms, infer {infer_ms:.3f} ms per call", flush=True)
+    del xvfi_reuse, xvfi_infer, xcache
+    # X4K, the node's default checkpoint: one forward's launches counted from
+    # 0 just before it and read just after, then each of its warps and its
+    # splat launched again on copies of their inputs against the twins
+    x4k_fn = xvfi.make_model_fn(xvfi.init_params(X4K, 0), X4K, torch.bfloat16, dev)
+    x_store, x_splats = [], []
+    warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+    with captured_warps(x_store), captured_splats(x_splats):
+        x4k_fn(*xf)
+    torch.cuda.synchronize()
+    x4k_launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+    want_x4k = {k: v + xvfi.warps_per_infer()[k] for k, v in xvfi.warps_per_reuse(X4K).items()}
+    want_x4k["splat"] = xvfi.splats_per_infer()
+    check(x4k_launches == want_x4k, f"XVFI X4K 1080p forward launched {x4k_launches}, expected {want_x4k}")
+    x4k_seen = warps_vs_plain(x_store, "XVFI X4K 1080p forward")
+    levels = [(X4K_HW[0] // 4 >> i, X4K_HW[1] // 4 >> i) for i in range(5)]  # level 0 at 1/4, then the flow levels to 24x32
+    want_seen = {
+        "warp_bilinear_wide": {((2, h, w, 64), "zeros", "bfloat16", "float32") for h, w in levels},
+        "warp_bilinear": {((2, h, w, 1), "zeros", "float32", "float32") for h, w in levels + [X4K_HW]}
+        | {((2, *X4K_HW, 3), "zeros", "bfloat16", "float32")},
+    }
+    check(x4k_seen == want_seen, f"XVFI X4K warps at {x4k_seen}, expected {want_seen}")
+    check([tuple(v.shape) for v, _ in x_splats] == [X4K_SPLAT_SHAPE] and x_splats[0][0].dtype == torch.float32,
+          f"XVFI X4K splats {[(tuple(v.shape), v.dtype) for v, _ in x_splats]}")
+    x4k_splat_errs = {
+        "captured f32": splat_vs_plain(*x_splats[0], f32_scaled=True),
+        "captured as bf16": splat_vs_plain(x_splats[0][0].bfloat16(), x_splats[0][1]),
+    }
+    print(
+        f"xvfi: one XVFI X4K 1080p (padded to {X4K_HW[0]}x{X4K_HW[1]}) bf16 b2 forward: launches {x4k_launches}; its "
+        f"{len(x_store)} warps at {sum(len(v) for v in x4k_seen.values())} shapes launched again, each bit-exact against the "
+        f"plain twin; K2 at its CFR splat {list(X4K_SPLAT_SHAPE)}: " + ", ".join(f"{k} max err {v}" for k, v in x4k_splat_errs.items()),
+        flush=True,
+    )
+    del x_store, x_splats
+    timed_row(f"XVFI X4K 1080p (padded to {X4K_HW[0]}x{X4K_HW[1]}) 2x bf16 b2", x4k_fn, xf, 2, profile=False)
+    del x4k_fn, xf
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
         "rife": rife_profile, "m2m": m2m_profile, "film": film_profile, **gmfss_profiles, "eisai": eisai_profile,
         "stmfnet": stmf_profile, "ifrnet": ifrnet_profile, "ifunet": ifunet_profile, "amt": amt_profile,
+        "atm": atm_profile, "xvfi": xvfi_profile,
     }
     per_forward = {k: {path: prof[k] for path, prof in profiles.items() if k in prof} for k in KERNEL_BODIES}
     ranked = sorted(
@@ -2237,12 +2618,13 @@ def main() -> int:
         key=lambda e: e[2]["above_bound_ms"], reverse=True,
     )
     print(
-        f"ranking {card}: ms above the bound per bf16 forward (1080p; EISAI 540p; STMFNet a 1080p window; IFRNet b4, IFUnet and AMT b2): "
+        f"ranking {card}: ms above the bound per bf16 forward (1080p; EISAI 540p; STMFNet a 1080p window; IFRNet b4, IFUnet, AMT "
+        f"and XVFI b2, ATM b1): "
         + "; ".join(f"{k} on {path} {v['above_bound_ms']:.3f} ({v['launches']} launches)" for k, path, v in ranked),
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-34 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-39 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -2251,12 +2633,14 @@ def main() -> int:
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:78",
             "launches": rife_warp_launches + rife40_launches["narrow"] + m2m_warp_launches + film_warp_launches
             + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"] + stmf_launches["narrow"]
-            + ifrnet_launches["narrow"] + ifunet_launches["narrow"] + amt_launches["narrow"],
+            + ifrnet_launches["narrow"] + ifunet_launches["narrow"] + amt_launches["narrow"] + atm_launches["narrow"]
+            + xvfi_launches["narrow"] + x4k_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["narrow"], "stmfnet": stmf_launches["narrow"],
                 "ifrnet": ifrnet_launches["narrow"], "ifunet": ifunet_launches["narrow"], "amt": amt_launches["narrow"],
+                "atm": atm_launches["narrow"], "xvfi": xvfi_launches["narrow"], "xvfi_x4k_1080p": x4k_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -2268,6 +2652,7 @@ def main() -> int:
             "gmfss_shapes": {k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "tiled"},
             "stmfnet_shapes": {k: v for k, v in stmf_warp_times.items() if v["kernel"] == "tiled"},
             "ifrnet_ifunet_amt_shapes": {k: v for k, v in s8_warp_times.items() if v["kernel"] == "tiled"},
+            "atm_xvfi_shapes": {k: v for k, v in s10_warp_times.items() if v["kernel"] == "tiled"},
             "per_forward": per_forward["warp_bilinear"],
         },
         {
@@ -2277,11 +2662,13 @@ def main() -> int:
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/warp_kernel.py:297",
             "launches": rife40_launches["wide"] + m2m_wide + film_wide_launches
             + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"]
-            + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"],
+            + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"] + atm_launches["wide"]
+            + xvfi_launches["wide"] + x4k_launches["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
                 "ifrnet": ifrnet_launches["wide"], "ifunet": ifunet_launches["wide"], "amt": amt_launches["wide"],
+                "atm": atm_launches["wide"], "xvfi": xvfi_launches["wide"], "xvfi_x4k_1080p": x4k_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -2295,6 +2682,7 @@ def main() -> int:
                 **wide_times, **{k: v for k, v in gmfss_warp_times.items() if v["kernel"] == "wide"},
                 **{k: v for k, v in stmf_warp_times.items() if v["kernel"] == "wide"},
                 **{k: v for k, v in s8_warp_times.items() if v["kernel"] == "wide"},
+                **{k: v for k, v in s10_warp_times.items() if v["kernel"] == "wide"},
                 **path_wide_times,
             },
             "stmfnet_backwarp_designs": design_times,
@@ -2306,10 +2694,11 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
             "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
-            + stmf_launches["splat"],
+            + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"],
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
-                "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"],
+                "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
+                "xvfi_x4k_1080p": x4k_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -2322,6 +2711,7 @@ def main() -> int:
             "gmfss_shapes": gmfss_splat_times,
             "eisai_shapes": eisai_splat_times,
             "stmfnet_shapes": stmf_splat_times,
+            "xvfi_shapes": xsplat_times,
             "per_forward": per_forward["softsplat"],
         },
     ]}))

@@ -1,7 +1,8 @@
 """Layer primitives for the ported models: the subset of the JAX package's
 ``models/common.py`` that RIFE, M2M, FILM, GMFSS, EISAI, STMFNet, FLAVR,
-IFRNet, IFUnet and AMT use, as plain functions on NCHW tensors (``linear`` on the last axis of any
-tensor; ``conv3d``/``conv_transpose3d`` on NCDHW clips).
+IFRNet, IFUnet, AMT, ATM and XVFI use, as plain functions on NCHW tensors
+(``linear`` on the last axis of any tensor; ``conv3d``/``conv_transpose3d``
+on NCDHW clips).
 
 The JAX versions take NHWC arrays and parameter dicts in torch layout; here
 the tensors are torch's own NCHW (held in ``channels_last`` memory by the

@@ -6,7 +6,8 @@ NHWC torch tensors."""
 
 from .rife_node import RIFE_VFI
 from .vfi_nodes import (
-    AMT_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
+    AMT_VFI, ATM_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
+    XVFI_VFI,
 )
 
 NODE_CLASS_MAPPINGS = {
@@ -20,6 +21,8 @@ NODE_CLASS_MAPPINGS = {
     "IFRNet VFI": IFRNet_VFI,
     "IFUnet VFI": IFUnet_VFI,
     "AMT VFI": AMT_VFI,
+    "ATM VFI": ATM_VFI,
+    "XVFI VFI": XVFI_VFI,
 }
 NODE_DISPLAY_NAME_MAPPINGS = {
     "RIFE VFI": "RIFE VFI (recommend rife47 and rife49)",
@@ -32,4 +35,6 @@ NODE_DISPLAY_NAME_MAPPINGS = {
     "IFRNet VFI": "IFRNet VFI",
     "IFUnet VFI": "IFUnet VFI",
     "AMT VFI": "AMT VFI",
+    "ATM VFI": "ATM VFI",
+    "XVFI VFI": "XVFI VFI",
 }

@@ -2,7 +2,7 @@
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
 Ported so far: FILM, M2M, GMFSS Fortuna, EISAI, STMFNet, FLAVR, IFRNet,
-IFUnet and AMT. Same public schema as the JAX nodes (the
+IFUnet, AMT, ATM and XVFI. Same public schema as the JAX nodes (the
 tooltips speak of the card); frames and results are NHWC torch tensors on the node's device.
 """
 
@@ -19,6 +19,7 @@ from ..core.frames import assert_batch_size, postprocess_frames, preprocess_fram
 from ..core.loop import run_plan, run_plan_pair_cached, run_plan_window4
 from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep, plan_window4
 from ..models import amt as amt_model
+from ..models import atm as atm_model
 from ..models import eisai as eisai_model
 from ..models import film as film_model
 from ..models import flavr as flavr_model
@@ -27,6 +28,7 @@ from ..models import ifrnet as ifrnet_model
 from ..models import ifunet as ifunet_model
 from ..models import m2m as m2m_model
 from ..models import stmfnet as stmfnet_model
+from ..models import xvfi as xvfi_model
 from ..utils.ckpt import load_checkpoint_set, load_local_checkpoint
 from .rife_node import DTYPE_MAP, DTYPE_OPTIONS
 
@@ -573,3 +575,136 @@ class AMT_VFI:
         plan = plan_timestep(frames.shape[0], multiplier, optional_interpolation_states)
         out = run_plan(frames, plan, model_fn, batch_size=batch_size)
         return (postprocess_frames(out[crop]),)
+
+
+def _strip_keys(sd: dict, names) -> dict:
+    """``sd`` without every key that has one of ``names`` as a component of
+    its dotted path, as the JAX node's ``_strip_keys`` drops them from the
+    nested tree at any depth."""
+    return {k: v for k, v in sd.items() if not set(k.split(".")) & set(names)}
+
+
+class ATM_VFI:
+    """reference ``atm/__init__.py:83-182``; bisection schedule, 2x only; each
+    model call edge-pads to multiples of 64, centred (inside the model
+    callable)."""
+
+    MODEL_TYPE = "atm"
+    GLOBAL_MOTION_SETTINGS = {
+        "On": [True, False],
+        "On with Ensemble (slowest)": [True, True],
+        "Off (fastest)": [False, False],
+    }
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "ckpt_name": (atm_model.CKPT_NAMES,),
+                "frames": ("IMAGE",),
+                "clear_cache_after_n_frames": ("INT", {"default": 10, "min": 1, "max": 1000}),
+                "multiplier": ("INT", {"default": 2, "min": 2, "max": 2}),
+                "global_motion": (list(cls.GLOBAL_MOTION_SETTINGS.keys()),),
+                **_batch_dtype_inputs(2),
+            },
+            **_OPTIONAL,
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        global_motion: str = "On",
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "ATM")
+        variant = atm_model.variant_for_ckpt(ckpt_name)
+        gm, gm_ens = self.GLOBAL_MOTION_SETTINGS[global_motion]
+        if params is None:
+            # the reference deletes the stale attn_mask/HW buffers before
+            # loading (atm/__init__.py:133-141); the masks are built per shape
+            params = _strip_keys(load_local_checkpoint(self.MODEL_TYPE, ckpt_name), ("attn_mask", "HW"))
+        model_fn = _cached(
+            self._model_fns, params, (variant, gm, gm_ens, dtype, str(device)),
+            lambda: atm_model.make_model_fn(params, variant, gm, gm_ens, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        plan = plan_bisection(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)
+
+
+class XVFI_VFI:
+    """reference ``xvfi/__init__.py:49-115``; generic timestep schedule (a
+    timestep of 0 keeps its pair), run by the pair-cached executor: the
+    feature pyramid and every flow level once per pair, level 0's synthesis
+    once per timestep (the reference recomputes all of it per timestep).
+
+    As in the JAX node, the schema keeps the reference's spelling
+    ``multipler`` and ``vfi`` accepts ``multiplier`` too; interpolation
+    states take the standard skip semantics and frames come out in temporal
+    order (the reference fails on states and sorts frame keys as strings)."""
+
+    MODEL_TYPE = "xvfi"
+
+    def __init__(self):
+        self._pair_fns: typing.Dict[tuple, typing.Tuple[dict, tuple]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "ckpt_name": (list(xvfi_model.CKPT_CONFIGS.keys()),),
+                "frames": ("IMAGE",),
+                "batch_size": ("INT", {"default": 2, "min": 1, "max": 100, "tooltip": _BATCH_TOOLTIP}),
+                "multipler": ("INT", {"default": 2, "min": 2, "max": 1000}),
+                "dtype": (DTYPE_OPTIONS, {"default": "float32", "tooltip": _DTYPE_TOOLTIP}),
+            },
+            **_OPTIONAL,
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        batch_size: int = 2,
+        multipler: int = 2,
+        multiplier: int = None,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        mult = multiplier if multiplier is not None else multipler
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "XVFI")
+        if params is None:  # load_local_checkpoint takes the weights out of state_dict_Model
+            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        reuse_fn, infer_fn = _cached(
+            self._pair_fns, params, (ckpt_name, dtype, str(device)),
+            lambda: xvfi_model.make_pair_fns(params, ckpt_name, dtype=DTYPE_MAP[dtype], device=device),
+        )
+        plan = plan_timestep(frames.shape[0], mult, optional_interpolation_states, zero_drops_pair=False)
+        out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)

@@ -13,11 +13,13 @@ FILM 1080p 2x bf16 batch 2, GMFSS Fortuna 1080p 2x bf16 batch 1, base and
 union, EISAI 540p (its native 540x960) 2x bf16 batch 1 with 12 RAFT
 iterations, STMFNet 1080p 2x bf16 batch 1 and FLAVR 1080p 2x bf16 batch 2
 (a window of four frames per interpolated frame), IFRNet S 1080p 2x bf16
-batch 4, IFUnet 1080p 2x bf16 batch 2 without the ensemble and AMT-S 1080p
-(padded to 1088x1920, as its node pads) 2x bf16 batch 2, random frames and
+batch 4, IFUnet 1080p 2x bf16 batch 2 without the ensemble, AMT-S 1080p
+(padded to 1088x1920, as its node pads) 2x bf16 batch 2, ATM base 1080p 2x
+bf16 batch 1 with global motion and XVFI Vimeo 1080p 2x bf16 batch 2 (a
+reuse and an infer of ``make_pair_fns`` per pair batch), random frames and
 random weights from seed 0 (the configurations of ``chip_smoke.py`` phases
-6, 10, 14, 18, 22, 26, 27, 30, 32 and 34), each through ``make_model_fn``
-and timed by
+6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37 and 39), each through
+``make_model_fn`` (XVFI's pair functions) and timed by
 ``utils.benchmark.measure``. A model missing from the checkout timed (an
 older port) is left out of the line.
 """
@@ -45,7 +47,7 @@ def main(argv=None) -> int:
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
     found = {}
-    for name in ("stmfnet", "flavr", "ifrnet", "ifunet", "amt"):
+    for name in ("stmfnet", "flavr", "ifrnet", "ifunet", "amt", "atm", "xvfi"):
         try:
             found[name] = importlib.import_module(f"comfyui_frame_interpolation_tpu_torch.models.{name}")
         except ImportError:
@@ -91,6 +93,17 @@ def main(argv=None) -> int:
     if "amt" in found:
         amt = found["amt"]
         fns["amt_s_1080p_b2"] = (2, lambda: amt.make_model_fn(amt.init_params("S", 0), "amt-s.pth", dtype=bf16, device=dev), 5)
+    if "atm" in found:
+        atm = found["atm"]
+        fns["atm_base_1080p_b1"] = (1, lambda: atm.make_model_fn(atm.init_params("base", 0), "base", dtype=bf16, device=dev), 5)
+    if "xvfi" in found:
+        xvfi = found["xvfi"]
+
+        def xvfi_fn(ckpt="XVFInet_Vimeo_exp1_latest.pt"):
+            reuse, infer = xvfi.make_pair_fns(xvfi.init_params(ckpt, 0), ckpt, dtype=bf16, device=dev)
+            return lambda f0, f1, t: infer(f0, f1, reuse(f0, f1), t)
+
+        fns["xvfi_vimeo_1080p_b2"] = (2, xvfi_fn, 5)
     fps = {}
     for name, (n, make, iters) in fns.items():
         fn = make()

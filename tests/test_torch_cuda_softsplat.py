@@ -41,6 +41,12 @@ window: 3 channels times ``exp(metric)``, and the metric), f32 and bf16; an
 STMFNet forward through the window executor launches, per call, the K1 and
 wide warps of ``stmfnet.warps_per_forward`` and one splat; a FLAVR forward
 launches none.
+
+XVFI's CFR splat, both directions of a 1080p batch-2 infer as one batch:
+``[4, 544, 960, 3]`` for Vimeo and ``[4, 384, 512, 3]`` for X4K, f32 (the
+flow times ``z`` and the gaussian norm), on smooth flow; and XVFI's pair
+functions, Vimeo and X4K, launch the warps of ``xvfi.warps_per_reuse`` per
+reuse call and of ``xvfi.warps_per_infer`` and one splat per infer call.
 """
 
 import math
@@ -51,7 +57,7 @@ import torch
 import warp_cases
 from comfyui_frame_interpolation_tpu_torch.core import loop
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
-from comfyui_frame_interpolation_tpu_torch.models import eisai, flavr, gmfss, m2m, rife, stmfnet
+from comfyui_frame_interpolation_tpu_torch.models import eisai, flavr, gmfss, m2m, rife, stmfnet, xvfi
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
 
@@ -299,3 +305,31 @@ def test_stmfnet_and_flavr_launch_counts(cuda, dtype):
     torch.cuda.synchronize()
     assert (warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches) == before
     assert out.shape == (7, 64, 96, 3) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("shape", [(4, 544, 960, 3), (4, 384, 512, 3)])
+def test_xvfi_cfr_splat_shape(cuda, shape):
+    g = torch.Generator().manual_seed(9)
+    vals = torch.rand(shape, generator=g).to(cuda)
+    flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], 8.0)).to(cuda)
+    _check(softsplat_func(vals, flow), softsplat_torch(vals, flow), torch.float32)
+
+
+@pytest.mark.parametrize("ckpt", list(xvfi.CKPT_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xvfi_launch_counts(cuda, ckpt, dtype):
+    reuse, infer = xvfi.make_pair_fns(xvfi.init_params(ckpt, 0), ckpt, dtype, cuda)
+    f0, f1 = torch.rand(2, 2, 64, 96, 3, device=cuda)
+    before = (warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches)
+    cache = reuse(f0, f1)
+    torch.cuda.synchronize()
+    per = xvfi.warps_per_reuse(ckpt, dtype)
+    got = (warp_kernel.launches - before[0], warp_kernel.wide_launches - before[1], softsplat_kernel.launches - before[2])
+    assert got == (per["narrow"], per["wide"], 0)
+    before = (warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches)
+    out = infer(f0, f1, cache, torch.full((2,), 0.5, device=cuda))
+    torch.cuda.synchronize()
+    per = xvfi.warps_per_infer(dtype)
+    got = (warp_kernel.launches - before[0], warp_kernel.wide_launches - before[1], softsplat_kernel.launches - before[2])
+    assert got == (per["narrow"], per["wide"], xvfi.splats_per_infer())
+    assert out.shape == (2, 64, 96, 3) and torch.isfinite(out).all()

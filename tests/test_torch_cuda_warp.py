@@ -48,6 +48,18 @@ features (C = 44, 32, 20) and frames over its 3 flows; each through the
 kernel ``warp_kernel.route`` names and through K1, bit for bit. Their bf16
 feature pixels of C = 54, 36, 44, 20 start off 16 bytes, so the wide
 kernel reads them in 4- and 8-byte vectors.
+
+ATM's and XVFI's warps at their 1080p shapes, zeros mode, f32 and bf16 with
+the flow in the same dtype (the f32 ones planes with f32 flow), each through
+the routed kernel and through K1, bit for bit: ATM base batch 1 (padded to
+1088x1920): the fused features ``[1, 136, 240, 384]`` (lite 224) and the
+frames at 1/4, 1/2 and 1; the enhanced features' two halves as the model
+gives them, channel slices of ``[1, 136, 240, 768]`` (pixel stride 768),
+never made contiguous; XVFI Vimeo batch 2 (padded to 1088x1920): the
+features ``[2, 544, 960, 64]``, the frames and the ones planes; X4K batch 2
+(padded to 1536x2048): the features at 1/4 to 1/64. An ATM forward
+launches the warps of ``atm.warps_per_forward`` (XVFI's counts are held in
+``tests/test_torch_cuda_softsplat.py``).
 """
 
 import numpy as np
@@ -55,7 +67,7 @@ import pytest
 import torch
 
 import warp_cases
-from comfyui_frame_interpolation_tpu_torch.models import film, rife
+from comfyui_frame_interpolation_tpu_torch.models import atm, film, rife
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
 
@@ -355,3 +367,65 @@ def test_ifrnet_ifunet_amt_warps_border(cuda, shape, body, dtype):
     k1 = warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), False).permute(0, 2, 3, 1)
     torch.cuda.synchronize()
     assert torch.equal(routed, ref) and torch.equal(k1, ref)
+
+
+# ATM base / lite 1080p batch 1 and XVFI Vimeo / X4K 1080p batch 2, zeros
+# mode: (NHWC shape, value dtype or None for the model's, the kernel route
+# names); the ones planes are f32 in every model dtype
+ATM_XVFI_WARPS = (
+    ((1, 136, 240, 384), None, "wide"), ((1, 136, 240, 224), None, "wide"), ((1, 272, 480, 3), None, "tiled"),
+    ((1, 544, 960, 3), None, "tiled"), ((1, 1088, 1920, 3), None, "tiled"),
+    ((2, 544, 960, 64), None, "wide"), ((2, 1088, 1920, 3), None, "tiled"), ((2, 544, 960, 1), torch.float32, "tiled"),
+    ((2, 1088, 1920, 1), torch.float32, "tiled"), ((2, 384, 512, 64), None, "wide"), ((2, 24, 32, 64), None, "wide"),
+    ((2, 1536, 2048, 3), None, "tiled"),
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,value_dtype,body", ATM_XVFI_WARPS)
+def test_atm_xvfi_warps_zeros(cuda, shape, value_dtype, body, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    vdt = value_dtype or dtype
+    img = torch.rand(shape, generator=g).to(cuda, vdt)
+    flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(cuda, dtype)
+    planes = img.permute(0, 3, 1, 2)
+    assert warp_kernel.route(planes.shape, planes.stride(), vdt) == body
+    ref = warp_torch(img, flow, "zeros")
+    routed = warp(img, flow, "zeros")
+    k1 = warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), True).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(routed, ref) and torch.equal(k1, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("half", [0, 1])
+def test_atm_enhanced_feature_halves_as_channel_slices(cuda, half, dtype):
+    """``feat_enh[..., :384]`` and ``[..., 384:768]`` of ATM base at 1080p:
+    views with pixel stride 768, the second starting 768 (f32) or 384 (bf16)
+    bytes in; on the wide kernel, no copy."""
+    g = torch.Generator().manual_seed(11 + half)
+    feat = torch.rand(1, 136, 240, 768, generator=g).to(cuda, dtype)
+    img = feat[..., 384 * half : 384 * (half + 1)]
+    flow = torch.from_numpy(warp_cases.smooth_flow(1, 136, 240, amp=6.0)).to(cuda, dtype)
+    planes = img.permute(0, 3, 1, 2)
+    assert planes.stride() == (136 * 240 * 768, 1, 240 * 768, 768) and not img.is_contiguous()
+    assert warp_kernel.route(planes.shape, planes.stride(), dtype) == "wide"
+    ref = warp_torch(img, flow, "zeros")
+    routed = warp(img, flow, "zeros")
+    k1 = warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), True).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(routed, ref) and torch.equal(k1, ref)
+
+
+@pytest.mark.parametrize("variant,global_motion,ensemble", [
+    ("base", True, False), ("base", False, False), ("lite", True, False), ("base", True, True),
+])
+def test_atm_forward_launches(cuda, variant, global_motion, ensemble):
+    fn = atm.make_model_fn(atm.init_params(variant, 0), variant, global_motion, ensemble, torch.bfloat16, cuda)
+    f0, f1 = torch.rand(2, 1, 128, 192, 3, device=cuda)
+    before = (warp_kernel.launches, warp_kernel.wide_launches)
+    out = fn(f0, f1)
+    torch.cuda.synchronize()
+    got = {"narrow": warp_kernel.launches - before[0], "wide": warp_kernel.wide_launches - before[1]}
+    assert got == atm.warps_per_forward(variant, global_motion, ensemble, torch.bfloat16)
+    assert out.shape == (1, 128, 192, 3) and torch.isfinite(out).all()

@@ -50,8 +50,19 @@ each new frame is the model function's on its pair at its timestep (the
 models are held against JAX by ``tests/test_torch_{ifrnet,ifunet,amt}.py``);
 AMT edge-pads the clip to multiples of 16, centred, and crops back; each
 runs from its checkpoint file exactly as from ``params``, builds its model
-function once per params, and needs two frames. The registry lists the ten
-ported nodes with the JAX display names.
+function once per params, and needs two frames.
+
+ATM (bisection schedule, 2x only) and XVFI (timestep schedule, pair-cached):
+the schemas as for GMFSS (XVFI keeps the reference's ``multipler``); ATM runs
+end to end on three random frames with each ``global_motion`` setting, each
+new frame the model function's on its pair (which edge-pads to multiples of
+64, centred); XVFI runs on them at x2 and x3 (``multiplier`` as an alias),
+each new frame the pair functions' at its timestep, Vimeo and X4K (padded to
+512x512); ATM runs from a checkpoint that holds the ``attn_mask`` and ``HW``
+buffers the node strips, XVFI from one under ``state_dict_Model``, exactly as
+from ``params`` (the models are held against JAX by
+``tests/test_torch_{atm,xvfi}.py``). The registry lists the twelve ported
+nodes with the JAX display names.
 """
 
 import contextlib
@@ -68,6 +79,7 @@ from PIL import Image
 from comfyui_frame_interpolation_tpu.nodes import NODE_DISPLAY_NAME_MAPPINGS as JAX_DISPLAY_NAMES
 from comfyui_frame_interpolation_tpu.nodes.rife_node import RIFE_VFI as JaxRIFE
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import AMT_VFI as JaxAMT
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import ATM_VFI as JaxATM
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import EISAI_VFI as JaxEISAI
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FILM_VFI as JaxFILM
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import FLAVR_VFI as JaxFLAVR
@@ -76,11 +88,13 @@ from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import IFRNet_VFI as JaxIFR
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import IFUnet_VFI as JaxIFUnet
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import M2M_VFI as JaxM2M
 from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import STMFNet_VFI as JaxSTMFNet
+from comfyui_frame_interpolation_tpu.nodes.vfi_nodes import XVFI_VFI as JaxXVFI
 from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_tree
 from comfyui_frame_interpolation_tpu_torch import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
 from comfyui_frame_interpolation_tpu_torch.models import amt as pamt
+from comfyui_frame_interpolation_tpu_torch.models import atm as patm
 from comfyui_frame_interpolation_tpu_torch.models import eisai as peisai
 from comfyui_frame_interpolation_tpu_torch.models import film as pfilm
 from comfyui_frame_interpolation_tpu_torch.models import flavr as pflavr
@@ -90,8 +104,10 @@ from comfyui_frame_interpolation_tpu_torch.models import ifunet as pifunet
 from comfyui_frame_interpolation_tpu_torch.models import m2m as pm2m
 from comfyui_frame_interpolation_tpu_torch.models import rife as prife
 from comfyui_frame_interpolation_tpu_torch.models import stmfnet as pstmfnet
+from comfyui_frame_interpolation_tpu_torch.models import xvfi as pxvfi
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import AMT_VFI as PortAMT
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import ATM_VFI as PortATM
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import EISAI_VFI as PortEISAI
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI as PortFILM
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FLAVR_VFI as PortFLAVR
@@ -100,6 +116,7 @@ from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFRNet_VFI as 
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFUnet_VFI as PortIFUnet
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import STMFNet_VFI as PortSTMFNet
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import XVFI_VFI as PortXVFI
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
@@ -122,7 +139,7 @@ def test_input_types_equal_jax_node():
     assert NODE_CLASS_MAPPINGS == {
         "RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM, "GMFSS Fortuna VFI": PortGMFSS,
         "EISAI VFI": PortEISAI, "STMFNet VFI": PortSTMFNet, "FLAVR VFI": PortFLAVR,
-        "IFRNet VFI": PortIFRNet, "IFUnet VFI": PortIFUnet, "AMT VFI": PortAMT,
+        "IFRNet VFI": PortIFRNet, "IFUnet VFI": PortIFUnet, "AMT VFI": PortAMT, "ATM VFI": PortATM, "XVFI VFI": PortXVFI,
     }
     assert NODE_DISPLAY_NAME_MAPPINGS == {k: JAX_DISPLAY_NAMES[k] for k in NODE_CLASS_MAPPINGS}
 
@@ -627,5 +644,117 @@ def test_timestep_node_caches_its_model_fn_and_needs_two_frames(family):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     node.vfi(ckpt, frames, params=init(1), device="cpu")
     assert len(node._model_fns) == 2
+    with pytest.raises(ValueError, match="at least 2 frames"):
+        node.vfi(ckpt, frames[:1], params=sd, device="cpu")
+
+
+# ---- ATM and XVFI ------------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("port_cls,jax_cls", [(PortATM, JaxATM), (PortXVFI, JaxXVFI)])
+def test_atm_xvfi_input_types_equal_jax_node_without_tooltips(port_cls, jax_cls):
+    port, ref = port_cls.INPUT_TYPES(), jax_cls.INPUT_TYPES()
+    assert _no_tooltips(port) == _no_tooltips(ref)
+    assert list(port["required"]) == list(ref["required"])
+    assert port["required"]["batch_size"][1]["default"] == 2 and "TPU" not in str(port)
+    for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+        assert getattr(port_cls, attr) == getattr(jax_cls, attr)
+
+
+def _three_frames(seed=1):
+    return np.random.default_rng(seed).random((3, 36, 60, 3), dtype=np.float32)
+
+
+@pytest.mark.parametrize("global_motion", list(PortATM.GLOBAL_MOTION_SETTINGS))
+def test_atm_node_runs_end_to_end(global_motion):
+    """Three frames of 36x60 at x2, batch 2 (the model pads each call to
+    64x64, centred): the originals pass bit for bit, each new frame is the
+    model function's on its pair."""
+    frames = _three_frames()
+    sd = patm.init_params("lite", 0)
+    (got,) = PortATM().vfi("atm-vfi-lite.pt", frames, global_motion=global_motion, params=sd, device="cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == (5, 36, 60, 3)
+    fn = patm.make_model_fn(sd, "lite", *PortATM.GLOBAL_MOTION_SETTINGS[global_motion], device="cpu")
+    x = torch.from_numpy(frames)
+    for k in (0, 2, 4):
+        np.testing.assert_array_equal(got[k].numpy(), frames[k // 2])
+    for k in (1, 3):
+        torch.testing.assert_close(got[k], fn(x[k // 2 : k // 2 + 1], x[k // 2 + 1 : k // 2 + 2])[0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("ckpt,multiplier", [
+    ("XVFInet_Vimeo_exp1_latest.pt", 2), ("XVFInet_Vimeo_exp1_latest.pt", 3), ("XVFInet_X4K1000FPS_exp1_latest.pt", 2),
+])
+def test_xvfi_node_runs_end_to_end(ckpt, multiplier):
+    """Three frames of 36x60, batch 3 (Vimeo pads them to 48x64, X4K to
+    512x512): the originals pass bit for bit, each new frame is the pair
+    functions' at its timestep; ``multiplier`` is taken for ``multipler``."""
+    frames = _three_frames()
+    sd = pxvfi.init_params(ckpt, 0)
+    (got,) = PortXVFI().vfi(ckpt, frames, batch_size=3, multiplier=multiplier, params=sd, device="cpu")
+    plan = plan_timestep(3, multiplier, zero_drops_pair=False)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (len(plan.output), 36, 60, 3)
+    reuse, infer = pxvfi.make_pair_fns(sd, ckpt, device="cpu")
+    x = torch.from_numpy(frames)
+    caches = {}
+    for k, (kind, i) in enumerate(plan.output):
+        if kind == "orig":
+            np.testing.assert_array_equal(got[k].numpy(), frames[i])
+            continue
+        task = plan.tasks[i]
+        f0, f1 = x[task.pair : task.pair + 1], x[task.pair + 1 : task.pair + 2]
+        cache = caches.setdefault(task.pair, reuse(f0, f1))
+        torch.testing.assert_close(got[k], infer(f0, f1, cache, torch.tensor([task.t]))[0], atol=1e-5, rtol=0)
+
+
+def test_atm_node_runs_from_a_checkpoint_with_stale_buffers(tmp_path, monkeypatch):
+    """``atm-vfi-lite.pt`` as the reference ships it: the state dict under
+    ``model_state_dict`` with ``attn_mask`` buffers and an ``HW`` entry, which
+    the node strips."""
+    sd = patm.init_params("lite", 1)
+    stale = {
+        **sd, "local_motion_atmformer.0.attn_mask": torch.zeros(4, 64, 64),
+        "feat_enhance_transformer.1.attn_mask": torch.zeros(4, 64, 64), "global_motion_atmformer.1.HW": torch.tensor([8, 8]),
+    }
+    frames = np.random.default_rng(2).random((2, 32, 48, 3), dtype=np.float32)
+    with _ckpts_path(tmp_path, monkeypatch) as ckpts:
+        (ckpts / "atm").mkdir(parents=True)
+        torch.save({"model_state_dict": stale, "epoch": 3}, str(ckpts / "atm" / "atm-vfi-lite.pt"))
+        (from_file,) = PortATM().vfi("atm-vfi-lite.pt", frames, device="cpu")
+        with pytest.raises(FileNotFoundError, match="atm checkpoint"):
+            PortATM().vfi("atm-vfi-base.pt", frames, device="cpu")
+    (from_params,) = PortATM().vfi("atm-vfi-lite.pt", frames, params=sd, device="cpu")
+    assert tuple(from_file.shape) == (3, 32, 48, 3)
+    torch.testing.assert_close(from_file, from_params, rtol=0, atol=0)
+
+
+def test_xvfi_node_runs_from_a_state_dict_model_checkpoint(tmp_path, monkeypatch):
+    ckpt = "XVFInet_Vimeo_exp1_latest.pt"
+    sd = pxvfi.init_params(ckpt, 1)
+    frames = np.random.default_rng(2).random((2, 32, 48, 3), dtype=np.float32)
+    with _ckpts_path(tmp_path, monkeypatch) as ckpts:
+        (ckpts / "xvfi").mkdir(parents=True)
+        torch.save({"state_dict_Model": sd, "epoch": 3}, str(ckpts / "xvfi" / ckpt))
+        (from_file,) = PortXVFI().vfi(ckpt, frames, device="cpu")
+    (from_params,) = PortXVFI().vfi(ckpt, frames, params=sd, device="cpu")
+    assert tuple(from_file.shape) == (3, 32, 48, 3)
+    torch.testing.assert_close(from_file, from_params, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("port_cls,ckpt,init", [
+    (PortATM, "atm-vfi-lite.pt", lambda seed: patm.init_params("lite", seed)),
+    (PortXVFI, "XVFInet_Vimeo_exp1_latest.pt", lambda seed: pxvfi.init_params("XVFInet_Vimeo_exp1_latest.pt", seed)),
+])
+def test_atm_xvfi_nodes_cache_their_fns_and_need_two_frames(port_cls, ckpt, init):
+    sd = init(0)
+    frames = np.random.default_rng(3).random((2, 16, 32, 3), dtype=np.float32)
+    node = port_cls()
+    cache = node._model_fns if port_cls is PortATM else node._pair_fns
+    a = node.vfi(ckpt, frames, params=sd, device="cpu")[0]
+    b = node.vfi(ckpt, frames, params=sd, device="cpu")[0]
+    assert len(cache) == 1
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    node.vfi(ckpt, frames, params=init(1), device="cpu")
+    assert len(cache) == 2
     with pytest.raises(ValueError, match="at least 2 frames"):
         node.vfi(ckpt, frames[:1], params=sd, device="cpu")
