@@ -273,8 +273,39 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    3]`` f32 against the twin (f32, and cast to bf16); then frames/s and the
    peak memory of one forward.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38 and X4K's forward in 39) is driven with the launch counts set to
-0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39) also
+40. cain      -- the CAIN VFI node (random weights from seed 0) on 4 frames
+   of 135x240 (reflect-padded to 256x256 inside, centred), x2 and x4, batch
+   2, on the card in fp32 (TF32 off) and bf16, each >= 40 dB against the same
+   node on the CPU in fp32; original frames pass through bit for bit; no
+   hand-kernel launch; the JAX golden
+   (``tests/fixtures/torch_port_cain_golden.npz``) through the node on the
+   card, >= 40 dB;
+41. timing    -- CAIN 1080p (padded to 1152x1920) 2x bf16 batch 4
+   (``bench.py:bench_cain``'s configuration): frames/s, the peak memory of
+   one forward, a ``torch.profiler`` top 10 with the idle share;
+42. sepconv   -- the Sepconv VFI node as in phase 40 (edge-padded to 136x240
+   inside), with the kernel heads conditioned as ``bench.py`` conditions
+   them (last convolution times 0.05, bias 1/51); the golden
+   (``tests/fixtures/torch_port_sepconv_golden.npz``); and ``sepconv_func``
+   on the card against the CPU on one band of a 720p batch-2 call, f32,
+   within 1e-6 of the sums' magnitude;
+43. timing    -- Sepconv 720p 2x bf16 batch 2 (``bench.py:bench_sepconv``'s
+   configuration) as phase 41, and ``sepconv_func``'s ms per call at that
+   forward's shapes, on the device, against its bound, and the share of the
+   forward its two calls take;
+44. streaming -- the three executors over a ``memory_budget_bytes`` that
+   forces them to stream, against the same clip resident: RIFE 4.7 bf16
+   through ``run_plan`` (x4, 24 frames of 1080p, batch 8; also from a clip
+   on the host), M2M fp32 through ``run_plan_pair_cached`` (x3, 8 frames of
+   540x960, batch 2) and FLAVR bf16 through ``run_plan_window4`` (10 frames
+   of 540x960, edge-padded to 544x960, batch 2). RIFE and FLAVR must be bit
+   for bit; M2M's splat sums with float atomics, so it is held within the
+   largest difference between five resident runs (both figures printed);
+   each run's launches, counted from 0, must equal the resident run's, and
+   its peak device memory must be lower.
+
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44 and X4K's forward in 39) is driven with the
+launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
 ranking line orders kernel and path by the ms above the bound. Then the
@@ -289,7 +320,9 @@ path's timed size (1080p; EISAI 540p). The new paths' warp shapes are
 under ``ifrnet_ifunet_amt_shapes`` and ``atm_xvfi_shapes`` (K1) and
 ``by_shape`` (wide, every main-path shape), XVFI's splat under
 ``xvfi_shapes``, and each profile's ``per_forward`` entry lists the
-layouts its launches took (``launch_layouts``).
+layouts its launches took (``launch_layouts``); the streamed RIFE and M2M
+runs of phase 44 under ``launches_by_path`` as ``rife_streaming`` and
+``m2m_streaming``. CAIN, Sepconv and FLAVR launch no hand kernel.
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -821,18 +854,22 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import warp_cases
-    from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups
+    from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups, run_plan, run_plan_pair_cached, run_plan_window4
     from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep, plan_window4
-    from comfyui_frame_interpolation_tpu_torch.models import amt, atm, eisai, film, flavr, gmfss, ifrnet, ifunet, m2m, rife, stmfnet, xvfi
-    from comfyui_frame_interpolation_tpu_torch.models.common import device_const
+    from comfyui_frame_interpolation_tpu_torch.models import (
+        amt, atm, cain, eisai, film, flavr, gmfss, ifrnet, ifunet, m2m, rife, sepconv, stmfnet, xvfi,
+    )
+    from comfyui_frame_interpolation_tpu_torch.models.common import device_const, reflect_pad
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
     from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import (
-        AMT_VFI, ATM_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
-        XVFI_VFI,
+        AMT_VFI, ATM_VFI, CAIN_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
+        SepconvVFI, XVFI_VFI, _pad16,
     )
     from comfyui_frame_interpolation_tpu_torch.ops.adacof import adacof_func
     from comfyui_frame_interpolation_tpu_torch.ops.bidir_corr import BidirCorr
+    from comfyui_frame_interpolation_tpu_torch.ops import sepconv as sepconv_op
     from comfyui_frame_interpolation_tpu_torch.ops.correlation import correlation_func
+    from comfyui_frame_interpolation_tpu_torch.ops.sepconv import sepconv_func
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import (
         function_softsplat, softsplat, softsplat_func, softsplat_torch,
@@ -1951,7 +1988,7 @@ def main() -> int:
     stmf_fps = 1 / measure(stmf_fn, *sf, iters=3, rounds=3)
     net = stmfnet._load(stmf_params, torch.bfloat16, dev)
     with torch.inference_mode():
-        x0, x1, x2, x3 = (stmfnet._reflect_pad(stmfnet._nchw(f.to(torch.bfloat16)), 72, 0) for f in sf)
+        x0, x1, x2, x3 = (reflect_pad(stmfnet._nchw(f.to(torch.bfloat16)), (0, 0, 0, 72)) for f in sf)
         feats = stmfnet.stage_feats(net, x1, x2)
         adas = [a for sfx in ("", "_ds", "_us") for a in stmfnet.stage_stream(net, feats, x1, x2, sfx)]
         splats = stmfnet.stage_flowsplat(net, x1, x2)
@@ -2605,6 +2642,177 @@ def main() -> int:
     timed_row(f"XVFI X4K 1080p (padded to {X4K_HW[0]}x{X4K_HW[1]}) 2x bf16 b2", x4k_fn, xf, 2, profile=False)
     del x4k_fn, xf
 
+    # ---- 40. CAIN node end to end, and the golden ------------------------------
+    t0 = time.perf_counter()
+    cain_launches, psnrs, n_calls = card_vs_cpu(
+        "CAIN", CAIN_VFI, "pretrained_cain.pth", cain.init_params(0), [(m, ("float32", "bfloat16"), {}) for m in (2, 4)],
+        (cain, "make_model_fn"), lambda name, dt: {"narrow": 0, "wide": 0, "splat": 0},
+    )
+    print(
+        f"cain: CAIN node 4x{NODE_HW[0]}x{NODE_HW[1]} (reflect-padded to 256x256, centred) batch 2, cuda vs cpu fp32: "
+        f"{', '.join(psnrs)}; {n_calls} model calls, no hand-kernel launch; "
+        f"{node_golden('cain', CAIN_VFI, 'pretrained_cain.pth', cain.init_params)}; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 41. CAIN timing --------------------------------------------------------
+    cain_fn = cain.make_model_fn(cain.init_params(0), dtype=torch.bfloat16, device=dev)
+    cx = [torch.from_numpy(np.random.default_rng(i).random((4, 1080, 1920, 3), dtype=np.float32)).to(dev) for i in range(2)]
+    cx.append(torch.full((4,), 0.5, device=dev))
+    timed_row("CAIN 1080p (reflect-padded to 1152x1920) 2x bf16 b4", cain_fn, cx, 4)
+    del cain_fn, cx
+
+    # ---- 42. Sepconv node end to end, the golden, and sepconv_func on a 720p band --
+    def sepconv_conditioned(seed):
+        """``sepconv.init_params(seed)`` with each kernel head's last
+        convolution scaled by 0.05 and its bias at 1/51 (``bench.py``'s
+        conditioning: a filter's taps sum to about 1, as a trained
+        checkpoint's do, so the normaliser the output is divided by is not
+        near 0)."""
+        sd = sepconv.init_params(seed)
+        for head in ("netVerone", "netVertwo", "netHorone", "netHortwo"):
+            sd[f"{head}.netMain.3.weight"] = sd[f"{head}.netMain.3.weight"] * 0.05
+            sd[f"{head}.netMain.3.bias"] = torch.full_like(sd[f"{head}.netMain.3.bias"], 1.0 / 51.0)
+        return sd
+
+    t0 = time.perf_counter()
+    sep_launches, psnrs, n_calls = card_vs_cpu(
+        "Sepconv", SepconvVFI, "sepconv.pth", sepconv_conditioned(0), [(m, ("float32", "bfloat16"), {}) for m in (2, 4)],
+        (sepconv, "make_model_fn"), lambda name, dt: {"narrow": 0, "wide": 0, "splat": 0},
+    )
+    print(
+        f"sepconv: Sepconv node 4x{NODE_HW[0]}x{NODE_HW[1]} (edge-padded to 136x240) batch 2, conditioned weights, cuda vs "
+        f"cpu fp32: {', '.join(psnrs)}; {n_calls} model calls, no hand-kernel launch; "
+        f"{node_golden('sepconv', SepconvVFI, 'sepconv.pth', sepconv_conditioned)}; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    # one band of a 720p batch-2 call (the rows ops.sepconv.BAND_ELEMENTS gives
+    # it), f32, on the card against the CPU: f32 rounding of sums of 2601
+    # products, 1e-6 of the largest sum of the products' magnitudes
+    band = max(1, sepconv_op.BAND_ELEMENTS // (2 * 1280 * 4 * 51))
+    sx = torch.rand(2, band + 50, 1330, 4, generator=g)
+    sv, sh = (torch.randn(2, band, 1280, 51, generator=g) / 51 for _ in range(2))
+    sep_cpu = sepconv_func(sx, sv, sh)
+    sep_abs = sepconv_func(sx.to(dev), sv.abs().to(dev), sh.abs().to(dev)).max().item()
+    sep_card = sepconv_func(sx.to(dev), sv.to(dev), sh.to(dev)).cpu()
+    sep_err = (sep_card - sep_cpu).abs().max().item()
+    check(sep_err <= 1e-6 * sep_abs, f"sepconv_func on the card vs the cpu at [2, {band}, 1280, 51]: max err {sep_err} > 1e-6 x {sep_abs}")
+    print(f"sepconv: sepconv_func on one 720p band ([2, {band + 50}, 1330, 4] f32, K = 51) cuda vs cpu: max abs err {sep_err:.3g} "
+          f"(the sums' magnitude {sep_abs:.3g})", flush=True)
+    del sx, sv, sh, sep_cpu, sep_card
+
+    # ---- 43. Sepconv timing, and sepconv_func's share ---------------------------
+    sep_fn = sepconv.make_model_fn(sepconv_conditioned(0), dtype=torch.bfloat16, device=dev)
+    sx = [torch.from_numpy(np.random.default_rng(i).random((2, 720, 1280, 3), dtype=np.float32)).to(dev) for i in range(2)]
+    sx.append(torch.full((2,), 0.5, device=dev))
+    sep_fps, _ = timed_row("Sepconv 720p 2x bf16 b2", sep_fn, sx, 2)
+    del sep_fn, sx
+    # one sepconv_func call of that forward: a frame padded by 25 with its ones
+    # channel, bf16 [2, 770, 1330, 4], and two 51-tap fields as NHWC views of
+    # channels_last [2, 51, 720, 1280] bf16
+    spad = torch.rand(2, 770, 1330, 4, generator=g).to(dev, torch.bfloat16)
+    sver, shor = (
+        (torch.randn(2, 51, 720, 1280, generator=g) / 51).to(dev, torch.bfloat16).contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        for _ in range(2)
+    )
+    sep_ms = cuda_ms(lambda: sepconv_func(spad, sver, shor), 3)
+    sep_dev = device_ms(lambda: sepconv_func(spad, sver, shor), 2)
+    # bytes: the input, both fields and the output once; operations: per
+    # output value 51 rows of 51 products and sums, and each row's weight
+    # product and sum (2 * 51 * 52)
+    sep_bound = bound(
+        sum(t.numel() * t.element_size() for t in (spad, sver, shor)) + 2 * 720 * 1280 * 4 * 2, 2 * 720 * 1280 * 4 * 2 * 51 * 52,
+    )
+    fwd_ms = 2e3 / sep_fps
+    print(
+        f"timing {card}: sepconv_func at Sepconv 720p bf16 b2's shapes ([2, 770, 1330, 4], fields [2, 720, 1280, 51]; f32 "
+        f"products in bands of {band} rows) {sep_ms:.3f} ms per call ({sep_dev:.3f} ms on the device); bound {sep_bound[0]:.4f} ms "
+        f"({sep_bound[1]}), {sep_dev / sep_bound[0]:.1f}x it; 2 per forward: {2 * sep_ms:.3f} ms, {100 * 2 * sep_ms / fwd_ms:.1f} % of "
+        f"the {fwd_ms:.3f} ms forward",
+        flush=True,
+    )
+    del spad, sver, shor
+
+    # ---- 44. the streaming executors against the resident ones -----------------------
+    def executor_run(run, frames_, *args, **kw):
+        """``run(frames_, *args, **kw)`` with the launch counts from 0 just
+        before it and read just after, and its peak device memory above what
+        was held before it: ``(result on the host, launches, peak bytes)``."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+        out = run(frames_, *args, **kw)
+        torch.cuda.synchronize()
+        got = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+        peak = torch.cuda.max_memory_allocated() - base
+        return out.cpu(), got, peak
+
+    t0 = time.perf_counter()
+    stream_rows = {}
+    # RIFE 4.7 (bf16, fast mode) through run_plan: x4, 24 frames of 1080p, b8
+    rife_fn = rife.make_model_fn(rife.init_params(0, "4.7"), "4.7", fastmode=True, ensemble=False, dtype=torch.bfloat16, device=dev)
+    rclip = torch.from_numpy(shifted_pattern(24, 1080, 1920, seed=12)).to(dev)
+    rplan = plan_timestep(24, 4)
+    budget = 16 * 1080 * 1920 * 3 * 4  # 16 frames: far under the 24 + 93 + 32 frames the resident estimate counts
+    r_res, r_res_n, r_res_peak = executor_run(run_plan, rclip, rplan, rife_fn, batch_size=8)
+    r_str, r_str_n, r_str_peak = executor_run(run_plan, rclip, rplan, rife_fn, batch_size=8, memory_budget_bytes=budget)
+    r_host, r_host_n, r_host_peak = executor_run(run_plan, rclip.cpu(), rplan, rife_fn, batch_size=8, memory_budget_bytes=budget)
+    check(r_str.device.type == "cpu" and tuple(r_str.shape) == (93, 1080, 1920, 3), f"RIFE streamed {tuple(r_str.shape)}")
+    check(torch.equal(r_str, r_res) and torch.equal(r_host, r_res), "RIFE run_plan streamed != resident, not bit for bit")
+    check(r_str_n == r_res_n == r_host_n, f"RIFE launches streamed {r_str_n}, from a host clip {r_host_n}, resident {r_res_n}")
+    check(r_str_peak < r_res_peak and r_host_peak < r_res_peak, f"RIFE peak memory streamed {r_str_peak} / {r_host_peak}, resident {r_res_peak}")
+    stream_rows["rife"] = (r_res_peak, r_str_peak, r_str_n, "bit for bit")
+    rife_stream_launches = r_str_n
+    print(f"streaming: RIFE 4.7 run_plan x4 24x1080x1920 b8 bf16, the clip on the host: bit for bit, peak "
+          f"{r_host_peak / 2**30:.3f} GiB, launches {r_host_n}", flush=True)
+    del rife_fn, rclip, r_res, r_str, r_host
+    # M2M (fp32) through run_plan_pair_cached: x3, 8 frames of 540x960, b2;
+    # the splat sums with float atomics, so five resident runs give the spread
+    # (the streamed run, a sixth draw of the sums' order, fails only if it lies
+    # farther from all five than any two of them lie apart)
+    reuse_fn, infer_fn = m2m.make_pair_fns(m2m.init_params(0), dtype=torch.float32, device=dev)
+    mclip = torch.from_numpy(shifted_pattern(8, *M2M_HW, seed=13)).to(dev)
+    mplan = plan_timestep(8, 3)
+    budget = 8 * M2M_HW[0] * M2M_HW[1] * 3 * 4
+    m_res = [executor_run(run_plan_pair_cached, mclip, mplan, reuse_fn, infer_fn, batch_size=2) for _ in range(5)]
+    m_str, m_str_n, m_str_peak = executor_run(
+        run_plan_pair_cached, mclip, mplan, reuse_fn, infer_fn, batch_size=2, memory_budget_bytes=budget
+    )
+    spread = max((a[0] - b[0]).abs().max().item() for i, a in enumerate(m_res) for b in m_res[i + 1 :])
+    m_err = min((m_str - r[0]).abs().max().item() for r in m_res)
+    check(m_str.device.type == "cpu" and tuple(m_str.shape) == (22, *M2M_HW, 3), f"M2M streamed {tuple(m_str.shape)}")
+    check(torch.equal(m_str[::3], mclip.cpu()), "M2M streamed: original frames not passed through")
+    check(m_err <= spread, f"M2M streamed vs resident max err {m_err} above the resident runs' spread {spread}")
+    check(all(r[1] == m_str_n for r in m_res), f"M2M launches streamed {m_str_n}, resident {[r[1] for r in m_res]}")
+    check(m_str_peak < min(r[2] for r in m_res), f"M2M peak memory streamed {m_str_peak}, resident {[r[2] for r in m_res]}")
+    stream_rows["m2m"] = (m_res[0][2], m_str_peak, m_str_n, f"max err {m_err:.3g} against the nearest resident run; "
+                          f"five resident runs differ by up to {spread:.3g}")
+    m2m_stream_launches = m_str_n
+    del reuse_fn, infer_fn, mclip, m_res, m_str
+    # FLAVR (bf16) through run_plan_window4: 10 frames of 540x960 (edge-padded
+    # to 544x960, as the node pads), b2
+    flavr_fn2 = flavr.make_model_fn(flavr.init_params(0), dtype=torch.bfloat16, device=dev)
+    fclip, _ = _pad16(torch.from_numpy(shifted_pattern(10, *M2M_HW, seed=14)).to(dev))
+    fplan = plan_window4(10)
+    budget = 8 * 544 * 960 * 3 * 4
+    f_res, f_res_n, f_res_peak = executor_run(run_plan_window4, fclip, fplan, flavr_fn2, batch_size=2)
+    f_str, f_str_n, f_str_peak = executor_run(run_plan_window4, fclip, fplan, flavr_fn2, batch_size=2, memory_budget_bytes=budget)
+    check(f_str.device.type == "cpu" and tuple(f_str.shape) == (len(fplan.output), 544, 960, 3), f"FLAVR streamed {tuple(f_str.shape)}")
+    check(torch.equal(f_str, f_res), "FLAVR run_plan_window4 streamed != resident, not bit for bit")
+    check(f_str_n == f_res_n == {"narrow": 0, "wide": 0, "splat": 0}, f"FLAVR launches streamed {f_str_n}, resident {f_res_n}")
+    check(f_str_peak < f_res_peak, f"FLAVR peak memory streamed {f_str_peak}, resident {f_res_peak}")
+    stream_rows["flavr"] = (f_res_peak, f_str_peak, f_str_n, "bit for bit")
+    del flavr_fn2, fclip, f_res, f_str
+    for path, (res_peak, str_peak, n, same) in stream_rows.items():
+        print(
+            f"streaming {card}: {path} streamed vs resident: {same}; peak device memory {str_peak / 2**30:.3f} GiB streamed, "
+            f"{res_peak / 2**30:.3f} GiB resident; launches {n} in both",
+            flush=True,
+        )
+    print(f"streaming: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -2624,7 +2832,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-39 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-44 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -2634,13 +2842,14 @@ def main() -> int:
             "launches": rife_warp_launches + rife40_launches["narrow"] + m2m_warp_launches + film_warp_launches
             + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"] + stmf_launches["narrow"]
             + ifrnet_launches["narrow"] + ifunet_launches["narrow"] + amt_launches["narrow"] + atm_launches["narrow"]
-            + xvfi_launches["narrow"] + x4k_launches["narrow"],
+            + xvfi_launches["narrow"] + x4k_launches["narrow"] + rife_stream_launches["narrow"] + m2m_stream_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["narrow"], "stmfnet": stmf_launches["narrow"],
                 "ifrnet": ifrnet_launches["narrow"], "ifunet": ifunet_launches["narrow"], "amt": amt_launches["narrow"],
                 "atm": atm_launches["narrow"], "xvfi": xvfi_launches["narrow"], "xvfi_x4k_1080p": x4k_launches["narrow"],
+                "rife_streaming": rife_stream_launches["narrow"], "m2m_streaming": m2m_stream_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -2663,12 +2872,13 @@ def main() -> int:
             "launches": rife40_launches["wide"] + m2m_wide + film_wide_launches
             + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"]
             + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"] + atm_launches["wide"]
-            + xvfi_launches["wide"] + x4k_launches["wide"],
+            + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
                 "ifrnet": ifrnet_launches["wide"], "ifunet": ifunet_launches["wide"], "amt": amt_launches["wide"],
                 "atm": atm_launches["wide"], "xvfi": xvfi_launches["wide"], "xvfi_x4k_1080p": x4k_launches["wide"],
+                "rife_streaming": rife_stream_launches["wide"], "m2m_streaming": m2m_stream_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -2694,11 +2904,13 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
             "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
-            + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"],
+            + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
+            + m2m_stream_launches["splat"],
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
-                "xvfi_x4k_1080p": x4k_launches["splat"],
+                "xvfi_x4k_1080p": x4k_launches["splat"], "rife_streaming": rife_stream_launches["splat"],
+                "m2m_streaming": m2m_stream_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",

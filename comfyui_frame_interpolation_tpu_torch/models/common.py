@@ -1,6 +1,7 @@
 """Layer primitives for the ported models: the subset of the JAX package's
 ``models/common.py`` that RIFE, M2M, FILM, GMFSS, EISAI, STMFNet, FLAVR,
-IFRNet, IFUnet, AMT, ATM and XVFI use, as plain functions on NCHW tensors
+IFRNet, IFUnet, AMT, ATM, XVFI, CAIN and Sepconv use, as plain functions
+on NCHW tensors
 (``linear`` on the last axis of any tensor; ``conv3d``/``conv_transpose3d``
 on NCDHW clips).
 
@@ -15,6 +16,10 @@ IODHW for the 3-D ones, on clips held in ``channels_last_3d`` memory.
 the JAX version's integer-factor fast paths compute the same two taps (for an
 even downscale factor s, rows ``s*k + s/2 - 1`` and ``s*k + s/2`` at 0.5
 each), so one call reproduces all of its paths.
+
+``reflect_pad`` is ``numpy.pad(mode="reflect")`` (and ``jnp.pad``'s), which
+goes on reflecting where a pad is as long as the side or longer;
+``F.pad(mode="reflect")`` raises there.
 
 ``conv2d(padding="same")`` is torch's own ``"same"``, the JAX
 ``"same_torch"``: for an even kernel the extra pad goes right and bottom.
@@ -47,6 +52,7 @@ __all__ = [
     "instance_norm",
     "prelu",
     "leaky_relu",
+    "reflect_pad",
     "linear",
     "max_pool2d",
     "sigmoid",
@@ -267,6 +273,26 @@ def resize_by_scale(
             return F.interpolate(x, scale_factor=int(scale), mode="nearest")
         return resize_nearest(x, out_hw)
     raise ValueError(f"unsupported resize mode {mode}")
+
+
+def reflect_pad(x: torch.Tensor, pad: Tuple[int, int, int, int]) -> torch.Tensor:
+    """Reflect-pad NCHW ``x`` by ``pad`` = ``(left, right, top, bottom)`` (the
+    ``F.pad`` order) as ``numpy.pad(..., mode="reflect")`` does, also where a
+    pad is the side's length or longer: numpy's reflection is periodic, with
+    a period of twice the side less one, so the pad goes on in steps of the
+    side less one, each reflecting about an edge that is a reflection point
+    of the original. A side of one pixel repeats, as in numpy."""
+    left, right, top, bottom = pad
+    h, w = x.shape[2] - 1, x.shape[3] - 1
+    if h == 0 and (top or bottom):
+        x, top, bottom = F.pad(x, (0, 0, top, bottom), mode="replicate"), 0, 0
+    if w == 0 and (left or right):
+        x, left, right = F.pad(x, (left, right, 0, 0), mode="replicate"), 0, 0
+    while left or right or top or bottom:
+        step = (min(left, w), min(right, w), min(top, h), min(bottom, h))
+        x = F.pad(x, step, mode="reflect")
+        left, right, top, bottom = left - step[0], right - step[1], top - step[2], bottom - step[3]
+    return x
 
 
 def avg_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None) -> torch.Tensor:

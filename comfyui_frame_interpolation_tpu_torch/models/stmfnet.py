@@ -48,7 +48,7 @@ from ..ops.softsplat import function_softsplat
 from ..ops.warp import warp
 from .common import (
     PRELU_INIT, batch_norm, cast_params, channels_last_params, conv2d, conv3d, conv_transpose3d, device_const,
-    init_state_dict, leaky_relu, prelu, resize_bilinear, resize_by_scale,
+    init_state_dict, leaky_relu, prelu, reflect_pad, resize_bilinear, resize_by_scale,
 )
 
 __all__ = [
@@ -613,24 +613,13 @@ def stage_dyntex(net: STMFNet, i0, i1, i2, i3, tilde) -> torch.Tensor:
     return tilde + net.dyntex_generator(clip)
 
 
-def _reflect_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
-    """Reflect-pad NCHW ``x`` at the bottom and right as ``numpy.pad(...,
-    mode="reflect")`` does, also where a pad exceeds the size less one
-    (reflections of the padded frame, in steps)."""
-    while pad_h or pad_w:
-        sh, sw = min(pad_h, x.shape[2] - 1), min(pad_w, x.shape[3] - 1)
-        x = F.pad(x, (0, sw, 0, sh), mode="reflect")
-        pad_h, pad_w = pad_h - sh, pad_w - sw
-    return x
-
-
 def apply(net: STMFNet, i0, i1, i2, i3) -> torch.Tensor:
     """``STMFNet_Model.forward`` (stmfnet_arch.py:2733-2856) on NCHW frames:
     reflect-padded to multiples of 128 (bottom and right), the prediction
     cropped back."""
     h0, w0 = i1.shape[2], i1.shape[3]
     ph, pw = (-h0) % 128, (-w0) % 128
-    i0, i1, i2, i3 = (_reflect_pad(x, ph, pw) for x in (i0, i1, i2, i3))
+    i0, i1, i2, i3 = (reflect_pad(x, (0, pw, 0, ph)) for x in (i0, i1, i2, i3))
     feats = stage_feats(net, i1, i2)
     adas = [a for sfx in _STREAMS for a in stage_stream(net, feats, i1, i2, sfx)]
     tilde = stage_synth(net, adas, stage_flowsplat(net, i1, i2))

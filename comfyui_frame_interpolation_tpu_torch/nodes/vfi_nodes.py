@@ -2,7 +2,7 @@
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
 Ported so far: FILM, M2M, GMFSS Fortuna, EISAI, STMFNet, FLAVR, IFRNet,
-IFUnet, AMT, ATM and XVFI. Same public schema as the JAX nodes (the
+IFUnet, AMT, ATM, XVFI, CAIN and Sepconv. Same public schema as the JAX nodes (the
 tooltips speak of the card); frames and results are NHWC torch tensors on the node's device.
 """
 
@@ -17,9 +17,10 @@ import torch.nn.functional as F
 from ..core.config import load_config
 from ..core.frames import assert_batch_size, postprocess_frames, preprocess_frames
 from ..core.loop import run_plan, run_plan_pair_cached, run_plan_window4
-from ..core.schedule import InterpolationStateList, plan_bisection, plan_timestep, plan_window4
+from ..core.schedule import InterpolationStateList, plan_bisection, plan_midpoint, plan_timestep, plan_window4
 from ..models import amt as amt_model
 from ..models import atm as atm_model
+from ..models import cain as cain_model
 from ..models import eisai as eisai_model
 from ..models import film as film_model
 from ..models import flavr as flavr_model
@@ -27,6 +28,7 @@ from ..models import gmfss as gmfss_model
 from ..models import ifrnet as ifrnet_model
 from ..models import ifunet as ifunet_model
 from ..models import m2m as m2m_model
+from ..models import sepconv as sepconv_model
 from ..models import stmfnet as stmfnet_model
 from ..models import xvfi as xvfi_model
 from ..utils.ckpt import load_checkpoint_set, load_local_checkpoint
@@ -708,3 +710,94 @@ class XVFI_VFI:
         plan = plan_timestep(frames.shape[0], mult, optional_interpolation_states, zero_drops_pair=False)
         out = run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=batch_size)
         return (postprocess_frames(out),)
+
+
+def _midpoint_vfi(node, model, name, ckpt_name, frames, multiplier, states, params, batch_size, dtype, device):
+    """A midpoint-mode node's run (CAIN, Sepconv): the model function built
+    once per params, the recursive-midpoint schedule on the resident
+    executor."""
+    device = torch.device(device or load_config()["device"])
+    frames = preprocess_frames(frames, device)
+    assert_batch_size(frames, 2, name)
+    if params is None:
+        params = load_local_checkpoint(node.MODEL_TYPE, ckpt_name)
+    model_fn = _cached(
+        node._model_fns, params, (dtype, str(device)),
+        lambda: model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
+    )
+    plan = plan_midpoint(frames.shape[0], multiplier, states)
+    out = run_plan(frames, plan, model_fn, batch_size=batch_size)
+    return (postprocess_frames(out),)
+
+
+class CAIN_VFI:
+    """reference ``cain/__init__.py:12-63``; recursive-midpoint schedule (the
+    model takes no timestep)."""
+
+    MODEL_TYPE = "cain"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(cain_model.CKPT_NAMES)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 4,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        return _midpoint_vfi(
+            self, cain_model, "CAIN", ckpt_name, frames, multiplier, optional_interpolation_states, params, batch_size,
+            dtype, device,
+        )
+
+
+class SepconvVFI:
+    """reference ``sepconv/__init__.py:13-57``; recursive-midpoint schedule
+    (the model takes no timestep). Upstream asserts frames of at most
+    1280x720; the JAX node does not, and neither does this one."""
+
+    MODEL_TYPE = "sepconv"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return _base_inputs(sepconv_model.CKPT_NAMES, batch_default=2)
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 2,
+        dtype: str = "float32",
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        return _midpoint_vfi(
+            self, sepconv_model, "Sepconv", ckpt_name, frames, multiplier, optional_interpolation_states, params,
+            batch_size, dtype, device,
+        )

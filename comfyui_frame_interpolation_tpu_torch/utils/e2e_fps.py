@@ -15,10 +15,11 @@ iterations, STMFNet 1080p 2x bf16 batch 1 and FLAVR 1080p 2x bf16 batch 2
 (a window of four frames per interpolated frame), IFRNet S 1080p 2x bf16
 batch 4, IFUnet 1080p 2x bf16 batch 2 without the ensemble, AMT-S 1080p
 (padded to 1088x1920, as its node pads) 2x bf16 batch 2, ATM base 1080p 2x
-bf16 batch 1 with global motion and XVFI Vimeo 1080p 2x bf16 batch 2 (a
-reuse and an infer of ``make_pair_fns`` per pair batch), random frames and
-random weights from seed 0 (the configurations of ``chip_smoke.py`` phases
-6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37 and 39), each through
+bf16 batch 1 with global motion, XVFI Vimeo 1080p 2x bf16 batch 2 (a
+reuse and an infer of ``make_pair_fns`` per pair batch), CAIN 1080p 2x bf16
+batch 4 and Sepconv 720p 2x bf16 batch 2, random frames and random weights
+from seed 0 (the configurations of ``chip_smoke.py`` phases 6, 10, 14, 18,
+22, 26, 27, 30, 32, 34, 37, 39, 41 and 43), each through
 ``make_model_fn`` (XVFI's pair functions) and timed by
 ``utils.benchmark.measure``. A model missing from the checkout timed (an
 older port) is left out of the line.
@@ -47,7 +48,7 @@ def main(argv=None) -> int:
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
     found = {}
-    for name in ("stmfnet", "flavr", "ifrnet", "ifunet", "amt", "atm", "xvfi"):
+    for name in ("stmfnet", "flavr", "ifrnet", "ifunet", "amt", "atm", "xvfi", "cain", "sepconv"):
         try:
             found[name] = importlib.import_module(f"comfyui_frame_interpolation_tpu_torch.models.{name}")
         except ImportError:
@@ -104,10 +105,16 @@ def main(argv=None) -> int:
             return lambda f0, f1, t: infer(f0, f1, reuse(f0, f1), t)
 
         fns["xvfi_vimeo_1080p_b2"] = (2, xvfi_fn, 5)
+    if "cain" in found:
+        cain = found["cain"]
+        fns["cain_1080p_b4"] = (4, lambda: cain.make_model_fn(cain.init_params(0), dtype=bf16, device=dev), 3)
+    if "sepconv" in found:
+        sepconv = found["sepconv"]
+        fns["sepconv_720p_b2"] = (2, lambda: sepconv.make_model_fn(sepconv.init_params(0), dtype=bf16, device=dev), 3)
     fps = {}
     for name, (n, make, iters) in fns.items():
         fn = make()
-        hw = {"eisai": (540, 960), "amt": (1088, 1920)}.get(name.split("_")[0], (1080, 1920))
+        hw = {"eisai": (540, 960), "amt": (1088, 1920), "sepconv": (720, 1280)}.get(name.split("_")[0], (1080, 1920))
         fps[name] = n / measure(fn, *frames(n, hw, window=name.split("_")[0] in window4), iters=iters, rounds=3)
         del fn
         torch.cuda.empty_cache()

@@ -1,5 +1,7 @@
-"""The port's resident plan executors against the JAX package's ``run_plan``,
-``run_plan_pair_cached`` and ``run_plan_window4``."""
+"""The port's plan executors against the JAX package's ``run_plan``,
+``run_plan_pair_cached`` and ``run_plan_window4``; over the memory budget
+each streams and gives the resident result (the streaming executors are
+held to the resident ones at length in ``tests/test_torch_loop_streaming.py``)."""
 
 import numpy as np
 import pytest
@@ -51,14 +53,34 @@ def test_run_plan_pads_every_call_to_batch_size():
     assert out.dtype == torch.float64 and out.shape == (7, 2, 2, 3)
 
 
-def test_run_plan_over_budget_raises():
-    frames = torch.zeros(3, 8, 8, 3)
+def _spy(monkeypatch, name):
+    """Record each call of the executor function ``loop.<name>``."""
+    seen, real = [], getattr(ploop, name)
+
+    def spy(*args, **kwargs):
+        seen.append(name)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ploop, name, spy)
+    return seen
+
+
+def test_run_plan_over_budget_raises(monkeypatch):
+    """Once the resident estimate is over the budget the clip streams (it
+    used to raise): the result comes back on the host, equal to the resident
+    one; at the budget it runs resident."""
+    frames = torch.rand(3, 8, 8, 3, generator=torch.Generator().manual_seed(0))
     plan = psched.plan_timestep(3, 2)
     frame_bytes = 8 * 8 * 3 * 4
-    with pytest.raises(MemoryError, match="streaming"):
-        ploop.run_plan(frames, plan, _port_model, batch_size=2, memory_budget_bytes=10 * frame_bytes)
+    streaming = _spy(monkeypatch, "_run_plan_streaming")
+    resident = ploop.run_plan(frames, plan, _port_model, batch_size=2)
+    streamed = ploop.run_plan(frames, plan, _port_model, batch_size=2, memory_budget_bytes=10 * frame_bytes)
+    assert streaming == ["_run_plan_streaming"]
+    assert streamed.device.type == "cpu" and streamed.shape == (5, 8, 8, 3)
+    torch.testing.assert_close(streamed, resident, rtol=0, atol=0)
     out = ploop.run_plan(frames, plan, _port_model, batch_size=2, memory_budget_bytes=16 * frame_bytes)
-    assert out.shape == (5, 8, 8, 3)
+    assert len(streaming) == 1
+    torch.testing.assert_close(out, resident, rtol=0, atol=0)
 
 
 def _pair_fns():
@@ -97,15 +119,24 @@ def test_run_plan_pair_cached_matches_jax(mult, skip):
     np.testing.assert_allclose(got.numpy(), ploop.run_plan(torch.from_numpy(frames), pplan, _port_model, batch_size=2).numpy(), atol=1e-6)
 
 
-def test_run_plan_pair_cached_over_budget_raises():
-    frames = torch.zeros(3, 8, 8, 3)
+def test_run_plan_pair_cached_over_budget_raises(monkeypatch):
+    """Over the budget the pair-cached executor streams (it used to raise),
+    with the resident result and the same calls."""
+    frames = torch.rand(3, 8, 8, 3, generator=torch.Generator().manual_seed(1))
     plan = psched.plan_timestep(3, 3)
-    reuse_fn, infer_fn, _ = _pair_fns()
     frame_bytes = 8 * 8 * 3 * 4
-    with pytest.raises(MemoryError, match="run_plan_pair_cached"):
-        ploop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2, memory_budget_bytes=10 * frame_bytes)
+    reuse_fn, infer_fn, calls = _pair_fns()
+    streaming = _spy(monkeypatch, "_run_plan_pair_cached_streaming")
+    resident = ploop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2)
+    resident_calls = {k: list(v) for k, v in calls.items()}
+    calls["reuse"].clear(), calls["infer"].clear()
+    streamed = ploop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2, memory_budget_bytes=10 * frame_bytes)
+    assert streaming == ["_run_plan_pair_cached_streaming"]
+    assert streamed.shape == (7, 8, 8, 3) and calls == resident_calls
+    torch.testing.assert_close(streamed, resident, rtol=0, atol=0)
     out = ploop.run_plan_pair_cached(frames, plan, reuse_fn, infer_fn, batch_size=2, memory_budget_bytes=20 * frame_bytes)
-    assert out.shape == (7, 8, 8, 3)
+    assert len(streaming) == 1
+    torch.testing.assert_close(out, resident, rtol=0, atol=0)
 
 
 def test_run_plan_pair_cached_refuses_nested_plans():
@@ -146,12 +177,21 @@ def test_run_plan_window4_matches_jax(n, dup, skip, batch):
     assert pcalls == jcalls and all(len(c) == batch for c in pcalls)
 
 
-def test_run_plan_window4_over_budget_raises():
-    frames = torch.zeros(5, 8, 8, 3)
+def test_run_plan_window4_over_budget_raises(monkeypatch):
+    """Over the budget the window-4 executor streams (it used to raise),
+    with the resident result and the same windows per call."""
+    frames = torch.rand(5, 8, 8, 3, generator=torch.Generator().manual_seed(2))
+    frames[:, 0, 0, 0] = torch.arange(5.0)  # each frame names itself
     plan = psched.plan_window4(5)
     frame_bytes = 8 * 8 * 3 * 4
+    resident_calls, streamed_calls = [], []
+    streaming = _spy(monkeypatch, "_run_plan_window4_streaming")
+    resident = ploop.run_plan_window4(frames, plan, _window_fn(resident_calls), batch_size=2)
     # 5 inputs + 7 outputs + 5 frames per window of a batch of 2
-    with pytest.raises(MemoryError, match="run_plan_window4"):
-        ploop.run_plan_window4(frames, plan, _window_fn([]), batch_size=2, memory_budget_bytes=21 * frame_bytes)
+    streamed = ploop.run_plan_window4(frames, plan, _window_fn(streamed_calls), batch_size=2, memory_budget_bytes=21 * frame_bytes)
+    assert streaming == ["_run_plan_window4_streaming"]
+    assert streamed.shape == (7, 8, 8, 3) and streamed_calls == resident_calls
+    torch.testing.assert_close(streamed, resident, rtol=0, atol=0)
     out = ploop.run_plan_window4(frames, plan, _window_fn([]), batch_size=2, memory_budget_bytes=22 * frame_bytes)
-    assert out.shape == (7, 8, 8, 3)
+    assert len(streaming) == 1
+    torch.testing.assert_close(out, resident, rtol=0, atol=0)

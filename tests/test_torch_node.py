@@ -61,8 +61,10 @@ each new frame the pair functions' at its timestep, Vimeo and X4K (padded to
 512x512); ATM runs from a checkpoint that holds the ``attn_mask`` and ``HW``
 buffers the node strips, XVFI from one under ``state_dict_Model``, exactly as
 from ``params`` (the models are held against JAX by
-``tests/test_torch_{atm,xvfi}.py``). The registry lists the twelve ported
-nodes with the JAX display names.
+``tests/test_torch_{atm,xvfi}.py``). The registry's VFI nodes are the
+fourteen ported ones (CAIN's and Sepconv's nodes are held against the JAX
+nodes in ``tests/test_torch_{cain,sepconv}.py``, the registry as a whole in
+``tests/test_torch_other_nodes.py``), with the JAX display names.
 """
 
 import contextlib
@@ -108,6 +110,7 @@ from comfyui_frame_interpolation_tpu_torch.models import xvfi as pxvfi
 from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI as PortRIFE
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import AMT_VFI as PortAMT
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import ATM_VFI as PortATM
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import CAIN_VFI as PortCAIN
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import EISAI_VFI as PortEISAI
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI as PortFILM
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FLAVR_VFI as PortFLAVR
@@ -116,6 +119,7 @@ from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFRNet_VFI as 
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFUnet_VFI as PortIFUnet
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import STMFNet_VFI as PortSTMFNet
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import SepconvVFI as PortSepconv
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import XVFI_VFI as PortXVFI
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
@@ -136,10 +140,11 @@ def test_input_types_equal_jax_node():
     assert PortRIFE.INPUT_TYPES() == JaxRIFE.INPUT_TYPES()
     for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
         assert getattr(PortRIFE, attr) == getattr(JaxRIFE, attr)
-    assert NODE_CLASS_MAPPINGS == {
+    assert {k: v for k, v in NODE_CLASS_MAPPINGS.items() if k.endswith(" VFI")} == {
         "RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM, "GMFSS Fortuna VFI": PortGMFSS,
         "EISAI VFI": PortEISAI, "STMFNet VFI": PortSTMFNet, "FLAVR VFI": PortFLAVR,
         "IFRNet VFI": PortIFRNet, "IFUnet VFI": PortIFUnet, "AMT VFI": PortAMT, "ATM VFI": PortATM, "XVFI VFI": PortXVFI,
+        "CAIN VFI": PortCAIN, "Sepconv VFI": PortSepconv,
     }
     assert NODE_DISPLAY_NAME_MAPPINGS == {k: JAX_DISPLAY_NAMES[k] for k in NODE_CLASS_MAPPINGS}
 
