@@ -303,8 +303,33 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    largest difference between five resident runs (both figures printed);
    each run's launches, counted from 0, must equal the resident run's, and
    its peak device memory must be lower.
+45. momo      -- MoMo base (random weights from seed 0, 8 steps): ``apply``
+   on 192x256 frames with noise drawn by numpy and injected, on the card in
+   fp32 (TF32 off) >= 40 dB against the CPU in fp32; on the same weights with
+   the latent head times 0.02 and the mask head times 0.1 (the predictions
+   stay within ~0.2 and none clips, as ``tests/test_torch_momo.py``'s
+   conditioned weights), the card in bf16 >= 30 dB against the CPU in fp32
+   (as drawn, the predictions reach ~10 and mostly clip, and the rounding of
+   the unclipped ones times 128 leaves bf16 at ~19 dB on either device,
+   which tells a fault from rounding by nothing); the MOMO VFI node on 3 frames of 135x240
+   (edge-padded to 192x256 inside) x2, bf16: the original frames bit for
+   bit, the same seed twice the same frames, another seed other frames; the
+   JAX golden (``tests/fixtures/torch_port_momo_golden.npz``: lite, 3 steps,
+   numpy noise from its seed) through ``apply`` on the card in fp32, >= 40
+   dB; no hand-kernel launch in any of it;
+46. timing    -- MoMo base 1080p (edge-padded to 1088x1920) 2x bf16 b1, 8
+   steps (``bench.py:bench_momo``'s configuration): frames/s, the peak memory
+   of one forward, a ``torch.profiler`` top 10 with the idle share, and
+   CUDA-event spans of the 8 denoiser passes against the synthesis;
+47. utilities -- one ``run_plan`` (RIFE 4.7, bf16) on the card under
+   ``CFI_PROFILE`` writes a Chrome trace that names a CUDA kernel; the RIFE
+   node, given no params, loads ``rife47.pth.npz`` from a temporary
+   ``ckpts_path`` (``utils.download``'s cache, found before any mirror): the
+   weights as saved, bit for bit, one model over two calls, and fp32 frames
+   (TF32 off) >= 60 dB against the same weights passed as params (another
+   model object, whose convolutions cuDNN may run by other algorithms).
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -322,7 +347,8 @@ under ``ifrnet_ifunet_amt_shapes`` and ``atm_xvfi_shapes`` (K1) and
 ``xvfi_shapes``, and each profile's ``per_forward`` entry lists the
 layouts its launches took (``launch_layouts``); the streamed RIFE and M2M
 runs of phase 44 under ``launches_by_path`` as ``rife_streaming`` and
-``m2m_streaming``. CAIN, Sepconv and FLAVR launch no hand kernel.
+``m2m_streaming``. CAIN, Sepconv, FLAVR and MoMo launch no hand kernel
+(``launches_by_path`` holds ``momo: 0``).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -335,6 +361,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -857,13 +884,13 @@ def main() -> int:
     from comfyui_frame_interpolation_tpu_torch.core.loop import _pair_groups, run_plan, run_plan_pair_cached, run_plan_window4
     from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_bisection, plan_timestep, plan_window4
     from comfyui_frame_interpolation_tpu_torch.models import (
-        amt, atm, cain, eisai, film, flavr, gmfss, ifrnet, ifunet, m2m, rife, sepconv, stmfnet, xvfi,
+        amt, atm, cain, eisai, film, flavr, gmfss, ifrnet, ifunet, m2m, momo, rife, sepconv, stmfnet, xvfi,
     )
     from comfyui_frame_interpolation_tpu_torch.models.common import device_const, reflect_pad
     from comfyui_frame_interpolation_tpu_torch.nodes.rife_node import RIFE_VFI
     from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import (
-        AMT_VFI, ATM_VFI, CAIN_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, STMFNet_VFI,
-        SepconvVFI, XVFI_VFI, _pad16,
+        AMT_VFI, ATM_VFI, CAIN_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI, MOMO_VFI,
+        STMFNet_VFI, SepconvVFI, XVFI_VFI, _pad16,
     )
     from comfyui_frame_interpolation_tpu_torch.ops.adacof import adacof_func
     from comfyui_frame_interpolation_tpu_torch.ops.bidir_corr import BidirCorr
@@ -875,7 +902,9 @@ def main() -> int:
         function_softsplat, softsplat, softsplat_func, softsplat_torch,
     )
     from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
+    from comfyui_frame_interpolation_tpu_torch.core.config import load_config
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
+    from comfyui_frame_interpolation_tpu_torch.utils.ckpt import save_npz
 
     dev = torch.device("cuda")
 
@@ -2813,6 +2842,153 @@ def main() -> int:
         )
     print(f"streaming: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 45. MoMo: apply card against CPU, the node, the golden ----------------------
+    t0 = time.perf_counter()
+
+    def hand_launches():
+        return {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches}
+
+    def momo_apply(sd, ckpt, f0, f1, noises, dtype, device):
+        """``momo.apply`` on NHWC numpy frames and NHWC numpy noise (the
+        initial latent, then one per step), f32 NHWC on the host."""
+        net = momo._load(sd, ckpt, dtype, device)
+        nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2).to(device).contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            out = momo.apply(net, nchw(f0).to(dtype), nchw(f1).to(dtype), len(noises) - 1,
+                             init_latents=nchw(noises[0]), step_noises=[nchw(n) for n in noises[1:]])
+        return out.permute(0, 2, 3, 1).cpu()
+
+    momo_sd = momo.init_params(0, "momo-base.pth")
+    # the same weights with the latent head and the mask head scaled down: no prediction clips
+    momo_csd = {k: v * {"model.mid_model.conv_out": 0.02, "model.out_up.proj_out.2": 0.1}.get(k.rsplit(".", 1)[0], 1.0)
+                for k, v in momo_sd.items()}
+    mrng = np.random.default_rng(45)
+    mf0, mf1 = (mrng.random((1, 192, 256, 3), dtype=np.float32) for _ in range(2))
+    mnoise = [mrng.standard_normal((1, 192, 256, 4)).astype(np.float32) for _ in range(9)]
+    warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    m_card32 = momo_apply(momo_sd, "momo-base.pth", mf0, mf1, mnoise, torch.float32, dev)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    m_card16 = momo_apply(momo_csd, "momo-base.pth", mf0, mf1, mnoise, torch.bfloat16, dev)
+    m_cpu32 = momo_apply(momo_sd, "momo-base.pth", mf0, mf1, mnoise, torch.float32, "cpu")
+    m_ccpu32 = momo_apply(momo_csd, "momo-base.pth", mf0, mf1, mnoise, torch.float32, "cpu")
+    p32, p16 = psnr(m_card32, m_cpu32), psnr(m_card16, m_ccpu32)
+    check(all(bool(torch.isfinite(o).all()) for o in (m_card32, m_card16)), "MoMo apply on the card: non-finite values")
+    check(p32 >= 40.0, f"MoMo base apply cuda fp32 vs cpu fp32 {p32:.2f} dB < 40")
+    check(p16 >= 30.0, f"MoMo base apply (conditioned weights) cuda bf16 vs cpu fp32 {p16:.2f} dB < 30")
+    # the node: 3 frames, x2, bf16, the same seed twice and another seed
+    mframes = shifted_pattern(3, *NODE_HW, seed=45)
+    mnode = MOMO_VFI()
+    kw = dict(multiplier=2, dtype="bfloat16", params=momo_sd, device="cuda")
+    (mo_a,) = mnode.vfi("momo-base.pth", mframes, **kw)
+    (mo_b,) = mnode.vfi("momo-base.pth", mframes, **kw)
+    (mo_c,) = mnode.vfi("momo-base.pth", mframes, seed=1, **kw)
+    torch.cuda.synchronize()
+    check(tuple(mo_a.shape) == (5, *NODE_HW, 3) and mo_a.is_cuda and bool(torch.isfinite(mo_a).all()), f"MoMo node output {tuple(mo_a.shape)}")
+    check(torch.equal(mo_a[::2].cpu(), torch.from_numpy(mframes)), "MoMo node: original frames not passed through")
+    check(torch.equal(mo_a, mo_b), "MoMo node: the same seed gave other frames")
+    check(not torch.equal(mo_a[1::2], mo_c[1::2]), "MoMo node: another seed gave the same frames")
+    check(len(mnode._model_fns) == 2, f"MoMo node built {len(mnode._model_fns)} models for two seeds")
+    # the JAX golden: lite, 3 steps, the noise from its seed
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_momo_golden.npz")) as z:
+        gseed, gnseed, gframes, golden = int(z["seed"]), int(z["noise_seed"]), z["frames"][:, 0].astype(np.float32) / 255.0, z["output"]
+    grng = np.random.default_rng(gnseed)
+    _ = [grng.random((1, 128, 128, 3), dtype=np.float32) for _ in range(2)]  # the test's draw order: two frames, then the noise
+    gnoise = [grng.standard_normal((1, 128, 128, 4)).astype(np.float32) for _ in range(4)]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gout = momo_apply(momo.init_params(gseed, "momo-lite.pth"), "momo-lite.pth", gframes[0:1], gframes[1:2], gnoise, torch.float32, dev)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    pg = psnr(gout, torch.from_numpy(golden))
+    check(pg >= 40.0, f"MoMo golden through apply on the card: {pg:.2f} dB < 40")
+    momo_launches = hand_launches()
+    check(momo_launches == {"narrow": 0, "wide": 0, "splat": 0}, f"MoMo launched hand kernels: {momo_launches}")
+    print(
+        f"momo {card}: MoMo base apply 192x256, 8 steps, injected noise: cuda fp32 vs cpu fp32 {p32:.2f} dB; conditioned "
+        f"weights: cuda bf16 vs cpu fp32 {p16:.2f} dB; node "
+        f"3x{NODE_HW[0]}x{NODE_HW[1]} (edge-padded to 192x256) x2 bf16: originals bit for bit, seed 0 twice equal, seed 1 other "
+        f"frames; golden (lite, 3 steps) through apply on cuda fp32 vs JAX fp32 {pg:.2f} dB, max abs err "
+        f"{(gout - torch.from_numpy(golden)).abs().max().item():.3g}; hand-kernel launches {momo_launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    del m_card32, m_card16, m_cpu32, m_ccpu32, momo_csd, mnode, mo_a, mo_b, mo_c
+
+    # ---- 46. MoMo timing, the denoiser against the synthesis ----------------------
+    momo_bf16 = momo.make_model_fn(momo_sd, "momo-base.pth", 8, 0, torch.bfloat16, dev)
+    mx = [torch.from_numpy(np.random.default_rng(i).random((1, 1080, 1920, 3), dtype=np.float32)).to(dev) for i in range(2)]
+    mx.append(torch.full((1,), 0.5, device=dev))
+    warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+    momo_fps, _ = timed_row("MoMo base 1080p (padded to 1088x1920) 2x bf16 b1, 8 steps", momo_bf16, mx, 1)
+    torch.cuda.synchronize()
+    check(hand_launches() == {"narrow": 0, "wide": 0, "splat": 0}, f"MoMo 1080p launched hand kernels: {hand_launches()}")
+    spans = {}
+    with cuda_spans([(momo.ConvexUpUNet, "denoise", "denoiser passes"), (momo, "_synthesize", "synthesis")], spans):
+        momo_bf16(*mx)
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 / momo_fps
+    print(
+        f"timing {card}: MoMo base 1080p bf16 b1, CUDA-event spans of one forward: "
+        + "; ".join(f"{label} {ms:.3f} ms in {n} calls ({100 * ms / fwd_ms:.1f} % of the forward)" for label, (n, ms) in span_ms(spans).items()),
+        flush=True,
+    )
+    del momo_bf16, mx, spans, momo_sd
+
+    # ---- 47. the utilities: the profiler hook, a node from an .npz ----------------
+    t0 = time.perf_counter()
+    rife_sd = rife.init_params(0, "4.7")
+    rife16 = rife.make_model_fn(rife_sd, "4.7", fastmode=True, ensemble=False, dtype=torch.bfloat16, device=dev)
+    pclip = torch.from_numpy(shifted_pattern(3, 540, 960, seed=47)).to(dev)
+    env = {k: os.environ.get(k) for k in ("CFI_PROFILE",)}
+    cfg = load_config()
+    old_ckpts = cfg["ckpts_path"]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CFI_PROFILE"] = os.path.join(tmp, "prof")
+        try:
+            warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+            run_plan(pclip, plan_timestep(3, 2), rife16, batch_size=2)
+            prof_launches = hand_launches()
+            del os.environ["CFI_PROFILE"]
+            traces = os.listdir(os.path.join(tmp, "prof", "run_plan"))
+            check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"), f"CFI_PROFILE wrote {traces}")
+            with open(os.path.join(tmp, "prof", "run_plan", traces[0])) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+            check(any("warp_bilinear_tiled_kernel" in k for k in kernels), f"the run_plan trace names no K1 kernel: {kernels[:8]}")
+            # the RIFE node from rife47.pth.npz in a temporary ckpts_path
+            cfg["ckpts_path"] = os.path.join(tmp, "ckpts")
+            save_npz(rife_sd, os.path.join(tmp, "ckpts", "rife", "rife47.pth.npz"))
+            rnode = RIFE_VFI()
+            rframes = shifted_pattern(3, 270, 480, seed=48)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            warp_kernel.launches = warp_kernel.wide_launches = softsplat_kernel.launches = 0
+            outs = [rnode.vfi("rife47.pth", rframes, multiplier=2, fast_mode=True, device="cuda")[0] for _ in range(2)]
+            npz_launches = hand_launches()
+            (ref,) = RIFE_VFI().vfi("rife47.pth", rframes, multiplier=2, fast_mode=True, params=rife_sd, device="cuda")
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        finally:
+            cfg["ckpts_path"] = old_ckpts
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    check(len(rnode._model_fns) == 1, f"the RIFE node built {len(rnode._model_fns)} models over two calls from the .npz")
+    loaded = next(iter(rnode._model_fns.values()))[0]
+    check(loaded.keys() == rife_sd.keys() and all(torch.equal(loaded[k], v) for k, v in rife_sd.items()),
+          "the weights loaded from rife47.pth.npz differ from the ones saved")
+    # another model object, so cuDNN may pick other algorithms: held by PSNR, not bit for bit
+    npz_psnr = [psnr(o, ref) for o in outs]
+    check(min(npz_psnr) >= 60.0, f"the RIFE node from the .npz vs the same weights as params: {npz_psnr} dB < 60")
+    check(npz_launches == {"narrow": 16, "wide": 0, "splat": 0}, f"the RIFE node's two calls launched {npz_launches}")  # 2 x 2 forwards x 4
+    print(
+        f"utilities: run_plan (RIFE 4.7 bf16, 3x540x960 x2) under CFI_PROFILE wrote {traces[0]} with {len(events)} events, "
+        f"{len(kernels)} kernel names (K1 among them), launches {prof_launches}; the RIFE node from rife47.pth.npz: one model over "
+        f"two calls, the saved weights bit for bit, fp32 output vs the params run {min(npz_psnr):.2f} dB, launches {npz_launches}; "
+        f"phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    del rife16, pclip, rnode, outs, ref
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -2832,7 +3008,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-44 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-47 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -2850,6 +3026,7 @@ def main() -> int:
                 "ifrnet": ifrnet_launches["narrow"], "ifunet": ifunet_launches["narrow"], "amt": amt_launches["narrow"],
                 "atm": atm_launches["narrow"], "xvfi": xvfi_launches["narrow"], "xvfi_x4k_1080p": x4k_launches["narrow"],
                 "rife_streaming": rife_stream_launches["narrow"], "m2m_streaming": m2m_stream_launches["narrow"],
+                "momo": momo_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -2879,6 +3056,7 @@ def main() -> int:
                 "ifrnet": ifrnet_launches["wide"], "ifunet": ifunet_launches["wide"], "amt": amt_launches["wide"],
                 "atm": atm_launches["wide"], "xvfi": xvfi_launches["wide"], "xvfi_x4k_1080p": x4k_launches["wide"],
                 "rife_streaming": rife_stream_launches["wide"], "m2m_streaming": m2m_stream_launches["wide"],
+                "momo": momo_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -2910,7 +3088,7 @@ def main() -> int:
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
                 "xvfi_x4k_1080p": x4k_launches["splat"], "rife_streaming": rife_stream_launches["splat"],
-                "m2m_streaming": m2m_stream_launches["splat"],
+                "m2m_streaming": m2m_stream_launches["splat"], "momo": momo_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",

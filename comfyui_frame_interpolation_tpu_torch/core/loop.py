@@ -25,19 +25,37 @@ last consumer has run. The result then comes back as a CPU tensor.
 The budget is ``memory_budget_bytes`` when given, else the free device
 memory (``torch.cuda.mem_get_info``) for CUDA frames; CPU frames with no
 explicit budget run resident.
+
+Each executor runs inside ``utils.profiling.maybe_profile``: with
+``CFI_PROFILE=<dir>`` set, a ``torch.profiler`` trace of the run lands in
+``<dir>/<executor's name>``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import maybe_profile
 from .schedule import Plan, Source, Task
 
 __all__ = ["run_plan", "run_plan_pair_cached", "run_plan_window4"]
+
+
+def _profiled(fn):
+    """Run the executor inside the optional ``CFI_PROFILE`` trace, tagged
+    with its name (``utils.profiling``)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with maybe_profile(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return wrapper
 
 
 class _Progress:
@@ -224,6 +242,7 @@ def _chunk_sources(chunk: List[Task], batch_size: int) -> Tuple[List[Source], Li
     return src0, src1, ts + [ts[0]] * pad
 
 
+@_profiled
 def run_plan(
     frames: torch.Tensor,
     plan: Plan,
@@ -341,6 +360,7 @@ def _pair_groups(plan: Plan) -> Tuple[Dict[tuple, List[Task]], Dict[int, List[tu
     return groups, by_count
 
 
+@_profiled
 def run_plan_pair_cached(
     frames: torch.Tensor,
     plan: Plan,
@@ -447,6 +467,7 @@ def _window_starts(chunk: List[Task], batch_size: int) -> List[int]:
     return [t.pair for t in chunk] + [chunk[0].pair] * (batch_size - len(chunk))
 
 
+@_profiled
 def run_plan_window4(
     frames: torch.Tensor,
     plan: Plan,

@@ -1,6 +1,6 @@
 """Layer primitives for the ported models: the subset of the JAX package's
 ``models/common.py`` that RIFE, M2M, FILM, GMFSS, EISAI, STMFNet, FLAVR,
-IFRNet, IFUnet, AMT, ATM, XVFI, CAIN and Sepconv use, as plain functions
+IFRNet, IFUnet, AMT, ATM, XVFI, CAIN, Sepconv and MoMo use, as plain functions
 on NCHW tensors
 (``linear`` on the last axis of any tensor; ``conv3d``/``conv_transpose3d``
 on NCDHW clips).
@@ -16,6 +16,10 @@ IODHW for the 3-D ones, on clips held in ``channels_last_3d`` memory.
 the JAX version's integer-factor fast paths compute the same two taps (for an
 even downscale factor s, rows ``s*k + s/2 - 1`` and ``s*k + s/2`` at 0.5
 each), so one call reproduces all of its paths.
+
+``resize_bicubic`` is ``F.interpolate(mode="bicubic")``, with or without
+antialias, summed in f32: the JAX version's per-axis matrices were proven
+against that call.
 
 ``reflect_pad`` is ``numpy.pad(mode="reflect")`` (and ``jnp.pad``'s), which
 goes on reflecting where a pad is as long as the side or longer;
@@ -50,6 +54,7 @@ __all__ = [
     "device_const",
     "init_state_dict",
     "instance_norm",
+    "interpolate_like",
     "prelu",
     "leaky_relu",
     "reflect_pad",
@@ -57,6 +62,7 @@ __all__ = [
     "max_pool2d",
     "sigmoid",
     "pixel_shuffle",
+    "resize_bicubic",
     "resize_bilinear",
     "resize_by_scale",
     "resize_nearest",
@@ -246,6 +252,27 @@ def resize_bilinear(
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=align_corners)
 
 
+def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int], antialias: bool = False) -> torch.Tensor:
+    """torch ``F.interpolate(mode="bicubic", align_corners=False)``, with or
+    without ``antialias`` (JAX ``common.py:resize_bicubic``), summed in f32
+    and rounded once to ``x``'s dtype; the result is ``channels_last``.
+    The antialiased resize runs on an f32 copy (torch's CPU kernel takes no
+    bf16); the plain one sums in f32 inside for any dtype (the same values as
+    an f32 resize cast back, without the f32 copies)."""
+    if tuple(out_hw) == tuple(x.shape[-2:]):
+        return x
+    if antialias:
+        out = F.interpolate(x.float(), size=tuple(out_hw), mode="bicubic", align_corners=False, antialias=True)
+    else:
+        out = F.interpolate(x, size=tuple(out_hw), mode="bicubic", align_corners=False)
+    return out.to(dtype=x.dtype, memory_format=torch.channels_last)
+
+
+def interpolate_like(x: torch.Tensor, ref: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """:func:`resize_bilinear` to the height and width of ``ref``."""
+    return resize_bilinear(x, tuple(ref.shape[-2:]), align_corners)
+
+
 def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """torch ``F.interpolate(mode="nearest")``: source index
     ``floor(dst * in / out)``, computed in float64 as the JAX version does
@@ -335,10 +362,12 @@ def init_state_dict(net: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     module's weight after the first, torch's default init; a lone parameter
     from its own shape), every PReLU weight :data:`PRELU_INIT`, batch norms
     (2-D and 3-D) at the identity (weight 1, bias 0, running mean 0, running
-    variance 1, ``num_batches_tracked`` 0)."""
+    variance 1, ``num_batches_tracked`` 0), and group norms too (weight 1,
+    bias 0)."""
     rng = np.random.default_rng(seed)
     prelu = {f"{name}.weight" for name, m in net.named_modules() if isinstance(m, torch.nn.PReLU)}
-    norms = {name for name, m in net.named_modules() if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d))}
+    norm_types = (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d, torch.nn.GroupNorm)
+    norms = {name for name, m in net.named_modules() if isinstance(m, norm_types)}
     shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     params = {}
     for key, shape in shapes.items():

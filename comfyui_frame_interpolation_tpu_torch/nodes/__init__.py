@@ -5,14 +5,14 @@ classmethod ``INPUT_TYPES()``, ``RETURN_TYPES = ("IMAGE",)``, ``FUNCTION =
 consumes and returns NHWC torch tensors. Besides them: the interpolation
 state list and float-to-int utilities and the gradual-denoise KSampler,
 which orchestrates a sampler the ComfyUI host binds. Every node of the JAX
-package but ``MOMO VFI`` is ported, under the JAX display names."""
+package is ported, under the JAX display names and in its order."""
 
 from .other_nodes import Gradually_More_Denoise_KSampler
 from .rife_node import RIFE_VFI
 from .util_nodes import FloatToInt, MakeInterpolationStateList
 from .vfi_nodes import (
     AMT_VFI, ATM_VFI, CAIN_VFI, EISAI_VFI, FILM_VFI, FLAVR_VFI, GMFSS_Fortuna_VFI, IFRNet_VFI, IFUnet_VFI, M2M_VFI,
-    STMFNet_VFI, SepconvVFI, XVFI_VFI,
+    MOMO_VFI, STMFNet_VFI, SepconvVFI, XVFI_VFI,
 )
 
 NODE_CLASS_MAPPINGS = {
@@ -28,6 +28,7 @@ NODE_CLASS_MAPPINGS = {
     "STMFNet VFI": STMFNet_VFI,
     "GMFSS Fortuna VFI": GMFSS_Fortuna_VFI,
     "ATM VFI": ATM_VFI,
+    "MOMO VFI": MOMO_VFI,
     "EISAI VFI": EISAI_VFI,
     "XVFI VFI": XVFI_VFI,
     "Make Interpolation State List": MakeInterpolationStateList,
@@ -47,6 +48,7 @@ NODE_DISPLAY_NAME_MAPPINGS = {
     "STMFNet VFI": "STMFNet VFI",
     "GMFSS Fortuna VFI": "GMFSS Fortuna VFI",
     "ATM VFI": "ATM VFI",
+    "MOMO VFI": "MOMO VFI",
     "EISAI VFI": "EISAI VFI",
     "XVFI VFI": "XVFI VFI",
     "Make Interpolation State List": "Make Interpolation State List",

@@ -18,7 +18,7 @@ from ..core.frames import assert_batch_size, postprocess_frames, preprocess_fram
 from ..core.loop import run_plan
 from ..core.schedule import InterpolationStateList, plan_timestep
 from ..models import rife
-from ..utils.ckpt import load_local_checkpoint
+from ..utils.download import get_converted_params
 
 MODEL_TYPE = "rife"
 
@@ -86,7 +86,7 @@ class RIFE_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 2, "RIFE")
         if params is None:
-            params = load_local_checkpoint(MODEL_TYPE, ckpt_name)
+            params = get_converted_params(MODEL_TYPE, ckpt_name)
 
         key = (id(params), ckpt_name, dtype, fast_mode, ensemble, scale_factor, str(device))
         cached = self._model_fns.get(key)

@@ -1,9 +1,14 @@
 """VFI nodes of the generic-loop model families, port of the JAX package's
 ``nodes/vfi_nodes.py`` (reference node files under ``vfi_models/*/__init__.py``).
 
-Ported so far: FILM, M2M, GMFSS Fortuna, EISAI, STMFNet, FLAVR, IFRNet,
-IFUnet, AMT, ATM, XVFI, CAIN and Sepconv. Same public schema as the JAX nodes (the
+Ported: FILM, M2M, GMFSS Fortuna, EISAI, STMFNet, FLAVR, IFRNet, IFUnet, AMT,
+ATM, XVFI, CAIN, Sepconv and MoMo. Same public schema as the JAX nodes (the
 tooltips speak of the card); frames and results are NHWC torch tensors on the node's device.
+
+Without ``params=`` a node reads its checkpoint through
+``utils.download.get_converted_params`` (the in-memory cache, the ``.npz``
+cache, the file, or a download), which hands every call the same dict, so
+the node builds its model once per checkpoint.
 """
 
 from __future__ import annotations
@@ -28,10 +33,12 @@ from ..models import gmfss as gmfss_model
 from ..models import ifrnet as ifrnet_model
 from ..models import ifunet as ifunet_model
 from ..models import m2m as m2m_model
+from ..models import momo as momo_model
 from ..models import sepconv as sepconv_model
 from ..models import stmfnet as stmfnet_model
 from ..models import xvfi as xvfi_model
-from ..utils.ckpt import load_checkpoint_set, load_local_checkpoint
+from ..utils.ckpt import load_checkpoint_set
+from ..utils.download import get_converted_params
 from .rife_node import DTYPE_MAP, DTYPE_OPTIONS
 
 _OPTIONAL = {"optional": {"optional_interpolation_states": ("INTERPOLATION_STATES",)}}
@@ -118,7 +125,7 @@ class FILM_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 2, "FILM")
         if params is None:
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
         model_fn = _cached(
             self._model_fns, params, (ckpt_name, dtype, str(device)),
             lambda: film_model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
@@ -164,7 +171,7 @@ class M2M_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 2, "M2M")
         if params is None:
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
         reuse_fn, infer_fn = _cached(
             self._pair_fns, params, (ckpt_name, dtype, str(device)),
             lambda: m2m_model.make_pair_fns(params, dtype=DTYPE_MAP[dtype], device=device),
@@ -374,7 +381,7 @@ class STMFNet_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 4, "ST-MFNet")
         if params is None:
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
         model_fn = _cached(
             self._model_fns, params, (ckpt_name, dtype, str(device)),
             lambda: stmfnet_model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
@@ -421,7 +428,7 @@ class FLAVR_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 4, "FLAVR")
         if params is None:
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
         model_fn = _cached(
             self._model_fns, params, (ckpt_name, dtype, str(device)),
             lambda: flavr_model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
@@ -469,7 +476,7 @@ class IFRNet_VFI:
         assert_batch_size(frames, 2, "IFRNet")
         variant = ifrnet_model.variant_for_ckpt(ckpt_name)
         if params is None:
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
         model_fn = _cached(
             self._model_fns, params, (variant, scale_factor, dtype, str(device)),
             lambda: ifrnet_model.make_model_fn(params, variant, scale_factor, dtype=DTYPE_MAP[dtype], device=device),
@@ -521,7 +528,7 @@ class IFUnet_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 2, "IFUnet")
         if params is None:
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
         model_fn = _cached(
             self._model_fns, params, (scale_factor, ensemble, dtype, str(device)),
             lambda: ifunet_model.make_model_fn(
@@ -568,7 +575,9 @@ class AMT_VFI:
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 2, "AMT")
         if params is None:
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+            params = get_converted_params(
+                self.MODEL_TYPE, ckpt_name, url=f"https://huggingface.co/lalala125/AMT/resolve/main/{ckpt_name}"
+            )
         model_fn = _cached(
             self._model_fns, params, (ckpt_name, dtype, str(device)),
             lambda: amt_model.make_model_fn(params, ckpt_name, dtype=DTYPE_MAP[dtype], device=device),
@@ -641,7 +650,9 @@ class ATM_VFI:
         if params is None:
             # the reference deletes the stale attn_mask/HW buffers before
             # loading (atm/__init__.py:133-141); the masks are built per shape
-            params = _strip_keys(load_local_checkpoint(self.MODEL_TYPE, ckpt_name), ("attn_mask", "HW"))
+            params = get_converted_params(
+                self.MODEL_TYPE, ckpt_name, convert=lambda sd: _strip_keys(sd, ("attn_mask", "HW"))
+            )
         model_fn = _cached(
             self._model_fns, params, (variant, gm, gm_ens, dtype, str(device)),
             lambda: atm_model.make_model_fn(params, variant, gm, gm_ens, dtype=DTYPE_MAP[dtype], device=device),
@@ -701,8 +712,8 @@ class XVFI_VFI:
         device = torch.device(device or load_config()["device"])
         frames = preprocess_frames(frames, device)
         assert_batch_size(frames, 2, "XVFI")
-        if params is None:  # load_local_checkpoint takes the weights out of state_dict_Model
-            params = load_local_checkpoint(self.MODEL_TYPE, ckpt_name)
+        if params is None:  # the loader takes the weights out of state_dict_Model
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
         reuse_fn, infer_fn = _cached(
             self._pair_fns, params, (ckpt_name, dtype, str(device)),
             lambda: xvfi_model.make_pair_fns(params, ckpt_name, dtype=DTYPE_MAP[dtype], device=device),
@@ -720,7 +731,7 @@ def _midpoint_vfi(node, model, name, ckpt_name, frames, multiplier, states, para
     frames = preprocess_frames(frames, device)
     assert_batch_size(frames, 2, name)
     if params is None:
-        params = load_local_checkpoint(node.MODEL_TYPE, ckpt_name)
+        params = get_converted_params(node.MODEL_TYPE, ckpt_name)
     model_fn = _cached(
         node._model_fns, params, (dtype, str(device)),
         lambda: model.make_model_fn(params, dtype=DTYPE_MAP[dtype], device=device),
@@ -801,3 +812,68 @@ class SepconvVFI:
             self, sepconv_model, "Sepconv", ckpt_name, frames, multiplier, optional_interpolation_states, params,
             batch_size, dtype, device,
         )
+
+
+class MOMO_VFI:
+    """reference ``momo/__init__.py:77-165``; bisection schedule, 2x only;
+    each model call edge-pads to multiples of 64, centred (inside the model
+    callable).
+
+    The DDPM loop's noise comes from ``torch.Generator(device)`` seeded with
+    ``seed`` at every call (the reference draws from torch's global generator
+    and is not run-to-run deterministic); torch cannot draw JAX's bits, so for
+    one seed the frames differ from the JAX node's."""
+
+    MODEL_TYPE = "momo"
+
+    def __init__(self):
+        self._model_fns: typing.Dict[tuple, typing.Tuple[dict, typing.Callable]] = {}  # see _cached
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "ckpt_name": (momo_model.CKPT_NAMES,),
+                "frames": ("IMAGE",),
+                "clear_cache_after_n_frames": ("INT", {"default": 10, "min": 1, "max": 1000}),
+                "multiplier": ("INT", {"default": 2, "min": 2, "max": 2}),
+                "num_inference_steps": ("INT", {"default": 8, "min": 2, "max": 20}),
+                **_batch_dtype_inputs(1),
+            },
+            **_OPTIONAL,
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "vfi"
+    CATEGORY = "ComfyUI-Frame-Interpolation/VFI"
+
+    def vfi(
+        self,
+        ckpt_name: str,
+        frames,
+        clear_cache_after_n_frames: int = 10,
+        multiplier=2,
+        num_inference_steps: int = 8,
+        optional_interpolation_states: InterpolationStateList = None,
+        params: dict = None,  # extension: inject a state dict
+        batch_size: int = 1,
+        dtype: str = "float32",
+        seed: int = 0,
+        device=None,  # extension: torch device (default: config "device")
+        **kwargs,
+    ):
+        device = torch.device(device or load_config()["device"])
+        frames = preprocess_frames(frames, device)
+        assert_batch_size(frames, 2, "MoMo")
+        if params is None:
+            params = get_converted_params(self.MODEL_TYPE, ckpt_name)
+        model_fn = _cached(
+            self._model_fns, params, (ckpt_name, num_inference_steps, seed, dtype, str(device)),
+            lambda: momo_model.make_model_fn(
+                params, ckpt_name, num_inference_steps=num_inference_steps, seed=seed, dtype=DTYPE_MAP[dtype],
+                device=device,
+            ),
+        )
+        plan = plan_bisection(frames.shape[0], multiplier, optional_interpolation_states)
+        out = run_plan(frames, plan, model_fn, batch_size=batch_size)
+        return (postprocess_frames(out),)

@@ -10,6 +10,10 @@ torch ``grid_sample`` on normalized grids.
 Layout: NHWC images and ``[N, H, W, 2]`` flows/grids (channel 0 = x, 1 = y),
 as in the JAX package.
 
+:func:`bicubic_sample` (MoMo's sampler) is torch ``grid_sample(mode="bicubic")``
+itself, on a grid normalized from pixel coordinates: the JAX version computes
+that function outside any Pallas kernel, so the port has no kernel for it.
+
 :func:`warp` dispatches on the tensor's device: a CUDA tensor goes to a
 hand-written Hopper kernel (``ops.cuda.warp_kernel``), a CPU tensor to the
 plain twin :func:`warp_torch`. On the card, ``ops.cuda.warp_kernel.route``
@@ -33,8 +37,9 @@ the frame) and keeps the float-to-int conversion defined.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["warp", "warp_torch", "bilinear_sample", "grid_sample"]
+__all__ = ["warp", "warp_torch", "bicubic_sample", "bilinear_sample", "grid_sample"]
 
 
 def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
@@ -157,3 +162,29 @@ def grid_sample(
         sx = ((gx + 1.0) * w - 1.0) * 0.5
         sy = ((gy + 1.0) * h - 1.0) * 0.5
     return bilinear_sample(img, sx, sy, padding_mode)
+
+
+def bicubic_sample(
+    img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, padding_mode: str = "zeros"
+) -> torch.Tensor:
+    """Bicubic sample ``img`` (NHWC) at pixel coordinates ``sx, sy``
+    (``[N, H', W']``): torch ``grid_sample(mode="bicubic",
+    align_corners=False)``, a 4x4 cubic-convolution kernel with a = -0.75;
+    ``zeros`` gives taps outside the image weight 0, ``border`` clamps them
+    (JAX ``ops/warp.py:bicubic_sample``).
+
+    The coordinates are normalized in f32 and the image is sampled in f32,
+    then cast once to its dtype (the JAX version sums its taps in f32). The
+    normalized grid rounds the coordinate by up to about ``1e-7 * W`` pixels.
+    ``grid_sample`` writes NCHW memory; the result comes back as an NHWC view
+    of ``channels_last`` memory, as the models keep their tensors."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode {padding_mode}")
+    n, h, w, _ = img.shape
+    gx = (2.0 * sx.float() + 1.0) / w - 1.0
+    gy = (2.0 * sy.float() + 1.0) / h - 1.0
+    out = F.grid_sample(
+        img.permute(0, 3, 1, 2).float(), torch.stack([gx, gy], -1), mode="bicubic",
+        padding_mode=padding_mode, align_corners=False,
+    )
+    return out.to(dtype=img.dtype, memory_format=torch.channels_last).permute(0, 2, 3, 1)

@@ -17,9 +17,10 @@ batch 4, IFUnet 1080p 2x bf16 batch 2 without the ensemble, AMT-S 1080p
 (padded to 1088x1920, as its node pads) 2x bf16 batch 2, ATM base 1080p 2x
 bf16 batch 1 with global motion, XVFI Vimeo 1080p 2x bf16 batch 2 (a
 reuse and an infer of ``make_pair_fns`` per pair batch), CAIN 1080p 2x bf16
-batch 4 and Sepconv 720p 2x bf16 batch 2, random frames and random weights
+batch 4, Sepconv 720p 2x bf16 batch 2 and MoMo base 1080p (padded to
+1088x1920) 2x bf16 batch 1 with 8 steps, random frames and random weights
 from seed 0 (the configurations of ``chip_smoke.py`` phases 6, 10, 14, 18,
-22, 26, 27, 30, 32, 34, 37, 39, 41 and 43), each through
+22, 26, 27, 30, 32, 34, 37, 39, 41, 43 and 46), each through
 ``make_model_fn`` (XVFI's pair functions) and timed by
 ``utils.benchmark.measure``. A model missing from the checkout timed (an
 older port) is left out of the line.
@@ -48,7 +49,7 @@ def main(argv=None) -> int:
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
 
     found = {}
-    for name in ("stmfnet", "flavr", "ifrnet", "ifunet", "amt", "atm", "xvfi", "cain", "sepconv"):
+    for name in ("stmfnet", "flavr", "ifrnet", "ifunet", "amt", "atm", "xvfi", "cain", "sepconv", "momo"):
         try:
             found[name] = importlib.import_module(f"comfyui_frame_interpolation_tpu_torch.models.{name}")
         except ImportError:
@@ -111,6 +112,10 @@ def main(argv=None) -> int:
     if "sepconv" in found:
         sepconv = found["sepconv"]
         fns["sepconv_720p_b2"] = (2, lambda: sepconv.make_model_fn(sepconv.init_params(0), dtype=bf16, device=dev), 3)
+    if "momo" in found:
+        momo = found["momo"]
+        fns["momo_base_1080p_b1"] = (1, lambda: momo.make_model_fn(
+            momo.init_params(0, "momo-base.pth"), "momo-base.pth", 8, 0, dtype=bf16, device=dev), 3)
     fps = {}
     for name, (n, make, iters) in fns.items():
         fn = make()

@@ -1,9 +1,11 @@
-"""The port's ``utils/ckpt.py:load_local_checkpoint`` against the JAX loader
+"""The port's ``utils/ckpt.py:load_checkpoint_file`` against the JAX loader
 (``utils/ckpt.py:load_torch_state_dict``) on containers that ``torch.save``
 writes: a raw state dict, one nested under each training key the JAX loader
 knows (``state_dict``: STMFNet; ``model_state_dict``: ATM, EISAI; ``model``:
 MoMo; ``state_dict_Model``: XVFI), and ``state_dict`` with ``nn.DataParallel``'s
-``module.`` prefix (``FLAVR_*.pth``). Both give the same keys and tensors."""
+``module.`` prefix (``FLAVR_*.pth``). Both give the same keys and tensors. A
+checkpoint that is neither in ``ckpts_path`` nor downloadable raises
+``FileNotFoundError`` naming it (``utils.download.get_converted_params``)."""
 
 import numpy as np
 import pytest
@@ -11,7 +13,9 @@ import torch
 
 from comfyui_frame_interpolation_tpu.utils.ckpt import load_torch_state_dict
 from comfyui_frame_interpolation_tpu_torch.core import config as port_config
-from comfyui_frame_interpolation_tpu_torch.utils.ckpt import load_local_checkpoint, params_from_jax
+from comfyui_frame_interpolation_tpu_torch.utils.ckpt import load_checkpoint_file, params_from_jax
+from comfyui_frame_interpolation_tpu_torch.utils.download import get_converted_params
+from torch_offline import no_downloads  # noqa: F401  (autouse: no download leaves the machine)
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 
@@ -43,7 +47,7 @@ def test_load_local_checkpoint_unwraps_as_the_jax_loader(ckpts, container):
     key = container.split("+")[0]
     obj = inner if key == "raw" else {key: inner, "epoch": 7, "optimizer": {"lr": 1e-4}}
     torch.save(obj, ckpts / "FLAVR_2x.pth")
-    got = load_local_checkpoint("flavr", "FLAVR_2x.pth")
+    got = load_checkpoint_file(str(ckpts / "FLAVR_2x.pth"))
     ref = params_from_jax(load_torch_state_dict(str(ckpts / "FLAVR_2x.pth")))
     assert set(got) == set(ref) == set(sd)
     for k in sd:
@@ -54,10 +58,10 @@ def test_the_first_training_key_wins_as_in_the_jax_loader(ckpts):
     sd = _state_dict()
     other = {"other.weight": torch.zeros(2)}
     torch.save({"model": other, "state_dict": sd}, ckpts / "FLAVR_2x.pth")
-    got = load_local_checkpoint("flavr", "FLAVR_2x.pth")
+    got = load_checkpoint_file(str(ckpts / "FLAVR_2x.pth"))
     assert set(got) == set(params_from_jax(load_torch_state_dict(str(ckpts / "FLAVR_2x.pth")))) == set(sd)
 
 
 def test_missing_checkpoint_raises(ckpts):
     with pytest.raises(FileNotFoundError, match="FLAVR_4x.pth"):
-        load_local_checkpoint("flavr", "FLAVR_4x.pth")
+        get_converted_params("flavr", "FLAVR_4x.pth")

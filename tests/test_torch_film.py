@@ -12,7 +12,7 @@
 * ``apply`` >= 40 dB at (128, 128) and at the odd (68, 92); bf16 >= 35 dB
   against JAX fp32.
 * a TorchScript archive of a FILM state dict loads through
-  ``load_local_checkpoint``, and the node runs from it.
+  ``load_checkpoint_file``, and the node runs from it.
 * the JAX golden fixture (``tests/fixtures/torch_port_film_golden.npz``) is
   regenerated with JAX and must be unchanged; the port matches it.
 
@@ -41,9 +41,10 @@ from comfyui_frame_interpolation_tpu_torch.models import film as pf
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import FILM_VFI
 from comfyui_frame_interpolation_tpu_torch.utils.ckpt import (
     is_torchscript_archive,
-    load_local_checkpoint,
+    load_checkpoint_file,
     params_from_jax,
 )
+from torch_offline import no_downloads  # noqa: F401  (autouse: no download leaves the machine)
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port_film_golden.npz")
@@ -235,7 +236,7 @@ def test_torchscript_checkpoint_loads_and_drives_the_node(tmp_path, monkeypatch)
         assert is_torchscript_archive(str(ckpts / "film" / "film_net_fp32.pt"))
         assert not is_torchscript_archive(str(ckpts / "film" / "plain.pth"))
         for name in ("film_net_fp32.pt", "plain.pth"):
-            loaded = load_local_checkpoint("film", name)
+            loaded = load_checkpoint_file(str(ckpts / "film" / name))
             assert loaded.keys() == sd.keys(), name
             assert all(torch.equal(loaded[k], sd[k]) for k in sd), name
         frames = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)

@@ -62,9 +62,12 @@ each new frame the pair functions' at its timestep, Vimeo and X4K (padded to
 buffers the node strips, XVFI from one under ``state_dict_Model``, exactly as
 from ``params`` (the models are held against JAX by
 ``tests/test_torch_{atm,xvfi}.py``). The registry's VFI nodes are the
-fourteen ported ones (CAIN's and Sepconv's nodes are held against the JAX
-nodes in ``tests/test_torch_{cain,sepconv}.py``, the registry as a whole in
-``tests/test_torch_other_nodes.py``), with the JAX display names.
+fifteen of the JAX package (CAIN's and Sepconv's nodes are held against the
+JAX nodes in ``tests/test_torch_{cain,sepconv}.py``, MoMo's in
+``tests/test_torch_momo.py``, the registry as a whole in
+``tests/test_torch_other_nodes.py``), with the JAX display names. The
+downloader reaches no mirror (``torch_offline.no_downloads``), so a missing
+checkpoint raises ``FileNotFoundError`` naming it.
 """
 
 import contextlib
@@ -118,9 +121,11 @@ from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import GMFSS_Fortuna_
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFRNet_VFI as PortIFRNet
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import IFUnet_VFI as PortIFUnet
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import M2M_VFI as PortM2M
+from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import MOMO_VFI as PortMoMo
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import STMFNet_VFI as PortSTMFNet
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import SepconvVFI as PortSepconv
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import XVFI_VFI as PortXVFI
+from torch_offline import no_downloads  # noqa: F401  (autouse: no download leaves the machine)
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_frames")
@@ -144,7 +149,7 @@ def test_input_types_equal_jax_node():
         "RIFE VFI": PortRIFE, "M2M VFI": PortM2M, "FILM VFI": PortFILM, "GMFSS Fortuna VFI": PortGMFSS,
         "EISAI VFI": PortEISAI, "STMFNet VFI": PortSTMFNet, "FLAVR VFI": PortFLAVR,
         "IFRNet VFI": PortIFRNet, "IFUnet VFI": PortIFUnet, "AMT VFI": PortAMT, "ATM VFI": PortATM, "XVFI VFI": PortXVFI,
-        "CAIN VFI": PortCAIN, "Sepconv VFI": PortSepconv,
+        "CAIN VFI": PortCAIN, "Sepconv VFI": PortSepconv, "MOMO VFI": PortMoMo,
     }
     assert NODE_DISPLAY_NAME_MAPPINGS == {k: JAX_DISPLAY_NAMES[k] for k in NODE_CLASS_MAPPINGS}
 

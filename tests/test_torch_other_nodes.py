@@ -10,8 +10,8 @@ CPU.
   non-VFI nodes equal the JAX nodes' (the VFI nodes' tooltips, which speak of
   the TPU there and of the card here, removed).
 * ``NODE_CLASS_MAPPINGS`` and ``NODE_DISPLAY_NAME_MAPPINGS`` equal the JAX
-  package's less ``"MOMO VFI"``, in the same order; ``register`` adds a node
-  as JAX's does.
+  package's, all 18 nodes, in the same order (the test keeps the name it had
+  while ``"MOMO VFI"`` was left out); ``register`` adds a node as JAX's does.
 """
 
 import numpy as np
@@ -20,6 +20,7 @@ import torch
 
 from comfyui_frame_interpolation_tpu import nodes as jnodes
 from comfyui_frame_interpolation_tpu_torch import nodes as pnodes
+from torch_offline import no_downloads  # noqa: F401  (autouse: no download leaves the machine)
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 KS_NAME = "KSampler Gradually Adding More Denoise (efficient)"
@@ -123,8 +124,8 @@ def test_input_types_equal_jax_node(name):
 
 
 def test_registry_equals_jax_less_momo():
-    want = [k for k in jnodes.NODE_CLASS_MAPPINGS if k != "MOMO VFI"]
-    assert list(pnodes.NODE_CLASS_MAPPINGS) == want and len(want) == 17
+    want = list(jnodes.NODE_CLASS_MAPPINGS)  # since MoMo's port: the whole JAX registry
+    assert list(pnodes.NODE_CLASS_MAPPINGS) == want and len(want) == 18
     assert pnodes.NODE_DISPLAY_NAME_MAPPINGS == {k: jnodes.NODE_DISPLAY_NAME_MAPPINGS[k] for k in want}
     assert list(pnodes.NODE_DISPLAY_NAME_MAPPINGS) == want
     for name in want:

@@ -52,6 +52,7 @@ from comfyui_frame_interpolation_tpu_torch.core import config as port_config
 from comfyui_frame_interpolation_tpu_torch.models import sepconv as ps
 from comfyui_frame_interpolation_tpu_torch.nodes.vfi_nodes import SepconvVFI as PortSepconv
 from comfyui_frame_interpolation_tpu_torch.ops import sepconv as psep
+from torch_offline import no_downloads  # noqa: F401  (autouse: no download leaves the machine)
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
