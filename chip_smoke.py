@@ -328,8 +328,65 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    weights as saved, bit for bit, one model over two calls, and fp32 frames
    (TF32 off) >= 60 dB against the same weights passed as params (another
    model object, whose convolutions cuDNN may run by other algorithms).
+48. backward  -- the warp's backward kernel (``warp_bilinear_backward``)
+   against its plain version (``ops.warp.warp_backward_torch``) on the card:
+   the flow cases of ``tests/warp_cases.py`` at 256x512 and samples exactly
+   on each bound (border and zeros, f32 and bf16), the wide widths C = 16 to
+   384 as ``channels_last`` views (a channel slice among them), and the four
+   backward launches of one RIFE 4.7 training step at phase 50's size, as
+   the step hands them over. Tolerances: the image's gradient within 1e-5
+   of the sum of each pixel's absolute contributions plus 1e-6 (f32
+   atomics in changing order, in both versions), the flow's within 1e-5 of
+   its largest magnitude plus 1e-6 (channel sums in another order); bf16 one
+   ulp of the output more;
+49. train     -- one ``parallel.make_train_step`` step of RIFE 4.7 (random
+   weights from seed 0, L1 loss, Adam 1e-4) at b2 x 256x256 f32, TF32 off:
+   on the card through the kernels against the same step on the card with
+   RIFE's warps calling the plain twin (cuDNN's deterministic algorithms in
+   both): the loss equal, every gradient within 1e-4 of its tensor's
+   largest; and against the CPU (the plain twins): the loss within 1e-5,
+   every gradient within 5e-2 of its tensor's largest and 5e-3 of the
+   largest of all (gradients whose sums cancel, and the warps' gradient in
+   the flow, which jumps where a sample crosses a pixel, meet forward
+   values ~1e-7 apart: measured 1.78e-2 and 1.72e-3; two runs of one step on
+   the card alone with cuDNN's default algorithms, also run and printed
+   here, differ by up to 5.4e-2 and 7.5e-3), the updates within 1e-7 (1e-3 of the learning rate, plus
+   one f32 ulp of a parameter in [1, 2)) where the gradient is over half
+   its tensor's largest (Adam's first step is about -lr * sign(g)); the
+   card's step launches K1 4 times and the backward kernel 4 times (no
+   other count passes), and no CUDA warp that needs a gradient reaches the
+   plain twin;
+50. timing    -- RIFE 4.7 training at b16 x 224x224 (the ECCV2022-RIFE
+   recipe's crops and batch; padded to 256x256), Adam 1e-4, f32 (TF32 at
+   torch's defaults) and bf16 (parameters in bf16): steps/s and samples/s
+   as the median of 7 windows of 20 steps after 3, the two dtypes in turns,
+   with the windows' spread and whether it resolves the two dtypes apart;
+   the peak memory of one step, a ``torch.profiler`` top 10 of one f32 step
+   with the idle share and the backward kernel's device ms and share; at
+   the step's warp shape ``[32, 256, 256, 7]`` and at ``[16, 1088, 1920, 7]``
+   f32 the backward kernel's ms, its device ms, its bound (grad_out, img and
+   flow read once, grad_img and grad_flow written once in their dtypes),
+   ``aten.grid_sampler_2d_backward``'s ms (the library yardstick, which the
+   port never calls) and the plain version's ms, in turns;
+51. parallel  -- ``parallel.make_mesh()`` on the card (1 x 1 on one card);
+   RIFE 4.7 bf16 through ``make_sharded_model_fn`` and ``run_plan``, bit for
+   bit with the unsharded run on a 1x1 mesh, and on a 2-way mesh of logical
+   replicas of the card (the batch split, run shard by shard and gathered)
+   bit for bit with the unsharded run at batch 1 (cuDNN deterministic); M2M
+   fp32 through ``make_sharded_pair_fns`` and ``run_plan_pair_cached``, on
+   the 1x1 mesh within the spread of three unsharded runs (the splat's float
+   atomics), on the 2-way mesh within 1e-5 of the unsharded run at batch 1
+   (TF32 off, cuDNN deterministic); the same launches as unsharded, twice
+   them on the 2-way mesh; one RIFE 4.7 training step (b2 x 256x256 f32,
+   TF32 off, cuDNN deterministic) on the 2-way mesh against one-device
+   steps on each sample alone (the shards' forwards bit for bit): the loss
+   within 1e-6 of their mean, the gradients within 1e-4 of each tensor's
+   largest; against the one-device step at batch 2 (other convolution
+   algorithms) within phase 49's card-against-CPU tolerance, the updates
+   where |g| is over half its tensor's largest within 1e-7; K1 4 and the
+   backward kernel 4 per shard; ``parallel.train.dryrun(torch.cuda.device_count())``.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -347,14 +404,23 @@ under ``ifrnet_ifunet_amt_shapes`` and ``atm_xvfi_shapes`` (K1) and
 ``xvfi_shapes``, and each profile's ``per_forward`` entry lists the
 layouts its launches took (``launch_layouts``); the streamed RIFE and M2M
 runs of phase 44 under ``launches_by_path`` as ``rife_streaming`` and
-``m2m_streaming``. CAIN, Sepconv, FLAVR and MoMo launch no hand kernel
-(``launches_by_path`` holds ``momo: 0``).
+``m2m_streaming``, phase 49's training step as ``rife_train`` and phase
+51's sharded runs as ``rife_sharded`` and ``m2m_sharded`` (1x1 mesh),
+``rife_sharded_2way``, ``m2m_sharded_2way`` and ``rife_train_2way``. CAIN, Sepconv,
+FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
+0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
+``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
+(``library_ms``), ``by_shape`` (the training step's warp shape too),
+``per_step`` (one f32 training step's launches, device ms and bound) and
+``training`` (phase 50's rows).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
 
 import concurrent.futures
 import contextlib
+import importlib
+import io
 import json
 import math
 import os
@@ -447,7 +513,14 @@ KERNEL_BODIES = {
     "warp_bilinear": ("warp_bilinear_tiled_kernel",),
     "warp_bilinear_wide": ("warp_bilinear_wide_kernel",),
     "softsplat": ("softsplat_kernel",),
+    "warp_bilinear_backward": ("warp_bilinear_backward_kernel",),
 }
+# RIFE 4.7 training (ECCV2022-RIFE: random 224x224 crops of Vimeo-90K
+# triplets, batch 16), padded to 256x256 inside apply: the warp of both
+# frames' image and encoder feature stacks, [2N, H, W, 3 + 4]
+TRAIN_BATCH, TRAIN_HW = 16, (224, 224)
+TRAIN_WARP_SHAPE = (32, 256, 256, 7)
+TRAIN_CHECK_HW = (256, 256)  # phase 49: card against CPU at b2
 
 
 class SmokeFailure(RuntimeError):
@@ -511,6 +584,112 @@ def warp_bound(img, flow):
     return bound(*warp_work(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
 
 
+def backward_work(planes, flow_planes, img_grad=True):
+    """Bytes and f32 operations of one warp backward of ``[N, C, H, W]``
+    planes: the output's gradient, the image and the flow read once, the
+    flow's gradient and (with ``img_grad``) the image's written once, each
+    in its own dtype (the kernel's zeroed f32 buffer and its cast are its
+    own cost, in its measured time, not in the bound); 22 operations per
+    channel (the flow's two sums, 18; the four weighted gradients, 4) and 40
+    per pixel (coordinates, weights and slopes)."""
+    n, c, h, w = planes.shape
+    isz, fbytes = planes.element_size(), flow_planes.numel() * flow_planes.element_size()
+    nbytes = (3 if img_grad else 2) * planes.numel() * isz + 2 * fbytes
+    return nbytes, n * h * w * (22 * c + 40)
+
+
+def grad_within(got, ref, tol, dtype):
+    """``got`` within ``tol`` (a number or a tensor like ``ref``) of ``ref``,
+    plus one ulp of ``ref`` for bf16/f16: ``(ok, max abs err)``."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    if dtype in (torch.bfloat16, torch.float16):
+        _, exp = torch.frexp(r.abs())
+        tol = tol + torch.ldexp(torch.ones_like(r), exp - (8 if dtype == torch.bfloat16 else 11))
+    err = (g - r).abs()
+    return bool((err <= tol).all()), err.max().item()
+
+
+def backward_vs_plain(img, flow, mode, what, grad_out=None, seed=0):
+    """The backward kernel against its plain version
+    (``ops.warp.warp_backward_torch``) on NHWC ``img`` and ``flow`` and an
+    output gradient (uniform in [-1, 1] from ``seed`` unless given).
+    Tolerances: the image's gradient within 1e-5 of the sum of each pixel's
+    absolute contributions plus 1e-6 (both versions sum with f32 atomics, in
+    orders that change from run to run; a pixel that many samples pile onto
+    sums many terms), the flow's within 1e-5 of its largest magnitude plus
+    1e-6 (the channels summed in another order); bf16/f16 one ulp more.
+    Returns the f32 max abs errors ``(grad_img, grad_flow)``."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_backward_torch
+
+    if grad_out is None:
+        g = torch.Generator().manual_seed(seed)
+        grad_out = (torch.rand(img.shape, generator=g) * 2 - 1).to(img.device, img.dtype)
+    gi, gf = warp_kernel.warp_bilinear_backward(
+        img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2), mode == "zeros"
+    )
+    ri, rf = warp_backward_torch(img, flow, grad_out, mode)
+    contributions, _ = warp_backward_torch(img.float(), flow.float(), grad_out.float().abs(), mode)
+    torch.cuda.synchronize()
+    ok_i, err_i = grad_within(gi.permute(0, 2, 3, 1), ri, 1e-5 * contributions + 1e-6, img.dtype)
+    ok_f, err_f = grad_within(gf.permute(0, 2, 3, 1), rf, 1e-5 * rf.float().abs().max().item() + 1e-6, flow.dtype)
+    shape = f"{list(img.shape)} {str(img.dtype).split('.')[-1]} {mode}, {str(flow.dtype).split('.')[-1]} flow"
+    check(ok_i, f"backward kernel vs plain, {what} {shape}: grad_img max err {err_i}")
+    check(ok_f, f"backward kernel vs plain, {what} {shape}: grad_flow max err {err_f}")
+    return err_i, err_f
+
+
+def grid_sample_backward_call(img, flow, grad_out, padding_mode="border"):
+    """``aten.grid_sampler_2d_backward`` computing the warp's gradients of
+    NHWC ``img`` by ``flow`` for ``grad_out`` on a precomputed grid
+    (``align_corners=True``), in the layout the path holds: the library
+    yardstick, which the port never calls."""
+    import torch
+
+    planes, gplanes = img.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2)
+    n, _, h, w = planes.shape
+    gx = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
+    gy = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1).to(img.dtype)
+    pad = 0 if padding_mode == "zeros" else 1
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(gplanes, planes, grid, 0, pad, True, [True, True])
+
+
+def rife_trainer(device, dtype, mesh=None):
+    """A RIFE 4.7 module from ``init_params(0)`` on ``device`` in ``dtype``
+    (``channels_last``), an Adam 1e-4 over it and ``parallel.make_train_step``
+    on ``mesh`` (one device by default): ``(net, step)``."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch import parallel
+    from comfyui_frame_interpolation_tpu_torch.models import rife
+    from comfyui_frame_interpolation_tpu_torch.models.common import cast_params
+
+    net = rife.IFNet("4.7")
+    net.load_state_dict(cast_params(rife.init_params(0, "4.7"), dtype), strict=True)
+    net = net.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+    scale_list = rife.default_scale_list("4.7")
+    mesh = mesh or parallel.make_mesh(1, devices=[torch.device(device)])
+    step = parallel.make_train_step(
+        lambda n, f0, f1, t: rife.apply(n, f0, f1, t, scale_list), torch.optim.Adam(net.parameters(), lr=1e-4), mesh, net
+    )
+    return net, step
+
+
+def train_batch(b, hw, seed, device, dtype):
+    """``(f0, f1, t, target)``: random NHWC frames and target from numpy's
+    ``seed``, t uniform in (0, 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f0, f1, target = (torch.from_numpy(rng.random((b, *hw, 3), dtype=np.float32)).to(device, dtype) for _ in range(3))
+    t = torch.from_numpy(rng.uniform(0.1, 0.9, b).astype(np.float32)).to(device, dtype)
+    return f0, f1, t, target
+
+
 @contextlib.contextmanager
 def spying(targets):
     """Inside, each ``(module, attr, record)`` of ``targets`` makes
@@ -553,10 +732,14 @@ def recorded_work(log):
     def record(kernel, work):
         return lambda x, flow, *rest: log.append((kernel, *work(x, flow), launch_layout(x, flow, bool(rest[0]) if rest else False)))
 
+    def record_backward(x, flow, grad_out, zeros=False, img_grad=True):
+        log.append(("warp_bilinear_backward", *backward_work(x, flow, img_grad), launch_layout(x, flow, bool(zeros))))
+
     return spying([
         (warp_kernel, "warp_bilinear", record("warp_bilinear", warp_work)),
         (warp_kernel, "warp_bilinear_wide", record("warp_bilinear_wide", warp_work)),
         (softsplat_kernel, "softsplat_bilinear", record("softsplat", splat_work)),
+        (warp_kernel, "warp_bilinear_backward", record_backward),
     ])
 
 
@@ -734,7 +917,7 @@ def device_ms(fn, iters, name=None):
     )
 
 
-def profile_forward(what, model_fn, *inputs, card):
+def profile_forward(what, model_fn, *inputs, card, unit="forward"):
     """``torch.profiler`` over one forward of ``model_fn`` after a warm-up
     forward whose kernel launches are recorded: the top 10 ops by device
     time, each hand kernel's device ms and share of the device time, the
@@ -766,7 +949,7 @@ def profile_forward(what, model_fn, *inputs, card):
     n_kernels = sum(e.count for e in on_device)
     ops = sorted((e for e in events if e not in on_device and device_us(e) > 0), key=device_us, reverse=True)
     print(
-        f"profile {card}: one {what} forward, {device_total / 1e3:.3f} ms of kernels in "
+        f"profile {card}: one {what} {unit}, {device_total / 1e3:.3f} ms of kernels in "
         f"{wall_us / 1e3:.3f} ms wall, idle share {max(0.0, 1 - device_total / wall_us):.4f}, {n_kernels} kernels; "
         f"{shares} of device time",
         flush=True,
@@ -901,7 +1084,7 @@ def main() -> int:
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import (
         function_softsplat, softsplat, softsplat_func, softsplat_torch,
     )
-    from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
+    from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_backward_torch, warp_torch
     from comfyui_frame_interpolation_tpu_torch.core.config import load_config
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
     from comfyui_frame_interpolation_tpu_torch.utils.ckpt import save_npz
@@ -2989,6 +3172,404 @@ def main() -> int:
     )
     del rife16, pclip, rnode, outs, ref
 
+    # ---- 48. the warp's backward kernel against its plain version -----------------
+    t0 = time.perf_counter()
+    bwd_errs, n_bwd = {}, 0
+
+    def worst(key, errs):
+        bwd_errs[key] = tuple(max(a, b) for a, b in zip(bwd_errs.get(key, (0.0, 0.0)), errs))
+
+    for case in warp_cases.warp_cases(0, 256, 512):
+        for mode in case["modes"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                img = torch.from_numpy(case["img"]).to(dev, dtype)
+                errs = backward_vs_plain(img, torch.from_numpy(case["flow"]).to(dev), mode, case["name"])
+                worst(f"flow cases {str(dtype).split('.')[-1]}", errs)
+                n_bwd += 1
+    bflow = torch.from_numpy(warp_cases.bound_flow(2, 256, 512)).to(dev)
+    for mode in ("border", "zeros"):
+        for dtype in (torch.float32, torch.bfloat16):
+            img = torch.rand(2, 256, 512, 7, generator=g).to(dev, dtype)
+            worst(f"exact bounds {str(dtype).split('.')[-1]}", backward_vs_plain(img, bflow, mode, "exact bounds"))
+            n_bwd += 1
+    for case in warp_cases.wide_cases(0, 128, 256, channels=(16, 32, 64, 192, 384)):
+        for mode in case["modes"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                img = torch.from_numpy(case["img"]).to(dev, dtype)[..., case["offset"] :]  # channels_last views
+                errs = backward_vs_plain(img, torch.from_numpy(case["flow"]).to(dev), mode, case["name"])
+                worst(f"wide views {str(dtype).split('.')[-1]}", errs)
+                n_bwd += 1
+    # the backward inputs of one training step at phase 50's size, as the
+    # step hands them to the kernel (strided views, autograd's gradients)
+    captured_bwd = []
+
+    def capture_backward(img, flow, grad_out, zeros=False, *rest):
+        captured_bwd.append((img.clone(), flow.clone(), grad_out.clone(), zeros))
+
+    _, cstep = rife_trainer(dev, torch.float32)
+    with spying([(warp_kernel, "warp_bilinear_backward", capture_backward)]):
+        cstep(*train_batch(TRAIN_BATCH, TRAIN_HW, 48, dev, torch.float32))
+    torch.cuda.synchronize()
+    check(len(captured_bwd) == 4, f"one training step made {len(captured_bwd)} backward launches, expected 4")
+    step_shapes = set()
+    for img, flow, grad_out, zeros in captured_bwd:
+        nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+        mode = "zeros" if zeros else "border"
+        worst("training step", backward_vs_plain(nhwc(img), nhwc(flow), mode, "training step", grad_out=nhwc(grad_out)))
+        step_shapes.add((tuple(nhwc(img).shape), mode))
+        n_bwd += 1
+    check(step_shapes == {(TRAIN_WARP_SHAPE, "border"), (TRAIN_WARP_SHAPE[:3] + (3,), "border")},
+          f"the training step's backward shapes {sorted(step_shapes)}")
+    del captured_bwd, cstep
+    bwd_err = max(e for k, v in bwd_errs.items() if "float32" in k or k == "training step" for e in v)
+    print(
+        f"backward: {n_bwd} runs of the backward kernel against warp_backward_torch (flow cases at 256x512, exact bounds, "
+        f"wide C = 16-384 as channels_last views, the training step's {sorted(step_shapes)}), all within tolerance; max abs "
+        f"err (grad_img, grad_flow): " + ", ".join(f"{k} ({a:.3g}, {b:.3g})" for k, (a, b) in bwd_errs.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 49. a RIFE 4.7 training step, card against CPU ---------------------------
+    t0 = time.perf_counter()
+    warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")  # ops.warp is also a function's name
+    real_twin = warp_mod.warp_torch
+
+    def guarded_twin(img, flow, padding_mode="border"):
+        check(not (img.is_cuda and torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad)),
+              "a CUDA warp that needs a gradient reached the plain twin")
+        return real_twin(img, flow, padding_mode)
+
+    batch49 = train_batch(2, TRAIN_CHECK_HW, 49, "cpu", torch.float32)
+    trained = {}
+
+    def train_once(d, twin=False):
+        """One step on ``d``: ``(loss, grads, updates)`` on the host. With
+        ``twin``, RIFE's warps call the plain twin directly (autograd through
+        it), the reference for the kernels on the same card."""
+        real_warp = rife.warp
+        if twin:
+            rife.warp = lambda img, flow, padding_mode="border", prefer_wide=False: real_twin(img, flow, padding_mode)
+        try:
+            net, step = rife_trainer(d, torch.float32)
+            before = {k: v.detach().clone() for k, v in net.named_parameters()}
+            loss = step(*(x.to(d) for x in batch49)).item()
+        finally:
+            rife.warp = real_warp
+        return (loss, {k: v.grad.cpu() for k, v in net.named_parameters()},
+                {k: (v.detach() - before[k]).cpu() for k, v in net.named_parameters()})
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's default backward-weight algorithms sum in an order that changes
+    # from run to run (two runs of one step differ by up to 2.1 % of a
+    # tensor's largest gradient where its sums cancel): the two card runs
+    # that isolate the kernels take deterministic ones
+    torch.backends.cudnn.deterministic = True
+    try:
+        trained["twin"] = train_once("cuda", twin=True)
+        torch.cuda.synchronize()
+        warp_mod.warp_torch = guarded_twin
+        warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = softsplat_kernel.launches = 0
+        trained["cuda"] = train_once("cuda")
+        torch.cuda.synchronize()
+        train_launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches,
+                          "backward": warp_kernel.backward_launches, "splat": softsplat_kernel.launches}
+        trained["cpu"] = train_once("cpu")
+        # the card's own spread: two more runs with cuDNN's default algorithms
+        torch.backends.cudnn.deterministic = det
+        spread_runs = [train_once("cuda")[1] for _ in range(2)]
+    finally:
+        warp_mod.warp_torch = real_twin
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(train_launches == {"narrow": 4, "wide": 0, "backward": 4, "splat": 0},
+          f"one RIFE 4.7 training step launched {train_launches}, expected K1 4 and the backward kernel 4")
+    (loss_gpu, grads_gpu, deltas_gpu), (loss_cpu, grads_cpu, deltas_cpu) = trained["cuda"], trained["cpu"]
+    loss_twin, grads_twin, _ = trained["twin"]
+
+    def grad_errs(got, ref):
+        """The largest error of each tensor over its largest magnitude, and the
+        largest error over the largest gradient of all."""
+        top = max(v.abs().max().item() for v in ref.values())
+        rel = {k: (got[k] - ref[k]).abs().max().item() / max(ref[k].abs().max().item(), 1e-30) for k in ref}
+        return max(rel.values()), max(rel, key=rel.get), max((got[k] - ref[k]).abs().max().item() for k in ref) / top
+
+    # the kernels against the plain twin inside one step on the card: the
+    # forward kernels are bit for bit, the backward sums in another order
+    kt_rel, kt_worst, kt_glob = grad_errs(grads_gpu, grads_twin)
+    check(loss_gpu == loss_twin, f"training step loss with the kernels {loss_gpu} vs through the twin {loss_twin} on the card")
+    check(kt_rel <= 1e-4, f"training step gradients, kernels vs twin on the card: {kt_rel:.3g} of {kt_worst}'s largest, above 1e-4")
+    # card against CPU: cuDNN's and oneDNN's sums (forward values ~1e-7
+    # apart), and the warps' gradient in the flow, which jumps where a sample
+    # crosses a pixel, leave gradients whose sums cancel apart by a share of
+    # their tensor's largest: 1.78e-2 (block1.convblock.4.beta), and 1.72e-3
+    # of the largest of all, in each of three runs (the card's deterministic
+    # algorithms against oneDNN's). So: each tensor within 5e-2 of its
+    # largest, every error within 5e-3 of the largest gradient of all. Two
+    # card runs with cuDNN's default algorithms differ from each other by
+    # 1.66e-2 to 5.42e-2 and 1.7e-3 to 7.5e-3 (printed below)
+    cc_rel, cc_worst, cc_glob = grad_errs(grads_gpu, grads_cpu)
+    sp_rel, sp_worst, sp_glob = grad_errs(spread_runs[0], spread_runs[1])
+    check(math.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu),
+          f"training step loss card {loss_gpu} vs CPU {loss_cpu}")
+    check(cc_rel <= 5e-2 and cc_glob <= 5e-3,
+          f"training step gradients card vs CPU: {cc_rel:.3g} of {cc_worst}'s largest (at most 5e-2), {cc_glob:.3g} of the "
+          f"largest of all (at most 5e-3)")
+    # Adam's first step is about -lr * sign(g): held where |g| is over 10x that tolerance
+    upd_err, n_upd = 0.0, 0
+    for k, gk in grads_cpu.items():
+        big = gk.abs() > 0.5 * gk.abs().max()
+        n_upd += int(big.sum())
+        upd_err = max(upd_err, (deltas_gpu[k][big] - deltas_cpu[k][big]).abs().max().item())
+    check(upd_err <= 1e-3 * 1e-4 + 2.0**-23, f"training step updates card vs CPU: max err {upd_err:.3g}")
+    print(
+        f"train: RIFE 4.7 make_train_step (L1, Adam 1e-4) b2x{TRAIN_CHECK_HW[0]}x{TRAIN_CHECK_HW[1]} f32, TF32 off: kernels vs "
+        f"the plain twin on the card: loss equal, gradients within {kt_rel:.3g} of each tensor's largest ({kt_worst}); card vs "
+        f"CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f}, gradients within {cc_rel:.3g} of each tensor's largest ({cc_worst}) and "
+        f"{cc_glob:.3g} of the largest of all (two card runs with cuDNN's default algorithms: {sp_rel:.3g} ({sp_worst}) and "
+        f"{sp_glob:.3g}), the {n_upd} updates where |g| > 0.5 of its tensor's largest within {upd_err:.3g}; "
+        f"launches {train_launches} (K1 4, backward 4, through WarpFunction; no CUDA warp reached the twin); "
+        f"phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    del trained, grads_gpu, grads_cpu, grads_twin, deltas_gpu, deltas_cpu, spread_runs
+
+    # ---- 50. training timing ------------------------------------------------------
+    t0 = time.perf_counter()
+    # one window of 20 steps lasts under a second and two windows on this
+    # shared host have read 23 and 42 steps/s: so several windows, f32 and
+    # bf16 in turns, reported by their median and spread
+    trainers = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net, step = rife_trainer(dev, dtype)
+        trainers[str(dtype).split(".")[-1]] = (dtype, step, train_batch(TRAIN_BATCH, TRAIN_HW, 50, dev, dtype))
+        del net
+    for _, step, batch50 in trainers.values():
+        for _ in range(3):
+            step(*batch50)
+    torch.cuda.synchronize()
+    n_steps, n_windows = 20, 7
+    windows = {name: [] for name in trainers}
+    for i in range(n_windows):
+        for name in (list(trainers) if i % 2 == 0 else list(trainers)[::-1]):
+            _, step, batch50 = trainers[name]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(n_steps):
+                loss = step(*batch50)
+            torch.cuda.synchronize()
+            windows[name].append(1e3 * (time.perf_counter() - t1) / n_steps)
+            check(bool(torch.isfinite(loss)), f"training step {name}: loss {loss}")
+    train_rows = {}
+    for name, (dtype, step, batch50) in trainers.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(*batch50)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms_step = statistics.median(windows[name])
+        train_rows[name] = {
+            "steps_per_s": 1e3 / ms_step, "samples_per_s": 1e3 * TRAIN_BATCH / ms_step, "ms_per_step": ms_step,
+            "ms_per_step_windows": windows[name], "peak_bytes": peak,
+        }
+        print(
+            f"timing {card}: RIFE 4.7 training b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]} (padded to 256x256) {name}, Adam 1e-4: "
+            f"{1e3 / ms_step:.3f} steps/s, {1e3 * TRAIN_BATCH / ms_step:.2f} samples/s (median {ms_step:.3f} ms a step over "
+            f"{n_windows} windows of {n_steps} steps, in turns with the other dtype; windows "
+            f"{min(windows[name]):.3f} to {max(windows[name]):.3f} ms), peak {peak / 2**30:.3f} GiB above the "
+            f"{base / 2**30:.3f} GiB held",
+            flush=True,
+        )
+    (f_lo, f_hi), (b_lo, b_hi) = ((min(windows[k]), max(windows[k])) for k in ("float32", "bfloat16"))
+    gap = abs(train_rows["float32"]["ms_per_step"] - train_rows["bfloat16"]["ms_per_step"])
+    spread = max(f_hi - f_lo, b_hi - b_lo)
+    print(
+        f"timing {card}: RIFE 4.7 training, bf16 against f32: medians {gap:.3f} ms a step apart, the windows of one dtype "
+        f"spread by up to {spread:.3f} ms: " + ("resolved" if spread < gap else "unresolved (the spread exceeds the difference)"),
+        flush=True,
+    )
+    _, step, batch50 = trainers["float32"]
+    train_profile = profile_forward(
+        f"RIFE 4.7 training step b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]} f32 (TF32 at its defaults)", step, *batch50,
+        card=card, unit="step",
+    )
+    del trainers, step, batch50
+    bwd_times = {}
+    for shape in (TRAIN_WARP_SHAPE, MAIN_SHAPE):
+        bimg = torch.rand(shape, generator=g).to(dev)
+        bflow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        bgrad = (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+        err = backward_vs_plain(bimg, bflow, "border", "timing shape", grad_out=bgrad)
+        args = (bimg.permute(0, 3, 1, 2), bflow.permute(0, 3, 1, 2), bgrad.permute(0, 3, 1, 2))
+        times = in_turns({
+            "plain": (lambda: warp_backward_torch(bimg, bflow, bgrad), 3),
+            "kernel": (lambda: warp_kernel.warp_bilinear_backward(*args), 20),
+            "grid_sampler_2d_backward": (grid_sample_backward_call(bimg, bflow, bgrad), 10),
+        })
+        ms = {k: statistics.mean(v) for k, v in times.items()}
+        dev_kernel = device_ms(lambda: warp_kernel.warp_bilinear_backward(*args), 20, name="warp_bilinear_backward_kernel")
+        b = bound(*backward_work(*args[:2]))
+        bwd_times[f"{list(shape)} f32 border"] = {
+            "ms": ms["kernel"], "kernel_device_ms": dev_kernel, "plain_ms": ms["plain"],
+            "library_ms": ms["grid_sampler_2d_backward"], "bound_ms": b[0], "bound_by": b[1], "max_abs_err": max(err),
+        }
+        print(
+            f"timing {card}: backward {list(shape)} f32, f32 flow, border: "
+            + ", ".join(f"{k} {ms[k]:.4f} ms {v}" for k, v in times.items())
+            + f"; the kernel alone {dev_kernel:.4f} ms on the device; bound {b[0]:.4f} ms ({b[1]}), the op at "
+            f"{100 * b[0] / ms['kernel']:.1f} % of it; max abs err (grad_img, grad_flow) {err[0]:.3g}, {err[1]:.3g}",
+            flush=True,
+        )
+        del bimg, bflow, bgrad, args
+    bwd_main = bwd_times[f"{list(MAIN_SHAPE)} f32 border"]
+    print(f"train timing: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 51. parallel: the mesh, the sharded executors, a sharded step, the dry run --
+    t0 = time.perf_counter()
+    from comfyui_frame_interpolation_tpu_torch import parallel
+    from comfyui_frame_interpolation_tpu_torch.parallel import train as ptrain
+
+    n_cards = torch.cuda.device_count()
+    space = 2 if n_cards % 2 == 0 and n_cards > 1 else 1
+    mesh = parallel.make_mesh()
+    check(mesh.shape == {"data": n_cards // space, "space": space}, f"make_mesh() on {n_cards} card(s): {mesh.shape}")
+    mesh1 = parallel.make_mesh(1)
+    # two logical replicas of the card: the batch split, run shard by shard
+    # (parameters copied per shard in the step) and gathered, as on two cards
+    mesh2 = parallel.make_mesh(2, shape=(2, 1), devices=[dev] * 2)
+    check(mesh2.shape == {"data": 2, "space": 1}, f"make_mesh(2, shape=(2, 1)) on one card: {mesh2.shape}")
+    rife16 = rife.make_model_fn(rife.init_params(0, "4.7"), "4.7", fastmode=True, ensemble=False, dtype=torch.bfloat16, device=dev)
+    pclip = torch.from_numpy(shifted_pattern(4, 540, 960, seed=51)).to(dev)
+    pplan = plan_timestep(4, 2)
+    ref_out, ref_n, _ = executor_run(run_plan, pclip, pplan, rife16, batch_size=2)
+    sh_out, rife_sharded_launches, _ = executor_run(
+        run_plan, pclip, pplan, parallel.make_sharded_model_fn(lambda d: rife16, mesh1), batch_size=2
+    )
+    check(torch.equal(sh_out, ref_out), "make_sharded_model_fn through run_plan on a 1x1 mesh: not bit for bit with the unsharded run")
+    check(rife_sharded_launches == ref_n == {"narrow": 4 * 2, "wide": 0, "splat": 0},
+          f"sharded RIFE launches {rife_sharded_launches}, unsharded {ref_n}")
+    # on the 2-way mesh each shard runs a batch of 1: held bit for bit against
+    # the unsharded executor at batch 1, cuDNN's deterministic algorithms in
+    # both (the same shapes take the same algorithms)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref1_out, _, _ = executor_run(run_plan, pclip, pplan, rife16, batch_size=1)
+        sh2_out, rife_sharded2_launches, _ = executor_run(
+            run_plan, pclip, pplan, parallel.make_sharded_model_fn(lambda d: rife16, mesh2), batch_size=2
+        )
+    finally:
+        torch.backends.cudnn.deterministic = det
+    rife2_err = (sh2_out - ref_out).abs().max().item()
+    check(torch.equal(sh2_out, ref1_out), f"make_sharded_model_fn through run_plan on a 2-way mesh: not bit for bit with the "
+          f"unsharded run at batch 1 (max err {(sh2_out - ref1_out).abs().max().item()})")
+    check(rife_sharded2_launches == {"narrow": 2 * 4 * 2, "wide": 0, "splat": 0},
+          f"RIFE on the 2-way mesh launched {rife_sharded2_launches}, expected K1 4 per shard and call")
+    reuse_fn, infer_fn = m2m.make_pair_fns(m2m.init_params(0), dtype=torch.float32, device=dev)
+    mclip = torch.from_numpy(shifted_pattern(4, *M2M_HW, seed=52)).to(dev)
+    mplan = plan_timestep(4, 3)
+    m_refs = [executor_run(run_plan_pair_cached, mclip, mplan, reuse_fn, infer_fn, batch_size=2) for _ in range(3)]
+    m_sh, m2m_sharded_launches, _ = executor_run(
+        run_plan_pair_cached, mclip, mplan, *parallel.make_sharded_pair_fns(lambda d: (reuse_fn, infer_fn), mesh1), batch_size=2
+    )
+    # the splat sums with float atomics: held within the unsharded runs' spread
+    m_spread = max((a[0] - b[0]).abs().max().item() for i, a in enumerate(m_refs) for b in m_refs[i + 1 :])
+    m_err = min((m_sh - r[0]).abs().max().item() for r in m_refs)
+    check(m_err <= m_spread, f"make_sharded_pair_fns through run_plan_pair_cached: max err {m_err} above the spread {m_spread}")
+    check(all(r[1] == m2m_sharded_launches for r in m_refs), f"sharded M2M launches {m2m_sharded_launches}, unsharded {m_refs[0][1]}")
+    # 2-way: each shard runs a batch of 1, held against the unsharded executor
+    # at batch 1, TF32 off and cuDNN's deterministic algorithms in both (the
+    # same shapes take the same algorithms), within 1e-5 of fp32 frames in
+    # [0, 1] (the splat's float atomics sum in changing order); twice the 1x1
+    # mesh's launches
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        m_ref1, _, _ = executor_run(run_plan_pair_cached, mclip, mplan, reuse_fn, infer_fn, batch_size=1)
+        m_sh2, m2m_sharded2_launches, _ = executor_run(
+            run_plan_pair_cached, mclip, mplan, *parallel.make_sharded_pair_fns(lambda d: (reuse_fn, infer_fn), mesh2),
+            batch_size=2,
+        )
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    m2_err = (m_sh2 - m_ref1).abs().max().item()
+    check(m2_err <= 1e-5, f"make_sharded_pair_fns through run_plan_pair_cached on a 2-way mesh: max err {m2_err} above 1e-5")
+    check(m2m_sharded2_launches == {k: 2 * v for k, v in m2m_sharded_launches.items()},
+          f"M2M on the 2-way mesh launched {m2m_sharded2_launches}, the 1x1 mesh {m2m_sharded_launches}")
+    # one RIFE 4.7 training step (f32, TF32 off, cuDNN's deterministic
+    # algorithms) on the 2-way mesh, where each shard runs a batch of 1,
+    # against one-device steps on each sample alone, whose forwards are the
+    # shards' own bit for bit: the loss and the gradients are their means,
+    # within 1e-6 and phase 49's kernel tolerance (1e-4 of each tensor's
+    # largest; the shards' sums meet in another order); K1 4 and the backward
+    # kernel 4 per shard. Against the one-device step at batch 2, whose
+    # convolutions take other algorithms (forward values ~1e-7 apart, where
+    # the warps' flow gradient jumps as a sample crosses a pixel), within
+    # phase 49's card-against-CPU tolerance, and the updates where |g| is over
+    # half its tensor's largest within phase 49's 1e-7
+    batch51 = train_batch(2, TRAIN_CHECK_HW, 51, dev, torch.float32)
+    stepped = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = (("one", mesh1, batch51), ("two", mesh2, batch51),
+                *((f"sample {i}", mesh1, tuple(x[i : i + 1] for x in batch51)) for i in range(2)))
+        for key, m, batch in runs:
+            net, step = rife_trainer(dev, torch.float32, mesh=m)
+            before = {k: v.detach().clone() for k, v in net.named_parameters()}
+            warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = softsplat_kernel.launches = 0
+            loss = step(*batch).item()
+            torch.cuda.synchronize()
+            counts = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches,
+                      "backward": warp_kernel.backward_launches, "splat": softsplat_kernel.launches}
+            stepped[key] = (loss, {k: v.grad.cpu() for k, v in net.named_parameters()},
+                            {k: (v.detach() - before[k]).cpu() for k, v in net.named_parameters()}, counts)
+            del net, step
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (loss1, grads1, deltas1, _), (loss2, grads2, deltas2, train2_launches) = stepped["one"], stepped["two"]
+    (loss_a, grads_a, _, _), (loss_b, grads_b, _, _) = stepped["sample 0"], stepped["sample 1"]
+    check(math.isfinite(loss2) and abs(loss2 - (loss_a + loss_b) / 2) <= 1e-6 * abs(loss2),
+          f"2-way step loss {loss2} vs the mean of the samples' one-device steps {(loss_a + loss_b) / 2}")
+    t2_rel, t2_worst, _ = grad_errs(grads2, {k: (grads_a[k] + grads_b[k]) / 2 for k in grads_a})
+    check(t2_rel <= 1e-4, f"2-way step gradients vs the samples' one-device steps: {t2_rel:.3g} of {t2_worst}'s largest, above 1e-4")
+    check(abs(loss2 - loss1) <= 1e-6 * abs(loss1), f"2-way step loss {loss2} vs the one-device step at batch 2 {loss1}")
+    b2_rel, b2_worst, b2_glob = grad_errs(grads2, grads1)
+    check(b2_rel <= 5e-2 and b2_glob <= 5e-3,
+          f"2-way step gradients vs the one-device step at batch 2: {b2_rel:.3g} of {b2_worst}'s largest (at most 5e-2), "
+          f"{b2_glob:.3g} of the largest of all (at most 5e-3)")
+    t2_upd = max(
+        (deltas2[k][gk.abs() > 0.5 * gk.abs().max()] - deltas1[k][gk.abs() > 0.5 * gk.abs().max()]).abs().max().item()
+        for k, gk in grads1.items()
+    )
+    check(t2_upd <= 1e-3 * 1e-4 + 2.0**-23, f"2-way step updates vs the one-device step at batch 2: max err {t2_upd:.3g}")
+    check(train2_launches == {"narrow": 8, "wide": 0, "backward": 8, "splat": 0},
+          f"the 2-way training step launched {train2_launches}, expected K1 4 and the backward kernel 4 per shard")
+    del stepped, grads1, grads2, grads_a, grads_b, deltas1, deltas2
+    with contextlib.redirect_stdout(io.StringIO()) as dry_out:
+        ptrain.dryrun(n_cards)
+    dry_line = dry_out.getvalue().strip()
+    check(dry_line.startswith(f"dryrun_multichip({n_cards}) OK: loss="), f"parallel.train.dryrun printed {dry_line!r}")
+    print(
+        f"parallel: make_mesh() on {n_cards} card(s) {mesh.shape}; RIFE 4.7 bf16 run_plan (4x540x960 x2, b2) through "
+        f"make_sharded_model_fn: on a 1x1 mesh bit for bit with the unsharded run, launches {rife_sharded_launches}; on a 2-way "
+        f"mesh of logical replicas bit for bit with the unsharded run at batch 1 ({rife2_err:.3g} from the batch-2 run), "
+        f"launches {rife_sharded2_launches}; M2M fp32 run_plan_pair_cached (x3) through make_sharded_pair_fns: on a 1x1 mesh "
+        f"max err {m_err:.3g} against the nearest unsharded run, three unsharded runs differ by up to {m_spread:.3g}, launches "
+        f"{m2m_sharded_launches}; on the 2-way mesh max err {m2_err:.3g} against the unsharded run at batch 1, launches {m2m_sharded2_launches}; a RIFE 4.7 training "
+        f"step b2x{TRAIN_CHECK_HW[0]}x{TRAIN_CHECK_HW[1]} f32 on the 2-way mesh: against one-device steps on each sample "
+        f"alone, loss {loss2:.7f} vs their mean {(loss_a + loss_b) / 2:.7f}, gradients within {t2_rel:.3g} of each tensor's "
+        f"largest ({t2_worst}); against the one-device step at batch 2, loss {loss1:.7f}, gradients within {b2_rel:.3g} of "
+        f"each tensor's largest ({b2_worst}) and {b2_glob:.3g} of the largest of all, updates within {t2_upd:.3g}; "
+        f"launches {train2_launches}; {dry_line}; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    del rife16, pclip, ref_out, ref1_out, sh_out, sh2_out, reuse_fn, infer_fn, mclip, m_refs, m_sh, m_sh2, m_ref1
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -3008,7 +3589,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-47 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-51 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -3018,7 +3599,9 @@ def main() -> int:
             "launches": rife_warp_launches + rife40_launches["narrow"] + m2m_warp_launches + film_warp_launches
             + sum(v["narrow"] for v in gmfss_launches.values()) + eisai_launches["narrow"] + stmf_launches["narrow"]
             + ifrnet_launches["narrow"] + ifunet_launches["narrow"] + amt_launches["narrow"] + atm_launches["narrow"]
-            + xvfi_launches["narrow"] + x4k_launches["narrow"] + rife_stream_launches["narrow"] + m2m_stream_launches["narrow"],
+            + xvfi_launches["narrow"] + x4k_launches["narrow"] + rife_stream_launches["narrow"] + m2m_stream_launches["narrow"]
+            + train_launches["narrow"] + rife_sharded_launches["narrow"] + m2m_sharded_launches["narrow"]
+            + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -3026,7 +3609,10 @@ def main() -> int:
                 "ifrnet": ifrnet_launches["narrow"], "ifunet": ifunet_launches["narrow"], "amt": amt_launches["narrow"],
                 "atm": atm_launches["narrow"], "xvfi": xvfi_launches["narrow"], "xvfi_x4k_1080p": x4k_launches["narrow"],
                 "rife_streaming": rife_stream_launches["narrow"], "m2m_streaming": m2m_stream_launches["narrow"],
-                "momo": momo_launches["narrow"],
+                "momo": momo_launches["narrow"], "rife_train": train_launches["narrow"],
+                "rife_sharded": rife_sharded_launches["narrow"], "m2m_sharded": m2m_sharded_launches["narrow"],
+                "rife_sharded_2way": rife_sharded2_launches["narrow"], "m2m_sharded_2way": m2m_sharded2_launches["narrow"],
+                "rife_train_2way": train2_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -3049,14 +3635,16 @@ def main() -> int:
             "launches": rife40_launches["wide"] + m2m_wide + film_wide_launches
             + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"]
             + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"] + atm_launches["wide"]
-            + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"],
+            + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
+            + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
                 "ifrnet": ifrnet_launches["wide"], "ifunet": ifunet_launches["wide"], "amt": amt_launches["wide"],
                 "atm": atm_launches["wide"], "xvfi": xvfi_launches["wide"], "xvfi_x4k_1080p": x4k_launches["wide"],
                 "rife_streaming": rife_stream_launches["wide"], "m2m_streaming": m2m_stream_launches["wide"],
-                "momo": momo_launches["wide"],
+                "momo": momo_launches["wide"], "rife_train": train_launches["wide"], "m2m_sharded": m2m_sharded_launches["wide"],
+                "m2m_sharded_2way": m2m_sharded2_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -3083,12 +3671,14 @@ def main() -> int:
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
             "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
-            + m2m_stream_launches["splat"],
+            + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"],
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
                 "xvfi_x4k_1080p": x4k_launches["splat"], "rife_streaming": rife_stream_launches["splat"],
                 "m2m_streaming": m2m_stream_launches["splat"], "momo": momo_launches["splat"],
+                "rife_train": train_launches["splat"], "m2m_sharded": m2m_sharded_launches["splat"],
+                "m2m_sharded_2way": m2m_sharded2_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -3103,6 +3693,25 @@ def main() -> int:
             "stmfnet_shapes": stmf_splat_times,
             "xvfi_shapes": xsplat_times,
             "per_forward": per_forward["softsplat"],
+        },
+        {
+            "name": "warp_bilinear_backward",
+            "route": "cuda",
+            "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
+            "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/warp.py:57 (bilinear_sample)",
+            "launches": train_launches["backward"] + train2_launches["backward"],
+            "launches_by_path": {"rife_train": train_launches["backward"], "rife_train_2way": train2_launches["backward"]},
+            "max_abs_err": bwd_err,
+            "shape": f"{list(MAIN_SHAPE)} f32, f32 flow, border",
+            "ms": bwd_main["ms"],
+            "kernel_device_ms": bwd_main["kernel_device_ms"],
+            "plain_ms": bwd_main["plain_ms"],
+            "bound_ms": bwd_main["bound_ms"],
+            "bound_by": bwd_main["bound_by"],
+            "library_ms": bwd_main["library_ms"],
+            "by_shape": bwd_times,
+            "per_step": train_profile.get("warp_bilinear_backward"),
+            "training": train_rows,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

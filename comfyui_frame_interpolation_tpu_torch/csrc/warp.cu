@@ -103,6 +103,31 @@
 // (ops/cuda/warp_kernel.py:route), from C, the dtype and the channel stride.
 // All offsets are 64-bit: a batch-8 1080p RIFE call already holds 2.3e8
 // elements, and wide feature warps pass 2^31.
+//
+// warp_bilinear_backward_kernel is the warp's gradient, for training. No
+// Pallas kernel of the JAX package has a backward: JAX trains through its
+// warp by XLA's VJP of the gather in ops/warp.py:bilinear_sample (l.57-127),
+// and this kernel computes that VJP (the plain version is
+// ops/warp.py:warp_backward_torch, torch.autograd through the twin). Per
+// output pixel, from the same taps and weights as the forward:
+//   grad_img:  g_c * w_k added to each tap k (the clamped index in border
+//              mode; only the taps in the frame in zeros mode), with f32
+//              atomics into a zeroed f32 buffer that the wrapper keeps as
+//              NCHW planes (a warp's atomics for one channel then fall on
+//              neighbouring addresses; on channels_last strides they spread
+//              over C times as many lines, 2.5x slower on the H100) and
+//              copies once into the image's layout and dtype;
+//   grad_flow: sum_c g_c * d out_c / d sx (and sy) over the four taps, in
+//              f32, times the border clamp's derivative: 1 inside, 0.5 at an
+//              exact bound (JAX's jnp.clip = min(max(x, lo), hi), whose
+//              derivative splits at a tie), 0 outside. In zeros mode a
+//              non-finite coordinate gives zero gradients, as the forward
+//              gives 0.
+// What bounds it on H100: memory. It reads grad_out, the image's taps and
+// the flow, and writes the f32 gradient (after a zero fill) and grad_flow;
+// the atomics go to the taps' addresses, which neighbouring pixels share for
+// smooth flow. This first version is a thread per output pixel with a
+// channel loop, any strides, and skips taps of weight 0.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -581,6 +606,191 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
+// ---- the backward kernel ------------------------------------------------------
+
+constexpr int kBackwardThreads = 256;
+
+// The derivative of jnp.clip(v, 0, hi) = min(max(v, 0), hi) as JAX takes it:
+// each of max and min gives 1 to the side that wins and 0.5 at a tie.
+__device__ __forceinline__ float clip_slope(float v, float hi) {
+  const float lo_side = v > 0.0f ? 1.0f : (v == 0.0f ? 0.5f : 0.0f);
+  const float m = v > 0.0f ? v : 0.0f;
+  const float hi_side = m < hi ? 1.0f : (m == hi ? 0.5f : 0.0f);
+  return lo_side * hi_side;
+}
+
+// The derivatives of the four tap weights by sx and by sy at output pixel
+// (x, y) under flow (fx, fy), with the border clamp's derivative folded in
+// (zero for a tap outside the frame in zeros mode, and for every tap of a
+// non-finite coordinate there): the backward's counterpart of
+// bilinear_taps, in the same f32 arithmetic.
+struct TapSlopes {
+  float dx00, dx01, dx10, dx11, dy00, dy01, dy10, dy11;
+};
+
+template <bool ZEROS>
+__device__ __forceinline__ TapSlopes bilinear_slopes(int64_t x, int64_t y,
+                                                     float fx, float fy,
+                                                     int64_t h, int64_t w) {
+  float sx = __fadd_rn(static_cast<float>(x), fx);
+  float sy = __fadd_rn(static_cast<float>(y), fy);
+  const float wm1 = static_cast<float>(w - 1);
+  const float hm1 = static_cast<float>(h - 1);
+  float cx = 1.0f, cy = 1.0f;
+  if (ZEROS) {
+    if (!(isfinite(sx) && isfinite(sy))) return TapSlopes{0, 0, 0, 0, 0, 0, 0, 0};
+    // the forward's +-2w / +-2h clamp moves no tap into the frame: its
+    // derivative meets only taps of weight 0
+    const float fw = static_cast<float>(w);
+    const float fh = static_cast<float>(h);
+    sx = fminf(fmaxf(sx, -2.0f * fw), 2.0f * fw);
+    sy = fminf(fmaxf(sy, -2.0f * fh), 2.0f * fh);
+  } else {
+    cx = clip_slope(sx, wm1);
+    cy = clip_slope(sy, hm1);
+    sx = sx < 0.0f ? 0.0f : (sx > wm1 ? wm1 : sx);
+    sy = sy < 0.0f ? 0.0f : (sy > hm1 ? hm1 : sy);
+  }
+  const float x0 = floorf(sx);
+  const float y0 = floorf(sy);
+  const float wx = __fsub_rn(sx, x0);
+  const float wy = __fsub_rn(sy, y0);
+  const float ux = __fsub_rn(1.0f, wx);
+  const float uy = __fsub_rn(1.0f, wy);
+  // w00 = ux uy, w01 = wx uy, w10 = ux wy, w11 = wx wy
+  TapSlopes s{-uy * cx, uy * cx, -wy * cx, wy * cx,
+              -ux * cy, -wx * cy, ux * cy, wx * cy};
+  if (ZEROS) {
+    const float x1 = __fadd_rn(x0, 1.0f);
+    const float y1 = __fadd_rn(y0, 1.0f);
+    const bool vx0 = x0 >= 0.0f && x0 <= wm1;
+    const bool vx1 = x1 >= 0.0f && x1 <= wm1;
+    const bool vy0 = y0 >= 0.0f && y0 <= hm1;
+    const bool vy1 = y1 >= 0.0f && y1 <= hm1;
+    if (!(vy0 && vx0)) s.dx00 = s.dy00 = 0.0f;
+    if (!(vy0 && vx1)) s.dx01 = s.dy01 = 0.0f;
+    if (!(vy1 && vx0)) s.dx10 = s.dy10 = 0.0f;
+    if (!(vy1 && vx1)) s.dx11 = s.dy11 = 0.0f;
+  }
+  return s;
+}
+
+// grid (ceil(n * h * w / kBackwardThreads)); a thread per output pixel, a
+// loop over its channels. grad_img (f32, zeroed by the caller) may be null:
+// the image then needs no gradient and only grad_flow is computed.
+template <typename TI, typename TF, bool ZEROS>
+__global__ void __launch_bounds__(kBackwardThreads)
+    warp_bilinear_backward_kernel(const TI* __restrict__ img,
+                                  const TF* __restrict__ flow,
+                                  const TI* __restrict__ grad_out,
+                                  float* __restrict__ grad_img,
+                                  TF* __restrict__ grad_flow, int64_t npix,
+                                  int64_t c, int64_t h, int64_t w, Strides si,
+                                  Strides sf, Strides sg, Strides sgi,
+                                  Strides sgf) {
+  const int64_t g =
+      static_cast<int64_t>(blockIdx.x) * kBackwardThreads + threadIdx.x;
+  if (g >= npix) return;
+  const int64_t row = g / w;
+  const int64_t x = g - row * w;
+  const int64_t b = row / h;
+  const int64_t y = row - b * h;
+
+  float fx, fy;
+  load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
+  // a tap's (row, column) packed into one offset, as K1 does, so the image
+  // and its gradient take their own strides
+  const Taps t = bilinear_taps<ZEROS>(x, y, fx, fy, h, w, kRowKey, 1);
+  const TapSlopes s = bilinear_slopes<ZEROS>(x, y, fx, fy, h, w);
+  const int64_t r0 = key_row(t.o00), r1 = key_row(t.o10);
+  const int64_t c0 = key_col(t.o00), c1 = key_col(t.o01);
+
+  const TI* ib = img + b * si.n;
+  const TI* p00 = ib + r0 * si.h + c0 * si.w;
+  const TI* p01 = ib + r0 * si.h + c1 * si.w;
+  const TI* p10 = ib + r1 * si.h + c0 * si.w;
+  const TI* p11 = ib + r1 * si.h + c1 * si.w;
+  const TI* go = grad_out + b * sg.n + y * sg.h + x * sg.w;
+  float* q00 = nullptr;
+  float* q01 = nullptr;
+  float* q10 = nullptr;
+  float* q11 = nullptr;
+  if (grad_img != nullptr) {
+    float* qb = grad_img + b * sgi.n;
+    q00 = qb + r0 * sgi.h + c0 * sgi.w;
+    q01 = qb + r0 * sgi.h + c1 * sgi.w;
+    q10 = qb + r1 * sgi.h + c0 * sgi.w;
+    q11 = qb + r1 * sgi.h + c1 * sgi.w;
+  }
+
+  float gx = 0.0f, gy = 0.0f;
+  for (int64_t ch = 0; ch < c; ++ch) {
+    const int64_t off = ch * si.c;
+    const float gc = load_f32(go + ch * sg.c);
+    const float a = load_f32(p00 + off);
+    const float bq = load_f32(p01 + off);
+    const float cq = load_f32(p10 + off);
+    const float d = load_f32(p11 + off);
+    gx += gc * (s.dx00 * a + s.dx01 * bq + s.dx10 * cq + s.dx11 * d);
+    gy += gc * (s.dy00 * a + s.dy01 * bq + s.dy10 * cq + s.dy11 * d);
+    if (grad_img != nullptr) {
+      const int64_t qo = ch * sgi.c;
+      if (t.w00 != 0.0f) atomicAdd(q00 + qo, gc * t.w00);
+      if (t.w01 != 0.0f) atomicAdd(q01 + qo, gc * t.w01);
+      if (t.w10 != 0.0f) atomicAdd(q10 + qo, gc * t.w10);
+      if (t.w11 != 0.0f) atomicAdd(q11 + qo, gc * t.w11);
+    }
+  }
+  TF* gf = grad_flow + b * sgf.n + y * sgf.h + x * sgf.w;
+  store_f32(gf, gx);
+  store_f32(gf + sgf.c, gy);
+}
+
+struct BackwardLaunch {
+  int64_t n, c, h, w;
+  Strides si, sf, sg, sgi, sgf;
+  cudaStream_t stream;
+};
+
+template <typename TI, typename TF>
+void launch_backward_typed(const void* img, const void* flow,
+                           const void* grad_out, float* grad_img,
+                           void* grad_flow, bool zeros,
+                           const BackwardLaunch& l) {
+  const int64_t npix = l.n * l.h * l.w;
+  const dim3 blocks(static_cast<unsigned int>((npix + kBackwardThreads - 1) / kBackwardThreads));
+  const TI* ip = static_cast<const TI*>(img);
+  const TF* fp = static_cast<const TF*>(flow);
+  const TI* gp = static_cast<const TI*>(grad_out);
+  TF* gfp = static_cast<TF*>(grad_flow);
+  if (zeros) {
+    warp_bilinear_backward_kernel<TI, TF, true><<<blocks, kBackwardThreads, 0, l.stream>>>(
+        ip, fp, gp, grad_img, gfp, npix, l.c, l.h, l.w, l.si, l.sf, l.sg, l.sgi, l.sgf);
+  } else {
+    warp_bilinear_backward_kernel<TI, TF, false><<<blocks, kBackwardThreads, 0, l.stream>>>(
+        ip, fp, gp, grad_img, gfp, npix, l.c, l.h, l.w, l.si, l.sf, l.sg, l.sgi, l.sgf);
+  }
+}
+
+template <typename TI>
+int launch_backward_flow(const void* img, const void* flow,
+                         const void* grad_out, float* grad_img,
+                         void* grad_flow, int flow_dtype, bool zeros,
+                         const BackwardLaunch& l) {
+  switch (flow_dtype) {
+    case kF32:
+      launch_backward_typed<TI, float>(img, flow, grad_out, grad_img, grad_flow, zeros, l);
+      return 0;
+    case kBF16:
+      launch_backward_typed<TI, __nv_bfloat16>(img, flow, grad_out, grad_img, grad_flow, zeros, l);
+      return 0;
+    case kF16:
+      launch_backward_typed<TI, __half>(img, flow, grad_out, grad_img, grad_flow, zeros, l);
+      return 0;
+  }
+  return -1;
+}
+
 struct Launch {
   int64_t n, c, h, w;
   Strides si, sf, so;
@@ -743,4 +953,51 @@ extern "C" int cfi_warp_bilinear_wide(
   return launch(img, flow, out, img_dtype, flow_dtype, zeros != 0, kWide,
                 make_launch(n, c, h, w, si_n, 1, si_h, si_w, sf_n, sf_c, sf_h,
                             sf_w, so_n, 1, so_h, so_w, stream));
+}
+
+// The warp's gradient: given `grad_out` (the forward output's gradient,
+// [n, c, h, w] in the image's dtype) for the warp of `img` by `flow`, adds
+// the image's gradient into `grad_img` (f32, [n, c, h, w], zeroed by the
+// caller; null when the image needs none) and writes the flow's into
+// `grad_flow` ([n, 2, h, w], the flow's dtype). Every tensor takes its own
+// element strides, in the order n, c, h, w. Same dtype codes and return
+// codes as cfi_warp_bilinear; -2 also when n * h * w exceeds the grid.
+extern "C" int cfi_warp_bilinear_backward(
+    const void* img, const void* flow, const void* grad_out, void* grad_img,
+    void* grad_flow, int img_dtype, int flow_dtype, int zeros, int64_t n,
+    int64_t c, int64_t h, int64_t w, int64_t si_n, int64_t si_c, int64_t si_h,
+    int64_t si_w, int64_t sf_n, int64_t sf_c, int64_t sf_h, int64_t sf_w,
+    int64_t sg_n, int64_t sg_c, int64_t sg_h, int64_t sg_w, int64_t sgi_n,
+    int64_t sgi_c, int64_t sgi_h, int64_t sgi_w, int64_t sgf_n, int64_t sgf_c,
+    int64_t sgf_h, int64_t sgf_w, void* stream) {
+  const int64_t npix = n * h * w;
+  if (npix == 0) return 0;
+  if ((npix + kBackwardThreads - 1) / kBackwardThreads > 0x7fffffff) return -2;
+  // K1's packed tap offsets hold a row and a column in 32 bits each
+  if (h > 0x7fffffff || w > 0x7fffffff) return -2;
+  const BackwardLaunch l{n, c, h, w,
+                         Strides{si_n, si_c, si_h, si_w},
+                         Strides{sf_n, sf_c, sf_h, sf_w},
+                         Strides{sg_n, sg_c, sg_h, sg_w},
+                         Strides{sgi_n, sgi_c, sgi_h, sgi_w},
+                         Strides{sgf_n, sgf_c, sgf_h, sgf_w},
+                         static_cast<cudaStream_t>(stream)};
+  float* gi = static_cast<float*>(grad_img);
+  const bool zm = zeros != 0;
+  int rc;
+  switch (img_dtype) {
+    case kF32:
+      rc = launch_backward_flow<float>(img, flow, grad_out, gi, grad_flow, flow_dtype, zm, l);
+      break;
+    case kBF16:
+      rc = launch_backward_flow<__nv_bfloat16>(img, flow, grad_out, gi, grad_flow, flow_dtype, zm, l);
+      break;
+    case kF16:
+      rc = launch_backward_flow<__half>(img, flow, grad_out, gi, grad_flow, flow_dtype, zm, l);
+      break;
+    default:
+      rc = -1;
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }

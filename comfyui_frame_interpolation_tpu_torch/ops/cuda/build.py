@@ -116,10 +116,15 @@ def ptxas_summary(log: str) -> List[str]:
     return [f"{k}: {', '.join(sorted(v, key=lambda e: int(e.split()[0])))}" for k, v in per_kernel.items()]
 
 
-def check_planes_and_flow(what: str, x: torch.Tensor, flow: torch.Tensor) -> None:
+def check_planes_and_flow(
+    what: str, x: torch.Tensor, flow: torch.Tensor, grad_hint: str = "its backward is still to port"
+) -> None:
     """Raise unless ``x`` ``[N, C, H, W]`` and ``flow`` ``[N, 2, H, W]`` are
     CUDA tensors on one device, of the kernels' dtypes, within their grid
-    limits, and need no gradient (the kernels have no backward yet)."""
+    limits, and need no gradient: a wrapper is not differentiable itself.
+    ``grad_hint`` says what to do instead: the warps have an autograd
+    Function (``warp_kernel.WarpFunction``, which hands the wrappers
+    detached tensors); the splat's backward is still to port."""
     if not (x.is_cuda and flow.is_cuda):
         raise ValueError(f"{what} runs on CUDA tensors, got {x.device} and {flow.device}")
     if x.device != flow.device:
@@ -134,4 +139,4 @@ def check_planes_and_flow(what: str, x: torch.Tensor, flow: torch.Tensor) -> Non
     if n > _GRID_LIMIT or h > _GRID_LIMIT:
         raise ValueError(f"{what}: batch {n} and height {h} must each be <= {_GRID_LIMIT}")
     if x.requires_grad or flow.requires_grad:
-        raise NotImplementedError(f"{what} has no backward yet")
+        raise NotImplementedError(f"{what} takes no input that needs a gradient: {grad_hint}")

@@ -50,7 +50,9 @@ def softsplat_bilinear(ten_in: torch.Tensor, flow: torch.Tensor) -> torch.Tensor
     gives ``ten_in``; the kernel launches on the current stream and nothing
     synchronises."""
     global launches
-    check_planes_and_flow("softsplat_bilinear", ten_in, flow)
+    check_planes_and_flow(
+        "softsplat_bilinear", ten_in, flow, "the splat's backward (its input and flow gradients) is still to port"
+    )
     n, c, h, w = ten_in.shape
     out = torch.zeros_like(ten_in, dtype=torch.float32)
     if out.numel() == 0:

@@ -15,33 +15,50 @@ PyTorch version of it is ``ops.warp.warp_torch``; ``ops.warp.warp`` takes
 the twin for CPU tensors and the kernel :func:`route` names for CUDA
 tensors.
 
-``launches`` counts the launches of K1 and ``wide_launches`` those of the
-wide kernel, so that a run can show which kernels its main path went
-through.
+:func:`warp_bilinear_backward` is the warp's gradient (``grad_img``,
+``grad_flow``) by a third kernel of ``csrc/warp.cu``, whichever kernel ran
+the forward; :class:`WarpFunction` joins a forward kernel and it for
+autograd, and ``ops.warp.warp`` takes it for every CUDA warp whose input
+needs a gradient. No Pallas kernel has a backward: the kernel stands for
+XLA's VJP of the gather in the JAX package's ``ops/warp.py:bilinear_sample``,
+and its plain version is ``ops.warp.warp_backward_torch``.
+
+``launches`` counts the launches of K1, ``wide_launches`` those of the
+wide kernel and ``backward_launches`` those of the backward kernel, so that
+a run can show which kernels its main path went through.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .build import DTYPE_CODES, check_planes_and_flow, load_library
 
 __all__ = [
     "WIDE_MIN_BYTES",
+    "WarpFunction",
+    "backward_launches",
     "launches",
     "route",
     "route_counts",
     "warp_bilinear",
+    "warp_bilinear_backward",
     "warp_bilinear_wide",
     "wide_launches",
 ]
 
 launches = 0
 wide_launches = 0
+backward_launches = 0
+
+# what a direct call of a forward wrapper with an input that needs a
+# gradient is told
+_GRAD_HINT = "call ops.warp.warp, whose autograd Function (WarpFunction) has the backward kernel"
 
 # a pixel of this many bytes or more, or of a whole number of 16-byte
 # vectors, takes the wide kernel (placed on an H100 by
@@ -79,11 +96,11 @@ def route_counts(channels: Sequence[int], dtype: torch.dtype) -> Dict[str, int]:
     return counts
 
 
-def _bind(name: str, n_int64: int):
+def _bind(name: str, n_int64: int, n_pointers: int = 3):
     fn = getattr(load_library("warp"), name)
     fn.restype = ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * n_int64 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 + [ctypes.c_int64] * n_int64 + [ctypes.c_void_p]
     return fn
 
 
@@ -95,6 +112,11 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _wide_kernel():
     return _bind("cfi_warp_bilinear_wide", 14)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_kernel():
+    return _bind("cfi_warp_bilinear_backward", 24, n_pointers=5)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -109,7 +131,7 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) ->
     ``img``. The kernel launches on the current stream and nothing
     synchronises."""
     global launches
-    check_planes_and_flow("warp_bilinear", img, flow)
+    check_planes_and_flow("warp_bilinear", img, flow, _GRAD_HINT)
     n, c, h, w = img.shape
     out = torch.empty_like(img)
     if out.numel() == 0:
@@ -142,7 +164,7 @@ def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = Fals
     element at a time. The output is a new ``channels_last`` tensor. The
     kernel launches on the current stream and nothing synchronises."""
     global wide_launches
-    check_planes_and_flow("warp_bilinear_wide", img, flow)
+    check_planes_and_flow("warp_bilinear_wide", img, flow, _GRAD_HINT)
     n, c, h, w = img.shape
     if c > 1 and img.stride(1) != 1:
         img = img.contiguous(memory_format=torch.channels_last)  # the one documented copy
@@ -161,3 +183,74 @@ def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = Fals
         raise RuntimeError(f"wide warp kernel launch failed: cfi_warp_bilinear_wide returned {rc}")
     wide_launches += 1
     return out
+
+
+def warp_bilinear_backward(
+    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, zeros: bool = False, img_grad: bool = True
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The gradient of the warp of ``img`` ``[N, C, H, W]`` by ``flow``
+    ``[N, 2, H, W]`` for the output's gradient ``grad_out`` ``[N, C, H, W]``
+    (``img``'s dtype): ``(grad_img, grad_flow)`` in the dtypes and shapes of
+    ``img`` and ``flow``. With ``img_grad=False`` the image's gradient is not
+    computed and ``grad_img`` is None.
+
+    Any strides for every input (an expanded ``grad_out`` too).
+    ``grad_img`` is summed with f32 atomics into a zeroed f32 buffer of NCHW
+    planes, where a warp's atomics for one channel fall on neighbouring
+    addresses (into a buffer of ``img``'s ``channels_last`` strides they
+    spread over C times as many cache lines: 2.5x slower on the H100), then
+    copied once into ``img``'s layout and dtype; ``grad_flow`` is summed per
+    pixel in f32. The kernel launches on the current stream and nothing
+    synchronises."""
+    global backward_launches
+    check_planes_and_flow("warp_bilinear_backward", img, flow)
+    if grad_out.shape != img.shape or grad_out.dtype != img.dtype or grad_out.device != img.device:
+        raise ValueError(
+            f"warp_bilinear_backward: grad_out must be {tuple(img.shape)} {img.dtype} on {img.device}, "
+            f"got {tuple(grad_out.shape)} {grad_out.dtype} on {grad_out.device}"
+        )
+    n, c, h, w = img.shape
+    gi = torch.zeros((n, c, h, w), dtype=torch.float32, device=img.device) if img_grad else None
+    gf = torch.empty_like(flow)
+    if img.numel() == 0:
+        return (None if gi is None else torch.zeros_like(img)), gf.zero_()
+    gi_strides = gi.stride() if gi is not None else (0, 0, 0, 0)
+    with torch.cuda.device(img.device):
+        rc = _backward_kernel()(
+            img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), 0 if gi is None else gi.data_ptr(), gf.data_ptr(),
+            DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
+            n, c, h, w, *img.stride(), *flow.stride(), *grad_out.stride(), *gi_strides, *gf.stride(),
+            _stream(img),
+        )
+    if rc != 0:
+        raise RuntimeError(f"warp backward kernel launch failed: cfi_warp_bilinear_backward returned {rc}")
+    backward_launches += 1
+    if gi is not None and not (img.dtype == torch.float32 and img.is_contiguous()):
+        gi = torch.empty_like(img).copy_(gi)
+    return gi, gf
+
+
+class WarpFunction(torch.autograd.Function):
+    """The warp of ``[N, C, H, W]`` planes by ``[N, 2, H, W]`` flow planes
+    with a gradient: the forward launches the kernel that :func:`route`
+    names (K1 or the wide kernel), the backward :func:`warp_bilinear_backward`.
+    Neither gives way to the plain twin: a kernel that does not build or
+    launch raises."""
+
+    @staticmethod
+    def forward(ctx, img: torch.Tensor, flow: torch.Tensor, zeros: bool, prefer_wide: bool) -> torch.Tensor:
+        ctx.save_for_backward(img, flow)
+        ctx.zeros = zeros
+        # the forward wrappers take no input that needs a gradient: this
+        # Function is what differentiates them
+        x, f = img.detach(), flow.detach()
+        if route(x.shape, x.stride(), x.dtype, prefer_wide) == "wide":
+            return warp_bilinear_wide(x, f, zeros)
+        return warp_bilinear(x, f, zeros)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out: torch.Tensor):
+        img, flow = (t.detach() for t in ctx.saved_tensors)
+        grad_img, grad_flow = warp_bilinear_backward(img, flow, grad_out, ctx.zeros, ctx.needs_input_grad[0])
+        return grad_img, (grad_flow if ctx.needs_input_grad[1] else None), None, None

@@ -27,6 +27,15 @@ and unlike JAX the flag applies to every dtype. The twin also runs on CUDA
 tensors when called directly, which is how the kernels are checked on the
 card.
 
+With a gradient: a CUDA warp whose image or flow needs one (grad mode on)
+goes through ``ops.cuda.warp_kernel.WarpFunction``, whose forward is the
+routed kernel and whose backward is the hand-written backward kernel; a CPU
+warp differentiates the twin by autograd. :func:`warp_backward_torch` is the
+backward kernel's plain version. The border clamp takes JAX's derivative at
+an exact bound (0.5: ``jnp.clip`` is a ``max`` then a ``min``, each of which
+splits a tie), where ``torch.clamp`` would give 1; zero flow on the first or
+last row or column lands exactly on a bound.
+
 One deliberate difference from the JAX ``warp_xla``: in zeros mode a
 non-finite coordinate samples nothing (output 0), as the Pallas kernel does,
 where ``warp_xla`` propagates NaN. Coordinates are also clamped to
@@ -36,10 +45,19 @@ the frame) and keeps the float-to-int conversion defined.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ["warp", "warp_torch", "bicubic_sample", "bilinear_sample", "grid_sample"]
+__all__ = ["warp", "warp_torch", "warp_backward_torch", "bicubic_sample", "bilinear_sample", "grid_sample"]
+
+
+def _clip(v: torch.Tensor, hi: float) -> torch.Tensor:
+    """``v`` clamped to ``[0, hi]`` as JAX's ``jnp.clip`` is, a ``max`` then a
+    ``min``: the same values as ``clamp`` (NaN stays NaN), and the derivative
+    0.5 at an exact bound, where ``clamp``'s is 1."""
+    return torch.minimum(torch.maximum(v, v.new_zeros(())), v.new_full((), hi))
 
 
 def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
@@ -64,8 +82,8 @@ def bilinear_sample(
     sx = sx.float()
     sy = sy.float()
     if padding_mode == "border":
-        sx = sx.clamp(0.0, w - 1.0)
-        sy = sy.clamp(0.0, h - 1.0)
+        sx = _clip(sx, w - 1.0)
+        sy = _clip(sy, h - 1.0)
     elif padding_mode == "zeros":
         finite = torch.isfinite(sx) & torch.isfinite(sy)
         sx = torch.where(finite, sx, -4.0 * w).clamp(-2.0 * w, 2.0 * w)
@@ -117,6 +135,23 @@ def warp_torch(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "borde
     return bilinear_sample(img, gx + flow[..., 0].float(), gy + flow[..., 1].float(), padding_mode)
 
 
+def warp_backward_torch(
+    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, padding_mode: str = "border"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's plain version: ``(grad_img, grad_flow)`` of
+    :func:`warp_torch` for the output's gradient ``grad_out`` (NHWC, like
+    ``img``), by ``torch.autograd.grad``. bf16/f16 inputs are taken to f32
+    first and the gradients cast once to the inputs' dtypes, as the kernel
+    sums in f32 and rounds once (autograd through a bf16 twin would sum
+    the image's gradient in bf16)."""
+    with torch.enable_grad():
+        x = img.detach().float().requires_grad_()
+        f = flow.detach().float().requires_grad_()
+        out = warp_torch(x, f, padding_mode)
+        gi, gf = torch.autograd.grad(out, (x, f), grad_out.float())
+    return gi.to(img.dtype), gf.to(flow.dtype)
+
+
 def warp(
     img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border", prefer_wide: bool = False
 ) -> torch.Tensor:
@@ -124,8 +159,11 @@ def warp(
 
     CUDA tensors launch the Hopper kernel that
     ``ops.cuda.warp_kernel.route`` names for their shape, strides, dtype and
-    ``prefer_wide``. CPU tensors take the plain twin; any other device raises.
-    There is no fallback from a kernel to the twin or to another kernel."""
+    ``prefer_wide``; when grad mode is on and ``img`` or ``flow`` needs a
+    gradient, through ``warp_kernel.WarpFunction``, whose backward is the
+    backward kernel. CPU tensors take the plain twin (autograd differentiates
+    it); any other device raises. There is no fallback from a kernel to the
+    twin or to another kernel."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unsupported padding_mode {padding_mode}")
     if img.device.type == "cuda":
@@ -133,6 +171,11 @@ def warp(
 
         planes, flow_planes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
         zeros = padding_mode == "zeros"
+        if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
+            return warp_kernel.WarpFunction.apply(planes, flow_planes, zeros, prefer_wide).permute(0, 2, 3, 1)
+        # no gradient is taken (grad mode off, or no input needs one): the
+        # wrappers get detached views, as they refuse inputs that need one
+        planes, flow_planes = planes.detach(), flow_planes.detach()
         if warp_kernel.route(planes.shape, planes.stride(), planes.dtype, prefer_wide) == "wide":
             out = warp_kernel.warp_bilinear_wide(planes, flow_planes, zeros)
         else:

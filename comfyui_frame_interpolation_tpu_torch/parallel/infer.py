@@ -1,0 +1,95 @@
+"""Multi-device inference: wrap an executor-shaped model callable for a mesh,
+PyTorch port of the JAX package's ``parallel/infer.py``.
+
+The JAX version jits one callable over the mesh and lets GSPMD split it. A
+torch model callable is bound to the device its weights are on, so here each
+wrapper takes a factory, ``make_fn(device)``, built once per distinct device
+of the mesh's ``data`` axis (logical replicas of one device share one), and
+splits the work itself: every batch argument is cut into ``data`` equal
+shards along its first dimension, shard ``i`` runs on the ``i``-th data
+device, and the outputs are concatenated on the first one. The executors
+then slice along the batch, as they do with one device. Launches are
+asynchronous, so shards on different cards overlap.
+
+A mesh of one data shard takes the same path, with one shard of the whole
+batch: the same result, bit for bit, as calling the model unwrapped. A batch
+that :func:`~.mesh.frame_sharding` would split over ``space`` raises
+(:func:`~.mesh.check_runnable`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from .mesh import Mesh, check_runnable
+
+__all__ = ["make_sharded_model_fn", "make_sharded_pair_fns"]
+
+
+def _per_device(make_fn: Callable[[torch.device], Any], mesh: Mesh) -> List[Any]:
+    """``make_fn(device)`` for each data shard, built once per distinct device."""
+    built: Dict[torch.device, Any] = {}
+    for d in mesh.data_devices():
+        if d not in built:
+            built[d] = make_fn(d)
+    return [built[d] for d in mesh.data_devices()]
+
+
+def _split(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+    """``x`` cut into the mesh's data shards along its first dimension, each
+    on its shard's device."""
+    return [part.to(d) for part, d in zip(torch.chunk(x, mesh.shape["data"]), mesh.data_devices())]
+
+
+def _gather(parts: List[torch.Tensor], mesh: Mesh) -> torch.Tensor:
+    """The shards' outputs concatenated on the first data device."""
+    first = mesh.data_devices()[0]
+    return torch.cat([p.to(first) for p in parts], 0)
+
+
+def make_sharded_model_fn(make_fn: Callable[[torch.device], Callable], mesh: Mesh) -> Callable:
+    """``model_fn(*args) -> frames`` run split over ``mesh``'s ``data`` axis.
+
+    ``make_fn(device)`` returns the model callable on ``device`` (for example
+    ``lambda d: rife.make_model_fn(params, "4.7", device=d)``): positional
+    NHWC batches, ``model_fn(f0, f1, t)`` for :func:`core.run_plan` or
+    ``model_fn(f0, f1, f2, f3)`` for :func:`core.run_plan_window4`. Every
+    argument (the ``[B]`` timestep vector too) is split along its first
+    dimension, which must be a multiple of ``mesh.shape['data']`` (pick an
+    executor ``batch_size`` that is)."""
+    fns = _per_device(make_fn, mesh)
+
+    def sharded_fn(*args):
+        check_runnable(mesh, next((a.shape for a in args if a.dim() == 4), (args[0].shape[0], 0, 0, 0)))
+        shards = zip(*(_split(a, mesh) for a in args))
+        return _gather([fn(*part) for fn, part in zip(fns, shards)], mesh)
+
+    return sharded_fn
+
+
+def make_sharded_pair_fns(make_pair_fns: Callable[[torch.device], Tuple[Callable, Callable]], mesh: Mesh) -> tuple:
+    """Split a ``run_plan_pair_cached`` ``(reuse_fn, infer_fn)`` pair over
+    ``mesh``'s ``data`` axis.
+
+    ``make_pair_fns(device)`` returns the pair on ``device`` (for example
+    ``lambda d: m2m.make_pair_fns(params, device=d)``). Returns
+    ``(sharded_reuse, sharded_infer)`` with the executor's signatures
+    (``reuse_fn(f0, f1) -> cache``, ``infer_fn(f0, f1, cache, t) -> mids``).
+    The cache, whose structure only the model knows, is the tuple of the
+    shards' own caches: each holds the per-pair tensors of its shard of the
+    batch, on its device, and goes back to the same shard's ``infer_fn``. The
+    executor's ``batch_size`` must be a multiple of ``mesh.shape['data']``."""
+    pairs = _per_device(make_pair_fns, mesh)
+
+    def sharded_reuse(f0, f1):
+        check_runnable(mesh, f0.shape)
+        return tuple(reuse(a, b) for (reuse, _), a, b in zip(pairs, _split(f0, mesh), _split(f1, mesh)))
+
+    def sharded_infer(f0, f1, cache, t):
+        check_runnable(mesh, f0.shape)
+        parts = zip(pairs, _split(f0, mesh), _split(f1, mesh), cache, _split(t, mesh))
+        return _gather([infer(a, b, c, tt) for (_, infer), a, b, c, tt in parts], mesh)
+
+    return sharded_reuse, sharded_infer

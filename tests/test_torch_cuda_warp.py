@@ -60,6 +60,21 @@ features ``[2, 544, 960, 64]``, the frames and the ones planes; X4K batch 2
 (padded to 1536x2048): the features at 1/4 to 1/64. An ATM forward
 launches the warps of ``atm.warps_per_forward`` (XVFI's counts are held in
 ``tests/test_torch_cuda_softsplat.py``).
+
+The backward kernel (``warp_kernel.warp_bilinear_backward``) against its
+plain version ``ops.warp.warp_backward_torch`` on every flow case, border
+and zeros, f32, bf16 and f16 (flow in f32), on samples exactly on each bound
+(the clamp's derivative 0.5), on the wide cases as ``channels_last`` views
+(a channel slice among them) and with ``img_grad=False``. Tolerances: f32
+within 1e-5 of each gradient's largest magnitude plus 1e-6 (the image's
+gradient sums with f32 atomics, in an order that changes from run to run,
+and so does the plain version's scatter; the flow's sums its channels in
+another order); bf16/f16 within one ulp of the plain value plus that.
+``WarpFunction`` through ``ops.warp.warp``: the forward kernel that
+``route`` names and the backward kernel launched once each, the gradients
+of both inputs (and of the flow alone) equal to the plain version's, an
+expanded output gradient taken as it is; and one RIFE 4.7 training step
+launches K1 4 times and the backward kernel 4 times.
 """
 
 import numpy as np
@@ -67,9 +82,10 @@ import pytest
 import torch
 
 import warp_cases
+from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.models import atm, film, rife
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
-from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_torch
+from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_backward_torch, warp_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -429,3 +445,126 @@ def test_atm_forward_launches(cuda, variant, global_motion, ensemble):
     got = {"narrow": warp_kernel.launches - before[0], "wide": warp_kernel.wide_launches - before[1]}
     assert got == atm.warps_per_forward(variant, global_motion, ensemble, torch.bfloat16)
     assert out.shape == (1, 128, 192, 3) and torch.isfinite(out).all()
+
+
+# ---- the backward kernel ---------------------------------------------------
+
+MANTISSA_BITS = {torch.bfloat16: 8, torch.float16: 11}
+
+
+def _ulp(r, dtype):
+    """One ulp of each value of ``r`` in ``dtype`` (0 for f32)."""
+    if dtype not in MANTISSA_BITS:
+        return torch.zeros_like(r)
+    _, exp = torch.frexp(r.abs())
+    return torch.ldexp(torch.ones_like(r), exp - MANTISSA_BITS[dtype])
+
+
+def _assert_grad_close(got, ref, dtype):
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    g, r = got.float(), ref.float()
+    tol = 1e-5 * float(r.abs().max()) + 1e-6 + _ulp(r, dtype)
+    assert bool(((g - r).abs() <= tol).all()), float((g - r).abs().max())
+
+
+def _backward_vs_plain(img, flow, mode, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    grad_out = (torch.rand(img.shape, generator=g) * 2 - 1).to(img.device, img.dtype)
+    before = warp_kernel.backward_launches
+    gi, gf = warp_kernel.warp_bilinear_backward(
+        img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2), mode == "zeros"
+    )
+    ri, rf = warp_backward_torch(img, flow, grad_out, mode)
+    assert warp_kernel.backward_launches == before + 1
+    _assert_grad_close(gi.permute(0, 2, 3, 1), ri, img.dtype)
+    _assert_grad_close(gf.permute(0, 2, 3, 1), rf, flow.dtype)
+    return gf.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name,mode", CASE_MODES)
+def test_backward_kernel_matches_plain(cuda, name, mode, dtype):
+    case = next(c for c in CASES if c["name"] == name)
+    img = torch.from_numpy(case["img"]).to(cuda, dtype)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    gf = _backward_vs_plain(img, flow, mode)
+    if mode == "zeros":
+        assert bool((gf[~torch.isfinite(flow).all(-1)] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_backward_kernel_on_exact_bounds(cuda, mode, dtype):
+    img = torch.rand(2, 64, 96, 7, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    flow = torch.from_numpy(warp_cases.bound_flow(2, 64, 96)).to(cuda)
+    _backward_vs_plain(img, flow, mode, seed=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,mode", WIDE_MODES)
+def test_backward_kernel_on_wide_views(cuda, name, mode, dtype):
+    img, flow = _wide_case(name, cuda, dtype)
+    _backward_vs_plain(img, flow, mode, seed=2)
+
+
+def test_backward_kernel_without_the_image_gradient(cuda):
+    case = CASES[1]
+    img = torch.from_numpy(case["img"]).to(cuda)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    grad_out = torch.rand(img.shape, device=cuda) - 0.5
+    args = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2)
+    gi, gf = warp_kernel.warp_bilinear_backward(*args, img_grad=False)
+    _, ref = warp_kernel.warp_bilinear_backward(*args)
+    torch.cuda.synchronize()
+    assert gi is None and torch.equal(gf, ref)
+
+
+@pytest.mark.parametrize("shape,prefer_wide,body", [((2, 64, 96, 7), False, "tiled"), ((2, 64, 96, 64), True, "wide")])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_warp_function_through_warp(cuda, shape, prefer_wide, body, mode):
+    gen = torch.Generator().manual_seed(3)
+    img = torch.rand(shape, generator=gen).to(cuda)
+    flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], 4.0, 10.0)).to(cuda)
+    grad_out = (torch.rand(shape, generator=gen) - 0.5).to(cuda)
+    counts = lambda: (warp_kernel.launches, warp_kernel.wide_launches, warp_kernel.backward_launches)  # noqa: E731
+    before = counts()
+    x, f = img.clone().requires_grad_(), flow.clone().requires_grad_()
+    gi, gf = torch.autograd.grad(warp(x, f, mode, prefer_wide=prefer_wide), (x, f), grad_out)
+    assert tuple(a - b for a, b in zip(counts(), before)) == ((1, 0, 1) if body == "tiled" else (0, 1, 1))
+    ri, rf = warp_backward_torch(img, flow, grad_out, mode)
+    _assert_grad_close(gi, ri, torch.float32)
+    _assert_grad_close(gf, rf, torch.float32)
+    # the flow alone needs a gradient (the frames of a RIFE forward); an
+    # expanded output gradient (out.sum()) is taken with its zero strides
+    f = flow.clone().requires_grad_()
+    warp(img, f, mode, prefer_wide=prefer_wide).sum().backward()
+    _, rf1 = warp_backward_torch(img, flow, torch.ones_like(img), mode)
+    _assert_grad_close(f.grad, rf1, torch.float32)
+
+
+def test_warp_without_grad_skips_warp_function(cuda):
+    img = torch.rand(1, 32, 64, 7, device=cuda, requires_grad=True)
+    flow = torch.zeros(1, 32, 64, 2, device=cuda)
+    before = warp_kernel.backward_launches
+    with torch.no_grad():
+        out = warp(img, flow)
+    assert out.grad_fn is None and warp_kernel.backward_launches == before
+
+
+def test_rife_train_step_launches_four_k1_and_four_backward(cuda):
+    net = rife.IFNet("4.7")
+    net.load_state_dict(rife.init_params(0, "4.7"))
+    net = net.to(cuda, memory_format=torch.channels_last)
+    mesh = parallel.make_mesh(1)
+    step = parallel.make_train_step(
+        lambda n, a, b, t: rife.apply(n, a, b, t, rife.default_scale_list("4.7")),
+        torch.optim.Adam(net.parameters(), lr=1e-4), mesh, net,
+    )
+    f = torch.rand(2, 64, 128, 3, device=cuda)
+    before = warp_kernel.launches, warp_kernel.wide_launches, warp_kernel.backward_launches
+    loss = step(f, f.flip(2), torch.full((2,), 0.5, device=cuda), (f + f.flip(2)) / 2)
+    torch.cuda.synchronize()
+    after = warp_kernel.launches, warp_kernel.wide_launches, warp_kernel.backward_launches
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 0, 4)
+    assert bool(torch.isfinite(loss))

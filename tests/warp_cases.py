@@ -22,6 +22,9 @@ width for each vector the kernel picks in bf16 where those lack one (C = 18:
 time), a C that is no multiple of 8, a channel slice whose taps start off 16
 bytes, extreme and non-finite flow.
 
+:func:`bound_flow` puts samples exactly on each bound of the frame, where
+the border clamp's derivative is JAX's 0.5, for the warp's gradient.
+
 :func:`splat_cases` re-creates the splat cases of
 ``tests/test_pallas_kernels.py:215-319``: smooth flow, the constant
 displacements that took the extra bands and the corners of the single-band
@@ -121,6 +124,22 @@ def warp_cases(seed: int, h: int, w: int) -> List[Dict]:
         )
         for c in M2M_CHANNELS
     ]
+
+
+def bound_flow(b: int, h: int, w: int) -> np.ndarray:
+    """``[b, h, w, 2]`` flow whose samples lie exactly on a bound of the
+    frame: zero flow in the first fifth of the rows (the frame's own first
+    and last columns, and row 0), then bands of rows sent to x = 0, x = w - 1,
+    y = 0 (with x off the pixel grid) and y = h - 1."""
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    flow = np.zeros((h, w, 2), np.float32)
+    q = h // 5
+    flow[q : 2 * q, :, 0] = -gx[q : 2 * q]
+    flow[2 * q : 3 * q, :, 0] = (w - 1) - gx[2 * q : 3 * q]
+    flow[3 * q : 4 * q, :, 1] = -gy[3 * q : 4 * q]
+    flow[3 * q : 4 * q, :, 0] = 0.25
+    flow[4 * q :, :, 1] = (h - 1) - gy[4 * q :]
+    return np.broadcast_to(flow, (b, h, w, 2)).copy()
 
 
 # bf16 vectors: 16 bytes at C = 16, 24, 32, 64, 192, 448, 960; 8 at 20, 36,
