@@ -331,10 +331,17 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
 48. backward  -- the warp's backward kernel (``warp_bilinear_backward``)
    against its plain version (``ops.warp.warp_backward_torch``) on the card:
    the flow cases of ``tests/warp_cases.py`` at 256x512 and samples exactly
-   on each bound (border and zeros, f32 and bf16), the wide widths C = 16 to
-   384 as ``channels_last`` views (a channel slice among them), and the four
-   backward launches of one RIFE 4.7 training step at phase 50's size, as
-   the step hands them over. Tolerances: the image's gradient within 1e-5
+   on each bound (border and zeros, f32 and bf16); the cases its merges of
+   neighbouring taps and its padded channels could break
+   (``warp_cases.backward_cases``: C = 1 to 40, ragged 68x92 and 137x261
+   frames, integer and half-pixel constant offsets, rough and
+   discontinuous flow, a pile of 256 samples on each tap), each also
+   without the image's gradient (the flow's bit for bit the same); NCHW
+   planes, a channel slice with an odd start and an expanded ``grad_out``
+   at C = 7 and 8; the wide widths C = 16 to 384 as ``channels_last`` views
+   (a channel slice among them), and the four backward launches of one RIFE
+   4.7 training step at phase 50's size, as the step hands them over.
+   Tolerances: the image's gradient within 1e-5
    of the sum of each pixel's absolute contributions plus 1e-6 (f32
    atomics in changing order, in both versions), the flow's within 1e-5 of
    its largest magnitude plus 1e-6 (channel sums in another order); bf16 one
@@ -363,9 +370,11 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    with the windows' spread and whether it resolves the two dtypes apart;
    the peak memory of one step, a ``torch.profiler`` top 10 of one f32 step
    with the idle share and the backward kernel's device ms and share; at
-   the step's warp shape ``[32, 256, 256, 7]`` and at ``[16, 1088, 1920, 7]``
-   f32 the backward kernel's ms, its device ms, its bound (grad_out, img and
-   flow read once, grad_img and grad_flow written once in their dtypes),
+   the step's warp shapes, ``[32, 256, 256, 7]`` f32 and bf16 and ``[32,
+   256, 256, 3]`` f32 without the image's gradient, and at ``[16, 1088,
+   1920, 7]`` f32 (the flow in the image's dtype) the backward op's ms, the
+   kernel's device ms, its bound (grad_out, img and flow read once, grad_img
+   and grad_flow written once in their dtypes),
    ``aten.grid_sampler_2d_backward``'s ms (the library yardstick, which the
    port never calls) and the plain version's ms, in turns;
 51. parallel  -- ``parallel.make_mesh()`` on the card (1 x 1 on one card);
@@ -398,7 +407,10 @@ PyTorch call computes), its bound: the larger of the bytes it must move
 (inputs once, output once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, with which of the two bounds it; and ``per_forward``, per path the
 launches, device ms, bound and ms above it of one bf16 forward at each
-path's timed size (1080p; EISAI 540p). The new paths' warp shapes are
+path's timed size (1080p; EISAI 540p); K1's entries also hold
+``F.grid_sample``'s device ms for the same launches (``library_ms``, and
+by layout with each layout's bound: the forward's recorded launches
+replayed on random values and smooth flow). The new paths' warp shapes are
 under ``ifrnet_ifunet_amt_shapes`` and ``atm_xvfi_shapes`` (K1) and
 ``by_shape`` (wide, every main-path shape), XVFI's splat under
 ``xvfi_shapes``, and each profile's ``per_forward`` entry lists the
@@ -410,7 +422,7 @@ runs of phase 44 under ``launches_by_path`` as ``rife_streaming`` and
 FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
-(``library_ms``), ``by_shape`` (the training step's warp shape too),
+(``library_ms``), ``by_shape`` (phase 50's four rows),
 ``per_step`` (one f32 training step's launches, device ms and bound) and
 ``training`` (phase 50's rows).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
@@ -642,20 +654,15 @@ def backward_vs_plain(img, flow, mode, what, grad_out=None, seed=0):
     return err_i, err_f
 
 
-def grid_sample_backward_call(img, flow, grad_out, padding_mode="border"):
+def grid_sample_backward_call(img, flow, grad_out, padding_mode="border", img_grad=True):
     """``aten.grid_sampler_2d_backward`` computing the warp's gradients of
     NHWC ``img`` by ``flow`` for ``grad_out`` on a precomputed grid
-    (``align_corners=True``), in the layout the path holds: the library
-    yardstick, which the port never calls."""
-    import torch
+    (``align_corners=True``; the grid's alone without ``img_grad``), in the
+    layout the path holds: the library yardstick, which the port never
+    calls."""
+    from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import library_backward
 
-    planes, gplanes = img.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2)
-    n, _, h, w = planes.shape
-    gx = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
-    gy = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
-    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1).to(img.dtype)
-    pad = 0 if padding_mode == "zeros" else 1
-    return lambda: torch.ops.aten.grid_sampler_2d_backward(gplanes, planes, grid, 0, pad, True, [True, True])
+    return library_backward(img, flow, grad_out, padding_mode == "zeros", img_grad)
 
 
 def rife_trainer(device, dtype, mesh=None):
@@ -851,6 +858,33 @@ def grid_sample_call(img, flow, padding_mode="border"):
     from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import grid_sample_planes
 
     return grid_sample_planes(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), padding_mode == "zeros")
+
+
+def library_per_forward(layouts, generator, dev):
+    """``F.grid_sample``'s device ms for one forward's launches of a warp
+    kernel, replayed from a ``per_forward`` entry's ``launch_layouts`` (each
+    layout's shape, strides, start offset and dtypes) on random values and
+    smooth flow (amplitude 6 px): ``(total ms, [per layout: shape, dtype,
+    launches, bound_ms, library_ms of one launch])``."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import grid_sample_planes, smooth_flow, strided_like
+
+    total, rows = 0.0, []
+    for lay in layouts:
+        n, h, w, c = lay["shape"]
+        dtype, fdtype = getattr(torch, lay["dtype"]), getattr(torch, lay["flow_dtype"])
+        values = torch.rand((n, c, h, w), generator=generator).to(dev, dtype)
+        planes = strided_like((n, c, h, w), lay["strides"], lay["offset"], dtype, dev, values)
+        flow = torch.from_numpy(smooth_flow(n, h, w, 6.0)).to(dev, fdtype).permute(0, 3, 1, 2)
+        fplanes = strided_like((n, 2, h, w), lay["flow_strides"], 0, fdtype, dev, flow)
+        # all the call's kernels: F.grid_sample takes cuDNN's sampler for some
+        # f32 inputs, PyTorch's own for the rest
+        ms = device_ms(grid_sample_planes(planes, fplanes, lay["zeros"]), 20)
+        total += lay["launches"] * ms
+        rows.append({"shape": lay["shape"], "dtype": lay["dtype"], "launches": lay["launches"],
+                     "bound_ms": bound(*warp_work(planes, fplanes))[0], "library_ms": ms})
+        del values, planes, flow, fplanes
+    return total, rows
 
 
 def bf16_ulp_ok(got, ref):
@@ -3192,6 +3226,40 @@ def main() -> int:
             img = torch.rand(2, 256, 512, 7, generator=g).to(dev, dtype)
             worst(f"exact bounds {str(dtype).split('.')[-1]}", backward_vs_plain(img, bflow, mode, "exact bounds"))
             n_bwd += 1
+    # what the merges of neighbouring taps and the padded channels could
+    # break: C = 1-40, ragged tiles, constant offsets (every neighbour
+    # merges), rough flow (few do), a pile of 256 samples on each tap; each
+    # also without the image's gradient (the flow's bit for bit the same)
+    for case in warp_cases.backward_cases(0, 256, 512):
+        for mode in case["modes"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                img = torch.from_numpy(case["img"]).to(dev, dtype)
+                bflow = torch.from_numpy(case["flow"]).to(dev)
+                gout = (torch.rand(img.shape, generator=g) * 2 - 1).to(dev, dtype)
+                worst(f"backward cases {str(dtype).split('.')[-1]}", backward_vs_plain(img, bflow, mode, case["name"], grad_out=gout))
+                args = img.permute(0, 3, 1, 2), bflow.permute(0, 3, 1, 2), gout.permute(0, 3, 1, 2), mode == "zeros"
+                gi_none, gf_alone = warp_kernel.warp_bilinear_backward(*args, img_grad=False)
+                check(gi_none is None and torch.equal(gf_alone, warp_kernel.warp_bilinear_backward(*args)[1]),
+                      f"backward {case['name']} {mode} {dtype}: the flow's gradient without the image's differs")
+                n_bwd += 2
+    # layouts: NCHW planes, a channel slice with an odd start, an expanded
+    # output gradient (the vector widths each allows)
+    for c in (7, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            img = torch.rand(2, 256, 512, c, generator=g).to(dev, dtype)
+            lflow = torch.from_numpy(warp_cases.smooth_flow(2, 256, 512, 6.0)).to(dev)
+            gout = (torch.rand(img.shape, generator=g) * 2 - 1).to(dev, dtype)
+            sliced = torch.zeros(2, 256, 512, c + 1, dtype=dtype, device=dev)
+            sliced[..., 1:] = img
+            layouts = {
+                "nchw planes": (img.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), gout.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)),
+                "odd channel slice": (sliced[..., 1:], gout),
+                "expanded grad_out": (img, gout[:1, :1, :1].expand(img.shape)),
+            }
+            for what, (limg, lgout) in layouts.items():
+                for mode in ("border", "zeros"):
+                    worst(f"layouts {str(dtype).split('.')[-1]}", backward_vs_plain(limg, lflow, mode, f"{what} C = {c}", grad_out=lgout))
+                    n_bwd += 1
     for case in warp_cases.wide_cases(0, 128, 256, channels=(16, 32, 64, 192, 384)):
         for mode in case["modes"]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -3224,7 +3292,9 @@ def main() -> int:
     bwd_err = max(e for k, v in bwd_errs.items() if "float32" in k or k == "training step" for e in v)
     print(
         f"backward: {n_bwd} runs of the backward kernel against warp_backward_torch (flow cases at 256x512, exact bounds, "
-        f"wide C = 16-384 as channels_last views, the training step's {sorted(step_shapes)}), all within tolerance; max abs "
+        f"the backward cases (C = 1-40, ragged tiles, constant offsets, rough flow, a pile; each also without the image's "
+        f"gradient), NCHW planes, an odd channel slice, an expanded grad_out, wide C = 16-384 as channels_last views, the "
+        f"training step's {sorted(step_shapes)}), all within tolerance; max abs "
         f"err (grad_img, grad_flow): " + ", ".join(f"{k} ({a:.3g}, {b:.3g})" for k, (a, b) in bwd_errs.items())
         + f"; phase {time.perf_counter() - t0:.1f} s",
         flush=True,
@@ -3397,26 +3467,34 @@ def main() -> int:
     )
     del trainers, step, batch50
     bwd_times = {}
-    for shape in (TRAIN_WARP_SHAPE, MAIN_SHAPE):
-        bimg = torch.rand(shape, generator=g).to(dev)
-        bflow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
-        bgrad = (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+    # the step's warps (f32 and bf16; the fourth, of the frames, without the
+    # image's gradient) and a batch-8 1080p RIFE warp; the flow in the
+    # image's dtype, as the training steps give it
+    for shape, dtype, img_grad in (
+        (TRAIN_WARP_SHAPE, torch.float32, True), (TRAIN_WARP_SHAPE, torch.bfloat16, True),
+        (TRAIN_WARP_SHAPE[:3] + (3,), torch.float32, False), (MAIN_SHAPE, torch.float32, True),
+    ):
+        dname = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        bimg = torch.rand(shape, generator=g).to(dev, dtype)
+        bflow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev, dtype)
+        bgrad = (torch.rand(shape, generator=g) * 2 - 1).to(dev, dtype)
         err = backward_vs_plain(bimg, bflow, "border", "timing shape", grad_out=bgrad)
-        args = (bimg.permute(0, 3, 1, 2), bflow.permute(0, 3, 1, 2), bgrad.permute(0, 3, 1, 2))
+        args = (bimg.permute(0, 3, 1, 2), bflow.permute(0, 3, 1, 2), bgrad.permute(0, 3, 1, 2), False, img_grad)
         times = in_turns({
             "plain": (lambda: warp_backward_torch(bimg, bflow, bgrad), 3),
             "kernel": (lambda: warp_kernel.warp_bilinear_backward(*args), 20),
-            "grid_sampler_2d_backward": (grid_sample_backward_call(bimg, bflow, bgrad), 10),
+            "grid_sampler_2d_backward": (grid_sample_backward_call(bimg, bflow, bgrad, img_grad=img_grad), 10),
         })
         ms = {k: statistics.mean(v) for k, v in times.items()}
         dev_kernel = device_ms(lambda: warp_kernel.warp_bilinear_backward(*args), 20, name="warp_bilinear_backward_kernel")
-        b = bound(*backward_work(*args[:2]))
-        bwd_times[f"{list(shape)} f32 border"] = {
+        b = bound(*backward_work(*args[:2], img_grad=img_grad))
+        key = f"{list(shape)} {dname} border" + ("" if img_grad else ", no image gradient")
+        bwd_times[key] = {
             "ms": ms["kernel"], "kernel_device_ms": dev_kernel, "plain_ms": ms["plain"],
             "library_ms": ms["grid_sampler_2d_backward"], "bound_ms": b[0], "bound_by": b[1], "max_abs_err": max(err),
         }
         print(
-            f"timing {card}: backward {list(shape)} f32, f32 flow, border: "
+            f"timing {card}: backward {key}, {dname} flow: "
             + ", ".join(f"{k} {ms[k]:.4f} ms {v}" for k, v in times.items())
             + f"; the kernel alone {dev_kernel:.4f} ms on the device; bound {b[0]:.4f} ms ({b[1]}), the op at "
             f"{100 * b[0] / ms['kernel']:.1f} % of it; max abs err (grad_img, grad_flow) {err[0]:.3g}, {err[1]:.3g}",
@@ -3578,6 +3656,18 @@ def main() -> int:
         "atm": atm_profile, "xvfi": xvfi_profile,
     }
     per_forward = {k: {path: prof[k] for path, prof in profiles.items() if k in prof} for k in KERNEL_BODIES}
+    # K1's library yardstick per forward: each path's recorded launches
+    # replayed through F.grid_sample
+    for path, entry in per_forward["warp_bilinear"].items():
+        entry["library_ms"], entry["library_by_layout"] = library_per_forward(entry["launch_layouts"], g, dev)
+        print(
+            f"library {card}: K1 on {path}: {entry['launches']} launches, {entry['device_ms']:.4f} ms on the device, bound "
+            f"{entry['bound_ms']:.4f}, F.grid_sample {entry['library_ms']:.4f} ms on the device ("
+            + "; ".join(f"{r['shape']} {r['dtype']} x{r['launches']}: bound {r['bound_ms']:.4f}, grid_sample "
+                        f"{r['library_ms']:.4f}" for r in entry["library_by_layout"])
+            + ")",
+            flush=True,
+        )
     ranked = sorted(
         ((k, path, v) for k, paths in per_forward.items() for path, v in paths.items()),
         key=lambda e: e[2]["above_bound_ms"], reverse=True,

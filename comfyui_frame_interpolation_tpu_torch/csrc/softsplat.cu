@@ -38,36 +38,30 @@
 //      address is 16 (8) bytes aligned, as M2M's C = 4 NHWC output is;
 //      other layouts and channel tails take scalar atomics;
 //   2. pre-reduction of the corners that neighbouring sources share, for
-//      C <= kMergeC (M2M's 4). A block takes a tile of kTileH x kTileW
-//      sources, a thread each. Rows: each thread leaves its lower corners'
-//      targets and sums in shared memory; the thread below takes them into
-//      its upper corners when they land on the same pixels (plain stores and
-//      loads between two barriers). Columns: a lane whose right corners are
-//      the next lane's left corners hands their sums over by warp shuffles.
-//      Then one atomic per corner left. For smooth flow most corners merge
-//      (all but the tile's last row hand their lower pair down); rough flow
-//      merges less, and a merge is exact whatever the flow.
-// A shared-memory box of f32 sums filled with shared atomics is not used:
-// Hopper has no native shared-memory f32 atomic add (nvcc emits a
-// compare-and-swap loop, ATOMS.CAST.SPIN in the SASS), and that design was
-// slower than the direct vector atomics on the H100.
-//
+//      C <= kMergeC (M2M's 4): a block takes a tile of sources, a thread
+//      each, and merges the corners by rows and columns before one atomic
+//      per corner left (scatter.cuh, shared with the warp's backward, whose
+//      image gradient is the same kind of splat). For smooth flow most
+//      corners merge; rough flow merges less, and a merge is exact whatever
+//      the flow.
+
 // The output buffer is f32 and zeroed by the caller; the kernel only adds.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "scatter.cuh"
 
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
-constexpr int kTileW = 32;  // one warp per tile row
-constexpr int kTileH = 8;
-constexpr int kThreads = kTileW * kTileH;
+using scatter::kThreads;
+using scatter::kTileH;
+using scatter::kTileW;
 // the widest input whose corners neighbouring sources merge before the
 // atomics
 constexpr int kMergeC = 4;
@@ -108,61 +102,16 @@ __device__ __forceinline__ void load_flow(const TF* fp, int64_t stride_c,
   }
 }
 
-// out[ch * so_c] += value(ch) for ch < c: one float4 or float2 atomic per
-// aligned group of channels where the channel stride is 1, scalar otherwise.
-template <typename F>
-__device__ __forceinline__ void add_pixel(float* dst, int64_t c, int64_t so_c,
-                                          F value) {
-  int64_t ch = 0;
-  if (so_c == 1) {
-    for (; ch + 4 <= c && (reinterpret_cast<uintptr_t>(dst + ch) & 15) == 0;
-         ch += 4) {
-      atomicAdd(reinterpret_cast<float4*>(dst + ch),
-                make_float4(value(ch), value(ch + 1), value(ch + 2),
-                            value(ch + 3)));
-    }
-    for (; ch + 2 <= c && (reinterpret_cast<uintptr_t>(dst + ch) & 7) == 0;
-         ch += 2) {
-      atomicAdd(reinterpret_cast<float2*>(dst + ch),
-                make_float2(value(ch), value(ch + 1)));
-    }
-  }
-  for (; ch < c; ++ch) atomicAdd(dst + ch * so_c, value(ch));
-}
-
-// out[ch * so_c] += s[ch] for ch < c <= kMergeC: one float4 or float2 atomic
-// where the channel stride is 1 and the address aligned, else scalar ones.
-__device__ __forceinline__ void add_sums(float* dst, int64_t c, int64_t so_c,
-                                         const float (&s)[kMergeC]) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
-  if (so_c == 1 && c == 4 && (a & 15) == 0) {
-    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(s[0], s[1], s[2], s[3]));
-  } else if (so_c == 1 && c == 2 && (a & 7) == 0) {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(s[0], s[1]));
-  } else {
-#pragma unroll
-    for (int ch = 0; ch < kMergeC; ++ch) {
-      if (ch < c) atomicAdd(dst + ch * so_c, s[ch]);
-    }
-  }
-}
-
 template <typename TI, typename TF>
 __global__ void __launch_bounds__(kThreads)
     softsplat_kernel(const TI* __restrict__ in, const TF* __restrict__ flow,
                      float* __restrict__ out, int64_t c, int64_t h, int64_t w,
                      Strides si, Strides sf, Strides so) {
   // grid (ceil(w / kTileW), ceil(h / kTileH), n), block (kTileW, kTileH)
-  // each source's lower corners, as the row below reads them
-  __shared__ int low_x[kTileH][kTileW];
-  __shared__ int low_y[kTileH][kTileW];
-  __shared__ float low_sum[kTileH][2][kMergeC][kTileW];
-  __shared__ bool low_taken[kTileH][kTileW];
+  __shared__ scatter::MergeTile<kMergeC> tile;
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int64_t x = static_cast<int64_t>(blockIdx.x) * kTileW + tx;
-  const int64_t y = static_cast<int64_t>(blockIdx.y) * kTileH + ty;
+  const int64_t x = static_cast<int64_t>(blockIdx.x) * kTileW + threadIdx.x;
+  const int64_t y = static_cast<int64_t>(blockIdx.y) * kTileH + threadIdx.y;
   const int64_t b = blockIdx.z;
 
   // 1. the source's corners and weights, as the first version computed them
@@ -216,55 +165,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < 4; ++k) sum[k][ch] = __fmul_rn(v, weight[k]);
     }
-    // 3. rows: a source whose upper corners are the lower corners of the
-    // source above it (same tile column) takes their sums
-    const int key_x = live ? static_cast<int>(ix0) : INT_MIN;
-    low_x[ty][tx] = key_x;
-    low_y[ty][tx] = live ? static_cast<int>(iy1) : INT_MIN;
-#pragma unroll
-    for (int ch = 0; ch < kMergeC; ++ch) {
-      low_sum[ty][0][ch][tx] = sum[2][ch];
-      low_sum[ty][1][ch][tx] = sum[3][ch];
-    }
-    low_taken[ty][tx] = false;
-    __syncthreads();
-    if (ty > 0 && live && low_x[ty - 1][tx] == key_x &&
-        low_y[ty - 1][tx] == static_cast<int>(iy0)) {
-#pragma unroll
-      for (int ch = 0; ch < kMergeC; ++ch) {
-        sum[0][ch] = __fadd_rn(sum[0][ch], low_sum[ty - 1][0][ch][tx]);
-        sum[1][ch] = __fadd_rn(sum[1][ch], low_sum[ty - 1][1][ch][tx]);
-      }
-      low_taken[ty - 1][tx] = true;
-    }
-    __syncthreads();
-    const bool lower_taken = low_taken[ty][tx];
-    if (lower_taken) valid[2] = valid[3] = false;
-    // 4. columns: a source whose right corners are the left corners of the
-    // next lane's source hands their sums over (the lower pair only where
-    // neither lower corner went to the row below)
-    const int next_x = __shfl_down_sync(0xffffffffu, key_x, 1);
-    const int next_y = __shfl_down_sync(0xffffffffu, static_cast<int>(iy0), 1);
-    const bool next_lower_taken = __shfl_down_sync(0xffffffffu, static_cast<int>(lower_taken), 1) != 0;
-    const bool meets = tx < kTileW - 1 && live && next_x != INT_MIN &&
-                       next_x == key_x + 1 && next_y == static_cast<int>(iy0);
-    const bool give_upper = meets;
-    const bool give_lower = meets && !lower_taken && !next_lower_taken;
-    const bool take_upper = __shfl_up_sync(0xffffffffu, static_cast<int>(give_upper), 1) != 0 && tx > 0;
-    const bool take_lower = __shfl_up_sync(0xffffffffu, static_cast<int>(give_lower), 1) != 0 && tx > 0;
-#pragma unroll
-    for (int ch = 0; ch < kMergeC; ++ch) {
-      const float up = __shfl_up_sync(0xffffffffu, sum[1][ch], 1);
-      const float low = __shfl_up_sync(0xffffffffu, sum[3][ch], 1);
-      if (take_upper) sum[0][ch] = __fadd_rn(sum[0][ch], up);
-      if (take_lower) sum[2][ch] = __fadd_rn(sum[2][ch], low);
-    }
-    if (give_upper) valid[1] = false;
-    if (give_lower) valid[3] = false;
-    // 5. one (vector) atomic per corner left
+    // 3. merge the corners that neighbouring sources share (by rows, then
+    // columns)
+    scatter::merge_corners(tile, static_cast<int>(ix0), static_cast<int>(ix1),
+                           static_cast<int>(iy0), static_cast<int>(iy1), live,
+                           sum, valid);
+    // 4. one (vector) atomic per corner left
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (valid[k]) add_sums(corner(k), c, so.c, sum[k]);
+      if (valid[k]) scatter::add_sums(corner(k), static_cast<int>(c), so.c, sum[k]);
     }
     return;
   }
@@ -273,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (!valid[k]) continue;
-    add_pixel(corner(k), c, so.c, [&](int64_t ch) {
+    scatter::add_pixel(corner(k), c, so.c, [&](int64_t ch) {
       return __fmul_rn(load_f32(src + ch * si.c), weight[k]);
     });
   }

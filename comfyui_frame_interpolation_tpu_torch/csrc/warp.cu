@@ -104,30 +104,8 @@
 // All offsets are 64-bit: a batch-8 1080p RIFE call already holds 2.3e8
 // elements, and wide feature warps pass 2^31.
 //
-// warp_bilinear_backward_kernel is the warp's gradient, for training. No
-// Pallas kernel of the JAX package has a backward: JAX trains through its
-// warp by XLA's VJP of the gather in ops/warp.py:bilinear_sample (l.57-127),
-// and this kernel computes that VJP (the plain version is
-// ops/warp.py:warp_backward_torch, torch.autograd through the twin). Per
-// output pixel, from the same taps and weights as the forward:
-//   grad_img:  g_c * w_k added to each tap k (the clamped index in border
-//              mode; only the taps in the frame in zeros mode), with f32
-//              atomics into a zeroed f32 buffer that the wrapper keeps as
-//              NCHW planes (a warp's atomics for one channel then fall on
-//              neighbouring addresses; on channels_last strides they spread
-//              over C times as many lines, 2.5x slower on the H100) and
-//              copies once into the image's layout and dtype;
-//   grad_flow: sum_c g_c * d out_c / d sx (and sy) over the four taps, in
-//              f32, times the border clamp's derivative: 1 inside, 0.5 at an
-//              exact bound (JAX's jnp.clip = min(max(x, lo), hi), whose
-//              derivative splits at a tie), 0 outside. In zeros mode a
-//              non-finite coordinate gives zero gradients, as the forward
-//              gives 0.
-// What bounds it on H100: memory. It reads grad_out, the image's taps and
-// the flow, and writes the f32 gradient (after a zero fill) and grad_flow;
-// the atomics go to the taps' addresses, which neighbouring pixels share for
-// smooth flow. This first version is a thread per output pixel with a
-// channel loop, any strides, and skips taps of weight 0.
+// warp_bilinear_backward_kernel is the warp's gradient, for training (its
+// note heads its section below).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -136,6 +114,8 @@
 #include <string.h>
 
 #include <type_traits>
+
+#include "scatter.cuh"
 
 namespace {
 
@@ -607,8 +587,70 @@ __global__ void __launch_bounds__(kWideThreads)
 }
 
 // ---- the backward kernel ------------------------------------------------------
+//
+// warp_bilinear_backward_kernel is the warp's gradient, for training. It
+// stands for XLA's VJP of the gather in the JAX package's ops/warp.py:61
+// bilinear_sample, through which JAX trains; no Pallas kernel has a
+// backward. Its plain version is ops/warp.py:warp_backward_torch
+// (torch.autograd through the twin). Per output pixel, from the forward's
+// taps and weights (bilinear_taps):
+//   grad_img:  g_c * w_k added to each tap k, a forward splat of grad_out at
+//              the sample coordinates (the clamped taps in border mode, only
+//              the taps in the frame in zeros mode; a tap of weight 0 adds
+//              nothing);
+//   grad_flow: sum_c g_c * d out_c / d sx (and sy) over the four taps, in
+//              f32, times the border clamp's derivative: 1 inside, 0.5 at an
+//              exact bound (JAX's jnp.clip = min(max(x, lo), hi), whose
+//              derivative splits a tie: clip_slope), 0 outside. In zeros
+//              mode a non-finite coordinate gives zero gradients, as the
+//              forward gives 0.
+// What bounds it on H100: bytes, plus the image gradient's atomic
+// read-modify-write. It reads grad_out, the image and the flow once and
+// writes grad_flow once; the image gradient is summed by atomics in L2 into
+// an f32 buffer that the wrapper zero-fills first and that, at training
+// sizes, does not stay in the 50 MB L2, so each of its lines is read and
+// written back. At [16, 1088, 1920, 7] f32 that is 0.94 + 0.94 + 0.27 GB
+// read, 0.27 GB written and the 1.07 GB buffer read and written: ~4.5 GB,
+// ~1.4 ms at 3.35 TB/s (the wrapper's zero fill writes the buffer once more,
+// outside the kernel). A first design (a thread per pixel, a channel loop,
+// a scalar atomic per tap and channel into NCHW planes copied into the
+// image's layout afterwards) reached 26.6 % of the bytes bound there, behind
+// aten.grid_sampler_2d_backward (PERF.md). What held it back, and what this
+// body does about each:
+//   1. scalar atomics, 936 M L2 atomic operations at that shape for smooth
+//      flow. The image gradient is a splat, so K2's cure applies
+//      (scatter.cuh): a block takes a tile of 32 x 8 output pixels, a thread
+//      each; the taps that neighbouring pixels share are merged by rows
+//      (shared memory) and columns (warp shuffles) before one atomic per tap
+//      left, about 1.16 a pixel for smooth flow; and each tap left adds its
+//      channels as float4 atomics into a channels-last buffer [N, H, W, Cp],
+//      Cp = C rounded up to 4 (2 float4s a tap for C = 7, 1 for C = 3):
+//      ~80 M vector atomics at that shape;
+//   2. the buffer around the kernel: the NCHW buffer took a copy into the
+//      image's layout after the kernel. The padded channels-last buffer is
+//      the image's layout but for the padding, so the wrapper returns a view
+//      of it for f32 images and casts it once for bf16/f16;
+//   3. scalar loads: a thread holds its pixel's grad_out channels and its
+//      four taps' in registers, 4 channels at a time (C = 7 is two groups,
+//      each group's sums merged by the tile's one plan), read as 16- or
+//      8-byte vectors where the host found the channels contiguous and
+//      every pixel aligned (the vector widths are arguments, checked on the
+//      host), else element by element.
+// Registers decide the rest: groups of 8 channels took 128 registers a
+// thread, two blocks an SM, and measured slower on the H100 than groups of 4
+// held to 80 registers (three blocks); without the image's gradient the
+// kernel is an instance of its own, held to 64 (PERF.md).
 
-constexpr int kBackwardThreads = 256;
+// the channels a thread of the backward holds at once: one float4 atomic a
+// tap (8 measured slower on the H100 at C = 7: more registers, fewer
+// blocks an SM)
+constexpr int kBackwardGroup = 4;
+// blocks of scatter::kThreads an SM the backward's registers leave room for:
+// ptxas then keeps it to 80 registers a thread with the image's gradient
+// and to 64 without (each measured faster than fewer blocks on the H100;
+// 4 blocks with the image's gradient spill)
+constexpr int kBackwardMinBlocks = 3;
+constexpr int kBackwardMinBlocksFlowOnly = 4;
 
 // The derivative of jnp.clip(v, 0, hi) = min(max(v, 0), hi) as JAX takes it:
 // each of max and min gives 1 to the side that wins and 0.5 at a tie.
@@ -675,100 +717,188 @@ __device__ __forceinline__ TapSlopes bilinear_slopes(int64_t x, int64_t y,
   return s;
 }
 
-// grid (ceil(n * h * w / kBackwardThreads)); a thread per output pixel, a
-// loop over its channels. grad_img (f32, zeroed by the caller) may be null:
-// the image then needs no gradient and only grad_flow is computed.
-template <typename TI, typename TF, bool ZEROS>
-__global__ void __launch_bounds__(kBackwardThreads)
+// Channels [0, n) of one pixel (at p, channel stride stride_c) as f32 into
+// v, zeros past n: as `vec`-byte vectors where vec is 16 or 8 (the host
+// checked that the channels are contiguous and every vector aligned; a
+// vector wider than G elements is read as 8-byte ones), else element by
+// element.
+template <typename T, int G>
+__device__ __forceinline__ void load_group(const T* p, int64_t stride_c, int n,
+                                           int vec, float (&v)[G]) {
+  constexpr int k16 = 16 / static_cast<int>(sizeof(T));
+  constexpr int k8 = 8 / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int i = 0; i < G; ++i) v[i] = 0.0f;
+  if constexpr (k16 <= G) {
+    if (vec == 16) {
+#pragma unroll
+      for (int i = 0; i < G; i += k16) {
+        if (i < n) {
+          const uint4 bits = __ldg(reinterpret_cast<const uint4*>(p + i));
+          T e[k16];
+          memcpy(e, &bits, sizeof(bits));
+#pragma unroll
+          for (int j = 0; j < k16; ++j) v[i + j] = load_f32(&e[j]);
+        }
+      }
+      return;
+    }
+  }
+  if constexpr (k8 <= G) {
+    if (vec >= 8) {  // a 16-byte fit is an 8-byte one
+#pragma unroll
+      for (int i = 0; i < G; i += k8) {
+        if (i < n) {
+          const uint2 bits = __ldg(reinterpret_cast<const uint2*>(p + i));
+          T e[k8];
+          memcpy(e, &bits, sizeof(bits));
+#pragma unroll
+          for (int j = 0; j < k8; ++j) v[i + j] = load_f32(&e[j]);
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    if (i < n) v[i] = load_f32(p + i * stride_c);
+  }
+}
+
+// grid (ceil(w / kTileW), ceil(h / kTileH), n) of scatter's tiles, block
+// (kTileW, kTileH), a thread per output pixel holding kBackwardGroup
+// channels at a time. With IMG, grad_img is the zeroed f32 buffer [n, h, w,
+// cp] (cp a multiple of 4, 16 bytes aligned); without, the image needs no
+// gradient, grad_img is null and only grad_flow is computed (an instance of
+// its own, whose registers leave room for more blocks).
+template <typename TI, typename TF, bool ZEROS, bool IMG>
+__global__ void __launch_bounds__(scatter::kThreads,
+                                  IMG ? kBackwardMinBlocks : kBackwardMinBlocksFlowOnly)
     warp_bilinear_backward_kernel(const TI* __restrict__ img,
                                   const TF* __restrict__ flow,
                                   const TI* __restrict__ grad_out,
                                   float* __restrict__ grad_img,
-                                  TF* __restrict__ grad_flow, int64_t npix,
-                                  int64_t c, int64_t h, int64_t w, Strides si,
-                                  Strides sf, Strides sg, Strides sgi,
-                                  Strides sgf) {
-  const int64_t g =
-      static_cast<int64_t>(blockIdx.x) * kBackwardThreads + threadIdx.x;
-  if (g >= npix) return;
-  const int64_t row = g / w;
-  const int64_t x = g - row * w;
-  const int64_t b = row / h;
-  const int64_t y = row - b * h;
+                                  TF* __restrict__ grad_flow, int c, int cp,
+                                  int64_t h, int64_t w, Strides si, Strides sf,
+                                  Strides sg, Strides sgf, int vec_img,
+                                  int vec_grad) {
+  constexpr int G = kBackwardGroup;
+  __shared__ scatter::MergeTile<G> tile;
+  const int64_t x =
+      static_cast<int64_t>(blockIdx.x) * scatter::kTileW + threadIdx.x;
+  const int64_t y =
+      static_cast<int64_t>(blockIdx.y) * scatter::kTileH + threadIdx.y;
+  const int64_t b = blockIdx.z;
+  const bool inside = x < w && y < h;
 
-  float fx, fy;
-  load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
-  // a tap's (row, column) packed into one offset, as K1 does, so the image
-  // and its gradient take their own strides
-  const Taps t = bilinear_taps<ZEROS>(x, y, fx, fy, h, w, kRowKey, 1);
-  const TapSlopes s = bilinear_slopes<ZEROS>(x, y, fx, fy, h, w);
-  const int64_t r0 = key_row(t.o00), r1 = key_row(t.o10);
-  const int64_t c0 = key_col(t.o00), c1 = key_col(t.o01);
-
-  const TI* ib = img + b * si.n;
-  const TI* p00 = ib + r0 * si.h + c0 * si.w;
-  const TI* p01 = ib + r0 * si.h + c1 * si.w;
-  const TI* p10 = ib + r1 * si.h + c0 * si.w;
-  const TI* p11 = ib + r1 * si.h + c1 * si.w;
-  const TI* go = grad_out + b * sg.n + y * sg.h + x * sg.w;
-  float* q00 = nullptr;
-  float* q01 = nullptr;
-  float* q10 = nullptr;
-  float* q11 = nullptr;
-  if (grad_img != nullptr) {
-    float* qb = grad_img + b * sgi.n;
-    q00 = qb + r0 * sgi.h + c0 * sgi.w;
-    q01 = qb + r0 * sgi.h + c1 * sgi.w;
-    q10 = qb + r1 * sgi.h + c0 * sgi.w;
-    q11 = qb + r1 * sgi.h + c1 * sgi.w;
+  // 1. the forward's taps and weights (a tap's row and column packed into
+  // one offset, as K1 does) and their slopes by sx and sy
+  Taps t{0, 0, 0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
+  TapSlopes s{0, 0, 0, 0, 0, 0, 0, 0};
+  if (inside) {
+    float fx, fy;
+    load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
+    t = bilinear_taps<ZEROS>(x, y, fx, fy, h, w, kRowKey, 1);
+    s = bilinear_slopes<ZEROS>(x, y, fx, fy, h, w);
   }
+  const int r0 = key_row(t.o00), r1 = key_row(t.o10);
+  const int c0 = key_col(t.o00), c1 = key_col(t.o01);
+  const TI* ib = img + b * si.n;
+  // tap k's pixel in the image and in the gradient's buffer, computed where
+  // it is read (fewer registers than four pointers each)
+  auto tap = [&](int k) {
+    return ib + ((k & 2) ? r1 : r0) * si.h + ((k & 1) ? c1 : c0) * si.w;
+  };
+  const TI* go = grad_out + b * sg.n + y * sg.h + x * sg.w;
+  const float weight[4] = {t.w00, t.w01, t.w10, t.w11};
+  // own: this pixel adds to the tap; live: the tap takes an atomic (after
+  // the merges, which hand taps on and take them over)
+  bool own[4], live[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) own[k] = live[k] = inside && weight[k] != 0.0f;
+  auto q = [&](int k) {
+    return grad_img + ((b * h + ((k & 2) ? r1 : r0)) * w + ((k & 1) ? c1 : c0)) * cp;
+  };
 
   float gx = 0.0f, gy = 0.0f;
-  for (int64_t ch = 0; ch < c; ++ch) {
-    const int64_t off = ch * si.c;
-    const float gc = load_f32(go + ch * sg.c);
-    const float a = load_f32(p00 + off);
-    const float bq = load_f32(p01 + off);
-    const float cq = load_f32(p10 + off);
-    const float d = load_f32(p11 + off);
-    gx += gc * (s.dx00 * a + s.dx01 * bq + s.dx10 * cq + s.dx11 * d);
-    gy += gc * (s.dy00 * a + s.dy01 * bq + s.dy10 * cq + s.dy11 * d);
-    if (grad_img != nullptr) {
-      const int64_t qo = ch * sgi.c;
-      if (t.w00 != 0.0f) atomicAdd(q00 + qo, gc * t.w00);
-      if (t.w01 != 0.0f) atomicAdd(q01 + qo, gc * t.w01);
-      if (t.w10 != 0.0f) atomicAdd(q10 + qo, gc * t.w10);
-      if (t.w11 != 0.0f) atomicAdd(q11 + qo, gc * t.w11);
+  scatter::MergePlan plan{};
+  for (int ch0 = 0; ch0 < c; ch0 += G) {
+    // 2. the group's grad_out and tap channels, and the flow's gradient
+    const int n = inside ? min(G, c - ch0) : 0;
+    float g[G];
+    float v[4][G];
+    load_group(go + ch0 * sg.c, sg.c, n, vec_grad, g);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) load_group(tap(k) + ch0 * si.c, si.c, n, vec_img, v[k]);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      gx += g[i] * (s.dx00 * v[0][i] + s.dx01 * v[1][i] + s.dx10 * v[2][i] + s.dx11 * v[3][i]);
+      gy += g[i] * (s.dy00 * v[0][i] + s.dy01 * v[1][i] + s.dy10 * v[2][i] + s.dy11 * v[3][i]);
+    }
+    if (!IMG) continue;
+    // 3. the taps' sums, merged with the neighbours' that are the same
+    // pixels, then one float4 atomic for the group of each tap left
+    float sum[4][G];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) sum[k][i] = own[k] ? __fmul_rn(g[i], weight[k]) : 0.0f;
+    }
+    if (ch0 == 0) {
+      plan = scatter::merge_corners(tile, c0, c1, r0, r1, inside, sum, live);
+    } else {
+      scatter::merge_more(tile, plan, sum);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (live[k]) scatter::add_sums(q(k) + ch0, G, 1, sum[k]);
     }
   }
-  TF* gf = grad_flow + b * sgf.n + y * sgf.h + x * sgf.w;
-  store_f32(gf, gx);
-  store_f32(gf + sgf.c, gy);
+  if (inside) {
+    TF* gf = grad_flow + b * sgf.n + y * sgf.h + x * sgf.w;
+    store_f32(gf, gx);
+    store_f32(gf + sgf.c, gy);
+  }
 }
 
 struct BackwardLaunch {
-  int64_t n, c, h, w;
-  Strides si, sf, sg, sgi, sgf;
+  int64_t n, c, h, w, cp;
+  Strides si, sf, sg, sgf;
+  int vec_img, vec_grad;
   cudaStream_t stream;
 };
+
+template <typename TI, typename TF, bool ZEROS>
+void launch_backward_mode(const TI* ip, const TF* fp, const TI* gp,
+                          float* grad_img, TF* gfp, const BackwardLaunch& l) {
+  const dim3 blocks(
+      static_cast<unsigned int>((l.w + scatter::kTileW - 1) / scatter::kTileW),
+      static_cast<unsigned int>((l.h + scatter::kTileH - 1) / scatter::kTileH),
+      static_cast<unsigned int>(l.n));
+  const dim3 threads(scatter::kTileW, scatter::kTileH);
+  const int c = static_cast<int>(l.c), cp = static_cast<int>(l.cp);
+  if (grad_img != nullptr) {
+    warp_bilinear_backward_kernel<TI, TF, ZEROS, true><<<blocks, threads, 0, l.stream>>>(
+        ip, fp, gp, grad_img, gfp, c, cp, l.h, l.w, l.si, l.sf, l.sg, l.sgf, l.vec_img, l.vec_grad);
+  } else {
+    warp_bilinear_backward_kernel<TI, TF, ZEROS, false><<<blocks, threads, 0, l.stream>>>(
+        ip, fp, gp, grad_img, gfp, c, cp, l.h, l.w, l.si, l.sf, l.sg, l.sgf, l.vec_img, l.vec_grad);
+  }
+}
 
 template <typename TI, typename TF>
 void launch_backward_typed(const void* img, const void* flow,
                            const void* grad_out, float* grad_img,
                            void* grad_flow, bool zeros,
                            const BackwardLaunch& l) {
-  const int64_t npix = l.n * l.h * l.w;
-  const dim3 blocks(static_cast<unsigned int>((npix + kBackwardThreads - 1) / kBackwardThreads));
   const TI* ip = static_cast<const TI*>(img);
   const TF* fp = static_cast<const TF*>(flow);
   const TI* gp = static_cast<const TI*>(grad_out);
   TF* gfp = static_cast<TF*>(grad_flow);
   if (zeros) {
-    warp_bilinear_backward_kernel<TI, TF, true><<<blocks, kBackwardThreads, 0, l.stream>>>(
-        ip, fp, gp, grad_img, gfp, npix, l.c, l.h, l.w, l.si, l.sf, l.sg, l.sgi, l.sgf);
+    launch_backward_mode<TI, TF, true>(ip, fp, gp, grad_img, gfp, l);
   } else {
-    warp_bilinear_backward_kernel<TI, TF, false><<<blocks, kBackwardThreads, 0, l.stream>>>(
-        ip, fp, gp, grad_img, gfp, npix, l.c, l.h, l.w, l.si, l.sf, l.sg, l.sgi, l.sgf);
+    launch_backward_mode<TI, TF, false>(ip, fp, gp, grad_img, gfp, l);
   }
 }
 
@@ -789,6 +919,21 @@ int launch_backward_flow(const void* img, const void* flow,
       return 0;
   }
   return -1;
+}
+
+// Whether the backward may read channels of a tensor of c channels by
+// strides s at base in vectors of `vec` bytes: one element (isz bytes)
+// always; 8 or 16 bytes where the channels are contiguous and vec divides
+// the pixel's bytes, the batch, row and pixel strides' bytes and the address.
+bool vector_fits(int64_t vec, int64_t isz, int64_t c, const Strides& s,
+                 const void* base) {
+  if (vec == isz) return true;
+  if ((vec != 8 && vec != 16) || (c > 1 && s.c != 1)) return false;
+  const uint64_t bits =
+      static_cast<uint64_t>(c * isz) | static_cast<uint64_t>(s.n * isz) |
+      static_cast<uint64_t>(s.h * isz) | static_cast<uint64_t>(s.w * isz) |
+      reinterpret_cast<uintptr_t>(base);
+  return bits % static_cast<uint64_t>(vec) == 0;
 }
 
 struct Launch {
@@ -957,31 +1102,43 @@ extern "C" int cfi_warp_bilinear_wide(
 
 // The warp's gradient: given `grad_out` (the forward output's gradient,
 // [n, c, h, w] in the image's dtype) for the warp of `img` by `flow`, adds
-// the image's gradient into `grad_img` (f32, [n, c, h, w], zeroed by the
-// caller; null when the image needs none) and writes the flow's into
-// `grad_flow` ([n, 2, h, w], the flow's dtype). Every tensor takes its own
-// element strides, in the order n, c, h, w. Same dtype codes and return
-// codes as cfi_warp_bilinear; -2 also when n * h * w exceeds the grid.
+// the image's gradient into `grad_img` (f32, [n, h, w, cp] contiguous, cp >=
+// c a multiple of 4, 16 bytes aligned, zeroed by the caller; null when the
+// image needs none) and writes the flow's into `grad_flow` ([n, 2, h, w],
+// the flow's dtype). img, flow, grad_out and grad_flow take their own
+// element strides, in the order n, c, h, w. img and grad_out are read in
+// vectors of vec_img and vec_grad bytes: 16, 8, or one element (see
+// vector_fits). Same dtype codes and return codes as cfi_warp_bilinear; -2
+// also for a c over 2^28, a w over 2^31 - 1, a grad_img or vector width
+// that does not fit.
 extern "C" int cfi_warp_bilinear_backward(
     const void* img, const void* flow, const void* grad_out, void* grad_img,
     void* grad_flow, int img_dtype, int flow_dtype, int zeros, int64_t n,
     int64_t c, int64_t h, int64_t w, int64_t si_n, int64_t si_c, int64_t si_h,
     int64_t si_w, int64_t sf_n, int64_t sf_c, int64_t sf_h, int64_t sf_w,
-    int64_t sg_n, int64_t sg_c, int64_t sg_h, int64_t sg_w, int64_t sgi_n,
-    int64_t sgi_c, int64_t sgi_h, int64_t sgi_w, int64_t sgf_n, int64_t sgf_c,
-    int64_t sgf_h, int64_t sgf_w, void* stream) {
-  const int64_t npix = n * h * w;
-  if (npix == 0) return 0;
-  if ((npix + kBackwardThreads - 1) / kBackwardThreads > 0x7fffffff) return -2;
+    int64_t sg_n, int64_t sg_c, int64_t sg_h, int64_t sg_w, int64_t sgf_n,
+    int64_t sgf_c, int64_t sgf_h, int64_t sgf_w, int64_t cp, int64_t vec_img,
+    int64_t vec_grad, void* stream) {
+  if (n * h * w == 0) return 0;
+  if (n > 65535 || h > 65535) return -2;  // grid y/z limits
   // K1's packed tap offsets hold a row and a column in 32 bits each
-  if (h > 0x7fffffff || w > 0x7fffffff) return -2;
-  const BackwardLaunch l{n, c, h, w,
+  if (w > 0x7fffffff || c > (int64_t{1} << 28)) return -2;
+  if (grad_img != nullptr &&
+      (cp < c || cp % 4 != 0 || (reinterpret_cast<uintptr_t>(grad_img) & 15) != 0)) {
+    return -2;
+  }
+  const BackwardLaunch l{n, c, h, w, cp,
                          Strides{si_n, si_c, si_h, si_w},
                          Strides{sf_n, sf_c, sf_h, sf_w},
                          Strides{sg_n, sg_c, sg_h, sg_w},
-                         Strides{sgi_n, sgi_c, sgi_h, sgi_w},
                          Strides{sgf_n, sgf_c, sgf_h, sgf_w},
+                         static_cast<int>(vec_img), static_cast<int>(vec_grad),
                          static_cast<cudaStream_t>(stream)};
+  const int64_t isz = img_dtype == kF32 ? 4 : 2;
+  if (!vector_fits(vec_img, isz, c, l.si, img) ||
+      !vector_fits(vec_grad, isz, c, l.sg, grad_out)) {
+    return -2;
+  }
   float* gi = static_cast<float*>(grad_img);
   const bool zm = zeros != 0;
   int rc;

@@ -7,8 +7,8 @@ PyTorch headers, so a build takes seconds). Nothing here runs on import: a
 machine without ``nvcc`` imports the package and runs its CPU paths.
 
 The library lands in ``build/cuda_kernels/`` at the repository root, named by
-a hash of the source bytes and the compiler flags, so a stale library never
-loads after a source edit. It is written under a temporary name and then
+a hash of the source bytes, the ``*.cuh`` headers beside it and the compiler
+flags, so a stale library never loads after a source or header edit. It is written under a temporary name and then
 ``os.replace``-d into place, so processes building at the same time never load
 a half-written file.
 """
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import re
@@ -27,7 +28,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["DTYPE_CODES", "NVCC_FLAGS", "build_logs", "check_planes_and_flow", "load_library", "ptxas_summary"]
+__all__ = ["DTYPE_CODES", "NVCC_FLAGS", "build_logs", "check_planes_and_flow", "library_path", "load_library", "ptxas_summary"]
 
 # the kernels' dtype codes (csrc/*.cu: enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -63,6 +64,18 @@ def _nvcc() -> str:
     )
 
 
+def library_path(name: str, csrc: str = _CSRC) -> str:
+    """Where the library of ``<csrc>/<name>.cu`` is built: named by a hash
+    of the source, every ``*.cuh`` header beside it (which a source may
+    include) and the compiler flags."""
+    digest = hashlib.sha256()
+    for path in [os.path.join(csrc, f"{name}.cu")] + sorted(glob.glob(os.path.join(csrc, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str, csrc: str = _CSRC) -> ctypes.CDLL:
     """Compile ``<csrc>/<name>.cu`` (the package's ``csrc/`` by default; another
@@ -72,10 +85,7 @@ def load_library(name: str, csrc: str = _CSRC) -> ctypes.CDLL:
     What nvcc prints (each kernel's registers and spills) is kept in
     ``build_logs[name, csrc]``."""
     src = os.path.join(csrc, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(_BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    lib_path = library_path(name, csrc)
     if not os.path.exists(lib_path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(prefix=f".lib{name}-", suffix=".so", dir=_BUILD_DIR)

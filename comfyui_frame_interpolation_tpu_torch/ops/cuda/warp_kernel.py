@@ -21,7 +21,13 @@ the forward; :class:`WarpFunction` joins a forward kernel and it for
 autograd, and ``ops.warp.warp`` takes it for every CUDA warp whose input
 needs a gradient. No Pallas kernel has a backward: the kernel stands for
 XLA's VJP of the gather in the JAX package's ``ops/warp.py:bilinear_sample``,
-and its plain version is ``ops.warp.warp_backward_torch``.
+and its plain version is ``ops.warp.warp_backward_torch``. The image's
+gradient is a splat of the output's gradient: a thread per output pixel of
+a 32x8 tile merges the taps it shares with its neighbours (``csrc/scatter.cuh``,
+shared with the splat kernel) and adds each tap left with ``float4`` atomics
+into a zeroed f32 buffer ``[N, H, W, Cp]`` (:func:`padded_channels`); the
+taps and the output's gradient are read 4 channels at a time, in the vectors
+:func:`vector_bytes` picks.
 
 ``launches`` counts the launches of K1, ``wide_launches`` those of the
 wide kernel and ``backward_launches`` those of the backward kernel, so that
@@ -44,8 +50,10 @@ __all__ = [
     "WarpFunction",
     "backward_launches",
     "launches",
+    "padded_channels",
     "route",
     "route_counts",
+    "vector_bytes",
     "warp_bilinear",
     "warp_bilinear_backward",
     "warp_bilinear_wide",
@@ -96,6 +104,30 @@ def route_counts(channels: Sequence[int], dtype: torch.dtype) -> Dict[str, int]:
     return counts
 
 
+def padded_channels(c: int) -> int:
+    """The channels of a pixel in the backward kernel's f32 image-gradient
+    buffer ``[N, H, W, Cp]``: ``c`` rounded up to a multiple of 4, so that
+    every pixel and every group of 4 channels starts on 16 bytes and takes
+    one ``float4`` atomic (Cp = 8 for C = 7, 4 for C = 3)."""
+    return -(-c // 4) * 4
+
+
+def vector_bytes(c: int, strides: Sequence[int], itemsize: int, address: int) -> int:
+    """The vector, in bytes, in which the backward kernel reads the channels
+    of a tensor of ``c`` channels by element ``strides`` ``(N, C, H, W)``
+    that starts at byte ``address``: 16 or 8 where the channels are
+    contiguous and the vector divides the pixel's bytes, the batch, row and
+    pixel strides' bytes and the address; else one element (``itemsize``).
+    The kernel refuses a width that breaks this rule."""
+    if c > 1 and strides[1] != 1:
+        return itemsize
+    bits = c * itemsize | strides[0] * itemsize | strides[2] * itemsize | strides[3] * itemsize | address
+    for vec in (16, 8):
+        if bits % vec == 0:
+            return vec
+    return itemsize
+
+
 def _bind(name: str, n_int64: int, n_pointers: int = 3):
     fn = getattr(load_library("warp"), name)
     fn.restype = ctypes.c_int
@@ -116,7 +148,7 @@ def _wide_kernel():
 
 @functools.lru_cache(maxsize=None)
 def _backward_kernel():
-    return _bind("cfi_warp_bilinear_backward", 24, n_pointers=5)
+    return _bind("cfi_warp_bilinear_backward", 23, n_pointers=5)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -195,12 +227,13 @@ def warp_bilinear_backward(
     computed and ``grad_img`` is None.
 
     Any strides for every input (an expanded ``grad_out`` too).
-    ``grad_img`` is summed with f32 atomics into a zeroed f32 buffer of NCHW
-    planes, where a warp's atomics for one channel fall on neighbouring
-    addresses (into a buffer of ``img``'s ``channels_last`` strides they
-    spread over C times as many cache lines: 2.5x slower on the H100), then
-    copied once into ``img``'s layout and dtype; ``grad_flow`` is summed per
-    pixel in f32. The kernel launches on the current stream and nothing
+    ``grad_img`` is summed with ``float4`` atomics into a zeroed f32 buffer
+    ``[N, H, W, Cp]`` (:func:`padded_channels`), the image's
+    ``channels_last`` layout but for the padded channels. For an f32 image
+    ``grad_img`` is that buffer's ``[..., :C]`` view, permuted to ``[N, C,
+    H, W]`` (strides ``(H*W*Cp, 1, W*Cp, Cp)``); for bf16/f16 one cast
+    writes it in ``img``'s layout. ``grad_flow`` is summed per pixel in
+    f32. The kernel launches on the current stream and nothing
     synchronises."""
     global backward_launches
     check_planes_and_flow("warp_bilinear_backward", img, flow)
@@ -210,23 +243,28 @@ def warp_bilinear_backward(
             f"got {tuple(grad_out.shape)} {grad_out.dtype} on {grad_out.device}"
         )
     n, c, h, w = img.shape
-    gi = torch.zeros((n, c, h, w), dtype=torch.float32, device=img.device) if img_grad else None
+    cp = padded_channels(c)
+    buf = torch.zeros((n, h, w, cp), dtype=torch.float32, device=img.device) if img_grad else None
     gf = torch.empty_like(flow)
     if img.numel() == 0:
-        return (None if gi is None else torch.zeros_like(img)), gf.zero_()
-    gi_strides = gi.stride() if gi is not None else (0, 0, 0, 0)
+        return (None if buf is None else torch.zeros_like(img)), gf.zero_()
+    isz = img.element_size()
     with torch.cuda.device(img.device):
         rc = _backward_kernel()(
-            img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), 0 if gi is None else gi.data_ptr(), gf.data_ptr(),
+            img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), 0 if buf is None else buf.data_ptr(), gf.data_ptr(),
             DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
-            n, c, h, w, *img.stride(), *flow.stride(), *grad_out.stride(), *gi_strides, *gf.stride(),
+            n, c, h, w, *img.stride(), *flow.stride(), *grad_out.stride(), *gf.stride(), cp,
+            vector_bytes(c, img.stride(), isz, img.data_ptr()), vector_bytes(c, grad_out.stride(), isz, grad_out.data_ptr()),
             _stream(img),
         )
     if rc != 0:
         raise RuntimeError(f"warp backward kernel launch failed: cfi_warp_bilinear_backward returned {rc}")
     backward_launches += 1
-    if gi is not None and not (img.dtype == torch.float32 and img.is_contiguous()):
-        gi = torch.empty_like(img).copy_(gi)
+    if buf is None:
+        return None, gf
+    gi = buf[..., :c].permute(0, 3, 1, 2)
+    if img.dtype != torch.float32:
+        gi = torch.empty_like(img).copy_(gi)  # the one pass after the kernel: the cast
     return gi, gf
 
 

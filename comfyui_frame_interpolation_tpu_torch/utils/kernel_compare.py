@@ -39,6 +39,24 @@ at the main paths' shapes:
   turns, beside ``F.grid_sample``'s device ms on the same tensors and the
   bound; and per path, the sum over one forward's launches.
 
+* the warp's backward kernel (``backward``): the other checkout's
+  ``cfi_warp_bilinear_backward`` (5 pointers and 24 ``int64`` strides: a
+  thread per pixel, scalar atomics into a zeroed NCHW f32 buffer, copied
+  into the image's layout and dtype after the kernel, as its wrapper did)
+  against ``warp_kernel.warp_bilinear_backward``, on ``channels_last``
+  images and output gradients with smooth flow (amplitude 6 px), border
+  mode: ``[32, 256, 256, 7]`` f32 and bf16 (the flow in the image's dtype,
+  as the bf16 training step gives it), ``[32, 256, 256, 3]`` f32 without
+  the image's gradient, ``[16, 1088, 1920, 7]`` f32; and on the four warps'
+  inputs of one RIFE 4.7 training step at b16 x 256x256 f32 (random weights
+  from seed 0), as the step hands them over. Each op in turns by CUDA
+  events, and the kernel alone by device ms from a profile, in turns,
+  beside ``aten.grid_sampler_2d_backward``'s device ms and the bound.
+  Both must agree within ``chip_smoke.py`` phase 48's tolerances: the
+  image's gradient within 1e-5 of each pixel's sum of absolute
+  contributions plus 1e-6, the flow's within 1e-5 of its largest plus 1e-6,
+  bf16 one ulp more.
+
 It also times K1 against the wide kernel at ``[4, 1088, 1920, C]``, C = 3 to
 32 in bf16 and 3 to 8 in f32, the sweep that places the routing threshold
 (``warp_kernel.WIDE_MIN_BYTES``). ``--sections`` picks the parts to run.
@@ -66,13 +84,15 @@ from ..models import m2m
 from ..ops.cuda import build, warp_kernel
 from ..ops.cuda.build import DTYPE_CODES
 from ..ops.softsplat import softsplat_func
-from ..ops.warp import warp
+from ..ops.warp import warp, warp_backward_torch
 
 WARP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
 WIDE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 14 + [ctypes.c_void_p]
 SPLAT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
+# the other checkout's backward entry: 5 pointers, 24 int64 strides
+BACKWARD_OLD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 24 + [ctypes.c_void_p]
 THRESHOLD_CHANNELS = {torch.bfloat16: (3, 4, 6, 7, 8, 10, 12, 14, 16, 24, 32), torch.float32: (3, 4, 6, 7, 8)}
-SECTIONS = ("k1", "k2", "wide", "threshold")
+SECTIONS = ("k1", "k2", "wide", "threshold", "backward")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
 
@@ -342,6 +362,169 @@ def warp_cases(dev) -> List[Tuple[str, torch.Tensor, torch.Tensor, bool]]:
     return cases
 
 
+def call_backward_old(fn: Callable, planes, fplanes, gplanes, zeros: bool, img_grad: bool = True):
+    """The other checkout's backward op around ``fn`` (``cfi_warp_bilinear_backward``
+    with 24 ``int64`` strides) on ``[N, C, H, W]`` planes: a zeroed NCHW f32
+    buffer, the kernel, one copy into the image's layout and dtype (none for
+    a contiguous f32 image), as its wrapper did."""
+    n, c, h, w = planes.shape
+    gi = torch.zeros((n, c, h, w), dtype=torch.float32, device=planes.device) if img_grad else None
+    gf = torch.empty_like(fplanes)
+    rc = fn(
+        planes.data_ptr(), fplanes.data_ptr(), gplanes.data_ptr(), 0 if gi is None else gi.data_ptr(), gf.data_ptr(),
+        DTYPE_CODES[planes.dtype], DTYPE_CODES[fplanes.dtype], int(zeros), n, c, h, w,
+        *planes.stride(), *fplanes.stride(), *gplanes.stride(), *(gi.stride() if gi is not None else (0, 0, 0, 0)),
+        *gf.stride(), torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"backward launch returned {rc}")
+    if gi is not None and not (planes.dtype == torch.float32 and planes.is_contiguous()):
+        gi = torch.empty_like(planes).copy_(gi)
+    return gi, gf
+
+
+def backward_bound_ms(planes: torch.Tensor, fplanes: torch.Tensor, img_grad: bool) -> Tuple[float, str]:
+    """The least ms the card could take for one warp backward: the output's
+    gradient, the image and the flow read once, the flow's gradient and
+    (with ``img_grad``) the image's written once in their dtypes, over the
+    memory rate; or 22 f32 operations a channel and 40 a pixel over the f32
+    rate, whichever is larger (``chip_smoke.py:backward_work``)."""
+    n, c, h, w = planes.shape
+    fbytes = fplanes.numel() * fplanes.element_size()
+    nbytes = (3 if img_grad else 2) * planes.numel() * planes.element_size() + 2 * fbytes
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * n * h * w * (22 * c + 40) / F32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def backward_agreement(new, old, planes, fplanes, gplanes, zeros: bool) -> Tuple[float, float]:
+    """The max abs differences of the new and old ``(grad_img, grad_flow)``
+    (``grad_img`` None without the image's gradient); raises where they
+    differ by more than phase 48's tolerances (the module's head)."""
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    mode = "zeros" if zeros else "border"
+    errs = []
+    if new[0] is not None:
+        contributions, _ = warp_backward_torch(nhwc(planes).float(), nhwc(fplanes).float(), nhwc(gplanes).float().abs(), mode)
+        pairs = [(new[0], old[0], 1e-5 * contributions.permute(0, 3, 1, 2) + 1e-6, planes.dtype)]
+    else:
+        pairs = []
+    scale = old[1].float().abs().max().item()
+    pairs.append((new[1], old[1], 1e-5 * scale + 1e-6, fplanes.dtype))
+    for got, ref, tol, dtype in pairs:
+        g, r = got.float(), ref.float()
+        if dtype in (torch.bfloat16, torch.float16):
+            _, exp = torch.frexp(r.abs())
+            tol = tol + torch.ldexp(torch.ones_like(r), exp - (8 if dtype == torch.bfloat16 else 11))
+        err = (g - r).abs()
+        if not bool((err <= tol).all()):
+            raise SystemExit(f"backward {list(planes.shape)}: the new kernel differs from the old one by {err.max().item()}")
+        errs.append(err.max().item())
+    return (errs[0], errs[1]) if new[0] is not None else (0.0, errs[0])
+
+
+def training_backward_inputs(dev) -> List[Tuple]:
+    """The four backward launches' inputs of one RIFE 4.7 training step at
+    b16 x 256x256 f32 (random weights from seed 0, Adam 1e-4), as the step
+    hands them to ``warp_bilinear_backward``: ``[(img, flow, grad_out,
+    zeros, img_grad)]``, cloned with their strides."""
+    from .. import parallel
+    from ..models import rife
+
+    net = rife.IFNet("4.7")
+    net.load_state_dict(rife.init_params(0, "4.7"))
+    net = net.to(dev, memory_format=torch.channels_last)
+    scale_list = rife.default_scale_list("4.7")
+    step = parallel.make_train_step(
+        lambda n, f0, f1, t: rife.apply(n, f0, f1, t, scale_list), torch.optim.Adam(net.parameters(), lr=1e-4),
+        parallel.make_mesh(1, devices=[dev]), net,
+    )
+    rng = np.random.default_rng(50)
+    f0, f1, target = (torch.from_numpy(rng.random((16, 256, 256, 3), dtype=np.float32)).to(dev) for _ in range(3))
+    t = torch.from_numpy(rng.uniform(0.1, 0.9, 16).astype(np.float32)).to(dev)
+    captured = []
+    real = warp_kernel.warp_bilinear_backward
+
+    def keep(x):
+        if 0 in x.stride():  # an expanded gradient: no elements of its own to copy
+            return x
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
+
+    def capture(img, flow, grad_out, zeros=False, img_grad=True):
+        captured.append((keep(img), keep(flow), keep(grad_out), zeros, img_grad))
+        return real(img, flow, grad_out, zeros, img_grad)
+
+    warp_kernel.warp_bilinear_backward = capture
+    try:
+        step(f0, f1, t, target)
+        torch.cuda.synchronize()
+    finally:
+        warp_kernel.warp_bilinear_backward = real
+    return captured
+
+
+def backward_section(dev, old_fn: Callable, card: str) -> Dict:
+    """The backward op and kernel, old and new, in turns (the module's head)."""
+    g = torch.Generator().manual_seed(7)
+    cases = []
+    for shape, dtype, img_grad in (
+        ((32, 256, 256, 7), torch.float32, True), ((32, 256, 256, 7), torch.bfloat16, True),
+        ((32, 256, 256, 3), torch.float32, False), ((16, 1088, 1920, 7), torch.float32, True),
+    ):
+        img = torch.rand(shape, generator=g).to(dev, dtype)
+        grad_out = (torch.rand(shape, generator=g) * 2 - 1).to(dev, dtype)
+        flow = torch.from_numpy(smooth_flow(*shape[:3], 6.0)).to(dev, dtype)
+        key = f"{list(shape)} {str(dtype).split('.')[-1]} border, smooth flow" + ("" if img_grad else ", no image gradient")
+        cases.append((key, img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2), False, img_grad))
+    for i, (img, flow, grad_out, zeros, img_grad) in enumerate(training_backward_inputs(dev)):
+        key = f"training step warp {i}: {list(img.shape)} {str(img.dtype).split('.')[-1]}" + ("" if img_grad else ", no image gradient")
+        cases.append((key, img, flow, grad_out, zeros, img_grad))
+    result = {}
+    name = "warp_bilinear_backward_kernel"
+    for key, planes, fplanes, gplanes, zeros, img_grad in cases:
+        old = lambda: call_backward_old(old_fn, planes, fplanes, gplanes, zeros, img_grad)  # noqa: E731
+        new = lambda: warp_kernel.warp_bilinear_backward(planes, fplanes, gplanes, zeros, img_grad)  # noqa: E731
+        errs = backward_agreement(new(), old(), planes, fplanes, gplanes, zeros)
+        torch.cuda.synchronize()
+        iters = 5 if planes.numel() > 1e8 else 20
+        t = in_turns(old, new, iters)
+        turns = [device_ms(fn, iters, name) for fn in (old, new, new, old)]
+        nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+        lib = device_ms(
+            library_backward(nhwc(planes), nhwc(fplanes), nhwc(gplanes), zeros, img_grad), iters, "grid_sampler_2d_backward"
+        )
+        b = backward_bound_ms(planes, fplanes, img_grad)
+        t.update({
+            "old_device_ms": statistics.mean((turns[0], turns[3])), "new_device_ms": statistics.mean(turns[1:3]),
+            "old_device": [turns[0], turns[3]], "new_device": turns[1:3], "library_device_ms": lib,
+            "bound_ms": b[0], "bound_by": b[1], "max_abs_diff": list(errs),
+            "strides": [list(planes.stride()), list(fplanes.stride()), list(gplanes.stride())],
+        })
+        result[key] = t
+        print(
+            f"backward {card}: {key}: op old {t['old_ms']:.4f} ms {t['old']}, new {t['new_ms']:.4f} ms {t['new']}, "
+            f"{t['old_ms'] / t['new_ms']:.2f}x; kernel on the device old {t['old_device_ms']:.4f} {t['old_device']}, new "
+            f"{t['new_device_ms']:.4f} {t['new_device']}; grid_sampler_2d_backward {lib:.4f} on the device; bound {b[0]:.4f} "
+            f"({b[1]}), the new op at {100 * b[0] / t['new_ms']:.1f} % of it; max diff (grad_img, grad_flow) "
+            f"{errs[0]:.3g}, {errs[1]:.3g}",
+            flush=True,
+        )
+        del planes, fplanes, gplanes
+    return result
+
+
+def library_backward(img, flow, grad_out, zeros: bool, img_grad: bool = True) -> Callable:
+    """``aten.grid_sampler_2d_backward`` computing the warp's gradients of
+    NHWC ``img`` by ``flow`` for ``grad_out`` on a precomputed grid (the
+    grid's alone without ``img_grad``): the library yardstick, which the
+    port never calls."""
+    planes, gplanes = img.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2)
+    n, _, h, w = planes.shape
+    gx = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
+    gy = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1).to(img.dtype)
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(gplanes, planes, grid, 0, 0 if zeros else 1, True, [img_grad, True])
+
+
 def m2m_splat_inputs(dev) -> Tuple[torch.Tensor, torch.Tensor]:
     """The inputs of the one splat of an M2M 1080p bf16 batch-2 forward."""
     captured = {}
@@ -453,6 +636,11 @@ def main(argv=None) -> int:
                 print(f"threshold {card}: {key} ({c * dtype.itemsize} B a pixel): tiled {t['old_ms']:.4f} ms {t['old']}, "
                       f"wide {t['new_ms']:.4f} ms {t['new']}; routed to {warp_kernel.route(planes.shape, planes.stride(), dtype)}",
                       flush=True)
+
+    if "backward" in sections:
+        old_backward = bind(libs["warp", parent_csrc], "cfi_warp_bilinear_backward", BACKWARD_OLD_ARGS)
+        result["backward"] = backward_section(dev, old_backward, card)
+        torch.cuda.empty_cache()
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -65,7 +65,16 @@ The backward kernel (``warp_kernel.warp_bilinear_backward``) against its
 plain version ``ops.warp.warp_backward_torch`` on every flow case, border
 and zeros, f32, bf16 and f16 (flow in f32), on samples exactly on each bound
 (the clamp's derivative 0.5), on the wide cases as ``channels_last`` views
-(a channel slice among them) and with ``img_grad=False``. Tolerances: f32
+(a channel slice among them) and with ``img_grad=False``; and on the cases
+that its merges and channel padding could break (``warp_cases.backward_cases``
+at 256x512: C = 1 to 40, ragged 68x92 and 137x261 frames, integer and
+half-pixel constant offsets, rough and discontinuous flow, a pile of 256
+samples on each tap), f32, bf16 and f16, each also without the image's
+gradient (the flow's bit for bit the same); on NCHW planes,
+``channels_last``, a channel slice with an odd start and an expanded
+``grad_out`` (the vector widths each layout allows); what it returns
+(an f32 image gradient as a view of the padded buffer, a bf16 one in the
+image's layout, the flow's in the flow's). Tolerances: f32
 within 1e-5 of each gradient's largest magnitude plus 1e-6 (the image's
 gradient sums with f32 atomics, in an order that changes from run to run,
 and so does the plain version's scatter; the flow's sums its channels in
@@ -518,6 +527,77 @@ def test_backward_kernel_without_the_image_gradient(cuda):
     _, ref = warp_kernel.warp_bilinear_backward(*args)
     torch.cuda.synchronize()
     assert gi is None and torch.equal(gf, ref)
+
+
+BACKWARD = warp_cases.backward_cases(0, 256, 512)
+BACKWARD_MODES = [(c["name"], m) for c in BACKWARD for m in c["modes"]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name,mode", BACKWARD_MODES)
+def test_backward_kernel_on_backward_cases(cuda, name, mode, dtype):
+    case = next(c for c in BACKWARD if c["name"] == name)
+    img = torch.from_numpy(case["img"]).to(cuda, dtype)
+    flow = torch.from_numpy(case["flow"]).to(cuda)
+    gf = _backward_vs_plain(img, flow, mode, seed=4)
+    grad_out = (torch.rand(img.shape, generator=torch.Generator().manual_seed(4)) * 2 - 1).to(cuda, dtype)
+    gi, gf_alone = warp_kernel.warp_bilinear_backward(
+        img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2), mode == "zeros", img_grad=False
+    )
+    torch.cuda.synchronize()
+    assert gi is None and torch.equal(gf_alone.permute(0, 2, 3, 1), gf)
+
+
+def _layout(kind, img):
+    """NHWC ``img`` (``[N, H, W, C]``) in the layout ``kind``, as an NHWC view."""
+    n, h, w, c = img.shape
+    if kind == "nchw_planes":
+        return img.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    if kind == "channel_slice_odd":
+        base = torch.zeros(n, h, w, c + 1, dtype=img.dtype, device=img.device)
+        base[..., 1:] = img
+        return base[..., 1:]
+    return img  # channels_last
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("c", [3, 4, 7, 8])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw_planes", "channel_slice_odd", "expanded_grad_out"])
+def test_backward_kernel_layouts(cuda, layout, c, mode, dtype):
+    gen = torch.Generator().manual_seed(c)
+    img = torch.rand(2, 64, 96, c, generator=gen).to(cuda, dtype)
+    flow = torch.from_numpy(warp_cases.smooth_flow(2, 64, 96, 4.0, 16.0)).to(cuda)
+    grad_out = None
+    if layout == "expanded_grad_out":
+        grad_out = (torch.rand(1, 1, 1, c, generator=gen) * 2 - 1).to(cuda, dtype).expand(img.shape)
+    else:
+        img = _layout(layout, img)
+    planes = img.permute(0, 3, 1, 2)
+    g = grad_out if grad_out is not None else _layout(layout, (torch.rand(img.shape, generator=gen) * 2 - 1).to(cuda, dtype))
+    gi, gf = warp_kernel.warp_bilinear_backward(planes, flow.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), mode == "zeros")
+    ri, rf = warp_backward_torch(img, flow, g, mode)
+    _assert_grad_close(gi.permute(0, 2, 3, 1), ri, dtype)
+    _assert_grad_close(gf.permute(0, 2, 3, 1), rf, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("c", [3, 7, 8])
+def test_backward_returns(cuda, c, dtype):
+    img = torch.rand(2, 40, 72, c, device=cuda).to(dtype)
+    flow = torch.from_numpy(warp_cases.smooth_flow(2, 40, 72, 3.0)).to(cuda, torch.bfloat16)
+    planes, fplanes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+    gi, gf = warp_kernel.warp_bilinear_backward(planes, fplanes, torch.ones_like(planes))
+    torch.cuda.synchronize()
+    assert gi.shape == planes.shape and gi.dtype == dtype and gf.shape == fplanes.shape and gf.dtype == torch.bfloat16
+    cp = warp_kernel.padded_channels(c)
+    if dtype == torch.float32:
+        # a view of the zeroed f32 buffer [N, H, W, Cp]: no pass after the kernel
+        assert gi.stride() == (40 * 72 * cp, 1, 72 * cp, cp)
+    else:
+        # the one cast, into the image's layout
+        assert gi.stride() == planes.stride()
+    assert gf.stride() == fplanes.stride()
 
 
 @pytest.mark.parametrize("shape,prefer_wide,body", [((2, 64, 96, 7), False, "tiled"), ((2, 64, 96, 64), True, "wide")])

@@ -21,6 +21,7 @@ kernel, on the CPU.
   counted per forward on the CPU with the rule applied to each warp's input.
 """
 
+import os
 from unittest import mock
 
 import numpy as np
@@ -261,3 +262,19 @@ def test_ptxas_summary_reads_registers_and_spills():
         "warp_bilinear_tiled_kernel: 40 regs 4160 B smem no spills",
         "softsplat_kernel: 255 regs 0 B smem 8/4 B spilled",
     ]
+
+
+def test_library_path_follows_the_source_and_its_headers(tmp_path):
+    """A kernel library is named by its source and the headers beside it
+    (``csrc/scatter.cuh``, which the warp and splat sources include), so an
+    edit of either builds a new library."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = cuda_build.library_path("k", str(tmp_path))
+    assert cuda_build.library_path("k", str(tmp_path)) == first
+    assert os.path.basename(first).startswith("libk-") and first.endswith(".so")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = cuda_build.library_path("k", str(tmp_path))
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert cuda_build.library_path("k", str(tmp_path)) not in (first, second)

@@ -11,6 +11,10 @@ only (``warp_xla`` builds its grid in the flow's dtype):
 * samples exactly on each bound of the frame, where JAX's ``jnp.clip``
   gives the derivative 0.5 (``torch.clamp`` would give 1);
 * integer flows (every sample on a pixel);
+* the backward kernel's cases that those lack (``warp_cases.backward_cases``
+  at 32x64): a pile of 256 samples on each of four taps, a half-pixel
+  constant offset, and C = 8 and 9 (the edges of the kernel's channel
+  padding to a multiple of 4 and of its groups of 8 channels);
 * zeros mode with non-finite flow: ``warp_xla`` gives NaN there (and
   scatters NaN into the image's gradient at the taps it clamped to), the
   port gives zero gradients, so those pixels are masked, as the forward
@@ -21,6 +25,10 @@ image's gradient within 2e-6 (a few products summed in another order than
 XLA's scatter; measured 0 on these cases); the flow's within 1e-5 of the
 largest magnitude of its case plus 1e-6 (a sum of up to 40 channels'
 products in another order; measured 3.9e-7 of it).
+
+The backward wrapper's host-side helpers are checked here too: the
+padded channel count of its image-gradient buffer and the vector width in
+which it reads each input.
 
 On the card the backward kernel is held to this plain version in
 ``tests/test_torch_cuda_warp.py``; a splat with an input that needs a
@@ -46,6 +54,7 @@ FLOW_ATOL = 1e-6
 
 CASES = warp_cases.warp_cases(3, 32, 64)
 CASE_MODES = [(c["name"], m) for c in CASES for m in c["modes"]]
+BACKWARD_CASES = {c["name"]: c for c in warp_cases.backward_cases(4, 32, 64)}
 
 
 def _jax_grads(img, flow, g, mode):
@@ -109,6 +118,39 @@ def test_backward_integer_flows_matches_jax(mode):
     img = rng.random((2, 16, 40, 7), dtype=np.float32)
     flow = rng.integers(-5, 6, (2, 16, 40, 2)).astype(np.float32)
     _compare(img, flow, mode, seed=7)
+
+
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("name", ["bwd_pile_c7", "bwd_half_offset_c7", "bwd_c8", "bwd_c9"])
+def test_backward_kernel_cases_match_jax(name, mode):
+    case = BACKWARD_CASES[name]
+    _compare(case["img"], case["flow"], mode, seed=13)
+
+
+def test_padded_channels():
+    assert [warp_kernel.padded_channels(c) for c in (1, 2, 3, 4, 5, 7, 8, 9, 16, 40)] == [4, 4, 4, 4, 8, 8, 8, 12, 16, 40]
+
+
+@pytest.mark.parametrize(
+    "c,strides,itemsize,address,expected",
+    [
+        (8, (8 * 64 * 32, 1, 8 * 64, 8), 4, 0, 16),  # channels_last f32, C = 8: whole float4s
+        (7, (7 * 64 * 32, 1, 7 * 64, 7), 4, 0, 4),  # C = 7 f32: 28-byte pixels, elements
+        (3, (3 * 64 * 32, 1, 3 * 64, 3), 4, 0, 4),
+        (2, (2 * 64 * 32, 1, 2 * 64, 2), 4, 0, 8),  # 8-byte pixels
+        (8, (8 * 64 * 32, 1, 8 * 64, 8), 2, 0, 16),  # bf16 C = 8
+        (4, (4 * 64 * 32, 1, 4 * 64, 4), 2, 0, 8),
+        (8, (8 * 64 * 32, 1, 8 * 64, 8), 4, 8, 8),  # an address 8 bytes off 16
+        (8, (8 * 64 * 32, 1, 8 * 64, 8), 4, 4, 4),  # a channel slice with an odd start
+        (8, (10 * 64 * 32, 1, 10 * 64, 10), 4, 0, 8),  # pixel stride 10 f32: 40 bytes
+        (8, (8 * 64 * 32, 64 * 32, 64, 1), 4, 0, 4),  # NCHW planes
+        (8, (0, 1, 0, 0), 4, 0, 16),  # expanded over N, H, W
+        (8, (0, 0, 0, 0), 4, 0, 4),  # expanded over C too
+        (1, (64 * 32, 64 * 32, 64, 1), 4, 0, 4),  # one channel
+    ],
+)
+def test_vector_bytes(c, strides, itemsize, address, expected):
+    assert warp_kernel.vector_bytes(c, strides, itemsize, address) == expected
 
 
 def test_backward_nonfinite_zeros_matches_jax_where_finite():

@@ -25,6 +25,17 @@ bytes, extreme and non-finite flow.
 :func:`bound_flow` puts samples exactly on each bound of the frame, where
 the border clamp's derivative is JAX's 0.5, for the warp's gradient.
 
+:func:`backward_cases` are the cases of the warp's backward kernel, which
+merges the taps that neighbouring pixels share before its atomics and adds
+them into a buffer whose channels are padded to a multiple of 4: every
+width the padding and the channel groups meet (C = 1, 2, 3, 4, 5, 7, 8, 9,
+16, 40), ragged frames that end in the middle of its 32x8 tiles (68x92,
+137x261), integer and half-pixel constant offsets (every pair of
+neighbours merges; the integer one leaves three taps of weight 0), rough
+(+-40 px) and discontinuous flow (few merge), and a pile whose 16x16
+blocks of pixels all sample one point (256 samples on each of its four
+taps).
+
 :func:`splat_cases` re-creates the splat cases of
 ``tests/test_pallas_kernels.py:215-319``: smooth flow, the constant
 displacements that took the extra bands and the corners of the single-band
@@ -140,6 +151,55 @@ def bound_flow(b: int, h: int, w: int) -> np.ndarray:
     flow[3 * q : 4 * q, :, 0] = 0.25
     flow[4 * q :, :, 1] = (h - 1) - gy[4 * q :]
     return np.broadcast_to(flow, (b, h, w, 2)).copy()
+
+
+BACKWARD_CHANNELS = (1, 2, 3, 4, 5, 7, 8, 9, 16, 40)
+
+
+def pile_flow(b: int, h: int, w: int, block: int = 16) -> np.ndarray:
+    """``[b, h, w, 2]`` flow that sends every pixel of each ``block`` x
+    ``block`` block to one point near the block's centre, a quarter pixel
+    right and half a pixel down of a pixel: all four taps of weight > 0."""
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    half = block // 2
+    flow = np.stack([(gx // block) * block + half + 0.25 - gx, (gy // block) * block + half + 0.5 - gy], -1)
+    return np.broadcast_to(flow, (b, h, w, 2)).astype(np.float32)
+
+
+def backward_cases(seed: int, h: int, w: int) -> List[Dict]:
+    """``[{"name", "img" [B,H,W,C] f32, "flow" [B,H,W,2] f32, "modes"}]``
+    for the warp's backward kernel at ``h x w``; the ragged cases keep their
+    own 68x92 and 137x261 frames."""
+    rng = np.random.default_rng(seed)
+
+    def img(b, hh, ww, c):
+        return rng.random((b, hh, ww, c), dtype=np.float32)
+
+    def smooth(b, hh, ww):
+        return smooth_flow(b, hh, ww, 4.0, max(8.0, ww / 6.0)) + (rng.standard_normal((b, hh, ww, 2)) * 0.5).astype(np.float32)
+
+    def const(fx, fy):
+        return np.broadcast_to(np.array([fx, fy], np.float32), (1, h, w, 2)).copy()
+
+    disc = np.zeros((1, h, w, 2), np.float32)
+    disc[:, :, : w // 2] = [12.5, 3.25]
+    disc[:, :, w // 2 :] = [-12.5, -3.25]
+    cases = [dict(name=f"bwd_c{c}", img=img(2, h, w, c), flow=smooth(2, h, w), modes=BORDER_ZEROS) for c in BACKWARD_CHANNELS]
+    cases += [
+        dict(name="bwd_ragged_68x92_c7", img=img(2, 68, 92, 7), flow=smooth(2, 68, 92), modes=BORDER_ZEROS),
+        dict(name="bwd_ragged_137x261_c9", img=img(1, 137, 261, 9), flow=smooth(1, 137, 261), modes=BORDER_ZEROS),
+        dict(name="bwd_integer_offset_c7", img=img(1, h, w, 7), flow=const(3.0, -2.0), modes=BORDER_ZEROS),
+        dict(name="bwd_half_offset_c7", img=img(1, h, w, 7), flow=const(2.5, -1.5), modes=BORDER_ZEROS),
+        dict(
+            name="bwd_rough_c7",
+            img=img(1, h, w, 7),
+            flow=(rng.standard_normal((1, h, w, 2)) * 40.0).astype(np.float32),
+            modes=BORDER_ZEROS,
+        ),
+        dict(name="bwd_discontinuity_c3", img=img(1, h, w, 3), flow=disc, modes=BORDER_ZEROS),
+        dict(name="bwd_pile_c7", img=img(1, h, w, 7), flow=pile_flow(1, h, w), modes=BORDER_ZEROS),
+    ]
+    return cases
 
 
 # bf16 vectors: 16 bytes at C = 16, 24, 32, 64, 192, 448, 960; 8 at 20, 36,
