@@ -394,8 +394,42 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    algorithms) within phase 49's card-against-CPU tolerance, the updates
    where |g| is over half its tensor's largest within 1e-7; K1 4 and the
    backward kernel 4 per shard; ``parallel.train.dryrun(torch.cuda.device_count())``.
+52. splat backward -- the splat's backward kernel
+   (``softsplat_bilinear_backward``) against its plain version
+   (``ops.softsplat.softsplat_backward_torch``): the splat cases and
+   ``warp_cases.splat_backward_cases`` at 256x512 (integer and half-pixel
+   constant offsets, targets exactly on -1, 0, w - 1 and w, non-finite and
+   huge flow), f32 and bf16, f16 once; C = 1-8 and 65, GMFSS's 193 and
+   EISAI's 258 and 514 at their sizes; NCHW planes, an odd channel slice
+   and an expanded ``grad_out``; the flow's gradient alone too (the same
+   bits);
+   the launches of one M2M training step at phase 53's size, and of one
+   GMFSS base and one EISAI step at 64x64, as the steps hand them over;
+   ``softsplat_func`` with a gradient through ``SplatFunction`` (no twin),
+   a direct ``softsplat_bilinear`` with one raising. Tolerances: the
+   input's gradient within 4 f32 ulps of the sum of its absolute
+   contributions, the flow's within 1e-5 of its largest magnitude plus
+   1e-6; bf16/f16 one ulp more; two launches bit for bit (no atomics);
+53. m2m train -- one ``make_train_step`` step of M2M (seed 0, L1, Adam 1e-4)
+   at b2 x 256x256 f32, TF32 off, cuDNN deterministic: through the kernels
+   against the same step with M2M's warps and splat on the plain twins
+   (the loss within 1e-6 relative, every gradient within 1e-4 of its
+   tensor's largest) and against the CPU with phase 49's rule (the updates
+   within 1e-7 plus one f32 ulp of a parameter in [8, 16)); the launches
+   exactly K1 4, wide 16, splat 1, the warp's backward 20 and the splat's
+   1, and no CUDA warp or splat that needs a gradient reaching a twin;
+54. m2m train timing -- M2M training at b8 x 256x256 (crops of Vimeo-90K's
+   448x256 triplets), f32 (TF32 at torch's defaults) and bf16, as phase 50:
+   steps/s and samples/s, the windows' spread, the peak memory of one step,
+   a profile of one f32 step with the splat backward's device ms and
+   share; at ``[64, 256, 256, 4]`` f32 and bf16 (the step's splat) and
+   ``[16, 1088, 1920, 4]`` f32, in turns, the backward op's ms, the
+   plain version's and two library calls' (``F.grid_sample`` for the
+   input's gradient, ``aten.grid_sampler_2d_backward`` for the flow's),
+   the kernel's device ms and its bound (values, flow and the f32
+   grad_out read once, both gradients written once).
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -424,7 +458,12 @@ FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
 (``library_ms``), ``by_shape`` (phase 50's four rows),
 ``per_step`` (one f32 training step's launches, device ms and bound) and
-``training`` (phase 50's rows).
+``training`` (phase 50's rows). The fifth, ``softsplat_bilinear_backward``,
+gives its ms at ``[64, 256, 256, 4]`` f32 beside two library calls'
+(``library_ms``), ``by_shape`` (phase 54's three rows), ``per_step`` (one
+f32 M2M step's launch), ``training`` (phase 54's rows) and
+``other_steps`` (phase 52's GMFSS and EISAI steps); every kernel's
+``launches_by_path`` holds phase 53's step as ``m2m_train``.
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -526,6 +565,7 @@ KERNEL_BODIES = {
     "warp_bilinear_wide": ("warp_bilinear_wide_kernel",),
     "softsplat": ("softsplat_kernel",),
     "warp_bilinear_backward": ("warp_bilinear_backward_kernel",),
+    "softsplat_bilinear_backward": ("softsplat_backward_kernel",),
 }
 # RIFE 4.7 training (ECCV2022-RIFE: random 224x224 crops of Vimeo-90K
 # triplets, batch 16), padded to 256x256 inside apply: the warp of both
@@ -533,6 +573,15 @@ KERNEL_BODIES = {
 TRAIN_BATCH, TRAIN_HW = 16, (224, 224)
 TRAIN_WARP_SHAPE = (32, 256, 256, 7)
 TRAIN_CHECK_HW = (256, 256)  # phase 49: card against CPU at b2
+# M2M training (256x256 crops of Vimeo-90K's 448x256 triplets, a multiple of
+# M2M's pad of 64): phase 53 card against CPU at b2, phase 54 timing at b8;
+# the step's splat, [2 directions x b8 x 4 branches, H, W, 3 + 1]
+M2M_TRAIN_BATCH, M2M_TRAIN_HW = 8, (256, 256)
+M2M_TRAIN_SPLAT_SHAPE = (64, 256, 256, 4)
+# one M2M training step's launches: K1, wide and the splat forward; the
+# warp's backward once per warp (each warp's flow needs a gradient) and the
+# splat's once
+M2M_TRAIN_LAUNCHES = {"narrow": 4, "wide": 16, "splat": 1, "backward": 20, "splat_backward": 1}
 
 
 class SmokeFailure(RuntimeError):
@@ -621,6 +670,101 @@ def grad_within(got, ref, tol, dtype):
         tol = tol + torch.ldexp(torch.ones_like(r), exp - (8 if dtype == torch.bfloat16 else 11))
     err = (g - r).abs()
     return bool((err <= tol).all()), err.max().item()
+
+
+def splat_backward_work(planes, flow_planes, in_grad=True):
+    """Bytes and f32 operations of one splat backward of ``[N, C, H, W]``
+    planes: the f32 output gradient, the values and the flow read once, the
+    flow's gradient and (with ``in_grad``) the values' written once, each in
+    its own dtype; 16 operations per channel (the input's gradient, 4
+    products and 4 sums; the corners' sums for the flow's, 8) and 30 per
+    source (coordinates, weights, the flow's gradient)."""
+    n, c, h, w = planes.shape
+    vbytes, fbytes = planes.numel() * planes.element_size(), flow_planes.numel() * flow_planes.element_size()
+    nbytes = 4 * planes.numel() + vbytes + 2 * fbytes + (vbytes if in_grad else 0)
+    return nbytes, n * h * w * (16 * c + 30)
+
+
+def splat_backward_vs_plain(vals, flow, what, grad_out=None, seed=0, in_grad=True):
+    """The splat's backward kernel against its plain version
+    (``ops.softsplat.softsplat_backward_torch``) on NHWC ``vals`` and
+    ``flow`` and an f32 output gradient (uniform in [-1, 1] from ``seed``
+    unless given; any strides). Tolerances: the input's gradient within 4
+    f32 ulps of the sum of its absolute contributions (at most four
+    products, summed in another order); the flow's within 1e-5 of its
+    largest magnitude plus 1e-6 (channel sums in another order); bf16/f16
+    one ulp of the output more. The kernel has no atomics: a second launch
+    must give the same bits, and so must a launch that computes the
+    flow's gradient without the input's. Returns the f32 max abs errors
+    ``(grad_in, grad_flow)``."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_backward_torch
+
+    if grad_out is None:
+        g = torch.Generator().manual_seed(seed)
+        grad_out = (torch.rand(vals.shape, generator=g) * 2 - 1).to(vals.device)
+    args = (vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2))
+    gi, gf = softsplat_kernel.softsplat_bilinear_backward(*args, in_grad)
+    again = softsplat_kernel.softsplat_bilinear_backward(*args, in_grad)
+    ri, rf = softsplat_backward_torch(vals, flow, grad_out)
+    contributions, _ = softsplat_backward_torch(vals.float(), flow.float(), grad_out.abs())
+    torch.cuda.synchronize()
+    shape = f"{list(vals.shape)} {str(vals.dtype).split('.')[-1]}, {str(flow.dtype).split('.')[-1]} flow"
+    err_i = 0.0
+    if in_grad:
+        ok_i, err_i = grad_within(gi.permute(0, 2, 3, 1), ri, 4 * 2.0**-23 * contributions, vals.dtype)
+        check(ok_i, f"splat backward kernel vs plain, {what} {shape}: grad_in max err {err_i}")
+        check(torch.equal(gi, again[0]), f"splat backward {what} {shape}: grad_in differs between two launches")
+        no_i, gf_alone = softsplat_kernel.softsplat_bilinear_backward(*args, False)
+        check(no_i is None and torch.equal(gf_alone, gf), f"splat backward {what} {shape}: the flow's gradient alone differs")
+    ok_f, err_f = grad_within(gf.permute(0, 2, 3, 1), rf, 1e-5 * rf.float().abs().max().item() + 1e-6, flow.dtype)
+    check(ok_f, f"splat backward kernel vs plain, {what} {shape}: grad_flow max err {err_f}")
+    check(torch.equal(gf, again[1]), f"splat backward {what} {shape}: grad_flow differs between two launches")
+    return err_i, err_f
+
+
+def splat_backward_library_call(vals, flow, grad_out):
+    """The splat's gradients of NHWC ``vals`` by ``flow`` for the f32
+    ``grad_out`` in two library calls on a precomputed grid (no single
+    PyTorch call computes them): ``F.grid_sample`` of ``grad_out`` at the
+    targets, zeros padding (the input's gradient), and
+    ``aten.grid_sampler_2d_backward`` of the values against ``grad_out``
+    with ``output_mask=[False, True]`` (the flow's). The library yardstick,
+    which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    gplanes = grad_out.permute(0, 3, 1, 2)
+    planes = vals.permute(0, 3, 1, 2).float()  # the library call takes one dtype: f32, cast before timing
+    n, _, h, w = gplanes.shape
+    gx = torch.arange(w, device=vals.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
+    gy = torch.arange(h, device=vals.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1)
+
+    def call():
+        F.grid_sample(gplanes, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+        torch.ops.aten.grid_sampler_2d_backward(planes, gplanes, grid, 0, 0, True, [False, True])
+
+    return call
+
+
+def m2m_trainer(device, dtype, mesh=None):
+    """An M2M module from ``init_params(0)`` on ``device`` in ``dtype``
+    (``channels_last``), an Adam 1e-4 over it and
+    ``parallel.make_train_step(m2m.apply, ...)`` on ``mesh`` (one device by
+    default): ``(net, step)``."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch import parallel
+    from comfyui_frame_interpolation_tpu_torch.models import m2m
+    from comfyui_frame_interpolation_tpu_torch.models.common import cast_params
+
+    net = m2m.M2M_PWC()
+    net.load_state_dict(cast_params(m2m.init_params(0), dtype), strict=True)
+    net = net.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+    mesh = mesh or parallel.make_mesh(1, devices=[torch.device(device)])
+    step = parallel.make_train_step(m2m.apply, torch.optim.Adam(net.parameters(), lr=1e-4), mesh, net)
+    return net, step
 
 
 def backward_vs_plain(img, flow, mode, what, grad_out=None, seed=0):
@@ -742,11 +886,15 @@ def recorded_work(log):
     def record_backward(x, flow, grad_out, zeros=False, img_grad=True):
         log.append(("warp_bilinear_backward", *backward_work(x, flow, img_grad), launch_layout(x, flow, bool(zeros))))
 
+    def record_splat_backward(x, flow, grad_out, in_grad=True):
+        log.append(("softsplat_bilinear_backward", *splat_backward_work(x, flow, in_grad), launch_layout(x, flow, False)))
+
     return spying([
         (warp_kernel, "warp_bilinear", record("warp_bilinear", warp_work)),
         (warp_kernel, "warp_bilinear_wide", record("warp_bilinear_wide", warp_work)),
         (softsplat_kernel, "softsplat_bilinear", record("softsplat", splat_work)),
         (warp_kernel, "warp_bilinear_backward", record_backward),
+        (softsplat_kernel, "softsplat_bilinear_backward", record_splat_backward),
     ])
 
 
@@ -1116,7 +1264,7 @@ def main() -> int:
     from comfyui_frame_interpolation_tpu_torch.ops.sepconv import sepconv_func
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import build, softsplat_kernel, warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import (
-        function_softsplat, softsplat, softsplat_func, softsplat_torch,
+        function_softsplat, softsplat, softsplat_backward_torch, softsplat_func, softsplat_torch,
     )
     from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_backward_torch, warp_torch
     from comfyui_frame_interpolation_tpu_torch.core.config import load_config
@@ -3341,10 +3489,12 @@ def main() -> int:
         torch.cuda.synchronize()
         warp_mod.warp_torch = guarded_twin
         warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = softsplat_kernel.launches = 0
+        softsplat_kernel.backward_launches = 0
         trained["cuda"] = train_once("cuda")
         torch.cuda.synchronize()
         train_launches = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches,
-                          "backward": warp_kernel.backward_launches, "splat": softsplat_kernel.launches}
+                          "backward": warp_kernel.backward_launches, "splat": softsplat_kernel.launches,
+                          "splat_backward": softsplat_kernel.backward_launches}
         trained["cpu"] = train_once("cpu")
         # the card's own spread: two more runs with cuDNN's default algorithms
         torch.backends.cudnn.deterministic = det
@@ -3353,7 +3503,7 @@ def main() -> int:
         warp_mod.warp_torch = real_twin
         torch.backends.cudnn.deterministic = det
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    check(train_launches == {"narrow": 4, "wide": 0, "backward": 4, "splat": 0},
+    check(train_launches == {"narrow": 4, "wide": 0, "backward": 4, "splat": 0, "splat_backward": 0},
           f"one RIFE 4.7 training step launched {train_launches}, expected K1 4 and the backward kernel 4")
     (loss_gpu, grads_gpu, deltas_gpu), (loss_cpu, grads_cpu, deltas_cpu) = trained["cuda"], trained["cpu"]
     loss_twin, grads_twin, _ = trained["twin"]
@@ -3599,10 +3749,12 @@ def main() -> int:
             net, step = rife_trainer(dev, torch.float32, mesh=m)
             before = {k: v.detach().clone() for k, v in net.named_parameters()}
             warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = softsplat_kernel.launches = 0
+            softsplat_kernel.backward_launches = 0
             loss = step(*batch).item()
             torch.cuda.synchronize()
             counts = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches,
-                      "backward": warp_kernel.backward_launches, "splat": softsplat_kernel.launches}
+                      "backward": warp_kernel.backward_launches, "splat": softsplat_kernel.launches,
+                      "splat_backward": softsplat_kernel.backward_launches}
             stepped[key] = (loss, {k: v.grad.cpu() for k, v in net.named_parameters()},
                             {k: (v.detach() - before[k]).cpu() for k, v in net.named_parameters()}, counts)
             del net, step
@@ -3625,7 +3777,7 @@ def main() -> int:
         for k, gk in grads1.items()
     )
     check(t2_upd <= 1e-3 * 1e-4 + 2.0**-23, f"2-way step updates vs the one-device step at batch 2: max err {t2_upd:.3g}")
-    check(train2_launches == {"narrow": 8, "wide": 0, "backward": 8, "splat": 0},
+    check(train2_launches == {"narrow": 8, "wide": 0, "backward": 8, "splat": 0, "splat_backward": 0},
           f"the 2-way training step launched {train2_launches}, expected K1 4 and the backward kernel 4 per shard")
     del stepped, grads1, grads2, grads_a, grads_b, deltas1, deltas2
     with contextlib.redirect_stdout(io.StringIO()) as dry_out:
@@ -3647,6 +3799,308 @@ def main() -> int:
         flush=True,
     )
     del rife16, pclip, ref_out, ref1_out, sh_out, sh2_out, reuse_fn, infer_fn, mclip, m_refs, m_sh, m_sh2, m_ref1
+
+    # ---- 52. the splat's backward kernel against its plain version ------------------
+    t0 = time.perf_counter()
+    sb_errs, n_sb = {}, 0
+
+    def sb_worst(key, errs):
+        sb_errs[key] = tuple(max(a, b) for a, b in zip(sb_errs.get(key, (0.0, 0.0)), errs))
+
+    dname = lambda t: str(t).split(".")[-1]  # noqa: E731
+    for case in warp_cases.splat_cases(0, 256, 512) + warp_cases.splat_backward_cases(1, 256, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            vals = torch.from_numpy(case["vals"]).to(dev, dtype)
+            sb_worst(f"splat cases {dname(dtype)}", splat_backward_vs_plain(vals, torch.from_numpy(case["flow"]).to(dev), case["name"]))
+            n_sb += 1
+    f16_case = next(c for c in warp_cases.splat_backward_cases(1, 256, 512) if c["name"] == "splat_bwd_c5")
+    sb_worst("f16 values and flow", splat_backward_vs_plain(
+        torch.from_numpy(f16_case["vals"]).to(dev, torch.float16), torch.from_numpy(f16_case["flow"]).to(dev, torch.float16), "f16"))
+    n_sb += 1
+    # the lane groups and channel tails: C = 1-8 and 65 at 256x512, GMFSS's
+    # and EISAI's widest at their 1080p / 540p sizes
+    for shape in [(2, 256, 512, c) for c in (1, 2, 3, 4, 5, 6, 7, 8, 65)] + [GMFSS_SPLAT_SHAPES[3], *EISAI_SPLAT_SHAPES[2:]]:
+        wflow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], 6.0, scale=40.0)).to(dev) + torch.randn(*shape[:3], 2, generator=g).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            vals = torch.rand(shape, generator=g).to(dev, dtype)
+            sb_worst(f"widths {dname(dtype)}", splat_backward_vs_plain(vals, wflow, f"C = {shape[3]}"))
+            n_sb += 1
+    # layouts: NCHW planes, a channel slice with an odd start, an expanded
+    # grad_out (stride 0, as a branch sum's gradient can be)
+    for c in (4, 7, 65):
+        lvals = torch.rand(2, 256, 512, c, generator=g).to(dev)
+        lflow = torch.from_numpy(warp_cases.smooth_flow(2, 256, 512, 6.0)).to(dev)
+        lgout = (torch.rand(lvals.shape, generator=g) * 2 - 1).to(dev)
+        sliced = torch.zeros(2, 256, 512, c + 1, device=dev)
+        sliced[..., 1:] = lvals
+        layouts = {
+            "nchw planes": (lvals.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), lgout.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)),
+            "odd channel slice": (sliced[..., 1:], lgout),
+            "expanded grad_out": (lvals, lgout[:1, :1, :1].expand(lvals.shape)),
+        }
+        for what, (v_, go_) in layouts.items():
+            sb_worst("layouts float32", splat_backward_vs_plain(v_, lflow, f"{what} C = {c}", grad_out=go_))
+            n_sb += 1
+    del lvals, lflow, lgout, sliced, layouts
+    # a CUDA splat that needs a gradient goes through SplatFunction (the
+    # twin is never called); a direct call of the forward wrapper with such
+    # an input raises, naming softsplat_func
+    splat_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.softsplat")  # also a function's name
+    real_splat_twin = splat_mod.softsplat_torch
+
+    def guarded_splat_twin(x, flow):
+        check(not (x.is_cuda and torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad)),
+              "a CUDA splat that needs a gradient reached the plain twin")
+        return real_splat_twin(x, flow)
+
+    rvals = torch.rand(1, 64, 64, 4, generator=g).to(dev).requires_grad_()
+    rflow = (torch.randn(1, 64, 64, 2, generator=g) * 3).to(dev).requires_grad_()
+    splat_mod.softsplat_torch = guarded_splat_twin
+    try:
+        before = (softsplat_kernel.launches, softsplat_kernel.backward_launches)
+        torch.autograd.grad(softsplat_func(rvals, rflow).square().sum(), (rvals, rflow))
+        torch.cuda.synchronize()
+        check((softsplat_kernel.launches - before[0], softsplat_kernel.backward_launches - before[1]) == (1, 1),
+              "softsplat_func with a gradient did not launch K2 and the backward kernel once each")
+    finally:
+        splat_mod.softsplat_torch = real_splat_twin
+    try:
+        softsplat_kernel.softsplat_bilinear(rvals.permute(0, 3, 1, 2), rflow.permute(0, 3, 1, 2))
+        check(False, "softsplat_bilinear took an input that needs a gradient")
+    except NotImplementedError as e:
+        check("softsplat_func" in str(e), f"softsplat_bilinear's refusal does not name softsplat_func: {e}")
+    del rvals, rflow
+
+    def captured_splat_backwards(step_fn, *batch):
+        """The splat backward launches one training step makes, with the
+        tensors as the step hands them over (no copy: strides kept), and
+        the step's splat forward launches."""
+        store = []
+
+        def keep(ten_in, flow, grad_out, in_grad=True):
+            store.append((ten_in.detach(), flow.detach(), grad_out, in_grad))
+
+        before = softsplat_kernel.launches
+        with spying([(softsplat_kernel, "softsplat_bilinear_backward", keep)]):
+            step_fn(*batch)
+        torch.cuda.synchronize()
+        return store, softsplat_kernel.launches - before
+
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    # one M2M training step at phase 53's size
+    _, m2m_cstep = m2m_trainer(dev, torch.float32)
+    m2m_caps, m2m_cap_fwd = captured_splat_backwards(m2m_cstep, *train_batch(2, M2M_TRAIN_HW, 52, dev, torch.float32))
+    check(len(m2m_caps) == 1 and m2m_cap_fwd == 1, f"one M2M training step made {m2m_cap_fwd} splats and {len(m2m_caps)} splat backwards, expected 1 and 1")
+    m2m_bwd_layouts = []
+    for ten_in, flow, grad_out, in_grad in m2m_caps:
+        sb_worst("m2m training step", splat_backward_vs_plain(nhwc(ten_in), nhwc(flow), "M2M training step", grad_out=nhwc(grad_out),
+                                                               in_grad=in_grad))
+        m2m_bwd_layouts.append(f"values {list(nhwc(ten_in).shape)} strides {list(ten_in.stride())}, grad_out strides {list(grad_out.stride())}")
+        n_sb += 1
+    del m2m_cstep, m2m_caps
+    # one GMFSS base step and one EISAI step at their smallest legal size
+    # (64x64: GMFSS pads to multiples of 64), through make_train_step
+    other_steps = {}
+    for path, net_, apply_ in (
+        ("gmfss", gmfss._load(gmfss.init_params(0), False, torch.float32, dev), gmfss.apply),
+        ("eisai", eisai._load(eisai.init_params(0), torch.float32, dev), eisai.apply),
+    ):
+        step_ = parallel.make_train_step(apply_, torch.optim.Adam(net_.parameters(), lr=1e-4), parallel.make_mesh(1), net_)
+        caps, fwd_n = captured_splat_backwards(step_, *train_batch(1, (64, 64), 52, dev, torch.float32))
+        check(len(caps) == fwd_n > 0, f"one {path} training step made {fwd_n} splats and {len(caps)} splat backwards")
+        for ten_in, flow, grad_out, in_grad in caps:
+            sb_worst(f"{path} training step", splat_backward_vs_plain(nhwc(ten_in), nhwc(flow), f"{path} step", grad_out=nhwc(grad_out),
+                                                                    in_grad=in_grad))
+            n_sb += 1
+        other_steps[path] = {"splats": fwd_n, "splat_backwards": len(caps),
+                             "channels": sorted({int(t[0].shape[1]) for t in caps}),
+                             "in_grads": sum(bool(t[3]) for t in caps)}
+        del net_, step_, caps
+    sb_err = max(e for k, v in sb_errs.items() if "bfloat16" not in k and "f16" not in k for e in v)
+    print(
+        f"splat backward: {n_sb} runs of the splat's backward kernel against softsplat_backward_torch (splat cases and "
+        f"splat_backward_cases at 256x512 f32 and bf16, f16 once; C = 1-8, 65, 193, 258, 514; NCHW planes, an odd channel "
+        f"slice, an expanded grad_out; the flow's gradient alone too), all within tolerance and each bit for bit on a second launch; "
+        f"softsplat_func with a gradient went through SplatFunction (K2 and the backward kernel once, no twin), a direct "
+        f"softsplat_bilinear with a gradient raised; one M2M training step's splat backward ({'; '.join(m2m_bwd_layouts)}); "
+        f"GMFSS base and EISAI steps at 64x64 (their forwards differentiate on the card): "
+        + ", ".join(f"{k} {v}" for k, v in other_steps.items())
+        + "; max abs err (grad_in, grad_flow): " + ", ".join(f"{k} ({a:.3g}, {b:.3g})" for k, (a, b) in sb_errs.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 53. an M2M training step, card against the twins and the CPU ---------------
+    t0 = time.perf_counter()
+    batch53 = train_batch(2, M2M_TRAIN_HW, 53, "cpu", torch.float32)
+    real_m2m_warp, real_m2m_splat = m2m.warp, m2m.softsplat_func
+
+    def m2m_train_once(d, twin=False):
+        """One M2M step on ``d``: ``(loss, grads, updates)`` on the host. With
+        ``twin``, M2M's warps and splat call the plain twins directly
+        (autograd through them), the reference for the kernels on the same
+        card."""
+        if twin:
+            m2m.warp = lambda img, flow, padding_mode="border", prefer_wide=False: real_twin(img, flow, padding_mode)
+            m2m.softsplat_func = real_splat_twin
+        try:
+            net, step = m2m_trainer(d, torch.float32)
+            before = {k: v.detach().clone() for k, v in net.named_parameters()}
+            loss = step(*(x.to(d) for x in batch53)).item()
+        finally:
+            m2m.warp, m2m.softsplat_func = real_m2m_warp, real_m2m_splat
+        return (loss, {k: v.grad.cpu() for k, v in net.named_parameters()},
+                {k: (v.detach() - before[k]).cpu() for k, v in net.named_parameters()})
+
+    def all_counts():
+        return {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches,
+                "backward": warp_kernel.backward_launches, "splat_backward": softsplat_kernel.backward_launches}
+
+    m2m_trained = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        m2m_trained["twin"] = m2m_train_once("cuda", twin=True)
+        torch.cuda.synchronize()
+        warp_mod.warp_torch, splat_mod.softsplat_torch = guarded_twin, guarded_splat_twin
+        warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = 0
+        softsplat_kernel.launches = softsplat_kernel.backward_launches = 0
+        m2m_trained["cuda"] = m2m_train_once("cuda")
+        torch.cuda.synchronize()
+        m2m_train_launches = all_counts()
+        warp_mod.warp_torch, splat_mod.softsplat_torch = real_twin, real_splat_twin
+        m2m_trained["cpu"] = m2m_train_once("cpu")
+    finally:
+        warp_mod.warp_torch, splat_mod.softsplat_torch = real_twin, real_splat_twin
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(m2m_train_launches == M2M_TRAIN_LAUNCHES,
+          f"one M2M training step launched {m2m_train_launches}, expected {M2M_TRAIN_LAUNCHES}")
+    (mloss_gpu, mgrads_gpu, mdeltas_gpu), (mloss_cpu, mgrads_cpu, mdeltas_cpu) = m2m_trained["cuda"], m2m_trained["cpu"]
+    mloss_twin, mgrads_twin, _ = m2m_trained["twin"]
+    # the kernels against the twins inside one step on the card: K2's forward
+    # sums with f32 atomics (so do the twin's index_add_ and the warp's
+    # backward), in orders that change from run to run
+    mk_rel, mk_worst, mk_glob = grad_errs(mgrads_gpu, mgrads_twin)
+    check(math.isfinite(mloss_gpu) and abs(mloss_gpu - mloss_twin) <= 1e-6 * abs(mloss_twin),
+          f"M2M training step loss with the kernels {mloss_gpu} vs through the twins {mloss_twin} on the card")
+    check(mk_rel <= 1e-4, f"M2M training step gradients, kernels vs twins on the card: {mk_rel:.3g} of {mk_worst}'s largest, above 1e-4")
+    # card against CPU, phase 49's rule
+    mc_rel, mc_worst, mc_glob = grad_errs(mgrads_gpu, mgrads_cpu)
+    check(abs(mloss_gpu - mloss_cpu) <= 1e-5 * abs(mloss_cpu), f"M2M training step loss card {mloss_gpu} vs CPU {mloss_cpu}")
+    check(mc_rel <= 5e-2 and mc_glob <= 5e-3,
+          f"M2M training step gradients card vs CPU: {mc_rel:.3g} of {mc_worst}'s largest (at most 5e-2), {mc_glob:.3g} of the "
+          f"largest of all (at most 5e-3)")
+    mupd_err, mn_upd = 0.0, 0
+    for k, gk in mgrads_cpu.items():
+        # (the cost volumes' PReLU slopes get a zero gradient: an L1 cost
+        # volume is never negative)
+        big = gk.abs() > 0.5 * gk.abs().max()
+        if big.any():
+            mn_upd += int(big.sum())
+            mupd_err = max(mupd_err, (mdeltas_gpu[k][big] - mdeltas_cpu[k][big]).abs().max().item())
+    # 1e-3 of the learning rate, plus one f32 ulp of a parameter in [8, 16) (paramAlpha starts at 10)
+    check(mupd_err <= 1e-3 * 1e-4 + 2.0**-20, f"M2M training step updates card vs CPU: max err {mupd_err:.3g}")
+    print(
+        f"m2m train: M2M make_train_step (L1, Adam 1e-4) b2x{M2M_TRAIN_HW[0]}x{M2M_TRAIN_HW[1]} f32, TF32 off, cuDNN "
+        f"deterministic: kernels vs the plain twins on the card: loss {mloss_gpu:.7f} vs {mloss_twin:.7f}, gradients within "
+        f"{mk_rel:.3g} of each tensor's largest ({mk_worst}) and {mk_glob:.3g} of the largest of all; card vs CPU: loss "
+        f"{mloss_cpu:.7f}, gradients within {mc_rel:.3g} of each tensor's largest ({mc_worst}) and {mc_glob:.3g} of the largest "
+        f"of all, the {mn_upd} updates where |g| > 0.5 of its tensor's largest within {mupd_err:.3g}; launches "
+        f"{m2m_train_launches} (no CUDA warp or splat that needs a gradient reached a twin); phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+    del m2m_trained, mgrads_gpu, mgrads_cpu, mgrads_twin, mdeltas_gpu, mdeltas_cpu
+
+    # ---- 54. M2M training timing, and the splat backward kernel's ---------------------
+    t0 = time.perf_counter()
+    m2m_trainers = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net, step = m2m_trainer(dev, dtype)
+        m2m_trainers[dname(dtype)] = (dtype, step, train_batch(M2M_TRAIN_BATCH, M2M_TRAIN_HW, 54, dev, dtype))
+        del net
+    for _, step, batch54 in m2m_trainers.values():
+        for _ in range(3):
+            step(*batch54)
+    torch.cuda.synchronize()
+    m2m_windows = {name: [] for name in m2m_trainers}
+    for i in range(n_windows):
+        for name in (list(m2m_trainers) if i % 2 == 0 else list(m2m_trainers)[::-1]):
+            _, step, batch54 = m2m_trainers[name]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(n_steps):
+                loss = step(*batch54)
+            torch.cuda.synchronize()
+            m2m_windows[name].append(1e3 * (time.perf_counter() - t1) / n_steps)
+            check(bool(torch.isfinite(loss)), f"M2M training step {name}: loss {loss}")
+    m2m_train_rows = {}
+    for name, (dtype, step, batch54) in m2m_trainers.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(*batch54)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms_step = statistics.median(m2m_windows[name])
+        m2m_train_rows[name] = {
+            "steps_per_s": 1e3 / ms_step, "samples_per_s": 1e3 * M2M_TRAIN_BATCH / ms_step, "ms_per_step": ms_step,
+            "ms_per_step_windows": m2m_windows[name], "peak_bytes": peak,
+        }
+        print(
+            f"timing {card}: M2M training b{M2M_TRAIN_BATCH} {M2M_TRAIN_HW[0]}x{M2M_TRAIN_HW[1]} {name}, Adam 1e-4: "
+            f"{1e3 / ms_step:.3f} steps/s, {1e3 * M2M_TRAIN_BATCH / ms_step:.2f} samples/s (median {ms_step:.3f} ms a step over "
+            f"{n_windows} windows of {n_steps} steps, in turns with the other dtype; windows {min(m2m_windows[name]):.3f} to "
+            f"{max(m2m_windows[name]):.3f} ms), peak {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held",
+            flush=True,
+        )
+    (f_lo, f_hi), (b_lo, b_hi) = ((min(m2m_windows[k]), max(m2m_windows[k])) for k in ("float32", "bfloat16"))
+    gap = abs(m2m_train_rows["float32"]["ms_per_step"] - m2m_train_rows["bfloat16"]["ms_per_step"])
+    spread = max(f_hi - f_lo, b_hi - b_lo)
+    print(
+        f"timing {card}: M2M training, bf16 against f32: medians {gap:.3f} ms a step apart, the windows of one dtype spread by "
+        f"up to {spread:.3f} ms: " + ("resolved" if spread < gap else "unresolved (the spread exceeds the difference)"),
+        flush=True,
+    )
+    _, step, batch54 = m2m_trainers["float32"]
+    m2m_train_profile = profile_forward(
+        f"M2M training step b{M2M_TRAIN_BATCH} {M2M_TRAIN_HW[0]}x{M2M_TRAIN_HW[1]} f32 (TF32 at its defaults)", step, *batch54,
+        card=card, unit="step",
+    )
+    del m2m_trainers, step, batch54
+    sbwd_times = {}
+    # the step's splat in f32 and bf16 (flow in the values' dtype, as the
+    # steps give it) and M2M's batch-2 1080p splat in f32
+    for shape, dtype in ((M2M_TRAIN_SPLAT_SHAPE, torch.float32), (M2M_TRAIN_SPLAT_SHAPE, torch.bfloat16), (SPLAT_SHAPE, torch.float32)):
+        svals = torch.rand(shape, generator=g).to(dev, dtype)
+        sflow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=8.0)).to(dev, dtype)
+        sgrad = (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+        err = splat_backward_vs_plain(svals, sflow, "timing shape", grad_out=sgrad)
+        args = (svals.permute(0, 3, 1, 2), sflow.permute(0, 3, 1, 2), sgrad.permute(0, 3, 1, 2))
+        times = in_turns({
+            "plain": (lambda: softsplat_backward_torch(svals, sflow, sgrad), 3),
+            "kernel": (lambda: softsplat_kernel.softsplat_bilinear_backward(*args), 20),
+            "two library calls": (splat_backward_library_call(svals, sflow, sgrad), 10),
+        })
+        ms = {k: statistics.mean(v) for k, v in times.items()}
+        dev_kernel = device_ms(lambda: softsplat_kernel.softsplat_bilinear_backward(*args), 20, name="softsplat_backward_kernel")
+        b = bound(*splat_backward_work(*args[:2]))
+        key = f"{list(shape)} {dname(dtype)}"
+        sbwd_times[key] = {
+            "ms": ms["kernel"], "kernel_device_ms": dev_kernel, "plain_ms": ms["plain"], "library_ms": ms["two library calls"],
+            "bound_ms": b[0], "bound_by": b[1], "max_abs_err": max(err),
+        }
+        print(
+            f"timing {card}: splat backward {key}, {dname(dtype)} flow: "
+            + ", ".join(f"{k} {ms[k]:.4f} ms {v}" for k, v in times.items())
+            + f"; the kernel alone {dev_kernel:.4f} ms on the device; bound {b[0]:.4f} ms ({b[1]}), the op at "
+            f"{100 * b[0] / ms['kernel']:.1f} % of it, the kernel at {100 * b[0] / dev_kernel:.1f} %; max abs err (grad_in, "
+            f"grad_flow) {err[0]:.3g}, {err[1]:.3g}",
+            flush=True,
+        )
+        del svals, sflow, sgrad, args
+    sbwd_main = sbwd_times[f"{list(M2M_TRAIN_SPLAT_SHAPE)} float32"]
+    print(f"m2m train timing: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
@@ -3679,7 +4133,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-51 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-54 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -3691,7 +4145,8 @@ def main() -> int:
             + ifrnet_launches["narrow"] + ifunet_launches["narrow"] + amt_launches["narrow"] + atm_launches["narrow"]
             + xvfi_launches["narrow"] + x4k_launches["narrow"] + rife_stream_launches["narrow"] + m2m_stream_launches["narrow"]
             + train_launches["narrow"] + rife_sharded_launches["narrow"] + m2m_sharded_launches["narrow"]
-            + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"],
+            + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
+            + m2m_train_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -3702,7 +4157,7 @@ def main() -> int:
                 "momo": momo_launches["narrow"], "rife_train": train_launches["narrow"],
                 "rife_sharded": rife_sharded_launches["narrow"], "m2m_sharded": m2m_sharded_launches["narrow"],
                 "rife_sharded_2way": rife_sharded2_launches["narrow"], "m2m_sharded_2way": m2m_sharded2_launches["narrow"],
-                "rife_train_2way": train2_launches["narrow"],
+                "rife_train_2way": train2_launches["narrow"], "m2m_train": m2m_train_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -3726,7 +4181,7 @@ def main() -> int:
             + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"]
             + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"] + atm_launches["wide"]
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
-            + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"],
+            + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -3734,7 +4189,7 @@ def main() -> int:
                 "atm": atm_launches["wide"], "xvfi": xvfi_launches["wide"], "xvfi_x4k_1080p": x4k_launches["wide"],
                 "rife_streaming": rife_stream_launches["wide"], "m2m_streaming": m2m_stream_launches["wide"],
                 "momo": momo_launches["wide"], "rife_train": train_launches["wide"], "m2m_sharded": m2m_sharded_launches["wide"],
-                "m2m_sharded_2way": m2m_sharded2_launches["wide"],
+                "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -3761,14 +4216,15 @@ def main() -> int:
             "replaces": "comfyui_frame_interpolation_tpu/ops/pallas/softsplat_kernel.py:365",
             "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
-            + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"],
+            + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
+            + m2m_train_launches["splat"],
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
                 "xvfi_x4k_1080p": x4k_launches["splat"], "rife_streaming": rife_stream_launches["splat"],
                 "m2m_streaming": m2m_stream_launches["splat"], "momo": momo_launches["splat"],
                 "rife_train": train_launches["splat"], "m2m_sharded": m2m_sharded_launches["splat"],
-                "m2m_sharded_2way": m2m_sharded2_launches["splat"],
+                "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -3789,8 +4245,9 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/warp.py:57 (bilinear_sample)",
-            "launches": train_launches["backward"] + train2_launches["backward"],
-            "launches_by_path": {"rife_train": train_launches["backward"], "rife_train_2way": train2_launches["backward"]},
+            "launches": train_launches["backward"] + train2_launches["backward"] + m2m_train_launches["backward"],
+            "launches_by_path": {"rife_train": train_launches["backward"], "rife_train_2way": train2_launches["backward"],
+                                 "m2m_train": m2m_train_launches["backward"]},
             "max_abs_err": bwd_err,
             "shape": f"{list(MAIN_SHAPE)} f32, f32 flow, border",
             "ms": bwd_main["ms"],
@@ -3801,7 +4258,30 @@ def main() -> int:
             "library_ms": bwd_main["library_ms"],
             "by_shape": bwd_times,
             "per_step": train_profile.get("warp_bilinear_backward"),
+            "per_m2m_step": m2m_train_profile.get("warp_bilinear_backward"),
             "training": train_rows,
+        },
+        {
+            "name": "softsplat_bilinear_backward",
+            "route": "cuda",
+            "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
+            "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/softsplat.py:83 (_softsplat_xla)",
+            "launches": m2m_train_launches["splat_backward"],
+            "launches_by_path": {"m2m_train": m2m_train_launches["splat_backward"], "rife_train": train_launches["splat_backward"],
+                                 "rife_train_2way": train2_launches["splat_backward"]},
+            "max_abs_err": sb_err,
+            "shape": f"{list(M2M_TRAIN_SPLAT_SHAPE)} f32, f32 flow",
+            "ms": sbwd_main["ms"],
+            "kernel_device_ms": sbwd_main["kernel_device_ms"],
+            "plain_ms": sbwd_main["plain_ms"],
+            "bound_ms": sbwd_main["bound_ms"],
+            "bound_by": sbwd_main["bound_by"],
+            "library_ms": sbwd_main["library_ms"],
+            "library": "two calls: F.grid_sample (grad_in) + aten.grid_sampler_2d_backward, output_mask [False, True] (grad_flow)",
+            "by_shape": sbwd_times,
+            "per_step": m2m_train_profile.get("softsplat_bilinear_backward"),
+            "training": m2m_train_rows,
+            "other_steps": other_steps,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

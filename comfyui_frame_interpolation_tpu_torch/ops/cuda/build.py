@@ -127,14 +127,15 @@ def ptxas_summary(log: str) -> List[str]:
 
 
 def check_planes_and_flow(
-    what: str, x: torch.Tensor, flow: torch.Tensor, grad_hint: str = "its backward is still to port"
+    what: str, x: torch.Tensor, flow: torch.Tensor, grad_hint: str = "differentiate it through its autograd Function"
 ) -> None:
     """Raise unless ``x`` ``[N, C, H, W]`` and ``flow`` ``[N, 2, H, W]`` are
     CUDA tensors on one device, of the kernels' dtypes, within their grid
     limits, and need no gradient: a wrapper is not differentiable itself.
-    ``grad_hint`` says what to do instead: the warps have an autograd
-    Function (``warp_kernel.WarpFunction``, which hands the wrappers
-    detached tensors); the splat's backward is still to port."""
+    ``grad_hint`` says what to do instead: the warps and the splat have an
+    autograd Function each (``warp_kernel.WarpFunction``,
+    ``softsplat_kernel.SplatFunction``), which hands the wrappers detached
+    tensors."""
     if not (x.is_cuda and flow.is_cuda):
         raise ValueError(f"{what} runs on CUDA tensors, got {x.device} and {flow.device}")
     if x.device != flow.device:

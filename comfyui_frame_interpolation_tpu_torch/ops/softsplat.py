@@ -30,6 +30,14 @@ to the plain twin :func:`softsplat_torch`. A plain scatter is exact for any
 displacement, so the JAX package's displacement bands, residual pass, size
 gate and ``CFI_TPU_SPLAT`` switch have no counterpart here.
 
+With a gradient: a CUDA splat whose input or flow needs one (grad mode on)
+goes through ``ops.cuda.softsplat_kernel.SplatFunction``, whose forward is
+K2 and whose backward is the hand-written backward kernel; a CPU splat
+differentiates the twin by autograd. :func:`softsplat_backward_torch` is the
+backward kernel's plain version. Both give the gradient of
+``_softsplat_xla`` that ``jax.vjp`` gives: the floor has no derivative, a
+dropped corner and a source with a non-finite or clamped target pass none.
+
 Differences from ``_softsplat_xla``, all deliberate: coordinates and weights
 are f32 (from an integer iota) and the sums are f32 for every input dtype,
 cast once to the input dtype at the end, where the JAX path builds its grid
@@ -42,11 +50,11 @@ path adds ``value * 0`` at index 0 (NaN there for a non-finite value).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["function_softsplat", "softsplat", "softsplat_func", "softsplat_torch"]
+__all__ = ["function_softsplat", "softsplat", "softsplat_backward_torch", "softsplat_func", "softsplat_torch"]
 
 
 def softsplat_torch(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tensor:
@@ -88,17 +96,43 @@ def softsplat_torch(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tenso
     return out.reshape(n, h, w, c).to(ten_in.dtype)
 
 
+def softsplat_backward_torch(
+    ten_in: torch.Tensor, ten_flow: torch.Tensor, grad_out: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's plain version: ``(grad_in, grad_flow)`` of
+    :func:`softsplat_torch` for the output's gradient ``grad_out`` (NHWC,
+    like ``ten_in``), by ``torch.autograd.grad``. bf16/f16 inputs are taken
+    to f32 first and the gradients cast once to the inputs' dtypes, as the
+    kernel sums in f32 and rounds once."""
+    with torch.enable_grad():
+        x = ten_in.detach().float().requires_grad_()
+        f = ten_flow.detach().float().requires_grad_()
+        out = softsplat_torch(x, f)
+        gi, gf = torch.autograd.grad(out, (x, f), grad_out.float())
+    return gi.to(ten_in.dtype), gf.to(ten_flow.dtype)
+
+
 def softsplat_func(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tensor:
     """Forward-splat ``ten_in`` (NHWC) by ``ten_flow`` (``[N, H, W, 2]``);
     the result has ``ten_in``'s shape and dtype.
 
-    CUDA tensors launch the Hopper kernel, CPU tensors take the plain twin;
-    any other device raises. There is no fallback from the kernel to the
+    CUDA tensors launch the Hopper kernel; when grad mode is on and
+    ``ten_in`` or ``ten_flow`` needs a gradient, through
+    ``softsplat_kernel.SplatFunction``, whose backward is the backward
+    kernel. CPU tensors take the plain twin (autograd differentiates it);
+    any other device raises. There is no fallback from a kernel to the
     twin."""
     if ten_in.device.type == "cuda":
-        from .cuda.softsplat_kernel import softsplat_bilinear
+        from .cuda import softsplat_kernel
 
-        out = softsplat_bilinear(ten_in.permute(0, 3, 1, 2), ten_flow.permute(0, 3, 1, 2))
+        planes, flow_planes = ten_in.permute(0, 3, 1, 2), ten_flow.permute(0, 3, 1, 2)
+        if torch.is_grad_enabled() and (ten_in.requires_grad or ten_flow.requires_grad):
+            out = softsplat_kernel.SplatFunction.apply(planes, flow_planes)
+        else:
+            # no gradient is taken: the wrapper gets detached views, as it
+            # refuses inputs that need one
+            out = softsplat_kernel.softsplat_bilinear(planes.detach(), flow_planes.detach())
+        # the cast is an autograd op: the backward kernel gets an f32 grad_out
         return out.permute(0, 2, 3, 1).to(ten_in.dtype)
     if ten_in.device.type == "cpu" and ten_flow.device.type == "cpu":
         return softsplat_torch(ten_in, ten_flow)

@@ -47,8 +47,23 @@ XVFI's CFR splat, both directions of a 1080p batch-2 infer as one batch:
 flow times ``z`` and the gaussian norm), on smooth flow; and XVFI's pair
 functions, Vimeo and X4K, launch the warps of ``xvfi.warps_per_reuse`` per
 reuse call and of ``xvfi.warps_per_infer`` and one splat per infer call.
+
+The splat's backward kernel (``softsplat_kernel.softsplat_bilinear_backward``)
+against its plain version (``ops.softsplat.softsplat_backward_torch``) on the
+splat cases and ``warp_cases.splat_backward_cases`` at 256x512 (f32 and
+bf16, f16 once), C = 1-8, 65, 193 and 514, NHWC views, NCHW planes, an odd
+channel slice and an expanded ``grad_out``, and without the input's
+gradient (the flow's the same bits). Tolerances: the input's gradient within 4 f32 ulps of
+the sum of its absolute contributions (at most four products summed in
+another order); the flow's within 1e-5 of its largest magnitude plus 1e-6
+(channel sums in another order); bf16/f16 one ulp of the output more. The
+kernel uses no atomics: two launches are equal bit for bit. A CUDA splat
+that needs a gradient goes through ``SplatFunction`` (the twin is never
+called), and one M2M training step makes its launches: K1 4, wide 16 and
+the splat 1 forward, the warp's backward 20 and the splat's 1.
 """
 
+import importlib
 import math
 
 import pytest
@@ -59,7 +74,7 @@ from comfyui_frame_interpolation_tpu_torch.core import loop
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
 from comfyui_frame_interpolation_tpu_torch.models import eisai, flavr, gmfss, m2m, rife, stmfnet, xvfi
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
-from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func, softsplat_torch
+from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_backward_torch, softsplat_func, softsplat_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -333,3 +348,140 @@ def test_xvfi_launch_counts(cuda, ckpt, dtype):
     got = (warp_kernel.launches - before[0], warp_kernel.wide_launches - before[1], softsplat_kernel.launches - before[2])
     assert got == (per["narrow"], per["wide"], xvfi.splats_per_infer())
     assert out.shape == (2, 64, 96, 3) and torch.isfinite(out).all()
+
+
+# ---- the splat's backward kernel ------------------------------------------------
+
+BACKWARD_CASES = {c["name"]: c for c in CASES + warp_cases.splat_backward_cases(1, 256, 512)}
+
+
+def _within(got, ref, tol, dtype):
+    """``got`` within ``tol`` of ``ref``, plus one ulp of ``ref`` for
+    bf16/f16."""
+    g, r = got.float(), ref.float()
+    if dtype in MANTISSA_BITS:
+        _, exp = torch.frexp(r.abs())
+        tol = tol + torch.ldexp(torch.ones_like(r), exp - 1 - MANTISSA_BITS[dtype])
+    err = (g - r).abs()
+    assert bool((err <= tol).all()), err.max().item()
+
+
+def _check_backward(vals, flow, grad_out=None, seed=0, in_grad=True):
+    """The backward kernel on NHWC ``vals`` and ``flow`` and an f32 output
+    gradient (uniform in [-1, 1] from ``seed`` unless given) against its
+    plain version, and against a second launch, bit for bit."""
+    if grad_out is None:
+        g = torch.Generator().manual_seed(seed)
+        grad_out = (torch.rand(vals.shape, generator=g) * 2 - 1).to(vals.device)
+    args = (vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2), in_grad)
+    before = softsplat_kernel.backward_launches
+    gi, gf = softsplat_kernel.softsplat_bilinear_backward(*args)
+    again = softsplat_kernel.softsplat_bilinear_backward(*args)
+    assert softsplat_kernel.backward_launches == before + 2
+    ri, rf = softsplat_backward_torch(vals, flow, grad_out)
+    contributions, _ = softsplat_backward_torch(vals.float(), flow.float(), grad_out.abs())
+    torch.cuda.synchronize()
+    assert (gi is None) != in_grad
+    if in_grad:
+        assert gi.dtype == vals.dtype and gi.shape == args[0].shape and torch.equal(gi, again[0])
+        _within(gi.permute(0, 2, 3, 1), ri, 4 * 2.0**-23 * contributions, vals.dtype)
+    assert gf.dtype == flow.dtype and gf.shape == args[1].shape and torch.equal(gf, again[1])
+    _within(gf.permute(0, 2, 3, 1), rf, 1e-5 * rf.float().abs().max().item() + 1e-6, flow.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BACKWARD_CASES))
+def test_backward_matches_plain(cuda, name, dtype):
+    case = BACKWARD_CASES[name]
+    _check_backward(torch.from_numpy(case["vals"]).to(cuda, dtype), torch.from_numpy(case["flow"]).to(cuda))
+
+
+def test_backward_f16(cuda):
+    case = BACKWARD_CASES["splat_bwd_c5"]
+    _check_backward(torch.from_numpy(case["vals"]).to(cuda, torch.float16), torch.from_numpy(case["flow"]).to(cuda, torch.float16))
+
+
+@pytest.mark.parametrize("name", ["smooth_amp8_c4", "splat_bwd_c65"])
+def test_backward_without_the_input_gradient(cuda, name):
+    case = BACKWARD_CASES[name]
+    vals, flow = torch.from_numpy(case["vals"]).to(cuda), torch.from_numpy(case["flow"]).to(cuda)
+    _check_backward(vals, flow, in_grad=False)
+    grad_out = torch.rand(vals.shape, device=cuda)
+    args = (vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2))
+    both = softsplat_kernel.softsplat_bilinear_backward(*args)
+    alone = softsplat_kernel.softsplat_bilinear_backward(*args, in_grad=False)
+    assert alone[0] is None and torch.equal(alone[1], both[1])
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 6, 7, 8, 65, 193, 514])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_widths(cuda, c, dtype):
+    g = torch.Generator().manual_seed(c)
+    h, w = (64, 114) if c > 100 else (256, 512)
+    vals = torch.rand(2, h, w, c, generator=g).to(cuda, dtype)
+    flow = torch.from_numpy(warp_cases.smooth_flow(2, h, w, 6.0, scale=40.0)).to(cuda) + torch.randn(2, h, w, 2, generator=g).to(cuda)
+    _check_backward(vals, flow, seed=c)
+
+
+@pytest.mark.parametrize("c", [4, 7, 65])
+@pytest.mark.parametrize("layout", ["nchw_planes", "odd_channel_slice", "expanded_grad_out"])
+def test_backward_layouts(cuda, c, layout):
+    g = torch.Generator().manual_seed(c)
+    vals = torch.rand(2, 128, 256, c, generator=g).to(cuda)
+    flow = torch.from_numpy(warp_cases.smooth_flow(2, 128, 256, 6.0, scale=40.0)).to(cuda)
+    grad_out = (torch.rand(vals.shape, generator=g) * 2 - 1).to(cuda)
+    if layout == "nchw_planes":
+        vals = vals.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        grad_out = grad_out.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    elif layout == "odd_channel_slice":
+        wider = torch.zeros(2, 128, 256, c + 1, device=cuda)
+        wider[..., 1:] = vals
+        vals = wider[..., 1:]
+    else:
+        grad_out = grad_out[:1, :1, :1].expand(vals.shape)
+    _check_backward(vals, flow, grad_out=grad_out)
+
+
+def test_backward_rejects_what_it_does_not_take(cuda):
+    vals = torch.rand(1, 3, 8, 8, device=cuda)
+    flow = torch.zeros(1, 2, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="grad_out"):
+        softsplat_kernel.softsplat_bilinear_backward(vals, flow, vals.bfloat16())
+    with pytest.raises(ValueError, match="grad_out"):
+        softsplat_kernel.softsplat_bilinear_backward(vals, flow, vals[:, :2])
+    with pytest.raises(ValueError, match="CUDA"):
+        softsplat_kernel.softsplat_bilinear_backward(vals, flow.cpu(), vals)
+
+
+def test_m2m_training_step_launches(cuda, monkeypatch):
+    """One M2M training step on the card: the forward launches K1 4 times,
+    the wide kernel 16 and the splat once, the backward the warp's backward
+    kernel once per warp (20: each warp's flow needs a gradient) and the
+    splat's once; no CUDA splat or warp that needs a gradient reaches a
+    twin."""
+    from comfyui_frame_interpolation_tpu_torch import parallel
+    # ops.softsplat and ops.warp are also functions' names in ops/
+    softsplat_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.softsplat")
+    warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")
+
+    def refuse(real):
+        def call(x, flow, *args):
+            assert not (x.is_cuda and (x.requires_grad or flow.requires_grad)), "a CUDA op that needs a gradient reached a twin"
+            return real(x, flow, *args)
+
+        return call
+
+    monkeypatch.setattr(softsplat_mod, "softsplat_torch", refuse(softsplat_mod.softsplat_torch))
+    monkeypatch.setattr(warp_mod, "warp_torch", refuse(warp_mod.warp_torch))
+    net = m2m.M2M_PWC()
+    net.load_state_dict(m2m.init_params(0), strict=True)
+    net = net.to(cuda, memory_format=torch.channels_last)
+    step = parallel.make_train_step(m2m.apply, torch.optim.Adam(net.parameters(), lr=1e-4), parallel.make_mesh(1), net)
+    f0, f1, target = torch.rand(3, 2, 64, 64, 3, device=cuda)
+    counters = ("launches", "wide_launches", "backward_launches")
+    before = [getattr(warp_kernel, k) for k in counters] + [softsplat_kernel.launches, softsplat_kernel.backward_launches]
+    loss = step(f0, f1, torch.tensor([0.5, 0.25], device=cuda), target)
+    torch.cuda.synchronize()
+    after = [getattr(warp_kernel, k) for k in counters] + [softsplat_kernel.launches, softsplat_kernel.backward_launches]
+    assert [a - b for a, b in zip(after, before)] == [4, 16, 20, 1, 1]
+    assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all() for p in net.parameters())

@@ -31,9 +31,12 @@ padded channel count of its image-gradient buffer and the vector width in
 which it reads each input.
 
 On the card the backward kernel is held to this plain version in
-``tests/test_torch_cuda_warp.py``; a splat with an input that needs a
-gradient must still raise there (marked ``cuda``, so it skips here).
+``tests/test_torch_cuda_warp.py``; a CUDA splat with an input that needs a
+gradient must go through the splat's autograd Function (marked ``cuda``,
+so it skips here).
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -201,13 +204,26 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_splat_with_grad_still_raises_on_cuda(cuda):
+def test_splat_with_grad_goes_through_splat_function_on_cuda(cuda, monkeypatch):
+    """A CUDA splat whose input needs a gradient goes through
+    ``SplatFunction``: the backward kernel launches and the twin is not
+    called; a direct call of the forward wrapper with such an input still
+    raises, naming ``softsplat_func``."""
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel
-    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func
 
+    # ops.softsplat is also a function's name in ops/
+    softsplat_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.softsplat")
+
+    def no_twin(*args):
+        raise AssertionError("the twin was called")
+
+    monkeypatch.setattr(softsplat_mod, "softsplat_torch", no_twin)
     vals = torch.rand(1, 8, 8, 3, device=cuda, requires_grad=True)
-    flow = torch.zeros(1, 8, 8, 2, device=cuda)
-    with pytest.raises(NotImplementedError, match="still to port"):
-        softsplat_func(vals, flow)
-    with pytest.raises(NotImplementedError, match="still to port"):
+    flow = torch.rand(1, 8, 8, 2, device=cuda, requires_grad=True)
+    before = (softsplat_kernel.launches, softsplat_kernel.backward_launches)
+    gi, gf = torch.autograd.grad(softsplat_mod.softsplat_func(vals, flow).sum(), (vals, flow))
+    torch.cuda.synchronize()
+    assert (softsplat_kernel.launches, softsplat_kernel.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert gi.shape == vals.shape and gf.shape == flow.shape
+    with pytest.raises(NotImplementedError, match="softsplat_func"):
         softsplat_kernel.softsplat_bilinear(vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2))

@@ -45,6 +45,11 @@ for the splat kernel's merges of the corners that neighbouring sources
 share, flows that pile 16 sources onto each target and a rough flow (+-40
 px) whose neighbours seldom share a corner.
 
+:func:`splat_backward_cases` add, for the splat's backward kernel, the
+widths of its lane groups and channel tails (C = 3, 5, 8, 65), integer and
+half-pixel constant offsets, and targets exactly on and just off each bound
+(:func:`splat_bound_flow`).
+
 Values are uniform in [0, 1], the range the stated tolerances refer to.
 """
 
@@ -294,4 +299,44 @@ def splat_cases(seed: int, h: int, w: int) -> List[Dict]:
         cases.append(dict(name=f"pile_4x4_c{c}", vals=vals(1, h, w, c), flow=pile.astype(np.float32)))
     rough = (rng.standard_normal((1, h, w, 2)) * 40.0).astype(np.float32)
     cases.append(dict(name="rough_x40_c4", vals=vals(1, h, w, 4), flow=rough))
+    return cases
+
+
+def splat_bound_flow(b: int, h: int, w: int) -> np.ndarray:
+    """``[b, h, w, 2]`` flow that sends each source exactly onto x = -1, 0,
+    w - 1 or w (by bands of rows) and y = -1, 0, h - 1 or h (by bands of
+    columns): integer targets on and just off each bound of the frame,
+    where a corner of weight 0 is kept or dropped and the flow's gradient
+    is one-sided."""
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    tx = np.asarray([-1.0, 0.0, w - 1.0, float(w)], np.float32)[np.minimum(4 * np.arange(h) // h, 3)][:, None]
+    ty = np.asarray([-1.0, 0.0, h - 1.0, float(h)], np.float32)[np.minimum(4 * np.arange(w) // w, 3)][None, :]
+    flow = np.stack([tx - gx, ty - gy], -1)
+    return np.broadcast_to(flow, (b, h, w, 2)).copy()
+
+
+SPLAT_BACKWARD_CHANNELS = (3, 5, 8, 65)
+
+
+def splat_backward_cases(seed: int, h: int, w: int) -> List[Dict]:
+    """``[{"name", "vals" [B,H,W,C] f32, "flow" [B,H,W,2] f32}]``: the cases
+    of the splat's backward kernel that :func:`splat_cases` lacks. Widths
+    C = 3, 5, 8 and 65 on smooth flow with noise (one lane or a group of
+    lanes a source, a tail of 1-3 channels); integer and half-pixel
+    constant offsets (every source on a pixel or between two, at C = 4);
+    targets exactly on and just off each bound (:func:`splat_bound_flow`)."""
+    rng = np.random.default_rng(seed)
+
+    def vals(b, c):
+        return rng.random((b, h, w, c), dtype=np.float32)
+
+    def noisy(b):
+        return smooth_flow(b, h, w, 6.0, scale=max(8.0, w / 6.0)) + rng.standard_normal((b, h, w, 2)).astype(np.float32)
+
+    cases = [dict(name=f"splat_bwd_c{c}", vals=vals(2, c), flow=noisy(2)) for c in SPLAT_BACKWARD_CHANNELS]
+    for name, (fx, fy) in (("integer", (3.0, -2.0)), ("half_pixel", (0.5, -1.5))):
+        f = np.zeros((1, h, w, 2), np.float32)
+        f[..., 0], f[..., 1] = fx, fy
+        cases.append(dict(name=f"splat_bwd_{name}_offset_c4", vals=vals(1, 4), flow=f))
+    cases.append(dict(name="splat_bwd_exact_bounds_c4", vals=vals(1, 4), flow=splat_bound_flow(1, h, w)))
     return cases
