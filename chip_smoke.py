@@ -428,8 +428,32 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    input's gradient, ``aten.grid_sampler_2d_backward`` for the flow's),
    the kernel's device ms and its bound (values, flow and the f32
    grad_out read once, both gradients written once).
+55-61. gmfss, eisai, gmfss_union, xvfi, stmfnet, ifrnet, amt train -- one
+   training step of each family (``FAMILIES``, in this order; seed 0, L1,
+   Adam 1e-4; GMFSS base and union, EISAI at 12 RAFT iterations, XVFI
+   Vimeo, IFRNet S and AMT S through ``make_train_step``, STMFNet on four
+   frames through ``loss.backward()`` and the optimizer) at full width (every
+   tensor of ``init_params(0)``, ``strict=True``) on b8 x 256x256 crops f32,
+   TF32 off, cuDNN deterministic: through the kernels, twice, against the
+   same step with the warps and splats on the plain twins (the loss within
+   1e-6 relative, each gradient within 1e-4 of its tensor's largest or 4x
+   the two kernel runs' own difference on it); the launches exactly
+   ``FAMILY_STEP_LAUNCHES`` (K1, wide, K2, the warp's backward, the
+   splat's backward), and no CUDA warp or splat that needs a gradient
+   reaching a twin; every backward launch of the step, as the step handed
+   it over, against its plain version (phases 48 and 52's tolerances: the
+   splat's backward at C = 3-514, the warp's at the wide and zeros-mode
+   shapes); the same step at b1 x 64x64 (STMFNet 128x128) on the card
+   against the CPU with phase 49's rule; then the step at TF32 defaults:
+   steps/s as the median of 7 windows of 2 steps with their spread, the
+   peak memory, and one profiled step's idle share and each backward
+   kernel's device ms and share of the step's device time;
+62. family backward timing -- each backward kernel at the largest input the
+   steps of 55-61 gave it, in the step's layout: the op's ms, the plain
+   version's and the library call's in turns, the kernel's device ms and
+   its bound.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -463,7 +487,13 @@ gives its ms at ``[64, 256, 256, 4]`` f32 beside two library calls'
 (``library_ms``), ``by_shape`` (phase 54's three rows), ``per_step`` (one
 f32 M2M step's launch), ``training`` (phase 54's rows) and
 ``other_steps`` (phase 52's GMFSS and EISAI steps); every kernel's
-``launches_by_path`` holds phase 53's step as ``m2m_train``.
+``launches_by_path`` holds phase 53's step as ``m2m_train`` and phases
+55-61's as ``<family>_train``; both backward kernels hold
+``family_steps`` (per family, the launches by shape, the max errors against
+the plain version, and the kernel's device ms and share of one profiled
+step) and ``family_largest`` (phase 62), and the splat's backward
+``family_training`` (phases 55-61's rows: launches, steps/s, windows,
+spread, peak memory, idle share).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -582,6 +612,33 @@ M2M_TRAIN_SPLAT_SHAPE = (64, 256, 256, 4)
 # warp's backward once per warp (each warp's flow needs a gradient) and the
 # splat's once
 M2M_TRAIN_LAUNCHES = {"narrow": 4, "wide": 16, "splat": 1, "backward": 20, "splat_backward": 1}
+# phases 55-61: the other families' training steps, in this order, at b8 x
+# 256x256 crops (Vimeo-90K's 448x256 triplets cropped; a multiple of every
+# family's pad: GMFSS 64, XVFI Vimeo 2**S_tst * scale * 4 = 16, STMFNet 128,
+# IFRNet 64, AMT 16), f32; card against the CPU at b1 x 64x64 (STMFNet
+# 128x128)
+FAMILIES = ("gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt")
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_HW = 8, (256, 256)
+FAMILY_CHECK_HW = {"stmfnet": (128, 128)}  # the others at 64x64
+FAMILY_EISAI_ITERS = 12  # the node's default
+# one step's launches at f32: the forward's warps and splats as each model
+# counts them (gmfss.warps_per_reuse/warps_per_infer/splats_per_infer,
+# eisai.warps_per_infer/splats_per_infer, xvfi.warps_per_reuse/
+# warps_per_infer, stmfnet.warps_per_forward, ifrnet and amt
+# .warps_per_forward, routed at f32), one splat backward for each splat, and
+# one warp backward for each warp whose output the loss reads
+# differentiably: none for the masks' warps, which only a comparison reads
+# (GMFSS's forward-backward consistency warps of the flows, two; the f32
+# ones planes that XVFI, eight, and STMFNet, five, warp for their masks)
+FAMILY_STEP_LAUNCHES = {
+    "gmfss": {"narrow": 4, "wide": 2, "splat": 8, "backward": 4, "splat_backward": 8},
+    "eisai": {"narrow": 2, "wide": 0, "splat": 8, "backward": 2, "splat_backward": 8},
+    "gmfss_union": {"narrow": 8, "wide": 2, "splat": 8, "backward": 8, "splat_backward": 8},
+    "xvfi": {"narrow": 10, "wide": 6, "splat": 1, "backward": 8, "splat_backward": 1},
+    "stmfnet": {"narrow": 6, "wide": 4, "splat": 1, "backward": 5, "splat_backward": 1},
+    "ifrnet": {"narrow": 2, "wide": 6, "splat": 0, "backward": 8, "splat_backward": 0},
+    "amt": {"narrow": 2, "wide": 6, "splat": 0, "backward": 8, "splat_backward": 0},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -1099,13 +1156,15 @@ def device_ms(fn, iters, name=None):
     )
 
 
-def profile_forward(what, model_fn, *inputs, card, unit="forward"):
+def profile_forward(what, model_fn, *inputs, card, unit="forward", totals=None):
     """``torch.profiler`` over one forward of ``model_fn`` after a warm-up
     forward whose kernel launches are recorded: the top 10 ops by device
     time, each hand kernel's device ms and share of the device time, the
     device's idle share of the wall time; and per kernel of the kernels line
     that the forward launched, its launches, device ms and bound (the bytes
-    and operations of its recorded launches) and the ms above it."""
+    and operations of its recorded launches) and the ms above it. A
+    ``totals`` dict gets the forward's device ms, wall ms, idle share and
+    kernel count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1129,6 +1188,9 @@ def profile_forward(what, model_fn, *inputs, card, unit="forward"):
         f"{body} {us / 1e3:.3f} ms ({100 * us / device_total:.2f} %)" for body, us in body_us.items() if us > 0
     )
     n_kernels = sum(e.count for e in on_device)
+    if totals is not None:
+        totals.update(device_ms=device_total / 1e3, wall_ms=wall_us / 1e3, idle_share=max(0.0, 1 - device_total / wall_us),
+                      kernels=n_kernels)
     ops = sorted((e for e in events if e not in on_device and device_us(e) > 0), key=device_us, reverse=True)
     print(
         f"profile {card}: one {what} {unit}, {device_total / 1e3:.3f} ms of kernels in "
@@ -1233,6 +1295,366 @@ def cuda_spans(targets, spans):
 def span_ms(spans):
     """``{label: (calls, ms)}`` of :func:`cuda_spans`' event pairs."""
     return {label: (len(pairs), sum(s.elapsed_time(e) for s, e in pairs)) for label, pairs in spans.items()}
+
+
+def family_trainer(name, device):
+    """The module of training family ``name`` (``FAMILIES``) from its
+    ``init_params(0)`` (every tensor of its checkpoint, ``strict=True``),
+    ``channels_last`` on ``device`` in f32, an Adam 1e-4 over it and its step:
+    ``(net, step)``, ``step(frames, t, target) -> loss`` (detached). The
+    two-frame families step through ``parallel.make_train_step`` on a
+    one-device mesh; STMFNet takes four frames, which no ``make_train_step``
+    carries, so its step is the same L1 through ``loss.backward()`` and the
+    optimizer."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch import parallel
+    from comfyui_frame_interpolation_tpu_torch.models import amt, eisai, gmfss, ifrnet, stmfnet, xvfi
+    from comfyui_frame_interpolation_tpu_torch.parallel import train
+
+    f32 = torch.float32
+    if name in ("gmfss", "gmfss_union"):
+        union = name == "gmfss_union"
+        net, apply_fn = gmfss._load(gmfss.init_params(0, union=union), union, f32, device), gmfss.apply
+    elif name == "eisai":
+        net = eisai._load(eisai.init_params(0), f32, device)
+        apply_fn = lambda n, f0, f1, t: eisai.apply(n, f0, f1, t, iters=FAMILY_EISAI_ITERS)  # noqa: E731
+    elif name == "xvfi":
+        ckpt = "XVFInet_Vimeo_exp1_latest.pt"
+        cfg = xvfi.CKPT_CONFIGS[ckpt]
+        net = xvfi._load(xvfi.init_params(ckpt, 0), cfg["module_scale_factor"], f32, device)
+        apply_fn = lambda n, f0, f1, t: xvfi.apply(n, f0, f1, t, cfg["S_tst"])  # noqa: E731
+    elif name == "stmfnet":
+        net = stmfnet._load(stmfnet.init_params(0), f32, device)
+    elif name == "ifrnet":
+        net = ifrnet.IFRNet("S")
+        net.load_state_dict(ifrnet.init_params("S", 0), strict=True)
+        net, apply_fn = net.to(device=device, memory_format=torch.channels_last), ifrnet.apply
+    elif name == "amt":
+        net, apply_fn = amt._load(amt.init_params("S", 0), "S", 3, f32, device), amt.apply
+    else:
+        raise ValueError(name)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-4)
+    if name == "stmfnet":
+        def step(frames, t, target):
+            opt.zero_grad(set_to_none=True)
+            pred = stmfnet.apply(net, *(stmfnet._nchw(f) for f in frames)).permute(0, 2, 3, 1)
+            loss = train.l1_loss(pred, target)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+    else:
+        two = parallel.make_train_step(apply_fn, opt, parallel.make_mesh(1, devices=[torch.device(device)]), net)
+
+        def step(frames, t, target):
+            return two(frames[0], frames[1], t, target)
+    return net, step
+
+
+def family_batch(name, b, hw, seed, device):
+    """``(frames, t, target)`` for family ``name``: random NHWC frames (four
+    for STMFNet) and target from numpy's ``seed``, t uniform in (0.1, 0.9)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    frames = [torch.from_numpy(rng.random((b, *hw, 3), dtype=np.float32)).to(device) for _ in range(4 if name == "stmfnet" else 2)]
+    target = torch.from_numpy(rng.random((b, *hw, 3), dtype=np.float32)).to(device)
+    t = torch.from_numpy(rng.uniform(0.1, 0.9, b).astype(np.float32)).to(device)
+    return frames, t, target
+
+
+@contextlib.contextmanager
+def family_twins():
+    """Inside, the families' warps and splats call the plain twins directly
+    (autograd through them): the reference for the kernels on the same
+    card."""
+    from comfyui_frame_interpolation_tpu_torch.models import eisai, gmfss, ifrnet, rife, stmfnet, xvfi
+
+    splat_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.softsplat")
+    warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")
+
+    def twin_warp(img, flow, padding_mode="border", prefer_wide=False):
+        return warp_mod.warp_torch(img, flow, padding_mode)
+
+    def twin_splat(x, flow):
+        return splat_mod.softsplat_torch(x, flow)
+
+    targets = [(m, "warp", twin_warp) for m in (gmfss, eisai, rife, xvfi, stmfnet, ifrnet)]
+    targets += [(splat_mod, "softsplat_func", twin_splat), (xvfi, "softsplat_func", twin_splat)]
+    real = [getattr(m, a) for m, a, _ in targets]
+    try:
+        for m, a, fn in targets:
+            setattr(m, a, fn)
+        yield
+    finally:
+        for (m, a, _), fn in zip(targets, real):
+            setattr(m, a, fn)
+
+
+@contextlib.contextmanager
+def no_twin_with_grad():
+    """Inside, a CUDA warp or splat that needs a gradient reaching a plain
+    twin fails the run: the kernels must carry every one."""
+    import torch
+
+    splat_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.softsplat")
+    warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")
+    real_warp, real_splat = warp_mod.warp_torch, splat_mod.softsplat_torch
+
+    def needs(x, flow):
+        return x.is_cuda and torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad)
+
+    def warp_guard(img, flow, padding_mode="border"):
+        check(not needs(img, flow), "a CUDA warp that needs a gradient reached the plain twin")
+        return real_warp(img, flow, padding_mode)
+
+    def splat_guard(x, flow):
+        check(not needs(x, flow), "a CUDA splat that needs a gradient reached the plain twin")
+        return real_splat(x, flow)
+
+    warp_mod.warp_torch, splat_mod.softsplat_torch = warp_guard, splat_guard
+    try:
+        yield
+    finally:
+        warp_mod.warp_torch, splat_mod.softsplat_torch = real_warp, real_splat
+
+
+def kernel_counts():
+    """Every hand kernel's launch counter, by the kernels line's short names."""
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+
+    return {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches,
+            "backward": warp_kernel.backward_launches, "splat_backward": softsplat_kernel.backward_launches}
+
+
+def zero_kernel_counts():
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+
+    warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = 0
+    softsplat_kernel.launches = softsplat_kernel.backward_launches = 0
+
+
+def grad_rel(got, ref, atol=1e-7):
+    """Per tensor, the largest error less ``atol`` over the tensor's largest
+    magnitude (0 where the error is within ``atol``: the tests' slack for
+    gradients that are 0 but for rounding, such as a bias before a
+    normalisation)."""
+    out = {}
+    for k, r in ref.items():
+        err, scale = (got[k] - r).abs().max().item(), r.abs().max().item()
+        out[k] = 0.0 if err <= atol else (err - atol) / scale if scale > 0 else math.inf
+    return out
+
+
+def family_phase(name, number, dev, card):
+    """Phase ``number``: one training step of family ``name`` at
+    ``FAMILY_TRAIN_BATCH`` x ``FAMILY_TRAIN_HW`` f32 on the card, TF32 off,
+    cuDNN deterministic, through the kernels (twice: their f32 atomics sum in
+    orders that change from run to run) and through the plain twins, with
+    every backward launch captured; the kernels' step held to the twins'
+    (the loss within 1e-6 relative, each gradient within 1e-4 of its
+    tensor's largest or 4x the two kernel runs' own difference on it, after
+    1e-7 absolute: :func:`grad_rel`) and
+    launching exactly ``FAMILY_STEP_LAUNCHES[name]``, with no CUDA warp or
+    splat that needs a gradient reaching a twin; each captured backward
+    launch held to its plain version (``backward_vs_plain``,
+    ``splat_backward_vs_plain``); the same step at b1 on the card against
+    the CPU with phase 49's rule (each tensor after 1e-7 absolute; the
+    updates where ``|g|`` is also over 1e-5); then the
+    step timed at TF32 defaults (7
+    windows of 2 steps after 2), its peak memory and one profiled step.
+    Returns the phase's record."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+
+    t0 = time.perf_counter()
+    b, hw = FAMILY_TRAIN_BATCH, FAMILY_TRAIN_HW
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    batch = family_batch(name, b, hw, number, dev)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    det = torch.backends.cudnn.deterministic
+
+    def once(device, data, twin=False, capture=None):
+        """One step: ``(loss, grads, updates)`` on the host."""
+        net, step = family_trainer(name, device)
+        before = {k: v.detach().clone() for k, v in net.named_parameters()}
+        with contextlib.ExitStack() as stack:
+            if twin:
+                stack.enter_context(family_twins())
+            if capture is not None:
+                def keep_warp(img, flow, grad_out, zeros=False, img_grad=True):
+                    capture.append(("warp", img.detach(), flow.detach(), grad_out, zeros, img_grad))
+
+                def keep_splat(x, flow, grad_out, in_grad=True):
+                    capture.append(("splat", x.detach(), flow.detach(), grad_out, False, in_grad))
+
+                stack.enter_context(spying([(warp_kernel, "warp_bilinear_backward", keep_warp),
+                                            (softsplat_kernel, "softsplat_bilinear_backward", keep_splat)]))
+            loss = step(*data).item()
+        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v)).detach().cpu() for k, v in net.named_parameters()}
+        return loss, grads, {k: (v.detach() - before[k]).cpu() for k, v in net.named_parameters()}
+
+    captured = []
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        twin_loss, twin_grads, _ = once(dev, batch, twin=True)
+        with no_twin_with_grad():
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            k_loss, k_grads, _ = once(dev, batch, capture=captured)
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+            k2_loss, k2_grads, _ = once(dev, batch)
+        small = family_batch(name, 1, FAMILY_CHECK_HW.get(name, (64, 64)), number + 100, "cpu")
+        c_loss, c_grads, c_deltas = once(dev, [[f.to(dev) for f in small[0]], small[1].to(dev), small[2].to(dev)])
+        with torch.backends.mkldnn.flags(enabled=name != "stmfnet"):
+            # this CPU leg alone: oneDNN's channels_last 1x1 stride-2 weight
+            # gradient at 6 input channels (STMFNet's first MS-ResNeXt skip)
+            # corrupts the heap in some torch CPU builds
+            cpu_loss, cpu_grads, cpu_deltas = once("cpu", small)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    expected = FAMILY_STEP_LAUNCHES[name]
+    check(launches == expected, f"one {name} training step launched {launches}, expected {expected}")
+    check(math.isfinite(k_loss) and abs(k_loss - twin_loss) <= 1e-6 * abs(twin_loss),
+          f"{name} training step loss with the kernels {k_loss} vs through the twins {twin_loss} on the card")
+    kt, kk = grad_rel(k_grads, twin_grads), grad_rel(k_grads, k2_grads)
+    over = {k: (kt[k], kk[k]) for k in kt if kt[k] > max(1e-4, 4 * kk[k])}
+    check(not over, f"{name} training step gradients, kernels vs twins on the card, beyond 1e-4 and 4x the kernels' own "
+                    f"run-to-run difference: {dict(list(over.items())[:4])}")
+    kt_worst = max(kt, key=kt.get)
+    # card against CPU, phase 49's rule
+    cc = grad_rel(c_grads, cpu_grads)
+    cc_worst = max(cc, key=cc.get)
+    top = max(v.abs().max().item() for v in cpu_grads.values())
+    cc_glob = max((c_grads[k] - cpu_grads[k]).abs().max().item() for k in cpu_grads) / top
+    check(abs(c_loss - cpu_loss) <= 1e-5 * abs(cpu_loss), f"{name} training step loss card {c_loss} vs CPU {cpu_loss}")
+    check(cc[cc_worst] <= 5e-2 and cc_glob <= 5e-3,
+          f"{name} training step gradients card vs CPU: {cc[cc_worst]:.3g} of {cc_worst}'s largest (at most 5e-2), "
+          f"{cc_glob:.3g} of the largest of all (at most 5e-3)")
+    upd_err = 0.0
+    for k, gk in cpu_grads.items():
+        # where Adam's first step is -lr * sign(g): |g| well above its 1e-8
+        # epsilon (a gradient that is 0 but for rounding, as before an
+        # instance norm, moves by an eps-dependent fraction of lr)
+        big = (gk.abs() > 0.5 * gk.abs().max()) & (gk.abs() > 1e-5)
+        if big.any():
+            upd_err = max(upd_err, (c_deltas[k][big] - cpu_deltas[k][big]).abs().max().item())
+    check(upd_err <= 1e-3 * 1e-4 + 2.0**-20, f"{name} training step updates card vs CPU: max err {upd_err:.3g}")
+    # every backward launch of the step against its plain version
+    errs, shapes = {"warp": [0.0, 0.0], "splat": [0.0, 0.0]}, {"warp": {}, "splat": {}}
+    for kind, x, flow, grad_out, zeros, with_x in captured:
+        key = f"{list(nhwc(x).shape)} {'zeros' if zeros else 'border'}" if kind == "warp" else f"{list(nhwc(x).shape)}"
+        if kind == "warp":
+            e = backward_vs_plain(nhwc(x), nhwc(flow), "zeros" if zeros else "border", f"{name} step", grad_out=nhwc(grad_out))
+        else:
+            e = splat_backward_vs_plain(nhwc(x), nhwc(flow), f"{name} step", grad_out=nhwc(grad_out), in_grad=with_x)
+        errs[kind] = [max(a, c) for a, c in zip(errs[kind], e)]
+        shapes[kind][key] = shapes[kind].get(key, 0) + 1
+    largest = {kind: max(((x, flow, grad_out, zeros, with_x) for k_, x, flow, grad_out, zeros, with_x in captured if k_ == kind),
+                         key=lambda c: c[0].numel(), default=None) for kind in ("warp", "splat")}
+    del captured
+    check_s = time.perf_counter() - t0
+    # timing, TF32 at torch's defaults
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    net, step = family_trainer(name, dev)
+    for _ in range(2):
+        step(*batch)
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        for _ in range(2):
+            loss = step(*batch)
+        torch.cuda.synchronize()
+        windows.append(1e3 * (time.perf_counter() - ts) / 2)
+        check(bool(torch.isfinite(loss)), f"{name} training step: loss {loss}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(*batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    totals = {}
+    prof = profile_forward(f"{name} training step b{b} {hw[0]}x{hw[1]} f32 (TF32 at its defaults)", step, *batch, card=card,
+                           unit="step", totals=totals)
+    del net, step
+    ms = statistics.median(windows)
+    shares = {k: {"launches": v["launches"], "device_ms": v["device_ms"], "share": v["device_ms"] / totals["device_ms"],
+                  "bound_ms": v["bound_ms"]}
+              for k, v in prof.items() if k in ("warp_bilinear_backward", "softsplat_bilinear_backward")}
+    row = {
+        "launches": launches, "steps_per_s": 1e3 / ms, "samples_per_s": 1e3 * b / ms, "ms_per_step": ms,
+        "ms_per_step_windows": windows, "spread_ms": max(windows) - min(windows), "peak_bytes": peak,
+        "idle_share": totals["idle_share"], "device_ms": totals["device_ms"], "kernels_per_step": totals["kernels"],
+        "backward_shares": shares, "max_abs_err": errs, "backward_shapes": shapes,
+        "kernels_vs_twins": kt[kt_worst], "card_vs_cpu": cc[cc_worst], "card_vs_cpu_global": cc_glob,
+    }
+    print(
+        f"{name} train (phase {number}) {card}: b{b}x{hw[0]}x{hw[1]} f32, TF32 off, cuDNN deterministic: launches {launches}; "
+        f"kernels vs the plain twins on the card: loss {k_loss:.7f} vs {twin_loss:.7f}, gradients within {kt[kt_worst]:.3g} of "
+        f"each tensor's largest ({kt_worst}; the kernels' own run-to-run difference there {kk[kt_worst]:.3g}); card vs CPU at b1 "
+        f"{FAMILY_CHECK_HW.get(name, (64, 64))}: loss {c_loss:.7f} vs {cpu_loss:.7f}, gradients within {cc[cc_worst]:.3g} "
+        f"({cc_worst}) and {cc_glob:.3g} of the largest of all, updates within {upd_err:.3g}; backward launches vs plain: warp "
+        f"{shapes['warp']} max err {errs['warp'][0]:.3g}, {errs['warp'][1]:.3g}; splat {shapes['splat']} max err "
+        f"{errs['splat'][0]:.3g}, {errs['splat'][1]:.3g}; checks {check_s:.1f} s",
+        flush=True,
+    )
+    print(
+        f"timing {card}: {name} training b{b} {hw[0]}x{hw[1]} f32, Adam 1e-4: {1e3 / ms:.3f} steps/s, {1e3 * b / ms:.2f} samples/s "
+        f"(median {ms:.3f} ms a step over 7 windows of 2 steps; windows {min(windows):.3f} to {max(windows):.3f} ms), peak "
+        f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held, idle share {totals['idle_share']:.4f}; backward kernels' "
+        f"share of the step's device time: "
+        + (", ".join(f"{k} {v['launches']} launches {v['device_ms']:.3f} ms ({100 * v['share']:.2f} %)" for k, v in shares.items()) or "none")
+        + f"; phase {time.perf_counter() - t0:.1f} s (timing {time.perf_counter() - t1:.1f} s)",
+        flush=True,
+    )
+    return row, largest
+
+
+def largest_backward_times(largest, card):
+    """Each backward kernel at the largest input the steps gave it (by
+    elements), as the step gave it: the op's ms, the plain version's and
+    the library call's in turns (``utils/kernel_compare.library_backward``
+    for the warp, :func:`splat_backward_library_call` for the splat), the
+    kernel's device ms and its bound."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_backward_torch
+    from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_backward_torch
+    from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import library_backward
+
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    out = {}
+    for kind, (path, (x, flow, grad_out, zeros, with_x)) in largest.items():
+        if kind == "warp":
+            mode = "zeros" if zeros else "border"
+            kernel = lambda: warp_kernel.warp_bilinear_backward(x, flow, grad_out, zeros, with_x)  # noqa: E731
+            plain = lambda: warp_backward_torch(nhwc(x), nhwc(flow), nhwc(grad_out), mode)  # noqa: E731
+            library = library_backward(nhwc(x), nhwc(flow), nhwc(grad_out), zeros, with_x)
+            work, body, name = backward_work(x, flow, with_x), "warp_bilinear_backward_kernel", "warp_bilinear_backward"
+        else:
+            kernel = lambda: softsplat_kernel.softsplat_bilinear_backward(x, flow, grad_out, with_x)  # noqa: E731
+            plain = lambda: softsplat_backward_torch(nhwc(x), nhwc(flow), nhwc(grad_out))  # noqa: E731
+            library = splat_backward_library_call(nhwc(x), nhwc(flow), nhwc(grad_out))
+            work, body, name = splat_backward_work(x, flow, with_x), "softsplat_backward_kernel", "softsplat_bilinear_backward"
+        times = in_turns({"plain": (plain, 3), "kernel": (kernel, 10), "library": (library, 10)})
+        ms = {k: statistics.mean(v) for k, v in times.items()}
+        dev_ms = device_ms(kernel, 10, name=body)
+        b = bound(*work)
+        key = f"{path}: {list(nhwc(x).shape)} {str(x.dtype).split('.')[-1]}" + (f" {'zeros' if zeros else 'border'}" if kind == "warp" else "")
+        out[name] = {"shape": key, "ms": ms["kernel"], "kernel_device_ms": dev_ms, "plain_ms": ms["plain"],
+                     "library_ms": ms["library"], "bound_ms": b[0], "bound_by": b[1]}
+        print(
+            f"timing {card}: {name} at the steps' largest input, {key}: " + ", ".join(f"{k} {ms[k]:.4f} ms {v}" for k, v in times.items())
+            + f"; the kernel alone {dev_ms:.4f} ms on the device; bound {b[0]:.4f} ms ({b[1]}), the kernel at "
+            f"{100 * b[0] / dev_ms:.1f} % of it",
+            flush=True,
+        )
+    return out
 
 
 def main() -> int:
@@ -3952,10 +4374,6 @@ def main() -> int:
         return (loss, {k: v.grad.cpu() for k, v in net.named_parameters()},
                 {k: (v.detach() - before[k]).cpu() for k, v in net.named_parameters()})
 
-    def all_counts():
-        return {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches, "splat": softsplat_kernel.launches,
-                "backward": warp_kernel.backward_launches, "splat_backward": softsplat_kernel.backward_launches}
-
     m2m_trained = {}
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -3963,11 +4381,10 @@ def main() -> int:
         m2m_trained["twin"] = m2m_train_once("cuda", twin=True)
         torch.cuda.synchronize()
         warp_mod.warp_torch, splat_mod.softsplat_torch = guarded_twin, guarded_splat_twin
-        warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = 0
-        softsplat_kernel.launches = softsplat_kernel.backward_launches = 0
+        zero_kernel_counts()
         m2m_trained["cuda"] = m2m_train_once("cuda")
         torch.cuda.synchronize()
-        m2m_train_launches = all_counts()
+        m2m_train_launches = kernel_counts()
         warp_mod.warp_torch, splat_mod.softsplat_torch = real_twin, real_splat_twin
         m2m_trained["cpu"] = m2m_train_once("cpu")
     finally:
@@ -4102,6 +4519,19 @@ def main() -> int:
     sbwd_main = sbwd_times[f"{list(M2M_TRAIN_SPLAT_SHAPE)} float32"]
     print(f"m2m train timing: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 55-61. the other families' training steps, and 62. the backward kernels at their largest inputs ----
+    t0 = time.perf_counter()
+    family_rows, family_largest = {}, {}
+    for number, name in enumerate(FAMILIES, 55):
+        family_rows[name], largest = family_phase(name, number, dev, card)
+        for kind, c in largest.items():
+            if c is not None and (kind not in family_largest or c[0].numel() > family_largest[kind][1][0].numel()):
+                family_largest[kind] = (name, c)
+        torch.cuda.empty_cache()
+    family_times = largest_backward_times(family_largest, card)
+    del family_largest
+    print(f"family training: phases 55-62 {time.perf_counter() - t0:.1f} s", flush=True)
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -4133,7 +4563,8 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-54 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-62 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
             "name": "warp_bilinear",
@@ -4146,7 +4577,7 @@ def main() -> int:
             + xvfi_launches["narrow"] + x4k_launches["narrow"] + rife_stream_launches["narrow"] + m2m_stream_launches["narrow"]
             + train_launches["narrow"] + rife_sharded_launches["narrow"] + m2m_sharded_launches["narrow"]
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
-            + m2m_train_launches["narrow"],
+            + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()),
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -4158,6 +4589,7 @@ def main() -> int:
                 "rife_sharded": rife_sharded_launches["narrow"], "m2m_sharded": m2m_sharded_launches["narrow"],
                 "rife_sharded_2way": rife_sharded2_launches["narrow"], "m2m_sharded_2way": m2m_sharded2_launches["narrow"],
                 "rife_train_2way": train2_launches["narrow"], "m2m_train": m2m_train_launches["narrow"],
+                **family_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -4181,7 +4613,8 @@ def main() -> int:
             + sum(v["wide"] for v in gmfss_launches.values()) + stmf_launches["wide"]
             + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"] + atm_launches["wide"]
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
-            + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"],
+            + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
+            + sum(family_launches["wide"].values()),
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -4190,6 +4623,7 @@ def main() -> int:
                 "rife_streaming": rife_stream_launches["wide"], "m2m_streaming": m2m_stream_launches["wide"],
                 "momo": momo_launches["wide"], "rife_train": train_launches["wide"], "m2m_sharded": m2m_sharded_launches["wide"],
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
+                **family_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -4217,7 +4651,7 @@ def main() -> int:
             "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
-            + m2m_train_launches["splat"],
+            + m2m_train_launches["splat"] + sum(family_launches["splat"].values()),
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -4225,6 +4659,7 @@ def main() -> int:
                 "m2m_streaming": m2m_stream_launches["splat"], "momo": momo_launches["splat"],
                 "rife_train": train_launches["splat"], "m2m_sharded": m2m_sharded_launches["splat"],
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
+                **family_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -4245,9 +4680,10 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/warp.py:57 (bilinear_sample)",
-            "launches": train_launches["backward"] + train2_launches["backward"] + m2m_train_launches["backward"],
+            "launches": train_launches["backward"] + train2_launches["backward"] + m2m_train_launches["backward"]
+            + sum(family_launches["backward"].values()),
             "launches_by_path": {"rife_train": train_launches["backward"], "rife_train_2way": train2_launches["backward"],
-                                 "m2m_train": m2m_train_launches["backward"]},
+                                 "m2m_train": m2m_train_launches["backward"], **family_launches["backward"]},
             "max_abs_err": bwd_err,
             "shape": f"{list(MAIN_SHAPE)} f32, f32 flow, border",
             "ms": bwd_main["ms"],
@@ -4260,15 +4696,19 @@ def main() -> int:
             "per_step": train_profile.get("warp_bilinear_backward"),
             "per_m2m_step": m2m_train_profile.get("warp_bilinear_backward"),
             "training": train_rows,
+            "family_steps": {name: {"launches": row["backward_shapes"]["warp"], "max_abs_err": row["max_abs_err"]["warp"],
+                                    **row["backward_shares"].get("warp_bilinear_backward", {})}
+                             for name, row in family_rows.items()},
+            "family_largest": family_times.get("warp_bilinear_backward"),
         },
         {
             "name": "softsplat_bilinear_backward",
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
             "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/softsplat.py:83 (_softsplat_xla)",
-            "launches": m2m_train_launches["splat_backward"],
+            "launches": m2m_train_launches["splat_backward"] + sum(family_launches["splat_backward"].values()),
             "launches_by_path": {"m2m_train": m2m_train_launches["splat_backward"], "rife_train": train_launches["splat_backward"],
-                                 "rife_train_2way": train2_launches["splat_backward"]},
+                                 "rife_train_2way": train2_launches["splat_backward"], **family_launches["splat_backward"]},
             "max_abs_err": sb_err,
             "shape": f"{list(M2M_TRAIN_SPLAT_SHAPE)} f32, f32 flow",
             "ms": sbwd_main["ms"],
@@ -4282,6 +4722,12 @@ def main() -> int:
             "per_step": m2m_train_profile.get("softsplat_bilinear_backward"),
             "training": m2m_train_rows,
             "other_steps": other_steps,
+            "family_steps": {name: {"launches": row["backward_shapes"]["splat"], "max_abs_err": row["max_abs_err"]["splat"],
+                                    **row["backward_shares"].get("softsplat_bilinear_backward", {})}
+                             for name, row in family_rows.items()},
+            "family_largest": family_times.get("softsplat_bilinear_backward"),
+            "family_training": {name: {k: v for k, v in row.items() if k not in ("backward_shapes", "max_abs_err")}
+                                for name, row in family_rows.items()},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,10 @@ def convrelu(cin: int, cout: int, k: int = 3, stride: int = 1, padding: int = 1)
 
 class ResBlock(nn.Module):
     """``ResBlock`` (IFRNet_S_arch.py:69-122; AMT's is the same): conv2 and
-    conv4 transform the last ``side`` channels in place."""
+    conv4 transform the last ``side`` channels, in place without a gradient.
+    Autograd cannot differentiate through a write into a tensor that a
+    convolution's backward still reads, so with one the side channels are
+    joined to the others by ``cat``."""
 
     def __init__(self, c: int, side: int):
         super().__init__()
@@ -77,9 +80,14 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.side
         out = self.conv1(x)
-        out[:, -s:] = self.conv2(out[:, -s:])
-        out = self.conv3(out)
-        out[:, -s:] = self.conv4(out[:, -s:])
+        if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            out = torch.cat([out[:, :-s], self.conv2(out[:, -s:])], 1)
+            out = self.conv3(out)
+            out = torch.cat([out[:, :-s], self.conv4(out[:, -s:])], 1)
+        else:
+            out[:, -s:] = self.conv2(out[:, -s:])
+            out = self.conv3(out)
+            out[:, -s:] = self.conv4(out[:, -s:])
         return self.prelu(x + self.conv5(out))
 
 

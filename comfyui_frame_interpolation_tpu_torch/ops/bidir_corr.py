@@ -27,6 +27,16 @@ stays under :data:`BAND_ELEMENTS` elements; the index arithmetic before the
 bands and the lerp after them run once over all queries (a band is two
 launches: the host, at ~0.03 ms a launch, would otherwise set the pace). Plain PyTorch: the JAX version is XLA,
 no Pallas kernel.
+
+Without a gradient the bands' dots are written into one preallocated buffer
+(``out=``). Autograd cannot differentiate ``out=`` calls, so when grad mode
+is on and the query, the pyramid or the coordinates need a gradient, each
+band's dots are a new tensor and one ``cat`` joins them (the same values,
+bit for bit). Autograd then keeps each band's gathered patch for the
+query's gradient, C times the dots' size: at AMT-S's training crop, b8 x
+256x256 (32x32 queries a frame at 1/8, C = 84), 8192 queries x 4 levels x
+8x8 taps x 84 channels x 4 bytes = 705 MB a direction and lookup, 4.2 GB for
+the three lookups of both directions in one forward.
 """
 
 from __future__ import annotations
@@ -111,12 +121,19 @@ class BidirCorr:
         # each patch row's first pixel, [Q * levels * pp]
         idx = (base[..., None] + torch.arange(pp, device=dev).view(1, 1, pp) * wpad.view(1, lv, 1)).view(-1)
         # the dots, band by band (the gathered patches are C times the dots' size)
-        d = torch.empty((nq, lv * pp * pp, 1), dtype=torch.float32, device=dev)
         band = max(1, BAND_ELEMENTS // (lv * pp * pp * c))
-        for q0 in range(0, nq, band):
-            q1 = min(nq, q0 + band)
+        bands = [(q0, min(nq, q0 + band)) for q0 in range(0, nq, band)]
+
+        def dots(q0, q1, out=None):
             patch = pyr.rows.index_select(0, idx[q0 * lv * pp : q1 * lv * pp]).view(q1 - q0, lv * pp * pp, c)
-            torch.bmm(patch, q_all[q0:q1, :, None], out=d[q0:q1])
+            return torch.bmm(patch, q_all[q0:q1, :, None], out=out)
+
+        if torch.is_grad_enabled() and (query.requires_grad or pyr.rows.requires_grad or coords.requires_grad):
+            d = torch.cat([dots(q0, q1) for q0, q1 in bands])
+        else:
+            d = torch.empty((nq, lv * pp * pp, 1), dtype=torch.float32, device=dev)
+            for q0, q1 in bands:
+                dots(q0, q1, out=d[q0:q1])
         d = d.view(nq, lv, pp, pp) * ok[..., None, None]
         tx, ty = t[..., 0, None, None], t[..., 1, None, None]
         dy = (1.0 - ty) * d[:, :, :n, :] + ty * d[:, :, 1:, :]

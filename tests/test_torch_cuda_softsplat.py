@@ -485,3 +485,38 @@ def test_m2m_training_step_launches(cuda, monkeypatch):
     after = [getattr(warp_kernel, k) for k in counters] + [softsplat_kernel.launches, softsplat_kernel.backward_launches]
     assert [a - b for a, b in zip(after, before)] == [4, 16, 20, 1, 1]
     assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all() for p in net.parameters())
+
+
+@pytest.mark.parametrize("name", ["gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt"])
+def test_family_training_step_launches(cuda, name, monkeypatch):
+    """One training step of each family that ``chip_smoke.py`` phases 55-61
+    train, at b2 x 64x64 (STMFNet 128x128) f32 on the card: exactly
+    ``chip_smoke.FAMILY_STEP_LAUNCHES[name]`` launches of K1, the wide
+    kernel, K2 and both backward kernels, no CUDA splat or warp that needs a
+    gradient reaching a twin, and a finite loss and gradients."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    softsplat_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.softsplat")
+    warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")
+
+    def refuse(real):
+        def call(x, flow, *args):
+            assert not (x.is_cuda and (x.requires_grad or flow.requires_grad)), "a CUDA op that needs a gradient reached a twin"
+            return real(x, flow, *args)
+
+        return call
+
+    monkeypatch.setattr(softsplat_mod, "softsplat_torch", refuse(softsplat_mod.softsplat_torch))
+    monkeypatch.setattr(warp_mod, "warp_torch", refuse(warp_mod.warp_torch))
+    net, step = chip_smoke.family_trainer(name, cuda)
+    batch = chip_smoke.family_batch(name, 2, chip_smoke.FAMILY_CHECK_HW.get(name, (64, 64)), 0, cuda)
+    before = chip_smoke.kernel_counts()
+    loss = step(*batch)
+    torch.cuda.synchronize()
+    after = chip_smoke.kernel_counts()
+    assert {k: after[k] - before[k] for k in after} == chip_smoke.FAMILY_STEP_LAUNCHES[name]
+    assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)

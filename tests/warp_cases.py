@@ -159,6 +159,9 @@ def bound_flow(b: int, h: int, w: int) -> np.ndarray:
 
 
 BACKWARD_CHANNELS = (1, 2, 3, 4, 5, 7, 8, 9, 16, 40)
+# the training steps' widest warps (the wide kernel's forward): AMT S's 44,
+# IFRNet S's 54, XVFI's 64
+BACKWARD_WIDE_CHANNELS = (44, 54, 64)
 
 
 def pile_flow(b: int, h: int, w: int, block: int = 16) -> np.ndarray:
@@ -174,7 +177,9 @@ def pile_flow(b: int, h: int, w: int, block: int = 16) -> np.ndarray:
 def backward_cases(seed: int, h: int, w: int) -> List[Dict]:
     """``[{"name", "img" [B,H,W,C] f32, "flow" [B,H,W,2] f32, "modes"}]``
     for the warp's backward kernel at ``h x w``; the ragged cases keep their
-    own 68x92 and 137x261 frames."""
+    own 68x92 and 137x261 frames. The training steps' widest warps
+    (``BACKWARD_WIDE_CHANNELS``) come last, drawn after the others, so that
+    those keep their values."""
     rng = np.random.default_rng(seed)
 
     def img(b, hh, ww, c):
@@ -204,6 +209,7 @@ def backward_cases(seed: int, h: int, w: int) -> List[Dict]:
         dict(name="bwd_discontinuity_c3", img=img(1, h, w, 3), flow=disc, modes=BORDER_ZEROS),
         dict(name="bwd_pile_c7", img=img(1, h, w, 7), flow=pile_flow(1, h, w), modes=BORDER_ZEROS),
     ]
+    cases += [dict(name=f"bwd_c{c}", img=img(2, h, w, c), flow=smooth(2, h, w), modes=BORDER_ZEROS) for c in BACKWARD_WIDE_CHANNELS]
     return cases
 
 
@@ -316,6 +322,7 @@ def splat_bound_flow(b: int, h: int, w: int) -> np.ndarray:
 
 
 SPLAT_BACKWARD_CHANNELS = (3, 5, 8, 65)
+SPLAT_BACKWARD_WIDE_CHANNELS = (193, 514)  # GMFSS's and EISAI's widest splats
 
 
 def splat_backward_cases(seed: int, h: int, w: int) -> List[Dict]:
@@ -324,7 +331,9 @@ def splat_backward_cases(seed: int, h: int, w: int) -> List[Dict]:
     C = 3, 5, 8 and 65 on smooth flow with noise (one lane or a group of
     lanes a source, a tail of 1-3 channels); integer and half-pixel
     constant offsets (every source on a pixel or between two, at C = 4);
-    targets exactly on and just off each bound (:func:`splat_bound_flow`)."""
+    targets exactly on and just off each bound (:func:`splat_bound_flow`);
+    then GMFSS's and EISAI's widest, C = 193 and 514, as the first widths
+    (drawn last, so that the earlier cases keep their values)."""
     rng = np.random.default_rng(seed)
 
     def vals(b, c):
@@ -339,4 +348,5 @@ def splat_backward_cases(seed: int, h: int, w: int) -> List[Dict]:
         f[..., 0], f[..., 1] = fx, fy
         cases.append(dict(name=f"splat_bwd_{name}_offset_c4", vals=vals(1, 4), flow=f))
     cases.append(dict(name="splat_bwd_exact_bounds_c4", vals=vals(1, 4), flow=splat_bound_flow(1, h, w)))
+    cases += [dict(name=f"splat_bwd_c{c}", vals=vals(2, c), flow=noisy(2)) for c in SPLAT_BACKWARD_WIDE_CHANNELS]
     return cases
