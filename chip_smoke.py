@@ -399,10 +399,11 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    (``ops.softsplat.softsplat_backward_torch``): the splat cases and
    ``warp_cases.splat_backward_cases`` at 256x512 (integer and half-pixel
    constant offsets, targets exactly on -1, 0, w - 1 and w, non-finite and
-   huge flow), f32 and bf16, f16 once; C = 1-8 and 65, GMFSS's 193 and
-   EISAI's 258 and 514 at their sizes; NCHW planes, an odd channel slice
-   and an expanded ``grad_out``; the flow's gradient alone too (the same
-   bits);
+   huge flow, EISAI's 8-byte-aligned C = 6, 66, 258), f32 and bf16, f16
+   once; C = 1-8, 65 and 66, GMFSS's 193 and EISAI's 258 and 514 at their
+   sizes; NCHW planes, channel slices that start 4 and 8 bytes past a
+   16-byte boundary and an expanded ``grad_out``; the flow's gradient alone
+   too (the same bits);
    the launches of one M2M training step at phase 53's size, and of one
    GMFSS base and one EISAI step at 64x64, as the steps hand them over;
    ``softsplat_func`` with a gradient through ``SplatFunction`` (no twin),
@@ -452,6 +453,16 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    steps of 55-61 gave it, in the step's layout: the op's ms, the plain
    version's and the library call's in turns, the kernel's device ms and
    its bound.
+63. splat backward timing -- the splat's backward kernel at every distinct
+   input (shape, strides, start offset, dtypes, with or without the
+   input's gradient) that one training step of each path of phases 54-61
+   hands it (M2M b8 f32 and bf16; GMFSS base and union, EISAI, XVFI and
+   STMFNet at b8 x 256x256 f32; ``splat_backward_step_inputs``), on the
+   step's own tensors, and at ``[16, 1088, 1920, 4]`` f32: the kernel's
+   device ms from a profile and its bound, the two library calls' device
+   ms, and the op's, the plain version's and the library calls' ms in
+   turns; per step, the sum over its launches against the sum of their
+   bounds.
 
 Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
@@ -460,8 +471,9 @@ each kernel its device ms there against the bound of those launches; a
 ranking line orders kernel and path by the ms above the bound. Then the
 kernel table as one JSON line: per kernel its launches (by path), max abs
 error, ms, the plain twin's ms,
-``grid_sample``'s ms (``library_ms``, null for the splat, which no single
-PyTorch call computes), its bound: the larger of the bytes it must move
+the library call's ms (``library_ms``: ``grid_sample`` for the warps, for
+the splat one ``aten.grid_sampler_2d_backward`` whose input gradient is
+the sum splat, ``utils/kernel_compare.py:library_splat``), its bound: the larger of the bytes it must move
 (inputs once, output once) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s, with which of the two bounds it; and ``per_forward``, per path the
 launches, device ms, bound and ms above it of one bf16 forward at each
@@ -493,7 +505,9 @@ f32 M2M step's launch), ``training`` (phase 54's rows) and
 the plain version, and the kernel's device ms and share of one profiled
 step) and ``family_largest`` (phase 62), and the splat's backward
 ``family_training`` (phases 55-61's rows: launches, steps/s, windows,
-spread, peak memory, idle share).
+spread, peak memory, idle share) and ``phase_63`` (``by_layout``: each
+input's device ms, bound, share of it, library and plain ms; ``per_step``:
+each step's launches against their bounds).
 The last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is
 imported.
 """
@@ -1657,6 +1671,83 @@ def largest_backward_times(largest, card):
     return out
 
 
+SPLAT_BACKWARD_STEPS = ("m2m_f32", "m2m_bf16") + tuple(n for n in FAMILIES if FAMILY_STEP_LAUNCHES[n]["splat_backward"])
+
+
+def splat_backward_step_inputs(dev):
+    """The splat backward launches of one training step of each path of
+    ``SPLAT_BACKWARD_STEPS`` (M2M at ``M2M_TRAIN_BATCH`` x ``M2M_TRAIN_HW``
+    in f32 and bf16, as phase 54 times it; the families at
+    ``FAMILY_TRAIN_BATCH`` x ``FAMILY_TRAIN_HW`` f32, as phases 55-61 do),
+    with the tensors as the steps hand them over: ``(layouts, per_step)``,
+    ``layouts`` ``{key: (planes, flow planes, grad_out planes, in_grad)}``,
+    one per distinct shape, strides, start offset and dtypes, and
+    ``per_step`` ``{step: {key: launches}}``."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel
+
+    layouts, per_step = {}, {}
+    dt = lambda t: str(t.dtype).split(".")[-1]  # noqa: E731
+    for path in SPLAT_BACKWARD_STEPS:
+        if path.startswith("m2m"):
+            dtype = torch.float32 if path == "m2m_f32" else torch.bfloat16
+            _, step = m2m_trainer(dev, dtype)
+            batch = train_batch(M2M_TRAIN_BATCH, M2M_TRAIN_HW, 54, dev, dtype)
+        else:
+            _, step = family_trainer(path, dev)
+            batch = family_batch(path, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_HW, 63, dev)
+        counts = per_step.setdefault(path, {})
+
+        def keep(x, flow, grad_out, in_grad=True):
+            key = (f"{list(x.permute(0, 2, 3, 1).shape)} {dt(x)} strides {list(x.stride())} "
+                   f"+{x.data_ptr() % 16 // x.element_size()}, {dt(flow)} flow strides {list(flow.stride())}, grad_out "
+                   f"strides {list(grad_out.stride())} +{grad_out.data_ptr() % 16 // 4}" + ("" if in_grad else ", no input gradient"))
+            counts[key] = counts.get(key, 0) + 1
+            layouts.setdefault(key, (x.detach(), flow.detach(), grad_out, bool(in_grad)))
+
+        with spying([(softsplat_kernel, "softsplat_bilinear_backward", keep)]):
+            step(*batch)
+        torch.cuda.synchronize()
+        del step, batch
+    return layouts, per_step
+
+
+def splat_backward_times(layouts, card):
+    """Each of ``layouts`` (``{key: (planes, flow planes, grad_out planes,
+    in_grad)}``): the splat backward kernel's device ms from a profile and
+    its bound, the two library calls' device ms
+    (:func:`splat_backward_library_call`), and in turns the op's, the
+    plain version's and the library calls' ms. Returns ``{key: row}``."""
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_backward_torch
+
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    rows = {}
+    for key, (x, flow, grad_out, in_grad) in layouts.items():
+        kernel = lambda: softsplat_kernel.softsplat_bilinear_backward(x, flow, grad_out, in_grad)  # noqa: E731
+        library = splat_backward_library_call(nhwc(x), nhwc(flow), nhwc(grad_out))
+        small = x.numel() < 5e7
+        times = in_turns({
+            "plain": (lambda: softsplat_backward_torch(nhwc(x), nhwc(flow), nhwc(grad_out)), 2),
+            "kernel": (kernel, 10),
+            "two library calls": (library, 10 if small else 3),
+        })
+        ms = {k: statistics.mean(v) for k, v in times.items()}
+        dev_ms = device_ms(kernel, 10 if small else 3, name="softsplat_backward_kernel")
+        lib_dev_ms = device_ms(library, 5 if small else 2)
+        b = bound(*splat_backward_work(x, flow, in_grad))
+        rows[key] = {"kernel_device_ms": dev_ms, "bound_ms": b[0], "bound_by": b[1], "share_of_bound": b[0] / dev_ms,
+                     "library_device_ms": lib_dev_ms, "ms": ms["kernel"], "plain_ms": ms["plain"],
+                     "library_ms": ms["two library calls"], "turns": times}
+        print(
+            f"splat backward {card}: {key}: the kernel {dev_ms:.4f} ms on the device, bound {b[0]:.4f} ms ({b[1]}), "
+            f"{100 * b[0] / dev_ms:.1f} % of it; two library calls {lib_dev_ms:.4f} ms on the device; in turns "
+            + ", ".join(f"{k} {ms[k]:.4f} ms {v}" for k, v in times.items()),
+            flush=True,
+        )
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1692,6 +1783,7 @@ def main() -> int:
     from comfyui_frame_interpolation_tpu_torch.core.config import load_config
     from comfyui_frame_interpolation_tpu_torch.utils.benchmark import measure
     from comfyui_frame_interpolation_tpu_torch.utils.ckpt import save_npz
+    from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import library_splat
 
     dev = torch.device("cuda")
 
@@ -2057,15 +2149,18 @@ def main() -> int:
     splat_times = in_turns({
         "plain": (lambda: softsplat_torch(splat_vals, splat_flow), 3),
         "kernel": (lambda: softsplat_func(splat_vals, splat_flow), 20),
+        "library": (library_splat(splat_vals, splat_flow), 20),
     })
     splat_ms = statistics.mean(splat_times["kernel"])
     splat_plain_ms = statistics.mean(splat_times["plain"])
+    splat_library_ms = statistics.mean(splat_times["library"])
     splat_bound = bound(*splat_work(splat_vals.permute(0, 3, 1, 2), splat_flow.permute(0, 3, 1, 2)))
     del splat_vals, splat_flow
     print(
         f"timing {card}: M2M 1080p 2x bf16 batch 2 {m2m_fps:.3f} frames/s; reuse {reuse_ms:.3f} ms, infer "
         f"{infer_ms:.3f} ms per pair batch; splat {list(SPLAT_SHAPE)} bf16 kernel {splat_ms:.4f} ms "
-        f"{splat_times['kernel']}, plain {splat_plain_ms:.4f} ms {splat_times['plain']}",
+        f"{splat_times['kernel']}, plain {splat_plain_ms:.4f} ms {splat_times['plain']}, one library call "
+        f"(aten.grid_sampler_2d_backward, f32) {splat_library_ms:.4f} ms {splat_times['library']}",
         flush=True,
     )
     print(
@@ -2430,12 +2525,13 @@ def main() -> int:
         times = in_turns({
             "plain": (lambda: softsplat_torch(vals, flow), 3),
             "kernel": (lambda: softsplat_func(vals, flow), 20),
+            "library": (library_splat(vals, flow), 20),
         })
         sb = bound(*splat_work(vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
         key = "x".join(map(str, vals.shape))
         gmfss_splat_times[key] = {
             "ms": statistics.mean(times["kernel"]), "plain_ms": statistics.mean(times["plain"]),
-            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None,
+            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": statistics.mean(times["library"]),
         }
         print(
             f"timing {card}: splat {list(vals.shape)} bf16, bf16 flow (GMFSS's soft-mode input): "
@@ -2443,6 +2539,12 @@ def main() -> int:
             + f"; bound {sb[0]:.4f} ms ({sb[1]}), the op at {100 * sb[0] / gmfss_splat_times[key]['ms']:.1f} % of it",
             flush=True,
         )
+    print(
+        f"library {card}: K2 per GMFSS infer (each width splatted twice, both directions): the op "
+        f"{2 * sum(v['ms'] for v in gmfss_splat_times.values()):.4f} ms, one library call each "
+        f"{2 * sum(v['library_ms'] for v in gmfss_splat_times.values()):.4f} ms",
+        flush=True,
+    )
     del gmfss_splats
     gmfss_warp_times = {}
     for shape, mode, body in GMFSS_WARP_SHAPES:
@@ -2592,12 +2694,13 @@ def main() -> int:
         times = in_turns({
             "plain": (lambda: softsplat_torch(vals, flow), 3),
             "kernel": (lambda: softsplat_func(vals, flow), 20),
+            "library": (library_splat(vals, flow), 20),
         })
         sb = bound(*splat_work(vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
         key = "x".join(map(str, vals.shape))
         eisai_splat_times[key] = {
             "ms": statistics.mean(times["kernel"]), "plain_ms": statistics.mean(times["plain"]),
-            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None,
+            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": statistics.mean(times["library"]),
         }
         print(
             f"timing {card}: splat {list(vals.shape)} f32, f32 flow (EISAI's soft-mode input): "
@@ -2605,6 +2708,12 @@ def main() -> int:
             + f"; bound {sb[0]:.4f} ms ({sb[1]}), the op at {100 * sb[0] / eisai_splat_times[key]['ms']:.1f} % of it",
             flush=True,
         )
+    print(
+        f"library {card}: K2 per EISAI infer (each width splatted twice, both directions): the op "
+        f"{2 * sum(v['ms'] for v in eisai_splat_times.values()):.4f} ms, one library call each "
+        f"{2 * sum(v['library_ms'] for v in eisai_splat_times.values()):.4f} ms",
+        flush=True,
+    )
     del eisai_splats
 
     # ---- 23. kernels at STMFNet's shapes -------------------------------------
@@ -2848,12 +2957,13 @@ def main() -> int:
         times = in_turns({
             "plain": (lambda: softsplat_torch(vals, flow), 3),
             "kernel": (lambda: softsplat_func(vals, flow), 20),
+            "library": (library_splat(vals, flow), 20),
         })
         sb = bound(*splat_work(vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)))
         key = "x".join(map(str, vals.shape))
         stmf_splat_times[key] = {
             "ms": statistics.mean(times["kernel"]), "plain_ms": statistics.mean(times["plain"]),
-            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None,
+            "bound_ms": sb[0], "bound_by": sb[1], "library_ms": statistics.mean(times["library"]),
         }
         print(
             f"timing {card}: splat {list(vals.shape)} bf16, bf16 flow (STMFNet's softmax-mode input): "
@@ -4239,31 +4349,35 @@ def main() -> int:
     sb_worst("f16 values and flow", splat_backward_vs_plain(
         torch.from_numpy(f16_case["vals"]).to(dev, torch.float16), torch.from_numpy(f16_case["flow"]).to(dev, torch.float16), "f16"))
     n_sb += 1
-    # the lane groups and channel tails: C = 1-8 and 65 at 256x512, GMFSS's
-    # and EISAI's widest at their 1080p / 540p sizes
-    for shape in [(2, 256, 512, c) for c in (1, 2, 3, 4, 5, 6, 7, 8, 65)] + [GMFSS_SPLAT_SHAPES[3], *EISAI_SPLAT_SHAPES[2:]]:
+    # the vector widths, runs and channel tails: C = 1-8, 65 and 66 at
+    # 256x512, GMFSS's and EISAI's widest at their 1080p / 540p sizes
+    for shape in [(2, 256, 512, c) for c in (1, 2, 3, 4, 5, 6, 7, 8, 65, 66)] + [GMFSS_SPLAT_SHAPES[3], *EISAI_SPLAT_SHAPES[2:]]:
         wflow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], 6.0, scale=40.0)).to(dev) + torch.randn(*shape[:3], 2, generator=g).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             vals = torch.rand(shape, generator=g).to(dev, dtype)
             sb_worst(f"widths {dname(dtype)}", splat_backward_vs_plain(vals, wflow, f"C = {shape[3]}"))
             n_sb += 1
-    # layouts: NCHW planes, a channel slice with an odd start, an expanded
-    # grad_out (stride 0, as a branch sum's gradient can be)
-    for c in (4, 7, 65):
+    # layouts: NCHW planes, channel slices that start 4 and 8 bytes past a
+    # 16-byte boundary, an expanded grad_out (stride 0, as a branch sum's
+    # gradient can be)
+    for c in (4, 7, 65, 66):
         lvals = torch.rand(2, 256, 512, c, generator=g).to(dev)
         lflow = torch.from_numpy(warp_cases.smooth_flow(2, 256, 512, 6.0)).to(dev)
         lgout = (torch.rand(lvals.shape, generator=g) * 2 - 1).to(dev)
         sliced = torch.zeros(2, 256, 512, c + 1, device=dev)
         sliced[..., 1:] = lvals
+        sliced2 = torch.zeros(2, 256, 512, c + 2, device=dev)
+        sliced2[..., 2:] = lvals
         layouts = {
             "nchw planes": (lvals.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), lgout.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)),
             "odd channel slice": (sliced[..., 1:], lgout),
+            "8-byte channel slice": (sliced2[..., 2:], lgout),
             "expanded grad_out": (lvals, lgout[:1, :1, :1].expand(lvals.shape)),
         }
         for what, (v_, go_) in layouts.items():
             sb_worst("layouts float32", splat_backward_vs_plain(v_, lflow, f"{what} C = {c}", grad_out=go_))
             n_sb += 1
-    del lvals, lflow, lgout, sliced, layouts
+    del lvals, lflow, lgout, sliced, sliced2, layouts
     # a CUDA splat that needs a gradient goes through SplatFunction (the
     # twin is never called); a direct call of the forward wrapper with such
     # an input raises, naming softsplat_func
@@ -4341,7 +4455,7 @@ def main() -> int:
     sb_err = max(e for k, v in sb_errs.items() if "bfloat16" not in k and "f16" not in k for e in v)
     print(
         f"splat backward: {n_sb} runs of the splat's backward kernel against softsplat_backward_torch (splat cases and "
-        f"splat_backward_cases at 256x512 f32 and bf16, f16 once; C = 1-8, 65, 193, 258, 514; NCHW planes, an odd channel "
+        f"splat_backward_cases at 256x512 f32 and bf16, f16 once; C = 1-8, 65, 66, 193, 258, 514; NCHW planes, an odd and an 8-byte channel "
         f"slice, an expanded grad_out; the flow's gradient alone too), all within tolerance and each bit for bit on a second launch; "
         f"softsplat_func with a gradient went through SplatFunction (K2 and the backward kernel once, no twin), a direct "
         f"softsplat_bilinear with a gradient raised; one M2M training step's splat backward ({'; '.join(m2m_bwd_layouts)}); "
@@ -4532,6 +4646,34 @@ def main() -> int:
     del family_largest
     print(f"family training: phases 55-62 {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 63. the splat's backward kernel at every input the steps give it ----------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sb_layouts, sb_per_step = splat_backward_step_inputs(dev)
+    svals = torch.rand(SPLAT_SHAPE, generator=g).to(dev)
+    sflow = torch.from_numpy(warp_cases.smooth_flow(*SPLAT_SHAPE[:3], amp=8.0)).to(dev)
+    sgrad = (torch.rand(SPLAT_SHAPE, generator=g) * 2 - 1).to(dev)
+    sb_layouts[f"{list(SPLAT_SHAPE)} float32, smooth flow (M2M's batch-2 1080p splat)"] = (
+        svals.permute(0, 3, 1, 2), sflow.permute(0, 3, 1, 2), sgrad.permute(0, 3, 1, 2), True)
+    del svals, sflow, sgrad
+    sb_rows = splat_backward_times(sb_layouts, card)
+    del sb_layouts
+    sb_steps = {}
+    for path, counts in sb_per_step.items():
+        launches = sum(counts.values())
+        dev_sum = sum(n * sb_rows[k]["kernel_device_ms"] for k, n in counts.items())
+        bound_sum = sum(n * sb_rows[k]["bound_ms"] for k, n in counts.items())
+        lib_sum = sum(n * sb_rows[k]["library_device_ms"] for k, n in counts.items())
+        sb_steps[path] = {"launches": launches, "kernel_device_ms": dev_sum, "bound_ms": bound_sum,
+                          "share_of_bound": bound_sum / dev_sum, "library_device_ms": lib_sum, "by_layout": counts}
+        print(
+            f"splat backward {card}: one {path} training step's {launches} launches: the kernel {dev_sum:.4f} ms on the "
+            f"device against their bounds' {bound_sum:.4f} ms ({100 * bound_sum / dev_sum:.1f} %), the two library calls "
+            f"{lib_sum:.4f} ms",
+            flush=True,
+        )
+    print(f"splat backward timing: phase 63 {time.perf_counter() - t0:.1f} s", flush=True)
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -4563,7 +4705,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-62 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-63 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -4668,7 +4810,8 @@ def main() -> int:
             "kernel_ms_in_m2m_forward": m2m_profile["softsplat"]["device_ms"],
             "bound_ms": splat_bound[0],
             "bound_by": splat_bound[1],
-            "library_ms": None,
+            "library_ms": splat_library_ms,
+            "library": "one call: aten.grid_sampler_2d_backward of the f32 values on a precomputed grid (utils/kernel_compare.py:library_splat)",
             "gmfss_shapes": gmfss_splat_times,
             "eisai_shapes": eisai_splat_times,
             "stmfnet_shapes": stmf_splat_times,
@@ -4728,6 +4871,7 @@ def main() -> int:
             "family_largest": family_times.get("softsplat_bilinear_backward"),
             "family_training": {name: {k: v for k, v in row.items() if k not in ("backward_shapes", "max_abs_err")}
                                 for name, row in family_rows.items()},
+            "phase_63": {"by_layout": sb_rows, "per_step": sb_steps},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -67,14 +67,48 @@
 // The backward is a gather, not a scatter: each source reads the output's
 // gradient at its own four corners and writes only its own pixel. So it
 // needs no atomics and no zero-filled buffer, and two launches give the same
-// bits. A group of G lanes (a power of two, up to a warp) takes a source,
-// each lane 4 channels at a time (one 16-byte f32 or 8-byte bf16/f16 vector
-// where the channels are contiguous and every pixel aligned), and the flow
-// gradient's channel sums meet by warp shuffles. It is bounded by bytes:
-// the input, the flow and the output's gradient read once, the two
-// gradients written once (268.4 MB at M2M's b8 256x256 training splat, NHWC
-// [64, 256, 256, 4] f32: 0.080 ms at 3.35 TB/s); the gathers of
-// neighbouring sources share their corners in L1 and L2.
+// bits. It is bounded by bytes: the input, the flow and the f32 output
+// gradient read once, the two gradients written once (268.4 MB at M2M's b8
+// 256x256 training splat, NHWC [64, 256, 256, 4] f32: 0.080 ms at 3.35
+// TB/s; 105.9 MB at EISAI's [8, 128, 128, 66] f32: 0.032 ms); the gathers
+// of neighbouring sources share their corners in L1 and L2. A first body
+// gave each source a power-of-two group of lanes, 4 channels a lane, and
+// reached 58 % of that bound at C = 4 but 22 % at EISAI's C = 66 (PERF.md),
+// for three reasons, each of which this body answers:
+//   1. idle lanes: C = 65 or 66 is 17 groups of 4 on 32 lanes. Here a
+//      block takes a flat run of sources (of all n * h * w) and its lanes
+//      cover the run's (source, vector) pairs in order, so no lane idles but
+//      at the run's end (softsplat_backward_kernel_spread);
+//   2. scalar loads: 4-channel vectors need every pixel on 16 bytes, which
+//      f32 pixels of C = 6, 65, 66, 258 ... are not. The host picks the
+//      channels per vector K (4, 2 or 1) as the largest for which in,
+//      grad_out and grad_in have contiguous channels and every pixel starts
+//      on K elements of its own dtype: EISAI's f32 C = 66, 258, 514 read
+//      8-byte vectors, odd C 4-byte words whose lanes sit side by side, so
+//      every warp-wide access is one contiguous run;
+//   3. work repeated per lane: a thread per source loads its flow once,
+//      computes its corners (splat_corners) and stages their offsets, bilinear
+//      factors and kept bits in shared memory for the pairs; each pair
+//      writes its four corner sums to a slot of a table in shared memory,
+//      and after one barrier lanes per (source, corner) add the slots in a
+//      fixed order (no shared-memory atomics, which would make the sum's
+//      order change from run to run), shuffles join the four corners, and
+//      one lane stores the flow's gradient as one vector.
+// A block's stage, pairs and sums run one after the other, so each block
+// waits out two memory round trips besides its pairs' own; a run of up to
+// 2048 pairs (8 a thread) shares them among more work. On the H100 that
+// measured 1.1-1.3x faster than 1024 pairs, and 3072-6144 pairs (the table
+// in dynamic shared memory), warps that each take their own run with no
+// block-wide barrier, 8 pairs a thread in flight at once, and a 64-register
+// cap (which spills) all measured slower (PERF.md).
+// The input's gradient sums its four corner products in corner order with
+// the _rn intrinsics in every body, so it is the same bits whatever the
+// vector width; the flow's sums meet in another order than the first
+// body's. Sources of up to 8 channels (M2M, STMFNet, XVFI, GMFSS's C = 4,
+// EISAI's C = 6: a pixel of two vectors gains nothing from a table) and
+// inputs whose channels are not contiguous (NCHW planes, where a warp then
+// reads 32 neighbouring pixels of one channel) keep a thread per source
+// (softsplat_backward_kernel), 4 channels at a time in vectors of K.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -287,25 +321,65 @@ __device__ __forceinline__ void store_f32(__half* p, float v) {
   *p = __float2half_rn(v);
 }
 
-// `n` <= 4 channels of a pixel as f32 (the rest 0): one aligned vector (16
-// bytes of f32, 8 of bf16/f16) where `vec` and all 4 are there, else one
-// element at a time by `stride_c`.
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, int64_t stride_c, int n,
-                                      bool vec, float (&v)[4]) {
-  if (vec && n == 4) {
-    if constexpr (sizeof(T) == 4) {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-      v[0] = q.x;
-      v[1] = q.y;
-      v[2] = q.z;
-      v[3] = q.w;
-    } else {
-      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-      T e[4];
-      memcpy(e, &q, sizeof(q));
+// B bytes as one load or store
+template <int B>
+struct Bits;
+template <>
+struct Bits<16> {
+  using T = uint4;
+};
+template <>
+struct Bits<8> {
+  using T = uint2;
+};
+template <>
+struct Bits<4> {
+  using T = unsigned int;
+};
+
+// N (2 or 4) elements from an address aligned to N * sizeof(T), as f32
+template <int N, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  using B = typename Bits<N * sizeof(T)>::T;
+  const B raw = __ldg(reinterpret_cast<const B*>(p));
+  T e[N];
+  memcpy(e, &raw, sizeof(raw));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = load_f32(&e[j]);
+  for (int j = 0; j < N; ++j) v[j] = load_f32(&e[j]);
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  T e[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) store_f32(&e[j], v[j]);
+  typename Bits<N * sizeof(T)>::T raw;
+  memcpy(&raw, e, sizeof(raw));
+  *reinterpret_cast<decltype(raw)*>(p) = raw;
+}
+
+// `n` <= 4 channels of a pixel as f32 (the rest 0). K is the channels per
+// vector that the host found aligned in every pixel (4, 2; 1 for elements,
+// by `stride_c`): a full run of K channels is one vector, a tail is read in
+// pieces of 2 (which K = 4's alignment also gives) or elements.
+template <int K, typename T>
+__device__ __forceinline__ void load_run(const T* p, int64_t stride_c, int n,
+                                         float (&v)[4]) {
+  if constexpr (K == 4) {
+    if (n == 4) {
+      load_vec<4>(p, v);
+      return;
+    }
+  }
+  if constexpr (K >= 2) {
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      if (j + 2 <= n) {
+        load_vec<2>(p + j, v + j);
+      } else {
+        v[j] = j < n ? load_f32(p + j) : 0.0f;
+        v[j + 1] = 0.0f;
+      }
     }
     return;
   }
@@ -313,20 +387,24 @@ __device__ __forceinline__ void load4(const T* p, int64_t stride_c, int n,
   for (int j = 0; j < 4; ++j) v[j] = j < n ? load_f32(p + j * stride_c) : 0.0f;
 }
 
-// The `n` <= 4 channels `v` of a pixel in T, as load4 reads them.
-template <typename T>
-__device__ __forceinline__ void store4(T* p, int64_t stride_c, int n, bool vec,
-                                       const float (&v)[4]) {
-  if (vec && n == 4) {
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-      T e[4];
+// The `n` <= 4 channels `v` of a pixel in T, as load_run reads them.
+template <int K, typename T>
+__device__ __forceinline__ void store_run(T* p, int64_t stride_c, int n,
+                                          const float (&v)[4]) {
+  if constexpr (K == 4) {
+    if (n == 4) {
+      store_vec<4>(p, v);
+      return;
+    }
+  }
+  if constexpr (K >= 2) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) store_f32(&e[j], v[j]);
-      uint2 q;
-      memcpy(&q, e, sizeof(q));
-      *reinterpret_cast<uint2*>(p) = q;
+    for (int j = 0; j < 4; j += 2) {
+      if (j + 2 <= n) {
+        store_vec<2>(p + j, v + j);
+      } else if (j < n) {
+        store_f32(p + j, v[j]);
+      }
     }
     return;
   }
@@ -336,147 +414,429 @@ __device__ __forceinline__ void store4(T* p, int64_t stride_c, int n, bool vec,
   }
 }
 
-// What a backward launch computes, and which tensors it reads in vectors.
-enum : int {
-  kInGrad = 1,  // write grad_in
-  kVecIn = 2,   // in, grad_out and grad_in: 4 channels as one vector
-  kVecGrad = 4,
-  kVecInGrad = 8,
-};
+// `n` <= N channels of a pixel whose runs of N channels start aligned, as
+// f32 (the rest 0): a full run as one vector, a tail by elements.
+template <int N, typename T>
+__device__ __forceinline__ void load_n(const T* p, int n, float (&v)[N]) {
+  if (n == N) {
+    if constexpr (N == 1) {
+      v[0] = load_f32(p);
+    } else {
+      load_vec<N>(p, v);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = j < n ? load_f32(p + j) : 0.0f;
+}
+
+// The `n` <= N channels `v` of a pixel in T, as load_n reads them.
+template <int N, typename T>
+__device__ __forceinline__ void store_n(T* p, int n, const float (&v)[N]) {
+  if (n == N) {
+    if constexpr (N == 1) {
+      store_f32(p, v[0]);
+    } else {
+      store_vec<N>(p, v);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (j < n) store_f32(p + j, v[j]);
+  }
+}
+
+// A source's flow gradient (x, y): one 8-byte (f32) or 4-byte (bf16, f16)
+// store where the two channels are adjacent and aligned, else two stores.
+template <typename TF>
+__device__ __forceinline__ void store_flow(TF* p, int64_t stride_c, float gx,
+                                           float gy) {
+  if (stride_c == 1 &&
+      (reinterpret_cast<uintptr_t>(p) & (2 * sizeof(TF) - 1)) == 0) {
+    const float v[2] = {gx, gy};
+    store_vec<2>(p, v);
+  } else {
+    store_f32(p, gx);
+    store_f32(p + stride_c, gy);
+  }
+}
+
+// a / d for non-negative a, d: a 32-bit division where both fit (every
+// practical frame), a 64-bit one otherwise
+__device__ __forceinline__ int64_t div_index(int64_t a, int64_t d) {
+  return ((a | d) >> 32) == 0
+             ? static_cast<int64_t>(static_cast<uint32_t>(a) / static_cast<uint32_t>(d))
+             : a / d;
+}
+
+// The input's gradient of `n` <= 4 channels from the output's gradient at
+// the four corners (0 where a corner is dropped), in corner order.
+template <int N>
+__device__ __forceinline__ void gather_in_grad(const float (&g)[4][N],
+                                               const float (&weight)[4],
+                                               int mask, float (&gi)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (mask & (1 << k)) acc = __fadd_rn(acc, __fmul_rn(g[k][j], weight[k]));
+    }
+    gi[j] = acc;
+  }
+}
+
+// Each corner's sum over N channels of in * g, added to `sk` in channel
+// order.
+template <int N>
+__device__ __forceinline__ void add_corner_sums(const float (&v)[N],
+                                                const float (&g)[4][N],
+                                                float (&sk)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) sk[k] = __fadd_rn(sk[k], __fmul_rn(v[j], g[k][j]));
+  }
+}
+
+// The flow's gradient from the four corners' sums and the source's
+// bilinear weights: (d/dfx, d/dfy).
+__device__ __forceinline__ float2 flow_grad(const float (&sk)[4], float wx0,
+                                            float wx1, float wy0, float wy1) {
+  return make_float2(
+      __fadd_rn(__fmul_rn(__fsub_rn(sk[1], sk[0]), wy0),
+                __fmul_rn(__fsub_rn(sk[3], sk[2]), wy1)),
+      __fadd_rn(__fmul_rn(__fsub_rn(sk[2], sk[0]), wx0),
+                __fmul_rn(__fsub_rn(sk[3], sk[1]), wx1)));
+}
+
+// the most sources a spread block stages
+constexpr int kBwdSources = 256;
+// the (source, vector) pairs a spread block covers: up to kBwdPairs (8 a
+// thread; the size of its table of corner sums, a multiple of kThreads),
+// fewer where that would leave fewer than kBwdMinBlocks blocks (2 on each
+// of the H100's 132 SMs), but at least one a thread
+constexpr int kBwdPairs = 2048;
+constexpr int64_t kBwdMinBlocks = 264;
+// at most this many lanes sum one corner of one source's table (four
+// corners' lanes then sit in one warp)
+constexpr int kBwdMaxLanes = 8;
 
 struct BackwardArgs {
   const void* in;
   const void* flow;
   const float* grad_out;
-  void* grad_in;
+  void* grad_in;  // null: the input's gradient is not computed
   void* grad_flow;
-  int64_t c, h, w;
+  int64_t nhw, c, h, w;
   Strides si, sf, sg, sgi, sgf;
-  int log2_group;  // 2^log2_group lanes per source
-  int flags;
+  int vecs;           // spread: vectors per source
+  int block_sources;  // sources a block takes
+  int log2_lanes;     // spread: lanes per (source, corner) sum
 };
 
-template <typename TI, typename TF>
+// A source's flat index q (row-major over n, h, w) as (b, y, x).
+__device__ __forceinline__ void source_at(int64_t q, int64_t h, int64_t w,
+                                          int64_t& b, int64_t& y, int64_t& x) {
+  const int64_t row = div_index(q, w);
+  x = q - row * w;
+  b = div_index(row, h);
+  y = row - b * h;
+}
+
+// A source per thread, its channels 4 at a time: for sources of up to 8
+// channels and for inputs whose channels are not contiguous, where a warp
+// then reads 32 neighbouring pixels of one channel.
+template <typename TI, typename TF, int K>
 __global__ void __launch_bounds__(kThreads)
     softsplat_backward_kernel(const BackwardArgs a) {
-  // grid (ceil(h * w / sources a block), n), kThreads threads a block: a
-  // group of lanes per source, the sources of an image in row-major order
-  const int group = 1 << a.log2_group;
-  const int lane = threadIdx.x & (group - 1);
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * (kThreads >> a.log2_group) +
-                    (threadIdx.x >> a.log2_group);
-  const int64_t b = blockIdx.y;
-  const bool in_frame = s < a.h * a.w;
-  const int64_t y = in_frame ? s / a.w : 0;
-  const int64_t x = in_frame ? s - y * a.w : 0;
-
-  // 1. the source's corners and weights, as the forward computes them
-  Corners cn;
-  if (in_frame) {
-    float fx, fy;
-    load_flow(static_cast<const TF*>(a.flow) + b * a.sf.n + y * a.sf.h + x * a.sf.w,
-              a.sf.c, fx, fy);
-    cn = splat_corners(x, y, a.w, a.h, fx, fy);
-  }
-  const float* gb = a.grad_out + b * a.sg.n;
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (q >= a.nhw) return;
+  int64_t b, y, x;
+  source_at(q, a.h, a.w, b, y, x);
+  float fx, fy;
+  load_flow(static_cast<const TF*>(a.flow) + b * a.sf.n + y * a.sf.h + x * a.sf.w,
+            a.sf.c, fx, fy);
+  const Corners cn = splat_corners(x, y, a.w, a.h, fx, fy);
+  const int mask = (cn.valid[0] ? 1 : 0) | (cn.valid[1] ? 2 : 0) |
+                   (cn.valid[2] ? 4 : 0) | (cn.valid[3] ? 8 : 0);
+  const float* gb = a.grad_out + b * a.sg.n + cn.iy0 * a.sg.h + cn.ix0 * a.sg.w;
   const TI* src = static_cast<const TI*>(a.in) + b * a.si.n + y * a.si.h + x * a.si.w;
-
-  // 2. this lane's groups of 4 channels: the input's gradient gathered from
-  // the kept corners (in corner order), and each corner's sum over the
-  // channels of in * g for the flow's gradient
+  TI* dst = a.grad_in == nullptr
+                ? nullptr
+                : static_cast<TI*>(a.grad_in) + b * a.sgi.n + y * a.sgi.h + x * a.sgi.w;
   float sk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const int64_t groups = (a.c + 3) / 4;
-  for (int64_t cg = lane; cg < groups; cg += group) {
-    const int64_t ch = cg * 4;
+  for (int64_t ch = 0; ch < a.c; ch += 4) {
     const int nch = static_cast<int>(a.c - ch < 4 ? a.c - ch : 4);
     float g[4][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (cn.valid[k]) {
-        const float* q = gb + (cn.iy0 + (k >> 1)) * a.sg.h + (cn.ix0 + (k & 1)) * a.sg.w;
-        load4(q + ch * a.sg.c, a.sg.c, nch, (a.flags & kVecGrad) != 0, g[k]);
+      if (mask & (1 << k)) {
+        load_run<K>(gb + (k >> 1) * a.sg.h + (k & 1) * a.sg.w + ch * a.sg.c, a.sg.c, nch, g[k]);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) g[k][j] = 0.0f;
       }
     }
-    if ((a.flags & kInGrad) && in_frame) {
+    if (dst != nullptr) {
       float gi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (cn.valid[k]) acc = __fadd_rn(acc, __fmul_rn(g[k][j], cn.weight[k]));
-        }
-        gi[j] = acc;
-      }
-      TI* dst = static_cast<TI*>(a.grad_in) + b * a.sgi.n + y * a.sgi.h + x * a.sgi.w;
-      store4(dst + ch * a.sgi.c, a.sgi.c, nch, (a.flags & kVecInGrad) != 0, gi);
+      gather_in_grad(g, cn.weight, mask, gi);
+      store_run<K>(dst + ch * a.sgi.c, a.sgi.c, nch, gi);
     }
     if (cn.live) {
       float v[4];
-      load4(src + ch * a.si.c, a.si.c, nch, (a.flags & kVecIn) != 0, v);
+      load_run<K>(src + ch * a.si.c, a.si.c, nch, v);
+      add_corner_sums(v, g, sk);
+    }
+  }
+  const float2 gf = flow_grad(sk, cn.wx0, cn.wx1, cn.wy0, cn.wy1);
+  store_flow(static_cast<TF*>(a.grad_flow) + b * a.sgf.n + y * a.sgf.h + x * a.sgf.w,
+             a.sgf.c, gf.x, gf.y);
+}
+
+// A staged source of a spread block (48 bytes).
+struct alignas(16) StagedSource {
+  float4 wxy;     // wx0, wx1, wy0, wy1
+  int64_t g;      // the output gradient's offset of corner y0x0
+  int64_t in, gi;  // the source's offsets in in and grad_in
+  int mask;       // bits 0-3: the corners kept; bit 4: a finite target
+};
+
+// Channel-contiguous sources of several vectors (K channels each): a block
+// takes a flat run of sources. A thread per source loads its flow, computes
+// its corners and stages them; then the block's lanes cover the run's
+// (source, vector) pairs in order, each pair writing its input gradient and
+// its four corner sums (a slot of a table in shared memory); then lanes per
+// (source, corner) add the table in a fixed order, and a source's flow
+// gradient is stored by one lane.
+template <typename TI, typename TF, int K>
+__global__ void __launch_bounds__(kThreads)
+    softsplat_backward_kernel_spread(const BackwardArgs a) {
+  constexpr int kUnroll = K == 4 ? 2 : 4;
+  __shared__ StagedSource staged[kBwdSources];
+  __shared__ float4 sums[kBwdPairs];
+
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * a.block_sources;
+  const int ns = static_cast<int>(a.nhw - q0 < a.block_sources ? a.nhw - q0 : a.block_sources);
+  const int vecs = a.vecs;
+
+  // 1. a thread per source: one flow load, the corners, staged
+  for (int i = threadIdx.x; i < ns; i += kThreads) {
+    int64_t b, y, x;
+    source_at(q0 + i, a.h, a.w, b, y, x);
+    float fx, fy;
+    load_flow(static_cast<const TF*>(a.flow) + b * a.sf.n + y * a.sf.h + x * a.sf.w,
+              a.sf.c, fx, fy);
+    const Corners cn = splat_corners(x, y, a.w, a.h, fx, fy);
+    StagedSource s;
+    s.wxy = make_float4(cn.wx0, cn.wx1, cn.wy0, cn.wy1);
+    s.g = b * a.sg.n + cn.iy0 * a.sg.h + cn.ix0 * a.sg.w;
+    s.in = b * a.si.n + y * a.si.h + x * a.si.w;
+    s.gi = b * a.sgi.n + y * a.sgi.h + x * a.sgi.w;
+    s.mask = (cn.valid[0] ? 1 : 0) | (cn.valid[1] ? 2 : 0) | (cn.valid[2] ? 4 : 0) |
+             (cn.valid[3] ? 8 : 0) | (cn.live ? 16 : 0);
+    staged[i] = s;
+  }
+  __syncthreads();
+
+  // 2. the lanes cover the (source, vector) pairs in order, so a warp reads
+  // each corner and writes the input's gradient as contiguous runs; kUnroll
+  // pairs a thread, all their loads issued before the first sum. Pair q is
+  // source q / vecs, vector q % vecs, stepped without a division.
+  const TI* in = static_cast<const TI*>(a.in);
+  TI* grad_in = static_cast<TI*>(a.grad_in);
+  const int total = ns * vecs;
+  const int step_p = kThreads / vecs;
+  const int step_v = kThreads - step_p * vecs;
+  int p = static_cast<int>(threadIdx.x) / vecs;
+  int v = static_cast<int>(threadIdx.x) - p * vecs;
+  for (int q = threadIdx.x; q < total; q += kUnroll * kThreads) {
+    float g[kUnroll][4][K], val[kUnroll][K];
+    int pu[kUnroll], nu[kUnroll];
+    int64_t cu[kUnroll];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+    for (int u = 0; u < kUnroll; ++u) {
+      pu[u] = p;
+      cu[u] = static_cast<int64_t>(v) * K;
+      nu[u] = static_cast<int>(a.c - cu[u] < K ? a.c - cu[u] : K);
+      if (q + u * kThreads < total) {
+        const int mask = staged[p].mask;
+        const int64_t go = staged[p].g + cu[u];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sk[k] = __fadd_rn(sk[k], __fmul_rn(v[j], g[k][j]));
+        for (int k = 0; k < 4; ++k) {
+          if (mask & (1 << k)) {
+            load_n<K>(a.grad_out + go + (k >> 1) * a.sg.h + (k & 1) * a.sg.w, nu[u], g[u][k]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < K; ++j) g[u][k][j] = 0.0f;
+          }
+        }
+        if (mask & 16) {
+          load_n<K>(in + staged[p].in + cu[u], nu[u], val[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < K; ++j) val[u][j] = 0.0f;
+        }
+      }
+      p += step_p;
+      v += step_v;
+      if (v >= vecs) {
+        v -= vecs;
+        ++p;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int pair = q + u * kThreads;
+      if (pair < total) {
+        const int mask = staged[pu[u]].mask;
+        if (grad_in != nullptr) {
+          // the corners' weights, as splat_corners multiplies them
+          const float4 w = staged[pu[u]].wxy;
+          const float weight[4] = {__fmul_rn(w.x, w.z), __fmul_rn(w.y, w.z), __fmul_rn(w.x, w.w),
+                                   __fmul_rn(w.y, w.w)};
+          float gi[K];
+          gather_in_grad(g[u], weight, mask, gi);
+          store_n<K>(grad_in + staged[pu[u]].gi + cu[u], nu[u], gi);
+        }
+        float sk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (mask & 16) add_corner_sums(val[u], g[u], sk);
+        const float4 s4 = make_float4(sk[0], sk[1], sk[2], sk[3]);
+        // a pair past the table adds into the slot of the pair kBwdPairs
+        // before it, which the same thread wrote (a block of one source)
+        if (pair < kBwdPairs) {
+          sums[pair] = s4;
+        } else {
+          float4& t = sums[pair % kBwdPairs];
+          t = make_float4(__fadd_rn(t.x, s4.x), __fadd_rn(t.y, s4.y), __fadd_rn(t.z, s4.z),
+                          __fadd_rn(t.w, s4.w));
+        }
       }
     }
   }
+  __syncthreads();
 
-  // 3. the flow's gradient: the group's sums meet by shuffles (every lane of
-  // the warp takes part), and the group's first lane writes it
-  for (int off = group >> 1; off > 0; off >>= 1) {
+  // 3. the flow's gradient: 2^log2_lanes lanes per (source, corner) add
+  // that corner's slots (lane j those j, j + lanes, ..., into four sums
+  // in turn, which meet at the end), the lanes' sums meet by shuffles, and
+  // the four corners' sums by shuffles at the lane of corner 0, which
+  // stores the source's gradient. Every lane of the block runs the same
+  // rounds.
+  const int lanes = 1 << a.log2_lanes;
+  const int slots = vecs < kBwdPairs ? vecs : kBwdPairs;
+  for (int base = 0; base < 4 * ns * lanes; base += kThreads) {
+    const int idx = base + static_cast<int>(threadIdx.x);
+    const int j = idx & (lanes - 1);
+    const int k = (idx >> a.log2_lanes) & 3;
+    const int s = idx >> (a.log2_lanes + 2);
+    float acc = 0.0f;
+    if (s < ns) {
+      const float* col = reinterpret_cast<const float*>(sums + s * vecs) + k;
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int e = j;
+      for (; e + 3 * lanes < slots; e += 4 * lanes) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) sk[k] = __fadd_rn(sk[k], __shfl_xor_sync(0xffffffffu, sk[k], off));
-  }
-  if (lane == 0 && in_frame) {
-    const float gfx = __fadd_rn(__fmul_rn(__fsub_rn(sk[1], sk[0]), cn.wy0),
-                                __fmul_rn(__fsub_rn(sk[3], sk[2]), cn.wy1));
-    const float gfy = __fadd_rn(__fmul_rn(__fsub_rn(sk[2], sk[0]), cn.wx0),
-                                __fmul_rn(__fsub_rn(sk[3], sk[1]), cn.wx1));
-    TF* gf = static_cast<TF*>(a.grad_flow) + b * a.sgf.n + y * a.sgf.h + x * a.sgf.w;
-    store_f32(gf, gfx);
-    store_f32(gf + a.sgf.c, gfy);
+        for (int i = 0; i < 4; ++i) part[i] = __fadd_rn(part[i], col[4 * (e + i * lanes)]);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        if (e + i * lanes < slots) part[i] = __fadd_rn(part[i], col[4 * (e + i * lanes)]);
+      }
+      acc = __fadd_rn(__fadd_rn(part[0], part[1]), __fadd_rn(part[2], part[3]));
+    }
+    for (int off = lanes >> 1; off > 0; off >>= 1) {
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    }
+    float sk[4];
+    sk[0] = acc;
+    sk[1] = __shfl_down_sync(0xffffffffu, acc, lanes);
+    sk[2] = __shfl_down_sync(0xffffffffu, acc, 2 * lanes);
+    sk[3] = __shfl_down_sync(0xffffffffu, acc, 3 * lanes);
+    if (s < ns && k == 0 && j == 0) {
+      const float4 w = staged[s].wxy;
+      const float2 gf = flow_grad(sk, w.x, w.y, w.z, w.w);
+      int64_t b, y, x;
+      source_at(q0 + s, a.h, a.w, b, y, x);
+      store_flow(static_cast<TF*>(a.grad_flow) + b * a.sgf.n + y * a.sgf.h + x * a.sgf.w,
+                 a.sgf.c, gf.x, gf.y);
+    }
   }
 }
 
-// Whether 4 channels of every pixel of a tensor of c channels at `p` with
-// element strides `st` are one aligned vector of 4 * isz bytes.
-bool vectors_fit(const void* p, const Strides& st, int64_t c, int64_t isz) {
-  if (p == nullptr || (c > 1 && st.c != 1)) return false;
+// Whether every pixel of a tensor at `p` with element strides `st` and
+// elements of `isz` bytes starts on k elements with its channels
+// contiguous.
+bool pixels_fit(const void* p, const Strides& st, int64_t c, int64_t isz, int64_t k) {
+  if (c > 1 && st.c != 1) return false;
   const uint64_t bits = static_cast<uint64_t>(reinterpret_cast<uintptr_t>(p)) |
                         static_cast<uint64_t>(st.n * isz) |
                         static_cast<uint64_t>(st.h * isz) |
                         static_cast<uint64_t>(st.w * isz);
-  return bits % static_cast<uint64_t>(4 * isz) == 0;
+  return bits % static_cast<uint64_t>(k * isz) == 0;
 }
 
+template <typename TI, typename TF, int K>
+void launch_backward_k(BackwardArgs a, bool spread, cudaStream_t stream) {
+  if (!spread) {
+    const dim3 blocks(static_cast<unsigned int>((a.nhw + kThreads - 1) / kThreads));
+    softsplat_backward_kernel<TI, TF, K><<<blocks, kThreads, 0, stream>>>(a);
+    return;
+  }
+  const int64_t vecs = (a.c + K - 1) / K;
+  int64_t pairs = a.nhw * vecs / kBwdMinBlocks;
+  pairs = pairs < kThreads ? kThreads : (pairs > kBwdPairs ? kBwdPairs : pairs);
+  const int64_t per_block = pairs / vecs;
+  a.vecs = static_cast<int>(vecs);
+  a.block_sources = static_cast<int>(
+      per_block < 1 ? 1 : (per_block > kBwdSources ? kBwdSources : per_block));
+  a.log2_lanes = 0;
+  while (2 * (1 << a.log2_lanes) <= kBwdMaxLanes &&
+         4 * a.block_sources * (2 << a.log2_lanes) <= kThreads &&
+         (1 << a.log2_lanes) < vecs) {
+    ++a.log2_lanes;
+  }
+  const dim3 blocks(static_cast<unsigned int>((a.nhw + a.block_sources - 1) / a.block_sources));
+  softsplat_backward_kernel_spread<TI, TF, K><<<blocks, kThreads, 0, stream>>>(a);
+}
+
+// The channels per vector: the largest k of 4 and 2 for which in, grad_out
+// and grad_in (where computed) have contiguous channels and every pixel
+// starting on k elements of its own dtype, else 1. Sources of up to 8
+// channels, and inputs whose channels are not contiguous, take a thread per
+// source; the rest spread over (source, vector) pairs.
 template <typename TI, typename TF>
-void launch_backward_typed(BackwardArgs a, int64_t n, cudaStream_t stream) {
-  const int64_t isz = sizeof(TI);
-  if (vectors_fit(a.in, a.si, a.c, isz)) a.flags |= kVecIn;
-  if (vectors_fit(a.grad_out, a.sg, a.c, sizeof(float))) a.flags |= kVecGrad;
-  if (vectors_fit(a.grad_in, a.sgi, a.c, isz)) a.flags |= kVecInGrad;
-  const int64_t per_block = kThreads >> a.log2_group;
-  const dim3 blocks(static_cast<unsigned int>((a.h * a.w + per_block - 1) / per_block),
-                    static_cast<unsigned int>(n));
-  softsplat_backward_kernel<TI, TF><<<blocks, kThreads, 0, stream>>>(a);
+void launch_backward_typed(const BackwardArgs& a, cudaStream_t stream) {
+  constexpr int64_t isz = sizeof(TI);
+  auto fits = [&](int64_t k) {
+    return pixels_fit(a.in, a.si, a.c, isz, k) &&
+           pixels_fit(a.grad_out, a.sg, a.c, sizeof(float), k) &&
+           (a.grad_in == nullptr || pixels_fit(a.grad_in, a.sgi, a.c, isz, k));
+  };
+  const bool contiguous = fits(1);
+  const int k = fits(4) ? 4 : fits(2) ? 2 : 1;
+  const bool spread = contiguous && a.c > 8;
+  if (k == 4) {
+    launch_backward_k<TI, TF, 4>(a, spread, stream);
+  } else if (k == 2) {
+    launch_backward_k<TI, TF, 2>(a, spread, stream);
+  } else {
+    launch_backward_k<TI, TF, 1>(a, spread, stream);
+  }
 }
 
 template <typename TI>
-int launch_backward_flow(const BackwardArgs& a, int flow_dtype, int64_t n,
+int launch_backward_flow(const BackwardArgs& a, int flow_dtype,
                          cudaStream_t stream) {
   switch (flow_dtype) {
     case kF32:
-      launch_backward_typed<TI, float>(a, n, stream);
+      launch_backward_typed<TI, float>(a, stream);
       return 0;
     case kBF16:
-      launch_backward_typed<TI, __nv_bfloat16>(a, n, stream);
+      launch_backward_typed<TI, __nv_bfloat16>(a, stream);
       return 0;
     case kF16:
-      launch_backward_typed<TI, __half>(a, n, stream);
+      launch_backward_typed<TI, __half>(a, stream);
       return 0;
   }
   return -1;
@@ -531,8 +891,8 @@ extern "C" int cfi_softsplat(const void* in, const void* flow, void* out,
 // by the kernel (no zero fill needed). `grad_in` may be null and is then not
 // computed. Dtype codes as cfi_softsplat. Returns the launch's
 // cudaGetLastError() (0 on success), -1 for an unknown dtype code, -2 when
-// n or h*w exceeds the grid, -3 when `grad_flow` is null. Launches on
-// `stream` and does not synchronise.
+// n * h * w or c exceeds what the grid and the kernel's indices hold, -3
+// when `grad_flow` is null. Launches on `stream` and does not synchronise.
 extern "C" int cfi_softsplat_backward(
     const void* in, const void* flow, const void* grad_out, void* grad_in,
     void* grad_flow, int in_dtype, int flow_dtype, int64_t n, int64_t c,
@@ -543,13 +903,14 @@ extern "C" int cfi_softsplat_backward(
     int64_t sgf_h, int64_t sgf_w, void* stream) {
   if (grad_flow == nullptr) return -3;
   if (n * h * w == 0) return 0;
-  if (n > 65535 || h * w > (int64_t{1} << 31)) return -2;
+  if (n * h * w > 0x7fffffff || c > (int64_t{1} << 28)) return -2;
   BackwardArgs a;
   a.in = in;
   a.flow = flow;
   a.grad_out = static_cast<const float*>(grad_out);
   a.grad_in = grad_in;
   a.grad_flow = grad_flow;
+  a.nhw = n * h * w;
   a.c = c;
   a.h = h;
   a.w = w;
@@ -558,22 +919,20 @@ extern "C" int cfi_softsplat_backward(
   a.sg = Strides{sg_n, sg_c, sg_h, sg_w};
   a.sgi = Strides{sgi_n, sgi_c, sgi_h, sgi_w};
   a.sgf = Strides{sgf_n, sgf_c, sgf_h, sgf_w};
-  // lanes per source: the groups of 4 channels, rounded up to a power of
-  // two, at most a warp
-  a.log2_group = 0;
-  while ((int64_t{1} << a.log2_group) * 4 < c && a.log2_group < 5) ++a.log2_group;
-  a.flags = grad_in != nullptr ? kInGrad : 0;
+  a.vecs = 1;
+  a.block_sources = kThreads;
+  a.log2_lanes = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   switch (in_dtype) {
     case kF32:
-      rc = launch_backward_flow<float>(a, flow_dtype, n, s);
+      rc = launch_backward_flow<float>(a, flow_dtype, s);
       break;
     case kBF16:
-      rc = launch_backward_flow<__nv_bfloat16>(a, flow_dtype, n, s);
+      rc = launch_backward_flow<__nv_bfloat16>(a, flow_dtype, s);
       break;
     case kF16:
-      rc = launch_backward_flow<__half>(a, flow_dtype, n, s);
+      rc = launch_backward_flow<__half>(a, flow_dtype, s);
       break;
     default:
       rc = -1;

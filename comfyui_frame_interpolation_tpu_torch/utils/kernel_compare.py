@@ -57,6 +57,22 @@ at the main paths' shapes:
   contributions plus 1e-6, the flow's within 1e-5 of its largest plus 1e-6,
   bf16 one ulp more.
 
+* the splat's backward kernel (``splat_backward``): the other checkout's
+  ``cfi_softsplat_backward`` (5 pointers, 2 dtype codes, 24 ``int64``: the
+  same entry point, bound here, its outputs allocated as the wrapper does)
+  against ``softsplat_kernel.softsplat_bilinear_backward``, at EISAI's
+  ``[8, 128, 128, 66]`` f32 (smooth flow, amplitude 6 px) and at every
+  distinct input one training step of each path hands the kernel
+  (``chip_smoke.py:splat_backward_step_inputs``: M2M b8 x 256x256 f32 and
+  bf16; GMFSS base and union, EISAI, XVFI and STMFNet at b8 x 256x256 f32),
+  as the step hands it over. The input's gradient must be the same bits,
+  the flow's within ``chip_smoke.py`` phase 52's tolerance (1e-5 of its
+  largest plus 1e-6, bf16/f16 one ulp more). Each op in turns by CUDA
+  events, and the kernel alone by device ms from a profile, in turns,
+  beside the two library calls' device ms
+  (``chip_smoke.py:splat_backward_library_call``) and the bound; and per
+  step, the sums over its launches.
+
 It also times K1 against the wide kernel at ``[4, 1088, 1920, C]``, C = 3 to
 32 in bf16 and 3 to 8 in f32, the sweep that places the routing threshold
 (``warp_kernel.WIDE_MIN_BYTES``). ``--sections`` picks the parts to run.
@@ -91,8 +107,10 @@ WIDE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 14 +
 SPLAT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
 # the other checkout's backward entry: 5 pointers, 24 int64 strides
 BACKWARD_OLD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 24 + [ctypes.c_void_p]
+# the splat's backward entry: 5 pointers, 2 dtype codes, 24 int64
+SPLAT_BACKWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 24 + [ctypes.c_void_p]
 THRESHOLD_CHANNELS = {torch.bfloat16: (3, 4, 6, 7, 8, 10, 12, 14, 16, 24, 32), torch.float32: (3, 4, 6, 7, 8)}
-SECTIONS = ("k1", "k2", "wide", "threshold", "backward")
+SECTIONS = ("k1", "k2", "wide", "threshold", "backward", "splat_backward")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
 
@@ -525,6 +543,108 @@ def library_backward(img, flow, grad_out, zeros: bool, img_grad: bool = True) ->
     return lambda: torch.ops.aten.grid_sampler_2d_backward(gplanes, planes, grid, 0, 0 if zeros else 1, True, [img_grad, True])
 
 
+def library_splat(vals, flow) -> Callable:
+    """``aten.grid_sampler_2d_backward`` computing K2's splat of NHWC
+    ``vals`` by ``flow`` on a precomputed grid: the input's gradient of a
+    bilinear, zeros-padded ``grid_sample`` whose output's gradient is
+    ``vals`` is the sum splat of ``vals`` at the grid's targets, corners off
+    the frame dropped. The grid takes the targets as ``ops.softsplat``'s
+    twin does (non-finite ones off the frame, the rest clamped to +-2w /
+    +-2h) and the values are f32 (the call takes one dtype; K2 sums in f32
+    too). The call returns ``[N, C, H, W]`` f32 planes. The library
+    yardstick, which the port never calls."""
+    planes = vals.permute(0, 3, 1, 2).float()
+    n, _, h, w = planes.shape
+    gx = torch.arange(w, device=vals.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
+    gy = torch.arange(h, device=vals.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    finite = torch.isfinite(gx) & torch.isfinite(gy)
+    gx = torch.where(finite, gx, -2.0 * w).clamp(-2.0 * w, 2.0 * w)
+    gy = torch.where(finite, gy, -2.0 * h).clamp(-2.0 * h, 2.0 * h)
+    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1)
+    zeros = torch.zeros_like(planes)
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(planes, zeros, grid, 0, 0, True, [True, False])[0]
+
+
+def call_splat_backward(fn: Callable, planes, fplanes, gplanes, in_grad: bool = True):
+    """``fn`` (a ``cfi_softsplat_backward`` entry) on ``[N, C, H, W]``
+    planes, its outputs allocated as ``softsplat_kernel.softsplat_bilinear_backward``
+    allocates them: ``(grad_in or None, grad_flow)``."""
+    gi = torch.empty_like(planes) if in_grad else None
+    gf = torch.empty_like(fplanes)
+    rc = fn(
+        planes.data_ptr(), fplanes.data_ptr(), gplanes.data_ptr(), None if gi is None else gi.data_ptr(), gf.data_ptr(),
+        DTYPE_CODES[planes.dtype], DTYPE_CODES[fplanes.dtype], *planes.shape, *planes.stride(), *fplanes.stride(),
+        *gplanes.stride(), *((0, 0, 0, 0) if gi is None else gi.stride()), *gf.stride(), torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"splat backward launch returned {rc}")
+    return gi, gf
+
+
+def splat_backward_section(dev, old_fn: Callable, card: str) -> Dict:
+    """The splat's backward op and kernel, old and new, in turns (the
+    module's head)."""
+    from ..ops.cuda import softsplat_kernel
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    import chip_smoke
+
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    g = torch.Generator().manual_seed(17)
+    shape = (8, 128, 128, 66)
+    vals = torch.rand(shape, generator=g).to(dev)
+    flow = torch.from_numpy(smooth_flow(*shape[:3], 6.0)).to(dev)
+    grad_out = (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+    eisai_key = f"{list(shape)} float32, smooth flow (EISAI's C = 66 at b8 x 256x256)"
+    cases = {eisai_key: (vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2), True)}
+    layouts, per_step = chip_smoke.splat_backward_step_inputs(dev)
+    cases.update(layouts)
+    result = {"by_layout": {}, "per_step": {}}
+    for key, (planes, fplanes, gplanes, in_grad) in cases.items():
+        old = lambda: call_splat_backward(old_fn, planes, fplanes, gplanes, in_grad)  # noqa: E731
+        new = lambda: softsplat_kernel.softsplat_bilinear_backward(planes, fplanes, gplanes, in_grad)  # noqa: E731
+        (gi_new, gf_new), (gi_old, gf_old) = new(), old()
+        torch.cuda.synchronize()
+        if in_grad and not torch.equal(gi_new, gi_old):
+            raise SystemExit(f"splat backward {key}: the new kernel's grad_in differs from the old one's by "
+                             f"{(gi_new.float() - gi_old.float()).abs().max().item()}")
+        ok, err = chip_smoke.grad_within(gf_new, gf_old, 1e-5 * gf_old.float().abs().max().item() + 1e-6, fplanes.dtype)
+        if not ok:
+            raise SystemExit(f"splat backward {key}: the new kernel's grad_flow differs from the old one's by {err}")
+        del gi_new, gf_new, gi_old, gf_old
+        iters = 5 if planes.numel() > 1e8 else 20
+        t = in_turns(old, new, iters)
+        turns = [device_ms(fn, iters, "softsplat_backward_kernel") for fn in (old, new, new, old)]
+        lib = chip_smoke.device_ms(chip_smoke.splat_backward_library_call(nhwc(planes), nhwc(fplanes), nhwc(gplanes)), iters)
+        b = chip_smoke.bound(*chip_smoke.splat_backward_work(planes, fplanes, in_grad))
+        t.update({
+            "old_device_ms": statistics.mean((turns[0], turns[3])), "new_device_ms": statistics.mean(turns[1:3]),
+            "old_device": [turns[0], turns[3]], "new_device": turns[1:3], "library_device_ms": lib,
+            "bound_ms": b[0], "bound_by": b[1], "grad_flow_max_abs_diff": err,
+        })
+        result["by_layout"][key] = t
+        print(
+            f"splat backward {card}: {key}: op old {t['old_ms']:.4f} ms {t['old']}, new {t['new_ms']:.4f} ms {t['new']}, "
+            f"{t['old_ms'] / t['new_ms']:.2f}x; kernel on the device old {t['old_device_ms']:.4f} {t['old_device']}, new "
+            f"{t['new_device_ms']:.4f} {t['new_device']}, {t['old_device_ms'] / t['new_device_ms']:.2f}x; two library calls "
+            f"{lib:.4f} on the device; bound {b[0]:.4f} ({b[1]}), the new kernel at {100 * b[0] / t['new_device_ms']:.1f} % "
+            f"of it, the old at {100 * b[0] / t['old_device_ms']:.1f} %; grad_in bit for bit, grad_flow within {err:.3g}",
+            flush=True,
+        )
+    for path, counts in per_step.items():
+        row = {k: sum(n * result["by_layout"][key][k] for key, n in counts.items())
+               for k in ("old_device_ms", "new_device_ms", "library_device_ms", "bound_ms")}
+        row["launches"] = sum(counts.values())
+        result["per_step"][path] = row
+        print(
+            f"splat backward {card}: one {path} training step's {row['launches']} launches on the device: old "
+            f"{row['old_device_ms']:.4f} ms, new {row['new_device_ms']:.4f} ms ({row['old_device_ms'] / row['new_device_ms']:.2f}x), "
+            f"two library calls {row['library_device_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms",
+            flush=True,
+        )
+    return result
+
+
 def m2m_splat_inputs(dev) -> Tuple[torch.Tensor, torch.Tensor]:
     """The inputs of the one splat of an M2M 1080p bf16 batch-2 forward."""
     captured = {}
@@ -640,6 +760,11 @@ def main(argv=None) -> int:
     if "backward" in sections:
         old_backward = bind(libs["warp", parent_csrc], "cfi_warp_bilinear_backward", BACKWARD_OLD_ARGS)
         result["backward"] = backward_section(dev, old_backward, card)
+        torch.cuda.empty_cache()
+
+    if "splat_backward" in sections:
+        old_splat_backward = bind(libs["softsplat", parent_csrc], "cfi_softsplat_backward", SPLAT_BACKWARD_ARGS)
+        result["splat_backward"] = splat_backward_section(dev, old_splat_backward, card)
         torch.cuda.empty_cache()
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

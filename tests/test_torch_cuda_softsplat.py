@@ -51,9 +51,11 @@ reuse call and of ``xvfi.warps_per_infer`` and one splat per infer call.
 The splat's backward kernel (``softsplat_kernel.softsplat_bilinear_backward``)
 against its plain version (``ops.softsplat.softsplat_backward_torch``) on the
 splat cases and ``warp_cases.splat_backward_cases`` at 256x512 (f32 and
-bf16, f16 once), C = 1-8, 65, 193 and 514, NHWC views, NCHW planes, an odd
-channel slice and an expanded ``grad_out``, and without the input's
-gradient (the flow's the same bits). Tolerances: the input's gradient within 4 f32 ulps of
+bf16, f16 once), C = 1-8, 65, 66, 193, 258 and 514 (each vector width the
+kernel picks: 4, 2 or 1 channels, one vector a source or several), NHWC
+views, NCHW planes, channel slices that start 4 and 8 bytes past a 16-byte
+boundary and an expanded ``grad_out``, and without the input's gradient
+(the flow's the same bits). Tolerances: the input's gradient within 4 f32 ulps of
 the sum of its absolute contributions (at most four products summed in
 another order); the flow's within 1e-5 of its largest magnitude plus 1e-6
 (channel sums in another order); bf16/f16 one ulp of the output more. The
@@ -401,7 +403,7 @@ def test_backward_f16(cuda):
     _check_backward(torch.from_numpy(case["vals"]).to(cuda, torch.float16), torch.from_numpy(case["flow"]).to(cuda, torch.float16))
 
 
-@pytest.mark.parametrize("name", ["smooth_amp8_c4", "splat_bwd_c65"])
+@pytest.mark.parametrize("name", ["smooth_amp8_c4", "splat_bwd_c65", "splat_bwd_c2", "splat_bwd_c6", "splat_bwd_c66"])
 def test_backward_without_the_input_gradient(cuda, name):
     case = BACKWARD_CASES[name]
     vals, flow = torch.from_numpy(case["vals"]).to(cuda), torch.from_numpy(case["flow"]).to(cuda)
@@ -413,7 +415,7 @@ def test_backward_without_the_input_gradient(cuda, name):
     assert alone[0] is None and torch.equal(alone[1], both[1])
 
 
-@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 6, 7, 8, 65, 193, 514])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 6, 7, 8, 65, 66, 193, 258, 514])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_widths(cuda, c, dtype):
     g = torch.Generator().manual_seed(c)
@@ -423,8 +425,8 @@ def test_backward_widths(cuda, c, dtype):
     _check_backward(vals, flow, seed=c)
 
 
-@pytest.mark.parametrize("c", [4, 7, 65])
-@pytest.mark.parametrize("layout", ["nchw_planes", "odd_channel_slice", "expanded_grad_out"])
+@pytest.mark.parametrize("c", [4, 7, 65, 66])
+@pytest.mark.parametrize("layout", ["nchw_planes", "odd_channel_slice", "channel_slice_8_bytes", "expanded_grad_out"])
 def test_backward_layouts(cuda, c, layout):
     g = torch.Generator().manual_seed(c)
     vals = torch.rand(2, 128, 256, c, generator=g).to(cuda)
@@ -433,10 +435,12 @@ def test_backward_layouts(cuda, c, layout):
     if layout == "nchw_planes":
         vals = vals.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         grad_out = grad_out.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    elif layout == "odd_channel_slice":
-        wider = torch.zeros(2, 128, 256, c + 1, device=cuda)
-        wider[..., 1:] = vals
-        vals = wider[..., 1:]
+    elif layout in ("odd_channel_slice", "channel_slice_8_bytes"):
+        # the slice starts 4 (8) bytes past a 16-byte boundary: element (2-channel) vectors at most
+        skip = 1 if layout == "odd_channel_slice" else 2
+        wider = torch.zeros(2, 128, 256, c + skip, device=cuda)
+        wider[..., skip:] = vals
+        vals = wider[..., skip:]
     else:
         grad_out = grad_out[:1, :1, :1].expand(vals.shape)
     _check_backward(vals, flow, grad_out=grad_out)

@@ -12,7 +12,9 @@ input's dtype):
   smooth, constant and diagonal displacements, piles, rough, non-finite and
   huge flow), and the backward kernel's own (``splat_backward_cases``: C =
   3, 5, 8, 65, integer and half-pixel constant offsets, targets exactly on
-  and just off each bound, where the flow's gradient is one-sided);
+  and just off each bound, where the flow's gradient is one-sided; C = 193
+  and 514, GMFSS's and EISAI's widest; C = 6, 66 and 258, EISAI's widths
+  whose f32 pixels the kernel reads as 2-channel vectors, and C = 2);
 * C = 1 to 8 and 65 on one flow, each width the kernel's lane groups and
   channel tails meet;
 * the huge case: ``_softsplat_xla``'s int32 conversion of a 1e30

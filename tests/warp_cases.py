@@ -323,6 +323,10 @@ def splat_bound_flow(b: int, h: int, w: int) -> np.ndarray:
 
 SPLAT_BACKWARD_CHANNELS = (3, 5, 8, 65)
 SPLAT_BACKWARD_WIDE_CHANNELS = (193, 514)  # GMFSS's and EISAI's widest splats
+# EISAI's splat widths whose f32 pixels start on 8 bytes but not 16 (the
+# backward kernel reads them as 2-channel vectors), and C = 2, one such
+# vector a source
+SPLAT_BACKWARD_ALIGNED_CHANNELS = (6, 66, 258)
 
 
 def splat_backward_cases(seed: int, h: int, w: int) -> List[Dict]:
@@ -332,8 +336,10 @@ def splat_backward_cases(seed: int, h: int, w: int) -> List[Dict]:
     lanes a source, a tail of 1-3 channels); integer and half-pixel
     constant offsets (every source on a pixel or between two, at C = 4);
     targets exactly on and just off each bound (:func:`splat_bound_flow`);
-    then GMFSS's and EISAI's widest, C = 193 and 514, as the first widths
-    (drawn last, so that the earlier cases keep their values)."""
+    then GMFSS's and EISAI's widest, C = 193 and 514, as the first widths;
+    then EISAI's 8-byte-aligned f32 widths, C = 6, 66 and 258, and C = 2
+    (each drawn after the ones before, so that the earlier cases keep their
+    values)."""
     rng = np.random.default_rng(seed)
 
     def vals(b, c):
@@ -349,4 +355,5 @@ def splat_backward_cases(seed: int, h: int, w: int) -> List[Dict]:
         cases.append(dict(name=f"splat_bwd_{name}_offset_c4", vals=vals(1, 4), flow=f))
     cases.append(dict(name="splat_bwd_exact_bounds_c4", vals=vals(1, 4), flow=splat_bound_flow(1, h, w)))
     cases += [dict(name=f"splat_bwd_c{c}", vals=vals(2, c), flow=noisy(2)) for c in SPLAT_BACKWARD_WIDE_CHANNELS]
+    cases += [dict(name=f"splat_bwd_c{c}", vals=vals(2, c), flow=noisy(2)) for c in SPLAT_BACKWARD_ALIGNED_CHANNELS + (2,)]
     return cases
