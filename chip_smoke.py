@@ -449,8 +449,18 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    steps/s as the median of 7 windows of 2 steps with their spread, the
    peak memory, and one profiled step's idle share and each backward
    kernel's device ms and share of the step's device time;
-62. family backward timing -- each backward kernel at the largest input the
-   steps of 55-61 gave it, in the step's layout: the op's ms, the plain
+64-70. film, ifunet, atm, cain, flavr, sepconv, momo train -- as 55-61 (run
+   after them, before 62): FILM, IFUnet (batch norms in ``eval()``, as
+   ``_load`` leaves them), ATM base (global motion, no ensemble), CAIN,
+   Sepconv (kernel heads conditioned as in phase 42) and MoMo base (8 DDPM
+   steps, conditioned as in phase 45, the noise drawn once per batch shape
+   from a fixed seed, so the kernels', the twins' and the CPU's steps see
+   the same) through ``make_train_step``, FLAVR 2x on four frames as
+   STMFNet; CAIN's CPU leg at 128x128. CAIN, FLAVR, Sepconv and MoMo launch
+   no hand kernel: their launches must be 0 for all five;
+62. family backward timing -- the warp's backward kernel at the largest
+   input each family's step of 55-61 and 64-70 gave it, and the splat's at
+   the largest of all, in the step's layout: the op's ms, the plain
    version's and the library call's in turns, the kernel's device ms and
    its bound.
 63. splat backward timing -- the splat's backward kernel at every distinct
@@ -464,7 +474,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    turns; per step, the sum over its launches against the sum of their
    bounds.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -500,11 +510,11 @@ gives its ms at ``[64, 256, 256, 4]`` f32 beside two library calls'
 f32 M2M step's launch), ``training`` (phase 54's rows) and
 ``other_steps`` (phase 52's GMFSS and EISAI steps); every kernel's
 ``launches_by_path`` holds phase 53's step as ``m2m_train`` and phases
-55-61's as ``<family>_train``; both backward kernels hold
+55-61's and 64-70's as ``<family>_train``; both backward kernels hold
 ``family_steps`` (per family, the launches by shape, the max errors against
 the plain version, and the kernel's device ms and share of one profiled
-step) and ``family_largest`` (phase 62), and the splat's backward
-``family_training`` (phases 55-61's rows: launches, steps/s, windows,
+step) and ``family_largest`` (phase 62, by family), and the splat's backward
+``family_training`` (phases 55-61's and 64-70's rows: launches, steps/s, windows,
 spread, peak memory, idle share) and ``phase_63`` (``by_layout``: each
 input's device ms, bound, share of it, library and plain ms; ``per_step``:
 each step's launches against their bounds).
@@ -626,24 +636,34 @@ M2M_TRAIN_SPLAT_SHAPE = (64, 256, 256, 4)
 # warp's backward once per warp (each warp's flow needs a gradient) and the
 # splat's once
 M2M_TRAIN_LAUNCHES = {"narrow": 4, "wide": 16, "splat": 1, "backward": 20, "splat_backward": 1}
-# phases 55-61: the other families' training steps, in this order, at b8 x
-# 256x256 crops (Vimeo-90K's 448x256 triplets cropped; a multiple of every
-# family's pad: GMFSS 64, XVFI Vimeo 2**S_tst * scale * 4 = 16, STMFNet 128,
-# IFRNet 64, AMT 16), f32; card against the CPU at b1 x 64x64 (STMFNet
+# phases 55-61 and 64-70: the other families' training steps, in this
+# order, at b8 x 256x256 crops (Vimeo-90K's 448x256 triplets cropped; a
+# multiple of every family's pad: GMFSS 64, XVFI Vimeo 2**S_tst * scale * 4
+# = 16, STMFNet 128, IFRNet 64, AMT 16, IFUnet 64, ATM 64, CAIN 128, FLAVR
+# 16, MoMo 64), f32; card against the CPU at b1 x 64x64 (STMFNet and CAIN
 # 128x128)
-FAMILIES = ("gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt")
+FAMILIES = ("gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt",
+            "film", "ifunet", "atm", "cain", "flavr", "sepconv", "momo")
+FAMILY_PHASES = dict(zip(FAMILIES, (*range(55, 62), *range(64, 71))))
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_HW = 8, (256, 256)
-FAMILY_CHECK_HW = {"stmfnet": (128, 128)}  # the others at 64x64
+FAMILY_CHECK_HW = {"stmfnet": (128, 128), "cain": (128, 128)}  # the others at 64x64
 FAMILY_EISAI_ITERS = 12  # the node's default
+FAMILY_MOMO_STEPS = 8  # the node's default
+FAMILY_FOUR_FRAMES = ("stmfnet", "flavr")  # clips of four frames: a plain step, no make_train_step
 # one step's launches at f32: the forward's warps and splats as each model
 # counts them (gmfss.warps_per_reuse/warps_per_infer/splats_per_infer,
 # eisai.warps_per_infer/splats_per_infer, xvfi.warps_per_reuse/
-# warps_per_infer, stmfnet.warps_per_forward, ifrnet and amt
-# .warps_per_forward, routed at f32), one splat backward for each splat, and
-# one warp backward for each warp whose output the loss reads
+# warps_per_infer, stmfnet.warps_per_forward, ifrnet, amt, film, ifunet and
+# atm .warps_per_forward, routed at f32), one splat backward for each splat,
+# and one warp backward for each warp whose output the loss reads
 # differentiably: none for the masks' warps, which only a comparison reads
 # (GMFSS's forward-backward consistency warps of the flows, two; the f32
-# ones planes that XVFI, eight, and STMFNet, five, warp for their masks)
+# ones planes that XVFI, eight, and STMFNet, five, warp for their masks),
+# and none for ATM's eight warps whose outputs nothing reads (the frames at
+# 1/4 and 1/2 under global motion, and the blends at 1/4 and 1/2 that the
+# pyramid's last level overwrites). CAIN, FLAVR, Sepconv and MoMo launch no
+# hand kernel.
+NO_LAUNCHES = {"narrow": 0, "wide": 0, "splat": 0, "backward": 0, "splat_backward": 0}
 FAMILY_STEP_LAUNCHES = {
     "gmfss": {"narrow": 4, "wide": 2, "splat": 8, "backward": 4, "splat_backward": 8},
     "eisai": {"narrow": 2, "wide": 0, "splat": 8, "backward": 2, "splat_backward": 8},
@@ -652,6 +672,10 @@ FAMILY_STEP_LAUNCHES = {
     "stmfnet": {"narrow": 6, "wide": 4, "splat": 1, "backward": 5, "splat_backward": 1},
     "ifrnet": {"narrow": 2, "wide": 6, "splat": 0, "backward": 8, "splat_backward": 0},
     "amt": {"narrow": 2, "wide": 6, "splat": 0, "backward": 8, "splat_backward": 0},
+    "film": {"narrow": 5, "wide": 11, "splat": 0, "backward": 16, "splat_backward": 0},
+    "ifunet": {"narrow": 12, "wide": 2, "splat": 0, "backward": 14, "splat_backward": 0},
+    "atm": {"narrow": 12, "wide": 4, "splat": 0, "backward": 8, "splat_backward": 0},
+    "cain": NO_LAUNCHES, "flavr": NO_LAUNCHES, "sepconv": NO_LAUNCHES, "momo": NO_LAUNCHES,
 }
 
 
@@ -1311,21 +1335,54 @@ def span_ms(spans):
     return {label: (len(pairs), sum(s.elapsed_time(e) for s, e in pairs)) for label, pairs in spans.items()}
 
 
+def sepconv_conditioned(seed):
+    """``sepconv.init_params(seed)`` with each kernel head's last
+    convolution scaled by 0.05 and its bias at 1/51 (``bench.py``'s
+    conditioning: a filter's taps sum to about 1, as a trained
+    checkpoint's do, so the normaliser the output is divided by is not
+    near 0)."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.models import sepconv
+
+    sd = sepconv.init_params(seed)
+    for head in ("netVerone", "netVertwo", "netHorone", "netHortwo"):
+        sd[f"{head}.netMain.3.weight"] = sd[f"{head}.netMain.3.weight"] * 0.05
+        sd[f"{head}.netMain.3.bias"] = torch.full_like(sd[f"{head}.netMain.3.bias"], 1.0 / 51.0)
+    return sd
+
+
+def momo_conditioned(sd):
+    """MoMo's ``sd`` with the latent head times 0.02 and the mask head times
+    0.1: the denoiser's predictions stay within ~0.2 and none clips
+    (``tests/test_torch_momo.py:_conditioned``)."""
+    return {k: v * {"model.mid_model.conv_out": 0.02, "model.out_up.proj_out.2": 0.1}.get(k.rsplit(".", 1)[0], 1.0)
+            for k, v in sd.items()}
+
+
 def family_trainer(name, device):
     """The module of training family ``name`` (``FAMILIES``) from its
-    ``init_params(0)`` (every tensor of its checkpoint, ``strict=True``),
-    ``channels_last`` on ``device`` in f32, an Adam 1e-4 over it and its step:
-    ``(net, step)``, ``step(frames, t, target) -> loss`` (detached). The
-    two-frame families step through ``parallel.make_train_step`` on a
-    one-device mesh; STMFNet takes four frames, which no ``make_train_step``
-    carries, so its step is the same L1 through ``loss.backward()`` and the
-    optimizer."""
+    ``init_params(0)`` (every tensor of its checkpoint, ``strict=True``;
+    Sepconv's and MoMo's conditioned as their inference phases condition
+    them), ``channels_last`` on ``device`` in f32 (IFUnet's batch norms in
+    ``eval()``, as ``_load`` leaves them: JAX's are constants), an Adam 1e-4
+    over it and its step: ``(net, step)``, ``step(frames, t, target) ->
+    loss`` (detached). The two-frame families step through
+    ``parallel.make_train_step`` on a one-device mesh; STMFNet and FLAVR
+    take four frames, which no ``make_train_step`` carries, so their step is
+    the same L1 through ``loss.backward()`` and the optimizer. ATM is base
+    with global motion, no ensemble; MoMo base denoises ``FAMILY_MOMO_STEPS``
+    steps on noise drawn once per batch shape from a fixed seed, the same on
+    every device and in every run."""
     import torch
     from comfyui_frame_interpolation_tpu_torch import parallel
-    from comfyui_frame_interpolation_tpu_torch.models import amt, eisai, gmfss, ifrnet, stmfnet, xvfi
+    from comfyui_frame_interpolation_tpu_torch.models import (
+        amt, atm, cain, eisai, film, flavr, gmfss, ifrnet, ifunet, momo, sepconv, stmfnet, xvfi,
+    )
     from comfyui_frame_interpolation_tpu_torch.parallel import train
 
     f32 = torch.float32
+    nchw = lambda x: x.permute(0, 3, 1, 2)  # noqa: E731
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
     if name in ("gmfss", "gmfss_union"):
         union = name == "gmfss_union"
         net, apply_fn = gmfss._load(gmfss.init_params(0, union=union), union, f32, device), gmfss.apply
@@ -1339,20 +1396,48 @@ def family_trainer(name, device):
         apply_fn = lambda n, f0, f1, t: xvfi.apply(n, f0, f1, t, cfg["S_tst"])  # noqa: E731
     elif name == "stmfnet":
         net = stmfnet._load(stmfnet.init_params(0), f32, device)
+        predict = lambda frames: nhwc(stmfnet.apply(net, *(stmfnet._nchw(f) for f in frames)))  # noqa: E731
     elif name == "ifrnet":
         net = ifrnet.IFRNet("S")
         net.load_state_dict(ifrnet.init_params("S", 0), strict=True)
         net, apply_fn = net.to(device=device, memory_format=torch.channels_last), ifrnet.apply
     elif name == "amt":
         net, apply_fn = amt._load(amt.init_params("S", 0), "S", 3, f32, device), amt.apply
+    elif name == "film":
+        net, apply_fn = film._load(film.init_params(0), f32, device), film.apply
+    elif name == "ifunet":
+        net, apply_fn = ifunet._load(ifunet.init_params(0), f32, device), ifunet.apply
+    elif name == "atm":
+        net = atm._load(atm.init_params("base", 0), "base", f32, device)
+        apply_fn = lambda n, f0, f1, t: atm.apply(n, f0, f1, global_motion=True, ensemble_global_motion=False)  # noqa: E731
+    elif name in ("cain", "sepconv"):
+        mod, params = (cain, cain.init_params(0)) if name == "cain" else (sepconv, sepconv_conditioned(0))
+        net = mod._load(params, f32, device)
+        apply_fn = lambda n, f0, f1, t: nhwc(mod.apply(n, nchw(f0), nchw(f1)))  # noqa: E731
+    elif name == "flavr":
+        net = flavr._load(flavr.init_params(0), f32, device)
+        predict = lambda frames: nhwc(flavr.apply(net, torch.stack(frames, 1).permute(0, 4, 1, 2, 3))[0])  # noqa: E731
+    elif name == "momo":
+        net = momo._load(momo_conditioned(momo.init_params(0, "momo-base.pth")), "momo-base.pth", f32, device)
+        noises = {}
+
+        def apply_fn(n, f0, f1, t):
+            b, h, w, _ = f0.shape
+            key = (b, h, w, str(f0.device))
+            if key not in noises:
+                gen = torch.Generator().manual_seed(0)
+                noises[key] = [torch.randn((b, 4, h, w), generator=gen).to(f0.device).contiguous(memory_format=torch.channels_last)
+                               for _ in range(FAMILY_MOMO_STEPS + 1)]
+            z = noises[key]
+            frames = (nchw(f).contiguous(memory_format=torch.channels_last) for f in (f0, f1))
+            return nhwc(momo.apply(n, *frames, FAMILY_MOMO_STEPS, init_latents=z[0], step_noises=z[1:]))
     else:
         raise ValueError(name)
     opt = torch.optim.Adam(net.parameters(), lr=1e-4)
-    if name == "stmfnet":
+    if name in FAMILY_FOUR_FRAMES:
         def step(frames, t, target):
             opt.zero_grad(set_to_none=True)
-            pred = stmfnet.apply(net, *(stmfnet._nchw(f) for f in frames)).permute(0, 2, 3, 1)
-            loss = train.l1_loss(pred, target)
+            loss = train.l1_loss(predict(frames), target)
             loss.backward()
             opt.step()
             return loss.detach()
@@ -1366,12 +1451,14 @@ def family_trainer(name, device):
 
 def family_batch(name, b, hw, seed, device):
     """``(frames, t, target)`` for family ``name``: random NHWC frames (four
-    for STMFNet) and target from numpy's ``seed``, t uniform in (0.1, 0.9)."""
+    for STMFNet and FLAVR) and target from numpy's ``seed``, t uniform in
+    (0.1, 0.9)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    frames = [torch.from_numpy(rng.random((b, *hw, 3), dtype=np.float32)).to(device) for _ in range(4 if name == "stmfnet" else 2)]
+    frames = [torch.from_numpy(rng.random((b, *hw, 3), dtype=np.float32)).to(device)
+              for _ in range(4 if name in FAMILY_FOUR_FRAMES else 2)]
     target = torch.from_numpy(rng.random((b, *hw, 3), dtype=np.float32)).to(device)
     t = torch.from_numpy(rng.uniform(0.1, 0.9, b).astype(np.float32)).to(device)
     return frames, t, target
@@ -1382,7 +1469,7 @@ def family_twins():
     """Inside, the families' warps and splats call the plain twins directly
     (autograd through them): the reference for the kernels on the same
     card."""
-    from comfyui_frame_interpolation_tpu_torch.models import eisai, gmfss, ifrnet, rife, stmfnet, xvfi
+    from comfyui_frame_interpolation_tpu_torch.models import atm, eisai, film, gmfss, ifrnet, rife, stmfnet, xvfi
 
     splat_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.softsplat")
     warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")
@@ -1393,7 +1480,8 @@ def family_twins():
     def twin_splat(x, flow):
         return splat_mod.softsplat_torch(x, flow)
 
-    targets = [(m, "warp", twin_warp) for m in (gmfss, eisai, rife, xvfi, stmfnet, ifrnet)]
+    # IFUnet and AMT warp through ifrnet.warp_nchw
+    targets = [(m, "warp", twin_warp) for m in (gmfss, eisai, rife, xvfi, stmfnet, ifrnet, film, atm)]
     targets += [(splat_mod, "softsplat_func", twin_splat), (xvfi, "softsplat_func", twin_splat)]
     real = [getattr(m, a) for m, a, _ in targets]
     try:
@@ -1630,11 +1718,12 @@ def family_phase(name, number, dev, card):
 
 
 def largest_backward_times(largest, card):
-    """Each backward kernel at the largest input the steps gave it (by
-    elements), as the step gave it: the op's ms, the plain version's and
-    the library call's in turns (``utils/kernel_compare.library_backward``
-    for the warp, :func:`splat_backward_library_call` for the splat), the
-    kernel's device ms and its bound."""
+    """Each backward kernel at the largest input (by elements) that some
+    steps gave it, as the step gave it: ``largest`` is a list of ``(kind,
+    path, capture)``. The op's ms, the plain version's and the library
+    call's in turns (``utils/kernel_compare.library_backward`` for the warp,
+    :func:`splat_backward_library_call` for the splat), the kernel's device
+    ms and its bound; ``{kernel: {path: row}}``."""
     import torch
     from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
     from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_backward_torch
@@ -1643,7 +1732,7 @@ def largest_backward_times(largest, card):
 
     nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
     out = {}
-    for kind, (path, (x, flow, grad_out, zeros, with_x)) in largest.items():
+    for kind, path, (x, flow, grad_out, zeros, with_x) in largest:
         if kind == "warp":
             mode = "zeros" if zeros else "border"
             kernel = lambda: warp_kernel.warp_bilinear_backward(x, flow, grad_out, zeros, with_x)  # noqa: E731
@@ -1660,10 +1749,10 @@ def largest_backward_times(largest, card):
         dev_ms = device_ms(kernel, 10, name=body)
         b = bound(*work)
         key = f"{path}: {list(nhwc(x).shape)} {str(x.dtype).split('.')[-1]}" + (f" {'zeros' if zeros else 'border'}" if kind == "warp" else "")
-        out[name] = {"shape": key, "ms": ms["kernel"], "kernel_device_ms": dev_ms, "plain_ms": ms["plain"],
-                     "library_ms": ms["library"], "bound_ms": b[0], "bound_by": b[1]}
+        out.setdefault(name, {})[path] = {"shape": key, "ms": ms["kernel"], "kernel_device_ms": dev_ms, "plain_ms": ms["plain"],
+                                          "library_ms": ms["library"], "bound_ms": b[0], "bound_by": b[1]}
         print(
-            f"timing {card}: {name} at the steps' largest input, {key}: " + ", ".join(f"{k} {ms[k]:.4f} ms {v}" for k, v in times.items())
+            f"timing {card}: {name} at the largest input of {key}: " + ", ".join(f"{k} {ms[k]:.4f} ms {v}" for k, v in times.items())
             + f"; the kernel alone {dev_ms:.4f} ms on the device; bound {b[0]:.4f} ms ({b[1]}), the kernel at "
             f"{100 * b[0] / dev_ms:.1f} % of it",
             flush=True,
@@ -3589,18 +3678,6 @@ def main() -> int:
     del cain_fn, cx
 
     # ---- 42. Sepconv node end to end, the golden, and sepconv_func on a 720p band --
-    def sepconv_conditioned(seed):
-        """``sepconv.init_params(seed)`` with each kernel head's last
-        convolution scaled by 0.05 and its bias at 1/51 (``bench.py``'s
-        conditioning: a filter's taps sum to about 1, as a trained
-        checkpoint's do, so the normaliser the output is divided by is not
-        near 0)."""
-        sd = sepconv.init_params(seed)
-        for head in ("netVerone", "netVertwo", "netHorone", "netHortwo"):
-            sd[f"{head}.netMain.3.weight"] = sd[f"{head}.netMain.3.weight"] * 0.05
-            sd[f"{head}.netMain.3.bias"] = torch.full_like(sd[f"{head}.netMain.3.bias"], 1.0 / 51.0)
-        return sd
-
     t0 = time.perf_counter()
     sep_launches, psnrs, n_calls = card_vs_cpu(
         "Sepconv", SepconvVFI, "sepconv.pth", sepconv_conditioned(0), [(m, ("float32", "bfloat16"), {}) for m in (2, 4)],
@@ -3757,8 +3834,7 @@ def main() -> int:
 
     momo_sd = momo.init_params(0, "momo-base.pth")
     # the same weights with the latent head and the mask head scaled down: no prediction clips
-    momo_csd = {k: v * {"model.mid_model.conv_out": 0.02, "model.out_up.proj_out.2": 0.1}.get(k.rsplit(".", 1)[0], 1.0)
-                for k, v in momo_sd.items()}
+    momo_csd = momo_conditioned(momo_sd)
     mrng = np.random.default_rng(45)
     mf0, mf1 = (mrng.random((1, 192, 256, 3), dtype=np.float32) for _ in range(2))
     mnoise = [mrng.standard_normal((1, 192, 256, 4)).astype(np.float32) for _ in range(9)]
@@ -4633,18 +4709,23 @@ def main() -> int:
     sbwd_main = sbwd_times[f"{list(M2M_TRAIN_SPLAT_SHAPE)} float32"]
     print(f"m2m train timing: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- 55-61. the other families' training steps, and 62. the backward kernels at their largest inputs ----
+    # ---- 55-61 and 64-70. the other families' training steps, and 62. the ----
+    # backward kernels at their largest inputs: the warp's at each family's,
+    # the splat's at the largest of all (phase 63 times each of its inputs)
     t0 = time.perf_counter()
-    family_rows, family_largest = {}, {}
-    for number, name in enumerate(FAMILIES, 55):
-        family_rows[name], largest = family_phase(name, number, dev, card)
-        for kind, c in largest.items():
-            if c is not None and (kind not in family_largest or c[0].numel() > family_largest[kind][1][0].numel()):
-                family_largest[kind] = (name, c)
+    family_rows, warp_largest, splat_largest = {}, [], None
+    for name in FAMILIES:
+        family_rows[name], largest = family_phase(name, FAMILY_PHASES[name], dev, card)
+        if largest["warp"] is not None:
+            warp_largest.append(("warp", name, largest["warp"]))
+        c = largest["splat"]
+        if c is not None and (splat_largest is None or c[0].numel() > splat_largest[2][0].numel()):
+            splat_largest = ("splat", name, c)
+        del largest, c
         torch.cuda.empty_cache()
-    family_times = largest_backward_times(family_largest, card)
-    del family_largest
-    print(f"family training: phases 55-62 {time.perf_counter() - t0:.1f} s", flush=True)
+    family_times = largest_backward_times(warp_largest + [splat_largest], card)
+    del warp_largest, splat_largest
+    print(f"family training: phases 55-62 and 64-70 {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 63. the splat's backward kernel at every input the steps give it ----------
     t0 = time.perf_counter()
@@ -4705,7 +4786,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-63 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-70 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {

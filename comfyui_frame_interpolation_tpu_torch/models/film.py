@@ -19,7 +19,7 @@ flow directions ride one batch through the flow pyramid and the warps, as in
 JAX (``film.py:262-264,300-305``). Per forward that gives 6 feature warps in
 the flow pyramid and 5 in :func:`stage_warp` on the wide-channel kernel
 (``prefer_wide``, C >= 32), and 5 image warps (C = 3) on K1:
-:data:`WARPS_PER_CALL`.
+:func:`warps_per_forward`, :data:`WARPS_PER_CALL`.
 
 :func:`stage_warp` concatenates each aligned level as the reference does
 (``[img0, feat0, img1, feat1, bwd_flow, fwd_flow]``, 138/394/906/1930
@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.cuda.warp_kernel import route_counts
 from ..ops.warp import warp
 from .common import (
     avg_pool2d,
@@ -73,6 +74,7 @@ __all__ = [
     "stage_fuse",
     "stage_pyramid",
     "stage_warp",
+    "warps_per_forward",
 ]
 
 CKPT_NAMES = ["film_net_fp32.pt"]
@@ -80,9 +82,6 @@ PYRAMID_LEVELS = 7
 FUSION_PYRAMID_LEVELS = 5
 SUB_LEVELS = 4
 WIDE_MIN_CHANNELS = 32  # the JAX prefer_mxu threshold (film.py:125,134,304)
-# warp launches per forward: 6 in the flow pyramid + 5 feature warps (wide
-# kernel), 5 image warps (K1)
-WARPS_PER_CALL = {"wide": 11, "narrow": 5}
 _FLOW_CONVS = (3, 3, 3, 3)
 _FILTERS = 64
 _FLOW_FILTERS = (32, 64, 128, 256)
@@ -323,6 +322,21 @@ def apply(net: FILMNet, x0: torch.Tensor, x1: torch.Tensor, timestep=0.5) -> tor
     fwd_flow, bwd_flow = stage_flow(net, feat_both, n)
     aligned = stage_warp(pyr_both, feat_both, fwd_flow, bwd_flow, n)
     return stage_fuse(net, aligned).permute(0, 2, 3, 1)
+
+
+def warps_per_forward(dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    """Warp launches of one :func:`apply` on the card by kernel, ``{"narrow":
+    K1, "wide": the wide kernel}``: the feature warps, 6 in the flow pyramid
+    and one per fusion level, take the wide kernel (``prefer_wide``, C >=
+    32); the image warps, one per fusion level (C = 3), go where
+    ``warp_kernel.route`` sends them."""
+    counts = route_counts([3] * FUSION_PYRAMID_LEVELS, dtype)
+    counts["wide"] += PYRAMID_LEVELS - 1 + FUSION_PYRAMID_LEVELS
+    return counts
+
+
+# warp launches per bf16 forward: 11 wide (feature warps), 5 K1 (image warps)
+WARPS_PER_CALL = warps_per_forward()
 
 
 def _load(params: Dict[str, torch.Tensor], dtype: torch.dtype, device) -> FILMNet:

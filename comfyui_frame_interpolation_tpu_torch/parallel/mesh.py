@@ -43,7 +43,7 @@ __all__ = [
 MIN_ROWS_PER_SHARD = 64
 
 # what a run that needs the space axis is told
-SPACE_TODO = "the 'space' axis (rows split over devices) is not ported: ROADMAP.md Queue 1 item 9"
+SPACE_TODO = "the 'space' axis (rows split over devices) is not ported: ROADMAP.md Queue 1 item 3"
 
 
 @dataclass(frozen=True)

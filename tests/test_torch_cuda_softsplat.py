@@ -491,10 +491,11 @@ def test_m2m_training_step_launches(cuda, monkeypatch):
     assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all() for p in net.parameters())
 
 
-@pytest.mark.parametrize("name", ["gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt"])
+@pytest.mark.parametrize("name", ["gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt",
+                                  "film", "ifunet", "atm", "cain", "flavr", "sepconv", "momo"])
 def test_family_training_step_launches(cuda, name, monkeypatch):
     """One training step of each family that ``chip_smoke.py`` phases 55-61
-    train, at b2 x 64x64 (STMFNet 128x128) f32 on the card: exactly
+    and 64-70 train, at b2 x 64x64 (STMFNet and CAIN 128x128) f32 on the card: exactly
     ``chip_smoke.FAMILY_STEP_LAUNCHES[name]`` launches of K1, the wide
     kernel, K2 and both backward kernels, no CUDA splat or warp that needs a
     gradient reaching a twin, and a finite loss and gradients."""

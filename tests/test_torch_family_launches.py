@@ -1,5 +1,5 @@
-"""The hand-kernel launches that ``chip_smoke.py`` phases 55-61 expect of one
-training step of each family (``chip_smoke.FAMILY_STEP_LAUNCHES``), derived
+"""The hand-kernel launches that ``chip_smoke.py`` phases 55-61 and 64-70
+expect of one training step of each family (``chip_smoke.FAMILY_STEP_LAUNCHES``), derived
 on the CPU from the models themselves.
 
 On the card every warp of a step launches the kernel that
@@ -12,9 +12,10 @@ with each family's warps and splats wrapped to count what the card would
 launch: the route of each warp, and an identity autograd node on each
 output that counts the backward calls. The counts must equal the table,
 and the forward counts must equal the models' own counts
-(``warps_per_*``/``splats_per_*`` at f32). The steps run at b1 x 64x64
-(STMFNet 128x128, with oneDNN off: ``test_torch_stmfnet_train``'s
-docstring says why); launch counts do not depend on the size.
+(``warps_per_*``/``splats_per_*`` at f32; CAIN, FLAVR, Sepconv and MoMo
+none). The steps run at b1 x 64x64 (STMFNet and CAIN 128x128; STMFNet with
+oneDNN off: ``test_torch_stmfnet_train``'s docstring says why); launch
+counts do not depend on the size.
 """
 
 import contextlib
@@ -25,8 +26,7 @@ import sys
 import pytest
 import torch
 
-from comfyui_frame_interpolation_tpu_torch.models import eisai, gmfss, ifrnet, rife, stmfnet, xvfi
-from comfyui_frame_interpolation_tpu_torch.models import amt
+from comfyui_frame_interpolation_tpu_torch.models import amt, atm, eisai, film, gmfss, ifrnet, ifunet, rife, stmfnet, xvfi
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
 
@@ -69,7 +69,8 @@ def _counted(counts):
         out = real_splat(x, flow)
         return _Tap.apply(out, counts, "splat_backward") if out.requires_grad else out
 
-    targets = [(m, "warp", counted_warp(m.warp)) for m in (gmfss, eisai, rife, xvfi, stmfnet, ifrnet)]
+    # IFUnet and AMT warp through ifrnet.warp_nchw
+    targets = [(m, "warp", counted_warp(m.warp)) for m in (gmfss, eisai, rife, xvfi, stmfnet, ifrnet, film, atm)]
     targets += [(splat_mod, "softsplat_func", counted_splat), (xvfi, "softsplat_func", counted_splat)]
     real = [getattr(m, a) for m, a, _ in targets]
     try:
@@ -92,7 +93,10 @@ def _forward_counts(name):
         "stmfnet": lambda: [stmfnet.warps_per_forward(F32)],
         "ifrnet": lambda: [ifrnet.warps_per_forward("S", F32)],
         "amt": lambda: [amt.warps_per_forward("S", F32)],
-    }[name]()
+        "film": lambda: [film.warps_per_forward(F32)],
+        "ifunet": lambda: [ifunet.warps_per_forward(F32)],
+        "atm": lambda: [atm.warps_per_forward("base", True, False, F32)],
+    }.get(name, list)()
     splats = {"gmfss": gmfss.splats_per_infer, "gmfss_union": gmfss.splats_per_infer, "eisai": eisai.splats_per_infer,
               "xvfi": xvfi.splats_per_infer, "stmfnet": stmfnet.splats_per_forward}.get(name, lambda: 0)()
     return {"narrow": sum(w.get("narrow", 0) for w in warps), "wide": sum(w.get("wide", 0) for w in warps), "splat": splats}

@@ -224,6 +224,25 @@ def test_two_way_data_parallel_step_equals_one_device():
         torch.testing.assert_close(deltas2[k][big], deltas1[k][big], rtol=0, atol=UPDATE_ATOL)
 
 
+def test_space_todo_names_the_roadmap_item():
+    """The message a run on the ``space`` axis gets names the item of
+    ``ROADMAP.md``'s Queue 1 that ports the axis, by the number the file
+    gives it."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ROADMAP.md")) as f:
+        roadmap = f.read()
+    queue = roadmap[roadmap.index("### Queue 1"):]
+    queue = queue[: queue.index("\n### ", 1)]
+    items = re.findall(r"^(\d+)\. \*\*(.*?)\*\*", queue, re.M)
+    (number,) = [n for n, title in items if "`space` axis" in title]
+    assert f"ROADMAP.md Queue 1 item {number}" in parallel.mesh.SPACE_TODO
+    mesh = parallel.make_mesh(2, devices=_replicas(2))
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {number};"):
+        parallel.mesh.check_runnable(mesh, (2, 128, 64, 3))
+
+
 def test_space_axis_raises():
     mesh = parallel.make_mesh(2, devices=_replicas(2))  # (1, 2): the space axis
     assert dict(mesh.shape) == {"data": 1, "space": 2}

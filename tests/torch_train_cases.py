@@ -157,6 +157,19 @@ def spread_report(name: str, got, ref) -> str:
     return f"{name}: median {median_rel(got, ref):.3g}, worst {max(rel_errors(got, ref).values()):.3g}"
 
 
+def by_threads(port_fn: Callable, counts: Iterable[int] = (1, 2, 4, 8)) -> Dict[int, object]:
+    """``port_fn()`` with torch at each thread count in ``counts`` (the order
+    of its CPU sums moves with it): ``{count: result}``."""
+    before, out = torch.get_num_threads(), {}
+    try:
+        for n in counts:
+            torch.set_num_threads(n)
+            out[n] = port_fn()
+    finally:
+        torch.set_num_threads(before)
+    return out
+
+
 def untrained(grads: Dict[str, torch.Tensor]) -> List[str]:
     return sorted(k for k, g in grads.items() if not float(g.abs().max()) > 0.0)
 
