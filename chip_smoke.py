@@ -473,8 +473,38 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    ms, and the op's, the plain version's and the library calls' ms in
    turns; per step, the sum over its launches against the sum of their
    bounds.
+71. K1 band -- the ``space`` axis's K1 (``row0``): RIFE 1080p b8's
+   ``[16, 1088, 1920, 7]`` warp in the two bands of a ``(1, 2)`` mesh
+   (rows 0-576 and 576-1088, ``parallel.space.band_rows``), f32 and bf16
+   border, bf16 zeros: each band bit for bit its twin's band
+   (``warp_torch(..., row0=)``), the routed ``ops.warp.warp`` band and the
+   whole frame's rows; ``row0=0`` at full height bit for bit the
+   whole-frame call; the second bf16 band's ms in turns with the whole
+   frame's, the twin's band and ``F.grid_sample`` on the band's grid, and
+   its bound; a band that routes to the wide kernel raises;
+72. backward band -- the warp's backward kernel on the training step's
+   ``[32, 256, 256, 7]`` f32 in two bands of 128 rows, and C = 3 without the
+   image's gradient, against ``warp_backward_torch``'s band (phase 48's
+   tolerances); the two bands' image gradients summed against the
+   whole-frame call's; the second band's ms in turns with the whole
+   frame's and the plain band's, and its bound;
+73. space    -- RIFE 4.7 1080p x2 b8 (9 frames) through
+   ``make_sharded_model_fn`` and ``run_plan`` on a ``(1, 2)`` mesh of
+   logical replicas of the card against the one-device run: f32 (TF32 off)
+   within 1e-4, bf16 >= 40 dB against the f32 one-device frames, K1 8 a
+   forward (twice 4); frames/s of both in turns, ``run_plan``'s peak memory
+   and a profile of one forward (idle share) of each;
+74. space train -- a RIFE 4.7 step at b16 x 224x224 f32 (two bands of 128
+   rows after the pad) on the ``(1, 2)`` mesh against ``(1, 1)``, TF32 off,
+   cuDNN deterministic: the loss within 1e-6 relative, each gradient within
+   5e-5 of its tensor's largest or 4x what the ``(1, 1)`` step moves with
+   every weight times 1 + 2^-22; the same at b2 x 128x128 within 5e-5 alone;
+   the updates where |g| is over half its largest within 1e-7; K1 and the
+   backward 8 each (twice 4); steps/s of both in turns (TF32 defaults);
+75. pair fns -- ``make_sharded_pair_fns`` (M2M) on the ``(1, 2)`` mesh
+   still raises ``NotImplementedError`` naming ``ROADMAP.md``'s item.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73, 74 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -498,7 +528,11 @@ layouts its launches took (``launch_layouts``); the streamed RIFE and M2M
 runs of phase 44 under ``launches_by_path`` as ``rife_streaming`` and
 ``m2m_streaming``, phase 49's training step as ``rife_train`` and phase
 51's sharded runs as ``rife_sharded`` and ``m2m_sharded`` (1x1 mesh),
-``rife_sharded_2way``, ``m2m_sharded_2way`` and ``rife_train_2way``. CAIN, Sepconv,
+``rife_sharded_2way``, ``m2m_sharded_2way`` and ``rife_train_2way``, and phases
+73's and 74's runs on the ``space`` axis as ``rife_space_2way`` and
+``rife_train_space_2way`` (K1 and the backward; K1's ``row_band`` and
+``rife_space_2way`` and the backward's ``row_band`` and
+``rife_train_space_2way`` hold phases 71-74's numbers). CAIN, Sepconv,
 FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
@@ -626,6 +660,11 @@ KERNEL_BODIES = {
 # frames' image and encoder feature stacks, [2N, H, W, 3 + 4]
 TRAIN_BATCH, TRAIN_HW = 16, (224, 224)
 TRAIN_WARP_SHAPE = (32, 256, 256, 7)
+# the space axis (phases 71-75): RIFE 1080p b8's warp, split by a (1, 2) mesh
+# into bands of 576 and 512 rows, and the b16 x 224^2 training step's warp
+# (padded to 256 rows), into two of 128
+SPACE_WARP_SHAPE = (16, 1088, 1920, 7)
+SPACE_TRAIN_WARP_SHAPE = (32, 256, 256, 7)
 TRAIN_CHECK_HW = (256, 256)  # phase 49: card against CPU at b2
 # M2M training (256x256 crops of Vimeo-90K's 448x256 triplets, a multiple of
 # M2M's pad of 64): phase 53 card against CPU at b2, phase 54 timing at b8;
@@ -717,12 +756,15 @@ def bound(nbytes, flops):
 
 
 def warp_work(planes, flow_planes):
-    """Bytes and f32 operations of one warp of ``[N, C, H, W]`` planes: the
-    image and flow read once, the output written once; 7 operations per
-    channel (4 products, 3 sums) and 14 per pixel for its coordinates and
-    weights."""
-    n, c, h, w = planes.shape
-    nbytes = 2 * planes.numel() * planes.element_size() + flow_planes.numel() * flow_planes.element_size()
+    """Bytes and f32 operations of one warp of ``[N, C, H, W]`` planes by
+    ``[N, 2, H', W]`` flow planes (``H' = H``, or a row band's rows): the
+    image's rows that the output samples (the band's own, for flow of a few
+    pixels) and the flow read once, the output written once; 7 operations
+    per channel (4 products, 3 sums) and 14 per pixel for its coordinates
+    and weights."""
+    n, c, _, w = planes.shape
+    h = flow_planes.shape[2]
+    nbytes = 2 * n * c * h * w * planes.element_size() + flow_planes.numel() * flow_planes.element_size()
     return nbytes, n * h * w * (7 * c + 14)
 
 
@@ -747,10 +789,12 @@ def backward_work(planes, flow_planes, img_grad=True):
     in its own dtype (the kernel's zeroed f32 buffer and its cast are its
     own cost, in its measured time, not in the bound); 22 operations per
     channel (the flow's two sums, 18; the four weighted gradients, 4) and 40
-    per pixel (coordinates, weights and slopes)."""
-    n, c, h, w = planes.shape
+    per pixel (coordinates, weights and slopes). For a row band (flow planes
+    of fewer rows) the image's rows are the band's, as in :func:`warp_work`."""
+    n, c, _, w = planes.shape
+    h = flow_planes.shape[2]
     isz, fbytes = planes.element_size(), flow_planes.numel() * flow_planes.element_size()
-    nbytes = (3 if img_grad else 2) * planes.numel() * isz + 2 * fbytes
+    nbytes = (3 if img_grad else 2) * n * c * h * w * isz + 2 * fbytes
     return nbytes, n * h * w * (22 * c + 40)
 
 
@@ -1506,9 +1550,9 @@ def no_twin_with_grad():
     def needs(x, flow):
         return x.is_cuda and torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad)
 
-    def warp_guard(img, flow, padding_mode="border"):
+    def warp_guard(img, flow, padding_mode="border", row0=0):
         check(not needs(img, flow), "a CUDA warp that needs a gradient reached the plain twin")
-        return real_warp(img, flow, padding_mode)
+        return real_warp(img, flow, padding_mode, row0)
 
     def splat_guard(x, flow):
         check(not needs(x, flow), "a CUDA splat that needs a gradient reached the plain twin")
@@ -4061,10 +4105,10 @@ def main() -> int:
     warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")  # ops.warp is also a function's name
     real_twin = warp_mod.warp_torch
 
-    def guarded_twin(img, flow, padding_mode="border"):
+    def guarded_twin(img, flow, padding_mode="border", row0=0):
         check(not (img.is_cuda and torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad)),
               "a CUDA warp that needs a gradient reached the plain twin")
-        return real_twin(img, flow, padding_mode)
+        return real_twin(img, flow, padding_mode, row0)
 
     batch49 = train_batch(2, TRAIN_CHECK_HW, 49, "cpu", torch.float32)
     trained = {}
@@ -4755,6 +4799,307 @@ def main() -> int:
         )
     print(f"splat backward timing: phase 63 {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 71. K1 on a row band against its twin's band -------------------------------
+    # the two bands of RIFE 1080p b8's [16, 1088, 1920, 7] warp on a (1, 2) mesh
+    t0 = time.perf_counter()
+    from comfyui_frame_interpolation_tpu_torch.parallel.space import band_rows
+
+    spans = band_rows(SPACE_WARP_SHAPE[1], 2)
+    check(spans == [(0, 576), (576, 512)], f"band_rows({SPACE_WARP_SHAPE[1]}, 2) = {spans}")
+    band_err, band_rows_ms = 0.0, {}
+    for dtype, mode in ((torch.float32, "border"), (torch.bfloat16, "border"), (torch.bfloat16, "zeros")):
+        img = torch.rand(SPACE_WARP_SHAPE, generator=g).to(dev, dtype)
+        flow = torch.from_numpy(warp_cases.smooth_flow(*SPACE_WARP_SHAPE[:3], amp=6.0)).to(dev)
+        planes, fplanes, zeros = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), mode == "zeros"
+        ref = warp_torch(img, flow, mode)
+        whole = warp_kernel.warp_bilinear(planes, fplanes, zeros)
+        whole0 = warp_kernel.warp_bilinear(planes, fplanes, zeros, row0=0)
+        torch.cuda.synchronize()
+        check(torch.equal(whole0, whole) and torch.equal(whole.permute(0, 2, 3, 1), ref),
+              f"K1 with row0=0 at full height {list(SPACE_WARP_SHAPE)} {dtype} {mode}: not bit for bit the whole-frame call and the twin")
+        for row0, rows in spans:
+            fband = flow[:, row0 : row0 + rows]
+            got = warp_kernel.warp_bilinear(planes, fband.permute(0, 3, 1, 2), zeros, row0=row0).permute(0, 2, 3, 1)
+            routed = warp(img, fband, mode, row0=row0)
+            twin = warp_torch(img, fband, mode, row0=row0)
+            torch.cuda.synchronize()
+            err = (got.float() - twin.float()).abs().max().item()
+            band_err = max(band_err, err)
+            check(torch.equal(got, twin) and torch.equal(routed, twin) and torch.equal(got, ref[:, row0 : row0 + rows]),
+                  f"K1 band rows {row0}-{row0 + rows} of {list(SPACE_WARP_SHAPE)} {dtype} {mode}: max err {err} against the "
+                  f"twin's band, not bit for bit (or not the whole frame's rows)")
+        if dtype == torch.bfloat16 and mode == "border":
+            # the second band, as the (1, 2) mesh's second device warps it, in
+            # turns with the whole frame and the twin's band; grid_sample on a
+            # grid of the band's rows is the library yardstick
+            row0, rows = spans[1]
+            fband = flow[:, row0 : row0 + rows]
+            fbp = fband.permute(0, 3, 1, 2)
+            gx = torch.arange(SPACE_WARP_SHAPE[2], device=dev, dtype=torch.float32).view(1, 1, -1) + fband[..., 0]
+            gy = torch.arange(row0, row0 + rows, device=dev, dtype=torch.float32).view(1, -1, 1) + fband[..., 1]
+            grid = torch.stack([gx * (2.0 / (SPACE_WARP_SHAPE[2] - 1)) - 1.0, gy * (2.0 / (SPACE_WARP_SHAPE[1] - 1)) - 1.0], -1)
+            grid = grid.to(dtype)
+            times = in_turns({
+                "K1 band": (lambda: warp_kernel.warp_bilinear(planes, fbp, False, row0=row0), 50),
+                "K1 whole frame": (lambda: warp_kernel.warp_bilinear(planes, fplanes, False), 50),
+                "plain band": (lambda: warp_torch(img, fband, "border", row0=row0), 5),
+                "grid_sample band": (lambda: torch.nn.functional.grid_sample(planes, grid, padding_mode="border", align_corners=True), 20),
+            })
+            band_rows_ms = {k: statistics.mean(v) for k, v in times.items()}
+            band_bound = bound(*warp_work(planes, fbp))
+            del fbp, grid, gx, gy
+        del img, flow, planes, fplanes, ref, whole, whole0, got, routed, twin
+    # a band that the wide kernel would take raises: it has no band
+    wide_img = torch.rand((1, 128, 64, 16), generator=g).to(dev, torch.bfloat16)
+    try:
+        warp(wide_img, torch.zeros((1, 64, 64, 2), device=dev), row0=64)
+        check(False, "a row band of C = 16 bf16 (the wide kernel's route) did not raise")
+    except NotImplementedError as e:
+        check("ROADMAP.md Queue 1 item" in str(e), f"the wide kernel's band raised {e}")
+    del wide_img
+    print(
+        f"K1 band {card}: {list(SPACE_WARP_SHAPE)} in bands {spans}, f32 and bf16 border, bf16 zeros: each band bit for bit its "
+        f"twin's band and the whole frame's rows (max err {band_err}), row0=0 at full height bit for bit the whole-frame call; "
+        f"the second band bf16: " + ", ".join(f"{k} {v:.4f} ms" for k, v in band_rows_ms.items())
+        + f"; its bound {band_bound[0]:.4f} ms ({band_bound[1]}), K1 at {100 * band_bound[0] / band_rows_ms['K1 band']:.1f} % "
+        f"of it; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 72. the warp's backward kernel on a row band ---------------------------------
+    # the b16 x 224^2 training step's warps ([32, 256, 256, 7], and C = 3 of
+    # the last stage without the image's gradient) in its two bands of 128 rows
+    t0 = time.perf_counter()
+    bband_err, bband_ms = {}, {}
+    for c, img_grad in ((7, True), (3, False)):
+        shape = (SPACE_TRAIN_WARP_SHAPE[0], *SPACE_TRAIN_WARP_SHAPE[1:3], c)
+        img = torch.rand(shape, generator=g).to(dev).contiguous()
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        grad_out = (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+        planes, fplanes, gplanes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2)
+        gi_whole, gf_whole = warp_kernel.warp_bilinear_backward(planes, fplanes, gplanes, False, img_grad)
+        contributions, _ = warp_backward_torch(img, flow, grad_out.abs())
+        gi_sum = torch.zeros_like(img)
+        errs = [0.0, 0.0]
+        for row0, rows in band_rows(shape[1], 2):
+            fb, gb = flow[:, row0 : row0 + rows], grad_out[:, row0 : row0 + rows]
+            gi, gf = warp_kernel.warp_bilinear_backward(
+                planes, fb.permute(0, 3, 1, 2), gb.permute(0, 3, 1, 2), False, img_grad, row0=row0
+            )
+            ri, rf = warp_backward_torch(img, fb, gb, "border", row0=row0)
+            band_contrib, _ = warp_backward_torch(img, fb, gb.abs(), "border", row0=row0)
+            torch.cuda.synchronize()
+            ok_f, err_f = grad_within(gf.permute(0, 2, 3, 1), rf, 1e-5 * rf.abs().max().item() + 1e-6, torch.float32)
+            check(ok_f, f"backward band rows {row0}-{row0 + rows} of {list(shape)}: grad_flow max err {err_f} against its plain version")
+            errs[1] = max(errs[1], err_f)
+            if img_grad:
+                ok_i, err_i = grad_within(gi.permute(0, 2, 3, 1), ri, 1e-5 * band_contrib + 1e-6, torch.float32)
+                check(ok_i, f"backward band rows {row0}-{row0 + rows} of {list(shape)}: grad_img max err {err_i} against its plain version")
+                errs[0] = max(errs[0], err_i)
+                gi_sum += gi.permute(0, 2, 3, 1)
+            else:
+                check(gi is None, "the backward band without the image's gradient returned one")
+            if row0 > 0:
+                fbp, gbp = fb.permute(0, 3, 1, 2), gb.permute(0, 3, 1, 2)
+                times = in_turns({
+                    "band": (lambda: warp_kernel.warp_bilinear_backward(planes, fbp, gbp, False, img_grad, row0=row0), 20),
+                    "whole frame": (lambda: warp_kernel.warp_bilinear_backward(planes, fplanes, gplanes, False, img_grad), 20),
+                    "plain band": (lambda: warp_backward_torch(img, fb, gb, "border", row0=row0), 5),
+                })
+                key = f"{list(shape)} f32 rows {row0}-{row0 + rows}" + ("" if img_grad else ", no image gradient")
+                bband_ms[key] = {k: statistics.mean(v) for k, v in times.items()}
+                bband_ms[key]["bound_ms"], bband_ms[key]["bound_by"] = bound(*backward_work(planes, fbp, img_grad))
+        if img_grad:
+            torch.cuda.synchronize()
+            ok_s, err_s = grad_within(gi_sum, gi_whole.permute(0, 2, 3, 1), 1e-5 * contributions + 1e-6, torch.float32)
+            check(ok_s, f"backward bands' grad_img summed against the whole-frame call at {list(shape)}: max err {err_s}")
+            errs.append(err_s)
+        bband_err[f"{list(shape)} f32" + ("" if img_grad else ", no image gradient")] = errs
+        del img, flow, grad_out, planes, fplanes, gplanes, gi_whole, gf_whole, contributions, gi_sum
+    print(
+        f"backward band {card}: " + "; ".join(
+            f"{k}: max err grad_img {v[0]:.3g}, grad_flow {v[1]:.3g}" + (f", bands summed vs whole {v[2]:.3g}" if len(v) > 2 else "")
+            for k, v in bband_err.items()
+        ) + "; " + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {m:.4f} ms" for n, m in v.items() if n != "bound_by") for k, v in bband_ms.items()
+        ) + f"; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 73. RIFE 4.7 1080p b8 on a (1, 2) mesh of replicas of the card -----------------
+    t0 = time.perf_counter()
+    mesh_s = parallel.make_mesh(2, devices=[dev] * 2)
+    check(mesh_s.shape == {"data": 1, "space": 2}, f"make_mesh(2) of replicas: {mesh_s.shape}")
+    sclip = torch.from_numpy(shifted_pattern(9, 1080, 1920, seed=73)).to(dev)
+    splan = plan_timestep(9, 2)  # 8 pairs, one batch of 8
+    space_rows, space_out = {}, {}
+    space_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        fn1 = rife.make_model_fn(rife.init_params(0, "4.7"), "4.7", fastmode=True, ensemble=False, dtype=dtype, device=dev)
+        fn2 = parallel.make_sharded_model_fn(lambda d: fn1, mesh_s)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            one_out, one_n, one_peak = executor_run(run_plan, sclip, splan, fn1, batch_size=8)
+            two_out, two_n, two_peak = executor_run(run_plan, sclip, splan, fn2, batch_size=8)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        check(one_n == {"narrow": 4, "wide": 0, "splat": 0} and two_n == {"narrow": 8, "wide": 0, "splat": 0},
+              f"RIFE {name} launches: one device {one_n}, the (1, 2) mesh {two_n}; expected K1 4 and twice 4")
+        space_launches = {k: space_launches[k] + two_n[k] for k in space_launches}
+        space_out[name] = (one_out, two_out)
+        # frames/s of one b8 forward each, in turns, and each run's profile
+        f0 = torch.from_numpy(np.random.default_rng(0).random((8, 1080, 1920, 3), dtype=np.float32)).to(dev)
+        f1 = torch.from_numpy(np.random.default_rng(1).random((8, 1080, 1920, 3), dtype=np.float32)).to(dev)
+        tt = torch.full((8,), 0.5, device=dev)
+        fps = {"one device": [], "(1, 2) mesh": []}
+        for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
+            fps[key].append(8 / measure(fn1 if key == "one device" else fn2, f0, f1, tt, iters=5, rounds=3))
+        totals = {"one device": {}, "(1, 2) mesh": {}}
+        profile_forward(f"RIFE 4.7 1080p {name} b8, one device", fn1, f0, f1, tt, card=card, totals=totals["one device"])
+        profile_forward(f"RIFE 4.7 1080p {name} b8, (1, 2) mesh", fn2, f0, f1, tt, card=card, totals=totals["(1, 2) mesh"])
+        space_rows[name] = {
+            key: {"frames_per_s": statistics.mean(fps[key]), "frames_per_s_turns": fps[key],
+                  "peak_run_plan_bytes": one_peak if key == "one device" else two_peak,
+                  "idle_share": totals[key]["idle_share"], "device_ms": totals[key]["device_ms"],
+                  "wall_ms": totals[key]["wall_ms"], "kernels": totals[key]["kernels"]}
+            for key in fps
+        }
+        del fn1, fn2, f0, f1, tt
+        torch.cuda.empty_cache()
+    f32_err = (space_out["float32"][1] - space_out["float32"][0]).abs().max().item()
+    check(f32_err <= 1e-4, f"RIFE f32 on the (1, 2) mesh: max abs {f32_err} from one device, above 1e-4")
+    bf16_db = psnr(space_out["bfloat16"][1], space_out["float32"][0])
+    bf16_one_db = psnr(space_out["bfloat16"][0], space_out["float32"][0])
+    check(bf16_db >= 40.0, f"RIFE bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below 40")
+    del space_out, sclip
+    print(
+        f"space {card}: RIFE 4.7 1080p x2 b8 (9 frames, 8 mids) through make_sharded_model_fn + run_plan on a (1, 2) mesh of "
+        f"replicas of the card, bands {band_rows(1080, 2)} (padded {band_rows(1088, 2)}): f32 (TF32 off) max abs {f32_err:.3g} "
+        f"from one device; bf16 {bf16_db:.2f} dB against the f32 one-device frames (one device bf16 {bf16_one_db:.2f} dB); "
+        f"launches {space_launches} for two run_plan calls (K1 8 a forward); "
+        + "; ".join(
+            f"{name} {key}: {r['frames_per_s']:.2f} frames/s (turns {', '.join(f'{v:.2f}' for v in r['frames_per_s_turns'])}), "
+            f"run_plan peak {r['peak_run_plan_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}"
+            for name, rows_ in space_rows.items() for key, r in rows_.items()
+        ) + f"; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 74. a RIFE 4.7 training step on a (1, 2) mesh of replicas --------------------
+    # b16 x 224^2 f32 (two bands of 128 rows after the pad to 256) against
+    # (1, 1), TF32 off and cuDNN's deterministic algorithms in both: the loss
+    # within 1e-6 relative, each gradient within 5e-5 of its tensor's largest
+    # (tests/test_torch_parallel.py's tolerances) or within 4x what the
+    # (1, 1) step's gradient moves when every weight is scaled by 1 + 2^-22
+    # (two f32 ulps): the bands' convolutions take other cuDNN algorithms, so
+    # the forward values move by rounding, and where a sample sits on a pixel
+    # edge the warp's flow gradient jumps (at this size one device moves by
+    # 3.1e-3 of block3.convblock.4.beta's largest so on an H100). The
+    # same at b2 x 128^2 (bands of 64 rows), the CPU test's size, within
+    # 5e-5 alone; the updates where |g| is over half its tensor's largest
+    # within 1e-7
+    t0 = time.perf_counter()
+    batch74 = train_batch(TRAIN_BATCH, TRAIN_HW, 74, dev, torch.float32)
+    batch74s = train_batch(2, (128, 128), 74, dev, torch.float32)
+    stepped = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, m, batch, scale in (("one", mesh1, batch74, 0.0), ("space", mesh_s, batch74, 0.0),
+                                     ("one scaled", mesh1, batch74, 2.0**-22), ("one small", mesh1, batch74s, 0.0),
+                                     ("space small", mesh_s, batch74s, 0.0)):
+            net, step = rife_trainer(dev, torch.float32, mesh=m)
+            if scale:
+                with torch.no_grad():
+                    for p in net.parameters():
+                        p.mul_(1 + scale)
+            before = {k: v.detach().clone() for k, v in net.named_parameters()}
+            warp_kernel.launches = warp_kernel.wide_launches = warp_kernel.backward_launches = softsplat_kernel.launches = 0
+            softsplat_kernel.backward_launches = 0
+            loss = step(*batch).item()
+            torch.cuda.synchronize()
+            counts = {"narrow": warp_kernel.launches, "wide": warp_kernel.wide_launches,
+                      "backward": warp_kernel.backward_launches, "splat": softsplat_kernel.launches,
+                      "splat_backward": softsplat_kernel.backward_launches}
+            stepped[key] = (loss, {k: v.grad.clone() for k, v in net.named_parameters()},
+                            {k: v.detach() - before[k] for k, v in net.named_parameters()}, counts)
+            del net, step
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (loss1, grads1, deltas1, one_counts), (loss_s, grads_s, deltas_s, space_train_launches) = stepped["one"], stepped["space"]
+    grads_p = stepped["one scaled"][1]
+    (loss1s, grads1s, deltas1s, _), (loss_ss, grads_ss, deltas_ss, small_launches) = stepped["one small"], stepped["space small"]
+    s_rel, s_worst, s_glob = grad_errs(grads_s, grads1)
+    p_rel, p_worst, _ = grad_errs(grads_p, grads1)
+    over = {
+        k: (err, sens)
+        for k in grads1
+        for err, sens in [((grads_s[k] - grads1[k]).abs().max().item(), (grads_p[k] - grads1[k]).abs().max().item())]
+        if err > max(5e-5 * grads1[k].abs().max().item(), 4 * sens)
+    }
+    ss_rel, ss_worst, _ = grad_errs(grads_ss, grads1s)
+
+    def big_update_err(d2, d1, g1):
+        return max((d2[k][gk.abs() > 0.5 * gk.abs().max()] - d1[k][gk.abs() > 0.5 * gk.abs().max()]).abs().max().item()
+                   for k, gk in g1.items())
+
+    s_upd, ss_upd = big_update_err(deltas_s, deltas1, grads1), big_update_err(deltas_ss, deltas1s, grads1s)
+    for what, a, b in (("b16 x 224^2", loss_s, loss1), ("b2 x 128^2", loss_ss, loss1s)):
+        check(math.isfinite(a) and abs(a - b) <= 1e-6 * abs(b),
+              f"the (1, 2) step's loss {a} against the (1, 1) step's {b} at {what}: above 1e-6 relative")
+    check(not over, f"the (1, 2) step's gradients against (1, 1) at b16 x 224^2, (max err, the scaled weights' move) above both "
+          f"5e-5 of the tensor's largest and 4x the move: {dict(list(over.items())[:4])}")
+    check(ss_rel <= 5e-5, f"the (1, 2) step's gradients against (1, 1) at b2 x 128^2: {ss_rel:.3g} of {ss_worst}'s largest, above 5e-5")
+    check(max(s_upd, ss_upd) <= 1e-3 * 1e-4 + 2.0**-23, f"the (1, 2) step's updates against (1, 1): max err {s_upd:.3g}, {ss_upd:.3g}")
+    check(one_counts == {"narrow": 4, "wide": 0, "backward": 4, "splat": 0, "splat_backward": 0}
+          and space_train_launches == {"narrow": 8, "wide": 0, "backward": 8, "splat": 0, "splat_backward": 0}
+          and small_launches == space_train_launches,
+          f"training step launches: (1, 1) {one_counts}, (1, 2) {space_train_launches}; expected K1 and the backward 4, "
+          f"and twice that on two bands")
+    del stepped, grads1, grads_s, grads_p, deltas1, deltas_s, grads1s, grads_ss, deltas1s, deltas_ss
+    # steps/s, one device against the (1, 2) mesh in turns (TF32 at torch's
+    # defaults, as phase 50)
+    trainers74 = {key: rife_trainer(dev, torch.float32, mesh=m)[1] for key, m in (("one device", mesh1), ("(1, 2) mesh", mesh_s))}
+    for step in trainers74.values():
+        for _ in range(2):
+            step(*batch74)
+    windows74 = {key: [] for key in trainers74}
+    for i in range(4):
+        for key in (list(trainers74) if i % 2 == 0 else list(trainers74)[::-1]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(5):
+                trainers74[key](*batch74)
+            torch.cuda.synchronize()
+            windows74[key].append(5 / (time.perf_counter() - t1))
+    space_train_rows = {key: {"steps_per_s": statistics.median(v), "windows": v} for key, v in windows74.items()}
+    del trainers74, batch74, batch74s
+    torch.cuda.empty_cache()
+    print(
+        f"space train {card}: RIFE 4.7 step b{TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]} f32 (TF32 off, cuDNN deterministic) on a "
+        f"(1, 2) mesh of replicas against (1, 1): loss {loss_s:.7f} vs {loss1:.7f}, gradients within {s_rel:.3g} of each tensor's "
+        f"largest ({s_worst}), {s_glob:.3g} of the largest of all (the (1, 1) step with every weight times 1 + 2^-22 moves "
+        f"{p_rel:.3g} of {p_worst}'s largest), updates where |g| is over half its largest within {s_upd:.3g}; at b2 x 128^2 "
+        f"loss {loss_ss:.7f} vs {loss1s:.7f}, gradients within {ss_rel:.3g} ({ss_worst}), updates within {ss_upd:.3g}; "
+        f"launches (1, 1) {one_counts}, (1, 2) {space_train_launches}; steps/s (TF32 defaults, median of 4 windows of 5): "
+        + ", ".join(f"{k} {v['steps_per_s']:.2f} ({', '.join(f'{w:.2f}' for w in v['windows'])})" for k, v in space_train_rows.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 75. the pair-cached split on a (1, 2) mesh still raises -----------------------
+    reuse_s, _ = parallel.make_sharded_pair_fns(lambda d: m2m.make_pair_fns(m2m.init_params(0), device=d), mesh_s)
+    tall = torch.zeros((2, 128, 128, 3), device=dev)
+    try:
+        reuse_s(tall, tall)
+        check(False, "make_sharded_pair_fns (M2M) on a (1, 2) mesh at 128 rows did not raise")
+    except NotImplementedError as e:
+        check("ROADMAP.md Queue 1 item" in str(e), f"make_sharded_pair_fns on a (1, 2) mesh raised {e}")
+        print(f"space: make_sharded_pair_fns (M2M) on a (1, 2) mesh raises NotImplementedError: {e}", flush=True)
+    del reuse_s, tall
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -4786,7 +5131,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-70 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-75 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -4800,7 +5145,8 @@ def main() -> int:
             + xvfi_launches["narrow"] + x4k_launches["narrow"] + rife_stream_launches["narrow"] + m2m_stream_launches["narrow"]
             + train_launches["narrow"] + rife_sharded_launches["narrow"] + m2m_sharded_launches["narrow"]
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
-            + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()),
+            + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
+            + space_train_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -4812,7 +5158,8 @@ def main() -> int:
                 "rife_sharded": rife_sharded_launches["narrow"], "m2m_sharded": m2m_sharded_launches["narrow"],
                 "rife_sharded_2way": rife_sharded2_launches["narrow"], "m2m_sharded_2way": m2m_sharded2_launches["narrow"],
                 "rife_train_2way": train2_launches["narrow"], "m2m_train": m2m_train_launches["narrow"],
-                **family_launches["narrow"],
+                **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
+                "rife_train_space_2way": space_train_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -4826,6 +5173,11 @@ def main() -> int:
             "ifrnet_ifunet_amt_shapes": {k: v for k, v in s8_warp_times.items() if v["kernel"] == "tiled"},
             "atm_xvfi_shapes": {k: v for k, v in s10_warp_times.items() if v["kernel"] == "tiled"},
             "per_forward": per_forward["warp_bilinear"],
+            "row_band": {"shape": f"{list(SPACE_WARP_SHAPE)} bf16, f32 flow, rows {spans[1][0]}-{sum(spans[1])}",
+                         "max_abs_err": band_err, "ms": band_rows_ms["K1 band"], "whole_frame_ms": band_rows_ms["K1 whole frame"],
+                         "plain_ms": band_rows_ms["plain band"], "bound_ms": band_bound[0], "bound_by": band_bound[1],
+                         "library_ms": band_rows_ms["grid_sample band"]},
+            "rife_space_2way": {"f32_max_abs_err": f32_err, "bf16_psnr_db": bf16_db, "runs": space_rows},
         },
         {
             "name": "warp_bilinear_wide",
@@ -4905,9 +5257,10 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/warp.py:57 (bilinear_sample)",
             "launches": train_launches["backward"] + train2_launches["backward"] + m2m_train_launches["backward"]
-            + sum(family_launches["backward"].values()),
+            + sum(family_launches["backward"].values()) + space_train_launches["backward"],
             "launches_by_path": {"rife_train": train_launches["backward"], "rife_train_2way": train2_launches["backward"],
-                                 "m2m_train": m2m_train_launches["backward"], **family_launches["backward"]},
+                                 "m2m_train": m2m_train_launches["backward"], **family_launches["backward"],
+                                 "rife_space_2way": 0, "rife_train_space_2way": space_train_launches["backward"]},
             "max_abs_err": bwd_err,
             "shape": f"{list(MAIN_SHAPE)} f32, f32 flow, border",
             "ms": bwd_main["ms"],
@@ -4924,6 +5277,9 @@ def main() -> int:
                                     **row["backward_shares"].get("warp_bilinear_backward", {})}
                              for name, row in family_rows.items()},
             "family_largest": family_times.get("warp_bilinear_backward"),
+            "row_band": {"max_abs_err": bband_err, "by_shape": bband_ms},
+            "rife_train_space_2way": {"loss": loss_s, "loss_one_device": loss1, "grad_rel_err": s_rel, "grad_rel_worst": s_worst,
+                                      "scaled_weights_grad_rel": p_rel, "small_grad_rel_err": ss_rel, "training": space_train_rows},
         },
         {
             "name": "softsplat_bilinear_backward",

@@ -99,6 +99,15 @@
 // 58-71 % on IFRNet's and AMT's C = 20-36 features (PERF.md); 4-byte
 // vectors (bf16 C = 54) stay below half of it.
 //
+// A row band (the space axis of parallel/, which splits a frame's rows over
+// devices): K1 and the backward kernel take the flow's and the output's
+// height h apart from the source's hs, and the source row row0 of the
+// band's first row. Output row y samples source row coordinate
+// row0 + y + flow_y; the border clamp and the zeros test use hs. The grid
+// tiles the band's output; only bilinear_taps' row changes. With row0 = 0
+// and hs = h every sum is the whole-frame kernel's. The wide kernel takes
+// no band.
+//
 // Which kernel a call takes is decided in Python
 // (ops/cuda/warp_kernel.py:route), from C, the dtype and the channel stride.
 // All offsets are 64-bit: a batch-8 1080p RIFE call already holds 2.3e8
@@ -361,8 +370,11 @@ __global__ void __launch_bounds__(kTileThreads)
     warp_bilinear_tiled_kernel(const TI* __restrict__ img,
                                const TF* __restrict__ flow,
                                TI* __restrict__ out, int64_t c, int64_t h,
-                               int64_t w, Strides si, Strides sf, Strides so) {
-  // grid (ceil(w / kTileW), ceil(h / kTileH), n), block (kTileW, kTileH)
+                               int64_t w, int64_t hs, int64_t row0,
+                               Strides si, Strides sf, Strides so) {
+  // grid (ceil(w / kTileW), ceil(h / kTileH), n) over the output band of h
+  // rows, block (kTileW, kTileH); the source has hs rows, the band's first
+  // is its row row0
   __shared__ alignas(16) unsigned char otile[kTileH * kOutRowBytes];
 
   const int tx = threadIdx.x;
@@ -390,7 +402,7 @@ __global__ void __launch_bounds__(kTileThreads)
   if (x < w && y < h) {
     float fx, fy;
     load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
-    const Taps t = bilinear_taps<ZEROS>(x, y, fx, fy, h, w, kRowKey, 1);
+    const Taps t = bilinear_taps<ZEROS>(x, row0 + y, fx, fy, hs, w, kRowKey, 1);
     const TI* base = img + b * si.n;
     const TI* r0 = base + key_row(t.o00) * si.h;
     const TI* r1 = base + key_row(t.o10) * si.h;
@@ -765,10 +777,11 @@ __device__ __forceinline__ void load_group(const T* p, int64_t stride_c, int n,
   }
 }
 
-// grid (ceil(w / kTileW), ceil(h / kTileH), n) of scatter's tiles, block
-// (kTileW, kTileH), a thread per output pixel holding kBackwardGroup
-// channels at a time. With IMG, grad_img is the zeroed f32 buffer [n, h, w,
-// cp] (cp a multiple of 4, 16 bytes aligned); without, the image needs no
+// grid (ceil(w / kTileW), ceil(h / kTileH), n) of scatter's tiles over the
+// output band of h rows (source rows row0 on, of hs), block (kTileW,
+// kTileH), a thread per output pixel holding kBackwardGroup channels at a
+// time. With IMG, grad_img is the zeroed f32 buffer [n, hs, w, cp] of the
+// whole source (cp a multiple of 4, 16 bytes aligned); without, the image needs no
 // gradient, grad_img is null and only grad_flow is computed (an instance of
 // its own, whose registers leave room for more blocks).
 template <typename TI, typename TF, bool ZEROS, bool IMG>
@@ -779,7 +792,8 @@ __global__ void __launch_bounds__(scatter::kThreads,
                                   const TI* __restrict__ grad_out,
                                   float* __restrict__ grad_img,
                                   TF* __restrict__ grad_flow, int c, int cp,
-                                  int64_t h, int64_t w, Strides si, Strides sf,
+                                  int64_t h, int64_t w, int64_t hs,
+                                  int64_t row0, Strides si, Strides sf,
                                   Strides sg, Strides sgf, int vec_img,
                                   int vec_grad) {
   constexpr int G = kBackwardGroup;
@@ -798,8 +812,8 @@ __global__ void __launch_bounds__(scatter::kThreads,
   if (inside) {
     float fx, fy;
     load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
-    t = bilinear_taps<ZEROS>(x, y, fx, fy, h, w, kRowKey, 1);
-    s = bilinear_slopes<ZEROS>(x, y, fx, fy, h, w);
+    t = bilinear_taps<ZEROS>(x, row0 + y, fx, fy, hs, w, kRowKey, 1);
+    s = bilinear_slopes<ZEROS>(x, row0 + y, fx, fy, hs, w);
   }
   const int r0 = key_row(t.o00), r1 = key_row(t.o10);
   const int c0 = key_col(t.o00), c1 = key_col(t.o01);
@@ -817,7 +831,7 @@ __global__ void __launch_bounds__(scatter::kThreads,
 #pragma unroll
   for (int k = 0; k < 4; ++k) own[k] = live[k] = inside && weight[k] != 0.0f;
   auto q = [&](int k) {
-    return grad_img + ((b * h + ((k & 2) ? r1 : r0)) * w + ((k & 1) ? c1 : c0)) * cp;
+    return grad_img + ((b * hs + ((k & 2) ? r1 : r0)) * w + ((k & 1) ? c1 : c0)) * cp;
   };
 
   float gx = 0.0f, gy = 0.0f;
@@ -862,7 +876,7 @@ __global__ void __launch_bounds__(scatter::kThreads,
 }
 
 struct BackwardLaunch {
-  int64_t n, c, h, w, cp;
+  int64_t n, c, h, w, hs, row0, cp;
   Strides si, sf, sg, sgf;
   int vec_img, vec_grad;
   cudaStream_t stream;
@@ -879,10 +893,10 @@ void launch_backward_mode(const TI* ip, const TF* fp, const TI* gp,
   const int c = static_cast<int>(l.c), cp = static_cast<int>(l.cp);
   if (grad_img != nullptr) {
     warp_bilinear_backward_kernel<TI, TF, ZEROS, true><<<blocks, threads, 0, l.stream>>>(
-        ip, fp, gp, grad_img, gfp, c, cp, l.h, l.w, l.si, l.sf, l.sg, l.sgf, l.vec_img, l.vec_grad);
+        ip, fp, gp, grad_img, gfp, c, cp, l.h, l.w, l.hs, l.row0, l.si, l.sf, l.sg, l.sgf, l.vec_img, l.vec_grad);
   } else {
     warp_bilinear_backward_kernel<TI, TF, ZEROS, false><<<blocks, threads, 0, l.stream>>>(
-        ip, fp, gp, grad_img, gfp, c, cp, l.h, l.w, l.si, l.sf, l.sg, l.sgf, l.vec_img, l.vec_grad);
+        ip, fp, gp, grad_img, gfp, c, cp, l.h, l.w, l.hs, l.row0, l.si, l.sf, l.sg, l.sgf, l.vec_img, l.vec_grad);
   }
 }
 
@@ -937,7 +951,7 @@ bool vector_fits(int64_t vec, int64_t isz, int64_t c, const Strides& s,
 }
 
 struct Launch {
-  int64_t n, c, h, w;
+  int64_t n, c, h, w, hs, row0;
   Strides si, sf, so;
   cudaStream_t stream;
 };
@@ -953,13 +967,13 @@ void launch_body(const TI* ip, const TF* fp, TI* op, Body body,
     const dim3 threads(kTileW, kTileH);
     if (l.c == 3) {
       warp_bilinear_tiled_kernel<TI, TF, ZEROS, 3><<<blocks, threads, 0, l.stream>>>(
-          ip, fp, op, l.c, l.h, l.w, l.si, l.sf, l.so);
+          ip, fp, op, l.c, l.h, l.w, l.hs, l.row0, l.si, l.sf, l.so);
     } else if (l.c == 7) {
       warp_bilinear_tiled_kernel<TI, TF, ZEROS, 7><<<blocks, threads, 0, l.stream>>>(
-          ip, fp, op, l.c, l.h, l.w, l.si, l.sf, l.so);
+          ip, fp, op, l.c, l.h, l.w, l.hs, l.row0, l.si, l.sf, l.so);
     } else {
       warp_bilinear_tiled_kernel<TI, TF, ZEROS, 0><<<blocks, threads, 0, l.stream>>>(
-          ip, fp, op, l.c, l.h, l.w, l.si, l.sf, l.so);
+          ip, fp, op, l.c, l.h, l.w, l.hs, l.row0, l.si, l.sf, l.so);
     }
     return;
   }
@@ -1054,11 +1068,12 @@ int launch(const void* img, const void* flow, void* out, int img_dtype,
   return static_cast<int>(cudaGetLastError());
 }
 
-Launch make_launch(int64_t n, int64_t c, int64_t h, int64_t w, int64_t si_n,
-                   int64_t si_c, int64_t si_h, int64_t si_w, int64_t sf_n,
-                   int64_t sf_c, int64_t sf_h, int64_t sf_w, int64_t so_n,
-                   int64_t so_c, int64_t so_h, int64_t so_w, void* stream) {
-  return Launch{n, c, h, w,
+Launch make_launch(int64_t n, int64_t c, int64_t h, int64_t w, int64_t hs,
+                   int64_t row0, int64_t si_n, int64_t si_c, int64_t si_h,
+                   int64_t si_w, int64_t sf_n, int64_t sf_c, int64_t sf_h,
+                   int64_t sf_w, int64_t so_n, int64_t so_c, int64_t so_h,
+                   int64_t so_w, void* stream) {
+  return Launch{n, c, h, w, hs, row0,
                 Strides{si_n, si_c, si_h, si_w},
                 Strides{sf_n, sf_c, sf_h, sf_w},
                 Strides{so_n, so_c, so_h, so_w},
@@ -1067,22 +1082,26 @@ Launch make_launch(int64_t n, int64_t c, int64_t h, int64_t w, int64_t si_n,
 
 }  // namespace
 
-// Warp `img` ([n, c, h, w] by element strides) by `flow` ([n, 2, h, w], channel
-// 0 = x, 1 = y) into `out` ([n, c, h, w]) with K1's tiled body. Any strides
-// are exact; the 16-byte row stores need channel stride 1 and pixel stride
-// c. Dtype codes: 0 f32, 1 bf16, 2 f16. Returns the launch's
-// cudaGetLastError() (0 on success), -1 for an unknown dtype code, or -2 when
-// n or h exceeds the grid's 65535 limit. Launches on `stream` and does not
+// Warp `img` ([n, c, hs, w] by element strides) by `flow` ([n, 2, h, w],
+// channel 0 = x, 1 = y) into `out` ([n, c, h, w]) with K1's tiled body: the
+// band of h output rows from source row row0 (the whole frame for row0 = 0,
+// hs = h). Any strides are exact; the 16-byte row stores need channel
+// stride 1 and pixel stride c. Dtype codes: 0 f32, 1 bf16, 2 f16. Returns
+// the launch's cudaGetLastError() (0 on success), -1 for an unknown dtype
+// code, or -2 when n, h or hs exceeds the grid's 65535 limit or the band
+// does not lie within the source. Launches on `stream` and does not
 // synchronise.
 extern "C" int cfi_warp_bilinear(
     const void* img, const void* flow, void* out, int img_dtype,
     int flow_dtype, int zeros, int64_t n, int64_t c, int64_t h, int64_t w,
-    int64_t si_n, int64_t si_c, int64_t si_h, int64_t si_w, int64_t sf_n,
-    int64_t sf_c, int64_t sf_h, int64_t sf_w, int64_t so_n, int64_t so_c,
-    int64_t so_h, int64_t so_w, void* stream) {
+    int64_t hs, int64_t row0, int64_t si_n, int64_t si_c, int64_t si_h,
+    int64_t si_w, int64_t sf_n, int64_t sf_c, int64_t sf_h, int64_t sf_w,
+    int64_t so_n, int64_t so_c, int64_t so_h, int64_t so_w, void* stream) {
+  if (hs > 65535 || row0 < 0 || row0 + h > hs) return -2;
   return launch(img, flow, out, img_dtype, flow_dtype, zeros != 0, kTiled,
-                make_launch(n, c, h, w, si_n, si_c, si_h, si_w, sf_n, sf_c,
-                            sf_h, sf_w, so_n, so_c, so_h, so_w, stream));
+                make_launch(n, c, h, w, hs, row0, si_n, si_c, si_h, si_w,
+                            sf_n, sf_c, sf_h, sf_w, so_n, so_c, so_h, so_w,
+                            stream));
 }
 
 // The same warp by the wide kernel. `img` and `out` must have channel stride
@@ -1096,16 +1115,17 @@ extern "C" int cfi_warp_bilinear_wide(
     int64_t sf_h, int64_t sf_w, int64_t so_n, int64_t so_h, int64_t so_w,
     void* stream) {
   return launch(img, flow, out, img_dtype, flow_dtype, zeros != 0, kWide,
-                make_launch(n, c, h, w, si_n, 1, si_h, si_w, sf_n, sf_c, sf_h,
-                            sf_w, so_n, 1, so_h, so_w, stream));
+                make_launch(n, c, h, w, h, 0, si_n, 1, si_h, si_w, sf_n, sf_c,
+                            sf_h, sf_w, so_n, 1, so_h, so_w, stream));
 }
 
 // The warp's gradient: given `grad_out` (the forward output's gradient,
-// [n, c, h, w] in the image's dtype) for the warp of `img` by `flow`, adds
-// the image's gradient into `grad_img` (f32, [n, h, w, cp] contiguous, cp >=
-// c a multiple of 4, 16 bytes aligned, zeroed by the caller; null when the
-// image needs none) and writes the flow's into `grad_flow` ([n, 2, h, w],
-// the flow's dtype). img, flow, grad_out and grad_flow take their own
+// [n, c, h, w] in the image's dtype) for the warp of `img` ([n, c, hs, w])
+// by `flow` ([n, 2, h, w]: the band of h rows from source row row0, the
+// whole frame for row0 = 0, hs = h), adds the image's gradient into
+// `grad_img` (f32, [n, hs, w, cp] contiguous, cp >= c a multiple of 4, 16
+// bytes aligned, zeroed by the caller; null when the image needs none) and
+// writes the flow's into `grad_flow` ([n, 2, h, w], the flow's dtype). img, flow, grad_out and grad_flow take their own
 // element strides, in the order n, c, h, w. img and grad_out are read in
 // vectors of vec_img and vec_grad bytes: 16, 8, or one element (see
 // vector_fits). Same dtype codes and return codes as cfi_warp_bilinear; -2
@@ -1114,20 +1134,21 @@ extern "C" int cfi_warp_bilinear_wide(
 extern "C" int cfi_warp_bilinear_backward(
     const void* img, const void* flow, const void* grad_out, void* grad_img,
     void* grad_flow, int img_dtype, int flow_dtype, int zeros, int64_t n,
-    int64_t c, int64_t h, int64_t w, int64_t si_n, int64_t si_c, int64_t si_h,
-    int64_t si_w, int64_t sf_n, int64_t sf_c, int64_t sf_h, int64_t sf_w,
-    int64_t sg_n, int64_t sg_c, int64_t sg_h, int64_t sg_w, int64_t sgf_n,
-    int64_t sgf_c, int64_t sgf_h, int64_t sgf_w, int64_t cp, int64_t vec_img,
-    int64_t vec_grad, void* stream) {
+    int64_t c, int64_t h, int64_t w, int64_t hs, int64_t row0, int64_t si_n,
+    int64_t si_c, int64_t si_h, int64_t si_w, int64_t sf_n, int64_t sf_c,
+    int64_t sf_h, int64_t sf_w, int64_t sg_n, int64_t sg_c, int64_t sg_h,
+    int64_t sg_w, int64_t sgf_n, int64_t sgf_c, int64_t sgf_h, int64_t sgf_w,
+    int64_t cp, int64_t vec_img, int64_t vec_grad, void* stream) {
   if (n * h * w == 0) return 0;
-  if (n > 65535 || h > 65535) return -2;  // grid y/z limits
+  if (n > 65535 || h > 65535 || hs > 65535) return -2;  // grid y/z limits
+  if (row0 < 0 || row0 + h > hs) return -2;  // the band lies within the source
   // K1's packed tap offsets hold a row and a column in 32 bits each
   if (w > 0x7fffffff || c > (int64_t{1} << 28)) return -2;
   if (grad_img != nullptr &&
       (cp < c || cp % 4 != 0 || (reinterpret_cast<uintptr_t>(grad_img) & 15) != 0)) {
     return -2;
   }
-  const BackwardLaunch l{n, c, h, w, cp,
+  const BackwardLaunch l{n, c, h, w, hs, row0, cp,
                          Strides{si_n, si_c, si_h, si_w},
                          Strides{sf_n, sf_c, sf_h, sf_w},
                          Strides{sg_n, sg_c, sg_h, sg_w},

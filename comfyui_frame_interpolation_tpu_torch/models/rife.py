@@ -345,7 +345,7 @@ def apply(
     img0 = F.pad(img0.permute(0, 3, 1, 2).clamp(0.0, 1.0), (0, pw - w, 0, ph - h))
     img1 = F.pad(img1.permute(0, 3, 1, 2).clamp(0.0, 1.0), (0, pw - w, 0, ph - h))
     timestep = torch.as_tensor(timestep, dtype=img0.dtype, device=img0.device)
-    tmap = timestep.reshape(-1, 1, 1, 1).expand(n, 1, ph, pw)
+    tmap = timestep.reshape(-1, 1, 1, 1).expand_as(img0[:, :1])  # [n, 1, ph, pw], of rows too when img0 is banded
     blocks = net.blocks()
     scale_list = list(scale_list)
     if arch in _NO_ENCODER:

@@ -29,6 +29,12 @@ into a zeroed f32 buffer ``[N, H, W, Cp]`` (:func:`padded_channels`); the
 taps and the output's gradient are read 4 channels at a time, in the vectors
 :func:`vector_bytes` picks.
 
+K1 and the backward kernel take a row band (``row0``): the flow, the output
+and the output's gradient cover ``h`` rows from source row ``row0`` on,
+and the image and its gradient the whole source (the ``space`` axis of
+``parallel/``). The wide kernel takes none: a band that :func:`route`
+sends to it raises (:func:`check_wide_band`).
+
 ``launches`` counts the launches of K1, ``wide_launches`` those of the
 wide kernel and ``backward_launches`` those of the backward kernel, so that
 a run can show which kernels its main path went through.
@@ -49,6 +55,7 @@ __all__ = [
     "WIDE_MIN_BYTES",
     "WarpFunction",
     "backward_launches",
+    "check_wide_band",
     "launches",
     "padded_channels",
     "route",
@@ -67,6 +74,9 @@ backward_launches = 0
 # what a direct call of a forward wrapper with an input that needs a
 # gradient is told
 _GRAD_HINT = "call ops.warp.warp, whose autograd Function (WarpFunction) has the backward kernel"
+
+# what a row band that the wide kernel would take is told
+WIDE_BAND_TODO = "the wide warp kernel takes no row band: ROADMAP.md Queue 1 item 3 (its second step)"
 
 # a pixel of this many bytes or more, or of a whole number of 16-byte
 # vectors, takes the wide kernel (placed on an H100 by
@@ -104,6 +114,24 @@ def route_counts(channels: Sequence[int], dtype: torch.dtype) -> Dict[str, int]:
     return counts
 
 
+def check_wide_band(img_rows: int, flow_rows: int, row0: int) -> None:
+    """Raise ``NotImplementedError`` for a row band (``row0`` not 0, or a
+    flow of other rows than the image's): the wide kernel has no band, and
+    such a warp takes neither K1 nor the twin in its place."""
+    if row0 != 0 or flow_rows != img_rows:
+        raise NotImplementedError(f"{WIDE_BAND_TODO}; a band of {flow_rows} of {img_rows} rows from row {row0}")
+
+
+def _check_band(what: str, img: torch.Tensor, flow: torch.Tensor, row0: int, *grad_hint: str) -> None:
+    """``check_planes_and_flow`` on the band's rows of ``img`` ``[N, C, Hs,
+    W]`` (rows ``row0`` on, as many as the flow ``[N, 2, H, W]`` has), which
+    must lie within ``img``."""
+    both = img.dim() == 4 and flow.dim() == 4
+    if both and not 0 <= row0 <= img.shape[2] - flow.shape[2]:
+        raise ValueError(f"{what}: a flow of {flow.shape[2]} rows from row {row0} does not lie within {img.shape[2]} source rows")
+    check_planes_and_flow(what, img.narrow(2, row0, flow.shape[2]) if both else img, flow, *grad_hint)
+
+
 def padded_channels(c: int) -> int:
     """The channels of a pixel in the backward kernel's f32 image-gradient
     buffer ``[N, H, W, Cp]``: ``c`` rounded up to a multiple of 4, so that
@@ -138,7 +166,7 @@ def _bind(name: str, n_int64: int, n_pointers: int = 3):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    return _bind("cfi_warp_bilinear", 16)
+    return _bind("cfi_warp_bilinear", 18)
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,31 +176,36 @@ def _wide_kernel():
 
 @functools.lru_cache(maxsize=None)
 def _backward_kernel():
-    return _bind("cfi_warp_bilinear_backward", 23, n_pointers=5)
+    return _bind("cfi_warp_bilinear_backward", 25, n_pointers=5)
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) -> torch.Tensor:
+def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False, row0: int = 0) -> torch.Tensor:
     """Backward-warp ``img`` ``[N, C, H, W]`` by ``flow`` ``[N, 2, H, W]``
     (channel 0 = x, 1 = y) on the card, bilinear, with border or zeros padding.
 
-    Any strides; the output has the strides ``torch.empty_like`` gives
-    ``img``. The kernel launches on the current stream and nothing
-    synchronises."""
+    A row band: with ``row0``, ``flow`` ``[N, 2, Hb, W]`` covers the source's
+    rows ``row0`` to ``row0 + Hb`` (within ``img``'s ``Hs``), and output row
+    ``y`` samples source row coordinate ``row0 + y + flow_y``.
+
+    Any strides; the output has the strides ``torch.empty_like`` gives the
+    image's rows of the band (``img``'s own for a whole frame). The kernel
+    launches on the current stream and nothing synchronises."""
     global launches
-    check_planes_and_flow("warp_bilinear", img, flow, _GRAD_HINT)
-    n, c, h, w = img.shape
-    out = torch.empty_like(img)
+    _check_band("warp_bilinear", img, flow, row0, _GRAD_HINT)
+    n, c, hs, w = img.shape
+    h = flow.shape[2]
+    out = torch.empty_like(img.narrow(2, row0, h))
     if out.numel() == 0:
         return out
     with torch.cuda.device(img.device):
         rc = _kernel()(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
             DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
-            n, c, h, w, *img.stride(), *flow.stride(), *out.stride(),
+            n, c, h, w, hs, row0, *img.stride(), *flow.stride(), *out.stride(),
             _stream(img),
         )
     if rc != 0:
@@ -218,13 +251,18 @@ def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = Fals
 
 
 def warp_bilinear_backward(
-    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, zeros: bool = False, img_grad: bool = True
+    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, zeros: bool = False, img_grad: bool = True,
+    row0: int = 0,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The gradient of the warp of ``img`` ``[N, C, H, W]`` by ``flow``
     ``[N, 2, H, W]`` for the output's gradient ``grad_out`` ``[N, C, H, W]``
     (``img``'s dtype): ``(grad_img, grad_flow)`` in the dtypes and shapes of
     ``img`` and ``flow``. With ``img_grad=False`` the image's gradient is not
     computed and ``grad_img`` is None.
+
+    A row band (``row0``, as :func:`warp_bilinear`): ``flow`` and
+    ``grad_out`` have the band's ``Hb`` rows, ``grad_flow`` covers the
+    band, and ``grad_img`` the whole source: the band's part of the sum.
 
     Any strides for every input (an expanded ``grad_out`` too).
     ``grad_img`` is summed with ``float4`` atomics into a zeroed f32 buffer
@@ -236,24 +274,25 @@ def warp_bilinear_backward(
     f32. The kernel launches on the current stream and nothing
     synchronises."""
     global backward_launches
-    check_planes_and_flow("warp_bilinear_backward", img, flow)
-    if grad_out.shape != img.shape or grad_out.dtype != img.dtype or grad_out.device != img.device:
+    _check_band("warp_bilinear_backward", img, flow, row0)
+    n, c, hs, w = img.shape
+    h = flow.shape[2]
+    if grad_out.shape != (n, c, h, w) or grad_out.dtype != img.dtype or grad_out.device != img.device:
         raise ValueError(
-            f"warp_bilinear_backward: grad_out must be {tuple(img.shape)} {img.dtype} on {img.device}, "
+            f"warp_bilinear_backward: grad_out must be {(n, c, h, w)} {img.dtype} on {img.device}, "
             f"got {tuple(grad_out.shape)} {grad_out.dtype} on {grad_out.device}"
         )
-    n, c, h, w = img.shape
     cp = padded_channels(c)
-    buf = torch.zeros((n, h, w, cp), dtype=torch.float32, device=img.device) if img_grad else None
+    buf = torch.zeros((n, hs, w, cp), dtype=torch.float32, device=img.device) if img_grad else None
     gf = torch.empty_like(flow)
-    if img.numel() == 0:
+    if img.numel() == 0 or gf.numel() == 0:
         return (None if buf is None else torch.zeros_like(img)), gf.zero_()
     isz = img.element_size()
     with torch.cuda.device(img.device):
         rc = _backward_kernel()(
             img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), 0 if buf is None else buf.data_ptr(), gf.data_ptr(),
             DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
-            n, c, h, w, *img.stride(), *flow.stride(), *grad_out.stride(), *gf.stride(), cp,
+            n, c, h, w, hs, row0, *img.stride(), *flow.stride(), *grad_out.stride(), *gf.stride(), cp,
             vector_bytes(c, img.stride(), isz, img.data_ptr()), vector_bytes(c, grad_out.stride(), isz, grad_out.data_ptr()),
             _stream(img),
         )
@@ -270,25 +309,30 @@ def warp_bilinear_backward(
 
 class WarpFunction(torch.autograd.Function):
     """The warp of ``[N, C, H, W]`` planes by ``[N, 2, H, W]`` flow planes
-    with a gradient: the forward launches the kernel that :func:`route`
-    names (K1 or the wide kernel), the backward :func:`warp_bilinear_backward`.
-    Neither gives way to the plain twin: a kernel that does not build or
-    launch raises."""
+    (or a row band of them from source row ``row0``) with a gradient: the
+    forward launches the kernel that :func:`route` names (K1 or the wide
+    kernel, which raises for a band), the backward
+    :func:`warp_bilinear_backward`. Neither gives way to the plain twin: a
+    kernel that does not build or launch raises."""
 
     @staticmethod
-    def forward(ctx, img: torch.Tensor, flow: torch.Tensor, zeros: bool, prefer_wide: bool) -> torch.Tensor:
+    def forward(ctx, img: torch.Tensor, flow: torch.Tensor, zeros: bool, prefer_wide: bool, row0: int = 0) -> torch.Tensor:
         ctx.save_for_backward(img, flow)
         ctx.zeros = zeros
+        ctx.row0 = row0
         # the forward wrappers take no input that needs a gradient: this
         # Function is what differentiates them
         x, f = img.detach(), flow.detach()
         if route(x.shape, x.stride(), x.dtype, prefer_wide) == "wide":
+            check_wide_band(x.shape[2], f.shape[2], row0)
             return warp_bilinear_wide(x, f, zeros)
-        return warp_bilinear(x, f, zeros)
+        return warp_bilinear(x, f, zeros, row0=row0)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out: torch.Tensor):
         img, flow = (t.detach() for t in ctx.saved_tensors)
-        grad_img, grad_flow = warp_bilinear_backward(img, flow, grad_out, ctx.zeros, ctx.needs_input_grad[0])
-        return grad_img, (grad_flow if ctx.needs_input_grad[1] else None), None, None
+        grad_img, grad_flow = warp_bilinear_backward(
+            img, flow, grad_out, ctx.zeros, ctx.needs_input_grad[0], row0=ctx.row0
+        )
+        return grad_img, (grad_flow if ctx.needs_input_grad[1] else None), None, None, None

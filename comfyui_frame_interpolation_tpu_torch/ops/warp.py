@@ -27,6 +27,15 @@ and unlike JAX the flag applies to every dtype. The twin also runs on CUDA
 tensors when called directly, which is how the kernels are checked on the
 card.
 
+A row band: every warp takes ``row0`` (0 by default). The flow and the
+output then have rows of their own, ``h`` of them, and output row ``y``
+samples the source at row coordinate ``row0 + y + flow_y``; the border
+clamp and the zeros test use the source's height. The ``space`` axis of
+``parallel/`` warps each band of a frame so, by the whole source gathered
+onto the band's device. With ``row0 = 0`` and the source's height it is the
+whole-frame warp, bit for bit. A band that ``route`` sends to the wide
+kernel raises: the wide kernel takes no band yet.
+
 With a gradient: a CUDA warp whose image or flow needs one (grad mode on)
 goes through ``ops.cuda.warp_kernel.WarpFunction``, whose forward is the
 routed kernel and whose backward is the hand-written backward kernel; a CPU
@@ -49,6 +58,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = ["warp", "warp_torch", "warp_backward_torch", "bicubic_sample", "bilinear_sample", "grid_sample"]
 
@@ -126,36 +136,41 @@ def bilinear_sample(
     return out.to(img.dtype)
 
 
-def warp_torch(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border") -> torch.Tensor:
+def warp_torch(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border", row0: int = 0) -> torch.Tensor:
     """Plain PyTorch warp (the kernel's twin). The grid is built in f32 from an
-    integer iota; bf16/f16 flows are not rounded into a low-precision grid."""
+    integer iota; bf16/f16 flows are not rounded into a low-precision grid.
+    The flow's rows are the source's rows ``row0`` on (a row band)."""
     n, h, w, _ = flow.shape
     gx = torch.arange(w, dtype=torch.float32, device=flow.device).view(1, 1, w)
-    gy = torch.arange(h, dtype=torch.float32, device=flow.device).view(1, h, 1)
+    gy = (torch.arange(h, dtype=torch.float32, device=flow.device) + row0).view(1, h, 1)
     return bilinear_sample(img, gx + flow[..., 0].float(), gy + flow[..., 1].float(), padding_mode)
 
 
 def warp_backward_torch(
-    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, padding_mode: str = "border"
+    img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, padding_mode: str = "border", row0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's plain version: ``(grad_img, grad_flow)`` of
-    :func:`warp_torch` for the output's gradient ``grad_out`` (NHWC, like
-    ``img``), by ``torch.autograd.grad``. bf16/f16 inputs are taken to f32
-    first and the gradients cast once to the inputs' dtypes, as the kernel
-    sums in f32 and rounds once (autograd through a bf16 twin would sum
-    the image's gradient in bf16)."""
+    :func:`warp_torch` for the output's gradient ``grad_out`` (NHWC, shaped
+    like the flow's rows with the image's channels), by
+    ``torch.autograd.grad``. bf16/f16 inputs are taken to f32 first and the
+    gradients cast once to the inputs' dtypes, as the kernel sums in f32 and
+    rounds once (autograd through a bf16 twin would sum the image's gradient
+    in bf16). For a row band (``row0``), ``grad_img`` covers the whole
+    source: the band's part of the sum."""
     with torch.enable_grad():
         x = img.detach().float().requires_grad_()
         f = flow.detach().float().requires_grad_()
-        out = warp_torch(x, f, padding_mode)
+        out = warp_torch(x, f, padding_mode, row0)
         gi, gf = torch.autograd.grad(out, (x, f), grad_out.float())
     return gi.to(img.dtype), gf.to(flow.dtype)
 
 
 def warp(
-    img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border", prefer_wide: bool = False
+    img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border", prefer_wide: bool = False, row0: int = 0
 ) -> torch.Tensor:
-    """Backward-warp ``img`` (NHWC) by ``flow`` (``[N, H, W, 2]``).
+    """Backward-warp ``img`` (NHWC) by ``flow`` (``[N, H, W, 2]``): the
+    whole frame, or with ``row0`` the rows ``row0`` to ``row0 + H`` of a
+    taller ``img`` (a row band).
 
     CUDA tensors launch the Hopper kernel that
     ``ops.cuda.warp_kernel.route`` names for their shape, strides, dtype and
@@ -163,26 +178,34 @@ def warp(
     gradient, through ``warp_kernel.WarpFunction``, whose backward is the
     backward kernel. CPU tensors take the plain twin (autograd differentiates
     it); any other device raises. There is no fallback from a kernel to the
-    twin or to another kernel."""
+    twin or to another kernel. A value held as row bands
+    (``parallel.space.RowBands``) takes the row-band rule of ``parallel/``."""
+    if has_torch_function((img, flow)):
+        return handle_torch_function(
+            warp, (img, flow), img, flow, padding_mode=padding_mode, prefer_wide=prefer_wide, row0=row0
+        )
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unsupported padding_mode {padding_mode}")
+    if not 0 <= row0 <= img.shape[1] - flow.shape[1]:
+        raise ValueError(f"warp: a flow of {flow.shape[1]} rows from row {row0} does not lie within {img.shape[1]} source rows")
     if img.device.type == "cuda":
         from .cuda import warp_kernel
 
         planes, flow_planes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
         zeros = padding_mode == "zeros"
         if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
-            return warp_kernel.WarpFunction.apply(planes, flow_planes, zeros, prefer_wide).permute(0, 2, 3, 1)
+            return warp_kernel.WarpFunction.apply(planes, flow_planes, zeros, prefer_wide, row0).permute(0, 2, 3, 1)
         # no gradient is taken (grad mode off, or no input needs one): the
         # wrappers get detached views, as they refuse inputs that need one
         planes, flow_planes = planes.detach(), flow_planes.detach()
         if warp_kernel.route(planes.shape, planes.stride(), planes.dtype, prefer_wide) == "wide":
+            warp_kernel.check_wide_band(planes.shape[2], flow_planes.shape[2], row0)
             out = warp_kernel.warp_bilinear_wide(planes, flow_planes, zeros)
         else:
-            out = warp_kernel.warp_bilinear(planes, flow_planes, zeros)
+            out = warp_kernel.warp_bilinear(planes, flow_planes, zeros, row0=row0)
         return out.permute(0, 2, 3, 1)
     if img.device.type == "cpu" and flow.device.type == "cpu":
-        return warp_torch(img, flow, padding_mode)
+        return warp_torch(img, flow, padding_mode, row0)
     raise ValueError(f"warp runs on cuda or cpu tensors, got {img.device} and {flow.device}")
 
 

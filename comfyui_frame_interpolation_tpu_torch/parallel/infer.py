@@ -12,9 +12,17 @@ then slice along the batch, as they do with one device. Launches are
 asynchronous, so shards on different cards overlap.
 
 A mesh of one data shard takes the same path, with one shard of the whole
-batch: the same result, bit for bit, as calling the model unwrapped. A batch
-that :func:`~.mesh.frame_sharding` would split over ``space`` raises
-(:func:`~.mesh.check_runnable`).
+batch: the same result, bit for bit, as calling the model unwrapped.
+
+A batch that :func:`~.mesh.frame_sharding` splits over ``space`` (frames of
+at least ``64 * space`` rows on a mesh whose ``space`` axis is over 1):
+:func:`make_sharded_model_fn` also cuts each data shard's NHWC frames into
+row bands over that shard's row of devices (``parallel.space.split_rows``),
+the model runs on them through the row-band rules (RIFE 4.7; any other
+model raises at its first op without a rule), and the output's bands are
+gathered on the first device in global row order. The pair-cached split
+(:func:`make_sharded_pair_fns`) raises there
+(:func:`~.mesh.check_runnable`): its models need K2 with a band first.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from .mesh import Mesh, check_runnable
+from .space import RowBands, split_rows
 
 __all__ = ["make_sharded_model_fn", "make_sharded_pair_fns"]
 
@@ -44,9 +53,21 @@ def _split(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
 
 
 def _gather(parts: List[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    """The shards' outputs concatenated on the first data device."""
+    """The shards' outputs concatenated on the first data device (row bands
+    gathered there first, in global row order)."""
     first = mesh.data_devices()[0]
-    return torch.cat([p.to(first) for p in parts], 0)
+    return torch.cat([p.gather(first) if isinstance(p, RowBands) else p.to(first) for p in parts], 0)
+
+
+def _split_args(args, mesh: Mesh, rows: bool) -> List[list]:
+    """Each data shard's arguments: every argument cut along its first
+    dimension (:func:`_split`), and with ``rows`` each 4-D one (the NHWC
+    frames) cut into row bands over the shard's row of devices."""
+    shards = [list(part) for part in zip(*(_split(a, mesh) for a in args))]
+    if rows:
+        for part, devices in zip(shards, mesh.devices):
+            part[:] = [split_rows(a, devices) if a.dim() == 4 else a for a in part]
+    return shards
 
 
 def make_sharded_model_fn(make_fn: Callable[[torch.device], Callable], mesh: Mesh) -> Callable:
@@ -58,13 +79,13 @@ def make_sharded_model_fn(make_fn: Callable[[torch.device], Callable], mesh: Mes
     ``model_fn(f0, f1, f2, f3)`` for :func:`core.run_plan_window4`. Every
     argument (the ``[B]`` timestep vector too) is split along its first
     dimension, which must be a multiple of ``mesh.shape['data']`` (pick an
-    executor ``batch_size`` that is)."""
+    executor ``batch_size`` that is); where the policy splits rows, the
+    frames also go to each shard as row bands (the module docstring)."""
     fns = _per_device(make_fn, mesh)
 
     def sharded_fn(*args):
-        check_runnable(mesh, next((a.shape for a in args if a.dim() == 4), (args[0].shape[0], 0, 0, 0)))
-        shards = zip(*(_split(a, mesh) for a in args))
-        return _gather([fn(*part) for fn, part in zip(fns, shards)], mesh)
+        rows = check_runnable(mesh, next((a.shape for a in args if a.dim() == 4), (args[0].shape[0], 0, 0, 0)), rows=True)
+        return _gather([fn(*part) for fn, part in zip(fns, _split_args(args, mesh, rows))], mesh)
 
     return sharded_fn
 

@@ -15,10 +15,22 @@ separate devices would, on one device (the CPU tests use them).
 the rows over ``space`` only when every shard keeps
 :data:`MIN_ROWS_PER_SHARD` rows. A sharding is the mesh and a spec, a tuple
 naming the mesh axis of each dimension (``("data", None, None, None)``), as
-JAX's ``PartitionSpec`` does. The port runs the ``data`` axis; torch has no
-GSPMD halo exchange, and one H100 holds every shape of the paths, so a
-run that the policy would split over ``space`` raises ``NotImplementedError``
-(:func:`check_runnable`) instead of running data-parallel in its place.
+JAX's ``PartitionSpec`` does.
+
+Both axes run. Torch has no GSPMD halo exchange, so the ``space`` axis is
+``parallel.space``: a frame held as row bands on one data shard's row of
+devices, and an allow-list of rules (halo rows for the convolutions, the
+global ratio for the resizes, the whole source gathered for the warp) by
+which RIFE 4.7's inference (:func:`~.infer.make_sharded_model_fn`) and
+training step (:func:`~.train.make_train_step`) run band by band. Every
+other op raises ``NotImplementedError`` on a band, naming itself and the
+``ROADMAP.md`` item that ports the rest (:data:`SPACE_TODO`), and so does
+the pair-cached executor's split (:func:`~.infer.make_sharded_pair_fns`,
+:func:`check_runnable`): no run that the policy splits over ``space`` runs
+data-parallel in its place. On the CPU the axis runs on logical replicas
+(``make_mesh(8, devices=[torch.device("cpu")] * 8)``: a ``(4, 2)`` mesh);
+on one card, ``chip_smoke.py`` runs it on a ``(1, 2)`` mesh of replicas of
+``cuda:0``.
 """
 
 from __future__ import annotations
@@ -42,8 +54,11 @@ __all__ = [
 # Minimum frame rows per 'space' shard for spatial sharding to be applied.
 MIN_ROWS_PER_SHARD = 64
 
-# what a run that needs the space axis is told
-SPACE_TODO = "the 'space' axis (rows split over devices) is not ported: ROADMAP.md Queue 1 item 3"
+# what a run on the space axis that no row-band rule covers is told
+SPACE_TODO = (
+    "the 'space' axis (rows split over devices) runs RIFE 4.7's inference and training step; "
+    "the rest is ROADMAP.md Queue 1 item 3"
+)
 
 
 @dataclass(frozen=True)
@@ -120,11 +135,14 @@ def replicated(mesh: Mesh) -> Sharding:
     return Sharding(mesh, ())
 
 
-def check_runnable(mesh: Mesh, frame_shape: Sequence[int]) -> None:
-    """Raise unless a batch of NHWC frames of ``frame_shape`` runs on
-    ``mesh`` as the port runs it: split over ``data`` only, the batch a
-    multiple of the ``data`` axis."""
-    if "space" in frame_sharding(mesh, frame_shape).spec:
+def check_runnable(mesh: Mesh, frame_shape: Sequence[int], rows: bool = False) -> bool:
+    """Whether a batch of NHWC frames of ``frame_shape`` splits its rows
+    over ``mesh``'s ``space`` axis (:func:`frame_sharding`'s policy). Raises
+    unless the batch is a multiple of the ``data`` axis, and, for a caller
+    that cannot split rows (``rows=False``), when the policy would."""
+    split = "space" in frame_sharding(mesh, frame_shape).spec
+    if split and not rows:
         raise NotImplementedError(f"{SPACE_TODO}; frames {tuple(frame_shape)} on mesh {mesh.shape}")
     if frame_shape[0] % mesh.shape["data"]:
         raise ValueError(f"batch {frame_shape[0]} is not a multiple of the mesh's data axis {mesh.shape['data']}")
+    return split

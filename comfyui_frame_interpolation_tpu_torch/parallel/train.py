@@ -14,8 +14,16 @@ splits it (one shard of the whole batch on a one-device mesh). Each shard
 runs the model on its device with the parameters copied there (``torch.func.functional_call``; the copies are
 differentiable, so backward sums every shard's gradient onto the module's
 own parameters), and the loss is the mean over the whole batch, taken on the
-first device: the gradient equals the one-device gradient. A ``space`` axis
-is not ported (:func:`~.mesh.check_runnable` raises).
+first device: the gradient equals the one-device gradient.
+
+Where :func:`~.mesh.frame_sharding` splits rows over ``space``, each shard's
+frames and target are also cut into row bands over the shard's row of
+devices (``parallel.space``), the model runs band by band (RIFE 4.7; any
+other model raises at its first op without a row-band rule), and the loss
+is the bands' and shards' partial sums of ``|pred - target|`` added on the
+first device over the whole batch's element count: the mean over the whole
+batch, whose gradient autograd sums over every band and shard back through
+the same parameter copies.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .infer import _gather, _split
+from .infer import _gather, _split_args
 from .mesh import Mesh, check_runnable, make_mesh
 
 __all__ = ["dryrun", "l1_loss", "make_train_step"]
@@ -68,14 +76,18 @@ def make_train_step(
     state = {**dict(applied.named_parameters()), **dict(applied.named_buffers())}
 
     def step(f0: torch.Tensor, f1: torch.Tensor, t: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        check_runnable(mesh, f0.shape)
+        rows = check_runnable(mesh, f0.shape, rows=True)
         optimizer.zero_grad(set_to_none=True)
         preds = []
-        for d, a, b, tt in zip(mesh.data_devices(), _split(f0, mesh), _split(f1, mesh), _split(t, mesh)):
+        for d, (a, b, tt) in zip(mesh.data_devices(), _split_args((f0, f1, t), mesh, rows)):
             on_d = {k: v.to(d) for k, v in state.items()}
             preds.append(torch.func.functional_call(applied, on_d, (a, b, tt)))
-        pred = _gather(preds, mesh)
-        loss = l1_loss(pred, target.to(first))
+        if rows:
+            # the mean over the whole batch from the bands' partial sums
+            parts = zip(preds, (part[0] for part in _split_args((target,), mesh, rows)))
+            loss = sum((p - tg).abs().sum().to(first) for p, tg in parts) / target.numel()
+        else:
+            loss = l1_loss(_gather(preds, mesh), target.to(first))
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -84,13 +96,14 @@ def make_train_step(
 
 
 def dryrun(n_devices: int, device: str = "cuda") -> None:
-    """One training step of RIFE 4.7 (random weights, seed 0, Adam 1e-4) on a
-    mesh of ``n_devices`` data shards, the counterpart of the JAX package's
+    """One training step of RIFE 4.7 (random weights, seed 0, Adam 1e-4) on
+    ``make_mesh(n_devices)``, the counterpart of the JAX package's
     ``__graft_entry__.py:dryrun_multichip``: the first ``n_devices`` CUDA
     devices, or with ``device="cpu"`` that many logical replicas of the CPU.
-    Checks that the loss is finite and the parameters moved, and prints the
-    JAX dry run's line. The mesh is ``(n_devices, 1)``: the ``space`` axis
-    that JAX's shape rule would give an even count is not ported."""
+    As JAX's, the mesh takes JAX's shape rule and the batch JAX's 128x128
+    crops, so an even count trains in the spatially sharded regime (``space``
+    = 2, 64 rows a band). Checks that the loss is finite and the parameters
+    moved, and prints the JAX dry run's line."""
     from ..models import rife
 
     if device == "cuda":
@@ -101,7 +114,7 @@ def dryrun(n_devices: int, device: str = "cuda") -> None:
         devices = None
     else:
         devices = [torch.device(device)] * n_devices
-    mesh = make_mesh(n_devices, shape=(n_devices, 1), devices=devices)
+    mesh = make_mesh(n_devices, devices=devices)
     first = mesh.data_devices()[0]
     net = rife.IFNet("4.7")
     net.load_state_dict(rife.init_params(0, "4.7"), strict=True)

@@ -648,3 +648,80 @@ def test_rife_train_step_launches_four_k1_and_four_backward(cuda):
     after = warp_kernel.launches, warp_kernel.wide_launches, warp_kernel.backward_launches
     assert tuple(a - b for a, b in zip(after, before)) == (4, 0, 4)
     assert bool(torch.isfinite(loss))
+
+
+# ---- a row band (the space axis of parallel/) -------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("c", [3, 5, 7])
+def test_k1_band_matches_the_twins_band(cuda, c, mode, dtype):
+    g = torch.Generator().manual_seed(c)
+    img = torch.rand(2, 137, 261, c, generator=g).to(cuda, dtype)
+    flow = ((torch.rand(2, 137, 261, 2, generator=g) * 2 - 1) * 9).to(cuda)
+    planes = img.permute(0, 3, 1, 2)
+    whole = warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), mode == "zeros")
+    assert torch.equal(warp_kernel.warp_bilinear(planes, flow.permute(0, 3, 1, 2), mode == "zeros", row0=0), whole)
+    for row0, rows in ((0, 64), (64, 73), (136, 1)):
+        fb = flow[:, row0 : row0 + rows]
+        got = warp_kernel.warp_bilinear(planes, fb.permute(0, 3, 1, 2), mode == "zeros", row0=row0).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, warp_torch(img, fb, mode, row0=row0))
+        assert torch.equal(got, whole.permute(0, 2, 3, 1)[:, row0 : row0 + rows])
+        assert torch.equal(warp(img, fb, mode, row0=row0), got)
+
+
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("img_grad", [True, False])
+def test_backward_band_matches_plain_and_the_bands_sum_to_the_whole(cuda, mode, img_grad):
+    g = torch.Generator().manual_seed(3)
+    img = torch.rand(2, 137, 261, 7, generator=g).to(cuda)
+    flow = ((torch.rand(2, 137, 261, 2, generator=g) * 2 - 1) * 9).to(cuda)
+    grad = (torch.rand(2, 137, 261, 7, generator=g) * 2 - 1).to(cuda)
+    planes = img.permute(0, 3, 1, 2)
+    gi_whole, _ = warp_kernel.warp_bilinear_backward(planes, flow.permute(0, 3, 1, 2), grad.permute(0, 3, 1, 2), mode == "zeros")
+    total = torch.zeros_like(img)
+    for row0, rows in ((0, 64), (64, 73)):
+        fb, gb = flow[:, row0 : row0 + rows], grad[:, row0 : row0 + rows]
+        gi, gf = warp_kernel.warp_bilinear_backward(
+            planes, fb.permute(0, 3, 1, 2), gb.permute(0, 3, 1, 2), mode == "zeros", img_grad, row0=row0
+        )
+        ri, rf = warp_backward_torch(img, fb, gb, mode, row0=row0)
+        _assert_grad_close(gf.permute(0, 2, 3, 1), rf, torch.float32)
+        if img_grad:
+            _assert_grad_close(gi.permute(0, 2, 3, 1), ri, torch.float32)
+            total += gi.permute(0, 2, 3, 1)
+        else:
+            assert gi is None
+    if img_grad:
+        _assert_grad_close(total, gi_whole.permute(0, 2, 3, 1), torch.float32)
+
+
+def test_a_band_that_routes_to_the_wide_kernel_raises(cuda):
+    img = torch.rand(1, 128, 64, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        warp(img, torch.zeros(1, 64, 64, 2, device=cuda), row0=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        warp(img.requires_grad_(), torch.zeros(1, 64, 64, 2, device=cuda), row0=64)
+
+
+def test_rife_on_a_space_split_matches_one_device(cuda):
+    """f32 with TF32 off, as chip_smoke.py phase 73 holds it (with TF32 the
+    two runs' convolutions round their inputs to TF32 and the frames drift
+    apart by ~2e-4)."""
+    params = rife.init_params(0, "4.7")
+    f0, f1 = torch.rand(2, 128, 192, 3, device=cuda), torch.rand(2, 128, 192, 3, device=cuda)
+    t = torch.full((2,), 0.5, device=cuda)
+    one = rife.make_model_fn(params, "4.7", device=cuda)
+    mesh = parallel.make_mesh(2, devices=[cuda] * 2)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = warp_kernel.launches
+        out = parallel.make_sharded_model_fn(lambda d: one, mesh)(f0, f1, t)
+        torch.cuda.synchronize()
+        assert warp_kernel.launches - before == 8  # K1 4 a forward, on each of two bands
+        torch.testing.assert_close(out, one(f0, f1, t), rtol=0, atol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -28,8 +28,14 @@
   1e-6 relative, the gradients within 5e-5 of each tensor's largest
   magnitude (measured 2.4e-6: each shard's convolutions run a batch of 1),
   the updates where the gradient is large.
-* a batch that the policy splits over ``space`` raises: the ``space`` axis
-  is not ported.
+* a batch that the policy splits over ``space`` (b2 x 128x128 on a ``(1,
+  2)`` mesh: two bands of 64 rows) runs RIFE 4.7 through
+  ``make_sharded_model_fn`` and ``make_train_step`` as one device does: the
+  frames within 1e-5 (measured 0), the loss within 1e-6 relative, the
+  gradients within 5e-5 of each tensor's largest magnitude, the updates
+  where the gradient is large; ``make_sharded_pair_fns`` raises there (its
+  models need K2 with a band). ``tests/test_torch_space.py`` holds the rest
+  of the ``space`` axis.
 
 One JAX compile per function (the loss's ``value_and_grad`` and the train
 step), at 64x64.
@@ -243,23 +249,44 @@ def test_space_todo_names_the_roadmap_item():
         parallel.mesh.check_runnable(mesh, (2, 128, 64, 3))
 
 
-def test_space_axis_raises():
+def _tall_batch():
+    rng = np.random.default_rng(10)
+    f0, f1, target = (rng.random((2, 2 * HW, 2 * HW, 3), dtype=np.float32) for _ in range(3))
+    return f0, f1, np.asarray([0.5, 0.25], np.float32), target
+
+
+@pytest.mark.parametrize("entry", ["model_fn", "train_step", "pair_fns"])
+def test_space_axis_raises(entry):
+    """On a ``(1, 2)`` mesh, where the policy splits 128 rows into two bands:
+    the model function and the train step run and match one device; the
+    pair-cached split still raises."""
     mesh = parallel.make_mesh(2, devices=_replicas(2))  # (1, 2): the space axis
     assert dict(mesh.shape) == {"data": 1, "space": 2}
-    tall = torch.zeros(2, 128, 64, 3)
-    net = _port_net()
-    step = parallel.make_train_step(_port_apply, torch.optim.Adam(net.parameters(), lr=LR), mesh, net)
-    with pytest.raises(NotImplementedError, match="space"):
-        step(tall, tall, torch.full((2,), 0.5), tall)
-    fn = parallel.make_sharded_model_fn(lambda d: rife.make_model_fn(rife.init_params(0, "4.7"), "4.7", device=d), mesh)
-    with pytest.raises(NotImplementedError, match="space"):
-        fn(tall, tall, torch.full((2,), 0.5))
-    reuse, _ = parallel.make_sharded_pair_fns(lambda d: m2m.make_pair_fns(m2m.init_params(0), device=d), mesh)
-    with pytest.raises(NotImplementedError, match="space"):
-        reuse(tall, tall)
-    # below the row floor the policy splits the batch only, which runs
-    short = torch.from_numpy(np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32))
-    assert fn(short, short, torch.full((2,), 0.5)).shape == (2, 64, 64, 3)
+    f0, f1, t, target = (torch.from_numpy(a) for a in _tall_batch())
+    assert parallel.frame_sharding(mesh, f0.shape).spec == ("data", "space", None, None)
+    if entry == "model_fn":
+        make = functools.partial(rife.make_model_fn, rife.init_params(0, "4.7"), "4.7")
+        out = parallel.make_sharded_model_fn(lambda d: make(device=d), mesh)(f0, f1, t)
+        torch.testing.assert_close(out, make(device=CPU)(f0, f1, t), rtol=0, atol=1e-5)
+        # below the row floor the policy splits the batch only, which runs
+        short = torch.from_numpy(np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32))
+        assert parallel.make_sharded_model_fn(lambda d: make(device=d), mesh)(short, short, t).shape == (2, 64, 64, 3)
+    elif entry == "train_step":
+        batch = _tall_batch()
+        loss1, grads1, deltas1 = _port_step(parallel.make_mesh(1, devices=_replicas(1)), batch)
+        loss2, grads2, deltas2 = _port_step(mesh, batch)
+        np.testing.assert_allclose(loss2, loss1, rtol=1e-6)
+        _assert_grads_close(grads2, grads1, GRAD_RTOL)
+        n_big = 0
+        for k, g in grads1.items():
+            big = g.abs() > 10 * (GRAD_RTOL * float(g.abs().max()) + GRAD_ATOL)
+            n_big += int(big.sum())
+            torch.testing.assert_close(deltas2[k][big], deltas1[k][big], rtol=0, atol=UPDATE_ATOL)
+        assert n_big > 1000
+    else:
+        reuse, _ = parallel.make_sharded_pair_fns(lambda d: m2m.make_pair_fns(m2m.init_params(0), device=d), mesh)
+        with pytest.raises(NotImplementedError, match="space"):
+            reuse(f0, f1)
 
 
 def test_dryrun_on_cpu_replicas(capsys):
