@@ -487,12 +487,15 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    image's gradient, against ``warp_backward_torch``'s band (phase 48's
    tolerances); the two bands' image gradients summed against the
    whole-frame call's; the second band's ms in turns with the whole
-   frame's and the plain band's, and its bound;
+   frame's, the plain band's and ``aten.grid_sampler_2d_backward`` on the
+   band's grid, and its bound;
 73. space    -- RIFE 4.7 1080p x2 b8 (9 frames) through
    ``make_sharded_model_fn`` and ``run_plan`` on a ``(1, 2)`` mesh of
-   logical replicas of the card against the one-device run: f32 (TF32 off)
-   within 1e-4, bf16 >= 40 dB against the f32 one-device frames, K1 8 a
-   forward (twice 4); frames/s of both in turns, ``run_plan``'s peak memory
+   logical replicas of the card against the one-device run: f32 (TF32 off,
+   cuDNN deterministic) within 1e-4 (recorded too: the (1, 2) run against
+   itself, and both at cuDNN's default), bf16 >= 40 dB against the
+   f32 one-device frames, K1 8 a forward (twice 4) and the backward 0;
+   frames/s of both in turns, ``run_plan``'s peak memory
    and a profile of one forward (idle share) of each;
 74. space train -- a RIFE 4.7 step at b16 x 224x224 f32 (two bands of 128
    rows after the pad) on the ``(1, 2)`` mesh against ``(1, 1)``, TF32 off,
@@ -937,15 +940,15 @@ def backward_vs_plain(img, flow, mode, what, grad_out=None, seed=0):
     return err_i, err_f
 
 
-def grid_sample_backward_call(img, flow, grad_out, padding_mode="border", img_grad=True):
+def grid_sample_backward_call(img, flow, grad_out, padding_mode="border", img_grad=True, row0=0):
     """``aten.grid_sampler_2d_backward`` computing the warp's gradients of
     NHWC ``img`` by ``flow`` for ``grad_out`` on a precomputed grid
-    (``align_corners=True``; the grid's alone without ``img_grad``), in the
-    layout the path holds: the library yardstick, which the port never
-    calls."""
+    (``align_corners=True``; the grid's alone without ``img_grad``; a row
+    band's from ``row0``), in the layout the path holds: the library
+    yardstick, which the port never calls."""
     from comfyui_frame_interpolation_tpu_torch.utils.kernel_compare import library_backward
 
-    return library_backward(img, flow, grad_out, padding_mode == "zeros", img_grad)
+    return library_backward(img, flow, grad_out, padding_mode == "zeros", img_grad, row0=row0)
 
 
 def rife_trainer(device, dtype, mesh=None):
@@ -4901,11 +4904,14 @@ def main() -> int:
                 check(gi is None, "the backward band without the image's gradient returned one")
             if row0 > 0:
                 fbp, gbp = fb.permute(0, 3, 1, 2), gb.permute(0, 3, 1, 2)
+                library = grid_sample_backward_call(img, fb, gb, "border", img_grad, row0=row0)
                 times = in_turns({
                     "band": (lambda: warp_kernel.warp_bilinear_backward(planes, fbp, gbp, False, img_grad, row0=row0), 20),
                     "whole frame": (lambda: warp_kernel.warp_bilinear_backward(planes, fplanes, gplanes, False, img_grad), 20),
                     "plain band": (lambda: warp_backward_torch(img, fb, gb, "border", row0=row0), 5),
+                    "library band": (library, 20),
                 })
+                del library
                 key = f"{list(shape)} f32 rows {row0}-{row0 + rows}" + ("" if img_grad else ", no image gradient")
                 bband_ms[key] = {k: statistics.mean(v) for k, v in times.items()}
                 bband_ms[key]["bound_ms"], bband_ms[key]["bound_by"] = bound(*backward_work(planes, fbp, img_grad))
@@ -4916,6 +4922,7 @@ def main() -> int:
             errs.append(err_s)
         bband_err[f"{list(shape)} f32" + ("" if img_grad else ", no image gradient")] = errs
         del img, flow, grad_out, planes, fplanes, gplanes, gi_whole, gf_whole, contributions, gi_sum
+    bband_main = next(iter(bband_ms))  # C = 7 with the image's gradient
     print(
         f"backward band {card}: " + "; ".join(
             f"{k}: max err grad_img {v[0]:.3g}, grad_flow {v[1]:.3g}" + (f", bands summed vs whole {v[2]:.3g}" if len(v) > 2 else "")
@@ -4932,17 +4939,38 @@ def main() -> int:
     check(mesh_s.shape == {"data": 1, "space": 2}, f"make_mesh(2) of replicas: {mesh_s.shape}")
     sclip = torch.from_numpy(shifted_pattern(9, 1080, 1920, seed=73)).to(dev)
     splan = plan_timestep(9, 2)  # 8 pairs, one batch of 8
-    space_rows, space_out = {}, {}
+    space_rows, space_out, f32_settings = {}, {}, {}
     space_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    space_backward_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         fn1 = rife.make_model_fn(rife.init_params(0, "4.7"), "4.7", fastmode=True, ensemble=False, dtype=dtype, device=dev)
         fn2 = parallel.make_sharded_model_fn(lambda d: fn1, mesh_s)
+        # TF32 off and cuDNN's deterministic algorithms, as phase 74 and the
+        # other sharded phases compare
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
         try:
+            warp_kernel.backward_launches = 0
             one_out, one_n, one_peak = executor_run(run_plan, sclip, splan, fn1, batch_size=8)
             two_out, two_n, two_peak = executor_run(run_plan, sclip, splan, fn2, batch_size=8)
+            space_backward_launches += warp_kernel.backward_launches
+            if dtype == torch.float32:
+                # the (1, 2) run again, then the same runs at cuDNN's default
+                # (which may take a non-deterministic algorithm for the
+                # transposed convolutions, cuDNN's backward-data)
+                two_again, _, _ = executor_run(run_plan, sclip, splan, fn2, batch_size=8)
+                torch.backends.cudnn.deterministic = det
+                one_d, one_d_n, _ = executor_run(run_plan, sclip, splan, fn1, batch_size=8)
+                two_d, two_d_n, _ = executor_run(run_plan, sclip, splan, fn2, batch_size=8)
+                two_d2, _, _ = executor_run(run_plan, sclip, splan, fn2, batch_size=8)
+                check(one_d_n == one_n and two_d_n == two_n, f"RIFE f32 launches at cuDNN's default: {one_d_n}, {two_d_n}")
+                f32_settings = {"deterministic_repeat_max_abs_diff": (two_again - two_out).abs().max().item(),
+                                "default_max_abs_err": (two_d - one_d).abs().max().item(),
+                                "default_repeat_max_abs_diff": (two_d2 - two_d).abs().max().item()}
+                del two_again, one_d, two_d, two_d2
         finally:
+            torch.backends.cudnn.deterministic = det
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
         check(one_n == {"narrow": 4, "wide": 0, "splat": 0} and two_n == {"narrow": 8, "wide": 0, "splat": 0},
               f"RIFE {name} launches: one device {one_n}, the (1, 2) mesh {two_n}; expected K1 4 and twice 4")
@@ -4969,15 +4997,18 @@ def main() -> int:
         torch.cuda.empty_cache()
     f32_err = (space_out["float32"][1] - space_out["float32"][0]).abs().max().item()
     check(f32_err <= 1e-4, f"RIFE f32 on the (1, 2) mesh: max abs {f32_err} from one device, above 1e-4")
+    check(space_backward_launches == 0, f"RIFE inference on the (1, 2) mesh launched the warp's backward {space_backward_launches} times")
     bf16_db = psnr(space_out["bfloat16"][1], space_out["float32"][0])
     bf16_one_db = psnr(space_out["bfloat16"][0], space_out["float32"][0])
     check(bf16_db >= 40.0, f"RIFE bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below 40")
     del space_out, sclip
     print(
         f"space {card}: RIFE 4.7 1080p x2 b8 (9 frames, 8 mids) through make_sharded_model_fn + run_plan on a (1, 2) mesh of "
-        f"replicas of the card, bands {band_rows(1080, 2)} (padded {band_rows(1088, 2)}): f32 (TF32 off) max abs {f32_err:.3g} "
-        f"from one device; bf16 {bf16_db:.2f} dB against the f32 one-device frames (one device bf16 {bf16_one_db:.2f} dB); "
-        f"launches {space_launches} for two run_plan calls (K1 8 a forward); "
+        f"replicas of the card, bands {band_rows(1080, 2)} (padded {band_rows(1088, 2)}): f32 (TF32 off, cuDNN deterministic) "
+        f"max abs {f32_err:.3g} from one device, the (1, 2) run against itself {f32_settings['deterministic_repeat_max_abs_diff']:.3g} "
+        f"(at cuDNN's default {f32_settings['default_max_abs_err']:.3g} and "
+        f"{f32_settings['default_repeat_max_abs_diff']:.3g}); bf16 {bf16_db:.2f} dB against the f32 one-device frames (one device bf16 {bf16_one_db:.2f} dB); "
+        f"launches {space_launches} for two run_plan calls (K1 8 a forward), the backward {space_backward_launches}; "
         + "; ".join(
             f"{name} {key}: {r['frames_per_s']:.2f} frames/s (turns {', '.join(f'{v:.2f}' for v in r['frames_per_s_turns'])}), "
             f"run_plan peak {r['peak_run_plan_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}"
@@ -5177,7 +5208,8 @@ def main() -> int:
                          "max_abs_err": band_err, "ms": band_rows_ms["K1 band"], "whole_frame_ms": band_rows_ms["K1 whole frame"],
                          "plain_ms": band_rows_ms["plain band"], "bound_ms": band_bound[0], "bound_by": band_bound[1],
                          "library_ms": band_rows_ms["grid_sample band"]},
-            "rife_space_2way": {"f32_max_abs_err": f32_err, "bf16_psnr_db": bf16_db, "runs": space_rows},
+            "rife_space_2way": {"f32_max_abs_err": f32_err, "f32_settings": f32_settings, "bf16_psnr_db": bf16_db,
+                                "runs": space_rows},
         },
         {
             "name": "warp_bilinear_wide",
@@ -5260,7 +5292,8 @@ def main() -> int:
             + sum(family_launches["backward"].values()) + space_train_launches["backward"],
             "launches_by_path": {"rife_train": train_launches["backward"], "rife_train_2way": train2_launches["backward"],
                                  "m2m_train": m2m_train_launches["backward"], **family_launches["backward"],
-                                 "rife_space_2way": 0, "rife_train_space_2way": space_train_launches["backward"]},
+                                 "rife_space_2way": space_backward_launches,
+                                 "rife_train_space_2way": space_train_launches["backward"]},
             "max_abs_err": bwd_err,
             "shape": f"{list(MAIN_SHAPE)} f32, f32 flow, border",
             "ms": bwd_main["ms"],
@@ -5277,7 +5310,10 @@ def main() -> int:
                                     **row["backward_shares"].get("warp_bilinear_backward", {})}
                              for name, row in family_rows.items()},
             "family_largest": family_times.get("warp_bilinear_backward"),
-            "row_band": {"max_abs_err": bband_err, "by_shape": bband_ms},
+            "row_band": {"shape": bband_main, "max_abs_err": bband_err, "ms": bband_ms[bband_main]["band"],
+                         "whole_frame_ms": bband_ms[bband_main]["whole frame"], "plain_ms": bband_ms[bband_main]["plain band"],
+                         "bound_ms": bband_ms[bband_main]["bound_ms"], "bound_by": bband_ms[bband_main]["bound_by"],
+                         "library_ms": bband_ms[bband_main]["library band"], "by_shape": bband_ms},
             "rife_train_space_2way": {"loss": loss_s, "loss_one_device": loss1, "grad_rel_err": s_rel, "grad_rel_worst": s_worst,
                                       "scaled_weights_grad_rel": p_rel, "small_grad_rel_err": ss_rel, "training": space_train_rows},
         },

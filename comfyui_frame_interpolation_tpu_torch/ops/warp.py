@@ -70,6 +70,11 @@ def _clip(v: torch.Tensor, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(v, v.new_zeros(())), v.new_full((), hi))
 
 
+def _compute_dtype(img: torch.Tensor) -> torch.dtype:
+    """The twins' coordinate and sum type: f32, or f64 for an f64 image."""
+    return torch.float64 if img.dtype == torch.float64 else torch.float32
+
+
 def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
     """``img[n, iy, ix, :]`` for integer index maps of shape ``[N, H', W']``."""
     n, h, w, c = img.shape
@@ -84,13 +89,15 @@ def bilinear_sample(
     """Bilinear sample ``img`` (NHWC) at unnormalized pixel coordinates
     ``sx, sy`` (``[N, H', W']``), matching torch ``grid_sample``'s corner cases.
 
-    Coordinates and weights are f32; the four taps are summed in f32 in the
-    order y0x0, y0x1, y1x0, y1x1 and cast once to the image dtype. ``border``
+    Coordinates and weights are f32 (f64 for an f64 image); the four taps
+    are summed in that type in the order y0x0, y0x1, y1x0, y1x1 and cast
+    once to the image dtype. ``border``
     clamps the coordinate (not only the index) before the weights; ``zeros``
     gives taps outside the frame weight 0."""
     n, h, w, c = img.shape
-    sx = sx.float()
-    sy = sy.float()
+    ct = _compute_dtype(img)
+    sx = sx.to(ct)
+    sy = sy.to(ct)
     if padding_mode == "border":
         sx = _clip(sx, w - 1.0)
         sy = _clip(sy, h - 1.0)
@@ -128,22 +135,24 @@ def bilinear_sample(
     ix0, ix1 = index(x0, w - 1), index(x1, w - 1)
     iy0, iy1 = index(y0, h - 1), index(y1, h - 1)
     out = (
-        _gather_2d(img, ix0, iy0).float() * w00[..., None]
-        + _gather_2d(img, ix1, iy0).float() * w01[..., None]
-        + _gather_2d(img, ix0, iy1).float() * w10[..., None]
-        + _gather_2d(img, ix1, iy1).float() * w11[..., None]
+        _gather_2d(img, ix0, iy0).to(ct) * w00[..., None]
+        + _gather_2d(img, ix1, iy0).to(ct) * w01[..., None]
+        + _gather_2d(img, ix0, iy1).to(ct) * w10[..., None]
+        + _gather_2d(img, ix1, iy1).to(ct) * w11[..., None]
     )
     return out.to(img.dtype)
 
 
 def warp_torch(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border", row0: int = 0) -> torch.Tensor:
     """Plain PyTorch warp (the kernel's twin). The grid is built in f32 from an
-    integer iota; bf16/f16 flows are not rounded into a low-precision grid.
-    The flow's rows are the source's rows ``row0`` on (a row band)."""
+    integer iota; bf16/f16 flows are not rounded into a low-precision grid
+    (an f64 image takes an f64 grid). The flow's rows are the source's rows
+    ``row0`` on (a row band)."""
     n, h, w, _ = flow.shape
-    gx = torch.arange(w, dtype=torch.float32, device=flow.device).view(1, 1, w)
-    gy = (torch.arange(h, dtype=torch.float32, device=flow.device) + row0).view(1, h, 1)
-    return bilinear_sample(img, gx + flow[..., 0].float(), gy + flow[..., 1].float(), padding_mode)
+    ct = _compute_dtype(img)
+    gx = torch.arange(w, dtype=ct, device=flow.device).view(1, 1, w)
+    gy = (torch.arange(h, dtype=ct, device=flow.device) + row0).view(1, h, 1)
+    return bilinear_sample(img, gx + flow[..., 0].to(ct), gy + flow[..., 1].to(ct), padding_mode)
 
 
 def warp_backward_torch(
@@ -155,13 +164,14 @@ def warp_backward_torch(
     ``torch.autograd.grad``. bf16/f16 inputs are taken to f32 first and the
     gradients cast once to the inputs' dtypes, as the kernel sums in f32 and
     rounds once (autograd through a bf16 twin would sum the image's gradient
-    in bf16). For a row band (``row0``), ``grad_img`` covers the whole
-    source: the band's part of the sum."""
+    in bf16); f64 stays f64. For a row band (``row0``), ``grad_img`` covers
+    the whole source: the band's part of the sum."""
     with torch.enable_grad():
-        x = img.detach().float().requires_grad_()
-        f = flow.detach().float().requires_grad_()
+        ct = _compute_dtype(img)
+        x = img.detach().to(ct).requires_grad_()
+        f = flow.detach().to(ct).requires_grad_()
         out = warp_torch(x, f, padding_mode, row0)
-        gi, gf = torch.autograd.grad(out, (x, f), grad_out.float())
+        gi, gf = torch.autograd.grad(out, (x, f), grad_out.to(ct))
     return gi.to(img.dtype), gf.to(flow.dtype)
 
 

@@ -19,7 +19,7 @@ without one raises ``NotImplementedError`` naming itself and the
 ``ROADMAP.md`` item that would port it. Nothing is gathered or run band by
 band unless a rule says so. The rules are those RIFE 4.7 needs:
 
-* row-local ops, band by band: elementwise arithmetic, ``abs``, ``clamp``,
+* row-local ops, band by band: elementwise arithmetic, ``clamp``,
   ``sigmoid``, ``leaky_relu``, casts, channel and batch ``cat``, slices of
   the channel and batch dimensions, ``permute``, the ``expand_as`` of a
   tensor without rows (the timestep map), and ``pixel_shuffle``, which
@@ -40,9 +40,7 @@ band unless a rule says so. The rules are those RIFE 4.7 needs:
 * the warp: the source is gathered whole onto each band's device (a
   differentiable ``cat``, so autograd adds each band's image gradient back
   into the producing bands), the flow stays local and the kernel warps the
-  band from its first row (``row0``);
-* ``sum`` and ``mean`` over every element (the training loss): the bands'
-  partial sums added on the value's device.
+  band from its first row (``row0``).
 
 Every rule computes what the op computes on the whole tensor: the
 convolutions and resizes the same sums, possibly by other algorithms
@@ -53,7 +51,6 @@ replicas of one device split the work as separate devices would.
 from __future__ import annotations
 
 import inspect
-import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -155,9 +152,6 @@ class RowBands:
     def requires_grad(self) -> bool:
         return any(b.requires_grad for b in self.bands)
 
-    def numel(self) -> int:
-        return math.prod(self.shape)
-
     def __repr__(self) -> str:
         return (f"RowBands(shape={tuple(self.shape)}, dtype={self.dtype}, rows along {self.axis}, "
                 f"bands {[(s, b.shape[self.axis], str(b.device)) for s, b in zip(self.starts, self.bands)]})")
@@ -212,15 +206,6 @@ class RowBands:
 
     def clamp(self, *args, **kwargs):
         return self._call(torch.Tensor.clamp, *args, **kwargs)
-
-    def abs(self):
-        return self._call(torch.Tensor.abs)
-
-    def sum(self, *args, **kwargs):
-        return self._call(torch.Tensor.sum, *args, **kwargs)
-
-    def mean(self, *args, **kwargs):
-        return self._call(torch.Tensor.mean, *args, **kwargs)
 
     def float(self):
         return self._call(torch.Tensor.float)
@@ -527,19 +512,11 @@ def _warp_rule(func, args, kwargs):
     return flow.like(out)
 
 
-def _reduce(func, args, kwargs):
-    x = args[0]
-    if len(args) > 1 or set(kwargs) - {"dtype"}:
-        raise _no_rule(f"{_name(func)} over some dimensions")
-    total = sum(torch.sum(b, **kwargs).to(x.device) for b in x.bands)
-    return total if func in (torch.sum, torch.Tensor.sum) else total / x.numel()
-
-
 _RULES: Dict[Callable, Callable] = {}
 for _f in (
-    torch.add, torch.sub, torch.mul, torch.div, torch.rsub, torch.neg, torch.abs, torch.clamp, torch.sigmoid,
-    torch.Tensor.add, torch.Tensor.sub, torch.Tensor.mul, torch.Tensor.div, torch.Tensor.neg, torch.Tensor.abs,
-    torch.Tensor.clamp, torch.Tensor.sigmoid, torch.Tensor.__radd__, torch.Tensor.__rsub__, torch.Tensor.__rmul__,
+    torch.add, torch.sub, torch.mul, torch.div, torch.rsub, torch.neg, torch.clamp, torch.sigmoid,
+    torch.Tensor.add, torch.Tensor.sub, torch.Tensor.mul, torch.Tensor.div, torch.Tensor.neg, torch.Tensor.clamp,
+    torch.Tensor.sigmoid, torch.Tensor.__radd__, torch.Tensor.__rsub__, torch.Tensor.__rmul__,
     torch.Tensor.__rtruediv__, torch.Tensor.float, torch.Tensor.contiguous, torch.Tensor.detach, F.leaky_relu,
 ):
     _RULES[_f] = _elementwise
@@ -556,8 +533,4 @@ _RULES.update({
     F.interpolate: _interpolate,
     F.pad: _pad,
     warp: _warp_rule,
-    torch.sum: _reduce,
-    torch.mean: _reduce,
-    torch.Tensor.sum: _reduce,
-    torch.Tensor.mean: _reduce,
 })

@@ -17,13 +17,12 @@ own parameters), and the loss is the mean over the whole batch, taken on the
 first device: the gradient equals the one-device gradient.
 
 Where :func:`~.mesh.frame_sharding` splits rows over ``space``, each shard's
-frames and target are also cut into row bands over the shard's row of
-devices (``parallel.space``), the model runs band by band (RIFE 4.7; any
-other model raises at its first op without a row-band rule), and the loss
-is the bands' and shards' partial sums of ``|pred - target|`` added on the
-first device over the whole batch's element count: the mean over the whole
-batch, whose gradient autograd sums over every band and shard back through
-the same parameter copies.
+frames are also cut into row bands over the shard's row of devices
+(``parallel.space``), the model runs band by band (RIFE 4.7; any other
+model raises at its first op without a row-band rule), and the bands are
+gathered on the first device in global row order (a differentiable
+``cat``) before the same loss: autograd sums the gradient over every band
+and shard back through the same parameter copies.
 """
 
 from __future__ import annotations
@@ -82,12 +81,7 @@ def make_train_step(
         for d, (a, b, tt) in zip(mesh.data_devices(), _split_args((f0, f1, t), mesh, rows)):
             on_d = {k: v.to(d) for k, v in state.items()}
             preds.append(torch.func.functional_call(applied, on_d, (a, b, tt)))
-        if rows:
-            # the mean over the whole batch from the bands' partial sums
-            parts = zip(preds, (part[0] for part in _split_args((target,), mesh, rows)))
-            loss = sum((p - tg).abs().sum().to(first) for p, tg in parts) / target.numel()
-        else:
-            loss = l1_loss(_gather(preds, mesh), target.to(first))
+        loss = l1_loss(_gather(preds, mesh), target.to(first))
         loss.backward()
         optimizer.step()
         return loss.detach()

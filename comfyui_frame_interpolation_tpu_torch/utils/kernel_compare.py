@@ -530,15 +530,17 @@ def backward_section(dev, old_fn: Callable, card: str) -> Dict:
     return result
 
 
-def library_backward(img, flow, grad_out, zeros: bool, img_grad: bool = True) -> Callable:
+def library_backward(img, flow, grad_out, zeros: bool, img_grad: bool = True, row0: int = 0) -> Callable:
     """``aten.grid_sampler_2d_backward`` computing the warp's gradients of
     NHWC ``img`` by ``flow`` for ``grad_out`` on a precomputed grid (the
-    grid's alone without ``img_grad``): the library yardstick, which the
-    port never calls."""
+    grid's alone without ``img_grad``; with ``row0``, a row band's: the
+    flow's and ``grad_out``'s rows are the source's ``row0`` on): the
+    library yardstick, which the port never calls."""
     planes, gplanes = img.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2)
     n, _, h, w = planes.shape
+    rows = flow.shape[1]
     gx = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
-    gy = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    gy = torch.arange(row0, row0 + rows, device=img.device, dtype=torch.float32).view(1, rows, 1) + flow[..., 1].float()
     grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1).to(img.dtype)
     return lambda: torch.ops.aten.grid_sampler_2d_backward(gplanes, planes, grid, 0, 0 if zeros else 1, True, [img_grad, True])
 

@@ -33,7 +33,8 @@
   ``make_sharded_model_fn`` and ``make_train_step`` as one device does: the
   frames within 1e-5 (measured 0), the loss within 1e-6 relative, the
   gradients within 5e-5 of each tensor's largest magnitude, the updates
-  where the gradient is large; ``make_sharded_pair_fns`` raises there (its
+  where the gradient is large (the step also at b2 x 136x64, whose pad
+  lands in the last band); ``make_sharded_pair_fns`` raises there (its
   models need K2 with a band). ``tests/test_torch_space.py`` holds the rest
   of the ``space`` axis.
 
@@ -249,17 +250,18 @@ def test_space_todo_names_the_roadmap_item():
         parallel.mesh.check_runnable(mesh, (2, 128, 64, 3))
 
 
-def _tall_batch():
+def _tall_batch(hw=(2 * HW, 2 * HW)):
     rng = np.random.default_rng(10)
-    f0, f1, target = (rng.random((2, 2 * HW, 2 * HW, 3), dtype=np.float32) for _ in range(3))
+    f0, f1, target = (rng.random((2, *hw, 3), dtype=np.float32) for _ in range(3))
     return f0, f1, np.asarray([0.5, 0.25], np.float32), target
 
 
-@pytest.mark.parametrize("entry", ["model_fn", "train_step", "pair_fns"])
+@pytest.mark.parametrize("entry", ["model_fn", "train_step", "train_step_padded", "pair_fns"])
 def test_space_axis_raises(entry):
     """On a ``(1, 2)`` mesh, where the policy splits 128 rows into two bands:
-    the model function and the train step run and match one device; the
-    pair-cached split still raises."""
+    the model function and the train step run and match one device (the
+    step also at 136x64, split 128 + 8 rows, where RIFE's pad to 192 lands
+    in the last band); the pair-cached split still raises."""
     mesh = parallel.make_mesh(2, devices=_replicas(2))  # (1, 2): the space axis
     assert dict(mesh.shape) == {"data": 1, "space": 2}
     f0, f1, t, target = (torch.from_numpy(a) for a in _tall_batch())
@@ -271,8 +273,8 @@ def test_space_axis_raises(entry):
         # below the row floor the policy splits the batch only, which runs
         short = torch.from_numpy(np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32))
         assert parallel.make_sharded_model_fn(lambda d: make(device=d), mesh)(short, short, t).shape == (2, 64, 64, 3)
-    elif entry == "train_step":
-        batch = _tall_batch()
+    elif entry.startswith("train_step"):
+        batch = _tall_batch((136, HW)) if entry == "train_step_padded" else _tall_batch()
         loss1, grads1, deltas1 = _port_step(parallel.make_mesh(1, devices=_replicas(1)), batch)
         loss2, grads2, deltas2 = _port_step(mesh, batch)
         np.testing.assert_allclose(loss2, loss1, rtol=1e-6)
