@@ -481,7 +481,13 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    whole frame's rows; ``row0=0`` at full height bit for bit the
    whole-frame call; the second bf16 band's ms in turns with the whole
    frame's, the twin's band and ``F.grid_sample`` on the band's grid, and
-   its bound; a band that routes to the wide kernel raises;
+   its bound; then the wide kernel's band (``row0``) at M2M 1080p b2's
+   feature warps (``M2M_SPACE_WIDE_SHAPES``: C = 32-384, zeros, f32 and
+   bf16) and FILM's widest level ``[4, 135, 240, 960]`` (bf16, border),
+   each in the rows its frame's two bands give it (``frame_band_spans``):
+   each band bit for bit its twin's band, the routed ``ops.warp.warp``
+   band and the whole frame's rows, ``row0=0`` bit for bit the whole-frame
+   call, and the second bf16 band timed as K1's;
 72. backward band -- the warp's backward kernel on the training step's
    ``[32, 256, 256, 7]`` f32 in two bands of 128 rows, and C = 3 without the
    image's gradient, against ``warp_backward_torch``'s band (phase 48's
@@ -504,10 +510,26 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    every weight times 1 + 2^-22; the same at b2 x 128x128 within 5e-5 alone;
    the updates where |g| is over half its largest within 1e-7; K1 and the
    backward 8 each (twice 4); steps/s of both in turns (TF32 defaults);
-75. pair fns -- ``make_sharded_pair_fns`` (M2M) on the ``(1, 2)`` mesh
-   still raises ``NotImplementedError`` naming ``ROADMAP.md``'s item.
+75. pair fns -- M2M 1080p x2 b2 (3 frames) through
+   ``make_sharded_pair_fns`` and ``run_plan_pair_cached`` on the ``(1, 2)``
+   mesh of replicas against one device: f32 (TF32 off, cuDNN
+   deterministic) within 1e-4, and each run against itself (K2's f32
+   atomics), bf16 >= 40 dB against the f32 one-device frames, the
+   launches read (K1 8, wide 32, K2 2 a pair batch: twice one device's 4,
+   16, 1); frames/s of both in turns, peak memory and a profile of one
+   pair batch (idle share) of each; a GMFSS pair split still raises
+   ``NotImplementedError`` naming ``ROADMAP.md``'s item;
+76. K2 band -- K2 with a band of sources (``row0``, ``out_rows``): M2M's
+   ``[16, 1088, 1920, 4]`` f32 and bf16 splat in the two bands of the
+   ``(1, 2)`` mesh, each a whole-frame f32 partial, against the twin's band;
+   their sum against the whole-frame kernel and the twin (phase 7's
+   tolerances), ``row0=0`` against the whole-frame call; the second bf16
+   band's ms in turns with the whole frame's, the twin's band and one
+   ``aten.grid_sampler_2d_backward`` on the band's grid
+   (``library_splat(..., row0=, out_rows=)``), and its bound (the band's
+   values and flow in, the whole-frame f32 partial out).
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73, 74 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -535,7 +557,10 @@ runs of phase 44 under ``launches_by_path`` as ``rife_streaming`` and
 73's and 74's runs on the ``space`` axis as ``rife_space_2way`` and
 ``rife_train_space_2way`` (K1 and the backward; K1's ``row_band`` and
 ``rife_space_2way`` and the backward's ``row_band`` and
-``rife_train_space_2way`` hold phases 71-74's numbers). CAIN, Sepconv,
+``rife_train_space_2way`` hold phases 71-74's numbers), and phase 75's
+M2M run as ``m2m_space_2way`` (K1, the wide kernel and K2; the wide
+kernel's ``row_band`` and ``m2m_space_2way`` and K2's ``row_band`` hold
+phases 71, 75 and 76's numbers). CAIN, Sepconv,
 FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
@@ -663,11 +688,15 @@ KERNEL_BODIES = {
 # frames' image and encoder feature stacks, [2N, H, W, 3 + 4]
 TRAIN_BATCH, TRAIN_HW = 16, (224, 224)
 TRAIN_WARP_SHAPE = (32, 256, 256, 7)
-# the space axis (phases 71-75): RIFE 1080p b8's warp, split by a (1, 2) mesh
+# the space axis (phases 71-76): RIFE 1080p b8's warp, split by a (1, 2) mesh
 # into bands of 576 and 512 rows, and the b16 x 224^2 training step's warp
 # (padded to 256 rows), into two of 128
 SPACE_WARP_SHAPE = (16, 1088, 1920, 7)
 SPACE_TRAIN_WARP_SHAPE = (32, 256, 256, 7)
+# M2M 1080p b2 (padded to 1088 rows) on the (1, 2) mesh: its wide feature
+# warps, zeros (the flow net's level-0 C = 32, the encoder-decoder's C = 48
+# to 384), and its splat (SPLAT_SHAPE) in the frame's bands of 576 + 512 rows
+M2M_SPACE_WIDE_SHAPES = ((2, 272, 480, 32), (2, 544, 960, 48), (2, 272, 480, 96), (2, 136, 240, 192), (2, 68, 120, 384))
 TRAIN_CHECK_HW = (256, 256)  # phase 49: card against CPU at b2
 # M2M training (256x256 crops of Vimeo-90K's 448x256 triplets, a multiple of
 # M2M's pad of 64): phase 53 card against CPU at b2, phase 54 timing at b8;
@@ -778,6 +807,40 @@ def splat_work(planes, flow_planes):
     n, c, h, w = planes.shape
     nbytes = 2 * planes.numel() * planes.element_size() + flow_planes.numel() * flow_planes.element_size()
     return nbytes, n * h * w * (8 * c + 12)
+
+
+def splat_band_work(planes, flow_planes, out_rows):
+    """Bytes and f32 operations of K2 on a band of sources (``[N, C, Hb,
+    W]`` planes) into the whole frame's ``out_rows``: the band's values and
+    flow read once, the f32 partial ``[N, C, out_rows, W]`` written once;
+    the operations of :func:`splat_work` for the band's sources."""
+    n, c, _, w = planes.shape
+    nbytes, flops = splat_work(planes, flow_planes)
+    return nbytes - planes.numel() * planes.element_size() + n * c * out_rows * w * 4, flops
+
+
+def frame_band_spans(rows, frame_rows, n=2):
+    """The ``(first row, rows)`` of each band of a tensor of ``rows`` rows
+    inside a model whose frame of ``frame_rows`` rows splits into ``n``
+    bands (``parallel.space.band_rows``): each band's start scaled by the
+    tensor's ratio to the frame (M2M's 1088 rows split 576 + 512, its
+    level of 272 rows 144 + 128)."""
+    from comfyui_frame_interpolation_tpu_torch.parallel.space import band_rows
+
+    starts = [a * rows // frame_rows for a, _ in band_rows(frame_rows, n)]
+    return [(a, b - a) for a, b in zip(starts, starts[1:] + [rows])]
+
+
+def band_grid(flow_band, row0, rows):
+    """``F.grid_sample``'s grid (``align_corners=True``) that samples a
+    frame of ``rows`` rows where a band of flow from row ``row0`` samples it
+    (the library yardstick of a warp's band)."""
+    import torch
+
+    n, h, w, _ = flow_band.shape
+    gx = torch.arange(w, device=flow_band.device, dtype=torch.float32).view(1, 1, -1) + flow_band[..., 0].float()
+    gy = torch.arange(row0, row0 + h, device=flow_band.device, dtype=torch.float32).view(1, -1, 1) + flow_band[..., 1].float()
+    return torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (rows - 1)) - 1.0], -1)
 
 
 def warp_bound(img, flow):
@@ -4838,10 +4901,7 @@ def main() -> int:
             row0, rows = spans[1]
             fband = flow[:, row0 : row0 + rows]
             fbp = fband.permute(0, 3, 1, 2)
-            gx = torch.arange(SPACE_WARP_SHAPE[2], device=dev, dtype=torch.float32).view(1, 1, -1) + fband[..., 0]
-            gy = torch.arange(row0, row0 + rows, device=dev, dtype=torch.float32).view(1, -1, 1) + fband[..., 1]
-            grid = torch.stack([gx * (2.0 / (SPACE_WARP_SHAPE[2] - 1)) - 1.0, gy * (2.0 / (SPACE_WARP_SHAPE[1] - 1)) - 1.0], -1)
-            grid = grid.to(dtype)
+            grid = band_grid(fband, row0, SPACE_WARP_SHAPE[1]).to(dtype)
             times = in_turns({
                 "K1 band": (lambda: warp_kernel.warp_bilinear(planes, fbp, False, row0=row0), 50),
                 "K1 whole frame": (lambda: warp_kernel.warp_bilinear(planes, fplanes, False), 50),
@@ -4850,22 +4910,72 @@ def main() -> int:
             })
             band_rows_ms = {k: statistics.mean(v) for k, v in times.items()}
             band_bound = bound(*warp_work(planes, fbp))
-            del fbp, grid, gx, gy
+            del fbp, grid
         del img, flow, planes, fplanes, ref, whole, whole0, got, routed, twin
-    # a band that the wide kernel would take raises: it has no band
-    wide_img = torch.rand((1, 128, 64, 16), generator=g).to(dev, torch.bfloat16)
-    try:
-        warp(wide_img, torch.zeros((1, 64, 64, 2), device=dev), row0=64)
-        check(False, "a row band of C = 16 bf16 (the wide kernel's route) did not raise")
-    except NotImplementedError as e:
-        check("ROADMAP.md Queue 1 item" in str(e), f"the wide kernel's band raised {e}")
-    del wide_img
     print(
         f"K1 band {card}: {list(SPACE_WARP_SHAPE)} in bands {spans}, f32 and bf16 border, bf16 zeros: each band bit for bit its "
         f"twin's band and the whole frame's rows (max err {band_err}), row0=0 at full height bit for bit the whole-frame call; "
         f"the second band bf16: " + ", ".join(f"{k} {v:.4f} ms" for k, v in band_rows_ms.items())
         + f"; its bound {band_bound[0]:.4f} ms ({band_bound[1]}), K1 at {100 * band_bound[0] / band_rows_ms['K1 band']:.1f} % "
-        f"of it; phase {time.perf_counter() - t0:.1f} s",
+        f"of it",
+        flush=True,
+    )
+    # the wide kernel's band: M2M 1080p b2's feature warps (zeros) and FILM's
+    # widest level (border), each in the rows that the frame's two bands give
+    # it on a (1, 2) mesh; the second bf16 band timed in turns with the whole
+    # frame, the twin's band and F.grid_sample on the band's grid
+    wide_band_err, wide_band_ms = 0.0, {}
+    wide_band_cases = [(shape, 1088, "zeros", (torch.float32, torch.bfloat16)) for shape in M2M_SPACE_WIDE_SHAPES]
+    wide_band_cases.append((FILM_WARP_SHAPES[1], 1080, "border", (torch.bfloat16,)))
+    for shape, frame_rows, mode, dtypes in wide_band_cases:
+        wspans = frame_band_spans(shape[1], frame_rows)
+        flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=6.0)).to(dev)
+        for dtype in dtypes:
+            img = torch.rand(shape, generator=g).to(dev, dtype)
+            planes, fplanes, zeros = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), mode == "zeros"
+            check(warp_kernel.route(planes.shape, planes.stride(), dtype) == "wide", f"{list(shape)} {dtype} does not route to the wide kernel")
+            whole = warp_kernel.warp_bilinear_wide(planes, fplanes, zeros)
+            whole0 = warp_kernel.warp_bilinear_wide(planes, fplanes, zeros, row0=0)
+            torch.cuda.synchronize()
+            check(torch.equal(whole0, whole), f"the wide kernel with row0=0 at full height {list(shape)} {dtype}: not bit for bit the whole-frame call")
+            for row0, rows in wspans:
+                fband = flow[:, row0 : row0 + rows]
+                got = warp_kernel.warp_bilinear_wide(planes, fband.permute(0, 3, 1, 2), zeros, row0=row0).permute(0, 2, 3, 1)
+                routed = warp(img, fband, mode, row0=row0)
+                twin = warp_torch(img, fband, mode, row0=row0)
+                torch.cuda.synchronize()
+                err = (got.float() - twin.float()).abs().max().item()
+                wide_band_err = max(wide_band_err, err)
+                check(torch.equal(got, twin) and torch.equal(routed, twin) and torch.equal(got, whole.permute(0, 2, 3, 1)[:, row0 : row0 + rows]),
+                      f"wide band rows {row0}-{row0 + rows} of {list(shape)} {dtype} {mode}: max err {err} against the twin's band, "
+                      f"not bit for bit (or not the whole frame's rows)")
+            if dtype == torch.bfloat16:
+                row0, rows = wspans[1]
+                fband = flow[:, row0 : row0 + rows]
+                fbp = fband.permute(0, 3, 1, 2)
+                grid_band = band_grid(fband, row0, shape[1]).to(dtype)
+                times = in_turns({
+                    "wide band": (lambda: warp_kernel.warp_bilinear_wide(planes, fbp, zeros, row0=row0), 50),
+                    "wide whole frame": (lambda: warp_kernel.warp_bilinear_wide(planes, fplanes, zeros), 50),
+                    "plain band": (lambda: warp_torch(img, fband, mode, row0=row0), 3),
+                    "grid_sample band": (lambda: torch.nn.functional.grid_sample(planes, grid_band, padding_mode=mode, align_corners=True), 20),
+                })
+                key = f"{list(shape)} bf16 {mode}, rows {row0}-{row0 + rows}"
+                wide_band_ms[key] = {k: statistics.mean(v) for k, v in times.items()}
+                wide_band_ms[key]["bound_ms"], wide_band_ms[key]["bound_by"] = bound(*warp_work(planes, fbp))
+                del fbp, grid_band
+            del img, planes, fplanes, whole, whole0, got, routed, twin
+        del flow
+    wide_band_main = next(k for k in wide_band_ms if k.startswith(str(list(M2M_SPACE_WIDE_SHAPES[1]))))
+    print(
+        f"wide band {card}: M2M's {[list(s) for s in M2M_SPACE_WIDE_SHAPES]} zeros f32 and bf16 and FILM's {list(FILM_WARP_SHAPES[1])} "
+        f"bf16 border, each in the bands of its frame's (1, 2) split: each band bit for bit its twin's band and the whole frame's "
+        f"rows (max err {wide_band_err}), row0=0 at full height bit for bit the whole-frame call; the second bf16 band: "
+        + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {m:.4f} ms" for n, m in v.items() if n != "bound_by")
+            + f" ({v['bound_by']}), the kernel at {100 * v['bound_ms'] / v['wide band']:.1f} % of its bound"
+            for k, v in wide_band_ms.items()
+        ) + f"; phase {time.perf_counter() - t0:.1f} s",
         flush=True,
     )
 
@@ -5120,16 +5230,169 @@ def main() -> int:
         flush=True,
     )
 
-    # ---- 75. the pair-cached split on a (1, 2) mesh still raises -----------------------
-    reuse_s, _ = parallel.make_sharded_pair_fns(lambda d: m2m.make_pair_fns(m2m.init_params(0), device=d), mesh_s)
+    # ---- 75. M2M 1080p through the pair-cached split on a (1, 2) mesh of replicas ---------
+    # 3 frames x2 at b2 (two pairs, one reuse and one infer call), the rows in
+    # bands of 576 + 504 (the replicate pad to 1088 in the second) against
+    # one device: f32 with TF32 off and cuDNN's deterministic algorithms
+    # (each run also against itself: K2's f32 atomics sum in an order that
+    # changes from run to run), bf16 against the f32 one-device frames;
+    # launches read, frames/s in turns, peak memory and a profile of each
+    t0 = time.perf_counter()
+    mclip75 = torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=75)).to(dev)
+    mplan75 = plan_timestep(3, 2)
+    m2m_space_rows, m2m_space_out, m2m_f32_settings = {}, {}, {}
+    m2m_space_launches = {"narrow": 0, "wide": 0, "splat": 0}
+    m2m_params75 = m2m.init_params(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        pair1 = m2m.make_pair_fns(m2m_params75, dtype=dtype, device=dev)
+        pair2 = parallel.make_sharded_pair_fns(lambda d: pair1, mesh_s)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        try:
+            one_out, one_n, one_peak = executor_run(run_plan_pair_cached, mclip75, mplan75, *pair1, batch_size=2)
+            two_out, two_n, two_peak = executor_run(run_plan_pair_cached, mclip75, mplan75, *pair2, batch_size=2)
+            if dtype == torch.float32:
+                two_again, _, _ = executor_run(run_plan_pair_cached, mclip75, mplan75, *pair2, batch_size=2)
+                one_again, _, _ = executor_run(run_plan_pair_cached, mclip75, mplan75, *pair1, batch_size=2)
+                m2m_f32_settings = {"split_repeat_max_abs_diff": (two_again - two_out).abs().max().item(),
+                                    "one_device_repeat_max_abs_diff": (one_again - one_out).abs().max().item()}
+                del two_again, one_again
+        finally:
+            torch.backends.cudnn.deterministic = det
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        check(one_n == {"narrow": 4, "wide": 16, "splat": 1} and two_n == {"narrow": 8, "wide": 32, "splat": 2},
+              f"M2M {name} launches: one device {one_n}, the (1, 2) mesh {two_n}; expected K1 4, wide 16, K2 1 and twice that")
+        check(tuple(two_out.shape) == (5, 1080, 1920, 3) and bool(torch.isfinite(two_out).all()),
+              f"M2M {name} on the (1, 2) mesh: {tuple(two_out.shape)}, finite {bool(torch.isfinite(two_out).all())}")
+        m2m_space_launches = {k: m2m_space_launches[k] + two_n[k] for k in m2m_space_launches}
+        m2m_space_out[name] = (one_out, two_out)
+        # frames/s of one pair batch each (a reuse and an infer at b2), in
+        # turns, and each one's profile
+        f0 = torch.from_numpy(np.random.default_rng(0).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+        f1 = torch.from_numpy(np.random.default_rng(1).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+        tt = torch.full((2,), 0.5, device=dev)
+        calls = {"one device": pair1, "(1, 2) mesh": pair2}
+
+        def pair_call(fns):
+            return lambda a, b, t: fns[1](a, b, fns[0](a, b), t)
+
+        fps = {key: [] for key in calls}
+        for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
+            fps[key].append(2 / measure(pair_call(calls[key]), f0, f1, tt, iters=3, rounds=3))
+        totals = {key: {} for key in calls}
+        for key, fns in calls.items():
+            profile_forward(f"M2M 1080p {name} b2 (reuse + infer), {key}", pair_call(fns), f0, f1, tt, card=card,
+                            unit="pair batch", totals=totals[key])
+        m2m_space_rows[name] = {
+            key: {"frames_per_s": statistics.mean(fps[key]), "frames_per_s_turns": fps[key],
+                  "peak_run_plan_pair_cached_bytes": one_peak if key == "one device" else two_peak,
+                  "idle_share": totals[key]["idle_share"], "device_ms": totals[key]["device_ms"],
+                  "wall_ms": totals[key]["wall_ms"], "kernels": totals[key]["kernels"]}
+            for key in fps
+        }
+        del pair1, pair2, calls, f0, f1, tt
+        torch.cuda.empty_cache()
+    m2m_f32_err = (m2m_space_out["float32"][1] - m2m_space_out["float32"][0]).abs().max().item()
+    check(m2m_f32_err <= 1e-4, f"M2M f32 on the (1, 2) mesh: max abs {m2m_f32_err} from one device, above 1e-4")
+    m2m_bf16_db = psnr(m2m_space_out["bfloat16"][1], m2m_space_out["float32"][0])
+    m2m_bf16_one_db = psnr(m2m_space_out["bfloat16"][0], m2m_space_out["float32"][0])
+    check(m2m_bf16_db >= 40.0, f"M2M bf16 on the (1, 2) mesh: {m2m_bf16_db:.2f} dB against the f32 one-device frames, below 40")
+    del m2m_space_out, mclip75
+    # a pair-cached family without the rules it needs still raises
+    reuse_s, _ = parallel.make_sharded_pair_fns(lambda d: gmfss.make_pair_fns(gmfss.init_params(0), device=d), mesh_s)
     tall = torch.zeros((2, 128, 128, 3), device=dev)
     try:
         reuse_s(tall, tall)
-        check(False, "make_sharded_pair_fns (M2M) on a (1, 2) mesh at 128 rows did not raise")
+        check(False, "make_sharded_pair_fns (GMFSS) on a (1, 2) mesh at 128 rows did not raise")
     except NotImplementedError as e:
-        check("ROADMAP.md Queue 1 item" in str(e), f"make_sharded_pair_fns on a (1, 2) mesh raised {e}")
-        print(f"space: make_sharded_pair_fns (M2M) on a (1, 2) mesh raises NotImplementedError: {e}", flush=True)
+        check("has no row-band rule" in str(e) and "ROADMAP.md Queue 1 item" in str(e), f"make_sharded_pair_fns (GMFSS) on a (1, 2) mesh raised {e}")
+        gmfss_raised = str(e)
     del reuse_s, tall
+    print(
+        f"space {card}: M2M 1080p x2 b2 (3 frames, 2 mids) through make_sharded_pair_fns + run_plan_pair_cached on a (1, 2) mesh "
+        f"of replicas of the card, bands {band_rows(1080, 2)} (padded {band_rows(1088, 2)}): f32 (TF32 off, cuDNN deterministic) "
+        f"max abs {m2m_f32_err:.3g} from one device, the (1, 2) run against itself "
+        f"{m2m_f32_settings['split_repeat_max_abs_diff']:.3g}, one device against itself "
+        f"{m2m_f32_settings['one_device_repeat_max_abs_diff']:.3g}; bf16 {m2m_bf16_db:.2f} dB against the f32 one-device frames "
+        f"(one device bf16 {m2m_bf16_one_db:.2f} dB); launches {m2m_space_launches} for the two runs (K1 8, wide 32, K2 2 a "
+        f"pair batch); " + "; ".join(
+            f"{name} {key}: {r['frames_per_s']:.2f} frames/s (turns {', '.join(f'{v:.2f}' for v in r['frames_per_s_turns'])}), "
+            f"run_plan_pair_cached peak {r['peak_run_plan_pair_cached_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, "
+            f"{r['kernels']} kernels"
+            for name, rows_ in m2m_space_rows.items() for key, r in rows_.items()
+        ) + f"; GMFSS's split raises: {gmfss_raised}; phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
+
+    # ---- 76. K2 with a band of sources: M2M 1080p b2's splat in two partials -------------
+    # [16, 1088, 1920, 4] in the bands 576 + 512 of the (1, 2) mesh, each
+    # band's sources splat from their first row into a whole-frame f32
+    # partial; the partials' sum against the whole-frame kernel and the
+    # twin (phase 7's tolerances); the second band timed in turns with the
+    # whole frame, the twin's band and the library call on its grid
+    t0 = time.perf_counter()
+    splat_spans = band_rows(SPLAT_SHAPE[1], 2)
+    ho = SPLAT_SHAPE[1]
+    sband_err, sband_ms = {}, {}
+    sflow = torch.from_numpy(warp_cases.smooth_flow(*SPLAT_SHAPE[:3], amp=8.0)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        vals = torch.rand(SPLAT_SHAPE, generator=g).to(dev, dtype)
+        planes, fplanes = vals.permute(0, 3, 1, 2), sflow.permute(0, 3, 1, 2)
+        whole = softsplat_kernel.softsplat_bilinear(planes, fplanes)
+        same = softsplat_kernel.softsplat_bilinear(planes, fplanes, row0=0, out_rows=ho)
+        total = torch.zeros_like(whole)
+        errs = []
+        for row0, rows in splat_spans:
+            vb, fb = planes[:, :, row0 : row0 + rows], fplanes[:, :, row0 : row0 + rows]
+            part = softsplat_kernel.softsplat_bilinear(vb, fb, row0=row0, out_rows=ho)
+            twin = softsplat_torch(vals[:, row0 : row0 + rows].float(), sflow[:, row0 : row0 + rows], row0=row0, out_rows=ho)
+            torch.cuda.synchronize()
+            e = (part.permute(0, 2, 3, 1) - twin).abs().max().item()
+            check(e <= SPLAT_F32_ATOL, f"K2 band rows {row0}-{row0 + rows} of {list(SPLAT_SHAPE)} {dtype}: max err {e} against the twin's band")
+            errs.append(e)
+            total += part
+            del part, twin
+        ref = softsplat_torch(vals, sflow)
+        torch.cuda.synchronize()
+        e_same = (same - whole).abs().max().item()
+        e_whole = (total - whole).abs().max().item()
+        check(max(e_same, e_whole) <= SPLAT_F32_ATOL,
+              f"K2's bands at {list(SPLAT_SHAPE)} {dtype}: row0=0 {e_same}, the partials' sum {e_whole} from the whole-frame kernel")
+        summed = total.permute(0, 2, 3, 1).to(dtype)
+        if dtype == torch.float32:
+            e_twin = (summed - ref).abs().max().item()
+            check(e_twin <= SPLAT_F32_ATOL, f"K2's partials summed at {list(SPLAT_SHAPE)} f32: max err {e_twin} against the twin")
+        else:
+            e_twin = (summed.float() - ref.float()).abs().max().item()
+            check(bf16_ulp_ok(summed, ref), f"K2's partials summed at {list(SPLAT_SHAPE)} bf16: max err {e_twin}, above one ulp of the twin")
+        sband_err[f"{list(SPLAT_SHAPE)} {str(dtype).split('.')[-1]}"] = {
+            "band_vs_twin_band": max(errs), "row0_0_vs_whole": e_same, "sum_vs_whole_kernel": e_whole, "sum_vs_twin": e_twin}
+        if dtype == torch.bfloat16:
+            row0, rows = splat_spans[1]
+            vb, fb = planes[:, :, row0 : row0 + rows], fplanes[:, :, row0 : row0 + rows]
+            library = library_splat(vals[:, row0 : row0 + rows], sflow[:, row0 : row0 + rows], row0=row0, out_rows=ho)
+            times = in_turns({
+                "K2 band": (lambda: softsplat_kernel.softsplat_bilinear(vb, fb, row0=row0, out_rows=ho), 20),
+                "K2 whole frame": (lambda: softsplat_kernel.softsplat_bilinear(planes, fplanes), 20),
+                "plain band": (lambda: softsplat_torch(vals[:, row0 : row0 + rows], sflow[:, row0 : row0 + rows], row0=row0, out_rows=ho), 3),
+                "library band": (library, 10),
+            })
+            sband_ms = {k: statistics.mean(v) for k, v in times.items()}
+            sband_ms["bound_ms"], sband_ms["bound_by"] = bound(*splat_band_work(vb, fb, ho))
+            sband_ms["whole_frame_bound_ms"] = bound(*splat_work(planes, fplanes))[0]
+            del library, vb, fb
+        del vals, planes, fplanes, whole, same, total, ref, summed
+    del sflow
+    torch.cuda.empty_cache()
+    print(
+        f"K2 band {card}: {list(SPLAT_SHAPE)} (smooth flow, amp 8) in bands {splat_spans}, each band's partial a whole-frame f32 "
+        f"[16, 4, {ho}, 1920]: " + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.3g}" for n, v in e.items()) for k, e in sband_err.items())
+        + f"; the second band bf16: " + ", ".join(f"{k} {v:.4f} ms" for k, v in sband_ms.items() if k != "bound_by")
+        + f" ({sband_ms['bound_by']}), K2's band at {100 * sband_ms['bound_ms'] / sband_ms['K2 band']:.1f} % of its bound; "
+        f"phase {time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
 
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
@@ -5162,7 +5425,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-75 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-76 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -5177,7 +5440,7 @@ def main() -> int:
             + train_launches["narrow"] + rife_sharded_launches["narrow"] + m2m_sharded_launches["narrow"]
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
-            + space_train_launches["narrow"],
+            + space_train_launches["narrow"] + m2m_space_launches["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -5190,7 +5453,7 @@ def main() -> int:
                 "rife_sharded_2way": rife_sharded2_launches["narrow"], "m2m_sharded_2way": m2m_sharded2_launches["narrow"],
                 "rife_train_2way": train2_launches["narrow"], "m2m_train": m2m_train_launches["narrow"],
                 **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
-                "rife_train_space_2way": space_train_launches["narrow"],
+                "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -5221,7 +5484,7 @@ def main() -> int:
             + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"] + atm_launches["wide"]
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
-            + sum(family_launches["wide"].values()),
+            + sum(family_launches["wide"].values()) + m2m_space_launches["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -5230,7 +5493,7 @@ def main() -> int:
                 "rife_streaming": rife_stream_launches["wide"], "m2m_streaming": m2m_stream_launches["wide"],
                 "momo": momo_launches["wide"], "rife_train": train_launches["wide"], "m2m_sharded": m2m_sharded_launches["wide"],
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
-                **family_launches["wide"],
+                **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -5249,6 +5512,13 @@ def main() -> int:
             },
             "stmfnet_backwarp_designs": design_times,
             "per_forward": per_forward["warp_bilinear_wide"],
+            "row_band": {"shape": wide_band_main, "max_abs_err": wide_band_err, "ms": wide_band_ms[wide_band_main]["wide band"],
+                         "whole_frame_ms": wide_band_ms[wide_band_main]["wide whole frame"],
+                         "plain_ms": wide_band_ms[wide_band_main]["plain band"], "bound_ms": wide_band_ms[wide_band_main]["bound_ms"],
+                         "bound_by": wide_band_ms[wide_band_main]["bound_by"],
+                         "library_ms": wide_band_ms[wide_band_main]["grid_sample band"], "by_shape": wide_band_ms},
+            "m2m_space_2way": {"f32_max_abs_err": m2m_f32_err, "f32_settings": m2m_f32_settings, "bf16_psnr_db": m2m_bf16_db,
+                               "runs": m2m_space_rows},
         },
         {
             "name": "softsplat",
@@ -5258,7 +5528,7 @@ def main() -> int:
             "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
-            + m2m_train_launches["splat"] + sum(family_launches["splat"].values()),
+            + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"],
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -5266,7 +5536,7 @@ def main() -> int:
                 "m2m_streaming": m2m_stream_launches["splat"], "momo": momo_launches["splat"],
                 "rife_train": train_launches["splat"], "m2m_sharded": m2m_sharded_launches["splat"],
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
-                **family_launches["splat"],
+                **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -5282,6 +5552,11 @@ def main() -> int:
             "stmfnet_shapes": stmf_splat_times,
             "xvfi_shapes": xsplat_times,
             "per_forward": per_forward["softsplat"],
+            "row_band": {"shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, rows {splat_spans[1][0]}-{sum(splat_spans[1])} into the whole "
+                                  f"frame's f32 partial", "max_abs_err": sband_err, "ms": sband_ms["K2 band"],
+                         "whole_frame_ms": sband_ms["K2 whole frame"], "plain_ms": sband_ms["plain band"],
+                         "bound_ms": sband_ms["bound_ms"], "bound_by": sband_ms["bound_by"],
+                         "whole_frame_bound_ms": sband_ms["whole_frame_bound_ms"], "library_ms": sband_ms["library band"]},
         },
         {
             "name": "warp_bilinear_backward",

@@ -47,6 +47,15 @@
 
 // The output buffer is f32 and zeroed by the caller; the kernel only adds.
 //
+// A band of sources (the space axis of parallel/, which splits a frame's
+// rows over devices): the values and the flow cover h source rows from
+// global row row0, the output is the whole frame's ho rows. Source (x, y)
+// adds into the corners of (x + fx, row0 + y + fy); the drops and the +-2h
+// clamp use ho, so every kept corner is the whole frame's, and the bands'
+// partial sums add up to the whole-frame splat up to the order of the f32
+// atomics. The grid tiles the band's sources; only splat_corners' row and
+// height change. row0 = 0 with ho = h is the whole-frame kernel.
+//
 // The splat's gradient (softsplat_backward_kernel, cfi_softsplat_backward)
 // replaces no Pallas kernel: the JAX package trains through XLA's VJP of the
 // scatter-add in comfyui_frame_interpolation_tpu/ops/softsplat.py
@@ -219,8 +228,10 @@ template <typename TI, typename TF>
 __global__ void __launch_bounds__(kThreads)
     softsplat_kernel(const TI* __restrict__ in, const TF* __restrict__ flow,
                      float* __restrict__ out, int64_t c, int64_t h, int64_t w,
-                     Strides si, Strides sf, Strides so) {
-  // grid (ceil(w / kTileW), ceil(h / kTileH), n), block (kTileW, kTileH)
+                     int64_t ho, int64_t row0, Strides si, Strides sf,
+                     Strides so) {
+  // grid (ceil(w / kTileW), ceil(h / kTileH), n), block (kTileW, kTileH):
+  // the band's h source rows, global rows row0 .. row0 + h of the output's ho
   __shared__ scatter::MergeTile<kMergeC> tile;
 
   const int64_t x = static_cast<int64_t>(blockIdx.x) * kTileW + threadIdx.x;
@@ -233,7 +244,7 @@ __global__ void __launch_bounds__(kThreads)
   if (live) {
     float fx, fy;
     load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
-    cn = splat_corners(x, y, w, h, fx, fy);
+    cn = splat_corners(x, row0 + y, w, ho, fx, fy);
     live = cn.live;
   }
   const int64_t ix0 = cn.ix0, iy0 = cn.iy0;
@@ -280,32 +291,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The shape of one splat: n images of h source rows (global rows row0 ..
+// row0 + h of an output of ho rows) and w columns, c channels.
+struct SplatShape {
+  int64_t n, c, h, w, ho, row0;
+};
+
 template <typename TI, typename TF>
-void launch_typed(const void* in, const void* flow, float* out, int64_t n,
-                  int64_t c, int64_t h, int64_t w, Strides si, Strides sf,
-                  Strides so, cudaStream_t stream) {
-  const dim3 blocks(static_cast<unsigned int>((w + kTileW - 1) / kTileW),
-                    static_cast<unsigned int>((h + kTileH - 1) / kTileH),
-                    static_cast<unsigned int>(n));
+void launch_typed(const void* in, const void* flow, float* out,
+                  const SplatShape& z, Strides si, Strides sf, Strides so,
+                  cudaStream_t stream) {
+  const dim3 blocks(static_cast<unsigned int>((z.w + kTileW - 1) / kTileW),
+                    static_cast<unsigned int>((z.h + kTileH - 1) / kTileH),
+                    static_cast<unsigned int>(z.n));
   softsplat_kernel<TI, TF><<<blocks, dim3(kTileW, kTileH), 0, stream>>>(
-      static_cast<const TI*>(in), static_cast<const TF*>(flow), out, c, h, w,
-      si, sf, so);
+      static_cast<const TI*>(in), static_cast<const TF*>(flow), out, z.c, z.h,
+      z.w, z.ho, z.row0, si, sf, so);
 }
 
 template <typename TI>
 int launch_flow(const void* in, const void* flow, float* out, int flow_dtype,
-                int64_t n, int64_t c, int64_t h, int64_t w, Strides si,
-                Strides sf, Strides so, cudaStream_t stream) {
+                const SplatShape& z, Strides si, Strides sf, Strides so,
+                cudaStream_t stream) {
   switch (flow_dtype) {
     case kF32:
-      launch_typed<TI, float>(in, flow, out, n, c, h, w, si, sf, so, stream);
+      launch_typed<TI, float>(in, flow, out, z, si, sf, so, stream);
       return 0;
     case kBF16:
-      launch_typed<TI, __nv_bfloat16>(in, flow, out, n, c, h, w, si, sf, so,
-                                      stream);
+      launch_typed<TI, __nv_bfloat16>(in, flow, out, z, si, sf, so, stream);
       return 0;
     case kF16:
-      launch_typed<TI, __half>(in, flow, out, n, c, h, w, si, sf, so, stream);
+      launch_typed<TI, __half>(in, flow, out, z, si, sf, so, stream);
       return 0;
   }
   return -1;
@@ -845,19 +861,28 @@ int launch_backward_flow(const BackwardArgs& a, int flow_dtype,
 }  // namespace
 
 // Splat `in` ([n, c, h, w] by element strides) by `flow` ([n, 2, h, w],
-// channel 0 = x, 1 = y), adding into the zeroed f32 `out` ([n, c, h, w]).
-// Dtype codes: 0 f32, 1 bf16, 2 f16. Returns the launch's cudaGetLastError()
-// (0 on success), -1 for an unknown dtype code, or -2 when n exceeds the
-// grid's 65535 limit. Launches on `stream` and does not synchronise.
+// channel 0 = x, 1 = y), adding into the zeroed f32 `out` ([n, c, ho, w]).
+// A row band: the sources are global rows row0 .. row0 + h of a frame of ho
+// rows, source (x, y) adds into the corners of (x + fx, row0 + y + fy), and
+// the drops and the +-2h clamp use ho, so `out` holds the band's part of
+// the whole frame's splat (row0 = 0, ho = h: the whole frame). Dtype codes:
+// 0 f32, 1 bf16, 2 f16. Returns the launch's cudaGetLastError() (0 on
+// success), -1 for an unknown dtype code, or -2 when n exceeds the grid's
+// 65535 limit, or the band does not lie within the output's rows. Launches
+// on `stream` and does not synchronise.
 extern "C" int cfi_softsplat(const void* in, const void* flow, void* out,
                              int in_dtype, int flow_dtype, int64_t n,
-                             int64_t c, int64_t h, int64_t w, int64_t si_n,
-                             int64_t si_c, int64_t si_h, int64_t si_w,
-                             int64_t sf_n, int64_t sf_c, int64_t sf_h,
-                             int64_t sf_w, int64_t so_n, int64_t so_c,
-                             int64_t so_h, int64_t so_w, void* stream) {
+                             int64_t c, int64_t h, int64_t w, int64_t ho,
+                             int64_t row0, int64_t si_n, int64_t si_c,
+                             int64_t si_h, int64_t si_w, int64_t sf_n,
+                             int64_t sf_c, int64_t sf_h, int64_t sf_w,
+                             int64_t so_n, int64_t so_c, int64_t so_h,
+                             int64_t so_w, void* stream) {
+  if (row0 < 0 || row0 + h > ho) return -2;
   if (n * h * w == 0) return 0;
-  if (n > 65535 || h > 65535) return -2;  // grid z limit (and the wrapper's h)
+  // grid z limit (and the wrapper's h); corners' rows are ints in the merge
+  if (n > 65535 || h > 65535 || ho > 0x3fffffff) return -2;
+  const SplatShape z{n, c, h, w, ho, row0};
   const Strides si{si_n, si_c, si_h, si_w};
   const Strides sf{sf_n, sf_c, sf_h, sf_w};
   const Strides so{so_n, so_c, so_h, so_w};
@@ -866,16 +891,13 @@ extern "C" int cfi_softsplat(const void* in, const void* flow, void* out,
   int rc;
   switch (in_dtype) {
     case kF32:
-      rc = launch_flow<float>(in, flow, op, flow_dtype, n, c, h, w, si, sf, so,
-                              s);
+      rc = launch_flow<float>(in, flow, op, flow_dtype, z, si, sf, so, s);
       break;
     case kBF16:
-      rc = launch_flow<__nv_bfloat16>(in, flow, op, flow_dtype, n, c, h, w,
-                                      si, sf, so, s);
+      rc = launch_flow<__nv_bfloat16>(in, flow, op, flow_dtype, z, si, sf, so, s);
       break;
     case kF16:
-      rc = launch_flow<__half>(in, flow, op, flow_dtype, n, c, h, w, si, sf,
-                               so, s);
+      rc = launch_flow<__half>(in, flow, op, flow_dtype, z, si, sf, so, s);
       break;
     default:
       rc = -1;

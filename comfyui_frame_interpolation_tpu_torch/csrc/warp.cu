@@ -106,7 +106,9 @@
 // row0 + y + flow_y; the border clamp and the zeros test use hs. The grid
 // tiles the band's output; only bilinear_taps' row changes. With row0 = 0
 // and hs = h every sum is the whole-frame kernel's. The wide kernel takes
-// no band.
+// the same band: its flat run of pixels counts the band's n * h * w output
+// pixels, each stages the taps of source row row0 + y, and the output
+// offset keeps the band's y.
 //
 // Which kernel a call takes is decided in Python
 // (ops/cuda/warp_kernel.py:route), from C, the dtype and the channel stride.
@@ -520,10 +522,12 @@ __global__ void __launch_bounds__(kWideThreads)
     warp_bilinear_wide_kernel(const TI* __restrict__ img,
                               const TF* __restrict__ flow,
                               TI* __restrict__ out, int64_t npix, int64_t h,
-                              int64_t w, int vecs, int block_pixels,
-                              Strides si, Strides sf, Strides so) {
+                              int64_t w, int64_t hs, int64_t row0, int vecs,
+                              int block_pixels, Strides si, Strides sf,
+                              Strides so) {
   // grid (ceil(npix / block_pixels)); a block takes the flat run of pixels
-  // [g0, g0 + block_pixels) of all n * h * w, row-major
+  // [g0, g0 + block_pixels) of all n * h * w output pixels, row-major (the
+  // band's h rows, which sample the source's hs rows from row row0 on)
   constexpr int kN = Vec<TI, V>::kN;
   constexpr int kUnroll = V >= 16 ? 2 : 4;
   __shared__ TapOffsets s_taps[kWidePixels];
@@ -542,7 +546,7 @@ __global__ void __launch_bounds__(kWideThreads)
     const int64_t y = row - b * h;
     float fx, fy;
     load_flow(flow + b * sf.n + y * sf.h + x * sf.w, sf.c, fx, fy);
-    const Taps t = bilinear_taps<ZEROS>(x, y, fx, fy, h, w, si.h, si.w);
+    const Taps t = bilinear_taps<ZEROS>(x, row0 + y, fx, fy, hs, w, si.h, si.w);
     const int64_t ib = b * si.n;
     s_taps[i] = TapOffsets{ib + t.o00, ib + t.o01, ib + t.o10, ib + t.o11};
     s_weights[i] = make_float4(t.w00, t.w01, t.w10, t.w11);
@@ -999,16 +1003,16 @@ void launch_body(const TI* ip, const TF* fp, TI* op, Body body,
   const int v = static_cast<int>(vecs);
   if (vb == 16) {
     warp_bilinear_wide_kernel<TI, TF, ZEROS, 16><<<blocks, kWideThreads, 0, l.stream>>>(
-        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+        ip, fp, op, npix, l.h, l.w, l.hs, l.row0, v, block_pixels, l.si, l.sf, l.so);
   } else if (vb == 8) {
     warp_bilinear_wide_kernel<TI, TF, ZEROS, 8><<<blocks, kWideThreads, 0, l.stream>>>(
-        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+        ip, fp, op, npix, l.h, l.w, l.hs, l.row0, v, block_pixels, l.si, l.sf, l.so);
   } else if (vb == 4) {
     warp_bilinear_wide_kernel<TI, TF, ZEROS, 4><<<blocks, kWideThreads, 0, l.stream>>>(
-        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+        ip, fp, op, npix, l.h, l.w, l.hs, l.row0, v, block_pixels, l.si, l.sf, l.so);
   } else if constexpr (sizeof(TI) == 2) {
     warp_bilinear_wide_kernel<TI, TF, ZEROS, 2><<<blocks, kWideThreads, 0, l.stream>>>(
-        ip, fp, op, npix, l.h, l.w, v, block_pixels, l.si, l.sf, l.so);
+        ip, fp, op, npix, l.h, l.w, l.hs, l.row0, v, block_pixels, l.si, l.sf, l.so);
   }
 }
 
@@ -1104,19 +1108,21 @@ extern "C" int cfi_warp_bilinear(
                             stream));
 }
 
-// The same warp by the wide kernel. `img` and `out` must have channel stride
-// 1 (channels_last); their batch, row and pixel strides are free. Same return
-// codes as cfi_warp_bilinear, and -2 also when n * h * w exceeds 2^31 - 1 or
-// c exceeds 2^28.
+// The same warp by the wide kernel, with the same row band (h output rows
+// from source row row0 of the image's hs). `img` and `out` must have channel
+// stride 1 (channels_last); their batch, row and pixel strides are free. Same
+// return codes as cfi_warp_bilinear, and -2 also when n * h * w exceeds
+// 2^31 - 1 or c exceeds 2^28.
 extern "C" int cfi_warp_bilinear_wide(
     const void* img, const void* flow, void* out, int img_dtype,
     int flow_dtype, int zeros, int64_t n, int64_t c, int64_t h, int64_t w,
-    int64_t si_n, int64_t si_h, int64_t si_w, int64_t sf_n, int64_t sf_c,
-    int64_t sf_h, int64_t sf_w, int64_t so_n, int64_t so_h, int64_t so_w,
-    void* stream) {
+    int64_t hs, int64_t row0, int64_t si_n, int64_t si_h, int64_t si_w,
+    int64_t sf_n, int64_t sf_c, int64_t sf_h, int64_t sf_w, int64_t so_n,
+    int64_t so_h, int64_t so_w, void* stream) {
+  if (row0 < 0 || row0 + h > hs) return -2;
   return launch(img, flow, out, img_dtype, flow_dtype, zeros != 0, kWide,
-                make_launch(n, c, h, w, h, 0, si_n, 1, si_h, si_w, sf_n, sf_c,
-                            sf_h, sf_w, so_n, 1, so_h, so_w, stream));
+                make_launch(n, c, h, w, hs, row0, si_n, 1, si_h, si_w, sf_n,
+                            sf_c, sf_h, sf_w, so_n, 1, so_h, so_w, stream));
 }
 
 // The warp's gradient: given `grad_out` (the forward output's gradient,

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..ops.costvol import costvol_func
 from ..ops.cuda.warp_kernel import route_counts
@@ -324,7 +325,11 @@ def _repeat_branches(x: torch.Tensor) -> torch.Tensor:
     """``x.repeat_interleave(BRANCH, 0)`` written in one pass into
     ``channels_last`` memory, where ``repeat_interleave`` would return
     NCHW-contiguous memory: the metrics' image warps then take K1's tiled
-    body and their NHWC consumers read contiguous pixels."""
+    body and their NHWC consumers read contiguous pixels. A value held as
+    row bands (``parallel.space.RowBands``) takes the row-band rule of
+    ``parallel/``, which repeats each band so."""
+    if has_torch_function((x,)):
+        return handle_torch_function(_repeat_branches, (x,), x)
     out = torch.empty(
         (x.shape[0] * BRANCH, *x.shape[1:]), dtype=x.dtype, device=x.device, memory_format=torch.channels_last
     )

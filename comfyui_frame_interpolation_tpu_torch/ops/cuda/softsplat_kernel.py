@@ -22,6 +22,13 @@ source reads the output's gradient at its own four corners and writes only
 its own pixel), so it takes no atomics and no zeroed buffer, and two
 launches give the same bits.
 
+K2 takes a band of sources (``row0``, ``out_rows``; the ``space`` axis of
+``parallel/``): the values and the flow cover ``h`` source rows from global
+row ``row0``, the output is the whole frame's ``out_rows`` rows, the
+band's partial sum. The drops and the clamp use the whole frame's height,
+so the bands' partial sums add up to the whole-frame splat up to the order
+of the f32 atomics. The backward takes no band.
+
 ``launches`` counts the launches of K2 and ``backward_launches`` those of the
 backward kernel, so that a run can show that its main path went through
 them.
@@ -54,7 +61,7 @@ def _kernel():
     fn.restype = ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 16
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 18
         + [ctypes.c_void_p]
     )
     return fn
@@ -70,27 +77,43 @@ def _backward_kernel():
     return fn
 
 
-def softsplat_bilinear(ten_in: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def softsplat_bilinear(
+    ten_in: torch.Tensor, flow: torch.Tensor, row0: int = 0, out_rows: Optional[int] = None
+) -> torch.Tensor:
     """Forward-splat ``ten_in`` ``[N, C, H, W]`` by ``flow`` ``[N, 2, H, W]``
     (channel 0 = x, 1 = y) on the card, bilinear, dropping corners off the
     frame and sources with a non-finite target.
 
+    A band of sources: with ``row0`` and ``out_rows``, ``ten_in`` and
+    ``flow`` are the global rows ``row0`` to ``row0 + H`` of a frame of
+    ``out_rows`` rows, source ``(x, y)`` lands at ``(x + fx, row0 + y +
+    fy)``, and the result ``[N, C, out_rows, W]`` is the band's part of the
+    whole frame's splat.
+
     Any strides are taken (NCHW-contiguous, ``channels_last``, permuted
     views). The result is float32, with the strides ``torch.zeros_like``
-    gives ``ten_in``; the kernel launches on the current stream and nothing
-    synchronises."""
+    gives ``ten_in`` (for a band, ``channels_last`` where ``ten_in``'s
+    channels are contiguous); the kernel launches on the current stream and
+    nothing synchronises."""
     global launches
     check_planes_and_flow("softsplat_bilinear", ten_in, flow, _GRAD_HINT)
     n, c, h, w = ten_in.shape
-    out = torch.zeros_like(ten_in, dtype=torch.float32)
-    if out.numel() == 0:
+    ho = h if out_rows is None else out_rows
+    if not 0 <= row0 <= ho - h:
+        raise ValueError(f"softsplat_bilinear: a band of {h} rows from row {row0} does not lie within {ho} output rows")
+    if ho == h:
+        out = torch.zeros_like(ten_in, dtype=torch.float32)
+    else:
+        fmt = torch.channels_last if ten_in.is_contiguous(memory_format=torch.channels_last) else torch.contiguous_format
+        out = torch.empty((n, c, ho, w), dtype=torch.float32, device=ten_in.device, memory_format=fmt).zero_()
+    if ten_in.numel() == 0:
         return out
     with torch.cuda.device(ten_in.device):
         stream = torch.cuda.current_stream(ten_in.device).cuda_stream
         rc = _kernel()(
             ten_in.data_ptr(), flow.data_ptr(), out.data_ptr(),
             DTYPE_CODES[ten_in.dtype], DTYPE_CODES[flow.dtype],
-            n, c, h, w, *ten_in.stride(), *flow.stride(), *out.stride(),
+            n, c, h, w, ho, row0, *ten_in.stride(), *flow.stride(), *out.stride(),
             stream,
         )
     if rc != 0:

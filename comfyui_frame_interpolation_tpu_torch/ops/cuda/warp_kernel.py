@@ -29,11 +29,11 @@ into a zeroed f32 buffer ``[N, H, W, Cp]`` (:func:`padded_channels`); the
 taps and the output's gradient are read 4 channels at a time, in the vectors
 :func:`vector_bytes` picks.
 
-K1 and the backward kernel take a row band (``row0``): the flow, the output
-and the output's gradient cover ``h`` rows from source row ``row0`` on,
-and the image and its gradient the whole source (the ``space`` axis of
-``parallel/``). The wide kernel takes none: a band that :func:`route`
-sends to it raises (:func:`check_wide_band`).
+All three kernels take a row band (``row0``): the flow, the output and
+the output's gradient cover ``h`` rows from source row ``row0`` on, and
+the image and its gradient the whole source (the ``space`` axis of
+``parallel/``). A band goes to the kernel that :func:`route` names for its
+image, K1 or the wide kernel, as a whole frame does.
 
 ``launches`` counts the launches of K1, ``wide_launches`` those of the
 wide kernel and ``backward_launches`` those of the backward kernel, so that
@@ -55,7 +55,6 @@ __all__ = [
     "WIDE_MIN_BYTES",
     "WarpFunction",
     "backward_launches",
-    "check_wide_band",
     "launches",
     "padded_channels",
     "route",
@@ -74,9 +73,6 @@ backward_launches = 0
 # what a direct call of a forward wrapper with an input that needs a
 # gradient is told
 _GRAD_HINT = "call ops.warp.warp, whose autograd Function (WarpFunction) has the backward kernel"
-
-# what a row band that the wide kernel would take is told
-WIDE_BAND_TODO = "the wide warp kernel takes no row band: ROADMAP.md Queue 1 item 3 (its second step)"
 
 # a pixel of this many bytes or more, or of a whole number of 16-byte
 # vectors, takes the wide kernel (placed on an H100 by
@@ -112,14 +108,6 @@ def route_counts(channels: Sequence[int], dtype: torch.dtype) -> Dict[str, int]:
     for c in channels:
         counts["wide" if route((1, c, 1, 1), (c, 1, c, c), dtype) == "wide" else "narrow"] += 1
     return counts
-
-
-def check_wide_band(img_rows: int, flow_rows: int, row0: int) -> None:
-    """Raise ``NotImplementedError`` for a row band (``row0`` not 0, or a
-    flow of other rows than the image's): the wide kernel has no band, and
-    such a warp takes neither K1 nor the twin in its place."""
-    if row0 != 0 or flow_rows != img_rows:
-        raise NotImplementedError(f"{WIDE_BAND_TODO}; a band of {flow_rows} of {img_rows} rows from row {row0}")
 
 
 def _check_band(what: str, img: torch.Tensor, flow: torch.Tensor, row0: int, *grad_hint: str) -> None:
@@ -171,7 +159,7 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _wide_kernel():
-    return _bind("cfi_warp_bilinear_wide", 14)
+    return _bind("cfi_warp_bilinear_wide", 16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,10 +202,12 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False, ro
     return out
 
 
-def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False) -> torch.Tensor:
+def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = False, row0: int = 0) -> torch.Tensor:
     """:func:`warp_bilinear` by the wide-channel kernel, for ``channels_last``
     features (FILM's, C = 64 to 960; M2M's, C = 32 to 384; IFRNet's and
-    AMT's, C = 20 to 54; RIFE 4.0's Contextnet, C = 16 to 128).
+    AMT's, C = 20 to 54; RIFE 4.0's Contextnet, C = 16 to 128), with the
+    same row band (``row0``: the flow's rows from source row ``row0`` of
+    ``img``'s).
 
     The kernel reads each pixel's channels as contiguous vectors, so ``img``
     must have channel stride 1 (``img.stride(1) == 1``, as a
@@ -226,14 +216,16 @@ def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = Fals
     first. Batch, row and pixel strides are free: the vector width is the
     widest of 16, 8 and 4 bytes that divides the pixel's bytes, the strides
     and the base addresses, and a channel slice with an odd start is read an
-    element at a time. The output is a new ``channels_last`` tensor. The
-    kernel launches on the current stream and nothing synchronises."""
+    element at a time. The output is a new ``channels_last`` tensor of the
+    band's rows. The kernel launches on the current stream and nothing
+    synchronises."""
     global wide_launches
-    check_planes_and_flow("warp_bilinear_wide", img, flow, _GRAD_HINT)
-    n, c, h, w = img.shape
+    _check_band("warp_bilinear_wide", img, flow, row0, _GRAD_HINT)
+    n, c, hs, w = img.shape
+    h = flow.shape[2]
     if c > 1 and img.stride(1) != 1:
         img = img.contiguous(memory_format=torch.channels_last)  # the one documented copy
-    out = torch.empty(img.shape, dtype=img.dtype, device=img.device, memory_format=torch.channels_last)
+    out = torch.empty((n, c, h, w), dtype=img.dtype, device=img.device, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
     si, so = img.stride(), out.stride()
@@ -241,7 +233,7 @@ def warp_bilinear_wide(img: torch.Tensor, flow: torch.Tensor, zeros: bool = Fals
         rc = _wide_kernel()(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
             DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype], int(bool(zeros)),
-            n, c, h, w, si[0], si[2], si[3], *flow.stride(), so[0], so[2], so[3],
+            n, c, h, w, hs, row0, si[0], si[2], si[3], *flow.stride(), so[0], so[2], so[3],
             _stream(img),
         )
     if rc != 0:
@@ -311,7 +303,7 @@ class WarpFunction(torch.autograd.Function):
     """The warp of ``[N, C, H, W]`` planes by ``[N, 2, H, W]`` flow planes
     (or a row band of them from source row ``row0``) with a gradient: the
     forward launches the kernel that :func:`route` names (K1 or the wide
-    kernel, which raises for a band), the backward
+    kernel), the backward
     :func:`warp_bilinear_backward`. Neither gives way to the plain twin: a
     kernel that does not build or launch raises."""
 
@@ -324,8 +316,7 @@ class WarpFunction(torch.autograd.Function):
         # Function is what differentiates them
         x, f = img.detach(), flow.detach()
         if route(x.shape, x.stride(), x.dtype, prefer_wide) == "wide":
-            check_wide_band(x.shape[2], f.shape[2], row0)
-            return warp_bilinear_wide(x, f, zeros)
+            return warp_bilinear_wide(x, f, zeros, row0=row0)
         return warp_bilinear(x, f, zeros, row0=row0)
 
     @staticmethod

@@ -53,23 +53,34 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
-__all__ = ["function_softsplat", "softsplat", "softsplat_backward_torch", "softsplat_func", "softsplat_torch"]
+__all__ = [
+    "function_softsplat",
+    "softsplat",
+    "softsplat_backward_torch",
+    "softsplat_func",
+    "softsplat_partial",
+    "softsplat_torch",
+]
 
 
-def softsplat_torch(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch forward splat (the kernel's twin): ``index_add_`` of the
-    four corners into a flat f32 buffer with one spare row per image, which
-    takes the dropped corners and is cut off at the end."""
+def _splat_sums(ten_in: torch.Tensor, ten_flow: torch.Tensor, row0: int, out_rows: Optional[int]) -> torch.Tensor:
+    """The twin's f32 sums, NHWC ``[N, out_rows, W, C]``: ``index_add_`` of
+    the four corners into a flat f32 buffer with one spare row per image,
+    which takes the dropped corners and is cut off at the end."""
     n, h, w, c = ten_in.shape
+    ho = h if out_rows is None else out_rows
+    if not 0 <= row0 <= ho - h:
+        raise ValueError(f"softsplat: a band of {h} rows from row {row0} does not lie within {ho} output rows")
     dev = ten_in.device
     gx = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, w)
-    gy = torch.arange(h, dtype=torch.float32, device=dev).view(1, h, 1)
+    gy = (torch.arange(h, dtype=torch.float32, device=dev) + row0).view(1, h, 1)
     fx = gx + ten_flow[..., 0].float()
     fy = gy + ten_flow[..., 1].float()
     finite = torch.isfinite(fx) & torch.isfinite(fy)
     fx = torch.where(finite, fx, -2.0 * w).clamp(-2.0 * w, 2.0 * w)
-    fy = torch.where(finite, fy, -2.0 * h).clamp(-2.0 * h, 2.0 * h)
+    fy = torch.where(finite, fy, -2.0 * ho).clamp(-2.0 * ho, 2.0 * ho)
 
     x0 = torch.floor(fx)
     y0 = torch.floor(fy)
@@ -80,20 +91,52 @@ def softsplat_torch(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tenso
     x0i = x0.long()
     y0i = y0.long()
 
-    hw = h * w
+    hw, ohw = h * w, ho * w
     vals = ten_in.reshape(n, hw, c).float()
-    out = torch.zeros(n * (hw + 1), c, dtype=torch.float32, device=dev)
-    base = (torch.arange(n, device=dev) * (hw + 1)).view(n, 1, 1)
+    out = torch.zeros(n * (ohw + 1), c, dtype=torch.float32, device=dev)
+    base = (torch.arange(n, device=dev) * (ohw + 1)).view(n, 1, 1)
     for dy, wy in ((0, wy0), (1, wy1)):
         for dx, wx in ((0, wx0), (1, wx1)):
             xi = x0i + dx
             yi = y0i + dy
-            valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-            idx = base + torch.where(valid, yi * w + xi, hw)  # hw: the spare row
+            valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < ho)
+            idx = base + torch.where(valid, yi * w + xi, ohw)  # ohw: the spare row
             wgt = (wx * wy).reshape(n, hw, 1)
             out.index_add_(0, idx.reshape(-1), (vals * wgt).reshape(-1, c))
-    out = out.view(n, hw + 1, c)[:, :hw]
-    return out.reshape(n, h, w, c).to(ten_in.dtype)
+    out = out.view(n, ohw + 1, c)[:, :ohw]
+    return out.reshape(n, ho, w, c)
+
+
+def softsplat_torch(
+    ten_in: torch.Tensor, ten_flow: torch.Tensor, row0: int = 0, out_rows: Optional[int] = None
+) -> torch.Tensor:
+    """Plain PyTorch forward splat (the kernel's twin), summed in f32 and
+    cast once to ``ten_in``'s dtype.
+
+    A band of sources (K2's band): with ``row0`` and ``out_rows``, ``ten_in``
+    and ``ten_flow`` are the global rows ``row0`` to ``row0 + H`` of a frame
+    of ``out_rows`` rows; source ``(x, y)`` lands at ``(x + fx, row0 + y +
+    fy)``, the drops and the clamp use ``out_rows``, and the result ``[N,
+    out_rows, W, C]`` is the band's part of the whole frame's splat."""
+    return _splat_sums(ten_in, ten_flow, row0, out_rows).to(ten_in.dtype)
+
+
+def softsplat_partial(ten_in: torch.Tensor, ten_flow: torch.Tensor, row0: int, out_rows: int) -> torch.Tensor:
+    """A band of sources' part of the whole frame's splat, f32 NHWC ``[N,
+    out_rows, W, C]``, not cast: the ``space`` axis of ``parallel/`` adds the
+    bands' parts in f32 and casts once. CUDA tensors launch K2 with a band
+    (whose wrapper refuses inputs that need a gradient: the splat's backward
+    takes no band), CPU tensors take the twin's sums."""
+    if ten_in.device.type == "cuda":
+        from .cuda import softsplat_kernel
+
+        out = softsplat_kernel.softsplat_bilinear(
+            ten_in.permute(0, 3, 1, 2), ten_flow.permute(0, 3, 1, 2), row0=row0, out_rows=out_rows
+        )
+        return out.permute(0, 2, 3, 1)
+    if ten_in.device.type == "cpu" and ten_flow.device.type == "cpu":
+        return _splat_sums(ten_in, ten_flow, row0, out_rows)
+    raise ValueError(f"softsplat_partial runs on cuda or cpu tensors, got {ten_in.device} and {ten_flow.device}")
 
 
 def softsplat_backward_torch(
@@ -121,7 +164,10 @@ def softsplat_func(ten_in: torch.Tensor, ten_flow: torch.Tensor) -> torch.Tensor
     ``softsplat_kernel.SplatFunction``, whose backward is the backward
     kernel. CPU tensors take the plain twin (autograd differentiates it);
     any other device raises. There is no fallback from a kernel to the
-    twin."""
+    twin. A value held as row bands (``parallel.space.RowBands``) takes the
+    row-band rule of ``parallel/``."""
+    if has_torch_function((ten_in, ten_flow)):
+        return handle_torch_function(softsplat_func, (ten_in, ten_flow), ten_in, ten_flow)
     if ten_in.device.type == "cuda":
         from .cuda import softsplat_kernel
 

@@ -33,8 +33,8 @@ samples the source at row coordinate ``row0 + y + flow_y``; the border
 clamp and the zeros test use the source's height. The ``space`` axis of
 ``parallel/`` warps each band of a frame so, by the whole source gathered
 onto the band's device. With ``row0 = 0`` and the source's height it is the
-whole-frame warp, bit for bit. A band that ``route`` sends to the wide
-kernel raises: the wide kernel takes no band yet.
+whole-frame warp, bit for bit. A band takes the kernel that ``route``
+names for its image, K1 or the wide kernel, as a whole frame does.
 
 With a gradient: a CUDA warp whose image or flow needs one (grad mode on)
 goes through ``ops.cuda.warp_kernel.WarpFunction``, whose forward is the
@@ -209,8 +209,7 @@ def warp(
         # wrappers get detached views, as they refuse inputs that need one
         planes, flow_planes = planes.detach(), flow_planes.detach()
         if warp_kernel.route(planes.shape, planes.stride(), planes.dtype, prefer_wide) == "wide":
-            warp_kernel.check_wide_band(planes.shape[2], flow_planes.shape[2], row0)
-            out = warp_kernel.warp_bilinear_wide(planes, flow_planes, zeros)
+            out = warp_kernel.warp_bilinear_wide(planes, flow_planes, zeros, row0=row0)
         else:
             out = warp_kernel.warp_bilinear(planes, flow_planes, zeros, row0=row0)
         return out.permute(0, 2, 3, 1)

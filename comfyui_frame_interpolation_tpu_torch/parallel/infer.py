@@ -15,14 +15,17 @@ A mesh of one data shard takes the same path, with one shard of the whole
 batch: the same result, bit for bit, as calling the model unwrapped.
 
 A batch that :func:`~.mesh.frame_sharding` splits over ``space`` (frames of
-at least ``64 * space`` rows on a mesh whose ``space`` axis is over 1):
-:func:`make_sharded_model_fn` also cuts each data shard's NHWC frames into
-row bands over that shard's row of devices (``parallel.space.split_rows``),
-the model runs on them through the row-band rules (RIFE 4.7; any other
-model raises at its first op without a rule), and the output's bands are
-gathered on the first device in global row order. The pair-cached split
-(:func:`make_sharded_pair_fns`) raises there
-(:func:`~.mesh.check_runnable`): its models need K2 with a band first.
+at least ``64 * space`` rows on a mesh whose ``space`` axis is over 1): both
+wrappers also cut each data shard's NHWC frames into row bands over that
+shard's row of devices (``parallel.space.split_rows``), the model runs on
+them through the row-band rules, and the output's bands are gathered on the
+first device in global row order. :func:`make_sharded_model_fn` runs RIFE
+4.7 so; :func:`make_sharded_pair_fns` runs M2M, whose cache then holds row
+bands (``RowBands`` leaves beside plain tensors such as the frame's mean),
+each shard's on its own row of devices, and goes back to the same shard's
+``infer_fn``. Any other model raises at its first op without a rule (GMFSS,
+EISAI, XVFI among the pair-cached ones), naming it and ``ROADMAP.md``'s
+item; nothing runs data-parallel in place of a row split.
 """
 
 from __future__ import annotations
@@ -100,17 +103,19 @@ def make_sharded_pair_fns(make_pair_fns: Callable[[torch.device], Tuple[Callable
     (``reuse_fn(f0, f1) -> cache``, ``infer_fn(f0, f1, cache, t) -> mids``).
     The cache, whose structure only the model knows, is the tuple of the
     shards' own caches: each holds the per-pair tensors of its shard of the
-    batch, on its device, and goes back to the same shard's ``infer_fn``. The
-    executor's ``batch_size`` must be a multiple of ``mesh.shape['data']``."""
+    batch, on its device (as row bands on its row of devices where the
+    policy splits rows: the module docstring), and goes back to the same
+    shard's ``infer_fn``. The executor's ``batch_size`` must be a multiple
+    of ``mesh.shape['data']``."""
     pairs = _per_device(make_pair_fns, mesh)
 
     def sharded_reuse(f0, f1):
-        check_runnable(mesh, f0.shape)
-        return tuple(reuse(a, b) for (reuse, _), a, b in zip(pairs, _split(f0, mesh), _split(f1, mesh)))
+        rows = check_runnable(mesh, f0.shape, rows=True)
+        return tuple(reuse(a, b) for (reuse, _), (a, b) in zip(pairs, _split_args((f0, f1), mesh, rows)))
 
     def sharded_infer(f0, f1, cache, t):
-        check_runnable(mesh, f0.shape)
-        parts = zip(pairs, _split(f0, mesh), _split(f1, mesh), cache, _split(t, mesh))
-        return _gather([infer(a, b, c, tt) for (_, infer), a, b, c, tt in parts], mesh)
+        rows = check_runnable(mesh, f0.shape, rows=True)
+        parts = zip(pairs, _split_args((f0, f1, t), mesh, rows), cache)
+        return _gather([infer(a, b, c, tt) for (_, infer), (a, b, tt), c in parts], mesh)
 
     return sharded_reuse, sharded_infer

@@ -19,18 +19,19 @@ JAX's ``PartitionSpec`` does.
 
 Both axes run. Torch has no GSPMD halo exchange, so the ``space`` axis is
 ``parallel.space``: a frame held as row bands on one data shard's row of
-devices, and an allow-list of rules (halo rows for the convolutions, the
-global ratio for the resizes, the whole source gathered for the warp) by
+devices, and an allow-list of rules (halo rows for the convolutions and the
+cost volume, the global ratio for the resizes, the whole source gathered
+for the warp, partial sums for the splat and the reductions over rows) by
 which RIFE 4.7's inference (:func:`~.infer.make_sharded_model_fn`) and
-training step (:func:`~.train.make_train_step`) run band by band. Every
+training step (:func:`~.train.make_train_step`) and M2M's pair-cached
+inference (:func:`~.infer.make_sharded_pair_fns`) run band by band. Every
 other op raises ``NotImplementedError`` on a band, naming itself and the
-``ROADMAP.md`` item that ports the rest (:data:`SPACE_TODO`), and so does
-the pair-cached executor's split (:func:`~.infer.make_sharded_pair_fns`,
-:func:`check_runnable`): no run that the policy splits over ``space`` runs
-data-parallel in its place. On the CPU the axis runs on logical replicas
-(``make_mesh(8, devices=[torch.device("cpu")] * 8)``: a ``(4, 2)`` mesh);
-on one card, ``chip_smoke.py`` runs it on a ``(1, 2)`` mesh of replicas of
-``cuda:0``.
+``ROADMAP.md`` item that ports the rest (:data:`SPACE_TODO`): no run that
+the policy splits over ``space`` runs data-parallel in its place
+(:func:`check_runnable` raises for a caller that cannot split rows). On
+the CPU the axis runs on logical replicas (``make_mesh(8,
+devices=[torch.device("cpu")] * 8)``: a ``(4, 2)`` mesh); on one card,
+``chip_smoke.py`` runs it on a ``(1, 2)`` mesh of replicas of ``cuda:0``.
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ MIN_ROWS_PER_SHARD = 64
 
 # what a run on the space axis that no row-band rule covers is told
 SPACE_TODO = (
-    "the 'space' axis (rows split over devices) runs RIFE 4.7's inference and training step; "
-    "the rest is ROADMAP.md Queue 1 item 3"
+    "the 'space' axis (rows split over devices) runs RIFE 4.7's inference and training step and M2M's "
+    "pair-cached inference; the rest is ROADMAP.md Queue 1 item 3"
 )
 
 

@@ -17,17 +17,32 @@ module and tensor method that meets one) and ``ops.warp.warp`` hands it over
 the same way. Each call goes to the rule of an allow-list; a function
 without one raises ``NotImplementedError`` naming itself and the
 ``ROADMAP.md`` item that would port it. Nothing is gathered or run band by
-band unless a rule says so. The rules are those RIFE 4.7 needs:
+band unless a rule says so. The rules are those RIFE 4.7 and M2M's pair
+functions need:
 
-* row-local ops, band by band: elementwise arithmetic, ``clamp``,
-  ``sigmoid``, ``leaky_relu``, casts, channel and batch ``cat``, slices of
-  the channel and batch dimensions, ``permute``, the ``expand_as`` of a
-  tensor without rows (the timestep map), and ``pixel_shuffle``, which
-  multiplies each band's rows and first row;
+* row-local ops, band by band: elementwise arithmetic, ``clamp`` (``min=``
+  too), ``sigmoid``, ``leaky_relu``, ``prelu`` (``nn.PReLU``), ``exp``,
+  ``abs``, ``square``, ``sqrt``, comparisons, casts, channel and batch
+  ``cat``, slices of the channel and batch dimensions (an ``...`` too),
+  ``permute``, the ``expand_as`` of a tensor without rows (the timestep
+  map), ``repeat``, ``reshape`` and ``unflatten`` of the dimensions before
+  the rows (each refuses a shape that moves or merges them), M2M's
+  ``_repeat_branches``, and ``pixel_shuffle``, which multiplies each band's
+  rows and first row;
+* reductions (``sum``, ``mean``, ``var``): over other dimensions band by
+  band; over the rows from each band's partial sum, added in band order on
+  the value's device into a plain tensor (``var`` from that mean first);
+* ``torch.einsum`` with one banded operand whose row subscript no other
+  operand has and the result keeps (M2M's attention cube);
 * ``conv2d``: each band takes the ``dilation * (k - 1)`` rows around it
   that its outputs read (the halo) from its neighbours, zeros beyond the
-  global top and bottom only, and owns the outputs whose first input row
-  is its own;
+  global top and bottom only, and owns the outputs whose middle input row
+  is its own (so a VALID convolution after ``F.pad`` lines up as one that
+  pads itself);
+* ``avg_pool2d`` with windows of their own rows (kernel = stride, every
+  band starting on a multiple of it);
+* ``ops.costvol.costvol_func``: each band compares against the ``+-4``
+  rows around it of the second tensor, zeros beyond the frame's edges;
 * ``conv_transpose2d``: the input rows its outputs read (one from each
   neighbour for ``(4, 2, 1)``), the result cropped to its own rows;
 * bilinear ``interpolate`` (``align_corners=False``, ``size=``) by an
@@ -35,27 +50,41 @@ band unless a rule says so. The rules are those RIFE 4.7 needs:
   is band-local when every band starts on a multiple of ``s``; an upscale
   reads one coarse row from each neighbour and is cropped, so the edge
   clamp applies at the global edges only;
-* ``F.pad`` (constant): the top pad goes to the first band, the bottom pad
-  to the last; a slice of the rows crops each band;
+* ``F.pad`` (constant and replicate): the top pad goes to the first band,
+  the bottom pad to the last (whose last row is the frame's); a slice of
+  the rows crops each band;
 * the warp: the source is gathered whole onto each band's device (a
   differentiable ``cat``, so autograd adds each band's image gradient back
-  into the producing bands), the flow stays local and the kernel warps the
-  band from its first row (``row0``).
+  into the producing bands), the flow stays local and the kernel (K1 or
+  the wide kernel) warps the band from its first row (``row0``);
+* the splat (``ops.softsplat.softsplat_func``): band ``j``'s sources splat
+  from their first row into a whole-frame f32 partial on band ``j``'s
+  device (K2 with a band, ``softsplat_partial``); band ``k`` of the result
+  is the sum of every partial's rows of band ``k``, moved to band ``k``'s
+  device and added in band order, cast once. It is the forward
+  counterpart of the warp's gathered source, whose image gradient autograd
+  adds back into bands. The splat's backward takes no band yet, so a splat
+  that needs a gradient raises (M2M's training step on the axis).
 
 Every rule computes what the op computes on the whole tensor: the
 convolutions and resizes the same sums, possibly by other algorithms
-(cuDNN picks one per shape), the warp bit for bit. Bands on logical
-replicas of one device split the work as separate devices would.
+(cuDNN picks one per shape), the reductions and the splat in another
+order, the warp bit for bit. Bands on logical replicas of one device split
+the work as separate devices would.
 """
 
 from __future__ import annotations
 
 import inspect
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..models import m2m
+from ..ops import costvol
+from ..ops.softsplat import softsplat_func, softsplat_partial
 from ..ops.warp import warp
 from .mesh import MIN_ROWS_PER_SHARD, SPACE_TODO
 
@@ -246,6 +275,48 @@ class RowBands:
     def __neg__(self):
         return self._call(torch.Tensor.neg)
 
+    def __lt__(self, other):
+        return self._call(torch.Tensor.lt, other)
+
+    def __le__(self, other):
+        return self._call(torch.Tensor.le, other)
+
+    def __gt__(self, other):
+        return self._call(torch.Tensor.gt, other)
+
+    def __ge__(self, other):
+        return self._call(torch.Tensor.ge, other)
+
+    def abs(self):
+        return self._call(torch.Tensor.abs)
+
+    def square(self):
+        return self._call(torch.Tensor.square)
+
+    def exp(self):
+        return self._call(torch.Tensor.exp)
+
+    def sqrt(self):
+        return self._call(torch.Tensor.sqrt)
+
+    def mean(self, *args, **kwargs):
+        return self._call(torch.Tensor.mean, *args, **kwargs)
+
+    def sum(self, *args, **kwargs):
+        return self._call(torch.Tensor.sum, *args, **kwargs)
+
+    def var(self, *args, **kwargs):
+        return self._call(torch.Tensor.var, *args, **kwargs)
+
+    def repeat(self, *sizes):
+        return self._call(torch.Tensor.repeat, *sizes)
+
+    def reshape(self, *shape):
+        return self._call(torch.Tensor.reshape, *shape)
+
+    def unflatten(self, dim, sizes):
+        return self._call(torch.Tensor.unflatten, dim, sizes)
+
 
 # ---- the rules -----------------------------------------------------------------
 
@@ -343,8 +414,11 @@ def _cat(func, args, kwargs):
 def _getitem(func, args, kwargs):
     x, index = args
     index = index if isinstance(index, tuple) else (index,)
+    if index.count(Ellipsis) == 1:
+        k = index.index(Ellipsis)
+        index = index[:k] + (slice(None),) * (x.ndim - len(index) + 1) + index[k + 1 :]
     if len(index) > x.ndim or not all(isinstance(i, (int, slice)) for i in index):
-        raise _no_rule(f"Tensor.__getitem__ with {index!r} (slices and integers only)")
+        raise _no_rule(f"Tensor.__getitem__ with {index!r} (slices, integers and one Ellipsis only)")
     index = index + (slice(None),) * (x.ndim - len(index))
     if isinstance(index[x.axis], int):
         raise _no_rule("Tensor.__getitem__ of one row")
@@ -403,8 +477,11 @@ def _conv2d(func, args, kwargs):
     (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
     reach = dh * (weight.shape[2] - 1)
     out_h = (x.height + 2 * ph - reach - 1) // sh + 1
-    # a band owns the outputs whose first input row (o * sh) is its own
-    spans = _owned(x.starts, out_h, lambda s: -(-s // sh))
+    # a band owns the outputs whose middle input row (o * sh - ph + reach //
+    # 2) is its own: for a convolution that pads itself (reach = 2 * ph) the
+    # outputs line up with the input's bands, and so do those of a VALID
+    # convolution after F.pad (the replicate-padded 3x3 of M2M's flow net)
+    spans = _owned(x.starts, out_h, lambda s: -(-(s + ph - reach // 2) // sh))
     out = []
     for j, (o0, o1) in enumerate(spans):
         dev = x.bands[j].device
@@ -480,7 +557,7 @@ def _interpolate(func, args, kwargs):
 
 def _pad(func, args, kwargs):
     x, pad, mode, value = _bind(func, ("input", "pad", "mode", "value"), (None, None, "constant", None), args, kwargs)
-    if mode != "constant":
+    if mode not in ("constant", "replicate"):
         raise _no_rule(f"F.pad(mode={mode!r})")
     pad = list(pad)
     k = x.ndim - 1 - x.axis  # the pair of pad that the rows take
@@ -492,6 +569,8 @@ def _pad(func, args, kwargs):
         p = list(pad)
         if 2 * k < len(p):
             p[2 * k], p[2 * k + 1] = (top if j == 0 else 0), (bottom if j == last else 0)
+        # replicate: the first band's first row and the last band's last row
+        # are the frame's
         out.append(func(b, p, mode=mode, value=value))
     return x.like(out) if top == 0 and bottom == 0 else RowBands(
         out, [0] + [s + top for s in x.starts[1:]], x.height + top + bottom, x.axis
@@ -512,14 +591,182 @@ def _warp_rule(func, args, kwargs):
     return flow.like(out)
 
 
+def _avg_pool2d(func, args, kwargs):
+    x, kernel, stride, padding, ceil_mode, count_include_pad, divisor = _bind(
+        func, ("input", "kernel_size", "stride", "padding", "ceil_mode", "count_include_pad", "divisor_override"),
+        (None, None, None, 0, False, True, None), args, kwargs,
+    )
+    (kh, kw) = _pair(kernel)
+    sh, sw = _pair(stride if stride not in (None, []) else kernel)
+    if x.axis != 2 or kh != sh or _pair(padding) != (0, 0) or ceil_mode or any(a % sh for a in x.starts):
+        raise _no_rule(
+            f"avg_pool2d(kernel {kernel}, stride {stride}, padding {padding}, ceil_mode {ceil_mode}) on bands from rows "
+            f"{x.starts} (windows of their own rows only)"
+        )
+    out = [func(b, (kh, kw), (sh, sw), 0, False, count_include_pad, divisor) for b in x.bands]
+    return RowBands(out, [a // sh for a in x.starts], x.height // sh, 2)
+
+
+def _dims(dim, ndim: int) -> Tuple[int, ...]:
+    if dim is None:
+        return tuple(range(ndim))
+    return tuple(sorted({d % ndim for d in ((dim,) if isinstance(dim, int) else dim)}))
+
+
+def _band_sums(x: RowBands, dims: Tuple[int, ...], keepdim: bool, each: Callable = lambda b: b) -> torch.Tensor:
+    """The sum over ``dims`` (the rows among them) of ``each(band)``, each
+    band's partial sum moved to band 0's device and added in band order."""
+    dev = x.bands[0].device
+    total = None
+    for b in x.bands:
+        part = each(b).sum(dims, keepdim=keepdim).to(dev)
+        total = part if total is None else total + part
+    return total
+
+
+def _reduce(func, args, kwargs):
+    """``sum``, ``mean`` and ``var``: over dimensions without the rows, band
+    by band; over the rows, from partial sums in band order into a plain
+    tensor on the value's device (``var`` from the mean first, as torch's)."""
+    name = _name(func).rsplit(".", 1)[-1]
+    if name == "var":
+        x, dim, unbiased, keepdim, correction = _bind(
+            func, ("input", "dim", "unbiased", "keepdim", "correction"), (None, None, None, False, None), args, kwargs
+        )
+        if unbiased is not None and correction is not None:
+            raise TypeError("var: unbiased and correction together")
+        correction = correction if correction is not None else (1 if unbiased in (None, True) else 0)
+        local = dict(correction=correction, keepdim=keepdim)
+    else:
+        x, dim, keepdim, dtype = _bind(func, ("input", "dim", "keepdim", "dtype"), (None, None, False, None), args, kwargs)
+        if dtype is not None:
+            raise _no_rule(f"{_name(func)} with dtype=")
+        local = dict(keepdim=keepdim)
+    dims = _dims(dim, x.ndim)
+    if x.axis not in dims:
+        axis = x.axis if keepdim else x.axis - sum(d < x.axis for d in dims)
+        return x.like([func(b, dims, **local) for b in x.bands], axis)
+    count = math.prod(x.shape[d] for d in dims)
+    total = _band_sums(x, dims, keepdim)
+    if name == "sum":
+        return total
+    mean = total / count
+    if name == "mean":
+        return mean
+    centre = mean if keepdim else mean.reshape([1 if d in dims else n for d, n in enumerate(x.shape)])
+    sq = _band_sums(x, dims, keepdim, lambda b: (b - centre.to(b.device)).square())
+    return sq / max(count - correction, 0)
+
+
+def _einsum(func, args, kwargs):
+    """``torch.einsum`` with one operand in row bands, whose row subscript
+    no other operand has and the result keeps: band by band."""
+    if kwargs or not isinstance(args[0], str):
+        raise _no_rule("torch.einsum (an equation string and operands only)")
+    eq, ops = args[0].replace(" ", ""), args[1:]
+    banded = [i for i, v in enumerate(ops) if isinstance(v, RowBands)]
+    lhs, _, out_sub = eq.partition("->")
+    subs = lhs.split(",")
+    if len(banded) != 1 or not out_sub or "." in eq or len(subs) != len(ops):
+        raise _no_rule(f"torch.einsum({eq!r}) of {len(banded)} row-band operands (one, with an explicit result)")
+    x = ops[banded[0]]
+    row = subs[banded[0]][x.axis]
+    if row not in out_sub or any(row in sub for i, sub in enumerate(subs) if i != banded[0]):
+        raise _no_rule(f"torch.einsum({eq!r}) that sums over or mixes the rows")
+    out = []
+    for j, b in enumerate(x.bands):
+        local = [b if i == banded[0] else v.to(b.device) for i, v in enumerate(ops)]
+        out.append(func(eq, *local))
+    return x.like(out, out_sub.index(row))
+
+
+def _repeat(func, args, kwargs):
+    x, sizes = args[0], args[1:]
+    if len(sizes) == 1 and not isinstance(sizes[0], int):
+        sizes = tuple(sizes[0])
+    if kwargs or len(sizes) != x.ndim or sizes[x.axis] != 1:
+        raise _no_rule(f"Tensor.repeat{tuple(sizes)} of {x!r} (of the other dimensions only)")
+    return x.like([b.repeat(*sizes) for b in x.bands])
+
+
+def _reshape(func, args, kwargs):
+    x, shape = args[0], args[1:]
+    if len(shape) == 1 and not isinstance(shape[0], int):
+        shape = tuple(shape[0])
+    shape = list(shape)
+    if shape.count(-1) == 1:
+        known = math.prod(n for n in shape if n != -1)
+        shape[shape.index(-1)] = math.prod(x.shape) // known if known else 0
+    tail = x.ndim - x.axis  # the rows and the dimensions after them stay
+    if kwargs or len(shape) < tail or math.prod(shape) != math.prod(x.shape) or tuple(shape[-tail:]) != tuple(x.shape)[-tail:]:
+        raise _no_rule(f"Tensor.reshape{tuple(shape)} of {x!r} (that moves or merges the rows)")
+    axis = len(shape) - tail
+    return x.like([b.reshape(*shape[:axis], b.shape[x.axis], *shape[axis + 1 :]) for b in x.bands], axis)
+
+
+def _unflatten(func, args, kwargs):
+    x, dim, sizes = _bind(func, ("input", "dim", "sizes"), (None, None, None), args, kwargs)
+    dim %= x.ndim
+    if dim == x.axis:
+        raise _no_rule("Tensor.unflatten of the rows")
+    return x.like([b.unflatten(dim, sizes) for b in x.bands], x.axis + (len(sizes) - 1 if dim < x.axis else 0))
+
+
+def _bandwise(func, args, kwargs):
+    """A function of one value that is row-local (``models.m2m._repeat_branches``)."""
+    if len(args) != 1 or kwargs or not isinstance(args[0], RowBands):
+        raise _no_rule(f"{_name(func)} of other than one row-band value")
+    return args[0].like([func(b) for b in args[0].bands])
+
+
+def _costvol_rule(func, args, kwargs):
+    one, two = _bind(func, ("ten_one", "ten_two"), (None, None), args, kwargs)
+    if not (isinstance(one, RowBands) and isinstance(two, RowBands)) or one.axis != 2:
+        raise _no_rule("ops.costvol.costvol_func of other than NCHW row bands of both tensors")
+    _check_alike(func, one, two)
+    out = []
+    for j, (b, a) in enumerate(zip(one.bands, one.starts)):
+        # the +-R rows around the band (zeros beyond the frame's top and
+        # bottom only) and R zero columns on each side
+        halo = F.pad(two.rows(a - costvol.R, a + b.shape[2] + costvol.R, j), (costvol.R,) * 2)
+        out.append(costvol.costvol_padded(b, halo))
+    return one.like(out)
+
+
+def _softsplat_rule(func, args, kwargs):
+    """The splat: band ``j``'s sources splat from their first row into a
+    whole-frame f32 partial on band ``j``'s device (K2 with a band); band
+    ``k`` of the result is the sum of every partial's rows of band ``k``,
+    moved to band ``k``'s device and added in band order, cast once."""
+    x, flow = _bind(func, ("ten_in", "ten_flow"), (None, None), args, kwargs)
+    if not (isinstance(x, RowBands) and isinstance(flow, RowBands)) or x.axis != 1:
+        raise _no_rule("ops.softsplat.softsplat_func of other than NHWC row bands of the values and their flow")
+    _check_alike(func, x, flow)
+    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
+        raise _no_rule("ops.softsplat.softsplat_func with a gradient (the splat's backward with a band)")
+    parts = [softsplat_partial(b, f, a, x.height) for b, f, a in zip(x.bands, flow.bands, x.starts)]
+    out = []
+    for b, a in zip(x.bands, x.starts):
+        total = None
+        for part in parts:
+            piece = part.narrow(1, a, b.shape[1]).to(b.device)
+            total = piece if total is None else total + piece
+        out.append(total.to(x.dtype))
+    return x.like(out)
+
+
 _RULES: Dict[Callable, Callable] = {}
 for _f in (
     torch.add, torch.sub, torch.mul, torch.div, torch.rsub, torch.neg, torch.clamp, torch.sigmoid,
     torch.Tensor.add, torch.Tensor.sub, torch.Tensor.mul, torch.Tensor.div, torch.Tensor.neg, torch.Tensor.clamp,
     torch.Tensor.sigmoid, torch.Tensor.__radd__, torch.Tensor.__rsub__, torch.Tensor.__rmul__,
     torch.Tensor.__rtruediv__, torch.Tensor.float, torch.Tensor.contiguous, torch.Tensor.detach, F.leaky_relu,
+    torch.prelu, torch.exp, torch.Tensor.exp, torch.abs, torch.Tensor.abs, torch.square, torch.Tensor.square,
+    torch.sqrt, torch.Tensor.sqrt, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
 ):
     _RULES[_f] = _elementwise
+for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var):
+    _RULES[_f] = _reduce
 _RULES.update({
     torch.Tensor.to: _to,
     torch.cat: _cat,
@@ -532,5 +779,14 @@ _RULES.update({
     torch.pixel_shuffle: _pixel_shuffle,
     F.interpolate: _interpolate,
     F.pad: _pad,
+    F.avg_pool2d: _avg_pool2d,
+    torch.einsum: _einsum,
+    torch.Tensor.repeat: _repeat,
+    torch.Tensor.reshape: _reshape,
+    torch.reshape: _reshape,
+    torch.Tensor.unflatten: _unflatten,
     warp: _warp_rule,
+    costvol.costvol_func: _costvol_rule,
+    softsplat_func: _softsplat_rule,
+    m2m._repeat_branches: _bandwise,
 })

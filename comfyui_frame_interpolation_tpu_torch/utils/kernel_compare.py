@@ -91,7 +91,7 @@ import os
 import statistics
 import subprocess
 import sys
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -545,7 +545,7 @@ def library_backward(img, flow, grad_out, zeros: bool, img_grad: bool = True, ro
     return lambda: torch.ops.aten.grid_sampler_2d_backward(gplanes, planes, grid, 0, 0 if zeros else 1, True, [img_grad, True])
 
 
-def library_splat(vals, flow) -> Callable:
+def library_splat(vals, flow, row0: int = 0, out_rows: Optional[int] = None) -> Callable:
     """``aten.grid_sampler_2d_backward`` computing K2's splat of NHWC
     ``vals`` by ``flow`` on a precomputed grid: the input's gradient of a
     bilinear, zeros-padded ``grid_sample`` whose output's gradient is
@@ -553,17 +553,20 @@ def library_splat(vals, flow) -> Callable:
     the frame dropped. The grid takes the targets as ``ops.softsplat``'s
     twin does (non-finite ones off the frame, the rest clamped to +-2w /
     +-2h) and the values are f32 (the call takes one dtype; K2 sums in f32
-    too). The call returns ``[N, C, H, W]`` f32 planes. The library
-    yardstick, which the port never calls."""
+    too). The call returns ``[N, C, H, W]`` f32 planes; for K2's band
+    (``row0``, ``out_rows``: ``vals`` the rows from ``row0`` of a frame of
+    ``out_rows``) the band's part of the frame's splat, ``[N, C, out_rows,
+    W]``. The library yardstick, which the port never calls."""
     planes = vals.permute(0, 3, 1, 2).float()
-    n, _, h, w = planes.shape
+    n, c, h, w = planes.shape
+    ho = h if out_rows is None else out_rows
     gx = torch.arange(w, device=vals.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
-    gy = torch.arange(h, device=vals.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    gy = (torch.arange(h, device=vals.device, dtype=torch.float32) + row0).view(1, h, 1) + flow[..., 1].float()
     finite = torch.isfinite(gx) & torch.isfinite(gy)
     gx = torch.where(finite, gx, -2.0 * w).clamp(-2.0 * w, 2.0 * w)
-    gy = torch.where(finite, gy, -2.0 * h).clamp(-2.0 * h, 2.0 * h)
-    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1)
-    zeros = torch.zeros_like(planes)
+    gy = torch.where(finite, gy, -2.0 * ho).clamp(-2.0 * ho, 2.0 * ho)
+    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(ho - 1, 1)) - 1.0], -1)
+    zeros = torch.zeros((n, c, ho, w), dtype=torch.float32, device=vals.device)
     return lambda: torch.ops.aten.grid_sampler_2d_backward(planes, zeros, grid, 0, 0, True, [True, False])[0]
 
 

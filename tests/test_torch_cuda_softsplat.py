@@ -63,6 +63,12 @@ kernel uses no atomics: two launches are equal bit for bit. A CUDA splat
 that needs a gradient goes through ``SplatFunction`` (the twin is never
 called), and one M2M training step makes its launches: K1 4, wide 16 and
 the splat 1 forward, the warp's backward 20 and the splat's 1.
+
+K2 with a band of sources (``row0``, ``out_rows``) on 2 and 3 bands, f32
+and bf16, against the twin's band; the partials' sum against the
+whole-frame kernel and ``softsplat_func``; and M2M's pair functions on a
+``(1, 2)`` mesh of replicas of the card against one device (f32, TF32 off,
+1e-4), K1 8, the wide kernel 32 and K2 2 a pair batch.
 """
 
 import importlib
@@ -525,3 +531,73 @@ def test_family_training_step_launches(cuda, name, monkeypatch):
     after = chip_smoke.kernel_counts()
     assert {k: after[k] - before[k] for k in after} == chip_smoke.FAMILY_STEP_LAUNCHES[name]
     assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)
+
+
+# ---- a band of sources (the space axis of parallel/) ------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spans", [((0, 64), (64, 73)), ((0, 64), (64, 64), (128, 9))])
+def test_k2_band_partials_sum_to_the_whole_frame(cuda, spans, dtype):
+    """K2's band partials (``row0``, ``out_rows``) against the twin's band
+    (f32 partials within ``F32_ATOL``), their f32 sum against the
+    whole-frame kernel (within ``F32_ATOL``) and, cast once, against
+    ``softsplat_func`` (one ulp), on flow that crosses the bands' edges and
+    leaves the frame; ``row0=0`` at full height is the whole-frame call's
+    shape and values."""
+    g = torch.Generator().manual_seed(len(spans))
+    vals = torch.rand(2, 137, 93, 4, generator=g).to(cuda, dtype)
+    flow = ((torch.rand(2, 137, 93, 2, generator=g) * 2 - 1) * 30).to(cuda)
+    planes, fplanes = vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+    whole = softsplat_kernel.softsplat_bilinear(planes, fplanes)
+    same = softsplat_kernel.softsplat_bilinear(planes, fplanes, row0=0, out_rows=137)
+    _check(same, whole, torch.float32)
+    total = torch.zeros_like(whole)
+    before = softsplat_kernel.launches
+    for row0, rows in spans:
+        vb, fb = planes[:, :, row0 : row0 + rows], fplanes[:, :, row0 : row0 + rows]
+        part = softsplat_kernel.softsplat_bilinear(vb, fb, row0=row0, out_rows=137)
+        assert part.shape == (2, 4, 137, 93) and part.dtype == torch.float32
+        twin = softsplat_torch(vals[:, row0 : row0 + rows].float(), flow[:, row0 : row0 + rows], row0=row0, out_rows=137)
+        _check(part.permute(0, 2, 3, 1), twin, torch.float32)
+        total += part
+    assert softsplat_kernel.launches - before == len(spans)
+    _check(total, whole, torch.float32)
+    _check(total.permute(0, 2, 3, 1).to(dtype), softsplat_func(vals, flow), dtype)
+
+
+def test_m2m_on_a_space_split_matches_one_device(cuda):
+    """M2M's pair functions on a ``(1, 2)`` mesh of replicas of the card
+    (two bands of 64 rows) against one device, f32 with TF32 off and cuDNN's
+    deterministic algorithms (as ``chip_smoke.py`` phase 75 holds it),
+    within 1e-4: K1 8, the wide kernel 32 per reuse and K2 2 per infer,
+    twice the one device's 4, 16 and 1. The frames are a smooth pattern
+    moved a few pixels a frame: on uniform noise M2M's normaliser gets
+    small enough at some pixels for f32 rounding alone to move them by
+    ~1e-4."""
+    from comfyui_frame_interpolation_tpu_torch import parallel
+
+    params = m2m.init_params(0)
+    gy, gx = torch.meshgrid(torch.arange(128.0, device=cuda), torch.arange(192.0, device=cuda), indexing="ij")
+    frames = torch.stack([
+        torch.stack([0.5 + 0.4 * torch.sin((gx - 3 * i) / (9.0 + c) + (gy + 2 * i) / (13.0 - c)) for c in range(3)], -1)
+        for i in range(3)
+    ])
+    plan = plan_timestep(3, 2)  # 2 pairs, one timestep each: one reuse and one infer at batch 2
+    one = m2m.make_pair_fns(params, device=cuda)
+    sharded = parallel.make_sharded_pair_fns(lambda d: one, parallel.make_mesh(2, devices=[cuda] * 2))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = loop.run_plan_pair_cached(frames, plan, *one, batch_size=2)
+        before = warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches
+        out = loop.run_plan_pair_cached(frames, plan, *sharded, batch_size=2)
+        torch.cuda.synchronize()
+        after = warp_kernel.launches, warp_kernel.wide_launches, softsplat_kernel.launches
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.deterministic = det
+    assert tuple(a - b for a, b in zip(after, before)) == (8, 32, 2)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)

@@ -84,6 +84,13 @@ another order); bf16/f16 within one ulp of the plain value plus that.
 of both inputs (and of the flow alone) equal to the plain version's, an
 expanded output gradient taken as it is; and one RIFE 4.7 training step
 launches K1 4 times and the backward kernel 4 times.
+
+Row bands (the ``space`` axis of ``parallel/``): K1 and the wide kernel
+(C = 3-7 and 16-384, border and zeros, f32 and bf16) with ``row0`` bit for
+bit the twin's band and the whole-frame call's rows, a band routed to the
+wide kernel with and without a gradient launching it, the backward's bands
+against the plain version and summed against the whole frame, and RIFE 4.7
+on a ``(1, 2)`` mesh of replicas of the card against one device.
 """
 
 import numpy as np
@@ -698,12 +705,45 @@ def test_backward_band_matches_plain_and_the_bands_sum_to_the_whole(cuda, mode, 
         _assert_grad_close(total, gi_whole.permute(0, 2, 3, 1), torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("c", [16, 32, 48, 96, 384])
+def test_wide_band_matches_the_twins_band(cuda, c, mode, dtype):
+    """The wide kernel's row band (M2M's feature widths, C = 32-384, and C =
+    16) is bit for bit the twin's band and the whole-frame call's rows, and
+    ``row0=0`` at full height is the whole-frame call."""
+    g = torch.Generator().manual_seed(c)
+    img = torch.rand(2, 137, 93, c, generator=g).to(cuda, dtype)
+    flow = ((torch.rand(2, 137, 93, 2, generator=g) * 2 - 1) * 9).to(cuda)
+    planes = img.permute(0, 3, 1, 2)
+    assert warp_kernel.route(planes.shape, planes.stride(), dtype) == "wide"
+    whole = warp_kernel.warp_bilinear_wide(planes, flow.permute(0, 3, 1, 2), mode == "zeros")
+    assert torch.equal(warp_kernel.warp_bilinear_wide(planes, flow.permute(0, 3, 1, 2), mode == "zeros", row0=0), whole)
+    before = warp_kernel.wide_launches
+    for row0, rows in ((0, 64), (64, 73), (136, 1)):
+        fb = flow[:, row0 : row0 + rows]
+        got = warp_kernel.warp_bilinear_wide(planes, fb.permute(0, 3, 1, 2), mode == "zeros", row0=row0).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, warp_torch(img, fb, mode, row0=row0))
+        assert torch.equal(got, whole.permute(0, 2, 3, 1)[:, row0 : row0 + rows])
+        assert torch.equal(warp(img, fb, mode, row0=row0), got)
+    assert warp_kernel.wide_launches - before == 6
+
+
 def test_a_band_that_routes_to_the_wide_kernel_raises(cuda):
-    img = torch.rand(1, 128, 64, 16, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        warp(img, torch.zeros(1, 64, 64, 2, device=cuda), row0=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        warp(img.requires_grad_(), torch.zeros(1, 64, 64, 2, device=cuda), row0=64)
+    """A band that routes to the wide kernel used to raise; the kernel now
+    takes the band, with and without a gradient, and launches itself (never
+    K1 or the twin in its place)."""
+    g = torch.Generator().manual_seed(16)
+    img = torch.rand(1, 128, 64, 16, generator=g).to(cuda, torch.bfloat16)
+    flow = ((torch.rand(1, 64, 64, 2, generator=g) * 2 - 1) * 9).to(cuda)
+    twin = warp_torch(img, flow, "border", row0=64)
+    before = warp_kernel.launches, warp_kernel.wide_launches
+    plain = warp(img, flow, row0=64)
+    with_grad = warp(img.clone().requires_grad_(), flow, row0=64)
+    torch.cuda.synchronize()
+    assert (warp_kernel.launches - before[0], warp_kernel.wide_launches - before[1]) == (0, 2)
+    assert torch.equal(plain, twin) and torch.equal(with_grad.detach(), twin)
 
 
 def test_rife_on_a_space_split_matches_one_device(cuda):

@@ -34,9 +34,10 @@
   frames within 1e-5 (measured 0), the loss within 1e-6 relative, the
   gradients within 5e-5 of each tensor's largest magnitude, the updates
   where the gradient is large (the step also at b2 x 136x64, whose pad
-  lands in the last band); ``make_sharded_pair_fns`` raises there (its
-  models need K2 with a band). ``tests/test_torch_space.py`` holds the rest
-  of the ``space`` axis.
+  lands in the last band); ``make_sharded_pair_fns`` of GMFSS raises there
+  at its first op without a row-band rule (M2M's runs:
+  ``tests/test_torch_space_m2m.py``). ``tests/test_torch_space.py`` holds
+  the rest of the ``space`` axis.
 
 One JAX compile per function (the loss's ``value_and_grad`` and the train
 step), at 64x64.
@@ -58,7 +59,7 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan, run_plan_pair_cached
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import m2m, rife
+from comfyui_frame_interpolation_tpu_torch.models import gmfss, m2m, rife
 from comfyui_frame_interpolation_tpu_torch.parallel import train
 from comfyui_frame_interpolation_tpu_torch.utils.ckpt import params_from_jax
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
@@ -261,7 +262,10 @@ def test_space_axis_raises(entry):
     """On a ``(1, 2)`` mesh, where the policy splits 128 rows into two bands:
     the model function and the train step run and match one device (the
     step also at 136x64, split 128 + 8 rows, where RIFE's pad to 192 lands
-    in the last band); the pair-cached split still raises."""
+    in the last band); the pair-cached split of a family without the rules
+    it needs (GMFSS base: its first op without a rule) still raises, naming
+    the ``ROADMAP.md`` item (M2M's split runs:
+    ``tests/test_torch_space_m2m.py``)."""
     mesh = parallel.make_mesh(2, devices=_replicas(2))  # (1, 2): the space axis
     assert dict(mesh.shape) == {"data": 1, "space": 2}
     f0, f1, t, target = (torch.from_numpy(a) for a in _tall_batch())
@@ -286,8 +290,8 @@ def test_space_axis_raises(entry):
             torch.testing.assert_close(deltas2[k][big], deltas1[k][big], rtol=0, atol=UPDATE_ATOL)
         assert n_big > 1000
     else:
-        reuse, _ = parallel.make_sharded_pair_fns(lambda d: m2m.make_pair_fns(m2m.init_params(0), device=d), mesh)
-        with pytest.raises(NotImplementedError, match="space"):
+        reuse, _ = parallel.make_sharded_pair_fns(lambda d: gmfss.make_pair_fns(gmfss.init_params(0), device=d), mesh)
+        with pytest.raises(NotImplementedError, match="has no row-band rule: .*ROADMAP.md Queue 1 item"):
             reuse(f0, f1)
 
 

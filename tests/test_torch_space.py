@@ -21,9 +21,17 @@ against the port's own one-device runs, on logical replicas of the CPU.
   give the full flow gradient's rows.
 * each rule (``conv2d`` at stride 1 and 2 and with dilation 2,
   ``conv_transpose2d(4, 2, 1)``, bilinear resizes down and up, ``F.pad``,
-  a crop of the rows, ``pixel_shuffle``) on 2 and 3 bands against the same
-  op on the whole tensor; the ops without a rule raise, naming themselves
-  and the ``ROADMAP.md`` item; ``band_rows``' splits.
+  a crop of the rows, ``pixel_shuffle``; and M2M's: the replicate pad and a
+  replicate-padded convolution, the 2x2 stride-2 convolution,
+  ``avg_pool2d``, ``prelu``, the cost volume, ``exp``/``abs``/``square``/
+  ``sqrt``/comparisons/``clamp(min=)``, means over the rows, columns and
+  channels, the frame's mean and ``var``, a sum over the batch and rows,
+  the attention's ``einsum``, ``repeat``, ``reshape``, ``unflatten``,
+  ``_repeat_branches``, an index with ``...``, the splat) on 2 and 3 bands
+  against the same op on the whole tensor (the reductions over the rows
+  give a plain tensor); the ops without a rule raise, naming themselves and
+  the ``ROADMAP.md`` item; ``band_rows``' splits. M2M's pair functions on
+  the axis: ``tests/test_torch_space_m2m.py``.
 * ``dryrun(2, device="cpu")`` trains on ``mesh={'data': 1, 'space': 2}``.
 * ``utils/space_witness.py`` at b2 x 136x64 (the pad in the last band): the
   ``(1, 2)`` step's gradients in f64 within 1e-12 of each tensor's largest
@@ -37,6 +45,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 import jax
@@ -49,7 +58,9 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan, run_plan_window4
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
-from comfyui_frame_interpolation_tpu_torch.models import rife
+from comfyui_frame_interpolation_tpu_torch.models import m2m, rife
+from comfyui_frame_interpolation_tpu_torch.ops.costvol import costvol_func
+from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_backward_torch, warp_torch
 from comfyui_frame_interpolation_tpu_torch.parallel import space, train
 from comfyui_frame_interpolation_tpu_torch.utils import space_witness
@@ -217,15 +228,48 @@ RULES = {
     "pad": lambda x: F.pad(x, (0, 3, 2, 5)),
     "crop": lambda x: x[:, 1:3, 5:-7, 2:],
     "pixel_shuffle": lambda x: F.pixel_shuffle(x, 2),
+    # M2M's (pair_reuse, pair_infer and their modules)
+    "pad replicate": lambda x: F.pad(x, (0, 3, 2, 5), mode="replicate"),
+    "conv2d after a replicate pad": lambda x: nn.Conv2d(4, 5, 3, 1, 1, padding_mode="replicate")(x),  # seeded by the test
+    "conv2d 2x2 stride 2": lambda x: F.conv2d(x, _weight(6, 4, 2, 4), None, 2, 0),
+    "avg_pool2d": lambda x: F.avg_pool2d(x, 2, 2),
+    "prelu": lambda x: F.prelu(x, torch.tensor([0.25, -0.5, 0.1, 2.0])),
+    "costvol": lambda x: costvol_func(x[:, :2], x[:, 2:]),
+    "unary and comparisons": lambda x: torch.exp(x.clamp(-2.0, 2.0)) + x.abs().square().sqrt() * (x < 0.1).to(x.dtype)
+    - (x >= 0.3).float() + (0.5 > x).float(),
+    "clamp(min=) and rsub": lambda x: (1.0 - 2.0 * x).clamp(min=0.001).square(),
+    "mean over the rows and columns": lambda x: x.mean((2, 3), keepdim=True),
+    "mean over the rows": lambda x: x.mean(2, keepdim=True),
+    "mean over the columns": lambda x: x.mean(3, keepdim=True),
+    "mean over the channels": lambda x: x.mean(1, keepdim=True),
+    "mean and var of the frame": lambda x: x.var((1, 2, 3), keepdim=True, unbiased=False) + x.mean((1, 2, 3), keepdim=True),
+    "sum over the batch and rows": lambda x: x.sum((0, 2)),
+    "einsum": lambda x: torch.einsum("nic,nih,niw->nchw", CUBE_C, x.mean(3), CUBE_W),
+    "repeat": lambda x: x.repeat(1, 3, 1, 1),
+    "reshape": lambda x: x.reshape(4, 2, x.shape[2], x.shape[3]),
+    "unflatten and a batch sum": lambda x: x.unflatten(1, (2, 2)).sum(2) + x.unflatten(0, (1, 2)).sum(0)[:, :2],
+    "repeat_branches": lambda x: m2m._repeat_branches(x),
+    "Ellipsis": lambda x: x.permute(0, 2, 3, 1)[..., 1:-1],
+    "softsplat": lambda x: softsplat_func(x[:, 1:].permute(0, 2, 3, 1), (x[:, :2] * 9).permute(0, 2, 3, 1)),
 }
+# a value without rows: the reductions over the rows give a plain tensor
+PLAIN_RESULT = {"mean over the rows and columns", "mean over the rows", "mean and var of the frame", "sum over the batch and rows"}
+CUBE_C = torch.from_numpy(np.random.default_rng(11).random((2, 4, 3), np.float32))
+CUBE_W = torch.from_numpy(np.random.default_rng(12).random((2, 4, 20), np.float32))
 
 
 @pytest.mark.parametrize("n", [2, 3])
 @pytest.mark.parametrize("rule", list(RULES))
 def test_rule_against_the_whole_tensor(rule, n):
     x = _nchw(4, 192 + 8, 20, 9)  # bands of 128 + 72 or 128 + 64 + 8 rows
+    torch.manual_seed(0)
     ref = RULES[rule](x)
+    torch.manual_seed(0)
     out = RULES[rule](_bands(x, n))
+    if rule in PLAIN_RESULT:
+        assert isinstance(out, torch.Tensor) and out.shape == ref.shape
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+        return
     assert isinstance(out, space.RowBands) and tuple(out.shape) == tuple(ref.shape)
     torch.testing.assert_close(out.gather(CPU), ref, rtol=0, atol=1e-5)
 
@@ -235,7 +279,7 @@ NO_RULE = {
     "Tensor.view": lambda x: x.view(-1),
     "interpolate": lambda x: F.interpolate(x, scale_factor=2, mode="nearest"),
     "torch.cat along the rows": lambda x: torch.cat([x, x], 2),
-    "avg_pool2d": lambda x: F.avg_pool2d(x, 2),
+    "avg_pool2d": lambda x: F.avg_pool2d(x, 3, 1),
 }
 
 

@@ -48,3 +48,15 @@ def test_library_splat_matches_twin_and_jax(name):
     ref = np.asarray(_softsplat_xla(jnp.asarray(case["vals"]), jnp.asarray(dropped)))
     for other in (twin, ref):
         np.testing.assert_allclose(got, other, rtol=0, atol=RTOL_OF_MAX * float(np.abs(other).max(initial=0.0)) + ATOL)
+
+
+@pytest.mark.parametrize("name", ["smooth_amp8_c4", "rough_x40_c4"])
+def test_library_splat_band_matches_the_twins_band(name):
+    """K2's band (``row0``, ``out_rows``): the call on the rows 12-32 of a
+    case is the twin's band partial, ``[N, C, out_rows, W]``."""
+    case = CASES[name]
+    vals, flow = torch.from_numpy(case["vals"])[:, 12:], torch.from_numpy(case["flow"])[:, 12:]
+    got = library_splat(vals, flow, row0=12, out_rows=32)()
+    assert got.shape == (vals.shape[0], vals.shape[3], 32, vals.shape[2])
+    twin = softsplat_torch(vals, flow, row0=12, out_rows=32).numpy()
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), twin, rtol=0, atol=RTOL_OF_MAX * float(np.abs(twin).max()) + ATOL)
