@@ -420,7 +420,8 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    exactly K1 4, wide 16, splat 1, the warp's backward 20 and the splat's
    1, and no CUDA warp or splat that needs a gradient reaching a twin;
 54. m2m train timing -- M2M training at b8 x 256x256 (crops of Vimeo-90K's
-   448x256 triplets), f32 (TF32 at torch's defaults) and bf16, as phase 50:
+   448x256 triplets), f32 (TF32 at torch's defaults) and bf16, as phase 50
+   but in 7 windows of 5 steps each:
    steps/s and samples/s, the windows' spread, the peak memory of one step,
    a profile of one f32 step with the splat backward's device ms and
    share; at ``[64, 256, 256, 4]`` f32 and bf16 (the step's splat) and
@@ -4740,16 +4741,19 @@ def main() -> int:
         for _ in range(3):
             step(*batch54)
     torch.cuda.synchronize()
+    # windows of 5 steps (~1.6 s, as the families' 2 steps of 200-600 ms):
+    # RIFE's 20 a window took M2M's 300 ms steps ~90 s of the run's limit
+    m2m_steps = 5
     m2m_windows = {name: [] for name in m2m_trainers}
     for i in range(n_windows):
         for name in (list(m2m_trainers) if i % 2 == 0 else list(m2m_trainers)[::-1]):
             _, step, batch54 = m2m_trainers[name]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            for _ in range(n_steps):
+            for _ in range(m2m_steps):
                 loss = step(*batch54)
             torch.cuda.synchronize()
-            m2m_windows[name].append(1e3 * (time.perf_counter() - t1) / n_steps)
+            m2m_windows[name].append(1e3 * (time.perf_counter() - t1) / m2m_steps)
             check(bool(torch.isfinite(loss)), f"M2M training step {name}: loss {loss}")
     m2m_train_rows = {}
     for name, (dtype, step, batch54) in m2m_trainers.items():
@@ -4767,7 +4771,7 @@ def main() -> int:
         print(
             f"timing {card}: M2M training b{M2M_TRAIN_BATCH} {M2M_TRAIN_HW[0]}x{M2M_TRAIN_HW[1]} {name}, Adam 1e-4: "
             f"{1e3 / ms_step:.3f} steps/s, {1e3 * M2M_TRAIN_BATCH / ms_step:.2f} samples/s (median {ms_step:.3f} ms a step over "
-            f"{n_windows} windows of {n_steps} steps, in turns with the other dtype; windows {min(m2m_windows[name]):.3f} to "
+            f"{n_windows} windows of {m2m_steps} steps, in turns with the other dtype; windows {min(m2m_windows[name]):.3f} to "
             f"{max(m2m_windows[name]):.3f} ms), peak {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held",
             flush=True,
         )
