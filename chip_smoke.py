@@ -529,8 +529,26 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    ``aten.grid_sampler_2d_backward`` on the band's grid
    (``library_splat(..., row0=, out_rows=)``), and its bound (the band's
    values and flow in, the whole-frame f32 partial out).
+77. XVFI split -- XVFI Vimeo 1080p x2 b2 (3 frames) through
+   ``make_sharded_pair_fns`` + ``run_plan_pair_cached`` on the ``(1, 2)``
+   mesh of replicas (bands 576 + 504, the zero pad to 1088 in the second)
+   against one device: f32 within 1e-4 under TF32 off and cuDNN's
+   deterministic algorithms (each run also against itself: K2's atomics),
+   bf16 at or above 40 dB against the f32 one-device frames; K1's, the
+   wide kernel's and K2's launches read from the counters, twice one
+   device's (``xvfi.warps_per_reuse`` + ``warps_per_infer``,
+   ``splats_per_infer``); every launch of one bf16 split call made again on
+   its band (``captured_band_launches``) against the plain version, the
+   warps bit for bit, K2's partial within phase 7's f32 tolerance
+   (``band_launches_vs_plain``); frames/s of one pair batch in turns (one
+   round), peak memory and a profile (idle share, kernels) of each.
+78. FILM split -- FILM 1080p x2 b2 the same way through
+   ``make_sharded_model_fn`` + ``run_plan`` (``film.warps_per_forward``:
+   K1 5 and wide 11 a forward, twice on the mesh; the pyramid's 135 -> 67
+   rows put the bilinear and nearest resizes on rows by a ratio that is not
+   an integer).
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-78 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -561,7 +579,10 @@ runs of phase 44 under ``launches_by_path`` as ``rife_streaming`` and
 ``rife_train_space_2way`` hold phases 71-74's numbers), and phase 75's
 M2M run as ``m2m_space_2way`` (K1, the wide kernel and K2; the wide
 kernel's ``row_band`` and ``m2m_space_2way`` and K2's ``row_band`` hold
-phases 71, 75 and 76's numbers). CAIN, Sepconv,
+phases 71, 75 and 76's numbers), and phases 77's and 78's runs as
+``xvfi_space_2way`` and ``film_space_2way`` (K1, the wide kernel and K2;
+K2's and the wide kernel's entries of those names hold the phases' rows,
+each kernel's band shapes among them). CAIN, Sepconv,
 FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
@@ -1147,6 +1168,73 @@ def warps_vs_plain(store, what):
         check(torch.equal(got, ref), f"{what}: {kernel} at {list(shape)} {img.dtype} {mode}, {flow.dtype} flow: max err {err}, not bit-exact")
         seen.setdefault(kernel, set()).add((shape, mode, str(img.dtype).split(".")[-1], str(flow.dtype).split(".")[-1]))
     return seen
+
+
+@contextlib.contextmanager
+def captured_band_launches(store):
+    """Inside, each call of K1's, the wide kernel's and K2's wrapper appends
+    ``(kernel, input copy, flow copy, positional arguments, keyword
+    arguments)`` to ``store``: the launches a split run makes, with each
+    band's ``row0`` (and K2's ``out_rows``), which the wrappers take by
+    keyword and :func:`spying` does not record."""
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+
+    targets = [(warp_kernel, "warp_bilinear"), (warp_kernel, "warp_bilinear_wide"), (softsplat_kernel, "softsplat_bilinear")]
+    real = [getattr(module, attr) for module, attr in targets]
+
+    def spy(name, fn):
+        def call(x, flow, *args, **kwargs):
+            store.append((name, x.clone(), flow.clone(), args, dict(kwargs)))
+            return fn(x, flow, *args, **kwargs)
+
+        return call
+
+    try:
+        for (module, attr), fn in zip(targets, real):
+            setattr(module, attr, spy(attr, fn))
+        yield
+    finally:
+        for (module, attr), fn in zip(targets, real):
+            setattr(module, attr, fn)
+
+
+def band_launches_vs_plain(store, what):
+    """Each captured launch of :func:`captured_band_launches` made again
+    through its wrapper on the copies and held against its plain version on
+    the same band: the warps bit for bit (``warp_torch(..., row0=)``), K2's
+    whole-frame f32 partial within 1e-5 of the largest magnitude (at least
+    1) (``softsplat_torch(..., row0=, out_rows=)``). Returns ``{kernel:
+    sorted (band's NHWC shape, source rows, row0, dtype)}`` and the largest
+    error."""
+    import torch
+    from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
+    from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_torch
+    from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_torch
+
+    seen, worst = {}, 0.0
+    nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+    for kernel, x, flow, args, kwargs in store:
+        row0 = kwargs.get("row0", 0)
+        if kernel == "softsplat_bilinear":
+            got = nhwc(softsplat_kernel.softsplat_bilinear(x, flow, *args, **kwargs))
+            ref = softsplat_torch(nhwc(x).float(), nhwc(flow), row0=row0, out_rows=kwargs.get("out_rows"))
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            ok = err <= SPLAT_F32_ATOL * max(1.0, ref.abs().max().item())
+            rows = kwargs.get("out_rows") or x.shape[2]
+        else:
+            zeros = bool(args[0]) if args else bool(kwargs.get("zeros", False))
+            got = nhwc(getattr(warp_kernel, kernel)(x, flow, *args, **kwargs))
+            ref = warp_torch(nhwc(x), nhwc(flow), "zeros" if zeros else "border", row0=row0)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            ok = torch.equal(got, ref)
+            rows = x.shape[2]
+        worst = max(worst, err)
+        band = (flow.shape[0], flow.shape[2], flow.shape[3], x.shape[1])
+        check(ok, f"{what}: {kernel} on the band {list(band)} from row {row0} of {rows} {x.dtype}: max err {err} against the plain version")
+        seen.setdefault(kernel, set()).add((band, rows, row0, str(x.dtype).split(".")[-1]))
+    return {k: sorted(v) for k, v in seen.items()}, worst
 
 
 @contextlib.contextmanager
@@ -5398,6 +5486,134 @@ def main() -> int:
         flush=True,
     )
 
+    # ---- 77-78. XVFI Vimeo (pair-cached) and FILM 1080p through the split -------------------
+    # on the (1, 2) mesh of replicas, each as phase 75: 3 frames x2 at b2 (one
+    # batch), rows in bands of 576 + 504 (XVFI's zero pad to 1088 in the
+    # second), against one device: f32 with TF32 off and cuDNN's
+    # deterministic algorithms (each run also against itself), bf16 against
+    # the f32 one-device frames; the launches of K1, the wide kernel and K2
+    # twice one device's; every launch of one bf16 split call made again on
+    # its band against the plain version; frames/s in turns (one round in
+    # bf16), peak memory and a profile of each
+    def space_split_phase(label, executor, shard, make, clip, plan, want_one, call):
+        """``make(dtype)`` -> one device's callable(s) for ``executor`` (a
+        tuple for the pair-cached one), ``shard`` the matching
+        ``parallel.make_sharded_*``, ``call(fns)`` one batch's forward of
+        ``(f0, f1, t)``. Returns the row of the kernels line."""
+        as_args = lambda fns: fns if isinstance(fns, tuple) else (fns,)  # noqa: E731
+        outs, rows, settings, launches = {}, {}, {}, {"narrow": 0, "wide": 0, "splat": 0}
+        bands, band_err = {}, 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            one = make(dtype)
+            two = shard(lambda d: one, mesh_s)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            try:
+                one_out, one_n, one_peak = executor_run(executor, clip, plan, *as_args(one), batch_size=2)
+                two_out, two_n, two_peak = executor_run(executor, clip, plan, *as_args(two), batch_size=2)
+                if dtype == torch.float32:
+                    two_again, _, _ = executor_run(executor, clip, plan, *as_args(two), batch_size=2)
+                    one_again, _, _ = executor_run(executor, clip, plan, *as_args(one), batch_size=2)
+                    settings = {"split_repeat_max_abs_diff": (two_again - two_out).abs().max().item(),
+                                "one_device_repeat_max_abs_diff": (one_again - one_out).abs().max().item()}
+                    del two_again, one_again
+            finally:
+                torch.backends.cudnn.deterministic = det
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+            want = want_one(dtype)
+            check(one_n == want and two_n == {k: 2 * v for k, v in want.items()},
+                  f"{label} {name} launches: one device {one_n}, the (1, 2) mesh {two_n}; expected {want} and twice that")
+            check(tuple(two_out.shape) == (5, 1080, 1920, 3) and bool(torch.isfinite(two_out).all()),
+                  f"{label} {name} on the (1, 2) mesh: {tuple(two_out.shape)}, finite {bool(torch.isfinite(two_out).all())}")
+            launches = {k: launches[k] + two_n[k] for k in launches}
+            outs[name] = (one_out, two_out)
+            if dtype != torch.bfloat16:
+                del one, two
+                torch.cuda.empty_cache()
+                continue
+            f0 = torch.from_numpy(np.random.default_rng(0).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+            f1 = torch.from_numpy(np.random.default_rng(1).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+            tt = torch.full((2,), 0.5, device=dev)
+            # each band's launches of one split call, against the plain versions
+            store = []
+            with captured_band_launches(store):
+                call(two)(f0, f1, tt)
+            torch.cuda.synchronize()
+            bands, band_err = band_launches_vs_plain(store, f"{label} bf16 on the (1, 2) mesh")
+            check(len(store) == sum(two_n.values()), f"{label}: {len(store)} launches captured, the run made {two_n}")
+            del store
+            torch.cuda.empty_cache()
+            calls = {"one device": one, "(1, 2) mesh": two}
+            fps = {key: [] for key in calls}
+            for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
+                fps[key].append(2 / measure(call(calls[key]), f0, f1, tt, iters=3, rounds=1))
+            totals = {key: {} for key in calls}
+            for key, fns in calls.items():
+                profile_forward(f"{label} 1080p {name} b2, {key}", call(fns), f0, f1, tt, card=card, unit="batch", totals=totals[key])
+            rows[name] = {
+                key: {"frames_per_s": statistics.mean(fps[key]), "frames_per_s_turns": fps[key],
+                      "peak_executor_bytes": one_peak if key == "one device" else two_peak,
+                      "idle_share": totals[key]["idle_share"], "device_ms": totals[key]["device_ms"],
+                      "wall_ms": totals[key]["wall_ms"], "kernels": totals[key]["kernels"]}
+                for key in fps
+            }
+            del one, two, calls, f0, f1, tt
+            torch.cuda.empty_cache()
+        f32_err = (outs["float32"][1] - outs["float32"][0]).abs().max().item()
+        check(f32_err <= 1e-4, f"{label} f32 on the (1, 2) mesh: max abs {f32_err} from one device, above 1e-4")
+        bf16_db = psnr(outs["bfloat16"][1], outs["float32"][0])
+        bf16_one_db = psnr(outs["bfloat16"][0], outs["float32"][0])
+        check(bf16_db >= 40.0, f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below 40")
+        return {"f32_max_abs_err": f32_err, "f32_settings": settings, "bf16_psnr_db": bf16_db, "bf16_one_device_psnr_db": bf16_one_db,
+                "launches": launches, "bands": {k: [[list(b), r, a, d] for b, r, a, d in v] for k, v in bands.items()},
+                "band_max_abs_err": band_err, "runs": rows}
+
+    def space_split_line(number, label, row, t0):
+        print(
+            f"space {card}: phase {number}: {label} 1080p x2 b2 (3 frames, 2 mids) on a (1, 2) mesh of replicas of the card, "
+            f"bands {band_rows(1080, 2)}: f32 (TF32 off, cuDNN deterministic) max abs {row['f32_max_abs_err']:.3g} from one "
+            f"device, the (1, 2) run against itself {row['f32_settings']['split_repeat_max_abs_diff']:.3g}, one device against "
+            f"itself {row['f32_settings']['one_device_repeat_max_abs_diff']:.3g}; bf16 {row['bf16_psnr_db']:.2f} dB against the "
+            f"f32 one-device frames (one device bf16 {row['bf16_one_device_psnr_db']:.2f} dB); launches {row['launches']} for the "
+            f"two split runs; each band's launch of one bf16 split call against its plain version (max err "
+            f"{row['band_max_abs_err']:.3g}): " + "; ".join(f"{k} {v}" for k, v in row["bands"].items()) + "; "
+            + "; ".join(
+                f"{name} {key}: {r['frames_per_s']:.3f} frames/s (turns {', '.join(f'{v:.3f}' for v in r['frames_per_s_turns'])}), "
+                f"executor peak {r['peak_executor_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, {r['kernels']} kernels"
+                for name, rows_ in row["runs"].items() for key, r in rows_.items()
+            ) + f"; phase {time.perf_counter() - t0:.1f} s",
+            flush=True,
+        )
+
+    t0 = time.perf_counter()
+    xvfi_ckpt = "XVFInet_Vimeo_exp1_latest.pt"
+    xvfi_params77 = xvfi.init_params(xvfi_ckpt, 0)
+
+    def xvfi_want(dtype):
+        per = {k: xvfi.warps_per_reuse(xvfi_ckpt, dtype)[k] + xvfi.warps_per_infer(dtype)[k] for k in ("narrow", "wide")}
+        return {**per, "splat": xvfi.splats_per_infer()}
+
+    xvfi_space = space_split_phase(
+        "XVFI Vimeo", run_plan_pair_cached, parallel.make_sharded_pair_fns,
+        lambda dtype: xvfi.make_pair_fns(xvfi_params77, xvfi_ckpt, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=77)).to(dev), plan_timestep(3, 2), xvfi_want,
+        lambda fns: (lambda a, b, t: fns[1](a, b, fns[0](a, b), t)),
+    )
+    del xvfi_params77
+    space_split_line(77, "XVFI Vimeo (pair-cached: reuse + infer)", xvfi_space, t0)
+
+    t0 = time.perf_counter()
+    film_params78 = film.init_params(0)
+    film_space = space_split_phase(
+        "FILM", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: film.make_model_fn(film_params78, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=78)).to(dev), plan_timestep(3, 2),
+        lambda dtype: {**film.warps_per_forward(dtype), "splat": 0}, lambda fn: fn,
+    )
+    del film_params78
+    space_split_line(78, "FILM", film_space, t0)
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -5429,7 +5645,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-76 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-78 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -5444,7 +5660,8 @@ def main() -> int:
             + train_launches["narrow"] + rife_sharded_launches["narrow"] + m2m_sharded_launches["narrow"]
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
-            + space_train_launches["narrow"] + m2m_space_launches["narrow"],
+            + space_train_launches["narrow"] + m2m_space_launches["narrow"] + xvfi_space["launches"]["narrow"]
+            + film_space["launches"]["narrow"],
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -5458,6 +5675,7 @@ def main() -> int:
                 "rife_train_2way": train2_launches["narrow"], "m2m_train": m2m_train_launches["narrow"],
                 **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
                 "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
+                "xvfi_space_2way": xvfi_space["launches"]["narrow"], "film_space_2way": film_space["launches"]["narrow"],
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -5488,7 +5706,8 @@ def main() -> int:
             + ifrnet_launches["wide"] + ifunet_launches["wide"] + amt_launches["wide"] + atm_launches["wide"]
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
-            + sum(family_launches["wide"].values()) + m2m_space_launches["wide"],
+            + sum(family_launches["wide"].values()) + m2m_space_launches["wide"] + xvfi_space["launches"]["wide"]
+            + film_space["launches"]["wide"],
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -5498,6 +5717,7 @@ def main() -> int:
                 "momo": momo_launches["wide"], "rife_train": train_launches["wide"], "m2m_sharded": m2m_sharded_launches["wide"],
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
                 **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
+                "xvfi_space_2way": xvfi_space["launches"]["wide"], "film_space_2way": film_space["launches"]["wide"],
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -5523,6 +5743,7 @@ def main() -> int:
                          "library_ms": wide_band_ms[wide_band_main]["grid_sample band"], "by_shape": wide_band_ms},
             "m2m_space_2way": {"f32_max_abs_err": m2m_f32_err, "f32_settings": m2m_f32_settings, "bf16_psnr_db": m2m_bf16_db,
                                "runs": m2m_space_rows},
+            "film_space_2way": film_space,
         },
         {
             "name": "softsplat",
@@ -5532,7 +5753,8 @@ def main() -> int:
             "launches": m2m_splat_launches + sum(v["splat"] for v in gmfss_launches.values()) + eisai_launches["splat"]
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
-            + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"],
+            + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"]
+            + xvfi_space["launches"]["splat"],
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -5541,6 +5763,7 @@ def main() -> int:
                 "rife_train": train_launches["splat"], "m2m_sharded": m2m_sharded_launches["splat"],
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
                 **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
+                "xvfi_space_2way": xvfi_space["launches"]["splat"], "film_space_2way": film_space["launches"]["splat"],
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -5555,6 +5778,7 @@ def main() -> int:
             "eisai_shapes": eisai_splat_times,
             "stmfnet_shapes": stmf_splat_times,
             "xvfi_shapes": xsplat_times,
+            "xvfi_space_2way": xvfi_space,
             "per_forward": per_forward["softsplat"],
             "row_band": {"shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, rows {splat_spans[1][0]}-{sum(splat_spans[1])} into the whole "
                                   f"frame's f32 partial", "max_abs_err": sband_err, "ms": sband_ms["K2 band"],

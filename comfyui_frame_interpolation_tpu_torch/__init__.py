@@ -6,13 +6,17 @@ kernels for ``sm_90a`` (``csrc/``, built with ``nvcc`` at first use). Public
 functions keep the JAX package's NHWC layout; CPU tensors take each kernel's
 plain PyTorch twin, so the package imports and runs on a machine with no GPU.
 
-Ported so far: 17 of the JAX package's 18 nodes: the RIFE VFI node (every
-arch of the JAX package, 4.0 to 4.26), the M2M, FILM, GMFSS Fortuna (base
-and union), EISAI, STMFNet, FLAVR, IFRNet, IFUnet, AMT, ATM, XVFI, CAIN and
-Sepconv VFI nodes end to end, with the backward-warp (narrow-channel K1 and
-wide-channel) and forward-splat kernels, the three non-VFI nodes, and the
-resident and streaming executors. ``ROADMAP.md`` lists what is still to be
-ported (MoMo).
+Ported: all 18 of the JAX package's nodes (the RIFE VFI node at every
+arch of the JAX package, 4.0 to 4.26; the M2M, FILM, GMFSS Fortuna (base
+and union), EISAI, STMFNet, FLAVR, IFRNet, IFUnet, AMT, ATM, XVFI, CAIN,
+Sepconv and MoMo VFI nodes; the three non-VFI nodes) end to end, with the
+backward-warp (narrow-channel K1 and wide-channel) and forward-splat
+kernels and their backward kernels; the resident and streaming executors;
+training of all 15 model families through ``parallel/``, whose ``(data,
+space)`` mesh splits the batch over ``data`` and, on the ``space`` axis,
+the rows of RIFE (every arch, inference; 4.7's training step), M2M's and
+XVFI Vimeo's pair-cached inference and FILM. ``ROADMAP.md`` lists what is
+still to be ported (the ``space`` axis of the other families).
 """
 
 from . import core, ops

@@ -38,6 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = [
     "PRELU_INIT",
@@ -152,7 +153,10 @@ def conv2x2_up2x(
     pixel), each ``padding="same"``, interleaved into the full-size result:
     9 products per 4 output pixels instead of 16. ``x`` may be a list of
     channel parts, as in :func:`conv2d_concat`. The output is
-    ``channels_last``."""
+    ``channels_last``. A value that overrides torch functions (a row band
+    of ``parallel.space``, alone or as a part) goes to its own rule."""
+    if has_torch_function((x,)):
+        return handle_torch_function(conv2x2_up2x, (x,), x, weight, bias)
     if not isinstance(x, torch.Tensor):
         out = None
         off = 0

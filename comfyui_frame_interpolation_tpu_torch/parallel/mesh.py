@@ -22,10 +22,10 @@ Both axes run. Torch has no GSPMD halo exchange, so the ``space`` axis is
 devices, and an allow-list of rules (halo rows for the convolutions and the
 cost volume, the global ratio for the resizes, the whole source gathered
 for the warp, partial sums for the splat and the reductions over rows) by
-which RIFE 4.7's inference (:func:`~.infer.make_sharded_model_fn`) and
-training step (:func:`~.train.make_train_step`) and M2M's pair-cached
-inference (:func:`~.infer.make_sharded_pair_fns`) run band by band. Every
-other op raises ``NotImplementedError`` on a band, naming itself and the
+which RIFE's inference, every arch (:func:`~.infer.make_sharded_model_fn`),
+RIFE 4.7's training step (:func:`~.train.make_train_step`), M2M's and XVFI
+Vimeo's pair-cached inference (:func:`~.infer.make_sharded_pair_fns`) and
+FILM's inference run band by band. Every other op raises ``NotImplementedError`` on a band, naming itself and the
 ``ROADMAP.md`` item that ports the rest (:data:`SPACE_TODO`): no run that
 the policy splits over ``space`` runs data-parallel in its place
 (:func:`check_runnable` raises for a caller that cannot split rows). On
@@ -57,8 +57,8 @@ MIN_ROWS_PER_SHARD = 64
 
 # what a run on the space axis that no row-band rule covers is told
 SPACE_TODO = (
-    "the 'space' axis (rows split over devices) runs RIFE 4.7's inference and training step and M2M's "
-    "pair-cached inference; the rest is ROADMAP.md Queue 1 item 3"
+    "the 'space' axis (rows split over devices) runs RIFE's inference (every arch), RIFE 4.7's training step, "
+    "M2M's and XVFI Vimeo's pair-cached inference and FILM's inference; the rest is ROADMAP.md Queue 1 item 3"
 )
 
 

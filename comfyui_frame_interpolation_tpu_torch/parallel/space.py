@@ -17,28 +17,38 @@ module and tensor method that meets one) and ``ops.warp.warp`` hands it over
 the same way. Each call goes to the rule of an allow-list; a function
 without one raises ``NotImplementedError`` naming itself and the
 ``ROADMAP.md`` item that would port it. Nothing is gathered or run band by
-band unless a rule says so. The rules are those RIFE 4.7 and M2M's pair
-functions need:
+band unless a rule says so. The rules are those that RIFE (every arch, with
+and without fast mode), M2M's and XVFI Vimeo's pair functions and FILM
+need:
 
 * row-local ops, band by band: elementwise arithmetic, ``clamp`` (``min=``
-  too), ``sigmoid``, ``leaky_relu``, ``prelu`` (``nn.PReLU``), ``exp``,
-  ``abs``, ``square``, ``sqrt``, comparisons, casts, channel and batch
-  ``cat``, slices of the channel and batch dimensions (an ``...`` too),
-  ``permute``, the ``expand_as`` of a tensor without rows (the timestep
-  map), ``repeat``, ``reshape`` and ``unflatten`` of the dimensions before
-  the rows (each refuses a shape that moves or merges them), M2M's
-  ``_repeat_branches``, and ``pixel_shuffle``, which multiplies each band's
-  rows and first row;
+  too), ``sigmoid``, ``relu`` (``nn.ReLU``), ``leaky_relu``, ``prelu``
+  (``nn.PReLU``), ``exp``, ``abs``, ``square``, ``sqrt``, ``floor``,
+  comparisons, casts, channel and batch ``cat``, ``stack`` along a new
+  dimension, slices of the channel and batch dimensions (an ``...`` and
+  ``None`` too), ``permute``, the ``expand_as`` of a tensor without rows
+  (the timestep map), ``repeat``, ``reshape`` and ``unflatten`` of the
+  dimensions before the rows (each refuses a shape that moves or merges
+  them), M2M's ``_repeat_branches``, ``index_select`` of another
+  dimension, and ``pixel_shuffle`` and nearest ``interpolate`` by an
+  integer factor, which multiply each band's rows and first row (a
+  nearest downscale by ``s`` divides them, on bands that start on a
+  multiple of ``s``);
 * reductions (``sum``, ``mean``, ``var``): over other dimensions band by
   band; over the rows from each band's partial sum, added in band order on
   the value's device into a plain tensor (``var`` from that mean first);
+  ``amax`` and ``amin`` the same way, exact (RIFE 4.0's restart flag);
 * ``torch.einsum`` with one banded operand whose row subscript no other
   operand has and the result keeps (M2M's attention cube);
 * ``conv2d``: each band takes the ``dilation * (k - 1)`` rows around it
   that its outputs read (the halo) from its neighbours, zeros beyond the
   global top and bottom only, and owns the outputs whose middle input row
   is its own (so a VALID convolution after ``F.pad`` lines up as one that
-  pads itself);
+  pads itself); ``padding="same"`` as the explicit pad torch applies
+  (``floor`` of half the reach above, the rest below: an even kernel
+  reads one row below and none above); FILM's ``common.conv2x2_up2x``
+  (which hands a band over) with the one row below that its 2x2 taps
+  read, interleaved into a band of twice the rows;
 * ``avg_pool2d`` with windows of their own rows (kernel = stride, every
   band starting on a multiple of it);
 * ``ops.costvol.costvol_func``: each band compares against the ``+-4``
@@ -49,14 +59,21 @@ functions need:
   integer factor: the global ratio, not the band's; a downscale by ``s``
   is band-local when every band starts on a multiple of ``s``; an upscale
   reads one coarse row from each neighbour and is cropped, so the edge
-  clamp applies at the global edges only;
+  clamp applies at the global edges only; by a ratio that is not an
+  integer (FILM's pyramid at 1080 rows: 67 -> 135), the rows' two taps as
+  torch maps them on the rows each band's outputs read, then the columns;
+  each band's outputs start at ``floor(start * out / in)``, where a
+  pyramid of 2x2 poolings starts the next level's band; ``index_select``
+  of the rows (FILM's nearest resize) takes the same outputs and gathers
+  the rows they name;
 * ``F.pad`` (constant and replicate): the top pad goes to the first band,
   the bottom pad to the last (whose last row is the frame's); a slice of
   the rows crops each band;
 * the warp: the source is gathered whole onto each band's device (a
   differentiable ``cat``, so autograd adds each band's image gradient back
-  into the producing bands), the flow stays local and the kernel (K1 or
-  the wide kernel) warps the band from its first row (``row0``);
+  into the producing bands; a plain source, XVFI's f32 ones plane, only
+  moves there), the flow stays local and the kernel (K1 or the wide
+  kernel) warps the band from its first row (``row0``);
 * the splat (``ops.softsplat.softsplat_func``): band ``j``'s sources splat
   from their first row into a whole-frame f32 partial on band ``j``'s
   device (K2 with a band, ``softsplat_partial``); band ``k`` of the result
@@ -82,7 +99,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models import m2m
+from ..models import common, m2m
 from ..ops import costvol
 from ..ops.softsplat import softsplat_func, softsplat_partial
 from ..ops.warp import warp
@@ -299,6 +316,21 @@ class RowBands:
     def sqrt(self):
         return self._call(torch.Tensor.sqrt)
 
+    def floor(self):
+        return self._call(torch.Tensor.floor)
+
+    def relu(self):
+        return self._call(torch.Tensor.relu)
+
+    def amax(self, *args, **kwargs):
+        return self._call(torch.Tensor.amax, *args, **kwargs)
+
+    def amin(self, *args, **kwargs):
+        return self._call(torch.Tensor.amin, *args, **kwargs)
+
+    def index_select(self, dim, index):
+        return self._call(torch.Tensor.index_select, dim, index)
+
     def mean(self, *args, **kwargs):
         return self._call(torch.Tensor.mean, *args, **kwargs)
 
@@ -398,31 +430,53 @@ def _to(func, args, kwargs):
     return x.like([b.to(*kept, **kwargs) for b in x.bands])
 
 
-def _cat(func, args, kwargs):
-    tensors, dim = _bind(func, ("tensors", "dim"), (None, 0), args, kwargs)
+def _alike_bands(func, tensors, what: str) -> RowBands:
+    """The first of ``tensors``, which must all be values in the same row
+    bands."""
     ref = _first_bands([tensors])
     for t in tensors:
         if not isinstance(t, RowBands):
-            raise _no_rule(f"torch.cat of a plain tensor {tuple(t.shape)} with row bands")
+            raise _no_rule(f"{what} of a plain tensor {tuple(t.shape)} with row bands")
         _check_alike(func, ref, t)
+    return ref
+
+
+def _cat(func, args, kwargs):
+    tensors, dim = _bind(func, ("tensors", "dim"), (None, 0), args, kwargs)
+    ref = _alike_bands(func, tensors, "torch.cat")
     d = dim % ref.ndim
     if d == ref.axis:
         raise _no_rule("torch.cat along the rows")
     return ref.like([torch.cat([t.bands[j] for t in tensors], d) for j in range(len(ref.bands))])
 
 
+def _stack(func, args, kwargs):
+    """``torch.stack`` of values in the same row bands along a new
+    dimension: band by band, the rows one dimension later when the new one
+    lands before them."""
+    tensors, dim = _bind(func, ("tensors", "dim"), (None, 0), args, kwargs)
+    ref = _alike_bands(func, tensors, "torch.stack")
+    d = dim % (ref.ndim + 1)
+    axis = ref.axis + (d <= ref.axis)
+    return ref.like([torch.stack([t.bands[j] for t in tensors], d) for j in range(len(ref.bands))], axis)
+
+
 def _getitem(func, args, kwargs):
     x, index = args
     index = index if isinstance(index, tuple) else (index,)
+    used = sum(i is not None and i is not Ellipsis for i in index)  # the entries that take a dimension
     if index.count(Ellipsis) == 1:
         k = index.index(Ellipsis)
-        index = index[:k] + (slice(None),) * (x.ndim - len(index) + 1) + index[k + 1 :]
-    if len(index) > x.ndim or not all(isinstance(i, (int, slice)) for i in index):
-        raise _no_rule(f"Tensor.__getitem__ with {index!r} (slices, integers and one Ellipsis only)")
-    index = index + (slice(None),) * (x.ndim - len(index))
-    if isinstance(index[x.axis], int):
+        index = index[:k] + (slice(None),) * (x.ndim - used) + index[k + 1 :]
+        used = x.ndim
+    if used > x.ndim or not all(i is None or isinstance(i, (int, slice)) for i in index):
+        raise _no_rule(f"Tensor.__getitem__ with {index!r} (slices, integers, None and one Ellipsis only)")
+    index = index + (slice(None),) * (x.ndim - used)
+    # the entry of the rows: the axis-th that takes a dimension
+    k = [j for j, i in enumerate(index) if i is not None][x.axis]
+    if isinstance(index[k], int):
         raise _no_rule("Tensor.__getitem__ of one row")
-    start, stop, step = index[x.axis].indices(x.height)
+    start, stop, step = index[k].indices(x.height)
     if step != 1:
         raise _no_rule("Tensor.__getitem__ of rows with a step")
     stop = max(stop, start)
@@ -431,11 +485,11 @@ def _getitem(func, args, kwargs):
         n = b.shape[x.axis]
         a, e = min(max(start - s, 0), n), min(max(stop - s, 0), n)
         local = list(index)
-        local[x.axis] = slice(a, max(a, e))
+        local[k] = slice(a, max(a, e))
         bands.append(b[tuple(local)])
         starts.append(max(s + a - start, 0))
-    # integers before the rows take their dimensions away
-    return RowBands(bands, starts, stop - start, x.axis - sum(isinstance(i, int) for i in index[: x.axis]))
+    # integers before the rows take their dimensions away, and None adds one
+    return RowBands(bands, starts, stop - start, sum(not isinstance(i, int) for i in index[:k]))
 
 
 def _permute(func, args, kwargs):
@@ -470,6 +524,8 @@ def _conv2d(func, args, kwargs):
     )
     if not isinstance(x, RowBands) or x.axis != 2 or isinstance(weight, RowBands):
         raise _no_rule("conv2d of a value without NCHW row bands as its input")
+    if padding == "same":
+        return _conv2d_same(func, x, weight, bias, stride, dilation, groups)
     if isinstance(padding, str):
         if padding != "valid":
             raise _no_rule(f"conv2d with padding={padding!r}")
@@ -489,6 +545,29 @@ def _conv2d(func, args, kwargs):
         b = None if bias is None else bias.to(dev)
         out.append(func(rows, weight.to(dev), b, (sh, sw), (0, pw), (dh, dw), groups))
     return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
+
+
+def _conv2d_same(func, x: RowBands, weight, bias, stride, dilation, groups):
+    """``conv2d(padding="same")`` as the explicit pad torch applies:
+    ``dilation * (k - 1)`` rows (columns) in all, ``floor(half)`` on top
+    (left) and the rest below (right), so an even kernel reads one row below
+    and none above. Each band owns the outputs of its own rows (whose
+    middle input row is its own, as :func:`_conv2d`) and reads the halo
+    around them, zeros beyond the global top and bottom only."""
+    if _pair(stride) != (1, 1):
+        raise _no_rule(f"conv2d(padding='same') with stride {stride}")
+    dh, dw = _pair(dilation)
+    reach, reach_w = dh * (weight.shape[2] - 1), dw * (weight.shape[3] - 1)
+    top, left = reach // 2, reach_w // 2
+    out = []
+    for j, (b, a) in enumerate(zip(x.bands, x.starts)):
+        dev = b.device
+        rows = x.rows(a - top, a + b.shape[2] + reach - top, j)
+        pw = left
+        if reach_w - left != left:  # an even kernel's extra column on the right
+            rows, pw = F.pad(rows, (left, reach_w - left)), 0
+        out.append(func(rows, weight.to(dev), None if bias is None else bias.to(dev), 1, (0, pw), (dh, dw), groups))
+    return x.like(out)
 
 
 def _conv_transpose2d(func, args, kwargs):
@@ -531,10 +610,12 @@ def _interpolate(func, args, kwargs):
     x, size, scale_factor, mode, align_corners, recompute, antialias = _bind(
         func, _INTERPOLATE, (None, None, None, "nearest", None, None, False), args, kwargs
     )
+    if mode == "nearest" and not antialias and not recompute and x.axis == 2:
+        return _nearest(func, x, size, scale_factor)
     if mode != "bilinear" or align_corners or antialias or size is None or scale_factor is not None or x.axis != 2:
         raise _no_rule(
             f"interpolate(mode={mode!r}, align_corners={align_corners}, antialias={antialias}, "
-            f"size={size}, scale_factor={scale_factor}) (bilinear to a size, align_corners=False)"
+            f"size={size}, scale_factor={scale_factor}) (bilinear to a size, align_corners=False, or nearest)"
         )
     out_h, out_w = _pair(size)
     h = x.height
@@ -552,7 +633,77 @@ def _interpolate(func, args, kwargs):
             y = func(x.rows(lo, hi, j), size=((hi - lo) * s, out_w), **kw)
             out.append(y.narrow(2, (a - lo) * s, b.shape[2] * s))
         return RowBands(out, [a * s for a in x.starts], out_h, 2)
-    raise _no_rule(f"interpolate from {h} to {out_h} rows (an integer factor, on bands that it divides)")
+    return _bilinear_rows(func, x, out_h, out_w)
+
+
+def _resized_starts(x: RowBands, out_h: int) -> List[Tuple[int, int]]:
+    """Each band's output rows of a resize of ``x`` to ``out_h`` rows: from
+    ``floor(start * out_h / height)``, which is where the next level of a
+    pyramid of 2x2 poolings starts its band (FILM's 67 -> 135 rows)."""
+    return _owned(x.starts, out_h, lambda s: s * out_h // x.height)
+
+
+def _bilinear_rows(func, x: RowBands, out_h: int, out_w: int) -> RowBands:
+    """Bilinear (``align_corners=False``) to ``out_h`` rows by a ratio that
+    is not an integer: the rows as torch maps them (source ``max(scale *
+    (dst + 0.5) - 0.5, 0)`` with ``scale = height / out_h`` in the op's
+    accumulation type, the lower tap ``floor``, the upper one a row below
+    but at the last row), on the input rows each band's outputs read;
+    then the columns by ``func`` at the rows' own height, in that type, and
+    one rounding to the input's dtype. The same two-tap sums as the op on
+    the whole tensor, rows first."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    h = x.height
+    scale = torch.tensor(h, dtype=acc) / out_h
+    spans = _resized_starts(x, out_h)
+    out = []
+    for j, (o0, o1) in enumerate(spans):
+        src = (scale * (torch.arange(o0, o1, dtype=acc) + 0.5) - 0.5).clamp_min(0.0)
+        lo_row = src.to(torch.int64)
+        hi_row = torch.where(lo_row < h - 1, lo_row + 1, lo_row)
+        lam = (src - lo_row.to(acc)).view(1, 1, -1, 1)
+        first, last = int(lo_row[0]), int(hi_row[-1])
+        rows = x.rows(first, last + 1, j)
+        dev = rows.device
+        top = rows.index_select(2, (lo_row - first).to(dev)).to(acc)
+        bottom = rows.index_select(2, (hi_row - first).to(dev)).to(acc)
+        lam = lam.to(dev)
+        y = ((1.0 - lam) * top + lam * bottom).contiguous(memory_format=_memory_format(rows))
+        if out_w != x.shape[3]:
+            y = func(y, size=(o1 - o0, out_w), mode="bilinear", align_corners=False)
+        out.append(y.to(x.dtype))
+    return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
+
+
+def _nearest(func, x: RowBands, size, scale_factor) -> RowBands:
+    """Nearest ``interpolate`` by an integer factor of the rows (``size=``
+    or ``scale_factor=``): band by band, each band's output its own rows
+    times the factor from its first row times the factor (an upscale reads
+    no other rows); a downscale by ``s`` needs every band to start on a
+    multiple of ``s``."""
+    h = x.height
+    if size is not None:
+        out_h = _pair(size)[0]
+    elif scale_factor is not None:
+        sf = _pair(scale_factor)[0] if isinstance(scale_factor, (tuple, list)) else scale_factor
+        out_h = math.floor(h * sf)
+        if sf < 1 or sf != int(sf):
+            raise _no_rule(f"interpolate(mode='nearest', scale_factor={scale_factor}) (an integer upscale of the rows)")
+    else:
+        raise TypeError("interpolate: size or scale_factor")
+    if out_h % h == 0:
+        up, down = out_h // h, 1
+    elif h % out_h == 0 and all(a % (h // out_h) == 0 for a in x.starts):
+        up, down = 1, h // out_h
+    else:
+        raise _no_rule(f"interpolate(mode='nearest') from {h} to {out_h} rows (an integer factor, on bands that it divides)")
+    out = []
+    for b in x.bands:
+        if size is not None:
+            out.append(func(b, size=(b.shape[2] * up // down, _pair(size)[1]), mode="nearest"))
+        else:
+            out.append(func(b, scale_factor=scale_factor, mode="nearest"))
+    return RowBands(out, [a * up // down for a in x.starts], out_h, 2)
 
 
 def _pad(func, args, kwargs):
@@ -581,11 +732,18 @@ def _warp_rule(func, args, kwargs):
     img, flow, padding_mode, prefer_wide, row0 = _bind(
         func, ("img", "flow", "padding_mode", "prefer_wide", "row0"), (None, None, "border", False, 0), args, kwargs
     )
-    if not (isinstance(img, RowBands) and isinstance(flow, RowBands)) or row0 != 0 or img.axis != 1:
-        raise _no_rule("ops.warp.warp of other than NHWC row bands of an image and its flow")
-    _check_alike(func, flow, img)
+    if not isinstance(flow, RowBands) or row0 != 0 or flow.axis != 1:
+        raise _no_rule("ops.warp.warp of other than NHWC row bands of a flow")
+    if isinstance(img, RowBands):
+        _check_alike(func, flow, img)
+        whole = lambda j: img.rows(0, img.height, j)  # noqa: E731
+    elif isinstance(img, torch.Tensor) and img.dim() == 4 and img.shape[1] == flow.height:
+        # a plain source (XVFI's f32 ones plane): whole already, moved to the band's device
+        whole = lambda j: img.to(flow.bands[j].device)  # noqa: E731
+    else:
+        raise _no_rule(f"ops.warp.warp of a plain source {tuple(img.shape)} by the flow {flow!r}")
     out = [
-        func(img.rows(0, img.height, j), f, padding_mode=padding_mode, prefer_wide=prefer_wide, row0=a)
+        func(whole(j), f, padding_mode=padding_mode, prefer_wide=prefer_wide, row0=a)
         for j, (f, a) in enumerate(zip(flow.bands, flow.starts))
     ]
     return flow.like(out)
@@ -656,6 +814,65 @@ def _reduce(func, args, kwargs):
     centre = mean if keepdim else mean.reshape([1 if d in dims else n for d, n in enumerate(x.shape)])
     sq = _band_sums(x, dims, keepdim, lambda b: (b - centre.to(b.device)).square())
     return sq / max(count - correction, 0)
+
+
+def _extreme(func, args, kwargs):
+    """``amax`` and ``amin``: over dimensions without the rows, band by
+    band; over the rows, each band's own first, then the bands' in band
+    order into a plain tensor on the value's device (exact: a maximum needs
+    no order)."""
+    x, dim, keepdim = _bind(func, ("input", "dim", "keepdim"), (None, (), False), args, kwargs)
+    dims = _dims(None if dim in ((), []) else dim, x.ndim)
+    if x.axis not in dims:
+        axis = x.axis if keepdim else x.axis - sum(d < x.axis for d in dims)
+        return x.like([func(b, dims, keepdim) for b in x.bands], axis)
+    pick = torch.maximum if _name(func).endswith("amax") else torch.minimum
+    dev = x.bands[0].device
+    total = None
+    for b in x.bands:
+        part = func(b, dims, keepdim).to(dev)
+        total = part if total is None else pick(total, part)
+    return total
+
+
+def _index_select(func, args, kwargs):
+    """``index_select``: of another dimension, band by band; of the rows
+    (FILM's nearest resize, ``common.resize_nearest``), each band owns the
+    outputs from ``floor(start * len(index) / height)`` (the starts of
+    :func:`_bilinear_rows`) and gathers the input rows they name from every
+    band that holds them."""
+    x, dim, index = _bind(func, ("input", "dim", "index"), (None, None, None), args, kwargs)
+    if isinstance(index, RowBands) or index.dim() != 1:
+        raise _no_rule("index_select by other than a plain 1-D index")
+    dim %= x.ndim
+    if dim != x.axis:
+        return x.like([func(b, dim, index.to(b.device)) for b in x.bands])
+    idx = index.cpu()
+    if len(idx) and (int(idx.min()) < 0 or int(idx.max()) >= x.height):
+        raise IndexError(f"index_select: an index outside the {x.height} rows")
+    spans = _resized_starts(x, len(idx))
+    out = []
+    for j, (o0, o1) in enumerate(spans):
+        part = idx[o0:o1]
+        lo, hi = int(part.min()), int(part.max())
+        out.append(func(x.rows(lo, hi + 1, j), dim, (part - lo).to(x.bands[j].device)))
+    return RowBands(out, [o0 for o0, _ in spans], len(idx), x.axis)
+
+
+def _conv2x2_up2x_rule(func, args, kwargs):
+    """``common.conv2x2_up2x`` (nearest 2x, then a 2x2 ``padding="same"``
+    convolution) of NCHW bands: each band with the one row below it that
+    the taps read (zeros below the global bottom), its result's first
+    ``2 * rows`` rows from twice its first row."""
+    x, weight, bias = _bind(func, ("x", "weight", "bias"), (None, None, None), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis != 2 or isinstance(weight, RowBands):
+        raise _no_rule("common.conv2x2_up2x of a value without NCHW row bands")
+    out = []
+    for j, (b, a) in enumerate(zip(x.bands, x.starts)):
+        dev = b.device
+        y = func(x.rows(a, a + b.shape[2] + 1, j), weight.to(dev), None if bias is None else bias.to(dev))
+        out.append(y.narrow(2, 0, 2 * b.shape[2]))
+    return RowBands(out, [2 * a for a in x.starts], 2 * x.height, 2)
 
 
 def _einsum(func, args, kwargs):
@@ -763,13 +980,19 @@ for _f in (
     torch.Tensor.__rtruediv__, torch.Tensor.float, torch.Tensor.contiguous, torch.Tensor.detach, F.leaky_relu,
     torch.prelu, torch.exp, torch.Tensor.exp, torch.abs, torch.Tensor.abs, torch.square, torch.Tensor.square,
     torch.sqrt, torch.Tensor.sqrt, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
+    F.relu, torch.relu, torch.Tensor.relu, torch.floor, torch.Tensor.floor,
 ):
     _RULES[_f] = _elementwise
 for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var):
     _RULES[_f] = _reduce
+for _f in (torch.amax, torch.Tensor.amax, torch.amin, torch.Tensor.amin):
+    _RULES[_f] = _extreme
 _RULES.update({
     torch.Tensor.to: _to,
     torch.cat: _cat,
+    torch.stack: _stack,
+    torch.index_select: _index_select,
+    torch.Tensor.index_select: _index_select,
     torch.Tensor.__getitem__: _getitem,
     torch.Tensor.permute: _permute,
     torch.permute: _permute,
@@ -789,4 +1012,5 @@ _RULES.update({
     costvol.costvol_func: _costvol_rule,
     softsplat_func: _softsplat_rule,
     m2m._repeat_branches: _bandwise,
+    common.conv2x2_up2x: _conv2x2_up2x_rule,
 })

@@ -10,7 +10,11 @@ Run from the repository root on the machine with the card::
 commit, unpacked with ``git archive``). Its ``csrc/warp.cu`` and
 ``csrc/softsplat.cu`` are built beside this checkout's, and each version is
 timed in turns (old, new, new, old) in this one process, on the same tensors,
-at the main paths' shapes:
+at the main paths' shapes. Each entry of the other checkout is bound by the
+parameter list that its own source declares (:func:`entry_params`,
+:class:`Entry`): a checkout whose entries take no row band and one whose
+entries take ``hs``/``ho`` and ``row0`` after ``w`` (given the whole height
+and 0) are called alike.
 
 * K1 at RIFE's batch-8 1080p warps, ``[16, 1088, 1920, 7]`` and ``[16, 1088,
   1920, 3]`` bf16 with f32 and bf16 flow, and at M2M's batch-2 1080p warps
@@ -32,7 +36,7 @@ at the main paths' shapes:
   all bf16, and RIFE 4.0's Contextnet at 540x960 b2, bf16, fast mode off):
   each shape with the layout, dtypes and mode the path gives it, on random
   values and smooth flow (amplitude 6 px). The old version is the other
-  checkout's ``cfi_warp_bilinear_wide`` (14 ``int64`` arguments), the new one
+  checkout's ``cfi_warp_bilinear_wide``, the new one
   ``warp_kernel.warp_bilinear_wide``; both must agree bit for bit. Times are
   device ms from a ``torch.profiler`` trace (the host's launch cost, which
   would set the pace of the small shapes under CUDA events, left out), in
@@ -40,10 +44,11 @@ at the main paths' shapes:
   bound; and per path, the sum over one forward's launches.
 
 * the warp's backward kernel (``backward``): the other checkout's
-  ``cfi_warp_bilinear_backward`` (5 pointers and 24 ``int64`` strides: a
-  thread per pixel, scalar atomics into a zeroed NCHW f32 buffer, copied
-  into the image's layout and dtype after the kernel, as its wrapper did)
-  against ``warp_kernel.warp_bilinear_backward``, on ``channels_last``
+  ``cfi_warp_bilinear_backward``, as its wrapper called it (an entry
+  that takes ``cp``: a zeroed f32 buffer ``[N, H, W, Cp]`` and the vector
+  widths; the first design's: a thread per pixel with scalar atomics into
+  a zeroed NCHW f32 buffer, copied into the image's layout and dtype after
+  the kernel) against ``warp_kernel.warp_bilinear_backward``, on ``channels_last``
   images and output gradients with smooth flow (amplitude 6 px), border
   mode: ``[32, 256, 256, 7]`` f32 and bf16 (the flow in the image's dtype,
   as the bf16 training step gives it), ``[32, 256, 256, 3]`` f32 without
@@ -58,8 +63,7 @@ at the main paths' shapes:
   bf16 one ulp more.
 
 * the splat's backward kernel (``splat_backward``): the other checkout's
-  ``cfi_softsplat_backward`` (5 pointers, 2 dtype codes, 24 ``int64``: the
-  same entry point, bound here, its outputs allocated as the wrapper does)
+  ``cfi_softsplat_backward`` (its outputs allocated as the wrapper does)
   against ``softsplat_kernel.softsplat_bilinear_backward``, at EISAI's
   ``[8, 128, 128, 66]`` f32 (smooth flow, amplitude 6 px) and at every
   distinct input one training step of each path hands the kernel
@@ -88,6 +92,7 @@ import concurrent.futures
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,13 +107,6 @@ from ..ops.cuda.build import DTYPE_CODES
 from ..ops.softsplat import softsplat_func
 from ..ops.warp import warp, warp_backward_torch
 
-WARP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
-WIDE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 14 + [ctypes.c_void_p]
-SPLAT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 16 + [ctypes.c_void_p]
-# the other checkout's backward entry: 5 pointers, 24 int64 strides
-BACKWARD_OLD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 24 + [ctypes.c_void_p]
-# the splat's backward entry: 5 pointers, 2 dtype codes, 24 int64
-SPLAT_BACKWARD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 24 + [ctypes.c_void_p]
 THRESHOLD_CHANNELS = {torch.bfloat16: (3, 4, 6, 7, 8, 10, 12, 14, 16, 24, 32), torch.float32: (3, 4, 6, 7, 8)}
 SECTIONS = ("k1", "k2", "wide", "threshold", "backward", "splat_backward")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -180,57 +178,137 @@ def warp_bound_ms(planes: torch.Tensor, flow_planes: torch.Tensor) -> Tuple[floa
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bind(lib: ctypes.CDLL, name: str, argtypes) -> Callable:
+# the C types of the entries' parameters, as ctypes binds them (pointers and
+# the stream as c_void_p: ctypes would cut them to 32 bits)
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int, "int64_t": ctypes.c_int64}
+# the file of csrc/ that defines each entry this module binds
+ENTRY_SOURCES = {
+    "cfi_warp_bilinear": "warp.cu",
+    "cfi_warp_bilinear_wide": "warp.cu",
+    "cfi_warp_bilinear_backward": "warp.cu",
+    "cfi_softsplat": "softsplat.cu",
+    "cfi_softsplat_backward": "softsplat.cu",
+}
+
+
+def entry_params(source: str, name: str) -> List[Tuple[str, str]]:
+    """``(C type, name)`` of each parameter of ``extern "C" int name(...)``
+    in the text of a ``.cu`` file."""
+    m = re.search(r'extern\s+"C"\s+int\s+' + re.escape(name) + r"\s*\(([^)]*)\)", source)
+    if m is None:
+        raise ValueError(f'no extern "C" int {name}(...) in the source')
+    params = []
+    for decl in m.group(1).split(","):
+        decl = " ".join(decl.replace("*", "* ").split())
+        ctype, _, pname = decl.rpartition(" ")
+        params.append((ctype.replace(" *", "*"), pname))
+    return params
+
+
+class Entry:
+    """A C entry point bound by its own parameter list (:func:`entry_params`):
+    called with each parameter's value by name. ``hs`` and ``ho`` (the
+    source's or the output's rows, which an entry that takes a row band
+    takes) default to ``h`` and ``row0`` to 0, the whole frame; an entry
+    that lacks them is called without them."""
+
+    def __init__(self, name: str, params: List[Tuple[str, str]], fn: Callable):
+        unknown = [t for t, _ in params if t not in C_TYPES]
+        if unknown:
+            raise ValueError(f"{name}: parameters of C types {unknown} that this module cannot bind")
+        self.name, self.params, self.fn = name, params, fn
+
+    @property
+    def argtypes(self) -> list:
+        return [C_TYPES[t] for t, _ in self.params]
+
+    def takes(self, pname: str) -> bool:
+        return any(n == pname for _, n in self.params)
+
+    def arguments(self, values: Dict) -> list:
+        """The positional arguments of a call with ``values`` by name."""
+        defaults = {"hs": values.get("h"), "ho": values.get("h"), "row0": 0}
+        args = []
+        for _, pname in self.params:
+            if pname in values:
+                args.append(values[pname])
+            elif pname in defaults:
+                args.append(defaults[pname])
+            else:
+                raise TypeError(f"{self.name}: no value for its parameter {pname}")
+        return args
+
+    def __call__(self, **values) -> int:
+        return self.fn(*self.arguments(values))
+
+
+def bind(lib: ctypes.CDLL, csrc: str, name: str) -> Entry:
+    """``name`` of ``lib``, built from the ``csrc/`` directory ``csrc``,
+    bound by the parameter list that its source there declares."""
+    with open(os.path.join(csrc, ENTRY_SOURCES[name])) as f:
+        params = entry_params(f.read(), name)
     fn = getattr(lib, name)
+    entry = Entry(name, params, fn)
     fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return fn
+    fn.argtypes = entry.argtypes
+    return entry
 
 
-def call_warp(fn: Callable, img: torch.Tensor, flow: torch.Tensor, zeros: bool) -> torch.Tensor:
-    """``fn`` (a ``cfi_warp_bilinear``-like entry) on NHWC ``img``/``flow``."""
+def strides(prefix: str, t: torch.Tensor, dims: str = "nchw") -> Dict[str, int]:
+    """``{prefix_n: ..., prefix_c: ..., ...}``: ``t``'s strides by the
+    entries' parameter names (``dims`` of ``nchw``)."""
+    return {f"{prefix}_{d}": t.stride("nchw".index(d)) for d in dims}
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def call_warp(fn: Entry, img: torch.Tensor, flow: torch.Tensor, zeros: bool) -> torch.Tensor:
+    """``fn`` (a ``cfi_warp_bilinear`` entry) on NHWC ``img``/``flow``."""
     planes, fplanes = img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
     out = torch.empty_like(planes)
     n, c, h, w = planes.shape
     rc = fn(
-        planes.data_ptr(), fplanes.data_ptr(), out.data_ptr(), DTYPE_CODES[img.dtype], DTYPE_CODES[flow.dtype],
-        int(zeros), n, c, h, w, *planes.stride(), *fplanes.stride(), *out.stride(),
-        torch.cuda.current_stream().cuda_stream,
+        img=planes.data_ptr(), flow=fplanes.data_ptr(), out=out.data_ptr(), img_dtype=DTYPE_CODES[img.dtype],
+        flow_dtype=DTYPE_CODES[flow.dtype], zeros=int(zeros), n=n, c=c, h=h, w=w,
+        **strides("si", planes), **strides("sf", fplanes), **strides("so", out), stream=_stream(),
     )
     if rc != 0:
         raise RuntimeError(f"warp launch returned {rc}")
     return out.permute(0, 2, 3, 1)
 
 
-def call_splat(fn: Callable, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def call_splat(fn: Entry, vals: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The splat op around ``fn`` (a ``cfi_softsplat`` entry): zero fill,
     kernel, cast, as ``ops.softsplat.softsplat_func`` does."""
     planes, fplanes = vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
     out = torch.zeros_like(planes, dtype=torch.float32)
     n, c, h, w = planes.shape
-    rc = fn(
-        planes.data_ptr(), fplanes.data_ptr(), out.data_ptr(), DTYPE_CODES[vals.dtype], DTYPE_CODES[flow.dtype],
-        n, c, h, w, *planes.stride(), *fplanes.stride(), *out.stride(), torch.cuda.current_stream().cuda_stream,
-    )
+    rc = fn(**{
+        "in": planes.data_ptr(), "flow": fplanes.data_ptr(), "out": out.data_ptr(), "in_dtype": DTYPE_CODES[vals.dtype],
+        "flow_dtype": DTYPE_CODES[flow.dtype], "n": n, "c": c, "h": h, "w": w,
+        **strides("si", planes), **strides("sf", fplanes), **strides("so", out), "stream": _stream(),
+    })
     if rc != 0:
         raise RuntimeError(f"splat launch returned {rc}")
     return out.permute(0, 2, 3, 1).to(vals.dtype)
 
 
-def call_wide(fn: Callable, planes: torch.Tensor, fplanes: torch.Tensor, zeros: bool) -> torch.Tensor:
-    """``fn`` (a ``cfi_warp_bilinear_wide`` entry: channel stride 1, 14
-    ``int64`` arguments) on ``[N, C, H, W]`` planes, into a new
-    ``channels_last`` tensor, as ``warp_kernel.warp_bilinear_wide`` calls it
-    (with its one copy of planes whose channels are not contiguous)."""
+def call_wide(fn: Entry, planes: torch.Tensor, fplanes: torch.Tensor, zeros: bool) -> torch.Tensor:
+    """``fn`` (a ``cfi_warp_bilinear_wide`` entry: channel stride 1, so no
+    channel strides of the image and the output) on ``[N, C, H, W]``
+    planes, into a new ``channels_last`` tensor, as
+    ``warp_kernel.warp_bilinear_wide`` calls it (with its one copy of planes
+    whose channels are not contiguous)."""
     if planes.shape[1] > 1 and planes.stride(1) != 1:
         planes = planes.contiguous(memory_format=torch.channels_last)
     out = torch.empty(planes.shape, dtype=planes.dtype, device=planes.device, memory_format=torch.channels_last)
     n, c, h, w = planes.shape
-    si, so = planes.stride(), out.stride()
     rc = fn(
-        planes.data_ptr(), fplanes.data_ptr(), out.data_ptr(), DTYPE_CODES[planes.dtype], DTYPE_CODES[fplanes.dtype],
-        int(zeros), n, c, h, w, si[0], si[2], si[3], *fplanes.stride(), so[0], so[2], so[3],
-        torch.cuda.current_stream().cuda_stream,
+        img=planes.data_ptr(), flow=fplanes.data_ptr(), out=out.data_ptr(), img_dtype=DTYPE_CODES[planes.dtype],
+        flow_dtype=DTYPE_CODES[fplanes.dtype], zeros=int(zeros), n=n, c=c, h=h, w=w,
+        **strides("si", planes, "nhw"), **strides("sf", fplanes), **strides("so", out, "nhw"), stream=_stream(),
     )
     if rc != 0:
         raise RuntimeError(f"wide warp launch returned {rc}")
@@ -380,23 +458,41 @@ def warp_cases(dev) -> List[Tuple[str, torch.Tensor, torch.Tensor, bool]]:
     return cases
 
 
-def call_backward_old(fn: Callable, planes, fplanes, gplanes, zeros: bool, img_grad: bool = True):
-    """The other checkout's backward op around ``fn`` (``cfi_warp_bilinear_backward``
-    with 24 ``int64`` strides) on ``[N, C, H, W]`` planes: a zeroed NCHW f32
-    buffer, the kernel, one copy into the image's layout and dtype (none for
-    a contiguous f32 image), as its wrapper did."""
+def call_backward_old(fn: Entry, planes, fplanes, gplanes, zeros: bool, img_grad: bool = True):
+    """The other checkout's backward op around ``fn`` (its
+    ``cfi_warp_bilinear_backward``) on ``[N, C, H, W]`` planes, as its
+    wrapper called it. An entry that takes ``cp``: a zeroed f32 buffer
+    ``[N, H, W, Cp]``, the vector widths of ``warp_kernel.vector_bytes``,
+    its ``[..., :C]`` view back for an f32 image and one cast for another
+    dtype. The first design's (the image gradient's four strides instead): a zeroed NCHW f32 buffer, the kernel, one copy into
+    the image's layout and dtype (none for a contiguous f32 image)."""
     n, c, h, w = planes.shape
-    gi = torch.zeros((n, c, h, w), dtype=torch.float32, device=planes.device) if img_grad else None
     gf = torch.empty_like(fplanes)
-    rc = fn(
-        planes.data_ptr(), fplanes.data_ptr(), gplanes.data_ptr(), 0 if gi is None else gi.data_ptr(), gf.data_ptr(),
-        DTYPE_CODES[planes.dtype], DTYPE_CODES[fplanes.dtype], int(zeros), n, c, h, w,
-        *planes.stride(), *fplanes.stride(), *gplanes.stride(), *(gi.stride() if gi is not None else (0, 0, 0, 0)),
-        *gf.stride(), torch.cuda.current_stream().cuda_stream,
+    values = dict(
+        img=planes.data_ptr(), flow=fplanes.data_ptr(), grad_out=gplanes.data_ptr(), grad_flow=gf.data_ptr(),
+        img_dtype=DTYPE_CODES[planes.dtype], flow_dtype=DTYPE_CODES[fplanes.dtype], zeros=int(zeros), n=n, c=c, h=h, w=w,
+        **strides("si", planes), **strides("sf", fplanes), **strides("sg", gplanes), **strides("sgf", gf), stream=_stream(),
     )
+    if fn.takes("cp"):
+        cp = warp_kernel.padded_channels(c)
+        buf = torch.zeros((n, h, w, cp), dtype=torch.float32, device=planes.device) if img_grad else None
+        isz = planes.element_size()
+        values.update(
+            grad_img=0 if buf is None else buf.data_ptr(), cp=cp,
+            vec_img=warp_kernel.vector_bytes(c, planes.stride(), isz, planes.data_ptr()),
+            vec_grad=warp_kernel.vector_bytes(c, gplanes.stride(), isz, gplanes.data_ptr()),
+        )
+    else:
+        buf = torch.zeros((n, c, h, w), dtype=torch.float32, device=planes.device) if img_grad else None
+        values.update(grad_img=0 if buf is None else buf.data_ptr(),
+                      **(strides("sgi", buf) if buf is not None else dict.fromkeys(("sgi_n", "sgi_c", "sgi_h", "sgi_w"), 0)))
+    rc = fn(**values)
     if rc != 0:
         raise RuntimeError(f"backward launch returned {rc}")
-    if gi is not None and not (planes.dtype == torch.float32 and planes.is_contiguous()):
+    if buf is None:
+        return None, gf
+    gi = buf[..., :c].permute(0, 3, 1, 2) if fn.takes("cp") else buf
+    if planes.dtype != torch.float32 or not (fn.takes("cp") or planes.is_contiguous()):
         gi = torch.empty_like(planes).copy_(gi)
     return gi, gf
 
@@ -467,9 +563,10 @@ def training_backward_inputs(dev) -> List[Tuple]:
             return x
         return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
 
-    def capture(img, flow, grad_out, zeros=False, img_grad=True):
+    def capture(img, flow, grad_out, zeros=False, img_grad=True, row0=0):
+        # one device: WarpFunction passes the whole frame's row0 = 0
         captured.append((keep(img), keep(flow), keep(grad_out), zeros, img_grad))
-        return real(img, flow, grad_out, zeros, img_grad)
+        return real(img, flow, grad_out, zeros, img_grad, row0=row0)
 
     warp_kernel.warp_bilinear_backward = capture
     try:
@@ -570,17 +667,21 @@ def library_splat(vals, flow, row0: int = 0, out_rows: Optional[int] = None) -> 
     return lambda: torch.ops.aten.grid_sampler_2d_backward(planes, zeros, grid, 0, 0, True, [True, False])[0]
 
 
-def call_splat_backward(fn: Callable, planes, fplanes, gplanes, in_grad: bool = True):
+def call_splat_backward(fn: Entry, planes, fplanes, gplanes, in_grad: bool = True):
     """``fn`` (a ``cfi_softsplat_backward`` entry) on ``[N, C, H, W]``
     planes, its outputs allocated as ``softsplat_kernel.softsplat_bilinear_backward``
     allocates them: ``(grad_in or None, grad_flow)``."""
     gi = torch.empty_like(planes) if in_grad else None
     gf = torch.empty_like(fplanes)
-    rc = fn(
-        planes.data_ptr(), fplanes.data_ptr(), gplanes.data_ptr(), None if gi is None else gi.data_ptr(), gf.data_ptr(),
-        DTYPE_CODES[planes.dtype], DTYPE_CODES[fplanes.dtype], *planes.shape, *planes.stride(), *fplanes.stride(),
-        *gplanes.stride(), *((0, 0, 0, 0) if gi is None else gi.stride()), *gf.stride(), torch.cuda.current_stream().cuda_stream,
-    )
+    n, c, h, w = planes.shape
+    rc = fn(**{
+        "in": planes.data_ptr(), "flow": fplanes.data_ptr(), "grad_out": gplanes.data_ptr(),
+        "grad_in": None if gi is None else gi.data_ptr(), "grad_flow": gf.data_ptr(), "in_dtype": DTYPE_CODES[planes.dtype],
+        "flow_dtype": DTYPE_CODES[fplanes.dtype], "n": n, "c": c, "h": h, "w": w,
+        **strides("si", planes), **strides("sf", fplanes), **strides("sg", gplanes),
+        **(strides("sgi", gi) if gi is not None else dict.fromkeys(("sgi_n", "sgi_c", "sgi_h", "sgi_w"), 0)),
+        **strides("sgf", gf), "stream": _stream(),
+    })
     if rc != 0:
         raise RuntimeError(f"splat backward launch returned {rc}")
     return gi, gf
@@ -702,7 +803,7 @@ def main(argv=None) -> int:
 
     if "k1" in sections:
         new_warp = lambda img, flow, zeros: warp(img, flow, "zeros" if zeros else "border")  # noqa: E731
-        old_warp_fn = bind(libs["warp", parent_csrc], "cfi_warp_bilinear", WARP_ARGS)
+        old_warp_fn = bind(libs["warp", parent_csrc], parent_csrc, "cfi_warp_bilinear")
         result["k1"] = {}
         for name, img, flow, zeros in warp_cases(dev):
             old = call_warp(old_warp_fn, img, flow, zeros)
@@ -725,7 +826,7 @@ def main(argv=None) -> int:
             ("splat [16,1088,1920,4] bf16 smooth amp 8", vals, sflow),
             (f"splat M2M forward {list(mvals.shape)} bf16 rough flow", mvals, mflow),
         ]
-        old_splat_fn = bind(libs["softsplat", parent_csrc], "cfi_softsplat", SPLAT_ARGS)
+        old_splat_fn = bind(libs["softsplat", parent_csrc], parent_csrc, "cfi_softsplat")
         result["k2"] = {}
         for name, v, f in splat_cases:
             old = call_splat(old_splat_fn, v, f).float()
@@ -743,7 +844,7 @@ def main(argv=None) -> int:
                   f"{t['old_ms'] / t['new_ms']:.2f}x; max diff {rel:.3g} of the largest output", flush=True)
         del splat_cases, vals, sflow, mvals, mflow
     if "wide" in sections:
-        result["wide"] = wide_section(dev, bind(libs["warp", parent_csrc], "cfi_warp_bilinear_wide", WIDE_ARGS), card)
+        result["wide"] = wide_section(dev, bind(libs["warp", parent_csrc], parent_csrc, "cfi_warp_bilinear_wide"), card)
         torch.cuda.empty_cache()
     if "threshold" in sections:
         # the routing threshold: K1 against the wide kernel, in turns
@@ -763,12 +864,12 @@ def main(argv=None) -> int:
                       flush=True)
 
     if "backward" in sections:
-        old_backward = bind(libs["warp", parent_csrc], "cfi_warp_bilinear_backward", BACKWARD_OLD_ARGS)
+        old_backward = bind(libs["warp", parent_csrc], parent_csrc, "cfi_warp_bilinear_backward")
         result["backward"] = backward_section(dev, old_backward, card)
         torch.cuda.empty_cache()
 
     if "splat_backward" in sections:
-        old_splat_backward = bind(libs["softsplat", parent_csrc], "cfi_softsplat_backward", SPLAT_BACKWARD_ARGS)
+        old_splat_backward = bind(libs["softsplat", parent_csrc], parent_csrc, "cfi_softsplat_backward")
         result["splat_backward"] = splat_backward_section(dev, old_splat_backward, card)
         torch.cuda.empty_cache()
 

@@ -27,11 +27,23 @@ against the port's own one-device runs, on logical replicas of the CPU.
   ``sqrt``/comparisons/``clamp(min=)``, means over the rows, columns and
   channels, the frame's mean and ``var``, a sum over the batch and rows,
   the attention's ``einsum``, ``repeat``, ``reshape``, ``unflatten``,
-  ``_repeat_branches``, an index with ``...``, the splat) on 2 and 3 bands
+  ``_repeat_branches``, an index with ``...``, the splat; and XVFI's and
+  RIFE 4.0's: ``relu`` (``F.relu``, ``nn.ReLU``), ``floor``, ``stack``
+  along a new last and first dimension, an index with ``None``, nearest
+  ``interpolate`` up by 2 and 3 (``scale_factor=``, ``nn.Upsample``,
+  ``size=``) and down by 2, the warp of a plain source by banded flow,
+  ``amax``/``amin`` over everything, the rows or the channels) on 2 and 3 bands
   against the same op on the whole tensor (the reductions over the rows
   give a plain tensor); the ops without a rule raise, naming themselves and
   the ``ROADMAP.md`` item; ``band_rows``' splits. M2M's pair functions on
   the axis: ``tests/test_torch_space_m2m.py``.
+* RIFE's other archs on a ``(1, 2)`` mesh at 2 x 192x128 (bands of 128 + 64
+  rows) in f64 against the port's one device, within 1e-12 of the output's
+  largest value: 4.0, 4.2, 4.3 with and without fast mode, 4.5, 4.6, 4.10,
+  4.17 and 4.26; and 4.0 with its restart (``_needs_rescue``) taken and not
+  taken (block 1's last convolution scaled by 100 or as drawn), the same
+  branch on both runs. Arch 4.0's flag reduces the flow update's largest
+  magnitude over the rows (the ``amax`` rule).
 * ``dryrun(2, device="cpu")`` trains on ``mesh={'data': 1, 'space': 2}``.
 * ``utils/space_witness.py`` at b2 x 136x64 (the pad in the last band): the
   ``(1, 2)`` step's gradients in f64 within 1e-12 of each tensor's largest
@@ -59,9 +71,10 @@ from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan, run_plan_window4
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
 from comfyui_frame_interpolation_tpu_torch.models import m2m, rife
+from comfyui_frame_interpolation_tpu_torch.models.common import cast_params
 from comfyui_frame_interpolation_tpu_torch.ops.costvol import costvol_func
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func
-from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_backward_torch, warp_torch
+from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_backward_torch, warp_torch
 from comfyui_frame_interpolation_tpu_torch.parallel import space, train
 from comfyui_frame_interpolation_tpu_torch.utils import space_witness
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
@@ -251,9 +264,30 @@ RULES = {
     "repeat_branches": lambda x: m2m._repeat_branches(x),
     "Ellipsis": lambda x: x.permute(0, 2, 3, 1)[..., 1:-1],
     "softsplat": lambda x: softsplat_func(x[:, 1:].permute(0, 2, 3, 1), (x[:, :2] * 9).permute(0, 2, 3, 1)),
+    # XVFI's (its pair functions, RefineUNet and the flow nets' nn.Sequential)
+    "relu": lambda x: F.relu(x) + torch.relu(-x) + nn.ReLU()(x - 0.5) + x.relu(),
+    "floor": lambda x: torch.floor(x * 7) + (x * 3).floor(),
+    "stack last": lambda x: torch.stack([x[:, 0], x[:, 1] * 2], -1),
+    "stack first": lambda x: torch.stack([x, x.square()]).sum(0),
+    "None after the rows": lambda x: x.permute(0, 2, 3, 1)[..., 0][..., None] * x.permute(0, 2, 3, 1),
+    "None before the rows": lambda x: x[:, None, 1] + x[:, 2][:, None] + x[None][0, :, 3:],
+    "nearest x2": lambda x: F.interpolate(x, scale_factor=2, mode="nearest"),
+    "nearest x3 nn.Upsample": lambda x: nn.Upsample(scale_factor=3, mode="nearest")(x),
+    "nearest to a size": lambda x: F.interpolate(x, size=(x.shape[2] * 2, 30), mode="nearest"),
+    "nearest down": lambda x: F.interpolate(x, size=(x.shape[2] // 2, 10), mode="nearest"),
+    "warp of a plain source": lambda x: warp(
+        torch.ones((2, x.shape[2], x.shape[3], 1)), (x[:, :2] * 9).permute(0, 2, 3, 1).float(), "zeros"
+    ),
+    # RIFE 4.0's restart flag
+    "amax of everything": lambda x: (x[:, :2].abs().amax() > 0.9) & (x[:, 2:].abs().amax() > 0.5),
+    "amax over the rows": lambda x: torch.amax(x, (2, 3), keepdim=True) - x.amin(2, keepdim=True).amin(3, keepdim=True),
+    "amax over the channels": lambda x: x.amax(1, keepdim=True) + torch.amin(x, dim=1)[:, None],
 }
 # a value without rows: the reductions over the rows give a plain tensor
-PLAIN_RESULT = {"mean over the rows and columns", "mean over the rows", "mean and var of the frame", "sum over the batch and rows"}
+PLAIN_RESULT = {
+    "mean over the rows and columns", "mean over the rows", "mean and var of the frame", "sum over the batch and rows",
+    "amax of everything", "amax over the rows",
+}
 CUBE_C = torch.from_numpy(np.random.default_rng(11).random((2, 4, 3), np.float32))
 CUBE_W = torch.from_numpy(np.random.default_rng(12).random((2, 4, 20), np.float32))
 
@@ -277,7 +311,7 @@ def test_rule_against_the_whole_tensor(rule, n):
 NO_RULE = {
     "tanh": lambda x: torch.tanh(x),
     "Tensor.view": lambda x: x.view(-1),
-    "interpolate": lambda x: F.interpolate(x, scale_factor=2, mode="nearest"),
+    "interpolate": lambda x: F.interpolate(x, scale_factor=2, mode="bicubic"),
     "torch.cat along the rows": lambda x: torch.cat([x, x], 2),
     "avg_pool2d": lambda x: F.avg_pool2d(x, 3, 1),
 }
@@ -293,10 +327,10 @@ def test_a_window4_model_on_a_space_split_raises():
     frames = torch.rand(6, 128, 64, 3)
 
     def make(device):
-        return lambda f0, f1, f2, f3: torch.stack([f0, f1, f2, f3]).mean(0)
+        return lambda f0, f1, f2, f3: torch.stack([f0, f1, f2, f3]).median(0).values
 
     sharded = parallel.make_sharded_model_fn(make, parallel.make_mesh(2, devices=_replicas(2)))
-    with pytest.raises(NotImplementedError, match="stack.*ROADMAP.md Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="median.*ROADMAP.md Queue 1 item"):
         run_plan_window4(frames, plan_window4(6), sharded, batch_size=2)
 
 
@@ -312,6 +346,68 @@ def test_a_window4_model_on_a_space_split_raises():
 )
 def test_band_rows(height, n, spans):
     assert space.band_rows(height, n) == spans
+
+
+# ---- RIFE's other archs -------------------------------------------------------------
+
+RIFE_ARCHS = [
+    ("4.0", True), ("4.0", False), ("4.2", True), ("4.2", False), ("4.3", True), ("4.3", False),
+    ("4.5", True), ("4.6", True), ("4.10", True), ("4.17", True), ("4.26", True),
+]
+ARCH_RTOL = 1e-12
+
+
+def _f64_model_fn(arch, fastmode, block1_scale, device):
+    """``rife.apply`` in f64 with f64 out: ``make_model_fn``'s f32 result
+    would round two f64 results a few ulps apart to f32 values one f32 ulp
+    apart now and then."""
+    params = dict(rife.init_params(0, arch))
+    if block1_scale != 1.0:
+        for k in ("block1.lastconv.weight", "block1.lastconv.bias"):
+            params[k] = params[k] * block1_scale
+    with torch.device("meta"):
+        net = rife.IFNet(arch)
+    net.load_state_dict(cast_params(params, torch.float64), strict=True, assign=True)
+    net = net.to(device=device, memory_format=torch.channels_last).eval()
+
+    @torch.inference_mode()
+    def model_fn(f0, f1, t):
+        f0, f1 = (f.to(device=device, dtype=torch.float64) for f in (f0, f1))
+        return rife.apply(net, f0, f1, t.to(device=device, dtype=torch.float64), rife.default_scale_list(arch), fastmode=fastmode)
+
+    return model_fn
+
+
+def _arch_runs(arch, fastmode, block1_scale=1.0):
+    """The f64 one-device and ``(1, 2)`` outputs at 2 x 192x128."""
+    f0, f1 = (torch.from_numpy(a) for a in _frames((2, 192, 128, 3), 13))
+    t = torch.tensor([0.3, 0.6])
+    make = functools.partial(_f64_model_fn, arch, fastmode, block1_scale)
+
+    mesh = parallel.make_mesh(2, devices=_replicas(2))
+    assert parallel.frame_sharding(mesh, f0.shape).spec == ("data", "space", None, None)
+    return make(CPU)(f0, f1, t), parallel.make_sharded_model_fn(make, mesh)(f0, f1, t)
+
+
+@pytest.mark.parametrize("arch, fastmode", RIFE_ARCHS, ids=[f"{a}{'' if f else ' refined'}" for a, f in RIFE_ARCHS])
+def test_rife_arch_on_a_space_split_matches_one_device_in_f64(arch, fastmode):
+    ref, out = _arch_runs(arch, fastmode)
+    assert out.shape == ref.shape == (2, 192, 128, 3)
+    gap = (out - ref).abs().max().item()
+    assert gap <= ARCH_RTOL * ref.abs().max().item(), gap
+
+
+@pytest.mark.parametrize("block1_scale, rescued", [(1.0, False), (100.0, True)])
+def test_rife40_restart_on_a_space_split(block1_scale, rescued, monkeypatch):
+    """The restart flag reduces over the split's rows (the ``amax`` rule)
+    and takes the one device's branch: block 1's last convolution scaled by
+    100 pushes the flow update past 32 px both ways."""
+    flags = []
+    needs_rescue = rife._needs_rescue
+    monkeypatch.setattr(rife, "_needs_rescue", lambda fd: flags.append(needs_rescue(fd)) or flags[-1])
+    ref, out = _arch_runs("4.0", True, block1_scale)
+    assert flags == [rescued, rescued]  # one device, then the (1, 2) mesh
+    assert (out - ref).abs().max().item() <= ARCH_RTOL * ref.abs().max().item()
 
 
 def test_dryrun_trains_on_the_space_axis(capsys):

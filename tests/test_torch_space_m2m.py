@@ -28,9 +28,10 @@ the CPU.
   ``softsplat_torch``'s band partials (``row0``, ``out_rows``) over 2 and 3
   bands add up to the whole splat within f32 rounding, on flow that crosses
   the bands' edges and leaves the frame.
-* EISAI's and XVFI's pair splits raise at their first op without a
-  row-band rule, naming the ``ROADMAP.md`` item (GMFSS's:
-  ``tests/test_torch_parallel.py::test_space_axis_raises``).
+* EISAI's and GMFSS base's pair splits raise at their first op without a
+  row-band rule (EISAI's ``Tensor.flatten``, GMFSS's ``var_mean``),
+  naming the ``ROADMAP.md`` item (XVFI's split runs:
+  ``tests/test_torch_space_xvfi.py``).
 
 One JAX compile (the sharded pair functions at 256x128).
 
@@ -62,7 +63,7 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_t
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan_pair_cached
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import eisai, m2m, xvfi
+from comfyui_frame_interpolation_tpu_torch.models import eisai, gmfss, m2m
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_partial, softsplat_torch
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_torch
 from comfyui_frame_interpolation_tpu_torch.parallel import space
@@ -200,10 +201,9 @@ def test_softsplat_band_outside_the_frame_raises():
 
 # ---- the pair-cached families without rules --------------------------------------------
 
-XVFI_CKPT = "XVFInet_Vimeo_exp1_latest.pt"
 NO_RULES = {
     "eisai": lambda d: eisai.make_pair_fns(eisai.init_params(0), device=d, iters=2),
-    "xvfi": lambda d: xvfi.make_pair_fns(xvfi.init_params(XVFI_CKPT, 0), XVFI_CKPT, device=d),
+    "gmfss": lambda d: gmfss.make_pair_fns(gmfss.init_params(0), device=d),
 }
 
 
