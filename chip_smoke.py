@@ -366,7 +366,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
 50. timing    -- RIFE 4.7 training at b16 x 224x224 (the ECCV2022-RIFE
    recipe's crops and batch; padded to 256x256), Adam 1e-4, f32 (TF32 at
    torch's defaults) and bf16 (parameters in bf16): steps/s and samples/s
-   as the median of 7 windows of 20 steps after 3, the two dtypes in turns,
+   as the median of 5 windows of 10 steps after 3, the two dtypes in turns,
    with the windows' spread and whether it resolves the two dtypes apart;
    the peak memory of one step, a ``torch.profiler`` top 10 of one f32 step
    with the idle share and the backward kernel's device ms and share; at
@@ -421,7 +421,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    1, and no CUDA warp or splat that needs a gradient reaching a twin;
 54. m2m train timing -- M2M training at b8 x 256x256 (crops of Vimeo-90K's
    448x256 triplets), f32 (TF32 at torch's defaults) and bf16, as phase 50
-   but in 7 windows of 5 steps each:
+   but in 5 windows of 5 steps each:
    steps/s and samples/s, the windows' spread, the peak memory of one step,
    a profile of one f32 step with the splat backward's device ms and
    share; at ``[64, 256, 256, 4]`` f32 and bf16 (the step's splat) and
@@ -447,7 +447,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    splat's backward at C = 3-514, the warp's at the wide and zeros-mode
    shapes); the same step at b1 x 64x64 (STMFNet 128x128) on the card
    against the CPU with phase 49's rule; then the step at TF32 defaults:
-   steps/s as the median of 7 windows of 2 steps with their spread, the
+   steps/s as the median of 5 windows of 2 steps with their spread, the
    peak memory, and one profiled step's idle share and each backward
    kernel's device ms and share of the step's device time;
 64-70. film, ifunet, atm, cain, flavr, sepconv, momo train -- as 55-61 (run
@@ -517,8 +517,8 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    deterministic) within 1e-4, and each run against itself (K2's f32
    atomics), bf16 >= 40 dB against the f32 one-device frames, the
    launches read (K1 8, wide 32, K2 2 a pair batch: twice one device's 4,
-   16, 1); frames/s of both in turns, peak memory and a profile of one
-   pair batch (idle share) of each; a GMFSS pair split still raises
+   16, 1); frames/s of both in turns (one round), peak memory and a
+   profile of one pair batch (idle share) of each; a GMFSS pair split still raises
    ``NotImplementedError`` naming ``ROADMAP.md``'s item;
 76. K2 band -- K2 with a band of sources (``row0``, ``out_rows``): M2M's
    ``[16, 1088, 1920, 4]`` f32 and bf16 splat in the two bands of the
@@ -547,8 +547,19 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    K1 5 and wide 11 a forward, twice on the mesh; the pyramid's 135 -> 67
    rows put the bilinear and nearest resizes on rows by a ratio that is not
    an integer).
+79. IFRNet split -- IFRNet S 1080p x2 b2 the same way (``ifrnet.warps_per_forward``:
+   K1 2 and wide 6 a forward, twice on the mesh; the pad to 1088 rows in
+   the second band; ``ResBlock``'s in-place writes, the joint mean's rows
+   joined along the rows);
+80. AMT split -- AMT S the same way, its clip edge-padded to 1088 rows first as
+   its node pads (``nodes/vfi_nodes.py:_pad16``; bands 576 + 512), K1 2 and
+   wide 6 a forward (``amt.warps_per_forward``), the correlation lookup's
+   target pyramids built on each band's device from the gathered targets;
+81. IFUnet split -- IFUnet the same way, K1 12 and wide 2 a forward
+   (``ifunet.warps_per_forward``; ``convex_upsample`` with a row of halo
+   from each neighbour, batch norms on their stored statistics).
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-78 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-81 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -582,7 +593,9 @@ kernel's ``row_band`` and ``m2m_space_2way`` and K2's ``row_band`` hold
 phases 71, 75 and 76's numbers), and phases 77's and 78's runs as
 ``xvfi_space_2way`` and ``film_space_2way`` (K1, the wide kernel and K2;
 K2's and the wide kernel's entries of those names hold the phases' rows,
-each kernel's band shapes among them). CAIN, Sepconv,
+each kernel's band shapes among them), and phases 79-81's as
+``ifrnet_space_2way``, ``amt_space_2way`` and ``ifunet_space_2way`` (the
+wide kernel's entries of those names hold the rows). CAIN, Sepconv,
 FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
@@ -739,6 +752,9 @@ FAMILIES = ("gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt",
             "film", "ifunet", "atm", "cain", "flavr", "sepconv", "momo")
 FAMILY_PHASES = dict(zip(FAMILIES, (*range(55, 62), *range(64, 71))))
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_HW = 8, (256, 256)
+# the training timings' windows (phases 50, 54, 55-61 and 64-70): 7 until
+# the run passed 850 s of its 1200 with phases 79-81
+TIMING_WINDOWS = 5
 FAMILY_CHECK_HW = {"stmfnet": (128, 128), "cain": (128, 128)}  # the others at 64x64
 FAMILY_EISAI_ITERS = 12  # the node's default
 FAMILY_MOMO_STEPS = 8  # the node's default
@@ -1762,7 +1778,7 @@ def family_phase(name, number, dev, card):
     ``splat_backward_vs_plain``); the same step at b1 on the card against
     the CPU with phase 49's rule (each tensor after 1e-7 absolute; the
     updates where ``|g|`` is also over 1e-5); then the
-    step timed at TF32 defaults (7
+    step timed at TF32 defaults (5
     windows of 2 steps after 2), its peak memory and one profiled step.
     Returns the phase's record."""
     import torch
@@ -1866,7 +1882,7 @@ def family_phase(name, number, dev, card):
         step(*batch)
     torch.cuda.synchronize()
     windows = []
-    for _ in range(7):
+    for _ in range(TIMING_WINDOWS):
         torch.cuda.synchronize()
         ts = time.perf_counter()
         for _ in range(2):
@@ -1906,7 +1922,7 @@ def family_phase(name, number, dev, card):
     )
     print(
         f"timing {card}: {name} training b{b} {hw[0]}x{hw[1]} f32, Adam 1e-4: {1e3 / ms:.3f} steps/s, {1e3 * b / ms:.2f} samples/s "
-        f"(median {ms:.3f} ms a step over 7 windows of 2 steps; windows {min(windows):.3f} to {max(windows):.3f} ms), peak "
+        f"(median {ms:.3f} ms a step over {len(windows)} windows of 2 steps; windows {min(windows):.3f} to {max(windows):.3f} ms), peak "
         f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held, idle share {totals['idle_share']:.4f}; backward kernels' "
         f"share of the step's device time: "
         + (", ".join(f"{k} {v['launches']} launches {v['device_ms']:.3f} ms ({100 * v['share']:.2f} %)" for k, v in shares.items()) or "none")
@@ -4364,7 +4380,7 @@ def main() -> int:
 
     # ---- 50. training timing ------------------------------------------------------
     t0 = time.perf_counter()
-    # one window of 20 steps lasts under a second and two windows on this
+    # one window of 20 steps lasted under a second and two windows on this
     # shared host have read 23 and 42 steps/s: so several windows, f32 and
     # bf16 in turns, reported by their median and spread
     trainers = {}
@@ -4376,7 +4392,7 @@ def main() -> int:
         for _ in range(3):
             step(*batch50)
     torch.cuda.synchronize()
-    n_steps, n_windows = 20, 7
+    n_steps, n_windows = 10, TIMING_WINDOWS
     windows = {name: [] for name in trainers}
     for i in range(n_windows):
         for name in (list(trainers) if i % 2 == 0 else list(trainers)[::-1]):
@@ -5371,7 +5387,7 @@ def main() -> int:
 
         fps = {key: [] for key in calls}
         for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
-            fps[key].append(2 / measure(pair_call(calls[key]), f0, f1, tt, iters=3, rounds=3))
+            fps[key].append(2 / measure(pair_call(calls[key]), f0, f1, tt, iters=3, rounds=1))
         totals = {key: {} for key in calls}
         for key, fns in calls.items():
             profile_forward(f"M2M 1080p {name} b2 (reuse + infer), {key}", pair_call(fns), f0, f1, tt, card=card,
@@ -5499,7 +5515,9 @@ def main() -> int:
         """``make(dtype)`` -> one device's callable(s) for ``executor`` (a
         tuple for the pair-cached one), ``shard`` the matching
         ``parallel.make_sharded_*``, ``call(fns)`` one batch's forward of
-        ``(f0, f1, t)``. Returns the row of the kernels line."""
+        ``(f0, f1, t)``; ``clip`` 3 frames of 1080 rows (AMT's padded to
+        1088). Returns the row of the kernels line."""
+        height = clip.shape[1]
         as_args = lambda fns: fns if isinstance(fns, tuple) else (fns,)  # noqa: E731
         outs, rows, settings, launches = {}, {}, {}, {"narrow": 0, "wide": 0, "splat": 0}
         bands, band_err = {}, 0.0
@@ -5524,7 +5542,7 @@ def main() -> int:
             want = want_one(dtype)
             check(one_n == want and two_n == {k: 2 * v for k, v in want.items()},
                   f"{label} {name} launches: one device {one_n}, the (1, 2) mesh {two_n}; expected {want} and twice that")
-            check(tuple(two_out.shape) == (5, 1080, 1920, 3) and bool(torch.isfinite(two_out).all()),
+            check(tuple(two_out.shape) == (5, height, 1920, 3) and bool(torch.isfinite(two_out).all()),
                   f"{label} {name} on the (1, 2) mesh: {tuple(two_out.shape)}, finite {bool(torch.isfinite(two_out).all())}")
             launches = {k: launches[k] + two_n[k] for k in launches}
             outs[name] = (one_out, two_out)
@@ -5532,8 +5550,8 @@ def main() -> int:
                 del one, two
                 torch.cuda.empty_cache()
                 continue
-            f0 = torch.from_numpy(np.random.default_rng(0).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
-            f1 = torch.from_numpy(np.random.default_rng(1).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
+            f0 = torch.from_numpy(np.random.default_rng(0).random((2, height, 1920, 3), dtype=np.float32)).to(dev)
+            f1 = torch.from_numpy(np.random.default_rng(1).random((2, height, 1920, 3), dtype=np.float32)).to(dev)
             tt = torch.full((2,), 0.5, device=dev)
             # each band's launches of one split call, against the plain versions
             store = []
@@ -5565,14 +5583,15 @@ def main() -> int:
         bf16_db = psnr(outs["bfloat16"][1], outs["float32"][0])
         bf16_one_db = psnr(outs["bfloat16"][0], outs["float32"][0])
         check(bf16_db >= 40.0, f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below 40")
-        return {"f32_max_abs_err": f32_err, "f32_settings": settings, "bf16_psnr_db": bf16_db, "bf16_one_device_psnr_db": bf16_one_db,
+        return {"rows": height, "f32_max_abs_err": f32_err, "f32_settings": settings, "bf16_psnr_db": bf16_db,
+                "bf16_one_device_psnr_db": bf16_one_db,
                 "launches": launches, "bands": {k: [[list(b), r, a, d] for b, r, a, d in v] for k, v in bands.items()},
                 "band_max_abs_err": band_err, "runs": rows}
 
     def space_split_line(number, label, row, t0):
         print(
             f"space {card}: phase {number}: {label} 1080p x2 b2 (3 frames, 2 mids) on a (1, 2) mesh of replicas of the card, "
-            f"bands {band_rows(1080, 2)}: f32 (TF32 off, cuDNN deterministic) max abs {row['f32_max_abs_err']:.3g} from one "
+            f"bands {band_rows(row['rows'], 2)}: f32 (TF32 off, cuDNN deterministic) max abs {row['f32_max_abs_err']:.3g} from one "
             f"device, the (1, 2) run against itself {row['f32_settings']['split_repeat_max_abs_diff']:.3g}, one device against "
             f"itself {row['f32_settings']['one_device_repeat_max_abs_diff']:.3g}; bf16 {row['bf16_psnr_db']:.2f} dB against the "
             f"f32 one-device frames (one device bf16 {row['bf16_one_device_psnr_db']:.2f} dB); launches {row['launches']} for the "
@@ -5614,6 +5633,43 @@ def main() -> int:
     del film_params78
     space_split_line(78, "FILM", film_space, t0)
 
+    # ---- 79-81. IFRNet S, AMT S and IFUnet 1080p through the split ----------------------------
+    # each as phase 78 through make_sharded_model_fn + run_plan; AMT's clip
+    # edge-padded to 1088 rows first, as its node pads (bands 576 + 512)
+    t0 = time.perf_counter()
+    ifrnet_params79 = ifrnet.init_params("S", 0)
+    ifrnet_space = space_split_phase(
+        "IFRNet S", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: ifrnet.make_model_fn(ifrnet_params79, "S", dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=79)).to(dev), plan_timestep(3, 2),
+        lambda dtype: {**ifrnet.warps_per_forward("S", dtype), "splat": 0}, lambda fn: fn,
+    )
+    del ifrnet_params79
+    space_split_line(79, "IFRNet S", ifrnet_space, t0)
+
+    t0 = time.perf_counter()
+    amt_params80 = amt.init_params("S", 0)
+    amt_space = space_split_phase(
+        "AMT S", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: amt.make_model_fn(amt_params80, "amt-s.pth", dtype=dtype, device=dev),
+        _pad16(torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=80)).to(dev))[0], plan_timestep(3, 2),
+        lambda dtype: {**amt.warps_per_forward("S", dtype), "splat": 0}, lambda fn: fn,
+    )
+    del amt_params80
+    space_split_line(80, "AMT S (edge-padded to 1088 rows)", amt_space, t0)
+
+    t0 = time.perf_counter()
+    ifunet_params81 = ifunet.init_params(0)
+    ifunet_space = space_split_phase(
+        "IFUnet", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: ifunet.make_model_fn(ifunet_params81, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=81)).to(dev), plan_timestep(3, 2),
+        lambda dtype: {**ifunet.warps_per_forward(dtype), "splat": 0}, lambda fn: fn,
+    )
+    del ifunet_params81
+    space_split_line(81, "IFUnet", ifunet_space, t0)
+    slice22 = {"ifrnet_space_2way": ifrnet_space, "amt_space_2way": amt_space, "ifunet_space_2way": ifunet_space}
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -5645,7 +5701,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-78 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-81 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -5661,7 +5717,7 @@ def main() -> int:
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
             + space_train_launches["narrow"] + m2m_space_launches["narrow"] + xvfi_space["launches"]["narrow"]
-            + film_space["launches"]["narrow"],
+            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in slice22.values()),
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -5676,6 +5732,7 @@ def main() -> int:
                 **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
                 "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
                 "xvfi_space_2way": xvfi_space["launches"]["narrow"], "film_space_2way": film_space["launches"]["narrow"],
+                **{path: row["launches"]["narrow"] for path, row in slice22.items()},
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -5707,7 +5764,7 @@ def main() -> int:
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
             + sum(family_launches["wide"].values()) + m2m_space_launches["wide"] + xvfi_space["launches"]["wide"]
-            + film_space["launches"]["wide"],
+            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in slice22.values()),
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -5718,6 +5775,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
                 **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
                 "xvfi_space_2way": xvfi_space["launches"]["wide"], "film_space_2way": film_space["launches"]["wide"],
+                **{path: row["launches"]["wide"] for path, row in slice22.items()},
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -5744,6 +5802,7 @@ def main() -> int:
             "m2m_space_2way": {"f32_max_abs_err": m2m_f32_err, "f32_settings": m2m_f32_settings, "bf16_psnr_db": m2m_bf16_db,
                                "runs": m2m_space_rows},
             "film_space_2way": film_space,
+            **slice22,
         },
         {
             "name": "softsplat",
@@ -5764,6 +5823,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
                 **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
                 "xvfi_space_2way": xvfi_space["launches"]["splat"], "film_space_2way": film_space["launches"]["splat"],
+                **{path: row["launches"]["splat"] for path, row in slice22.items()},
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",

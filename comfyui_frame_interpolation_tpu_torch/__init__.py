@@ -15,8 +15,9 @@ kernels and their backward kernels; the resident and streaming executors;
 training of all 15 model families through ``parallel/``, whose ``(data,
 space)`` mesh splits the batch over ``data`` and, on the ``space`` axis,
 the rows of RIFE (every arch, inference; 4.7's training step), M2M's and
-XVFI Vimeo's pair-cached inference and FILM. ``ROADMAP.md`` lists what is
-still to be ported (the ``space`` axis of the other families).
+XVFI Vimeo's pair-cached inference, FILM, IFRNet, AMT and IFUnet.
+``ROADMAP.md`` lists what is still to be ported (the ``space`` axis of the
+other families).
 """
 
 from . import core, ops

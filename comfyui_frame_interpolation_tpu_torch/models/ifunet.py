@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..ops.cuda.warp_kernel import route_counts
 from .common import cast_params, channels_last_params, init_state_dict, leaky_relu, resize_by_scale
@@ -164,7 +165,10 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, level: int) -> torch
     output pixel by a softmax over the 9 taps of ``mask`` ``[N, 9*l*l, H,
     W]`` (channel ``k*l*l + p``, ``p = i*l + j`` the pixel's offset in its
     l x l cell), as one batched product per pixel in the mask's layout; the
-    result ``[N, 4, H*l, W*l]``, ``channels_last``."""
+    result ``[N, 4, H*l, W*l]``, ``channels_last``. Row bands
+    (``parallel.space``) go to their own rule."""
+    if has_torch_function((flow, mask)):
+        return handle_torch_function(convex_upsample, (flow, mask), flow, mask, level)
     n, _, h, w = flow.shape
     l2 = level * level
     taps = F.unfold(level * flow, 3, padding=1)  # [N, 4*9, H*W], channel c*9 + k

@@ -46,6 +46,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = ["BAND_ELEMENTS", "BidirCorr"]
 
@@ -83,7 +84,14 @@ class _Pyramid:
 
 class BidirCorr:
     """``BidirCorrBlock`` on NCHW feature maps ``f0``, ``f1`` ``[B, C, H,
-    W]`` (1/8 resolution): :meth:`lookup` gives both directions' windows."""
+    W]`` (1/8 resolution): :meth:`lookup` gives both directions' windows.
+    Row bands (``parallel.space``) go to their own rule, which returns an
+    object with the same :meth:`lookup`."""
+
+    def __new__(cls, f0, f1, levels: int = 4, radius: int = 3):
+        if has_torch_function((f0, f1)):
+            return handle_torch_function(BidirCorr, (f0, f1), f0, f1, levels, radius)
+        return super().__new__(cls)
 
     def __init__(self, f0: torch.Tensor, f1: torch.Tensor, levels: int = 4, radius: int = 3):
         self.radius, self.levels = radius, levels

@@ -18,26 +18,39 @@ the same way. Each call goes to the rule of an allow-list; a function
 without one raises ``NotImplementedError`` naming itself and the
 ``ROADMAP.md`` item that would port it. Nothing is gathered or run band by
 band unless a rule says so. The rules are those that RIFE (every arch, with
-and without fast mode), M2M's and XVFI Vimeo's pair functions and FILM
-need:
+and without fast mode), M2M's and XVFI Vimeo's pair functions, FILM,
+IFRNet (S and L), AMT (S, L and G) and IFUnet (with and without the
+ensemble) need:
 
 * row-local ops, band by band: elementwise arithmetic, ``clamp`` (``min=``
-  too), ``sigmoid``, ``relu`` (``nn.ReLU``), ``leaky_relu``, ``prelu``
-  (``nn.PReLU``), ``exp``, ``abs``, ``square``, ``sqrt``, ``floor``,
-  comparisons, casts, channel and batch ``cat``, ``stack`` along a new
-  dimension, slices of the channel and batch dimensions (an ``...`` and
-  ``None`` too), ``permute``, the ``expand_as`` of a tensor without rows
-  (the timestep map), ``repeat``, ``reshape`` and ``unflatten`` of the
-  dimensions before the rows (each refuses a shape that moves or merges
-  them), M2M's ``_repeat_branches``, ``index_select`` of another
-  dimension, and ``pixel_shuffle`` and nearest ``interpolate`` by an
-  integer factor, which multiply each band's rows and first row (a
-  nearest downscale by ``s`` divides them, on bands that start on a
-  multiple of ``s``);
-* reductions (``sum``, ``mean``, ``var``): over other dimensions band by
-  band; over the rows from each band's partial sum, added in band order on
-  the value's device into a plain tensor (``var`` from that mean first);
-  ``amax`` and ``amin`` the same way, exact (RIFE 4.0's restart flag);
+  too), ``sigmoid``, ``tanh``, ``relu`` (``nn.ReLU``), ``leaky_relu``,
+  ``prelu`` (``nn.PReLU``), ``exp``, ``abs``, ``square``, ``sqrt``,
+  ``floor``, comparisons, casts, channel and batch ``cat``, ``stack``
+  along a new dimension, slices of the channel and batch dimensions (an
+  ``...`` and ``None`` too) and writes into them (``__setitem__``, IFRNet's
+  ``ResBlock``: a value in the same bands or a plain tensor without rows;
+  an index that cuts the rows raises), ``permute``, the ``expand_as`` of a
+  tensor without rows (the timestep map), ``repeat``, ``reshape``,
+  ``view``, ``expand`` and ``unflatten`` of the dimensions before the rows
+  (each refuses a shape that moves or merges them), M2M's
+  ``_repeat_branches``, ``index_select`` of another dimension,
+  ``batch_norm`` on stored statistics (``training=True`` raises),
+  ``softmax`` over a dimension other than the rows, and ``pixel_shuffle``
+  and nearest ``interpolate`` by an integer factor, which multiply each
+  band's rows and first row (a nearest downscale by ``s`` divides them, on
+  bands that start on a multiple of ``s``);
+* a plain tensor whose rows are the value's height, in ``cat`` and the
+  elementwise ops: a constant map built whole from a value's shape
+  (IFRNet's and AMT's timestep map, AMT's coordinate grid, IFUnet's
+  ``tmap``), narrowed to each band's rows on its device; any other plain
+  tensor with rows raises;
+* ``torch.cat`` along the rows (IFRNet's joint mean of both frames): the
+  operands' bands in order, each on its own device;
+* reductions (``sum``, ``mean``, ``var``, ``var_mean``): over other
+  dimensions band by band; over the rows from each band's partial sum,
+  added in band order on the value's device into a plain tensor (``var``
+  from that mean first: AMT's ``common.instance_norm``); ``amax`` and
+  ``amin`` the same way, exact (RIFE 4.0's restart flag);
 * ``torch.einsum`` with one banded operand whose row subscript no other
   operand has and the result keeps (M2M's attention cube);
 * ``conv2d``: each band takes the ``dilation * (k - 1)`` rows around it
@@ -81,12 +94,19 @@ need:
   device and added in band order, cast once. It is the forward
   counterpart of the warp's gathered source, whose image gradient autograd
   adds back into bands. The splat's backward takes no band yet, so a splat
-  that needs a gradient raises (M2M's training step on the axis).
+  that needs a gradient raises (M2M's training step on the axis);
+* IFUnet's ``convex_upsample`` (which hands a band over): each band's flow
+  with a row from each neighbour for the 3x3 taps, its own mask, its result
+  ``level`` times its rows from ``level`` times its first row;
+* AMT's correlation (``ops.bidir_corr.BidirCorr``, which hands bands
+  over): each target's pyramid built on each band's device from the
+  target gathered whole (the warp's source rule), each band's queries
+  looked up at its own rows of the coordinates; inference only.
 
 Every rule computes what the op computes on the whole tensor: the
 convolutions and resizes the same sums, possibly by other algorithms
-(cuDNN picks one per shape), the reductions and the splat in another
-order, the warp bit for bit. Bands on logical replicas of one device split
+(cuDNN picks one per shape), the reductions, the splat and the
+correlation's dots in another order, the warp bit for bit. Bands on logical replicas of one device split
 the work as separate devices would.
 """
 
@@ -99,8 +119,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models import common, m2m
+from ..models import common, ifunet, m2m
 from ..ops import costvol
+from ..ops.bidir_corr import BidirCorr, _Pyramid
 from ..ops.softsplat import softsplat_func, softsplat_partial
 from ..ops.warp import warp
 from .mesh import MIN_ROWS_PER_SHARD, SPACE_TODO
@@ -265,6 +286,9 @@ class RowBands:
     def __getitem__(self, index):
         return self._call(torch.Tensor.__getitem__, index)
 
+    def __setitem__(self, index, value):
+        self._call(torch.Tensor.__setitem__, index, value)
+
     def __add__(self, other):
         return self._call(torch.Tensor.add, other)
 
@@ -322,6 +346,12 @@ class RowBands:
     def relu(self):
         return self._call(torch.Tensor.relu)
 
+    def tanh(self):
+        return self._call(torch.Tensor.tanh)
+
+    def softmax(self, *args, **kwargs):
+        return self._call(torch.Tensor.softmax, *args, **kwargs)
+
     def amax(self, *args, **kwargs):
         return self._call(torch.Tensor.amax, *args, **kwargs)
 
@@ -345,6 +375,12 @@ class RowBands:
 
     def reshape(self, *shape):
         return self._call(torch.Tensor.reshape, *shape)
+
+    def view(self, *shape):
+        return self._call(torch.Tensor.view, *shape)
+
+    def expand(self, *sizes):
+        return self._call(torch.Tensor.expand, *sizes)
 
     def unflatten(self, dim, sizes):
         return self._call(torch.Tensor.unflatten, dim, sizes)
@@ -391,15 +427,22 @@ def _check_alike(func, ref: RowBands, other: RowBands) -> None:
 
 def _local(func, v, j: int, ref: RowBands):
     """Argument ``v`` as band ``j`` of ``ref`` sees it: its own band, a plain
-    tensor without rows on the band's device, or ``v`` as it is."""
+    tensor without rows on the band's device, a plain tensor whose rows (as
+    it broadcasts against ``ref``) are ``ref``'s height narrowed to the
+    band's rows there (a constant map built whole from a value's shape:
+    IFRNet's and AMT's ``embt_map``, AMT's ``coord``, IFUnet's ``tmap``), or
+    ``v`` as it is."""
     if isinstance(v, RowBands):
         _check_alike(func, ref, v)
         return v.bands[j]
     if isinstance(v, torch.Tensor):
         k = ref.axis - (ref.ndim - v.dim())
+        dev = ref.bands[j].device
+        if k >= 0 and v.shape[k] == ref.height:
+            return v.narrow(k, ref.starts[j], ref.bands[j].shape[ref.axis]).to(dev)
         if k >= 0 and v.shape[k] != 1:
             raise _no_rule(f"{_name(func)} of a plain tensor {tuple(v.shape)} that spans the rows of {ref!r}")
-        return v.to(ref.bands[j].device)
+        return v.to(dev)
     return v
 
 
@@ -442,12 +485,32 @@ def _alike_bands(func, tensors, what: str) -> RowBands:
 
 
 def _cat(func, args, kwargs):
+    """``torch.cat`` along another dimension: band by band, a plain operand
+    taken as :func:`_local` takes it (one that spans the rows, narrowed);
+    along the rows: :func:`_cat_rows`."""
     tensors, dim = _bind(func, ("tensors", "dim"), (None, 0), args, kwargs)
-    ref = _alike_bands(func, tensors, "torch.cat")
+    ref = _first_bands([tensors])
     d = dim % ref.ndim
     if d == ref.axis:
-        raise _no_rule("torch.cat along the rows")
-    return ref.like([torch.cat([t.bands[j] for t in tensors], d) for j in range(len(ref.bands))])
+        return _cat_rows(tensors, d)
+    return ref.like([torch.cat([_local(func, t, j, ref) for t in tensors], d) for j in range(len(ref.bands))])
+
+
+def _cat_rows(tensors, d: int) -> RowBands:
+    """``torch.cat`` of row-band values along their rows (IFRNet's joint
+    mean of both frames): the operands' bands in order, each on its own
+    device, each starting after the rows of the operands before it; exact,
+    and a reduction of the result takes its partial sums in band order."""
+    ref = _first_bands([tensors])
+    other = [n for i, n in enumerate(ref.shape) if i != d]
+    bands, starts, rows = [], [], 0
+    for t in tensors:
+        if not isinstance(t, RowBands) or t.axis != d or [n for i, n in enumerate(t.shape) if i != d] != other:
+            raise _no_rule(f"torch.cat along the rows of {t!r} and {ref!r} (row-band values alike but for their rows)")
+        bands += t.bands
+        starts += [rows + s for s in t.starts]
+        rows += t.height
+    return RowBands(bands, starts, rows, d)
 
 
 def _stack(func, args, kwargs):
@@ -461,8 +524,9 @@ def _stack(func, args, kwargs):
     return ref.like([torch.stack([t.bands[j] for t in tensors], d) for j in range(len(ref.bands))], axis)
 
 
-def _getitem(func, args, kwargs):
-    x, index = args
+def _index(x: RowBands, index, what: str) -> Tuple[tuple, int]:
+    """``index`` with its ``...`` spelt out and a slice for every dimension
+    it leaves out, and the position of the rows' entry in it."""
     index = index if isinstance(index, tuple) else (index,)
     used = sum(i is not None and i is not Ellipsis for i in index)  # the entries that take a dimension
     if index.count(Ellipsis) == 1:
@@ -470,10 +534,15 @@ def _getitem(func, args, kwargs):
         index = index[:k] + (slice(None),) * (x.ndim - used) + index[k + 1 :]
         used = x.ndim
     if used > x.ndim or not all(i is None or isinstance(i, (int, slice)) for i in index):
-        raise _no_rule(f"Tensor.__getitem__ with {index!r} (slices, integers, None and one Ellipsis only)")
+        raise _no_rule(f"{what} with {index!r} (slices, integers, None and one Ellipsis only)")
     index = index + (slice(None),) * (x.ndim - used)
     # the entry of the rows: the axis-th that takes a dimension
-    k = [j for j, i in enumerate(index) if i is not None][x.axis]
+    return index, [j for j, i in enumerate(index) if i is not None][x.axis]
+
+
+def _getitem(func, args, kwargs):
+    x, index = args
+    index, k = _index(x, index, "Tensor.__getitem__")
     if isinstance(index[k], int):
         raise _no_rule("Tensor.__getitem__ of one row")
     start, stop, step = index[k].indices(x.height)
@@ -490,6 +559,22 @@ def _getitem(func, args, kwargs):
         starts.append(max(s + a - start, 0))
     # integers before the rows take their dimensions away, and None adds one
     return RowBands(bands, starts, stop - start, sum(not isinstance(i, int) for i in index[:k]))
+
+
+def _setitem(func, args, kwargs):
+    """``x[index] = value`` for an ``index`` that leaves the rows whole
+    (IFRNet's ``ResBlock`` writing its side channels): band by band, in
+    place, ``value`` a row-band value in the same bands or a plain tensor as
+    :func:`_local` takes it."""
+    x, index, value = args
+    if not isinstance(x, RowBands):
+        raise _no_rule(f"Tensor.__setitem__ of a plain tensor {tuple(x.shape)} by a row-band value")
+    index, k = _index(x, index, "Tensor.__setitem__")
+    if isinstance(index[k], int) or index[k].indices(x.height) != (0, x.height, 1):
+        raise _no_rule(f"Tensor.__setitem__ of an index that cuts the rows ({index[k]!r} of {x.height})")
+    target = _getitem(func, (x, index), {})  # views of the bands
+    for j, b in enumerate(target.bands):
+        b.copy_(_local(func, value, j, target))
 
 
 def _permute(func, args, kwargs):
@@ -783,11 +868,14 @@ def _band_sums(x: RowBands, dims: Tuple[int, ...], keepdim: bool, each: Callable
 
 
 def _reduce(func, args, kwargs):
-    """``sum``, ``mean`` and ``var``: over dimensions without the rows, band
-    by band; over the rows, from partial sums in band order into a plain
-    tensor on the value's device (``var`` from the mean first, as torch's)."""
+    """``sum``, ``mean``, ``var`` and ``var_mean``: over dimensions without
+    the rows, band by band; over the rows, from partial sums in band order
+    into a plain tensor on the value's device (``var`` from the mean first,
+    as torch's: each band's sum of squared deviations from it, added in
+    band order, over the global count less ``correction``; ``var_mean``
+    returns both, as AMT's ``common.instance_norm`` reads them)."""
     name = _name(func).rsplit(".", 1)[-1]
-    if name == "var":
+    if name in ("var", "var_mean"):
         x, dim, unbiased, keepdim, correction = _bind(
             func, ("input", "dim", "unbiased", "keepdim", "correction"), (None, None, None, False, None), args, kwargs
         )
@@ -803,7 +891,10 @@ def _reduce(func, args, kwargs):
     dims = _dims(dim, x.ndim)
     if x.axis not in dims:
         axis = x.axis if keepdim else x.axis - sum(d < x.axis for d in dims)
-        return x.like([func(b, dims, **local) for b in x.bands], axis)
+        out = [func(b, dims, **local) for b in x.bands]
+        if name == "var_mean":
+            return tuple(x.like([o[i] for o in out], axis) for i in range(2))
+        return x.like(out, axis)
     count = math.prod(x.shape[d] for d in dims)
     total = _band_sums(x, dims, keepdim)
     if name == "sum":
@@ -813,7 +904,8 @@ def _reduce(func, args, kwargs):
         return mean
     centre = mean if keepdim else mean.reshape([1 if d in dims else n for d, n in enumerate(x.shape)])
     sq = _band_sums(x, dims, keepdim, lambda b: (b - centre.to(b.device)).square())
-    return sq / max(count - correction, 0)
+    var = sq / max(count - correction, 0)
+    return (var, mean) if name == "var_mean" else var
 
 
 def _extreme(func, args, kwargs):
@@ -898,27 +990,42 @@ def _einsum(func, args, kwargs):
 
 
 def _repeat(func, args, kwargs):
-    x, sizes = args[0], args[1:]
-    if len(sizes) == 1 and not isinstance(sizes[0], int):
-        sizes = tuple(sizes[0])
+    x, sizes = args[0], _sizes(args[1:])
     if kwargs or len(sizes) != x.ndim or sizes[x.axis] != 1:
         raise _no_rule(f"Tensor.repeat{tuple(sizes)} of {x!r} (of the other dimensions only)")
     return x.like([b.repeat(*sizes) for b in x.bands])
 
 
+def _sizes(args) -> list:
+    """A shape given as ``*sizes`` or as one sequence."""
+    return list(args[0]) if len(args) == 1 and not isinstance(args[0], int) else list(args)
+
+
 def _reshape(func, args, kwargs):
-    x, shape = args[0], args[1:]
-    if len(shape) == 1 and not isinstance(shape[0], int):
-        shape = tuple(shape[0])
-    shape = list(shape)
+    """``reshape`` and ``view`` (AMT's split of the batch) of the dimensions
+    before the rows: band by band; a shape that moves or merges the rows
+    raises, naming the method."""
+    x, shape = args[0], _sizes(args[1:])
     if shape.count(-1) == 1:
         known = math.prod(n for n in shape if n != -1)
         shape[shape.index(-1)] = math.prod(x.shape) // known if known else 0
     tail = x.ndim - x.axis  # the rows and the dimensions after them stay
     if kwargs or len(shape) < tail or math.prod(shape) != math.prod(x.shape) or tuple(shape[-tail:]) != tuple(x.shape)[-tail:]:
-        raise _no_rule(f"Tensor.reshape{tuple(shape)} of {x!r} (that moves or merges the rows)")
+        what = "Tensor.view" if func is torch.Tensor.view else "Tensor.reshape"
+        raise _no_rule(f"{what}{tuple(shape)} of {x!r} (that moves or merges the rows)")
     axis = len(shape) - tail
-    return x.like([b.reshape(*shape[:axis], b.shape[x.axis], *shape[axis + 1 :]) for b in x.bands], axis)
+    return x.like([func(b, (*shape[:axis], b.shape[x.axis], *shape[axis + 1 :])) for b in x.bands], axis)
+
+
+def _expand(func, args, kwargs):
+    """``Tensor.expand`` of the dimensions before the rows (AMT's frames
+    tiled over its flows), new leading ones among them; the rows keep their
+    size."""
+    x, sizes = args[0], _sizes(args[1:])
+    axis = x.axis + len(sizes) - x.ndim
+    if kwargs or axis < x.axis or sizes[axis] not in (-1, x.height):
+        raise _no_rule(f"Tensor.expand{tuple(sizes)} of {x!r} (that changes the rows)")
+    return x.like([b.expand(*sizes[:axis], b.shape[x.axis], *sizes[axis + 1 :]) for b in x.bands], axis)
 
 
 def _unflatten(func, args, kwargs):
@@ -972,6 +1079,90 @@ def _softsplat_rule(func, args, kwargs):
     return x.like(out)
 
 
+def _batch_norm(func, args, kwargs):
+    """``F.batch_norm`` on its stored statistics (``training=False``, IFUnet's
+    ``nn.BatchNorm2d`` in eval): a per-channel affine, band by band. Batch
+    statistics over the rows (``training=True``) raise."""
+    x, mean, var, weight, bias, training, momentum, eps = _bind(
+        func, ("input", "running_mean", "running_var", "weight", "bias", "training", "momentum", "eps"),
+        (None, None, None, None, None, False, 0.1, 1e-5), args, kwargs,
+    )
+    if training:
+        raise _no_rule("batch_norm with training=True (batch statistics over the rows)")
+    stats = (mean, var, weight, bias)
+    if not isinstance(x, RowBands) or x.axis == 1 or any(isinstance(v, RowBands) for v in stats):
+        raise _no_rule("batch_norm of other than row bands by plain statistics")
+    return x.like([
+        func(b, *(None if v is None else v.to(b.device) for v in stats), False, momentum, eps) for b in x.bands
+    ])
+
+
+def _softmax(func, args, kwargs):
+    """``softmax`` over a dimension other than the rows (IFUnet's blend
+    weights over channels): band by band; over the rows it raises."""
+    x, dim, dtype = _bind(func, ("input", "dim", "dtype"), (None, None, None), args, kwargs)
+    if dim is None or dim % x.ndim == x.axis:
+        raise _no_rule(f"softmax over the rows (dim {dim} of {x!r})")
+    return x.like([func(b, dim) if dtype is None else func(b, dim, dtype=dtype) for b in x.bands])
+
+
+def _convex_upsample_rule(func, args, kwargs):
+    """``models.ifunet.convex_upsample`` of NCHW bands: each band's flow with
+    the row above and below it that the 3x3 ``unfold`` taps read (zeros
+    beyond the global top and bottom only, as ``padding=1`` gives) and its
+    own mask, padded by a row each side whose outputs are cropped; its
+    result the ``level`` x rows from ``level`` x its first row."""
+    flow, mask, level = _bind(func, ("flow", "mask", "level"), (None, None, None), args, kwargs)
+    if not (isinstance(flow, RowBands) and isinstance(mask, RowBands)) or flow.axis != 2:
+        raise _no_rule("models.ifunet.convex_upsample of other than NCHW row bands of the flow and its mask")
+    _check_alike(func, flow, mask)
+    out = []
+    for j, (b, a) in enumerate(zip(flow.bands, flow.starts)):
+        rows = b.shape[2]
+        y = func(flow.rows(a - 1, a + rows + 1, j), F.pad(mask.bands[j], (0, 0, 1, 1)), level)
+        out.append(y.narrow(2, level, level * rows))
+    return RowBands(out, [level * a for a in flow.starts], level * flow.height, 2)
+
+
+class _BandCorr:
+    """``ops.bidir_corr.BidirCorr`` on NCHW row bands (AMT's correlation):
+    each target's pyramid is built once per band, on the band's device, from
+    the target gathered whole (the warp's source rule); each band's queries
+    are its own rows of ``f0``/``f1``, looked up at its own rows of the
+    coordinates (global pixel coordinates: AMT's ``coord`` spans the rows,
+    :func:`_local`), into its rows of the windows. The same dots, f32 over
+    each band's queries: f32 rounding apart from one device, not bits.
+    Inference only: a gradient raises."""
+
+    def __init__(self, f0: RowBands, f1: RowBands, levels: int, radius: int):
+        self.radius, self.levels = radius, levels
+        self.f0, self.f1 = f0, f1
+        pp = 2 * radius + 2
+        self.pyr0 = [_Pyramid(f0.gather(b.device), levels, pp) for b in f0.bands]
+        self.pyr1 = [_Pyramid(f1.gather(b.device), levels, pp) for b in f1.bands]
+
+    def lookup(self, coords0: RowBands, coords1: RowBands) -> Tuple[RowBands, RowBands]:
+        return self._windows(self.f0, self.pyr1, coords0), self._windows(self.f1, self.pyr0, coords1)
+
+    def _windows(self, query: RowBands, pyrs, coords) -> RowBands:
+        if not isinstance(coords, RowBands) or coords.axis != 1:
+            raise _no_rule(f"ops.bidir_corr.BidirCorr.lookup at {coords!r} (NHWC row bands of the coordinates)")
+        _check_alike(BidirCorr.lookup, query, coords.permute(0, 3, 1, 2))
+        if torch.is_grad_enabled() and coords.requires_grad:
+            raise _no_rule("ops.bidir_corr.BidirCorr.lookup with a gradient (the training step on the axis)")
+        return query.like([BidirCorr.windowed(self, q, p, c) for q, p, c in zip(query.bands, pyrs, coords.bands)])
+
+
+def _bidir_corr_rule(func, args, kwargs):
+    f0, f1, levels, radius = _bind(func, ("f0", "f1", "levels", "radius"), (None, None, 4, 3), args, kwargs)
+    if not (isinstance(f0, RowBands) and isinstance(f1, RowBands)) or f0.axis != 2:
+        raise _no_rule("ops.bidir_corr.BidirCorr of other than NCHW row bands of both feature maps")
+    _check_alike(func, f0, f1)
+    if torch.is_grad_enabled() and (f0.requires_grad or f1.requires_grad):
+        raise _no_rule("ops.bidir_corr.BidirCorr with a gradient (the training step on the axis)")
+    return _BandCorr(f0, f1, levels, radius)
+
+
 _RULES: Dict[Callable, Callable] = {}
 for _f in (
     torch.add, torch.sub, torch.mul, torch.div, torch.rsub, torch.neg, torch.clamp, torch.sigmoid,
@@ -980,10 +1171,10 @@ for _f in (
     torch.Tensor.__rtruediv__, torch.Tensor.float, torch.Tensor.contiguous, torch.Tensor.detach, F.leaky_relu,
     torch.prelu, torch.exp, torch.Tensor.exp, torch.abs, torch.Tensor.abs, torch.square, torch.Tensor.square,
     torch.sqrt, torch.Tensor.sqrt, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
-    F.relu, torch.relu, torch.Tensor.relu, torch.floor, torch.Tensor.floor,
+    F.relu, torch.relu, torch.Tensor.relu, torch.floor, torch.Tensor.floor, torch.tanh, torch.Tensor.tanh,
 ):
     _RULES[_f] = _elementwise
-for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var):
+for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var, torch.var_mean):
     _RULES[_f] = _reduce
 for _f in (torch.amax, torch.Tensor.amax, torch.amin, torch.Tensor.amin):
     _RULES[_f] = _extreme
@@ -994,6 +1185,7 @@ _RULES.update({
     torch.index_select: _index_select,
     torch.Tensor.index_select: _index_select,
     torch.Tensor.__getitem__: _getitem,
+    torch.Tensor.__setitem__: _setitem,
     torch.Tensor.permute: _permute,
     torch.permute: _permute,
     torch.Tensor.expand_as: _expand_as,
@@ -1007,10 +1199,17 @@ _RULES.update({
     torch.Tensor.repeat: _repeat,
     torch.Tensor.reshape: _reshape,
     torch.reshape: _reshape,
+    torch.Tensor.view: _reshape,
+    torch.Tensor.expand: _expand,
+    F.batch_norm: _batch_norm,
+    torch.softmax: _softmax,
+    torch.Tensor.softmax: _softmax,
     torch.Tensor.unflatten: _unflatten,
     warp: _warp_rule,
     costvol.costvol_func: _costvol_rule,
     softsplat_func: _softsplat_rule,
     m2m._repeat_branches: _bandwise,
     common.conv2x2_up2x: _conv2x2_up2x_rule,
+    ifunet.convex_upsample: _convex_upsample_rule,
+    BidirCorr: _bidir_corr_rule,
 })

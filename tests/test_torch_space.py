@@ -32,11 +32,22 @@ against the port's own one-device runs, on logical replicas of the CPU.
   along a new last and first dimension, an index with ``None``, nearest
   ``interpolate`` up by 2 and 3 (``scale_factor=``, ``nn.Upsample``,
   ``size=``) and down by 2, the warp of a plain source by banded flow,
-  ``amax``/``amin`` over everything, the rows or the channels) on 2 and 3 bands
-  against the same op on the whole tensor (the reductions over the rows
-  give a plain tensor); the ops without a rule raise, naming themselves and
-  the ``ROADMAP.md`` item; ``band_rows``' splits. M2M's pair functions on
-  the axis: ``tests/test_torch_space_m2m.py``.
+  ``amax``/``amin`` over everything, the rows or the channels; and IFRNet's,
+  AMT's and IFUnet's: ``__setitem__`` of a channel slice by bands and by a
+  plain tensor, ``torch.cat`` along the rows (and the mean of one), a plain
+  map that spans the rows in ``cat`` and in elementwise ops (the timestep
+  map, AMT's coordinate grid), ``var_mean`` over the rows and columns and
+  over the channels, ``common.instance_norm``, ``view`` and ``expand`` of
+  the dimensions before the rows, ``batch_norm`` on stored statistics,
+  ``tanh``, ``softmax`` over the channels, ``ifunet.convex_upsample`` at
+  levels 4 and 8, and AMT's correlation lookup on bands against
+  ``BidirCorr`` on the whole maps) on 2 and 3 bands against the same op on
+  the whole tensor (the reductions over the rows give a plain tensor); the
+  ops without a rule raise, naming themselves and the ``ROADMAP.md`` item
+  (``softmax`` over the rows, ``batch_norm`` with ``training=True`` and a
+  ``__setitem__`` that cuts the rows among them); ``band_rows``' splits.
+  M2M's pair functions on the axis: ``tests/test_torch_space_m2m.py``;
+  IFRNet, AMT and IFUnet: ``tests/test_torch_space_{ifrnet,amt,ifunet}.py``.
 * RIFE's other archs on a ``(1, 2)`` mesh at 2 x 192x128 (bands of 128 + 64
   rows) in f64 against the port's one device, within 1e-12 of the output's
   largest value: 4.0, 4.2, 4.3 with and without fast mode, 4.5, 4.6, 4.10,
@@ -70,8 +81,9 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan, run_plan_window4
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
-from comfyui_frame_interpolation_tpu_torch.models import m2m, rife
+from comfyui_frame_interpolation_tpu_torch.models import common, ifunet, m2m, rife
 from comfyui_frame_interpolation_tpu_torch.models.common import cast_params
+from comfyui_frame_interpolation_tpu_torch.ops.bidir_corr import BidirCorr
 from comfyui_frame_interpolation_tpu_torch.ops.costvol import costvol_func
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_backward_torch, warp_torch
@@ -282,14 +294,66 @@ RULES = {
     "amax of everything": lambda x: (x[:, :2].abs().amax() > 0.9) & (x[:, 2:].abs().amax() > 0.5),
     "amax over the rows": lambda x: torch.amax(x, (2, 3), keepdim=True) - x.amin(2, keepdim=True).amin(3, keepdim=True),
     "amax over the channels": lambda x: x.amax(1, keepdim=True) + torch.amin(x, dim=1)[:, None],
+    # IFRNet's, AMT's and IFUnet's
+    "setitem of a channel slice": lambda x: _written(x),
+    "cat along the rows": lambda x: torch.cat([x, x.square(), x[:, :, :72]], 2),
+    "mean of a cat along the rows": lambda x: torch.cat([x, 2.0 * x], 2).float().mean((1, 2, 3), keepdim=True),
+    "a spanning plain map in cat": lambda x: torch.cat([x, _row_map(x).expand(2, 1, *x.shape[2:]), x[:, :1]], 1),
+    "a spanning plain map in add": lambda x: (_row_map(x) + x - 0.5 * _row_map(x)) * _row_map(x)
+    + (_coord(x) + x.permute(0, 2, 3, 1)[..., :2]).permute(0, 3, 1, 2).sum(1, keepdim=True),
+    "var_mean over the rows and columns": lambda x: torch.cat(torch.var_mean(x, dim=(2, 3), correction=0, keepdim=True), 1),
+    "var_mean over the channels": lambda x: torch.var_mean(x, 1, keepdim=True)[0] * torch.var_mean(x, dim=1)[1][:, None],
+    "instance_norm": lambda x: common.instance_norm(x),
+    "view": lambda x: x.view(1, 2, 4, *x.shape[2:]).mean(1) + x.view(2, 2, 2, *x.shape[2:])[:, 1].repeat(1, 2, 1, 1),
+    "expand": lambda x: x[:, None].expand(2, 3, *x.shape[1:]).reshape(6, *x.shape[1:])
+    * x[:1, None].expand(2, 3, 4, -1, -1).reshape(6, 4, *x.shape[2:]),
+    "batch_norm eval": lambda x: F.batch_norm(x, BN[0], BN[1], BN[2], BN[3], training=False, eps=1e-3)
+    + nn.BatchNorm2d(4).eval()(x),
+    "tanh": lambda x: torch.tanh(x) + x.tanh(),
+    "softmax over the channels": lambda x: x.softmax(1) + torch.softmax(x * 2, dim=1),
+    "convex_upsample x4": lambda x: ifunet.convex_upsample(x * 3, F.conv2d(x, _weight(9 * 16, 4, 1, 5)), 4),
+    "convex_upsample x8": lambda x: ifunet.convex_upsample(x * 3, F.conv2d(x, _weight(9 * 64, 4, 1, 6)), 8),
+    "bidir_corr lookup": lambda x: _corr_lookup(x),
 }
 # a value without rows: the reductions over the rows give a plain tensor
 PLAIN_RESULT = {
     "mean over the rows and columns", "mean over the rows", "mean and var of the frame", "sum over the batch and rows",
-    "amax of everything", "amax over the rows",
+    "amax of everything", "amax over the rows", "mean of a cat along the rows", "var_mean over the rows and columns",
 }
 CUBE_C = torch.from_numpy(np.random.default_rng(11).random((2, 4, 3), np.float32))
 CUBE_W = torch.from_numpy(np.random.default_rng(12).random((2, 4, 20), np.float32))
+# running mean and variance, weight and bias of a 4-channel batch norm
+BN = [torch.from_numpy(np.random.default_rng(13 + i).uniform(lo, hi, 4).astype(np.float32))
+      for i, (lo, hi) in enumerate([(-0.5, 0.5), (0.5, 1.5), (0.0, 2.0), (-0.5, 0.5)])]
+
+
+def _written(x):
+    """IFRNet's ``ResBlock`` writes: a channel slice by a value in the same
+    bands, and one by a plain tensor without rows."""
+    y = x * 1.0
+    y[:, 2:] = F.conv2d(y[:, 2:], _weight(2, 2, 3, 7), None, 1, 1)
+    y[:, :1] = torch.full((2, 1, 1, 1), 0.25)
+    return y
+
+
+def _row_map(x):
+    """A plain ``[1, 1, H, 1]`` map built whole from a value's height."""
+    return torch.linspace(0.0, 1.0, x.shape[2]).view(1, 1, -1, 1)
+
+
+def _coord(x):
+    """AMT's ``coord``: a plain ``[N, H, W, 2]`` grid of pixel coordinates."""
+    gy, gx = torch.meshgrid(torch.arange(x.shape[2], dtype=torch.float32), torch.arange(x.shape[3], dtype=torch.float32), indexing="ij")
+    return torch.stack([gx, gy], -1).expand(x.shape[0], *gy.shape, 2)
+
+
+def _corr_lookup(x):
+    """``BidirCorr`` of two 2-channel maps looked up at the coordinate grid
+    moved by flows of up to +-6 pixels, both directions."""
+    corr = BidirCorr(x[:, :2], x[:, 2:])
+    flow = x.permute(0, 2, 3, 1) * 6.0
+    c0, c1 = corr.lookup(_coord(x) + flow[..., :2], _coord(x) + flow[..., 2:])
+    return torch.cat([c0, c1], 1)
 
 
 @pytest.mark.parametrize("n", [2, 3])
@@ -308,12 +372,17 @@ def test_rule_against_the_whole_tensor(rule, n):
     torch.testing.assert_close(out.gather(CPU), ref, rtol=0, atol=1e-5)
 
 
+def _cut_rows(x):
+    x[:, :, 1:] = 0.0
+
+
 NO_RULE = {
-    "tanh": lambda x: torch.tanh(x),
+    "softmax over the rows": lambda x: x.softmax(2),
     "Tensor.view": lambda x: x.view(-1),
     "interpolate": lambda x: F.interpolate(x, scale_factor=2, mode="bicubic"),
-    "torch.cat along the rows": lambda x: torch.cat([x, x], 2),
+    "batch_norm with training=True": lambda x: F.batch_norm(x, torch.zeros(4), torch.ones(4), training=True),
     "avg_pool2d": lambda x: F.avg_pool2d(x, 3, 1),
+    "Tensor.__setitem__ of an index that cuts the rows": _cut_rows,
 }
 
 
