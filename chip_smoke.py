@@ -51,7 +51,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    order that changes from run to run), bf16 one ulp of the output (2**-8 to
    2**-7 of the value);
 8. m2m     -- the M2M VFI node (``M2M.pth``, random weights from seed 0) on 4
-   frames of 540x960, multipliers 2 and 3, batch 2, on the card in fp32 (TF32
+   frames of 270x480, multipliers 2 and 3, batch 2, on the card in fp32 (TF32
    off) and bf16, each >= 40 dB against the same node on the CPU in fp32;
    original frames pass through bit for bit; exactly 1 splat launch per infer
    call, and per reuse call 4 warp launches on K1 and 16 on the
@@ -79,8 +79,8 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    ``[4, 36, 60, 128]`` in border mode, f32 and bf16 (flow in the same
    dtype);
 12. film     -- the FILM VFI node (``film_net_fp32.pt``, random weights from
-   seed 0) on 4 frames of 270x480 (at 540x960 the CPU leg's 7 batch-2 fp32
-   calls take about 2 minutes on 8 cores), multipliers 2 and 4, batch 2, on the card
+   seed 0) on 4 frames of 135x240 (the CPU leg's 7 batch-2 fp32 calls take
+   ~25-39 s at 270x480 on 8 cores), multipliers 2 and 4, batch 2, on the card
    in fp32 (TF32 off) and bf16, each >= 40 dB against the same node on the
    CPU in fp32; original frames pass through bit for bit; exactly 11 wide and
    5 K1 warp launches per forward call (``film.WARPS_PER_CALL``);
@@ -105,7 +105,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    every ``function_softsplat`` name, f32 atol 1e-5;
 16. gmfss     -- the GMFSS Fortuna VFI node, ``GMFSS_fortuna`` and
    ``GMFSS_fortuna_union`` (random weights from seed 0), on 4 frames of
-   270x480, multipliers 2 and 3, batch 2, on the card in fp32 (TF32 off) and
+   135x240, multipliers 2 and 3, batch 2, on the card in fp32 (TF32 off) and
    bf16, each >= 40 dB against the same node on the CPU in fp32; original
    frames pass through bit for bit; per reuse call exactly the K1 and wide
    launches of ``gmfss.warps_per_reuse``, per infer call the K1 launches of
@@ -132,8 +132,8 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    f32 Lab frames (``[1, 540, 960, 3]``, border, RAFT's flow plus the grid
    offsets) launched again on their inputs, bit for bit against the twin;
 20. eisai     -- the EISAI VFI node (random weights from seed 0, the
-   reference's 12 RAFT iterations) on 4 frames of 270x480 (the CPU leg at
-   540x960 would take minutes), multipliers 2 and 3, batch 2, on the card in
+   reference's 12 RAFT iterations) on 4 frames of 135x240 (the CPU leg at
+   270x480 took ~20 s), multipliers 2 and 3, batch 2, on the card in
    fp32 (TF32 off) and bf16, each >= 40 dB against the same node on the CPU
    in fp32; original frames pass through bit for bit; no launch per reuse
    call, per infer call the K1 launches of ``eisai.warps_per_infer()`` and
@@ -366,7 +366,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
 50. timing    -- RIFE 4.7 training at b16 x 224x224 (the ECCV2022-RIFE
    recipe's crops and batch; padded to 256x256), Adam 1e-4, f32 (TF32 at
    torch's defaults) and bf16 (parameters in bf16): steps/s and samples/s
-   as the median of 5 windows of 10 steps after 3, the two dtypes in turns,
+   as the median of 3 windows of 10 steps after 3, the two dtypes in turns,
    with the windows' spread and whether it resolves the two dtypes apart;
    the peak memory of one step, a ``torch.profiler`` top 10 of one f32 step
    with the idle share and the backward kernel's device ms and share; at
@@ -421,7 +421,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    1, and no CUDA warp or splat that needs a gradient reaching a twin;
 54. m2m train timing -- M2M training at b8 x 256x256 (crops of Vimeo-90K's
    448x256 triplets), f32 (TF32 at torch's defaults) and bf16, as phase 50
-   but in 5 windows of 5 steps each:
+   but in 3 windows of 5 steps each:
    steps/s and samples/s, the windows' spread, the peak memory of one step,
    a profile of one f32 step with the splat backward's device ms and
    share; at ``[64, 256, 256, 4]`` f32 and bf16 (the step's splat) and
@@ -447,7 +447,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    splat's backward at C = 3-514, the warp's at the wide and zeros-mode
    shapes); the same step at b1 x 64x64 (STMFNet 128x128) on the card
    against the CPU with phase 49's rule; then the step at TF32 defaults:
-   steps/s as the median of 5 windows of 2 steps with their spread, the
+   steps/s as the median of 3 windows of 2 steps with their spread, the
    peak memory, and one profiled step's idle share and each backward
    kernel's device ms and share of the step's device time;
 64-70. film, ifunet, atm, cain, flavr, sepconv, momo train -- as 55-61 (run
@@ -502,7 +502,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    cuDNN deterministic) within 1e-4 (recorded too: the (1, 2) run against
    itself, and both at cuDNN's default), bf16 >= 40 dB against the
    f32 one-device frames, K1 8 a forward (twice 4) and the backward 0;
-   frames/s of both in turns, ``run_plan``'s peak memory
+   frames/s of both in turns (one round each), ``run_plan``'s peak memory
    and a profile of one forward (idle share) of each;
 74. space train -- a RIFE 4.7 step at b16 x 224x224 f32 (two bands of 128
    rows after the pad) on the ``(1, 2)`` mesh against ``(1, 1)``, TF32 off,
@@ -558,8 +558,24 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
 81. IFUnet split -- IFUnet the same way, K1 12 and wide 2 a forward
    (``ifunet.warps_per_forward``; ``convex_upsample`` with a row of halo
    from each neighbour, batch norms on their stored statistics).
+82. X4K split -- XVFI X4K 1080p x2 b2 (3 frames) the same way as 77
+   (pair-cached; the zero pad to 1536 rows in the second band), K1 18, wide
+   14 and K2 1 a bf16 pair batch on one device and exactly twice on the
+   mesh, each band's launch against its plain version; the re-bands of one
+   bf16 split batch counted (``parallel.space.rebands``, ``rows_moved``:
+   the pyramid to 1/128 starts the second band off its stride); bf16 held
+   within 0.5 dB of one device's bf16;
+83. CAIN split -- CAIN 1080p x2 b2 the same way as 78 (no hand kernel; the
+   centred reflect pad to 1152 rows starts the second band at 612, which
+   ``pixel_unshuffle(8)`` re-bands to 608; its f32 runs with cuDNN timing
+   its algorithms: with TF32 off its heuristics' choice takes ~48 s a b2
+   forward);
+84. Sepconv split -- Sepconv 720p x2 b2 the same way, conditioned weights
+   (``sepconv_func`` on each band with the 50 rows its taps read).
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-81 and X4K's forward in 39) is driven with the
+Each phase starts with a ``clock:`` line, the seconds since the run began.
+
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-84 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -637,7 +653,8 @@ MAIN_SHAPE = (16, 1088, 1920, 7)  # a batch-8 1080p RIFE warp: 2B images, 3+4 ch
 SPLAT_F32_ATOL = 1e-5
 SPLAT_SHAPE = (16, 1088, 1920, 4)  # a batch-2 1080p M2M splat: 2 directions x 2 pairs x 4 branches, 3+1 channels
 M2M_HW = (540, 960)
-FILM_HW = (270, 480)
+M2M_NODE_HW = (270, 480)  # phase 8's clip: its CPU leg took ~28 s at M2M_HW
+FILM_HW = (135, 240)  # phase 12's clip: its CPU leg took ~25-39 s at 270x480
 FILM_WARP_SHAPES = ((4, 1080, 1920, 64), (4, 135, 240, 960))  # FILM 1080p batch 2: level-0 and level-3 feature warps
 # the wide cases' widths: FILM's and M2M's, and the narrow ones of RIFE 4.0,
 # IFRNet and AMT with one per vector width the kernel picks (bf16 C = 18: 4
@@ -647,7 +664,7 @@ WIDE_CHANNELS = (16, 18, 20, 21, 24, 32, 36, 44, 54, 64, 192, 448, 960)
 # 4 bytes, an element)
 WIDE_PROBE_SHAPES = ((2, 544, 960, 16), (2, 544, 960, 18), (2, 544, 960, 21))
 M2M_WIDE_SHAPES = ((2, 544, 960, 48), (2, 68, 120, 384))  # M2M 1080p batch 2: encoder-decoder feature warps
-GMFSS_HW = (270, 480)
+GMFSS_HW = (135, 240)  # phase 16's clip: its two CPU legs took ~20-30 s at 270x480
 # GMFSS 1080p batch 1, one direction of an infer: the half-resolution image
 # (3 + exp(metric)) and the three feature levels (64, 128, 192 + 1), "soft"
 GMFSS_SPLAT_SHAPES = ((1, 544, 960, 4), (1, 544, 960, 65), (1, 272, 480, 129), (1, 136, 240, 193))
@@ -660,7 +677,7 @@ GMFSS_WARP_SHAPES = (
     ((1, 544, 960, 3), "zeros", "tiled"),
     ((2, 576, 960, 3), "border", "tiled"),
 )
-EISAI_HW = (270, 480)
+EISAI_HW = (135, 240)  # phase 20's clip: its CPU leg took ~20-24 s at 270x480
 # EISAI 540p batch 1, one direction of an infer: the frame (RGB + NEDT, the
 # ones channel, exp(metric)) and the ResNet levels (64, 256, 512 + 2), "soft"
 EISAI_SPLAT_SHAPES = ((1, 540, 960, 6), (1, 128, 228, 66), (1, 64, 114, 258), (1, 32, 57, 514))
@@ -753,8 +770,9 @@ FAMILIES = ("gmfss", "eisai", "gmfss_union", "xvfi", "stmfnet", "ifrnet", "amt",
 FAMILY_PHASES = dict(zip(FAMILIES, (*range(55, 62), *range(64, 71))))
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_HW = 8, (256, 256)
 # the training timings' windows (phases 50, 54, 55-61 and 64-70): 7 until
-# the run passed 850 s of its 1200 with phases 79-81
-TIMING_WINDOWS = 5
+# the run passed 850 s of its 1200 with phases 79-81, then 5 until phases
+# 82-84 were added
+TIMING_WINDOWS = 3
 FAMILY_CHECK_HW = {"stmfnet": (128, 128), "cain": (128, 128)}  # the others at 64x64
 FAMILY_EISAI_ITERS = 12  # the node's default
 FAMILY_MOMO_STEPS = 8  # the node's default
@@ -1778,7 +1796,7 @@ def family_phase(name, number, dev, card):
     ``splat_backward_vs_plain``); the same step at b1 on the card against
     the CPU with phase 49's rule (each tensor after 1e-7 absolute; the
     updates where ``|g|`` is also over 1e-5); then the
-    step timed at TF32 defaults (5
+    step timed at TF32 defaults (``TIMING_WINDOWS``
     windows of 2 steps after 2), its peak memory and one profiled step.
     Returns the phase's record."""
     import torch
@@ -2060,6 +2078,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def clock(phase):
+        """One line at the start of each phase: the seconds since the run
+        began, so the run's time can be split by phase."""
+        print(f"clock: phase {phase} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import warp_cases
@@ -2092,6 +2116,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 1. device -----------------------------------------------------------
+    clock("1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -2101,6 +2126,7 @@ def main() -> int:
     print(smi, flush=True)
 
     # ---- 2. build ------------------------------------------------------------
+    clock("2")
     def timed_build(name):
         t0 = time.perf_counter()
         build.load_library(name)
@@ -2120,6 +2146,7 @@ def main() -> int:
             print(f"build {card}: {name}.cu {line}", flush=True)
 
     # ---- 3. kernel vs plain on the card --------------------------------------
+    clock("3")
     n_cases, bodies = 0, {}
     for case in warp_cases.warp_cases(0, 256, 512):
         for mode in case["modes"]:
@@ -2171,6 +2198,7 @@ def main() -> int:
     )
 
     # ---- 4. RIFE node end to end ---------------------------------------------
+    clock("4")
     params = rife.init_params(0, "4.7")
     frames = shifted_pattern(4, 540, 960, seed=0)
     multiplier, batch = 2, 2
@@ -2293,6 +2321,7 @@ def main() -> int:
     del outs40, out_cpu, rescue_out
 
     # ---- 5. JAX golden -------------------------------------------------------
+    clock("5")
     with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_rife47_golden.npz")) as z:
         seed, golden = int(z["seed"]), torch.from_numpy(z["output"])
     gframes = torch.from_numpy(np.random.default_rng(seed).random((2, 1, 64, 128, 3), dtype=np.float32)).to(dev)
@@ -2308,6 +2337,7 @@ def main() -> int:
     print(f"golden: port on cuda fp32 vs JAX RIFE 4.7 fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
 
     # ---- 6. timing -----------------------------------------------------------
+    clock("6")
     model_fn = rife.make_model_fn(params, "4.7", fastmode=True, ensemble=False, dtype=torch.bfloat16, device=dev)
     f0 = torch.from_numpy(np.random.default_rng(0).random((8, 1080, 1920, 3), dtype=np.float32)).to(dev)
     f1 = torch.from_numpy(np.random.default_rng(1).random((8, 1080, 1920, 3), dtype=np.float32)).to(dev)
@@ -2333,6 +2363,7 @@ def main() -> int:
     del main_img, main_flow
 
     # ---- 7. splat kernel vs plain on the card --------------------------------
+    clock("7")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_cases = 0
     for case in warp_cases.splat_cases(0, 256, 512):
@@ -2361,8 +2392,9 @@ def main() -> int:
     )
 
     # ---- 8. M2M node end to end ----------------------------------------------
+    clock("8")
     m2m_params = m2m.init_params(0)
-    frames = shifted_pattern(4, *M2M_HW, seed=1)
+    frames = shifted_pattern(4, *M2M_NODE_HW, seed=1)
     node = M2M_VFI()
     batch = 2
     expect_reuse = expect_infer = 0
@@ -2406,7 +2438,7 @@ def main() -> int:
         n_out = 3 * multiplier + 1
         for dtype in ("float32", "bfloat16"):
             out = outs[multiplier, dtype]
-            check(tuple(out.shape) == (n_out, *M2M_HW, 3) and out.is_cuda, f"M2M node output {tuple(out.shape)} on {out.device}")
+            check(tuple(out.shape) == (n_out, *M2M_NODE_HW, 3) and out.is_cuda, f"M2M node output {tuple(out.shape)} on {out.device}")
             check(bool(torch.isfinite(out).all()), f"M2M node x{multiplier} {dtype} has non-finite values")
             check(
                 torch.equal(out[::multiplier].cpu(), torch.from_numpy(frames)),
@@ -2417,7 +2449,7 @@ def main() -> int:
             m2m_psnr.append(f"x{multiplier} {dtype} {p:.2f} dB")
     cpu_s = time.perf_counter() - t0
     print(
-        f"m2m: M2M node 4x{M2M_HW[0]}x{M2M_HW[1]} x2 and x3 batch {batch}, cuda vs cpu fp32: {', '.join(m2m_psnr)} "
+        f"m2m: M2M node 4x{M2M_NODE_HW[0]}x{M2M_NODE_HW[1]} x2 and x3 batch {batch}, cuda vs cpu fp32: {', '.join(m2m_psnr)} "
         f"(cpu leg {cpu_s:.1f} s); splat launches {m2m_splat_launches} = 1 x {expect_infer} infer calls; "
         f"warp launches per reuse call {split}: K1 {m2m_warp_launches}, wide {m2m_wide}, "
         f"over {expect_reuse} reuse calls",
@@ -2426,6 +2458,7 @@ def main() -> int:
     del outs, out_cpu
 
     # ---- 9. M2M JAX golden ---------------------------------------------------
+    clock("9")
     with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_m2m_golden.npz")) as z:
         seed, gt, golden = int(z["seed"]), torch.from_numpy(z["t"]), torch.from_numpy(z["output"])
     rng = np.random.default_rng(seed)
@@ -2439,6 +2472,7 @@ def main() -> int:
     print(f"golden: port M2M on cuda fp32 vs JAX M2M fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
 
     # ---- 10. M2M timing ------------------------------------------------------
+    clock("10")
     model_fn = m2m.make_model_fn(m2m_params, dtype=torch.bfloat16, device=dev)
     f0 = torch.from_numpy(np.random.default_rng(0).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
     f1 = torch.from_numpy(np.random.default_rng(1).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
@@ -2476,6 +2510,7 @@ def main() -> int:
     del f0, f1
 
     # ---- 11. wide warp kernel vs plain on the card ---------------------------
+    clock("11")
     n_cases = 0
     for case in warp_cases.wide_cases(0, 128, 256, channels=WIDE_CHANNELS):
         for mode in case["modes"]:
@@ -2522,6 +2557,7 @@ def main() -> int:
     )
 
     # ---- 12. FILM node end to end --------------------------------------------
+    clock("12")
     film_params = film.init_params(0)
     frames = shifted_pattern(4, *FILM_HW, seed=2)
     node = FILM_VFI()
@@ -2579,6 +2615,7 @@ def main() -> int:
     del outs, out_cpu
 
     # ---- 13. FILM JAX golden -------------------------------------------------
+    clock("13")
     with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_film_golden.npz")) as z:
         seed, golden = int(z["seed"]), torch.from_numpy(z["output"])
     rng = np.random.default_rng(seed)
@@ -2595,6 +2632,7 @@ def main() -> int:
     del net
 
     # ---- 14. FILM timing -----------------------------------------------------
+    clock("14")
     model_fn = film.make_model_fn(film_params, dtype=torch.bfloat16, device=dev)
     f0 = torch.from_numpy(np.random.default_rng(0).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
     f1 = torch.from_numpy(np.random.default_rng(1).random((2, 1080, 1920, 3), dtype=np.float32)).to(dev)
@@ -2657,6 +2695,7 @@ def main() -> int:
     del model_fn
 
     # ---- 15. splat at GMFSS's widths -----------------------------------------
+    clock("15")
     def splat_vs_plain(vals, flow, f32_scaled=False):
         """Max abs error of the kernel against the twin, checked: f32 within
         1e-5 (times the output's largest magnitude, if ``f32_scaled``),
@@ -2724,6 +2763,7 @@ def main() -> int:
     )
 
     # ---- 16. GMFSS node end to end -------------------------------------------
+    clock("16")
     frames = shifted_pattern(4, *GMFSS_HW, seed=3)
     batch = 2
     reuse_calls = infer_calls = 0
@@ -2785,6 +2825,7 @@ def main() -> int:
         del outs, out_cpu
 
     # ---- 17. GMFSS JAX golden ------------------------------------------------
+    clock("17")
     with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_gmfss_golden.npz")) as z:
         seed, gt, gframes = int(z["seed"]), float(z["t"]), z["frames"]
         goldens = {union: torch.from_numpy(z["output_union" if union else "output_base"]) for union in (False, True)}
@@ -2806,6 +2847,7 @@ def main() -> int:
     )
 
     # ---- 18. GMFSS timing ----------------------------------------------------
+    clock("18")
     gmfss_fps, gmfss_stage_ms, gmfss_profiles = {}, {}, {}
     for union in (False, True):
         path = "gmfss_union" if union else "gmfss"
@@ -2875,6 +2917,7 @@ def main() -> int:
     del img, flow
 
     # ---- 19. splat at EISAI's widths -----------------------------------------
+    clock("19")
     esmooth_errs = {}
     for shape in EISAI_SPLAT_SHAPES:
         flow = torch.from_numpy(warp_cases.smooth_flow(*shape[:3], amp=8.0)).to(dev)
@@ -2924,6 +2967,7 @@ def main() -> int:
     )
 
     # ---- 20. EISAI node end to end ------------------------------------------
+    clock("20")
     frames = shifted_pattern(4, *EISAI_HW, seed=4)
     batch = 2
     reuse_calls = infer_calls = 0
@@ -2970,6 +3014,7 @@ def main() -> int:
     del outs, out_cpu
 
     # ---- 21. EISAI JAX golden ------------------------------------------------
+    clock("21")
     with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_eisai_golden.npz")) as z:
         seed, gt, gframes, golden = int(z["seed"]), float(z["t"]), z["frames"], torch.from_numpy(z["output"])
     g0, g1 = (torch.from_numpy(gframes[i].astype(np.float32) / 255.0).to(dev) for i in (0, 1))
@@ -2981,6 +3026,7 @@ def main() -> int:
     print(f"golden: port EISAI on cuda fp32 vs JAX EISAI fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
 
     # ---- 22. EISAI timing ----------------------------------------------------
+    clock("22")
     eisai_fps = 1 / measure(eisai_fn, f0, f1, t, iters=5, rounds=3)
     reuse_fn, infer_fn = eisai.make_pair_fns(eisai_params, dtype=torch.bfloat16, device=dev)
     cache = reuse_fn(f0, f1)
@@ -3021,6 +3067,7 @@ def main() -> int:
     del eisai_splats
 
     # ---- 23. kernels at STMFNet's shapes -------------------------------------
+    clock("23")
     def routed_and_k1(img, flow, body, mode="zeros"):
         """The routed kernel and K1 against the twin in ``mode``, bit for
         bit; the route must be ``body``. Returns the max abs error."""
@@ -3151,6 +3198,7 @@ def main() -> int:
     )
 
     # ---- 24. STMFNet node end to end -----------------------------------------
+    clock("24")
     frames = shifted_pattern(4, *STMFNET_HW, seed=5)
     node = STMFNet_VFI()
     calls = {dup: len(plan_window4(4, dup).tasks) for dup in (False, True)}  # batch 1: a call per window
@@ -3196,6 +3244,7 @@ def main() -> int:
     del outs, out_cpu
 
     # ---- 25. STMFNet JAX golden ----------------------------------------------
+    clock("25")
     with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port_stmfnet_golden.npz")) as z:
         seed, gframes, golden = int(z["seed"]), z["frames"], torch.from_numpy(z["output"])
     gf = [torch.from_numpy(gframes[i : i + 1].astype(np.float32) / 255.0).to(dev) for i in range(4)]
@@ -3207,6 +3256,7 @@ def main() -> int:
     print(f"golden: port STMFNet on cuda fp32 vs JAX STMFNet fp32 {pg:.2f} dB, max abs err {(gout.cpu() - golden).abs().max().item():.3g}", flush=True)
 
     # ---- 26. STMFNet timing --------------------------------------------------
+    clock("26")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3300,6 +3350,7 @@ def main() -> int:
     del img, flow, stmf_splats, stmf_fn, sf
 
     # ---- 27. FLAVR -----------------------------------------------------------
+    clock("27")
     flavr_params = flavr.init_params(0)
     frames = shifted_pattern(4, *FLAVR_HW, seed=6)
     node = FLAVR_VFI()
@@ -3359,6 +3410,7 @@ def main() -> int:
     del flavr_fn, ff
 
     # ---- 28. kernels at IFRNet's, IFUnet's and AMT's shapes -------------------
+    clock("28")
     s8_errs = {}
     s8_shapes = dict.fromkeys(sb for fam in SLICE8_WARPS.values() for sb in fam)
     for shape, body in s8_shapes:
@@ -3559,6 +3611,7 @@ def main() -> int:
         return timed_row(label, fn, x, n)
 
     # ---- 29. IFRNet node end to end, and the golden ---------------------------
+    clock("29")
     ifrnet_launches = {"narrow": 0, "wide": 0, "splat": 0}
     t0 = time.perf_counter()
     for variant, ckpt, mults in (("S", "IFRNet_S_Vimeo90K.pth", (2, 3)), ("L", "IFRNet_L_Vimeo90K.pth", (2,))):
@@ -3577,11 +3630,13 @@ def main() -> int:
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 30. IFRNet timing ----------------------------------------------------
+    clock("30")
     ifrnet_fn = ifrnet.make_model_fn(ifrnet.init_params("S", 0), "S", dtype=torch.bfloat16, device=dev)
     ifrnet_fps, ifrnet_profile = slice8_row("IFRNet S 1080p (padded to 1088x1920) 2x bf16 b4", ifrnet_fn, 4, (1080, 1920), "ifrnet")
     del ifrnet_fn
 
     # ---- 31. IFUnet node end to end, and the golden ---------------------------
+    clock("31")
     ifunet_launches = {"narrow": 0, "wide": 0, "splat": 0}
     t0 = time.perf_counter()
     ifunet_params = ifunet.init_params(0)
@@ -3600,11 +3655,13 @@ def main() -> int:
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 32. IFUnet timing ----------------------------------------------------
+    clock("32")
     ifunet_fn = ifunet.make_model_fn(ifunet_params, dtype=torch.bfloat16, device=dev)
     ifunet_fps, ifunet_profile = slice8_row("IFUnet 1080p (padded to 1088x1920) 2x bf16 b2, no ensemble", ifunet_fn, 2, (1080, 1920), "ifunet")
     del ifunet_fn
 
     # ---- 33. AMT node end to end, and the golden ------------------------------
+    clock("33")
     amt_launches = {"narrow": 0, "wide": 0, "splat": 0}
     t0 = time.perf_counter()
     for variant, ckpt, mults in (("S", "amt-s.pth", (2, 3)), ("L", "amt-l.pth", (2,)), ("G", "amt-g.pth", (2,))):
@@ -3622,6 +3679,7 @@ def main() -> int:
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 34. AMT timing, and the correlation lookups' share --------------------
+    clock("34")
     amt_fn = amt.make_model_fn(amt.init_params("S", 0), "amt-s.pth", dtype=torch.bfloat16, device=dev)
     amt_fps, amt_profile = slice8_row("AMT-S 1080p (node-padded to 1088x1920) 2x bf16 b2", amt_fn, 2, (1088, 1920), "amt")
     del amt_fn
@@ -3644,6 +3702,7 @@ def main() -> int:
     del fm, base, c0, c1, corr
 
     # ---- 35. kernels at ATM's and XVFI's 1080p shapes -------------------------
+    clock("35")
     t0 = time.perf_counter()
     s10_errs = {}
     for shape, vdt, body in SLICE10_WARPS:
@@ -3756,6 +3815,7 @@ def main() -> int:
     print(f"slice10 kernels: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 36. ATM node end to end, and the golden ------------------------------
+    clock("36")
     t0 = time.perf_counter()
     atm_launches = {"narrow": 0, "wide": 0, "splat": 0}
     for variant, ckpt, setting, dtypes in (
@@ -3779,6 +3839,7 @@ def main() -> int:
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 37. ATM timing, and the attention's share ---------------------------
+    clock("37")
     atm_fps, atm_profile = timed_row("ATM base 1080p (padded to 1088x1920) 2x bf16 b1, global motion", atm_bf16, af, 1)
     spans = {}
     targets = [
@@ -3801,6 +3862,7 @@ def main() -> int:
     del atm_bf16, af, spans
 
     # ---- 38. XVFI node end to end, and the golden -----------------------------
+    clock("38")
     t0 = time.perf_counter()
     xvfi_launches = {"narrow": 0, "wide": 0, "splat": 0}
     for ckpt, mults, pad in (("XVFInet_Vimeo_exp1_latest.pt", (2, 3), "144x240"), (X4K, (2,), "512x512")):
@@ -3824,6 +3886,7 @@ def main() -> int:
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 39. XVFI timing, and X4K's kernels at 1080p --------------------------
+    clock("39")
     def xvfi_fwd(f0, f1, t):
         return xvfi_infer(f0, f1, xvfi_reuse(f0, f1), t)
 
@@ -3873,6 +3936,7 @@ def main() -> int:
     del x4k_fn, xf
 
     # ---- 40. CAIN node end to end, and the golden ------------------------------
+    clock("40")
     t0 = time.perf_counter()
     cain_launches, psnrs, n_calls = card_vs_cpu(
         "CAIN", CAIN_VFI, "pretrained_cain.pth", cain.init_params(0), [(m, ("float32", "bfloat16"), {}) for m in (2, 4)],
@@ -3886,6 +3950,7 @@ def main() -> int:
     )
 
     # ---- 41. CAIN timing --------------------------------------------------------
+    clock("41")
     cain_fn = cain.make_model_fn(cain.init_params(0), dtype=torch.bfloat16, device=dev)
     cx = [torch.from_numpy(np.random.default_rng(i).random((4, 1080, 1920, 3), dtype=np.float32)).to(dev) for i in range(2)]
     cx.append(torch.full((4,), 0.5, device=dev))
@@ -3893,6 +3958,7 @@ def main() -> int:
     del cain_fn, cx
 
     # ---- 42. Sepconv node end to end, the golden, and sepconv_func on a 720p band --
+    clock("42")
     t0 = time.perf_counter()
     sep_launches, psnrs, n_calls = card_vs_cpu(
         "Sepconv", SepconvVFI, "sepconv.pth", sepconv_conditioned(0), [(m, ("float32", "bfloat16"), {}) for m in (2, 4)],
@@ -3920,6 +3986,7 @@ def main() -> int:
     del sx, sv, sh, sep_cpu, sep_card
 
     # ---- 43. Sepconv timing, and sepconv_func's share ---------------------------
+    clock("43")
     sep_fn = sepconv.make_model_fn(sepconv_conditioned(0), dtype=torch.bfloat16, device=dev)
     sx = [torch.from_numpy(np.random.default_rng(i).random((2, 720, 1280, 3), dtype=np.float32)).to(dev) for i in range(2)]
     sx.append(torch.full((2,), 0.5, device=dev))
@@ -3952,6 +4019,7 @@ def main() -> int:
     del spad, sver, shor
 
     # ---- 44. the streaming executors against the resident ones -----------------------
+    clock("44")
     def executor_run(run, frames_, *args, **kw):
         """``run(frames_, *args, **kw)`` with the launch counts from 0 just
         before it and read just after, and its peak device memory above what
@@ -4032,6 +4100,7 @@ def main() -> int:
     print(f"streaming: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 45. MoMo: apply card against CPU, the node, the golden ----------------------
+    clock("45")
     t0 = time.perf_counter()
 
     def hand_launches():
@@ -4102,6 +4171,7 @@ def main() -> int:
     del m_card32, m_card16, m_cpu32, m_ccpu32, momo_csd, mnode, mo_a, mo_b, mo_c
 
     # ---- 46. MoMo timing, the denoiser against the synthesis ----------------------
+    clock("46")
     momo_bf16 = momo.make_model_fn(momo_sd, "momo-base.pth", 8, 0, torch.bfloat16, dev)
     mx = [torch.from_numpy(np.random.default_rng(i).random((1, 1080, 1920, 3), dtype=np.float32)).to(dev) for i in range(2)]
     mx.append(torch.full((1,), 0.5, device=dev))
@@ -4122,6 +4192,7 @@ def main() -> int:
     del momo_bf16, mx, spans, momo_sd
 
     # ---- 47. the utilities: the profiler hook, a node from an .npz ----------------
+    clock("47")
     t0 = time.perf_counter()
     rife_sd = rife.init_params(0, "4.7")
     rife16 = rife.make_model_fn(rife_sd, "4.7", fastmode=True, ensemble=False, dtype=torch.bfloat16, device=dev)
@@ -4178,6 +4249,7 @@ def main() -> int:
     del rife16, pclip, rnode, outs, ref
 
     # ---- 48. the warp's backward kernel against its plain version -----------------
+    clock("48")
     t0 = time.perf_counter()
     bwd_errs, n_bwd = {}, 0
 
@@ -4272,6 +4344,7 @@ def main() -> int:
     )
 
     # ---- 49. a RIFE 4.7 training step, card against CPU ---------------------------
+    clock("49")
     t0 = time.perf_counter()
     warp_mod = importlib.import_module("comfyui_frame_interpolation_tpu_torch.ops.warp")  # ops.warp is also a function's name
     real_twin = warp_mod.warp_torch
@@ -4379,6 +4452,7 @@ def main() -> int:
     del trained, grads_gpu, grads_cpu, grads_twin, deltas_gpu, deltas_cpu, spread_runs
 
     # ---- 50. training timing ------------------------------------------------------
+    clock("50")
     t0 = time.perf_counter()
     # one window of 20 steps lasted under a second and two windows on this
     # shared host have read 23 and 42 steps/s: so several windows, f32 and
@@ -4478,6 +4552,7 @@ def main() -> int:
     print(f"train timing: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 51. parallel: the mesh, the sharded executors, a sharded step, the dry run --
+    clock("51")
     t0 = time.perf_counter()
     from comfyui_frame_interpolation_tpu_torch import parallel
     from comfyui_frame_interpolation_tpu_torch.parallel import train as ptrain
@@ -4624,6 +4699,7 @@ def main() -> int:
     del rife16, pclip, ref_out, ref1_out, sh_out, sh2_out, reuse_fn, infer_fn, mclip, m_refs, m_sh, m_sh2, m_ref1
 
     # ---- 52. the splat's backward kernel against its plain version ------------------
+    clock("52")
     t0 = time.perf_counter()
     sb_errs, n_sb = {}, 0
 
@@ -4758,6 +4834,7 @@ def main() -> int:
     )
 
     # ---- 53. an M2M training step, card against the twins and the CPU ---------------
+    clock("53")
     t0 = time.perf_counter()
     batch53 = train_batch(2, M2M_TRAIN_HW, 53, "cpu", torch.float32)
     real_m2m_warp, real_m2m_splat = m2m.warp, m2m.softsplat_func
@@ -4835,6 +4912,7 @@ def main() -> int:
     del m2m_trained, mgrads_gpu, mgrads_cpu, mgrads_twin, mdeltas_gpu, mdeltas_cpu
 
     # ---- 54. M2M training timing, and the splat backward kernel's ---------------------
+    clock("54")
     t0 = time.perf_counter()
     m2m_trainers = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -4928,6 +5006,7 @@ def main() -> int:
     print(f"m2m train timing: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 55-61 and 64-70. the other families' training steps, and 62. the ----
+    clock("55-61 and 64-70")
     # backward kernels at their largest inputs: the warp's at each family's,
     # the splat's at the largest of all (phase 63 times each of its inputs)
     t0 = time.perf_counter()
@@ -4946,6 +5025,7 @@ def main() -> int:
     print(f"family training: phases 55-62 and 64-70 {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 63. the splat's backward kernel at every input the steps give it ----------
+    clock("63")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     sb_layouts, sb_per_step = splat_backward_step_inputs(dev)
@@ -4974,6 +5054,7 @@ def main() -> int:
     print(f"splat backward timing: phase 63 {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 71. K1 on a row band against its twin's band -------------------------------
+    clock("71")
     # the two bands of RIFE 1080p b8's [16, 1088, 1920, 7] warp on a (1, 2) mesh
     t0 = time.perf_counter()
     from comfyui_frame_interpolation_tpu_torch.parallel.space import band_rows
@@ -5088,6 +5169,7 @@ def main() -> int:
     )
 
     # ---- 72. the warp's backward kernel on a row band ---------------------------------
+    clock("72")
     # the b16 x 224^2 training step's warps ([32, 256, 256, 7], and C = 3 of
     # the last stage without the image's gradient) in its two bands of 128 rows
     t0 = time.perf_counter()
@@ -5152,6 +5234,7 @@ def main() -> int:
     )
 
     # ---- 73. RIFE 4.7 1080p b8 on a (1, 2) mesh of replicas of the card -----------------
+    clock("73")
     t0 = time.perf_counter()
     mesh_s = parallel.make_mesh(2, devices=[dev] * 2)
     check(mesh_s.shape == {"data": 1, "space": 2}, f"make_mesh(2) of replicas: {mesh_s.shape}")
@@ -5200,7 +5283,7 @@ def main() -> int:
         tt = torch.full((8,), 0.5, device=dev)
         fps = {"one device": [], "(1, 2) mesh": []}
         for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
-            fps[key].append(8 / measure(fn1 if key == "one device" else fn2, f0, f1, tt, iters=5, rounds=3))
+            fps[key].append(8 / measure(fn1 if key == "one device" else fn2, f0, f1, tt, iters=5, rounds=1))
         totals = {"one device": {}, "(1, 2) mesh": {}}
         profile_forward(f"RIFE 4.7 1080p {name} b8, one device", fn1, f0, f1, tt, card=card, totals=totals["one device"])
         profile_forward(f"RIFE 4.7 1080p {name} b8, (1, 2) mesh", fn2, f0, f1, tt, card=card, totals=totals["(1, 2) mesh"])
@@ -5236,6 +5319,7 @@ def main() -> int:
     )
 
     # ---- 74. a RIFE 4.7 training step on a (1, 2) mesh of replicas --------------------
+    clock("74")
     # b16 x 224^2 f32 (two bands of 128 rows after the pad to 256) against
     # (1, 1), TF32 off and cuDNN's deterministic algorithms in both: the loss
     # within 1e-6 relative, each gradient within 5e-5 of its tensor's largest
@@ -5339,6 +5423,7 @@ def main() -> int:
     )
 
     # ---- 75. M2M 1080p through the pair-cached split on a (1, 2) mesh of replicas ---------
+    clock("75")
     # 3 frames x2 at b2 (two pairs, one reuse and one infer call), the rows in
     # bands of 576 + 504 (the replicate pad to 1088 in the second) against
     # one device: f32 with TF32 off and cuDNN's deterministic algorithms
@@ -5434,6 +5519,7 @@ def main() -> int:
     )
 
     # ---- 76. K2 with a band of sources: M2M 1080p b2's splat in two partials -------------
+    clock("76")
     # [16, 1088, 1920, 4] in the bands 576 + 512 of the (1, 2) mesh, each
     # band's sources splat from their first row into a whole-frame f32
     # partial; the partials' sum against the whole-frame kernel and the
@@ -5503,6 +5589,7 @@ def main() -> int:
     )
 
     # ---- 77-78. XVFI Vimeo (pair-cached) and FILM 1080p through the split -------------------
+    clock("77-78")
     # on the (1, 2) mesh of replicas, each as phase 75: 3 frames x2 at b2 (one
     # batch), rows in bands of 576 + 504 (XVFI's zero pad to 1088 in the
     # second), against one device: f32 with TF32 off and cuDNN's
@@ -5511,38 +5598,54 @@ def main() -> int:
     # twice one device's; every launch of one bf16 split call made again on
     # its band against the plain version; frames/s in turns (one round in
     # bf16), peak memory and a profile of each
-    def space_split_phase(label, executor, shard, make, clip, plan, want_one, call):
+    def space_split_phase(label, executor, shard, make, clip, plan, want_one, call, bf16_within_db=None, cudnn_benchmark=False):
         """``make(dtype)`` -> one device's callable(s) for ``executor`` (a
         tuple for the pair-cached one), ``shard`` the matching
         ``parallel.make_sharded_*``, ``call(fns)`` one batch's forward of
         ``(f0, f1, t)``; ``clip`` 3 frames of 1080 rows (AMT's padded to
-        1088). Returns the row of the kernels line."""
-        height = clip.shape[1]
+        1088; Sepconv's 720p). bf16 on the mesh is held at 40 dB or more
+        against the f32 one-device frames, or with ``bf16_within_db`` within
+        that many dB of one device's bf16. The re-bands of one bf16 split
+        call are counted (``parallel.space.rebands`` and ``rows_moved``).
+        ``cudnn_benchmark`` lets cuDNN time its algorithms for the f32 runs
+        held to each other (CAIN's f32 convolutions at 1080p with TF32 off take
+        ~48 s a b2 forward on the algorithm its heuristics pick, ~0.2 s on
+        the one it times). Returns the row of the kernels line."""
+        height, width = clip.shape[1], clip.shape[2]
         as_args = lambda fns: fns if isinstance(fns, tuple) else (fns,)  # noqa: E731
         outs, rows, settings, launches = {}, {}, {}, {"narrow": 0, "wide": 0, "splat": 0}
-        bands, band_err = {}, 0.0
+        bands, band_err, rebands, secs = {}, 0.0, {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             one = make(dtype)
             two = shard(lambda d: one, mesh_s)
             torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.deterministic = True
+            bench = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = bench or (cudnn_benchmark and dtype == torch.float32)
             try:
+                ts = time.perf_counter()
                 one_out, one_n, one_peak = executor_run(executor, clip, plan, *as_args(one), batch_size=2)
+                secs[f"{name} one device"] = time.perf_counter() - ts
+                ts = time.perf_counter()
                 two_out, two_n, two_peak = executor_run(executor, clip, plan, *as_args(two), batch_size=2)
+                secs[f"{name} (1, 2) mesh"] = time.perf_counter() - ts
                 if dtype == torch.float32:
+                    ts = time.perf_counter()
                     two_again, _, _ = executor_run(executor, clip, plan, *as_args(two), batch_size=2)
                     one_again, _, _ = executor_run(executor, clip, plan, *as_args(one), batch_size=2)
+                    secs["f32 both again"] = time.perf_counter() - ts
                     settings = {"split_repeat_max_abs_diff": (two_again - two_out).abs().max().item(),
                                 "one_device_repeat_max_abs_diff": (one_again - one_out).abs().max().item()}
                     del two_again, one_again
             finally:
+                torch.backends.cudnn.benchmark = bench
                 torch.backends.cudnn.deterministic = det
                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
             want = want_one(dtype)
             check(one_n == want and two_n == {k: 2 * v for k, v in want.items()},
                   f"{label} {name} launches: one device {one_n}, the (1, 2) mesh {two_n}; expected {want} and twice that")
-            check(tuple(two_out.shape) == (5, height, 1920, 3) and bool(torch.isfinite(two_out).all()),
+            check(tuple(two_out.shape) == (5, height, width, 3) and bool(torch.isfinite(two_out).all()),
                   f"{label} {name} on the (1, 2) mesh: {tuple(two_out.shape)}, finite {bool(torch.isfinite(two_out).all())}")
             launches = {k: launches[k] + two_n[k] for k in launches}
             outs[name] = (one_out, two_out)
@@ -5550,25 +5653,35 @@ def main() -> int:
                 del one, two
                 torch.cuda.empty_cache()
                 continue
-            f0 = torch.from_numpy(np.random.default_rng(0).random((2, height, 1920, 3), dtype=np.float32)).to(dev)
-            f1 = torch.from_numpy(np.random.default_rng(1).random((2, height, 1920, 3), dtype=np.float32)).to(dev)
+            f0 = torch.from_numpy(np.random.default_rng(0).random((2, height, width, 3), dtype=np.float32)).to(dev)
+            f1 = torch.from_numpy(np.random.default_rng(1).random((2, height, width, 3), dtype=np.float32)).to(dev)
             tt = torch.full((2,), 0.5, device=dev)
-            # each band's launches of one split call, against the plain versions
+            # each band's launches of one split call, against the plain
+            # versions, and the call's re-bands
             store = []
+            parallel.space.rebands = parallel.space.rows_moved = 0
+            ts = time.perf_counter()
             with captured_band_launches(store):
                 call(two)(f0, f1, tt)
             torch.cuda.synchronize()
+            secs["bf16 split call captured"] = time.perf_counter() - ts
+            rebands = {"rebands": parallel.space.rebands, "rows_moved": parallel.space.rows_moved}
             bands, band_err = band_launches_vs_plain(store, f"{label} bf16 on the (1, 2) mesh")
             check(len(store) == sum(two_n.values()), f"{label}: {len(store)} launches captured, the run made {two_n}")
             del store
             torch.cuda.empty_cache()
             calls = {"one device": one, "(1, 2) mesh": two}
             fps = {key: [] for key in calls}
+            ts = time.perf_counter()
             for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
                 fps[key].append(2 / measure(call(calls[key]), f0, f1, tt, iters=3, rounds=1))
+            secs["bf16 timing"] = time.perf_counter() - ts
+            ts = time.perf_counter()
             totals = {key: {} for key in calls}
             for key, fns in calls.items():
-                profile_forward(f"{label} 1080p {name} b2, {key}", call(fns), f0, f1, tt, card=card, unit="batch", totals=totals[key])
+                profile_forward(f"{label} {height}x{width} {name} b2, {key}", call(fns), f0, f1, tt, card=card, unit="batch",
+                                totals=totals[key])
+            secs["bf16 profiles"] = time.perf_counter() - ts
             rows[name] = {
                 key: {"frames_per_s": statistics.mean(fps[key]), "frames_per_s_turns": fps[key],
                       "peak_executor_bytes": one_peak if key == "one device" else two_peak,
@@ -5582,26 +5695,33 @@ def main() -> int:
         check(f32_err <= 1e-4, f"{label} f32 on the (1, 2) mesh: max abs {f32_err} from one device, above 1e-4")
         bf16_db = psnr(outs["bfloat16"][1], outs["float32"][0])
         bf16_one_db = psnr(outs["bfloat16"][0], outs["float32"][0])
-        check(bf16_db >= 40.0, f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below 40")
-        return {"rows": height, "f32_max_abs_err": f32_err, "f32_settings": settings, "bf16_psnr_db": bf16_db,
-                "bf16_one_device_psnr_db": bf16_one_db,
+        if bf16_within_db is None:
+            check(bf16_db >= 40.0, f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below 40")
+        else:
+            check(bf16_db >= bf16_one_db - bf16_within_db,
+                  f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, more than "
+                  f"{bf16_within_db} dB below one device's bf16 ({bf16_one_db:.2f} dB)")
+        return {"rows": height, "cols": width, "f32_max_abs_err": f32_err, "f32_settings": settings, "bf16_psnr_db": bf16_db,
+                "bf16_one_device_psnr_db": bf16_one_db, "rebands_per_bf16_batch": rebands, "seconds": secs,
                 "launches": launches, "bands": {k: [[list(b), r, a, d] for b, r, a, d in v] for k, v in bands.items()},
                 "band_max_abs_err": band_err, "runs": rows}
 
     def space_split_line(number, label, row, t0):
         print(
-            f"space {card}: phase {number}: {label} 1080p x2 b2 (3 frames, 2 mids) on a (1, 2) mesh of replicas of the card, "
+            f"space {card}: phase {number}: {label} {row['rows']}x{row['cols']} x2 b2 (3 frames, 2 mids) on a (1, 2) mesh of "
+            f"replicas of the card, "
             f"bands {band_rows(row['rows'], 2)}: f32 (TF32 off, cuDNN deterministic) max abs {row['f32_max_abs_err']:.3g} from one "
             f"device, the (1, 2) run against itself {row['f32_settings']['split_repeat_max_abs_diff']:.3g}, one device against "
             f"itself {row['f32_settings']['one_device_repeat_max_abs_diff']:.3g}; bf16 {row['bf16_psnr_db']:.2f} dB against the "
             f"f32 one-device frames (one device bf16 {row['bf16_one_device_psnr_db']:.2f} dB); launches {row['launches']} for the "
             f"two split runs; each band's launch of one bf16 split call against its plain version (max err "
-            f"{row['band_max_abs_err']:.3g}): " + "; ".join(f"{k} {v}" for k, v in row["bands"].items()) + "; "
+            f"{row['band_max_abs_err']:.3g}): " + "; ".join(f"{k} {v}" for k, v in row["bands"].items())
+            + f"; re-bands of one bf16 split batch {row['rebands_per_bf16_batch']}; "
             + "; ".join(
                 f"{name} {key}: {r['frames_per_s']:.3f} frames/s (turns {', '.join(f'{v:.3f}' for v in r['frames_per_s_turns'])}), "
                 f"executor peak {r['peak_executor_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, {r['kernels']} kernels"
                 for name, rows_ in row["runs"].items() for key, r in rows_.items()
-            ) + f"; phase {time.perf_counter() - t0:.1f} s",
+            ) + f"; seconds {', '.join(f'{k} {v:.1f}' for k, v in row['seconds'].items())}; phase {time.perf_counter() - t0:.1f} s",
             flush=True,
         )
 
@@ -5634,6 +5754,7 @@ def main() -> int:
     space_split_line(78, "FILM", film_space, t0)
 
     # ---- 79-81. IFRNet S, AMT S and IFUnet 1080p through the split ----------------------------
+    clock("79-81")
     # each as phase 78 through make_sharded_model_fn + run_plan; AMT's clip
     # edge-padded to 1088 rows first, as its node pads (bands 576 + 512)
     t0 = time.perf_counter()
@@ -5670,6 +5791,55 @@ def main() -> int:
     space_split_line(81, "IFUnet", ifunet_space, t0)
     slice22 = {"ifrnet_space_2way": ifrnet_space, "amt_space_2way": amt_space, "ifunet_space_2way": ifunet_space}
 
+    # ---- 82-84. XVFI X4K (pair-cached), CAIN and Sepconv through the split -------------------
+    clock("82-84")
+    # each as phases 77-81: X4K at 1080p (the zero pad to 1536 rows in the
+    # second band; its pyramid to 1/128 starts that band at 4.5 rows, and the
+    # flows from the coarser levels meet the features in other bands: the
+    # re-banding rule), CAIN at 1080p (the centred reflect pad to 1152 starts
+    # the second band at 612, which pixel_unshuffle(8) re-bands to 608; cuDNN
+    # times its algorithms for CAIN's f32 runs, see space_split_phase) and
+    # Sepconv at 720p; bf16 held within 0.5 dB of one device's bf16
+    t0 = time.perf_counter()
+    x4k_ckpt = "XVFInet_X4K1000FPS_exp1_latest.pt"
+    x4k_params82 = xvfi.init_params(x4k_ckpt, 0)
+
+    def x4k_want(dtype):
+        per = {k: xvfi.warps_per_reuse(x4k_ckpt, dtype)[k] + xvfi.warps_per_infer(dtype)[k] for k in ("narrow", "wide")}
+        return {**per, "splat": xvfi.splats_per_infer()}
+
+    x4k_space = space_split_phase(
+        "XVFI X4K", run_plan_pair_cached, parallel.make_sharded_pair_fns,
+        lambda dtype: xvfi.make_pair_fns(x4k_params82, x4k_ckpt, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=82)).to(dev), plan_timestep(3, 2), x4k_want,
+        lambda fns: (lambda a, b, t: fns[1](a, b, fns[0](a, b), t)), bf16_within_db=0.5,
+    )
+    del x4k_params82
+    space_split_line(82, "XVFI X4K (pair-cached: reuse + infer)", x4k_space, t0)
+
+    t0 = time.perf_counter()
+    cain_params83 = cain.init_params(0)
+    cain_space = space_split_phase(
+        "CAIN", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: cain.make_model_fn(cain_params83, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=83)).to(dev), plan_timestep(3, 2),
+        lambda dtype: {"narrow": 0, "wide": 0, "splat": 0}, lambda fn: fn, bf16_within_db=0.5, cudnn_benchmark=True,
+    )
+    del cain_params83
+    space_split_line(83, "CAIN", cain_space, t0)
+
+    t0 = time.perf_counter()
+    sepconv_params84 = sepconv_conditioned(0)
+    sepconv_space = space_split_phase(
+        "Sepconv", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: sepconv.make_model_fn(sepconv_params84, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 720, 1280, seed=84)).to(dev), plan_timestep(3, 2),
+        lambda dtype: {"narrow": 0, "wide": 0, "splat": 0}, lambda fn: fn, bf16_within_db=0.5,
+    )
+    del sepconv_params84
+    space_split_line(84, "Sepconv (conditioned weights)", sepconv_space, t0)
+    slice23 = {"xvfi_x4k_space_2way": x4k_space, "cain_space_2way": cain_space, "sepconv_space_2way": sepconv_space}
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -5701,7 +5871,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-81 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-84 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -5717,7 +5887,7 @@ def main() -> int:
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
             + space_train_launches["narrow"] + m2m_space_launches["narrow"] + xvfi_space["launches"]["narrow"]
-            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in slice22.values()),
+            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values())),
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -5732,7 +5902,7 @@ def main() -> int:
                 **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
                 "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
                 "xvfi_space_2way": xvfi_space["launches"]["narrow"], "film_space_2way": film_space["launches"]["narrow"],
-                **{path: row["launches"]["narrow"] for path, row in slice22.items()},
+                **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items())},
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -5764,7 +5934,7 @@ def main() -> int:
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
             + sum(family_launches["wide"].values()) + m2m_space_launches["wide"] + xvfi_space["launches"]["wide"]
-            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in slice22.values()),
+            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values())),
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -5775,7 +5945,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
                 **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
                 "xvfi_space_2way": xvfi_space["launches"]["wide"], "film_space_2way": film_space["launches"]["wide"],
-                **{path: row["launches"]["wide"] for path, row in slice22.items()},
+                **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items())},
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -5803,6 +5973,7 @@ def main() -> int:
                                "runs": m2m_space_rows},
             "film_space_2way": film_space,
             **slice22,
+            **slice23,
         },
         {
             "name": "softsplat",
@@ -5813,7 +5984,7 @@ def main() -> int:
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
             + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"]
-            + xvfi_space["launches"]["splat"],
+            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in slice23.values()),
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -5823,7 +5994,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
                 **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
                 "xvfi_space_2way": xvfi_space["launches"]["splat"], "film_space_2way": film_space["launches"]["splat"],
-                **{path: row["launches"]["splat"] for path, row in slice22.items()},
+                **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items())},
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",

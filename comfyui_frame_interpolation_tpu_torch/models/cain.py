@@ -25,6 +25,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from .common import cast_params, channels_last_params, conv2d, init_state_dict, leaky_relu, reflect_pad
 
@@ -43,7 +44,10 @@ def _reflect_pad1(x: torch.Tensor) -> torch.Tensor:
     """NCHW ``x`` reflect-padded by one pixel on each side, written into a
     ``channels_last`` tensor (on the card ``F.pad(mode="reflect")`` returns
     NCHW memory, and the convolution then copies it back: two passes more
-    than this one, at each of the trunk's 125 convolutions)."""
+    than this one, at each of the trunk's 125 convolutions). Row bands
+    (``parallel.space``) go to their own rule."""
+    if has_torch_function((x,)):
+        return handle_torch_function(_reflect_pad1, (x,), x)
     n, c, h, w = x.shape
     out = torch.empty((n, c, h + 2, w + 2), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
     out[:, :, 1 : h + 1, 1 : w + 1] = x

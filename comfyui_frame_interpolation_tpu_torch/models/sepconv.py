@@ -122,7 +122,7 @@ def apply(net: Network, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     padr, padb = (-w) % 2, (-h) % 2
     if padr or padb:
         x1, x2 = (F.pad(x, (0, padr, 0, padb), mode="replicate") for x in (x1, x2))
-    std, mean = torch.std_mean(torch.stack([x1, x2], 1).reshape(n, -1), dim=1, correction=1)
+    std, mean = torch.std_mean(torch.stack([x1, x2], 1), dim=(1, 2, 3, 4), correction=1)
     std, mean = std.view(n, 1, 1, 1), mean.view(n, 1, 1, 1)
     s1, s2 = (x1 - mean) / (std + 1e-7), (x2 - mean) / (std + 1e-7)
 

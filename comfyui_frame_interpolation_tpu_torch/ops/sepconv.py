@@ -25,6 +25,7 @@ elements.
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = ["BAND_ELEMENTS", "sepconv_func"]
 
@@ -36,7 +37,10 @@ BAND_ELEMENTS = 1 << 24
 def sepconv_func(ten_in: torch.Tensor, ten_ver: torch.Tensor, ten_hor: torch.Tensor) -> torch.Tensor:
     """NHWC ``ten_in`` ``[N, H+K-1, W+K-1, C]``, ``ten_ver`` and ``ten_hor``
     ``[N, H, W, K]`` (views of ``channels_last`` maps are taken as they
-    are). Returns ``[N, H, W, C]`` in ``ten_in``'s dtype."""
+    are). Returns ``[N, H, W, C]`` in ``ten_in``'s dtype. Row bands
+    (``parallel.space``) go to their own rule."""
+    if has_torch_function((ten_in, ten_ver, ten_hor)):
+        return handle_torch_function(sepconv_func, (ten_in, ten_ver, ten_hor), ten_in, ten_ver, ten_hor)
     n, hp, wp, c = ten_in.shape
     _, h, w, k = ten_ver.shape
     assert ten_hor.shape == (n, h, w, k), (ten_hor.shape, (n, h, w, k))

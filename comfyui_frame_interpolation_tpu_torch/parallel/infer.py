@@ -20,13 +20,14 @@ wrappers also cut each data shard's NHWC frames into row bands over that
 shard's row of devices (``parallel.space.split_rows``), the model runs on
 them through the row-band rules, and the output's bands are gathered on the
 first device in global row order. :func:`make_sharded_model_fn` runs RIFE
-(every arch), FILM, IFRNet, AMT and IFUnet so; :func:`make_sharded_pair_fns` runs M2M and XVFI
-Vimeo, whose caches then hold row bands (``RowBands`` leaves beside plain
-tensors such as M2M's frame mean; all three of XVFI's), each shard's on
-its own row of devices, and go back to the same shard's ``infer_fn``. Any
-other model raises at its first op without a rule (GMFSS, EISAI and XVFI
-X4K among the pair-cached ones), naming it and ``ROADMAP.md``'s item;
-nothing runs data-parallel in place of a row split.
+(every arch), FILM, IFRNet, AMT, IFUnet, CAIN and Sepconv so;
+:func:`make_sharded_pair_fns` runs M2M and XVFI (Vimeo and X4K), whose
+caches then hold row bands (``RowBands`` leaves beside plain tensors such
+as M2M's frame mean; all three of XVFI's), each shard's on its own row of
+devices, and go back to the same shard's ``infer_fn``. Any other model
+raises at its first op without a rule (GMFSS and EISAI among the
+pair-cached ones), naming it and ``ROADMAP.md``'s item; nothing runs
+data-parallel in place of a row split.
 """
 
 from __future__ import annotations

@@ -23,9 +23,11 @@ devices, and an allow-list of rules (halo rows for the convolutions and the
 cost volume, the global ratio for the resizes, the whole source gathered
 for the warp, partial sums for the splat and the reductions over rows) by
 which RIFE's inference, every arch (:func:`~.infer.make_sharded_model_fn`),
-RIFE 4.7's training step (:func:`~.train.make_train_step`), M2M's and XVFI
-Vimeo's pair-cached inference (:func:`~.infer.make_sharded_pair_fns`) and
-the inference of FILM, IFRNet, AMT and IFUnet run band by band. Every other op raises ``NotImplementedError`` on a band, naming itself and the
+RIFE 4.7's training step (:func:`~.train.make_train_step`), M2M's and XVFI's
+(Vimeo and X4K) pair-cached inference (:func:`~.infer.make_sharded_pair_fns`)
+and the inference of FILM, IFRNet, AMT, IFUnet, CAIN and Sepconv run band
+by band, a value's band edges moving where an op needs other ones (the
+re-banding rule). Every other op raises ``NotImplementedError`` on a band, naming itself and the
 ``ROADMAP.md`` item that ports the rest (:data:`SPACE_TODO`): no run that
 the policy splits over ``space`` runs data-parallel in its place
 (:func:`check_runnable` raises for a caller that cannot split rows). On
@@ -58,8 +60,8 @@ MIN_ROWS_PER_SHARD = 64
 # what a run on the space axis that no row-band rule covers is told
 SPACE_TODO = (
     "the 'space' axis (rows split over devices) runs RIFE's inference (every arch), RIFE 4.7's training step, "
-    "M2M's and XVFI Vimeo's pair-cached inference and the inference of FILM, IFRNet, AMT and IFUnet; "
-    "the rest is ROADMAP.md Queue 1 item 3"
+    "M2M's and XVFI's (Vimeo and X4K) pair-cached inference and the inference of FILM, IFRNet, AMT, IFUnet, CAIN "
+    "and Sepconv; the rest is ROADMAP.md Queue 1 item 3"
 )
 
 

@@ -18,9 +18,28 @@ the same way. Each call goes to the rule of an allow-list; a function
 without one raises ``NotImplementedError`` naming itself and the
 ``ROADMAP.md`` item that would port it. Nothing is gathered or run band by
 band unless a rule says so. The rules are those that RIFE (every arch, with
-and without fast mode), M2M's and XVFI Vimeo's pair functions, FILM,
-IFRNet (S and L), AMT (S, L and G) and IFUnet (with and without the
-ensemble) need:
+and without fast mode), M2M's and XVFI's (Vimeo and X4K) pair functions,
+FILM, IFRNet (S and L), AMT (S, L and G), IFUnet (with and without the
+ensemble), CAIN and Sepconv need:
+
+* the re-banding rule (:meth:`RowBands.reband`): a value's band edges move
+  to new starts, each band taking only the rows between its old edge and
+  its new one from the neighbours that hold them (a differentiable ``cat``
+  on its own device), bit for bit the same value; never a gather. Two
+  values of one height and row dimension in other bands (X4K's strided
+  pyramid against the flows upsampled from coarser levels, Sepconv's odd
+  levels' crops on other edges) meet in an op: the second is re-banded
+  onto the first's edges (:func:`_onto`). An op that needs every band to
+  start on a multiple of ``s`` (``pixel_unshuffle(s)``, ``avg_pool2d(s)``,
+  nearest and bilinear downscales by ``s``, FILM's 2x2 pooling pyramid)
+  re-bands its input to the nearest such edges that leave every band an
+  output row (:meth:`RowBands.on_multiples`); where none do, it raises.
+  :data:`rebands` and :data:`rows_moved` count them. A strided convolution
+  whose output has fewer rows than there are bands (X4K's coarsest flow net
+  at 1/256 of a 512-row frame: one row) leaves a band without rows; the
+  rules that meet one (elementwise ops, the convolutions, nearest
+  resizes) pass it on, and a result with rows enough for every band is
+  re-banded at once;
 
 * row-local ops, band by band: elementwise arithmetic, ``clamp`` (``min=``
   too), ``sigmoid``, ``tanh``, ``relu`` (``nn.ReLU``), ``leaky_relu``,
@@ -46,7 +65,7 @@ ensemble) need:
   tensor with rows raises;
 * ``torch.cat`` along the rows (IFRNet's joint mean of both frames): the
   operands' bands in order, each on its own device;
-* reductions (``sum``, ``mean``, ``var``, ``var_mean``): over other
+* reductions (``sum``, ``mean``, ``var``, ``var_mean``, ``std_mean``): over other
   dimensions band by band; over the rows from each band's partial sum,
   added in band order on the value's device into a plain tensor (``var``
   from that mean first: AMT's ``common.instance_norm``); ``amax`` and
@@ -79,9 +98,21 @@ ensemble) need:
   pyramid of 2x2 poolings starts the next level's band; ``index_select``
   of the rows (FILM's nearest resize) takes the same outputs and gathers
   the rows they name;
-* ``F.pad`` (constant and replicate): the top pad goes to the first band,
-  the bottom pad to the last (whose last row is the frame's); a slice of
+* ``F.pad`` (constant, replicate and reflect): the top pad goes to the
+  first band, the bottom pad to the last (whose last row is the frame's); a
+  reflect pad's rows come from whichever bands hold them, so a pad longer
+  than the band that takes it reads its neighbours (CAIN's centred pad,
+  numpy's periodic reflection through ``common.reflect_pad``); a slice of
   the rows crops each band;
+* CAIN's ``_reflect_pad1`` (which hands a band over): each band with one
+  halo row from each neighbour, a reflected row only at the global top and
+  bottom; ``pixel_unshuffle(r)`` divides the rows and first row;
+* Sepconv's ``ops.sepconv.sepconv_func`` (which hands bands over): each
+  band's output rows read the ``K - 1 = 50`` input rows below them in the
+  padded input (25 above and 25 below in the frame), the replicate pad of
+  25 in the first and last bands only; ``ones_like`` and ``where`` band by
+  band; ``std_mean`` of the stacked frames over the rows from partial
+  sums;
 * the warp: the source is gathered whole onto each band's device (a
   differentiable ``cat``, so autograd adds each band's image gradient back
   into the producing bands; a plain source, XVFI's f32 ones plane, only
@@ -119,14 +150,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models import common, ifunet, m2m
+from ..models import cain, common, ifunet, m2m
 from ..ops import costvol
 from ..ops.bidir_corr import BidirCorr, _Pyramid
+from ..ops.sepconv import sepconv_func
 from ..ops.softsplat import softsplat_func, softsplat_partial
 from ..ops.warp import warp
 from .mesh import MIN_ROWS_PER_SHARD, SPACE_TODO
 
 __all__ = ["RowBands", "band_rows", "split_rows"]
+
+# re-bands made (RowBands.reband) and the rows they moved between bands,
+# since the caller last set them to 0
+rebands = 0
+rows_moved = 0
 
 
 def band_rows(height: int, n: int, unit: int = MIN_ROWS_PER_SHARD) -> List[Tuple[int, int]]:
@@ -251,13 +288,63 @@ class RowBands:
         """The whole value on ``device`` (a differentiable ``cat``)."""
         return torch.cat([b.to(device) for b in self.bands], self.axis)
 
+    def reband(self, starts: Sequence[int], what: str = "a re-band") -> "RowBands":
+        """This value with its band edges moved to ``starts`` (0 first, each
+        band keeping at least one row): band ``j`` keeps its own rows that
+        lie in its new span and takes the rows between its old edge and its
+        new one from the bands that hold them (:meth:`rows`: a
+        differentiable ``cat`` on its own device), so only those rows move
+        and the value is bit for bit the same. ``what`` names the op that
+        needs it in the refusal of edges that would empty a band.
+        Counted in :data:`rebands` and :data:`rows_moved`."""
+        global rebands, rows_moved
+        starts = tuple(int(s) for s in starts)
+        if starts == self.starts:
+            return self
+        stops = starts[1:] + (self.height,)
+        if len(starts) != len(self.bands) or starts[0] != 0 or any(e <= a for a, e in zip(starts, stops)):
+            raise _no_rule(f"{what}: band edges {list(self.starts)} -> {list(starts)} of {self.height} rows (a band would empty)")
+        old = list(zip(self.starts, self.starts[1:] + (self.height,)))
+        bands = [self.rows(a, e, j) for j, (a, e) in enumerate(zip(starts, stops))]
+        rebands += 1
+        rows_moved += sum((e - a) - max(0, min(e, oe) - max(a, oa)) for (a, e), (oa, oe) in zip(zip(starts, stops), old))
+        return RowBands(bands, starts, self.height, self.axis)
+
+    def on_multiples(self, s: int, out_rows: int, what: str) -> "RowBands":
+        """This value re-banded (:meth:`reband`) so that every band starts on
+        a multiple of ``s`` rows and makes at least one of the ``out_rows``
+        output rows of an op that makes one of each ``s`` input rows
+        (``what``): each edge moves to the nearest multiple (the lower one
+        at a tie), or as little further as leaves every band an output row;
+        where no edge does, the op raises. ``s = 1`` only fills bands left
+        without rows."""
+        n = len(self.bands)
+        if all(a % s == 0 for a in self.starts) and all(
+            e // s > a // s for a, e in zip(self.starts, self.starts[1:] + (out_rows * s,))
+        ):
+            return self
+        starts = [0]
+        for j, a in enumerate(self.starts[1:], 1):
+            # an output row for the band before, and one for this band and each after it
+            lo, hi = starts[-1] // s + 1, out_rows - (n - j)
+            if lo > hi:
+                raise _no_rule(f"{what} on bands from rows {list(self.starts)} of {self.height}: no edge on a multiple of "
+                               f"{s} leaves each of {n} bands one of {out_rows} output rows")
+            starts.append(min(max(a // s + (2 * (a % s) > s), lo), hi) * s)
+        return self.reband(starts, what)
+
     # ---- dispatch ---------------------------------------------------------------
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         rule = _RULES.get(func)
         if rule is None:
             raise _no_rule(_name(func))
-        return rule(func, args, kwargs or {})
+        out = rule(func, args, kwargs or {})
+        if isinstance(out, RowBands) and out.height >= len(out.bands) and any(b.shape[out.axis] == 0 for b in out.bands):
+            # a band left without rows by a value of fewer rows than bands (a
+            # strided convolution's): given rows again as soon as there are enough
+            out = out.on_multiples(1, out.height, _name(func))
+        return out
 
     def _call(self, func, *args, **kwargs):
         return RowBands.__torch_function__(func, (RowBands,), (self, *args), kwargs)
@@ -418,11 +505,27 @@ def _first_bands(values) -> RowBands:
     raise TypeError("no row-band value among the arguments")
 
 
-def _check_alike(func, ref: RowBands, other: RowBands) -> None:
-    if (other.starts, other.height, other.axis) != (ref.starts, ref.height, ref.axis) or [
+def _alike(ref: RowBands, other: RowBands) -> bool:
+    return (other.starts, other.height, other.axis) == (ref.starts, ref.height, ref.axis) and [
         b.shape[ref.axis] for b in other.bands
-    ] != [b.shape[ref.axis] for b in ref.bands]:
+    ] == [b.shape[ref.axis] for b in ref.bands]
+
+
+def _check_alike(func, ref: RowBands, other: RowBands) -> None:
+    if not _alike(ref, other):
         raise _no_rule(f"{_name(func)} of two values split into other row bands ({other!r} and {ref!r})")
+
+
+def _onto(func, ref: RowBands, other):
+    """``other`` on ``ref``'s band edges: itself where they match, re-banded
+    (:meth:`RowBands.reband`) where only the edges differ; a value of
+    another height or row dimension raises. Anything but a row-band value
+    passes as it is."""
+    if not isinstance(other, RowBands) or _alike(ref, other):
+        return other
+    if (other.height, other.axis, len(other.bands)) != (ref.height, ref.axis, len(ref.bands)):
+        raise _no_rule(f"{_name(func)} of two values split into other row bands ({other!r} and {ref!r})")
+    return other.reband(ref.starts, _name(func))
 
 
 def _local(func, v, j: int, ref: RowBands):
@@ -448,6 +551,8 @@ def _local(func, v, j: int, ref: RowBands):
 
 def _elementwise(func, args, kwargs):
     ref = _first_bands(list(args) + list(kwargs.values()))
+    args = [_onto(func, ref, v) for v in args]
+    kwargs = {k: _onto(func, ref, v) for k, v in kwargs.items()}
     out = []
     for j in range(len(ref.bands)):
         a = [_local(func, v, j, ref) for v in args]
@@ -473,15 +578,14 @@ def _to(func, args, kwargs):
     return x.like([b.to(*kept, **kwargs) for b in x.bands])
 
 
-def _alike_bands(func, tensors, what: str) -> RowBands:
-    """The first of ``tensors``, which must all be values in the same row
-    bands."""
+def _alike_bands(func, tensors, what: str) -> List[RowBands]:
+    """``tensors``, which must all be row-band values of one height, on the
+    first one's band edges (:func:`_onto`)."""
     ref = _first_bands([tensors])
     for t in tensors:
         if not isinstance(t, RowBands):
             raise _no_rule(f"{what} of a plain tensor {tuple(t.shape)} with row bands")
-        _check_alike(func, ref, t)
-    return ref
+    return [_onto(func, ref, t) for t in tensors]
 
 
 def _cat(func, args, kwargs):
@@ -493,6 +597,7 @@ def _cat(func, args, kwargs):
     d = dim % ref.ndim
     if d == ref.axis:
         return _cat_rows(tensors, d)
+    tensors = [_onto(func, ref, t) for t in tensors]
     return ref.like([torch.cat([_local(func, t, j, ref) for t in tensors], d) for j in range(len(ref.bands))])
 
 
@@ -518,7 +623,8 @@ def _stack(func, args, kwargs):
     dimension: band by band, the rows one dimension later when the new one
     lands before them."""
     tensors, dim = _bind(func, ("tensors", "dim"), (None, 0), args, kwargs)
-    ref = _alike_bands(func, tensors, "torch.stack")
+    tensors = _alike_bands(func, tensors, "torch.stack")
+    ref = tensors[0]
     d = dim % (ref.ndim + 1)
     axis = ref.axis + (d <= ref.axis)
     return ref.like([torch.stack([t.bands[j] for t in tensors], d) for j in range(len(ref.bands))], axis)
@@ -573,6 +679,7 @@ def _setitem(func, args, kwargs):
     if isinstance(index[k], int) or index[k].indices(x.height) != (0, x.height, 1):
         raise _no_rule(f"Tensor.__setitem__ of an index that cuts the rows ({index[k]!r} of {x.height})")
     target = _getitem(func, (x, index), {})  # views of the bands
+    value = _onto(func, target, value)
     for j, b in enumerate(target.bands):
         b.copy_(_local(func, value, j, target))
 
@@ -592,12 +699,16 @@ def _expand_as(func, args, kwargs):
     return x.like([_local(func, t, j, x).expand_as(b) for j, b in enumerate(x.bands)])
 
 
-def _owned(starts: Sequence[int], out_height: int, first_row: Callable[[int], int]) -> List[Tuple[int, int]]:
+def _owned(
+    starts: Sequence[int], out_height: int, first_row: Callable[[int], int], empty: bool = False
+) -> List[Tuple[int, int]]:
     """Each band's output rows ``[o0, o1)``: from ``first_row(start)`` (0 for
-    the first band) to the next band's, the last to ``out_height``."""
-    firsts = [0] + [first_row(s) for s in starts[1:]]
+    the first band) to the next band's, the last to ``out_height``. A band
+    with none raises, unless ``empty`` allows it where the output has fewer
+    rows than there are bands."""
+    firsts = [0] + [min(first_row(s), out_height) for s in starts[1:]]
     spans = list(zip(firsts, firsts[1:] + [out_height]))
-    if any(o1 <= o0 for o0, o1 in spans):
+    if any(o1 <= o0 for o0, o1 in spans) and not (empty and out_height < len(starts)):
         raise _no_rule(f"a band with no output rows ({spans} of {out_height})")
     return spans
 
@@ -622,13 +733,16 @@ def _conv2d(func, args, kwargs):
     # 2) is its own: for a convolution that pads itself (reach = 2 * ph) the
     # outputs line up with the input's bands, and so do those of a VALID
     # convolution after F.pad (the replicate-padded 3x3 of M2M's flow net)
-    spans = _owned(x.starts, out_h, lambda s: -(-(s + ph - reach // 2) // sh))
+    # (X4K's coarsest flow at 1/256 of a 512-row frame has one row: a band
+    # may then own none, and takes one computed and dropped)
+    spans = _owned(x.starts, out_h, lambda s: -(-(s + ph - reach // 2) // sh), empty=True)
     out = []
     for j, (o0, o1) in enumerate(spans):
         dev = x.bands[j].device
-        rows = x.rows(o0 * sh - ph, (o1 - 1) * sh - ph + reach + 1, j)
+        rows = x.rows(o0 * sh - ph, (max(o1, o0 + 1) - 1) * sh - ph + reach + 1, j)
         b = None if bias is None else bias.to(dev)
-        out.append(func(rows, weight.to(dev), b, (sh, sw), (0, pw), (dh, dw), groups))
+        y = func(rows, weight.to(dev), b, (sh, sw), (0, pw), (dh, dw), groups)
+        out.append(y if o1 > o0 else y.narrow(2, 0, 0))
     return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
 
 
@@ -688,6 +802,17 @@ def _pixel_shuffle(func, args, kwargs):
     return RowBands([func(b, r) for b in x.bands], [s * r for s in x.starts], x.height * r, 2)
 
 
+def _pixel_unshuffle(func, args, kwargs):
+    """``pixel_unshuffle(r)`` (CAIN's space-to-depth by 8): band by band on
+    bands re-banded to start on multiples of ``r``, each band's rows and
+    first row divided by ``r``."""
+    x, r = _bind(func, ("input", "downscale_factor"), (None, None), args, kwargs)
+    if x.axis != 2 or x.height % r:
+        raise _no_rule(f"pixel_unshuffle({r}) of {x!r} (NCHW rows that {r} divides)")
+    x = x.on_multiples(r, x.height // r, f"pixel_unshuffle({r})")
+    return RowBands([func(b, r) for b in x.bands], [s // r for s in x.starts], x.height // r, 2)
+
+
 _INTERPOLATE = tuple(inspect.signature(F.interpolate).parameters)
 
 
@@ -705,8 +830,9 @@ def _interpolate(func, args, kwargs):
     out_h, out_w = _pair(size)
     h = x.height
     kw = dict(mode="bilinear", align_corners=False)
-    if h % out_h == 0 and all(s % (h // out_h) == 0 for s in x.starts):
+    if h % out_h == 0:
         s = h // out_h
+        x = x.on_multiples(s, out_h, f"interpolate(mode='bilinear') from {h} to {out_h} rows")
         return RowBands(
             [func(b, size=(b.shape[2] // s, out_w), **kw) for b in x.bands], [a // s for a in x.starts], out_h, 2
         )
@@ -778,36 +904,60 @@ def _nearest(func, x: RowBands, size, scale_factor) -> RowBands:
         raise TypeError("interpolate: size or scale_factor")
     if out_h % h == 0:
         up, down = out_h // h, 1
-    elif h % out_h == 0 and all(a % (h // out_h) == 0 for a in x.starts):
+    elif h % out_h == 0:
         up, down = 1, h // out_h
+        x = x.on_multiples(down, out_h, f"interpolate(mode='nearest') from {h} to {out_h} rows")
     else:
-        raise _no_rule(f"interpolate(mode='nearest') from {h} to {out_h} rows (an integer factor, on bands that it divides)")
+        raise _no_rule(f"interpolate(mode='nearest') from {h} to {out_h} rows (an integer factor)")
     out = []
     for b in x.bands:
+        # a band without rows (a value of fewer rows than bands): torch refuses
+        # it, so a row of zeros is resized and its rows dropped
+        src = b if b.shape[2] else b.new_zeros((*b.shape[:2], down, b.shape[3]))
         if size is not None:
-            out.append(func(b, size=(b.shape[2] * up // down, _pair(size)[1]), mode="nearest"))
+            y = func(src, size=(src.shape[2] * up // down, _pair(size)[1]), mode="nearest")
         else:
-            out.append(func(b, scale_factor=scale_factor, mode="nearest"))
+            y = func(src, scale_factor=scale_factor, mode="nearest")
+        out.append(y if b.shape[2] else y.narrow(2, 0, 0))
     return RowBands(out, [a * up // down for a in x.starts], out_h, 2)
 
 
 def _pad(func, args, kwargs):
+    """``F.pad``: the top pad goes to the first band and the bottom pad to
+    the last; the other dimensions' pads to every band. Constant and
+    replicate pads band by band (the first band's first row and the last
+    band's last row are the frame's); a reflect pad takes its rows, ``top``
+    to 1 and ``height - 2`` down to ``height - 1 - bottom``, from whichever
+    bands hold them (a pad longer than the band that takes it reads its
+    neighbours), reversed, and pads the other dimensions by reflection band
+    by band (the reflection is separable, so the order does not matter)."""
     x, pad, mode, value = _bind(func, ("input", "pad", "mode", "value"), (None, None, "constant", None), args, kwargs)
-    if mode not in ("constant", "replicate"):
+    if mode not in ("constant", "replicate", "reflect"):
         raise _no_rule(f"F.pad(mode={mode!r})")
     pad = list(pad)
     k = x.ndim - 1 - x.axis  # the pair of pad that the rows take
     top, bottom = (pad[2 * k], pad[2 * k + 1]) if 2 * k < len(pad) else (0, 0)
     if top < 0 or bottom < 0:
         raise _no_rule("F.pad that crops rows")
+    if mode == "reflect" and max(top, bottom) >= x.height:
+        raise RuntimeError(f"F.pad(mode='reflect'): a pad of {max(top, bottom)} rows of {x.height}")
     out, last = [], len(x.bands) - 1
     for j, b in enumerate(x.bands):
         p = list(pad)
         if 2 * k < len(p):
             p[2 * k], p[2 * k + 1] = (top if j == 0 else 0), (bottom if j == last else 0)
-        # replicate: the first band's first row and the last band's last row
-        # are the frame's
-        out.append(func(b, p, mode=mode, value=value))
+        if mode != "reflect":
+            out.append(func(b, p, mode=mode, value=value))
+            continue
+        if 2 * k < len(p):
+            p[2 * k] = p[2 * k + 1] = 0
+        pieces = [b]
+        if j == 0 and top:
+            pieces.insert(0, x.rows(1, top + 1, j).flip(x.axis))
+        if j == last and bottom:
+            pieces.append(x.rows(x.height - 1 - bottom, x.height - 1, j).flip(x.axis))
+        rows = pieces[0] if len(pieces) == 1 else torch.cat(pieces, x.axis)
+        out.append(func(rows, p, mode=mode) if any(p) else rows)
     return x.like(out) if top == 0 and bottom == 0 else RowBands(
         out, [0] + [s + top for s in x.starts[1:]], x.height + top + bottom, x.axis
     )
@@ -819,8 +969,8 @@ def _warp_rule(func, args, kwargs):
     )
     if not isinstance(flow, RowBands) or row0 != 0 or flow.axis != 1:
         raise _no_rule("ops.warp.warp of other than NHWC row bands of a flow")
-    if isinstance(img, RowBands):
-        _check_alike(func, flow, img)
+    if isinstance(img, RowBands) and (img.height, img.axis) == (flow.height, flow.axis):
+        # gathered whole onto each band's device: its own edges need not be the flow's
         whole = lambda j: img.rows(0, img.height, j)  # noqa: E731
     elif isinstance(img, torch.Tensor) and img.dim() == 4 and img.shape[1] == flow.height:
         # a plain source (XVFI's f32 ones plane): whole already, moved to the band's device
@@ -841,11 +991,12 @@ def _avg_pool2d(func, args, kwargs):
     )
     (kh, kw) = _pair(kernel)
     sh, sw = _pair(stride if stride not in (None, []) else kernel)
-    if x.axis != 2 or kh != sh or _pair(padding) != (0, 0) or ceil_mode or any(a % sh for a in x.starts):
+    if x.axis != 2 or kh != sh or _pair(padding) != (0, 0) or ceil_mode:
         raise _no_rule(
             f"avg_pool2d(kernel {kernel}, stride {stride}, padding {padding}, ceil_mode {ceil_mode}) on bands from rows "
             f"{x.starts} (windows of their own rows only)"
         )
+    x = x.on_multiples(sh, x.height // sh, f"avg_pool2d({kernel})")
     out = [func(b, (kh, kw), (sh, sw), 0, False, count_include_pad, divisor) for b in x.bands]
     return RowBands(out, [a // sh for a in x.starts], x.height // sh, 2)
 
@@ -868,14 +1019,16 @@ def _band_sums(x: RowBands, dims: Tuple[int, ...], keepdim: bool, each: Callable
 
 
 def _reduce(func, args, kwargs):
-    """``sum``, ``mean``, ``var`` and ``var_mean``: over dimensions without
-    the rows, band by band; over the rows, from partial sums in band order
-    into a plain tensor on the value's device (``var`` from the mean first,
-    as torch's: each band's sum of squared deviations from it, added in
-    band order, over the global count less ``correction``; ``var_mean``
-    returns both, as AMT's ``common.instance_norm`` reads them)."""
+    """``sum``, ``mean``, ``var``, ``var_mean`` and ``std_mean``: over
+    dimensions without the rows, band by band; over the rows, from partial
+    sums in band order into a plain tensor on the value's device (``var``
+    from the mean first, as torch's: each band's sum of squared deviations
+    from it, added in band order, over the global count less
+    ``correction``; ``var_mean`` returns both, as AMT's
+    ``common.instance_norm`` reads them, ``std_mean`` the root of ``var``
+    and the mean, as Sepconv's frame statistics)."""
     name = _name(func).rsplit(".", 1)[-1]
-    if name in ("var", "var_mean"):
+    if name in ("var", "var_mean", "std_mean"):
         x, dim, unbiased, keepdim, correction = _bind(
             func, ("input", "dim", "unbiased", "keepdim", "correction"), (None, None, None, False, None), args, kwargs
         )
@@ -892,7 +1045,7 @@ def _reduce(func, args, kwargs):
     if x.axis not in dims:
         axis = x.axis if keepdim else x.axis - sum(d < x.axis for d in dims)
         out = [func(b, dims, **local) for b in x.bands]
-        if name == "var_mean":
+        if name in ("var_mean", "std_mean"):
             return tuple(x.like([o[i] for o in out], axis) for i in range(2))
         return x.like(out, axis)
     count = math.prod(x.shape[d] for d in dims)
@@ -905,6 +1058,8 @@ def _reduce(func, args, kwargs):
     centre = mean if keepdim else mean.reshape([1 if d in dims else n for d, n in enumerate(x.shape)])
     sq = _band_sums(x, dims, keepdim, lambda b: (b - centre.to(b.device)).square())
     var = sq / max(count - correction, 0)
+    if name == "std_mean":
+        return var.sqrt(), mean
     return (var, mean) if name == "var_mean" else var
 
 
@@ -1047,7 +1202,7 @@ def _costvol_rule(func, args, kwargs):
     one, two = _bind(func, ("ten_one", "ten_two"), (None, None), args, kwargs)
     if not (isinstance(one, RowBands) and isinstance(two, RowBands)) or one.axis != 2:
         raise _no_rule("ops.costvol.costvol_func of other than NCHW row bands of both tensors")
-    _check_alike(func, one, two)
+    two = _onto(func, one, two)
     out = []
     for j, (b, a) in enumerate(zip(one.bands, one.starts)):
         # the +-R rows around the band (zeros beyond the frame's top and
@@ -1065,7 +1220,7 @@ def _softsplat_rule(func, args, kwargs):
     x, flow = _bind(func, ("ten_in", "ten_flow"), (None, None), args, kwargs)
     if not (isinstance(x, RowBands) and isinstance(flow, RowBands)) or x.axis != 1:
         raise _no_rule("ops.softsplat.softsplat_func of other than NHWC row bands of the values and their flow")
-    _check_alike(func, x, flow)
+    flow = _onto(func, x, flow)
     if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
         raise _no_rule("ops.softsplat.softsplat_func with a gradient (the splat's backward with a band)")
     parts = [softsplat_partial(b, f, a, x.height) for b, f, a in zip(x.bands, flow.bands, x.starts)]
@@ -1115,13 +1270,52 @@ def _convex_upsample_rule(func, args, kwargs):
     flow, mask, level = _bind(func, ("flow", "mask", "level"), (None, None, None), args, kwargs)
     if not (isinstance(flow, RowBands) and isinstance(mask, RowBands)) or flow.axis != 2:
         raise _no_rule("models.ifunet.convex_upsample of other than NCHW row bands of the flow and its mask")
-    _check_alike(func, flow, mask)
+    mask = _onto(func, flow, mask)
     out = []
     for j, (b, a) in enumerate(zip(flow.bands, flow.starts)):
         rows = b.shape[2]
         y = func(flow.rows(a - 1, a + rows + 1, j), F.pad(mask.bands[j], (0, 0, 1, 1)), level)
         out.append(y.narrow(2, level, level * rows))
     return RowBands(out, [level * a for a in flow.starts], level * flow.height, 2)
+
+
+def _reflect_pad1_rule(func, args, kwargs):
+    """``models.cain._reflect_pad1`` (a reflection pad of one pixel on each
+    side, which hands a band over) of NCHW bands: each band with one halo
+    row from each neighbour, padded by ``func``, keeps its own rows, so a
+    reflected row stays only at the global top (the first band's) and
+    bottom (the last band's); the next convolution takes its own halo."""
+    (x,) = _bind(func, ("x",), (None,), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis != 2:
+        raise _no_rule("models.cain._reflect_pad1 of a value without NCHW row bands")
+    last = len(x.bands) - 1
+    out = []
+    for j, (b, a) in enumerate(zip(x.bands, x.starts)):
+        n = b.shape[2]
+        # func's rows: the reflection of row lo + 1, rows lo .. hi - 1, the reflection of row hi - 2
+        y = func(x.rows(a - (j > 0), a + n + (j < last), j))
+        out.append(y.narrow(2, 0 if j == 0 else 2, n + (j == 0) + (j == last)))
+    return RowBands(out, [0] + [a + 1 for a in x.starts[1:]], x.height + 2, 2)
+
+
+def _sepconv_rule(func, args, kwargs):
+    """``ops.sepconv.sepconv_func`` (which hands a band over) of NHWC bands:
+    band ``j`` of the filters (``ten_ver``'s bands; ``ten_hor`` on their
+    edges) makes its own output rows from input rows ``o0`` to ``o1 + K -
+    1``, its own and the ``K - 1`` that its vertical taps read below them
+    in the input padded by ``(K - 1) / 2`` each side (so the frame's rows
+    half of them above and half below), taken from every band that holds
+    them; the pad itself lies in the input's first and last bands only."""
+    ten_in, ver, hor = _bind(func, ("ten_in", "ten_ver", "ten_hor"), (None, None, None), args, kwargs)
+    if not all(isinstance(v, RowBands) and v.axis == 1 for v in (ten_in, ver, hor)):
+        raise _no_rule("ops.sepconv.sepconv_func of other than NHWC row bands of the input and both filters")
+    hor = _onto(func, ver, hor)
+    k = ver.shape[3]
+    if ten_in.height != ver.height + k - 1:
+        raise _no_rule(f"ops.sepconv.sepconv_func of {ten_in!r} by filters {ver!r} (an input padded by K - 1 rows)")
+    return ver.like([
+        func(ten_in.rows(a, a + b.shape[1] + k - 1, j), b, hor.bands[j]) for j, (b, a) in enumerate(zip(ver.bands, ver.starts))
+    ])
 
 
 class _BandCorr:
@@ -1147,7 +1341,7 @@ class _BandCorr:
     def _windows(self, query: RowBands, pyrs, coords) -> RowBands:
         if not isinstance(coords, RowBands) or coords.axis != 1:
             raise _no_rule(f"ops.bidir_corr.BidirCorr.lookup at {coords!r} (NHWC row bands of the coordinates)")
-        _check_alike(BidirCorr.lookup, query, coords.permute(0, 3, 1, 2))
+        coords = _onto(BidirCorr.lookup, query, coords.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if torch.is_grad_enabled() and coords.requires_grad:
             raise _no_rule("ops.bidir_corr.BidirCorr.lookup with a gradient (the training step on the axis)")
         return query.like([BidirCorr.windowed(self, q, p, c) for q, p, c in zip(query.bands, pyrs, coords.bands)])
@@ -1157,7 +1351,7 @@ def _bidir_corr_rule(func, args, kwargs):
     f0, f1, levels, radius = _bind(func, ("f0", "f1", "levels", "radius"), (None, None, 4, 3), args, kwargs)
     if not (isinstance(f0, RowBands) and isinstance(f1, RowBands)) or f0.axis != 2:
         raise _no_rule("ops.bidir_corr.BidirCorr of other than NCHW row bands of both feature maps")
-    _check_alike(func, f0, f1)
+    f1 = _onto(func, f0, f1)
     if torch.is_grad_enabled() and (f0.requires_grad or f1.requires_grad):
         raise _no_rule("ops.bidir_corr.BidirCorr with a gradient (the training step on the axis)")
     return _BandCorr(f0, f1, levels, radius)
@@ -1172,9 +1366,11 @@ for _f in (
     torch.prelu, torch.exp, torch.Tensor.exp, torch.abs, torch.Tensor.abs, torch.square, torch.Tensor.square,
     torch.sqrt, torch.Tensor.sqrt, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
     F.relu, torch.relu, torch.Tensor.relu, torch.floor, torch.Tensor.floor, torch.tanh, torch.Tensor.tanh,
+    torch.ones_like, torch.where,
 ):
     _RULES[_f] = _elementwise
-for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var, torch.var_mean):
+for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var, torch.var_mean,
+           torch.std_mean):
     _RULES[_f] = _reduce
 for _f in (torch.amax, torch.Tensor.amax, torch.amin, torch.Tensor.amin):
     _RULES[_f] = _extreme
@@ -1192,6 +1388,7 @@ _RULES.update({
     torch.conv2d: _conv2d,
     torch.conv_transpose2d: _conv_transpose2d,
     torch.pixel_shuffle: _pixel_shuffle,
+    torch.pixel_unshuffle: _pixel_unshuffle,
     F.interpolate: _interpolate,
     F.pad: _pad,
     F.avg_pool2d: _avg_pool2d,
@@ -1211,5 +1408,7 @@ _RULES.update({
     m2m._repeat_branches: _bandwise,
     common.conv2x2_up2x: _conv2x2_up2x_rule,
     ifunet.convex_upsample: _convex_upsample_rule,
+    cain._reflect_pad1: _reflect_pad1_rule,
+    sepconv_func: _sepconv_rule,
     BidirCorr: _bidir_corr_rule,
 })

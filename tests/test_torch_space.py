@@ -41,13 +41,29 @@ against the port's own one-device runs, on logical replicas of the CPU.
   the dimensions before the rows, ``batch_norm`` on stored statistics,
   ``tanh``, ``softmax`` over the channels, ``ifunet.convex_upsample`` at
   levels 4 and 8, and AMT's correlation lookup on bands against
-  ``BidirCorr`` on the whole maps) on 2 and 3 bands against the same op on
-  the whole tensor (the reductions over the rows give a plain tensor); the
+  ``BidirCorr`` on the whole maps; and CAIN's and Sepconv's:
+  ``pixel_unshuffle(8)`` after a pad that starts a band off a multiple of
+  8, a reflect pad of 60 and 61 rows, ``cain._reflect_pad1``, ``std_mean``
+  of stacked frames, ``ones_like`` and ``where``, ``sepconv_func``) on 2
+  and 3 bands against the same op on the whole tensor (the reductions over
+  the rows give a plain tensor); the
   ops without a rule raise, naming themselves and the ``ROADMAP.md`` item
   (``softmax`` over the rows, ``batch_norm`` with ``training=True`` and a
   ``__setitem__`` that cuts the rows among them); ``band_rows``' splits.
   M2M's pair functions on the axis: ``tests/test_torch_space_m2m.py``;
-  IFRNet, AMT and IFUnet: ``tests/test_torch_space_{ifrnet,amt,ifunet}.py``.
+  IFRNet, AMT and IFUnet: ``tests/test_torch_space_{ifrnet,amt,ifunet}.py``;
+  XVFI X4K, CAIN and Sepconv: ``tests/test_torch_space_{x4k,cain,sepconv}.py``.
+* the re-banding rule, each case equal to the whole tensor bit for bit
+  (``torch.equal``): 2 and 3 bands re-banded to other edges (the rows
+  moved counted); two values in other bands meeting in an elementwise op,
+  a channel ``cat``, ``stack``, ``where`` and a write (the second onto the
+  first's edges, where ``_check_alike`` raised before);
+  ``pixel_unshuffle(8)`` off a multiple of 8 (132 -> 128, the lower at a
+  tie); ``avg_pool2d``, nearest and bilinear downscales by 4 from a band at
+  127 (-> 128); a reflect pad of 61-199 rows taken by a band of 8, and
+  ``common.reflect_pad``'s periodic pads past the side against numpy; the
+  refusal where two output rows cannot give three bands a row each, and of
+  edges that empty a band.
 * RIFE's other archs on a ``(1, 2)`` mesh at 2 x 192x128 (bands of 128 + 64
   rows) in f64 against the port's one device, within 1e-12 of the output's
   largest value: 4.0, 4.2, 4.3 with and without fast mode, 4.5, 4.6, 4.10,
@@ -81,10 +97,11 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan, run_plan_window4
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
-from comfyui_frame_interpolation_tpu_torch.models import common, ifunet, m2m, rife
+from comfyui_frame_interpolation_tpu_torch.models import cain, common, ifunet, m2m, rife
 from comfyui_frame_interpolation_tpu_torch.models.common import cast_params
 from comfyui_frame_interpolation_tpu_torch.ops.bidir_corr import BidirCorr
 from comfyui_frame_interpolation_tpu_torch.ops.costvol import costvol_func
+from comfyui_frame_interpolation_tpu_torch.ops.sepconv import sepconv_func
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp, warp_backward_torch, warp_torch
 from comfyui_frame_interpolation_tpu_torch.parallel import space, train
@@ -314,11 +331,19 @@ RULES = {
     "convex_upsample x4": lambda x: ifunet.convex_upsample(x * 3, F.conv2d(x, _weight(9 * 16, 4, 1, 5)), 4),
     "convex_upsample x8": lambda x: ifunet.convex_upsample(x * 3, F.conv2d(x, _weight(9 * 64, 4, 1, 6)), 8),
     "bidir_corr lookup": lambda x: _corr_lookup(x),
+    # CAIN's and Sepconv's
+    "pixel_unshuffle": lambda x: F.pixel_unshuffle(F.pad(x, (2, 2, 4, 4)), 8),
+    "reflect pad": lambda x: F.pad(x, (2, 3, 60, 61), mode="reflect"),
+    "reflect_pad1": lambda x: cain._reflect_pad1(x),
+    "std_mean of the stacked frames": lambda x: torch.cat(torch.std_mean(torch.stack([x, x.square()], 1), dim=(1, 2, 3, 4), correction=1)),
+    "ones_like and where": lambda x: torch.where(x.abs() < 0.3, torch.ones_like(x), x),
+    "sepconv_func": lambda x: _sepconv(x),
 }
 # a value without rows: the reductions over the rows give a plain tensor
 PLAIN_RESULT = {
     "mean over the rows and columns", "mean over the rows", "mean and var of the frame", "sum over the batch and rows",
     "amax of everything", "amax over the rows", "mean of a cat along the rows", "var_mean over the rows and columns",
+    "std_mean of the stacked frames",
 }
 CUBE_C = torch.from_numpy(np.random.default_rng(11).random((2, 4, 3), np.float32))
 CUBE_W = torch.from_numpy(np.random.default_rng(12).random((2, 4, 20), np.float32))
@@ -356,6 +381,15 @@ def _corr_lookup(x):
     return torch.cat([c0, c1], 1)
 
 
+def _sepconv(x):
+    """``sepconv_func`` of a replicate-padded 2-channel input by 51-tap
+    filters from the value's own channels."""
+    pad = F.pad(x[:, :2], (25, 25, 25, 25), mode="replicate").permute(0, 2, 3, 1)
+    ver = F.conv2d(x, _weight(51, 4, 1, 14)).permute(0, 2, 3, 1)
+    hor = F.conv2d(x, _weight(51, 4, 1, 15)).permute(0, 2, 3, 1)
+    return sepconv_func(pad, ver, hor)
+
+
 @pytest.mark.parametrize("n", [2, 3])
 @pytest.mark.parametrize("rule", list(RULES))
 def test_rule_against_the_whole_tensor(rule, n):
@@ -370,6 +404,105 @@ def test_rule_against_the_whole_tensor(rule, n):
         return
     assert isinstance(out, space.RowBands) and tuple(out.shape) == tuple(ref.shape)
     torch.testing.assert_close(out.gather(CPU), ref, rtol=0, atol=1e-5)
+
+
+# ---- the re-banding rule ------------------------------------------------------------------
+
+
+def _moved(old, new, height):
+    """Rows that band ``j`` takes from others when its span goes from
+    ``old`` to ``new``."""
+    spans = lambda st: list(zip(st, list(st[1:]) + [height]))  # noqa: E731
+    return sum((e - a) - max(0, min(e, oe) - max(a, oa)) for (a, e), (oa, oe) in zip(spans(new), spans(old)))
+
+
+@pytest.mark.parametrize(
+    "n, starts", [(2, (0, 100)), (2, (0, 150)), (2, (0, 199)), (3, (0, 60, 130)), (3, (0, 190, 199)), (3, (0, 1, 2))]
+)
+def test_reband_equals_the_whole_tensor(n, starts):
+    x = _nchw(4, 200, 20, 9)
+    v = _bands(x, n)
+    space.rebands = space.rows_moved = 0
+    r = v.reband(starts)
+    assert r.starts == starts and r.height == 200 and [b.device for b in r.bands] == [b.device for b in v.bands]
+    assert [b.shape[2] for b in r.bands] == [e - a for a, e in zip(starts, list(starts[1:]) + [200])]
+    assert torch.equal(r.gather(CPU), x)
+    assert (space.rebands, space.rows_moved) == (1, _moved(v.starts, starts, 200))
+
+
+def test_values_on_other_edges_are_rebanded_onto_the_first():
+    """Where ``_check_alike`` raised: an elementwise op, a channel ``cat``,
+    ``stack`` and a write of two values of one height in other bands
+    re-band the second onto the first's edges, bit for bit."""
+    x, y = _nchw(4, 200, 20, 9), _nchw(4, 200, 20, 10)
+    a, b = _bands(x, 2), _bands(y, 2).reband((0, 72))
+    space.rebands = space.rows_moved = 0
+    outs = [a + b, b * a, torch.cat([a, b], 1), torch.stack([a, b], 0).sum(0), torch.where(a > 0, a, b)]
+    assert [o.starts for o in outs] == [(0, 128), (0, 72), (0, 128), (0, 128), (0, 128)]  # the first value's edges
+    for o, want in zip(outs, [x + y, y * x, torch.cat([x, y], 1), torch.stack([x, y], 0).sum(0), torch.where(x > 0, x, y)]):
+        assert torch.equal(o.gather(CPU), want)
+    assert (space.rebands, space.rows_moved) == (5, 5 * 56)  # rows 72-127 move, once per op
+    z = a * 1.0
+    z[:, 2:] = b[:, :2]
+    want = x.clone()
+    want[:, 2:] = y[:, :2]
+    assert torch.equal(z.gather(CPU), want)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_pixel_unshuffle_off_a_multiple_of_8(n):
+    """A pad of 4 rows moves the second band's start off a multiple of 8
+    (132 = 8 x 16.5): ``pixel_unshuffle(8)`` re-bands it to the nearest one,
+    the lower at a tie (128)."""
+    x = F.pad(_nchw(4, 200, 24, 9), (0, 0, 4, 4))
+    v = F.pad(_bands(_nchw(4, 200, 24, 9), n), (0, 0, 4, 4))
+    assert v.starts[1] == 132
+    space.rebands = space.rows_moved = 0
+    out = F.pixel_unshuffle(v, 8)
+    assert out.starts[:2] == (0, 16) and space.rebands == 1 and space.rows_moved == 4 * (n - 1)  # 196 -> 192 too
+    assert torch.equal(out.gather(CPU), F.pixel_unshuffle(x, 8))
+
+
+@pytest.mark.parametrize("op", ["avg_pool2d", "nearest down", "bilinear down"])
+def test_downscales_reband_to_their_stride(op):
+    fn = {
+        "avg_pool2d": lambda t: F.avg_pool2d(t, 4, 4),
+        "nearest down": lambda t: F.interpolate(t, size=(t.shape[2] // 4, 5), mode="nearest"),
+        "bilinear down": lambda t: F.interpolate(t, size=(t.shape[2] // 4, 5), mode="bilinear", align_corners=False),
+    }[op]
+    x = _nchw(4, 208, 20, 9)
+    v = _bands(x, 2).reband((0, 127))
+    space.rebands = 0
+    out = fn(v)
+    assert out.starts == (0, 32) and space.rebands == 1  # 127 -> 128, the nearest multiple of 4
+    assert torch.equal(out.gather(CPU), fn(x))
+
+
+@pytest.mark.parametrize("pad", [(2, 3, 60, 61), (0, 0, 150, 199), (1, 1, 7, 190)])
+def test_reflect_pad_longer_than_its_band(pad):
+    """The last of 3 bands holds 8 rows and takes pads of 61-199 rows, read
+    from its neighbours; ``common.reflect_pad``'s pads past the side (numpy's
+    periodic reflection, in steps) equal numpy's."""
+    x = _nchw(4, 200, 20, 9)
+    v = _bands(x, 3)
+    assert [b.shape[2] for b in v.bands] == [128, 64, 8]
+    l, r, t, b = pad
+    if max(t, b) < 200:
+        assert torch.equal(F.pad(v, pad, mode="reflect").gather(CPU), F.pad(x, pad, mode="reflect"))
+    want = np.pad(x.numpy(), ((0, 0), (0, 0), (t + 250, b + 250), (l, r)), mode="reflect")
+    assert np.array_equal(common.reflect_pad(v, (l, r, t + 250, b + 250)).gather(CPU).numpy(), want)
+
+
+def test_an_edge_that_would_empty_a_band_raises():
+    """Two output rows cannot give three bands a row each: the op raises,
+    naming itself and the ``ROADMAP.md`` item; so does a re-band to edges
+    that leave a band without rows."""
+    x = _nchw(4, 16, 8, 9)
+    v = space.RowBands([x[:, :, :8], x[:, :, 8:12], x[:, :, 12:]], [0, 8, 12], 16, 2)
+    with pytest.raises(NotImplementedError, match=r"pixel_unshuffle\(8\).*ROADMAP.md Queue 1 item"):
+        F.pixel_unshuffle(v, 8)
+    with pytest.raises(NotImplementedError, match="a band would empty.*ROADMAP.md Queue 1 item"):
+        _bands(_nchw(4, 200, 8, 9), 2).reband((0, 200))
 
 
 def _cut_rows(x):

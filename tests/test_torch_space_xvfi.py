@@ -26,8 +26,8 @@ the CPU.
 The rules XVFI needed (``relu``, ``floor``, ``stack``, an index with
 ``None``, nearest ``interpolate``, the warp of a plain source) are held one
 at a time on 2 and 3 bands in ``tests/test_torch_space.py``. XVFI X4K
-(``S_tst`` 5) does not run on the axis: its coarse levels start the second
-band off their stride (``ROADMAP.md`` Queue 1 item 3).
+(``S_tst`` 5), whose coarse levels start the second band off their stride
+(the re-banding rule): ``tests/test_torch_space_x4k.py``.
 
 One JAX compile (the sharded pair functions at 256x128).
 """
