@@ -571,11 +571,22 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    its algorithms: with TF32 off its heuristics' choice takes ~48 s a b2
    forward);
 84. Sepconv split -- Sepconv 720p x2 b2 the same way, conditioned weights
-   (``sepconv_func`` on each band with the 50 rows its taps read).
+   (``sepconv_func`` on each band with the 50 rows its taps read);
+85. FLAVR split -- FLAVR 2x 1080p edge-padded to 1088 rows (its node's pad;
+   bands 576 + 512) x2 b2 (5 frames, one batch of two windows) the same way
+   through ``make_sharded_model_fn`` + ``run_plan_window4`` (no hand kernel;
+   the 3-D convolutions with the rows on dimension 3 of the clip);
+86. STMFNet split -- STMFNet 1080p x2 b1 (4 frames, one window) the same way
+   (the reflect pad to 1152 rows puts 72 rows in the second band: 576 +
+   576), K1 6, wide 4 and K2 1 a forward on one device and exactly twice on
+   the mesh (``stmfnet.warps_per_forward``, ``splats_per_forward``), each
+   band's launch against its plain version; AdaCoF, the correlation and the
+   8-tap upsampler handed over to their rules; bf16 held within 0.5 dB of
+   one device's bf16.
 
 Each phase starts with a ``clock:`` line, the seconds since the run began.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-84 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-86 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -611,7 +622,10 @@ phases 71, 75 and 76's numbers), and phases 77's and 78's runs as
 K2's and the wide kernel's entries of those names hold the phases' rows,
 each kernel's band shapes among them), and phases 79-81's as
 ``ifrnet_space_2way``, ``amt_space_2way`` and ``ifunet_space_2way`` (the
-wide kernel's entries of those names hold the rows). CAIN, Sepconv,
+wide kernel's entries of those names hold the rows), phases 82-84's as
+``xvfi_x4k_space_2way``, ``cain_space_2way`` and ``sepconv_space_2way``,
+and phases 85-86's as ``flavr_space_2way`` and ``stmfnet_space_2way`` (the
+wide kernel's entries hold the rows, K2's STMFNet's too). CAIN, Sepconv,
 FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
@@ -1434,8 +1448,9 @@ def profile_forward(what, model_fn, *inputs, card, unit="forward", totals=None):
     device's idle share of the wall time; and per kernel of the kernels line
     that the forward launched, its launches, device ms and bound (the bytes
     and operations of its recorded launches) and the ms above it. A
-    ``totals`` dict gets the forward's device ms, wall ms, idle share and
-    kernel count."""
+    ``totals`` dict gets the forward's device ms, wall ms, idle share,
+    kernel count and ``aten::cat``'s device ms (on the ``space`` axis, the
+    halos' and gathers' joins)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1461,7 +1476,7 @@ def profile_forward(what, model_fn, *inputs, card, unit="forward", totals=None):
     n_kernels = sum(e.count for e in on_device)
     if totals is not None:
         totals.update(device_ms=device_total / 1e3, wall_ms=wall_us / 1e3, idle_share=max(0.0, 1 - device_total / wall_us),
-                      kernels=n_kernels)
+                      kernels=n_kernels, cat_ms=sum(device_us(e) for e in events if e.key == "aten::cat") / 1e3)
     ops = sorted((e for e in events if e not in on_device and device_us(e) > 0), key=device_us, reverse=True)
     print(
         f"profile {card}: one {what} {unit}, {device_total / 1e3:.3f} ms of kernels in "
@@ -5598,12 +5613,15 @@ def main() -> int:
     # twice one device's; every launch of one bf16 split call made again on
     # its band against the plain version; frames/s in turns (one round in
     # bf16), peak memory and a profile of each
-    def space_split_phase(label, executor, shard, make, clip, plan, want_one, call, bf16_within_db=None, cudnn_benchmark=False):
+    def space_split_phase(label, executor, shard, make, clip, plan, want_one, call, bf16_within_db=None, cudnn_benchmark=False,
+                          batch=2, window4=False):
         """``make(dtype)`` -> one device's callable(s) for ``executor`` (a
         tuple for the pair-cached one), ``shard`` the matching
         ``parallel.make_sharded_*``, ``call(fns)`` one batch's forward of
-        ``(f0, f1, t)``; ``clip`` 3 frames of 1080 rows (AMT's padded to
-        1088; Sepconv's 720p). bf16 on the mesh is held at 40 dB or more
+        ``(f0, f1, t)``, or with ``window4`` of ``(f0, f1, f2, f3)`` (the
+        window-4 models through ``run_plan_window4``), ``batch`` windows or
+        pairs a call; ``clip`` 3 frames of 1080 rows (AMT's padded to 1088;
+        Sepconv's 720p; 4-5 for the window-4 models). bf16 on the mesh is held at 40 dB or more
         against the f32 one-device frames, or with ``bf16_within_db`` within
         that many dB of one device's bf16. The re-bands of one bf16 split
         call are counted (``parallel.space.rebands`` and ``rows_moved``).
@@ -5625,15 +5643,15 @@ def main() -> int:
             torch.backends.cudnn.benchmark = bench or (cudnn_benchmark and dtype == torch.float32)
             try:
                 ts = time.perf_counter()
-                one_out, one_n, one_peak = executor_run(executor, clip, plan, *as_args(one), batch_size=2)
+                one_out, one_n, one_peak = executor_run(executor, clip, plan, *as_args(one), batch_size=batch)
                 secs[f"{name} one device"] = time.perf_counter() - ts
                 ts = time.perf_counter()
-                two_out, two_n, two_peak = executor_run(executor, clip, plan, *as_args(two), batch_size=2)
+                two_out, two_n, two_peak = executor_run(executor, clip, plan, *as_args(two), batch_size=batch)
                 secs[f"{name} (1, 2) mesh"] = time.perf_counter() - ts
                 if dtype == torch.float32:
                     ts = time.perf_counter()
-                    two_again, _, _ = executor_run(executor, clip, plan, *as_args(two), batch_size=2)
-                    one_again, _, _ = executor_run(executor, clip, plan, *as_args(one), batch_size=2)
+                    two_again, _, _ = executor_run(executor, clip, plan, *as_args(two), batch_size=batch)
+                    one_again, _, _ = executor_run(executor, clip, plan, *as_args(one), batch_size=batch)
                     secs["f32 both again"] = time.perf_counter() - ts
                     settings = {"split_repeat_max_abs_diff": (two_again - two_out).abs().max().item(),
                                 "one_device_repeat_max_abs_diff": (one_again - one_out).abs().max().item()}
@@ -5645,7 +5663,7 @@ def main() -> int:
             want = want_one(dtype)
             check(one_n == want and two_n == {k: 2 * v for k, v in want.items()},
                   f"{label} {name} launches: one device {one_n}, the (1, 2) mesh {two_n}; expected {want} and twice that")
-            check(tuple(two_out.shape) == (5, height, width, 3) and bool(torch.isfinite(two_out).all()),
+            check(tuple(two_out.shape) == (len(plan.output), height, width, 3) and bool(torch.isfinite(two_out).all()),
                   f"{label} {name} on the (1, 2) mesh: {tuple(two_out.shape)}, finite {bool(torch.isfinite(two_out).all())}")
             launches = {k: launches[k] + two_n[k] for k in launches}
             outs[name] = (one_out, two_out)
@@ -5653,16 +5671,18 @@ def main() -> int:
                 del one, two
                 torch.cuda.empty_cache()
                 continue
-            f0 = torch.from_numpy(np.random.default_rng(0).random((2, height, width, 3), dtype=np.float32)).to(dev)
-            f1 = torch.from_numpy(np.random.default_rng(1).random((2, height, width, 3), dtype=np.float32)).to(dev)
-            tt = torch.full((2,), 0.5, device=dev)
+            frames_in = [
+                torch.from_numpy(np.random.default_rng(k).random((batch, height, width, 3), dtype=np.float32)).to(dev)
+                for k in range(4 if window4 else 2)
+            ]
+            inputs = (*frames_in, *(() if window4 else (torch.full((batch,), 0.5, device=dev),)))
             # each band's launches of one split call, against the plain
             # versions, and the call's re-bands
             store = []
             parallel.space.rebands = parallel.space.rows_moved = 0
             ts = time.perf_counter()
             with captured_band_launches(store):
-                call(two)(f0, f1, tt)
+                call(two)(*inputs)
             torch.cuda.synchronize()
             secs["bf16 split call captured"] = time.perf_counter() - ts
             rebands = {"rebands": parallel.space.rebands, "rows_moved": parallel.space.rows_moved}
@@ -5674,22 +5694,22 @@ def main() -> int:
             fps = {key: [] for key in calls}
             ts = time.perf_counter()
             for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
-                fps[key].append(2 / measure(call(calls[key]), f0, f1, tt, iters=3, rounds=1))
+                fps[key].append(batch / measure(call(calls[key]), *inputs, iters=3, rounds=1))
             secs["bf16 timing"] = time.perf_counter() - ts
             ts = time.perf_counter()
             totals = {key: {} for key in calls}
             for key, fns in calls.items():
-                profile_forward(f"{label} {height}x{width} {name} b2, {key}", call(fns), f0, f1, tt, card=card, unit="batch",
+                profile_forward(f"{label} {height}x{width} {name} b{batch}, {key}", call(fns), *inputs, card=card, unit="batch",
                                 totals=totals[key])
             secs["bf16 profiles"] = time.perf_counter() - ts
             rows[name] = {
                 key: {"frames_per_s": statistics.mean(fps[key]), "frames_per_s_turns": fps[key],
                       "peak_executor_bytes": one_peak if key == "one device" else two_peak,
                       "idle_share": totals[key]["idle_share"], "device_ms": totals[key]["device_ms"],
-                      "wall_ms": totals[key]["wall_ms"], "kernels": totals[key]["kernels"]}
+                      "wall_ms": totals[key]["wall_ms"], "kernels": totals[key]["kernels"], "cat_ms": totals[key]["cat_ms"]}
                 for key in fps
             }
-            del one, two, calls, f0, f1, tt
+            del one, two, calls, frames_in, inputs
             torch.cuda.empty_cache()
         f32_err = (outs["float32"][1] - outs["float32"][0]).abs().max().item()
         check(f32_err <= 1e-4, f"{label} f32 on the (1, 2) mesh: max abs {f32_err} from one device, above 1e-4")
@@ -5701,14 +5721,16 @@ def main() -> int:
             check(bf16_db >= bf16_one_db - bf16_within_db,
                   f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, more than "
                   f"{bf16_within_db} dB below one device's bf16 ({bf16_one_db:.2f} dB)")
-        return {"rows": height, "cols": width, "f32_max_abs_err": f32_err, "f32_settings": settings, "bf16_psnr_db": bf16_db,
+        return {"rows": height, "cols": width, "batch": batch, "frames": clip.shape[0], "mids": len(plan.tasks),
+                "f32_max_abs_err": f32_err, "f32_settings": settings, "bf16_psnr_db": bf16_db,
                 "bf16_one_device_psnr_db": bf16_one_db, "rebands_per_bf16_batch": rebands, "seconds": secs,
                 "launches": launches, "bands": {k: [[list(b), r, a, d] for b, r, a, d in v] for k, v in bands.items()},
                 "band_max_abs_err": band_err, "runs": rows}
 
     def space_split_line(number, label, row, t0):
         print(
-            f"space {card}: phase {number}: {label} {row['rows']}x{row['cols']} x2 b2 (3 frames, 2 mids) on a (1, 2) mesh of "
+            f"space {card}: phase {number}: {label} {row['rows']}x{row['cols']} x2 b{row['batch']} ({row['frames']} frames, "
+            f"{row['mids']} mids) on a (1, 2) mesh of "
             f"replicas of the card, "
             f"bands {band_rows(row['rows'], 2)}: f32 (TF32 off, cuDNN deterministic) max abs {row['f32_max_abs_err']:.3g} from one "
             f"device, the (1, 2) run against itself {row['f32_settings']['split_repeat_max_abs_diff']:.3g}, one device against "
@@ -5719,7 +5741,8 @@ def main() -> int:
             + f"; re-bands of one bf16 split batch {row['rebands_per_bf16_batch']}; "
             + "; ".join(
                 f"{name} {key}: {r['frames_per_s']:.3f} frames/s (turns {', '.join(f'{v:.3f}' for v in r['frames_per_s_turns'])}), "
-                f"executor peak {r['peak_executor_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, {r['kernels']} kernels"
+                f"executor peak {r['peak_executor_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, {r['kernels']} kernels, "
+                f"aten::cat {r['cat_ms']:.3f} of {r['device_ms']:.3f} device ms"
                 for name, rows_ in row["runs"].items() for key, r in rows_.items()
             ) + f"; seconds {', '.join(f'{k} {v:.1f}' for k, v in row['seconds'].items())}; phase {time.perf_counter() - t0:.1f} s",
             flush=True,
@@ -5840,6 +5863,42 @@ def main() -> int:
     space_split_line(84, "Sepconv (conditioned weights)", sepconv_space, t0)
     slice23 = {"xvfi_x4k_space_2way": x4k_space, "cain_space_2way": cain_space, "sepconv_space_2way": sepconv_space}
 
+    # ---- 85-86. FLAVR 2x and STMFNet through the split (run_plan_window4) ---------------------
+    clock("85-86")
+    # the window-4 models through make_sharded_model_fn + run_plan_window4
+    # (four frames a window), each as phases 77-84: FLAVR at 1080p
+    # edge-padded to 1088 rows as its node pads (bands 576 + 512), 5 frames,
+    # b2 (one batch of two windows; no hand kernel); STMFNet at 1080p, 4
+    # frames, b1 (one window: its reflect pad to 1152 rows puts 72 rows in
+    # the second band, 576 + 576), K1 6, wide 4 and K2 1 a forward on one
+    # device and exactly twice on the mesh, each band's launch against its
+    # plain version. Their f32 runs take cuDNN's heuristic algorithms: with
+    # cudnn.benchmark, timing FLAVR's f32 3-D algorithms at 1088 rows took
+    # ~220 s a first call, the heuristic's first call ~4 s
+    t0 = time.perf_counter()
+    flavr_params85 = flavr.init_params(0)
+    flavr_space = space_split_phase(
+        "FLAVR 2x", run_plan_window4, parallel.make_sharded_model_fn,
+        lambda dtype: flavr.make_model_fn(flavr_params85, dtype=dtype, device=dev),
+        _pad16(torch.from_numpy(shifted_pattern(5, 1080, 1920, seed=85)).to(dev))[0], plan_window4(5),
+        lambda dtype: {"narrow": 0, "wide": 0, "splat": 0}, lambda fn: fn, window4=True,
+    )
+    del flavr_params85
+    space_split_line(85, "FLAVR 2x (edge-padded to 1088 rows)", flavr_space, t0)
+
+    t0 = time.perf_counter()
+    stmf_params86 = stmfnet.init_params(0)
+    stmf_space = space_split_phase(
+        "STMFNet", run_plan_window4, parallel.make_sharded_model_fn,
+        lambda dtype: stmfnet.make_model_fn(stmf_params86, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(4, 1080, 1920, seed=86)).to(dev), plan_window4(4),
+        lambda dtype: {**stmfnet.warps_per_forward(dtype), "splat": stmfnet.splats_per_forward()}, lambda fn: fn,
+        bf16_within_db=0.5, batch=1, window4=True,
+    )
+    del stmf_params86
+    space_split_line(86, "STMFNet", stmf_space, t0)
+    slice24 = {"flavr_space_2way": flavr_space, "stmfnet_space_2way": stmf_space}
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -5871,7 +5930,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-84 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-86 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -5887,7 +5946,7 @@ def main() -> int:
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
             + space_train_launches["narrow"] + m2m_space_launches["narrow"] + xvfi_space["launches"]["narrow"]
-            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values())),
+            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values(), *slice24.values())),
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -5902,7 +5961,7 @@ def main() -> int:
                 **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
                 "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
                 "xvfi_space_2way": xvfi_space["launches"]["narrow"], "film_space_2way": film_space["launches"]["narrow"],
-                **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items())},
+                **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items())},
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -5934,7 +5993,7 @@ def main() -> int:
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
             + sum(family_launches["wide"].values()) + m2m_space_launches["wide"] + xvfi_space["launches"]["wide"]
-            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values())),
+            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values(), *slice24.values())),
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -5945,7 +6004,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
                 **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
                 "xvfi_space_2way": xvfi_space["launches"]["wide"], "film_space_2way": film_space["launches"]["wide"],
-                **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items())},
+                **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items())},
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -5974,6 +6033,7 @@ def main() -> int:
             "film_space_2way": film_space,
             **slice22,
             **slice23,
+            **slice24,
         },
         {
             "name": "softsplat",
@@ -5984,7 +6044,7 @@ def main() -> int:
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
             + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"]
-            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in slice23.values()),
+            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in (*slice23.values(), *slice24.values())),
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -5994,7 +6054,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
                 **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
                 "xvfi_space_2way": xvfi_space["launches"]["splat"], "film_space_2way": film_space["launches"]["splat"],
-                **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items())},
+                **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items())},
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -6010,6 +6070,7 @@ def main() -> int:
             "stmfnet_shapes": stmf_splat_times,
             "xvfi_shapes": xsplat_times,
             "xvfi_space_2way": xvfi_space,
+            "stmfnet_space_2way": stmf_space,
             "per_forward": per_forward["softsplat"],
             "row_band": {"shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, rows {splat_spans[1][0]}-{sum(splat_spans[1])} into the whole "
                                   f"frame's f32 partial", "max_abs_err": sband_err, "ms": sband_ms["K2 band"],

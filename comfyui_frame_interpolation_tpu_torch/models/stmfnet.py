@@ -40,6 +40,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..ops.adacof import adacof_func
 from ..ops.correlation import correlation_func
@@ -534,16 +535,24 @@ def _upsampler_8tap(filt: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     polyphase 2x of NCHW ``im`` with the fixed 8-tap filter ``(C, 1, 1, 8)``,
     reflect-padded (3 before, 4 after): even rows and columns are the
     frame, odd columns its row pass, odd rows its column pass, and the odd
-    rows' odd columns the row pass of the column pass."""
+    rows' odd columns the row pass of the column pass. A value that
+    overrides torch functions (a row band of ``parallel.space``) goes to its
+    own rule."""
+    if has_torch_function((im,)):
+        return handle_torch_function(_upsampler_8tap, (im,), filt, im)
+    return upsampler_8tap_rows(filt, im, F.pad(im, (0, 0, 3, 4), mode="reflect"))
+
+
+def upsampler_8tap_rows(filt: torch.Tensor, im: torch.Tensor, tall: torch.Tensor) -> torch.Tensor:
+    """:func:`_upsampler_8tap` of ``im`` given ``tall``: ``im`` with the 3
+    rows above it and the 4 below it that the column pass reads (the
+    reflection at a frame's edges, a neighbour's rows inside it)."""
     n, c, h, w = im.shape
 
     def hconv(x):
         return conv2d(F.pad(x, (3, 4, 0, 0), mode="reflect"), filt, groups=c)
 
-    def vconv(x):
-        return conv2d(F.pad(x, (0, 0, 3, 4), mode="reflect"), filt.transpose(2, 3), groups=c)
-
-    col = vconv(im)
+    col = conv2d(tall, filt.transpose(2, 3), groups=c)
     up = torch.empty((n, c, 2 * h, 2 * w), dtype=im.dtype, device=im.device, memory_format=torch.channels_last)
     up[:, :, 0::2, 0::2] = im
     up[:, :, 0::2, 1::2] = hconv(im)

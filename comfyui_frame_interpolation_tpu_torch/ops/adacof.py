@@ -20,11 +20,19 @@ at 1080p). Here the output is built in bands of rows, each band's taps
 gathered at once, so that no temporary exceeds about
 :data:`BAND_ELEMENTS` elements. Plain PyTorch: no Pallas kernel stands
 behind it in the JAX package.
+
+A band of output rows (``row0``, ``out_rows``) reads the whole padded input:
+``parallel.space`` hands its row bands over here and calls this once per
+band with the band's own weight and offset maps, whose offsets are learned
+and unbounded, so a tap may read any row.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = ["BAND_ELEMENTS", "adacof_func"]
 
@@ -33,18 +41,32 @@ BAND_ELEMENTS = 1 << 25
 
 
 def adacof_func(
-    ten_in: torch.Tensor, weight: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, dilation: int = 1
+    ten_in: torch.Tensor,
+    weight: torch.Tensor,
+    alpha: torch.Tensor,
+    beta: torch.Tensor,
+    dilation: int = 1,
+    row0: int = 0,
+    out_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """NHWC ``ten_in`` ``[N, Hp, Wp, C]``; ``weight``, ``alpha`` and ``beta``
     ``[N, H, W, F*F]`` (views of ``channels_last`` maps are taken as they
-    are). Returns ``[N, H, W, C]`` in ``ten_in``'s dtype."""
+    are). Returns ``[N, H, W, C]`` in ``ten_in``'s dtype. With ``row0`` the
+    maps are the band of output rows from ``row0`` of an output of
+    ``out_rows`` rows (``H`` by default), and ``ten_in`` is still the whole
+    padded input."""
+    if has_torch_function((ten_in, weight, alpha, beta)):
+        return handle_torch_function(
+            adacof_func, (ten_in, weight, alpha, beta), ten_in, weight, alpha, beta, dilation, row0=row0, out_rows=out_rows
+        )
     n, hp, wp, c = ten_in.shape
     _, h, w, ff = weight.shape
     f = int(round(ff**0.5))
     if f * f != ff:
         raise ValueError(f"adacof: {ff} weights per pixel is not a square")
-    if hp - ((f - 1) * dilation + 1) != h - 1 or wp - ((f - 1) * dilation + 1) != w - 1:
-        raise ValueError(f"adacof: input {tuple(ten_in.shape)} does not fit output {tuple(weight.shape)}")
+    total = h if out_rows is None else out_rows
+    if hp - ((f - 1) * dilation + 1) != total - 1 or wp - ((f - 1) * dilation + 1) != w - 1 or not 0 <= row0 <= total - h:
+        raise ValueError(f"adacof: input {tuple(ten_in.shape)} does not fit output {tuple(weight.shape)} from row {row0}")
     dev = ten_in.device
     flat = ten_in.reshape(n, hp * wp, c)
     taps = torch.arange(ff, device=dev)
@@ -58,7 +80,7 @@ def adacof_func(
         a, b = alpha[:, r0:r1].float(), beta[:, r0:r1].float()
         ai, bi = torch.trunc(a), torch.trunc(b)  # C's (int) cast
         fa, fb = a - ai, b - bi
-        i0 = torch.arange(r0, r1, device=dev).view(1, -1, 1, 1) + k_off + ai.long()
+        i0 = torch.arange(row0 + r0, row0 + r1, device=dev).view(1, -1, 1, 1) + k_off + ai.long()
         j0 = xs + bi.long()
         rows = (i0.clamp(0, hp - 1) * wp, (i0 + 1).clamp(0, hp - 1) * wp)
         cols = (j0.clamp(0, wp - 1), (j0 + 1).clamp(0, wp - 1))

@@ -20,7 +20,9 @@ wrappers also cut each data shard's NHWC frames into row bands over that
 shard's row of devices (``parallel.space.split_rows``), the model runs on
 them through the row-band rules, and the output's bands are gathered on the
 first device in global row order. :func:`make_sharded_model_fn` runs RIFE
-(every arch), FILM, IFRNet, AMT, IFUnet, CAIN and Sepconv so;
+(every arch), FILM, IFRNet, AMT, IFUnet, CAIN and Sepconv so, and the
+window-4 models FLAVR and STMFNet (``run_plan_window4``: all four frames of
+each window cut into the same bands);
 :func:`make_sharded_pair_fns` runs M2M and XVFI (Vimeo and X4K), whose
 caches then hold row bands (``RowBands`` leaves beside plain tensors such
 as M2M's frame mean; all three of XVFI's), each shard's on its own row of

@@ -20,7 +20,7 @@ without one raises ``NotImplementedError`` naming itself and the
 band unless a rule says so. The rules are those that RIFE (every arch, with
 and without fast mode), M2M's and XVFI's (Vimeo and X4K) pair functions,
 FILM, IFRNet (S and L), AMT (S, L and G), IFUnet (with and without the
-ensemble), CAIN and Sepconv need:
+ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
 
 * the re-banding rule (:meth:`RowBands.reband`): a value's band edges move
   to new starts, each band taking only the rows between its old edge and
@@ -44,14 +44,17 @@ ensemble), CAIN and Sepconv need:
 * row-local ops, band by band: elementwise arithmetic, ``clamp`` (``min=``
   too), ``sigmoid``, ``tanh``, ``relu`` (``nn.ReLU``), ``leaky_relu``,
   ``prelu`` (``nn.PReLU``), ``exp``, ``abs``, ``square``, ``sqrt``,
-  ``floor``, comparisons, casts, channel and batch ``cat``, ``stack``
+  ``floor``, comparisons (``==`` too: the splat's zeroeps test), casts,
+  channel and batch ``cat``, ``stack``
   along a new dimension, slices of the channel and batch dimensions (an
   ``...`` and ``None`` too) and writes into them (``__setitem__``, IFRNet's
   ``ResBlock``: a value in the same bands or a plain tensor without rows;
   an index that cuts the rows raises), ``permute``, the ``expand_as`` of a
   tensor without rows (the timestep map), ``repeat``, ``reshape``,
-  ``view``, ``expand`` and ``unflatten`` of the dimensions before the rows
-  (each refuses a shape that moves or merges them), M2M's
+  ``view``, ``expand`` and ``unflatten`` of the dimensions before the rows,
+  ``reshape`` and ``view`` of the dimensions after them (FLAVR's and
+  STMFNet's merge of time and channels; each refuses a shape that moves or
+  merges the rows), M2M's
   ``_repeat_branches``, ``index_select`` of another dimension,
   ``batch_norm`` on stored statistics (``training=True`` raises),
   ``softmax`` over a dimension other than the rows, and ``pixel_shuffle``
@@ -66,13 +69,16 @@ ensemble), CAIN and Sepconv need:
 * ``torch.cat`` along the rows (IFRNet's joint mean of both frames): the
   operands' bands in order, each on its own device;
 * reductions (``sum``, ``mean``, ``var``, ``var_mean``, ``std_mean``): over other
-  dimensions band by band; over the rows from each band's partial sum,
+  dimensions band by band; over the rows from each band's partial sum
+  (in f32 for half-precision bands, rounded once, as torch sums them),
   added in band order on the value's device into a plain tensor (``var``
   from that mean first: AMT's ``common.instance_norm``); ``amax`` and
   ``amin`` the same way, exact (RIFE 4.0's restart flag);
 * ``torch.einsum`` with one banded operand whose row subscript no other
   operand has and the result keeps (M2M's attention cube);
-* ``conv2d``: each band takes the ``dilation * (k - 1)`` rows around it
+* ``conv2d``, and ``conv3d`` on NCDHW clips whose rows are dimension 3
+  (FLAVR's and STMFNet's stacks of frames; the time and column dimensions
+  keep their own padding): each band takes the ``dilation * (k - 1)`` rows around it
   that its outputs read (the halo) from its neighbours, zeros beyond the
   global top and bottom only, and owns the outputs whose middle input row
   is its own (so a VALID convolution after ``F.pad`` lines up as one that
@@ -85,8 +91,9 @@ ensemble), CAIN and Sepconv need:
   band starting on a multiple of it);
 * ``ops.costvol.costvol_func``: each band compares against the ``+-4``
   rows around it of the second tensor, zeros beyond the frame's edges;
-* ``conv_transpose2d``: the input rows its outputs read (one from each
-  neighbour for ``(4, 2, 1)``), the result cropped to its own rows;
+* ``conv_transpose2d`` (grouped too), and ``conv_transpose3d`` on NCDHW
+  clips: the input rows its outputs read (one from each neighbour for
+  ``(4, 2, 1)``), the result cropped to its own rows;
 * bilinear ``interpolate`` (``align_corners=False``, ``size=``) by an
   integer factor: the global ratio, not the band's; a downscale by ``s``
   is band-local when every band starts on a multiple of ``s``; an upscale
@@ -97,7 +104,9 @@ ensemble), CAIN and Sepconv need:
   each band's outputs start at ``floor(start * out / in)``, where a
   pyramid of 2x2 poolings starts the next level's band; ``index_select``
   of the rows (FILM's nearest resize) takes the same outputs and gathers
-  the rows they name;
+  the rows they name; with ``align_corners=True`` (STMFNet's kernel maps,
+  upscaled by 2 and 4), by any ratio, the rows' two taps at ``dst * (height
+  - 1) / (out - 1)``, the global ratio, then the columns;
 * ``F.pad`` (constant, replicate and reflect): the top pad goes to the
   first band, the bottom pad to the last (whose last row is the frame's); a
   reflect pad's rows come from whichever bands hold them, so a pad longer
@@ -132,12 +141,22 @@ ensemble), CAIN and Sepconv need:
 * AMT's correlation (``ops.bidir_corr.BidirCorr``, which hands bands
   over): each target's pyramid built on each band's device from the
   target gathered whole (the warp's source rule), each band's queries
-  looked up at its own rows of the coordinates; inference only.
+  looked up at its own rows of the coordinates; inference only;
+* STMFNet's hand-overs: ``models.stmfnet._upsampler_8tap`` (each band's
+  column pass with the 3 rows above and 4 below it, reflected only at the
+  global top and bottom; twice its rows out from twice its first row),
+  ``ops.adacof.adacof_func`` (the replicate-padded input gathered whole
+  onto each band's device, as the warp's source: the offsets are learned
+  and unbounded; each band's output rows from its ``row0``) and
+  ``ops.correlation.correlation_func`` (each band against the ``+-4`` rows
+  around it of the second tensor, zeros beyond the frame's edges: the
+  cost volume's rule for the PWC decoders).
 
 Every rule computes what the op computes on the whole tensor: the
 convolutions and resizes the same sums, possibly by other algorithms
 (cuDNN picks one per shape), the reductions, the splat and the
-correlation's dots in another order, the warp bit for bit. Bands on logical replicas of one device split
+correlation's dots (AMT's and the PWC's) and AdaCoF's taps in another
+order, the warp bit for bit. Bands on logical replicas of one device split
 the work as separate devices would.
 """
 
@@ -150,8 +169,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models import cain, common, ifunet, m2m
-from ..ops import costvol
+from ..models import cain, common, ifunet, m2m, stmfnet
+from ..ops import correlation, costvol
+from ..ops.adacof import adacof_func
 from ..ops.bidir_corr import BidirCorr, _Pyramid
 from ..ops.sepconv import sepconv_func
 from ..ops.softsplat import softsplat_func, softsplat_partial
@@ -402,6 +422,11 @@ class RowBands:
 
     def __neg__(self):
         return self._call(torch.Tensor.neg)
+
+    def __eq__(self, other):  # softsplat's zeroeps test of the splatted weights
+        return self._call(torch.Tensor.eq, other)
+
+    __hash__ = object.__hash__
 
     def __lt__(self, other):
         return self._call(torch.Tensor.lt, other)
@@ -713,21 +738,38 @@ def _owned(
     return spans
 
 
-def _conv2d(func, args, kwargs):
+def _spatial(v, nd: int) -> Tuple[int, ...]:
+    return (v,) * nd if isinstance(v, int) else tuple(v)
+
+
+def _with_rows(v: Tuple[int, ...], r: int, value: int) -> Tuple[int, ...]:
+    """``v`` with its entry ``r`` (the rows') set to ``value``."""
+    return (*v[:r], value, *v[r + 1 :])
+
+
+def _conv(func, args, kwargs):
+    """``conv2d`` on NCHW bands and ``conv3d`` on NCDHW bands (the rows the
+    second spatial dimension, FLAVR's and STMFNet's clips): each band takes
+    the rows its outputs read from its neighbours (zeros beyond the global
+    top and bottom only); the other spatial dimensions keep their own
+    padding."""
     x, weight, bias, stride, padding, dilation, groups = _bind(
         func, ("input", "weight", "bias", "stride", "padding", "dilation", "groups"), (None, None, None, 1, 0, 1, 1),
         args, kwargs,
     )
-    if not isinstance(x, RowBands) or x.axis != 2 or isinstance(weight, RowBands):
-        raise _no_rule("conv2d of a value without NCHW row bands as its input")
-    if padding == "same":
+    nd = 2 if func is torch.conv2d else 3
+    if not isinstance(x, RowBands) or x.ndim != nd + 2 or x.axis != nd or isinstance(weight, RowBands):
+        raise _no_rule(f"{_name(func)} of a value without {'NCHW' if nd == 2 else 'NCDHW'} row bands as its input")
+    if padding == "same" and nd == 2:
         return _conv2d_same(func, x, weight, bias, stride, dilation, groups)
     if isinstance(padding, str):
         if padding != "valid":
-            raise _no_rule(f"conv2d with padding={padding!r}")
+            raise _no_rule(f"{_name(func)} with padding={padding!r}")
         padding = 0
-    (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
-    reach = dh * (weight.shape[2] - 1)
+    r = nd - 2  # the rows among the spatial dimensions
+    stride, padding, dilation = _spatial(stride, nd), _spatial(padding, nd), _spatial(dilation, nd)
+    sh, ph = stride[r], padding[r]
+    reach = dilation[r] * (weight.shape[x.axis] - 1)
     out_h = (x.height + 2 * ph - reach - 1) // sh + 1
     # a band owns the outputs whose middle input row (o * sh - ph + reach //
     # 2) is its own: for a convolution that pads itself (reach = 2 * ph) the
@@ -741,9 +783,9 @@ def _conv2d(func, args, kwargs):
         dev = x.bands[j].device
         rows = x.rows(o0 * sh - ph, (max(o1, o0 + 1) - 1) * sh - ph + reach + 1, j)
         b = None if bias is None else bias.to(dev)
-        y = func(rows, weight.to(dev), b, (sh, sw), (0, pw), (dh, dw), groups)
-        out.append(y if o1 > o0 else y.narrow(2, 0, 0))
-    return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
+        y = func(rows, weight.to(dev), b, stride, _with_rows(padding, r, 0), dilation, groups)
+        out.append(y if o1 > o0 else y.narrow(x.axis, 0, 0))
+    return RowBands(out, [o0 for o0, _ in spans], out_h, x.axis)
 
 
 def _conv2d_same(func, x: RowBands, weight, bias, stride, dilation, groups):
@@ -751,7 +793,7 @@ def _conv2d_same(func, x: RowBands, weight, bias, stride, dilation, groups):
     ``dilation * (k - 1)`` rows (columns) in all, ``floor(half)`` on top
     (left) and the rest below (right), so an even kernel reads one row below
     and none above. Each band owns the outputs of its own rows (whose
-    middle input row is its own, as :func:`_conv2d`) and reads the halo
+    middle input row is its own, as :func:`_conv`) and reads the halo
     around them, zeros beyond the global top and bottom only."""
     if _pair(stride) != (1, 1):
         raise _no_rule(f"conv2d(padding='same') with stride {stride}")
@@ -769,17 +811,24 @@ def _conv2d_same(func, x: RowBands, weight, bias, stride, dilation, groups):
     return x.like(out)
 
 
-def _conv_transpose2d(func, args, kwargs):
+def _conv_transpose(func, args, kwargs):
+    """``conv_transpose2d`` on NCHW bands and ``conv_transpose3d`` on NCDHW
+    bands: each band the input rows its outputs read (one from each
+    neighbour for ``(4, 2, 1)``), the result cropped to its own rows."""
     x, weight, bias, stride, padding, output_padding, groups, dilation = _bind(
         func, ("input", "weight", "bias", "stride", "padding", "output_padding", "groups", "dilation"),
         (None, None, None, 1, 0, 0, 1, 1), args, kwargs,
     )
-    if not isinstance(x, RowBands) or x.axis != 2 or isinstance(weight, RowBands):
-        raise _no_rule("conv_transpose2d of a value without NCHW row bands as its input")
-    (sh, sw), (ph, pw), (oph, opw), (dh, dw) = _pair(stride), _pair(padding), _pair(output_padding), _pair(dilation)
-    if dh != 1 or oph != 0:
-        raise _no_rule(f"conv_transpose2d with row dilation {dh} or row output_padding {oph}")
-    k = weight.shape[2]
+    nd = 2 if func is torch.conv_transpose2d else 3
+    if not isinstance(x, RowBands) or x.ndim != nd + 2 or x.axis != nd or isinstance(weight, RowBands):
+        raise _no_rule(f"{_name(func)} of a value without {'NCHW' if nd == 2 else 'NCDHW'} row bands as its input")
+    r = nd - 2
+    stride, padding = _spatial(stride, nd), _spatial(padding, nd)
+    output_padding, dilation = _spatial(output_padding, nd), _spatial(dilation, nd)
+    sh, ph = stride[r], padding[r]
+    if dilation[r] != 1 or output_padding[r] != 0:
+        raise _no_rule(f"{_name(func)} with row dilation {dilation[r]} or row output_padding {output_padding[r]}")
+    k = weight.shape[x.axis]
     out_h = (x.height - 1) * sh - 2 * ph + k
     spans = _owned(x.starts, out_h, lambda s: s * sh)
     out = []
@@ -790,9 +839,9 @@ def _conv_transpose2d(func, args, kwargs):
         lo = max(-(-(o0 + ph - (k - 1)) // sh), 0)
         hi = min((o1 - 1 + ph) // sh, x.height - 1)
         b = None if bias is None else bias.to(dev)
-        y = func(x.rows(lo, hi + 1, j), weight.to(dev), b, (sh, sw), (0, pw), (0, opw), groups, (1, dw))
-        out.append(y.narrow(2, o0 - lo * sh + ph, o1 - o0))
-    return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
+        y = func(x.rows(lo, hi + 1, j), weight.to(dev), b, stride, _with_rows(padding, r, 0), output_padding, groups, dilation)
+        out.append(y.narrow(x.axis, o0 - lo * sh + ph, o1 - o0))
+    return RowBands(out, [o0 for o0, _ in spans], out_h, x.axis)
 
 
 def _pixel_shuffle(func, args, kwargs):
@@ -822,13 +871,15 @@ def _interpolate(func, args, kwargs):
     )
     if mode == "nearest" and not antialias and not recompute and x.axis == 2:
         return _nearest(func, x, size, scale_factor)
-    if mode != "bilinear" or align_corners or antialias or size is None or scale_factor is not None or x.axis != 2:
+    if mode != "bilinear" or antialias or size is None or scale_factor is not None or x.axis != 2:
         raise _no_rule(
             f"interpolate(mode={mode!r}, align_corners={align_corners}, antialias={antialias}, "
-            f"size={size}, scale_factor={scale_factor}) (bilinear to a size, align_corners=False, or nearest)"
+            f"size={size}, scale_factor={scale_factor}) (bilinear to a size, or nearest)"
         )
     out_h, out_w = _pair(size)
     h = x.height
+    if align_corners:
+        return _bilinear_rows(func, x, out_h, out_w, align_corners=True)
     kw = dict(mode="bilinear", align_corners=False)
     if h % out_h == 0:
         s = h // out_h
@@ -854,23 +905,31 @@ def _resized_starts(x: RowBands, out_h: int) -> List[Tuple[int, int]]:
     return _owned(x.starts, out_h, lambda s: s * out_h // x.height)
 
 
-def _bilinear_rows(func, x: RowBands, out_h: int, out_w: int) -> RowBands:
-    """Bilinear (``align_corners=False``) to ``out_h`` rows by a ratio that
-    is not an integer: the rows as torch maps them (source ``max(scale *
-    (dst + 0.5) - 0.5, 0)`` with ``scale = height / out_h`` in the op's
-    accumulation type, the lower tap ``floor``, the upper one a row below
-    but at the last row), on the input rows each band's outputs read;
-    then the columns by ``func`` at the rows' own height, in that type, and
-    one rounding to the input's dtype. The same two-tap sums as the op on
-    the whole tensor, rows first."""
+def _bilinear_rows(func, x: RowBands, out_h: int, out_w: int, align_corners: bool = False) -> RowBands:
+    """Bilinear to ``out_h`` rows by a ratio that is not an integer
+    (``align_corners=False``), or by any ratio with ``align_corners=True``
+    (STMFNet's kernel maps, upscaled by 2 and 4: output row ``o`` reads
+    input row ``o * (height - 1) / (out_h - 1)``, the global ratio, never a
+    band's): the rows as torch maps them (source ``max(scale * (dst + 0.5)
+    - 0.5, 0)`` with ``scale = height / out_h``, or ``scale * dst`` with
+    ``scale = (height - 1) / (out_h - 1)``, in the op's accumulation type,
+    the lower tap ``floor``, the upper one a row below but at the last row),
+    on the input rows each band's outputs read; then the columns by
+    ``func`` at the rows' own height, in that type, and one rounding to the
+    input's dtype. The same two-tap sums as the op on the whole tensor, rows
+    first."""
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     h = x.height
-    scale = torch.tensor(h, dtype=acc) / out_h
+    if align_corners:
+        scale = torch.tensor(h - 1, dtype=acc) / (out_h - 1) if out_h > 1 else torch.zeros((), dtype=acc)
+    else:
+        scale = torch.tensor(h, dtype=acc) / out_h
     spans = _resized_starts(x, out_h)
     out = []
     for j, (o0, o1) in enumerate(spans):
-        src = (scale * (torch.arange(o0, o1, dtype=acc) + 0.5) - 0.5).clamp_min(0.0)
-        lo_row = src.to(torch.int64)
+        dst = torch.arange(o0, o1, dtype=acc)
+        src = scale * dst if align_corners else (scale * (dst + 0.5) - 0.5).clamp_min(0.0)
+        lo_row = src.to(torch.int64).clamp_max(h - 1)
         hi_row = torch.where(lo_row < h - 1, lo_row + 1, lo_row)
         lam = (src - lo_row.to(acc)).view(1, 1, -1, 1)
         first, last = int(lo_row[0]), int(hi_row[-1])
@@ -881,7 +940,7 @@ def _bilinear_rows(func, x: RowBands, out_h: int, out_w: int) -> RowBands:
         lam = lam.to(dev)
         y = ((1.0 - lam) * top + lam * bottom).contiguous(memory_format=_memory_format(rows))
         if out_w != x.shape[3]:
-            y = func(y, size=(o1 - o0, out_w), mode="bilinear", align_corners=False)
+            y = func(y, size=(o1 - o0, out_w), mode="bilinear", align_corners=align_corners)
         out.append(y.to(x.dtype))
     return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
 
@@ -1009,11 +1068,14 @@ def _dims(dim, ndim: int) -> Tuple[int, ...]:
 
 def _band_sums(x: RowBands, dims: Tuple[int, ...], keepdim: bool, each: Callable = lambda b: b) -> torch.Tensor:
     """The sum over ``dims`` (the rows among them) of ``each(band)``, each
-    band's partial sum moved to band 0's device and added in band order."""
+    band's partial sum moved to band 0's device and added in band order; in
+    f32 for half-precision bands, as torch accumulates their sums (the
+    caller rounds once)."""
     dev = x.bands[0].device
+    acc = torch.float32 if x.dtype in (torch.float16, torch.bfloat16) else None
     total = None
     for b in x.bands:
-        part = each(b).sum(dims, keepdim=keepdim).to(dev)
+        part = each(b).sum(dims, keepdim=keepdim, dtype=acc).to(dev)
         total = part if total is None else total + part
     return total
 
@@ -1050,17 +1112,19 @@ def _reduce(func, args, kwargs):
         return x.like(out, axis)
     count = math.prod(x.shape[d] for d in dims)
     total = _band_sums(x, dims, keepdim)
+    # half-precision bands' f32 sums, rounded once to their dtype
+    rounded = (lambda t: t.to(x.dtype)) if total.dtype != x.dtype and x.dtype.is_floating_point else (lambda t: t)
     if name == "sum":
-        return total
+        return rounded(total)
     mean = total / count
     if name == "mean":
-        return mean
+        return rounded(mean)
     centre = mean if keepdim else mean.reshape([1 if d in dims else n for d, n in enumerate(x.shape)])
     sq = _band_sums(x, dims, keepdim, lambda b: (b - centre.to(b.device)).square())
     var = sq / max(count - correction, 0)
     if name == "std_mean":
-        return var.sqrt(), mean
-    return (var, mean) if name == "var_mean" else var
+        return rounded(var.sqrt()), rounded(mean)
+    return (rounded(var), rounded(mean)) if name == "var_mean" else rounded(var)
 
 
 def _extreme(func, args, kwargs):
@@ -1157,18 +1221,28 @@ def _sizes(args) -> list:
 
 
 def _reshape(func, args, kwargs):
-    """``reshape`` and ``view`` (AMT's split of the batch) of the dimensions
-    before the rows: band by band; a shape that moves or merges the rows
-    raises, naming the method."""
+    """``reshape`` and ``view`` of the dimensions before the rows (AMT's
+    split of the batch), or of the dimensions after them (FLAVR's and
+    STMFNet's merge of time and channels, ``[B, H, W, T, C] -> [B, H, W,
+    T * C]``): band by band; a shape that moves or merges the rows raises,
+    naming the method."""
     x, shape = args[0], _sizes(args[1:])
     if shape.count(-1) == 1:
         known = math.prod(n for n in shape if n != -1)
         shape[shape.index(-1)] = math.prod(x.shape) // known if known else 0
-    tail = x.ndim - x.axis  # the rows and the dimensions after them stay
-    if kwargs or len(shape) < tail or math.prod(shape) != math.prod(x.shape) or tuple(shape[-tail:]) != tuple(x.shape)[-tail:]:
+    tail = x.ndim - x.axis  # the rows and the dimensions after them
+    head = tuple(x.shape)[: x.axis + 1]  # the rows and the dimensions before them
+    if kwargs or math.prod(shape) != math.prod(x.shape):
+        axis = None
+    elif len(shape) >= tail and tuple(shape[-tail:]) == tuple(x.shape)[-tail:]:
+        axis = len(shape) - tail
+    elif tuple(shape[: x.axis + 1]) == head:
+        axis = x.axis
+    else:
+        axis = None
+    if axis is None:
         what = "Tensor.view" if func is torch.Tensor.view else "Tensor.reshape"
         raise _no_rule(f"{what}{tuple(shape)} of {x!r} (that moves or merges the rows)")
-    axis = len(shape) - tail
     return x.like([func(b, (*shape[:axis], b.shape[x.axis], *shape[axis + 1 :])) for b in x.bands], axis)
 
 
@@ -1318,6 +1392,74 @@ def _sepconv_rule(func, args, kwargs):
     ])
 
 
+def _reflected(r: int, height: int) -> int:
+    """Row ``r`` of a frame of ``height`` rows reflected at its edges (the
+    edge row not repeated), for a reach shorter than the frame."""
+    return -r if r < 0 else 2 * (height - 1) - r if r >= height else r
+
+
+def _upsampler_8tap_rule(func, args, kwargs):
+    """``models.stmfnet._upsampler_8tap`` (which hands a band over) of NCHW
+    bands: each band's column pass reads the 3 rows above it and the 4
+    below it, from its neighbours, reflected only at the global top and
+    bottom (``stmfnet.upsampler_8tap_rows``); its output is twice its rows
+    from twice its first row. The row pass and the columns' reflection are
+    the band's own."""
+    filt, x = _bind(func, ("filt", "im"), (None, None), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis != 2 or isinstance(filt, RowBands):
+        raise _no_rule("models.stmfnet._upsampler_8tap of a value without NCHW row bands")
+    h = x.height
+    if h < 5:
+        raise RuntimeError(f"_upsampler_8tap: a reflect pad of 4 rows of {h}")
+    out = []
+    for j, (b, a) in enumerate(zip(x.bands, x.starts)):
+        dev = b.device
+        idx = [_reflected(r, h) for r in range(a - 3, a + b.shape[2] + 4)]
+        lo, hi = min(idx), max(idx) + 1
+        tall = x.rows(lo, hi, j)
+        if idx != list(range(lo, hi)):
+            tall = tall.index_select(2, torch.tensor(idx, device=dev) - lo).contiguous(memory_format=_memory_format(b))
+        out.append(stmfnet.upsampler_8tap_rows(filt.to(dev), b, tall))
+    return RowBands(out, [2 * a for a in x.starts], 2 * h, 2)
+
+
+def _adacof_rule(func, args, kwargs):
+    """``ops.adacof.adacof_func`` (which hands bands over) of NHWC bands:
+    the replicate-padded input gathered whole onto each band's device (the
+    warp's source rule: AdaCoF's offsets are learned and unbounded, so a tap
+    may read any row), each band of the weight map (the offsets on its
+    edges) making its own output rows from its first row (``row0``)."""
+    ten_in, weight, alpha, beta, dilation, row0, out_rows = _bind(
+        func, ("ten_in", "weight", "alpha", "beta", "dilation", "row0", "out_rows"), (None, None, None, None, 1, 0, None),
+        args, kwargs,
+    )
+    if not all(isinstance(v, RowBands) and v.axis == 1 for v in (ten_in, weight, alpha, beta)) or row0 or out_rows is not None:
+        raise _no_rule("ops.adacof.adacof_func of other than NHWC row bands of the input and its three maps")
+    alpha, beta = _onto(func, weight, alpha), _onto(func, weight, beta)
+    return weight.like([
+        func(ten_in.rows(0, ten_in.height, j), w, alpha.bands[j], beta.bands[j], dilation, row0=a, out_rows=weight.height)
+        for j, (w, a) in enumerate(zip(weight.bands, weight.starts))
+    ])
+
+
+def _correlation_rule(func, args, kwargs):
+    """``ops.correlation.correlation_func`` (which hands bands over) of NHWC
+    bands: each band of the first tensor against the ``+-4`` rows around it
+    of the second (zeros beyond the frame's top and bottom only) and 4 zero
+    columns on each side (``correlation_padded``); the counterpart of the
+    cost volume's rule."""
+    one, two = _bind(func, ("ten_one", "ten_two"), (None, None), args, kwargs)
+    if not (isinstance(one, RowBands) and isinstance(two, RowBands)) or one.axis != 1:
+        raise _no_rule("ops.correlation.correlation_func of other than NHWC row bands of both tensors")
+    two = _onto(func, one, two)
+    r = correlation.R
+    out = []
+    for j, (b, a) in enumerate(zip(one.bands, one.starts)):
+        halo = F.pad(two.rows(a - r, a + b.shape[1] + r, j).float(), (0, 0, r, r))
+        out.append(correlation.correlation_padded(b, halo))
+    return one.like(out)
+
+
 class _BandCorr:
     """``ops.bidir_corr.BidirCorr`` on NCHW row bands (AMT's correlation):
     each target's pyramid is built once per band, on the band's device, from
@@ -1364,7 +1506,7 @@ for _f in (
     torch.Tensor.sigmoid, torch.Tensor.__radd__, torch.Tensor.__rsub__, torch.Tensor.__rmul__,
     torch.Tensor.__rtruediv__, torch.Tensor.float, torch.Tensor.contiguous, torch.Tensor.detach, F.leaky_relu,
     torch.prelu, torch.exp, torch.Tensor.exp, torch.abs, torch.Tensor.abs, torch.square, torch.Tensor.square,
-    torch.sqrt, torch.Tensor.sqrt, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
+    torch.sqrt, torch.Tensor.sqrt, torch.Tensor.eq, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
     F.relu, torch.relu, torch.Tensor.relu, torch.floor, torch.Tensor.floor, torch.tanh, torch.Tensor.tanh,
     torch.ones_like, torch.where,
 ):
@@ -1385,8 +1527,10 @@ _RULES.update({
     torch.Tensor.permute: _permute,
     torch.permute: _permute,
     torch.Tensor.expand_as: _expand_as,
-    torch.conv2d: _conv2d,
-    torch.conv_transpose2d: _conv_transpose2d,
+    torch.conv2d: _conv,
+    torch.conv3d: _conv,
+    torch.conv_transpose2d: _conv_transpose,
+    torch.conv_transpose3d: _conv_transpose,
     torch.pixel_shuffle: _pixel_shuffle,
     torch.pixel_unshuffle: _pixel_unshuffle,
     F.interpolate: _interpolate,
@@ -1411,4 +1555,7 @@ _RULES.update({
     cain._reflect_pad1: _reflect_pad1_rule,
     sepconv_func: _sepconv_rule,
     BidirCorr: _bidir_corr_rule,
+    stmfnet._upsampler_8tap: _upsampler_8tap_rule,
+    adacof_func: _adacof_rule,
+    correlation.correlation_func: _correlation_rule,
 })

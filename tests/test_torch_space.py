@@ -44,15 +44,28 @@ against the port's own one-device runs, on logical replicas of the CPU.
   ``BidirCorr`` on the whole maps; and CAIN's and Sepconv's:
   ``pixel_unshuffle(8)`` after a pad that starts a band off a multiple of
   8, a reflect pad of 60 and 61 rows, ``cain._reflect_pad1``, ``std_mean``
-  of stacked frames, ``ones_like`` and ``where``, ``sepconv_func``) on 2
-  and 3 bands against the same op on the whole tensor (the reductions over
-  the rows give a plain tensor); the
+  of stacked frames, ``ones_like`` and ``where``, ``sepconv_func``; and
+  FLAVR's and STMFNet's: ``conv3d`` at the stem's ``(3, 7, 7)`` stride
+  ``(1, 2, 2)``, the 3x3x3 blocks and the strided block with its 1x1x1
+  downsample, on clips whose rows are dimension 3, ``conv_transpose3d``
+  ``(3, 4, 4)/(1, 2, 2)/1``, grouped convolutions and transposed
+  convolutions at STMFNet's kernel sizes and its ``(2, 2, 0)`` skip, a
+  clip's mean, ``reshape`` of the dimensions after the rows, bilinear
+  resizes with ``align_corners=True`` up by 2, by 4 from a band off a
+  multiple, and down, ``stmfnet._upsampler_8tap``, ``correlation_func``
+  and ``adacof_func`` with offsets of up to 40 rows) on 2 and 3 bands
+  against the same op on the whole tensor (the reductions over the rows
+  give a plain tensor); ``adacof_func``'s bands from their ``row0`` bit
+  for bit the whole result's rows; bf16 means, sums and ``var_mean`` over
+  the rows bit for bit the whole tensor's (f32 partials, one rounding); the
   ops without a rule raise, naming themselves and the ``ROADMAP.md`` item
-  (``softmax`` over the rows, ``batch_norm`` with ``training=True`` and a
-  ``__setitem__`` that cuts the rows among them); ``band_rows``' splits.
+  (``softmax`` over the rows, ``batch_norm`` with ``training=True``, a
+  ``__setitem__`` that cuts the rows and a ``reshape`` that merges them
+  among them); ``band_rows``' splits.
   M2M's pair functions on the axis: ``tests/test_torch_space_m2m.py``;
   IFRNet, AMT and IFUnet: ``tests/test_torch_space_{ifrnet,amt,ifunet}.py``;
-  XVFI X4K, CAIN and Sepconv: ``tests/test_torch_space_{x4k,cain,sepconv}.py``.
+  XVFI X4K, CAIN and Sepconv: ``tests/test_torch_space_{x4k,cain,sepconv}.py``;
+  FLAVR and STMFNet: ``tests/test_torch_space_{flavr,stmfnet}.py``.
 * the re-banding rule, each case equal to the whole tensor bit for bit
   (``torch.equal``): 2 and 3 bands re-banded to other edges (the rows
   moved counted); two values in other bands meeting in an elementwise op,
@@ -97,9 +110,12 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan, run_plan_window4
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
-from comfyui_frame_interpolation_tpu_torch.models import cain, common, ifunet, m2m, rife
+from comfyui_frame_interpolation_tpu_torch.models import cain, common, ifunet, m2m, rife, stmfnet
 from comfyui_frame_interpolation_tpu_torch.models.common import cast_params
+from comfyui_frame_interpolation_tpu_torch.ops import adacof
+from comfyui_frame_interpolation_tpu_torch.ops.adacof import adacof_func
 from comfyui_frame_interpolation_tpu_torch.ops.bidir_corr import BidirCorr
+from comfyui_frame_interpolation_tpu_torch.ops.correlation import correlation_func
 from comfyui_frame_interpolation_tpu_torch.ops.costvol import costvol_func
 from comfyui_frame_interpolation_tpu_torch.ops.sepconv import sepconv_func
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_func
@@ -338,6 +354,28 @@ RULES = {
     "std_mean of the stacked frames": lambda x: torch.cat(torch.std_mean(torch.stack([x, x.square()], 1), dim=(1, 2, 3, 4), correction=1)),
     "ones_like and where": lambda x: torch.where(x.abs() < 0.3, torch.ones_like(x), x),
     "sepconv_func": lambda x: _sepconv(x),
+    # FLAVR's and STMFNet's (the window-4 models: clips with the rows on
+    # dimension 3, resizes with align_corners=True, three hand-overs)
+    "conv3d stem": lambda x: F.conv3d(_clip(x), _weight3(6, 4, (3, 7, 7), 21), None, (1, 2, 2), (1, 3, 3)),
+    "conv3d block": lambda x: F.conv3d(_clip(x), _weight3(5, 4, (3, 3, 3), 22), torch.ones(5), 1, 1),
+    "conv3d strided block and downsample": lambda x: F.conv3d(_clip(x), _weight3(5, 4, (3, 3, 3), 23), None, (1, 2, 2), 1)
+    + F.conv3d(_clip(x), _weight3(5, 4, (1, 1, 1), 24), None, (1, 2, 2), 0),
+    "grouped conv2d and conv_transpose2d": lambda x: F.conv_transpose2d(
+        F.conv2d(x, _weight(4, 2, 7, 34), None, 2, 3, 1, 2), _weight(4, 2, 6, 35), None, 2, 2, 0, 2
+    ) + F.conv_transpose2d(F.conv2d(x, _weight(4, 2, 3, 36), None, 2, 1, 1, 2), _weight(4, 2, 8, 37), None, 2, 3, 0, 2),
+    "conv_transpose2d skip (2, 2, 0)": lambda x: F.conv_transpose2d(x, _weight(4, 3, 2, 38), None, 2, 0),
+    "conv_transpose3d": lambda x: F.conv_transpose3d(_clip(x), _weight3(4, 3, (3, 4, 4), 25), torch.ones(3), (1, 2, 2), 1),
+    "mean of a clip": lambda x: _clip(x) - _clip(x).mean((2, 3, 4), keepdim=True),
+    "reshape after the rows": lambda x: _clip(x).permute(0, 3, 4, 2, 1).reshape(2, x.shape[2], x.shape[3], 12)
+    .permute(0, 3, 1, 2) + x.reshape(2, 4, x.shape[2], 2, 10).sum(3).repeat(1, 3, 1, 2),
+    "bilinear align_corners x2": lambda x: F.interpolate(x, size=(2 * x.shape[2], 30), mode="bilinear", align_corners=True),
+    "bilinear align_corners x4 off a multiple": lambda x: F.interpolate(
+        F.pad(x, (0, 0, 3, 0)), size=(4 * x.shape[2] + 12, 80), mode="bilinear", align_corners=True
+    ),
+    "bilinear align_corners down": lambda x: F.interpolate(x, size=(61, 20), mode="bilinear", align_corners=True),
+    "upsampler_8tap": lambda x: stmfnet._upsampler_8tap(UPSAMPLER, x),
+    "correlation_func": lambda x: correlation_func(x.permute(0, 2, 3, 1), (2.0 * x).square().permute(0, 2, 3, 1)),
+    "adacof_func": lambda x: _adacof(x),
 }
 # a value without rows: the reductions over the rows give a plain tensor
 PLAIN_RESULT = {
@@ -381,6 +419,30 @@ def _corr_lookup(x):
     return torch.cat([c0, c1], 1)
 
 
+def _weight3(o, i, k, seed):
+    return torch.from_numpy(np.random.default_rng(seed).random((o, i, *k), np.float32) - 0.5)
+
+
+def _clip(x):
+    """An NCDHW clip of three frames made from ``x`` (``torch.stack`` along
+    a new dimension 2 puts the rows on dimension 3)."""
+    return torch.stack([x, x.square(), -x], 2)
+
+
+# STMFNet's 8-tap filter, one per channel
+UPSAMPLER = torch.from_numpy(np.random.default_rng(26).uniform(-0.5, 0.5, (4, 1, 1, 8)).astype(np.float32))
+
+
+def _adacof(x):
+    """``adacof_func`` of a replicate-padded 3-channel input by softmaxed
+    weights and offsets of up to +-40 rows from the value's own channels."""
+    padded = F.pad(x[:, :3], (2, 2, 2, 2), mode="replicate").permute(0, 2, 3, 1)
+    weight = torch.softmax(F.conv2d(x, _weight(25, 4, 1, 27)), 1).permute(0, 2, 3, 1)
+    alpha = (40.0 * F.conv2d(x, _weight(25, 4, 1, 28))).permute(0, 2, 3, 1)
+    beta = (4.0 * F.conv2d(x, _weight(25, 4, 1, 29))).permute(0, 2, 3, 1)
+    return adacof_func(padded, weight, alpha, beta)
+
+
 def _sepconv(x):
     """``sepconv_func`` of a replicate-padded 2-channel input by 51-tap
     filters from the value's own channels."""
@@ -404,6 +466,46 @@ def test_rule_against_the_whole_tensor(rule, n):
         return
     assert isinstance(out, space.RowBands) and tuple(out.shape) == tuple(ref.shape)
     torch.testing.assert_close(out.gather(CPU), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_half_precision_reductions_over_the_rows_round_once(n):
+    """bf16 bands sum their partials in f32 and round once, as torch sums a
+    bf16 tensor: FLAVR's clip mean and SEGating means, a ``sum`` and a
+    ``var_mean`` over the rows equal the whole tensor's, bit for bit."""
+    x = (torch.from_numpy(np.random.default_rng(40).random((2, 4, 3, 200, 20), np.float32)) * 2 - 1).bfloat16()
+    v = space.split_rows(x, _replicas(n), dim=3)
+    for f in (
+        lambda t: t.mean((2, 3, 4), keepdim=True),
+        lambda t: t.sum((0, 3)),
+        lambda t: torch.cat(torch.var_mean(t, dim=(3, 4), correction=0, keepdim=True), 1),
+    ):
+        ref, out = f(x), f(v)
+        assert isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("band_elements", [None, 3000])
+def test_adacof_bands_from_row0_equal_the_whole_bit_for_bit(band_elements, monkeypatch):
+    """``adacof_func`` with ``row0=0`` and ``out_rows`` the whole height is
+    the default call, and bands of output rows from their ``row0`` (each
+    built in internal chunks of rows with ``BAND_ELEMENTS`` small) are the
+    whole result's rows, bit for bit; a band past the output raises."""
+    if band_elements is not None:
+        monkeypatch.setattr(adacof, "BAND_ELEMENTS", band_elements)
+    x = _nchw(4, 70, 20, 30)
+    padded = F.pad(x[:, :3], (2, 2, 2, 2), mode="replicate").permute(0, 2, 3, 1)
+    maps = [
+        torch.softmax(F.conv2d(x, _weight(25, 4, 1, 31)), 1).permute(0, 2, 3, 1),
+        (40.0 * F.conv2d(x, _weight(25, 4, 1, 32))).permute(0, 2, 3, 1),
+        (4.0 * F.conv2d(x, _weight(25, 4, 1, 33))).permute(0, 2, 3, 1),
+    ]
+    whole = adacof_func(padded, *maps)
+    assert torch.equal(adacof_func(padded, *maps, 1, row0=0, out_rows=70), whole)
+    for row0, rows in ((0, 7), (7, 50), (57, 13), (69, 1)):
+        band = adacof_func(padded, *(m[:, row0 : row0 + rows] for m in maps), 1, row0=row0, out_rows=70)
+        assert torch.equal(band, whole[:, row0 : row0 + rows])
+    with pytest.raises(ValueError, match="does not fit"):
+        adacof_func(padded, *(m[:, :10] for m in maps), 1, row0=65, out_rows=70)
 
 
 # ---- the re-banding rule ------------------------------------------------------------------
@@ -512,6 +614,7 @@ def _cut_rows(x):
 NO_RULE = {
     "softmax over the rows": lambda x: x.softmax(2),
     "Tensor.view": lambda x: x.view(-1),
+    "Tensor.reshape": lambda x: x.permute(0, 2, 3, 1).reshape(2, -1, 4),  # merges the rows with the columns
     "interpolate": lambda x: F.interpolate(x, scale_factor=2, mode="bicubic"),
     "batch_norm with training=True": lambda x: F.batch_norm(x, torch.zeros(4), torch.ones(4), training=True),
     "avg_pool2d": lambda x: F.avg_pool2d(x, 3, 1),
