@@ -366,7 +366,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
 50. timing    -- RIFE 4.7 training at b16 x 224x224 (the ECCV2022-RIFE
    recipe's crops and batch; padded to 256x256), Adam 1e-4, f32 (TF32 at
    torch's defaults) and bf16 (parameters in bf16): steps/s and samples/s
-   as the median of 3 windows of 10 steps after 3, the two dtypes in turns,
+   as the median of 2 windows of 10 steps after 3, the two dtypes in turns,
    with the windows' spread and whether it resolves the two dtypes apart;
    the peak memory of one step, a ``torch.profiler`` top 10 of one f32 step
    with the idle share and the backward kernel's device ms and share; at
@@ -421,7 +421,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    1, and no CUDA warp or splat that needs a gradient reaching a twin;
 54. m2m train timing -- M2M training at b8 x 256x256 (crops of Vimeo-90K's
    448x256 triplets), f32 (TF32 at torch's defaults) and bf16, as phase 50
-   but in 3 windows of 5 steps each:
+   but in 2 windows of 5 steps each:
    steps/s and samples/s, the windows' spread, the peak memory of one step,
    a profile of one f32 step with the splat backward's device ms and
    share; at ``[64, 256, 256, 4]`` f32 and bf16 (the step's splat) and
@@ -447,7 +447,7 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    splat's backward at C = 3-514, the warp's at the wide and zeros-mode
    shapes); the same step at b1 x 64x64 (STMFNet 128x128) on the card
    against the CPU with phase 49's rule; then the step at TF32 defaults:
-   steps/s as the median of 3 windows of 2 steps with their spread, the
+   steps/s as the median of 2 windows of 2 steps with their spread, the
    peak memory, and one profiled step's idle share and each backward
    kernel's device ms and share of the step's device time;
 64-70. film, ifunet, atm, cain, flavr, sepconv, momo train -- as 55-61 (run
@@ -518,8 +518,10 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    atomics), bf16 >= 40 dB against the f32 one-device frames, the
    launches read (K1 8, wide 32, K2 2 a pair batch: twice one device's 4,
    16, 1); frames/s of both in turns (one round), peak memory and a
-   profile of one pair batch (idle share) of each; a GMFSS pair split still raises
-   ``NotImplementedError`` naming ``ROADMAP.md``'s item;
+   profile of one pair batch (idle share) of each; ATM base's and MoMo
+   base's splits through ``make_sharded_model_fn`` still raise
+   ``NotImplementedError`` at their first op without a rule, naming
+   ``ROADMAP.md``'s item;
 76. K2 band -- K2 with a band of sources (``row0``, ``out_rows``): M2M's
    ``[16, 1088, 1920, 4]`` f32 and bf16 splat in the two bands of the
    ``(1, 2)`` mesh, each a whole-frame f32 partial, against the twin's band;
@@ -582,11 +584,36 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    the mesh (``stmfnet.warps_per_forward``, ``splats_per_forward``), each
    band's launch against its plain version; AdaCoF, the correlation and the
    8-tap upsampler handed over to their rules; bf16 held within 0.5 dB of
-   one device's bf16.
+   one device's bf16;
+87. GMFSS split -- GMFSS Fortuna base and union 1080p x2 b1 (3 frames, two
+   pair batches) through ``make_sharded_pair_fns`` +
+   ``run_plan_pair_cached`` on the ``(1, 2)`` mesh of replicas (bands 576 +
+   504, the zero pad to 1088 in the second) against one device, as phase
+   77: GMFlow's transformer, correlation softmaxes, flow attention and
+   convex upsampling handed over to their rules (each band's queries
+   against keys gathered whole, halo rows for the local ops); K1, the wide
+   kernel and K2 exactly twice one device's (``gmfss.warps_per_reuse``,
+   ``warps_per_infer``, ``splats_per_infer``), each band's launch of one
+   bf16 split batch against its plain version (the warps bit for bit, K2's
+   partials at C = 4, 65, 129 and 193 within phase 15's tolerances); f32
+   within twice one device's own gap when every input value moves one f32
+   ulp (its global correlation softmax amplifies f32 rounding to ~1e-2,
+   the split's gap and the nudge's alike), or 1e-4 where that is smaller,
+   its f32 runs with cuDNN timing its algorithms (with TF32 off its
+   heuristics' choice takes ~6 s a one-device run of two pairs, a timed one
+   ~0.6 s); bf16 at 40 dB or more against the f32 one-device frames, or,
+   where one device's bf16 is below 40 dB, within 0.5 dB of it;
+88. EISAI split -- EISAI 540p x2 b1 (3 frames) the same way (bands 320 +
+   220: the resize to 536 rows and the strided encoder leave band edges off
+   the stride, the re-bands of one split batch counted; RAFT's all-pairs
+   correlation, its convex upsampling and the distance transform handed
+   over), K1 2 and K2 8 an infer on one device and exactly twice on the
+   mesh, K2's f32 partials at C = 6, 66, 258 and 514 against the plain
+   version.
 
 Each phase starts with a ``clock:`` line, the seconds since the run began.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-86 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-88 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -624,8 +651,11 @@ each kernel's band shapes among them), and phases 79-81's as
 ``ifrnet_space_2way``, ``amt_space_2way`` and ``ifunet_space_2way`` (the
 wide kernel's entries of those names hold the rows), phases 82-84's as
 ``xvfi_x4k_space_2way``, ``cain_space_2way`` and ``sepconv_space_2way``,
-and phases 85-86's as ``flavr_space_2way`` and ``stmfnet_space_2way`` (the
-wide kernel's entries hold the rows, K2's STMFNet's too). CAIN, Sepconv,
+phases 85-86's as ``flavr_space_2way`` and ``stmfnet_space_2way`` (the
+wide kernel's entries hold the rows, K2's STMFNet's too), and phases
+87-88's as ``gmfss_space_2way``, ``gmfss_union_space_2way`` and
+``eisai_space_2way`` (K2's entries of those names hold the rows, with K2's
+band shapes at the wide widths; the wide kernel's GMFSS's). CAIN, Sepconv,
 FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
@@ -785,8 +815,8 @@ FAMILY_PHASES = dict(zip(FAMILIES, (*range(55, 62), *range(64, 71))))
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_HW = 8, (256, 256)
 # the training timings' windows (phases 50, 54, 55-61 and 64-70): 7 until
 # the run passed 850 s of its 1200 with phases 79-81, then 5 until phases
-# 82-84 were added
-TIMING_WINDOWS = 3
+# 82-84 were added, then 3 until phases 87-88 were
+TIMING_WINDOWS = 2
 FAMILY_CHECK_HW = {"stmfnet": (128, 128), "cain": (128, 128)}  # the others at 64x64
 FAMILY_EISAI_ITERS = 12  # the node's default
 FAMILY_MOMO_STEPS = 8  # the node's default
@@ -5507,16 +5537,22 @@ def main() -> int:
     m2m_bf16_one_db = psnr(m2m_space_out["bfloat16"][0], m2m_space_out["float32"][0])
     check(m2m_bf16_db >= 40.0, f"M2M bf16 on the (1, 2) mesh: {m2m_bf16_db:.2f} dB against the f32 one-device frames, below 40")
     del m2m_space_out, mclip75
-    # a pair-cached family without the rules it needs still raises
-    reuse_s, _ = parallel.make_sharded_pair_fns(lambda d: gmfss.make_pair_fns(gmfss.init_params(0), device=d), mesh_s)
+    # a family without the rules it needs still raises at its first such op
+    raised75 = {}
     tall = torch.zeros((2, 128, 128, 3), device=dev)
-    try:
-        reuse_s(tall, tall)
-        check(False, "make_sharded_pair_fns (GMFSS) on a (1, 2) mesh at 128 rows did not raise")
-    except NotImplementedError as e:
-        check("has no row-band rule" in str(e) and "ROADMAP.md Queue 1 item" in str(e), f"make_sharded_pair_fns (GMFSS) on a (1, 2) mesh raised {e}")
-        gmfss_raised = str(e)
-    del reuse_s, tall
+    for family, make75 in {
+        "ATM base": lambda d: atm.make_model_fn(atm.init_params("base", 0), device=d),
+        "MoMo base": lambda d: momo.make_model_fn(momo.init_params(0), num_inference_steps=1, device=d),
+    }.items():
+        try:
+            parallel.make_sharded_model_fn(make75, mesh_s)(tall, tall, torch.full((2,), 0.5, device=dev))
+            check(False, f"make_sharded_model_fn ({family}) on a (1, 2) mesh at 128 rows did not raise")
+        except NotImplementedError as e:
+            check("has no row-band rule" in str(e) and "ROADMAP.md Queue 1 item 3" in str(e),
+                  f"make_sharded_model_fn ({family}) on a (1, 2) mesh raised {e}")
+            raised75[family] = str(e).split(" has no row-band rule")[0]
+    del tall
+    torch.cuda.empty_cache()
     print(
         f"space {card}: M2M 1080p x2 b2 (3 frames, 2 mids) through make_sharded_pair_fns + run_plan_pair_cached on a (1, 2) mesh "
         f"of replicas of the card, bands {band_rows(1080, 2)} (padded {band_rows(1088, 2)}): f32 (TF32 off, cuDNN deterministic) "
@@ -5529,7 +5565,7 @@ def main() -> int:
             f"run_plan_pair_cached peak {r['peak_run_plan_pair_cached_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, "
             f"{r['kernels']} kernels"
             for name, rows_ in m2m_space_rows.items() for key, r in rows_.items()
-        ) + f"; GMFSS's split raises: {gmfss_raised}; phase {time.perf_counter() - t0:.1f} s",
+        ) + f"; the splits that still raise, at: {raised75}; phase {time.perf_counter() - t0:.1f} s",
         flush=True,
     )
 
@@ -5614,7 +5650,7 @@ def main() -> int:
     # its band against the plain version; frames/s in turns (one round in
     # bf16), peak memory and a profile of each
     def space_split_phase(label, executor, shard, make, clip, plan, want_one, call, bf16_within_db=None, cudnn_benchmark=False,
-                          batch=2, window4=False):
+                          batch=2, window4=False, calls=1, bf16_floor_db=None, f32_nudge=False):
         """``make(dtype)`` -> one device's callable(s) for ``executor`` (a
         tuple for the pair-cached one), ``shard`` the matching
         ``parallel.make_sharded_*``, ``call(fns)`` one batch's forward of
@@ -5623,7 +5659,15 @@ def main() -> int:
         pairs a call; ``clip`` 3 frames of 1080 rows (AMT's padded to 1088;
         Sepconv's 720p; 4-5 for the window-4 models). bf16 on the mesh is held at 40 dB or more
         against the f32 one-device frames, or with ``bf16_within_db`` within
-        that many dB of one device's bf16. The re-bands of one bf16 split
+        that many dB of one device's bf16; with ``bf16_floor_db`` too, at
+        that floor where one device's bf16 reaches it and within
+        ``bf16_within_db`` of it where it does not. ``calls`` is the number
+        of batch calls the executor makes (a timed or captured call is one).
+        With ``f32_nudge`` one device also runs in f32 on the clip with every
+        value one f32 ulp up (``torch.nextafter``), and the split's f32 gap
+        is held within twice that run's gap from one device where that is
+        above 1e-4: GMFSS's global softmaxes at 1080p move one device's own
+        frames by ~1e-2 for such a nudge. The re-bands of one bf16 split
         call are counted (``parallel.space.rebands`` and ``rows_moved``).
         ``cudnn_benchmark`` lets cuDNN time its algorithms for the f32 runs
         held to each other (CAIN's f32 convolutions at 1080p with TF32 off take
@@ -5656,6 +5700,13 @@ def main() -> int:
                     settings = {"split_repeat_max_abs_diff": (two_again - two_out).abs().max().item(),
                                 "one_device_repeat_max_abs_diff": (one_again - one_out).abs().max().item()}
                     del two_again, one_again
+                    if f32_nudge:
+                        ts = time.perf_counter()
+                        nudged, _, _ = executor_run(executor, torch.nextafter(clip, torch.full_like(clip, 2.0)), plan,
+                                                    *as_args(one), batch_size=batch)
+                        secs["f32 one device, inputs one ulp up"] = time.perf_counter() - ts
+                        settings["one_device_one_ulp_input_max_abs_diff"] = (nudged - one_out).abs().max().item()
+                        del nudged
             finally:
                 torch.backends.cudnn.benchmark = bench
                 torch.backends.cudnn.deterministic = det
@@ -5687,7 +5738,8 @@ def main() -> int:
             secs["bf16 split call captured"] = time.perf_counter() - ts
             rebands = {"rebands": parallel.space.rebands, "rows_moved": parallel.space.rows_moved}
             bands, band_err = band_launches_vs_plain(store, f"{label} bf16 on the (1, 2) mesh")
-            check(len(store) == sum(two_n.values()), f"{label}: {len(store)} launches captured, the run made {two_n}")
+            check(len(store) * calls == sum(two_n.values()),
+                  f"{label}: {len(store)} launches captured in one of the run's {calls} calls, the run made {two_n}")
             del store
             torch.cuda.empty_cache()
             calls = {"one device": one, "(1, 2) mesh": two}
@@ -5712,11 +5764,14 @@ def main() -> int:
             del one, two, calls, frames_in, inputs
             torch.cuda.empty_cache()
         f32_err = (outs["float32"][1] - outs["float32"][0]).abs().max().item()
-        check(f32_err <= 1e-4, f"{label} f32 on the (1, 2) mesh: max abs {f32_err} from one device, above 1e-4")
+        f32_tol = max(1e-4, 2 * settings.get("one_device_one_ulp_input_max_abs_diff", 0.0))
+        check(f32_err <= f32_tol, f"{label} f32 on the (1, 2) mesh: max abs {f32_err} from one device, above {f32_tol:.3g}"
+              + (f" (twice one device's own gap for inputs one ulp up)" if f32_tol > 1e-4 else ""))
         bf16_db = psnr(outs["bfloat16"][1], outs["float32"][0])
         bf16_one_db = psnr(outs["bfloat16"][0], outs["float32"][0])
-        if bf16_within_db is None:
-            check(bf16_db >= 40.0, f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below 40")
+        if bf16_within_db is None or (bf16_floor_db is not None and bf16_one_db >= bf16_floor_db):
+            floor = 40.0 if bf16_floor_db is None else bf16_floor_db
+            check(bf16_db >= floor, f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, below {floor}")
         else:
             check(bf16_db >= bf16_one_db - bf16_within_db,
                   f"{label} bf16 on the (1, 2) mesh: {bf16_db:.2f} dB against the f32 one-device frames, more than "
@@ -5734,7 +5789,10 @@ def main() -> int:
             f"replicas of the card, "
             f"bands {band_rows(row['rows'], 2)}: f32 (TF32 off, cuDNN deterministic) max abs {row['f32_max_abs_err']:.3g} from one "
             f"device, the (1, 2) run against itself {row['f32_settings']['split_repeat_max_abs_diff']:.3g}, one device against "
-            f"itself {row['f32_settings']['one_device_repeat_max_abs_diff']:.3g}; bf16 {row['bf16_psnr_db']:.2f} dB against the "
+            f"itself {row['f32_settings']['one_device_repeat_max_abs_diff']:.3g}"
+            + (f", one device for inputs one ulp up {row['f32_settings']['one_device_one_ulp_input_max_abs_diff']:.3g}"
+               if "one_device_one_ulp_input_max_abs_diff" in row["f32_settings"] else "")
+            + f"; bf16 {row['bf16_psnr_db']:.2f} dB against the "
             f"f32 one-device frames (one device bf16 {row['bf16_one_device_psnr_db']:.2f} dB); launches {row['launches']} for the "
             f"two split runs; each band's launch of one bf16 split call against its plain version (max err "
             f"{row['band_max_abs_err']:.3g}): " + "; ".join(f"{k} {v}" for k, v in row["bands"].items())
@@ -5899,6 +5957,56 @@ def main() -> int:
     space_split_line(86, "STMFNet", stmf_space, t0)
     slice24 = {"flavr_space_2way": flavr_space, "stmfnet_space_2way": stmf_space}
 
+    # ---- 87-88. GMFSS Fortuna (base and union) and EISAI (pair-cached) through the split ---------
+    clock("87-88")
+    # each as phase 77 through make_sharded_pair_fns + run_plan_pair_cached
+    # at b1 (the bench's batch: two pair batches, each a reuse and an infer
+    # call): GMFSS at 1080p (bands 576 + 504, the zero pad to 1088 in the
+    # second; GMFlow's global ops against keys gathered whole, K2's band
+    # partials at C = 4-193), EISAI at 540p (bands 320 + 220; K2's at C =
+    # 6-514 in f32); bf16 at 40 dB or more against the f32 one-device frames,
+    # or within 0.5 dB of one device's bf16 where that is below 40. GMFSS's
+    # f32 split is held within twice one device's own gap for its inputs one
+    # ulp up (f32_nudge): its global correlation softmax at 1080p amplifies
+    # f32 rounding to ~1e-2, the split's and the nudge's alike; the split
+    # computes one device's
+    # function (tests/test_torch_space_gmfss.py: f64 within 1e-6). cuDNN
+    # times its algorithms for GMFSS's f32 runs: with TF32 off its
+    # heuristics' choice takes ~6 s a one-device run of two pairs, a timed
+    # one ~0.6 s after ~25 s of timing that base and union share
+    slice25 = {}
+    for union in (False, True):
+        t0 = time.perf_counter()
+        params87 = gmfss.init_params(0, union=union)
+
+        def gmfss_want(dtype, union=union):
+            per = {k: gmfss.warps_per_reuse(dtype)[k] + gmfss.warps_per_infer(union, dtype)[k] for k in ("narrow", "wide")}
+            return {k: 2 * v for k, v in {**per, "splat": gmfss.splats_per_infer()}.items()}
+
+        name87 = "GMFSS union" if union else "GMFSS base"
+        slice25["gmfss_union_space_2way" if union else "gmfss_space_2way"] = row87 = space_split_phase(
+            name87, run_plan_pair_cached, parallel.make_sharded_pair_fns,
+            lambda dtype: gmfss.make_pair_fns(params87, union=union, dtype=dtype, device=dev),
+            torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=87)).to(dev), plan_timestep(3, 2), gmfss_want,
+            lambda fns: (lambda a, b, t: fns[1](a, b, fns[0](a, b), t)), batch=1, calls=2, bf16_within_db=0.5,
+            bf16_floor_db=40.0, f32_nudge=True, cudnn_benchmark=True,
+        )
+        del params87
+        space_split_line(87, f"{name87} (pair-cached: reuse + infer)", row87, t0)
+
+    t0 = time.perf_counter()
+    eisai_params88 = eisai.init_params(0)
+    slice25["eisai_space_2way"] = eisai_space = space_split_phase(
+        "EISAI", run_plan_pair_cached, parallel.make_sharded_pair_fns,
+        lambda dtype: eisai.make_pair_fns(eisai_params88, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 540, 960, seed=88)).to(dev), plan_timestep(3, 2),
+        lambda dtype: {**{k: 2 * v for k, v in eisai.warps_per_infer().items()}, "splat": 2 * eisai.splats_per_infer()},
+        lambda fns: (lambda a, b, t: fns[1](a, b, fns[0](a, b), t)), batch=1, calls=2, bf16_within_db=0.5,
+        bf16_floor_db=40.0,
+    )
+    del eisai_params88
+    space_split_line(88, "EISAI (pair-cached: reuse + infer)", eisai_space, t0)
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -5930,7 +6038,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-86 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-88 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -5946,7 +6054,7 @@ def main() -> int:
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
             + space_train_launches["narrow"] + m2m_space_launches["narrow"] + xvfi_space["launches"]["narrow"]
-            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values(), *slice24.values())),
+            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values())),
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -5961,7 +6069,7 @@ def main() -> int:
                 **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
                 "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
                 "xvfi_space_2way": xvfi_space["launches"]["narrow"], "film_space_2way": film_space["launches"]["narrow"],
-                **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items())},
+                **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items())},
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -5993,7 +6101,7 @@ def main() -> int:
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
             + sum(family_launches["wide"].values()) + m2m_space_launches["wide"] + xvfi_space["launches"]["wide"]
-            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values(), *slice24.values())),
+            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values())),
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -6004,7 +6112,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
                 **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
                 "xvfi_space_2way": xvfi_space["launches"]["wide"], "film_space_2way": film_space["launches"]["wide"],
-                **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items())},
+                **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items())},
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -6034,6 +6142,8 @@ def main() -> int:
             **slice22,
             **slice23,
             **slice24,
+            "gmfss_space_2way": slice25["gmfss_space_2way"],
+            "gmfss_union_space_2way": slice25["gmfss_union_space_2way"],
         },
         {
             "name": "softsplat",
@@ -6044,7 +6154,7 @@ def main() -> int:
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
             + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"]
-            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in (*slice23.values(), *slice24.values())),
+            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in (*slice23.values(), *slice24.values(), *slice25.values())),
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -6054,7 +6164,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
                 **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
                 "xvfi_space_2way": xvfi_space["launches"]["splat"], "film_space_2way": film_space["launches"]["splat"],
-                **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items())},
+                **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items())},
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -6071,6 +6181,7 @@ def main() -> int:
             "xvfi_shapes": xsplat_times,
             "xvfi_space_2way": xvfi_space,
             "stmfnet_space_2way": stmf_space,
+            **slice25,
             "per_forward": per_forward["softsplat"],
             "row_band": {"shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, rows {splat_spans[1][0]}-{sum(splat_spans[1])} into the whole "
                                   f"frame's f32 partial", "max_abs_err": sband_err, "ms": sband_ms["K2 band"],

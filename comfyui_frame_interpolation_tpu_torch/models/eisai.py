@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..ops.cuda.warp_kernel import route_counts
 from ..ops.edt import batch_edt
@@ -343,11 +344,16 @@ class _RFR(nn.Module):
 def _corr_pyramid(f1: torch.Tensor, f2: torch.Tensor) -> List[torch.Tensor]:
     """``CorrBlock.__init__`` (eisai_arch.py:179-195): all-pairs correlation
     of NCHW features as one batched f32 product, and its average-pooled
-    pyramid over the target axes; each level ``[B*H*W, h2, w2]``."""
+    pyramid over the target axes; each level ``[B*H*W, h2, w2]``. ``f1``,
+    the queries, may hold some rows of the frame that ``f2`` holds whole (a
+    row band's). Row bands of both (``parallel.space``) go to their own
+    rule."""
+    if has_torch_function((f1, f2)):
+        return handle_torch_function(_corr_pyramid, (f1, f2), f1, f2)
     b, c, h, w = f1.shape
     a = f1.float().flatten(2).transpose(1, 2)  # [B, HW, C]
-    corr = torch.bmm(a, f2.float().flatten(2)) / math.sqrt(c)  # [B, HW, HW]
-    corr = corr.reshape(b * h * w, 1, h, w)
+    corr = torch.bmm(a, f2.float().flatten(2)) / math.sqrt(c)  # [B, HW, H2 W2]
+    corr = corr.reshape(b * h * w, 1, f2.shape[2], f2.shape[3])
     pyr = [corr[:, 0]]
     for _ in range(_CORR_LEVELS - 1):
         corr = avg_pool2d(corr, 2)
@@ -368,7 +374,10 @@ def _corr_lookup(pyr: Sequence[torch.Tensor], coords: torch.Tensor) -> torch.Ten
     The window is separable, so each level is two batched products with tent
     weights (JAX eisai.py:261-296): tap ``(i, j)`` samples at ``x + d[i]``,
     ``y + d[j]``. ``coords`` is NCHW (x, y) at 1/8 resolution; returns NCHW
-    ``[B, levels * (2r+1)^2, H, W]``."""
+    ``[B, levels * (2r+1)^2, H, W]``. A pyramid of row bands
+    (``parallel.space``) goes to its own rule."""
+    if has_torch_function((pyr, coords)):
+        return handle_torch_function(_corr_lookup, (pyr, coords), pyr, coords)
     b, _, h, w = coords.shape
     r = _CORR_RADIUS
     d = torch.arange(-r, r + 1, dtype=torch.float32, device=coords.device)
@@ -386,10 +395,19 @@ def _corr_lookup(pyr: Sequence[torch.Tensor], coords: torch.Tensor) -> torch.Ten
 def _convex_upsample_flow(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``RFR.upsample_flow`` (eisai_arch.py:803-815): each 8x8 block of the
     upsampled NCHW flow is a softmax-convex combination of the 3x3
-    neighbourhood of 8 * the flow."""
-    b, _, h, w = flow.shape
+    neighbourhood of 8 * the flow. Row bands (``parallel.space``) go to
+    their own rule."""
+    if has_torch_function((flow, mask)):
+        return handle_torch_function(_convex_upsample_flow, (flow, mask), flow, mask)
+    return convex_upsample_flow_rows(F.pad(flow, (0, 0, 1, 1)), mask)
+
+
+def convex_upsample_flow_rows(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`_convex_upsample_flow` of the rows of ``mask``: ``flow`` holds
+    them and one more above and below (zeros beyond the frame)."""
+    b, h, w = mask.shape[0], mask.shape[2], mask.shape[3]
     m = torch.softmax(mask.reshape(b, 9, 8, 8, h, w), 1)
-    fp = F.pad(8.0 * flow, (1, 1, 1, 1))
+    fp = F.pad(8.0 * flow, (1, 1))
     taps = torch.stack([fp[:, :, di : di + h, dj : dj + w] for di in range(3) for dj in range(3)], 1)
     up = torch.einsum("bkuvhw,bkchw->bchuwv", m, taps)
     return up.reshape(b, 2, 8 * h, 8 * w)

@@ -58,6 +58,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.overrides import handle_torch_function, has_torch_function
+
 from ..ops.cuda.warp_kernel import route_counts
 from ..ops.softsplat import softsplat
 from ..ops.warp import warp
@@ -200,11 +202,18 @@ def _shift_window_mask(h: int, w: int, k: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-def _window_attention(q, k_, v, h: int, w: int, splits: int, with_shift: bool, mask: Optional[torch.Tensor]):
+def _window_attention(
+    q, k_, v, h: int, w: int, splits: int, with_shift: bool, mask: Optional[torch.Tensor], row0: int = 0
+):
     """``single_head_split_window_attention`` on ``[B, L, C]`` tokens in
     ``splits x splits`` windows (GMFSS always splits: 2 and 8); the ``[k*k,
-    L', L']`` shift mask is broadcast over the batch."""
+    L', L']`` shift mask is broadcast over the batch. ``q`` may hold only the
+    tokens of rows ``row0`` onwards of the ``h x w`` frame whose keys and
+    values ``k_`` and ``v`` are (a row band's queries:
+    :func:`_window_attention_rows`)."""
     b, L, c = q.shape
+    if L != h * w or row0:
+        return _window_attention_rows(q, k_, v, h, w, splits, with_shift, mask, row0)
     q, k_, v = (x.reshape(b, h, w, c) for x in (q, k_, v))
     sh, sw = (h // splits) // 2, (w // splits) // 2
     if with_shift:
@@ -219,6 +228,49 @@ def _window_attention(q, k_, v, h: int, w: int, splits: int, with_shift: bool, m
     if with_shift:
         out = torch.roll(out, (sh, sw), (1, 2))
     return out.reshape(b, L, c)
+
+
+def _window_attention_rows(q, k_, v, h: int, w: int, splits: int, with_shift: bool, mask, row0: int):
+    """:func:`_window_attention` for the queries of rows ``row0`` to ``row0 +
+    n`` only, against the whole frame's keys and values: each run of the
+    rows that lies in one window row of the (shifted) frame attends to that
+    window row's keys, with the shift mask's rows of its queries. The roll
+    moves the keys; a query row ``r`` sits at ``(r - shift) mod h`` in the
+    rolled frame, so the output needs no roll back along the rows."""
+    b, L, c = q.shape
+    n, wh, ww = L // w, h // splits, w // splits
+    sh, sw = (wh // 2, ww // 2) if with_shift else (0, 0)
+    q, k_, v = q.reshape(b, n, w, c), k_.reshape(b, h, w, c), v.reshape(b, h, w, c)
+    if with_shift:
+        q = torch.roll(q, -sw, 2)
+        k_, v = (torch.roll(x, (-sh, -sw), (1, 2)) for x in (k_, v))
+
+    def windows(x, rows):  # [b, rows, w, c] -> [b * splits, rows * ww, c], the column windows apart
+        return x.reshape(b, rows, splits, ww, c).permute(0, 2, 1, 3, 4).reshape(b * splits, rows * ww, c)
+
+    outs, r = [], row0
+    while r < row0 + n:
+        wi, t0 = divmod((r - sh) % h, wh)  # the window row, and the row's place in it
+        m = min(row0 + n - r, wh - t0)
+        keys = slice(wi * wh, (wi + 1) * wh)
+        scores = torch.matmul(windows(q[:, r - row0 : r - row0 + m], m), windows(k_[:, keys], wh).transpose(1, 2))
+        scores = scores / math.sqrt(c)
+        if with_shift:
+            part = mask[wi * splits : (wi + 1) * splits, t0 * ww : (t0 + m) * ww]
+            scores = (scores.unflatten(0, (b, splits)) + part).flatten(0, 1)
+        out = torch.matmul(torch.softmax(scores, -1), windows(v[:, keys], wh))
+        outs.append(out.reshape(b, splits, m, ww, c).permute(0, 2, 1, 3, 4).reshape(b, m, w, c))
+        r += m
+    out = torch.cat(outs, 1) if len(outs) > 1 else outs[0]
+    if with_shift:
+        out = torch.roll(out, sw, 2)
+    return out.reshape(b, L, c)
+
+
+def shift_window_mask(h: int, w: int, splits: int, device, dtype) -> torch.Tensor:
+    """:func:`_shift_window_mask` of the whole ``h x w`` frame on ``device``,
+    made once per shape."""
+    return _array_const(_shift_window_mask, (h, w, splits), torch.device(device), dtype)
 
 
 # ---- d. transformer ----------------------------------------------------------------
@@ -240,10 +292,14 @@ class _TransformerLayer(nn.Module):
         else:
             self.mlp = None
 
-    def forward(self, source, target, h, w, splits, with_shift, mask):
-        msg = _window_attention(
-            self.q_proj(source), self.k_proj(target), self.v_proj(target), h, w, splits, with_shift, mask
-        )
+    def keys(self, target):
+        """The keys and values of ``target``'s tokens."""
+        return self.k_proj(target), self.v_proj(target)
+
+    def forward(self, source, k_, v, h, w, splits, with_shift, mask, row0=0):
+        """``source``'s tokens (rows ``row0`` onwards) attend to the keys and
+        values of :meth:`keys`; the message, normed, added to ``source``."""
+        msg = _window_attention(self.q_proj(source), k_, v, h, w, splits, with_shift, mask, row0)
         msg = _layer_norm(self.merge(msg), self.norm1)
         if self.mlp is not None:
             msg = _layer_norm(self.mlp(torch.cat([source, msg], -1)), self.norm2)
@@ -265,15 +321,18 @@ class _Transformer(nn.Module):
 
 def _transformer(p: _Transformer, f0: torch.Tensor, f1: torch.Tensor, splits: int):
     """``FeatureTransformer.forward`` on NHWC features: both frames in one
-    batch, the cross-attention's other frame by swapping the halves."""
+    batch, the cross-attention's other frame by swapping the halves. Row
+    bands (``parallel.space``) go to their own rule."""
+    if has_torch_function((f0, f1)):
+        return handle_torch_function(_transformer, (f0, f1), p, f0, f1, splits)
     b, h, w, c = f0.shape
-    mask = _array_const(_shift_window_mask, (h, w, splits), f0.device, f0.dtype)
+    mask = shift_window_mask(h, w, splits, f0.device, f0.dtype)
     concat0 = torch.cat([f0.reshape(b, -1, c), f1.reshape(b, -1, c)], 0)
     concat1 = torch.cat([f1.reshape(b, -1, c), f0.reshape(b, -1, c)], 0)
     for i, layer in enumerate(p.layers):
         with_shift = i % 2 == 1
-        concat0 = layer.self_attn(concat0, concat0, h, w, splits, with_shift, mask)
-        concat0 = layer.cross_attn_ffn(concat0, concat1, h, w, splits, with_shift, mask)
+        concat0 = layer.self_attn(concat0, *layer.self_attn.keys(concat0), h, w, splits, with_shift, mask)
+        concat0 = layer.cross_attn_ffn(concat0, *layer.cross_attn_ffn.keys(concat1), h, w, splits, with_shift, mask)
         concat1 = torch.cat([concat0[b:], concat0[:b]], 0)
     return concat0[:b].reshape(b, h, w, c), concat0[b:].reshape(b, h, w, c)
 
@@ -314,15 +373,20 @@ def _add_position(f0: torch.Tensor, f1: torch.Tensor, splits: int):
 # ---- f. correlation softmax ----------------------------------------------------------
 
 
-def _global_corr_softmax(f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+def _global_corr_softmax(f0: torch.Tensor, f1: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Flow as the softmax-expected correspondence over the whole frame; the
-    softmax and the expectation in f32."""
-    b, h, w, c = f0.shape
+    softmax and the expectation in f32. ``f0`` may hold only rows ``row0``
+    onwards of the frame that ``f1`` holds whole (a row band's queries); row
+    bands of both (``parallel.space``) go to their own rule."""
+    if has_torch_function((f0, f1)):
+        return handle_torch_function(_global_corr_softmax, (f0, f1), f0, f1, row0)
+    b, n, w, c = f0.shape
+    h = f1.shape[1]
     corr = torch.matmul(f0.reshape(b, -1, c), f1.reshape(b, -1, c).transpose(1, 2)) / math.sqrt(c)
     prob = torch.softmax(corr, -1, dtype=torch.float32)
     coords = _coords(h, w, f0.device)
-    corresp = torch.matmul(prob, coords.reshape(-1, 2)).reshape(b, h, w, 2)
-    return (corresp - coords).to(f0.dtype)
+    corresp = torch.matmul(prob, coords.reshape(-1, 2)).reshape(b, n, w, 2)
+    return (corresp - coords[:, row0 : row0 + n]).to(f0.dtype)
 
 
 def _local_offsets(r: int) -> np.ndarray:
@@ -339,29 +403,47 @@ def _local_samples(h: int, w: int, r: int) -> np.ndarray:
 def _local_corr_softmax(f0: torch.Tensor, f1: torch.Tensor, r: int) -> torch.Tensor:
     """``local_correlation_softmax``: the (2r+1)^2 integer shifts of ``f1``
     (zero-padded), out-of-frame samples at -1e9, softmax and the expected
-    sample point in f32."""
-    b, h, w, c = f0.shape
-    f1p = F.pad(f1, (0, 0, r, r, r, r))
+    sample point in f32. Row bands (``parallel.space``) go to their own
+    rule."""
+    if has_torch_function((f0, f1)):
+        return handle_torch_function(_local_corr_softmax, (f0, f1), f0, f1, r)
+    return local_corr_rows(f0, F.pad(f1, (0, 0, 0, 0, r, r)), r, 0, f0.shape[1])
+
+
+def local_corr_rows(f0: torch.Tensor, f1: torch.Tensor, r: int, row0: int, h: int) -> torch.Tensor:
+    """:func:`_local_corr_softmax` of rows ``row0`` to ``row0 + n`` of an
+    ``h``-row frame: ``f0`` those rows, ``f1`` the same rows with ``r`` more
+    above and below (zeros beyond the frame's top and bottom); the validity
+    mask and the sample points of the frame's own rows."""
+    b, n, w, c = f0.shape
+    f1p = F.pad(f1, (0, 0, r, r))
     corr = torch.stack(
-        [(f0 * f1p[:, r + oy : r + oy + h, r + ox : r + ox + w]).sum(-1) for ox, oy in _local_offsets(r)], -1
+        [(f0 * f1p[:, r + oy : r + oy + n, r + ox : r + ox + w]).sum(-1) for ox, oy in _local_offsets(r)], -1
     ) / math.sqrt(c)
-    sample = _array_const(_local_samples, (h, w, r), f0.device, torch.float32)
+    sample = _array_const(_local_samples, (h, w, r), f0.device, torch.float32)[row0 : row0 + n]
     valid = (sample[..., 0] >= 0) & (sample[..., 0] < w) & (sample[..., 1] >= 0) & (sample[..., 1] < h)
     corr = corr.masked_fill(~valid, -1e9)
     prob = torch.softmax(corr, -1, dtype=torch.float32)
     corresp = torch.einsum("bhwk,hwkd->bhwd", prob, sample)
-    return (corresp - _coords(h, w, f0.device)).to(f0.dtype)
+    return (corresp - _coords(h, w, f0.device)[:, row0 : row0 + n]).to(f0.dtype)
 
 
 # ---- g. flow attention ---------------------------------------------------------------
 
 
 def _neighborhood9(x: torch.Tensor) -> torch.Tensor:
-    """``[N, H, W, C]`` -> ``[N, H, W, 9, C]``: the zero-padded 3x3
-    neighbourhood, row-major over (dy, dx)."""
-    _, h, w, _ = x.shape
-    padded = F.pad(x, (0, 0, 1, 1, 1, 1))
+    """``[N, H + 2, W, C]`` -> ``[N, H, W, 9, C]``: the 3x3 neighbourhood of
+    each of the middle ``H`` rows, row-major over (dy, dx); ``x`` holds one
+    row above and below them (zeros beyond the frame, :func:`_rows1`), and
+    the columns are zero-padded here."""
+    h, w = x.shape[1] - 2, x.shape[2]
+    padded = F.pad(x, (0, 0, 1, 1))
     return torch.stack([padded[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w] for dy in (-1, 0, 1) for dx in (-1, 0, 1)], 3)
+
+
+def _rows1(x: torch.Tensor) -> torch.Tensor:
+    """NHWC ``x`` with a row of zeros above and below."""
+    return F.pad(x, (0, 0, 0, 0, 1, 1))
 
 
 class _FlowAttention(nn.Module):
@@ -374,18 +456,33 @@ class _FlowAttention(nn.Module):
 def _flow_attn(p: _FlowAttention, feat: torch.Tensor, flow: torch.Tensor, local: bool) -> torch.Tensor:
     """``FeatureFlowAttention``. Global path: keep the reference's quirk, the
     key projects the *query projection*; softmax and product in f32. Local
-    path (radius 1): keys project the features, over each 3x3 neighbourhood."""
-    b, h, w, c = feat.shape
-    q = p.q_proj(feat.reshape(b, -1, c))
+    path (radius 1): keys project the features, over each 3x3 neighbourhood.
+    Row bands (``parallel.space``) go to their own rule."""
+    if has_torch_function((feat, flow)):
+        return handle_torch_function(_flow_attn, (feat, flow), p, feat, flow, local)
+    q = p.q_proj(feat)
     if not local:
-        k_ = p.k_proj(q)
-        scores = torch.matmul(q, k_.transpose(1, 2)) / math.sqrt(c)
-        prob = torch.softmax(scores, -1, dtype=torch.float32)
-        return torch.matmul(prob, flow.reshape(b, -1, 2).float()).reshape(b, h, w, 2).to(feat.dtype)
-    k_ = p.k_proj(feat.reshape(b, -1, c)).reshape(b, h, w, c)
-    scores = torch.einsum("bhwc,bhwkc->bhwk", q.reshape(b, h, w, c), _neighborhood9(k_)) / math.sqrt(c)
+        return flow_attn_global(q, p.k_proj(q), flow)
+    return flow_attn_local(q, _rows1(p.k_proj(feat)), _rows1(flow))
+
+
+def flow_attn_global(q: torch.Tensor, k_: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The global path of :func:`_flow_attn` for the NHWC queries ``q`` of
+    some rows (a row band's) against the whole frame's keys ``k_`` and flow."""
+    b, n, w, c = q.shape
+    scores = torch.matmul(q.reshape(b, -1, c), k_.reshape(b, -1, c).transpose(1, 2)) / math.sqrt(c)
     prob = torch.softmax(scores, -1, dtype=torch.float32)
-    return torch.einsum("bhwk,bhwkd->bhwd", prob, _neighborhood9(flow).float()).to(feat.dtype)
+    return torch.matmul(prob, flow.reshape(b, -1, 2).float()).reshape(b, n, w, 2).to(q.dtype)
+
+
+def flow_attn_local(q: torch.Tensor, k_: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The local path of :func:`_flow_attn` for the NHWC queries ``q`` of
+    some rows; ``k_`` and ``flow`` hold those rows and one more above and
+    below (zeros beyond the frame)."""
+    c = q.shape[3]
+    scores = torch.einsum("bhwc,bhwkc->bhwk", q, _neighborhood9(k_)) / math.sqrt(c)
+    prob = torch.softmax(scores, -1, dtype=torch.float32)
+    return torch.einsum("bhwk,bhwkd->bhwd", prob, _neighborhood9(flow).float()).to(q.dtype)
 
 
 # ---- h, i. convex upsampling and GMFlow ------------------------------------------------
@@ -393,10 +490,20 @@ def _flow_attn(p: _FlowAttention, feat: torch.Tensor, flow: torch.Tensor, local:
 
 def _convex_upsample4(p: nn.Sequential, flow: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
     """``GMFlow.upsample_flow``'s convex path, factor 4: a softmax over the 9
-    neighbours of each of the 16 sub-pixels."""
-    k = 4
-    n, h, w, _ = flow.shape
+    neighbours of each of the 16 sub-pixels. Row bands (``parallel.space``)
+    go to their own rule."""
+    if has_torch_function((flow, feat)):
+        return handle_torch_function(_convex_upsample4, (flow, feat), p, flow, feat)
     m = p(torch.cat([flow, feat], -1).permute(0, 3, 1, 2))  # [n, 9*16, h, w]
+    return convex_combine4(m, _rows1(flow))
+
+
+def convex_combine4(m: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The upsampled NHWC flow of :func:`_convex_upsample4` from the
+    upsampler's NCHW output ``m`` of some rows and the flow of those rows
+    with one more above and below (zeros beyond the frame)."""
+    k = 4
+    n, _, h, w = m.shape
     mask = torch.softmax(m.permute(0, 2, 3, 1).reshape(n, h, w, 9, k * k), 3)
     up = torch.einsum("nhwkc,nhwkp->nhwpc", _neighborhood9(k * flow), mask)
     up = up.reshape(n, h, w, k, k, 2).permute(0, 1, 3, 2, 4, 5)

@@ -23,13 +23,15 @@ first device in global row order. :func:`make_sharded_model_fn` runs RIFE
 (every arch), FILM, IFRNet, AMT, IFUnet, CAIN and Sepconv so, and the
 window-4 models FLAVR and STMFNet (``run_plan_window4``: all four frames of
 each window cut into the same bands);
-:func:`make_sharded_pair_fns` runs M2M and XVFI (Vimeo and X4K), whose
-caches then hold row bands (``RowBands`` leaves beside plain tensors such
-as M2M's frame mean; all three of XVFI's), each shard's on its own row of
-devices, and go back to the same shard's ``infer_fn``. Any other model
-raises at its first op without a rule (GMFSS and EISAI among the
-pair-cached ones), naming it and ``ROADMAP.md``'s item; nothing runs
-data-parallel in place of a row split.
+:func:`make_sharded_pair_fns` runs every pair-cached family: M2M, XVFI
+(Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI, whose caches
+then hold row bands (``RowBands`` leaves beside plain tensors such as M2M's
+frame mean; all of XVFI's, GMFSS's flows, metrics and feature pyramids,
+EISAI's two flows), each shard's on its own row of devices, and go back to
+the same shard's ``infer_fn``. Any other model raises at its first op
+without a rule (ATM's ``layer_norm``, MoMo's reshape of the rows), naming
+it and ``ROADMAP.md``'s item; nothing runs data-parallel in place of a row
+split.
 """
 
 from __future__ import annotations

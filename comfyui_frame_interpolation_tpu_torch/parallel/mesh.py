@@ -21,11 +21,12 @@ Both axes run. Torch has no GSPMD halo exchange, so the ``space`` axis is
 ``parallel.space``: a frame held as row bands on one data shard's row of
 devices, and an allow-list of rules (halo rows for the convolutions and the
 cost volume, the global ratio for the resizes, the whole source gathered
-for the warp, partial sums for the splat and the reductions over rows) by
-which RIFE's inference, every arch (:func:`~.infer.make_sharded_model_fn`),
-RIFE 4.7's training step (:func:`~.train.make_train_step`), M2M's and XVFI's
-(Vimeo and X4K) pair-cached inference (:func:`~.infer.make_sharded_pair_fns`)
-and the inference of FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv and the
+for the warp and the global ops' keys, partial sums for the splat and the
+reductions over rows) by which RIFE's inference, every arch
+(:func:`~.infer.make_sharded_model_fn`), RIFE 4.7's training step
+(:func:`~.train.make_train_step`), the pair-cached inference of M2M, XVFI
+(Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI
+(:func:`~.infer.make_sharded_pair_fns`) and the inference of FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv and the
 window-4 models FLAVR and STMFNet (:func:`core.run_plan_window4`) run band
 by band, a value's band edges moving where an op needs other ones (the
 re-banding rule). Every other op raises ``NotImplementedError`` on a band, naming itself and the
@@ -61,8 +62,8 @@ MIN_ROWS_PER_SHARD = 64
 # what a run on the space axis that no row-band rule covers is told
 SPACE_TODO = (
     "the 'space' axis (rows split over devices) runs RIFE's inference (every arch), RIFE 4.7's training step, "
-    "M2M's and XVFI's (Vimeo and X4K) pair-cached inference and the inference of FILM, IFRNet, AMT, IFUnet, CAIN, "
-    "Sepconv, FLAVR and STMFNet; the rest is ROADMAP.md Queue 1 item 3"
+    "the pair-cached inference of M2M, XVFI (Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI and the "
+    "inference of FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv, FLAVR and STMFNet; the rest is ROADMAP.md Queue 1 item 3"
 )
 
 

@@ -18,8 +18,8 @@ the same way. Each call goes to the rule of an allow-list; a function
 without one raises ``NotImplementedError`` naming itself and the
 ``ROADMAP.md`` item that would port it. Nothing is gathered or run band by
 band unless a rule says so. The rules are those that RIFE (every arch, with
-and without fast mode), M2M's and XVFI's (Vimeo and X4K) pair functions,
-FILM, IFRNet (S and L), AMT (S, L and G), IFUnet (with and without the
+and without fast mode), the pair functions of M2M, XVFI (Vimeo and X4K),
+GMFSS Fortuna (base and union) and EISAI, FILM, IFRNet (S and L), AMT (S, L and G), IFUnet (with and without the
 ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
 
 * the re-banding rule (:meth:`RowBands.reband`): a value's band edges move
@@ -42,9 +42,11 @@ ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
   re-banded at once;
 
 * row-local ops, band by band: elementwise arithmetic, ``clamp`` (``min=``
-  too), ``sigmoid``, ``tanh``, ``relu`` (``nn.ReLU``), ``leaky_relu``,
-  ``prelu`` (``nn.PReLU``), ``exp``, ``abs``, ``square``, ``sqrt``,
-  ``floor``, comparisons (``==`` too: the splat's zeroeps test), casts,
+  too), ``sigmoid``, ``tanh``, ``relu`` (``nn.ReLU``),
+  ``leaky_relu``, ``prelu`` (``nn.PReLU``), ``exp``, ``log``, ``pow``,
+  ``abs``, ``square``, ``sqrt``, ``floor``, comparisons (``==`` too: the
+  splat's zeroeps test), casts, ``flip`` and ``torch.linalg.vector_norm``
+  of other dimensions than the rows (EISAI's flows and Lab metric),
   channel and batch ``cat``, ``stack``
   along a new dimension, slices of the channel and batch dimensions (an
   ``...`` and ``None`` too) and writes into them (``__setitem__``, IFRNet's
@@ -88,7 +90,10 @@ ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
   (which hands a band over) with the one row below that its 2x2 taps
   read, interleaved into a band of twice the rows;
 * ``avg_pool2d`` with windows of their own rows (kernel = stride, every
-  band starting on a multiple of it);
+  band starting on a multiple of it); ``max_pool2d`` (EISAI's opening and
+  its ResNet's 3x3 stride-2 pool) as the convolutions: the rows its
+  windows read, -inf beyond the global top and bottom only (the pool's
+  padding), the outputs owned by their middle input row;
 * ``ops.costvol.costvol_func``: each band compares against the ``+-4``
   rows around it of the second tensor, zeros beyond the frame's edges;
 * ``conv_transpose2d`` (grouped too), and ``conv_transpose3d`` on NCDHW
@@ -150,14 +155,33 @@ ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
   and unbounded; each band's output rows from its ``row0``) and
   ``ops.correlation.correlation_func`` (each band against the ``+-4`` rows
   around it of the second tensor, zeros beyond the frame's edges: the
-  cost volume's rule for the PWC decoders).
+  cost volume's rule for the PWC decoders);
+* GMFSS's GMFlow, whose global ops hand their bands over: the transformer
+  (``models.gmfss._transformer``; each layer's linear maps, norms and MLP
+  band by band, its window attention taking each band's queries against
+  every band's keys and values gathered whole onto its device, in the
+  windows of the global rows, so a shifted layer's roll wraps the frame's
+  last rows onto its first whatever the bands), the global correlation
+  softmax and the global flow attention (each band's queries against the
+  keys gathered whole; the softmax over the keys, which are whole), the
+  local correlation (``r`` halo rows of the second frame) and the local
+  flow attention and convex upsampling (a halo row for the 3x3
+  neighbourhoods, zeros beyond the frame's edges only);
+* EISAI's: RAFT's all-pairs correlation (``models.eisai._corr_pyramid``
+  returns a :class:`_BandPyramid`, each band's query rows against the
+  target gathered whole, which ``_corr_lookup`` reads at each band's own
+  rows of the coordinates), its convex upsampling (a halo row, 8 times
+  the rows) and ``ops.edt.batch_edt`` (the x pass band by band, the y
+  pass of each band's rows on the x pass gathered whole, bit for bit).
 
 Every rule computes what the op computes on the whole tensor: the
 convolutions and resizes the same sums, possibly by other algorithms
 (cuDNN picks one per shape), the reductions, the splat and the
 correlation's dots (AMT's and the PWC's) and AdaCoF's taps in another
-order, the warp bit for bit. Bands on logical replicas of one device split
-the work as separate devices would.
+order, the warp and the distance transform bit for bit, the attention's
+and correlations' dots over each band's queries in f32 (or the model's
+dtype) apart from one device's by rounding. Bands on logical replicas of
+one device split the work as separate devices would.
 """
 
 from __future__ import annotations
@@ -169,8 +193,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models import cain, common, ifunet, m2m, stmfnet
-from ..ops import correlation, costvol
+from ..models import cain, common, eisai, gmfss, ifunet, m2m, stmfnet
+from ..ops import correlation, costvol, edt
 from ..ops.adacof import adacof_func
 from ..ops.bidir_corr import BidirCorr, _Pyramid
 from ..ops.sepconv import sepconv_func
@@ -281,10 +305,11 @@ class RowBands:
                 f"bands {[(s, b.shape[self.axis], str(b.device)) for s, b in zip(self.starts, self.bands)]})")
 
     # ---- moving rows ----------------------------------------------------------
-    def rows(self, lo: int, hi: int, j: int) -> torch.Tensor:
+    def rows(self, lo: int, hi: int, j: int, fill: float = 0.0) -> torch.Tensor:
         """Global rows ``lo`` to ``hi`` on band ``j``'s device, taken from
-        every band they lie in, zeros outside ``[0, height)``: band ``j``
-        itself (no copy) when they are exactly its rows."""
+        every band they lie in, ``fill`` outside ``[0, height)`` (zeros; a
+        max pool's padding: -inf): band ``j`` itself (no copy) when they are
+        exactly its rows."""
         d, dev = self.axis, self.bands[j].device
         ref = self.bands[j]
         pieces = []
@@ -292,7 +317,7 @@ class RowBands:
         def zeros(k):
             shape = list(ref.shape)
             shape[d] = k
-            return torch.empty(shape, dtype=ref.dtype, device=dev, memory_format=_memory_format(ref)).zero_()
+            return torch.empty(shape, dtype=ref.dtype, device=dev, memory_format=_memory_format(ref)).fill_(fill)
 
         if lo < 0:
             pieces.append(zeros(min(hi, 0) - lo))
@@ -457,6 +482,9 @@ class RowBands:
 
     def relu(self):
         return self._call(torch.Tensor.relu)
+
+    def flip(self, *dims):
+        return self._call(torch.Tensor.flip, *dims)
 
     def tanh(self):
         return self._call(torch.Tensor.tanh)
@@ -1499,6 +1527,239 @@ def _bidir_corr_rule(func, args, kwargs):
     return _BandCorr(f0, f1, levels, radius)
 
 
+# ---- GMFSS's GMFlow: attention and correlation against gathered keys ----------------------
+
+
+def _nhwc_pair(func, a, b, what: str):
+    """Two NHWC row-band values of one height (``b`` on ``a``'s edges), or
+    the refusal naming ``what``."""
+    if not (isinstance(a, RowBands) and isinstance(b, RowBands)) or a.axis != 1:
+        raise _no_rule(f"{_name(func)} of other than NHWC row bands of {what}")
+    return _onto(func, a, b)
+
+
+def _transformer_rule(func, args, kwargs):
+    """``models.gmfss._transformer`` (which hands bands over) of NHWC bands
+    of both frames: each layer's linear maps, norms and MLP act on each
+    token alone, so band by band; its attention takes each band's queries
+    against the keys and values of every band, gathered whole onto the
+    band's device (the warp's source rule), in the windows of the global
+    rows (``gmfss._window_attention_rows``: the shifted layers' roll wraps
+    the frame's last rows onto its first, whatever the bands; the shift
+    mask is the whole frame's)."""
+    p, f0, f1, splits = _bind(func, ("p", "f0", "f1", "splits"), (None, None, None, None), args, kwargs)
+    f1 = _nhwc_pair(func, f0, f1, "both frames' features")
+    b, h, w, c = f0.shape
+    devs = [x.device for x in f0.bands]
+    masks = [gmfss.shift_window_mask(h, w, splits, d, f0.dtype) for d in devs]
+
+    def tokens(x):
+        return x.reshape(b, -1, c)
+
+    def attend(layer, sources, targets, with_shift):
+        kv = [layer.keys(t) for t in targets]
+        out = []
+        for j, (s, d, a) in enumerate(zip(sources, devs, f0.starts)):
+            k_, v = (torch.cat([t[i].to(d) for t in kv], 1) for i in (0, 1))
+            out.append(layer(s, k_, v, h, w, splits, with_shift, masks[j], a))
+        return out
+
+    concat0 = [torch.cat([tokens(x), tokens(y)], 0) for x, y in zip(f0.bands, f1.bands)]
+    concat1 = [torch.cat([tokens(y), tokens(x)], 0) for x, y in zip(f0.bands, f1.bands)]
+    for i, layer in enumerate(p.layers):
+        with_shift = i % 2 == 1
+        concat0 = attend(layer.self_attn, concat0, concat0, with_shift)
+        concat0 = attend(layer.cross_attn_ffn, concat0, concat1, with_shift)
+        concat1 = [torch.cat([x[b:], x[:b]], 0) for x in concat0]
+    return tuple(f0.like([x[half].reshape(b, -1, w, c) for x in concat0]) for half in (slice(0, b), slice(b, None)))
+
+
+def _global_corr_rule(func, args, kwargs):
+    """``models.gmfss._global_corr_softmax`` (which hands bands over): each
+    band's rows of ``f0`` against ``f1`` gathered whole onto its device; the
+    softmax runs over the keys, which are whole, and the coordinates are the
+    frame's (``row0``)."""
+    f0, f1, row0 = _bind(func, ("f0", "f1", "row0"), (None, None, 0), args, kwargs)
+    f1 = _nhwc_pair(func, f0, f1, "both frames' features")
+    if row0:
+        raise _no_rule(f"{_name(func)} of row bands with row0={row0}")
+    return f0.like([func(x, f1.rows(0, f1.height, j), a) for j, (x, a) in enumerate(zip(f0.bands, f0.starts))])
+
+
+def _local_corr_rule(func, args, kwargs):
+    """``models.gmfss._local_corr_softmax`` (which hands bands over): each
+    band's rows of ``f0`` against the rows of ``f1`` ``r`` above and below
+    them (zeros beyond the frame's top and bottom only), the validity mask
+    and sample points of the frame's rows (``gmfss.local_corr_rows``)."""
+    f0, f1, r = _bind(func, ("f0", "f1", "r"), (None, None, None), args, kwargs)
+    f1 = _nhwc_pair(func, f0, f1, "both frames' features")
+    return f0.like([
+        gmfss.local_corr_rows(x, f1.rows(a - r, a + x.shape[1] + r, j), r, a, f0.height)
+        for j, (x, a) in enumerate(zip(f0.bands, f0.starts))
+    ])
+
+
+def _flow_attn_rule(func, args, kwargs):
+    """``models.gmfss._flow_attn`` (which hands bands over): the projections
+    band by band; the global path takes each band's queries against the
+    keys of every band and the flow, gathered whole onto its device
+    (``gmfss.flow_attn_global``), the local one each band's keys and flow
+    with the row above and below it (zeros beyond the frame's top and
+    bottom only) for the 3x3 neighbourhoods (``gmfss.flow_attn_local``)."""
+    p, feat, flow, local = _bind(func, ("p", "feat", "flow", "local"), (None, None, None, None), args, kwargs)
+    flow = _nhwc_pair(func, feat, flow, "the features and the flow")
+    q = [p.q_proj(x) for x in feat.bands]
+    if not local:
+        keys = [p.k_proj(x) for x in q]
+        return feat.like([
+            gmfss.flow_attn_global(qj, torch.cat([k.to(qj.device) for k in keys], 1), flow.rows(0, flow.height, j))
+            for j, qj in enumerate(q)
+        ])
+    keys = feat.like([p.k_proj(x) for x in feat.bands])
+    return feat.like([
+        gmfss.flow_attn_local(qj, keys.rows(a - 1, a + qj.shape[1] + 1, j), flow.rows(a - 1, a + qj.shape[1] + 1, j))
+        for j, (qj, a) in enumerate(zip(q, feat.starts))
+    ])
+
+
+def _convex_upsample4_rule(func, args, kwargs):
+    """``models.gmfss._convex_upsample4`` (which hands bands over): the
+    upsampler's convolutions through their own rules, then each band's
+    convex combination of its ``4 * flow`` with the row above and below it
+    (zeros beyond the frame's top and bottom only) into 4 times its rows
+    from 4 times its first row (``gmfss.convex_combine4``)."""
+    p, flow, feat = _bind(func, ("p", "flow", "feat"), (None, None, None), args, kwargs)
+    feat = _nhwc_pair(func, flow, feat, "the flow and the features")
+    m = p(torch.cat([flow, feat], -1).permute(0, 3, 1, 2))
+    if m.starts != flow.starts:
+        m = m.reband(flow.starts, _name(func))
+    out = [
+        gmfss.convex_combine4(mb, flow.rows(a - 1, a + mb.shape[2] + 1, j))
+        for j, (mb, a) in enumerate(zip(m.bands, flow.starts))
+    ]
+    return RowBands(out, [4 * a for a in flow.starts], 4 * flow.height, 1)
+
+
+def _vector_norm(func, args, kwargs):
+    """``torch.linalg.vector_norm`` over dimensions without the rows (the
+    flows' and Lab images' channels): band by band."""
+    x, order, dim, keepdim, dtype = _bind(func, ("x", "ord", "dim", "keepdim", "dtype"), (None, 2, None, False, None), args, kwargs)
+    dims = _dims(dim, x.ndim)
+    if x.axis in dims:
+        raise _no_rule(f"torch.linalg.vector_norm over the rows (dim {dim} of {x!r})")
+    axis = x.axis if keepdim else x.axis - sum(d < x.axis for d in dims)
+    return x.like([func(b, order, dims, keepdim, dtype=dtype) for b in x.bands], axis)
+
+
+def _flip(func, args, kwargs):
+    """``flip`` of dimensions without the rows (EISAI's (x, y) flows to (y,
+    x)): band by band."""
+    x, dims = args[0], _sizes(args[1:]) if args[1:] else list(kwargs["dims"])
+    if x.axis in {d % x.ndim for d in dims}:
+        raise _no_rule(f"flip of the rows (dims {dims} of {x!r})")
+    return x.like([b.flip(dims) for b in x.bands])
+
+
+def _max_pool2d(func, args, kwargs):
+    """``F.max_pool2d`` (EISAI's opening, stride 1 on an input padded with
+    -inf, and its ResNet's 3x3 stride-2 pool padded by 1): each band takes
+    the rows its outputs' windows read from its neighbours, -inf beyond the
+    global top and bottom only (the pool's own padding), and owns the
+    outputs whose middle input row is its own (:func:`_conv`'s rule)."""
+    x, kernel, stride, padding, dilation, ceil_mode, indices = _bind(
+        func, ("input", "kernel_size", "stride", "padding", "dilation", "ceil_mode", "return_indices"),
+        (None, None, None, 0, 1, False, False), args, kwargs,
+    )
+    (kh, kw), (ph, pw) = _pair(kernel), _pair(padding)
+    sh, sw = _pair(stride if stride not in (None, []) else kernel)
+    if not isinstance(x, RowBands) or x.axis != 2 or ceil_mode or indices or _pair(dilation) != (1, 1):
+        raise _no_rule(f"max_pool2d(kernel {kernel}, stride {stride}, dilation {dilation}, ceil_mode {ceil_mode}) of {x!r}")
+    out_h = (x.height + 2 * ph - kh) // sh + 1
+    spans = _owned(x.starts, out_h, lambda s: -(-(s + ph - (kh - 1) // 2) // sh))
+    out = [
+        func(x.rows(o0 * sh - ph, (o1 - 1) * sh - ph + kh, j, fill=-math.inf), (kh, kw), (sh, sw), (0, pw))
+        for j, (o0, o1) in enumerate(spans)
+    ]
+    return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
+
+
+class _BandPyramid:
+    """EISAI's all-pairs correlation pyramid (``models.eisai._corr_pyramid``)
+    on NCHW row bands of the query features: band ``j``'s levels hold its
+    own query pixels against the target gathered whole onto its device, in
+    f32. The pooling runs over the target's axes, which are whole, so each
+    band's pyramid is its own. ``models.eisai._corr_lookup`` hands it over
+    (:func:`_corr_lookup_rule`)."""
+
+    def __init__(self, pyrs: List[List[torch.Tensor]], ref: RowBands):
+        self.pyrs, self.ref = pyrs, ref
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return RowBands.__torch_function__(func, types, args, kwargs)
+
+
+def _corr_pyramid_rule(func, args, kwargs):
+    """``models.eisai._corr_pyramid`` (which hands bands over): each band's
+    query rows against the target gathered whole (:class:`_BandPyramid`).
+    Inference only: a gradient raises."""
+    f1, f2 = _bind(func, ("f1", "f2"), (None, None), args, kwargs)
+    if not (isinstance(f1, RowBands) and isinstance(f2, RowBands)) or f1.axis != 2 or f2.height != f1.height:
+        raise _no_rule(f"{_name(func)} of other than NCHW row bands of both feature maps")
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        raise _no_rule(f"{_name(func)} with a gradient (the training step on the axis)")
+    return _BandPyramid([func(q, f2.rows(0, f2.height, j)) for j, q in enumerate(f1.bands)], f1)
+
+
+def _corr_lookup_rule(func, args, kwargs):
+    """``models.eisai._corr_lookup`` of a :class:`_BandPyramid`: each band's
+    windows from its own pyramid at its own rows of the NCHW coordinates
+    (row bands, or a plain map of the frame's rows: the first step's
+    ``coords0``, narrowed to each band's rows as :func:`_local` does)."""
+    pyr, coords = _bind(func, ("pyr", "coords"), (None, None), args, kwargs)
+    if not isinstance(pyr, _BandPyramid):
+        raise _no_rule(f"{_name(func)} of a plain pyramid at {coords!r}")
+    ref = pyr.ref
+    if isinstance(coords, RowBands) and coords.axis != 2:
+        raise _no_rule(f"{_name(func)} at {coords!r} (NCHW row bands of the coordinates)")
+    coords = _onto(func, ref, coords)
+    return ref.like([func(p, _local(func, coords, j, ref)) for j, p in enumerate(pyr.pyrs)])
+
+
+def _convex_upsample_flow_rule(func, args, kwargs):
+    """``models.eisai._convex_upsample_flow`` (which hands bands over) of
+    NCHW bands: each band's flow with the row above and below it (zeros
+    beyond the global top and bottom only) and its own mask, its result 8
+    times its rows from 8 times its first row
+    (``eisai.convex_upsample_flow_rows``)."""
+    flow, mask = _bind(func, ("flow", "mask"), (None, None), args, kwargs)
+    if not (isinstance(flow, RowBands) and isinstance(mask, RowBands)) or flow.axis != 2:
+        raise _no_rule(f"{_name(func)} of other than NCHW row bands of the flow and its mask")
+    mask = _onto(func, flow, mask)
+    out = [
+        eisai.convex_upsample_flow_rows(flow.rows(a - 1, a + m.shape[2] + 1, j), m)
+        for j, (m, a) in enumerate(zip(mask.bands, flow.starts))
+    ]
+    return RowBands(out, [8 * a for a in flow.starts], 8 * flow.height, 2)
+
+
+def _batch_edt_rule(func, args, kwargs):
+    """``ops.edt.batch_edt`` (which hands bands over) of ``[N, 1, H, W]`` or
+    ``[N, H, W]`` row bands: the x pass band by band (it is row-local), its
+    result gathered whole onto each band's device for the y pass, which
+    makes the band's own rows (``edt.y_pass``): the same integer squared
+    distances, bit for bit."""
+    (img,) = _bind(func, ("img",), (None,), args, kwargs)
+    if not isinstance(img, RowBands) or img.axis != img.ndim - 2 or (img.ndim == 4 and img.shape[1] != 1):
+        raise _no_rule(f"{_name(func)} of {img!r} (row bands of [N, 1, H, W] or [N, H, W] maps)")
+    imgs = img[:, 0] if img.ndim == 4 else img
+    h, w = imgs.height, imgs.shape[2]
+    dtype = imgs.dtype if imgs.dtype.is_floating_point else torch.float32
+    xs = imgs.like([edt.x_pass(b, float(h * h + w * w)) for b in imgs.bands])
+    out = [edt.y_pass(xs.rows(0, h, j), a, b.shape[1], dtype) for j, (b, a) in enumerate(zip(imgs.bands, imgs.starts))]
+    return img.like([o[:, None] for o in out] if img.ndim == 4 else out)
+
+
 _RULES: Dict[Callable, Callable] = {}
 for _f in (
     torch.add, torch.sub, torch.mul, torch.div, torch.rsub, torch.neg, torch.clamp, torch.sigmoid,
@@ -1508,7 +1769,7 @@ for _f in (
     torch.prelu, torch.exp, torch.Tensor.exp, torch.abs, torch.Tensor.abs, torch.square, torch.Tensor.square,
     torch.sqrt, torch.Tensor.sqrt, torch.Tensor.eq, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
     F.relu, torch.relu, torch.Tensor.relu, torch.floor, torch.Tensor.floor, torch.tanh, torch.Tensor.tanh,
-    torch.ones_like, torch.where,
+    torch.ones_like, torch.where, torch.pow, torch.log,
 ):
     _RULES[_f] = _elementwise
 for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var, torch.var_mean,
@@ -1558,4 +1819,17 @@ _RULES.update({
     stmfnet._upsampler_8tap: _upsampler_8tap_rule,
     adacof_func: _adacof_rule,
     correlation.correlation_func: _correlation_rule,
+    gmfss._transformer: _transformer_rule,
+    gmfss._global_corr_softmax: _global_corr_rule,
+    gmfss._local_corr_softmax: _local_corr_rule,
+    gmfss._flow_attn: _flow_attn_rule,
+    gmfss._convex_upsample4: _convex_upsample4_rule,
+    torch.linalg.vector_norm: _vector_norm,
+    torch.flip: _flip,
+    torch.Tensor.flip: _flip,
+    F.max_pool2d: _max_pool2d,
+    eisai._corr_pyramid: _corr_pyramid_rule,
+    eisai._corr_lookup: _corr_lookup_rule,
+    eisai._convex_upsample_flow: _convex_upsample_flow_rule,
+    edt.batch_edt: _batch_edt_rule,
 })

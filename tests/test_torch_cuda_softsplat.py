@@ -66,7 +66,9 @@ the splat 1 forward, the warp's backward 20 and the splat's 1.
 
 K2 with a band of sources (``row0``, ``out_rows``) on 2 and 3 bands, f32
 and bf16, against the twin's band; the partials' sum against the
-whole-frame kernel and ``softsplat_func``; and M2M's pair functions on a
+whole-frame kernel and ``softsplat_func``; the same on the wide-channel
+route (C > 4) at GMFSS's C = 65 and 193 in bf16 and EISAI's 514 in f32;
+and M2M's pair functions on a
 ``(1, 2)`` mesh of replicas of the card against one device (f32, TF32 off,
 1e-4), K1 8, the wide kernel 32 and K2 2 a pair batch.
 """
@@ -564,6 +566,29 @@ def test_k2_band_partials_sum_to_the_whole_frame(cuda, spans, dtype):
     assert softsplat_kernel.launches - before == len(spans)
     _check(total, whole, torch.float32)
     _check(total.permute(0, 2, 3, 1).to(dtype), softsplat_func(vals, flow), dtype)
+
+
+@pytest.mark.parametrize("c, dtype", [(65, torch.bfloat16), (193, torch.bfloat16), (514, torch.float32)])
+@pytest.mark.parametrize("spans", [((0, 64), (64, 73)), ((0, 64), (64, 64), (128, 9))])
+def test_k2_band_partials_at_the_wide_widths(cuda, spans, c, dtype):
+    """K2's wide-channel route (C > 4: the bands of GMFSS's and EISAI's
+    splats on the space axis) with a band of sources: each partial against
+    the twin's band, their f32 sum against the whole-frame kernel, as
+    :func:`test_k2_band_partials_sum_to_the_whole_frame` holds C = 4."""
+    g = torch.Generator().manual_seed(c + len(spans))
+    vals = torch.rand(1, 137, 93, c, generator=g).to(cuda, dtype)
+    flow = ((torch.rand(1, 137, 93, 2, generator=g) * 2 - 1) * 30).to(cuda)
+    planes, fplanes = vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+    whole = softsplat_kernel.softsplat_bilinear(planes, fplanes)
+    total = torch.zeros_like(whole)
+    for row0, rows in spans:
+        vb, fb = planes[:, :, row0 : row0 + rows], fplanes[:, :, row0 : row0 + rows]
+        part = softsplat_kernel.softsplat_bilinear(vb, fb, row0=row0, out_rows=137)
+        assert part.shape == (1, c, 137, 93) and part.dtype == torch.float32
+        twin = softsplat_torch(vals[:, row0 : row0 + rows].float(), flow[:, row0 : row0 + rows], row0=row0, out_rows=137)
+        _check(part.permute(0, 2, 3, 1), twin, torch.float32)
+        total += part
+    _check(total, whole, torch.float32)
 
 
 def test_m2m_on_a_space_split_matches_one_device(cuda):

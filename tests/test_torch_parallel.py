@@ -59,7 +59,7 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan, run_plan_pair_cached
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import gmfss, m2m, rife
+from comfyui_frame_interpolation_tpu_torch.models import m2m, rife
 from comfyui_frame_interpolation_tpu_torch.parallel import train
 from comfyui_frame_interpolation_tpu_torch.utils.ckpt import params_from_jax
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
@@ -262,10 +262,11 @@ def test_space_axis_raises(entry):
     """On a ``(1, 2)`` mesh, where the policy splits 128 rows into two bands:
     the model function and the train step run and match one device (the
     step also at 136x64, split 128 + 8 rows, where RIFE's pad to 192 lands
-    in the last band); the pair-cached split of a family without the rules
-    it needs (GMFSS base: its first op without a rule) still raises, naming
-    the ``ROADMAP.md`` item (M2M's split runs:
-    ``tests/test_torch_space_m2m.py``)."""
+    in the last band); the pair-cached split of a pair of functions without
+    the rules they need (a stand-in whose reuse takes the median of the
+    stacked frames: every pair-cached family of the port runs on the axis,
+    ``tests/test_torch_space_{m2m,xvfi,x4k,gmfss,eisai}.py``) still raises at
+    its first op without a rule, naming the ``ROADMAP.md`` item."""
     mesh = parallel.make_mesh(2, devices=_replicas(2))  # (1, 2): the space axis
     assert dict(mesh.shape) == {"data": 1, "space": 2}
     f0, f1, t, target = (torch.from_numpy(a) for a in _tall_batch())
@@ -290,8 +291,11 @@ def test_space_axis_raises(entry):
             torch.testing.assert_close(deltas2[k][big], deltas1[k][big], rtol=0, atol=UPDATE_ATOL)
         assert n_big > 1000
     else:
-        reuse, _ = parallel.make_sharded_pair_fns(lambda d: gmfss.make_pair_fns(gmfss.init_params(0), device=d), mesh)
-        with pytest.raises(NotImplementedError, match="has no row-band rule: .*ROADMAP.md Queue 1 item"):
+        def make_pair(device):
+            return (lambda a, b: torch.stack([a, b]).median(0).values), (lambda a, b, cache, tt: cache)
+
+        reuse, _ = parallel.make_sharded_pair_fns(make_pair, mesh)
+        with pytest.raises(NotImplementedError, match="Tensor.median has no row-band rule: .*ROADMAP.md Queue 1 item"):
             reuse(f0, f1)
 
 

@@ -28,10 +28,11 @@ the CPU.
   ``softsplat_torch``'s band partials (``row0``, ``out_rows``) over 2 and 3
   bands add up to the whole splat within f32 rounding, on flow that crosses
   the bands' edges and leaves the frame.
-* EISAI's and GMFSS base's pair splits raise at their first op without a
-  row-band rule (EISAI's ``Tensor.flatten``, GMFSS's ``var_mean``),
-  naming the ``ROADMAP.md`` item (XVFI's split runs:
-  ``tests/test_torch_space_xvfi.py``).
+* ATM base's and MoMo base's splits through ``make_sharded_model_fn``
+  raise at their first op without a row-band rule (ATM's ``layer_norm``,
+  MoMo's ``Tensor.reshape`` that merges the rows), naming the
+  ``ROADMAP.md`` item (the pair-cached families all run on the axis:
+  ``tests/test_torch_space_{xvfi,x4k,gmfss,eisai}.py``).
 
 One JAX compile (the sharded pair functions at 256x128).
 
@@ -63,7 +64,7 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_t
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan_pair_cached
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import eisai, gmfss, m2m
+from comfyui_frame_interpolation_tpu_torch.models import atm, m2m, momo
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_partial, softsplat_torch
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_torch
 from comfyui_frame_interpolation_tpu_torch.parallel import space
@@ -199,20 +200,24 @@ def test_softsplat_band_outside_the_frame_raises():
         softsplat_torch(vals, flow, row0=4, out_rows=10)
 
 
-# ---- the pair-cached families without rules --------------------------------------------
+# ---- the families without rules --------------------------------------------------------
 
 NO_RULES = {
-    "eisai": lambda d: eisai.make_pair_fns(eisai.init_params(0), device=d, iters=2),
-    "gmfss": lambda d: gmfss.make_pair_fns(gmfss.init_params(0), device=d),
+    "atm": (lambda d: atm.make_model_fn(atm.init_params("base", 0), device=d), "layer_norm"),
+    "momo": (lambda d: momo.make_model_fn(momo.init_params(0), num_inference_steps=1, device=d), r"Tensor\.reshape"),
 }
 
 
 @pytest.mark.parametrize("family", list(NO_RULES))
 def test_a_pair_split_without_rules_raises(family):
-    reuse, _ = parallel.make_sharded_pair_fns(NO_RULES[family], parallel.make_mesh(2, devices=_replicas(2)))
+    """A frame pair split over the rows (``make_sharded_model_fn``) of a
+    family whose ops the rules do not cover yet raises at its first such
+    op, naming it and the ``ROADMAP.md`` item."""
+    make, op = NO_RULES[family]
+    fn = parallel.make_sharded_model_fn(make, parallel.make_mesh(2, devices=_replicas(2)))
     f = torch.rand(2, 128, 64, 3)
-    with pytest.raises(NotImplementedError, match="has no row-band rule: .*ROADMAP.md Queue 1 item"):
-        reuse(f, f)
+    with pytest.raises(NotImplementedError, match=f"^{op}.* has no row-band rule: .*ROADMAP.md Queue 1 item 3"):
+        fn(f, f, torch.full((2,), 0.5))
 
 
 def _gaps(h, w):
