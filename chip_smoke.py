@@ -518,10 +518,10 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    atomics), bf16 >= 40 dB against the f32 one-device frames, the
    launches read (K1 8, wide 32, K2 2 a pair batch: twice one device's 4,
    16, 1); frames/s of both in turns (one round), peak memory and a
-   profile of one pair batch (idle share) of each; ATM base's and MoMo
-   base's splits through ``make_sharded_model_fn`` still raise
-   ``NotImplementedError`` at their first op without a rule, naming
-   ``ROADMAP.md``'s item;
+   profile of one pair batch (idle share) of each; an M2M training step
+   on the mesh still raises ``NotImplementedError`` at its first op without
+   a rule (the splat with a gradient), naming ``ROADMAP.md``'s item (every
+   family's inference splits; the training steps but RIFE 4.7's do not);
 76. K2 band -- K2 with a band of sources (``row0``, ``out_rows``): M2M's
    ``[16, 1088, 1920, 4]`` f32 and bf16 splat in the two bands of the
    ``(1, 2)`` mesh, each a whole-frame f32 partial, against the twin's band;
@@ -544,7 +544,8 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    warps bit for bit, K2's partial within phase 7's f32 tolerance
    (``band_launches_vs_plain``); frames/s of one pair batch in turns (one
    round), peak memory and a profile (idle share, kernels) of each.
-78. FILM split -- FILM 1080p x2 b2 the same way through
+78. FILM split -- FILM 1080p x2 b2 the same way (each f32 run against
+   itself only on the paths that launch K2, here and in 79-90) through
    ``make_sharded_model_fn`` + ``run_plan`` (``film.warps_per_forward``:
    K1 5 and wide 11 a forward, twice on the mesh; the pyramid's 135 -> 67
    rows put the bilinear and nearest resizes on rows by a ratio that is not
@@ -609,11 +610,30 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    correlation, its convex upsampling and the distance transform handed
    over), K1 2 and K2 8 an infer on one device and exactly twice on the
    mesh, K2's f32 partials at C = 6, 66, 258 and 514 against the plain
-   version.
+   version;
+89. ATM split -- ATM base 1080p x2 b1 (3 frames, two forward calls),
+   global motion on (the node's default), through ``make_sharded_model_fn``
+   + ``run_plan`` as phase 78: the centred edge pad to 1088 rows makes the
+   bands 580 + 508, and the Swin windows cross the band edge at 1/8 and
+   1/16 (each band computes the windows that hold its rows, under the shift
+   with the rows the roll wraps from the frame's other end); K1 12 and wide
+   4 a forward on one device (``atm.warps_per_forward``) and exactly twice
+   on the mesh, each band's launch of one bf16 split call bit for bit its
+   plain version; f32 within twice one device's own gap for its inputs one
+   f32 ulp up (or 1e-4), bf16 at 40 dB against the f32 one-device frames or
+   within 0.5 dB of one device's bf16; then one f32 call with the ensemble
+   at 540p (K1 18, wide 4 on one device, twice on the mesh) held the same
+   way;
+90. MoMo split -- MoMo base 1080p x2 b1 the same way, conditioned heads
+   (``momo_conditioned``), 2 denoising steps, the noise drawn from seed 0
+   for the whole batch on the first band's device and cut into the bands
+   (the GroupNorm, the replicate pad, the convex upsampling, the frames'
+   statistics, the bicubic pyramids and backwarps handed over); no hand
+   kernel; f32 as phase 89, bf16 within 0.5 dB of one device's bf16.
 
 Each phase starts with a ``clock:`` line, the seconds since the run began.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-88 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-90 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -655,9 +675,11 @@ phases 85-86's as ``flavr_space_2way`` and ``stmfnet_space_2way`` (the
 wide kernel's entries hold the rows, K2's STMFNet's too), and phases
 87-88's as ``gmfss_space_2way``, ``gmfss_union_space_2way`` and
 ``eisai_space_2way`` (K2's entries of those names hold the rows, with K2's
-band shapes at the wide widths; the wide kernel's GMFSS's). CAIN, Sepconv,
-FLAVR and MoMo launch no hand kernel (``launches_by_path`` holds ``momo:
-0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
+band shapes at the wide widths; the wide kernel's GMFSS's), and phases
+89-90's as ``atm_sharded_2way`` and ``momo_sharded_2way`` (the wide
+kernel's ``atm_sharded_2way`` holds phase 89's row, its ensemble call's
+too). CAIN, Sepconv, FLAVR and MoMo launch no hand kernel
+(``launches_by_path`` holds ``momo: 0`` and ``momo_sharded_2way: 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
 (``library_ms``), ``by_shape`` (phase 50's four rows),
 ``per_step`` (one f32 training step's launches, device ms and bound) and
@@ -3889,8 +3911,8 @@ def main() -> int:
     spans = {}
     targets = [
         (atm, "_mha", "attention (scores, mask, softmax, value product)"),
-        (atm._Windows, "split", "windows (pad, roll, partition)"),
-        (atm._Windows, "merge", "windows back (reverse, roll, crop)"),
+        (atm, "_window_partition", "window partition"),
+        (atm, "_window_reverse", "windows back (reverse)"),
         (atm.AttentionToMotion, "forward", "attention to motion (q, kv, proj, motion readout, with its attention)"),
         (atm.ATMFormer, "forward", "ATMFormer blocks"),
         (atm.RefineBottleneck, "forward", "RefineBottleneck blocks"),
@@ -5537,20 +5559,20 @@ def main() -> int:
     m2m_bf16_one_db = psnr(m2m_space_out["bfloat16"][0], m2m_space_out["float32"][0])
     check(m2m_bf16_db >= 40.0, f"M2M bf16 on the (1, 2) mesh: {m2m_bf16_db:.2f} dB against the f32 one-device frames, below 40")
     del m2m_space_out, mclip75
-    # a family without the rules it needs still raises at its first such op
+    # every family's inference splits; a training step on the axis other
+    # than RIFE 4.7's still raises at its first op without a rule (M2M's
+    # splat with a gradient), naming ROADMAP.md's item
     raised75 = {}
-    tall = torch.zeros((2, 128, 128, 3), device=dev)
-    for family, make75 in {
-        "ATM base": lambda d: atm.make_model_fn(atm.init_params("base", 0), device=d),
-        "MoMo base": lambda d: momo.make_model_fn(momo.init_params(0), num_inference_steps=1, device=d),
-    }.items():
-        try:
-            parallel.make_sharded_model_fn(make75, mesh_s)(tall, tall, torch.full((2,), 0.5, device=dev))
-            check(False, f"make_sharded_model_fn ({family}) on a (1, 2) mesh at 128 rows did not raise")
-        except NotImplementedError as e:
-            check("has no row-band rule" in str(e) and "ROADMAP.md Queue 1 item 3" in str(e),
-                  f"make_sharded_model_fn ({family}) on a (1, 2) mesh raised {e}")
-            raised75[family] = str(e).split(" has no row-band rule")[0]
+    tall = torch.rand((2, 128, 128, 3), device=dev)
+    _, m2m_step75 = m2m_trainer(dev, torch.float32, mesh_s)
+    try:
+        m2m_step75(tall, tall.flip(1), torch.full((2,), 0.5, device=dev), tall)
+        check(False, "an M2M training step on a (1, 2) mesh at 128 rows did not raise")
+    except NotImplementedError as e:
+        check("has no row-band rule" in str(e) and "ROADMAP.md Queue 1 item 3" in str(e),
+              f"an M2M training step on a (1, 2) mesh raised {e}")
+        raised75["M2M training step"] = str(e).split(" has no row-band rule")[0]
+    del m2m_step75
     del tall
     torch.cuda.empty_cache()
     print(
@@ -5565,7 +5587,7 @@ def main() -> int:
             f"run_plan_pair_cached peak {r['peak_run_plan_pair_cached_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, "
             f"{r['kernels']} kernels"
             for name, rows_ in m2m_space_rows.items() for key, r in rows_.items()
-        ) + f"; the splits that still raise, at: {raised75}; phase {time.perf_counter() - t0:.1f} s",
+        ) + f"; the training step that still raises on the axis, at: {raised75}; phase {time.perf_counter() - t0:.1f} s",
         flush=True,
     )
 
@@ -5644,7 +5666,7 @@ def main() -> int:
     # on the (1, 2) mesh of replicas, each as phase 75: 3 frames x2 at b2 (one
     # batch), rows in bands of 576 + 504 (XVFI's zero pad to 1088 in the
     # second), against one device: f32 with TF32 off and cuDNN's
-    # deterministic algorithms (each run also against itself), bf16 against
+    # deterministic algorithms (each run also against itself where K2 runs), bf16 against
     # the f32 one-device frames; the launches of K1, the wide kernel and K2
     # twice one device's; every launch of one bf16 split call made again on
     # its band against the plain version; frames/s in turns (one round in
@@ -5692,7 +5714,9 @@ def main() -> int:
                 ts = time.perf_counter()
                 two_out, two_n, two_peak = executor_run(executor, clip, plan, *as_args(two), batch_size=batch)
                 secs[f"{name} (1, 2) mesh"] = time.perf_counter() - ts
-                if dtype == torch.float32:
+                if dtype == torch.float32 and want_one(dtype)["splat"]:
+                    # K2's f32 atomics sum in an order that changes from run
+                    # to run; without them, deterministic cuDNN repeats bits
                     ts = time.perf_counter()
                     two_again, _, _ = executor_run(executor, clip, plan, *as_args(two), batch_size=batch)
                     one_again, _, _ = executor_run(executor, clip, plan, *as_args(one), batch_size=batch)
@@ -5700,6 +5724,7 @@ def main() -> int:
                     settings = {"split_repeat_max_abs_diff": (two_again - two_out).abs().max().item(),
                                 "one_device_repeat_max_abs_diff": (one_again - one_out).abs().max().item()}
                     del two_again, one_again
+                if dtype == torch.float32:
                     if f32_nudge:
                         ts = time.perf_counter()
                         nudged, _, _ = executor_run(executor, torch.nextafter(clip, torch.full_like(clip, 2.0)), plan,
@@ -5788,8 +5813,10 @@ def main() -> int:
             f"{row['mids']} mids) on a (1, 2) mesh of "
             f"replicas of the card, "
             f"bands {band_rows(row['rows'], 2)}: f32 (TF32 off, cuDNN deterministic) max abs {row['f32_max_abs_err']:.3g} from one "
-            f"device, the (1, 2) run against itself {row['f32_settings']['split_repeat_max_abs_diff']:.3g}, one device against "
-            f"itself {row['f32_settings']['one_device_repeat_max_abs_diff']:.3g}"
+            f"device"
+            + (f", the (1, 2) run against itself {row['f32_settings']['split_repeat_max_abs_diff']:.3g}, one device against "
+               f"itself {row['f32_settings']['one_device_repeat_max_abs_diff']:.3g}"
+               if "split_repeat_max_abs_diff" in row["f32_settings"] else "")
             + (f", one device for inputs one ulp up {row['f32_settings']['one_device_one_ulp_input_max_abs_diff']:.3g}"
                if "one_device_one_ulp_input_max_abs_diff" in row["f32_settings"] else "")
             + f"; bf16 {row['bf16_psnr_db']:.2f} dB against the "
@@ -6007,6 +6034,84 @@ def main() -> int:
     del eisai_params88
     space_split_line(88, "EISAI (pair-cached: reuse + infer)", eisai_space, t0)
 
+    # ---- 89-90. ATM and MoMo through the split (run_plan) -------------------------------------
+    clock("89-90")
+    # each as phase 78 through make_sharded_model_fn + run_plan at b1 (the
+    # bench's batch: two forward calls of 3 frames x2 at 1080p). ATM base with
+    # global motion (the node's default): its centred edge pad to 1088 rows
+    # makes the bands 580 + 508, and Swin windows cross the band edge at 1/8
+    # and 1/16; K1 12 and wide 4 a forward on one device
+    # (atm.warps_per_forward), exactly twice on the mesh, each band's launch
+    # of one bf16 split call against its plain version; then one f32 call with
+    # the ensemble at 540p, K1 18 and wide 4 on one device, against one device.
+    # MoMo base with the conditioned heads (momo_conditioned), 2 denoising
+    # steps, its noise drawn from seed 0 for the whole batch on the first
+    # band's device and cut into the bands; no hand kernel. f32 (TF32 off,
+    # cuDNN deterministic) within twice one device's own gap for its inputs one
+    # f32 ulp up, or 1e-4 where that is smaller (f32_nudge: MoMo's flows are
+    # its latents x128); bf16 at 40 dB or more against the f32 one-device
+    # frames (ATM), or within 0.5 dB of one device's bf16
+    slice26 = {}
+    t0 = time.perf_counter()
+    atm_params89 = atm.init_params("base", 0)
+
+    def atm_want(dtype, ensemble=False, forwards=2):
+        return {k: forwards * v for k, v in {**atm.warps_per_forward("base", True, ensemble, dtype), "splat": 0}.items()}
+
+    slice26["atm_sharded_2way"] = atm_space = space_split_phase(
+        "ATM base", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: atm.make_model_fn(atm_params89, "base", dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=89)).to(dev), plan_timestep(3, 2), atm_want,
+        lambda fn: fn, batch=1, calls=2, bf16_within_db=0.5, bf16_floor_db=40.0, f32_nudge=True,
+    )
+    # the ensemble: one f32 call at 540p, split against one device and one
+    # device against itself for its inputs one f32 ulp up
+    ens_one = atm.make_model_fn(atm_params89, "base", True, True, device=dev)
+    ens_two = parallel.make_sharded_model_fn(lambda d: ens_one, mesh_s)
+    pair89 = torch.from_numpy(shifted_pattern(2, 540, 960, seed=891)).to(dev)
+    half = torch.full((1,), 0.5, device=dev)
+    ens_out, ens_n = {}, {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, fn, frames_ in (("one device", ens_one, pair89), ("(1, 2) mesh", ens_two, pair89),
+                                 ("one device, inputs one ulp up", ens_one, torch.nextafter(pair89, torch.full_like(pair89, 2.0)))):
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            ens_out[key] = fn(frames_[:1], frames_[1:], half).cpu()
+            ens_n[key] = {k: v for k, v in kernel_counts().items() if k in ("narrow", "wide", "splat")}
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    ens_want = atm_want(torch.float32, ensemble=True, forwards=1)
+    check(ens_n["one device"] == ens_want and ens_n["(1, 2) mesh"] == {k: 2 * v for k, v in ens_want.items()},
+          f"ATM base ensemble f32 launches: one device {ens_n['one device']}, the (1, 2) mesh {ens_n['(1, 2) mesh']}; "
+          f"expected {ens_want} and twice that")
+    ens_err = (ens_out["(1, 2) mesh"] - ens_out["one device"]).abs().max().item()
+    ens_nudge = (ens_out["one device, inputs one ulp up"] - ens_out["one device"]).abs().max().item()
+    check(tuple(ens_out["(1, 2) mesh"].shape) == (1, 540, 960, 3) and ens_err <= max(1e-4, 2 * ens_nudge),
+          f"ATM base ensemble f32 540p on the (1, 2) mesh: max abs {ens_err} from one device, above max(1e-4, twice "
+          f"{ens_nudge}, one device's own gap for its inputs one ulp up)")
+    atm_space["ensemble_540p_f32"] = {"max_abs_err": ens_err, "one_device_one_ulp_input_max_abs_diff": ens_nudge,
+                                      "launches": ens_n}
+    del atm_params89, ens_one, ens_two, pair89, ens_out
+    torch.cuda.empty_cache()
+    space_split_line(89, "ATM base (global motion; edge-padded to 1088 rows inside)", atm_space, t0)
+    print(f"space {card}: phase 89: ATM base ensemble 540p f32 on the (1, 2) mesh: max abs {ens_err:.3g} from one device "
+          f"(one device for its inputs one ulp up {ens_nudge:.3g}); launches {ens_n}", flush=True)
+
+    t0 = time.perf_counter()
+    momo_params90 = momo_conditioned(momo.init_params(0, "momo-base.pth"))
+    slice26["momo_sharded_2way"] = momo_space = space_split_phase(
+        "MoMo base", run_plan, parallel.make_sharded_model_fn,
+        lambda dtype: momo.make_model_fn(momo_params90, "momo-base.pth", num_inference_steps=2, dtype=dtype, device=dev),
+        torch.from_numpy(shifted_pattern(3, 1080, 1920, seed=90)).to(dev), plan_timestep(3, 2),
+        lambda dtype: {"narrow": 0, "wide": 0, "splat": 0}, lambda fn: fn, batch=1, calls=2, bf16_within_db=0.5,
+        f32_nudge=True,
+    )
+    del momo_params90
+    space_split_line(90, "MoMo base (conditioned heads, 2 steps; edge-padded to 1088 rows inside)", momo_space, t0)
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -6038,7 +6143,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-88 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-90 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -6054,7 +6159,7 @@ def main() -> int:
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
             + space_train_launches["narrow"] + m2m_space_launches["narrow"] + xvfi_space["launches"]["narrow"]
-            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values())),
+            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values(), *slice26.values())),
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -6069,7 +6174,7 @@ def main() -> int:
                 **family_launches["narrow"], "rife_space_2way": space_launches["narrow"],
                 "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
                 "xvfi_space_2way": xvfi_space["launches"]["narrow"], "film_space_2way": film_space["launches"]["narrow"],
-                **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items())},
+                **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items(), *slice26.items())},
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -6101,7 +6206,7 @@ def main() -> int:
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
             + sum(family_launches["wide"].values()) + m2m_space_launches["wide"] + xvfi_space["launches"]["wide"]
-            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values())),
+            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values(), *slice26.values())),
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -6112,7 +6217,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["wide"], "m2m_train": m2m_train_launches["wide"],
                 **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
                 "xvfi_space_2way": xvfi_space["launches"]["wide"], "film_space_2way": film_space["launches"]["wide"],
-                **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items())},
+                **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items(), *slice26.items())},
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -6144,6 +6249,7 @@ def main() -> int:
             **slice24,
             "gmfss_space_2way": slice25["gmfss_space_2way"],
             "gmfss_union_space_2way": slice25["gmfss_union_space_2way"],
+            "atm_sharded_2way": slice26["atm_sharded_2way"],
         },
         {
             "name": "softsplat",
@@ -6154,7 +6260,7 @@ def main() -> int:
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
             + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"]
-            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in (*slice23.values(), *slice24.values(), *slice25.values())),
+            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in (*slice23.values(), *slice24.values(), *slice25.values(), *slice26.values())),
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -6164,7 +6270,7 @@ def main() -> int:
                 "m2m_sharded_2way": m2m_sharded2_launches["splat"], "m2m_train": m2m_train_launches["splat"],
                 **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
                 "xvfi_space_2way": xvfi_space["launches"]["splat"], "film_space_2way": film_space["launches"]["splat"],
-                **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items())},
+                **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items(), *slice26.items())},
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",

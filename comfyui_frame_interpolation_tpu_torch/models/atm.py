@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..ops.cuda.warp_kernel import route_counts
 from ..ops.warp import warp
@@ -175,32 +176,73 @@ def _window_reverse(win: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
 
 
-class _Windows:
-    """The window view of an NHWC map: padded centred to whole windows,
-    rolled by ``-shift``, partitioned (:meth:`split`), and back
-    (:meth:`merge`), with its mask."""
+def _windowed(blk: nn.Module, x: torch.Tensor, shift: int) -> tuple:
+    """``blk.attend`` on the windows of NHWC ``x`` (padded centred to whole
+    windows, rolled by ``-shift``) and its outputs merged back: the tokens
+    (and ``ATMFormer``'s motion). The whole frame is every window row
+    (:func:`window_rows_of`, :func:`windowed_rows`). Row bands
+    (``parallel.space``) go to their own rule: each band computes the
+    windows that hold its rows, their rows read from its neighbours and,
+    under the shift, from the frame's other end."""
+    if has_torch_function((x,)):
+        return handle_torch_function(_windowed, (x,), blk, x, shift)
+    h = x.shape[1]
+    wins, pad, rows, keep = _frame_rows(h, blk.window, shift, x.device)
+    x = F.pad(x, (0, 0, 0, 0, *pad)) if any(pad) else x
+    out = windowed_rows(blk, x if rows is None else x.index_select(1, rows), shift, h, x.shape[2], wins)
+    return tuple(o[:, pad[0] : pad[0] + h] if keep is None else o.index_select(1, keep) for o in out)
 
-    def __init__(self, x: torch.Tensor, window: int, shift: int):
-        _, self.h, self.w, _ = x.shape
-        self.window, self.shift = window, shift
-        self.ph, self.pw = _pad_sizes(self.h, self.w, (window, window))
-        self.mask = _device_mask(self.h, self.w, window, shift, x.device)
 
-    def split(self, x: torch.Tensor) -> torch.Tensor:
-        ph, pw = self.ph, self.pw
-        if ph or pw:
-            x = F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
-        if self.shift:
-            x = torch.roll(x, (-self.shift, -self.shift), (1, 2))
-        return _window_partition(x, self.window)
+@functools.lru_cache(maxsize=None)
+def _frame_rows(h: int, window: int, shift: int, device: torch.device) -> tuple:
+    """The whole frame's :func:`window_rows_of`: every window row, the
+    centred pad (top, bottom), and under the shift the padded map's rows in
+    window order and the place of each frame row among them (on
+    ``device``, made once; without the shift the order is the padded map's
+    own, and both are None)."""
+    wins, src = window_rows_of(h, window, shift, 0, h)
+    top = -min(src)
+    if not shift:
+        return wins, (top, len(src) - h - top), None, None
+    with torch.inference_mode(False):
+        rows = torch.tensor(src, device=device) + top
+        return wins, (top, len(src) - h - top), rows, rows.argsort()[top : top + h]
 
-    def merge(self, win: torch.Tensor) -> torch.Tensor:
-        x = _window_reverse(win, self.window, self.h + self.ph, self.w + self.pw)
-        if self.shift:
-            x = torch.roll(x, (self.shift, self.shift), (1, 2))
-        if self.ph or self.pw:
-            x = x[:, self.ph // 2 : self.ph // 2 + self.h, self.pw // 2 : self.pw // 2 + self.w]
-        return x
+
+def window_rows_of(h: int, window: int, shift: int, lo: int, hi: int) -> Tuple[List[int], List[int]]:
+    """The window rows of the padded, rolled map of ``h``
+    rows that hold the frame's rows ``lo`` to ``hi``, ascending, and the
+    frame row each of their rows holds, in order (outside ``[0, h)`` for
+    the centred pad's rows). Rolled row ``r`` holds padded row ``(r +
+    shift) mod hp``, which holds frame row ``p - ph // 2``."""
+    ph = -h % window
+    top, hp = ph // 2, h + ph
+    wins = sorted({((g + top - shift) % hp) // window for g in range(lo, hi)})
+    return wins, [(wi * window + t + shift) % hp - top for wi in wins for t in range(window)]
+
+
+def windowed_rows(blk: nn.Module, tall: torch.Tensor, shift: int, h: int, w: int, wins: List[int]) -> tuple:
+    """:func:`_windowed` of the window rows ``wins`` of the padded, rolled
+    map of an ``h`` x ``w`` frame only: ``tall`` (``[B, len(wins) * window,
+    w, C]``) holds their rows in order (:func:`window_rows_of`; zeros for
+    the pad), and the outputs come back in that order, with the masks of
+    those windows."""
+    ws = blk.window
+    ph, pw = _pad_sizes(h, w, (ws, ws))
+    x = F.pad(tall, (0, 0, pw // 2, pw - pw // 2)) if pw else tall
+    if shift:
+        x = torch.roll(x, -shift, 2)
+    mask = _device_mask(h, w, ws, shift, tall.device)
+    if mask is not None and len(wins) < (h + ph) // ws:
+        n = mask.shape[-1]
+        mask = mask.view(-1, (w + pw) // ws, n, n)[wins].flatten(0, 1)
+    out = []
+    for o in blk.attend(_window_partition(x, ws), mask):
+        y = _window_reverse(o, ws, len(wins) * ws, w + pw)
+        if shift:
+            y = torch.roll(y, shift, 2)
+        out.append(y[:, :, pw // 2 : pw // 2 + w] if pw else y)
+    return tuple(out)
 
 
 # ---- attention ------------------------------------------------------------------------
@@ -286,13 +328,16 @@ class ATMFormer(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = MlpDW(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        win = _Windows(x, self.window, shift)
-        xn = self.norm1(win.split(x))
+    def attend(self, windows: torch.Tensor, mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The windows' tokens after the attention, and their motion."""
+        xn = self.norm1(windows)
         half = xn.shape[0] // 2  # frame 0's windows, then frame 1's
         x_rev = torch.cat([xn[half:], xn[:half]])
-        x_app, x_motion = self.attn(xn, x_rev, win.mask)
-        xb, xm = win.merge(xn + x_app), win.merge(x_motion)
+        x_app, x_motion = self.attn(xn, x_rev, mask)
+        return xn + x_app, x_motion
+
+    def forward(self, x: torch.Tensor, shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        xb, xm = _windowed(self, x, shift)
         return xb + self.mlp(self.norm2(xb)), xm
 
 
@@ -315,13 +360,16 @@ class RefineBottleneck(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = MlpDW(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, shift: int) -> torch.Tensor:
-        c = x.shape[-1]
-        win = _Windows(x, self.window, shift)
-        xn = self.norm1(win.split(x))
+    def attend(self, windows: torch.Tensor, mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor]:
+        """The windows' tokens after the attention."""
+        c = windows.shape[-1]
+        xn = self.norm1(windows)
         qkv = self.attn.qkv(xn)
-        out, _ = _mha(qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :], win.mask)
-        xb = win.merge(xn + self.attn.proj(out))
+        out, _ = _mha(qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :], mask)
+        return (xn + self.attn.proj(out),)
+
+    def forward(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        (xb,) = _windowed(self, x, shift)
         return xb + self.mlp(self.norm2(xb))
 
 
@@ -471,7 +519,6 @@ def _multiscale_global_ensemble(net: ATM, im0: torch.Tensor, im1: torch.Tensor):
     estimator at 3 input scales, each flow brought to 1/16 of the input, and
     per sample the scale of least :func:`_global_alignmentness`. Returns the
     flows and the losses ``[3, B]``."""
-    b = im0.shape[0]
     im = torch.cat([im0, im1])
     flows, losses = [], []
     for lvl in range(3):
@@ -482,9 +529,14 @@ def _multiscale_global_ensemble(net: ATM, im0: torch.Tensor, im1: torch.Tensor):
         losses.append(_global_alignmentness(f0, f1, im0, im1))
         flows.append((_upsample_flow(f0, 2**lvl), _upsample_flow(f1, 2**lvl)) if lvl else (f0, f1))
     loss = torch.stack(losses)
-    best = loss.argmin(0)
-    pick = torch.arange(b, device=best.device)
-    return tuple(torch.stack([f[i] for f in flows])[best, pick] for i in (0, 1)), loss
+    best = loss.argmin(0).view(-1, 1, 1, 1)
+    picked = []
+    for i in (0, 1):  # per sample the flow of its best scale, selected, not computed
+        f = flows[0][i]
+        for lvl in (1, 2):
+            f = torch.where(best != lvl, f, flows[lvl][i])
+        picked.append(f)
+    return tuple(picked), loss
 
 
 def _residual_refinement(net: ATM, feat, im0, it0, im1, it1, it, dec_feats) -> torch.Tensor:

@@ -262,9 +262,13 @@ def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int], antialias: bool = F
     and rounded once to ``x``'s dtype; the result is ``channels_last``.
     The antialiased resize runs on an f32 copy (torch's CPU kernel takes no
     bf16); the plain one sums in f32 inside for any dtype (the same values as
-    an f32 resize cast back, without the f32 copies)."""
+    an f32 resize cast back, without the f32 copies). A row band of
+    ``parallel.space`` goes to its own rule (the rows' taps of the global
+    ratio, then the columns)."""
     if tuple(out_hw) == tuple(x.shape[-2:]):
         return x
+    if has_torch_function((x,)):
+        return handle_torch_function(resize_bicubic, (x,), x, out_hw, antialias)
     if antialias:
         out = F.interpolate(x.float(), size=tuple(out_hw), mode="bicubic", align_corners=False, antialias=True)
     else:

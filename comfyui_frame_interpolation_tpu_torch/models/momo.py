@@ -21,11 +21,20 @@ run in the model dtype. Each GroupNorm (with the SiLU after it) takes its
 statistics and its affine in f32 on the ``channels_last`` memory.
 
 Noise: ``apply`` draws the initial latent and then one noise per step, f32
-at the latent shape ``[b, 4, h, w]``, from the ``generator`` it is given
-(``make_model_fn``: ``torch.Generator(device).manual_seed(seed)`` at every
-call); ``init_latents``/``step_noises`` replace the draws, so that the port
-and JAX run on the same noise. Torch cannot draw JAX's bits: for one seed
-the port's frames differ from the JAX node's.
+at the latent shape of the whole batch, ``[total, 4, h, w]``, from the
+``generator`` it is given (``make_model_fn``:
+``torch.Generator(device).manual_seed(seed)`` at every call), and keeps its
+own samples (``batch_slice``: a data shard of ``parallel``'s split holds
+samples ``start`` to ``start + b`` of ``total``), so that a seed gives one
+device's frames on any mesh; ``init_latents``/``step_noises`` replace the
+draws, so that the port and JAX run on the same noise. Torch cannot draw
+JAX's bits: for one seed the port's frames differ from the JAX node's.
+
+Row bands (``parallel.space``) go through the functions that need more rows
+than their own by handing them over (``handle_torch_function``): the
+GroupNorm, the replicate pad, the x8 convex upsampling, the frames' mean and
+std, the bicubic backwarp, ``common.resize_bicubic`` and the noise, drawn
+whole and cut into the frames' bands (:func:`_as_frame`).
 
 Tensors are NCHW in ``channels_last`` memory; frames are NHWC at the API.
 No hand kernel runs here: every layer is a cuDNN convolution or plain
@@ -35,12 +44,13 @@ PyTorch, and the sampler is ``grid_sample`` (``ops.warp.bicubic_sample``).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..ops.warp import bicubic_sample
 from .common import cast_params, channels_last_params, conv2d, init_state_dict, linear, resize_bicubic, resize_by_scale
@@ -63,19 +73,38 @@ def _group_norm_silu(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
     the affine in f32, rounded once to ``x``'s dtype; the result is
     ``channels_last``. (``F.group_norm`` copies such input to NCHW and back
     on the card, and reduces it with one block per sample and group: 32
-    blocks at batch 1.)"""
+    blocks at batch 1.) Row bands go to their own rule (the statistics from
+    the bands' partial sums, then :func:`group_affine_silu` band by band)."""
+    if has_torch_function((x,)):
+        return handle_torch_function(_group_norm_silu, (x,), x, gn)
+    var, mean = torch.var_mean(group_view(x).float(), dim=(1, 3), correction=0, keepdim=True)
+    return group_affine_silu(x, gn, mean, var)
+
+
+def group_view(x: torch.Tensor) -> torch.Tensor:
+    """NCHW ``channels_last`` ``x`` as ``[n, h * w, GROUPS, c / GROUPS]``."""
     n, c, h, w = x.shape
-    xv = x.permute(0, 2, 3, 1).reshape(n, h * w, GROUPS, c // GROUPS)
-    var, mean = torch.var_mean(xv.float(), dim=(1, 3), correction=0, keepdim=True)
+    return x.permute(0, 2, 3, 1).reshape(n, h * w, GROUPS, c // GROUPS)
+
+
+def group_affine_silu(x: torch.Tensor, gn: nn.GroupNorm, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """:func:`_group_norm_silu` of ``x`` by the f32 statistics ``mean`` and
+    ``var`` (``[n, 1, GROUPS, 1]``), which may be those of a whole frame
+    that ``x`` is a band of."""
+    n, c, h, w = x.shape
     scale = gn.weight.float().view(GROUPS, -1) * torch.rsqrt(var + gn.eps)
-    y = torch.addcmul(gn.bias.float().view(GROUPS, -1) - mean * scale, xv, scale)
+    y = torch.addcmul(gn.bias.float().view(GROUPS, -1) - mean * scale, group_view(x), scale)
     return F.silu(y, inplace=True).to(x.dtype).reshape(n, h, w, c).permute(0, 3, 1, 2)
 
 
 def _replicate_pad1(x: torch.Tensor) -> torch.Tensor:
     """NCHW ``x`` edge-padded by one pixel on each side, written into a
     ``channels_last`` tensor, so that the convolution after it reads it
-    without a layout copy (as ``cain._reflect_pad1`` does for its pad)."""
+    without a layout copy (as ``cain._reflect_pad1`` does for its pad). Row
+    bands go to their own rule (a halo row from each neighbour, the edge
+    replicated at the frame's top and bottom only)."""
+    if has_torch_function((x,)):
+        return handle_torch_function(_replicate_pad1, (x,), x)
     n, c, h, w = x.shape
     out = torch.empty((n, c, h + 2, w + 2), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
     out[:, :, 1 : h + 1, 1 : w + 1] = x
@@ -244,26 +273,28 @@ class _UNet2DCore(nn.Module):
         return _conv(self.conv_out, _group_norm_silu(x, self.conv_norm_out))
 
 
-def _neighborhood9(x: torch.Tensor) -> torch.Tensor:
-    """NHWC ``x`` -> ``[N, H, W, 9, C]``: the 3x3 neighbourhood of each pixel,
-    zero-padded, row-major (JAX ``_neighborhood9``)."""
-    n, h, w, c = x.shape
-    padded = F.pad(x, (0, 0, 1, 1, 1, 1))
-    return torch.stack([padded[:, dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)], 3)
-
-
 def _convex_upsampling8(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """RAFT-style x8 convex upsampling of the 4-channel flow (``unet.py:239-249``,
     JAX ``_convex_upsampling8_impl``), in f32, on NCHW tensors.
 
     The mask's channel ``f*576 + k*64 + p`` weighs tap ``k`` (of the 3x3
-    neighbourhood) of flow pair ``f`` for sub-pixel ``p = ky*8 + kx``; the
-    softmax runs over the 9 taps; output channel ``f*2 + c`` at ``(h*8 + ky,
-    w*8 + kx)``, times 8."""
-    b, _, h, w = flow.shape
+    neighbourhood, zero-padded) of flow pair ``f`` for sub-pixel ``p = ky*8 +
+    kx``; the softmax runs over the 9 taps; output channel ``f*2 + c`` at
+    ``(h*8 + ky, w*8 + kx)``, times 8. Row bands go to their own rule (a halo
+    row from each neighbour, :func:`convex_upsampling8_rows`)."""
+    if has_torch_function((flow, mask)):
+        return handle_torch_function(_convex_upsampling8, (flow, mask), flow, mask)
+    return convex_upsampling8_rows(F.pad(flow, (0, 0, 1, 1)), mask)
+
+
+def convex_upsampling8_rows(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`_convex_upsampling8` of the rows of ``mask``: ``flow`` holds
+    them and one more above and below (zeros beyond the frame)."""
+    b, _, h, w = mask.shape
     m = torch.softmax(mask.permute(0, 2, 3, 1).float().reshape(b, h, w, 2, 9, 64), dim=4)
-    taps = _neighborhood9(flow.permute(0, 2, 3, 1).float()).reshape(b, h, w, 9, 2, 2)
-    up = torch.einsum("bhwfkp,bhwkfc->bhwfcp", m, taps)
+    padded = F.pad(flow.permute(0, 2, 3, 1).float(), (0, 0, 1, 1))
+    taps = torch.stack([padded[:, dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)], 3)
+    up = torch.einsum("bhwfkp,bhwkfc->bhwfcp", m, taps.reshape(b, h, w, 9, 2, 2))
     up = up.reshape(b, h, w, 2, 2, 8, 8).permute(0, 1, 5, 2, 6, 3, 4).reshape(b, h * 8, w * 8, 4)
     return (up * 8.0).permute(0, 3, 1, 2)
 
@@ -324,14 +355,18 @@ class ConvexUpUNet(nn.Module):
 # ------------------------------------------------------------------ synthesis
 
 
-def _backwarp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def _backwarp(img: torch.Tensor, flow: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """``flow.py`` BackWarp as ``SynthesisNet`` sets it (bicubic, normalized
     by ``w``, ``align_corners=False``): bicubic sampling of NCHW ``img`` at
     ``x + u - 0.5``, zeros padding, the grid in f32 from an integer iota (JAX
-    builds it in the flow's dtype)."""
-    _, _, h, w = img.shape
+    builds it in the flow's dtype). ``flow`` may hold only the rows from
+    ``row0`` of ``img``'s frame (a band's). Row bands go to their own rule
+    (``img`` gathered whole onto each band's device, the band's rows)."""
+    if has_torch_function((img, flow)):
+        return handle_torch_function(_backwarp, (img, flow), img, flow, row0)
+    w, rows = img.shape[3], flow.shape[2]
     gx = torch.arange(w, dtype=torch.float32, device=img.device).view(1, 1, w)
-    gy = torch.arange(h, dtype=torch.float32, device=img.device).view(1, h, 1)
+    gy = torch.arange(row0, row0 + rows, dtype=torch.float32, device=img.device).view(1, rows, 1)
     sx = gx + flow[:, 0].float() - 0.5
     sy = gy + flow[:, 1].float() - 0.5
     return bicubic_sample(img.permute(0, 2, 3, 1), sx, sy, padding_mode="zeros").permute(0, 3, 1, 2)
@@ -401,7 +436,11 @@ class SynthesisNet(nn.Module):
 
 def _mean_std(frames6: torch.Tensor):
     """Per sample, the mean and the ``ddof=1`` std (plus 1e-8) of the
-    flattened frames, f32, shaped ``[b, 1, 1, 1]``."""
+    flattened frames, f32, shaped ``[b, 1, 1, 1]``. Row bands go to their
+    own rule (``std_mean`` over dimensions 1-3 from the bands' partial
+    sums)."""
+    if has_torch_function((frames6,)):
+        return handle_torch_function(_mean_std, (frames6,), frames6)
     flat = frames6.float().reshape(frames6.shape[0], -1)
     std, mean = torch.std_mean(flat, dim=1, correction=1)
     return mean.view(-1, 1, 1, 1), (std + 1e-8).view(-1, 1, 1, 1)
@@ -454,6 +493,15 @@ class MoMo(nn.Module):
         self.synth_model = SynthesisNet()
 
 
+def _as_frame(noise: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+    """``noise`` (``[b, 4, h, w]``, drawn whole on ``frame``'s device) as
+    ``frame`` holds its rows: itself for a plain frame; row bands go to
+    their own rule, which cuts it into the frame's bands."""
+    if has_torch_function((frame,)):
+        return handle_torch_function(_as_frame, (frame,), noise, frame)
+    return noise
+
+
 def apply(
     net: MoMo,
     img0: torch.Tensor,
@@ -462,16 +510,23 @@ def apply(
     generator: Optional[torch.Generator] = None,
     init_latents: Optional[torch.Tensor] = None,
     step_noises: Optional[List[torch.Tensor]] = None,
+    batch_slice: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """``MoMo.forward`` eval path (momo.py:153-224; JAX ``apply``) on NCHW
     frames in the model dtype, padded to multiples of 64: the midpoint frame,
     f32 in [0, 1].
 
-    The initial latent and each step's noise are f32 ``[b, 4, h, w]`` draws
-    from ``generator`` (the device's default generator if None), in that
-    order, unless ``init_latents`` / ``step_noises`` (NCHW, one per step)
-    give them."""
+    The initial latent and each step's noise are f32 draws from
+    ``generator`` (the device's default generator if None), in that order,
+    unless ``init_latents`` / ``step_noises`` (NCHW, one per step) give
+    them. Each draw is ``[total, 4, h, w]``, of which the frames are samples
+    ``start`` to ``start + b`` (``batch_slice = (start, total)``; the whole
+    draw, ``(0, b)``, by default): a data shard of a batch draws the whole
+    batch's noise, as one device does."""
     b, _, h, w = img0.shape
+    start, total = (0, b) if batch_slice is None else batch_slice
+    if not 0 <= start <= total - b:
+        raise ValueError(f"batch_slice {batch_slice} does not hold a batch of {b}")
     dtype = img0.dtype
     frames6 = torch.cat([img0, img1], 1)
     mean, std = _mean_std(frames6)
@@ -479,8 +534,8 @@ def apply(
 
     def draw(given: Optional[torch.Tensor]) -> torch.Tensor:
         if given is None:
-            given = torch.randn((b, 4, h, w), generator=generator, device=img0.device, dtype=torch.float32)
-        return given.to(device=img0.device, dtype=torch.float32).contiguous(memory_format=torch.channels_last)
+            given = torch.randn((total, 4, h, w), generator=generator, device=img0.device, dtype=torch.float32)[start : start + b]
+        return _as_frame(given.to(device=img0.device, dtype=torch.float32).contiguous(memory_format=torch.channels_last), img0)
 
     scheduler = DDPM()
     latents = draw(init_latents)
@@ -508,11 +563,16 @@ def make_model_fn(
     t) -> mid`` (``t`` unused: MoMo makes the midpoint), NHWC frames in, cast
     to ``dtype``, edge-padded to multiples of 64, centred; each call draws
     its noise from ``torch.Generator(device).manual_seed(seed)``; the result
-    cropped, clipped and float32 NHWC."""
+    cropped, clipped and float32 NHWC. ``batch_slice=(start, total)`` (given
+    by ``parallel.make_sharded_model_fn`` to each data shard) says that the
+    frames are samples ``start`` to ``start + b`` of a batch of ``total``:
+    the noise is drawn for the whole batch and the shard keeps its own, so a
+    seed gives one device's frames on any mesh."""
     net = _load(params, ckpt_name, dtype, device)
 
     @torch.inference_mode()
-    def model_fn(f0: torch.Tensor, f1: torch.Tensor, t: torch.Tensor = None) -> torch.Tensor:
+    def model_fn(f0: torch.Tensor, f1: torch.Tensor, t: torch.Tensor = None,
+                 batch_slice: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         _, h, w, _ = f0.shape
         ph, pw = (-h) % PAD_MULTIPLE, (-w) % PAD_MULTIPLE
         top, left = ph // 2, pw // 2
@@ -524,7 +584,7 @@ def make_model_fn(
             return f.contiguous(memory_format=torch.channels_last)
 
         generator = torch.Generator(device=device).manual_seed(seed)
-        out = apply(net, pad(f0), pad(f1), num_inference_steps, generator=generator)
+        out = apply(net, pad(f0), pad(f1), num_inference_steps, generator=generator, batch_slice=batch_slice)
         return out[:, :, top : top + h, left : left + w].clamp(0.0, 1.0).permute(0, 2, 3, 1).float()
 
     return model_fn

@@ -20,22 +20,26 @@ wrappers also cut each data shard's NHWC frames into row bands over that
 shard's row of devices (``parallel.space.split_rows``), the model runs on
 them through the row-band rules, and the output's bands are gathered on the
 first device in global row order. :func:`make_sharded_model_fn` runs RIFE
-(every arch), FILM, IFRNet, AMT, IFUnet, CAIN and Sepconv so, and the
-window-4 models FLAVR and STMFNet (``run_plan_window4``: all four frames of
-each window cut into the same bands);
+(every arch), FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv, ATM (base and lite,
+global motion off, on and with the ensemble) and MoMo (base and lite) so,
+and the window-4 models FLAVR and STMFNet (``run_plan_window4``: all four
+frames of each window cut into the same bands);
 :func:`make_sharded_pair_fns` runs every pair-cached family: M2M, XVFI
 (Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI, whose caches
 then hold row bands (``RowBands`` leaves beside plain tensors such as M2M's
 frame mean; all of XVFI's, GMFSS's flows, metrics and feature pyramids,
 EISAI's two flows), each shard's on its own row of devices, and go back to
-the same shard's ``infer_fn``. Any other model raises at its first op
-without a rule (ATM's ``layer_norm``, MoMo's reshape of the rows), naming
-it and ``ROADMAP.md``'s item; nothing runs data-parallel in place of a row
-split.
+the same shard's ``infer_fn``. So every family's inference splits by rows;
+a model with an op that no rule covers raises at it, naming it and
+``ROADMAP.md``'s item, and nothing runs data-parallel or on the whole frame
+in place of a row split. MoMo draws noise: each data shard draws the whole
+batch's and keeps its own samples (``batch_slice``), so a seed gives one
+device's frames on any mesh.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -53,6 +57,13 @@ def _per_device(make_fn: Callable[[torch.device], Any], mesh: Mesh) -> List[Any]
         if d not in built:
             built[d] = make_fn(d)
     return [built[d] for d in mesh.data_devices()]
+
+
+def _takes_batch_slice(fn: Callable) -> bool:
+    try:
+        return "batch_slice" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):  # a callable without a signature
+        return False
 
 
 def _split(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
@@ -89,12 +100,22 @@ def make_sharded_model_fn(make_fn: Callable[[torch.device], Callable], mesh: Mes
     argument (the ``[B]`` timestep vector too) is split along its first
     dimension, which must be a multiple of ``mesh.shape['data']`` (pick an
     executor ``batch_size`` that is); where the policy splits rows, the
-    frames also go to each shard as row bands (the module docstring)."""
+    frames also go to each shard as row bands (the module docstring). A
+    callable that declares a ``batch_slice`` parameter (MoMo's, which draws
+    noise) is told which samples of the batch its shard holds,
+    ``batch_slice=(start, total)``, so that it can draw for the whole batch
+    and keep its own: the split then gives one device's frames."""
     fns = _per_device(make_fn, mesh)
+    sliced = [_takes_batch_slice(fn) for fn in fns]
 
     def sharded_fn(*args):
         rows = check_runnable(mesh, next((a.shape for a in args if a.dim() == 4), (args[0].shape[0], 0, 0, 0)), rows=True)
-        return _gather([fn(*part) for fn, part in zip(fns, _split_args(args, mesh, rows))], mesh)
+        total = args[0].shape[0]
+        per = total // mesh.shape["data"]
+        return _gather([
+            fn(*part, **({"batch_slice": (i * per, total)} if s else {}))
+            for i, (fn, s, part) in enumerate(zip(fns, sliced, _split_args(args, mesh, rows)))
+        ], mesh)
 
     return sharded_fn
 

@@ -22,19 +22,21 @@ Both axes run. Torch has no GSPMD halo exchange, so the ``space`` axis is
 devices, and an allow-list of rules (halo rows for the convolutions and the
 cost volume, the global ratio for the resizes, the whole source gathered
 for the warp and the global ops' keys, partial sums for the splat and the
-reductions over rows) by which RIFE's inference, every arch
-(:func:`~.infer.make_sharded_model_fn`), RIFE 4.7's training step
-(:func:`~.train.make_train_step`), the pair-cached inference of M2M, XVFI
-(Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI
-(:func:`~.infer.make_sharded_pair_fns`) and the inference of FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv and the
-window-4 models FLAVR and STMFNet (:func:`core.run_plan_window4`) run band
-by band, a value's band edges moving where an op needs other ones (the
-re-banding rule). Every other op raises ``NotImplementedError`` on a band, naming itself and the
-``ROADMAP.md`` item that ports the rest (:data:`SPACE_TODO`): no run that
-the policy splits over ``space`` runs data-parallel in its place
-(:func:`check_runnable` raises for a caller that cannot split rows). On
-the CPU the axis runs on logical replicas (``make_mesh(8,
-devices=[torch.device("cpu")] * 8)``: a ``(4, 2)`` mesh); on one card,
+reductions over rows) by which every family's inference runs band by band:
+RIFE (every arch), FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv, ATM and MoMo
+(:func:`~.infer.make_sharded_model_fn`), the window-4 models FLAVR and
+STMFNet (:func:`core.run_plan_window4`), and the pair-cached inference of
+M2M, XVFI (Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI
+(:func:`~.infer.make_sharded_pair_fns`); and RIFE 4.7's training step
+(:func:`~.train.make_train_step`). A value's band edges move where an op
+needs other ones (the re-banding rule). Every other op raises
+``NotImplementedError`` on a band, naming itself and the ``ROADMAP.md``
+item that ports the rest, the other families' training steps
+(:data:`SPACE_TODO`): no run that the policy splits over ``space`` runs
+data-parallel in its place (:func:`check_runnable` raises for a caller
+that cannot split rows). On the CPU the axis runs on logical replicas
+(``make_mesh(8, devices=[torch.device("cpu")] * 8)``: a ``(4, 2)`` mesh);
+on one card,
 ``chip_smoke.py`` runs it on a ``(1, 2)`` mesh of replicas of ``cuda:0``.
 """
 
@@ -61,9 +63,8 @@ MIN_ROWS_PER_SHARD = 64
 
 # what a run on the space axis that no row-band rule covers is told
 SPACE_TODO = (
-    "the 'space' axis (rows split over devices) runs RIFE's inference (every arch), RIFE 4.7's training step, "
-    "the pair-cached inference of M2M, XVFI (Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI and the "
-    "inference of FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv, FLAVR and STMFNet; the rest is ROADMAP.md Queue 1 item 3"
+    "the 'space' axis (rows split over devices) runs every family's inference and RIFE 4.7's training step; "
+    "the training steps of the other families are ROADMAP.md Queue 1 item 3"
 )
 
 

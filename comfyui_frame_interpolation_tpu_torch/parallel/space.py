@@ -17,10 +17,13 @@ module and tensor method that meets one) and ``ops.warp.warp`` hands it over
 the same way. Each call goes to the rule of an allow-list; a function
 without one raises ``NotImplementedError`` naming itself and the
 ``ROADMAP.md`` item that would port it. Nothing is gathered or run band by
-band unless a rule says so. The rules are those that RIFE (every arch, with
-and without fast mode), the pair functions of M2M, XVFI (Vimeo and X4K),
-GMFSS Fortuna (base and union) and EISAI, FILM, IFRNet (S and L), AMT (S, L and G), IFUnet (with and without the
-ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
+band unless a rule says so. The rules are those that every family's
+inference needs: RIFE (every arch, with and without fast mode), the pair
+functions of M2M, XVFI (Vimeo and X4K), GMFSS Fortuna (base and union) and
+EISAI, FILM, IFRNet (S and L), AMT (S, L and G), IFUnet (with and without
+the ensemble), CAIN, Sepconv, ATM (base and lite; global motion off, on and
+with the ensemble), MoMo (base and lite) and the window-4 models, FLAVR
+and STMFNet:
 
 * the re-banding rule (:meth:`RowBands.reband`): a value's band edges move
   to new starts, each band taking only the rows between its old edge and
@@ -42,7 +45,7 @@ ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
   re-banded at once;
 
 * row-local ops, band by band: elementwise arithmetic, ``clamp`` (``min=``
-  too), ``sigmoid``, ``tanh``, ``relu`` (``nn.ReLU``),
+  too), ``sigmoid``, ``tanh``, ``relu`` (``nn.ReLU``), ``gelu``, ``silu``,
   ``leaky_relu``, ``prelu`` (``nn.PReLU``), ``exp``, ``log``, ``pow``,
   ``abs``, ``square``, ``sqrt``, ``floor``, comparisons (``==`` too: the
   splat's zeroeps test), casts, ``flip`` and ``torch.linalg.vector_norm``
@@ -59,6 +62,8 @@ ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
   merges the rows), M2M's
   ``_repeat_branches``, ``index_select`` of another dimension,
   ``batch_norm`` on stored statistics (``training=True`` raises),
+  ``layer_norm`` over trailing dimensions after the rows and ``linear``
+  over the last (ATM's tokens),
   ``softmax`` over a dimension other than the rows, and ``pixel_shuffle``
   and nearest ``interpolate`` by an integer factor, which multiply each
   band's rows and first row (a nearest downscale by ``s`` divides them, on
@@ -118,9 +123,10 @@ ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
   than the band that takes it reads its neighbours (CAIN's centred pad,
   numpy's periodic reflection through ``common.reflect_pad``); a slice of
   the rows crops each band;
-* CAIN's ``_reflect_pad1`` (which hands a band over): each band with one
-  halo row from each neighbour, a reflected row only at the global top and
-  bottom; ``pixel_unshuffle(r)`` divides the rows and first row;
+* CAIN's ``_reflect_pad1`` and MoMo's ``_replicate_pad1`` (which hand a
+  band over): each band with one halo row from each neighbour, a padded
+  row only at the global top and bottom; ``pixel_unshuffle(r)`` divides the
+  rows and first row;
 * Sepconv's ``ops.sepconv.sepconv_func`` (which hands bands over): each
   band's output rows read the ``K - 1 = 50`` input rows below them in the
   padded input (25 above and 25 below in the frame), the replicate pad of
@@ -172,13 +178,31 @@ ensemble), CAIN, Sepconv and the window-4 models, FLAVR and STMFNet, need:
   target gathered whole, which ``_corr_lookup`` reads at each band's own
   rows of the coordinates), its convex upsampling (a halo row, 8 times
   the rows) and ``ops.edt.batch_edt`` (the x pass band by band, the y
-  pass of each band's rows on the x pass gathered whole, bit for bit).
+  pass of each band's rows on the x pass gathered whole, bit for bit);
+* ATM's Swin blocks (``models.atm._windowed``, which hands a band over):
+  each band computes the windows of the padded, rolled map that hold its
+  own rows, their rows read from its neighbours and, under the half-window
+  shift, from the frame's other end (the roll's wrap), with those windows'
+  masks, and keeps its own rows; a window across a band edge is computed by
+  both bands. The ensemble's pick of a scale per sample is a ``where``;
+* MoMo's: the GroupNorm (``_group_norm_silu``: each group's mean, then its
+  variance about it, in f32 from the bands' partial sums in band order,
+  then the affine and SiLU band by band), the x8 convex upsampling (a halo
+  row, 8 times the rows), the frames' mean and std (``std_mean`` from
+  partial sums), the bicubic backwarp (the source gathered whole, each
+  band's grid of its global rows: bit for bit), the noise (drawn whole on
+  the first band's device, cut into the frame's bands: ``_as_frame``), and
+  ``common.resize_bicubic`` to any size, antialiased or plain: each band's
+  outputs from ``floor(start * out / in)``, their rows as the taps of the
+  global ratio weighted as torch's own kernel weighs them (read off its
+  ``F.interpolate`` of one-hot rows, once per resize), then the columns.
 
 Every rule computes what the op computes on the whole tensor: the
 convolutions and resizes the same sums, possibly by other algorithms
 (cuDNN picks one per shape), the reductions, the splat and the
 correlation's dots (AMT's and the PWC's) and AdaCoF's taps in another
-order, the warp and the distance transform bit for bit, the attention's
+order, the warp, the distance transform, MoMo's backwarp and pads and
+ATM's windows bit for bit (on the same values), the attention's
 and correlations' dots over each band's queries in f32 (or the model's
 dtype) apart from one device's by rounding. Bands on logical replicas of
 one device split the work as separate devices would.
@@ -193,7 +217,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models import cain, common, eisai, gmfss, ifunet, m2m, stmfnet
+from ..models import atm, cain, common, eisai, gmfss, ifunet, m2m, momo, stmfnet
 from ..ops import correlation, costvol, edt
 from ..ops.adacof import adacof_func
 from ..ops.bidir_corr import BidirCorr, _Pyramid
@@ -1381,20 +1405,22 @@ def _convex_upsample_rule(func, args, kwargs):
     return RowBands(out, [level * a for a in flow.starts], level * flow.height, 2)
 
 
-def _reflect_pad1_rule(func, args, kwargs):
-    """``models.cain._reflect_pad1`` (a reflection pad of one pixel on each
-    side, which hands a band over) of NCHW bands: each band with one halo
-    row from each neighbour, padded by ``func``, keeps its own rows, so a
-    reflected row stays only at the global top (the first band's) and
-    bottom (the last band's); the next convolution takes its own halo."""
+def _pad1_rule(func, args, kwargs):
+    """``models.cain._reflect_pad1`` and ``models.momo._replicate_pad1`` (a
+    reflection or replication pad of one pixel on each side, which hand a
+    band over) of NCHW bands: each band with one halo row from each
+    neighbour, padded by ``func``, keeps its own rows, so a padded row stays
+    only at the global top (the first band's) and bottom (the last band's);
+    the next convolution takes its own halo. Bit for bit the whole frame's
+    rows."""
     (x,) = _bind(func, ("x",), (None,), args, kwargs)
     if not isinstance(x, RowBands) or x.axis != 2:
-        raise _no_rule("models.cain._reflect_pad1 of a value without NCHW row bands")
+        raise _no_rule(f"{_name(func)} of a value without NCHW row bands")
     last = len(x.bands) - 1
     out = []
     for j, (b, a) in enumerate(zip(x.bands, x.starts)):
         n = b.shape[2]
-        # func's rows: the reflection of row lo + 1, rows lo .. hi - 1, the reflection of row hi - 2
+        # func's rows: a padded row, rows lo .. hi - 1, a padded row
         y = func(x.rows(a - (j > 0), a + n + (j < last), j))
         out.append(y.narrow(2, 0 if j == 0 else 2, n + (j == 0) + (j == last)))
     return RowBands(out, [0] + [a + 1 for a in x.starts[1:]], x.height + 2, 2)
@@ -1760,6 +1786,216 @@ def _batch_edt_rule(func, args, kwargs):
     return img.like([o[:, None] for o in out] if img.ndim == 4 else out)
 
 
+# ---- ATM and MoMo: Swin windows, layer and group norms, bicubic resizes and sampling -------------
+
+
+def _layer_norm(func, args, kwargs):
+    """``F.layer_norm`` over trailing dimensions that exclude the rows (ATM's
+    fusion norm and each block's ``norm1``/``norm2`` on NHWC tokens): band
+    by band."""
+    x, shape, weight, bias, eps = _bind(
+        func, ("input", "normalized_shape", "weight", "bias", "eps"), (None, None, None, None, 1e-5), args, kwargs
+    )
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    if not isinstance(x, RowBands) or x.axis >= x.ndim - len(shape) or any(isinstance(v, RowBands) for v in (weight, bias)):
+        raise _no_rule(f"layer_norm over {len(shape)} trailing dimensions of {x!r} (dimensions after the rows)")
+    return x.like([
+        func(b, shape, None if weight is None else weight.to(b.device), None if bias is None else bias.to(b.device), eps)
+        for b in x.bands
+    ])
+
+
+def _linear(func, args, kwargs):
+    """``F.linear`` over the last dimension of NHWC bands (ATM's token
+    projections and MLPs): band by band."""
+    x, weight, bias = _bind(func, ("input", "weight", "bias"), (None, None, None), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis == x.ndim - 1 or isinstance(weight, RowBands) or isinstance(bias, RowBands):
+        raise _no_rule(f"linear of {x!r} (row bands whose rows are not the last dimension, by plain weights)")
+    return x.like([func(b, weight.to(b.device), None if bias is None else bias.to(b.device)) for b in x.bands])
+
+
+def _rows_at(x: RowBands, src: Sequence[int], j: int) -> torch.Tensor:
+    """The global rows ``src`` in order on band ``j``'s device (zeros for
+    rows outside ``[0, height)``), each run of consecutive rows taken at once
+    from the bands that hold it (:meth:`RowBands.rows`)."""
+    pieces, lo = [], 0
+    for k in range(1, len(src) + 1):
+        if k == len(src) or src[k] != src[k - 1] + 1:
+            pieces.append(x.rows(src[lo], src[k - 1] + 1, j))
+            lo = k
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, x.axis)
+
+
+def _windowed_rule(func, args, kwargs):
+    """``models.atm._windowed`` (which hands a band over) of NHWC bands: each
+    band computes the windows of the padded, rolled map that hold its own
+    rows (``atm.window_rows_of``), reading their rows from its neighbours
+    and, under the shift, the rows that the roll wraps from the frame's
+    other end (zeros for the centred pad), with those windows' masks
+    (``atm.windowed_rows``), and keeps its own rows of the result. A window
+    across a band edge is computed by both bands, each keeping its rows."""
+    blk, x, shift = _bind(func, ("blk", "x", "shift"), (None, None, 0), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis != 1:
+        raise _no_rule(f"{_name(func)} of a value without NHWC row bands")
+    h, w = x.height, x.shape[2]
+    outs = []
+    for j, (b, a) in enumerate(zip(x.bands, x.starts)):
+        n = b.shape[1]
+        lo = min(a, h - 1)  # a band without rows computes one window row and keeps none of it
+        wins, src = atm.window_rows_of(h, blk.window, shift, lo, lo + max(n, 1))
+        res = atm.windowed_rows(blk, _rows_at(x, src, j), shift, h, w, wins)
+        keep = torch.tensor([src.index(g) for g in range(a, a + n)], dtype=torch.int64, device=b.device)
+        outs.append([r.index_select(1, keep) for r in res])
+    return tuple(x.like([o[i] for o in outs]) for i in range(len(outs[0])))
+
+
+def _group_norm_silu_rule(func, args, kwargs):
+    """``models.momo._group_norm_silu`` (which hands a band over) of NCHW
+    bands: each group's mean, then its variance about that mean, in f32 from
+    the bands' partial sums added in band order (as ``var_mean``'s rule),
+    then the affine and SiLU band by band (``momo.group_affine_silu``)."""
+    x, gn = _bind(func, ("x", "gn"), (None, None), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis != 2:
+        raise _no_rule(f"{_name(func)} of a value without NCHW row bands")
+    n, c, h, w = x.shape
+    dev = x.bands[0].device
+    views = [momo.group_view(b).float() for b in x.bands]
+    count = h * w * (c // momo.GROUPS)
+
+    def total(each):
+        out = None
+        for v in views:
+            part = each(v).sum((1, 3), keepdim=True).to(dev)
+            out = part if out is None else out + part
+        return out
+
+    mean = total(lambda v: v) / count
+    var = total(lambda v: (v - mean.to(v.device)).square()) / count
+    return x.like([momo.group_affine_silu(b, gn, mean.to(b.device), var.to(b.device)) for b in x.bands])
+
+
+def _convex_upsampling8_rule(func, args, kwargs):
+    """``models.momo._convex_upsampling8`` (which hands bands over) of NCHW
+    bands: each band's flow with the row above and below it (zeros beyond
+    the global top and bottom only) and its own rows of the mask, its result
+    8 times its rows from 8 times its first row
+    (``momo.convex_upsampling8_rows``)."""
+    flow, mask = _bind(func, ("flow", "mask"), (None, None), args, kwargs)
+    if not (isinstance(flow, RowBands) and isinstance(mask, RowBands)) or flow.axis != 2:
+        raise _no_rule(f"{_name(func)} of other than NCHW row bands of the flow and its mask")
+    mask = _onto(func, flow, mask)
+    out = [
+        momo.convex_upsampling8_rows(flow.rows(a - 1, a + m.shape[2] + 1, j), m)
+        for j, (m, a) in enumerate(zip(mask.bands, flow.starts))
+    ]
+    return RowBands(out, [8 * a for a in flow.starts], 8 * flow.height, 2)
+
+
+def _mean_std_rule(func, args, kwargs):
+    """``models.momo._mean_std`` (which hands a band over): ``std_mean`` of
+    the f32 frames over dimensions 1-3 from the bands' partial sums
+    (:func:`_reduce`), into plain ``[b, 1, 1, 1]`` tensors."""
+    (x,) = _bind(func, ("frames6",), (None,), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis != 2:
+        raise _no_rule(f"{_name(func)} of a value without NCHW row bands")
+    std, mean = torch.std_mean(x.float(), dim=(1, 2, 3), correction=1)
+    return mean.view(-1, 1, 1, 1), (std + 1e-8).view(-1, 1, 1, 1)
+
+
+def _backwarp_rule(func, args, kwargs):
+    """``models.momo._backwarp`` (which hands bands over): the image gathered
+    whole onto each band's device (the warp's source rule), each band of the
+    flow sampling its own rows from its first row (``row0``): bit for bit
+    the whole frame's rows."""
+    img, flow, row0 = _bind(func, ("img", "flow", "row0"), (None, None, 0), args, kwargs)
+    if not (isinstance(img, RowBands) and isinstance(flow, RowBands)) or flow.axis != 2 or img.axis != 2 or row0:
+        raise _no_rule(f"{_name(func)} of other than NCHW row bands of the image and the flow")
+    if img.height != flow.height:
+        raise _no_rule(f"{_name(func)} of {img!r} by the flow {flow!r} (one height)")
+    return flow.like([func(img.rows(0, img.height, j), f, a) for j, (f, a) in enumerate(zip(flow.bands, flow.starts))])
+
+
+def _as_frame_rule(func, args, kwargs):
+    """``models.momo._as_frame``: noise drawn whole on the frame's first band
+    device, cut into the frame's bands, each moved to its band's device."""
+    noise, frame = _bind(func, ("noise", "frame"), (None, None), args, kwargs)
+    if isinstance(noise, RowBands) or not isinstance(frame, RowBands) or noise.shape[frame.axis] != frame.height:
+        raise _no_rule(f"{_name(func)} of {noise!r} into the bands of {frame!r}")
+    return frame.like([noise.narrow(frame.axis, a, b.shape[frame.axis]).to(b.device) for b, a in zip(frame.bands, frame.starts)])
+
+
+_BICUBIC_TAPS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def _bicubic_taps(height: int, out_h: int, antialias: bool, device: torch.device, dtype: torch.dtype):
+    """The rows' taps of a bicubic resize of ``height`` rows to ``out_h`` as
+    torch's kernel on ``device`` computes them (the weights of its own
+    ``F.interpolate`` of a one-hot row per channel, in ``dtype``, its
+    accumulation type): ``(first, last, weights)``, per output row its first
+    and last input rows (on the host), and the weights in the form that
+    :func:`_resize_bicubic_rule` reads: antialiased, the ``[out_h, height]``
+    matrix; plain, the ``[T, out_h]`` weights of each row's first input row
+    and the ``T - 1`` after it (0 past its last; T <= 4). Made once per
+    resize and device."""
+    key = (height, out_h, antialias, str(device), dtype)
+    if key not in _BICUBIC_TAPS:
+        with torch.inference_mode(False), torch.no_grad():
+            # two columns: torch 2.13's antialiased CPU kernel misreads a map one column wide
+            eye = torch.eye(height, dtype=dtype, device=device).view(1, height, height, 1).expand(-1, -1, -1, 2).contiguous()
+            weights = F.interpolate(eye, size=(out_h, 2), mode="bicubic", align_corners=False, antialias=antialias)
+            weights = weights[0, :, :, 0].t().contiguous()  # [out_h, height]
+            nz = (weights != 0).cpu()
+            first = nz.int().argmax(1)
+            last = height - 1 - nz.flip(1).int().argmax(1)
+            if not antialias:
+                cols = first[:, None] + torch.arange(int((last - first).max()) + 1)[None]
+                weights = torch.where(cols <= last[:, None], weights.cpu().gather(1, cols.clamp_max(height - 1)), 0.0)
+                weights = weights.t().contiguous().to(device)
+            _BICUBIC_TAPS[key] = (first, last, weights)
+    return _BICUBIC_TAPS[key]
+
+
+def _resize_bicubic_rule(func, args, kwargs):
+    """``common.resize_bicubic`` (which hands a band over) of NCHW bands, to
+    any size, antialiased (PIL's filter, a = -0.5, its support scaled by the
+    factor, as torch's kernel) or plain (a = -0.75, edge taps clamped): each
+    band's outputs from ``floor(start * out / in)`` (:func:`_resized_starts`),
+    their rows as the sum of the taps of the global ratio with torch's own
+    weights (:func:`_bicubic_taps`) over the input rows they read, from every
+    band that holds them: one product by the band's block of the weights
+    for the antialiased resizes (up to ~4x the factor taps a row; as one
+    gather a tap they ran MoMo's split slower, ``PERF.md``), a sum over the
+    (up to) 4 taps for the plain upscales, where a product would multiply
+    each output by every input row of its band; then the columns by
+    ``F.interpolate`` at the rows' own height (the identity on the rows), in
+    the resize's accumulation type (f32; the plain resize of an f64 value in
+    f64), rounded once to the input's dtype. The same sums as
+    the whole tensor's, rows first."""
+    x, out_hw, antialias = _bind(func, ("x", "out_hw", "antialias"), (None, None, False), args, kwargs)
+    if not isinstance(x, RowBands) or x.axis != 2:
+        raise _no_rule(f"{_name(func)} of a value without NCHW row bands")
+    out_h, out_w = _pair(out_hw)
+    acc = torch.float64 if x.dtype == torch.float64 and not antialias else torch.float32
+    spans = _resized_starts(x, out_h)
+    out = []
+    for j, (o0, o1) in enumerate(spans):
+        first, last, weights = _bicubic_taps(x.height, out_h, antialias, x.bands[j].device, acc)
+        lo, hi = int(first[o0:o1].min()), int(last[o0:o1].max()) + 1
+        rows = x.rows(lo, hi, j).to(acc)
+        if antialias:
+            y = torch.matmul(weights[o0:o1, lo:hi], rows)
+        else:
+            y = None
+            for t in range(weights.shape[0]):
+                idx = (first[o0:o1] + t).clamp(max=x.height - 1).to(rows.device) - lo
+                part = rows.index_select(2, idx.clamp(max=hi - 1 - lo)) * weights[t, o0:o1].view(1, 1, -1, 1)
+                y = part if y is None else y + part
+        if out_w != x.shape[3]:
+            y = F.interpolate(y, size=(o1 - o0, out_w), mode="bicubic", align_corners=False, antialias=antialias)
+        out.append(y.to(dtype=x.dtype, memory_format=torch.channels_last))
+    return RowBands(out, [o0 for o0, _ in spans], out_h, 2)
+
+
 _RULES: Dict[Callable, Callable] = {}
 for _f in (
     torch.add, torch.sub, torch.mul, torch.div, torch.rsub, torch.neg, torch.clamp, torch.sigmoid,
@@ -1769,7 +2005,7 @@ for _f in (
     torch.prelu, torch.exp, torch.Tensor.exp, torch.abs, torch.Tensor.abs, torch.square, torch.Tensor.square,
     torch.sqrt, torch.Tensor.sqrt, torch.Tensor.eq, torch.Tensor.lt, torch.Tensor.le, torch.Tensor.gt, torch.Tensor.ge,
     F.relu, torch.relu, torch.Tensor.relu, torch.floor, torch.Tensor.floor, torch.tanh, torch.Tensor.tanh,
-    torch.ones_like, torch.where, torch.pow, torch.log,
+    torch.ones_like, torch.where, torch.pow, torch.log, F.gelu, F.silu,
 ):
     _RULES[_f] = _elementwise
 for _f in (torch.sum, torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.var, torch.Tensor.var, torch.var_mean,
@@ -1813,7 +2049,8 @@ _RULES.update({
     m2m._repeat_branches: _bandwise,
     common.conv2x2_up2x: _conv2x2_up2x_rule,
     ifunet.convex_upsample: _convex_upsample_rule,
-    cain._reflect_pad1: _reflect_pad1_rule,
+    cain._reflect_pad1: _pad1_rule,
+    momo._replicate_pad1: _pad1_rule,
     sepconv_func: _sepconv_rule,
     BidirCorr: _bidir_corr_rule,
     stmfnet._upsampler_8tap: _upsampler_8tap_rule,
@@ -1832,4 +2069,13 @@ _RULES.update({
     eisai._corr_lookup: _corr_lookup_rule,
     eisai._convex_upsample_flow: _convex_upsample_flow_rule,
     edt.batch_edt: _batch_edt_rule,
+    F.layer_norm: _layer_norm,
+    F.linear: _linear,
+    atm._windowed: _windowed_rule,
+    momo._group_norm_silu: _group_norm_silu_rule,
+    momo._convex_upsampling8: _convex_upsampling8_rule,
+    momo._mean_std: _mean_std_rule,
+    momo._backwarp: _backwarp_rule,
+    momo._as_frame: _as_frame_rule,
+    common.resize_bicubic: _resize_bicubic_rule,
 })

@@ -5,7 +5,7 @@ in one session on one card.
 Run on the machine with the card, as a script (it imports the package from
 ``--root``, not from its own checkout)::
 
-    python comfyui_frame_interpolation_tpu_torch/utils/e2e_fps.py --root build/parent
+    python comfyui_frame_interpolation_tpu_torch/utils/e2e_fps.py --root build/parent [--only atm]
 
 It prints one JSON line: the card and its power limit, and frames/s of RIFE
 4.7 1080p 2x bf16 batch 8 (fast mode, no ensemble), M2M 1080p 2x bf16 batch 2,
@@ -23,7 +23,8 @@ from seed 0 (the configurations of ``chip_smoke.py`` phases 6, 10, 14, 18,
 22, 26, 27, 30, 32, 34, 37, 39, 41, 43 and 46), each through
 ``make_model_fn`` (XVFI's pair functions) and timed by
 ``utils.benchmark.measure``. A model missing from the checkout timed (an
-older port) is left out of the line.
+older port) is left out of the line, and so is every row that ``--only``
+does not name.
 """
 
 import argparse
@@ -37,6 +38,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the checkout whose port is timed")
     ap.add_argument("--label", default="", help="a name for this run in the output")
+    ap.add_argument("--only", nargs="*", default=(), help="time only the rows whose names start with one of these (atm, momo_base, ...)")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -116,6 +118,8 @@ def main(argv=None) -> int:
         momo = found["momo"]
         fns["momo_base_1080p_b1"] = (1, lambda: momo.make_model_fn(
             momo.init_params(0, "momo-base.pth"), "momo-base.pth", 8, 0, dtype=bf16, device=dev), 3)
+    if args.only:
+        fns = {k: v for k, v in fns.items() if k.startswith(tuple(args.only))}
     fps = {}
     for name, (n, make, iters) in fns.items():
         fn = make()

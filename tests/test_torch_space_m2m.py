@@ -28,11 +28,12 @@ the CPU.
   ``softsplat_torch``'s band partials (``row0``, ``out_rows``) over 2 and 3
   bands add up to the whole splat within f32 rounding, on flow that crosses
   the bands' edges and leaves the frame.
-* ATM base's and MoMo base's splits through ``make_sharded_model_fn``
-  raise at their first op without a row-band rule (ATM's ``layer_norm``,
-  MoMo's ``Tensor.reshape`` that merges the rows), naming the
-  ``ROADMAP.md`` item (the pair-cached families all run on the axis:
-  ``tests/test_torch_space_{xvfi,x4k,gmfss,eisai}.py``).
+* a model with an op over the rows that no rule covers (a running sum
+  down the rows, a roll of the rows) raises at that op through
+  ``make_sharded_model_fn`` and ``make_sharded_pair_fns``, naming it and the
+  ``ROADMAP.md`` item: every family's inference runs on the axis
+  (``tests/test_torch_space*.py``), and nothing falls back to a
+  data-parallel or whole-frame run.
 
 One JAX compile (the sharded pair functions at 256x128).
 
@@ -44,6 +45,7 @@ and the port against JAX.
 
 import functools
 import os
+import re
 
 if __name__ == "__main__":  # JAX's virtual CPU mesh, as tests/conftest.py sets it under pytest
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -64,7 +66,7 @@ from comfyui_frame_interpolation_tpu.utils.ckpt import nest_state_dict, to_jax_t
 from comfyui_frame_interpolation_tpu_torch import parallel
 from comfyui_frame_interpolation_tpu_torch.core.loop import run_plan_pair_cached
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep
-from comfyui_frame_interpolation_tpu_torch.models import atm, m2m, momo
+from comfyui_frame_interpolation_tpu_torch.models import m2m
 from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_partial, softsplat_torch
 from comfyui_frame_interpolation_tpu_torch.ops.warp import warp_torch
 from comfyui_frame_interpolation_tpu_torch.parallel import space
@@ -200,24 +202,32 @@ def test_softsplat_band_outside_the_frame_raises():
         softsplat_torch(vals, flow, row0=4, out_rows=10)
 
 
-# ---- the families without rules --------------------------------------------------------
+# ---- an op without a rule ----------------------------------------------------------------
 
-NO_RULES = {
-    "atm": (lambda d: atm.make_model_fn(atm.init_params("base", 0), device=d), "layer_norm"),
-    "momo": (lambda d: momo.make_model_fn(momo.init_params(0), num_inference_steps=1, device=d), r"Tensor\.reshape"),
+NO_RULES = {  # ops over the rows that no family uses, and the names their refusals give
+    "cumsum": (lambda f: f.cumsum(1), "Tensor.cumsum"),  # a running sum down the rows
+    "roll": (lambda f: torch.roll(f, 1, 1), "_VariableFunctionsClass.roll"),  # the rows moved round the frame
 }
 
 
-@pytest.mark.parametrize("family", list(NO_RULES))
-def test_a_pair_split_without_rules_raises(family):
-    """A frame pair split over the rows (``make_sharded_model_fn``) of a
-    family whose ops the rules do not cover yet raises at its first such
-    op, naming it and the ``ROADMAP.md`` item."""
-    make, op = NO_RULES[family]
-    fn = parallel.make_sharded_model_fn(make, parallel.make_mesh(2, devices=_replicas(2)))
+@pytest.mark.parametrize("wrapper", ["model_fn", "pair_fns"])
+@pytest.mark.parametrize("op", list(NO_RULES))
+def test_a_pair_split_without_rules_raises(op, wrapper):
+    """A frame pair split over the rows (``make_sharded_model_fn``, or the
+    pair-cached ``make_sharded_pair_fns``) of a model whose op the rules do
+    not cover raises at that op, naming it and the ``ROADMAP.md`` item (every
+    family's inference runs on the axis: ``tests/test_torch_space*.py``)."""
+    op_fn, name = NO_RULES[op]
+    mesh = parallel.make_mesh(2, devices=_replicas(2))
     f = torch.rand(2, 128, 64, 3)
-    with pytest.raises(NotImplementedError, match=f"^{op}.* has no row-band rule: .*ROADMAP.md Queue 1 item 3"):
-        fn(f, f, torch.full((2,), 0.5))
+    if wrapper == "model_fn":
+        fn = parallel.make_sharded_model_fn(lambda d: (lambda a, b, t: op_fn(a)), mesh)
+        call = lambda: fn(f, f, torch.full((2,), 0.5))  # noqa: E731
+    else:
+        reuse, _ = parallel.make_sharded_pair_fns(lambda d: ((lambda a, b: op_fn(a)), (lambda a, b, c, t: c)), mesh)
+        call = lambda: reuse(f, f)  # noqa: E731
+    with pytest.raises(NotImplementedError, match=f"^{re.escape(name)} has no row-band rule: .*ROADMAP.md Queue 1 item 3"):
+        call()
 
 
 def _gaps(h, w):
