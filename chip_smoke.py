@@ -518,10 +518,12 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    atomics), bf16 >= 40 dB against the f32 one-device frames, the
    launches read (K1 8, wide 32, K2 2 a pair batch: twice one device's 4,
    16, 1); frames/s of both in turns (one round), peak memory and a
-   profile of one pair batch (idle share) of each; an M2M training step
-   on the mesh still raises ``NotImplementedError`` at its first op without
-   a rule (the splat with a gradient), naming ``ROADMAP.md``'s item (every
-   family's inference splits; the training steps but RIFE 4.7's do not);
+   profile of one pair batch (idle share) of each; a training step on the
+   mesh whose model runs an op without a row-band rule (a stand-in: a
+   convolution, then a running sum down the rows, ``row_op_stand_in``)
+   raises ``NotImplementedError`` at that op, naming ``ROADMAP.md``'s item,
+   and moves no parameter (every family's inference and every carried
+   family's training step split: 73-93);
 76. K2 band -- K2 with a band of sources (``row0``, ``out_rows``): M2M's
    ``[16, 1088, 1920, 4]`` f32 and bf16 splat in the two bands of the
    ``(1, 2)`` mesh, each a whole-frame f32 partial, against the twin's band;
@@ -629,11 +631,35 @@ Phases, one line each; any failed phase raises and the exit code is not 0:
    for the whole batch on the first band's device and cut into the bands
    (the GroupNorm, the replicate pad, the convex upsampling, the frames'
    statistics, the bicubic pyramids and backwarps handed over); no hand
-   kernel; f32 as phase 89, bf16 within 0.5 dB of one device's bf16.
+   kernel; f32 as phase 89, bf16 within 0.5 dB of one device's bf16;
+91. splat backward band -- the splat's backward kernel on a row band
+   (``row0``, ``out_rows``): M2M's step input ``[64, 256, 256, 4]`` f32
+   (phase 54's) and GMFSS's C = 65 and EISAI's C = 66 step inputs (phase
+   63's, the spread route), each in the two halves of its rows (the
+   ``(1, 2)`` mesh's bands at every level of a 256-row frame): each band's
+   launch on the whole frame's output gradient bit for bit the whole-frame
+   launch's rows of its sources, ``row0 = 0`` at the whole height bit for
+   bit the default call, each band against its plain version with phase
+   52's tolerances; each band's device ms in turns with the whole frame's,
+   its bound, the two library calls on the band
+   (``splat_backward_library_call`` with ``row0``) and the ops in turns;
+92. M2M space train -- M2M's training step at b8 x 256x256 f32 through
+   ``make_train_step`` on the ``(1, 2)`` mesh of replicas against one
+   device (``space_train_phase``), TF32 off and cuDNN deterministic: the
+   loss and every gradient within 4x one device's own move for its frames
+   one f32 ulp up or its weights two (or 1e-6 relative for the loss; 5e-5
+   of a tensor's largest, or 1e-6 of the largest gradient of all, for a
+   gradient); launches exactly twice one device's (K1 8, wide
+   32, K2 2, the warp's backward 40, the splat's backward 2); steps/s of
+   both in turns (one round), peak memory and a profiled step of each;
+93. family space train -- GMFSS base, EISAI (12 iterations), XVFI Vimeo and
+   AMT S, one f32 step each at b2 x 256x256 on the mesh against one device
+   the same way (``family_trainer`` on the mesh), launches exactly twice
+   ``FAMILY_STEP_LAUNCHES``; no timed rounds.
 
 Each phase starts with a ``clock:`` line, the seconds since the run began.
 
-Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-90 and X4K's forward in 39) is driven with the
+Each main path (phases 4, 8, 12, 16, 20, 24, 27, 29, 31, 33, 36, 38, 40, 42, 44, 45, 47, 49, 51, 53, 55-61, 64-70, 73-75, 77-90, 92-93 and X4K's forward in 39) is driven with the
 launch counts set to 0 just before it and read just after. Each profile (phases 6, 10, 14, 18, 22, 26, 27, 30, 32, 34, 37, 39, 41, 43) also
 records the launches of one forward, as the model makes them, and gives
 each kernel its device ms there against the bound of those launches; a
@@ -678,7 +704,11 @@ wide kernel's entries hold the rows, K2's STMFNet's too), and phases
 band shapes at the wide widths; the wide kernel's GMFSS's), and phases
 89-90's as ``atm_sharded_2way`` and ``momo_sharded_2way`` (the wide
 kernel's ``atm_sharded_2way`` holds phase 89's row, its ensemble call's
-too). CAIN, Sepconv, FLAVR and MoMo launch no hand kernel
+too), and phases 92-93's steps as ``m2m_train_space_2way``,
+``gmfss_train_space_2way``, ``eisai_train_space_2way``,
+``xvfi_train_space_2way`` and ``amt_train_space_2way`` (every kernel; the
+splat's backward holds their rows under those names, and phase 91's as
+``row_band``). CAIN, Sepconv, FLAVR and MoMo launch no hand kernel
 (``launches_by_path`` holds ``momo: 0`` and ``momo_sharded_2way: 0``). The fourth kernel, ``warp_bilinear_backward``, gives its ms at
 ``[16, 1088, 1920, 7]`` f32 beside ``grid_sampler_2d_backward``'s
 (``library_ms``), ``by_shape`` (phase 50's four rows),
@@ -1051,29 +1081,49 @@ def splat_backward_vs_plain(vals, flow, what, grad_out=None, seed=0, in_grad=Tru
     return err_i, err_f
 
 
-def splat_backward_library_call(vals, flow, grad_out):
+def splat_backward_library_call(vals, flow, grad_out, row0=0):
     """The splat's gradients of NHWC ``vals`` by ``flow`` for the f32
     ``grad_out`` in two library calls on a precomputed grid (no single
     PyTorch call computes them): ``F.grid_sample`` of ``grad_out`` at the
     targets, zeros padding (the input's gradient), and
     ``aten.grid_sampler_2d_backward`` of the values against ``grad_out``
-    with ``output_mask=[False, True]`` (the flow's). The library yardstick,
-    which the port never calls."""
+    with ``output_mask=[False, True]`` (the flow's). A band of sources
+    (``vals`` and ``flow`` global rows ``row0`` on of ``grad_out``'s): the
+    targets at their global rows in the whole frame's ``grad_out``. The
+    library yardstick, which the port never calls."""
     import torch
     import torch.nn.functional as F
 
     gplanes = grad_out.permute(0, 3, 1, 2)
     planes = vals.permute(0, 3, 1, 2).float()  # the library call takes one dtype: f32, cast before timing
-    n, _, h, w = gplanes.shape
+    n, _, ho, w = gplanes.shape
+    h = vals.shape[1]
     gx = torch.arange(w, device=vals.device, dtype=torch.float32).view(1, 1, w) + flow[..., 0].float()
-    gy = torch.arange(h, device=vals.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
-    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(h - 1, 1)) - 1.0], -1)
+    gy = torch.arange(row0, row0 + h, device=vals.device, dtype=torch.float32).view(1, h, 1) + flow[..., 1].float()
+    grid = torch.stack([gx * (2.0 / max(w - 1, 1)) - 1.0, gy * (2.0 / max(ho - 1, 1)) - 1.0], -1)
 
     def call():
         F.grid_sample(gplanes, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
         torch.ops.aten.grid_sampler_2d_backward(planes, gplanes, grid, 0, 0, True, [False, True])
 
     return call
+
+
+def row_op_stand_in():
+    """A module whose forward runs an op that no row-band rule covers: a
+    3x3 convolution of the frames' sum, then a running sum down the rows
+    (``Tensor.cumsum``), NHWC in and out (phase 75)."""
+    import torch
+
+    class RowCumsum(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, 3, 3, padding=1)
+
+        def forward(self, f0, f1):
+            return self.conv((f0 + f1).permute(0, 3, 1, 2)).cumsum(2).permute(0, 2, 3, 1)
+
+    return RowCumsum()
 
 
 def m2m_trainer(device, dtype, mesh=None):
@@ -1659,7 +1709,7 @@ def momo_conditioned(sd):
             for k, v in sd.items()}
 
 
-def family_trainer(name, device):
+def family_trainer(name, device, mesh=None):
     """The module of training family ``name`` (``FAMILIES``) from its
     ``init_params(0)`` (every tensor of its checkpoint, ``strict=True``;
     Sepconv's and MoMo's conditioned as their inference phases condition
@@ -1667,7 +1717,7 @@ def family_trainer(name, device):
     ``eval()``, as ``_load`` leaves them: JAX's are constants), an Adam 1e-4
     over it and its step: ``(net, step)``, ``step(frames, t, target) ->
     loss`` (detached). The two-frame families step through
-    ``parallel.make_train_step`` on a one-device mesh; STMFNet and FLAVR
+    ``parallel.make_train_step`` on ``mesh`` (one device by default); STMFNet and FLAVR
     take four frames, which no ``make_train_step`` carries, so their step is
     the same L1 through ``loss.backward()`` and the optimizer. ATM is base
     with global motion, no ensemble; MoMo base denoises ``FAMILY_MOMO_STEPS``
@@ -1742,7 +1792,7 @@ def family_trainer(name, device):
             opt.step()
             return loss.detach()
     else:
-        two = parallel.make_train_step(apply_fn, opt, parallel.make_mesh(1, devices=[torch.device(device)]), net)
+        two = parallel.make_train_step(apply_fn, opt, mesh or parallel.make_mesh(1, devices=[torch.device(device)]), net)
 
         def step(frames, t, target):
             return two(frames[0], frames[1], t, target)
@@ -1846,6 +1896,110 @@ def grad_rel(got, ref, atol=1e-7):
         err, scale = (got[k] - r).abs().max().item(), r.abs().max().item()
         out[k] = 0.0 if err <= atol else (err - atol) / scale if scale > 0 else math.inf
     return out
+
+
+def space_train_phase(what, make_step, batch, want, mesh_one, mesh_split, card, timed=False):
+    """One training step on the ``(1, 2)`` mesh of replicas of the card
+    against one device (phases 92-93): ``make_step(mesh) -> (net, step)``
+    builds the module from its seed and its ``make_train_step`` step,
+    ``step(f0, f1, t, target) -> loss``; ``batch`` is ``(f0, f1, t,
+    target)``. f32 with TF32 off and cuDNN's deterministic algorithms: one
+    device, the split, one device with both frames one f32 ulp up (the
+    step's own gap for inputs that move by rounding, as phases 87-90 hold
+    their frames) and one device with every weight times 1 + 2^-22 (two f32
+    ulps, phase 74's yardstick: it moves every sum of the backward, as the
+    bands' other cuDNN algorithms and reduction orders do, where the
+    frames' ulp leaves the weight gradients' sums in their order). The
+    split's loss within 4x the larger of the two moves or 1e-6 relative;
+    each gradient within 4x the larger move on it, or 5e-5 of its tensor's
+    largest (phase 74's floor), or 1e-6 of the largest gradient of all (a
+    gradient that is 0 but for rounding, such as a bias before a
+    normalisation); one device launching ``want`` and the split exactly
+    twice that. With ``timed``: steps/s of both in turns (one round of 2
+    steps each after one, TF32 at its defaults), each one's peak memory
+    above what it holds and a profiled step (idle share, kernels). Returns
+    the phase's record."""
+    import torch
+
+    f0, f1, t, target = batch
+    up = lambda x: torch.nextafter(x, torch.full_like(x, 2.0))  # noqa: E731
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    det = torch.backends.cudnn.deterministic
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, mesh, inputs, scale in (("one device", mesh_one, (f0, f1), 0.0), ("(1, 2) mesh", mesh_split, (f0, f1), 0.0),
+                                         ("one device, inputs one ulp up", mesh_one, (up(f0), up(f1)), 0.0),
+                                         ("one device, weights two ulps up", mesh_one, (f0, f1), 2.0**-22)):
+            net, step = make_step(mesh)
+            if scale:
+                with torch.no_grad():
+                    for p in net.parameters():
+                        p.mul_(1 + scale)
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            loss = step(*inputs, t, target).item()
+            torch.cuda.synchronize()
+            runs[key] = (loss, {k: v.grad.clone() for k, v in net.named_parameters() if v.grad is not None}, kernel_counts())
+            del net, step
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (loss1, grads1, n1), (loss2, grads2, n2), (loss_up, grads_up, _), (loss_w, grads_w, _) = runs.values()
+    check(n1 == want and n2 == {k: 2 * v for k, v in want.items()},
+          f"{what} launches: one device {n1}, the (1, 2) mesh {n2}; expected {want} and exactly twice that")
+    check(grads1.keys() == grads2.keys() == grads_up.keys() == grads_w.keys(),
+          f"{what}: the split step's gradients are not one device's tensors")
+    loss_nudge = max(abs(loss_up - loss1), abs(loss_w - loss1))
+    check(math.isfinite(loss2) and abs(loss2 - loss1) <= max(1e-6 * abs(loss1), 4 * loss_nudge),
+          f"{what}: the (1, 2) step's loss {loss2} against one device's {loss1}, above 1e-6 relative and 4x {loss_nudge} (one "
+          f"device's move for its inputs one ulp up or its weights two)")
+    top = max(r.abs().max().item() for r in grads1.values())
+    over, worst, worst_nudge, glob = {}, (0.0, ""), (0.0, ""), 0.0
+    for k, r in grads1.items():
+        scale = max(r.abs().max().item(), 1e-30)
+        err = (grads2[k] - r).abs().max().item()
+        nudge = max((grads_up[k] - r).abs().max().item(), (grads_w[k] - r).abs().max().item())
+        worst, worst_nudge, glob = max(worst, (err / scale, k)), max(worst_nudge, (nudge / scale, k)), max(glob, err / top)
+        if not err <= max(4 * nudge, 5e-5 * scale, 1e-6 * top):
+            over[k] = (err, nudge, scale)
+    check(not over, f"{what}: the (1, 2) step's gradients against one device, (max err, one device's larger move for its "
+          f"inputs one ulp up or its weights two, largest) above 4x the move, 5e-5 of the largest and 1e-6 of the largest "
+          f"gradient of all ({top}): {dict(list(over.items())[:4])}")
+    row = {"loss": loss2, "loss_one_device": loss1, "loss_one_device_one_ulp_input": loss_up,
+           "loss_one_device_two_ulp_weights": loss_w, "grad_rel_err": worst[0], "grad_rel_worst": worst[1],
+           "grad_err_over_largest_of_all": glob, "one_device_move_grad_rel": worst_nudge[0],
+           "one_device_move_grad_rel_worst": worst_nudge[1], "launches": {"one device": n1, "(1, 2) mesh": n2}}
+    del runs, grads1, grads2, grads_up, grads_w
+    if timed:
+        steps = {key: make_step(mesh)[1] for key, mesh in (("one device", mesh_one), ("(1, 2) mesh", mesh_split))}
+        for step in steps.values():
+            step(*batch)
+        rates = {key: [] for key in steps}
+        for key in ("one device", "(1, 2) mesh", "(1, 2) mesh", "one device"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(2):
+                steps[key](*batch)
+            torch.cuda.synchronize()
+            rates[key].append(2 / (time.perf_counter() - t1))
+        row["training"] = {}
+        for key, step in steps.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step(*batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            totals = {}
+            profile_forward(f"{what}, {key}", step, *batch, card=card, unit="step", totals=totals)
+            row["training"][key] = {"steps_per_s": statistics.mean(rates[key]), "steps_per_s_turns": rates[key], "peak_bytes": peak,
+                                    "idle_share": totals["idle_share"], "device_ms": totals["device_ms"],
+                                    "wall_ms": totals["wall_ms"], "kernels": totals["kernels"]}
+        del steps
+    torch.cuda.empty_cache()
+    return row
 
 
 def family_phase(name, number, dev, card):
@@ -5103,6 +5257,11 @@ def main() -> int:
         svals.permute(0, 3, 1, 2), sflow.permute(0, 3, 1, 2), sgrad.permute(0, 3, 1, 2), True)
     del svals, sflow, sgrad
     sb_rows = splat_backward_times(sb_layouts, card)
+    # GMFSS's C = 65 and EISAI's C = 66 step inputs, kept for phase 91's bands
+    band91_inputs = {}
+    for path91, c91 in (("gmfss", 65), ("eisai", 66)):
+        key91 = next(k for k in sb_per_step[path91] if k.split(" float32")[0].endswith(f", {c91}]"))
+        band91_inputs[f"{path91} step input {key91}"] = sb_layouts[key91]
     del sb_layouts
     sb_steps = {}
     for path, counts in sb_per_step.items():
@@ -5559,20 +5718,25 @@ def main() -> int:
     m2m_bf16_one_db = psnr(m2m_space_out["bfloat16"][0], m2m_space_out["float32"][0])
     check(m2m_bf16_db >= 40.0, f"M2M bf16 on the (1, 2) mesh: {m2m_bf16_db:.2f} dB against the f32 one-device frames, below 40")
     del m2m_space_out, mclip75
-    # every family's inference splits; a training step on the axis other
-    # than RIFE 4.7's still raises at its first op without a rule (M2M's
-    # splat with a gradient), naming ROADMAP.md's item
+    # every family's training step splits too (phases 92-93); a step whose
+    # model runs an op without a rule (a stand-in: a convolution, then a
+    # running sum down the rows) still raises at that op on the mesh, naming
+    # ROADMAP.md's item, and moves no parameter
     raised75 = {}
     tall = torch.rand((2, 128, 128, 3), device=dev)
-    _, m2m_step75 = m2m_trainer(dev, torch.float32, mesh_s)
+    stand_in = row_op_stand_in().to(dev)
+    before75 = [p.detach().clone() for p in stand_in.parameters()]
+    step75 = parallel.make_train_step(lambda n, a, b, tt: n(a, b), torch.optim.Adam(stand_in.parameters(), lr=1e-4), mesh_s,
+                                      stand_in)
     try:
-        m2m_step75(tall, tall.flip(1), torch.full((2,), 0.5, device=dev), tall)
-        check(False, "an M2M training step on a (1, 2) mesh at 128 rows did not raise")
+        step75(tall, tall.flip(1), torch.full((2,), 0.5, device=dev), tall)
+        check(False, "a training step on a (1, 2) mesh through an op without a row-band rule did not raise")
     except NotImplementedError as e:
-        check("has no row-band rule" in str(e) and "ROADMAP.md Queue 1 item 3" in str(e),
-              f"an M2M training step on a (1, 2) mesh raised {e}")
-        raised75["M2M training step"] = str(e).split(" has no row-band rule")[0]
-    del m2m_step75
+        check(str(e).startswith("Tensor.cumsum has no row-band rule") and "ROADMAP.md Queue 1 item 3" in str(e),
+              f"a training step through Tensor.cumsum on a (1, 2) mesh raised {e}")
+        raised75["a step through a running sum down the rows"] = str(e).split(" has no row-band rule")[0]
+    check(all(torch.equal(p, q) for p, q in zip(stand_in.parameters(), before75)), "the refused step moved a parameter")
+    del stand_in, step75, before75
     del tall
     torch.cuda.empty_cache()
     print(
@@ -5587,7 +5751,7 @@ def main() -> int:
             f"run_plan_pair_cached peak {r['peak_run_plan_pair_cached_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, "
             f"{r['kernels']} kernels"
             for name, rows_ in m2m_space_rows.items() for key, r in rows_.items()
-        ) + f"; the training step that still raises on the axis, at: {raised75}; phase {time.perf_counter() - t0:.1f} s",
+        ) + f"; the stand-in training step that raises on the axis, at: {raised75}; phase {time.perf_counter() - t0:.1f} s",
         flush=True,
     )
 
@@ -6112,6 +6276,137 @@ def main() -> int:
     del momo_params90
     space_split_line(90, "MoMo base (conditioned heads, 2 steps; edge-padded to 1088 rows inside)", momo_space, t0)
 
+    # ---- 91. the splat's backward kernel on a row band ----------------------------------------
+    clock("91")
+    # M2M's step input [64, 256, 256, 4] f32 (phase 54's: random values, smooth
+    # flow of amplitude 8), and GMFSS's C = 65 and EISAI's C = 66 step inputs
+    # (phase 63's, as the steps hand them over: the spread route), each in the
+    # two bands of the (1, 2) mesh (the rows' halves at every level of the
+    # 256-row frame). Each band's launch on the whole frame's output gradient
+    # is the whole-frame launch's rows of its sources bit for bit; row0 = 0 at
+    # the whole frame's height is the default call bit for bit; each band
+    # against its plain version (softsplat_backward_torch with the band) within
+    # phase 52's tolerances; device ms of each band in turns with the whole
+    # frame's, its bound, the two library calls on the band
+    # (splat_backward_library_call with row0) and the ops in turns
+    t0 = time.perf_counter()
+    band91_inputs = {
+        f"M2M step input {list(M2M_TRAIN_SPLAT_SHAPE)} float32, smooth flow": (
+            torch.rand(M2M_TRAIN_SPLAT_SHAPE, generator=g).to(dev).permute(0, 3, 1, 2),
+            torch.from_numpy(warp_cases.smooth_flow(*M2M_TRAIN_SPLAT_SHAPE[:3], amp=8.0)).to(dev).permute(0, 3, 1, 2),
+            (torch.rand(M2M_TRAIN_SPLAT_SHAPE, generator=g) * 2 - 1).to(dev).permute(0, 3, 1, 2), True),
+        **band91_inputs,
+    }
+    sband91, sband91_err = {}, (0.0, 0.0)
+    for key, (x, flow, gout, in_grad) in band91_inputs.items():
+        nhwc = lambda t_: t_.permute(0, 2, 3, 1)  # noqa: E731
+        hh = x.shape[2]
+        spans91 = ((0, hh // 2), (hh // 2, hh - hh // 2))
+        whole = softsplat_kernel.softsplat_bilinear_backward(x, flow, gout, in_grad)
+        same = softsplat_kernel.softsplat_bilinear_backward(x, flow, gout, in_grad, 0, hh)
+        torch.cuda.synchronize()
+        check(torch.equal(same[0], whole[0]) and torch.equal(same[1], whole[1]),
+              f"splat backward {key}: row0 = 0 at the whole frame's {hh} rows differs from the default call")
+        contributions, _ = softsplat_backward_torch(nhwc(x).float(), nhwc(flow).float(), nhwc(gout).abs())
+        rows91 = {}
+        for a, n in spans91:
+            xb, fb = x[:, :, a : a + n], flow[:, :, a : a + n]
+            band = lambda xb=xb, fb=fb, a=a: softsplat_kernel.softsplat_bilinear_backward(xb, fb, gout, in_grad, a, hh)  # noqa: E731
+            bi, bf = band()
+            ri, rf = softsplat_backward_torch(nhwc(xb), nhwc(fb), nhwc(gout), a, hh)
+            torch.cuda.synchronize()
+            check(torch.equal(bi, whole[0][:, :, a : a + n]) and torch.equal(bf, whole[1][:, :, a : a + n]),
+                  f"splat backward {key}: the band of rows {a}-{a + n} differs from the whole-frame launch's rows")
+            ok_i, err_i = grad_within(nhwc(bi), ri, 4 * 2.0**-23 * contributions[:, a : a + n], x.dtype)
+            ok_f, err_f = grad_within(nhwc(bf), rf, 1e-5 * rf.float().abs().max().item() + 1e-6, flow.dtype)
+            check(ok_i and ok_f, f"splat backward {key}, band {a}-{a + n} vs plain: max err grad_in {err_i}, grad_flow {err_f}")
+            sband91_err = (max(sband91_err[0], err_i), max(sband91_err[1], err_f))
+            library = splat_backward_library_call(nhwc(xb), nhwc(fb), nhwc(gout), row0=a)
+            whole_call = lambda: softsplat_kernel.softsplat_bilinear_backward(x, flow, gout, in_grad)  # noqa: E731
+            dev_turns = {"band": [], "whole frame": []}
+            for which in ("band", "whole frame", "whole frame", "band"):
+                dev_turns[which].append(device_ms(band if which == "band" else whole_call, 10, name="softsplat_backward_kernel"))
+            lib_ms = device_ms(library, 5)
+            times = in_turns({"band": (band, 10), "plain band": (lambda xb=xb, fb=fb, a=a: softsplat_backward_torch(
+                nhwc(xb), nhwc(fb), nhwc(gout), a, hh), 2), "two library calls on the band": (library, 5)})
+            b = bound(*splat_backward_work(xb, fb, in_grad))
+            rows91[f"rows {a}-{a + n}"] = {
+                "kernel_device_ms": statistics.mean(dev_turns["band"]), "whole_frame_device_ms": statistics.mean(dev_turns["whole frame"]),
+                "device_ms_turns": dev_turns, "bound_ms": b[0], "bound_by": b[1], "library_device_ms": lib_ms,
+                "ms": statistics.mean(times["band"]), "plain_ms": statistics.mean(times["plain band"]),
+                "library_ms": statistics.mean(times["two library calls on the band"]), "turns": times,
+                "max_abs_err": (err_i, err_f),
+            }
+            del bi, bf, ri, rf
+        sband91[key] = rows91
+        print(f"splat backward band {card}: {key}, bands {spans91} of {hh} rows: each band's launch the whole frame's rows "
+              "bit for bit; " + "; ".join(
+                  f"{k}: the kernel {r['kernel_device_ms']:.4f} ms on the device (whole frame {r['whole_frame_device_ms']:.4f}), "
+                  f"bound {r['bound_ms']:.4f} ({r['bound_by']}), two library calls {r['library_device_ms']:.4f}; ops in turns band "
+                  f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} ms; max err {r['max_abs_err']}"
+                  for k, r in rows91.items()), flush=True)
+        del whole, same, contributions
+    sband91_main = sband91[next(iter(band91_inputs))][f"rows {M2M_TRAIN_SPLAT_SHAPE[1] // 2}-{M2M_TRAIN_SPLAT_SHAPE[1]}"]
+    del band91_inputs
+    torch.cuda.empty_cache()
+    print(f"splat backward band: phase 91 {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 92. M2M's training step on the (1, 2) mesh of replicas ------------------------------
+    clock("92")
+    # b8 x 256^2 f32 (phase 54's size; two bands of 128 rows) through
+    # make_train_step against one device (space_train_phase): launches
+    # exactly twice one device's (K1 8, wide 32, K2 2, the warp's backward
+    # 40, the splat's 2); steps/s in turns, peak memory, a profile of each
+    t0 = time.perf_counter()
+    m2m_train_space = space_train_phase(
+        f"M2M training step b{M2M_TRAIN_BATCH} x {M2M_TRAIN_HW[0]}x{M2M_TRAIN_HW[1]} f32",
+        lambda mesh: m2m_trainer(dev, torch.float32, mesh), train_batch(M2M_TRAIN_BATCH, M2M_TRAIN_HW, 92, dev, torch.float32),
+        M2M_TRAIN_LAUNCHES, mesh1, mesh_s, card, timed=True,
+    )
+    print(
+        f"space train {card}: M2M step b{M2M_TRAIN_BATCH} x {M2M_TRAIN_HW[0]}x{M2M_TRAIN_HW[1]} f32 (TF32 off, cuDNN "
+        f"deterministic) on the (1, 2) mesh against one device: loss {m2m_train_space['loss']:.7f} vs "
+        f"{m2m_train_space['loss_one_device']:.7f}, gradients within {m2m_train_space['grad_rel_err']:.3g} of each tensor's "
+        f"largest ({m2m_train_space['grad_rel_worst']}; {m2m_train_space['grad_err_over_largest_of_all']:.3g} of the largest of "
+        f"all; one device's larger move for its inputs one ulp up or its weights two {m2m_train_space['one_device_move_grad_rel']:.3g}, "
+        f"{m2m_train_space['one_device_move_grad_rel_worst']}); launches "
+        f"{m2m_train_space['launches']}; " + "; ".join(
+            f"{k}: {r['steps_per_s']:.3f} steps/s (turns {', '.join(f'{v:.3f}' for v in r['steps_per_s_turns'])}), peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB, idle share {r['idle_share']:.4f}, {r['kernels']} kernels"
+            for k, r in m2m_train_space["training"].items()) + f"; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 93. the other unblocked steps on the (1, 2) mesh ----------------------------------------
+    clock("93")
+    # GMFSS base, EISAI (12 iterations), XVFI Vimeo and AMT S, one f32 step
+    # each at b2 x 256^2 on the mesh against one device, as phase 92 holds
+    # M2M's (family_trainer on the mesh), launches exactly twice
+    # FAMILY_STEP_LAUNCHES; no timed rounds
+    t0 = time.perf_counter()
+    slice27 = {}
+    for name93 in ("gmfss", "eisai", "xvfi", "amt"):
+        t1 = time.perf_counter()
+        frames93, t93, target93 = family_batch(name93, 2, FAMILY_TRAIN_HW, 93, dev)
+
+        def make93(mesh, name93=name93):
+            net93, step93 = family_trainer(name93, dev, mesh)
+            return net93, (lambda a, b, tt, tgt: step93([a, b], tt, tgt))
+
+        slice27[f"{name93}_train_space_2way"] = row93 = space_train_phase(
+            f"{name93} training step b2 x {FAMILY_TRAIN_HW[0]}x{FAMILY_TRAIN_HW[1]} f32", make93,
+            (*frames93, t93, target93), FAMILY_STEP_LAUNCHES[name93], mesh1, mesh_s, card,
+        )
+        del frames93, t93, target93
+        print(f"space train {card}: {name93} step b2 x {FAMILY_TRAIN_HW[0]}x{FAMILY_TRAIN_HW[1]} f32 on the (1, 2) mesh "
+              f"against one device: loss {row93['loss']:.7f} vs {row93['loss_one_device']:.7f}, gradients within "
+              f"{row93['grad_rel_err']:.3g} of each tensor's largest ({row93['grad_rel_worst']}; "
+              f"{row93['grad_err_over_largest_of_all']:.3g} of the largest of all; one device's larger move for its inputs one "
+              f"ulp up or its weights two {row93['one_device_move_grad_rel']:.3g}, {row93['one_device_move_grad_rel_worst']}); "
+              f"launches "
+              f"{row93['launches']}; {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"space train: phase 93 {time.perf_counter() - t0:.1f} s", flush=True)
+    train_space27 = {"m2m_train_space_2way": m2m_train_space, **slice27}
+    train_space27_n = {path: row["launches"]["(1, 2) mesh"] for path, row in train_space27.items()}
+
     # per kernel and bf16 path, one forward's launches, device ms and bound,
     # ranked by the ms above the bound
     profiles = {
@@ -6143,7 +6438,7 @@ def main() -> int:
         flush=True,
     )
 
-    print(f"smoke {card}: phases 1-90 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"smoke {card}: phases 1-93 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     family_launches = {k: {f"{name}_train": row["launches"][k] for name, row in family_rows.items()} for k in family_rows["gmfss"]["launches"]}
     print(json.dumps({"kernels": [
         {
@@ -6159,7 +6454,8 @@ def main() -> int:
             + rife_sharded2_launches["narrow"] + m2m_sharded2_launches["narrow"] + train2_launches["narrow"]
             + m2m_train_launches["narrow"] + sum(family_launches["narrow"].values()) + space_launches["narrow"]
             + space_train_launches["narrow"] + m2m_space_launches["narrow"] + xvfi_space["launches"]["narrow"]
-            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values(), *slice26.values())),
+            + film_space["launches"]["narrow"] + sum(row["launches"]["narrow"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values(), *slice26.values()))
+            + sum(n["narrow"] for n in train_space27_n.values()),
             "launches_by_path": {
                 "rife": rife_warp_launches, "rife40": rife40_launches["narrow"], "m2m": m2m_warp_launches,
                 "film": film_warp_launches, **{path: v["narrow"] for path, v in gmfss_launches.items()},
@@ -6175,6 +6471,7 @@ def main() -> int:
                 "rife_train_space_2way": space_train_launches["narrow"], "m2m_space_2way": m2m_space_launches["narrow"],
                 "xvfi_space_2way": xvfi_space["launches"]["narrow"], "film_space_2way": film_space["launches"]["narrow"],
                 **{path: row["launches"]["narrow"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items(), *slice26.items())},
+                **{path: n["narrow"] for path, n in train_space27_n.items()},
             },
             "max_abs_err": main_err,
             "shape": f"{list(MAIN_SHAPE)} bf16, f32 flow",
@@ -6206,7 +6503,8 @@ def main() -> int:
             + xvfi_launches["wide"] + x4k_launches["wide"] + rife_stream_launches["wide"] + m2m_stream_launches["wide"]
             + m2m_sharded_launches["wide"] + m2m_sharded2_launches["wide"] + m2m_train_launches["wide"]
             + sum(family_launches["wide"].values()) + m2m_space_launches["wide"] + xvfi_space["launches"]["wide"]
-            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values(), *slice26.values())),
+            + film_space["launches"]["wide"] + sum(row["launches"]["wide"] for row in (*slice22.values(), *slice23.values(), *slice24.values(), *slice25.values(), *slice26.values()))
+            + sum(n["wide"] for n in train_space27_n.values()),
             "launches_by_path": {
                 "rife40": rife40_launches["wide"], "m2m": m2m_wide, "film": film_wide_launches,
                 **{path: v["wide"] for path, v in gmfss_launches.items()}, "stmfnet": stmf_launches["wide"],
@@ -6218,6 +6516,7 @@ def main() -> int:
                 **family_launches["wide"], "m2m_space_2way": m2m_space_launches["wide"],
                 "xvfi_space_2way": xvfi_space["launches"]["wide"], "film_space_2way": film_space["launches"]["wide"],
                 **{path: row["launches"]["wide"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items(), *slice26.items())},
+                **{path: n["wide"] for path, n in train_space27_n.items()},
             },
             "max_abs_err": wide_err,
             "shape": f"{list(FILM_WARP_SHAPES[0])} bf16, f32 flow",
@@ -6260,7 +6559,8 @@ def main() -> int:
             + stmf_launches["splat"] + xvfi_launches["splat"] + x4k_launches["splat"] + rife_stream_launches["splat"]
             + m2m_stream_launches["splat"] + m2m_sharded_launches["splat"] + m2m_sharded2_launches["splat"]
             + m2m_train_launches["splat"] + sum(family_launches["splat"].values()) + m2m_space_launches["splat"]
-            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in (*slice23.values(), *slice24.values(), *slice25.values(), *slice26.values())),
+            + xvfi_space["launches"]["splat"] + sum(row["launches"]["splat"] for row in (*slice23.values(), *slice24.values(), *slice25.values(), *slice26.values()))
+            + sum(n["splat"] for n in train_space27_n.values()),
             "launches_by_path": {
                 "m2m": m2m_splat_launches, **{path: v["splat"] for path, v in gmfss_launches.items()},
                 "eisai": eisai_launches["splat"], "stmfnet": stmf_launches["splat"], "xvfi": xvfi_launches["splat"],
@@ -6271,6 +6571,7 @@ def main() -> int:
                 **family_launches["splat"], "m2m_space_2way": m2m_space_launches["splat"],
                 "xvfi_space_2way": xvfi_space["launches"]["splat"], "film_space_2way": film_space["launches"]["splat"],
                 **{path: row["launches"]["splat"] for path, row in (*slice22.items(), *slice23.items(), *slice24.items(), *slice25.items(), *slice26.items())},
+                **{path: n["splat"] for path, n in train_space27_n.items()},
             },
             "max_abs_err": splat_err,
             "shape": f"{list(SPLAT_SHAPE)} bf16, f32 flow, smooth amp 8, through softsplat_func",
@@ -6301,11 +6602,13 @@ def main() -> int:
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/warp.cu",
             "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/warp.py:57 (bilinear_sample)",
             "launches": train_launches["backward"] + train2_launches["backward"] + m2m_train_launches["backward"]
-            + sum(family_launches["backward"].values()) + space_train_launches["backward"],
+            + sum(family_launches["backward"].values()) + space_train_launches["backward"]
+            + sum(n["backward"] for n in train_space27_n.values()),
             "launches_by_path": {"rife_train": train_launches["backward"], "rife_train_2way": train2_launches["backward"],
                                  "m2m_train": m2m_train_launches["backward"], **family_launches["backward"],
                                  "rife_space_2way": space_backward_launches,
-                                 "rife_train_space_2way": space_train_launches["backward"]},
+                                 "rife_train_space_2way": space_train_launches["backward"],
+                                 **{path: n["backward"] for path, n in train_space27_n.items()}},
             "max_abs_err": bwd_err,
             "shape": f"{list(MAIN_SHAPE)} f32, f32 flow, border",
             "ms": bwd_main["ms"],
@@ -6334,9 +6637,11 @@ def main() -> int:
             "route": "cuda",
             "source": "comfyui_frame_interpolation_tpu_torch/csrc/softsplat.cu",
             "replaces": "the XLA VJP of comfyui_frame_interpolation_tpu/ops/softsplat.py:83 (_softsplat_xla)",
-            "launches": m2m_train_launches["splat_backward"] + sum(family_launches["splat_backward"].values()),
+            "launches": m2m_train_launches["splat_backward"] + sum(family_launches["splat_backward"].values())
+            + sum(n["splat_backward"] for n in train_space27_n.values()),
             "launches_by_path": {"m2m_train": m2m_train_launches["splat_backward"], "rife_train": train_launches["splat_backward"],
-                                 "rife_train_2way": train2_launches["splat_backward"], **family_launches["splat_backward"]},
+                                 "rife_train_2way": train2_launches["splat_backward"], **family_launches["splat_backward"],
+                                 **{path: n["splat_backward"] for path, n in train_space27_n.items()}},
             "max_abs_err": sb_err,
             "shape": f"{list(M2M_TRAIN_SPLAT_SHAPE)} f32, f32 flow",
             "ms": sbwd_main["ms"],
@@ -6357,6 +6662,14 @@ def main() -> int:
             "family_training": {name: {k: v for k, v in row.items() if k not in ("backward_shapes", "max_abs_err")}
                                 for name, row in family_rows.items()},
             "phase_63": {"by_layout": sb_rows, "per_step": sb_steps},
+            "row_band": {"shape": f"{list(M2M_TRAIN_SPLAT_SHAPE)} f32, f32 flow, rows {M2M_TRAIN_SPLAT_SHAPE[1] // 2}-"
+                                  f"{M2M_TRAIN_SPLAT_SHAPE[1]} of the whole frame's output gradient",
+                         "max_abs_err": sband91_err, "ms": sband91_main["ms"], "kernel_device_ms": sband91_main["kernel_device_ms"],
+                         "whole_frame_device_ms": sband91_main["whole_frame_device_ms"], "plain_ms": sband91_main["plain_ms"],
+                         "bound_ms": sband91_main["bound_ms"], "bound_by": sband91_main["bound_by"],
+                         "library_ms": sband91_main["library_ms"], "library_device_ms": sband91_main["library_device_ms"],
+                         "by_input": sband91},
+            **train_space27,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -76,7 +76,10 @@
 // The backward is a gather, not a scatter: each source reads the output's
 // gradient at its own four corners and writes only its own pixel. So it
 // needs no atomics and no zero-filled buffer, and two launches give the same
-// bits. It is bounded by bytes: the input, the flow and the f32 output
+// bits. It takes a row band as K2 does (row0 and the output's ho rows: the
+// space axis of parallel/): a band's sources read the whole frame's output
+// gradient at their global corners, so a band's launch gives the whole
+// frame's launch's rows of its sources bit for bit. It is bounded by bytes: the input, the flow and the f32 output
 // gradient read once, the two gradients written once (268.4 MB at M2M's b8
 // 256x256 training splat, NHWC [64, 256, 256, 4] f32: 0.080 ms at 3.35
 // TB/s; 105.9 MB at EISAI's [8, 128, 128, 66] f32: 0.032 ms); the gathers
@@ -546,6 +549,7 @@ struct BackwardArgs {
   void* grad_in;  // null: the input's gradient is not computed
   void* grad_flow;
   int64_t nhw, c, h, w;
+  int64_t ho, row0;  // the band: global rows row0 .. row0 + h of ho
   Strides si, sf, sg, sgi, sgf;
   int vecs;           // spread: vectors per source
   int block_sources;  // sources a block takes
@@ -574,7 +578,7 @@ __global__ void __launch_bounds__(kThreads)
   float fx, fy;
   load_flow(static_cast<const TF*>(a.flow) + b * a.sf.n + y * a.sf.h + x * a.sf.w,
             a.sf.c, fx, fy);
-  const Corners cn = splat_corners(x, y, a.w, a.h, fx, fy);
+  const Corners cn = splat_corners(x, a.row0 + y, a.w, a.ho, fx, fy);
   const int mask = (cn.valid[0] ? 1 : 0) | (cn.valid[1] ? 2 : 0) |
                    (cn.valid[2] ? 4 : 0) | (cn.valid[3] ? 8 : 0);
   const float* gb = a.grad_out + b * a.sg.n + cn.iy0 * a.sg.h + cn.ix0 * a.sg.w;
@@ -644,7 +648,7 @@ __global__ void __launch_bounds__(kThreads)
     float fx, fy;
     load_flow(static_cast<const TF*>(a.flow) + b * a.sf.n + y * a.sf.h + x * a.sf.w,
               a.sf.c, fx, fy);
-    const Corners cn = splat_corners(x, y, a.w, a.h, fx, fy);
+    const Corners cn = splat_corners(x, a.row0 + y, a.w, a.ho, fx, fy);
     StagedSource s;
     s.wxy = make_float4(cn.wx0, cn.wx1, cn.wy0, cn.wy1);
     s.g = b * a.sg.n + cn.iy0 * a.sg.h + cn.ix0 * a.sg.w;
@@ -907,25 +911,31 @@ extern "C" int cfi_softsplat(const void* in, const void* flow, void* out,
 }
 
 // The gradient of the splat of `in` ([n, c, h, w] by element strides) by
-// `flow` ([n, 2, h, w]) for the f32 output gradient `grad_out` ([n, c, h,
+// `flow` ([n, 2, h, w]) for the f32 output gradient `grad_out` ([n, c, ho,
 // w], any strides, stride 0 included): `grad_in` ([n, c, h, w], in's
 // dtype) and `grad_flow` ([n, 2, h, w], flow's dtype), each written in full
 // by the kernel (no zero fill needed). `grad_in` may be null and is then not
-// computed. Dtype codes as cfi_softsplat. Returns the launch's
-// cudaGetLastError() (0 on success), -1 for an unknown dtype code, -2 when
-// n * h * w or c exceeds what the grid and the kernel's indices hold, -3
-// when `grad_flow` is null. Launches on `stream` and does not synchronise.
+// computed. A row band, as cfi_softsplat takes it: the sources are global
+// rows row0 .. row0 + h of a frame of ho rows, each reads `grad_out` at the
+// corners of (x + fx, row0 + y + fy), and the drops and the +-2h clamp use
+// ho, so a source rounds to the pixels the forward added it to (row0 = 0,
+// ho = h: the whole frame). Dtype codes as cfi_softsplat. Returns the
+// launch's cudaGetLastError() (0 on success), -1 for an unknown dtype code,
+// -2 when n * h * w or c exceeds what the grid and the kernel's indices
+// hold, or the band does not lie within the output's rows, -3 when
+// `grad_flow` is null. Launches on `stream` and does not synchronise.
 extern "C" int cfi_softsplat_backward(
     const void* in, const void* flow, const void* grad_out, void* grad_in,
     void* grad_flow, int in_dtype, int flow_dtype, int64_t n, int64_t c,
-    int64_t h, int64_t w, int64_t si_n, int64_t si_c, int64_t si_h,
+    int64_t h, int64_t w, int64_t ho, int64_t row0, int64_t si_n, int64_t si_c, int64_t si_h,
     int64_t si_w, int64_t sf_n, int64_t sf_c, int64_t sf_h, int64_t sf_w,
     int64_t sg_n, int64_t sg_c, int64_t sg_h, int64_t sg_w, int64_t sgi_n,
     int64_t sgi_c, int64_t sgi_h, int64_t sgi_w, int64_t sgf_n, int64_t sgf_c,
     int64_t sgf_h, int64_t sgf_w, void* stream) {
   if (grad_flow == nullptr) return -3;
+  if (row0 < 0 || row0 + h > ho) return -2;
   if (n * h * w == 0) return 0;
-  if (n * h * w > 0x7fffffff || c > (int64_t{1} << 28)) return -2;
+  if (n * h * w > 0x7fffffff || c > (int64_t{1} << 28) || ho > 0x3fffffff) return -2;
   BackwardArgs a;
   a.in = in;
   a.flow = flow;
@@ -936,6 +946,8 @@ extern "C" int cfi_softsplat_backward(
   a.c = c;
   a.h = h;
   a.w = w;
+  a.ho = ho;
+  a.row0 = row0;
   a.si = Strides{si_n, si_c, si_h, si_w};
   a.sf = Strides{sf_n, sf_c, sf_h, sf_w};
   a.sg = Strides{sg_n, sg_c, sg_h, sg_w};

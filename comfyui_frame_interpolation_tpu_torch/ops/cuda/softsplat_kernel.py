@@ -27,7 +27,11 @@ K2 takes a band of sources (``row0``, ``out_rows``; the ``space`` axis of
 row ``row0``, the output is the whole frame's ``out_rows`` rows, the
 band's partial sum. The drops and the clamp use the whole frame's height,
 so the bands' partial sums add up to the whole-frame splat up to the order
-of the f32 atomics. The backward takes no band.
+of the f32 atomics. The backward takes the same band: a band's sources read
+the whole frame's output gradient ``[N, C, out_rows, W]`` at their global
+corners, so a band's launch gives the whole-frame launch's rows of its
+sources bit for bit, and :class:`SplatFunction` carries ``row0`` and
+``out_rows`` into both launches (the band's partial has a gradient).
 
 ``launches`` counts the launches of K2 and ``backward_launches`` those of the
 backward kernel, so that a run can show that its main path went through
@@ -72,7 +76,7 @@ def _backward_kernel():
     fn = load_library("softsplat").cfi_softsplat_backward
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 24 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 26 + [ctypes.c_void_p]
     )
     return fn
 
@@ -123,14 +127,17 @@ def softsplat_bilinear(
 
 
 def softsplat_bilinear_backward(
-    ten_in: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, in_grad: bool = True
+    ten_in: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, in_grad: bool = True, row0: int = 0,
+    out_rows: Optional[int] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The gradient of :func:`softsplat_bilinear` of ``ten_in`` ``[N, C, H,
     W]`` by ``flow`` ``[N, 2, H, W]`` for the output's gradient ``grad_out``
-    (``[N, C, H, W]`` float32, the forward's output dtype): ``(grad_in,
-    grad_flow)`` in the dtypes and shapes of ``ten_in`` and ``flow``. With
-    ``in_grad=False`` the input's gradient is not computed and ``grad_in``
-    is None.
+    (``[N, C, out_rows, W]`` float32, the forward's output dtype):
+    ``(grad_in, grad_flow)`` in the dtypes and shapes of ``ten_in`` and
+    ``flow``. With ``in_grad=False`` the input's gradient is not computed and
+    ``grad_in`` is None. A band of sources as the forward takes it:
+    ``row0`` and ``out_rows`` (``H`` by default) place the band's rows in
+    the frame whose gradient ``grad_out`` is.
 
     Any strides for every input, an expanded ``grad_out`` (stride 0)
     included, which the kernel reads in place. The kernel writes every
@@ -139,12 +146,15 @@ def softsplat_bilinear_backward(
     launches on the current stream and nothing synchronises."""
     global backward_launches
     check_planes_and_flow("softsplat_bilinear_backward", ten_in, flow, _GRAD_HINT)
-    if grad_out.shape != ten_in.shape or grad_out.dtype != torch.float32 or grad_out.device != ten_in.device:
+    n, c, h, w = ten_in.shape
+    ho = h if out_rows is None else out_rows
+    if not 0 <= row0 <= ho - h:
+        raise ValueError(f"softsplat_bilinear_backward: a band of {h} rows from row {row0} does not lie within {ho} output rows")
+    if grad_out.shape != (n, c, ho, w) or grad_out.dtype != torch.float32 or grad_out.device != ten_in.device:
         raise ValueError(
-            f"softsplat_bilinear_backward: grad_out must be {tuple(ten_in.shape)} float32 on {ten_in.device}, "
+            f"softsplat_bilinear_backward: grad_out must be {(n, c, ho, w)} float32 on {ten_in.device}, "
             f"got {tuple(grad_out.shape)} {grad_out.dtype} on {grad_out.device}"
         )
-    n, c, h, w = ten_in.shape
     gi = torch.empty_like(ten_in) if in_grad else None
     gf = torch.empty_like(flow)
     with torch.cuda.device(ten_in.device):
@@ -153,7 +163,7 @@ def softsplat_bilinear_backward(
             ten_in.data_ptr(), flow.data_ptr(), grad_out.data_ptr(),
             None if gi is None else gi.data_ptr(), gf.data_ptr(),
             DTYPE_CODES[ten_in.dtype], DTYPE_CODES[flow.dtype],
-            n, c, h, w, *ten_in.stride(), *flow.stride(), *grad_out.stride(),
+            n, c, h, w, ho, row0, *ten_in.stride(), *flow.stride(), *grad_out.stride(),
             *((0, 0, 0, 0) if gi is None else gi.stride()), *gf.stride(),
             stream,
         )
@@ -166,20 +176,25 @@ def softsplat_bilinear_backward(
 class SplatFunction(torch.autograd.Function):
     """The splat of ``[N, C, H, W]`` planes by ``[N, 2, H, W]`` flow planes
     with a gradient: the forward launches K2 (:func:`softsplat_bilinear`,
-    float32 out), the backward :func:`softsplat_bilinear_backward`. Neither
-    gives way to the plain twin: a kernel that does not build or launch
-    raises."""
+    float32 out), the backward :func:`softsplat_bilinear_backward`; with
+    ``row0`` and ``out_rows``, both on the band (the band's partial of the
+    whole frame, ``[N, C, out_rows, W]``). Neither gives way to the plain
+    twin: a kernel that does not build or launch raises."""
 
     @staticmethod
-    def forward(ctx, ten_in: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, ten_in: torch.Tensor, flow: torch.Tensor, row0: int = 0, out_rows: Optional[int] = None) -> torch.Tensor:
         ctx.save_for_backward(ten_in, flow)
+        ctx.band = (row0, out_rows)
         # the wrappers take no input that needs a gradient: this Function is
         # what differentiates them
-        return softsplat_bilinear(ten_in.detach(), flow.detach())
+        return softsplat_bilinear(ten_in.detach(), flow.detach(), row0, out_rows)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out: torch.Tensor):
         ten_in, flow = (t.detach() for t in ctx.saved_tensors)
-        grad_in, grad_flow = softsplat_bilinear_backward(ten_in, flow, grad_out, ctx.needs_input_grad[0])
-        return grad_in, (grad_flow if ctx.needs_input_grad[1] else None)
+        row0, out_rows = ctx.band
+        grad_in, grad_flow = softsplat_bilinear_backward(
+            ten_in, flow, grad_out, ctx.needs_input_grad[0], row0=row0, out_rows=out_rows
+        )
+        return grad_in, (grad_flow if ctx.needs_input_grad[1] else None), None, None

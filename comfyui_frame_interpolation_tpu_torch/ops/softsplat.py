@@ -124,15 +124,19 @@ def softsplat_torch(
 def softsplat_partial(ten_in: torch.Tensor, ten_flow: torch.Tensor, row0: int, out_rows: int) -> torch.Tensor:
     """A band of sources' part of the whole frame's splat, f32 NHWC ``[N,
     out_rows, W, C]``, not cast: the ``space`` axis of ``parallel/`` adds the
-    bands' parts in f32 and casts once. CUDA tensors launch K2 with a band
-    (whose wrapper refuses inputs that need a gradient: the splat's backward
-    takes no band), CPU tensors take the twin's sums."""
+    bands' parts in f32 and casts once. CUDA tensors launch K2 with a band;
+    when grad mode is on and an input needs a gradient, through
+    ``softsplat_kernel.SplatFunction``, whose backward launches the backward
+    kernel on the same band. CPU tensors take the twin's sums, which
+    autograd differentiates."""
     if ten_in.device.type == "cuda":
         from .cuda import softsplat_kernel
 
-        out = softsplat_kernel.softsplat_bilinear(
-            ten_in.permute(0, 3, 1, 2), ten_flow.permute(0, 3, 1, 2), row0=row0, out_rows=out_rows
-        )
+        planes, flow_planes = ten_in.permute(0, 3, 1, 2), ten_flow.permute(0, 3, 1, 2)
+        if torch.is_grad_enabled() and (ten_in.requires_grad or ten_flow.requires_grad):
+            out = softsplat_kernel.SplatFunction.apply(planes, flow_planes, row0, out_rows)
+        else:
+            out = softsplat_kernel.softsplat_bilinear(planes.detach(), flow_planes.detach(), row0=row0, out_rows=out_rows)
         return out.permute(0, 2, 3, 1)
     if ten_in.device.type == "cpu" and ten_flow.device.type == "cpu":
         return _splat_sums(ten_in, ten_flow, row0, out_rows)
@@ -140,17 +144,18 @@ def softsplat_partial(ten_in: torch.Tensor, ten_flow: torch.Tensor, row0: int, o
 
 
 def softsplat_backward_torch(
-    ten_in: torch.Tensor, ten_flow: torch.Tensor, grad_out: torch.Tensor
+    ten_in: torch.Tensor, ten_flow: torch.Tensor, grad_out: torch.Tensor, row0: int = 0, out_rows: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's plain version: ``(grad_in, grad_flow)`` of
-    :func:`softsplat_torch` for the output's gradient ``grad_out`` (NHWC,
-    like ``ten_in``), by ``torch.autograd.grad``. bf16/f16 inputs are taken
-    to f32 first and the gradients cast once to the inputs' dtypes, as the
-    kernel sums in f32 and rounds once."""
+    :func:`softsplat_torch` for the output's gradient ``grad_out`` (NHWC
+    ``[N, out_rows, W, C]``), by ``torch.autograd.grad``; a band of sources
+    (``row0``, ``out_rows``) as :func:`softsplat_torch` takes it. bf16/f16
+    inputs are taken to f32 first and the gradients cast once to the
+    inputs' dtypes, as the kernel sums in f32 and rounds once."""
     with torch.enable_grad():
         x = ten_in.detach().float().requires_grad_()
         f = ten_flow.detach().float().requires_grad_()
-        out = softsplat_torch(x, f)
+        out = _splat_sums(x, f, row0, out_rows)
         gi, gf = torch.autograd.grad(out, (x, f), grad_out.float())
     return gi.to(ten_in.dtype), gf.to(ten_flow.dtype)
 

@@ -27,12 +27,15 @@ RIFE (every arch), FILM, IFRNet, AMT, IFUnet, CAIN, Sepconv, ATM and MoMo
 (:func:`~.infer.make_sharded_model_fn`), the window-4 models FLAVR and
 STMFNet (:func:`core.run_plan_window4`), and the pair-cached inference of
 M2M, XVFI (Vimeo and X4K), GMFSS Fortuna (base and union) and EISAI
-(:func:`~.infer.make_sharded_pair_fns`); and RIFE 4.7's training step
-(:func:`~.train.make_train_step`). A value's band edges move where an op
-needs other ones (the re-banding rule). Every other op raises
-``NotImplementedError`` on a band, naming itself and the ``ROADMAP.md``
-item that ports the rest, the other families' training steps
-(:data:`SPACE_TODO`): no run that the policy splits over ``space`` runs
+(:func:`~.infer.make_sharded_pair_fns`); and the training step
+(:func:`~.train.make_train_step`) of every family it carries: RIFE,
+M2M, XVFI, GMFSS Fortuna (base and union), EISAI, AMT, FILM, CAIN,
+Sepconv, IFRNet, ATM, IFUnet and MoMo (FLAVR and STMFNet take four
+frames, which no ``make_train_step`` carries). A value's band edges move
+where an op needs other ones (the re-banding rule). Every other op (one
+that no family uses) raises ``NotImplementedError`` on a band, naming
+itself and the ``ROADMAP.md`` item (:data:`SPACE_TODO`): no run that the
+policy splits over ``space`` runs
 data-parallel in its place (:func:`check_runnable` raises for a caller
 that cannot split rows). On the CPU the axis runs on logical replicas
 (``make_mesh(8, devices=[torch.device("cpu")] * 8)``: a ``(4, 2)`` mesh);
@@ -63,8 +66,8 @@ MIN_ROWS_PER_SHARD = 64
 
 # what a run on the space axis that no row-band rule covers is told
 SPACE_TODO = (
-    "the 'space' axis (rows split over devices) runs every family's inference and RIFE 4.7's training step; "
-    "the training steps of the other families are ROADMAP.md Queue 1 item 3"
+    "the 'space' axis (rows split over devices) runs every family's inference and the training step of every family "
+    "that make_train_step carries; an op that no family uses is ROADMAP.md Queue 1 item 3"
 )
 
 

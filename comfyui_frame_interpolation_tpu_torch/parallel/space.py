@@ -23,7 +23,10 @@ functions of M2M, XVFI (Vimeo and X4K), GMFSS Fortuna (base and union) and
 EISAI, FILM, IFRNet (S and L), AMT (S, L and G), IFUnet (with and without
 the ensemble), CAIN, Sepconv, ATM (base and lite; global motion off, on and
 with the ensemble), MoMo (base and lite) and the window-4 models, FLAVR
-and STMFNet:
+and STMFNet; and, with a gradient, the training step of every family that
+``parallel.make_train_step`` carries (each rule's ops are differentiable:
+``cat``, ``narrow`` and ``to`` carry the halos' and gathers' gradients back
+into the bands that hold their rows):
 
 * the re-banding rule (:meth:`RowBands.reband`): a value's band edges move
   to new starts, each band taking only the rows between its old edge and
@@ -144,15 +147,20 @@ and STMFNet:
   is the sum of every partial's rows of band ``k``, moved to band ``k``'s
   device and added in band order, cast once. It is the forward
   counterpart of the warp's gathered source, whose image gradient autograd
-  adds back into bands. The splat's backward takes no band yet, so a splat
-  that needs a gradient raises (M2M's training step on the axis);
+  adds back into bands. With a gradient, each partial's gradient is the
+  result's bands joined whole on its band's device, and the splat's
+  backward kernel reads it on the band (the training steps of M2M, XVFI,
+  GMFSS and EISAI);
 * IFUnet's ``convex_upsample`` (which hands a band over): each band's flow
   with a row from each neighbour for the 3x3 taps, its own mask, its result
   ``level`` times its rows from ``level`` times its first row;
 * AMT's correlation (``ops.bidir_corr.BidirCorr``, which hands bands
   over): each target's pyramid built on each band's device from the
   target gathered whole (the warp's source rule), each band's queries
-  looked up at its own rows of the coordinates; inference only;
+  looked up at its own rows of the coordinates; with a gradient the
+  target's gathered ``cat`` carries each pyramid's gradient back into the
+  producing bands, and each band's lookup takes ``BidirCorr.windowed``'s
+  out-of-place form;
 * STMFNet's hand-overs: ``models.stmfnet._upsampler_8tap`` (each band's
   column pass with the 3 rows above and 4 below it, reflected only at the
   global top and bottom; twice its rows out from twice its first row),
@@ -1338,24 +1346,43 @@ def _costvol_rule(func, args, kwargs):
     return one.like(out)
 
 
+class _CutRows(torch.autograd.Function):
+    """A whole-frame partial cut into the bands' rows along dimension 1, each
+    piece moved to its band's device; the backward is one ``cat`` of the
+    pieces' gradients on the partial's device (where autograd's ``narrow``
+    and ``to`` would give each piece's gradient as a zero-filled whole
+    frame)."""
+
+    @staticmethod
+    def forward(ctx, part: torch.Tensor, spans, devices):
+        ctx.device = part.device
+        return tuple(part.narrow(1, a, n).to(d) for (a, n), d in zip(spans, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return torch.cat([g.to(ctx.device) for g in grads], 1), None, None
+
+
 def _softsplat_rule(func, args, kwargs):
     """The splat: band ``j``'s sources splat from their first row into a
     whole-frame f32 partial on band ``j``'s device (K2 with a band); band
     ``k`` of the result is the sum of every partial's rows of band ``k``,
-    moved to band ``k``'s device and added in band order, cast once."""
+    moved to band ``k``'s device and added in band order, cast once. With a
+    gradient, partial ``j``'s is the bands of the result's gradient joined
+    on band ``j``'s device (:class:`_CutRows`), which the splat's backward
+    kernel reads on the band (``softsplat_partial``)."""
     x, flow = _bind(func, ("ten_in", "ten_flow"), (None, None), args, kwargs)
     if not (isinstance(x, RowBands) and isinstance(flow, RowBands)) or x.axis != 1:
         raise _no_rule("ops.softsplat.softsplat_func of other than NHWC row bands of the values and their flow")
     flow = _onto(func, x, flow)
-    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
-        raise _no_rule("ops.softsplat.softsplat_func with a gradient (the splat's backward with a band)")
     parts = [softsplat_partial(b, f, a, x.height) for b, f, a in zip(x.bands, flow.bands, x.starts)]
+    spans = [(a, b.shape[1]) for b, a in zip(x.bands, x.starts)]
+    pieces = [_CutRows.apply(part, spans, [b.device for b in x.bands]) for part in parts]
     out = []
-    for b, a in zip(x.bands, x.starts):
+    for k in range(len(spans)):
         total = None
-        for part in parts:
-            piece = part.narrow(1, a, b.shape[1]).to(b.device)
-            total = piece if total is None else total + piece
+        for cut in pieces:
+            total = cut[k] if total is None else total + cut[k]
         out.append(total.to(x.dtype))
     return x.like(out)
 
@@ -1522,7 +1549,8 @@ class _BandCorr:
     coordinates (global pixel coordinates: AMT's ``coord`` spans the rows,
     :func:`_local`), into its rows of the windows. The same dots, f32 over
     each band's queries: f32 rounding apart from one device, not bits.
-    Inference only: a gradient raises."""
+    With a gradient, each pyramid's gradient flows back through the
+    gathered target into the bands that made it."""
 
     def __init__(self, f0: RowBands, f1: RowBands, levels: int, radius: int):
         self.radius, self.levels = radius, levels
@@ -1538,8 +1566,6 @@ class _BandCorr:
         if not isinstance(coords, RowBands) or coords.axis != 1:
             raise _no_rule(f"ops.bidir_corr.BidirCorr.lookup at {coords!r} (NHWC row bands of the coordinates)")
         coords = _onto(BidirCorr.lookup, query, coords.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        if torch.is_grad_enabled() and coords.requires_grad:
-            raise _no_rule("ops.bidir_corr.BidirCorr.lookup with a gradient (the training step on the axis)")
         return query.like([BidirCorr.windowed(self, q, p, c) for q, p, c in zip(query.bands, pyrs, coords.bands)])
 
 
@@ -1548,8 +1574,6 @@ def _bidir_corr_rule(func, args, kwargs):
     if not (isinstance(f0, RowBands) and isinstance(f1, RowBands)) or f0.axis != 2:
         raise _no_rule("ops.bidir_corr.BidirCorr of other than NCHW row bands of both feature maps")
     f1 = _onto(func, f0, f1)
-    if torch.is_grad_enabled() and (f0.requires_grad or f1.requires_grad):
-        raise _no_rule("ops.bidir_corr.BidirCorr with a gradient (the training step on the axis)")
     return _BandCorr(f0, f1, levels, radius)
 
 
@@ -1727,13 +1751,11 @@ class _BandPyramid:
 
 def _corr_pyramid_rule(func, args, kwargs):
     """``models.eisai._corr_pyramid`` (which hands bands over): each band's
-    query rows against the target gathered whole (:class:`_BandPyramid`).
-    Inference only: a gradient raises."""
+    query rows against the target gathered whole (:class:`_BandPyramid`),
+    whose ``cat`` carries the target's gradient back into every band."""
     f1, f2 = _bind(func, ("f1", "f2"), (None, None), args, kwargs)
     if not (isinstance(f1, RowBands) and isinstance(f2, RowBands)) or f1.axis != 2 or f2.height != f1.height:
         raise _no_rule(f"{_name(func)} of other than NCHW row bands of both feature maps")
-    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        raise _no_rule(f"{_name(func)} with a gradient (the training step on the axis)")
     return _BandPyramid([func(q, f2.rows(0, f2.height, j)) for j, q in enumerate(f1.bands)], f1)
 
 

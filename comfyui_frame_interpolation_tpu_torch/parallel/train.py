@@ -18,11 +18,19 @@ first device: the gradient equals the one-device gradient.
 
 Where :func:`~.mesh.frame_sharding` splits rows over ``space``, each shard's
 frames are also cut into row bands over the shard's row of devices
-(``parallel.space``), the model runs band by band (RIFE 4.7; any other
-model raises at its first op without a row-band rule), and the bands are
+(``parallel.space``), the model runs band by band, and the bands are
 gathered on the first device in global row order (a differentiable
 ``cat``) before the same loss: autograd sums the gradient over every band
-and shard back through the same parameter copies.
+and shard back through the same parameter copies. Every family whose
+two-frame step this carries trains so: RIFE, M2M, XVFI, GMFSS Fortuna
+(base and union), EISAI, AMT, FILM, CAIN, Sepconv, IFRNet, ATM, IFUnet
+and MoMo (the splat's band partials through the splat's backward kernel
+on the band; AMT's correlation and EISAI's all-pairs pyramid through the
+target gathered whole). FLAVR and STMFNet take four frames, which no
+``make_train_step`` carries, in the JAX package either. A model with an
+op that has no row-band rule raises at it, naming the op and the
+``ROADMAP.md`` item; it never falls back to a data-parallel or one-device
+step.
 """
 
 from __future__ import annotations

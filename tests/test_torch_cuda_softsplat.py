@@ -68,6 +68,12 @@ K2 with a band of sources (``row0``, ``out_rows``) on 2 and 3 bands, f32
 and bf16, against the twin's band; the partials' sum against the
 whole-frame kernel and ``softsplat_func``; the same on the wide-channel
 route (C > 4) at GMFSS's C = 65 and 193 in bf16 and EISAI's 514 in f32;
+the splat's backward on the same bands (C = 4 f32 and bf16, 65 and 66
+f32): each band's launch on the whole frame's output gradient the
+whole-frame launch's rows bit for bit, ``row0 = 0`` at the whole height
+the default call bit for bit, each band against its plain version; the
+bands' partials through ``softsplat_partial`` with a gradient give the
+whole frame's gradients bit for bit, one backward launch a band;
 and M2M's pair functions on a
 ``(1, 2)`` mesh of replicas of the card against one device (f32, TF32 off,
 1e-4), K1 8, the wide kernel 32 and K2 2 a pair batch.
@@ -84,7 +90,7 @@ from comfyui_frame_interpolation_tpu_torch.core import loop
 from comfyui_frame_interpolation_tpu_torch.core.schedule import plan_timestep, plan_window4
 from comfyui_frame_interpolation_tpu_torch.models import eisai, flavr, gmfss, m2m, rife, stmfnet, xvfi
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import softsplat_kernel, warp_kernel
-from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_backward_torch, softsplat_func, softsplat_torch
+from comfyui_frame_interpolation_tpu_torch.ops.softsplat import softsplat_backward_torch, softsplat_func, softsplat_partial, softsplat_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -626,3 +632,69 @@ def test_m2m_on_a_space_split_matches_one_device(cuda):
         torch.backends.cudnn.deterministic = det
     assert tuple(a - b for a, b in zip(after, before)) == (8, 32, 2)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("c, dtype", [(4, torch.float32), (4, torch.bfloat16), (65, torch.float32), (66, torch.float32)])
+@pytest.mark.parametrize("spans", [((0, 64), (64, 73)), ((0, 64), (64, 64), (128, 9))])
+def test_backward_band_is_the_whole_frames_rows(cuda, spans, c, dtype):
+    """The splat's backward on a band of sources (``row0``, ``out_rows``)
+    reads the whole frame's output gradient at its sources' global corners:
+    each band's ``grad_in`` is the whole-frame launch's rows bit for bit,
+    and so is its ``grad_flow`` where the band's launch sums a source's
+    slots with the whole frame's lanes (always for C <= 8, a thread per
+    source; on the spread route for C > 8 where both launches fill 2048
+    pairs a block: not the 9-row band, whose 6 sources a block take 8 lanes
+    a corner against the whole frame's 2, an order that is right within the
+    plain version's tolerance); each band within ``_check_backward``'s
+    tolerances of the plain version's band; ``row0 = 0`` at the whole
+    height is the default call."""
+    g = torch.Generator().manual_seed(c + len(spans))
+    vals = torch.rand(2, 137, 93, c, generator=g).to(cuda, dtype)
+    flow = ((torch.rand(2, 137, 93, 2, generator=g) * 2 - 1) * 30).to(cuda)
+    grad_out = (torch.rand(2, 137, 93, c, generator=g) * 2 - 1).to(cuda)
+    planes, fplanes, gplanes = vals.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), grad_out.permute(0, 3, 1, 2)
+    whole_i, whole_f = softsplat_kernel.softsplat_bilinear_backward(planes, fplanes, gplanes)
+    same_i, same_f = softsplat_kernel.softsplat_bilinear_backward(planes, fplanes, gplanes, True, 0, 137)
+    contributions, _ = softsplat_backward_torch(vals.float(), flow, grad_out.abs())
+    torch.cuda.synchronize()
+    assert torch.equal(same_i, whole_i) and torch.equal(same_f, whole_f)
+    for row0, rows in spans:
+        vb, fb = planes[:, :, row0 : row0 + rows], fplanes[:, :, row0 : row0 + rows]
+        gi, gf = softsplat_kernel.softsplat_bilinear_backward(vb, fb, gplanes, True, row0, 137)
+        ri, rf = softsplat_backward_torch(vals[:, row0 : row0 + rows], flow[:, row0 : row0 + rows], grad_out, row0, 137)
+        torch.cuda.synchronize()
+        assert gi.shape == vb.shape and gf.shape == fb.shape
+        assert torch.equal(gi, whole_i[:, :, row0 : row0 + rows])
+        if c <= 8 or rows >= 64:
+            assert torch.equal(gf, whole_f[:, :, row0 : row0 + rows])
+        _within(gi.permute(0, 2, 3, 1), ri, 4 * 2.0**-23 * contributions[:, row0 : row0 + rows], dtype)
+        _within(gf.permute(0, 2, 3, 1), rf, 1e-5 * rf.float().abs().max().item() + 1e-6, flow.dtype)
+    with pytest.raises(ValueError, match="does not lie within"):
+        softsplat_kernel.softsplat_bilinear_backward(planes[:, :, :64], fplanes[:, :, :64], gplanes, True, 100, 137)
+
+
+@pytest.mark.parametrize("spans", [((0, 64), (64, 73)), ((0, 64), (64, 64), (128, 9))])
+def test_band_partials_carry_the_gradient(cuda, spans):
+    """``softsplat_partial`` with a gradient goes through ``SplatFunction``
+    on the band (one K2 and one backward launch a band): the gradients of
+    the partials' sum are the whole frame's splat's, the values' bit for
+    bit (each band's backward reads the whole output gradient at its own
+    sources), the flow's bit for bit where every band takes the whole
+    frame's lanes (C = 65: bands of 64 rows or more, as
+    :func:`test_backward_band_is_the_whole_frames_rows` says) and else
+    within the plain version's tolerance."""
+    g = torch.Generator().manual_seed(len(spans))
+    vals = torch.rand(2, 137, 93, 65, generator=g).to(cuda).requires_grad_()
+    flow = ((torch.rand(2, 137, 93, 2, generator=g) * 2 - 1) * 30).to(cuda).requires_grad_()
+    grad_out = (torch.rand(2, 137, 93, 65, generator=g) * 2 - 1).to(cuda)
+    ref = torch.autograd.grad(softsplat_func(vals, flow), (vals, flow), grad_out)
+    before = softsplat_kernel.launches, softsplat_kernel.backward_launches
+    total = sum(softsplat_partial(vals[:, a : a + n], flow[:, a : a + n], a, 137) for a, n in spans)
+    got = torch.autograd.grad(total, (vals, flow), grad_out)
+    torch.cuda.synchronize()
+    assert (softsplat_kernel.launches - before[0], softsplat_kernel.backward_launches - before[1]) == (len(spans), len(spans))
+    assert torch.equal(got[0], ref[0])
+    if min(n for _, n in spans) >= 64:
+        assert torch.equal(got[1], ref[1])
+    else:
+        _within(got[1], ref[1], 1e-5 * ref[1].abs().max().item() + 1e-6, torch.float32)

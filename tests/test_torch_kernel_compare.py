@@ -6,9 +6,11 @@ recording function stands in for each ctypes entry).
   ``csrc/softsplat.cu`` parses, and the ctypes argument types bound for it
   are those of its parameter list, parameter by parameter;
 * the same for the five entries as they were before the row band (no
-  ``hs``/``ho``/``row0``: 16, 14, 16, 23 and 24 ``int64``) and for the
-  first backward design's entry (the image gradient's four strides, no
-  ``cp``), fixtures below;
+  ``hs``/``ho``/``row0``: 16, 14, 16, 23 and 24 ``int64``), for the splat's
+  backward before it took the band (24 ``int64``; this tree's has 26,
+  ``ho`` and ``row0`` after ``w`` as K2's) and for the first backward
+  design's entry (the image gradient's four strides, no ``cp``), fixtures
+  below;
 * each ``call_*`` puts every value in the slot its parameter names: the
   strides of each tensor, the shape, ``hs``/``ho`` the whole height and
   ``row0`` 0 where the entry takes them, nothing where it does not.
@@ -74,6 +76,20 @@ extern "C" int cfi_softsplat_backward(
   return 0;
 }
 """
+# the splat's entries as csrc/ declared them when K2 took a band and its
+# backward did not
+BEFORE_BACKWARD_BAND_SPLAT = """
+extern "C" int cfi_softsplat(const void* in, const void* flow, void* out,
+                             int in_dtype, int flow_dtype, int64_t n,
+                             int64_t c, int64_t h, int64_t w, int64_t ho,
+                             int64_t row0, int64_t si_n, int64_t si_c,
+                             int64_t si_h, int64_t si_w, int64_t sf_n,
+                             int64_t sf_c, int64_t sf_h, int64_t sf_w,
+                             int64_t so_n, int64_t so_c, int64_t so_h,
+                             int64_t so_w, void* stream) {
+  return 0;
+}
+""" + BEFORE_BAND_SPLAT[BEFORE_BAND_SPLAT.index('extern "C" int cfi_softsplat_backward'):]
 # the first backward design's entry: a zeroed NCHW f32 buffer with its own strides
 NCHW_BUFFER_BACKWARD = """
 extern "C" int cfi_warp_bilinear_backward(
@@ -98,14 +114,16 @@ TREES = {
     "this tree": {"warp.cu": _read("warp.cu"), "softsplat.cu": _read("softsplat.cu")},
     "before the row band": {"warp.cu": BEFORE_BAND_WARP, "softsplat.cu": BEFORE_BAND_SPLAT},
     "NCHW-buffer backward": {"warp.cu": NCHW_BUFFER_BACKWARD},
+    "before the backward's band": {"softsplat.cu": BEFORE_BACKWARD_BAND_SPLAT},
 }
-# int64 parameters of each entry: (this tree, before the row band)
+# int64 parameters of each entry: (this tree, before the row band; the
+# splat's before its backward's band: this tree's K2 and the backward before)
 INT64S = {
     "cfi_warp_bilinear": (18, 16),
     "cfi_warp_bilinear_wide": (16, 14),
     "cfi_warp_bilinear_backward": (25, 23),
     "cfi_softsplat": (18, 16),
-    "cfi_softsplat_backward": (24, 24),
+    "cfi_softsplat_backward": (26, 24),
 }
 CASES = [(tree, name) for tree in TREES for name, src in kc.ENTRY_SOURCES.items() if f" {name}(" in TREES[tree].get(src, "")]
 
@@ -131,10 +149,11 @@ def test_bound_argument_types_follow_the_parameter_list(tree, name):
     ctypes_of = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int, "int64_t": ctypes.c_int64}
     assert entry.argtypes == [ctypes_of[t] for t, _ in entry.params]
     assert entry.params[-1] == ("void*", "stream")
+    banded = tree == "this tree" or (tree == "before the backward's band" and name == "cfi_softsplat")
     if tree != "NCHW-buffer backward":
-        assert sum(t == "int64_t" for t, _ in entry.params) == INT64S[name][tree != "this tree"]
+        assert sum(t == "int64_t" for t, _ in entry.params) == INT64S[name][not banded]
     band = ("hs" if name.startswith("cfi_warp") else "ho")
-    if tree == "this tree" and name != "cfi_softsplat_backward":
+    if banded:
         names = [n for _, n in entry.params]
         assert names[names.index("w") + 1 : names.index("w") + 3] == [band, "row0"]
     else:
@@ -217,7 +236,7 @@ def test_backward_values_land_in_their_slots(tree, img_grad, no_stream):
         assert (slots["sgi_n"], slots["sgi_c"], slots["sgi_h"], slots["sgi_w"]) == (7 * 5 * 6, 5 * 6, 6, 1)
 
 
-@pytest.mark.parametrize("tree", ["this tree", "before the row band"])
+@pytest.mark.parametrize("tree", ["this tree", "before the row band", "before the backward's band"])
 def test_splat_backward_values_land_in_their_slots(tree, no_stream):
     planes = torch.rand(2, 6, 5, 4)
     fplanes = torch.rand(2, 2, 5, 4)
@@ -228,6 +247,8 @@ def test_splat_backward_values_land_in_their_slots(tree, no_stream):
     assert slots["in"] == planes.data_ptr() and slots["grad_in"] == gi.data_ptr() and slots["grad_flow"] == gf.data_ptr()
     for prefix, t in (("si", planes), ("sf", fplanes), ("sg", gplanes), ("sgi", gi), ("sgf", gf)):
         _check_strides(slots, prefix, t)
+    assert entry.takes("row0") == (tree == "this tree")
+    _check_band(slots, entry, 5)
 
 
 def test_an_entry_that_is_missing_or_takes_an_unknown_value_raises():

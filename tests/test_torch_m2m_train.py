@@ -28,6 +28,9 @@ Then torch only, on logical replicas of the CPU:
   learning rate plus one f32 ulp of a parameter below 16 (``paramAlpha``
   starts at 10).
 
+The step split by rows over the ``space`` axis is
+``tests/test_torch_space_train_splat.py``'s.
+
 One JAX compile in this file: the loss's ``value_and_grad`` (~50 s on
 XLA:CPU).
 """
@@ -35,7 +38,6 @@ XLA:CPU).
 import functools
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -168,12 +170,3 @@ def test_two_way_data_parallel_step_equals_one_device():
     for k, g in grads1.items():
         big = g.abs() > 10 * (GRAD_RTOL * float(g.abs().max()) + GRAD_ATOL)
         torch.testing.assert_close(deltas2[k][big], deltas1[k][big], rtol=0, atol=UPDATE_ATOL)
-
-
-def test_space_axis_raises_for_m2m_training():
-    mesh = parallel.make_mesh(2, devices=[CPU] * 2)  # (1, 2): the space axis
-    net = _net()
-    step = parallel.make_train_step(m2m.apply, torch.optim.Adam(net.parameters(), lr=LR), mesh, net)
-    tall = torch.zeros(2, 128, 64, 3)
-    with pytest.raises(NotImplementedError, match="space"):
-        step(tall, tall, torch.full((2,), 0.5), tall)

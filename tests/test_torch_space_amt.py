@@ -22,8 +22,9 @@ logical replicas of the CPU.
   flows (2), and the correlation on bands: one ``BidirCorr`` hand-over,
   whose three lookups run each direction on each band (12 windowed
   lookups against each band's gathered target pyramid).
-* the lookup's hand-over under a gradient raises, naming ``ROADMAP.md``'s
-  item.
+* the lookup's hand-over under a gradient (the training step on the
+  axis) gives the whole tensors' gradients within 1e-5; a lookup at
+  coordinates that are not row bands raises, naming ``ROADMAP.md``'s item.
 
 One JAX compile (the sharded forward at 128x128).
 """
@@ -55,6 +56,7 @@ CPU = torch.device("cpu")
 JAX_ATOL = 1e-4  # tests/test_parallel.py:132
 F32_ATOL = 3e-5
 F64_ATOL = 1e-6
+GRAD_ATOL = 1e-5
 CKPT = {"S": "amt-s.pth", "L": "amt-l.pth", "G": "amt-g.pth"}
 
 
@@ -144,8 +146,30 @@ def test_amt_on_an_uneven_split_matches_one_device(monkeypatch):
 
 
 def test_the_lookup_on_bands_with_a_gradient_raises():
+    """With a gradient (the training step on the axis) the correlation's
+    hand-over runs: each band's lookup takes ``BidirCorr.windowed``'s
+    out-of-place form, and the gradients of both feature maps and both
+    coordinate maps are the whole tensors' within ``GRAD_ATOL`` (f32 dots
+    and pools over each band's queries; measured 4.8e-7 on gradients up to
+    ~6; the coordinates' bit for bit). A lookup at coordinates that are
+    not NHWC row bands still raises, naming ``ROADMAP.md``'s item."""
     rng = np.random.default_rng(24)
     f0, f1 = (torch.from_numpy(rng.random((1, 4, 128, 8), np.float32)).requires_grad_() for _ in range(2))
+    gy, gx = np.meshgrid(np.arange(128, dtype=np.float32), np.arange(8, dtype=np.float32), indexing="ij")
+    grid = np.stack([gx, gy], -1)[None]
+    c0, c1 = (torch.from_numpy(grid + rng.normal(0, 3, grid.shape).astype(np.float32)).requires_grad_() for _ in range(2))
+    weights = [torch.from_numpy(rng.uniform(-1, 1, (1, 4 * 49, 128, 8)).astype(np.float32)) for _ in range(2)]
+
+    def grads(out):
+        return torch.autograd.grad(sum((w * o).sum() for w, o in zip(weights, out)), (f0, f1, c0, c1))
+
+    ref = grads(BidirCorr(f0, f1).lookup(c0, c1))
     b0, b1 = (space.split_rows(f, _replicas(2), dim=2) for f in (f0, f1))
-    with pytest.raises(NotImplementedError, match="BidirCorr with a gradient.*ROADMAP.md Queue 1 item 3"):
-        BidirCorr(b0, b1)
+    cb0, cb1 = (space.split_rows(c, _replicas(2), dim=1) for c in (c0, c1))
+    corr = BidirCorr(b0, b1)
+    got = grads([o.gather(CPU) for o in corr.lookup(cb0, cb1)])
+    for g, r in zip(got, ref):
+        assert float(r.abs().max()) > 0
+        torch.testing.assert_close(g, r, rtol=0, atol=GRAD_ATOL)
+    with pytest.raises(NotImplementedError, match="(?s)BidirCorr.lookup at .*ROADMAP.md Queue 1 item 3"):
+        corr.lookup(c0, c1)
