@@ -29,6 +29,7 @@ import torch
 from comfyui_frame_interpolation_tpu_torch.models import amt, atm, eisai, film, gmfss, ifrnet, ifunet, rife, stmfnet, xvfi
 from comfyui_frame_interpolation_tpu_torch.ops.cuda import warp_kernel
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
+from torch_train_cases import release_module_caches  # noqa: F401  (autouse: drops the caches after the module)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the script at the repository's root; it imports nothing heavy)
@@ -112,3 +113,40 @@ def test_family_step_launches_match_the_table(name):
     assert torch.isfinite(loss)
     assert counts == chip_smoke.FAMILY_STEP_LAUNCHES[name]
     assert {k: counts[k] for k in ("narrow", "wide", "splat")} == _forward_counts(name)
+
+
+def _step_counts(name, hw, dtype=None, params=None):
+    counts = dict.fromkeys(("narrow", "wide", "splat", "backward", "splat_backward"), 0)
+    frames, t, target = chip_smoke.family_batch(name, 1, hw, 0, "cpu")
+    if dtype is not None:
+        frames, t, target = [f.to(dtype) for f in frames], t.to(dtype), target.to(dtype)
+    with _counted(counts), torch.backends.mkldnn.flags(enabled=name != "stmfnet"):
+        _, step = chip_smoke.family_trainer(name, "cpu", dtype=dtype, eisai_iters=2, momo_run=("momo-lite.pth", 2), params=params)
+        loss = step(frames, t, target)
+    assert torch.isfinite(loss)
+    return counts
+
+
+@pytest.mark.parametrize("name", chip_smoke.VARIANT_STEPS)
+def test_variant_step_launches_match_the_table(name):
+    """Phase 95's table (``chip_smoke.VARIANT_STEP_LAUNCHES``), derived the
+    same way at b1 x 64x64 (X4K at 512x512); RIFE 4.0's restart on weights
+    whose stage-1 update takes it (``chip_smoke.rife40_restart_params``)."""
+    hw = chip_smoke.VARIANT_HW.get(name, (64, 64))
+    params = None
+    if name == "rife40_restart":
+        frames, t, _ = chip_smoke.family_batch(name, 1, hw, 0, "cpu")
+        params, _ = chip_smoke.rife40_restart_params(*frames, t)
+    assert _step_counts(name, hw, params=params) == chip_smoke.VARIANT_STEP_LAUNCHES[name]
+
+
+@pytest.mark.parametrize("name", [n for n in chip_smoke.FAMILIES if n != "stmfnet"])
+def test_bf16_step_launches_match_the_table(name):
+    """Phase 94's bf16 steps launch what the f32 steps do: every warp routes
+    to the same kernel in bf16 (the wide kernel takes whole 16-byte vectors
+    or 32 bytes a pixel, which the families' wide features have in either
+    dtype; their frames and masks stay on K1). STMFNet's bf16 step takes
+    ~107 s on this CPU with oneDNN off (``tests/test_torch_bf16_train.py``
+    says why it must be off), so phase 94 alone holds its launches."""
+    hw = chip_smoke.FAMILY_CHECK_HW.get(name, (64, 64))
+    assert _step_counts(name, hw, torch.bfloat16) == chip_smoke.FAMILY_STEP_LAUNCHES[name]

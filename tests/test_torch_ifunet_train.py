@@ -27,7 +27,11 @@ other two heads of each block (12 tensors), and ResynNet's ``degrad``
 branch (17), which the checkpoint holds and the forward never reads. Then
 torch only: one ``parallel.make_train_step`` step on a CPU mesh gives the
 loss and gradients of the plain ``loss.backward()`` and Adam's first step.
-One JAX compile in this file: the ``value_and_grad``.
+
+The ensemble (``apply(..., ensemble=True)``: every flow block runs again on
+the swapped frames and ``1 - t``, and averages the flows and masks) is held
+the same way, with RIFE's tolerance, the same 29 tensors untrained. One JAX
+compile per configuration in this file: the ``value_and_grad``.
 """
 
 import functools
@@ -41,6 +45,7 @@ import torch_train_cases as tc
 from comfyui_frame_interpolation_tpu.models import ifunet as jm
 from comfyui_frame_interpolation_tpu_torch.models import ifunet as pm
 from torch_threads import few_torch_threads  # noqa: F401  (autouse: caps torch's threads under xdist)
+from torch_train_cases import release_module_caches  # noqa: F401  (autouse: drops the caches after the module)
 
 N_TENSORS = 512
 B, HW = 1, (64, 64)
@@ -69,34 +74,37 @@ def _net():
     return pm._load(tc.fresh(_params()), torch.float32, "cpu")
 
 
-def _port_apply(net, f0, f1, t):
-    return pm.apply(net, f0, f1, t)
+def _port_apply(net, f0, f1, t, ensemble=False):
+    return pm.apply(net, f0, f1, t, ensemble=ensemble)
 
 
-def _jax_apply(p, dtype):
-    (f0, f1), t, _ = tc.batch(B, HW)
-    return jm.apply(p, jnp.asarray(f0, dtype), jnp.asarray(f1, dtype), jnp.asarray(t, dtype))
+def _jax_apply(ensemble):
+    def run(p, dtype):
+        (f0, f1), t, _ = tc.batch(B, HW)
+        return jm.apply(p, jnp.asarray(f0, dtype), jnp.asarray(f1, dtype), jnp.asarray(t, dtype), ensemble=ensemble)
+
+    return run
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_loss_and_grads():
+def _jax_loss_and_grads(ensemble=False):
     _, _, target = tc.batch(B, HW)
-    return tc.jax_loss_and_grads(_params(), _jax_apply, target)
+    return tc.jax_loss_and_grads(_params(), _jax_apply(ensemble), target)
 
 
-def _jax_param_grads():
-    loss, jgrads = _jax_loss_and_grads()
+def _jax_param_grads(ensemble=False):
+    loss, jgrads = _jax_loss_and_grads(ensemble)
     return loss, tc.jax_param_grads(_net(), jgrads)
 
 
-def _port_loss(net):
+def _port_loss(net, ensemble=False):
     fr, t, target = tc.batch(B, HW)
-    return tc.port_loss_and_grads(net, lambda n: _port_apply(n, *(torch.from_numpy(x) for x in (*fr, t))), target)
+    return tc.port_loss_and_grads(net, lambda n: _port_apply(n, *(torch.from_numpy(x) for x in (*fr, t)), ensemble), target)
 
 
 @functools.lru_cache(maxsize=None)
-def _port_loss_and_grads():
-    return _port_loss(_net())
+def _port_loss_and_grads(ensemble=False):
+    return _port_loss(_net(), ensemble)
 
 
 def test_every_parameter_is_loaded_and_trained():
@@ -109,6 +117,21 @@ def test_every_parameter_is_loaded_and_trained():
 def test_ifunet_loss_and_gradients_match_jax():
     jloss, jgrads = _jax_param_grads()
     loss, grads = _port_loss_and_grads()
+    np.testing.assert_allclose(loss, jloss, rtol=tc.LOSS_RTOL)
+    tc.assert_grads_close(grads, jgrads)
+
+
+def test_ensemble_every_parameter_is_loaded_and_trained():
+    _, grads = _port_loss_and_grads(True)
+    _, jgrads = _jax_param_grads(True)
+    assert len(grads) == N_TENSORS
+    tc.assert_untrained_are_zero_in_jax(grads, jgrads, _untrained())
+
+
+def test_ensemble_loss_and_gradients_match_jax():
+    jloss, jgrads = _jax_param_grads(True)
+    loss, grads = _port_loss_and_grads(True)
+    assert abs(loss - _port_loss_and_grads()[0]) > 1e-6 * abs(loss)  # the ensemble pass changes the prediction
     np.testing.assert_allclose(loss, jloss, rtol=tc.LOSS_RTOL)
     tc.assert_grads_close(grads, jgrads)
 
@@ -163,3 +186,7 @@ if __name__ == "__main__":
     print("nonzero in JAX:", [k for k in none if float(jgrads[k].abs().max()) != 0.0])
     tl, _ = _port_loss(_net().train())
     print(f"train() mode: loss {abs(tl - jloss) / abs(jloss):.3g} relative to JAX's")
+    jloss, jgrads = _jax_param_grads(True)
+    loss, grads = _port_loss_and_grads(True)
+    print(f"ensemble: loss {abs(loss - jloss) / abs(jloss):.3g} relative; " + tc.spread_report("port against JAX", grads, jgrads)
+          + f"; untrained {len(tc.untrained(grads))}")

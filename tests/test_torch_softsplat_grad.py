@@ -216,3 +216,34 @@ def test_function_softsplat_gradients_match_jax(name):
         lambda v, f, m: function_softsplat(v, f, m, name),
         takes_metric,
     )
+
+
+def test_soft_splat_gradient_at_integer_taps_is_the_references():
+    """The soft splat's ``1/eps`` flow gradient, in f64, is JAX's: where a
+    source lands exactly on an integer coordinate, a bilinear tap has weight
+    0, so its value and its normaliser are 0 at a target that nothing else
+    reaches, and the flow's gradient there is ``x * exp(m) * dw / 1e-7``
+    (the normaliser's ``+ 1e-7``, JAX ``ops/softsplat.py:149-160``). bf16
+    flows land on integers often (2 % of a ``randn * 4`` flow rounded to
+    bf16), which is why a bf16 step of GMFSS or M2M meets such spikes in
+    both packages (``tests/test_torch_bf16_train.py``). On a 1 x 16x16 frame
+    whose flows are ``randn * 4`` rounded to bf16: the port's gradients by
+    the values, the flow and the metric within 1e-6 of their largest
+    magnitudes of ``jax.grad`` of JAX's ``softsplat(..., "soft")``, and the
+    flow's largest above 1e6 in both."""
+    rng = np.random.default_rng(5)
+    x = rng.random((1, 16, 16, 3))
+    metric = rng.standard_normal((1, 16, 16, 1))
+    flow = torch.from_numpy(rng.standard_normal((1, 16, 16, 2)) * 4).to(torch.bfloat16).double().numpy()
+    g = rng.uniform(-1, 1, (1, 16, 16, 3))
+    assert (flow == np.round(flow)).mean() > 0.01
+    with jax.enable_x64(True):
+        jg = jax.grad(lambda a, f, m: jnp.sum(jax_softsplat(a, f, m, "soft") * g), argnums=(0, 1, 2))(
+            *(jnp.asarray(v, jnp.float64) for v in (x, flow, metric)))
+    ts = [torch.from_numpy(v).requires_grad_() for v in (x, flow, metric)]
+    (softsplat(*ts, "soft") * torch.from_numpy(g)).sum().backward()
+    for t, ref, what in zip(ts, jg, ("values", "flow", "metric")):
+        ref = np.asarray(ref)
+        assert t.grad.dtype == torch.float64
+        assert np.abs(t.grad.numpy() - ref).max() <= 1e-6 * np.abs(ref).max(), what
+    assert np.abs(np.asarray(jg[1])).max() > 1e6 and float(ts[1].grad.abs().max()) > 1e6

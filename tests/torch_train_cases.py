@@ -16,9 +16,13 @@ gradients over those names, since JAX holds each name as its own leaf.
 
 from __future__ import annotations
 
+import ctypes
+import gc
+import sys
 from typing import Callable, Dict, Iterable, List, Tuple
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -31,6 +35,29 @@ from comfyui_frame_interpolation_tpu_torch.parallel import train
 from comfyui_frame_interpolation_tpu_torch.utils.ckpt import params_from_jax
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_module_caches(request):
+    """After a training module that imports this fixture: its cached weights,
+    gradients and compiled JAX steps (its ``lru_cache``s) dropped, the
+    weights that ``chip_smoke.family_trainer`` keeps for the process
+    (``DRAWN_PARAMS``), and JAX's compiled functions. An xdist worker runs
+    many files in one process, and what each file keeps adds up to several
+    GB a worker; the freed heap is handed back to the system."""
+    yield
+    for value in vars(request.module).values():
+        if callable(getattr(value, "cache_clear", None)):
+            value.cache_clear()
+    smoke = sys.modules.get("chip_smoke")
+    if smoke is not None:
+        smoke.DRAWN_PARAMS.clear()
+    jax.clear_caches()
+    gc.collect()
+    try:  # glibc keeps freed heap pages in the process unless asked
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except OSError:
+        pass
 LR = 1e-4
 # RIFE's tolerance (tests/test_torch_parallel.py): the loss within 1e-6
 # relative, each gradient within 5e-5 of its tensor's largest magnitude plus
@@ -145,10 +172,14 @@ def median_rel(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]) -> fl
     return float(np.median(rel))
 
 
-def assert_grads_close(got, ref, rtol: float = GRAD_RTOL, atol: float = GRAD_ATOL):
+def assert_grads_close(got, ref, rtol: float = GRAD_RTOL, atol: float = GRAD_ATOL, rtol_by_key: Dict[str, float] = None):
+    """Each gradient within ``rtol`` of its tensor's largest magnitude plus
+    ``atol``; a tensor named in ``rtol_by_key`` within its own bound there."""
     assert got.keys() == ref.keys()
-    worst = max(rel_errors(got, ref, atol).items(), key=lambda kv: kv[1])
-    assert worst[1] <= rtol, worst
+    loose = rtol_by_key or {}
+    assert set(loose) <= set(ref), sorted(set(loose) - set(ref))
+    over = {k: v for k, v in rel_errors(got, ref, atol).items() if not v <= loose.get(k, rtol)}
+    assert not over, over
 
 
 def spread_report(name: str, got, ref) -> str:
